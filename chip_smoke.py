@@ -12,7 +12,14 @@ Phases, in order; any failure exits non-zero without a result line:
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
              of the kernel, the plain version and (where one exists) the one
-             PyTorch library call computing the same function;
+             PyTorch library call computing the same function; then, not
+             timed, the shapes K1's and K3's tiling could get wrong: an
+             output height no tile height divides, an upscale, a large
+             downscale with a run-time K, sources wider and taller than one
+             shared-memory chunk, mixed geometries in one batch (four
+             filters); runs of outputs that do not divide nx, C = 2 and 6,
+             stride 4, a window as large as the field, a shared kernel at
+             the serving shape;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
@@ -156,9 +163,10 @@ def serving_geometry(torch, w, h, batch, dev, rng):
     )
 
 
-def k1_case(torch, label, args, out_hw, band, method):
+def k1_case(torch, label, args, out_hw, band, method, timed=True):
     from flyimg_tpu_torch.ops.resample import (
         _band_axis,
+        k1_plan,
         quantize_u8,
         resample_banded_u8,
         resample_image_banded,
@@ -199,17 +207,20 @@ def k1_case(torch, label, args, out_hw, band, method):
     ).sum())
     nbytes = 3.0 * float((rows_b * cols_b).sum()) + b * 8 * 4 + got.numel()
     row = {
-        "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, iters=3),
+        "ms": cuda_ms(torch, kern) if timed else None,
+        "plain_ms": cuda_ms(torch, plain, iters=3) if timed else None,
         "library_ms": None, "max_abs_err": float(err),
     }
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-    print(f"K1 {label}: in {tuple(images.shape)} -> {out_hw} K={band} "
+    plan = k1_plan((in_h, in_w), tuple(out_hw), tuple(band), b)
+    times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+             if timed else "")
+    print(f"K1 {label}: in {tuple(images.shape)} -> {tuple(out_hw)} K={band} "
           f"max diff {err} u8 (bound {PIXEL_TOL}), {n_diff} of {got.numel()} "
           f"values differ ({frac:.2e}, bound {DIFF_FRAC:.0e}); source reached "
           f"{float((rows_b * cols_b).sum()) / (b * in_h * in_w):.4f} of the "
-          f"bucket; kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})")
+          f"bucket; {times}bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); {plan}")
     return row
 
 
@@ -247,12 +258,13 @@ def k2_case(torch, label, images, in_true):
     return row
 
 
-def k3_case(torch, label, field, kernels, stride):
+def k3_case(torch, label, field, kernels, stride, timed=True):
     import torch.nn.functional as F
 
     from flyimg_tpu_torch.models.smartcrop import (
         _batched_scores,
         batched_scores_plain,
+        k3_plan,
     )
 
     b, fh, fw = field.shape
@@ -264,38 +276,42 @@ def k3_case(torch, label, field, kernels, stride):
     err = float(max((got_g - ref_g).abs().max(), (got_t - ref_t).abs().max()))
     check(rel <= SCORE_RTOL, f"K3 {label}: relative diff {rel} > {SCORE_RTOL}")
 
-    # the yardstick: one grouped convolution (full f32, TF32 off)
-    weight = (
-        kernels[:, :, :, 0, :].expand(b, khm, kwm, c)
-        .permute(0, 3, 1, 2).reshape(b * c, 1, khm, kwm).contiguous()
-    )
-    inp = field[None]
-
-    def library():
-        return F.conv2d(inp, weight, stride=stride, groups=b)
-
-    lib = library().reshape(b, c, *got_g.shape[1:3]).permute(0, 2, 3, 1)
-    lib_rel = rel_err(torch, lib, ref_g)
     ny, nx = got_g.shape[1:3]
-    row = {
-        "ms": cuda_ms(torch, lambda: _batched_scores(field, kernels, stride)),
-        "plain_ms": cuda_ms(
-            torch, lambda: batched_scores_plain(field, kernels, stride), iters=3
-        ),
-        "library_ms": cuda_ms(torch, library), "max_abs_err": err,
-    }
+    plan = k3_plan(b, ny, nx, khm, kwm, c, stride)
     # the nonzero kernel taps of every (member, channel) at every window
     # position, plus the field totals
     taps = float((kernels != 0).sum()) * (b // kernels.shape[0])
     flops = 2.0 * ny * nx * taps + b * fh * fw
     nbytes = 4.0 * (field.numel() + kernels.numel() + got_g.numel() + b)
+    row = {"ms": None, "plain_ms": None, "library_ms": None,
+           "max_abs_err": err, "plan": plan}
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    times = ""
+    if timed:
+        # the yardstick: one grouped convolution (full f32, TF32 off)
+        weight = (
+            kernels[:, :, :, 0, :].expand(b, khm, kwm, c)
+            .permute(0, 3, 1, 2).reshape(b * c, 1, khm, kwm).contiguous()
+        )
+        inp = field[None]
+
+        def library():
+            return F.conv2d(inp, weight, stride=stride, groups=b)
+
+        lib = library().reshape(b, c, ny, nx).permute(0, 2, 3, 1)
+        lib_rel = rel_err(torch, lib, ref_g)
+        row["ms"] = cuda_ms(torch, lambda: _batched_scores(field, kernels, stride))
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: batched_scores_plain(field, kernels, stride), iters=3
+        )
+        row["library_ms"] = cuda_ms(torch, library)
+        times = (f"conv2d relative diff {lib_rel:.3e}; kernel {row['ms']:.4f} "
+                 f"ms, plain {row['plain_ms']:.4f} ms, conv2d "
+                 f"{row['library_ms']:.4f} ms, ")
     print(f"K3 {label}: field {tuple(field.shape)} kernels "
           f"{tuple(kernels.shape)} stride {stride} -> grid {ny}x{nx}x{c}; "
-          f"relative diff {rel:.3e} (bound {SCORE_RTOL}), conv2d relative "
-          f"diff {lib_rel:.3e}; kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, conv2d {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"relative diff {rel:.3e} (bound {SCORE_RTOL}); {times}bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {plan}")
     return row
 
 
@@ -352,7 +368,96 @@ def phase_kernels(torch, dev):
             stack[i, :k.shape[0], :k.shape[1], 0, si] = k
             stack[i, :k.shape[0], :k.shape[1], 0, 2 + si] = 1.0
     k3_case(torch, "serving", sfield, torch.from_numpy(stack).to(dev), 8)
+    k3_case(torch, "serving, shared kernel", sfield,
+            torch.from_numpy(stack[:1]).contiguous().to(dev), 8)
+
+    k1_edges(torch, dev, rng)
+    k3_edges(torch, dev, rng)
     return rows
+
+
+def k1_edges(torch, dev, rng):
+    """K1 at the shapes its tiling could get wrong, each against its plain
+    version under the same limits (correctness only, not timed)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.ops.resample import k1_plan
+
+    def batch(n, h, w, geoms):
+        img = torch.from_numpy(
+            rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)).to(dev)
+        cols = [torch.tensor([g[i] for g in geoms], dtype=torch.float32,
+                             device=dev) for i in range(4)]
+        in_true, span_y, span_x, out_true = cols
+        return img, in_true, span_y, span_x, out_true
+
+    def whole(n, h, w, oh, ow):
+        return [((h, w), (0.0, h), (0.0, w), (oh, ow))] * n
+
+    # an output height that is a multiple of no tile height
+    args = batch(8, 512, 512, whole(8, 512, 512, 251, 301))
+    plan = k1_plan((512, 512), (251, 301), (16, 16), 8)
+    check(251 % plan.tile_h, f"K1 ragged tile: 251 is a multiple of {plan.tile_h}")
+    k1_case(torch, "ragged tile", args, (251, 301), (16, 16), "lanczos3",
+            timed=False)
+    # upscale: 16 x 128x128 -> 250x300
+    args = batch(16, 128, 128, whole(16, 128, 128, 250, 300))
+    k1_case(torch, "upscale", args, (250, 300), (8, 8), "lanczos3", timed=False)
+    # large downscale with a run-time K: 4 x 4096x4096 -> 250x300, K = 128
+    args = batch(4, 4096, 4096, whole(4, 4096, 4096, 250, 300))
+    check(k1_plan((4096, 4096), (250, 300), (128, 128), 4).kx_static == 0,
+          "K1 large downscale: expected the run-time-K instance")
+    k1_case(torch, "downscale 4096, run-time K", args, (250, 300),
+            (128, 128), "lanczos3", timed=False)
+    # a source wider than one shared-memory chunk: 2 x 256x20480, Kx = 512
+    args = batch(2, 256, 20480, whole(2, 256, 20480, 250, 300))
+    k1_case(torch, "wide 20480", args, (250, 300), (16, 512), "lanczos3",
+            timed=False)
+    # a source taller than one chunk of staged row weights: 2 x 20480x256,
+    # Ky = 512, so the dense vertical weights are built in row chunks
+    args = batch(2, 20480, 256, whole(2, 20480, 256, 250, 300))
+    k1_case(torch, "tall 20480", args, (250, 300), (512, 8), "lanczos3",
+            timed=False)
+    # members of different geometry in one 1152x1920 bucket
+    geoms = []
+    for w, h in ((1920, 1080), (1303, 977), (800, 600), (1024, 1024),
+                 (640, 1152), (1900, 300), (128, 96), (1080, 1080)):
+        scale = max(300 / w, 250 / h)
+        sw, sh = 300 / scale, 250 / scale
+        geoms.append(((h, w), ((h - sh) / 2, sh), ((w - sw) / 2, sw),
+                      (250, 300)))
+    args = batch(8, 1152, 1920, geoms)
+    k1_case(torch, "mixed geometry", args, (250, 300), (32, 32), "lanczos3",
+            timed=False)
+    for method in ("triangle", "cubic", "nearest"):
+        k1_case(torch, f"mixed geometry, {method}", args, (250, 300),
+                (32, 32), method, timed=False)
+
+
+def k3_edges(torch, dev, rng):
+    """K3 at the shapes its tiling could get wrong (correctness only)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models.smartcrop import k3_plan
+
+    # nx (23) a multiple of no run length the plan takes
+    field = torch.from_numpy(
+        rng.uniform(0, 0.3, (8, 96, 224)).astype(np.float32)).to(dev)
+    ker = torch.from_numpy(
+        rng.normal(0, 1, (8, 40, 48, 1, 2)).astype(np.float32)).to(dev)
+    plan = k3_plan(8, 8, 23, 40, 48, 2, 8)
+    check(23 % plan.run, f"K3 ragged run: 23 is a multiple of {plan.run}")
+    k3_case(torch, "ragged run, C=2", field, ker, 8, timed=False)
+    # per-member stacks with C = 6 (three scales), serving-sized
+    sfield = torch.from_numpy(
+        rng.uniform(0, 0.3, (16, 128, 160)).astype(np.float32)).to(dev)
+    stack = torch.from_numpy(
+        rng.normal(0, 1, (16, 112, 112, 1, 6)).astype(np.float32)).to(dev)
+    k3_case(torch, "C=6", sfield, stack, 8, timed=False)
+    # another stride, and a window as wide as the field
+    k3_case(torch, "stride 4", field, ker, 4, timed=False)
+    k3_case(torch, "window = field", field[:, :40, :48].contiguous(), ker, 8,
+            timed=False)
 
 
 def phase_entry(torch, dev, card):

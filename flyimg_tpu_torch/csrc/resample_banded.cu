@@ -10,25 +10,42 @@
 // [0, in_true - 1]. Its K taps are the integer window j0 + k centred at
 // floor(x); weights come from the UNCLIPPED tap positions, taps outside
 // [0, in_true) are zeroed, then the row is renormalised (the unclipped-tap
-// invariant, docs/kernels.md). Gather indices are clipped to the static axis.
+// invariant, docs/kernels.md). A tap outside the source therefore carries
+// zero weight, and the kernel skips it where the plain version gathers a
+// clipped index and multiplies it by zero.
 //
-// What bounds it on an H100: memory. Each member's u8 source is read once per
-// output row that touches it (Ky * out_h / in_h times, L2 catches most of it),
-// the output is 3 bytes a pixel, and the arithmetic is Ky + Kx multiply-adds a
-// channel (~100 FLOP a u8 output channel at the 512 -> 300 flagship), far under
-// the 67 TFLOP/s f32 rate. Design:
+// What bounds it on an H100: instructions a byte. The bytes (each source
+// byte the bands reach, read once, plus the output) take ~0.07 ms at the
+// flagship (256 x 512x512x3 -> 300x250, K = 16); the ~2.5 G multiply-adds take
+// about as long at the f32 rate, so the kernel has to spend little beside
+// them. Design:
 //   - a first small kernel evaluates every band weight once per member and
-//     axis (the filter's sin/exp work, which would otherwise dominate), into
-//     f32 tables the wrapper allocates;
-//   - the main kernel runs one block per (output row, member): the vertical
-//     pass for that row lands in shared memory as f32 over just the source
-//     columns the row's horizontal bands reach (read 4 bytes at a time), then
-//     the horizontal pass reads it from shared memory, one output pixel (3
-//     channels) per thread, and stores u8 directly. The f32 intermediate
-//     never touches device memory. The common band widths are compile-time
-//     constants, so the tap loops unroll.
-// No tensor cores: at K = 16 the contraction is too short for them to matter
-// next to the byte traffic.
+//     axis (the filter's sin/exp work) into f32 tables, a segment of lanes
+//     per output sample on neighbouring taps;
+//   - the main kernel runs one block per (member, tile of NX output
+//     columns, run of tiles of T output rows): the run's row band starts and
+//     weights and the column tile's are staged once. Each row tile's vertical
+//     band weights are laid out in shared memory as a dense [source row][T]
+//     table (zero off the band), so the vertical pass needs no index
+//     arithmetic;
+//   - vertical pass, register-blocked: a thread owns one 32-bit source word
+//     (4 channel bytes) and the accumulators of 4 output rows. It streams the
+//     source rows those 4 rows' bands cover, unpacks each word ONCE per
+//     source row without the int->float unit (__byte_perm builds 2^23 + byte
+//     as a float, one FADD makes it exact) and adds it into all 4 rows with
+//     16 FMAs. The f32 result for the tile lands in shared memory;
+//   - horizontal pass: threads map over (output row, output column) of the
+//     tile, so all of them are busy; the member's column weights for the tile
+//     are staged once per block when they fit;
+//   - the u8 results are packed into 32-bit stores.
+// Every choice of T, NX and the shared-memory chunks is made on the host
+// (ops/resample.py k1_plan). The tile's source window is found on the card
+// from the band starts; a window wider than the staged chunk is processed in
+// column chunks (partial sums kept in shared memory, tap order kept) and a
+// taller one in row chunks, so no source size is refused.
+// Each output sums its taps in tap order, as the plain version does (the
+// vertical pass adds exact zeros for the rows between bands).
+// No tensor cores: TF32 would move many outputs by one u8 level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,10 +59,10 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 __device__ __forceinline__ float sinc_f(float x) {
-    // jnp.sinc: sin(pi x) / (pi x), 1 at 0
+    // jnp.sinc: sin(pi x) / (pi x), 1 at 0; sinpif takes the product
+    // exactly, with no slow range-reduction path
     if (x == 0.0f) return 1.0f;
-    float px = __fmul_rn(3.14159265358979323846f, x);
-    return sinf(px) / px;
+    return sinpif(x) / __fmul_rn(3.14159265358979323846f, x);
 }
 
 __device__ float filter_fn(int method, float x) {
@@ -72,188 +89,372 @@ __device__ float filter_fn(int method, float x) {
     }
 }
 
-// One thread per (member, output sample) of one axis: K normalised weights
-// and the unclipped band start j0. geom rows are [span_y(2), span_x(2),
+// One segment of S lanes per (member, output sample) of one axis (S a power
+// of two up to 32): K normalised weights and the unclipped band start j0.
+// Lane l evaluates taps l, l + S, ...; the segment adds its partial sums by
+// a fixed butterfly, so every lane holds the same total and consecutive
+// lanes store consecutive taps. geom rows are [span_y(2), span_x(2),
 // out_true(h, w), in_true(h, w)].
 __global__ void band_weights_kernel(const float* __restrict__ geom, int batch, int axis,
-                                    int in_size, int out_size, int taps, int method,
+                                    int in_size, int out_size, int taps, int method, int S,
                                     float* __restrict__ w, int* __restrict__ j0_out) {
-    int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= batch * out_size) return;
-    int b = idx / out_size;
-    int i = idx - b * out_size;
+    const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int idx = gid / S;
+    const int lane = gid - idx * S;
+    const bool valid = idx < batch * out_size;
+    const int b = valid ? idx / out_size : 0;
+    const int i = valid ? idx - b * out_size : 0;
     const float* g = geom + (size_t)b * 8;
-    float start = g[axis * 2 + 0];
-    float size = g[axis * 2 + 1];
-    float out_true = fmaxf(g[4 + axis], 1.0f);
-    float in_true = g[6 + axis];
-    float q = size / out_true;
+    const float start = g[axis * 2 + 0];
+    const float size = g[axis * 2 + 1];
+    const float out_true = fmaxf(g[4 + axis], 1.0f);
+    const float in_true = g[6 + axis];
+    const float q = size / out_true;
     // the reference's operation order, no FMA contraction: floor(x) picks
     // the band, so x must round exactly as it does there
     float x = __fsub_rn(__fadd_rn(start, __fmul_rn(__fadd_rn((float)i, 0.5f), q)), 0.5f);
     x = fminf(fmaxf(x, 0.0f), fmaxf(in_true - 1.0f, 0.0f));
-    int j0 = taps >= in_size ? 0 : (int)floorf(x) - taps / 2 + 1;
+    const int j0 = taps >= in_size ? 0 : (int)floorf(x) - taps / 2 + 1;
     float* wr = w + (size_t)idx * taps;
-    j0_out[idx] = j0;
+    if (valid && lane == 0) j0_out[idx] = j0;
     if (method == NEAREST) {
-        float near = fminf(fmaxf(floorf(x + 0.5f), 0.0f), fmaxf(in_true - 1.0f, 0.0f));
-        for (int k = 0; k < taps; ++k) wr[k] = ((float)(j0 + k) == near) ? 1.0f : 0.0f;
+        const float near = fminf(fmaxf(floorf(x + 0.5f), 0.0f), fmaxf(in_true - 1.0f, 0.0f));
+        if (valid)
+            for (int k = lane; k < taps; k += S) wr[k] = ((float)(j0 + k) == near) ? 1.0f : 0.0f;
         return;
     }
-    float s = fmaxf(q, 1.0f);
-    float sum = 0.0f;
-    for (int k = 0; k < taps; ++k) {
-        int j = j0 + k;
+    // with at most one tap a lane (taps <= S) the weight stays in a
+    // register; otherwise the lane's taps are stored, then normalised
+    const float s = fmaxf(q, 1.0f);
+    float sum = 0.0f, own = 0.0f;
+    for (int k = lane; k < taps; k += S) {
+        const int j = j0 + k;
         float wk = filter_fn(method, ((float)j - x) / s);
         if (!(j >= 0 && (float)j < in_true)) wk = 0.0f;
-        wr[k] = wk;
+        if (valid && taps > S) wr[k] = wk;
+        own = wk;
         sum += wk;
     }
-    float denom = sum == 0.0f ? 1.0f : sum;
-    for (int k = 0; k < taps; ++k) wr[k] = wr[k] / denom;
+    for (int off = S / 2; off >= 1; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float denom = sum == 0.0f ? 1.0f : sum;
+    if (!valid) return;
+    if (taps <= S) {
+        if (lane < taps) wr[lane] = own / denom;
+    } else {
+        for (int k = lane; k < taps; k += S) wr[k] = wr[k] / denom;
+    }
 }
 
-// One block per (output row, member); 3 channels, interleaved [h, w, 3].
-// KY/KX > 0 fix the band widths at compile time (the common buckets, so the
-// tap loops unroll and their loads overlap); 0 reads them at run time. The
-// source width must be a multiple of 4 (buckets are multiples of 128), so a
-// row is whole 32-bit words.
-// The vertical pass reads the source a 32-bit word (4 bytes) at a time;
-// the horizontal pass computes all three channels of one output pixel per
-// thread, so each weight is loaded once for three multiply-adds.
-template <int KY, int KX>
-__global__ void resample_rows_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out,
-                                     const float* __restrict__ wy, const int* __restrict__ jy,
-                                     const float* __restrict__ wx, const int* __restrict__ jx,
-                                     int in_h, int in_w, int out_h, int out_w, int ky_rt,
-                                     int kx_rt) {
-    const int ky = KY > 0 ? KY : ky_rt;
+constexpr int K1_THREADS = 256;
+constexpr int K1_SUB = 4;  // output rows a thread accumulates in the vertical pass
+
+// 2^23 + b as a float bit pattern (b = byte `sel` of v), minus 2^23: exact
+__device__ __forceinline__ float byte_to_float(uint32_t v, uint32_t sel) {
+    return __int_as_float((int)__byte_perm(v, 0x4B000000u, 0x7650u | sel)) - 8388608.0f;
+}
+
+__device__ __forceinline__ uint32_t to_u8(float a) {
+    return (uint32_t)fminf(fmaxf(rintf(a), 0.0f), 255.0f);
+}
+
+// Dense vertical weights of source rows [r0, r0 + RC) for the tile's T rows:
+// wd[rr * T + t] = weight of row r0 + rr in output row t's band, else 0.
+// wyb holds the tile's [T][ky] band weights, in shared or device memory.
+__device__ __forceinline__ void build_wd(float* wd, const float* wyb, const int* jy_s, int r0,
+                                         int r1, int RC, int T, int tn, int ky) {
+    for (int i = threadIdx.x; i < RC * T; i += K1_THREADS) {
+        const int rr = i / T, t = i - rr * T;
+        const int k = r0 + rr - jy_s[t];
+        float w = 0.0f;
+        if (t < tn && r0 + rr < r1 && k >= 0 && k < ky) w = wyb[(size_t)t * ky + k];
+        wd[i] = w;
+    }
+}
+
+// Lanes of the weight kernel per output sample: K rounded up to a power of
+// two, at most a warp.
+inline int lanes_for(int taps) {
+    int S = 1;
+    while (S < taps && S < 32) S *= 2;
+    return S;
+}
+
+// Row pitch (floats) of the vertical-pass buffer for WC staged source
+// columns: whole source words from the chunk's first word, float4-aligned.
+__host__ __device__ __forceinline__ int vs_pitch(int WC) { return (3 * WC + 8 + 3) & ~3; }
+
+// Row pitch (bytes) of the u8 output staging for NX output columns: room for
+// a row shifted by its destination's offset within a 32-bit word.
+__host__ __device__ __forceinline__ int os_pitch(int NX) { return (3 * NX + 3 + 15) & ~15; }
+
+// One block per (column tile, run of row tiles) x member; 3 channels,
+// interleaved [h, w, 3]. KX > 0 fixes the horizontal band width at compile
+// time (the tap loop unrolls); 0 reads it at run time. The source width must
+// be a multiple of 4, so a row is whole 32-bit words.
+template <int KX>
+__global__ void __launch_bounds__(K1_THREADS)
+resample_tile_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out,
+                     const float* __restrict__ wy, const int* __restrict__ jy,
+                     const float* __restrict__ wx, const int* __restrict__ jx, int in_h,
+                     int in_w, int out_h, int out_w, int ky, int kx_rt, int T, int NX, int WC,
+                     int RC, int stage_wx, int stage_wy, int n_ct, int tiles_per_block) {
     const int kx = KX > 0 ? KX : kx_rt;
-    extern __shared__ float smem[];
-    const int oy = blockIdx.x;
+    const int VP = vs_pitch(WC);
+    const int OP = os_pitch(NX);
+    const int TR = tiles_per_block * T;  // output rows of the block's run
+    extern __shared__ float4 smem4[];
+    float* wd = reinterpret_cast<float*>(smem4);         // [RC][T]
+    float* vs = wd + RC * T;                             // [T][VP] vertical pass
+    float* hs = vs + T * VP;                             // [T][NX * 3] partial sums
+    float* wy_s = hs + T * NX * 3;                       // [TR][ky] if staged
+    uint8_t* os = reinterpret_cast<uint8_t*>(wy_s + (stage_wy ? TR * ky : 0));  // [T][OP]
+    float* wx_s = reinterpret_cast<float*>(os + T * OP);  // [NX][kx | 1] if staged
+    int* jy_s = reinterpret_cast<int*>(wx_s + (stage_wx ? NX * (kx | 1) : 0));  // [TR]
+    int* jx_s = jy_s + TR;                                                       // [NX]
+
     const int b = blockIdx.y;
-    float* wy_s = smem;
-    int* roff_s = reinterpret_cast<int*>(smem + ky);  // tap rows, in 32-bit words
-    float* row = smem + 2 * ky;
+    const int rg = blockIdx.x / n_ct;
+    const int cx = blockIdx.x - rg * n_ct;
+    const int ox0 = cx * NX;
+    const int nxn = min(NX, out_w - ox0);
+    const int n_rt = (out_h + T - 1) / T;
+    const int rt0 = rg * tiles_per_block;
+    const int rt_end = min(n_rt, rt0 + tiles_per_block);
+    const int tid = threadIdx.x;
 
-    const int pitch = in_w * 3;          // bytes; in_w % 4 == 0, so words too
-    const int pitch_w = pitch / 4;
-    const float* wyb = wy + ((size_t)b * out_h + oy) * ky;
-    const int j0y = jy[(size_t)b * out_h + oy];
-    for (int k = threadIdx.x; k < ky; k += blockDim.x) {
-        wy_s[k] = wyb[k];
-        roff_s[k] = clampi(j0y + k, 0, in_h - 1) * pitch_w;
-    }
-    // band starts are monotone in the output index, so the first and last
-    // output columns bound every source column this row reads; widen the
-    // byte range to whole words
-    const int* jxb = jx + (size_t)b * out_w;
-    const int lo = clampi(jxb[0], 0, in_w - 1);
-    const int hi = clampi(jxb[out_w - 1] + kx - 1, 0, in_w - 1);
-    const int s0 = (lo * 3) & ~3;
-    const int s1 = min(((hi + 1) * 3 + 3) & ~3, pitch);
-    __syncthreads();
-
-    const uint32_t* imw = reinterpret_cast<const uint32_t*>(img + (size_t)b * in_h * pitch)
-                          + s0 / 4;
-    const int nw = (s1 - s0) / 4;
-    for (int t = threadIdx.x; t < nw; t += blockDim.x) {
-        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < ky; ++k) {
-            const uint32_t v = __ldg(imw + roff_s[k] + t);
-            const float w = wy_s[k];
-            a0 += w * (float)(v & 0xFFu);
-            a1 += w * (float)((v >> 8) & 0xFFu);
-            a2 += w * (float)((v >> 16) & 0xFFu);
-            a3 += w * (float)(v >> 24);
+    // the run's row band starts (rows past the output repeat the last one)
+    // and, when staged, its row weights, loaded once for all its tiles
+    const int oyr = rt0 * T;
+    const int* jyb = jy + (size_t)b * out_h;
+    const float* wyr = wy + ((size_t)b * out_h + oyr) * ky;
+    for (int i = tid; i < TR; i += K1_THREADS) jy_s[i] = jyb[min(oyr + i, out_h - 1)];
+    if (stage_wy)
+        for (int i = tid; i < min(TR, out_h - oyr) * ky; i += K1_THREADS) wy_s[i] = __ldg(wyr + i);
+    // the column tile's band starts and weights, staged once for every row
+    // tile the block takes; staged rows get an odd pitch, so the neighbouring
+    // columns that lanes read in step fall in different banks
+    const int* jxb = jx + (size_t)b * out_w + ox0;
+    const float* wxb = wx + ((size_t)b * out_w + ox0) * kx;
+    const int wx_pitch = stage_wx ? (kx | 1) : kx;
+    for (int i = tid; i < nxn; i += K1_THREADS) jx_s[i] = jxb[i];
+    if (stage_wx)
+        for (int i = tid; i < nxn * kx; i += K1_THREADS) {
+            const int ox = i / kx;
+            wx_s[ox * wx_pitch + (i - ox * kx)] = __ldg(wxb + i);
         }
-        float* r = row + 4 * t;
-        r[0] = a0;
-        r[1] = a1;
-        r[2] = a2;
-        r[3] = a3;
-    }
+    const float* wxp = stage_wx ? wx_s : wxb;
     __syncthreads();
+    // the tile's source columns: band starts are monotone in the output
+    // index, so the first and last columns bound them
+    const int plo = clampi(jx_s[0], 0, in_w - 1);
+    const int phi = clampi(jx_s[nxn - 1] + kx - 1, 0, in_w - 1) + 1;  // exclusive
 
-    const float* wxb = wx + (size_t)b * out_w * kx;
-    uint8_t* ob = out + ((size_t)b * out_h + oy) * out_w * 3;
-    for (int ox = threadIdx.x; ox < out_w; ox += blockDim.x) {
-        const int j0 = jxb[ox];
-        const float* w = wxb + (size_t)ox * kx;
-        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kx; ++k) {
-            const float* p = row + clampi(j0 + k, 0, in_w - 1) * 3 - s0;
-            const float wk = __ldg(w + k);
-            a0 += wk * p[0];
-            a1 += wk * p[1];
-            a2 += wk * p[2];
+    const int pitch_w = in_w * 3 / 4;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(img + (size_t)b * in_h * in_w * 3);
+    for (int rt = rt0; rt < rt_end; ++rt) {
+        const int oy0 = rt * T;
+        const int tn = min(T, out_h - oy0);
+        const int* jyt = jy_s + (oy0 - oyr);
+        const float* wyb = (stage_wy ? wy_s : wyr) + (size_t)(oy0 - oyr) * ky;
+        if (rt > rt0) __syncthreads();  // the previous tile is done with wd and os
+        const int rlo = max(jyt[0], 0);
+        const int rhi = min(jyt[tn - 1] + ky, in_h);  // exclusive
+        const bool row_chunks = rhi - rlo > RC;
+        if (!row_chunks) {
+            build_wd(wd, wyb, jyt, rlo, rhi, RC, T, tn, ky);
+            __syncthreads();
         }
-        uint8_t* o = ob + ox * 3;
-        o[0] = (uint8_t)fminf(fmaxf(rintf(a0), 0.0f), 255.0f);
-        o[1] = (uint8_t)fminf(fmaxf(rintf(a1), 0.0f), 255.0f);
-        o[2] = (uint8_t)fminf(fmaxf(rintf(a2), 0.0f), 255.0f);
-    }
-}
+        const int nsub = (tn + K1_SUB - 1) / K1_SUB;
+        for (int p0 = plo; p0 < phi; p0 += WC) {
+            const int p1 = min(p0 + WC, phi);
+            const int w0 = (3 * p0) >> 2;
+            const int nw = ((3 * p1 + 3) >> 2) - w0;
+            const int tasks = nw * nsub;
 
-template <int KY, int KX>
-cudaError_t launch_rows(dim3 grid, size_t smem, cudaStream_t s, const uint8_t* img,
-                        uint8_t* out, const float* wy, const int* jy, const float* wx,
-                        const int* jx, int in_h, int in_w, int out_h, int out_w, int ky,
-                        int kx) {
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(resample_rows_kernel<KY, KX>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return err;
+            // vertical pass: task = (4-row subtile, source word); the word's 4
+            // channel bytes land as one float4 at 4 * (word - w0)
+            for (int base = 0; base < tasks; base += K1_THREADS) {
+                const int task = base + tid;
+                const bool active = task < tasks;
+                const int sub = active ? task / nw : 0;
+                const int wi = w0 + (active ? task - sub * nw : 0);
+                const int t0 = sub * K1_SUB;
+                const int ra = max(jyt[t0], 0);
+                const int rb = min(jyt[min(t0 + K1_SUB - 1, tn - 1)] + ky, in_h);
+                float acc[K1_SUB][4];
+#pragma unroll
+                for (int t = 0; t < K1_SUB; ++t)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) acc[t][c] = 0.0f;
+                for (int r0 = rlo; r0 < rhi; r0 += RC) {
+                    const int r1 = min(r0 + RC, rhi);
+                    if (row_chunks) {
+                        __syncthreads();
+                        build_wd(wd, wyb, jyt, r0, r1, RC, T, tn, ky);
+                        __syncthreads();
+                    }
+                    if (!active) continue;
+                    const int e = min(r1, rb);
+                    const uint32_t* sp = src + wi;
+#pragma unroll 4
+                    for (int r = max(r0, ra); r < e; ++r) {
+                        const uint32_t v = __ldg(sp + (size_t)r * pitch_w);
+                        const float4 w4 =
+                            *reinterpret_cast<const float4*>(wd + (r - r0) * T + t0);
+                        const float wt[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+                        for (int c = 0; c < 4; ++c) {
+                            const float f = byte_to_float(v, c);
+#pragma unroll
+                            for (int t = 0; t < K1_SUB; ++t)
+                                acc[t][c] = fmaf(wt[t], f, acc[t][c]);
+                        }
+                    }
+                }
+                if (active) {
+#pragma unroll
+                    for (int t = 0; t < K1_SUB; ++t)
+                        *reinterpret_cast<float4*>(vs + (t0 + t) * VP + 4 * (wi - w0)) =
+                            make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+                }
+            }
+            __syncthreads();
+
+            // horizontal pass over this chunk's columns, taps in order;
+            // partial sums carry over between chunks in hs
+            const int org = 4 * w0;  // vs holds source byte B at B - org
+            const bool first = p0 == plo, last = p1 == phi;
+            for (int o = tid; o < tn * nxn; o += K1_THREADS) {
+                const int t = o / nxn;
+                const int ox = o - t * nxn;
+                float* h = hs + t * NX * 3 + ox * 3;
+                float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+                if (!first) {
+                    a0 = h[0];
+                    a1 = h[1];
+                    a2 = h[2];
+                }
+                const int j0 = jx_s[ox];
+                const float* w = wxp + (size_t)ox * wx_pitch;
+                const float* v = vs + t * VP - org;
+                const int ka = max(p0 - j0, 0), kb = min(p1 - j0, kx);
+                if (ka == 0 && kb == kx) {
+#pragma unroll
+                    for (int k = 0; k < kx; ++k) {
+                        const float wk = w[k];
+                        const float* p = v + (j0 + k) * 3;
+                        a0 = fmaf(wk, p[0], a0);
+                        a1 = fmaf(wk, p[1], a1);
+                        a2 = fmaf(wk, p[2], a2);
+                    }
+                } else {
+                    for (int k = ka; k < kb; ++k) {
+                        const float wk = w[k];
+                        const float* p = v + (j0 + k) * 3;
+                        a0 = fmaf(wk, p[0], a0);
+                        a1 = fmaf(wk, p[1], a1);
+                        a2 = fmaf(wk, p[2], a2);
+                    }
+                }
+                if (last) {
+                    // round/clip to u8, staged at the row's offset within a
+                    // 32-bit word of its destination
+                    const size_t at = ((size_t)(b * out_h + oy0 + t) * out_w + ox0) * 3;
+                    uint8_t* q = os + t * OP + (int)(at & 3) + ox * 3;
+                    q[0] = (uint8_t)to_u8(a0);
+                    q[1] = (uint8_t)to_u8(a1);
+                    q[2] = (uint8_t)to_u8(a2);
+                } else {
+                    h[0] = a0;
+                    h[1] = a1;
+                    h[2] = a2;
+                }
+            }
+            __syncthreads();
+        }
+
+        // store each output row of the tile as 32-bit words (single bytes
+        // only in a row's first and last word)
+        const int nbytes = nxn * 3;
+        const int nwr = (nbytes + 3 + 3) / 4;  // words a shifted row can touch
+        for (int i = tid; i < tn * nwr; i += K1_THREADS) {
+            const int t = i / nwr;
+            const int j = i - t * nwr;
+            const size_t at = ((size_t)(b * out_h + oy0 + t) * out_w + ox0) * 3;
+            const int mis = (int)(at & 3);
+            const int lo = max(4 * j, mis), hi = min(4 * j + 4, mis + nbytes);
+            if (lo >= hi) continue;
+            const uint8_t* q = os + t * OP;
+            uint8_t* dst = out + at - mis;
+            if (hi - lo == 4)
+                *reinterpret_cast<uint32_t*>(dst + 4 * j) =
+                    *reinterpret_cast<const uint32_t*>(q + 4 * j);
+            else
+                for (int k = lo; k < hi; ++k) dst[k] = q[k];
+        }
     }
-    resample_rows_kernel<KY, KX><<<grid, 256, smem, s>>>(img, out, wy, jy, wx, jx, in_h, in_w,
-                                                         out_h, out_w, ky, kx);
-    return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" size_t flyimg_resample_banded_smem_bytes(int in_w, int ky) {
-    // tap weights and row offsets, then the vertical pass over up to the
-    // whole row widened to words
-    return (size_t)(2 * ky + 3 * in_w + 4) * sizeof(float);
+// Shared-memory bytes of one block of the tile kernel for a plan (the
+// wrapper's plan computes the same sum, ops/resample.py k1_smem_bytes; the
+// launch checks they agree).
+static size_t smem_bytes(int T, int NX, int WC, int RC, int ky, int kx, int stage_wx,
+                         int stage_wy, int tiles_per_block) {
+    const size_t TR = (size_t)tiles_per_block * T;
+    return ((size_t)RC * T + (size_t)T * vs_pitch(WC) + (size_t)T * NX * 3 +
+            (stage_wy ? TR * ky : 0) + (stage_wx ? (size_t)NX * (kx | 1) : 0) + TR + NX) * 4 +
+           (size_t)T * os_pitch(NX);
 }
 
 // Launch both kernels on `stream`. wy/jy and wx/jx are scratch tables of
 // [batch, out_h, ky] / [batch, out_h] and [batch, out_w, kx] / [batch, out_w].
-// Returns cudaGetLastError() after the launches.
+// The plan (T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
+// smem) comes from the host;
+// kx_static names the compiled instance (0 = run-time K). Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a plan
+// the kernel does not take.
 extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const float* geom,
-                                         float* wy, int* jy, float* wx, int* jx,
-                                         int batch, int in_h, int in_w, int out_h, int out_w,
-                                         int ky, int kx, int method, void* stream) {
+                                         float* wy, int* jy, float* wx, int* jx, int batch,
+                                         int in_h, int in_w, int out_h, int out_w, int ky,
+                                         int kx, int method, int T, int NX, int WC, int RC,
+                                         int stage_wx, int stage_wy, int kx_static,
+                                         int tiles_per_block, int smem, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int threads = 128;
-    int ny = batch * out_h;
-    int nx = batch * out_w;
-    band_weights_kernel<<<(ny + threads - 1) / threads, threads, 0, s>>>(
-        geom, batch, 0, in_h, out_h, ky, method, wy, jy);
-    band_weights_kernel<<<(nx + threads - 1) / threads, threads, 0, s>>>(
-        geom, batch, 1, in_w, out_w, kx, method, wx, jx);
-    size_t smem = flyimg_resample_banded_smem_bytes(in_w, ky);
-    dim3 grid(out_h, batch);
-    cudaError_t err;
-#define FLYIMG_K1_CASE(A, B)                                                              \
-    if (ky == A && kx == B)                                                               \
-        err = launch_rows<A, B>(grid, smem, s, img, out, wy, jy, wx, jx, in_h, in_w, out_h, \
-                                out_w, ky, kx);                                           \
-    else
-    FLYIMG_K1_CASE(8, 8)
-    FLYIMG_K1_CASE(8, 16)
-    FLYIMG_K1_CASE(16, 8)
-    FLYIMG_K1_CASE(16, 16)
-    FLYIMG_K1_CASE(16, 32)
-    FLYIMG_K1_CASE(32, 16)
-    FLYIMG_K1_CASE(32, 32)
-    err = launch_rows<0, 0>(grid, smem, s, img, out, wy, jy, wx, jx, in_h, in_w, out_h, out_w,
-                            ky, kx);
-#undef FLYIMG_K1_CASE
-    if (err != cudaSuccess) return (int)err;
+    if (T <= 0 || T % K1_SUB || NX <= 0 || WC <= 0 || RC <= 0 || tiles_per_block <= 0 ||
+        in_w % 4 ||
+        (kx_static != 0 && kx_static != kx) ||
+        (size_t)smem != smem_bytes(T, NX, WC, RC, ky, kx, stage_wx, stage_wy, tiles_per_block))
+        return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    const int sy = lanes_for(ky), sx = lanes_for(kx);
+    const long ny = (long)batch * out_h * sy;
+    const long nx = (long)batch * out_w * sx;
+    band_weights_kernel<<<(int)((ny + threads - 1) / threads), threads, 0, s>>>(
+        geom, batch, 0, in_h, out_h, ky, method, sy, wy, jy);
+    band_weights_kernel<<<(int)((nx + threads - 1) / threads), threads, 0, s>>>(
+        geom, batch, 1, in_w, out_w, kx, method, sx, wx, jx);
+    const int n_ct = (out_w + NX - 1) / NX;
+    const int n_rt = (out_h + T - 1) / T;
+    const int n_rg = (n_rt + tiles_per_block - 1) / tiles_per_block;
+    dim3 grid(n_rg * n_ct, batch);
+    void (*kern)(const uint8_t*, uint8_t*, const float*, const int*, const float*, const int*,
+                 int, int, int, int, int, int, int, int, int, int, int, int, int, int);
+    switch (kx_static) {
+    case 8: kern = resample_tile_kernel<8>; break;
+    case 16: kern = resample_tile_kernel<16>; break;
+    case 32: kern = resample_tile_kernel<32>; break;
+    case 0: kern = resample_tile_kernel<0>; break;
+    default: return (int)cudaErrorInvalidValue;
+    }
+    if (smem > 48 * 1024) {
+        cudaError_t err =
+            cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kern<<<grid, K1_THREADS, smem, s>>>(img, out, wy, jy, wx, jx, in_h, in_w, out_h, out_w, ky,
+                                       kx, T, NX, WC, RC, stage_wx, stage_wy, n_ct,
+                                       tiles_per_block);
     return (int)cudaGetLastError();
 }

@@ -10,127 +10,219 @@
 //       field[b, oy*stride + ky, ox*stride + kx] * ker[b, ky, kx, c]
 //   totals[b] = sum field[b]
 //
-// f32 operands, f32 accumulation: a direct correlation, no tensor cores, no
-// TF32.
+// f32 operands, f32 accumulation: a direct correlation, no tensor cores (TF32
+// alone misses 1e-5 relative).
 //
 // What bounds it on an H100: operations. The flagship scores 13 x 19
 // positions of a 150 x 150 window per member: ~2.8 GFLOP per 256-member batch
-// against ~77 MB of field, ~37 flops a byte, above the f32 ridge (67 TFLOP/s
-// over 3.35 TB/s = 20). Design: one block per (output row, member). The block
-// walks the window's rows in chunks; each chunk's field rows and kernel rows
-// (all C channels) are staged in shared memory, so every field and kernel
-// element is read from device memory once per output row. The field rows are
-// stored skewed (one pad word every 32) so that the stride-8 windows of
-// neighbouring outputs, read in step, fall in different banks. Each output
-// (ox, c) is owned by S threads that split the window rows between them; the
-// S partial sums are added in a fixed order at the end, so results do not
-// change from run to run. The totals are a second small kernel, one block per
-// member, with a fixed-order tree reduction.
+// against ~77 MB of field, above the f32 ridge. So the design feeds the FMA
+// units with as few loads as it can:
+//   - polyphase: with kx = stride * j + px, the correlation splits into
+//     `stride` column phases, and for a fixed (ky, px) it is a stride-1 1-D
+//     correlation g[m] = field[row, stride * m + px] with the taps
+//     ker[ky, stride * j + px]. A thread holds R consecutive outputs in
+//     registers and a rotating window of R field values: each tap step loads
+//     ONE field value and ONE kernel value and does R FMAs (R = 19 at the
+//     flagship: ~0.1 loads an FMA, where a direct loop needs two);
+//   - the launch fills the card: threads map over (member, output row, run
+//     of R outputs, channel) x (chunk of window rows, phase), so even the
+//     serving shape (16 members, 3 x 7 outputs) gives thousands of threads.
+//     Neighbouring lanes are neighbouring phases, so their field and kernel
+//     loads are neighbouring words; the lanes of a warp share a window row
+//     chunk, so a shared kernel is read from one row;
+//   - the (row chunk, phase) partial sums of an output live in one block and
+//     are added by a fixed pairwise tree, so results do not change from run
+//     to run.
+// The host chooses R (a compiled instance), the row chunks and the block
+// shape (models/smartcrop.py k3_plan). The totals are a second small kernel,
+// one block per member, with a fixed-order tree reduction.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int K3_THREADS = 256;
 
-__host__ __device__ __forceinline__ int skewed(int a) { return a + (a >> 5); }
-
-__global__ void scores_kernel(const float* __restrict__ field, const float* __restrict__ ker,
-                              float* __restrict__ grids, int fh, int fw, int khm, int kwm, int C,
-                              size_t ker_batch_stride, int stride, int ny, int nx, int kc) {
-    extern __shared__ float smem[];
-    // [kc, fw] field rows, skewed: element a lives at a + a / 32, so the
-    // stride-8 windows of neighbouring outputs fall in different banks
-    float* field_s = smem;
-    float* ker_s = smem + skewed(kc * fw);  // [kc, kwm, C]
-    float* part_s = ker_s + (size_t)kc * kwm * C;  // [THREADS]
-
-    const int oy = blockIdx.x;
-    const int b = blockIdx.y;
+// One thread per (group, part): group = (member, output row, run of R outputs,
+// channel), part = (window-row chunk, phase px). Lanes are phases, then
+// groups, then row chunks, so the lanes of a warp read one kernel row.
+template <int R>
+__global__ void __launch_bounds__(K3_THREADS)
+scores_kernel(const float* __restrict__ field, const float* __restrict__ ker,
+              float* __restrict__ grids, int fh, int fw, int khm, int kwm, int C,
+              size_t ker_batch_stride, int stride, int ny, int nx, int n_xg, int ky_chunk,
+              int n_parts, int groups_per_block, int n_groups, int n_steps) {
+    __shared__ float part_s[R * K3_THREADS];  // [R][thread]
     const int tid = threadIdx.x;
-    const float* fb = field + ((size_t)b * fh + (size_t)oy * stride) * fw;
-    const float* kb = ker + b * ker_batch_stride;
-    const int n_out = nx * C;
+    const int px = tid % stride;
+    const int gl = (tid / stride) % groups_per_block;
+    const int kyc = tid / (stride * groups_per_block);
+    const int p = kyc * stride + px;
+    const int g = blockIdx.x * groups_per_block + gl;
+    const bool active = gl < groups_per_block && g < n_groups;
+    int c = 0, xg = 0, oy = 0, b = 0;
+    if (active) {
+        int t = g;
+        c = t % C;
+        t /= C;
+        xg = t % n_xg;
+        t /= n_xg;
+        oy = t % ny;
+        b = t / ny;
+    }
+    const int x0 = xg * R;
 
-    for (int g0 = 0; g0 < n_out; g0 += THREADS) {
-        const int G = min(n_out - g0, THREADS);
-        const int S = THREADS / G;
-        const int active = G * S;
-        const int o = g0 + tid % G;
-        const int s = tid / G;
-        const int ox = o / C;
-        const int c = o - ox * C;
-        float acc = 0.0f;
-        for (int ky0 = 0; ky0 < khm; ky0 += kc) {
-            const int rows = min(kc, khm - ky0);
-            __syncthreads();
-            for (int t = tid; t < rows * fw; t += THREADS)
-                field_s[skewed(t)] = fb[(size_t)ky0 * fw + t];
-            const int kn = rows * kwm * C;
-            for (int t = tid; t < kn; t += THREADS) ker_s[t] = kb[(size_t)ky0 * kwm * C + t];
-            __syncthreads();
-            if (tid < active) {
-                for (int r = s; r < rows; r += S) {
-                    const int a0 = r * fw + ox * stride;
-                    const float* krow = ker_s + (size_t)r * kwm * C + c;
-                    for (int kx = 0; kx < kwm; ++kx)
-                        acc += field_s[skewed(a0 + kx)] * krow[kx * C];
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    if (active) {
+        const int ky0 = kyc * ky_chunk;
+        const int ky1 = min(khm, ky0 + ky_chunk);
+        // g[m] = frow[min(stride * (x0 + m), lim)]: columns past the field
+        // only ever meet a zero tap or an output beyond nx
+        const int lim = fw - 1 - px;
+        const float* kb = ker + b * ker_batch_stride + c;
+        for (int ky = ky0; ky < ky1; ++ky) {
+            const float* frow = field + ((size_t)b * fh + (size_t)oy * stride + ky) * fw + px;
+            const float* krow = kb + (size_t)ky * kwm * C;
+            float win[R];  // g[m] lives in slot m % R
+#pragma unroll
+            for (int j = 0; j < R - 1; ++j) win[j] = __ldg(frow + min(stride * (x0 + j), lim));
+            for (int s0 = 0; s0 < n_steps; s0 += R) {
+#pragma unroll
+                for (int j = 0; j < R; ++j) {
+                    const int step = s0 + j;
+                    win[(j + R - 1) % R] = __ldg(frow + min(stride * (x0 + step + R - 1), lim));
+                    const int kx = stride * step + px;
+                    const float kv = kx < kwm ? __ldg(krow + (size_t)kx * C) : 0.0f;
+#pragma unroll
+                    for (int r = 0; r < R; ++r) acc[r] = fmaf(win[(r + j) % R], kv, acc[r]);
                 }
             }
         }
-        part_s[tid] = acc;
-        __syncthreads();
-        if (tid < G) {
-            float sum = 0.0f;
-            for (int j = 0; j < S; ++j) sum += part_s[j * G + tid];
-            const int oo = g0 + tid;
-            grids[(((size_t)b * ny + oy) * nx) * C + oo] = sum;
+    }
+
+    // add the parts of each output by a fixed pairwise tree (the same for
+    // every run): first part p + h into p for the largest power of two
+    // h < n_parts, then halving
+#pragma unroll
+    for (int r = 0; r < R; ++r) part_s[r * K3_THREADS + gl * n_parts + p] = acc[r];
+    __syncthreads();
+    int h = 1;
+    while (2 * h < n_parts) h *= 2;
+    const int nthreads = blockDim.x;
+    for (; h >= 1; h >>= 1) {
+        for (int i = tid; i < groups_per_block * R * h; i += nthreads) {
+            const int q = i % h;
+            const int rest = i / h;
+            const int r = rest % R;
+            const int gq = rest / R;
+            if (q + h < n_parts) {
+                float* ps = part_s + r * K3_THREADS + gq * n_parts;
+                ps[q] += ps[q + h];
+            }
         }
+        __syncthreads();
+    }
+    for (int i = tid; i < groups_per_block * R; i += nthreads) {
+        const int gq = i / R;
+        const int r = i - gq * R;
+        int t = blockIdx.x * groups_per_block + gq;
+        if (t >= n_groups) continue;
+        const int cq = t % C;
+        t /= C;
+        const int xq = t % n_xg;
+        t /= n_xg;
+        const int oq = t % ny;
+        const int bq = t / ny;
+        const int ox = xq * R + r;
+        if (ox < nx)
+            grids[(((size_t)bq * ny + oq) * nx + ox) * C + cq] =
+                part_s[r * K3_THREADS + gq * n_parts];
     }
 }
 
+// One block per member; 16-byte loads when the field allows them.
 __global__ void totals_kernel(const float* __restrict__ field, float* __restrict__ totals, size_t n) {
-    __shared__ float red[THREADS];
+    __shared__ float red[K3_THREADS];
     const float* fb = field + (size_t)blockIdx.x * n;
     float acc = 0.0f;
-    for (size_t t = threadIdx.x; t < n; t += THREADS) acc += fb[t];
+    if ((n & 3) == 0 && ((uintptr_t)field & 15) == 0) {
+        const float4* f4 = reinterpret_cast<const float4*>(fb);
+        for (size_t t = threadIdx.x; t < n / 4; t += K3_THREADS) {
+            const float4 v = __ldg(f4 + t);
+            acc += v.x;
+            acc += v.y;
+            acc += v.z;
+            acc += v.w;
+        }
+    } else {
+        for (size_t t = threadIdx.x; t < n; t += K3_THREADS) acc += fb[t];
+    }
     red[threadIdx.x] = acc;
     __syncthreads();
-    for (int w = THREADS / 2; w > 0; w >>= 1) {
+    for (int w = K3_THREADS / 2; w > 0; w >>= 1) {
         if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
         __syncthreads();
     }
     if (threadIdx.x == 0) totals[blockIdx.x] = red[0];
 }
 
+template <int R>
+void launch_scores(int blocks, cudaStream_t s, const float* field, const float* ker,
+                   float* grids, int fh, int fw, int khm, int kwm, int C, size_t ker_stride,
+                   int stride, int ny, int nx, int n_xg, int ky_chunk, int n_parts, int gpb,
+                   int n_groups, int n_steps) {
+    scores_kernel<R><<<blocks, gpb * n_parts, 0, s>>>(field, ker, grids, fh, fw, khm, kwm, C,
+                                                     ker_stride, stride, ny, nx, n_xg, ky_chunk,
+                                                     n_parts, gpb, n_groups, n_steps);
+}
+
 }  // namespace
 
 // field [batch, fh, fw] f32; ker [kb, khm, kwm, C] f32 with kb == batch, or
 // kb == 1 for one stack shared by every member (ker_shared != 0); grids
-// [batch, ny, nx, C], totals [batch]. Returns cudaGetLastError() after the
-// launches (or the shared-memory attribute error).
+// [batch, ny, nx, C], totals [batch]. The plan (R, ky_chunk, groups a block)
+// comes from the host. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int flyimg_candidate_scores(const float* field, const float* ker, float* grids,
                                        float* totals, int batch, int fh, int fw, int khm,
                                        int kwm, int C, int ker_shared, int stride, int ny,
-                                       int nx, void* stream) {
+                                       int nx, int R, int ky_chunk, int groups_per_block,
+                                       void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    // chunk of window rows staged per step: fill up to 96 KB of shared memory
-    const size_t row_floats = (size_t)fw + fw / 32 + 1 + (size_t)kwm * C;
-    const size_t budget = (96 * 1024) / sizeof(float) - THREADS - 1;
-    int kc = (int)(budget / row_floats);
-    if (kc < 1) return (int)cudaErrorInvalidValue;
-    if (kc > khm) kc = khm;
-    const size_t smem =
-        ((size_t)skewed(kc * fw) + (size_t)kc * kwm * C + THREADS + 1) * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t err =
-            cudaFuncSetAttribute(scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
+    if (stride < 1 || ky_chunk < 1 || R < 1 || groups_per_block < 1) return (int)cudaErrorInvalidValue;
+    const int n_kyc = (khm + ky_chunk - 1) / ky_chunk;
+    const int n_parts = n_kyc * stride;
+    if (n_parts * groups_per_block > K3_THREADS) return (int)cudaErrorInvalidValue;
+    const int n_xg = (nx + R - 1) / R;
+    const int n_groups = batch * ny * n_xg * C;
+    const int blocks = (n_groups + groups_per_block - 1) / groups_per_block;
+    const int n_steps = (kwm + stride - 1) / stride;
     const size_t ker_stride = ker_shared ? 0 : (size_t)khm * kwm * C;
-    dim3 grid(ny, batch);
-    scores_kernel<<<grid, THREADS, smem, s>>>(field, ker, grids, fh, fw, khm, kwm, C, ker_stride,
-                                              stride, ny, nx, kc);
-    totals_kernel<<<batch, THREADS, 0, s>>>(field, totals, (size_t)fh * fw);
+#define FLYIMG_K3_CASE(N)                                                                      \
+    case N:                                                                                    \
+        launch_scores<N>(blocks, s, field, ker, grids, fh, fw, khm, kwm, C, ker_stride, stride, \
+                         ny, nx, n_xg, ky_chunk, n_parts, groups_per_block, n_groups, n_steps); \
+        break;
+    switch (R) {
+        FLYIMG_K3_CASE(1)
+        FLYIMG_K3_CASE(2)
+        FLYIMG_K3_CASE(3)
+        FLYIMG_K3_CASE(4)
+        FLYIMG_K3_CASE(5)
+        FLYIMG_K3_CASE(6)
+        FLYIMG_K3_CASE(7)
+        FLYIMG_K3_CASE(8)
+        FLYIMG_K3_CASE(10)
+        FLYIMG_K3_CASE(12)
+        FLYIMG_K3_CASE(16)
+        FLYIMG_K3_CASE(19)
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef FLYIMG_K3_CASE
+    totals_kernel<<<batch, K3_THREADS, 0, s>>>(field, totals, (size_t)fh * fw);
     return (int)cudaGetLastError();
 }

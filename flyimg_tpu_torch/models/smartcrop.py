@@ -268,6 +268,57 @@ def batched_scores_plain(weighted: torch.Tensor, kernels: torch.Tensor, stride: 
     return grids, totals
 
 
+#: K3's launch constants (csrc/scores.cu): threads a block, the compiled
+#: run lengths R (outputs a thread holds), and the threads a launch aims for
+#: so the card's 132 SMs each get about half their 2048
+K3_THREADS = 256
+K3_RUN_LENGTHS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 19)
+K3_TARGET_THREADS = 132 * 1024
+
+
+@dataclass(frozen=True)
+class K3Plan:
+    """One K3 launch: each thread holds ``run`` consecutive outputs of one
+    (member, output row, channel) and sums one phase of one chunk of
+    ``ky_chunk`` window rows; ``groups_per_block`` output runs share a block,
+    whose ``n_ky_chunks * stride`` parts of each run are added in order."""
+
+    run: int
+    ky_chunk: int
+    n_ky_chunks: int
+    groups_per_block: int
+    threads: int
+    blocks: int
+
+
+def k3_plan(batch: int, ny: int, nx: int, khm: int, kwm: int, c: int,
+            stride: int) -> K3Plan:
+    """Pick K3's launch from the correlation's shapes: the compiled run
+    length with the fewest instructions (R FMAs and about three other
+    instructions a tap step, steps and runs rounded up), then as many
+    window-row chunks as it takes to reach ``K3_TARGET_THREADS``."""
+    if min(batch, ny, nx, khm, kwm, c, stride) < 1:
+        raise ValueError(f"K3 plan of empty shapes {(batch, ny, nx, khm, kwm, c, stride)}")
+    if stride > K3_THREADS:
+        raise ValueError(f"K3 takes a stride of at most {K3_THREADS}, got {stride}")
+    n_steps = -(-kwm // stride)
+
+    def work(r):
+        return -(-nx // r) * (r + 3) * (-(-n_steps // r) * r)
+
+    run = min(K3_RUN_LENGTHS, key=lambda r: (work(r), -r))
+    groups = batch * ny * (-(-nx // run)) * c
+    n_kyc = -(-K3_TARGET_THREADS // (groups * stride))
+    n_kyc = max(1, min(n_kyc, khm, K3_THREADS // stride))
+    ky_chunk = -(-khm // n_kyc)
+    n_kyc = -(-khm // ky_chunk)
+    parts = n_kyc * stride
+    gpb = K3_THREADS // parts
+    return K3Plan(run=run, ky_chunk=ky_chunk, n_ky_chunks=n_kyc,
+                  groups_per_block=gpb, threads=gpb * parts,
+                  blocks=-(-groups // gpb))
+
+
 def _batched_scores(weighted: torch.Tensor, kernels: torch.Tensor, stride: int):
     """[B, fh, fw] f32 fields x [B or 1, khm, kwm, 1, C] f32 kernel stacks
     -> ([B, ny, nx, C] candidate grids, [B] field totals): the strided
@@ -306,11 +357,13 @@ def _batched_scores(weighted: torch.Tensor, kernels: torch.Tensor, stride: int):
     nx = (fw - kwm) // stride + 1
     grids = torch.empty((b, ny, nx, c), dtype=torch.float32, device=weighted.device)
     totals = torch.empty((b,), dtype=torch.float32, device=weighted.device)
+    plan = k3_plan(b, ny, nx, khm, kwm, c, stride)
     lib = _lib("scores")
     rc = lib.flyimg_candidate_scores(
         weighted.data_ptr(), kernels.data_ptr(), grids.data_ptr(),
         totals.data_ptr(), b, fh, fw, khm, kwm, c,
         1 if kernels.shape[0] == 1 else 0, stride, ny, nx,
+        plan.run, plan.ky_chunk, plan.groups_per_block,
         torch.cuda.current_stream(weighted.device).cuda_stream,
     )
     cuda_build.check(rc, "_batched_scores")
@@ -323,7 +376,7 @@ _batched_scores.launches = 0
 
 _ARGTYPES = {
     "saliency": ("flyimg_saliency_field", "ppp" + "iii" + "p"),
-    "scores": ("flyimg_candidate_scores", "pppp" + "iiiiiiiiii" + "p"),
+    "scores": ("flyimg_candidate_scores", "pppp" + "i" * 13 + "p"),
 }
 
 

@@ -35,6 +35,8 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -165,6 +167,200 @@ def select_band_taps(
     return (min(ky, max(in_h, 1)), min(kx, max(in_w, 1)))
 
 
+
+
+# ---------------------------------------------------------------------------
+# kernel K1's launch plan (host side; csrc/resample_banded.cu takes it as is)
+# ---------------------------------------------------------------------------
+
+K1_THREADS = 256
+#: output rows one thread's vertical accumulators cover (the kernel's K1_SUB)
+K1_SUB = 4
+#: shared memory a block may take, and the share aimed for (3 blocks an SM)
+K1_SMEM_LIMIT = 227 * 1024
+K1_SMEM_TARGET = 72 * 1024
+#: horizontal band widths compiled as constants; any other K runs the
+#: run-time-K instance (0)
+K1_STATIC_KX = (8, 16, 32)
+K1_TILE_HEIGHTS = (4, 8, 12, 16)
+#: most source rows of the dense vertical weight table held at once, most
+#: bytes of staged column weights, most bytes of a run's staged row weights,
+#: and most output rows in a block's run of row tiles
+K1_ROW_CHUNK_MAX = 256
+K1_STAGE_MAX = 32 * 1024
+K1_STAGE_WY_MAX = 16 * 1024
+K1_RUN_ROWS_MAX = 256
+#: the card's SMs and the K1 blocks one SM holds at the target shared
+#: memory; a launch aims for ``K1_WAVES`` waves of blocks
+K1_SMS = 132
+K1_BLOCKS_PER_SM = 3
+K1_WAVES = 8
+
+
+@dataclass(frozen=True)
+class K1Plan:
+    """One K1 launch: tiles of tile_h output rows x tile_w output columns;
+    a block takes ``tiles_per_block`` row tiles of one column tile of a
+    member, one after another. ``chunk_w`` source columns and ``row_chunk``
+    source rows are staged per pass; a tile whose source window is larger
+    takes several passes (the kernel finds each window on the card).
+    ``stage_wx`` stages the column weights in shared memory, ``stage_wy``
+    the row weights of the block's run of tiles."""
+
+    tile_h: int
+    tile_w: int
+    chunk_w: int
+    row_chunk: int
+    stage_wx: bool
+    stage_wy: bool
+    kx_static: int
+    tiles_per_block: int
+    smem_bytes: int
+    grid: Tuple[int, int]
+
+
+def _k1_vs_pitch(chunk_w: int) -> int:
+    """Row pitch (floats) of the vertical-pass buffer: the chunk's bytes
+    from its first whole source word, float4-aligned."""
+    return (3 * chunk_w + 8 + 3) & ~3
+
+
+def _k1_os_pitch(tile_w: int) -> int:
+    """Row pitch (bytes) of the u8 output staging: a row shifted by its
+    destination's offset within a 32-bit word, 16-byte aligned."""
+    return (3 * tile_w + 3 + 15) & ~15
+
+
+def k1_smem_bytes(tile_h, tile_w, chunk_w, row_chunk, ky, kx, stage_wx,
+                  stage_wy=False, tiles_per_block=1) -> int:
+    """Bytes of shared memory one block takes: the dense vertical weights
+    [row_chunk, tile_h], the vertical pass [tile_h, pitch], the horizontal
+    partial sums [tile_h, tile_w * 3], the run's row weights [run rows, ky]
+    when staged, the u8 output staging, the staged column weights [tile_w,
+    kx | 1] (an odd pitch, against bank conflicts) and the band starts of
+    the run's rows and the tile's columns."""
+    run_rows = tiles_per_block * tile_h
+    return (4 * (row_chunk * tile_h + tile_h * _k1_vs_pitch(chunk_w)
+                 + tile_h * tile_w * 3 + (run_rows * ky if stage_wy else 0)
+                 + (tile_w * (kx | 1) if stage_wx else 0) + run_rows + tile_w)
+            + tile_h * _k1_os_pitch(tile_w))
+
+
+def _k1_window(n_out_tile: int, q: float, taps: int, n_in: int) -> int:
+    """Expected source extent of a tile of ``n_out_tile`` consecutive
+    outputs at scale q (span / out) with K taps, within the axis."""
+    return min(int(math.ceil((n_out_tile - 1) * q)) + taps + 1, n_in)
+
+
+@lru_cache(maxsize=256)
+def k1_plan(in_hw: Tuple[int, int], out_hw: Tuple[int, int],
+            taps_hw: Tuple[int, int], batch: int) -> K1Plan:
+    """Pick K1's tiles for a launch from its static shapes. The scale is
+    estimated as bucket / output per axis (the true span lives on the
+    card); a wrong estimate costs time, never correctness, since the
+    kernel chunks any window larger than the plan's. Among the tile
+    heights in ``K1_TILE_HEIGHTS`` and the column splits of the output, the
+    plan with the fewest estimated instructions is taken whose shared memory
+    stays within ``K1_SMEM_TARGET`` (``K1_SMEM_LIMIT`` if none does)."""
+    in_h, in_w = int(in_hw[0]), int(in_hw[1])
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    ky, kx = int(taps_hw[0]), int(taps_hw[1])
+    if min(in_h, in_w, out_h, out_w, ky, kx, batch) < 1:
+        raise ValueError(f"K1 plan of empty shapes {in_hw} -> {out_hw} K={taps_hw}")
+    qy, qx = in_h / out_h, in_w / out_w
+    kx_static = kx if kx in K1_STATIC_KX else 0
+    widths = sorted({-(-out_w // n) for n in range(1, out_w + 1)}, reverse=True)
+    best = None
+    for budget in (K1_SMEM_TARGET, K1_SMEM_LIMIT):
+        for th in K1_TILE_HEIGHTS:
+            rows = _k1_window(th, qy, ky, in_h)
+            row_chunk = min(rows, K1_ROW_CHUNK_MAX)
+            rows_sub = _k1_window(K1_SUB, qy, ky, in_h)
+            for tw in widths:
+                cols = _k1_window(tw, qx, kx, in_w)
+                # the column weights are staged whenever they take at most
+                # K1_STAGE_MAX (read from device memory they cost more than
+                # a smaller chunk of columns does)
+                stage = 4 * tw * (kx | 1) <= K1_STAGE_MAX
+                # runs of row tiles: long enough to stage each column tile's
+                # weights rarely, short enough for K1_WAVES waves of blocks
+                n_rt, n_ct = -(-out_h // th), -(-out_w // tw)
+                n_rg = max(1, min(n_rt, -(-K1_WAVES * K1_SMS * K1_BLOCKS_PER_SM
+                                          // (batch * n_ct))))
+                per_block = min(-(-n_rt // n_rg), K1_RUN_ROWS_MAX // th)
+                stage_wy = 4 * per_block * th * ky <= K1_STAGE_WY_MAX
+                room = budget - k1_smem_bytes(th, tw, 0, row_chunk, ky, kx, stage,
+                                              stage_wy, per_block)
+                chunk_w = min(cols, (room // (4 * th) - 11) // 3)
+                if chunk_w < min(cols, 4):
+                    continue
+                smem = k1_smem_bytes(th, tw, chunk_w, row_chunk, ky, kx, stage,
+                                     stage_wy, per_block)
+                n_cc = -(-cols // chunk_w)
+                n_rc = -(-rows // row_chunk)
+                words = -(-3 * chunk_w // 4) + 1
+                sweeps = -(-words * (-(-th // K1_SUB)) // K1_THREADS)
+                vert = sweeps * rows_sub * 29 + (sweeps * n_rc if n_rc > 1 else 1) * (
+                    -(-row_chunk * th // K1_THREADS)) * 8
+                # column weights read from device memory: ~twice the time
+                horiz = -(-th * tw // K1_THREADS) * (kx * 9 + 16) * (1 if stage else 2)
+                store = th * (-(-3 * tw // (4 * K1_THREADS))) * 10
+                tiles = batch * -(-out_h // th) * -(-out_w // tw)
+                cost = tiles * (n_cc * (vert + horiz) + store + 40)
+                if best is None or cost < best[0]:
+                    best = (cost, K1Plan(
+                        tile_h=th, tile_w=tw, chunk_w=chunk_w,
+                        row_chunk=row_chunk, stage_wx=stage, stage_wy=stage_wy,
+                        kx_static=kx_static, tiles_per_block=per_block,
+                        smem_bytes=smem,
+                        grid=(-(-n_rt // per_block) * n_ct, batch)))
+        if best is not None:
+            break
+    else:
+        raise ValueError(f"no K1 plan fits {in_hw} -> {out_hw} K={taps_hw}")
+    return best[1]
+
+
+def band_starts(
+    in_size: int, out_size: int, taps: int, span_start: torch.Tensor,
+    span_size: torch.Tensor, out_true: torch.Tensor, in_true: torch.Tensor,
+) -> torch.Tensor:
+    """The unclipped band start j0 [..., out] of every output sample, as
+    K1's weight kernel computes it (0 when the band covers the axis)."""
+    x, _ = _sample_positions(out_size, span_start, span_size, out_true, in_true)
+    if taps >= in_size:
+        return torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    return torch.floor(x).to(torch.int64) - taps // 2 + 1
+
+
+def k1_tile_windows(plan: K1Plan, jy: torch.Tensor, jx: torch.Tensor,
+                    in_hw: Tuple[int, int], taps_hw: Tuple[int, int]):
+    """The source window of every K1 block as the kernel finds it, from the
+    band starts ``jy`` [B, out_h] and ``jx`` [B, out_w]: a list, per
+    member, of ((row lo, row hi), (col lo, col hi), row passes, column
+    passes) for each (row tile, column tile), hi exclusive."""
+    in_h, in_w = in_hw
+    ky, kx = taps_hw
+    out_h, out_w = jy.shape[1], jx.shape[1]
+    th, tw = plan.tile_h, plan.tile_w
+    result = []
+    for b in range(jy.shape[0]):
+        tiles = []
+        for oy0 in range(0, out_h, th):
+            t_last = min(oy0 + th, out_h) - 1
+            rlo = max(int(jy[b, oy0]), 0)
+            rhi = min(int(jy[b, t_last]) + ky, in_h)
+            for ox0 in range(0, out_w, tw):
+                x_last = min(ox0 + tw, out_w) - 1
+                plo = min(max(int(jx[b, ox0]), 0), in_w - 1)
+                phi = min(max(int(jx[b, x_last]) + kx - 1, 0), in_w - 1) + 1
+                tiles.append((
+                    (rlo, rhi), (plo, phi),
+                    max(-(-(rhi - rlo) // plan.row_chunk), 1),
+                    -(-(phi - plo) // plan.chunk_w),
+                ))
+        result.append(tiles)
+    return result
 
 
 #: filter name -> method code of csrc/resample_banded.cu
@@ -409,10 +605,8 @@ def resample_banded_u8(
         # K1 reads source rows as 32-bit words; serving buckets are
         # multiples of 128 wide
         raise ValueError(f"K1 needs a source width that is a multiple of 4, got {in_w}")
+    plan = k1_plan((in_h, in_w), (out_h, out_w), (ky, kx), b)
     lib = _k1_lib()
-    smem = lib.flyimg_resample_banded_smem_bytes(in_w, ky)
-    if smem > 227 * 1024:
-        raise ValueError(f"source width {in_w} too wide for K1 ({smem} B)")
     dev = images.device
     geom = _geometry(span_y, span_x, out_true_hw, in_true_hw)
     out = torch.empty((b, out_h, out_w, 3), dtype=torch.uint8, device=dev)
@@ -424,6 +618,9 @@ def resample_banded_u8(
         images.data_ptr(), out.data_ptr(), geom.data_ptr(),
         wy.data_ptr(), jy.data_ptr(), wx.data_ptr(), jx.data_ptr(),
         b, in_h, in_w, out_h, out_w, ky, kx, _METHOD_CODES[method],
+        plan.tile_h, plan.tile_w, plan.chunk_w, plan.row_chunk,
+        int(plan.stage_wx), int(plan.stage_wy), plan.kx_static,
+        plan.tiles_per_block, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "resample_banded_u8")
@@ -440,9 +637,7 @@ def _k1_lib():
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.flyimg_resample_banded_u8
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 17 + [p]
         fn.restype = ctypes.c_int
-        lib.flyimg_resample_banded_smem_bytes.argtypes = [i, i]
-        lib.flyimg_resample_banded_smem_bytes.restype = ctypes.c_size_t
         lib._flyimg_bound = True
     return lib

@@ -162,3 +162,125 @@ def test_k1_matches_plain_on_card():
     ref = tr.quantize_u8(tr.resample_image_banded(img.float(), (100, 120),
                                                   *geo, (16, 16)))
     assert int((got.int() - ref.int()).abs().max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# kernel K1's host-side launch plan, over seeded random geometries
+# ---------------------------------------------------------------------------
+
+
+def _random_k1_case(seed):
+    """(in bucket, out, per-member geometry rows, taps, method) of one
+    seeded geometry; the kinds cycle through downscale, upscale, spans
+    clamped at both edges, in_true < bucket, K = 32 and K >= 128."""
+    rng = np.random.default_rng(1000 + seed)
+    kind = seed % 6
+    method = FILTERS[seed % len(FILTERS)]
+    in_h = int(rng.integers(16, 700))
+    in_w = 4 * int(rng.integers(4, 200))
+    out_h, out_w = int(rng.integers(8, 260)), int(rng.integers(8, 310))
+    if kind == 1:  # upscale
+        in_h, in_w = int(rng.integers(8, 64)), 4 * int(rng.integers(2, 16))
+    if kind == 5:  # a large downscale: K >= 128 on both axes
+        in_h, in_w = int(rng.integers(1500, 2600)), 4 * int(rng.integers(400, 640))
+        out_h, out_w = int(rng.integers(8, 24)), int(rng.integers(8, 24))
+    rows = []
+    for _ in range(2):
+        th = float(in_h if kind != 3 else rng.integers(in_h // 2, in_h + 1))
+        tw = float(in_w if kind != 3 else rng.integers(in_w // 2, in_w + 1))
+        if kind == 2:  # spans reaching past both edges: sample points clamp
+            sy = (float(rng.uniform(-20, 0)), th + float(rng.uniform(0, 40)))
+            sx = (float(rng.uniform(-20, 0)), tw + float(rng.uniform(0, 40)))
+        else:
+            fy, fx = rng.uniform(0.5, 1.0, 2)
+            sy = (float(rng.uniform(0, th * (1 - fy))), float(th * fy))
+            sx = (float(rng.uniform(0, tw * (1 - fx))), float(tw * fx))
+        ot = (float(rng.integers(out_h // 2, out_h + 1)),
+              float(rng.integers(out_w // 2, out_w + 1)))
+        rows.append((sy, sx, ot, (th, tw)))
+    scale_y = max(r[0][1] / max(r[2][0], 1.0) for r in rows)
+    scale_x = max(r[1][1] / max(r[2][1], 1.0) for r in rows)
+    ky = tr.bucket_taps(tr.band_taps(method, scale_y))
+    kx = tr.bucket_taps(tr.band_taps(method, scale_x))
+    if kind == 4:
+        ky, kx = 32, 32
+    taps = (min(ky, in_h), min(kx, in_w))
+    return (in_h, in_w), (out_h, out_w), rows, taps, method
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_k1_plan_windows_hold_every_band_row(seed):
+    """Every source row and column that carries a nonzero band weight in the
+    JAX package's _band_axis lies inside the window K1's block finds for its
+    tile, the band starts K1 computes agree with the JAX bands, and the
+    plan is one the kernel takes."""
+    in_hw, out_hw, rows, taps, method = _random_k1_case(seed)
+    plan = tr.k1_plan(in_hw, out_hw, taps, len(rows))
+    assert plan.tile_h % tr.K1_SUB == 0 and plan.tile_h in tr.K1_TILE_HEIGHTS
+    assert 1 <= plan.tile_w <= out_hw[1] and plan.chunk_w >= 4
+    assert 1 <= plan.row_chunk <= tr.K1_ROW_CHUNK_MAX
+    assert plan.smem_bytes == tr.k1_smem_bytes(
+        plan.tile_h, plan.tile_w, plan.chunk_w, plan.row_chunk, taps[0],
+        taps[1], plan.stage_wx, plan.stage_wy, plan.tiles_per_block)
+    assert plan.smem_bytes <= tr.K1_SMEM_LIMIT
+    assert plan.kx_static == (taps[1] if taps[1] in tr.K1_STATIC_KX else 0)
+    n_rt = -(-out_hw[0] // plan.tile_h)
+    assert 1 <= plan.tiles_per_block <= n_rt
+    assert plan.tiles_per_block * plan.tile_h <= tr.K1_RUN_ROWS_MAX
+    assert plan.grid == (-(-n_rt // plan.tiles_per_block)
+                         * -(-out_hw[1] // plan.tile_w), len(rows))
+
+    starts = []
+    for axis in (0, 1):
+        j0 = []
+        for sy, sx, ot, it in rows:
+            span = (sy, sx)[axis]
+            ji, jw = jr._band_axis(in_hw[axis], out_hw[axis], taps[axis],
+                                   span[0], span[1], ot[axis], it[axis], method)
+            s = tr.band_starts(in_hw[axis], out_hw[axis], taps[axis],
+                               _t(span[0]), _t(span[1]), _t(ot[axis]),
+                               _t(it[axis])).numpy()
+            # K1's band is the JAX band: tap k gathers clip(j0 + k)
+            k = np.arange(taps[axis])
+            np.testing.assert_array_equal(
+                np.clip(s[:, None] + k, 0, in_hw[axis] - 1), np.asarray(ji))
+            j0.append((s, np.asarray(ji), np.asarray(jw)))
+        starts.append(j0)
+    jy = torch.from_numpy(np.stack([s for s, _, _ in starts[0]]))
+    jx = torch.from_numpy(np.stack([s for s, _, _ in starts[1]]))
+    windows = tr.k1_tile_windows(plan, jy, jx, in_hw, taps)
+    n_ct = -(-out_hw[1] // plan.tile_w)
+    for b in range(len(rows)):
+        _, iy, wy = starts[0][b]
+        _, ix, wx = starts[1][b]
+        for ti, ((rlo, rhi), (plo, phi), n_rc, n_cc) in enumerate(windows[b]):
+            assert n_rc >= 1 and n_cc >= 1
+            oy0 = (ti // n_ct) * plan.tile_h
+            ox0 = (ti % n_ct) * plan.tile_w
+            ry = iy[oy0: oy0 + plan.tile_h][wy[oy0: oy0 + plan.tile_h] != 0]
+            cx = ix[ox0: ox0 + plan.tile_w][wx[ox0: ox0 + plan.tile_w] != 0]
+            assert ((ry >= rlo) & (ry < rhi)).all(), (ti, ry.min(), ry.max(), rlo, rhi)
+            assert ((cx >= plo) & (cx < phi)).all(), (ti, cx.min(), cx.max(), plo, phi)
+
+
+@pytest.mark.parametrize("shape", [
+    ((512, 512), (250, 300), (16, 16), 256),      # the flagship
+    ((1152, 1920), (250, 300), (32, 32), 16),     # a serving bucket
+    ((4096, 4096), (250, 300), (128, 128), 4),    # run-time K
+    ((256, 20480), (250, 300), (16, 512), 2),     # wider than one chunk
+    ((128, 128), (250, 300), (8, 8), 16),         # upscale
+    ((1, 4), (3, 5), (1, 4), 1),                  # a one-row source
+])
+def test_k1_plan_fits_the_card(shape):
+    plan = tr.k1_plan(*shape)
+    assert plan.smem_bytes <= tr.K1_SMEM_LIMIT
+    (in_h, in_w), (out_h, out_w), (ky, kx), _b = shape
+    # a wide source is cut into column chunks rather than refused
+    cols = tr._k1_window(plan.tile_w, in_w / out_w, kx, in_w)
+    assert plan.chunk_w <= cols
+    assert plan.kx_static == (kx if kx in tr.K1_STATIC_KX else 0)
+
+
+def test_k1_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError):
+        tr.k1_plan((0, 4), (3, 5), (1, 4), 1)

@@ -242,3 +242,75 @@ def test_k2_k3_match_plain_on_card():
     pg, pt = ts.batched_scores_plain(field, ker, 8)
     assert float((g - pg).abs().max() / pg.abs().max()) <= 1e-5
     assert float((t - pt).abs().max() / pt.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# kernel K3's host-side launch plan
+# ---------------------------------------------------------------------------
+
+
+def _k3_takes(plan, b, ny, nx, khm, kwm, c, stride):
+    """The launch checks of csrc/scores.cu, and that the plan covers every
+    output and window row exactly once."""
+    assert plan.run in ts.K3_RUN_LENGTHS
+    assert plan.ky_chunk >= 1 and plan.groups_per_block >= 1
+    assert plan.n_ky_chunks == -(-khm // plan.ky_chunk)
+    assert (plan.n_ky_chunks - 1) * plan.ky_chunk < khm <= plan.n_ky_chunks * plan.ky_chunk
+    parts = plan.n_ky_chunks * stride
+    assert plan.threads == plan.groups_per_block * parts <= ts.K3_THREADS
+    groups = b * ny * -(-nx // plan.run) * c
+    assert (plan.blocks - 1) * plan.groups_per_block < groups
+    assert plan.blocks * plan.groups_per_block >= groups
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_k3_plan_takes_every_score_bucket_shape(seed, monkeypatch):
+    """Seeded images of many sizes, crop targets and steps go through
+    score_bucket (on the CPU); every correlation it forms maps to a K3
+    launch the kernel takes."""
+    rng = np.random.default_rng(300 + seed)
+    seen = []
+    plain = ts._batched_scores
+
+    def spy(weighted, kernels, stride):
+        seen.append((tuple(weighted.shape), tuple(kernels.shape), int(stride)))
+        return plain(weighted, kernels, stride)
+
+    monkeypatch.setattr(ts, "_batched_scores", spy)
+    step = (8, 8, 4, 16)[seed % 4]
+    items = []
+    for _ in range(3):
+        h, w = (int(v) for v in rng.integers(24, 420, 2))
+        img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        tw, th = (int(v) for v in rng.integers(20, 300, 2))
+        items.append(ts.prepare_work(img, tw, th, step=step))
+    by_bucket = {}
+    for item in items:
+        by_bucket.setdefault(item.bucket, []).append(item)
+    for bucket, group in by_bucket.items():
+        ts.score_bucket(group, bucket, step, torch.device("cpu"))
+    assert seen
+    for (b, fh, fw), (_kb, khm, kwm, _one, c), stride in seen:
+        ny, nx = (fh - khm) // stride + 1, (fw - kwm) // stride + 1
+        _k3_takes(ts.k3_plan(b, ny, nx, khm, kwm, c, stride), b, ny, nx,
+                  khm, kwm, c, stride)
+
+
+@pytest.mark.parametrize("shape", [
+    (256, 13, 19, 150, 150, 1, 8),   # the flagship
+    (16, 3, 7, 112, 112, 4, 8),      # a serving bucket
+    (8, 8, 23, 40, 48, 2, 8),        # nx a multiple of no run length
+    (16, 3, 7, 112, 112, 6, 8),      # C = 6
+    (4, 5, 9, 16, 16, 40, 8),        # many channels
+    (1, 1, 1, 16, 16, 2, 1),         # one output, stride 1
+    (2, 4, 4, 8, 8, 2, 256),         # the widest stride taken
+])
+def test_k3_plan_shapes(shape):
+    _k3_takes(ts.k3_plan(*shape), *shape)
+
+
+def test_k3_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        ts.k3_plan(1, 1, 1, 8, 8, 1, 257)
+    with pytest.raises(ValueError):
+        ts.k3_plan(0, 1, 1, 8, 8, 1, 8)
