@@ -13,11 +13,16 @@ Phases, in order; any failure exits non-zero without a result line:
              the flagship shape and at a serving shape, with the median times
              of the kernel, the plain version and (where one exists) the one
              PyTorch library call computing the same function; then, not
-             timed, the shapes K1's and K3's tiling could get wrong: an
+             timed, the shapes K1's, K2's and K3's tiling could get wrong: an
              output height no tile height divides, an upscale, a large
              downscale with a run-time K, sources wider and taller than one
              shared-memory chunk, mixed geometries in one batch (four
-             filters); runs of outputs that do not divide nx, C = 2 and 6,
+             filters); for K2, every colour of the RGB cube in one
+             4096x4096 member, 1x1, one row, one column, w = 3, w = 301
+             from an unaligned base, valid sizes of 0, 1 and 2, valid
+             regions smaller than the bucket, batch 1, the 8192-wide bucket
+             and a skin-toned image (and, timed, a skin-toned flagship
+             batch); runs of outputs that do not divide nx, C = 2 and 6,
              stride 4, a window as large as the field, a shared kernel at
              the serving shape;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
@@ -224,23 +229,26 @@ def k1_case(torch, label, args, out_hw, band, method, timed=True):
     return row
 
 
-def k2_case(torch, label, images, in_true):
+def k2_case(torch, label, images, in_true, timed=True):
     from flyimg_tpu_torch.models.smartcrop import (
         _batched_weighted,
         batched_weighted_plain,
+        k2_plan,
     )
 
     got = _batched_weighted(images, in_true)
     ref = batched_weighted_plain(images, in_true)
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
+    check(got.shape == ref.shape, f"K2 {label}: shape {tuple(got.shape)}")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
     check(err == 0.0, f"K2 {label}: max diff {err} != 0")
     b, h, w, _ = images.shape
     row = {
-        "ms": cuda_ms(torch, lambda: _batched_weighted(images, in_true)),
+        "ms": cuda_ms(torch, lambda: _batched_weighted(images, in_true))
+        if timed else None,
         "plain_ms": cuda_ms(
             torch, lambda: batched_weighted_plain(images, in_true), iters=3
-        ),
+        ) if timed else None,
         "library_ms": None, "max_abs_err": err,
     }
     # ~80 f32 operations a valid pixel (5 lumas, Laplacian, skin with two
@@ -251,11 +259,62 @@ def k2_case(torch, label, images, in_true):
     row["bound_ms"], row["bound_by"] = bound_ms(
         3 * n_valid + b * 8 + b * h * w * 4, 80.0 * n_valid
     )
+    times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+             if timed else "")
     print(f"K2 {label}: {tuple(images.shape)} valid "
-          f"{in_true[0].tolist()} max diff {err} (bound 0); kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"{in_true[0].tolist()} max diff {err} (bound 0); {times}bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {k2_plan(b, h, w)}")
     return row
+
+
+def k2_edges(torch, dev, rng):
+    """K2 at the shapes its tiling or its shortcuts could get wrong, each
+    exact against its plain version (correctness only, not timed): every
+    colour of the RGB cube, then the edge shapes."""
+    import numpy as np
+
+    from flyimg_tpu_torch.k2_breakdown import skin_toned_batch
+
+    # the whole RGB cube as one 4096x4096 member: a column walks green in
+    # 16-wide snakes of low blue, a row red in 16-high snakes of high blue,
+    # so horizontal neighbours differ by one step of one channel and
+    # vertical ones by one step of red or 16 of blue
+    i = torch.arange(4096, device=dev)
+    snake = torch.where((i // 16) % 2 == 0, i % 16, 15 - i % 16)
+    r, bh = (i // 16)[:, None], snake[:, None]
+    g, bl = (i // 16)[None, :], snake[None, :]
+    b = 16 * bh + bl
+    code = (r << 16) | (g << 8) | b
+    check(int(torch.unique(code).numel()) == 1 << 24, "K2 cube: colours repeat")
+    cube = torch.stack(torch.broadcast_tensors(r, g, b), -1).to(torch.uint8)[None]
+    k2_case(torch, "RGB cube", cube.contiguous(),
+            torch.tensor([[4096.0, 4096.0]], device=dev), timed=False)
+
+    def case(label, shape, valid, base_offset=0):
+        n, h, w = shape
+        host = rng.integers(0, 256, (n + base_offset, h, w, 3), dtype=np.uint8)
+        img = torch.from_numpy(host).to(dev)[base_offset:]
+        k2_case(torch, label, img, torch.tensor(valid, dtype=torch.float32,
+                                                device=dev), timed=False)
+
+    case("1x1", (1, 1, 1), [[1, 1]])
+    case("1 x w", (2, 1, 37), [[1, 37], [1, 20]])
+    case("h x 1", (2, 45, 1), [[45, 1], [30, 1]])
+    case("w = 3, valid 2, 1 and 0", (4, 33, 3), [[33, 3], [17, 2], [1, 1], [0, 0]])
+    # w a multiple of no 4 and odd valid sizes, from a tensor whose data
+    # starts at 14 mod 16 (one member of 50 x 301 x 3 bytes in)
+    case("w = 301, odd valid, unaligned base", (2, 50, 301),
+         [[50, 301], [49, 297]], base_offset=1)
+    case("valid h or w of 1 and 2", (4, 64, 96),
+         [[1, 96], [2, 95], [64, 1], [64, 2]])
+    case("valid smaller than the bucket", (3, 128, 160),
+         [[111, 133], [97, 141], [5, 7]])
+    case("batch 1", (1, 128, 160), [[128, 160]])
+    # the work image of an 8000x100 panorama (no prescale below 100 px):
+    # the widest bucket here, 16 column chunks
+    case("wide 8192 bucket", (2, 128, 8192), [[100, 8000], [128, 8192]])
+    k2_case(torch, "skin-toned", skin_toned_batch(3, 250, 300, dev, 5),
+            torch.tensor([[250.0, 300.0]] * 3, device=dev), timed=False)
 
 
 def k3_case(torch, label, field, kernels, stride, timed=True):
@@ -319,6 +378,7 @@ def phase_kernels(torch, dev):
     import numpy as np
 
     from flyimg_tpu_torch.entry import OUT_HW, flagship_band, flagship_fn
+    from flyimg_tpu_torch.k2_breakdown import skin_toned_batch
     from flyimg_tpu_torch.models.smartcrop import (
         _batched_weighted,
         importance_kernel,
@@ -353,6 +413,10 @@ def phase_kernels(torch, dev):
         device=dev,
     )
     k2_case(torch, "serving", simg, sval)
+    # K2 — a skin-toned coherent batch at the flagship shape, where the
+    # exact skin path runs for nearly every pixel
+    k2_case(torch, "flagship, skin-toned", skin_toned_batch(256, 250, 300, dev, 3),
+            full)
 
     # K3 — flagship: one 150x150 importance kernel, stride 8
     field = _batched_weighted(out, full)
@@ -372,6 +436,7 @@ def phase_kernels(torch, dev):
             torch.from_numpy(stack[:1]).contiguous().to(dev), 8)
 
     k1_edges(torch, dev, rng)
+    k2_edges(torch, dev, rng)
     k3_edges(torch, dev, rng)
     return rows
 
@@ -512,6 +577,20 @@ def phase_entry(torch, dev, card):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         rates[mode] = 256 * iters / dt
+        if band is None:
+            # the dense resample (plain torch, no hand kernel): the two f32
+            # matmuls as the port runs them (rows, then columns of the
+            # row-resampled image), and its bytes: the u8 source, both
+            # weight matrices, the u8 output
+            b, in_h, in_w, c = images.shape
+            oh, ow = out.shape[1:3]
+            flops = 2.0 * b * (oh * in_h * in_w * c + ow * in_w * oh * c)
+            nbytes = float(images.numel() + 4 * b * (oh * in_h + ow * in_w)
+                           + out.numel())
+            dense_bound, dense_by = bound_ms(nbytes, flops)
+            print(f"entry dense resample: bound {dense_bound:.4f} ms "
+                  f"({dense_by}; {flops / 1e9:.1f} GFLOP f32, "
+                  f"{nbytes / 1e6:.1f} MB)")
         print(f"entry {mode} (band {band}): pixels within {pix} u8 "
               f"({n_diff} of {out.numel()} differ, {frac:.2e}) and scores "
               f"within {rel:.3e} relative of the plain path; steady state "

@@ -34,7 +34,7 @@ import math
 from collections import defaultdict
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -205,11 +205,187 @@ def batched_weighted_plain(images: torch.Tensor, in_true: torch.Tensor) -> torch
     return torch.where(valid, wf, torch.zeros_like(wf))
 
 
+#: K2's launch constants (csrc/saliency.cu): threads a block, the widest
+#: column chunk a block stages, the shared memory a block may take (two
+#: blocks an SM), and the card's SMs for the persistent grid
+K2_THREADS = 512
+K2_MAX_CHUNK_W = 512
+K2_SMEM_CAP = 112 * 1024
+K2_SMS = 132
+K2_BLOCKS_PER_SM = 2
+K2_SM_SMEM = 228 * 1024
+
+#: K2's exact shortcuts. The maps are compared with whole-level lumas, so
+#: each luma window is an integer range: skin needs luma >= 51, saturation
+#: 13 <= luma <= 229 (``k2_thresholds`` derives them from the constants
+#: above the way the plain version compares them). The skin pre-test's
+#: integer weights (csrc/saliency.cu DOT_R, DOT_G, DOT_B):
+K2_SKIN_DOT_WEIGHTS = (78, 57, 44)   # round(100 * SKIN_COLOR)
+#: margin on the skin pre-test's cosine, far above f32 rounding (~1e-7)
+K2_SKIN_PRETEST_MARGIN = 0.002
+#: K2's fast skin level is taken where it lies farther than this from a
+#: whole level (csrc/saliency.cu SKIN_LEVEL_MARGIN)
+K2_SKIN_LEVEL_MARGIN = 1.0 / 256.0
+
+#: the table's bytes: the saturation level of every (max, min) with
+#: min <= max, at max * (max + 1) / 2 + min
+K2_TABLE_BYTES = 256 * 257 // 2
+
+
+def k2_quotients() -> np.ndarray:
+    """[511] f32: ``k / 255`` for k in 0..510, IEEE-rounded, as the plain
+    version divides integer-valued f32 sums and differences by 255."""
+    return np.arange(511, dtype=np.float32) / np.float32(255.0)
+
+
+def k2_saturation_levels() -> np.ndarray:
+    """[256, 256] u8: the floored saturation level of a pixel whose channel
+    maximum is ``[mx]`` and minimum ``[mn]`` (for mn <= mx; 0 above the
+    diagonal), before the luma window: the plain version's f32 operations
+    in its order."""
+    q = k2_quotients()
+    mx = np.arange(256)[:, None]
+    mn = np.arange(256)[None, :]
+    ssum = q[mx + mn]
+    d = q[np.abs(mx - mn)]
+    eq = mx == mn
+    d = np.where(eq, np.float32(0.0), d)
+    ssum = np.where(eq, np.float32(1.0), ssum)
+    ssum = np.where(ssum > np.float32(1.0), np.float32(2.0) - d, ssum)
+    sat = d / ssum
+    mask = sat > np.float32(SATURATION_THRESHOLD)
+    data = (sat - np.float32(SATURATION_THRESHOLD)) * np.float32(
+        255.0 / (1.0 - SATURATION_THRESHOLD)
+    )
+    level = np.floor(np.clip(np.where(mask, data, np.float32(0.0)), 0, 255))
+    return np.where(mn <= mx, level, 0).astype(np.uint8)
+
+
+def k2_table_bytes() -> bytes:
+    """The ``K2_TABLE_BYTES`` a K2 block stages into shared memory."""
+    levels = k2_saturation_levels()
+    return np.concatenate([levels[m, : m + 1] for m in range(256)]).tobytes()
+
+
+@lru_cache(maxsize=1)
+def k2_thresholds() -> Tuple[int, int, int, int]:
+    """(skin luma min, saturation luma min, saturation luma max, skin
+    pre-test constant). A luma is a whole number in 0..255 held as f32, so
+    each f32 comparison of the plain version is an integer bound. The
+    pre-test keeps a pixel for the exact skin path when
+    ``dot * dot > K * S`` in u32, with ``dot = 78 r + 57 g + 44 b`` and
+    ``S = r^2 + g^2 + b^2``: skin > 0.8 means a cosine with the skin colour
+    above (1 + |s|^2 - 0.2^2) / 2, and K is 1e4 times that cosine, less
+    ``K2_SKIN_PRETEST_MARGIN``, squared."""
+    skin_lo = np.float32(SKIN_BRIGHTNESS_MIN * 255.0)
+    sat_lo = np.float32(SATURATION_BRIGHTNESS_MIN * 255.0)
+    sat_hi = np.float32(SATURATION_BRIGHTNESS_MAX * 255.0)
+    s2 = sum(float(np.float32(c)) ** 2 for c in SKIN_COLOR)
+    cos = (1.0 + s2 - (1.0 - SKIN_THRESHOLD) ** 2) / 2.0
+    k = int(math.floor(1e4 * (cos - K2_SKIN_PRETEST_MARGIN) ** 2))
+    return (int(np.ceil(skin_lo)), int(np.ceil(sat_lo)), int(np.floor(sat_hi)), k)
+
+
+@dataclass(frozen=True)
+class K2Plan:
+    """One K2 launch: ``blocks`` persistent blocks walk the tiles, each
+    ``tile_h`` output rows by ``chunk_w`` columns of one member; a tile's
+    source rows (one-pixel halo) are staged at ``stage_pitch`` bytes a row
+    (two buffers), its lumas at ``luma_pitch`` words a row (four pixels a
+    word, one halo word each side)."""
+
+    tile_h: int
+    chunk_w: int
+    n_row_tiles: int
+    n_col_chunks: int
+    stage_pitch: int
+    luma_pitch: int
+    smem_bytes: int
+    blocks: int
+
+
+def _k2_chunk(w: int) -> Tuple[int, int]:
+    n_ct = -(-w // K2_MAX_CHUNK_W)
+    cw = -(-(-(-w // n_ct)) // 4) * 4
+    return n_ct, cw
+
+
+def k2_smem_bytes(tile_h: int, chunk_w: int) -> Tuple[int, int, int]:
+    """(stage pitch, luma pitch, shared bytes) of a tile: the staged row
+    holds the chunk and its halo at the source's 16-byte phase, plus the
+    slack a 12-byte read at a word boundary takes; two buffers of staged
+    rows (the next tile's copies fly while one is computed) and a row of
+    luma words each."""
+    sp = -(-(15 + 3 * (chunk_w + 2)) // 16) * 16 + 16
+    lp = chunk_w // 4 + 2
+    return sp, lp, K2_TABLE_BYTES + (tile_h + 2) * (2 * sp + 4 * lp)
+
+
+def _k2_blocks_per_sm(smem: int) -> int:
+    return max(1, min(K2_BLOCKS_PER_SM, K2_SM_SMEM // (smem + 1024)))
+
+
+@lru_cache(maxsize=256)
+def k2_plan(batch: int, h: int, w: int, tile_h: Optional[int] = None) -> K2Plan:
+    """Pick K2's tiles for a [batch, h, w] field. Columns split into the
+    fewest chunks of at most ``K2_MAX_CHUNK_W`` (a multiple of 4); the tile
+    height is the one with the least estimated time whose shared memory
+    stays within ``K2_SMEM_CAP``: a tile's thread sweeps (output groups of
+    four pixels, the cheaper luma words of the halo-wide tile, and one
+    sweep of staging and barriers) times the tiles, over the card's block
+    slots, and at least one tile's sweeps. ``tile_h`` sets the tile height
+    instead (the breakdown tool's sweep)."""
+    batch, h, w = int(batch), int(h), int(w)
+    if min(batch, h, w) < 1:
+        raise ValueError(f"K2 plan of empty shape {(batch, h, w)}")
+    n_ct, cw = _k2_chunk(w)
+    sp, lp, _ = k2_smem_bytes(0, cw)
+    th_max = max(1, min(32, h, (K2_SMEM_CAP - K2_TABLE_BYTES) // (2 * sp + 4 * lp) - 2))
+    ng = cw // 4
+    best = None
+    for th in range(1, th_max + 1):
+        n_tiles = batch * -(-h // th) * n_ct
+        per_tile = (-(-th * ng // K2_THREADS)
+                    + 0.3 * -(-(th + 2) * lp // K2_THREADS) + 1)
+        # the card's issue rate bounds a large launch; a small one takes at
+        # least one tile's time
+        cost = max(n_tiles * per_tile / (K2_SMS * K2_BLOCKS_PER_SM), per_tile)
+        if best is None or cost < best[0]:
+            best = (cost, th)
+    th = best[1] if tile_h is None else max(1, min(int(tile_h), h))
+    sp, lp, smem = k2_smem_bytes(th, cw)
+    n_rt = -(-h // th)
+    per_sm = _k2_blocks_per_sm(smem)
+    return K2Plan(tile_h=th, chunk_w=cw, n_row_tiles=n_rt, n_col_chunks=n_ct,
+                  stage_pitch=sp, luma_pitch=lp, smem_bytes=smem,
+                  blocks=min(batch * n_rt * n_ct, K2_SMS * per_sm))
+
+
+@lru_cache(maxsize=256)
+def _k2_launch_ints(b: int, h: int, w: int) -> Tuple[int, ...]:
+    """The 13 int arguments of ``flyimg_saliency_field`` for a shape."""
+    plan = k2_plan(b, h, w)
+    return (b, h, w, plan.tile_h, plan.chunk_w, plan.stage_pitch,
+            plan.luma_pitch, plan.smem_bytes, plan.blocks) + k2_thresholds()
+
+
+_K2_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def _k2_tables(device: torch.device) -> torch.Tensor:
+    tables = _K2_TABLES.get(device)
+    if tables is None:
+        tables = torch.frombuffer(bytearray(k2_table_bytes()), dtype=torch.uint8).to(device)
+        _K2_TABLES[device] = tables
+    return tables
+
+
 def _batched_weighted(images: torch.Tensor, in_true: torch.Tensor) -> torch.Tensor:
     """[B, bh, bw, 3] u8 + [B, 2] f32 valid dims -> [B, bh, bw] f32
     weighted scoring fields, zero outside each member's valid region (so
-    box sums and totals over the padded array are exact). Kernel K2 on a
-    CUDA tensor, ``batched_weighted_plain`` on a CPU tensor."""
+    box sums and totals over the padded array are exact). The valid dims
+    are whole numbers no larger than the bucket. Kernel K2 on a CUDA
+    tensor, ``batched_weighted_plain`` on a CPU tensor."""
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[3] != 3:
         raise ValueError(
             f"_batched_weighted takes u8 [B, H, W, 3], got {images.dtype} "
@@ -231,9 +407,12 @@ def _batched_weighted(images: torch.Tensor, in_true: torch.Tensor) -> torch.Tens
     images = images.contiguous()
     in_true = in_true.contiguous()
     out = torch.empty((b, h, w), dtype=torch.float32, device=images.device)
+    if out.numel() == 0:
+        return out
     lib = _lib("saliency")
     rc = lib.flyimg_saliency_field(
-        images.data_ptr(), in_true.data_ptr(), out.data_ptr(), b, h, w,
+        images.data_ptr(), _k2_tables(images.device).data_ptr(),
+        in_true.data_ptr(), out.data_ptr(), *_k2_launch_ints(b, h, w),
         torch.cuda.current_stream(images.device).cuda_stream,
     )
     cuda_build.check(rc, "_batched_weighted")
@@ -375,7 +554,7 @@ def _batched_scores(weighted: torch.Tensor, kernels: torch.Tensor, stride: int):
 _batched_scores.launches = 0
 
 _ARGTYPES = {
-    "saliency": ("flyimg_saliency_field", "ppp" + "iii" + "p"),
+    "saliency": ("flyimg_saliency_field", "pppp" + "i" * 13 + "p"),
     "scores": ("flyimg_candidate_scores", "pppp" + "i" * 13 + "p"),
 }
 

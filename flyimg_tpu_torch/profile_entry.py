@@ -12,8 +12,13 @@ saliency field, 150x150 stride-8 scoring), dense and banded:
    time by kernel name and the device's busy share of the window's wall
    time.
 
-Prints one JSON line per mode, with the card's name and power limit.
-Needs a CUDA card.
+Then kernel K2 alone at a serving shape ([16, 128, 160, 3], valid regions
+smaller than the bucket): its device time a launch from a ``torch.profiler``
+window of ``--iters`` launches, beside CUDA events over bursts of 20
+launches (which also hold the host's launch time when that is longer).
+
+Prints one JSON line per mode and one for K2 at the serving shape, with the
+card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -138,6 +143,37 @@ def profiler_window(fn, args, iters: int) -> dict:
     }
 
 
+def k2_serving(iters: int, dev) -> dict:
+    """Device and burst milliseconds a K2 launch at the serving shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    images = torch.randint(0, 256, (16, 128, 160, 3), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    valid = torch.tensor([[111 - i % 5, 133 + i % 7] for i in range(16)],
+                         dtype=torch.float32, device=dev)
+
+    def burst():
+        for _ in range(20):
+            _batched_weighted(images, valid)
+
+    burst_ms = _median_ms(burst, iters) / 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            _batched_weighted(images, valid)
+        torch.cuda.synchronize()
+    device_us = 0.0
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")) and "saliency" in evt.key:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            device_us += dev_us
+    return {"shape": [16, 128, 160, 3], "device_ms": device_us / 1e3 / iters,
+            "burst_ms": burst_ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="flyimg_tpu_torch.profile_entry")
     parser.add_argument("--batch", type=int, default=256)
@@ -159,6 +195,8 @@ def main(argv=None) -> int:
         }
         print(json.dumps(row))
     set_kernel_mode("dense")
+    print(json.dumps({"mode": "k2_serving", "card": card,
+                      **k2_serving(args.iters, dev)}))
     return 0
 
 
