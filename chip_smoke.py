@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero without a result line:
 
 1. device  — a CUDA card must be visible; prints nvidia-smi's name and
              power limit;
-2. build   — compiles kernels K1-K3 from csrc/ with nvcc (one process per
+2. build   — compiles kernels K1-K6 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
@@ -24,18 +24,34 @@ Phases, in order; any failure exits non-zero without a result line:
              and a skin-toned image (and, timed, a skin-toned flagship
              batch); runs of outputs that do not divide nx, C = 2 and 6,
              stride 4, a window as large as the field, a shared kernel at
-             the serving shape;
+             the serving shape; then K1's f32-store form, K4 (rotate), K5
+             (separable filter) and K6 (pad/gray/dither pass) at the shapes
+             the staged programs give them (32 x 1920x1080 sources), timed,
+             with F.grid_sample and a depthwise F.conv2d as yardsticks; and,
+             not timed, K1-f32 on fit rows past out_true, K4 on 1x1 and 1 x w
+             frames at 0/90/180/270/0.5/359.5/-15 degrees, valid regions
+             smaller than the bucket, a coloured background and the
+             8192-wide bucket, K5 with 61 taps, images narrower than the
+             taps and unsharp thresholds 0 and > 0, K6 with negative
+             offsets, a canvas smaller than the image and no overlap;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
-5. server  — the package's HTTP server on the card answers 16 concurrent
+5. staged  — each program of flyimg_tpu_torch/entry.py STAGED_OPTIONS
+             (rotate, filters, pad, grayscale, dither)
+             on a batch of 32 1920x1080 sources built as the batcher builds
+             it, banded; two members held against the same program on the
+             CPU, then timed (images/s);
+6. server  — the package's HTTP server on the card answers 16 concurrent
              /upload/w_300,h_250,c_1[,smc_1]/ requests for seeded synthetic
-             PNGs, dense and banded; every answer is held against the same
-             request through the handler on the CPU; a repeat is a cache hit.
+             PNGs, then 16 concurrent requests spread over the
+             STAGED_OPTIONS strings, dense and banded; every answer is held against
+             the same request through the handler on the CPU; a repeat is a
+             cache hit.
 
-Launch counters are zeroed right before each main-path phase (4 and 5) and
-read right after; every kernel must have launched in each. The last lines
-are the card, one JSON object describing every kernel, and
+Launch counters are zeroed right before each main-path phase (4, 5 and 6)
+and read right after; every kernel of the phase's path must have launched.
+The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
 """
 
@@ -57,6 +73,16 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 PIXEL_TOL = 1                   # u8 levels
 DIFF_FRAC = 1e-4                # share of u8 values that may differ by 1
 SCORE_RTOL = 1e-5               # max |a - b| / max |b|
+F32_TOL = 1e-3                  # f32 stage outputs: K1-f32; K4 off the fill edge
+K5_TOL = 1e-4                   # K5's f32 outputs (blur sums in another order)
+K5_KNIFE = 1e-3                 # |(|x - blur|) - thr * 255| of an unsharp knife-edge
+K6_KNIFE = 1e-4                 # |luma - threshold| of a dither knife-edge
+FLIP_FRAC = 1e-5                # share of values a dither threshold may flip
+
+#: sources and batch of the staged programs (flyimg_tpu_torch/entry.py
+#: STAGED_OPTIONS)
+SRC_W, SRC_H = 1920, 1080
+STAGED_BATCH = 32
 
 
 class SmokeFailure(Exception):
@@ -168,34 +194,48 @@ def serving_geometry(torch, w, h, batch, dev, rng):
     )
 
 
-def k1_case(torch, label, args, out_hw, band, method, timed=True):
+def k1_case(torch, label, args, out_hw, band, method, timed=True, f32=False):
+    """K1 against its plain version: the u8 store within PIXEL_TOL levels on
+    at most a DIFF_FRAC share, or (``f32``) the f32-store form within
+    F32_TOL of ``resample_image_banded`` on every row and column, those
+    past out_true included."""
     from flyimg_tpu_torch.ops.resample import (
         _band_axis,
         k1_plan,
         quantize_u8,
+        resample_banded_f32,
         resample_banded_u8,
         resample_image_banded,
     )
 
     images, in_true, span_y, span_x, out_true = args
     b, in_h, in_w, _ = images.shape
+    in_true = in_true[:, :2]
+    name = "K1-f32" if f32 else "K1"
 
     def kern():
-        return resample_banded_u8(images, out_hw, span_y, span_x, out_true,
-                                  in_true, band, method)
+        fn = resample_banded_f32 if f32 else resample_banded_u8
+        return fn(images, out_hw, span_y, span_x, out_true, in_true, band,
+                  method)
 
     def plain():
-        return quantize_u8(resample_image_banded(
+        out = resample_image_banded(
             images.float(), out_hw, span_y, span_x, out_true, in_true, band,
             method,
-        ))
+        )
+        return out if f32 else quantize_u8(out)
 
     got, ref = kern(), plain()
     torch.cuda.synchronize()
-    diff = (got.int() - ref.int()).abs()
-    err = int(diff.max())
-    n_diff = int((diff > 0).sum())
-    frac = check_pixels(f"K1 {label}", err, n_diff, got.numel())
+    if f32:
+        err = float((got - ref).abs().max())
+        check(err <= F32_TOL, f"{name} {label}: max diff {err} > {F32_TOL}")
+        n_diff, frac = int((got != ref).sum()), 0.0
+    else:
+        diff = (got.int() - ref.int()).abs()
+        err = int(diff.max())
+        n_diff = int((diff > 0).sum())
+        frac = check_pixels(f"K1 {label}", err, n_diff, got.numel())
     # what the function must move: per member, the source rows times the
     # source columns that carry a nonzero band weight, the geometry and the
     # output; work: the nonzero-weight multiply-adds of the cheaper pass
@@ -210,7 +250,8 @@ def k1_case(torch, label, args, out_hw, band, method, timed=True):
     flops = 2.0 * 3 * float(torch.minimum(
         nnz_y * cols_b + nnz_x * out_hw[0], nnz_x * rows_b + nnz_y * out_hw[1]
     ).sum())
-    nbytes = 3.0 * float((rows_b * cols_b).sum()) + b * 8 * 4 + got.numel()
+    nbytes = (3.0 * float((rows_b * cols_b).sum()) + b * 8 * 4
+              + got.numel() * got.element_size())
     row = {
         "ms": cuda_ms(torch, kern) if timed else None,
         "plain_ms": cuda_ms(torch, plain, iters=3) if timed else None,
@@ -220,9 +261,11 @@ def k1_case(torch, label, args, out_hw, band, method, timed=True):
     plan = k1_plan((in_h, in_w), tuple(out_hw), tuple(band), b)
     times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
              if timed else "")
-    print(f"K1 {label}: in {tuple(images.shape)} -> {tuple(out_hw)} K={band} "
-          f"max diff {err} u8 (bound {PIXEL_TOL}), {n_diff} of {got.numel()} "
-          f"values differ ({frac:.2e}, bound {DIFF_FRAC:.0e}); source reached "
+    limits = (f"(bound {F32_TOL}), {n_diff} of {got.numel()} values not equal"
+              if f32 else f"u8 (bound {PIXEL_TOL}), {n_diff} of {got.numel()} "
+              f"values differ ({frac:.2e}, bound {DIFF_FRAC:.0e})")
+    print(f"{name} {label}: in {tuple(images.shape)} -> {tuple(out_hw)} K={band} "
+          f"max diff {err} {limits}; source reached "
           f"{float((rows_b * cols_b).sum()) / (b * in_h * in_w):.4f} of the "
           f"bucket; {times}bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}); {plan}")
@@ -599,6 +642,450 @@ def phase_entry(torch, dev, card):
     return rates
 
 
+def staged_case(torch, dev, opts, n=None, seed=0):
+    """One staged program's batch as the batcher builds it for n seeded
+    SRC_W x SRC_H sources: (plan, group, final valid (h, w), images on the
+    card, program args on the card, program)."""
+    from flyimg_tpu_torch.entry import staged_entry
+
+    fn, (img, *args), group, plan, final_true = staged_entry(
+        opts, n or STAGED_BATCH, dev, seed, (SRC_W, SRC_H))
+    return plan, group, final_true, img, tuple(args), fn
+
+
+def staged_kernels(group):
+    """The kernels a staged group's program launches."""
+    from flyimg_tpu_torch.ops.compose import post_stages
+
+    plan = group.device_plan
+    stages = post_stages(plan, group.pad_canvas)
+    names = []
+    if group.resample_out is not None and group.band_taps is not None:
+        names.append("K1-f32" if stages else "K1")
+    if "pixel" in stages:
+        names.append("K6")
+    if plan.rotate is not None and (
+        group.rotate_dynamic or plan.rotate % 360.0 not in (0.0, 90.0, 180.0, 270.0)
+    ):
+        names.append("K4")
+    if {"unsharp", "sharpen", "blur"} & set(stages):
+        names.append("K5")
+    return names
+
+
+def inside_margin(torch, geom, degrees, out_h, out_w):
+    """[B, out_h, out_w] f64: how far each output pixel's source position
+    lies inside (+) or outside (-) rotate's valid region, in pixels — the
+    distance to the `inside` test's knife-edge."""
+    from flyimg_tpu_torch.ops.rotate import rotation_terms
+
+    g = geom.double()
+    cos_t, sin_t = rotation_terms(degrees)
+    yo = torch.arange(out_h, dtype=torch.float64, device=geom.device)[None, :, None]
+    xo = torch.arange(out_w, dtype=torch.float64, device=geom.device)[None, None, :]
+    th, tw = g[:, 0, None, None], g[:, 1, None, None]
+    dx = xo - (g[:, 3, None, None] - 1) / 2
+    dy = yo - (g[:, 2, None, None] - 1) / 2
+    xs = cos_t * dx + sin_t * dy + (tw - 1) / 2
+    ys = -sin_t * dx + cos_t * dy + (th - 1) / 2
+    return torch.minimum(torch.minimum(xs + 0.5, tw - 0.5 - xs),
+                         torch.minimum(ys + 0.5, th - 0.5 - ys))
+
+
+def k4_case(torch, label, x, degrees, background, geom, timed=True):
+    """K4 against rotate_plain: within F32_TOL wherever the source position
+    lies more than F32_TOL from the fill edge."""
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.ops.rotate import rotate_plain, rotate_sampled
+
+    got = rotate_sampled(x, degrees, background, geom)
+    ref = rotate_plain(x, degrees, background, geom)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"K4 {label}: shape {tuple(got.shape)}")
+    b, oh, ow, _ = got.shape
+    edge = inside_margin(torch, geom, degrees, oh, ow).abs() < F32_TOL
+    diff = (got - ref).abs()
+    err = float(diff.masked_fill(edge[..., None], 0.0).max())
+    n_edge = int(((diff > F32_TOL) & edge[..., None]).sum())
+    check(err <= F32_TOL, f"K4 {label}: max diff {err} > {F32_TOL} off the fill edge")
+    row = {"ms": None, "plain_ms": None, "library_ms": None, "max_abs_err": err}
+    # bytes: the valid input region once, the geometry, the output; ~40
+    # flops a pixel (map, four clamped taps, three channel blends)
+    n_valid = float((geom[:, 0] * geom[:, 1]).sum())
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        12 * n_valid + 16 * b + got.numel() * got.element_size(),
+        40.0 * b * oh * ow)
+    times = ""
+    if timed:
+        # the yardstick: F.grid_sample, bilinear, align_corners, border
+        # padding — the same gather, but no background outside and the
+        # whole frame as the clamp region
+        _, h, w, _ = x.shape
+        from flyimg_tpu_torch.ops.rotate import rotation_terms
+
+        cos_t, sin_t = rotation_terms(degrees)
+        yo = torch.arange(oh, dtype=torch.float32, device=x.device)[None, :, None]
+        xo = torch.arange(ow, dtype=torch.float32, device=x.device)[None, None, :]
+        g = geom[:, :, None, None]
+        dx, dy = xo - (g[:, 3] - 1) / 2, yo - (g[:, 2] - 1) / 2
+        xs = cos_t * dx + sin_t * dy + (g[:, 1] - 1) / 2
+        ys = -sin_t * dx + cos_t * dy + (g[:, 0] - 1) / 2
+        grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)
+        nchw = x.permute(0, 3, 1, 2).contiguous()
+
+        def library():
+            return F.grid_sample(nchw, grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+        row["ms"] = cuda_ms(torch, lambda: rotate_sampled(x, degrees, background, geom))
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: rotate_plain(x, degrees, background, geom), iters=3)
+        row["library_ms"] = cuda_ms(torch, library)
+        times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                 f"grid_sample {row['library_ms']:.4f} ms (no fill), ")
+    print(f"K4 {label}: {tuple(x.shape)} -> {tuple(got.shape)} at {degrees} deg, "
+          f"max diff {err} off the fill edge (bound {F32_TOL}), {n_edge} values "
+          f"differ on it; {times}bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def k5_case(torch, label, x, kernel, mode, gain, threshold, out_u8, timed=True):
+    """K5 against its plain version on the card: f32 within K5_TOL, u8
+    within PIXEL_TOL; values differ more only where the unsharp threshold
+    lies within K5_KNIFE of |x - blur| (counted)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.ops.filters import (
+        MODE_UNSHARP,
+        separable_conv_plain,
+        separable_filter,
+        unsharp_from_blurred,
+    )
+    from flyimg_tpu_torch.ops.resample import quantize_u8
+
+    def plain():
+        out = separable_conv_plain(x, kernel)
+        if mode == MODE_UNSHARP:
+            out = unsharp_from_blurred(x, out, gain, threshold)
+        return quantize_u8(out) if out_u8 else out
+
+    got = separable_filter(x, kernel, mode, gain, threshold, out_u8)
+    ref = plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    knife = torch.zeros_like(diff, dtype=torch.bool)
+    if mode == MODE_UNSHARP:
+        blurred = separable_conv_plain(x, kernel)
+        knife = ((x - blurred).abs() - float(np.float32(threshold * 255.0))).abs() < K5_KNIFE
+    tol = PIXEL_TOL if out_u8 else K5_TOL
+    err = float(diff.masked_fill(knife, 0.0).max())
+    n_knife = int((knife & (diff > tol)).sum())
+    check(err <= tol, f"K5 {label}: max diff {err} > {tol} off the threshold")
+    if out_u8:
+        check_pixels(f"K5 {label}", 0, int(((diff > 0) & ~knife).sum()), diff.numel())
+    b, h, w, _ = x.shape
+    k = int(kernel.shape[0])
+    row = {"ms": None, "plain_ms": None, "library_ms": None, "max_abs_err": err}
+    # bytes: x once, the output once; flops: both passes' K multiply-adds
+    # an element, plus the epilogue
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        x.numel() * 4 + got.numel() * got.element_size() + 4 * k,
+        x.numel() * (4.0 * k + (4 if mode == MODE_UNSHARP else 0)))
+    times = ""
+    if timed:
+        # the yardstick: one depthwise conv2d (the K x K outer product of
+        # the taps, groups=3) on the replicate-padded input
+        half = k // 2
+        ker = torch.from_numpy(np.outer(kernel, kernel).astype(np.float32)).to(x.device)
+        padded = F.pad(x.permute(0, 3, 1, 2), (half, half, half, half),
+                       mode="replicate").contiguous()
+        weight = ker[None, None].expand(3, 1, k, k).contiguous()
+        lib_err = float((F.conv2d(padded, weight, groups=3).permute(0, 2, 3, 1)
+                         - separable_conv_plain(x, kernel)).abs().max())
+        row["ms"] = cuda_ms(torch, lambda: separable_filter(
+            x, kernel, mode, gain, threshold, out_u8))
+        row["plain_ms"] = cuda_ms(torch, plain, iters=3)
+        row["library_ms"] = cuda_ms(torch, lambda: F.conv2d(padded, weight, groups=3))
+        times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                 f"conv2d {k}x{k} {row['library_ms']:.4f} ms (blur only, max "
+                 f"diff {lib_err:.2e}), ")
+    print(f"K5 {label}: {tuple(x.shape)} {k} taps mode {mode} "
+          f"{'u8' if out_u8 else 'f32'}: max diff {err} (bound {tol}), "
+          f"{n_knife} values differ more at the threshold; {times}bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def k6_case(torch, label, x, canvas, offset, background, gray, dither, out_u8,
+            timed=True):
+    """K6 against pixel_pass_plain: exact wherever no dither threshold lies
+    within K6_KNIFE of the luma (those values are counted)."""
+    from flyimg_tpu_torch.ops.color import (
+        LUMA_WEIGHTS,
+        _luma,
+        dither_threshold,
+        pixel_pass,
+        pixel_pass_plain,
+    )
+    from flyimg_tpu_torch.ops.pad import extent_pad
+
+    got = pixel_pass(x, canvas, offset, background, gray, dither, out_u8)
+    ref = pixel_pass_plain(x, canvas, offset, background, gray, dither, out_u8)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"K6 {label}: {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - ref.float()).abs()
+    knife = torch.zeros(diff.shape[:3], dtype=torch.bool, device=x.device)
+    if dither:
+        pre = extent_pad(x, canvas, offset, background) if canvas else x
+        if gray is not None:
+            pre = _luma(pre, gray)[..., None].expand(pre.shape)
+        luma = _luma(pre, LUMA_WEIGHTS)
+        knife = (luma - dither_threshold(*luma.shape[1:], x.device)).abs() < K6_KNIFE
+    err = float(diff.masked_fill(knife[..., None], 0.0).max())
+    n_knife = int((knife[..., None] & (diff > 0)).sum())
+    check(err == 0.0, f"K6 {label}: max diff {err} off the dither knife-edge")
+    b, oh, ow, _ = got.shape
+    row = {"ms": None, "plain_ms": None, "library_ms": None, "max_abs_err": err}
+    # bytes: the input pixels the canvas shows, the output; ~12 flops a pixel
+    shown = oh * ow
+    if canvas is not None:
+        h, w = x.shape[1:3]
+        shown = (max(0, min(h, oh + offset[1]) - max(0, offset[1]))
+                 * max(0, min(w, ow + offset[0]) - max(0, offset[0])))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        12.0 * b * shown + got.numel() * got.element_size(), 12.0 * b * oh * ow)
+    times = ""
+    if timed:
+        row["ms"] = cuda_ms(torch, lambda: pixel_pass(
+            x, canvas, offset, background, gray, dither, out_u8))
+        row["plain_ms"] = cuda_ms(torch, lambda: pixel_pass_plain(
+            x, canvas, offset, background, gray, dither, out_u8), iters=3)
+        times = f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+    print(f"K6 {label}: {tuple(x.shape)} -> {tuple(got.shape)} "
+          f"{'u8' if out_u8 else 'f32'}: max diff {err} (exact), {n_knife} values "
+          f"differ at a dither threshold (within {K6_KNIFE}); {times}bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_stage_kernels(torch, dev):
+    """K1-f32, K4, K5 and K6 against their plain versions at the shapes the
+    staged programs give them (32 x 1920x1080 sources), timed; then the
+    edge cases, not timed."""
+    from flyimg_tpu_torch.entry import STAGED_OPTIONS as STAGED
+    from flyimg_tpu_torch.ops.color import LUMA_WEIGHTS, LUMA_WEIGHTS_601
+    from flyimg_tpu_torch.ops.filters import (
+        MODE_BLUR,
+        MODE_UNSHARP,
+        gaussian_kernel,
+    )
+    from flyimg_tpu_torch.ops.resample import resample_banded_f32, set_kernel_mode
+    from flyimg_tpu_torch.ops.rotate import rotate_image
+    from flyimg_tpu_torch.spec.plan import rotated_bounds
+
+    set_kernel_mode("banded")
+    rows = {}
+
+    def resampled(opts, seed):
+        plan, group, final_true, img, args, _fn = staged_case(torch, dev, opts, seed=seed)
+        in_true, span_y, span_x, out_true = args
+        x = resample_banded_f32(img, group.resample_out, span_y, span_x,
+                                out_true, in_true[:, :2], group.band_taps,
+                                plan.filter_method)
+        return plan, group, final_true, img, args, x
+
+    # K1-f32 and K5 unsharp: the fit path w_1280 (bucketed output rows past
+    # out_true), then its 3-tap unsharp with the u8 store
+    plan, group, _, img, args, x = resampled(STAGED[2], 1)
+    in_true, span_y, span_x, out_true = args
+    rows["K1-f32"] = k1_case(torch, "serving w_1280 fit", (img, in_true, span_y, span_x, out_true),
+                             group.resample_out, group.band_taps, plan.filter_method,
+                             f32=True)
+    r, s_, gain, thr = plan.unsharp
+    k5_case(torch, "serving unsharp 0.25x0.25+8+0.065", x, gaussian_kernel(r, s_),
+            MODE_UNSHARP, gain, thr, out_u8=True)
+    # K6: w_800 dither, and the pad + grayscale canvas
+    plan, group, _, _, _, x = resampled(STAGED[4], 2)
+    rows["K6"] = k6_case(torch, "serving w_800 dither", x, None, (0, 0), None,
+                         None, True, True)
+    plan, group, _, _, _, x = resampled(STAGED[3], 3)
+    k6_case(torch, "serving ett_400x320 pad + gray", x, group.pad_canvas,
+            group.pad_offset, plan.background, LUMA_WEIGHTS, False, True)
+    # K4: the dynamic rotate of the w_800,h_600 crop, then the static exact
+    # frame of r_-15, whose f32 output the 13-tap blur (K5's row) takes
+    plan, group, final_true, _, args, x = resampled(STAGED[0], 4)
+    geom = torch.cat([args[3], args[0][:, 2:4]], dim=1).contiguous()
+    k4_case(torch, "serving dynamic r_30", x, plan.rotate, plan.background, geom)
+    plan, group, _, img, args, _fn = staged_case(torch, dev, STAGED[5], seed=5)
+    frame = img.float()
+    b, h, w, _ = frame.shape
+    ow, oh = rotated_bounds(w, h, plan.rotate)
+    geom = torch.tensor([[h, w, oh, ow]], dtype=torch.float32, device=dev).repeat(b, 1)
+    rows["K4"] = k4_case(torch, "serving static r_-15", frame, plan.rotate,
+                         plan.background, geom)
+    rotated = rotate_image(frame, plan.rotate, plan.background)
+    del frame
+    r, s_ = plan.blur
+    rows["K5"] = k5_case(torch, "serving blur 0x2 of the rotated frame", rotated,
+                         gaussian_kernel(r, s_), MODE_BLUR, 1.0, 0.0, out_u8=True)
+    del rotated
+    stage_edges(torch, dev, LUMA_WEIGHTS_601)
+    return rows
+
+
+def stage_edges(torch, dev, gray601):
+    """K1-f32, K4, K5 and K6 at the shapes they could get wrong
+    (correctness only, not timed)."""
+    from flyimg_tpu_torch.ops.filters import (
+        MODE_BLUR,
+        MODE_UNSHARP,
+        gaussian_kernel,
+    )
+    from flyimg_tpu_torch.spec.plan import rotated_bounds
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def noise(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 255.0
+
+    def smooth(n, h, w):
+        yy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None, None]
+        xx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :, None]
+        c = torch.arange(3, device=dev, dtype=torch.float32)
+        base = 128 + 100 * torch.sin(yy / 17.0 + c) * torch.cos(xx / 23.0 - c)
+        return (base + noise(n, h, w, 3) * 0.05).expand(n, h, w, 3).contiguous()
+
+    # K1-f32: the fit path's rows past out_true, members of mixed geometry
+    geoms = []
+    for sw, sh in ((1920, 1080), (1303, 977), (1024, 1024), (640, 1152)):
+        ow_, oh_ = 640, round(sh * 640 / sw)
+        geoms.append(((sh, sw), (0.0, sh), (0.0, sw), (oh_, ow_)))
+    img = torch.randint(0, 256, (4, 1152, 1920, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    cols = [torch.tensor([g[i] for g in geoms], dtype=torch.float32, device=dev)
+            for i in range(4)]
+    k1_case(torch, "fit rows past out_true, mixed", (img, *cols), (640, 640),
+            (32, 32), "lanczos3", timed=False, f32=True)
+
+    # K4: 1x1 and 1 x w frames; every angle kind; valid < bucket; a
+    # non-white background; the 8192-wide bucket
+    def k4(label, x, deg, bg, valid=None):
+        b, h, w, _ = x.shape
+        valid = valid or [(h, w)] * b
+        rows = []
+        for th, tw in valid:
+            rw, rh = rotated_bounds(tw, th, deg)
+            rows.append([th, tw, rh, rw])
+        geom = torch.tensor(rows, dtype=torch.float32, device=dev)
+        k4_case(torch, label, x, deg, bg, geom, timed=False)
+
+    for deg in (0, 90, 180, 270, 0.5, 359.5, -15):
+        k4(f"1x1 at {deg}", noise(2, 1, 1, 3), deg, None)
+        k4(f"1 x 37 at {deg}", noise(2, 1, 37, 3), deg, (10, 200, 30))
+        k4(f"valid < bucket at {deg}", smooth(3, 128, 160), deg, (51, 102, 153),
+           [(111, 133), (97, 141), (5, 7)])
+    k4("wide 8192 bucket at 5", smooth(2, 128, 8192), 5, None,
+       [(100, 8000), (128, 8192)])
+
+    # K5: 61 taps (blr_0x10), an image narrower and shorter than the taps,
+    # threshold 0 and > 0, f32 and u8
+    k61 = gaussian_kernel(0, 10)
+    k5_case(torch, "61 taps", smooth(2, 300, 400), k61, MODE_BLUR, 1.0, 0.0,
+            False, timed=False)
+    k5_case(torch, "61 taps on 5x20", smooth(3, 5, 20), k61, MODE_BLUR, 1.0, 0.0,
+            True, timed=False)
+    k5_case(torch, "1 wide, 5 taps", smooth(2, 40, 1), gaussian_kernel(2, 1),
+            MODE_BLUR, 1.0, 0.0, False, timed=False)
+    for thr in (0.0, 0.02):
+        k5_case(torch, f"unsharp 2x1+1.5+{thr}", smooth(2, 200, 300),
+                gaussian_kernel(2, 1), MODE_UNSHARP, 1.5, thr, False, timed=False)
+        k5_case(torch, f"unsharp 0x3+0.8+{thr}, u8", smooth(2, 200, 300),
+                gaussian_kernel(0, 3), MODE_UNSHARP, 0.8, thr, True, timed=False)
+
+    # K6: negative offsets, a canvas smaller than the image, no overlap
+    x = smooth(3, 90, 120)
+    for label, canvas, offset in (
+        ("negative offsets", (150, 100), (-20, -7)),
+        ("canvas smaller than the image", (70, 50), (-10, -12)),
+        ("canvas larger, positive offsets", (200, 160), (40, 33)),
+        ("no overlap", (60, 40), (200, 300)),
+        ("no overlap, negative", (60, 40), (-500, -3)),
+    ):
+        for gray, dither, u8 in ((None, False, False), (gray601, False, True),
+                                 (None, True, True), (gray601, True, False)):
+            k6_case(torch, f"{label}, gray {gray is not None}, dither {dither}",
+                    x, canvas, offset, (12, 200, 77), gray, dither, u8, timed=False)
+    k6_case(torch, "no pad, gray", x, None, (0, 0), None, gray601, False, False,
+            timed=False)
+
+
+def compare_staged(label, got, ref, dither):
+    """Hold a staged program's u8 output to the reference: within PIXEL_TOL
+    levels on at most DIFF_FRAC of values; for a dithered plan a value may
+    also flip 0 <-> 255 where a threshold lies between the two sides'
+    lumas, on at most FLIP_FRAC of values. Returns (n_diff, n_flip)."""
+    import numpy as np
+
+    check(got.shape == ref.shape, f"{label}: shape {got.shape} vs {ref.shape}")
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    flips = diff > PIXEL_TOL
+    n_flip = int(flips.sum())
+    if dither:
+        both = np.isin(got[flips], (0, 255)) & np.isin(ref[flips], (0, 255))
+        check(bool(both.all()), f"{label}: a dithered value off 0/255 differs")
+        check(n_flip <= FLIP_FRAC * diff.size,
+              f"{label}: {n_flip} of {diff.size} values flipped (> {FLIP_FRAC:.0e})")
+    else:
+        check(n_flip == 0, f"{label}: max diff {int(diff.max())} > {PIXEL_TOL}")
+    n_diff = int(((diff > 0) & ~flips).sum())
+    check_pixels(label, 0, n_diff, diff.size)
+    return n_diff, n_flip
+
+
+def phase_staged(torch, dev, card, kernels):
+    """Main path: each staged program on a batch of 32 1920x1080 sources,
+    built as the batcher builds it, banded; members 0 and 31 held against
+    the same program on the CPU (the plain versions), then timed."""
+    from flyimg_tpu_torch.entry import STAGED_OPTIONS as STAGED
+    from flyimg_tpu_torch.ops.resample import set_kernel_mode
+
+    set_kernel_mode("banded")
+    rates = {}
+    for i, opts in enumerate(STAGED):
+        plan, group, final_true, img, args, fn = staged_case(torch, dev, opts, seed=50 + i)
+        before = read_counts(kernels)
+        out = fn(img, *args)
+        torch.cuda.synchronize()
+        after = read_counts(kernels)
+        for name in staged_kernels(group):
+            check(after[name] > before[name], f"staged {opts}: {name} never launched")
+        pick = [0, STAGED_BATCH - 1]
+        ref = fn(img[pick].cpu(), *(a[pick].cpu() for a in args)).numpy()
+        got = out[pick].cpu().numpy()
+        th, tw = final_true
+        n_diff, n_flip = compare_staged(
+            f"staged {opts}", got[:, :th, :tw], ref[:, :th, :tw], plan.monochrome)
+        iters = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(img, *args)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        rates[opts] = STAGED_BATCH / dt
+        print(f"staged {opts}: {tuple(img.shape)} -> {tuple(out.shape)} "
+              f"(valid {th}x{tw}), kernels {staged_kernels(group)}; members 0, "
+              f"{STAGED_BATCH - 1} vs the CPU: {n_diff} values differ by 1, "
+              f"{n_flip} flipped at a dither threshold; steady state "
+              f"{rates[opts]:.1f} images/s ({dt * 1e3:.3f} ms a batch) on {card}")
+        del img, out, args
+    return rates
+
+
 def synthetic_png(path, w, h, seed):
     """Smooth seeded image with structure: colour gradients, a few soft
     skin-toned and saturated blobs, and a sharp-edged rectangle."""
@@ -633,6 +1120,7 @@ def phase_server(torch, dev, workdir, kernels):
 
     from flyimg_tpu_torch.appconfig import AppParameters
     from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.entry import STAGED_OPTIONS as STAGED
     from flyimg_tpu_torch.ops.resample import set_kernel_mode
     from flyimg_tpu_torch.service.app import make_server, serve_in_thread
     from flyimg_tpu_torch.service.handler import ImageHandler
@@ -646,6 +1134,9 @@ def phase_server(torch, dev, workdir, kernels):
         sources.append(path)
     option_sets = ("w_300,h_250,c_1", "w_300,h_250,c_1,smc_1")
     requests = [(o, s) for s in sources for o in option_sets]
+    # the second wave: 16 requests spread over the staged programs
+    staged = [(STAGED[i % len(STAGED)], sources[i % len(sources)])
+              for i in range(16)]
 
     counts = {}
     for mode in ("dense", "banded"):
@@ -716,6 +1207,35 @@ def phase_server(torch, dev, workdir, kernels):
                   f"{n_total} values differ, {frac:.2e}, bound "
                   f"{DIFF_FRAC:.0e}) with equal smart-crop dims; repeat GET "
                   "served from storage")
+
+            # second wave: the staged programs, 16 concurrent cold requests
+            reset_counts(kernels)
+            log0 = len(server.batcher.launch_log)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(staged)) as pool:
+                answers = list(pool.map(get, staged))
+            wall = time.perf_counter() - t0
+            wave = read_counts(kernels)
+            for name, n in wave.items():
+                counts[mode][name] += n
+            launches = list(server.batcher.launch_log)[log0:]
+            print(f"server {mode} staged: {len(staged)} concurrent requests in "
+                  f"{wall:.3f} s; launches {launches}; kernel launches {wave}")
+            want = {"K4", "K5", "K6"} | ({"K1-f32"} if mode == "banded" else set())
+            for name in sorted(want):
+                check(wave[name] > 0, f"server {mode} staged: {name} never launched")
+            n_diff = n_flip = n_total = 0
+            for (opts, src), (status, headers, body) in zip(staged, answers):
+                check(status == 200, f"{mode} {opts} {src}: status {status}")
+                got, _ = png.decode(body)
+                ref, _ = png.decode(cpu.process_image(opts, src).content)
+                d, f = compare_staged(f"server {mode} {opts} {src}", got, ref,
+                                      "mnchr_1" in opts)
+                n_diff, n_flip = n_diff + d, n_flip + f
+                n_total += got.size
+            print(f"server {mode} staged: all {len(staged)} answers 200, within "
+                  f"{PIXEL_TOL} u8 of the CPU handler ({n_diff} of {n_total} "
+                  f"values differ, {n_flip} flipped at a dither threshold)")
         finally:
             server.shutdown()
             server.server_close()
@@ -739,11 +1259,15 @@ def main() -> int:
     from flyimg_tpu_torch import cuda_build
     from flyimg_tpu_torch.device import resolve_device
     from flyimg_tpu_torch.models.smartcrop import _batched_scores, _batched_weighted
-    from flyimg_tpu_torch.ops.resample import resample_banded_u8
+    from flyimg_tpu_torch.ops.color import pixel_pass
+    from flyimg_tpu_torch.ops.filters import separable_filter
+    from flyimg_tpu_torch.ops.resample import resample_banded_f32, resample_banded_u8
+    from flyimg_tpu_torch.ops.rotate import rotate_sampled
 
     resolve_device(dev)  # TF32 off for matmuls and convolutions
-    kernels = {"K1": resample_banded_u8, "K2": _batched_weighted,
-               "K3": _batched_scores}
+    kernels = {"K1": resample_banded_u8, "K1-f32": resample_banded_f32,
+               "K2": _batched_weighted, "K3": _batched_scores,
+               "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass}
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -757,16 +1281,25 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     rows = phase_kernels(torch, dev)
+    rows.update(phase_stage_kernels(torch, dev))
 
     # phase 4: entry (main path)
     reset_counts(kernels)
     rates = phase_entry(torch, dev, card)
     entry_counts = read_counts(kernels)
     print(f"entry kernel launches: {entry_counts}")
-    for name, n in entry_counts.items():
-        check(n > 0, f"entry: {name} never launched")
+    for name in ("K1", "K2", "K3"):
+        check(entry_counts[name] > 0, f"entry: {name} never launched")
 
-    # phase 5: server (main path)
+    # phase 5: the staged programs (main path)
+    reset_counts(kernels)
+    staged_rates = phase_staged(torch, dev, card, kernels)
+    staged_counts = read_counts(kernels)
+    print(f"staged kernel launches: {staged_counts}")
+    for name in ("K1-f32", "K4", "K5", "K6"):
+        check(staged_counts[name] > 0, f"staged: {name} never launched")
+
+    # phase 6: server (main path)
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -782,10 +1315,19 @@ def main() -> int:
                "flyimg_tpu/models/smartcrop.py:424"),
         "K3": ("candidate_scores", "flyimg_tpu_torch/csrc/scores.cu",
                "flyimg_tpu/models/smartcrop.py:441"),
+        "K1-f32": ("resample_banded_f32", "flyimg_tpu_torch/csrc/resample_banded.cu",
+                   "flyimg_tpu/ops/resample.py:343"),
+        "K4": ("rotate", "flyimg_tpu_torch/csrc/rotate.cu",
+               "flyimg_tpu/ops/rotate.py:52"),
+        "K5": ("separable_filter", "flyimg_tpu_torch/csrc/separable.cu",
+               "flyimg_tpu/ops/filters.py:38"),
+        "K6": ("pixel_pass", "flyimg_tpu_torch/csrc/pixel_pass.cu",
+               "flyimg_tpu/ops/color.py:51"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
-        launches = entry_counts[key] + sum(c[key] for c in server_counts.values())
+        launches = (entry_counts[key] + staged_counts[key]
+                    + sum(c[key] for c in server_counts.values()))
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
@@ -796,6 +1338,8 @@ def main() -> int:
         })
     print(f"entry images/s: dense {rates['dense']:.1f}, banded "
           f"{rates['banded']:.1f}")
+    print("staged images/s: " + ", ".join(
+        f"{opts} {rate:.1f}" for opts, rate in staged_rates.items()))
     print(card_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,8 @@
 // K1: banded K-tap windowed resample of a u8 batch, fused u8 load ->
-// vertical band pass -> horizontal band pass -> round/clip/u8 store.
+// vertical band pass -> horizontal band pass -> round/clip/u8 store, or, in
+// its f32-store form, the f32 result stored as it is for the program stages
+// that follow the resample (the reference keeps the resample's f32 through
+// every later stage and rounds once at the end).
 //
 // Replaces the JAX package's flyimg_tpu/ops/resample.py _band_axis +
 // resample_image_banded (and the round/clip/u8 epilogue of
@@ -189,12 +192,14 @@ __host__ __device__ __forceinline__ int os_pitch(int NX) { return (3 * NX + 3 + 
 
 // One block per (column tile, run of row tiles) x member; 3 channels,
 // interleaved [h, w, 3]. KX > 0 fixes the horizontal band width at compile
-// time (the tap loop unrolls); 0 reads it at run time. The source width must
-// be a multiple of 4, so a row is whole 32-bit words.
-template <int KX>
+// time (the tap loop unrolls); 0 reads it at run time. F32 stores the f32
+// result to outf instead of u8 to out (its own instance, so the u8 instances
+// compile as they did without it). The source width must be a multiple of 4,
+// so a row is whole 32-bit words.
+template <int KX, bool F32>
 __global__ void __launch_bounds__(K1_THREADS)
 resample_tile_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out,
-                     const float* __restrict__ wy, const int* __restrict__ jy,
+                     float* __restrict__ outf, const float* __restrict__ wy, const int* __restrict__ jy,
                      const float* __restrict__ wx, const int* __restrict__ jx, int in_h,
                      int in_w, int out_h, int out_w, int ky, int kx_rt, int T, int NX, int WC,
                      int RC, int stage_wx, int stage_wy, int n_ct, int tiles_per_block) {
@@ -356,7 +361,14 @@ resample_tile_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out,
                         a2 = fmaf(wk, p[2], a2);
                     }
                 }
-                if (last) {
+                if (F32 && last) {
+                    // the f32-store form: every output row and column,
+                    // those past out_true included, as computed
+                    float* q = outf + ((size_t)(b * out_h + oy0 + t) * out_w + ox0 + ox) * 3;
+                    q[0] = a0;
+                    q[1] = a1;
+                    q[2] = a2;
+                } else if (last) {
                     // round/clip to u8, staged at the row's offset within a
                     // 32-bit word of its destination
                     const size_t at = ((size_t)(b * out_h + oy0 + t) * out_w + ox0) * 3;
@@ -375,6 +387,7 @@ resample_tile_kernel(const uint8_t* __restrict__ img, uint8_t* __restrict__ out,
 
         // store each output row of the tile as 32-bit words (single bytes
         // only in a row's first and last word)
+        if (F32) continue;
         const int nbytes = nxn * 3;
         const int nwr = (nbytes + 3 + 3) / 4;  // words a shifted row can touch
         for (int i = tid; i < tn * nwr; i += K1_THREADS) {
@@ -412,17 +425,16 @@ static size_t smem_bytes(int T, int NX, int WC, int RC, int ky, int kx, int stag
 // [batch, out_h, ky] / [batch, out_h] and [batch, out_w, kx] / [batch, out_w].
 // The plan (T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
 // smem) comes from the host;
-// kx_static names the compiled instance (0 = run-time K). Returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a plan
-// the kernel does not take.
-extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const float* geom,
-                                         float* wy, int* jy, float* wx, int* jx, int batch,
-                                         int in_h, int in_w, int out_h, int out_w, int ky,
-                                         int kx, int method, int T, int NX, int WC, int RC,
-                                         int stage_wx, int stage_wy, int kx_static,
-                                         int tiles_per_block, int smem, void* stream) {
+// kx_static names the compiled instance (0 = run-time K). Exactly one of
+// out (u8) and outf (f32) is non-null. Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for a plan the kernel does not take.
+static int launch(const uint8_t* img, uint8_t* out, float* outf, const float* geom, float* wy,
+                  int* jy, float* wx, int* jx, int batch, int in_h, int in_w, int out_h,
+                  int out_w, int ky, int kx, int method, int T, int NX, int WC, int RC,
+                  int stage_wx, int stage_wy, int kx_static, int tiles_per_block, int smem,
+                  void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (T <= 0 || T % K1_SUB || NX <= 0 || WC <= 0 || RC <= 0 || tiles_per_block <= 0 ||
+    if ((out == nullptr) == (outf == nullptr) || T <= 0 || T % K1_SUB || NX <= 0 || WC <= 0 || RC <= 0 || tiles_per_block <= 0 ||
         in_w % 4 ||
         (kx_static != 0 && kx_static != kx) ||
         (size_t)smem != smem_bytes(T, NX, WC, RC, ky, kx, stage_wx, stage_wy, tiles_per_block))
@@ -439,13 +451,15 @@ extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const
     const int n_rt = (out_h + T - 1) / T;
     const int n_rg = (n_rt + tiles_per_block - 1) / tiles_per_block;
     dim3 grid(n_rg * n_ct, batch);
-    void (*kern)(const uint8_t*, uint8_t*, const float*, const int*, const float*, const int*,
-                 int, int, int, int, int, int, int, int, int, int, int, int, int, int);
+    void (*kern)(const uint8_t*, uint8_t*, float*, const float*, const int*, const float*,
+                 const int*, int, int, int, int, int, int, int, int, int, int, int, int, int,
+                 int);
+    const bool f32 = outf != nullptr;
     switch (kx_static) {
-    case 8: kern = resample_tile_kernel<8>; break;
-    case 16: kern = resample_tile_kernel<16>; break;
-    case 32: kern = resample_tile_kernel<32>; break;
-    case 0: kern = resample_tile_kernel<0>; break;
+    case 8: kern = f32 ? resample_tile_kernel<8, true> : resample_tile_kernel<8, false>; break;
+    case 16: kern = f32 ? resample_tile_kernel<16, true> : resample_tile_kernel<16, false>; break;
+    case 32: kern = f32 ? resample_tile_kernel<32, true> : resample_tile_kernel<32, false>; break;
+    case 0: kern = f32 ? resample_tile_kernel<0, true> : resample_tile_kernel<0, false>; break;
     default: return (int)cudaErrorInvalidValue;
     }
     if (smem > 48 * 1024) {
@@ -453,8 +467,31 @@ extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const
             cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
     }
-    kern<<<grid, K1_THREADS, smem, s>>>(img, out, wy, jy, wx, jx, in_h, in_w, out_h, out_w, ky,
-                                       kx, T, NX, WC, RC, stage_wx, stage_wy, n_ct,
+    kern<<<grid, K1_THREADS, smem, s>>>(img, out, outf, wy, jy, wx, jx, in_h, in_w, out_h,
+                                       out_w, ky, kx, T, NX, WC, RC, stage_wx, stage_wy, n_ct,
                                        tiles_per_block);
     return (int)cudaGetLastError();
+}
+
+extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const float* geom,
+                                         float* wy, int* jy, float* wx, int* jx, int batch,
+                                         int in_h, int in_w, int out_h, int out_w, int ky,
+                                         int kx, int method, int T, int NX, int WC, int RC,
+                                         int stage_wx, int stage_wy, int kx_static,
+                                         int tiles_per_block, int smem, void* stream) {
+    return launch(img, out, nullptr, geom, wy, jy, wx, jx, batch, in_h, in_w, out_h, out_w, ky,
+                  kx, method, T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
+                  smem, stream);
+}
+
+// The f32-store form: the same passes, the f32 result stored as it is.
+extern "C" int flyimg_resample_banded_f32(const uint8_t* img, float* outf, const float* geom,
+                                          float* wy, int* jy, float* wx, int* jx, int batch,
+                                          int in_h, int in_w, int out_h, int out_w, int ky,
+                                          int kx, int method, int T, int NX, int WC, int RC,
+                                          int stage_wx, int stage_wy, int kx_static,
+                                          int tiles_per_block, int smem, void* stream) {
+    return launch(img, nullptr, outf, geom, wy, jy, wx, jx, batch, in_h, in_w, out_h, out_w, ky,
+                  kx, method, T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
+                  smem, stream);
 }

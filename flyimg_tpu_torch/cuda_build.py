@@ -35,6 +35,11 @@ SOURCES: Dict[str, tuple] = {
     # the saliency maps are floored integers: no multiply-add contraction
     "saliency": ("saliency.cu", ("--fmad=false",)),
     "scores": ("scores.cu", ()),
+    # a dither threshold and rotate's floor/inside tests are knife-edges:
+    # every product and sum rounds in the reference's order
+    "pixel_pass": ("pixel_pass.cu", ("--fmad=false",)),
+    "rotate": ("rotate.cu", ("--fmad=false",)),
+    "separable": ("separable.cu", ()),
 }
 
 BASE_FLAGS = (

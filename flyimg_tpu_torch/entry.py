@@ -12,11 +12,16 @@ The counterpart of ``__graft_entry__.entry()``: ``entry()`` returns
    kernel at stride 8 (kernel K3), giving a [B, 13, 19] score grid.
 
 ``fn`` returns ``(out u8 [B, 250, 300, 3], scores f32 [B, 13, 19])``.
+
+``staged_entry(opts)`` builds the batch of one of ``STAGED_OPTIONS`` — the
+program stages after the resample (rotate, filters, pad, grayscale,
+dither) — on seeded 1920x1080 sources, grouped and padded as the batcher
+groups and pads them.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -27,8 +32,14 @@ from flyimg_tpu_torch.models.smartcrop import (
     _batched_weighted,
     importance_kernel,
 )
-from flyimg_tpu_torch.ops.compose import make_program_fn, plan_layout
+from flyimg_tpu_torch.ops.compose import (
+    geometry_rows,
+    make_program_fn,
+    plan_layout,
+    program_args,
+)
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
+from flyimg_tpu_torch.runtime.batcher import transform_group
 from flyimg_tpu_torch.spec.options import OptionsBag
 from flyimg_tpu_torch.spec.plan import build_plan
 
@@ -36,6 +47,19 @@ BATCH = 256
 SRC = 512
 OUT_HW = (250, 300)
 STRIDE = 8
+
+#: one program per stage family after the resample, on STAGED_SRC sources
+STAGED_OPTIONS = (
+    "w_800,h_600,c_1,r_30",                            # dynamic rotate
+    "w_600,r_90",                                      # dynamic quarter turn
+    "w_1280,unsh_0.25x0.25+8+0.065",                   # fit path, bucketed out
+    "w_300,h_250,ett_400x320,bg_%23333333,clsp_Gray",  # pad + grayscale
+    "w_800,mnchr_1",                                   # dither
+    "r_-15,bg_%23336699,blr_0x2",                      # static exact frame + blur
+    "sh_2x1",                                          # pixel-op bucket
+)
+STAGED_SRC = (1920, 1080)
+STAGED_BATCH = 32
 
 
 def flagship_band():
@@ -88,3 +112,35 @@ def entry(device: Union[str, torch.device] = "cuda", batch: int = BATCH):
     span_x = rows([0.0, 512.0])
     out_true = rows([250.0, 300.0])
     return flagship_fn(dev), (images, in_true, span_y, span_x, out_true)
+
+
+def staged_entry(opts: str, batch: int = STAGED_BATCH,
+                 device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 src_wh: Tuple[int, int] = STAGED_SRC):
+    """(fn, args, group, plan, final valid (h, w)) for one batch of
+    ``batch`` seeded ``src_wh`` sources under ``opts``, in the batcher's
+    group (bucket, pad fill, geometry rows, dynamic rotate) and the current
+    resample-kernel mode. ``fn(*args)`` is the group's program; its output
+    is sliced to the final valid size per member, as the batcher slices
+    it."""
+    dev = resolve_device(device)
+    w, h = src_wh
+    plan = build_plan(OptionsBag(opts), w, h)
+    group, final_true, _ = transform_group(plan, (h, w))
+    bh, bw = group.in_shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    images = torch.zeros((batch, bh, bw, 3), dtype=torch.uint8, device=dev)
+    images[:, :h, :w] = torch.randint(0, 256, (batch, h, w, 3), generator=gen,
+                                      device=dev, dtype=torch.uint8)
+    if group.resample_out is None and (bh, bw) != (h, w):
+        # the pixel-op bucket's edge-replicate fill
+        images[:, h:, :w] = images[:, h - 1:h, :w]
+        images[:, :, w:] = images[:, :, w - 1:w]
+    rot = final_true if group.rotate_dynamic else None
+    row = geometry_rows(plan, plan_layout(plan), (h, w), None, rot)
+    geo = torch.from_numpy(row).to(dev)[None].repeat(batch, 1)
+    fn = make_program_fn(group.resample_out, group.pad_canvas,
+                         group.pad_offset, group.device_plan,
+                         group.rotate_dynamic, group.band_taps)
+    return fn, (images, *program_args(geo)), group, plan, final_true

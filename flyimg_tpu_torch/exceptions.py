@@ -79,7 +79,7 @@ class DeadlineExceededException(AppException):
 
 
 class NotPortedException(AppException):
-    """The plan needs a device stage this package does not carry yet
-    (pad, grayscale, monochrome, rotate, unsharp, sharpen or blur). Raised
-    when the program is built, naming the stage, so a request never
-    silently skips work. Maps to 501."""
+    """The plan needs a stage this package does not carry yet (the face
+    post-passes, face-blur and face-crop). Raised before any device work,
+    naming the stage, so a request never silently skips work. Maps to
+    501."""

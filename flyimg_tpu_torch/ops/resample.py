@@ -16,13 +16,14 @@ process-wide ``kernel_mode`` (the ``resample_kernel`` knob):
 - **dense** (``resample_image``): per-axis [out, in] weight matrices, then
   two f32 ``torch.matmul``s. A plain large matrix product, left to the
   library as the JAX package leaves it to XLA.
-- **banded** (``resample_banded_u8``): a static K-tap band per output
+- **banded** (``resample_banded_u8``, or ``resample_banded_f32`` when a
+  program stage follows the resample): a static K-tap band per output
   sample, weights from the UNCLIPPED tap positions with out-of-range taps
   zeroed before renormalising (docs/kernels.md "the unclipped-tap
   invariant"). On a CUDA tensor this is kernel K1
   (``csrc/resample_banded.cu``), which fuses the u8 load, both band passes
-  and the round/clip/u8 store; on a CPU tensor it is the plain PyTorch
-  version ``resample_image_banded`` in this module.
+  and the round/clip/u8 store (or stores the f32 result); on a CPU tensor
+  it is the plain PyTorch version ``resample_image_banded`` in this module.
 
 Filter kernels mirror ImageMagick's resize filters (lanczos3, triangle,
 gaussian, Mitchell cubic, box, nearest); downscale antialiasing stretches
@@ -562,6 +563,62 @@ def _geometry(span_y, span_x, out_true_hw, in_true_hw) -> torch.Tensor:
     ).to(torch.float32).contiguous()
 
 
+def _check_banded_args(name, images, span_y, span_x, out_true_hw, in_true_hw,
+                       method):
+    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[3] != 3:
+        raise ValueError(
+            f"{name} takes u8 [B, H, W, 3], got "
+            f"{images.dtype} {tuple(images.shape)}"
+        )
+    b = images.shape[0]
+    for arg, t in (("span_y", span_y), ("span_x", span_x),
+                   ("out_true_hw", out_true_hw), ("in_true_hw", in_true_hw)):
+        if t.shape != (b, 2) or t.device != images.device:
+            raise ValueError(
+                f"{arg} must be [{b}, 2] on {images.device}, got "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+    if method not in _METHOD_CODES:
+        raise ValueError(f"unknown resample method: {method}")
+    if images.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {images.device}")
+
+
+def _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
+               taps_hw, method, f32: bool) -> torch.Tensor:
+    """Launch K1 on a CUDA batch, storing u8 or (``f32``) the f32 result."""
+    images = images.contiguous()
+    b, in_h, in_w, _ = images.shape
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    ky, kx = int(taps_hw[0]), int(taps_hw[1])
+    if in_w % 4 or images.data_ptr() % 4:
+        # K1 reads source rows as 32-bit words; serving buckets are
+        # multiples of 128 wide
+        raise ValueError(f"K1 needs a source width that is a multiple of 4, got {in_w}")
+    plan = k1_plan((in_h, in_w), (out_h, out_w), (ky, kx), b)
+    lib = _k1_lib()
+    dev = images.device
+    geom = _geometry(span_y, span_x, out_true_hw, in_true_hw)
+    out = torch.empty((b, out_h, out_w, 3),
+                      dtype=torch.float32 if f32 else torch.uint8, device=dev)
+    wy = torch.empty((b, out_h, ky), dtype=torch.float32, device=dev)
+    jy = torch.empty((b, out_h), dtype=torch.int32, device=dev)
+    wx = torch.empty((b, out_w, kx), dtype=torch.float32, device=dev)
+    jx = torch.empty((b, out_w), dtype=torch.int32, device=dev)
+    fn = lib.flyimg_resample_banded_f32 if f32 else lib.flyimg_resample_banded_u8
+    rc = fn(
+        images.data_ptr(), out.data_ptr(), geom.data_ptr(),
+        wy.data_ptr(), jy.data_ptr(), wx.data_ptr(), jx.data_ptr(),
+        b, in_h, in_w, out_h, out_w, ky, kx, _METHOD_CODES[method],
+        plan.tile_h, plan.tile_w, plan.chunk_w, plan.row_chunk,
+        int(plan.stage_wx), int(plan.stage_wy), plan.kx_static,
+        plan.tiles_per_block, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "resample_banded_f32" if f32 else "resample_banded_u8")
+    return out
+
+
 def resample_banded_u8(
     images: torch.Tensor,
     out_hw: Tuple[int, int],
@@ -576,54 +633,15 @@ def resample_banded_u8(
     out_h, out_w, 3]: kernel K1 on a CUDA tensor, the plain PyTorch version
     (``resample_image_banded`` + ``quantize_u8``) on a CPU tensor. Geometry
     rows are [B, 2] f32 on the images' device."""
-    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[3] != 3:
-        raise ValueError(
-            f"resample_banded_u8 takes u8 [B, H, W, 3], got "
-            f"{images.dtype} {tuple(images.shape)}"
-        )
-    b, in_h, in_w, _ = images.shape
-    for name, t in (("span_y", span_y), ("span_x", span_x),
-                    ("out_true_hw", out_true_hw), ("in_true_hw", in_true_hw)):
-        if t.shape != (b, 2) or t.device != images.device:
-            raise ValueError(
-                f"{name} must be [{b}, 2] on {images.device}, got "
-                f"{tuple(t.shape)} on {t.device}"
-            )
-    if method not in _METHOD_CODES:
-        raise ValueError(f"unknown resample method: {method}")
-    out_h, out_w = int(out_hw[0]), int(out_hw[1])
-    ky, kx = int(taps_hw[0]), int(taps_hw[1])
+    _check_banded_args("resample_banded_u8", images, span_y, span_x,
+                       out_true_hw, in_true_hw, method)
     if images.device.type == "cpu":
         return quantize_u8(resample_image_banded(
-            images.to(torch.float32), (out_h, out_w), span_y, span_x,
-            out_true_hw, in_true_hw, (ky, kx), method,
+            images.to(torch.float32), out_hw, span_y, span_x,
+            out_true_hw, in_true_hw, taps_hw, method,
         ))
-    if images.device.type != "cuda":
-        raise ValueError(f"unsupported device {images.device}")
-    images = images.contiguous()
-    if in_w % 4 or images.data_ptr() % 4:
-        # K1 reads source rows as 32-bit words; serving buckets are
-        # multiples of 128 wide
-        raise ValueError(f"K1 needs a source width that is a multiple of 4, got {in_w}")
-    plan = k1_plan((in_h, in_w), (out_h, out_w), (ky, kx), b)
-    lib = _k1_lib()
-    dev = images.device
-    geom = _geometry(span_y, span_x, out_true_hw, in_true_hw)
-    out = torch.empty((b, out_h, out_w, 3), dtype=torch.uint8, device=dev)
-    wy = torch.empty((b, out_h, ky), dtype=torch.float32, device=dev)
-    jy = torch.empty((b, out_h), dtype=torch.int32, device=dev)
-    wx = torch.empty((b, out_w, kx), dtype=torch.float32, device=dev)
-    jx = torch.empty((b, out_w), dtype=torch.int32, device=dev)
-    rc = lib.flyimg_resample_banded_u8(
-        images.data_ptr(), out.data_ptr(), geom.data_ptr(),
-        wy.data_ptr(), jy.data_ptr(), wx.data_ptr(), jx.data_ptr(),
-        b, in_h, in_w, out_h, out_w, ky, kx, _METHOD_CODES[method],
-        plan.tile_h, plan.tile_w, plan.chunk_w, plan.row_chunk,
-        int(plan.stage_wx), int(plan.stage_wy), plan.kx_static,
-        plan.tiles_per_block, plan.smem_bytes,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check(rc, "resample_banded_u8")
+    out = _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
+                     taps_hw, method, f32=False)
     resample_banded_u8.launches += 1
     return out
 
@@ -632,12 +650,44 @@ def resample_banded_u8(
 resample_banded_u8.launches = 0
 
 
+def resample_banded_f32(
+    images: torch.Tensor,
+    out_hw: Tuple[int, int],
+    span_y: torch.Tensor,
+    span_x: torch.Tensor,
+    out_true_hw: torch.Tensor,
+    in_true_hw: torch.Tensor,
+    taps_hw: Tuple[int, int],
+    method: str = "lanczos3",
+) -> torch.Tensor:
+    """The f32-store form of ``resample_banded_u8``: the same band passes,
+    the f32 result kept for the program stages that follow (no round, clip
+    or u8). Kernel K1 on a CUDA tensor, ``resample_image_banded`` on a CPU
+    tensor. Rows and columns past ``out_true`` hold the edge-clamped
+    samples the plain version computes there."""
+    _check_banded_args("resample_banded_f32", images, span_y, span_x,
+                       out_true_hw, in_true_hw, method)
+    if images.device.type == "cpu":
+        return resample_image_banded(
+            images.to(torch.float32), out_hw, span_y, span_x,
+            out_true_hw, in_true_hw, taps_hw, method,
+        )
+    out = _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
+                     taps_hw, method, f32=True)
+    resample_banded_f32.launches += 1
+    return out
+
+
+#: launches of K1's f32-store form since the last reset
+resample_banded_f32.launches = 0
+
+
 def _k1_lib():
     lib = cuda_build.load("resample_banded")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.flyimg_resample_banded_u8
-        fn.argtypes = [p] * 7 + [i] * 17 + [p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.flyimg_resample_banded_u8, lib.flyimg_resample_banded_f32):
+            fn.argtypes = [p] * 7 + [i] * 17 + [p]
+            fn.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib

@@ -1,6 +1,7 @@
 """Where the flagship batch's time goes on the card.
 
     python -m flyimg_tpu_torch.profile_entry [--batch 256] [--iters 20]
+    python -m flyimg_tpu_torch.profile_entry --staged [--iters 20]
 
 For the ``entry()`` batch (256 x 512x512x3 u8 -> 300x250 crop-fill,
 saliency field, 150x150 stride-8 scoring), dense and banded:
@@ -19,6 +20,11 @@ launches (which also hold the host's launch time when that is longer).
 
 Prints one JSON line per mode and one for K2 at the serving shape, with the
 card's name and power limit. Needs a CUDA card.
+
+With ``--staged``: each program of ``entry.STAGED_OPTIONS`` (the stages
+after the resample, 32 x 1920x1080 sources), banded and dense — the whole
+batch by CUDA events and a ``torch.profiler`` window (device time by
+kernel, busy share), one JSON line each.
 """
 
 from __future__ import annotations
@@ -32,7 +38,15 @@ import time
 import torch
 
 from flyimg_tpu_torch.device import resolve_device
-from flyimg_tpu_torch.entry import OUT_HW, STRIDE, entry, flagship_band
+from flyimg_tpu_torch.entry import (
+    OUT_HW,
+    STAGED_BATCH,
+    STAGED_OPTIONS,
+    STRIDE,
+    entry,
+    flagship_band,
+    staged_entry,
+)
 from flyimg_tpu_torch.models.smartcrop import (
     _batched_scores,
     _batched_weighted,
@@ -174,16 +188,44 @@ def k2_serving(iters: int, dev) -> dict:
             "burst_ms": burst_ms}
 
 
+def staged_rows(iters: int, dev, card: str):
+    """One row per (staged program, resample mode): the whole batch by CUDA
+    events, images/s from it, and a profiler window."""
+    for opts in STAGED_OPTIONS:
+        for mode in ("banded", "dense"):
+            set_kernel_mode(mode)
+            fn, fargs, group, _plan, final = staged_entry(opts, device=dev)
+            forward = _median_ms(lambda: fn(*fargs), iters)
+            yield {
+                "staged": opts, "mode": mode, "batch": STAGED_BATCH,
+                "card": card, "in_shape": list(fargs[0].shape),
+                "final_hw": list(final), "band_taps": group.band_taps,
+                "forward_ms": forward,
+                "images_per_s": STAGED_BATCH / forward * 1e3,
+                "profiler": profiler_window(fn, fargs, iters),
+            }
+            del fargs
+            if group.resample_out is None:
+                break  # no resample: the two modes run one program
+    set_kernel_mode("dense")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="flyimg_tpu_torch.profile_entry")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--staged", action="store_true",
+                        help="profile the staged programs instead")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+    if args.staged:
+        for row in staged_rows(args.iters, dev, card):
+            print(json.dumps(row))
+        return 0
     for mode in ("dense", "banded"):
         set_kernel_mode(mode)
         fn, fargs = entry(device=dev, batch=args.batch)

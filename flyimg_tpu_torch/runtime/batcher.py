@@ -3,8 +3,8 @@
 The port of ``flyimg_tpu/runtime/batcher.py``, reduced to what the main
 path needs. Requests are grouped by device-program identity — the key the
 program cache uses: (input bucket shape, static resample output, pad
-config, ``plan.device_plan()``, band widths) — so a group runs as ONE
-batched program:
+config, ``plan.device_plan()``, dynamic rotate, band widths) — so a group
+runs as ONE batched program:
 
     uint8 [B, Hb, Wb, 3] + per-image spans/true sizes -> uint8 [B, Ho, Wo, 3]
 
@@ -43,10 +43,12 @@ from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.ops.compose import (
     _bucket_dim,
     bucket_batch,
+    check_ported,
     final_extent,
     geometry_rows,
     make_program_fn,
     plan_layout,
+    program_args,
 )
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
 from flyimg_tpu_torch.spec.plan import TransformPlan
@@ -86,9 +88,134 @@ class _Group:
     pad_canvas: Optional[Tuple[int, int]] = None
     pad_offset: Tuple[int, int] = (0, 0)
     device_plan: Optional[TransformPlan] = None
+    rotate_dynamic: bool = False
     band_taps: Optional[Tuple[int, int]] = None
     runner: Optional[Callable] = None
     members: List[_Pending] = field(default_factory=list)
+
+
+def transform_group(
+    plan: TransformPlan,
+    image_hw: Tuple[int, int],
+    src_window: Optional[Tuple[int, int]] = None,
+) -> Tuple[_Group, Tuple[int, int], bool]:
+    """The JAX package's grouping policy for one member: ``(group with no
+    members, final valid (h, w), whether the member's output is sliced to
+    it)``. The group's ``key`` is the program identity.
+
+    An arbitrary-angle rotate runs shape-bucketed with per-member geometry
+    (``rotate_dynamic``) UNLESS an extent pad fixed the frame to a static
+    canvas first, or a filter follows the rotate: on a bucketed frame the
+    filter would blur the background fill across the valid-region edge,
+    where the exact frame edge-replicates. Such a static rotate keeps the
+    exact output (after a resample) or the exact frame (without one)."""
+    h, w = int(image_hw[0]), int(image_hw[1])
+    needs_resample = (
+        plan.resize_to is not None
+        or plan.extent is not None
+        or plan.extract is not None
+    )
+    if src_window is not None:
+        wx, wy = int(src_window[0]), int(src_window[1])
+        if (
+            wx < 0 or wy < 0
+            or wx + w > plan.src_size[0] or wy + h > plan.src_size[1]
+        ):
+            raise ValueError(
+                f"src_window {(wx, wy)} + image {(w, h)} exceeds "
+                f"plan src {plan.src_size}"
+            )
+        if not needs_resample:
+            raise ValueError("src_window requires a resample/extract plan")
+    elif plan.src_size != (w, h):
+        raise ValueError("plan src_size does not match image dims")
+    check_ported(plan)
+    layout = plan_layout(plan)
+    rotate_dynamic = (
+        plan.rotate is not None
+        and layout.pad_canvas is None
+        and plan.blur is None
+        and plan.sharpen is None
+        and plan.unsharp is None
+    )
+    final_true = final_extent(plan, layout)
+    needs_slice = False
+    band_taps = None
+    if needs_resample:
+        in_shape = (_bucket_dim(h), _bucket_dim(w))
+        if plan.extent is not None or (
+            plan.rotate is not None and not rotate_dynamic
+        ):
+            # crop/extent path: every member lands on the same extent; a
+            # static rotate keeps the exact per-aspect output
+            resample_out = layout.resample_out
+        else:
+            # fit path: output height varies with source aspect; bucket
+            # the static output and slice each member's valid region (the
+            # padding rows are edge-clamped samples, so a filter sees edge
+            # padding; a dynamic rotate samples only the valid region)
+            resample_out = (
+                _bucket_dim(layout.resample_out[0], 64),
+                _bucket_dim(layout.resample_out[1], 64),
+            )
+            needs_slice = rotate_dynamic or resample_out != layout.resample_out
+        band_taps = select_band_taps(
+            kernel_mode(), plan.filter_method, in_shape,
+            layout.span_y, layout.span_x, layout.out_true,
+        )
+    elif plan.rotate is None or rotate_dynamic:
+        # pixel-op-only and dynamic-rotate plans ride input buckets too
+        # (edge-replicate fill in _execute keeps the filters right; a
+        # dynamic rotate never samples padding)
+        in_shape = (_bucket_dim(h), _bucket_dim(w))
+        resample_out = None
+        needs_slice = rotate_dynamic or in_shape != (h, w)
+    else:
+        # static rotate (filters follow) without resample: the exact frame
+        in_shape = (h, w)
+        resample_out = None
+    device_plan = plan.device_plan()
+    key = (
+        in_shape, resample_out, layout.pad_canvas, layout.pad_offset,
+        device_plan, rotate_dynamic, band_taps,
+    )
+    group = _Group(
+        key=key, in_shape=in_shape, resample_out=resample_out,
+        pad_canvas=layout.pad_canvas, pad_offset=layout.pad_offset,
+        device_plan=device_plan, rotate_dynamic=rotate_dynamic,
+        band_taps=band_taps,
+    )
+    return group, final_true, needs_slice
+
+
+def assemble_batch(group: _Group, members: List[Tuple[np.ndarray, TransformPlan,
+                                                       Optional[Tuple[int, int]]]],
+                   batch: int, pin: bool = False):
+    """Host tensors of one launch: u8 images [batch, Hb, Wb, 3] and f32
+    geometry rows [batch, 8 | 10] for ``members`` (image, plan, src_window);
+    pixel-op-only buckets are edge-replicate padded, pad slots repeat the
+    last member."""
+    n = len(members)
+    bh, bw = group.in_shape
+    images = torch.zeros((batch, bh, bw, 3), dtype=torch.uint8, pin_memory=pin)
+    geo = torch.zeros((batch, 10 if group.rotate_dynamic else 8),
+                      dtype=torch.float32, pin_memory=pin)
+    img_np, geo_np = images.numpy(), geo.numpy()
+    for i, (image, plan, src_window) in enumerate(members):
+        h, w = image.shape[:2]
+        if group.resample_out is None and (h, w) != (bh, bw):
+            # pixel-op-only bucket: edge-replicate padding
+            img_np[i] = np.pad(
+                image, ((0, bh - h), (0, bw - w), (0, 0)), mode="edge"
+            )
+        else:
+            img_np[i, :h, :w] = image
+        layout = plan_layout(plan)
+        rot_hw = final_extent(plan, layout) if group.rotate_dynamic else None
+        geo_np[i] = geometry_rows(plan, layout, (h, w), src_window, rot_hw)
+    img_np[n:] = img_np[n - 1]
+    geo_np[n:] = geo_np[n - 1]
+    return images, geo
 
 
 class BatchController:
@@ -131,65 +258,16 @@ class BatchController:
         """Queue one image+plan; resolves to the uint8 output array.
         ``src_window``: the image is the window of the plan's source at this
         (x, y) offset, threaded to the program as a span shift."""
-        h, w = int(image.shape[0]), int(image.shape[1])
-        needs_resample = (
-            plan.resize_to is not None
-            or plan.extent is not None
-            or plan.extract is not None
+        template, final_true, needs_slice = transform_group(
+            plan, image.shape[:2], src_window
         )
-        if src_window is not None:
-            wx, wy = int(src_window[0]), int(src_window[1])
-            if (
-                wx < 0 or wy < 0
-                or wx + w > plan.src_size[0] or wy + h > plan.src_size[1]
-            ):
-                raise ValueError(
-                    f"src_window {(wx, wy)} + image {(w, h)} exceeds "
-                    f"plan src {plan.src_size}"
-                )
-            if not needs_resample:
-                raise ValueError("src_window requires a resample/extract plan")
-        elif plan.src_size != (w, h):
-            raise ValueError("plan src_size does not match image dims")
-        layout = plan_layout(plan)
-        final_true = final_extent(plan, layout)
-        in_shape = (_bucket_dim(h), _bucket_dim(w))
-        needs_slice = False
-        band_taps = None
-        if needs_resample:
-            if plan.extent is not None:
-                # crop/extent path: every member lands on the same extent
-                resample_out = layout.resample_out
-            else:
-                # fit path: output height varies with source aspect; bucket
-                # the static output and slice each member's valid region
-                resample_out = (
-                    _bucket_dim(layout.resample_out[0], 64),
-                    _bucket_dim(layout.resample_out[1], 64),
-                )
-                needs_slice = resample_out != layout.resample_out
-            band_taps = select_band_taps(
-                kernel_mode(), plan.filter_method, in_shape,
-                layout.span_y, layout.span_x, layout.out_true,
-            )
-        else:
-            resample_out = None
-            needs_slice = in_shape != (h, w)
-        device_plan = plan.device_plan()
-        key = (
-            in_shape, resample_out, layout.pad_canvas, layout.pad_offset,
-            device_plan, band_taps,
-        )
+        key = template.key
         pending = _Pending(
             payload=image, plan=plan, future=Future(),
             enqueued_at=time.monotonic(), final_true=final_true,
             needs_slice=needs_slice, src_window=src_window,
         )
-        self._enqueue(key, pending, lambda: _Group(
-            key=key, in_shape=in_shape, resample_out=resample_out,
-            pad_canvas=layout.pad_canvas, pad_offset=layout.pad_offset,
-            device_plan=device_plan, band_taps=band_taps,
-        ))
+        self._enqueue(key, pending, lambda: template)
         return pending.future
 
     def submit_aux(self, key: Tuple, payload, runner: Callable) -> Future:
@@ -255,7 +333,8 @@ class BatchController:
             key=group.key, in_shape=group.in_shape,
             resample_out=group.resample_out, pad_canvas=group.pad_canvas,
             pad_offset=group.pad_offset, device_plan=group.device_plan,
-            band_taps=group.band_taps, runner=group.runner, members=take,
+            rotate_dynamic=group.rotate_dynamic, band_taps=group.band_taps,
+            runner=group.runner, members=take,
         )
 
     def _next_wait_locked(self) -> Optional[float]:
@@ -295,41 +374,21 @@ class BatchController:
         n = len(members)
         batch = _round_batch(n)
         self.launch_log.append(("transform", n, batch))
-        bh, bw = group.in_shape
-        pin = self._stream is not None
-        images = torch.zeros((batch, bh, bw, 3), dtype=torch.uint8,
-                             pin_memory=pin)
-        geo = torch.zeros((batch, 8), dtype=torch.float32, pin_memory=pin)
-        img_np, geo_np = images.numpy(), geo.numpy()
-        for i, member in enumerate(members):
-            image = member.payload
-            h, w = image.shape[:2]
-            if group.resample_out is None and (h, w) != (bh, bw):
-                # pixel-op-only bucket: edge-replicate padding
-                img_np[i] = np.pad(
-                    image, ((0, bh - h), (0, bw - w), (0, 0)), mode="edge"
-                )
-            else:
-                img_np[i, :h, :w] = image
-            geo_np[i] = geometry_rows(
-                member.plan, plan_layout(member.plan), (h, w),
-                member.src_window,
-            )
-        img_np[n:] = img_np[n - 1]
-        geo_np[n:] = geo_np[n - 1]
+        images, geo = assemble_batch(
+            group, [(m.payload, m.plan, m.src_window) for m in members],
+            batch, pin=self._stream is not None,
+        )
         fn = make_program_fn(
             group.resample_out, group.pad_canvas, group.pad_offset,
-            group.device_plan, group.band_taps,
+            group.device_plan, group.rotate_dynamic, group.band_taps,
         )
         if self._stream is None:
-            out = fn(images, geo[:, 0:2], geo[:, 2:4], geo[:, 4:6], geo[:, 6:8])
-            host = out.numpy()
+            host = fn(images, *program_args(geo)).numpy()
         else:
             with torch.cuda.stream(self._stream):
                 d_img = images.to(self.device, non_blocking=True)
                 d_geo = geo.to(self.device, non_blocking=True)
-                out = fn(d_img, d_geo[:, 0:2], d_geo[:, 2:4], d_geo[:, 4:6],
-                         d_geo[:, 6:8])
+                out = fn(d_img, *program_args(d_geo))
                 pinned = torch.empty(out.shape, dtype=out.dtype,
                                      pin_memory=True)
                 pinned.copy_(out, non_blocking=True)

@@ -6,9 +6,12 @@ decode -> plan -> batched device transform -> smart-crop post-pass ->
 encode -> store -> serve bytes. Concurrent misses for one output name are
 coalesced so one render serves them all.
 
-Not ported yet (ROADMAP): signed URLs and domain restrictions, faces,
-spatial tiling, brownout, derivative reuse, the fleet tier, metadata
-grafting, and every container but PNG.
+Every device stage of the reference's program runs here (resample, extent
+pad, grayscale, monochrome, rotate, unsharp, sharpen, blur). Not ported yet
+(ROADMAP): the face post-passes (``fb_1``/``fc_1`` answer 501 naming the
+stage, never a silently unblurred image), spatial tiling, codecs other than
+PNG, signed URLs and domain restrictions, brownout, derivative reuse, the
+fleet tier and metadata grafting.
 """
 
 from __future__ import annotations

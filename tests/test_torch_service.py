@@ -105,11 +105,63 @@ def test_upload_matches_jax_pipeline(service, opts):
 def test_error_statuses(service):
     _server, base, src, _img = service
     assert get(f"{base}/upload/w_100/{src}.missing")[0] == 404
-    status, _h, body = get(f"{base}/upload/w_100,r_90/{src}")
-    assert status == 501 and b"rotate" in body
+    status, _h, body = get(f"{base}/upload/w_100,fb_1/{src}")
+    assert status == 501 and b"face-blur" in body
     assert get(f"{base}/upload/w_100,o_jpg/{src}")[0] == 415
     assert get(f"{base}/upload/w_100,o_bmp/{src}")[0] == 400
     assert get(f"{base}/nothing/here")[0] == 404
+
+
+@pytest.mark.parametrize("opts", [
+    "w_100,r_90", "w_120,r_-30,bg_%23336699", "w_200,h_150,c_1,clsp_Gray,sh_2x1",
+    "w_150,mnchr_1", "w_160,ett_220x140,bg_red,blr_0x1",
+])
+def test_staged_options_match_jax_pipeline(service, opts):
+    """Options that reach the device after the resample answer 200 and
+    match the JAX package's run_plan within 1 u8 level (a dithered value
+    may differ only where the JAX-side luma lies within 1e-3 of its
+    threshold: none does on this source)."""
+    _server, base, src, img = service
+    status, headers, body = get(f"{base}/upload/{opts}/{src}")
+    assert status == 200, body
+    assert headers["Content-Type"] == "image/png"
+    got = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    ref = reference(img, opts)
+    assert got.shape == ref.shape
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_face_option_is_refused_not_ignored(service, tmp_path):
+    """fb_1/fc_1 answer 501 naming the face stage (the port has no face
+    pass yet), where the JAX package's handler serving the same URL does
+    run one: it would serve a different image."""
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.service.handler import ImageHandler as JImageHandler
+    from flyimg_tpu.storage import make_storage
+
+    _server, base, src, _img = service
+    status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fb_1/{src}")
+    assert status == 501 and b"face-blur" in body
+    status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fc_1/{src}")
+    assert status == 501 and b"face-crop" in body
+
+    class RecordingFaces:
+        calls = []
+
+        def detect_faces(self, image):
+            self.calls.append(("detect", image.shape))
+            return [(10, 10, 40, 40)]
+
+        def blur_faces(self, image, faces):
+            self.calls.append(("blur", len(faces)))
+            return image
+
+    params = JAppParameters({"upload_dir": str(tmp_path / "u"),
+                             "tmp_dir": str(tmp_path / "t")})
+    faces = RecordingFaces()
+    handler = JImageHandler(make_storage(params), params, face_backend=faces)
+    handler.process_image("w_300,h_250,c_1,fb_1,o_png", src)
+    assert faces.calls == [("detect", (250, 300, 3)), ("blur", 1)]
 
 
 def test_healthz(service):
