@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero without a result line:
 
 1. device  — a CUDA card must be visible; prints nvidia-smi's name and
              power limit;
-2. build   — compiles kernels K1-K6 from csrc/ with nvcc (one process per
+2. build   — compiles kernels K1-K10 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
@@ -33,7 +33,19 @@ Phases, in order; any failure exits non-zero without a result line:
              smaller than the bucket, a coloured background and the
              8192-wide bucket, K5 with 61 taps, images narrower than the
              taps and unsharp thresholds 0 and > 0, K6 with negative
-             offsets, a canvas smaller than the image and no overlap;
+             offsets, a canvas smaller than the image and no overlap; then
+             the face kernels at the face pass's shapes, timed, with
+             F.avg_pool2d, F.max_pool2d x4 and F.conv2d yardsticks: K7
+             (pixelate, exact) on a 480x640 output with its facefind boxes,
+             K8 (facefind masks: probability within 1 ulp, mask exact off
+             the knife-edge) on 16 x 480x640, K9/K10 (BlazeFace) at every
+             layer of the 64-view forward (within 1e-5 relative; the head's
+             probabilities within 1e-5 and boxes within 1e-4 absolute); not
+             timed, K7 on sides that are not multiples of 10, 1x1, zero-area,
+             overlapping, negative and past-the-edge boxes, none and 32; K8
+             on 1-member and padded buckets, valid regions smaller than the
+             bucket, 1x1 and thresholds 0 and 0.9; the forward at N = 1, 3
+             and 64;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
@@ -47,9 +59,18 @@ Phases, in order; any failure exits non-zero without a result line:
              PNGs, then 16 concurrent requests spread over the
              STAGED_OPTIONS strings, dense and banded; every answer is held against
              the same request through the handler on the CPU; a repeat is a
-             cache hit.
+             cache hit;
+7. faces   — flyimg_tpu_torch/entry.py face_entry (the BlazeFace forward
+             over 64 views, the facefind masks of 16 480x640 images) held
+             against the plain path and timed (views/s, images/s); then the
+             server on the card answers 16 concurrent /upload/w_640,fb_1/
+             requests with face_backend facefind, 16 /upload/w_640,fc_1,
+             fcp_1/ with blazeface and 4 /upload/w_640,fb_1,fc_1/ with auto
+             (which backend auto resolves to is printed), for seeded
+             1280x960 PNGs with skin-toned ellipses; every answer is held
+             against the CPU handler (1 u8 level, the same size).
 
-Launch counters are zeroed right before each main-path phase (4, 5 and 6)
+Launch counters are zeroed right before each main-path phase (4-7)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -78,6 +99,12 @@ K5_TOL = 1e-4                   # K5's f32 outputs (blur sums in another order)
 K5_KNIFE = 1e-3                 # |(|x - blur|) - thr * 255| of an unsharp knife-edge
 K6_KNIFE = 1e-4                 # |luma - threshold| of a dither knife-edge
 FLIP_FRAC = 1e-5                # share of values a dither threshold may flip
+K8_ULP = 1                      # K8's skin probability, ulps
+K8_KNIFE = 1e-6                 # |probability - threshold| of a K8 knife-edge
+K8_RADIUS = 8                   # pixels four 5x5 passes spread a flipped pixel
+BF_RTOL = 1e-5                  # K9/K10 layer outputs, max |a - b| / max |b|
+BF_PROB_TOL = 1e-5              # BlazeFace probabilities, absolute
+BF_BOX_TOL = 1e-4               # BlazeFace decoded boxes, absolute
 
 #: sources and batch of the staged programs (flyimg_tpu_torch/entry.py
 #: STAGED_OPTIONS)
@@ -1244,6 +1271,459 @@ def phase_server(torch, dev, workdir, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the face post-passes: K7 (pixelate), K8 (facefind masks), K9/K10 (BlazeFace)
+
+
+def knife_region(torch, prob, thresholds, valid):
+    """[B, h, w] bool: pixels within K8_RADIUS of a valid pixel whose
+    probability lies within K8_KNIFE of its member's threshold."""
+    import torch.nn.functional as F
+
+    near = ((prob - thresholds[:, None, None]).abs() < K8_KNIFE) & valid
+    k = 2 * K8_RADIUS + 1
+    return F.max_pool2d(near.float()[:, None], k, 1, K8_RADIUS)[:, 0] > 0
+
+
+def k7_case(torch, label, image, boxes, timed=False):
+    """K7 against its plain version: u8, exact."""
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.ops.pixelate import pixelate_regions, pixelate_regions_u8
+    from flyimg_tpu_torch.ops.resample import quantize_u8
+
+    def kern():
+        return pixelate_regions_u8(image, boxes)
+
+    def plain():
+        return quantize_u8(pixelate_regions(image.float(), boxes))
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((got.int() - ref.int()).abs().max())
+    check(err == 0, f"K7 {label}: max diff {err} u8 (must be exact)")
+    h, w, _ = image.shape
+    inside = int((got != image).any(dim=2).sum())
+    row = {"max_abs_err": float(err), "ms": None, "plain_ms": None,
+           "library_ms": None}
+    if timed:
+        nchw = image.permute(2, 0, 1)[None].float().contiguous()
+        row["ms"] = cuda_ms(torch, kern)
+        row["plain_ms"] = cuda_ms(torch, plain)
+        row["library_ms"] = cuda_ms(
+            torch, lambda: F.avg_pool2d(nchw, 10, 10, ceil_mode=True))
+    # each pixel read once and written once, the boxes read once; ~4 flops
+    # a value (3 adds of the block sum, the scale)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2.0 * image.numel() + boxes.numel() * 4, 4.0 * image.numel())
+    times = (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+             f"F.avg_pool2d {row['library_ms']:.4f} ms" if timed else "")
+    n_boxes = int((boxes[:, 2:] > 0).all(dim=1).sum())
+    print(f"K7 {label}: [{h}, {w}, 3] with {n_boxes} boxes of nonzero area "
+          f"(of {boxes.shape[0]}), exact "
+          f"({inside} pixels changed){times}; bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']})")
+    return row
+
+
+def k8_case(torch, label, images, in_true, thresholds, timed=False):
+    """K8 against its plain version: the probability within K8_ULP ulps,
+    the mask exact outside the knife-edge region."""
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.models.facefind import (
+        _batched_face_masks,
+        _skin_probability,
+        _valid,
+        face_masks_plain,
+    )
+
+    b, h, w, _ = images.shape
+    prob = torch.empty((b, h, w), dtype=torch.float32, device=images.device)
+    got = _batched_face_masks(images, in_true, thresholds, prob_out=prob)
+    ref = face_masks_plain(images, in_true, thresholds)
+    ref_prob = _skin_probability(images)
+    torch.cuda.synchronize()
+    ulp = int((prob.view(torch.int32).long()
+               - ref_prob.view(torch.int32).long()).abs().max())
+    check(ulp <= K8_ULP, f"K8 {label}: probability {ulp} ulps off (> {K8_ULP})")
+    valid = _valid(in_true, h, w)
+    knife = knife_region(torch, ref_prob, thresholds, valid)
+    bad = int(((got != ref) & ~knife).sum())
+    check(bad == 0, f"K8 {label}: {bad} mask pixels differ off the knife-edge")
+    n_knife = int(knife.sum())
+    row = {"max_abs_err": float((prob - ref_prob).abs().max()), "ms": None,
+           "plain_ms": None, "library_ms": None}
+    if timed:
+        m = torch.rand((b, 1, h, w), device=images.device)
+
+        def library():
+            x = m
+            for _ in range(4):
+                x = F.max_pool2d(x, 5, 1, 2)
+            return x
+
+        row["ms"] = cuda_ms(torch, lambda: _batched_face_masks(images, in_true, thresholds))
+        row["plain_ms"] = cuda_ms(torch, lambda: face_masks_plain(images, in_true, thresholds))
+        row["library_ms"] = cuda_ms(torch, library)
+    # the image read once, the mask written once (a byte a pixel); ~20 f32
+    # operations a pixel for the probability (the morphology's compares
+    # are not counted)
+    px = b * h * w
+    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * px + b * 12, 20.0 * px)
+    times = (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+             f"F.max_pool2d x4 {row['library_ms']:.4f} ms" if timed else "")
+    print(f"K8 {label}: [{b}, {h}, {w}, 3], probability within {ulp} ulp, "
+          f"mask equal off the knife-edge ({n_knife} pixels within "
+          f"{K8_RADIUS} px of a value within {K8_KNIFE:.0e} of the threshold; "
+          f"{int((got != ref).sum())} differ there), {float(got.float().mean()):.4f} "
+          f"of pixels set{times}; bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return row
+
+
+def blazeface_layers(torch, model, views):
+    """The forward's layer inputs on the plain path: [(kind, args)] for
+    every K9, K10 and K10-head call, each holding the plain twin's input."""
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    calls = [("K9", (views, model.stem.kernel, model.stem.bias, 2, True))]
+    x = bf.conv5x5_plain(*calls[0][1])
+    maps = []
+    for i, block in enumerate(model.blocks):
+        calls.append(("K9", (x, block.dw_kernel, None, block.stride, False)))
+        y = bf.conv5x5_plain(*calls[-1][1])
+        calls.append(("K10", (y, block.pw.kernel, block.pw.bias, x, block.stride)))
+        x = bf.pointwise_plain(*calls[-1][1])
+        if i == bf.X16_BLOCK:
+            maps.append(x)
+    maps.append(x)
+    for fmap, (cls, reg, offset) in zip(maps, model._heads()):
+        calls.append(("K10-head", (fmap, cls.kernel, cls.bias, reg.kernel,
+                                   reg.bias, offset)))
+    return calls
+
+
+def blazeface_rows(torch, model, views, timed=True):
+    """K9, K10 and K10's head form at every layer of one forward over
+    ``views``: each call against its plain twin (K9/K10 within BF_RTOL
+    relative, the head's probabilities within BF_PROB_TOL and boxes within
+    BF_BOX_TOL absolute); timed as the forward runs them (all of a kind's
+    calls in a row), with bounds summed over the calls and F.conv2d
+    yardsticks."""
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    calls = blazeface_layers(torch, model, views)
+    n = views.shape[0]
+    probs = torch.empty((n, bf.NUM_ANCHORS), device=views.device)
+    boxes = torch.empty((n, bf.NUM_ANCHORS, 4), device=views.device)
+
+    def head(args):
+        x, ck, cb, rk, rb, off = args
+        bf.head_decode(x, ck, cb, rk, rb, model.anchors, probs, boxes, off)
+
+    def head_ref(args):
+        x, ck, cb, rk, rb, off = args
+        cls, raw = bf.head_plain(x, ck, cb, rk, rb)
+        k = cls.shape[1]
+        return torch.sigmoid(cls), bf.decode_boxes(raw, model.anchors[off:off + k])
+
+    run = {"K9": lambda a: bf.conv5x5(*a), "K10": lambda a: bf.pointwise(*a),
+           "K10-head": head}
+    plain = {"K9": lambda a: bf.conv5x5_plain(*a),
+             "K10": lambda a: bf.pointwise_plain(*a), "K10-head": head_ref}
+    err = {"K9": 0.0, "K10": 0.0, "K10-head": 0.0}
+    nbytes = dict.fromkeys(err, 0.0)
+    flops = dict.fromkeys(err, 0.0)
+    lib_args = dict((k, []) for k in err)
+    for kind, args in calls:
+        if kind == "K10-head":
+            head(args)
+            p_ref, b_ref = head_ref(args)
+            off, k = args[5], p_ref.shape[1]
+            torch.cuda.synchronize()
+            ep = float((probs[:, off:off + k] - p_ref).abs().max())
+            eb = float((boxes[:, off:off + k] - b_ref).abs().max())
+            check(ep <= BF_PROB_TOL and eb <= BF_BOX_TOL,
+                  f"K10-head at anchor {off}: probs {ep}, boxes {eb} off")
+            err[kind] = max(err[kind], ep)
+            x = args[0]
+            cout = args[1].shape[3] + args[3].shape[3]
+            nbytes[kind] += 4.0 * (x.numel() + x.shape[3] * cout + cout
+                                   + 5 * n * k + 4 * k)
+            flops[kind] += 2.0 * x.numel() * cout
+            w = torch.cat([args[1], args[3]], dim=3)[0, 0].t()[:, :, None, None]
+            lib_args[kind].append((x.permute(0, 3, 1, 2).contiguous(),
+                                   w.contiguous(), None, 1))
+            continue
+        got, ref = run[kind](args), plain[kind](args)
+        torch.cuda.synchronize()
+        e = rel_err(torch, got, ref)
+        check(e <= BF_RTOL, f"{kind} at {tuple(args[0].shape)}: {e} relative off")
+        err[kind] = max(err[kind], e)
+        x, kern = args[0], args[1]
+        if kind == "K9":
+            depthwise = kern.shape[2] == 1 and kern.shape[3] == x.shape[3]
+            macs = got.numel() * 25 * (1 if depthwise else x.shape[3])
+            groups = x.shape[3] if depthwise else 1
+            pt, pb, _ = bf.same_pads(x.shape[1], args[3])
+            pl, pr, _ = bf.same_pads(x.shape[2], args[3])
+            xn = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous()
+            lib_args[kind].append((xn, kern.permute(3, 2, 0, 1).contiguous(),
+                                   args[2], args[3], groups))
+        else:
+            macs = got.numel() * x.shape[3]
+            nbytes[kind] += 4.0 * args[3].numel()   # the residual
+            lib_args[kind].append((x.permute(0, 3, 1, 2).contiguous(),
+                                   kern[0, 0].t()[:, :, None, None].contiguous(),
+                                   args[2], 1))
+        nbytes[kind] += 4.0 * (x.numel() + got.numel() + kern.numel())
+        flops[kind] += 2.0 * macs
+
+    def timed_run(kind):
+        sub = [a for k, a in calls if k == kind]
+        return lambda: [run[kind](a) for a in sub]
+
+    def timed_plain(kind):
+        sub = [a for k, a in calls if k == kind]
+        return lambda: [plain[kind](a) for a in sub]
+
+    def timed_lib(kind):
+        sub = lib_args[kind]
+        if kind == "K9":
+            return lambda: [F.conv2d(x, w, b, stride=s, groups=g)
+                            for x, w, b, s, g in sub]
+        return lambda: [F.conv2d(x, w, None, 1) for x, w, _b, _s in sub]
+
+    rows = {}
+    for kind in err:
+        row = {"max_abs_err": err[kind], "ms": None, "plain_ms": None,
+               "library_ms": None}
+        if timed:
+            row["ms"] = cuda_ms(torch, timed_run(kind))
+            row["plain_ms"] = cuda_ms(torch, timed_plain(kind))
+            row["library_ms"] = cuda_ms(torch, timed_lib(kind))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes[kind], flops[kind])
+        count = sum(1 for k, _ in calls if k == kind)
+        times = (f"; the forward's {count} calls: kernel {row['ms']:.4f} ms, "
+                 f"plain {row['plain_ms']:.4f} ms, F.conv2d "
+                 f"{row['library_ms']:.4f} ms" if timed else "")
+        print(f"{kind} over {n} views: max error {err[kind]:.3e} "
+              f"({'absolute, probs' if kind == 'K10-head' else 'relative'})"
+              f"{times}; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+              f"{flops[kind] / 1e9:.3f} GFLOP, {nbytes[kind] / 1e6:.1f} MB)")
+        rows[kind] = row
+    return rows
+
+
+def forward_case(torch, model, views, label):
+    """The whole forward through K9/K10 against the plain forward."""
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    probs, boxes = bf._forward(model, views)
+    logits, raw = model.forward_plain(views)
+    ref_p, ref_b = torch.sigmoid(logits), bf.decode_boxes(raw, model.anchors)
+    torch.cuda.synchronize()
+    ep = float((probs - ref_p).abs().max())
+    eb = float((boxes - ref_b).abs().max())
+    check(probs.shape == (views.shape[0], bf.NUM_ANCHORS), f"forward {label}: {probs.shape}")
+    check(bool(torch.isfinite(boxes).all()), f"forward {label}: non-finite boxes")
+    check(ep <= BF_PROB_TOL, f"forward {label}: probs {ep} off (> {BF_PROB_TOL})")
+    check(eb <= BF_BOX_TOL, f"forward {label}: boxes {eb} off (> {BF_BOX_TOL})")
+    print(f"forward {label}: {tuple(views.shape)} -> probs within {ep:.2e}, "
+          f"boxes within {eb:.2e} of the plain forward; {int((probs > 0.8).sum())} "
+          f"anchors above 0.8")
+
+
+def phase_face_kernels(torch, dev):
+    """K7-K10 against their plain versions at the shapes the face pass gives
+    them (timed) and at the edge shapes (not timed)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.entry import face_entry, skin_ellipse_image
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import facefind
+
+    rng = np.random.default_rng(21)
+    rows = {}
+    # K7 at the wave's shape: a 640x480 output with the facefind boxes
+    img = skin_ellipse_image(rng, 480, 640)
+    boxes = facefind.detect_faces(img, device=dev)
+    check(boxes, "K7: facefind found no boxes on the skin-ellipse image")
+    padded = np.zeros((facefind.MAX_FACES, 4), np.float32)
+    padded[:len(boxes)] = boxes
+    rows["K7"] = k7_case(torch, "serving 480x640", torch.from_numpy(img).to(dev),
+                         torch.from_numpy(padded).to(dev), timed=True)
+    for h, w in ((237, 311), (1, 1), (7, 13), (10, 20), (1080, 1920)):
+        src = torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+        edge = torch.tensor([[3, 5, 57, 41], [100, 100, 0, 10], [w - 20, h - 15, 100, 100],
+                             [10, 10, 30, 30], [0, 0, w, h / 2], [2, 3, 0, 0],
+                             [-5, -5, 12, 12]], dtype=torch.float32, device=dev)
+        k7_case(torch, f"{h}x{w}, zero-area, overlapping and edge boxes", src, edge)
+    k7_case(torch, "no boxes", src, torch.zeros((0, 4), device=dev))
+    k7_case(torch, "32 boxes", src, torch.from_numpy(
+        np.concatenate([rng.uniform(-50, 1900, (32, 2)), rng.uniform(0, 300, (32, 2))],
+                       axis=1).astype(np.float32)).to(dev))
+
+    # K8 at face_entry's shape: 16 x 480x640, the whole bucket valid
+    _fn, args = face_entry(dev)
+    views, images, in_true, thresholds = args
+    rows["K8"] = k8_case(torch, "16 x 480x640", images, in_true, thresholds,
+                         timed=True)
+    imgs = np.stack([skin_ellipse_image(rng, 256, 320) for _ in range(4)])
+    imgs[3] = rng.integers(0, 256, imgs[3].shape, dtype=np.uint8)
+    dev_imgs = torch.from_numpy(imgs).to(dev)
+    for label, sel, valid in (
+        ("1-member bucket", [0], [[256, 320]]),
+        ("valid < bucket, sides not multiples of 32", [0, 1, 2, 3],
+         [[250, 301], [237, 311], [33, 65], [256, 320]]),
+        ("padded bucket (3 members + a copy)", [0, 1, 2, 2],
+         [[256, 320], [201, 299], [256, 17], [256, 17]]),
+        ("1x1 valid", [3], [[1, 1]]),
+    ):
+        k8_case(torch, label, dev_imgs[sel].contiguous(),
+                torch.tensor(valid, dtype=torch.float32, device=dev),
+                torch.full((len(sel),), facefind.DEFAULT_THRESHOLD, device=dev))
+    k8_case(torch, "thresholds 0.01 and 0.9", dev_imgs[:2].contiguous(),
+            torch.tensor([[256, 320], [256, 320]], dtype=torch.float32, device=dev),
+            torch.tensor([0.01, 0.9], device=dev))
+
+    # K9/K10 at every layer of the 64-view forward, then whole forwards
+    model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
+    rows.update(blazeface_rows(torch, model, views))
+    for n in (1, 3):
+        blazeface_rows(torch, model, views[:n].contiguous(), timed=False)
+    for n in (1, 3, 64):
+        forward_case(torch, model, views[:n].contiguous(), f"N = {n}")
+    return rows
+
+
+def face_sources(workdir, n):
+    """``n`` seeded 1280x960 PNGs with skin-toned ellipses."""
+    import numpy as np
+
+    from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.entry import skin_ellipse_image
+
+    paths = []
+    for i in range(n):
+        img = skin_ellipse_image(np.random.default_rng(300 + i), 960, 1280,
+                                 faces=1 + i % 3)
+        path = os.path.join(workdir, f"face{i}.png")
+        with open(path, "wb") as fh:
+            fh.write(png.encode(img))
+        paths.append(path)
+    return paths
+
+
+def phase_faces(torch, dev, card, workdir, kernels):
+    """Main path: face_entry's steady state, then the face options through
+    the HTTP server (facefind fb_1, blazeface fc_1,fcp_1, auto), each answer
+    held against the same request through the CPU handler."""
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.entry import face_entry
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import facefind
+    from flyimg_tpu_torch.models.faces import make_face_backend
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.service.handler import ImageHandler
+
+    fn, args = face_entry(dev)
+    views, images, in_true, thresholds = args
+    probs, boxes, masks = fn(*args)
+    model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
+    logits, _raw = model.forward_plain(views)
+    torch.cuda.synchronize()
+    ep = float((probs - torch.sigmoid(logits)).abs().max())
+    check(ep <= BF_PROB_TOL, f"faces entry: probs {ep} off the plain forward")
+    ref_masks = facefind.face_masks_plain(images, in_true, thresholds)
+    knife = knife_region(torch, facefind._skin_probability(images), thresholds,
+                         facefind._valid(in_true, *images.shape[1:3]))
+    check(not bool(((masks != ref_masks) & ~knife).any()),
+          "faces entry: masks differ off the knife-edge")
+    n_boxes = sum(len(facefind._boxes_from_mask(m)) for m in masks.cpu().numpy())
+    fwd_ms = cuda_ms(torch, lambda: bf._forward(model, views), iters=20)
+    mask_ms = cuda_ms(torch, lambda: facefind._batched_face_masks(images, in_true, thresholds),
+                      iters=20)
+    rates = {"views_per_s": views.shape[0] / fwd_ms * 1e3,
+             "images_per_s": images.shape[0] / mask_ms * 1e3}
+    print(f"faces entry: probs within {ep:.2e} of the plain forward, masks equal "
+          f"off the knife-edge ({n_boxes} boxes in {images.shape[0]} images); "
+          f"forward of {views.shape[0]} views {fwd_ms:.4f} ms "
+          f"({rates['views_per_s']:.1f} views/s), masks of {images.shape[0]} "
+          f"480x640 images {mask_ms:.4f} ms ({rates['images_per_s']:.1f} "
+          f"images/s) on {card}")
+
+    auto = make_face_backend("auto", device=dev)
+    print(f"faces: face_backend auto resolves to {type(auto).__name__} here")
+    sources = face_sources(workdir, 16)
+    waves = (("facefind", "w_640,fb_1", sources, ("K7", "K8")),
+             ("blazeface", "w_640,fc_1,fcp_1", sources, ("K9", "K10", "K10-head")),
+             ("auto", "w_640,fb_1,fc_1", sources[:4], ()))
+    for backend, opts, srcs, want in waves:
+        params = AppParameters({
+            "upload_dir": os.path.join(workdir, backend, "uploads"),
+            "tmp_dir": os.path.join(workdir, backend, "tmp"),
+            "face_backend": backend,
+        })
+        server = make_server(params, device=dev)
+        thread = serve_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            before = read_counts(kernels)
+            log0 = len(server.batcher.launch_log)
+
+            def get(src):
+                with urllib.request.urlopen(f"{base}/upload/{opts}/{src}",
+                                            timeout=300) as resp:
+                    return resp.status, resp.read()
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(srcs)) as pool:
+                answers = list(pool.map(get, srcs))
+            wall = time.perf_counter() - t0
+            after = read_counts(kernels)
+            wave = {k: after[k] - before[k] for k in after}
+            launches = list(server.batcher.launch_log)[log0:]
+            print(f"faces {backend}: {len(srcs)} concurrent /upload/{opts}/ in "
+                  f"{wall:.3f} s; launches {launches}; kernel launches {wave}")
+            for name in want:
+                check(wave[name] > 0, f"faces {backend}: {name} never launched")
+            cpu = ImageHandler(AppParameters({
+                "upload_dir": os.path.join(workdir, backend, "cpu_uploads"),
+                "tmp_dir": os.path.join(workdir, backend, "cpu_tmp"),
+                "face_backend": backend,
+            }), device="cpu")
+            n_diff = n_total = 0
+            shapes = []
+            for src, (status, body) in zip(srcs, answers):
+                check(status == 200, f"faces {backend} {src}: status {status}")
+                got, _ = png.decode(body)
+                ref, _ = png.decode(cpu.process_image(opts, src).content)
+                check(got.shape == ref.shape,
+                      f"faces {backend} {src}: card {got.shape} vs cpu {ref.shape}")
+                diff = np.abs(got.astype(int) - ref.astype(int))
+                check(int(diff.max()) <= PIXEL_TOL,
+                      f"faces {backend} {src}: card vs cpu differ by {int(diff.max())}")
+                n_diff += int((diff > 0).sum())
+                n_total += diff.size
+                shapes.append(got.shape[:2])
+            print(f"faces {backend}: all {len(srcs)} answers 200, the same "
+                  f"sizes as the CPU handler {shapes[:4]}..., within {PIXEL_TOL} "
+                  f"u8 ({n_diff} of {n_total} values differ)")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    return rates
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
@@ -1258,16 +1738,21 @@ def main() -> int:
 
     from flyimg_tpu_torch import cuda_build
     from flyimg_tpu_torch.device import resolve_device
+    from flyimg_tpu_torch.models.blazeface import conv5x5, head_decode, pointwise
+    from flyimg_tpu_torch.models.facefind import _batched_face_masks
     from flyimg_tpu_torch.models.smartcrop import _batched_scores, _batched_weighted
     from flyimg_tpu_torch.ops.color import pixel_pass
     from flyimg_tpu_torch.ops.filters import separable_filter
+    from flyimg_tpu_torch.ops.pixelate import pixelate_regions_u8
     from flyimg_tpu_torch.ops.resample import resample_banded_f32, resample_banded_u8
     from flyimg_tpu_torch.ops.rotate import rotate_sampled
 
     resolve_device(dev)  # TF32 off for matmuls and convolutions
     kernels = {"K1": resample_banded_u8, "K1-f32": resample_banded_f32,
                "K2": _batched_weighted, "K3": _batched_scores,
-               "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass}
+               "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass,
+               "K7": pixelate_regions_u8, "K8": _batched_face_masks,
+               "K9": conv5x5, "K10": pointwise, "K10-head": head_decode}
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -1282,6 +1767,7 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     rows = phase_kernels(torch, dev)
     rows.update(phase_stage_kernels(torch, dev))
+    rows.update(phase_face_kernels(torch, dev))
 
     # phase 4: entry (main path)
     reset_counts(kernels)
@@ -1305,8 +1791,15 @@ def main() -> int:
     os.makedirs(workdir)
     try:
         server_counts = phase_server(torch, dev, workdir, kernels)
+        # phase 7: the face post-passes (main path)
+        reset_counts(kernels)
+        face_rates = phase_faces(torch, dev, card, workdir, kernels)
+        face_counts = read_counts(kernels)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(f"faces kernel launches: {face_counts}")
+    for name in ("K7", "K8", "K9", "K10", "K10-head"):
+        check(face_counts[name] > 0, f"faces: {name} never launched")
 
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
@@ -1323,11 +1816,22 @@ def main() -> int:
                "flyimg_tpu/ops/filters.py:38"),
         "K6": ("pixel_pass", "flyimg_tpu_torch/csrc/pixel_pass.cu",
                "flyimg_tpu/ops/color.py:51"),
+        "K7": ("pixelate_regions_u8", "flyimg_tpu_torch/csrc/pixelate.cu",
+               "flyimg_tpu/ops/pixelate.py:37"),
+        "K8": ("face_masks", "flyimg_tpu_torch/csrc/facemask.cu",
+               "flyimg_tpu/models/facefind.py:143"),
+        "K9": ("blazeface_conv5x5", "flyimg_tpu_torch/csrc/blazeface.cu",
+               "flyimg_tpu/models/blazeface.py:35"),
+        "K10": ("blazeface_pointwise", "flyimg_tpu_torch/csrc/blazeface.cu",
+                "flyimg_tpu/models/blazeface.py:35"),
+        "K10-head": ("blazeface_head_decode", "flyimg_tpu_torch/csrc/blazeface.cu",
+                     "flyimg_tpu/models/blazeface.py:57"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
         launches = (entry_counts[key] + staged_counts[key]
-                    + sum(c[key] for c in server_counts.values()))
+                    + sum(c[key] for c in server_counts.values())
+                    + face_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
@@ -1340,6 +1844,8 @@ def main() -> int:
           f"{rates['banded']:.1f}")
     print("staged images/s: " + ", ".join(
         f"{opts} {rate:.1f}" for opts, rate in staged_rates.items()))
+    print(f"faces: BlazeFace {face_rates['views_per_s']:.1f} views/s, facefind "
+          f"masks {face_rates['images_per_s']:.1f} images/s")
     print(card_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,11 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # dense | banded | auto (ops/resample.py); the env var seeds it as in
     # the JAX package
     "resample_kernel": os.environ.get("FLYIMG_RESAMPLE_KERNEL", "dense"),
+    # auto | haar | blazeface | facefind | none (models/faces.py)
+    "face_backend": "auto",
+    # an .npz of BlazeFace weights (tools/export_blazeface_npz.py); None
+    # is the packaged one
+    "face_checkpoint": None,
 }
 
 

@@ -40,6 +40,11 @@ SOURCES: Dict[str, tuple] = {
     "pixel_pass": ("pixel_pass.cu", ("--fmad=false",)),
     "rotate": ("rotate.cu", ("--fmad=false",)),
     "separable": ("separable.cu", ()),
+    "pixelate": ("pixelate.cu", ()),
+    # the skin probability rounds in the reference's order through explicit
+    # __f*_rn intrinsics; expf is left as torch's CUDA exp compiles it
+    "facemask": ("facemask.cu", ()),
+    "blazeface": ("blazeface.cu", ()),
 }
 
 BASE_FLAGS = (

@@ -13,6 +13,11 @@ The counterpart of ``__graft_entry__.entry()``: ``entry()`` returns
 
 ``fn`` returns ``(out u8 [B, 250, 300, 3], scores f32 [B, 13, 19])``.
 
+``face_entry()`` is the face post-passes' device work: the BlazeFace
+forward (kernels K9, K10) over ``FACE_VIEWS`` seeded 128x128 views — the
+largest chunk the runtime launches — and the facefind masks (kernel K8) of
+``FACE_IMAGES`` seeded 480x640 images with skin-toned ellipses.
+
 ``staged_entry(opts)`` builds the batch of one of ``STAGED_OPTIONS`` — the
 program stages after the resample (rotate, filters, pad, grayscale,
 dither) — on seeded 1920x1080 sources, grouped and padded as the batcher
@@ -60,6 +65,12 @@ STAGED_OPTIONS = (
 )
 STAGED_SRC = (1920, 1080)
 STAGED_BATCH = 32
+
+FACE_VIEWS = 64
+FACE_IMAGES = 16
+FACE_HW = (480, 640)
+#: an RGB skin tone: inside the facefind chromaticity ellipse and gates
+SKIN_RGB = (205.0, 150.0, 118.0)
 
 
 def flagship_band():
@@ -144,3 +155,56 @@ def staged_entry(opts: str, batch: int = STAGED_BATCH,
                          group.pad_offset, group.device_plan,
                          group.rotate_dynamic, group.band_taps)
     return fn, (images, *program_args(geo)), group, plan, final_true
+
+
+def skin_ellipse_image(rng: np.random.Generator, h: int, w: int,
+                       faces: int = 3) -> np.ndarray:
+    """[h, w, 3] u8: a smooth bluish background (never skin: blue above
+    red) with ``faces`` noisy skin-toned ellipses (upright, about 1.2:1) of
+    6-14% of the short side in radius, apart from one another."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    for c, base in enumerate((50.0, 70.0, 110.0)):
+        fy, fx = rng.uniform(0.5, 2.0, 2) * np.pi / np.array([h, w])
+        img[..., c] = base + 15 * np.sin(fy * yy + fx * xx + rng.uniform(0, 6))
+    side = min(h, w)
+    for k in range(faces):
+        r = rng.uniform(0.06, 0.14) * side
+        cx = (k + 0.5) / faces * w + rng.uniform(-0.05, 0.05) * w
+        cy = rng.uniform(0.3, 0.7) * h
+        inside = ((yy - cy) / 1.2) ** 2 + (xx - cx) ** 2 < r * r
+        img[inside] = np.asarray(SKIN_RGB, np.float32)
+    img += rng.normal(0, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def face_entry(device: Union[str, torch.device] = "cuda",
+               views: int = FACE_VIEWS, images: int = FACE_IMAGES,
+               seed: int = 0):
+    """(fn, args) of the face post-passes' device work on ``device``:
+    ``fn(views, images, in_true, thresholds)`` runs the BlazeFace forward
+    over ``views`` f32 [V, 128, 128, 3] (the packaged weights) and the
+    facefind masks of ``images`` u8 [I, 480, 640, 3], returning
+    ``(probs [V, 896], boxes [V, 896, 4], masks bool [I, 480, 640])``."""
+    from flyimg_tpu_torch.models import blazeface, facefind
+
+    dev = resolve_device(device)
+    model = blazeface.load_weights(blazeface.PACKAGED_WEIGHTS, dev)
+    rng = np.random.default_rng(seed)
+    size = blazeface.INPUT_SIZE
+    view_u8 = np.stack([skin_ellipse_image(rng, size, size, 1)
+                        for _ in range(views)])
+    view_batch = view_u8.astype(np.float32) / 127.5 - 1.0
+    h, w = FACE_HW
+    image_batch = np.stack([skin_ellipse_image(rng, h, w) for _ in range(images)])
+    in_true = np.tile(np.array([[h, w]], np.float32), (images, 1))
+    thresholds = np.full((images,), facefind.DEFAULT_THRESHOLD, np.float32)
+
+    def fn(v, imgs, valid, thr):
+        probs, boxes = blazeface._forward(model, v)
+        masks = facefind._batched_face_masks(imgs, valid, thr)
+        return probs, boxes, masks
+
+    args = tuple(torch.from_numpy(a).to(dev) for a in
+                 (view_batch, image_batch, in_true, thresholds))
+    return fn, args

@@ -1,16 +1,18 @@
-"""Pillow's LANCZOS resize of an RGB u8 image, in numpy.
+"""Pillow's LANCZOS and BILINEAR resizes of a u8 image, in numpy.
 
 The smart-crop prescale of the JAX package calls
 ``PIL.Image.resize(..., Image.LANCZOS)``; the work image it produces
 decides the candidate grid, so a one-level difference here can move the
-chosen crop. This is a port of Pillow's fixed-point resampler
-(``libImaging/Resample.c``) so the result equals Pillow's byte for byte
-without Pillow installed:
+chosen crop. BlazeFace's network inputs and the Haar pyramid call
+``Image.resize(..., Image.BILINEAR)`` on RGB and luma images. This is a
+port of Pillow's fixed-point resampler (``libImaging/Resample.c``) so the
+result equals Pillow's byte for byte without Pillow installed:
 
-- per axis, ``precompute_coeffs`` in double: support ``3 * max(scale, 1)``,
-  bounds ``[int(center - support + 0.5), int(center + support + 0.5))``
-  clipped to the image, weights ``lanczos((x + xmin - center + 0.5) / fs)``
-  normalised by their sum;
+- per axis, ``precompute_coeffs`` in double: support ``s * max(scale, 1)``
+  (``s`` = 3 for LANCZOS, 1 for BILINEAR), bounds
+  ``[int(center - support + 0.5), int(center + support + 0.5))`` clipped to
+  the image, weights ``filter((x + xmin - center + 0.5) / fs)`` normalised
+  by their sum;
 - weights become 22-bit fixed point, rounded half away from zero;
 - the horizontal pass runs first, over only the source rows the vertical
   pass reads, and clips to u8; the vertical pass reads that u8 image;
@@ -21,12 +23,11 @@ without Pillow installed:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 
 PRECISION_BITS = 32 - 8 - 2
-_SUPPORT = 3.0
 
 
 def _sinc(x: float) -> float:
@@ -44,11 +45,24 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _bilinear(x: float) -> float:
+    x = -x if x < 0.0 else x
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+#: Pillow's filters: (function, support)
+LANCZOS = (_lanczos, 3.0)
+BILINEAR = (_bilinear, 1.0)
+
+
+def _coeffs(in_size: int, out_size: int,
+            filt: Tuple[Callable[[float], float], float] = LANCZOS,
+            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(xmin [out], count [out], fixed-point weights [out, ksize])."""
+    fn, base_support = filt
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = _SUPPORT * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     xmin = np.empty(out_size, np.int64)
     count = np.empty(out_size, np.int64)
@@ -59,7 +73,7 @@ def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.nda
         hi = min(int(center + support + 0.5), in_size)
         n = hi - lo
         ss = 1.0 / filterscale
-        w = [_lanczos((x + lo - center + 0.5) * ss) for x in range(n)]
+        w = [fn((x + lo - center + 0.5) * ss) for x in range(n)]
         ww = 0.0
         for v in w:  # Pillow sums in index order
             ww += v
@@ -75,7 +89,7 @@ def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.nda
 
 def _apply(src: np.ndarray, xmin, count, fixed, axis: int) -> np.ndarray:
     """One pass over ``axis`` (1 = horizontal, 0 = vertical) of an
-    [h, w, 3] u8 image -> u8."""
+    [h, w, c] u8 image -> u8."""
     out_size, ksize = fixed.shape
     in_size = src.shape[axis]
     idx = np.minimum(xmin[:, None] + np.arange(ksize)[None, :], in_size - 1)
@@ -89,22 +103,38 @@ def _apply(src: np.ndarray, xmin, count, fixed, axis: int) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def resize(img: np.ndarray, w: int, h: int, filt=LANCZOS) -> np.ndarray:
+    """``Image.fromarray(img).resize((w, h), filter)`` of an [h, w, 3] or
+    [h, w] u8 array, as an array of the same rank."""
+    img = np.asarray(img, np.uint8)
+    flat = img.ndim == 2
+    if flat:
+        img = img[..., None]
+    in_h, in_w = img.shape[:2]
+    if (in_w, in_h) == (w, h):
+        out = np.array(img, copy=True)
+    else:
+        out = img
+        ymin, ycount, yk = _coeffs(in_h, h, filt)
+        if w != in_w:
+            first = int(ymin[0])
+            last = int(ymin[-1] + ycount[-1])
+            xmin, xcount, xk = _coeffs(in_w, w, filt)
+            out = _apply(out[first:last], xmin, xcount, xk, axis=1)
+            ymin = ymin - first
+        if h != in_h:
+            out = _apply(out, ymin, ycount, yk, axis=0)
+    out = np.ascontiguousarray(out)
+    return out[..., 0] if flat else out
+
+
 def lanczos_resize(rgb: np.ndarray, w: int, h: int) -> np.ndarray:
     """``Image.fromarray(rgb).resize((w, h), Image.LANCZOS)`` as an
     [h, w, 3] u8 array."""
-    in_h, in_w = rgb.shape[:2]
-    if (in_w, in_h) == (w, h):
-        return np.array(rgb, copy=True)
-    need_h = w != in_w
-    need_v = h != in_h
-    ymin, ycount, yk = _coeffs(in_h, h)
-    img = np.asarray(rgb, np.uint8)
-    if need_h:
-        first = int(ymin[0])
-        last = int(ymin[-1] + ycount[-1])
-        xmin, xcount, xk = _coeffs(in_w, w)
-        img = _apply(img[first:last], xmin, xcount, xk, axis=1)
-        ymin = ymin - first
-    if need_v:
-        img = _apply(img, ymin, ycount, yk, axis=0)
-    return np.ascontiguousarray(img)
+    return resize(rgb, w, h, LANCZOS)
+
+
+def bilinear_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """``Image.fromarray(img).resize((w, h), Image.BILINEAR)`` of an
+    [h, w, 3] or [h, w] u8 array."""
+    return resize(img, w, h, BILINEAR)

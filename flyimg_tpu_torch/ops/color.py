@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,8 +56,10 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a * b + c`` rounded ONCE, as a fused multiply-add rounds it.
+def fma_f32(a: torch.Tensor, b: Union[float, torch.Tensor],
+            c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded ONCE, as a fused multiply-add rounds it
+    (``b`` an f32 value or an f32 tensor).
     The product is exact in f64 (24 + 24 bits) and TwoSum gives the f64
     sum's error e exactly; rounding the f64 sum to f32 is then the fused
     result except where that sum lies exactly halfway between two f32s,

@@ -17,9 +17,10 @@ kernels: the resample is the dense form (two ``torch.matmul``s) or K1
 launch (ops/color.py), a sampled rotate is K4 (ops/rotate.py; quarter
 turns on the static path are flips), each filter is K5 (ops/filters.py).
 
-Not ported yet: the face post-passes (``fb_1``, ``fc_1``) — a plan that
-needs one raises ``NotPortedException`` naming it before any device work
-(``check_ported``), never skipping it silently.
+The face post-passes (``fb_1``, ``fc_1``) run after the program, in the
+handler (models/faces.py). ``check_ported`` stays the hook for a stage the
+port does not carry: a plan that needs one raises ``NotPortedException``
+naming it before any device work, never skipping it silently.
 """
 
 from __future__ import annotations
@@ -109,16 +110,14 @@ def _needs_resample(plan: TransformPlan, layout: Optional[Layout] = None) -> boo
     )
 
 
+#: (plan attribute, stage name) of each stage the port does not carry yet:
+#: none since the face post-passes were ported
+UNPORTED: Tuple[Tuple[str, str], ...] = ()
+
+
 def unported_stages(plan: TransformPlan) -> List[str]:
-    """The stages this plan needs that the port does not carry yet: the
-    face post-passes, which run after the device program in the reference's
-    handler."""
-    stages = []
-    if plan.face_blur:
-        stages.append("face-blur")
-    if plan.face_crop:
-        stages.append("face-crop")
-    return stages
+    """The stages this plan needs that the port does not carry yet."""
+    return [stage for attr, stage in UNPORTED if getattr(plan, attr)]
 
 
 def check_ported(plan: TransformPlan) -> None:

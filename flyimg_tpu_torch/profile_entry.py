@@ -25,6 +25,13 @@ With ``--staged``: each program of ``entry.STAGED_OPTIONS`` (the stages
 after the resample, 32 x 1920x1080 sources), banded and dense — the whole
 batch by CUDA events and a ``torch.profiler`` window (device time by
 kernel, busy share), one JSON line each.
+
+With ``--faces``: ``entry.face_entry``'s batch (the BlazeFace forward over
+64 views, the facefind masks of 16 480x640 images) — the forward and the
+masks apart by CUDA events (views/s, images/s), and a ``torch.profiler``
+window over ``--iters`` batches (device time by kernel, busy share) — and
+K7 on a 480x640 output with its facefind boxes (device time a launch);
+one JSON line.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from flyimg_tpu_torch.entry import (
     STAGED_OPTIONS,
     STRIDE,
     entry,
+    face_entry,
     flagship_band,
     staged_entry,
 )
@@ -157,10 +165,28 @@ def profiler_window(fn, args, iters: int) -> dict:
     }
 
 
-def k2_serving(iters: int, dev) -> dict:
-    """Device and burst milliseconds a K2 launch at the serving shape."""
+def _kernel_device_ms(fn, iters: int, name: str) -> float:
+    """Device milliseconds a call of ``fn`` spends in kernels whose name
+    holds ``name``, from a ``torch.profiler`` window of ``iters`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device_us = 0.0
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")) and name in evt.key:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            device_us += dev_us
+    return device_us / 1e3 / iters
+
+
+def k2_serving(iters: int, dev) -> dict:
+    """Device and burst milliseconds a K2 launch at the serving shape."""
     gen = torch.Generator(device="cpu").manual_seed(11)
     images = torch.randint(0, 256, (16, 128, 160, 3), generator=gen,
                            dtype=torch.uint8).to(dev)
@@ -172,19 +198,9 @@ def k2_serving(iters: int, dev) -> dict:
             _batched_weighted(images, valid)
 
     burst_ms = _median_ms(burst, iters) / 20
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(iters):
-            _batched_weighted(images, valid)
-        torch.cuda.synchronize()
-    device_us = 0.0
-    for evt in prof.key_averages():
-        if "CUDA" in str(getattr(evt, "device_type", "")) and "saliency" in evt.key:
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-            device_us += dev_us
-    return {"shape": [16, 128, 160, 3], "device_ms": device_us / 1e3 / iters,
+    device_ms = _kernel_device_ms(lambda: _batched_weighted(images, valid),
+                                  iters, "saliency")
+    return {"shape": [16, 128, 160, 3], "device_ms": device_ms,
             "burst_ms": burst_ms}
 
 
@@ -210,18 +226,67 @@ def staged_rows(iters: int, dev, card: str):
     set_kernel_mode("dense")
 
 
+def k7_serving(iters: int, dev) -> dict:
+    """Device and single-call milliseconds of K7 on a 480x640 output (a
+    w_640 face-blur answer) with the boxes facefind finds there."""
+    import numpy as np
+
+    from flyimg_tpu_torch.entry import skin_ellipse_image
+    from flyimg_tpu_torch.models import facefind
+    from flyimg_tpu_torch.ops.pixelate import pixelate_regions_u8
+
+    img = skin_ellipse_image(np.random.default_rng(21), 480, 640)
+    found = facefind.detect_faces(img, device=dev)
+    boxes = np.zeros((facefind.MAX_FACES, 4), np.float32)
+    boxes[:len(found)] = found
+    image = torch.from_numpy(img).to(dev)
+    dboxes = torch.from_numpy(boxes).to(dev)
+    single_ms = _median_ms(lambda: pixelate_regions_u8(image, dboxes), iters)
+    device_ms = _kernel_device_ms(lambda: pixelate_regions_u8(image, dboxes),
+                                  iters, "pixelate")
+    return {"shape": [480, 640, 3], "boxes": len(found),
+            "device_ms": device_ms, "single_ms": single_ms}
+
+
+def face_row(iters: int, dev, card: str) -> dict:
+    """The face batch: its two halves by CUDA events, the whole in a
+    profiler window; then K7 at a serving shape."""
+    from flyimg_tpu_torch.models import blazeface, facefind
+
+    fn, fargs = face_entry(device=dev)
+    views, images, in_true, thresholds = fargs
+    model = blazeface.load_weights(blazeface.PACKAGED_WEIGHTS, dev)
+    forward_ms = _median_ms(lambda: blazeface._forward(model, views), iters)
+    masks_ms = _median_ms(lambda: facefind._batched_face_masks(
+        images, in_true, thresholds), iters)
+    return {
+        "faces": True, "card": card, "views": views.shape[0],
+        "images": list(images.shape), "batch_ms": _median_ms(lambda: fn(*fargs), iters),
+        "forward_ms": forward_ms, "masks_ms": masks_ms,
+        "views_per_s": views.shape[0] / forward_ms * 1e3,
+        "images_per_s": images.shape[0] / masks_ms * 1e3,
+        "profiler": profiler_window(fn, fargs, iters),
+        "k7_serving": k7_serving(iters, dev),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="flyimg_tpu_torch.profile_entry")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--staged", action="store_true",
                         help="profile the staged programs instead")
+    parser.add_argument("--faces", action="store_true",
+                        help="profile the face batch instead")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+    if args.faces:
+        print(json.dumps(face_row(args.iters, dev, card)))
+        return 0
     if args.staged:
         for row in staged_rows(args.iters, dev, card):
             print(json.dumps(row))

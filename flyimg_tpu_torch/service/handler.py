@@ -2,16 +2,18 @@
 
 The port of the miss path of ``flyimg_tpu/service/handler.py`` for the main
 path: options parse -> source fetch -> output naming + cache check ->
-decode -> plan -> batched device transform -> smart-crop post-pass ->
-encode -> store -> serve bytes. Concurrent misses for one output name are
-coalesced so one render serves them all.
+decode -> plan -> batched device transform -> smart-crop post-pass -> face
+post-passes (blur, then crop) -> encode -> store -> serve bytes. Concurrent
+misses for one output name are coalesced so one render serves them all.
 
 Every device stage of the reference's program runs here (resample, extent
-pad, grayscale, monochrome, rotate, unsharp, sharpen, blur). Not ported yet
-(ROADMAP): the face post-passes (``fb_1``/``fc_1`` answer 501 naming the
-stage, never a silently unblurred image), spatial tiling, codecs other than
-PNG, signed URLs and domain restrictions, brownout, derivative reuse, the
-fleet tier and metadata grafting.
+pad, grayscale, monochrome, rotate, unsharp, sharpen, blur), and the face
+options: detection through the ``face_backend`` parameter's backend
+(models/faces.py), batched as an aux group where the backend has a batched
+path; a detection that fails fails the request, never answering with the
+faces unblurred. Not ported yet (ROADMAP): spatial tiling, codecs other
+than PNG, signed URLs and domain restrictions, brownout, derivative reuse,
+the fleet tier and metadata grafting.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Dict, Optional, Tuple, Union
@@ -36,6 +39,7 @@ from flyimg_tpu_torch.exceptions import (
     UnsupportedMediaException,
 )
 from flyimg_tpu_torch.models import smartcrop
+from flyimg_tpu_torch.models.faces import make_face_backend
 from flyimg_tpu_torch.ops.compose import run_plan
 from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
 from flyimg_tpu_torch.service.input_source import load_source
@@ -92,6 +96,23 @@ def _cache_entry_valid(content: bytes, spec: OutputSpec) -> bool:
     return spec.extension != "png" or content[:8] == b"\x89PNG\r\n\x1a\n"
 
 
+@contextmanager
+def _device_failures(what: str):
+    """Map a failure of device work to the HTTP layer's classes: an
+    out-of-memory is capacity (503, Retry-After), not the request's fault;
+    anything else fails the request naming ``what`` (500)."""
+    try:
+        yield
+    except torch.OutOfMemoryError as exc:
+        raise ServiceUnavailableException(
+            f"device out of memory ({classify_error(exc)})"
+        ) from exc
+    except AppException:
+        raise
+    except Exception as exc:
+        raise ExecFailedException(f"{what} failed: {exc}") from exc
+
+
 class ImageHandler:
     """One per app. ``batcher`` None runs every transform as a batch-1
     program in the calling thread (``run_plan``)."""
@@ -102,10 +123,13 @@ class ImageHandler:
         *,
         device: Union[str, torch.device] = "cuda",
         batcher: Optional[BatchController] = None,
+        face_backend=None,
     ) -> None:
         self.params = params or AppParameters()
         self.device = resolve_device(device)
         self.batcher = batcher
+        self._face_backend = face_backend
+        self._face_lock = threading.Lock()
         self.storage = LocalStorage(self.params.by_key("upload_dir"))
         self.tmp_dir = self.params.by_key("tmp_dir")
         self._flight = _SingleFlight()
@@ -173,18 +197,21 @@ class ImageHandler:
             modified_at=mtime,
         )
 
+    def _faces(self):
+        """The face backend, made on first use from ``face_backend`` /
+        ``face_checkpoint`` (loading BlazeFace weights is not free)."""
+        with self._face_lock:
+            if self._face_backend is None:
+                self._face_backend = make_face_backend(
+                    str(self.params.by_key("face_backend", "auto")),
+                    self.params.by_key("face_checkpoint"),
+                    device=self.device,
+                )
+            return self._face_backend
+
     def _await(self, fut: Future):
-        try:
+        with _device_failures("device transform"):
             return fut.result()
-        except torch.OutOfMemoryError as exc:
-            # capacity, not the request's fault: shed with Retry-After
-            raise ServiceUnavailableException(
-                f"device out of memory ({classify_error(exc)})"
-            ) from exc
-        except AppException:
-            raise
-        except Exception as exc:
-            raise ExecFailedException(f"device transform failed: {exc}") from exc
 
     def _process_new(
         self, data: bytes, options: OptionsBag, spec: OutputSpec,
@@ -234,8 +261,34 @@ class ImageHandler:
             out = smartcrop.apply_crop(out, crop)
             timings["smartcrop"] = time.perf_counter() - t
 
+        if plan.face_blur or plan.face_crop:
+            t = time.perf_counter()
+            out = self._face_pass(out, plan)
+            timings["faces"] = time.perf_counter() - t
+
         t = time.perf_counter()
         alpha = decoded.alpha if keeps_alpha else None
         content = codecs.encode(np.ascontiguousarray(out), spec.extension, alpha)
         timings["encode"] = time.perf_counter() - t
         return content
+
+    def _face_pass(self, out: np.ndarray, plan) -> np.ndarray:
+        """Detect faces on the output, then blur and/or crop; detection is
+        one aux group per bucket when the backend batches."""
+        ff = self._faces()
+        with _device_failures("face-blur" if plan.face_blur else "face-crop"):
+            if hasattr(ff, "prepare_face_work"):
+                item = ff.prepare_face_work(out)
+                if self.batcher is not None:
+                    faces = self.batcher.submit_aux(
+                        ("face", item.bucket), item, ff.detect_faces_batched,
+                    ).result()
+                else:
+                    faces = ff.detect_faces_batched([item])[0]
+            else:
+                faces = ff.detect_faces(out)
+            if plan.face_blur:
+                out = ff.blur_faces(out, faces)
+        if plan.face_crop:
+            out = ff.crop_face(out, faces, plan.face_crop_position)
+        return out

@@ -1,0 +1,225 @@
+"""The PyTorch package's BlazeFace forward against the JAX package's flax
+model, on the CPU: the exported weights, a small-depth network (stem, three
+BlazeBlocks, one at stride 2, and a head) with seeded random weights, the
+full packaged network, the anchor decode and the batched detection path
+(views, chunks of at most 64 views on the power-of-two ladder, NMS).
+
+On a CPU tensor K9 (``conv5x5``), K10 (``pointwise``) and K10's head form
+(``head_decode``) run their plain versions (``F.conv2d``, ``F.max_pool2d``),
+so these tests hold the plain versions; the kernels are held against the
+plain versions on the card by chip_smoke.py and the ``cuda``-marked test.
+
+Bounds, each stated where it is checked:
+- the weights: array by array equal to the orbax checkpoint;
+- probabilities within 1e-5, raw offsets and logits within 1e-4 (the
+  convolutions' sums run in another order than XLA's), decoded boxes
+  within 1e-5;
+- detection boxes: equal (no anchor lies near the 0.8 threshold or an IoU
+  of 0.3 on these images, which the test checks).
+"""
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flyimg_tpu.models import blazeface as jbf
+from flyimg_tpu.models.faces import PACKAGED_BLAZEFACE
+from flyimg_tpu.runtime import batcher as jbatcher
+from flyimg_tpu_torch.entry import skin_ellipse_image
+from flyimg_tpu_torch.models import blazeface as tbf
+from flyimg_tpu_torch.runtime import batcher as tbatcher
+
+torch.set_num_threads(2)
+
+PROB_TOL = 1e-5
+RAW_TOL = 1e-4
+BOX_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jbf.load_checkpoint(PACKAGED_BLAZEFACE)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return tbf.load_weights(device="cpu")
+
+
+def test_npz_equals_the_orbax_checkpoint(jparams):
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    with np.load(tbf.PACKAGED_WEIGHTS) as z:
+        assert len(z.files) == len(flat) == 58
+        for path, value in flat:
+            key = "/".join(p.key for p in path)
+            np.testing.assert_array_equal(z[key], np.asarray(value))
+            assert z[key].dtype == np.float32
+    assert sum(np.asarray(v).size for _p, v in flat) == 106940
+
+
+def test_params_from_flax_takes_nested_trees_and_refuses_others(jparams):
+    nested = jax.tree.map(np.asarray, jparams)
+    state = tbf.params_from_flax(nested)
+    with np.load(tbf.PACKAGED_WEIGHTS) as z:
+        flat = tbf.params_from_flax({k: z[k] for k in z.files})
+    assert state.keys() == flat.keys()
+    for key in state:
+        assert torch.equal(state[key], flat[key])
+    assert state["stem.kernel"].shape == (5, 5, 3, 24)
+    assert state["blocks.2.dw_kernel"].shape == (5, 5, 1, 28)
+    assert state["reg8.kernel"].shape == (1, 1, 96, 24)
+    with pytest.raises(ValueError, match="missing"):
+        tbf.params_from_flax({"params": {"Conv_0": {"kernel": np.zeros(1)}}})
+
+
+def test_load_weights_refuses_an_orbax_directory(tmp_path):
+    with pytest.raises(ValueError, match="export_blazeface_npz.py"):
+        tbf.load_weights(str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("size,stride", [(128, 2), (64, 2), (32, 1), (17, 2), (9, 1)])
+def test_same_pads_match_xla(size, stride):
+    """SAME padding at stride 2 on an even size pads 1 before, 2 after."""
+    x = np.random.default_rng(size).normal(size=(1, size, size, 2)).astype(np.float32)
+    k = np.random.default_rng(size + 1).normal(size=(5, 5, 2, 3)).astype(np.float32)
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(k), (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    got = tbf.conv5x5(torch.from_numpy(x), torch.from_numpy(k), None, stride, relu=False)
+    assert got.shape == ref.shape
+    assert float(np.abs(got.numpy() - np.asarray(ref)).max()) <= RAW_TOL
+    if size % 2 == 0 and stride == 2:
+        assert tbf.same_pads(size, stride)[:2] == (1, 2)
+
+
+class SmallNet(nn.Module):
+    """Stem, three BlazeBlocks (the third at stride 2) and one anchor head,
+    from the JAX package's own BlazeBlock."""
+
+    @nn.compact
+    def __call__(self, x):
+        x = nn.relu(nn.Conv(24, (5, 5), strides=(2, 2), padding="SAME")(x))
+        x = jbf.BlazeBlock(24)(x)
+        x = jbf.BlazeBlock(28)(x)
+        x = jbf.BlazeBlock(32, stride=2)(x)
+        cls = nn.Conv(2, (1, 1))(x)
+        reg = nn.Conv(8, (1, 1))(x)
+        return cls.reshape(x.shape[0], -1), reg.reshape(x.shape[0], -1, 4)
+
+
+def test_small_network_matches_flax():
+    images = np.random.default_rng(7).uniform(-1, 1, (3, 64, 64, 3)).astype(np.float32)
+    params = SmallNet().init(jax.random.PRNGKey(7), jnp.asarray(images))
+    # nonzero biases, so every bias path is compared
+    params = jax.tree.map(
+        lambda a: a + 0.05 * np.random.default_rng(a.size).normal(size=a.shape).astype(np.float32),
+        params)
+    cls_j, raw_j = SmallNet().apply(params, jnp.asarray(images))
+    p = jax.tree.map(lambda a: torch.from_numpy(np.asarray(a).copy()), params["params"])
+    x = tbf.conv5x5(torch.from_numpy(images), p["Conv_0"]["kernel"], p["Conv_0"]["bias"],
+                    2, relu=True)
+    for i, (c, f, s) in enumerate([(24, 24, 1), (24, 28, 1), (28, 32, 2)]):
+        block = tbf.BlazeBlock(c, f, s)
+        q = p[f"BlazeBlock_{i}"]
+        block.dw_kernel.copy_(q["Conv_0"]["kernel"])
+        block.pw.kernel.copy_(q["Conv_1"]["kernel"])
+        block.pw.bias.copy_(q["Conv_1"]["bias"])
+        x = block(x)
+    cls_t, raw_t = tbf.head_plain(x, p["Conv_1"]["kernel"], p["Conv_1"]["bias"],
+                                  p["Conv_2"]["kernel"], p["Conv_2"]["bias"])
+    probs = torch.sigmoid(cls_t).numpy()
+    assert np.abs(probs - np.asarray(jax.nn.sigmoid(cls_j))).max() <= PROB_TOL
+    assert np.abs(raw_t.numpy() - np.asarray(raw_j)).max() <= RAW_TOL
+    assert raw_t.shape == (3, 16 * 16 * 2, 4)
+
+
+def test_anchors_and_decode_match_jax():
+    np.testing.assert_array_equal(tbf.anchor_centers(), jbf.anchor_centers())
+    raw = np.random.default_rng(9).normal(0, 8, (2, tbf.NUM_ANCHORS, 4)).astype(np.float32)
+    ref = np.asarray(jbf.decode_boxes(jnp.asarray(raw)))
+    got = tbf.decode_boxes(torch.from_numpy(raw), torch.from_numpy(tbf.anchor_centers()))
+    assert np.abs(got.numpy() - ref).max() <= BOX_TOL
+
+
+def views(n, seed):
+    rng = np.random.default_rng(seed)
+    u8 = np.stack([skin_ellipse_image(rng, 128, 128, 1) for _ in range(n)])
+    return u8.astype(np.float32) / 127.5 - 1.0
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_full_network_matches_flax(jparams, model, n):
+    """The packaged network at full width: logits and raw offsets against
+    ``BlazeFace().apply``, then the forward (sigmoid, decode) against the
+    jitted ``_forward``."""
+    x = views(n, 11 + n)
+    scores_j, raw_j = jbf.BlazeFace().apply(jparams, jnp.asarray(x))
+    scores_t, raw_t = model.forward_plain(torch.from_numpy(x))
+    assert scores_t.shape == (n, 896) and raw_t.shape == (n, 896, 4)
+    assert np.abs(raw_t.numpy() - np.asarray(raw_j)).max() <= RAW_TOL
+    assert np.abs(scores_t.numpy() - np.asarray(scores_j)).max() <= RAW_TOL
+    probs_j, boxes_j = jbf._forward(jparams, jnp.asarray(x))
+    probs_t, boxes_t = tbf._forward(model, torch.from_numpy(x))
+    assert np.abs(probs_t.numpy() - np.asarray(probs_j)).max() <= PROB_TOL
+    assert np.abs(boxes_t.numpy() - np.asarray(boxes_j)).max() <= RAW_TOL
+    assert float(probs_t.max()) > 0.8  # the ellipses are found
+
+
+def test_forward_launches_nothing_on_cpu(model):
+    counters = (tbf.conv5x5, tbf.pointwise, tbf.head_decode)
+    before = [f.launches for f in counters]
+    tbf._forward(model, torch.from_numpy(views(1, 3)))
+    assert [f.launches for f in counters] == before
+
+
+def test_detection_chunks_on_the_runtime_ladder(monkeypatch, model):
+    """12 large images carry 72 views: two forwards, of 64 and 8 views."""
+    assert tbf.MAX_BATCH_BUCKET == jbatcher.MAX_BATCH_BUCKET == 64
+    for n in (1, 3, 5, 64, 65):
+        assert tbatcher._round_batch(n) == jbatcher._round_batch(n)
+    seen = []
+    real = tbf._forward
+
+    def spy(m, images):
+        seen.append(images.shape[0])
+        return real(m, images)
+
+    monkeypatch.setattr(tbf, "_forward", spy)
+    rng = np.random.default_rng(4)
+    imgs = [skin_ellipse_image(rng, 256, 320, 2) for _ in range(12)]
+    out = tbf.detect_faces_batch(model, imgs, score_threshold=0.8)
+    assert seen == [64, 8] and len(out) == 12
+
+
+def test_detect_faces_batch_matches_jax(jparams, model):
+    """Small (2 views) and large (6 views) images in one call, at the
+    serving threshold 0.8: the same boxes as the JAX package, on images
+    where no anchor probability lies within 1e-4 of the threshold."""
+    rng = np.random.default_rng(5)
+    imgs = [skin_ellipse_image(rng, h, w, k) for h, w, k in
+            ((120, 160, 1), (300, 400, 2), (480, 640, 3), (200, 150, 1), (256, 256, 2))]
+    ref = jbf.detect_faces_batch(jparams, imgs, score_threshold=0.8)
+    got = tbf.detect_faces_batch(model, imgs, score_threshold=0.8)
+    flat = np.concatenate([tbf._view_input(img, *v)[None] for img in imgs
+                           for v in tbf._views(img)])
+    probs, _ = tbf._forward(model, torch.from_numpy(flat))
+    assert not (np.abs(probs.numpy() - 0.8) < 1e-4).any()
+    assert got == ref
+    assert sum(map(len, got)) >= 4
+    assert tbf.detect_faces(model, imgs[2], score_threshold=0.8) == got[2]
+
+
+@pytest.mark.cuda
+def test_k9_k10_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run by chip_smoke.py on the H100)")
+    dev = torch.device("cuda")
+    net = tbf.load_weights(device=dev)
+    x = torch.from_numpy(views(3, 21)).to(dev)
+    probs, boxes = tbf._forward(net, x)
+    logits, raw = net.forward_plain(x)
+    assert float((probs - torch.sigmoid(logits)).abs().max()) <= PROB_TOL
+    assert float((boxes - tbf.decode_boxes(raw, net.anchors)).abs().max()) <= RAW_TOL

@@ -201,17 +201,49 @@ def test_stage_matches_jax(opts, stage, monkeypatch):
 @pytest.mark.parametrize("opts,stage", [
     ("w_100,fb_1", "face-blur"), ("w_100,h_100,c_1,fc_1", "face-crop"),
 ])
-def test_face_stage_raises_naming_it(opts, stage):
-    """The face post-passes are not ported: run_plan and the batcher refuse
-    them before any device work, naming the stage."""
+def test_face_stage_raises_naming_it(opts, stage, monkeypatch, tmp_path):
+    """The face post-passes are ported: run_plan and the batcher run the
+    plan's program (the face pass follows in the handler), a face
+    detection that fails raises an error naming the stage (never an image
+    with the faces left in), and ``check_ported`` still refuses, by name
+    and before any device work, a stage on its list of unported ones."""
+    from PIL import Image
+
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.exceptions import ExecFailedException
+    from flyimg_tpu_torch.service.handler import ImageHandler
+
     plan = tbuild_plan(TOptionsBag(opts), 320, 240)
     assert plan.face_blur or plan.face_crop
+    assert tcompose.unported_stages(plan) == []
+    src = image(240, 320, 0)
+    out = tcompose.run_plan(src, plan, device="cpu")
+    batcher = BatchController(device="cpu")
+    try:
+        np.testing.assert_array_equal(batcher.submit(src, plan).result(), out)
+    finally:
+        batcher.close()
+
+    class Broken:
+        def detect_faces(self, rgb):
+            raise RuntimeError("detector down")
+
+    path = tmp_path / "src.png"
+    Image.fromarray(src).save(path)
+    handler = ImageHandler(AppParameters({"upload_dir": str(tmp_path / "u"),
+                                          "tmp_dir": str(tmp_path / "t")}),
+                           device="cpu", face_backend=Broken())
+    with pytest.raises(ExecFailedException, match=f"{stage} failed"):
+        handler.process_image(opts, str(path))
+
+    monkeypatch.setattr(tcompose, "UNPORTED", (("face_blur", "face-blur"),
+                                              ("face_crop", "face-crop")))
     with pytest.raises(NotPortedException, match=stage):
-        tcompose.run_plan(image(240, 320, 0), plan, device="cpu")
+        tcompose.run_plan(src, plan, device="cpu")
     batcher = BatchController(device="cpu")
     try:
         with pytest.raises(NotPortedException, match=stage):
-            batcher.submit(image(240, 320, 0), plan)
+            batcher.submit(src, plan)
     finally:
         batcher.close()
     assert list(batcher.launch_log) == []

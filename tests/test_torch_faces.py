@@ -1,0 +1,360 @@
+"""The PyTorch package's face post-passes against the JAX package's, on the
+CPU: pixelation (K7's plain version), the facefind skin masks (K8's plain
+version) and boxes, Pillow's BILINEAR in numpy, the Haar copy, the backend
+registry and the handler's face pass, on numpy-seeded inputs and seeded
+images with skin-toned ellipses (so that boxes exist).
+
+Bounds, each stated where it is checked:
+- pixelate_regions / blur_faces: u8 equal (the block mean is the exact
+  integer sum times f32(1/100), as XLA computes the JAX package's jitted
+  mean);
+- the skin probability: within 2e-6 (XLA's exp and torch's differ by a few
+  ulps; every other step is the JAX package's to the bit);
+- the morphology fed the JAX thresholded mask: equal to the JAX mask;
+- full masks: equal except within 8 px of a pixel whose JAX probability
+  lies within 1e-6 of the threshold (the knife-edge: an ulp of exp flips it,
+  and four 5x5 passes spread it 8 px); boxes equal where no such pixel is;
+- BILINEAR network inputs: byte-equal to Pillow's, every view kind;
+- Haar boxes: equal (numpy both sides, the same resizes byte for byte);
+- the handler: the same size and within 1 u8 level (the resample's bound).
+"""
+
+import io
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from PIL import Image
+
+from flyimg_tpu.models import blazeface as jblazeface
+from flyimg_tpu.models import facefind as jfacefind
+from flyimg_tpu.models import faces as jfaces
+from flyimg_tpu.models import haar as jhaar
+from flyimg_tpu.ops import pixelate as jpixelate
+from flyimg_tpu_torch.appconfig import AppParameters
+from flyimg_tpu_torch.entry import skin_ellipse_image
+from flyimg_tpu_torch.exceptions import ExecFailedException
+from flyimg_tpu_torch.models import blazeface as tblazeface
+from flyimg_tpu_torch.models import facefind as tfacefind
+from flyimg_tpu_torch.models import faces as tfaces
+from flyimg_tpu_torch.models import haar as thaar
+from flyimg_tpu_torch.models.thumbnail import bilinear_resize
+from flyimg_tpu_torch.ops import pixelate as tpixelate
+from flyimg_tpu_torch.service.handler import ImageHandler
+
+torch.set_num_threads(1)
+
+PROB_TOL = 2e-6
+KNIFE = 1e-6
+RADIUS = 8
+
+
+def noise(h, w, seed):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def jax_pixelate_u8(img, boxes):
+    out = jpixelate.pixelate_regions(jnp.asarray(img, jnp.float32), jnp.asarray(boxes))
+    return np.asarray(jnp.clip(jnp.round(out), 0, 255).astype(jnp.uint8))
+
+
+def test_block_mean_matches_jax_on_every_block_sum():
+    """Every 10x10 block sum 0..25500 once: the mean is sum * f32(1/100)."""
+    sums = np.arange(0, 25501)
+    n = sums.size
+    vals = np.repeat((sums // 100)[:, None], 100, axis=1).astype(np.float32)
+    vals += np.arange(100)[None, :] < (sums % 100)[:, None]
+    img = vals.reshape(n, 10, 10).transpose(1, 0, 2).reshape(10, 10 * n)[..., None]
+    ref = np.asarray(jpixelate._block_pixelate(jnp.asarray(img), 10))
+    got = tpixelate._block_pixelate(torch.from_numpy(np.ascontiguousarray(img)), 10)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (237, 311), (7, 13), (1, 1), (10, 20)])
+def test_pixelate_regions_matches_jax(h, w):
+    """Sides that are not multiples of 10; zero-area, overlapping, negative
+    and past-the-edge boxes; u8 equal."""
+    img = noise(h, w, h * 7 + w)
+    boxes = np.array([[3, 5, 57, 41], [100, 100, 0, 10], [w - 20, h - 15, 100, 100],
+                      [10, 10, 30, 30], [0, 0, w, h / 2], [2, 3, 0, 0],
+                      [-5, -5, 12, 12]], np.float32)
+    got = tpixelate.pixelate_regions_u8(torch.from_numpy(img), torch.from_numpy(boxes))
+    np.testing.assert_array_equal(got.numpy(), jax_pixelate_u8(img, boxes))
+
+
+def test_pixelate_launches_nothing_on_cpu():
+    before = tpixelate.pixelate_regions_u8.launches
+    tpixelate.pixelate_regions_u8(torch.zeros((4, 4, 3), dtype=torch.uint8),
+                                  torch.zeros((1, 4)))
+    assert tpixelate.pixelate_regions_u8.launches == before
+    with pytest.raises(ValueError, match="u8"):
+        tpixelate.pixelate_regions_u8(torch.zeros((4, 4, 3)), torch.zeros((1, 4)))
+
+
+def ellipses(h, w, seed, faces=3):
+    return skin_ellipse_image(np.random.default_rng(seed), h, w, faces)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blur_faces_matches_jax(seed):
+    img = ellipses(300, 400, seed)
+    boxes = jfacefind.detect_faces(img)
+    assert boxes
+    np.testing.assert_array_equal(
+        tfacefind.blur_faces(img, boxes, device="cpu"), jfacefind.blur_faces(img, boxes))
+    assert tfacefind.blur_faces(img, [], device="cpu") is img
+
+
+def test_skin_probability_matches_jax():
+    rng = np.random.default_rng(3)
+    colours = rng.integers(0, 256, (400, 500, 3), dtype=np.uint8)
+    skin = ellipses(200, 500, 4)
+    for img in (colours, skin):
+        ref = np.asarray(jfacefind._skin_probability(jnp.asarray(img)))
+        got = tfacefind._skin_probability(torch.from_numpy(img)).numpy()
+        assert np.abs(got - ref).max() <= PROB_TOL
+
+
+def bucket(seed):
+    """A padded bucket of 4: three skin-ellipse members with valid regions
+    smaller than the bucket (sides not multiples of 32), then a copy of the
+    last, as detect_faces_batched pads."""
+    imgs = np.zeros((4, 256, 320, 3), np.uint8)
+    valid = np.array([[256, 320], [237, 311], [201, 65], [201, 65]], np.float32)
+    for i in range(3):
+        h, w = valid[i].astype(int)
+        imgs[i, :h, :w] = ellipses(h, w, seed + i, faces=1 + i)
+    imgs[3] = imgs[2]
+    return imgs, valid, np.full((4,), 0.35, np.float32)
+
+
+def jax_prob_and_valid(imgs, valid):
+    prob = np.asarray(jfacefind._skin_probability(jnp.asarray(imgs)))
+    ys = np.arange(imgs.shape[1])[None, :, None]
+    xs = np.arange(imgs.shape[2])[None, None, :]
+    return prob, (ys < valid[:, 0, None, None]) & (xs < valid[:, 1, None, None])
+
+
+def knife(prob, thresholds, valid):
+    near = torch.from_numpy((np.abs(prob - thresholds[:, None, None]) < KNIFE) & valid)
+    k = 2 * RADIUS + 1
+    return (F.max_pool2d(near.float()[:, None], k, 1, RADIUS)[:, 0] > 0).numpy()
+
+
+def test_morphology_fed_the_jax_mask_matches_jax():
+    imgs, valid, thr = bucket(10)
+    ref = np.asarray(jfacefind._batched_face_masks(
+        jnp.asarray(imgs), jnp.asarray(valid), jnp.asarray(thr)))
+    prob, vmask = jax_prob_and_valid(imgs, valid)
+    got = tfacefind.clean_masks(torch.from_numpy(prob > thr[:, None, None]),
+                                torch.from_numpy(vmask))
+    assert ref.any()
+    np.testing.assert_array_equal(got.numpy(), ref)
+    # the unbatched form (SAME borders on the whole frame)
+    mask = np.random.default_rng(11).uniform(size=(61, 47)) > 0.4
+    np.testing.assert_array_equal(
+        tfacefind._morph_clean(torch.from_numpy(mask)).numpy(),
+        np.asarray(jfacefind._morph_clean(jnp.asarray(mask))))
+
+
+@pytest.mark.parametrize("seed", [20, 30, 40])
+def test_face_masks_match_jax_off_the_knife_edge(seed):
+    imgs, valid, thr = bucket(seed)
+    ref = np.asarray(jfacefind._batched_face_masks(
+        jnp.asarray(imgs), jnp.asarray(valid), jnp.asarray(thr)))
+    got = tfacefind._batched_face_masks(
+        torch.from_numpy(imgs), torch.from_numpy(valid), torch.from_numpy(thr)).numpy()
+    prob, vmask = jax_prob_and_valid(imgs, valid)
+    edge = knife(prob, thr, vmask)
+    assert not ((got != ref) & ~edge).any()
+    assert edge.mean() < 1e-3
+
+
+def test_detect_faces_batched_matches_jax():
+    """Two buckets, one padded from 3 to 4; boxes equal for every member
+    with no knife-edge pixel."""
+    items = [ellipses(h, w, 50 + i, faces=1 + i % 3) for i, (h, w) in
+             enumerate([(237, 311), (240, 320), (250, 300), (120, 90), (100, 80)])]
+    ref = jfacefind.detect_faces_batched([jfacefind.prepare_face_work(x) for x in items])
+    work = [tfacefind.prepare_face_work(x) for x in items]
+    assert [w.bucket for w in work] == [jfacefind.prepare_face_work(x).bucket for x in items]
+    got = tfacefind.detect_faces_batched(work, device="cpu")
+    compared = 0
+    for img, g, r in zip(items, got, ref):
+        prob = np.asarray(jfacefind._skin_probability(jnp.asarray(img)))
+        if (np.abs(prob - 0.35) < KNIFE).any():
+            continue
+        assert g == r
+        compared += 1
+    assert compared >= 4 and sum(map(len, ref)) >= 5
+
+
+def test_detect_faces_and_crop_match_jax():
+    img = ellipses(300, 420, 60, faces=3)
+    boxes = tfacefind.detect_faces(img, device="cpu")
+    assert boxes == jfacefind.detect_faces(img) and len(boxes) == 3
+    for pos in (-1, 0, 2, 7):
+        np.testing.assert_array_equal(tfacefind.crop_face(img, boxes, pos),
+                                      jfacefind.crop_face(img, boxes, pos))
+    assert tfacefind.crop_face(img, [], 0) is img
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 300), (300, 7), (480, 640), (37, 53)])
+def test_bilinear_resize_matches_pillow(shape):
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    for rgb in (True, False):
+        img = rng.integers(0, 256, shape + ((3,) if rgb else ()), dtype=np.uint8)
+        for ow, oh in ((128, 128), (1, 1), (shape[1], max(shape[0] // 3, 1)),
+                       (shape[1] * 2 + 1, shape[0]), (64, 97)):
+            ref = np.asarray(Image.fromarray(img).resize((ow, oh), Image.BILINEAR))
+            np.testing.assert_array_equal(bilinear_resize(img, ow, oh), ref)
+
+
+@pytest.mark.parametrize("h,w", [(100, 80), (300, 420), (481, 641)])
+def test_view_inputs_byte_equal_to_pillow(h, w):
+    """The full frame, the padded zoom-out canvas and (for large frames) the
+    corner tiles: the network inputs equal the JAX package's, which resizes
+    with Pillow."""
+    img = ellipses(h, w, h + w)
+    views = tblazeface._views(img)
+    assert views == jblazeface._views(img)
+    assert len(views) == (6 if min(h, w) >= 256 else 2)
+    for view in views:
+        np.testing.assert_array_equal(tblazeface._view_input(img, *view),
+                                      jblazeface._view_input(img, *view))
+
+
+def drawn_face(h, w, r, seed):
+    """A gray frame with a drawn face (bright oval, dark eyes, brows and
+    mouth, a bright nose ridge) that the frontal cascade detects."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.full((h, w), 90, np.float32)
+    cx, cy = w / 2, h / 2
+    img[((xx - cx) / 0.8) ** 2 + (yy - cy) ** 2 < r * r] = 190
+    for ex in (-0.35, 0.35):
+        img[((xx - cx - ex * r) / 1.6) ** 2 + ((yy - cy + 0.25 * r) / 0.9) ** 2
+            < (0.12 * r) ** 2] = 40
+        img[(np.abs(xx - cx - ex * r) < 0.22 * r) & (np.abs(yy - cy + 0.45 * r) < 0.04 * r)] = 60
+    img[(np.abs(xx - cx) < 0.3 * r) & (np.abs(yy - cy - 0.45 * r) < 0.05 * r)] = 60
+    img[(np.abs(xx - cx) < 0.06 * r) & (yy > cy - 0.1 * r) & (yy < cy + 0.2 * r)] = 150
+    img += np.random.default_rng(seed).normal(0, 3, img.shape)
+    return np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, axis=2)
+
+
+@pytest.mark.parametrize("h,w,r,neighbours", [(240, 320, 60, 2), (720, 960, 150, 2),
+                                               (300, 260, 45, 0)])
+def test_haar_copy_matches_jax(h, w, r, neighbours):
+    """Boxes equal on a drawn face (the 720x960 frame takes the prescale to
+    640 first)."""
+    if not jhaar.available():
+        pytest.skip("no haar cascade XML installed on this host")
+    assert thaar.find_cascade() == jhaar.find_cascade()
+    img = drawn_face(h, w, r, h + w)
+    got = thaar.detect_faces(img, min_neighbors=neighbours)
+    assert got == jhaar.detect_faces(img, min_neighbors=neighbours)
+    assert got
+
+
+def backend_names(monkeypatch, haar_ok, packaged):
+    for mod in (jhaar, thaar):
+        monkeypatch.setattr(mod, "available", lambda: haar_ok)
+    if not packaged:
+        monkeypatch.setattr(jfaces, "PACKAGED_BLAZEFACE", "/nonexistent")
+        monkeypatch.setattr(tfaces, "PACKAGED_BLAZEFACE", "/nonexistent")
+    names = []
+    for name in ("blazeface", "haar", "facefind", "none", "auto"):
+        if name == "haar" and jhaar.find_cascade() is None:
+            continue
+        if name == "blazeface" and not packaged:
+            continue
+        j = jfaces.make_face_backend(name)
+        t = tfaces.make_face_backend(name, device="cpu")
+        names.append((type(j).__name__, type(t).__name__))
+    return names
+
+
+@pytest.mark.parametrize("haar_ok,packaged", [(True, True), (False, True), (False, False)])
+def test_make_face_backend_resolves_as_jax(monkeypatch, haar_ok, packaged):
+    if haar_ok and jhaar.find_cascade() is None:
+        pytest.skip("no haar cascade XML installed on this host")
+    names = backend_names(monkeypatch, haar_ok, packaged)
+    assert all(j == t for j, t in names), names
+    assert names[-1][1] == ("HaarBackend" if haar_ok else
+                            "BlazeFaceBackend" if packaged else "NullBackend")
+    with pytest.raises(ValueError):
+        tfaces.make_face_backend("bogus", device="cpu")
+
+
+def test_blazeface_checkpoint_is_an_npz():
+    with pytest.raises(ValueError, match="export_blazeface_npz"):
+        tfaces.make_face_backend("blazeface", jfaces.PACKAGED_BLAZEFACE, device="cpu")
+    with pytest.raises(RuntimeError, match="export_blazeface_npz"):
+        tfaces.make_face_backend("blazeface", "/nonexistent.npz", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def face_png(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_faces")
+    path = root / "faces.png"
+    Image.fromarray(ellipses(480, 640, 80, faces=3)).save(path)
+    return root, str(path)
+
+
+@pytest.mark.parametrize("backend,opts", [
+    ("facefind", "w_400,fb_1"), ("blazeface", "w_400,fc_1,fcp_1"),
+    ("facefind", "w_300,h_250,c_1,fb_1,fc_1,fcp_2"),
+])
+def test_handler_face_pass_matches_jax(face_png, backend, opts):
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.service.handler import ImageHandler as JImageHandler
+    from flyimg_tpu.storage import make_storage
+
+    root, src = face_png
+    sub = root / f"{backend}-{opts}"
+
+    def params(cls, side):
+        return cls({"upload_dir": str(sub / side / "u"), "tmp_dir": str(sub / side / "t"),
+                    "face_backend": backend})
+
+    jp = params(JAppParameters, "jax")
+    ref = JImageHandler(make_storage(jp), jp).process_image(opts + ",o_png", src)
+    handler = ImageHandler(params(AppParameters, "torch"), device="cpu")
+    got = handler.process_image(opts + ",o_png", src)
+    a = np.asarray(Image.open(io.BytesIO(got.content)).convert("RGB"))
+    b = np.asarray(Image.open(io.BytesIO(ref.content)).convert("RGB"))
+    assert a.shape == b.shape
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    assert "faces" in got.timings
+    plain = handler.process_image(opts.split(",f")[0] + ",o_png", src)
+    assert plain.content != got.content  # the face pass did something
+
+
+def test_handler_face_detection_failure_fails_the_request(face_png, tmp_path):
+    class Broken(tfaces.FacefindBackend):
+        def detect_faces_batched(self, items):
+            raise RuntimeError("detector down")
+
+    _root, src = face_png
+    handler = ImageHandler(AppParameters({"upload_dir": str(tmp_path / "u"),
+                                          "tmp_dir": str(tmp_path / "t")}),
+                           device="cpu", face_backend=Broken("cpu"))
+    with pytest.raises(ExecFailedException, match="face-blur failed: detector down"):
+        handler.process_image("w_200,fb_1", src)
+    stored = tmp_path / "u"
+    assert not stored.exists() or not os.listdir(stored)
+
+
+def test_face_entry_runs_on_cpu():
+    """entry.face_entry's batch, cut to 2 views and 2 images: the shapes the
+    card runs, boxes in every image, and a face found in every view."""
+    from flyimg_tpu_torch.entry import FACE_HW, face_entry
+
+    fn, args = face_entry("cpu", views=2, images=2)
+    probs, boxes, masks = fn(*args)
+    assert probs.shape == (2, 896) and boxes.shape == (2, 896, 4)
+    assert masks.shape == (2,) + FACE_HW and masks.dtype == torch.bool
+    assert all(tfacefind._boxes_from_mask(m) for m in masks.numpy())
+    assert bool((probs.max(dim=1).values > 0.8).all())

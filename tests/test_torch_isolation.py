@@ -30,15 +30,30 @@ def _all_modules():
 
 
 def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
+    """Every module imports, and the face backends load the packaged
+    BlazeFace weights (the .npz) and run, with neither JAX, the JAX package
+    nor Pillow (which the card machine lacks) loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
+    assert "flyimg_tpu_torch.models.blazeface" in mods
+    assert "flyimg_tpu_torch.models.haar" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from flyimg_tpu_torch.entry import skin_ellipse_image\n"
+        "from flyimg_tpu_torch.models.faces import make_face_backend\n"
+        "img = skin_ellipse_image(np.random.default_rng(0), 300, 400)\n"
+        "for name in ('blazeface', 'facefind'):\n"
+        "    ff = make_face_backend(name, device='cpu')\n"
+        "    boxes = ff.detect_faces_batched([ff.prepare_face_work(img)])[0]\n"
+        "    assert boxes, name\n"
+        "    ff.blur_faces(img, boxes)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
-        "             or n == 'flyimg_tpu' or n.startswith('flyimg_tpu.'))\n"
+        "             or n == 'flyimg_tpu' or n.startswith('flyimg_tpu.')\n"
+        "             or n == 'PIL' or n.startswith('PIL.'))\n"
         "print('BAD', bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -57,8 +72,9 @@ def _no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     _no_cuda()
     from flyimg_tpu_torch.appconfig import AppParameters
-    from flyimg_tpu_torch.entry import entry
-    from flyimg_tpu_torch.models import smartcrop
+    from flyimg_tpu_torch.entry import entry, face_entry
+    from flyimg_tpu_torch.models import blazeface, facefind, smartcrop
+    from flyimg_tpu_torch.models.faces import make_face_backend
     from flyimg_tpu_torch.ops.compose import run_plan
     from flyimg_tpu_torch.runtime.batcher import BatchController
     from flyimg_tpu_torch.service.app import make_server
@@ -75,6 +91,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         lambda: run_plan(img, plan),
         lambda: smartcrop.find_best_crops_batched([smartcrop.prepare_work(img)]),
         lambda: smartcrop.smart_crop_image(img),
+        lambda: face_entry(views=1, images=1),
+        lambda: blazeface.load_weights(),
+        lambda: facefind.detect_faces(img),
+        lambda: facefind.blur_faces(img, [(0, 0, 4, 4)]),
+        lambda: make_face_backend("facefind"),
         lambda: BatchController(),
         lambda: ImageHandler(params),
         lambda: make_server(params),

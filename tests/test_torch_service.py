@@ -106,7 +106,7 @@ def test_error_statuses(service):
     _server, base, src, _img = service
     assert get(f"{base}/upload/w_100/{src}.missing")[0] == 404
     status, _h, body = get(f"{base}/upload/w_100,fb_1/{src}")
-    assert status == 501 and b"face-blur" in body
+    assert status == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
     assert get(f"{base}/upload/w_100,o_jpg/{src}")[0] == 415
     assert get(f"{base}/upload/w_100,o_bmp/{src}")[0] == 400
     assert get(f"{base}/nothing/here")[0] == 404
@@ -132,18 +132,52 @@ def test_staged_options_match_jax_pipeline(service, opts):
 
 
 def test_face_option_is_refused_not_ignored(service, tmp_path):
-    """fb_1/fc_1 answer 501 naming the face stage (the port has no face
-    pass yet), where the JAX package's handler serving the same URL does
-    run one: it would serve a different image."""
+    """fb_1/fc_1 run the face pass (face_backend facefind: the source's
+    skin blob is pixelated, or cropped to), matching the JAX package's
+    handler with the same backend within 1 u8 level and in size; a server
+    whose detector fails answers 500 naming the face stage, never the image
+    with the faces left in. The JAX handler runs its face pass on the same
+    URL."""
     from flyimg_tpu.appconfig import AppParameters as JAppParameters
     from flyimg_tpu.service.handler import ImageHandler as JImageHandler
     from flyimg_tpu.storage import make_storage
 
-    _server, base, src, _img = service
-    status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fb_1/{src}")
-    assert status == 501 and b"face-blur" in body
-    status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fc_1/{src}")
-    assert status == 501 and b"face-crop" in body
+    _server, base0, src, _img = service
+    params = AppParameters({"upload_dir": str(tmp_path / "tu"),
+                            "tmp_dir": str(tmp_path / "tt"),
+                            "face_backend": "facefind"})
+    server = make_server(params, device="cpu")
+    thread = serve_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    jparams = JAppParameters({"upload_dir": str(tmp_path / "ju"),
+                              "tmp_dir": str(tmp_path / "jt"),
+                              "face_backend": "facefind"})
+    jhandler = JImageHandler(make_storage(jparams), jparams)
+    try:
+        _s, _h, plain = get(f"{base0}/upload/w_300,h_250,c_1/{src}")
+        for opts in ("w_300,h_250,c_1,fb_1", "w_300,h_250,c_1,fc_1"):
+            status, _h, body = get(f"{base}/upload/{opts}/{src}")
+            assert status == 200, body
+            assert body != plain
+            got = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+            ref = np.asarray(Image.open(io.BytesIO(
+                jhandler.process_image(opts + ",o_png", src).content)).convert("RGB"))
+            assert got.shape == ref.shape
+            assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+        class Broken:
+            def detect_faces(self, image):
+                raise RuntimeError("detector down")
+
+        server.handler._face_backend = Broken()
+        status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fb_1,rf_1/{src}")
+        assert status == 500 and b"face-blur" in body
+        status, _h, body = get(f"{base}/upload/w_300,h_250,c_1,fc_1,rf_1/{src}")
+        assert status == 500 and b"face-crop" in body
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
 
     class RecordingFaces:
         calls = []
@@ -156,10 +190,10 @@ def test_face_option_is_refused_not_ignored(service, tmp_path):
             self.calls.append(("blur", len(faces)))
             return image
 
-    params = JAppParameters({"upload_dir": str(tmp_path / "u"),
-                             "tmp_dir": str(tmp_path / "t")})
+    jp = JAppParameters({"upload_dir": str(tmp_path / "u"),
+                         "tmp_dir": str(tmp_path / "t")})
     faces = RecordingFaces()
-    handler = JImageHandler(make_storage(params), params, face_backend=faces)
+    handler = JImageHandler(make_storage(jp), jp, face_backend=faces)
     handler.process_image("w_300,h_250,c_1,fb_1,o_png", src)
     assert faces.calls == [("detect", (250, 300, 3)), ("blur", 1)]
 
