@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero without a result line:
 
 1. device  — a CUDA card must be visible; prints nvidia-smi's name and
              power limit;
-2. build   — compiles kernels K1-K10 from csrc/ with nvcc (one process per
+2. build   — compiles kernels K1-K14 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
@@ -45,7 +45,18 @@ Phases, in order; any failure exits non-zero without a result line:
              overlapping, negative and past-the-edge boxes, none and 32; K8
              on 1-member and padded buckets, valid regions smaller than the
              bucket, 1x1 and thresholds 0 and 0.9; the forward at N = 1, 3
-             and 64;
+             and 64; then the training kernels at the train step's shapes
+             (batch 16, full width, a fresh model), timed, with cuDNN's
+             conv2d_weight/conv2d_input, a torch.matmul pair and
+             torch.optim.Adam(fused=True) as yardsticks: K11 (K9's
+             backward) and K12 (K10's and the heads' backward) within 1e-4
+             of each output's max |value|, K13 (heads + loss + its gradient)
+             within 1e-5, K14 (Adam) within 1e-6 over three steps; and, not
+             timed, K11-K14 on odd sizes, one member, 1x1 inputs, pixel
+             counts no tile divides, tied 2x2 windows (the residual's
+             gradient equal to its plain version's), a head's strided,
+             scaled and accumulated gradient, K13 at N = 1 and 3, K14 on a
+             length no block divides;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
@@ -68,9 +79,18 @@ Phases, in order; any failure exits non-zero without a result line:
              fcp_1/ with blazeface and 4 /upload/w_640,fb_1,fc_1/ with auto
              (which backend auto resolves to is printed), for seeded
              1280x960 PNGs with skin-toned ellipses; every answer is held
-             against the CPU handler (1 u8 level, the same size).
+             against the CPU handler (1 u8 level, the same size);
+8. train   — one BlazeFace train step through K9-K14 held against the
+             plain (cuDNN autograd) step from the same weights and batch
+             (loss within 1e-5 relative, every gradient leaf within 1e-4 of
+             its max |value|); train_synthetic(150 steps, batch 16, seed 3)
+             through the kernels, held to the JAX package's conditions
+             (tests/test_blazeface.py: a seed-9 loss below half a fresh
+             init's, the seed-77 blob found within 0.2 of its centre); the
+             weights saved as .npz and reloaded to the same boxes; steps/s
+             at batch 16 and 64, kernels and plain.
 
-Launch counters are zeroed right before each main-path phase (4-7)
+Launch counters are zeroed right before each main-path phase (4-8)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -105,6 +125,12 @@ K8_RADIUS = 8                   # pixels four 5x5 passes spread a flipped pixel
 BF_RTOL = 1e-5                  # K9/K10 layer outputs, max |a - b| / max |b|
 BF_PROB_TOL = 1e-5              # BlazeFace probabilities, absolute
 BF_BOX_TOL = 1e-4               # BlazeFace decoded boxes, absolute
+TRAIN_RTOL = 1e-4               # K11/K12 outputs and the step's gradient leaves,
+                                # max |a - b| / max |b| (long sums in other orders)
+LOSS_RTOL = 1e-5                # the training loss, relative
+HEAD_GRAD_RTOL = 1e-5           # K13's dlogits and draw, max |a - b| / max |b|
+ADAM_RTOL = 1e-6                # K14's parameters and moments, max |a - b| / max |b|
+TRAIN_BATCH = 16
 
 #: sources and batch of the staged programs (flyimg_tpu_torch/entry.py
 #: STAGED_OPTIONS)
@@ -1724,6 +1750,407 @@ def phase_faces(torch, dev, card, workdir, kernels):
     return rates
 
 
+# ---------------------------------------------------------------------------
+# training: K11-K14 (phase 3) and the train step (phase 8)
+
+
+def train_case(torch, dev, batch, seed):
+    """A fresh model and a synthetic batch on the card."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    model = bt.init_params(seed, dev)
+    arrays = bt.synthetic_batch(np.random.default_rng(seed), batch)
+    return model, bt.batch_to(arrays, dev)
+
+
+def train_layers(torch, model, images, gen):
+    """The training forward's backward calls on the plain path, with an
+    output gradient drawn from ``gen`` each: [(kind, kwargs)] for K11 (every
+    5x5 convolution), K12 (every block's 1x1 and the four heads) and K13."""
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    def grad_like(t):
+        return torch.randn(t.shape, generator=gen, device=t.device)
+
+    calls = []
+    x = bf.conv5x5_plain(images, model.stem.kernel, model.stem.bias, 2, True)
+    calls.append(("K11", dict(g=grad_like(x), x=images, kernel=model.stem.kernel, out=x,
+                              stride=2, has_bias=True, need_dx=False)))
+    maps = []
+    for i, block in enumerate(model.blocks):
+        y = bf.conv5x5_plain(x, block.dw_kernel, None, block.stride, False)
+        calls.append(("K11", dict(g=grad_like(y), x=x, kernel=block.dw_kernel, out=None,
+                                  stride=block.stride, has_bias=False, need_dx=True)))
+        out = bf.pointwise_plain(y, block.pw.kernel, block.pw.bias, x, block.stride)
+        calls.append(("K12", dict(g=grad_like(out), y=y, kernel=block.pw.kernel, out=out,
+                                  res=x, stride=block.stride)))
+        x = out
+        if i == bf.X16_BLOCK:
+            maps.append(x)
+    maps.append(x)
+    heads = []
+    for fmap, (cls, reg, _off) in zip(maps, model._heads()):
+        heads.append((cls.kernel, cls.bias, reg.kernel, reg.bias))
+        for conv in (cls, reg):
+            shape = fmap.shape[:3] + (conv.kernel.shape[3],)
+            calls.append(("K12", dict(g=torch.randn(shape, generator=gen, device=fmap.device),
+                                      y=fmap, kernel=conv.kernel)))
+    calls.append(("K13", dict(x16=maps[0], x8=maps[1], heads=tuple(heads))))
+    return calls
+
+
+def _rel_all(torch, got, ref):
+    return max(rel_err(torch, a, b) for a, b in zip(got, ref) if b is not None)
+
+
+def train_kernel_rows(torch, dev):
+    """K11-K14 against their plain twins at the training shapes (batch
+    TRAIN_BATCH, full width, a fresh model), each kind's calls timed in a
+    row as the step runs them, with bounds summed over the calls and
+    library yardsticks: cuDNN's conv2d_input/conv2d_weight (K11), the
+    torch.matmul pair (K12), torch.optim.Adam(fused=True) (K14)."""
+    import torch.nn.functional as F
+
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    model, (images, tp, tb, mask) = train_case(torch, dev, TRAIN_BATCH, 5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    with torch.no_grad():
+        calls = train_layers(torch, model, images, gen)
+        k11 = [a for k, a in calls if k == "K11"]
+        k12 = [a for k, a in calls if k == "K12"]
+        k13 = [a for k, a in calls if k == "K13"][0]
+
+        # K11
+        err = 0.0
+        nbytes = flops = 0.0
+        lib11 = []
+        for a in k11:
+            got = bt.conv5x5_backward(**a)
+            ref = bt.conv5x5_backward_plain(**a)
+            torch.cuda.synchronize()
+            e = _rel_all(torch, [t for t in got if t is not None],
+                         [t for t in ref if t is not None])
+            check(e <= TRAIN_RTOL, f"K11 at {tuple(a['x'].shape)}: {e} relative off")
+            err = max(err, e)
+            x, g, kern = a["x"], a["g"], a["kernel"]
+            depthwise = kern.shape[2] == 1
+            taps = 25 * (1 if depthwise else x.shape[3])
+            flops += 2.0 * g.numel() * taps * (2 if a["need_dx"] else 1)
+            nbytes += 4.0 * (x.numel() + g.numel() + 2 * kern.numel()
+                             + (g.numel() if a["out"] is not None else 0)
+                             + (x.numel() if a["need_dx"] else 0)
+                             + (kern.shape[3] if a["has_bias"] else 0))
+            n, h, w, cin = x.shape
+            pt, pb, _ = bf.same_pads(h, a["stride"])
+            pl, pr, _ = bf.same_pads(w, a["stride"])
+            gn = g.permute(0, 3, 1, 2).contiguous()
+            xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous()
+            wn = kern.permute(3, 2, 0, 1).contiguous()
+            lib11.append((xp, wn, gn, a["stride"], cin if depthwise else 1, a["need_dx"]))
+
+        def k11_lib():
+            for xp, wn, gn, s, groups, need_dx in lib11:
+                torch.nn.grad.conv2d_weight(xp, wn.shape, gn, stride=s, groups=groups)
+                if need_dx:
+                    torch.nn.grad.conv2d_input(xp.shape, wn, gn, stride=s, groups=groups)
+
+        rows["K11"] = train_row(
+            torch, "K11", len(k11), err, nbytes, flops,
+            lambda: [bt.conv5x5_backward(**a) for a in k11],
+            lambda: [bt.conv5x5_backward_plain(**a) for a in k11], k11_lib,
+            "cuDNN conv2d_weight/conv2d_input")
+
+        # K12
+        err = 0.0
+        nbytes = flops = 0.0
+        lib12 = []
+        for a in k12:
+            got = bt.pointwise_backward(**a)
+            ref = bt.pointwise_backward_plain(**a)
+            torch.cuda.synchronize()
+            e = _rel_all(torch, [t for t in got if t is not None],
+                         [t for t in ref if t is not None])
+            check(e <= TRAIN_RTOL, f"K12 at {tuple(a['y'].shape)} -> "
+                  f"{a['kernel'].shape[3]}: {e} relative off")
+            err = max(err, e)
+            y, g, kern = a["y"], a["g"], a["kernel"]
+            res, out = a.get("res"), a.get("out")
+            pixels = y.numel() // y.shape[3]
+            flops += 4.0 * pixels * kern.shape[2] * kern.shape[3] + pixels * kern.shape[3]
+            # y, g, out and the kernel read, dy, dW and db written; dres
+            # written, and res read only at stride 2 (the 2x2 argmax): at
+            # stride 1 dres is a slice of g
+            pooled = a.get("stride", 1) == 2
+            nbytes += 4.0 * (2 * y.numel() + g.numel() + 2 * kern.numel() + kern.shape[3]
+                             + (out.numel() if out is not None else 0)
+                             + ((2 if pooled else 1) * res.numel() if res is not None else 0))
+            lib12.append((g.reshape(-1, kern.shape[3]), y.reshape(-1, kern.shape[2]),
+                          kern.reshape(kern.shape[2], kern.shape[3])))
+
+        def k12_lib():
+            for g2, y2, w2 in lib12:
+                torch.matmul(g2, w2.t())
+                torch.matmul(y2.t(), g2)
+
+        rows["K12"] = train_row(
+            torch, "K12", len(k12), err, nbytes, flops,
+            lambda: [bt.pointwise_backward(**a) for a in k12],
+            lambda: [bt.pointwise_backward_plain(**a) for a in k12], k12_lib,
+            "torch.matmul pair")
+
+        # K13
+        args = (k13["x16"], k13["x8"], k13["heads"], tp, tb, mask)
+        got = bt.head_loss(*args)
+        ref = bt.head_loss_plain(*args)
+        torch.cuda.synchronize()
+        e_loss = rel_err(torch, got[0], ref[0])
+        e = max(rel_err(torch, got[1], ref[1]), rel_err(torch, got[2], ref[2]))
+        check(e_loss <= LOSS_RTOL, f"K13: loss {e_loss} relative off")
+        check(e <= HEAD_GRAD_RTOL, f"K13: dlogits/draw {e} relative off")
+        n = tp.shape[0]
+        head_macs = sum(m.numel() * 5 * h[0].shape[3] for m, h in zip(args[:2], args[2]))
+        params = sum(t.numel() for h in args[2] for t in h)
+        # the maps, head parameters, tp and mask read, dlogits written; tb
+        # read, draw written; the loss written
+        nbytes = 4.0 * (args[0].numel() + args[1].numel() + params + 3 * tp.numel()
+                        + 2 * tb.numel() + 1)
+        flops = 2.0 * head_macs + 40.0 * n * bf.NUM_ANCHORS
+        rows["K13"] = train_row(
+            torch, "K13", 1, max(e, e_loss), nbytes, flops,
+            lambda: bt.head_loss(*args), lambda: bt.head_loss_plain(*args), None, None)
+
+    # K14 on the flat parameters with a gradient of the step's scale
+    flat = model.flat_params.detach().clone()
+    g = torch.randn(flat.shape, generator=gen, device=dev) * 1e-2
+    a = [flat.clone(), torch.zeros_like(flat), torch.zeros_like(flat)]
+    b = [t.clone() for t in a]
+    for step in (1, 2, 3):
+        bt.adam_update(a[0], g, a[1], a[2], step)
+        bt.adam_update_plain(b[0], g, b[1], b[2], step)
+    torch.cuda.synchronize()
+    e = max(rel_err(torch, x, y) for x, y in zip(a, b))
+    check(e <= ADAM_RTOL, f"K14: {e} relative off its plain version")
+    fused_p = torch.nn.Parameter(flat.clone())
+    fused_p.grad = g.clone()
+    fused = torch.optim.Adam([fused_p], lr=1e-3, eps=1e-8, fused=True)
+    rows["K14"] = train_row(
+        torch, "K14", 1, e, 4.0 * 7 * flat.numel(), 16.0 * flat.numel(),
+        lambda: bt.adam_update(a[0], g, a[1], a[2], 4),
+        lambda: bt.adam_update_plain(b[0], g, b[1], b[2], 4), fused.step,
+        "torch.optim.Adam(fused=True)")
+    return rows
+
+
+def train_edges(torch, dev):
+    """K11-K14 against their plain twins, not timed, on the shapes their
+    chunking and tiling could get wrong: odd sizes at stride 1 and 2, one
+    member, 1x1 inputs, channel counts that divide nothing, pixel counts
+    no 16-pixel tile divides, tied 2x2 windows of equal zeros and equal
+    positives, a head's strided gradient scaled and added into dy, K13 at
+    one and three members, K14 on a length no block divides."""
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def compare(label, got, ref, tol):
+        e = _rel_all(torch, [t for t in got if t is not None],
+                     [t for t in ref if t is not None])
+        check(e <= tol, f"{label}: {e} relative off its plain version")
+        return e
+
+    worst = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
+    with torch.no_grad():
+        for n, size, c, stride in ((1, 17, 5, 2), (3, 9, 24, 1), (2, 1, 7, 2),
+                                   (1, 2, 96, 2), (2, 33, 28, 2), (1, 6, 3, 1)):
+            x = randn(n, size, size, c)
+            kern = randn(5, 5, 1, c, scale=0.2)
+            y = bf.conv5x5_plain(x, kern, None, stride, False)
+            a = dict(g=randn(*y.shape), x=x, kernel=kern, out=None, stride=stride,
+                     has_bias=False, need_dx=True)
+            worst["K11"] = max(worst["K11"], compare(
+                f"K11 depthwise {n} x {size}x{size}x{c} /{stride}",
+                bt.conv5x5_backward(**a), bt.conv5x5_backward_plain(**a), TRAIN_RTOL))
+        for n, size in ((1, 13), (3, 8), (1, 1)):
+            x = randn(n, size, size, 3)
+            kern, bias = randn(5, 5, 3, 24, scale=0.2), randn(24, scale=0.1)
+            out = bf.conv5x5_plain(x, kern, bias, 2, True)
+            a = dict(g=randn(*out.shape), x=x, kernel=kern, out=out, stride=2,
+                     has_bias=True, need_dx=False)
+            worst["K11"] = max(worst["K11"], compare(
+                f"K11 stem {n} x {size}x{size}", bt.conv5x5_backward(**a),
+                bt.conv5x5_backward_plain(**a), TRAIN_RTOL))
+        for n, h, cin, cout, cres, stride in ((1, 5, 24, 28, 24, 1), (3, 3, 28, 32, 28, 2),
+                                              (2, 7, 96, 96, 96, 2), (1, 1, 5, 9, 4, 2),
+                                              (2, 4, 42, 48, 42, 2)):
+            res = torch.relu(randn(n, stride * h, stride * h, cres))
+            if stride == 2:
+                res[:, ::2, 1::2] = res[:, ::2, ::2]      # ties in the top row
+                res[:, : 2 * (h // 2)] *= (res[:, : 2 * (h // 2)] > 0.7)  # zero windows
+            y = randn(n, h, h, cin)
+            kern, bias = randn(1, 1, cin, cout, scale=0.2), randn(cout, scale=0.1)
+            out = bf.pointwise_plain(y, kern, bias, res, stride)
+            a = dict(g=randn(*out.shape), y=y, kernel=kern, out=out, res=res, stride=stride)
+            got, ref = bt.pointwise_backward(**a), bt.pointwise_backward_plain(**a)
+            worst["K12"] = max(worst["K12"], compare(
+                f"K12 {n} x {h}x{h}x{cin}->{cout} /{stride}", got, ref, TRAIN_RTOL))
+            check(torch.equal(got[3], ref[3]),
+                  f"K12 {n} x {h}x{h} /{stride}: the residual's gradient is not its "
+                  f"plain version's (ties route to the first maximum)")
+        full = randn(3, bf.NUM_ANCHORS, 4)
+        x8 = randn(3, 8, 8, 96)
+        kern = randn(1, 1, 96, 24, scale=0.1)
+        g = full[:, 512:].reshape(3, 8, 8, 24)
+        scale = torch.tensor(0.37, device=dev)
+        dy0 = randn(3, 8, 8, 96)
+        got = bt.pointwise_backward(g, x8, kern, gscale=scale, dy=dy0.clone())
+        ref = bt.pointwise_backward_plain(g, x8, kern, gscale=scale, dy=dy0.clone())
+        worst["K12"] = max(worst["K12"], compare(
+            "K12 head form, strided gradient, scaled, added", got, ref, TRAIN_RTOL))
+        for n in (1, 3):
+            model, (images, tp, tb, mask) = train_case(torch, dev, n, 20 + n)
+            maps = []
+            x = bf.conv5x5_plain(images, model.stem.kernel, model.stem.bias, 2, True)
+            for i, block in enumerate(model.blocks):
+                x = block.forward_plain(x)
+                if i == bf.X16_BLOCK:
+                    maps.append(x)
+            heads = tuple((c.kernel, c.bias, r.kernel, r.bias) for c, r, _ in model._heads())
+            args = (maps[0], x, heads, tp, tb, mask)
+            got, ref = bt.head_loss(*args), bt.head_loss_plain(*args)
+            check(rel_err(torch, got[0], ref[0]) <= LOSS_RTOL, f"K13 at N = {n}: loss off")
+            worst["K13"] = max(worst["K13"], compare(
+                f"K13 at N = {n}", got[1:], ref[1:], HEAD_GRAD_RTOL))
+    p = randn(12345)
+    g = randn(12345, scale=1e-3)
+    a = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
+    b = [t.clone() for t in a]
+    for step in range(1, 6):
+        bt.adam_update(a[0], g * step, a[1], a[2], step)
+        bt.adam_update_plain(b[0], g * step, b[1], b[2], step)
+    worst["K14"] = compare("K14 on 12345 values, five steps", a, b, ADAM_RTOL)
+    torch.cuda.synchronize()
+    print("training kernels on edge shapes, worst relative errors: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()))
+
+
+def train_row(torch, kind, count, err, nbytes, flops, run, plain, lib, lib_name):
+    row = {"max_abs_err": err, "ms": cuda_ms(torch, run), "plain_ms": cuda_ms(torch, plain),
+           "library_ms": cuda_ms(torch, lib) if lib is not None else None}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    lib_txt = (f", {lib_name} {row['library_ms']:.4f} ms" if lib is not None else "")
+    print(f"{kind} at batch {TRAIN_BATCH}: max error {err:.3e} (relative); the step's "
+          f"{count} call{'s' if count != 1 else ''}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+          f"{lib_txt}; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return row
+
+
+def step_rate(torch, dev, batch, plain, iters=20):
+    """Steps/s of the kernel (or plain) train step at ``batch`` on a
+    batch already on the card, by the host clock around synchronised runs."""
+    from flyimg_tpu_torch.models import blazeface_train as bt
+    from flyimg_tpu_torch.profile_entry import plain_train_step
+
+    model, arrays = train_case(torch, dev, batch, 11)
+    step = plain_train_step(model) if plain else bt.make_train_step(model)[1]
+    for _ in range(3):
+        step(*arrays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(*arrays)
+    torch.cuda.synchronize()
+    return iters / (time.perf_counter() - t0)
+
+
+def phase_train(torch, dev, card, workdir):
+    """Main path: one kernel train step against the plain autograd step
+    from the same weights and batch; train_synthetic(150, 16, seed 3)
+    through the kernels to the JAX package's convergence and localisation
+    conditions (tests/test_blazeface.py:58-84); the .npz out and back;
+    then steps/s at batch 16 and 64, kernel and plain."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import blazeface_train as bt
+    from flyimg_tpu_torch.profile_entry import plain_train_step
+
+    # one step, kernels against plain, from the same weights and batch
+    losses, grads = {}, {}
+    for plain in (False, True):
+        model, arrays = train_case(torch, dev, TRAIN_BATCH, 3)
+        step = plain_train_step(model) if plain else bt.make_train_step(model)[1]
+        losses[plain] = step(*arrays)
+        grads[plain] = {n: p.grad for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    e_loss = rel_err(torch, losses[False], losses[True])
+    check(e_loss <= LOSS_RTOL, f"train step: loss {e_loss} relative off the plain step")
+    e_grad, worst = 0.0, ""
+    for name, ref in grads[True].items():
+        e = rel_err(torch, grads[False][name], ref)
+        check(e <= TRAIN_RTOL, f"train step: gradient of {name} {e} relative off")
+        if e >= e_grad:
+            e_grad, worst = e, name
+    print(f"train step (batch {TRAIN_BATCH}): loss {float(losses[False]):.6f} within "
+          f"{e_loss:.2e} of the plain step's; every gradient leaf within {e_grad:.2e} "
+          f"of its max |value| (worst {worst})")
+
+    # 150 steps through the kernels, then the JAX package's conditions
+    t0 = time.perf_counter()
+    model, final = bt.train_synthetic(steps=150, batch=TRAIN_BATCH, seed=3, device=dev)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    check(np.isfinite(final), f"train_synthetic: final loss {final}")
+    fresh = bt.init_params(9, dev)
+    eval_batch = bt.batch_to(bt.synthetic_batch(np.random.default_rng(9), TRAIN_BATCH), dev)
+    with torch.no_grad():
+        trained_loss = float(bt.loss_fn(model, *eval_batch))
+        fresh_loss = float(bt.loss_fn(fresh, *eval_batch))
+    check(trained_loss < 0.5 * fresh_loss,
+          f"train_synthetic: seed-9 loss {trained_loss} not below half a fresh "
+          f"init's {fresh_loss}")
+    images, _, _, _ = bt.synthetic_batch(np.random.default_rng(77), 1)
+    rgb = ((images[0] + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    found = bf.detect_faces(model, rgb, score_threshold=0.5)
+    check(found, "train_synthetic: the trained detector found nothing")
+    blob = np.random.default_rng(77)
+    blob.uniform(-1, 1, (1, bf.INPUT_SIZE, bf.INPUT_SIZE, 3))
+    cx, cy = blob.uniform(0.3, 0.7, 2)
+    x, y, w, h = found[0]
+    bx, by = (x + w / 2) / rgb.shape[1], (y + h / 2) / rgb.shape[0]
+    check(abs(bx - cx) < 0.2 and abs(by - cy) < 0.2,
+          f"train_synthetic: box centre ({bx:.3f}, {by:.3f}) off the blob "
+          f"({cx:.3f}, {cy:.3f})")
+    path = os.path.join(workdir, "blazeface-trained.npz")
+    bt.save_weights(model, path)
+    reloaded = bf.load_weights(path, dev)
+    again = bf.detect_faces(reloaded, rgb, score_threshold=0.5)
+    check(again == found, f"reloaded weights: boxes {again} != {found}")
+    print(f"train_synthetic(150, {TRAIN_BATCH}, seed 3): {took:.3f} s (host batches "
+          f"included), final loss {final:.4f}; seed-9 loss {trained_loss:.4f} against "
+          f"a fresh init's {fresh_loss:.4f}; seed-77 box centre ({bx:.3f}, {by:.3f}) "
+          f"for the blob at ({cx:.3f}, {cy:.3f}); the .npz reloads to the same "
+          f"boxes {found}")
+
+    rates = {}
+    for batch in (TRAIN_BATCH, 64):
+        for plain in (False, True):
+            rate = step_rate(torch, dev, batch, plain)
+            rates[(batch, plain)] = rate
+            print(f"train step, batch {batch}, {'plain (cuDNN autograd)' if plain else 'kernels'}: "
+                  f"{rate:.2f} steps/s, {rate * batch:.1f} images/s on {card}")
+    return rates
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
@@ -1739,6 +2166,12 @@ def main() -> int:
     from flyimg_tpu_torch import cuda_build
     from flyimg_tpu_torch.device import resolve_device
     from flyimg_tpu_torch.models.blazeface import conv5x5, head_decode, pointwise
+    from flyimg_tpu_torch.models.blazeface_train import (
+        adam_update,
+        conv5x5_backward,
+        head_loss,
+        pointwise_backward,
+    )
     from flyimg_tpu_torch.models.facefind import _batched_face_masks
     from flyimg_tpu_torch.models.smartcrop import _batched_scores, _batched_weighted
     from flyimg_tpu_torch.ops.color import pixel_pass
@@ -1752,7 +2185,9 @@ def main() -> int:
                "K2": _batched_weighted, "K3": _batched_scores,
                "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass,
                "K7": pixelate_regions_u8, "K8": _batched_face_masks,
-               "K9": conv5x5, "K10": pointwise, "K10-head": head_decode}
+               "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
+               "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
+               "K14": adam_update}
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -1768,6 +2203,8 @@ def main() -> int:
     rows = phase_kernels(torch, dev)
     rows.update(phase_stage_kernels(torch, dev))
     rows.update(phase_face_kernels(torch, dev))
+    rows.update(train_kernel_rows(torch, dev))
+    train_edges(torch, dev)
 
     # phase 4: entry (main path)
     reset_counts(kernels)
@@ -1795,11 +2232,18 @@ def main() -> int:
         reset_counts(kernels)
         face_rates = phase_faces(torch, dev, card, workdir, kernels)
         face_counts = read_counts(kernels)
+        # phase 8: BlazeFace training (main path)
+        reset_counts(kernels)
+        train_rates = phase_train(torch, dev, card, workdir)
+        train_counts = read_counts(kernels)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"faces kernel launches: {face_counts}")
     for name in ("K7", "K8", "K9", "K10", "K10-head"):
         check(face_counts[name] > 0, f"faces: {name} never launched")
+    print(f"train kernel launches: {train_counts}")
+    for name in ("K9", "K10", "K11", "K12", "K13", "K14"):
+        check(train_counts[name] > 0, f"train: {name} never launched")
 
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
@@ -1826,12 +2270,20 @@ def main() -> int:
                 "flyimg_tpu/models/blazeface.py:35"),
         "K10-head": ("blazeface_head_decode", "flyimg_tpu_torch/csrc/blazeface.cu",
                      "flyimg_tpu/models/blazeface.py:57"),
+        "K11": ("blazeface_conv5x5_backward", "flyimg_tpu_torch/csrc/blazeface_train.cu",
+                "flyimg_tpu/models/blazeface.py:366"),
+        "K12": ("blazeface_pointwise_backward", "flyimg_tpu_torch/csrc/blazeface_train.cu",
+                "flyimg_tpu/models/blazeface.py:366"),
+        "K13": ("blazeface_head_loss", "flyimg_tpu_torch/csrc/blazeface_train.cu",
+                "flyimg_tpu/models/blazeface.py:347"),
+        "K14": ("blazeface_adam", "flyimg_tpu_torch/csrc/blazeface_train.cu",
+                "flyimg_tpu/models/blazeface.py:366"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
         launches = (entry_counts[key] + staged_counts[key]
                     + sum(c[key] for c in server_counts.values())
-                    + face_counts[key])
+                    + face_counts[key] + train_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
@@ -1846,6 +2298,9 @@ def main() -> int:
         f"{opts} {rate:.1f}" for opts, rate in staged_rates.items()))
     print(f"faces: BlazeFace {face_rates['views_per_s']:.1f} views/s, facefind "
           f"masks {face_rates['images_per_s']:.1f} images/s")
+    print("train steps/s: " + ", ".join(
+        f"batch {b} {'plain' if plain else 'kernels'} {rate:.2f}"
+        for (b, plain), rate in train_rates.items()))
     print(card_line())
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,8 @@ SOURCES: Dict[str, tuple] = {
     # __f*_rn intrinsics; expf is left as torch's CUDA exp compiles it
     "facemask": ("facemask.cu", ()),
     "blazeface": ("blazeface.cu", ()),
+    # K11-K14 round every product and sum through __f*_rn intrinsics
+    "blazeface_train": ("blazeface_train.cu", ()),
 }
 
 BASE_FLAGS = (

@@ -18,6 +18,10 @@ forward (kernels K9, K10) over ``FACE_VIEWS`` seeded 128x128 views — the
 largest chunk the runtime launches — and the facefind masks (kernel K8) of
 ``FACE_IMAGES`` seeded 480x640 images with skin-toned ellipses.
 
+``train_entry()`` is one BlazeFace training step (kernels K9-K14): the
+loss, its gradients and the Adam update of a freshly initialised model on
+a seeded synthetic batch.
+
 ``staged_entry(opts)`` builds the batch of one of ``STAGED_OPTIONS`` — the
 program stages after the resample (rotate, filters, pad, grayscale,
 dither) — on seeded 1920x1080 sources, grouped and padded as the batcher
@@ -71,6 +75,9 @@ FACE_IMAGES = 16
 FACE_HW = (480, 640)
 #: an RGB skin tone: inside the facefind chromaticity ellipse and gates
 SKIN_RGB = (205.0, 150.0, 118.0)
+
+#: the train step's batch: the default of tools/train_blazeface.py
+TRAIN_BATCH = 16
 
 
 def flagship_band():
@@ -208,3 +215,20 @@ def face_entry(device: Union[str, torch.device] = "cuda",
     args = tuple(torch.from_numpy(a).to(dev) for a in
                  (view_batch, image_batch, in_true, thresholds))
     return fn, args
+
+
+def train_entry(device: Union[str, torch.device] = "cuda", batch: int = TRAIN_BATCH,
+                seed: int = 0):
+    """(fn, args) of one BlazeFace training step on ``device``:
+    ``fn(images, target_probs, target_boxes, anchor_mask)`` takes a
+    ``value_and_grad`` + adam step of a model initialised from ``seed``
+    (the model and its optimizer state live in ``fn``) and returns the loss
+    before the step; ``args`` is ``synthetic_batch`` of ``batch`` images
+    from ``seed``."""
+    from flyimg_tpu_torch.models import blazeface_train
+
+    dev = resolve_device(device)
+    model = blazeface_train.init_params(seed, dev)
+    _optimizer, step = blazeface_train.make_train_step(model)
+    arrays = blazeface_train.synthetic_batch(np.random.default_rng(seed), batch)
+    return step, blazeface_train.batch_to(arrays, dev)

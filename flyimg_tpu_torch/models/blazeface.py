@@ -4,8 +4,10 @@ The port of the serving half of ``flyimg_tpu/models/blazeface.py``: a
 single-shot anchor detector built from depthwise-separable "BlazeBlocks"
 (a 5x5/2 stem, 16 blocks from 24 to 96 channels, two anchor maps of 16x16
 x 2 and 8x8 x 6 = 896 anchors, 128x128 RGB input in [-1, 1]), at full
-width with the packaged weights. Training (``loss_fn``,
-``make_train_step``) is not ported yet.
+width with the packaged weights. Training (``init_params``, ``loss_fn``,
+``make_train_step``, ``synthetic_batch``, ``train_synthetic``, kernels
+K11-K14) lives in ``models/blazeface_train.py``; those names are importable
+from here too.
 
 Activations stay NHWC and kernels HWIO, as flax stores them. On the card:
 
@@ -402,13 +404,8 @@ def _flat(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """A ``BlazeFace`` state dict from the flax parameter tree (nested, or
-    flat with ``/``-joined keys as the exporter writes it), arrays as
-    stored (HWIO)."""
-    flat = _flat(tree)
-    flat = {k[len("params/"):] if k.startswith("params/") else k: v
-            for k, v in flat.items()}
+def flax_names() -> Dict[str, str]:
+    """``BlazeFace`` state-dict key -> flax tree path under ``params/``."""
     names = {"stem": "Conv_0", "cls16": "Conv_1", "reg16": "Conv_2",
              "cls8": "Conv_3", "reg8": "Conv_4"}
     pairs = {}
@@ -419,6 +416,17 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         pairs[f"blocks.{i}.dw_kernel"] = f"BlazeBlock_{i}/Conv_0/kernel"
         pairs[f"blocks.{i}.pw.kernel"] = f"BlazeBlock_{i}/Conv_1/kernel"
         pairs[f"blocks.{i}.pw.bias"] = f"BlazeBlock_{i}/Conv_1/bias"
+    return pairs
+
+
+def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``BlazeFace`` state dict from the flax parameter tree (nested, or
+    flat with ``/``-joined keys as the exporter writes it), arrays as
+    stored (HWIO)."""
+    flat = _flat(tree)
+    flat = {k[len("params/"):] if k.startswith("params/") else k: v
+            for k, v in flat.items()}
+    pairs = flax_names()
     missing = sorted(v for v in pairs.values() if v not in flat)
     extra = sorted(set(flat) - set(pairs.values()))
     if missing or extra:
@@ -621,3 +629,16 @@ def detect_faces_batch(
             )
         )
     return out
+
+
+#: the training half, importable under the JAX package's names
+_TRAIN_NAMES = ("init_params", "loss_fn", "make_train_step", "synthetic_batch",
+                "train_synthetic")
+
+
+def __getattr__(name: str):
+    if name in _TRAIN_NAMES:
+        from flyimg_tpu_torch.models import blazeface_train
+
+        return getattr(blazeface_train, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

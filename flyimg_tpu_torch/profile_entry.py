@@ -2,6 +2,8 @@
 
     python -m flyimg_tpu_torch.profile_entry [--batch 256] [--iters 20]
     python -m flyimg_tpu_torch.profile_entry --staged [--iters 20]
+    python -m flyimg_tpu_torch.profile_entry --faces [--iters 20]
+    python -m flyimg_tpu_torch.profile_entry --train [--iters 20]
 
 For the ``entry()`` batch (256 x 512x512x3 u8 -> 300x250 crop-fill,
 saliency field, 150x150 stride-8 scoring), dense and banded:
@@ -32,6 +34,11 @@ masks apart by CUDA events (views/s, images/s), and a ``torch.profiler``
 window over ``--iters`` batches (device time by kernel, busy share) — and
 K7 on a 480x640 output with its facefind boxes (device time a launch);
 one JSON line.
+
+With ``--train``: the BlazeFace train step (kernels K9-K14, as
+``entry.train_entry`` builds it) and the plain step (torch autograd, cuDNN) at batch 16 and 64 — the step
+by CUDA events and a ``torch.profiler`` window over ``--iters`` steps
+(device time by kernel, launches a step, busy share); one JSON line each.
 """
 
 from __future__ import annotations
@@ -145,6 +152,7 @@ def profiler_window(fn, args, iters: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
     device_ms = 0.0
+    launches = 0
     for evt in prof.key_averages():
         # device-side events only: the CPU-side op events carry the same
         # device time again
@@ -156,9 +164,11 @@ def profiler_window(fn, args, iters: int) -> dict:
         if dev_us and dev_us > 0:
             by_kernel[evt.key[:120]] = dev_us / 1e3 / iters
             device_ms += dev_us / 1e3
+            launches += evt.count
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     return {
         "wall_ms_per_batch": wall_ms / iters,
+        "launches_per_batch": launches / iters,
         "device_ms_per_batch": device_ms / iters,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
         "top_device_ms_per_batch": top,
@@ -270,6 +280,53 @@ def face_row(iters: int, dev, card: str) -> dict:
     }
 
 
+def plain_train_step(model):
+    """The yardstick of ``make_train_step``: torch autograd over
+    ``loss_fn_plain`` (cuDNN's convolutions on the card), the gradients
+    concatenated, ``adam_update_plain``. Returns the step like
+    ``make_train_step``'s; it runs none of K9-K14."""
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    if not hasattr(model, "flat_params"):
+        bt.flatten_parameters(model)
+    params = list(model.parameters())
+    mu, nu = torch.zeros_like(model.flat_params), torch.zeros_like(model.flat_params)
+    count = [0]
+
+    def step(images, target_probs, target_boxes, anchor_mask):
+        for p in params:
+            p.grad = None
+        loss = bt.loss_fn_plain(model, images, target_probs, target_boxes, anchor_mask)
+        loss.backward()
+        count[0] += 1
+        bt.adam_update_plain(model.flat_params, torch.cat([p.grad.reshape(-1) for p in params]),
+                             mu, nu, count[0])
+        return loss.detach()
+
+    return step
+
+
+def train_rows(iters: int, dev, card: str):
+    """The train step, kernels and plain, at batch 16 and 64: the step by
+    CUDA events and in a profiler window."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    for batch in (16, 64):
+        sargs = bt.batch_to(bt.synthetic_batch(np.random.default_rng(0), batch), dev)
+        for plain in (False, True):
+            model = bt.init_params(0, dev)
+            step = plain_train_step(model) if plain else bt.make_train_step(model)[1]
+            step_ms = _median_ms(lambda: step(*sargs), iters)
+            yield {
+                "train": "plain" if plain else "kernels", "batch": batch, "card": card,
+                "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+                "images_per_s": batch * 1e3 / step_ms,
+                "profiler": profiler_window(step, sargs, iters),
+            }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="flyimg_tpu_torch.profile_entry")
     parser.add_argument("--batch", type=int, default=256)
@@ -278,6 +335,8 @@ def main(argv=None) -> int:
                         help="profile the staged programs instead")
     parser.add_argument("--faces", action="store_true",
                         help="profile the face batch instead")
+    parser.add_argument("--train", action="store_true",
+                        help="profile the BlazeFace train step instead")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -286,6 +345,10 @@ def main(argv=None) -> int:
     ).stdout.strip()
     if args.faces:
         print(json.dumps(face_row(args.iters, dev, card)))
+        return 0
+    if args.train:
+        for row in train_rows(args.iters, dev, card):
+            print(json.dumps(row))
         return 0
     if args.staged:
         for row in staged_rows(args.iters, dev, card):

@@ -8,7 +8,8 @@ The port of ``flyimg_tpu/service/app.py`` for the main path: a
 - ``GET /healthz`` — liveness plus the device it serves on.
 
 Errors map to the status codes of the JAX app's ``_error_response``; a
-plan stage the port does not carry yet answers 501. Run it with
+plan stage the port does not carry yet answers 501, and any other
+exception 500. Run it with
 
     python -m flyimg_tpu_torch.service.app serve --port 8080 [--params p.json]
 """
@@ -19,6 +20,7 @@ import argparse
 import json
 import sys
 import threading
+import traceback
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple, Union
@@ -147,6 +149,13 @@ class _RequestHandler(BaseHTTPRequestHandler):
                     max(1, int(getattr(exc, "retry_after_s", 1) or 1))
                 )
             self._send(status, f"{type(exc).__name__}: {exc}".encode(), headers)
+            return
+        except Exception:
+            # anything else is the server's fault: answer 500, as the
+            # reference's app does, instead of dropping the connection
+            traceback.print_exc(file=sys.stderr)
+            self._send(500, b"500 Internal Server Error",
+                       {"Content-Type": "text/plain; charset=utf-8"})
             return
         headers = image_headers(
             result, self.server.params.by_key("header_cache_days", 365)

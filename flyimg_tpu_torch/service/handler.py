@@ -232,6 +232,7 @@ class ImageHandler:
             and plan.resize_to is None and plan.extent is None
             and plan.extract is None and plan.rotate is None
             and not plan.smart_crop
+            and not plan.face_blur and not plan.face_crop
             and spec.extension in ("png", "webp")
         )
         frame = decoded.rgb
@@ -267,7 +268,11 @@ class ImageHandler:
             timings["faces"] = time.perf_counter() - t
 
         t = time.perf_counter()
-        alpha = decoded.alpha if keeps_alpha else None
+        # attaching alpha to rgb that was already flattened over bg would
+        # composite twice, and a plane of another size cannot be attached
+        alpha = None
+        if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
+            alpha = decoded.alpha
         content = codecs.encode(np.ascontiguousarray(out), spec.extension, alpha)
         timings["encode"] = time.perf_counter() - t
         return content

@@ -246,3 +246,61 @@ def test_http_source_through_urllib(service, tmp_path):
     ref = reference(img, "w_300,h_250,c_1")
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
     assert missing == 404
+
+
+@pytest.mark.parametrize("opts", ["fb_1,o_png", "fc_1,o_png"])
+def test_face_options_on_alpha_source_match_jax_handler(tmp_path, opts):
+    """A face option on an RGBA source flattens over the background, as
+    the JAX handler does (the crop answers a smaller frame than the alpha
+    plane): the same mode, the same size and pixels within 1 u8 level."""
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.service.handler import ImageHandler as JImageHandler
+    from flyimg_tpu.storage import make_storage
+    from flyimg_tpu_torch.entry import skin_ellipse_image
+
+    rgb = skin_ellipse_image(np.random.default_rng(31), 240, 320, faces=1)
+    alpha = np.full((240, 320), 200, np.uint8)
+    src = tmp_path / "alpha_face.png"
+    src.write_bytes(png.encode(rgb, alpha))
+    params = AppParameters({"upload_dir": str(tmp_path / "tu"),
+                            "tmp_dir": str(tmp_path / "tt"),
+                            "face_backend": "facefind"})
+    server = make_server(params, device="cpu")
+    thread = serve_in_thread(server)
+    try:
+        status, _h, body = get(
+            f"http://127.0.0.1:{server.server_address[1]}/upload/{opts}/{src}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    jparams = JAppParameters({"upload_dir": str(tmp_path / "ju"),
+                              "tmp_dir": str(tmp_path / "jt"),
+                              "face_backend": "facefind"})
+    jhandler = JImageHandler(make_storage(jparams), jparams)
+    ref_img = Image.open(io.BytesIO(jhandler.process_image(opts, str(src)).content))
+    assert status == 200, body
+    got_img = Image.open(io.BytesIO(body))
+    assert got_img.mode == ref_img.mode == "RGB"
+    got, ref = np.asarray(got_img), np.asarray(ref_img)
+    assert got.shape == ref.shape
+    if opts.startswith("fc_1"):
+        assert got.shape[:2] != (240, 320)  # a crop, not the whole frame
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_unexpected_exception_answers_500(service, monkeypatch):
+    """An exception that is not an AppException still gets an HTTP answer:
+    500 with a plain-text body, not a closed connection."""
+    server, base, src, _img = service
+
+    def boom(options, source):
+        raise RuntimeError("unexpected")
+
+    monkeypatch.setattr(server.handler, "process_image", boom)
+    status, headers, body = get(f"{base}/upload/w_100/{src}")
+    assert status == 500
+    assert headers["Content-Type"].startswith("text/plain")
+    assert body == b"500 Internal Server Error"
+    monkeypatch.undo()
+    assert get(f"{base}/upload/w_100/{src}")[0] == 200
