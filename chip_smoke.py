@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch package (flyimg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tiled-only   # phase 9's checks on every card
 
 Phases, in order; any failure exits non-zero without a result line:
 
 1. device  — a CUDA card must be visible; prints nvidia-smi's name and
              power limit;
-2. build   — compiles kernels K1-K14 from csrc/ with nvcc (one process per
+2. build   — compiles kernels K1-K15 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
@@ -56,7 +57,13 @@ Phases, in order; any failure exits non-zero without a result line:
              counts no tile divides, tied 2x2 windows (the residual's
              gradient equal to its plain version's), a head's strided,
              scaled and accumulated gradient, K13 at N = 1 and 3, K14 on a
-             length no block divides;
+             length no block divides; then K15 (the ring rotate's step) at
+             phase 9's shapes (a 960-row visiting tile of the 3840x2160
+             frame into a 1092x4036 accumulator at -37 degrees), a middle
+             step and the last (u8, coloured background), within 1e-5
+             relative of its plain version, timed; and the dense resample's
+             fold2d_bf16 form against its f32 form at the flagship shape,
+             timed (not a kernel: the library's products);
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
@@ -90,7 +97,28 @@ Phases, in order; any failure exits non-zero without a result line:
              weights saved as .npz and reloaded to the same boxes; steps/s
              at batch 16 and 64, kernels and plain.
 
-Launch counters are zeroed right before each main-path phase (4-8)
+9. tiled  — the handler's tall-input route (flyimg_tpu_torch/parallel/,
+             entry.py tiled_fn) on a seeded 3840x2160 (H x W) u8 frame over
+             a virtual 4-rank mesh on cuda:0: the halo-exchange resample to
+             w_256 (455x256) dense and banded (K1 with per-rank geometry),
+             the halo-exchange blr_0x2 and unsh_0.25x0.25+8+0.065 (K5's
+             tiled form), the ring r_-37 (K15, 4367x4036 out); each held
+             against the same op untiled on the card (K1 or the dense
+             products, K5, K4; bounds 0.75, 1e-3, 0.51) and against the
+             tiled program on the kernels' plain versions (K1-f32 1e-3, K5
+             1e-4 off the unsharp threshold, the ring 1e-4 relative), then
+             timed against the untiled op (u8 out, as the handler asks; on
+             one card the ranks run one after another, so this is the
+             schedule's cost, not a multi-card speed); not timed: 2 and 8
+             ranks, a 2161-row source, an infeasible halo (must raise), 0,
+             90 and 180 degrees and a coloured background; then a server
+             with that mesh answers /upload/{w_256,r_-37,blr_0x2},o_png/
+             for a 3840x2160 PNG within 1 u8 level of a server without one,
+             its handler's tiled counters showing the route, and
+             w_256,h_200,c_1 (a crop) not taking it. With more than one
+             card the checks run again on a mesh over all of them.
+
+Launch counters are zeroed right before each main-path phase (4-9)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -131,6 +159,11 @@ LOSS_RTOL = 1e-5                # the training loss, relative
 HEAD_GRAD_RTOL = 1e-5           # K13's dlogits and draw, max |a - b| / max |b|
 ADAM_RTOL = 1e-6                # K14's parameters and moments, max |a - b| / max |b|
 TRAIN_BATCH = 16
+RING_STEP_RTOL = 1e-5           # K15 against its plain version, one step
+RING_RTOL = 1e-4                # the whole ring against the plain ring
+#: tiled against untiled on the card (tests/test_parallel.py's bounds)
+TILED_UNTILED_TOL = {"resample": 0.75, "rotate": 0.51, "blur": 1e-3,
+                     "sharpen": 1e-3, "unsharp": 1e-3}
 
 #: sources and batch of the staged programs (flyimg_tpu_torch/entry.py
 #: STAGED_OPTIONS)
@@ -2151,11 +2184,370 @@ def phase_train(torch, dev, card, workdir):
     return rates
 
 
+# ---------------------------------------------------------------------------
+# spatial tiling: K15 (phase 3), the fold2d form (phase 3) and phase 9
+
+
+def k15_case(torch, dev):
+    """K15 against ring_rotate_step_plain at phase 9's shapes: rank 1 of 4
+    visited by rank 2's tile of the 3840x2160 frame at -37 degrees (a middle
+    step, timed), and the last step's u8 store over a coloured background."""
+    from flyimg_tpu_torch.entry import TILED_HW, TILED_RANKS, tiled_frame
+    from flyimg_tpu_torch.ops.rotate import (
+        ring_geometry,
+        ring_rotate_step,
+        ring_rotate_step_plain,
+    )
+    from flyimg_tpu_torch.spec.plan import rotated_bounds
+
+    h, w = TILED_HW
+    n, deg = TILED_RANKS, -37.0 % 360.0
+    rw, rh = rotated_bounds(w, h, deg)
+    out_tile_h, tile_h = (rh + (-rh) % n) // n, h // n
+    geom = ring_geometry((h, w), (rh, rw), deg)
+    frame = tiled_frame(TILED_HW, 0, dev).to(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    acc0 = torch.rand((out_tile_h, rw, 3), generator=gen, device=dev) * 100.0
+    r, k = 1, 2
+    visit, src0, row0 = frame[k * tile_h:(k + 1) * tile_h], k * tile_h, r * out_tile_h
+    got = ring_rotate_step(visit, src0, row0, acc0.clone(), geom)
+    ref = ring_rotate_step_plain(visit, src0, row0, acc0.clone(), geom)
+    last = ring_rotate_step(visit, src0, row0, acc0.clone(), geom, True, (10, 200, 30), True)
+    last_ref = ring_rotate_step_plain(visit, src0, row0, acc0.clone(), geom, True,
+                                      (10, 200, 30), True)
+    torch.cuda.synchronize()
+    err = rel_err(torch, got, ref)
+    check(err <= RING_STEP_RTOL, f"K15: step off by {err:.2e} relative > {RING_STEP_RTOL}")
+    u8_err = int((last.int() - last_ref.int()).abs().max())
+    check(u8_err <= PIXEL_TOL, f"K15 last step u8: max diff {u8_err}")
+    # what this step must move: the accumulator read and written where the
+    # visiting tile owns a tap, and the visiting tile's rows those taps reach
+    yo = torch.arange(out_tile_h, dtype=torch.float32, device=dev)[:, None] + row0
+    xo = torch.arange(rw, dtype=torch.float32, device=dev)[None, :]
+    dx, dy = xo - geom.cx_out, yo - geom.cy_out
+    y0 = torch.floor(-geom.sin_t * dx + geom.cos_t * dy + geom.cy_in)
+    taps = [torch.clamp(y, 0.0, geom.th - 1.0) - src0 for y in (y0, y0 + 1.0)]
+    own = [(t >= 0) & (t < tile_h) for t in taps]
+    n_own = float((own[0] | own[1]).sum())
+    rows_read = int(torch.unique(torch.cat([t[o] for t, o in zip(taps, own)])).numel())
+    nbytes = 24.0 * n_own + 12.0 * rows_read * w
+    row = {"ms": None, "plain_ms": None, "library_ms": None, "max_abs_err": float(
+        (got - ref).abs().max())}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 40.0 * out_tile_h * rw)
+    acc = acc0.clone()
+    row["ms"] = cuda_ms(torch, lambda: ring_rotate_step(visit, src0, row0, acc, geom))
+    row["plain_ms"] = cuda_ms(
+        torch, lambda: ring_rotate_step_plain(visit, src0, row0, acc, geom), iters=3)
+    print(f"K15 ring step (rank {r} of {n}, tile {k}): visit {tuple(visit.shape)} -> acc "
+          f"{tuple(acc0.shape)} at {deg} deg: {err:.2e} relative (bound "
+          f"{RING_STEP_RTOL}), last step u8 max diff {u8_err}; {n_own:.0f} pixels own a "
+          f"tap, {rows_read} source rows; kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          "no library call computes a ring step")
+    return row
+
+
+def fold2d_case(torch, dev):
+    """The dense resample's fold2d_bf16 form (bf16 operands, f32 products)
+    against its f32 form at the flagship shape: u8 levels apart, times,
+    and the products' bound. Not a kernel: both are library products."""
+    from flyimg_tpu_torch.ops.resample import _apply_fold2d_bf16, quantize_u8, resample_matrix
+
+    images, in_true, span_y, span_x, out_true = flagship_geometry(torch, 256, dev)
+    x = images.to(torch.float32)
+    b, h, w, c = x.shape
+    oh, ow = 250, 300
+    wy = resample_matrix(h, oh, span_y[:, 0], span_y[:, 1], out_true[:, 0], in_true[:, 0])
+    wx = resample_matrix(w, ow, span_x[:, 0], span_x[:, 1], out_true[:, 1], in_true[:, 1])
+
+    def f32():
+        tmp = torch.matmul(wy, x.reshape(b, h, w * c))
+        tmp = tmp.reshape(b, oh, w, c).permute(0, 2, 1, 3).reshape(b, w, oh * c)
+        return torch.matmul(wx, tmp).reshape(b, ow, oh, c).permute(0, 2, 1, 3)
+
+    got, ref = _apply_fold2d_bf16(x, wy, wx), f32()
+    diff = (quantize_u8(got).int() - quantize_u8(ref).int()).abs()
+    check(bool(torch.isfinite(got).all()), "fold2d_bf16: non-finite output")
+    flops = 2.0 * b * (oh * h * w * c + ow * w * oh * c)
+    t_bf16, t_f32 = cuda_ms(torch, lambda: _apply_fold2d_bf16(x, wy, wx)), cuda_ms(torch, f32)
+    bound, by = bound_ms(4.0 * (x.numel() + wy.numel() + wx.numel() + got.numel()), flops)
+    print(f"fold2d_bf16 (dense resample, {b} x {h}x{w} -> {oh}x{ow}): {int(diff.max())} u8 "
+          f"levels from the f32 form ({int((diff > 0).sum())} of {diff.numel()} values "
+          f"differ); fold2d {t_bf16:.4f} ms, f32 {t_f32:.4f} ms, bound {bound:.4f} ms ({by}, "
+          "f32 products with TF32 off)")
+    return {"fold2d_ms": t_bf16, "f32_ms": t_f32, "bound_ms": bound}
+
+
+def _unsharp_knife(torch, frame, opts):
+    """Values of ``opts``' unsharp whose |x - blur| lies within K5_KNIFE of
+    the threshold (where K5 and its plain version may fall on either side)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.ops.filters import gaussian_kernel, separable_conv_plain
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.spec.plan import build_plan
+
+    plan = build_plan(OptionsBag(opts), frame.shape[1], frame.shape[0])
+    if plan.unsharp is None:
+        return None
+    r, sg, _gain, thr = plan.unsharp
+    x = frame.to(torch.float32)[None]
+    blurred = separable_conv_plain(x, gaussian_kernel(r, sg))
+    return (((x - blurred).abs() - float(np.float32(thr * 255.0))).abs() < K5_KNIFE)[0]
+
+
+def tiled_hold(torch, label, opts, mesh, frame, mode=None, background=None):
+    """One tiled op on ``mesh`` against the untiled op and against the
+    tiled program on the kernels' plain versions, all on the card (f32)."""
+    from flyimg_tpu_torch.entry import _tiled_plan, tiled_fn, untiled_fn
+
+    hw = tuple(frame.shape[:2])
+    op = _tiled_plan(opts, hw)[1]
+    got = tiled_fn(opts, mesh, hw, False, mode, background=background)(frame)
+    untiled = untiled_fn(opts, hw, False, mode, background)(frame)
+    torch.cuda.synchronize()
+    check(got.shape == untiled.shape,
+          f"tiled {label} {opts}: {tuple(got.shape)} vs untiled {tuple(untiled.shape)}")
+    check(bool(torch.isfinite(got).all()), f"tiled {label} {opts}: non-finite output")
+    err_u = float((got - untiled).abs().max())
+    check(err_u <= TILED_UNTILED_TOL[op],
+          f"tiled {label} {opts}: {err_u} from untiled > {TILED_UNTILED_TOL[op]}")
+    text = f"{err_u:.3g} from untiled (bound {TILED_UNTILED_TOL[op]})"
+    if mode != "dense":
+        plain = tiled_fn(opts, mesh, hw, False, mode, plain=True, background=background)(frame)
+        if op == "rotate":
+            err_p = rel_err(torch, got, plain)
+            check(err_p <= RING_RTOL, f"tiled {label} {opts}: ring {err_p:.2e} relative "
+                  f"from plain > {RING_RTOL}")
+            text += f", {err_p:.2e} relative from the plain ring (bound {RING_RTOL})"
+        else:
+            tol = F32_TOL if op == "resample" else K5_TOL
+            diff = (got - plain).abs()
+            knife = _unsharp_knife(torch, frame, opts)
+            n_knife = 0
+            if knife is not None:
+                n_knife = int((knife & (diff > tol)).sum())
+                diff = diff.masked_fill(knife, 0.0)
+            err_p = float(diff.max())
+            check(err_p <= tol, f"tiled {label} {opts}: {err_p} from plain > {tol}")
+            text += f", {err_p:.3g} from plain (bound {tol}; {n_knife} at the threshold)"
+    print(f"tiled {label} {opts}{' ' + mode if mode else ''}: {tuple(frame.shape)} -> "
+          f"{tuple(got.shape)}: {text}")
+    return got
+
+
+def tiled_server(torch, dev, workdir, mesh, label):
+    """A server with ``mesh`` and one without answer the tall route's
+    requests for a 3840x2160 PNG; the answers agree within 1 u8 level and
+    the tiled handler's counters show the route."""
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.entry import TILED_HW
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+
+    h, w = TILED_HW
+    src = os.path.join(workdir, f"tall_{w}x{h}.png")
+    if not os.path.exists(src):
+        synthetic_png(src, w, h, seed=900)
+    requests = (("w_256,o_png", (1, 0)), ("r_-37,o_png", (0, 1)),
+                ("blr_0x2,o_png", (0, 1)), ("w_256,h_200,c_1,o_png", (0, 0)))
+    answers = {}
+    for name, sp_mesh in (("tiled", mesh), ("untiled", None)):
+        params = AppParameters({
+            "upload_dir": os.path.join(workdir, f"tall_{label}_{name}", "uploads"),
+            "tmp_dir": os.path.join(workdir, f"tall_{label}_{name}", "tmp"),
+            "resample_kernel": "banded",
+        })
+        server = make_server(params, device=dev, sp_mesh=sp_mesh)
+        if sp_mesh is None:
+            server.handler.sp_mesh = None
+        thread = serve_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            for opts, taken in requests:
+                before = (server.handler.tiled_resamples, server.handler.tiled_single_ops)
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(f"{base}/upload/{opts}/{src}", timeout=300) as resp:
+                    status, body = resp.status, resp.read()
+                wall = time.perf_counter() - t0
+                after = (server.handler.tiled_resamples, server.handler.tiled_single_ops)
+                moved = (after[0] - before[0], after[1] - before[1])
+                check(status == 200, f"server {name} {opts}: status {status}")
+                want = taken if name == "tiled" else (0, 0)
+                check(moved == want, f"server {name} {opts}: tiled counters moved "
+                      f"{moved}, expected {want}")
+                answers[(name, opts)] = (png.decode(body)[0], wall)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    for opts, taken in requests:
+        got, t_tiled = answers[("tiled", opts)]
+        ref, t_untiled = answers[("untiled", opts)]
+        check(got.shape == ref.shape, f"server {opts}: {got.shape} vs {ref.shape}")
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        check(int(diff.max()) <= PIXEL_TOL, f"server {opts}: tiled vs untiled "
+              f"{int(diff.max())} u8")
+        print(f"tiled server {label} {opts}: {got.shape}, {'tiled' if any(taken) else 'batcher'}"
+              f" route, {int(diff.max())} u8 from the untiled server "
+              f"({int((diff > 0).sum())} of {diff.size} values differ); wall {t_tiled:.3f} s "
+              f"vs {t_untiled:.3f} s")
+
+
+def tiled_bound(opts, mode, n, hw):
+    """(ms, by) the card needs at least for one tiled op with u8 out: the
+    extended tiles read once and the output written once (the resample,
+    the filters, with the filters' K multiply-adds twice an element and the
+    dense products' multiply-adds as operations), or for the ring the
+    schedule's bytes: n steps of every rank reading the visiting tile and
+    reading and writing its accumulator, then the output once."""
+    from flyimg_tpu_torch.entry import _tiled_plan
+    from flyimg_tpu_torch.ops.filters import gaussian_kernel
+    from flyimg_tpu_torch.parallel.tiling import required_halo
+    from flyimg_tpu_torch.spec.plan import rotated_bounds
+
+    plan, op, out_hw = _tiled_plan(opts, hw)
+    h, w = hw
+    tile_h = -(-h // n)
+    if op == "rotate":
+        rw, rh = rotated_bounds(w, h, plan.rotate)
+        per_step = 12.0 * (tile_h * w + 2 * -(-rh // n) * rw)
+        return bound_ms(n * n * per_step + 3.0 * rh * rw, 0.0)
+    if op == "resample":
+        oh, ow = out_hw
+        out_tile = -(-oh // n)
+        rows = tile_h + 2 * required_halo(tile_h * n, out_tile * n, h, oh, n)
+        if mode == "dense":
+            flops = 2.0 * n * 3 * (out_tile * rows * w + ow * w * out_tile)
+            return bound_ms(n * rows * w * 12.0 + 3.0 * oh * ow, flops)
+        return bound_ms(n * rows * w * 3.0 + 3.0 * oh * ow, 0.0)
+    k = len(gaussian_kernel(*(plan.blur if op == "blur" else getattr(plan, op)[:2])))
+    return bound_ms(n * (tile_h + k - 1) * w * 12.0 + 3.0 * h * w, 4.0 * k * h * w * 3)
+
+
+def tiled_mesh_checks(torch, frame, label, mesh):
+    """Each of TILED_OPTIONS over ``mesh`` held by ``tiled_hold``, then its
+    u8 form (the handler's) within PIXEL_TOL of the untiled op's and both
+    timed, and (but for the dense form, which has no kernel) the tiled
+    program on the kernels' plain versions: {(label, opts, mode): (tiled
+    ms, untiled ms, plain ms or None, bound ms)}."""
+    from flyimg_tpu_torch.entry import TILED_HW, TILED_OPTIONS, tiled_fn, untiled_fn
+
+    print(f"tiled: mesh {label}: {[str(d) for d in mesh.devices]}")
+    times = {}
+    for opts in TILED_OPTIONS:
+        for mode in (("dense", "banded") if opts.startswith("w_") else (None,)):
+            tiled_hold(torch, label, opts, mesh, frame, mode)
+            tiled_u8 = tiled_fn(opts, mesh, TILED_HW, True, mode)
+            untiled_u8 = untiled_fn(opts, TILED_HW, True, mode)
+            diff = (tiled_u8(frame).int() - untiled_u8(frame).int()).abs()
+            check(int(diff.max()) <= PIXEL_TOL, f"tiled {label} {opts} u8: "
+                  f"{int(diff.max())} levels from untiled")
+            plain_ms = None
+            if mode != "dense":
+                plain_u8 = tiled_fn(opts, mesh, TILED_HW, True, mode, plain=True)
+                plain_ms = cuda_ms(torch, lambda: plain_u8(frame), iters=3, warmup=1)
+            bound, by = tiled_bound(opts, mode, len(mesh.devices), TILED_HW)
+            key = (label, opts, mode)
+            times[key] = (cuda_ms(torch, lambda: tiled_u8(frame), iters=5),
+                          cuda_ms(torch, lambda: untiled_u8(frame), iters=5),
+                          plain_ms, bound)
+            print(f"tiled {label} {opts}{' ' + mode if mode else ''} u8: "
+                  f"{int(diff.max())} level(s) from untiled on "
+                  f"{int((diff > 0).sum())} values; tiled {times[key][0]:.4f} ms, "
+                  f"untiled {times[key][1]:.4f} ms, plain "
+                  + (f"{plain_ms:.4f} ms" if plain_ms is not None else "-")
+                  + f", bound {bound:.4f} ms ({by})"
+                  + (" (ranks one after another: the schedule's cost, not a "
+                     "multi-card speed)" if label.startswith("virtual") else ""))
+    return times
+
+
+def phase_tiled(torch, dev, workdir):
+    """Phase 9: the tall-input route on the card (see the module's doc)."""
+    from flyimg_tpu_torch.entry import TILED_HW, TILED_RANKS, tiled_frame
+    from flyimg_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
+    from flyimg_tpu_torch.parallel.tiling import TilingInfeasible, tiled_rotate, tiled_transform
+
+    frame = tiled_frame(TILED_HW, 0, dev)
+    meshes = [(f"virtual {TILED_RANKS} ranks on {dev}", virtual_mesh(TILED_RANKS, dev))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh(axis_names=("sp",))))
+    times = {}
+    for label, mesh in meshes:
+        times.update(tiled_mesh_checks(torch, frame, label, mesh))
+    mesh = meshes[0][1]
+    # not timed: other rank counts, an indivisible height, an infeasible
+    # halo, quarter turns and a coloured background
+    for n in (2, 8):
+        for opts in ("w_256", "blr_0x2", "r_-37"):
+            tiled_hold(torch, f"{n} ranks", opts, virtual_mesh(n, dev), frame,
+                       "banded" if opts == "w_256" else None)
+    odd = tiled_frame((2161, 1440), 1, dev)
+    for opts in ("w_256", "unsh_0.25x0.25+8+0.065", "r_-37"):
+        tiled_hold(torch, "2161 rows", opts, mesh, odd, "banded" if opts == "w_256" else None)
+    try:
+        tiled_transform(torch.zeros((4001, 64, 3), dtype=torch.uint8, device=dev),
+                        (33, 64), virtual_mesh(8, dev))
+        check(False, "tiled: an infeasible halo did not raise")
+    except TilingInfeasible as exc:
+        print(f"tiled: infeasible halo raises: {exc}")
+    check(tiled_rotate(odd, 0.0, mesh) is odd, "tiled: 0 degrees is not the identity")
+    for opts in ("r_90", "r_180", "r_-37"):
+        tiled_hold(torch, "background (10, 200, 30)", opts, mesh, odd,
+                   background=(10, 200, 30))
+    for label, mesh in meshes:
+        tiled_server(torch, dev, workdir, mesh, label.split()[0])
+    return times
+
+
+def tiled_only(torch) -> int:
+    """``--tiled-only``: phase 9's per-mesh checks and timings on a mesh over
+    every visible card and on a virtual mesh of as many ranks on card 0,
+    then the server with the all-card mesh (the four-card run)."""
+    from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.device import resolve_device
+    from flyimg_tpu_torch.entry import TILED_HW, tiled_frame
+    from flyimg_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
+
+    dev = resolve_device("cuda:0")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    cuda_build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s; {n} card(s); peer access from "
+          f"cuda:0: {[torch.cuda.can_device_access_peer(0, i) for i in range(1, n)]}")
+    frame = tiled_frame(TILED_HW, 0, dev)
+    mesh = make_mesh(axis_names=("sp",))
+    times = tiled_mesh_checks(torch, frame, f"{n} cards", mesh)
+    times.update(tiled_mesh_checks(torch, frame, f"virtual {n} ranks on {dev}",
+                                   virtual_mesh(n, dev)))
+    workdir = os.path.join(ROOT, "build", "chip_smoke_tiled")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        tiled_server(torch, dev, workdir, mesh, f"{n}-card")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("tiled ms (tiled, untiled; u8 out): " + "; ".join(
+        f"{label} {opts}{' ' + mode if mode else ''} {t[0]:.4f}, {t[1]:.4f}"
+        for (label, opts, mode), t in times.items()))
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
     import torch
+
+    if sys.argv[1:] == ["--tiled-only"]:
+        check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+        return tiled_only(torch)
 
     # phase 1: device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2178,7 +2570,7 @@ def main() -> int:
     from flyimg_tpu_torch.ops.filters import separable_filter
     from flyimg_tpu_torch.ops.pixelate import pixelate_regions_u8
     from flyimg_tpu_torch.ops.resample import resample_banded_f32, resample_banded_u8
-    from flyimg_tpu_torch.ops.rotate import rotate_sampled
+    from flyimg_tpu_torch.ops.rotate import ring_rotate_step, rotate_sampled
 
     resolve_device(dev)  # TF32 off for matmuls and convolutions
     kernels = {"K1": resample_banded_u8, "K1-f32": resample_banded_f32,
@@ -2187,7 +2579,7 @@ def main() -> int:
                "K7": pixelate_regions_u8, "K8": _batched_face_masks,
                "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
                "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
-               "K14": adam_update}
+               "K14": adam_update, "K15": ring_rotate_step}
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -2205,6 +2597,8 @@ def main() -> int:
     rows.update(phase_face_kernels(torch, dev))
     rows.update(train_kernel_rows(torch, dev))
     train_edges(torch, dev)
+    rows["K15"] = k15_case(torch, dev)
+    fold2d = fold2d_case(torch, dev)
 
     # phase 4: entry (main path)
     reset_counts(kernels)
@@ -2236,6 +2630,10 @@ def main() -> int:
         reset_counts(kernels)
         train_rates = phase_train(torch, dev, card, workdir)
         train_counts = read_counts(kernels)
+        # phase 9: the tall-input route (main path)
+        reset_counts(kernels)
+        tiled_times = phase_tiled(torch, dev, workdir)
+        tiled_counts = read_counts(kernels)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"faces kernel launches: {face_counts}")
@@ -2244,6 +2642,9 @@ def main() -> int:
     print(f"train kernel launches: {train_counts}")
     for name in ("K9", "K10", "K11", "K12", "K13", "K14"):
         check(train_counts[name] > 0, f"train: {name} never launched")
+    print(f"tiled kernel launches: {tiled_counts}")
+    for name in ("K1", "K1-f32", "K5", "K15"):
+        check(tiled_counts[name] > 0, f"tiled: {name} never launched")
 
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
@@ -2278,12 +2679,14 @@ def main() -> int:
                 "flyimg_tpu/models/blazeface.py:347"),
         "K14": ("blazeface_adam", "flyimg_tpu_torch/csrc/blazeface_train.cu",
                 "flyimg_tpu/models/blazeface.py:366"),
+        "K15": ("ring_rotate_step", "flyimg_tpu_torch/csrc/ring_rotate.cu",
+                "flyimg_tpu/parallel/tiling.py:370"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
         launches = (entry_counts[key] + staged_counts[key]
                     + sum(c[key] for c in server_counts.values())
-                    + face_counts[key] + train_counts[key])
+                    + face_counts[key] + train_counts[key] + tiled_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,
@@ -2298,6 +2701,11 @@ def main() -> int:
         f"{opts} {rate:.1f}" for opts, rate in staged_rates.items()))
     print(f"faces: BlazeFace {face_rates['views_per_s']:.1f} views/s, facefind "
           f"masks {face_rates['images_per_s']:.1f} images/s")
+    print("tiled ms (tiled, untiled; u8 out): " + "; ".join(
+        f"{label} {opts}{' ' + mode if mode else ''} {t[0]:.4f}, {t[1]:.4f}"
+        for (label, opts, mode), t in tiled_times.items()))
+    print(f"fold2d_bf16 dense resample: {fold2d['fold2d_ms']:.4f} ms, f32 form "
+          f"{fold2d['f32_ms']:.4f} ms, bound {fold2d['bound_ms']:.4f} ms")
     print("train steps/s: " + ", ".join(
         f"batch {b} {'plain' if plain else 'kernels'} {rate:.2f}"
         for (b, plain), rate in train_rates.items()))

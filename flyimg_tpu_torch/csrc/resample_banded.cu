@@ -48,6 +48,13 @@
 // taller one in row chunks, so no source size is refused.
 // Each output sums its taps in tap order, as the plain version does (the
 // vertical pass adds exact zeros for the rows between bands).
+// The tiled form (a lower valid row per member) is the per-rank resample of
+// flyimg_tpu/parallel/tiling.py _build_tiled_program: a rank's member is its
+// tile with the halo rows its neighbours sent, its geometry row the rank's
+// span in local rows, and rows below `row_lo` (rank 0's zero-filled top
+// halo) carry no weight, as rows at or past in_true never do. Its row
+// sample positions round start + (i + .5) q once (an FMA), as XLA computes
+// the jitted reference.
 // No tensor cores: TF32 would move many outputs by one u8 level.
 
 #include <cuda_runtime.h>
@@ -97,10 +104,12 @@ __device__ float filter_fn(int method, float x) {
 // Lane l evaluates taps l, l + S, ...; the segment adds its partial sums by
 // a fixed butterfly, so every lane holds the same total and consecutive
 // lanes store consecutive taps. geom rows are [span_y(2), span_x(2),
-// out_true(h, w), in_true(h, w)].
-__global__ void band_weights_kernel(const float* __restrict__ geom, int batch, int axis,
-                                    int in_size, int out_size, int taps, int method, int S,
-                                    float* __restrict__ w, int* __restrict__ j0_out) {
+// out_true(h, w), in_true(h, w)]; lo (or null: 0) is the lowest valid source
+// index of each member on this axis.
+__global__ void band_weights_kernel(const float* __restrict__ geom, const float* __restrict__ lo,
+                                    int batch, int axis, int in_size, int out_size, int taps,
+                                    int method, int S, float* __restrict__ w,
+                                    int* __restrict__ j0_out) {
     const int gid = blockIdx.x * blockDim.x + threadIdx.x;
     const int idx = gid / S;
     const int lane = gid - idx * S;
@@ -112,10 +121,15 @@ __global__ void band_weights_kernel(const float* __restrict__ geom, int batch, i
     const float size = g[axis * 2 + 1];
     const float out_true = fmaxf(g[4 + axis], 1.0f);
     const float in_true = g[6 + axis];
+    const float in_lo = lo != nullptr ? lo[b] : 0.0f;
     const float q = size / out_true;
-    // the reference's operation order, no FMA contraction: floor(x) picks
-    // the band, so x must round exactly as it does there
-    float x = __fsub_rn(__fadd_rn(start, __fmul_rn(__fadd_rn((float)i, 0.5f), q)), 0.5f);
+    // the reference's operation order: floor(x) picks the band, so x must
+    // round exactly as it does there — no FMA contraction, except in the
+    // tiled form (lo given), whose reference program is jitted and has XLA
+    // fuse start + (i + .5) q into one multiply-add
+    const float iq = __fadd_rn((float)i, 0.5f);
+    float x = __fsub_rn(lo != nullptr ? __fmaf_rn(iq, q, start)
+                                      : __fadd_rn(start, __fmul_rn(iq, q)), 0.5f);
     x = fminf(fmaxf(x, 0.0f), fmaxf(in_true - 1.0f, 0.0f));
     const int j0 = taps >= in_size ? 0 : (int)floorf(x) - taps / 2 + 1;
     float* wr = w + (size_t)idx * taps;
@@ -123,7 +137,8 @@ __global__ void band_weights_kernel(const float* __restrict__ geom, int batch, i
     if (method == NEAREST) {
         const float near = fminf(fmaxf(floorf(x + 0.5f), 0.0f), fmaxf(in_true - 1.0f, 0.0f));
         if (valid)
-            for (int k = lane; k < taps; k += S) wr[k] = ((float)(j0 + k) == near) ? 1.0f : 0.0f;
+            for (int k = lane; k < taps; k += S)
+                wr[k] = ((float)(j0 + k) == near && (float)(j0 + k) >= in_lo) ? 1.0f : 0.0f;
         return;
     }
     // with at most one tap a lane (taps <= S) the weight stays in a
@@ -133,7 +148,7 @@ __global__ void band_weights_kernel(const float* __restrict__ geom, int batch, i
     for (int k = lane; k < taps; k += S) {
         const int j = j0 + k;
         float wk = filter_fn(method, ((float)j - x) / s);
-        if (!(j >= 0 && (float)j < in_true)) wk = 0.0f;
+        if (!(j >= 0 && (float)j >= in_lo && (float)j < in_true)) wk = 0.0f;
         if (valid && taps > S) wr[k] = wk;
         own = wk;
         sum += wk;
@@ -421,18 +436,22 @@ static size_t smem_bytes(int T, int NX, int WC, int RC, int ky, int kx, int stag
            (size_t)T * os_pitch(NX);
 }
 
-// Launch both kernels on `stream`. wy/jy and wx/jx are scratch tables of
+// Launch both kernels on `stream`. img is u8 [batch, in_h, in_w, 3], geom f32
+// [batch, 8] (above), row_lo f32 [batch] or null (the lowest valid source
+// row of each member; null = 0). wy/jy and wx/jx are scratch tables of
 // [batch, out_h, ky] / [batch, out_h] and [batch, out_w, kx] / [batch, out_w].
 // The plan (T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
 // smem) comes from the host;
 // kx_static names the compiled instance (0 = run-time K). Exactly one of
 // out (u8) and outf (f32) is non-null. Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for a plan the kernel does not take.
-static int launch(const uint8_t* img, uint8_t* out, float* outf, const float* geom, float* wy,
-                  int* jy, float* wx, int* jx, int batch, int in_h, int in_w, int out_h,
-                  int out_w, int ky, int kx, int method, int T, int NX, int WC, int RC,
-                  int stage_wx, int stage_wy, int kx_static, int tiles_per_block, int smem,
-                  void* stream) {
+extern "C" int flyimg_resample_banded(const uint8_t* img, uint8_t* out, float* outf,
+                                      const float* geom, const float* row_lo, float* wy,
+                                      int* jy, float* wx, int* jx, int batch, int in_h,
+                                      int in_w, int out_h, int out_w, int ky, int kx,
+                                      int method, int T, int NX, int WC, int RC, int stage_wx,
+                                      int stage_wy, int kx_static, int tiles_per_block,
+                                      int smem, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if ((out == nullptr) == (outf == nullptr) || T <= 0 || T % K1_SUB || NX <= 0 || WC <= 0 || RC <= 0 || tiles_per_block <= 0 ||
         in_w % 4 ||
@@ -444,9 +463,9 @@ static int launch(const uint8_t* img, uint8_t* out, float* outf, const float* ge
     const long ny = (long)batch * out_h * sy;
     const long nx = (long)batch * out_w * sx;
     band_weights_kernel<<<(int)((ny + threads - 1) / threads), threads, 0, s>>>(
-        geom, batch, 0, in_h, out_h, ky, method, sy, wy, jy);
+        geom, row_lo, batch, 0, in_h, out_h, ky, method, sy, wy, jy);
     band_weights_kernel<<<(int)((nx + threads - 1) / threads), threads, 0, s>>>(
-        geom, batch, 1, in_w, out_w, kx, method, sx, wx, jx);
+        geom, nullptr, batch, 1, in_w, out_w, kx, method, sx, wx, jx);
     const int n_ct = (out_w + NX - 1) / NX;
     const int n_rt = (out_h + T - 1) / T;
     const int n_rg = (n_rt + tiles_per_block - 1) / tiles_per_block;
@@ -471,27 +490,4 @@ static int launch(const uint8_t* img, uint8_t* out, float* outf, const float* ge
                                        out_w, ky, kx, T, NX, WC, RC, stage_wx, stage_wy, n_ct,
                                        tiles_per_block);
     return (int)cudaGetLastError();
-}
-
-extern "C" int flyimg_resample_banded_u8(const uint8_t* img, uint8_t* out, const float* geom,
-                                         float* wy, int* jy, float* wx, int* jx, int batch,
-                                         int in_h, int in_w, int out_h, int out_w, int ky,
-                                         int kx, int method, int T, int NX, int WC, int RC,
-                                         int stage_wx, int stage_wy, int kx_static,
-                                         int tiles_per_block, int smem, void* stream) {
-    return launch(img, out, nullptr, geom, wy, jy, wx, jx, batch, in_h, in_w, out_h, out_w, ky,
-                  kx, method, T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
-                  smem, stream);
-}
-
-// The f32-store form: the same passes, the f32 result stored as it is.
-extern "C" int flyimg_resample_banded_f32(const uint8_t* img, float* outf, const float* geom,
-                                          float* wy, int* jy, float* wx, int* jx, int batch,
-                                          int in_h, int in_w, int out_h, int out_w, int ky,
-                                          int kx, int method, int T, int NX, int WC, int RC,
-                                          int stage_wx, int stage_wy, int kx_static,
-                                          int tiles_per_block, int smem, void* stream) {
-    return launch(img, nullptr, outf, geom, wy, jy, wx, jx, batch, in_h, in_w, out_h, out_w, ky,
-                  kx, method, T, NX, WC, RC, stage_wx, stage_wy, kx_static, tiles_per_block,
-                  smem, stream);
 }

@@ -28,6 +28,13 @@
 //     x once) and stores f32 or u8.
 // Each source float is read from device memory once per pass (the vertical
 // halo rows of neighbouring row strips come from L2).
+//
+// The tiled form (halo > 0) replaces the per-device body of
+// flyimg_tpu/parallel/tiling.py _build_tiled_filter: the input holds `halo`
+// extra rows above and below each member (a rank's tile with the rows its
+// neighbours sent), the vertical pass reads them instead of clamping (valid in
+// H, halo = K / 2, so no clamp binds), the horizontal pass keeps its edge
+// clamp in W, and the unsharp epilogue reads x from the member's own rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,7 +56,7 @@ __device__ __forceinline__ uint8_t to_u8(float a) {
 // grid: (column blocks * row strips, batch)
 __global__ void __launch_bounds__(THREADS)
 vertical_pass(const float* __restrict__ in, float* __restrict__ out, const float* __restrict__ taps,
-              int H, int C, int K, int n_cb) {
+              int H, int C, int K, int n_cb, int halo) {
     extern __shared__ float w_s[];
     for (int k = threadIdx.x; k < K; k += THREADS) w_s[k] = taps[k];
     __syncthreads();
@@ -58,13 +65,14 @@ vertical_pass(const float* __restrict__ in, float* __restrict__ out, const float
     if (c >= C) return;
     const int y0 = strip * VR;
     const int half = K / 2;
-    const float* src = in + (size_t)blockIdx.y * H * C + c;
+    const int H_in = H + 2 * halo;  // input rows a member: its own and the halos
+    const float* src = in + (size_t)blockIdx.y * H_in * C + c;
     float acc[VR];
 #pragma unroll
     for (int j = 0; j < VR; ++j) acc[j] = 0.0f;
     const int n_in = VR + K - 1;
     for (int i = 0; i < n_in; ++i) {
-        const float v = __ldg(src + (size_t)clampi(y0 - half + i, 0, H - 1) * C);
+        const float v = __ldg(src + (size_t)clampi(y0 + halo - half + i, 0, H_in - 1) * C);
 #pragma unroll
         for (int j = 0; j < VR; ++j) {
             const int k = i - j;
@@ -82,7 +90,7 @@ __global__ void __launch_bounds__(THREADS)
 horizontal_pass(const float* __restrict__ tmp, const float* __restrict__ x,
                 float* __restrict__ out_f, uint8_t* __restrict__ out_u8,
                 const float* __restrict__ taps, int H, int W, int K, int n_seg, int mode,
-                float gain, float thr) {
+                float gain, float thr, int halo) {
     extern __shared__ float smem[];
     float* w_s = smem;                 // [K]
     float* row = smem + ((K + 3) & ~3);  // [(HX + K - 1) * 3]
@@ -105,7 +113,9 @@ horizontal_pass(const float* __restrict__ tmp, const float* __restrict__ x,
         const size_t at = row_off + (size_t)x0 * 3 + o;
         float v = acc;
         if (mode == 1) {
-            const float xv = __ldg(x + at);
+            // x's own rows start `halo` rows into the member's input rows
+            const float xv = __ldg(x + ((size_t)blockIdx.y * (H + 2 * halo) + halo + y) * W * 3 +
+                                   (size_t)x0 * 3 + o);
             const float diff = __fsub_rn(xv, acc);
             const float amount = __fmul_rn(gain, diff);
             v = __fadd_rn(xv, fabsf(diff) >= thr ? amount : 0.0f);
@@ -119,23 +129,27 @@ horizontal_pass(const float* __restrict__ tmp, const float* __restrict__ x,
 
 }  // namespace
 
-// Launch K5 on `stream`: x f32 [batch, H, W, 3] -> out (exactly one of out_f
-// f32 or out_u8 u8, same shape), through tmp f32 [batch, H, W, 3]; taps f32
-// [K] on the card, K odd. mode 0 = blur, 1 = unsharp with gain and thr
-// (the threshold in levels, thr * 255 of the reference). Returns
-// cudaGetLastError() after the launches.
+// Launch K5 on `stream`: x f32 [batch, H + 2 * halo, W, 3] -> out (exactly
+// one of out_f f32 or out_u8 u8, [batch, H, W, 3]), through tmp f32
+// [batch, H, W, 3]; taps f32 [K] on the card, K odd. mode 0 = blur, 1 =
+// unsharp with gain and thr (the threshold in levels, thr * 255 of the
+// reference). halo = 0 is the whole-image filter; the tiled form gives a
+// rank's tile with halo (at most K / 2) neighbour rows above and below, and
+// rows are clamped only within x, so with halo = K / 2 the vertical pass
+// reads the supplied rows as they are. Returns cudaGetLastError() after the
+// launches.
 extern "C" int flyimg_separable(const float* x, float* tmp, float* out_f, uint8_t* out_u8,
-                                const float* taps, int batch, int H, int W, int K, int mode,
-                                float gain, float thr, void* stream) {
+                                const float* taps, int batch, int H, int W, int K, int halo,
+                                int mode, float gain, float thr, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (batch <= 0 || H <= 0 || W <= 0 || K <= 0 || K % 2 == 0 || (mode != 0 && mode != 1) ||
-        (out_f == nullptr) == (out_u8 == nullptr) || batch > 65535)
+        (out_f == nullptr) == (out_u8 == nullptr) || batch > 65535 || halo < 0 || halo > K / 2)
         return (int)cudaErrorInvalidValue;
     const int C = W * 3;
     const int n_cb = (C + THREADS - 1) / THREADS;
     const int n_strips = (H + VR - 1) / VR;
     vertical_pass<<<dim3(n_cb * n_strips, batch), THREADS, K * sizeof(float), s>>>(
-        x, tmp, taps, H, C, K, n_cb);
+        x, tmp, taps, H, C, K, n_cb, halo);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n_seg = (W + HX - 1) / HX;
@@ -146,6 +160,6 @@ extern "C" int flyimg_separable(const float* x, float* tmp, float* out_f, uint8_
         if (err != cudaSuccess) return (int)err;
     }
     horizontal_pass<<<dim3(n_seg * H, batch), THREADS, smem, s>>>(
-        tmp, x, out_f, out_u8, taps, H, W, K, n_seg, mode, gain, thr);
+        tmp, x, out_f, out_u8, taps, H, W, K, n_seg, mode, gain, thr, halo);
     return (int)cudaGetLastError();
 }

@@ -26,6 +26,13 @@ a seeded synthetic batch.
 program stages after the resample (rotate, filters, pad, grayscale,
 dither) — on seeded 1920x1080 sources, grouped and padded as the batcher
 groups and pads them.
+
+``tiled_entry(opts, n)`` is the handler's tall-input route: one of
+``TILED_OPTIONS`` on a seeded 3840x2160 (H x W) u8 frame over an n-rank
+mesh on one device (``parallel/tiling.py``: the halo-exchange resample,
+the halo-exchange filter, the ring rotate); ``untiled_fn`` is the same op
+on the whole frame. ``dryrun_multichip(n)`` runs the three tiled programs
+on a virtual n-rank CPU mesh, as part 2 of ``__graft_entry__``'s does.
 """
 
 from __future__ import annotations
@@ -78,6 +85,12 @@ SKIN_RGB = (205.0, 150.0, 118.0)
 
 #: the train step's batch: the default of tools/train_blazeface.py
 TRAIN_BATCH = 16
+
+#: the tall-input route's ops (each runs one tiled program), on a
+#: TILED_HW (H x W) frame: a 4K portrait, the thumbnail firehose's size class
+TILED_OPTIONS = ("w_256", "blr_0x2", "unsh_0.25x0.25+8+0.065", "r_-37")
+TILED_HW = (3840, 2160)
+TILED_RANKS = 4
 
 
 def flagship_band():
@@ -232,3 +245,138 @@ def train_entry(device: Union[str, torch.device] = "cuda", batch: int = TRAIN_BA
     _optimizer, step = blazeface_train.make_train_step(model)
     arrays = blazeface_train.synthetic_batch(np.random.default_rng(seed), batch)
     return step, blazeface_train.batch_to(arrays, dev)
+
+
+def _tiled_plan(opts: str, hw: Tuple[int, int]):
+    plan = build_plan(OptionsBag(opts), hw[1], hw[0])
+    if plan.resize_to is not None:
+        return plan, "resample", plan_layout(plan).resample_out
+    for op in ("rotate", "blur", "sharpen", "unsharp"):
+        if getattr(plan, op) is not None:
+            return plan, op, None
+    raise ValueError(f"{opts!r} is none of the tiled ops")
+
+
+def tiled_fn(opts: str, mesh, hw: Tuple[int, int] = TILED_HW,
+             out_u8: bool = False, kernel=None, plain: bool = False,
+             background=None):
+    """``fn(frame)`` running ``opts`` (a full-frame resample, or exactly
+    one of rotate, blur, sharpen, unsharp) on an [H, W, 3] u8 frame through
+    the tiled program over ``mesh``'s "sp" axis, as the handler calls it;
+    ``kernel`` picks the resample's form (None: the process-wide mode),
+    ``plain`` runs the kernels' plain versions, ``background`` overrides the
+    plan's."""
+    from flyimg_tpu_torch.parallel.tiling import tiled_filter, tiled_rotate, tiled_transform
+
+    plan, op, out_hw = _tiled_plan(opts, hw)
+    if op == "resample":
+        return lambda x: tiled_transform(x, out_hw, mesh, method=plan.filter_method,
+                                         kernel=kernel, out_u8=out_u8, plain=plain)
+    if op == "rotate":
+        bg = background or plan.background
+        return lambda x: tiled_rotate(x, plan.rotate, mesh, background=bg,
+                                      out_u8=out_u8, plain=plain)
+    radius, sigma, gain, thr = (*plan.blur, 1.0, 0.0) if op == "blur" else getattr(plan, op)
+    return lambda x: tiled_filter(x, mesh, op, radius, sigma, gain=gain, threshold=thr,
+                                  out_u8=out_u8, plain=plain)
+
+
+def untiled_fn(opts: str, hw: Tuple[int, int] = TILED_HW, out_u8: bool = False,
+               kernel=None, background=None):
+    """``fn(frame)``: the same op as ``tiled_fn`` on the whole frame on its
+    device (K1 or the dense products, K5, K4), as one batch-1 program."""
+    from flyimg_tpu_torch.ops import filters, rotate
+    from flyimg_tpu_torch.ops.resample import (
+        quantize_u8,
+        resample_banded_f32,
+        resample_banded_u8,
+        resample_image,
+    )
+
+    plan, op, out_hw = _tiled_plan(opts, hw)
+    h, w = hw
+    if op == "resample":
+        mode = kernel or kernel_mode()
+        band = select_band_taps(mode, plan.filter_method, (h, w), (0.0, float(h)),
+                                (0.0, float(w)), out_hw)
+
+        def resample(x):
+            def rows(v):
+                return torch.tensor([v], dtype=torch.float32, device=x.device)
+
+            geo = (rows([0.0, float(h)]), rows([0.0, float(w)]),
+                   rows([float(v) for v in out_hw]), rows([float(h), float(w)]))
+            if band is not None:
+                fn = resample_banded_u8 if out_u8 else resample_banded_f32
+                return fn(x[None], out_hw, *geo, band, plan.filter_method)[0]
+            out = resample_image(x[None].to(torch.float32), out_hw, *geo,
+                                 plan.filter_method)[0]
+            return quantize_u8(out) if out_u8 else out.contiguous()
+
+        return resample
+    if op == "rotate":
+        bg = background or plan.background
+        return lambda x: rotate.rotate_image(x[None].to(torch.float32), plan.rotate,
+                                             bg, out_u8)[0]
+    if op == "blur":
+        return lambda x: filters.gaussian_blur(x[None].to(torch.float32), *plan.blur,
+                                               out_u8=out_u8)[0]
+    radius, sigma, gain, thr = getattr(plan, op)
+    if op == "sharpen":
+        gain, thr = 1.0, 0.0
+    return lambda x: filters.unsharp_mask(x[None].to(torch.float32), radius, sigma,
+                                          gain, thr, out_u8)[0]
+
+
+def tiled_frame(hw: Tuple[int, int] = TILED_HW, seed: int = 0,
+                device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """A seeded [H, W, 3] u8 frame on ``device``: smooth colour fields with
+    noise, so filters and resamples see image-like gradients."""
+    dev = resolve_device(device)
+    h, w = hw
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    yy = torch.arange(h, dtype=torch.float32)[:, None, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :, None]
+    phase = torch.rand(3, generator=gen) * 6.0
+    img = 128.0 + 90.0 * torch.sin(yy / 211.0 + phase) * torch.cos(xx / 157.0 - phase)
+    img = img + torch.randn((h, w, 3), generator=gen) * 12.0
+    return torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8).to(dev)
+
+
+def tiled_entry(opts: str = TILED_OPTIONS[0], n: int = TILED_RANKS,
+                device: Union[str, torch.device] = "cuda", seed: int = 0,
+                out_u8: bool = True, kernel=None):
+    """(fn, (frame,)) of the tall-input route for ``opts``: the seeded
+    TILED_HW frame on ``device`` and the tiled program over a virtual
+    n-rank mesh there (every rank on that one device)."""
+    from flyimg_tpu_torch.parallel.mesh import virtual_mesh
+
+    dev = resolve_device(device)
+    mesh = virtual_mesh(n, dev)
+    return tiled_fn(opts, mesh, TILED_HW, out_u8, kernel), (tiled_frame(TILED_HW, seed, dev),)
+
+
+def dryrun_multichip(n_devices: int) -> None:
+    """Part 2 of ``__graft_entry__.dryrun_multichip`` (spatial tiling) on a
+    virtual ``n_devices``-rank CPU mesh: the halo-exchange resample and
+    filter and the ring rotate, with the same shapes and asserts. Parts 1
+    (DP x TP BlazeFace training) and 3 (data-parallel serving) are not
+    ported yet."""
+    from flyimg_tpu_torch.parallel.mesh import virtual_mesh
+    from flyimg_tpu_torch.parallel.tiling import tiled_filter, tiled_rotate, tiled_transform
+    from flyimg_tpu_torch.spec.plan import rotated_bounds
+
+    sp_mesh = virtual_mesh(n_devices, "cpu")
+    rng = np.random.default_rng(1)
+    big = torch.from_numpy(rng.integers(0, 255, (32 * n_devices, 96, 3), dtype=np.uint8))
+    out_h = 8 * n_devices
+    tiled = tiled_transform(big, (out_h, 48), sp_mesh)
+    assert tiled.shape == (out_h, 48, 3), tiled.shape
+    blurred = tiled_filter(big.to(torch.float32), sp_mesh, "blur", 0.0, 1.5)
+    assert blurred.shape == big.shape, blurred.shape
+    rot = tiled_rotate(big, -45.0, sp_mesh)
+    rw, rh = rotated_bounds(int(big.shape[1]), int(big.shape[0]), -45.0)
+    assert rot.shape == (rh, rw, 3), (rot.shape, (rh, rw))
+    for out in (tiled, blurred, rot):
+        assert bool(torch.isfinite(out).all())
+    print(f"dryrun_multichip ok: sp={n_devices} (virtual CPU mesh)")

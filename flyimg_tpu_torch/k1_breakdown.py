@@ -80,8 +80,8 @@ def build(out_dir: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"k1_breakdown: nvcc failed for {name!r}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
-        fn = libs[name].flyimg_resample_banded_u8
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+        fn = libs[name].flyimg_resample_banded
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return libs
 
@@ -114,8 +114,8 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch(lib):
-        rc = lib.flyimg_resample_banded_u8(
-            images.data_ptr(), out.data_ptr(), geom.data_ptr(), wy.data_ptr(),
+        rc = lib.flyimg_resample_banded(
+            images.data_ptr(), out.data_ptr(), None, geom.data_ptr(), None, wy.data_ptr(),
             jy.data_ptr(), wx.data_ptr(), jx.data_ptr(), b, in_h, in_w, out_h,
             out_w, ky, kx, _METHOD_CODES["lanczos3"], plan.tile_h, plan.tile_w,
             plan.chunk_w, plan.row_chunk, int(plan.stage_wx), int(plan.stage_wy),

@@ -13,6 +13,11 @@ then the W pass, as ``_separable_conv_core`` does. On a CUDA tensor every
 filter is kernel K5 (``csrc/separable.cu``: both passes and the unsharp
 epilogue, with an optional u8 store); on a CPU tensor it is the plain
 PyTorch version here (replicate padding + depthwise ``F.conv2d``).
+
+K5's tiled form (``halo`` > 0) is the per-rank body of the spatially
+tiled filter (``parallel/tiling.py tiled_filter``): its input carries
+``halo`` neighbour rows above and below the rank's own, which the H pass
+reads instead of replicating edge rows.
 """
 
 from __future__ import annotations
@@ -55,15 +60,19 @@ def gaussian_kernel(radius: float, sigma: float) -> np.ndarray:
     return np.asarray(_gaussian_taps(float(radius), float(sigma)), np.float32)
 
 
-def separable_conv_plain(image: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+def separable_conv_plain(image: torch.Tensor, kernel: np.ndarray,
+                         halo: int = 0) -> torch.Tensor:
     """Depthwise separable conv over [B, H, W, C] with edge replication:
-    the H pass, then the W pass (the plain version of K5's two passes)."""
+    the H pass, then the W pass (the plain version of K5's two passes).
+    With ``halo`` the input holds that many extra rows above and below,
+    read before any replication, and the output the H rows between."""
     k = int(kernel.shape[0])
     half = k // 2
     c = image.shape[-1]
     x = image.permute(0, 3, 1, 2)
     ker = torch.from_numpy(np.ascontiguousarray(kernel)).to(image.device)
-    x = F.pad(x, (0, 0, half, half), mode="replicate")
+    if half > halo:
+        x = F.pad(x, (0, 0, half - halo, half - halo), mode="replicate")
     x = F.conv2d(x, ker.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
     x = F.pad(x, (half, half, 0, 0), mode="replicate")
     x = F.conv2d(x, ker.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
@@ -88,11 +97,14 @@ def separable_filter(
     gain: float = 1.0,
     threshold: float = 0.0,
     out_u8: bool = False,
+    halo: int = 0,
 ) -> torch.Tensor:
     """Separable blur of an f32 [B, H, W, 3] batch by the 1-D ``kernel``,
     then the unsharp epilogue (``mode`` MODE_UNSHARP) and a u8 store when
     ``out_u8``: kernel K5 on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor. With ``halo`` (0 to K // 2; the tiled form) the input holds
+    ``halo`` neighbour rows above and below each member's own H - 2 halo
+    rows, and the output only those own rows."""
     if image.dtype != torch.float32 or image.dim() != 4 or image.shape[3] != 3:
         raise ValueError(
             f"separable_filter takes f32 [B, H, W, 3], got {image.dtype} "
@@ -104,13 +116,16 @@ def separable_filter(
         raise ValueError(f"kernel must be 1-D with an odd tap count, got {kernel.shape}")
     if mode not in (MODE_BLUR, MODE_UNSHARP):
         raise ValueError(f"unknown filter mode {mode}")
+    if not 0 <= halo <= k // 2:
+        raise ValueError(f"halo must lie in [0, {k // 2}], got {halo}")
     b, h, w, _ = image.shape
+    h -= 2 * halo
     if min(b, h, w) < 1:
-        raise ValueError(f"filter of an empty batch {tuple(image.shape)}")
+        raise ValueError(f"filter of an empty batch {tuple(image.shape)} (halo {halo})")
     if image.device.type == "cpu":
-        out = separable_conv_plain(image, kernel)
+        out = separable_conv_plain(image, kernel, halo)
         if mode == MODE_UNSHARP:
-            out = unsharp_from_blurred(image, out, gain, threshold)
+            out = unsharp_from_blurred(image[:, halo:halo + h], out, gain, threshold)
         return quantize_u8(out) if out_u8 else out
     if image.device.type != "cuda":
         raise ValueError(f"unsupported device {image.device}")
@@ -119,13 +134,13 @@ def separable_filter(
     image = image.contiguous()
     dev = image.device
     taps = _taps_on(str(dev), tuple(float(v) for v in kernel))
-    tmp = torch.empty_like(image)
-    out = torch.empty(image.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+    tmp = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=dev)
     rc = _lib().flyimg_separable(
         image.data_ptr(), tmp.data_ptr(), None if out_u8 else out.data_ptr(),
-        out.data_ptr() if out_u8 else None, taps.data_ptr(), b, h, w, k, mode,
-        float(np.float32(gain)), float(np.float32(threshold * 255.0)),
+        out.data_ptr() if out_u8 else None, taps.data_ptr(), b, h, w, k, halo,
+        mode, float(np.float32(gain)), float(np.float32(threshold * 255.0)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "separable_filter")
@@ -176,7 +191,7 @@ def _lib():
     if not getattr(lib, "_flyimg_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.flyimg_separable
-        fn.argtypes = [p] * 5 + [i] * 5 + [f] * 2 + [p]
+        fn.argtypes = [p] * 5 + [i] * 6 + [f] * 2 + [p]
         fn.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib

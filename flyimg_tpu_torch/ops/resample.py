@@ -398,12 +398,21 @@ def _kernel_fn(method: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown resample method: {method}")
 
 
-def _sample_positions(out_size, span_start, span_size, out_true, in_true):
+def _sample_positions(out_size, span_start, span_size, out_true, in_true,
+                      fused: bool = False):
     """(x [..., out], stretch s [...]) for per-member geometry tensors of
-    shape [...]; x is the clamped sample position of every output index."""
+    shape [...]; x is the clamped sample position of every output index.
+    ``fused`` rounds ``start + (i + .5) q`` once, as one fused multiply-add:
+    the reference's tiled programs are jitted, and XLA contracts it there."""
     i = torch.arange(out_size, dtype=torch.float32, device=span_start.device)
     q = span_size / torch.clamp(out_true, min=1.0)
-    x = span_start[..., None] + (i + 0.5) * q[..., None] - 0.5
+    if fused:
+        from flyimg_tpu_torch.ops.color import fma_f32
+
+        x = fma_f32((i + 0.5).expand(q.shape + (out_size,)), q[..., None],
+                    span_start[..., None].expand(q.shape + (out_size,))) - 0.5
+    else:
+        x = span_start[..., None] + (i + 0.5) * q[..., None] - 0.5
     hi = torch.clamp(in_true - 1.0, min=0.0)[..., None]
     x = torch.minimum(torch.clamp(x, min=0.0), hi)
     return x, torch.clamp(q, min=1.0)
@@ -417,12 +426,15 @@ def resample_matrix(
     out_true: torch.Tensor,
     in_true: torch.Tensor,
     method: str = "lanczos3",
+    fused: bool = False,
 ) -> torch.Tensor:
     """Dense [..., out_size, in_size] weights for one axis, batched over
     the geometry tensors' leading shape [...]. ``in_size``/``out_size`` are
     the static (bucket) sizes; rows at i >= out_true are edge-replicated
-    don't-cares (the host slices the valid region)."""
-    x, s = _sample_positions(out_size, span_start, span_size, out_true, in_true)
+    don't-cares (the host slices the valid region). ``fused`` as in
+    ``_sample_positions``."""
+    x, s = _sample_positions(out_size, span_start, span_size, out_true, in_true,
+                             fused)
     j = torch.arange(in_size, dtype=torch.float32, device=x.device)
     if method == "nearest":
         # IM 'Point': one-hot at the floor-rounded sample position
@@ -434,6 +446,35 @@ def resample_matrix(
     w = torch.where(j < in_true[..., None, None], w, torch.zeros_like(w))
     denom = w.sum(dim=-1, keepdim=True)
     return w / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+
+
+#: Weight-application form of the dense resample, as the JAX package's
+#: ``RESAMPLE_FORM``: 'einsum' (the two f32 products below) or
+#: 'fold2d_bf16' (``_apply_fold2d_bf16``), read once from the same
+#: environment variable.
+RESAMPLE_FORM = os.environ.get("FLYIMG_RESAMPLE_FORM", "einsum")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even) and held as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _apply_fold2d_bf16(image: torch.Tensor, wy: torch.Tensor,
+                       wx: torch.Tensor) -> torch.Tensor:
+    """The dense resample's two products on bf16 operands with f32
+    accumulation, channels folded into the product's columns: [oh, h] @
+    [h, w c], then [oh c, w] @ [w, ow], per member ([B, H, W, C] f32 image,
+    [B, oh, h] and [B, ow, w] weights). The operands are rounded to bf16 and
+    multiplied as f32 (TF32 off), where a product of two bf16 values is
+    exact: the JAX package's ``preferred_element_type=f32`` arithmetic. A
+    plain product the library computes, as XLA does for the reference."""
+    b, h, w, c = image.shape
+    out_h, out_w = wy.shape[1], wx.shape[1]
+    tmp = torch.matmul(_bf16(wy), _bf16(image).reshape(b, h, w * c))
+    t2 = _bf16(tmp).reshape(b, out_h, w, c).permute(0, 1, 3, 2).reshape(b, out_h * c, w)
+    out = torch.matmul(t2, _bf16(wx).transpose(1, 2))
+    return out.reshape(b, out_h, c, out_w).permute(0, 1, 3, 2)
 
 
 def resample_image(
@@ -460,6 +501,8 @@ def resample_image(
         in_w, out_w, span_x[:, 0], span_x[:, 1], out_true_hw[:, 1],
         in_true_hw[:, 1], method,
     )
+    if RESAMPLE_FORM == "fold2d_bf16":
+        return _apply_fold2d_bf16(image, wy, wx)
     tmp = torch.matmul(wy, image.reshape(b, in_h, in_w * c))
     # W pass as one [out_w, W] @ [W, out_h * c] product per member
     tmp = tmp.reshape(b, out_h, in_w, c).permute(0, 2, 1, 3)
@@ -476,6 +519,7 @@ def _band_axis(
     out_true: torch.Tensor,
     in_true: torch.Tensor,
     method: str,
+    in_lo: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded weights for one axis: ``(idx [..., out, K] int64, w [..., out,
     K] f32)`` for per-member geometry tensors of shape [...], with ``taps``
@@ -483,8 +527,12 @@ def _band_axis(
     ``floor(x)``; weights come from the UNCLIPPED positions and taps outside
     [0, in_true) are zeroed before renormalising, so the nonzero weights are
     exactly the dense row restricted to the band. Gather indices are
-    clipped to the static axis as don't-cares."""
-    x, s = _sample_positions(out_size, span_start, span_size, out_true, in_true)
+    clipped to the static axis as don't-cares. ``in_lo`` (shaped like
+    ``in_true``) zeroes the taps below it too: the tiled resample's
+    lower valid row, whose sample positions round as the reference's jitted
+    tiled program rounds them (``_sample_positions``'s ``fused``)."""
+    x, s = _sample_positions(out_size, span_start, span_size, out_true, in_true,
+                             in_lo is not None)
     k = torch.arange(taps, dtype=torch.int64, device=x.device)
     if taps >= in_size:
         # the band covers the whole axis: the full axis in index order,
@@ -500,11 +548,15 @@ def _band_axis(
     if method == "nearest":
         hi = torch.clamp(in_true - 1.0, min=0.0)[..., None]
         near = torch.minimum(torch.clamp(torch.floor(x + 0.5), min=0.0), hi)
-        w = (jf == near[..., None]).to(torch.float32)
-        return torch.clamp(j, 0, in_size - 1), w
+        w = jf == near[..., None]
+        if in_lo is not None:
+            w = w & (jf >= in_lo[..., None, None])
+        return torch.clamp(j, 0, in_size - 1), w.to(torch.float32)
     d = (jf - x[..., None]) / s[..., None, None]
     w = _kernel_fn(method, d)
     inside = (j >= 0) & (jf < in_true[..., None, None])
+    if in_lo is not None:
+        inside = inside & (jf >= in_lo[..., None, None])
     w = torch.where(inside, w, torch.zeros_like(w))
     denom = w.sum(dim=-1, keepdim=True)
     return (
@@ -522,16 +574,18 @@ def resample_image_banded(
     in_true_hw: torch.Tensor,
     taps_hw: Tuple[int, int],
     method: str = "lanczos3",
+    row_lo: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Banded K-tap resample of a [B, H, W, C] f32 batch to [B, out_h,
     out_w, C] — the plain PyTorch version of kernel K1 (before its u8
     epilogue). Rows are gathered and contracted over Ky, then columns over
-    Kx, one tap at a time in tap order (K1's order)."""
+    Kx, one tap at a time in tap order (K1's order). ``row_lo`` [B] is
+    each member's lowest valid source row (None: 0)."""
     b, in_h, in_w, c = image.shape
     out_h, out_w = out_hw
     iy, wy = _band_axis(
         in_h, out_h, int(taps_hw[0]), span_y[:, 0], span_y[:, 1],
-        out_true_hw[:, 0], in_true_hw[:, 0], method,
+        out_true_hw[:, 0], in_true_hw[:, 0], method, row_lo,
     )
     ix, wx = _band_axis(
         in_w, out_w, int(taps_hw[1]), span_x[:, 0], span_x[:, 1],
@@ -564,7 +618,7 @@ def _geometry(span_y, span_x, out_true_hw, in_true_hw) -> torch.Tensor:
 
 
 def _check_banded_args(name, images, span_y, span_x, out_true_hw, in_true_hw,
-                       method):
+                       method, row_lo=None):
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[3] != 3:
         raise ValueError(
             f"{name} takes u8 [B, H, W, 3], got "
@@ -578,6 +632,12 @@ def _check_banded_args(name, images, span_y, span_x, out_true_hw, in_true_hw,
                 f"{arg} must be [{b}, 2] on {images.device}, got "
                 f"{tuple(t.shape)} on {t.device}"
             )
+    if row_lo is not None and (row_lo.shape != (b,) or row_lo.device != images.device
+                               or row_lo.dtype != torch.float32):
+        raise ValueError(
+            f"row_lo must be f32 [{b}] on {images.device}, got {row_lo.dtype} "
+            f"{tuple(row_lo.shape)} on {row_lo.device}"
+        )
     if method not in _METHOD_CODES:
         raise ValueError(f"unknown resample method: {method}")
     if images.device.type not in ("cpu", "cuda"):
@@ -585,9 +645,11 @@ def _check_banded_args(name, images, span_y, span_x, out_true_hw, in_true_hw,
 
 
 def _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
-               taps_hw, method, f32: bool) -> torch.Tensor:
+               taps_hw, method, f32: bool, row_lo=None) -> torch.Tensor:
     """Launch K1 on a CUDA batch, storing u8 or (``f32``) the f32 result."""
     images = images.contiguous()
+    if row_lo is not None:
+        row_lo = row_lo.contiguous()
     b, in_h, in_w, _ = images.shape
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     ky, kx = int(taps_hw[0]), int(taps_hw[1])
@@ -605,9 +667,10 @@ def _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
     jy = torch.empty((b, out_h), dtype=torch.int32, device=dev)
     wx = torch.empty((b, out_w, kx), dtype=torch.float32, device=dev)
     jx = torch.empty((b, out_w), dtype=torch.int32, device=dev)
-    fn = lib.flyimg_resample_banded_f32 if f32 else lib.flyimg_resample_banded_u8
-    rc = fn(
-        images.data_ptr(), out.data_ptr(), geom.data_ptr(),
+    rc = lib.flyimg_resample_banded(
+        images.data_ptr(), None if f32 else out.data_ptr(),
+        out.data_ptr() if f32 else None, geom.data_ptr(),
+        None if row_lo is None else row_lo.data_ptr(),
         wy.data_ptr(), jy.data_ptr(), wx.data_ptr(), jx.data_ptr(),
         b, in_h, in_w, out_h, out_w, ky, kx, _METHOD_CODES[method],
         plan.tile_h, plan.tile_w, plan.chunk_w, plan.row_chunk,
@@ -628,20 +691,23 @@ def resample_banded_u8(
     in_true_hw: torch.Tensor,
     taps_hw: Tuple[int, int],
     method: str = "lanczos3",
+    row_lo: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Banded resample of a u8 [B, H, W, 3] batch straight to u8 [B,
     out_h, out_w, 3]: kernel K1 on a CUDA tensor, the plain PyTorch version
     (``resample_image_banded`` + ``quantize_u8``) on a CPU tensor. Geometry
-    rows are [B, 2] f32 on the images' device."""
+    rows are [B, 2] f32 on the images' device. The tiled form gives
+    ``row_lo`` [B] f32, each member's lowest valid source row: rows below it
+    carry no weight, as rows at or past in_true never do."""
     _check_banded_args("resample_banded_u8", images, span_y, span_x,
-                       out_true_hw, in_true_hw, method)
+                       out_true_hw, in_true_hw, method, row_lo)
     if images.device.type == "cpu":
         return quantize_u8(resample_image_banded(
             images.to(torch.float32), out_hw, span_y, span_x,
-            out_true_hw, in_true_hw, taps_hw, method,
+            out_true_hw, in_true_hw, taps_hw, method, row_lo,
         ))
     out = _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
-                     taps_hw, method, f32=False)
+                     taps_hw, method, False, row_lo)
     resample_banded_u8.launches += 1
     return out
 
@@ -659,21 +725,23 @@ def resample_banded_f32(
     in_true_hw: torch.Tensor,
     taps_hw: Tuple[int, int],
     method: str = "lanczos3",
+    row_lo: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The f32-store form of ``resample_banded_u8``: the same band passes,
     the f32 result kept for the program stages that follow (no round, clip
     or u8). Kernel K1 on a CUDA tensor, ``resample_image_banded`` on a CPU
     tensor. Rows and columns past ``out_true`` hold the edge-clamped
-    samples the plain version computes there."""
+    samples the plain version computes there. ``row_lo`` as in
+    ``resample_banded_u8``."""
     _check_banded_args("resample_banded_f32", images, span_y, span_x,
-                       out_true_hw, in_true_hw, method)
+                       out_true_hw, in_true_hw, method, row_lo)
     if images.device.type == "cpu":
         return resample_image_banded(
             images.to(torch.float32), out_hw, span_y, span_x,
-            out_true_hw, in_true_hw, taps_hw, method,
+            out_true_hw, in_true_hw, taps_hw, method, row_lo,
         )
     out = _k1_launch(images, out_hw, span_y, span_x, out_true_hw, in_true_hw,
-                     taps_hw, method, f32=True)
+                     taps_hw, method, True, row_lo)
     resample_banded_f32.launches += 1
     return out
 
@@ -686,8 +754,8 @@ def _k1_lib():
     lib = cuda_build.load("resample_banded")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.flyimg_resample_banded_u8, lib.flyimg_resample_banded_f32):
-            fn.argtypes = [p] * 7 + [i] * 17 + [p]
-            fn.restype = ctypes.c_int
+        fn = lib.flyimg_resample_banded
+        fn.argtypes = [p] * 9 + [i] * 17 + [p]
+        fn.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib

@@ -4,6 +4,7 @@
     python -m flyimg_tpu_torch.profile_entry --staged [--iters 20]
     python -m flyimg_tpu_torch.profile_entry --faces [--iters 20]
     python -m flyimg_tpu_torch.profile_entry --train [--iters 20]
+    python -m flyimg_tpu_torch.profile_entry --tiled [--iters 20]
 
 For the ``entry()`` batch (256 x 512x512x3 u8 -> 300x250 crop-fill,
 saliency field, 150x150 stride-8 scoring), dense and banded:
@@ -34,6 +35,14 @@ masks apart by CUDA events (views/s, images/s), and a ``torch.profiler``
 window over ``--iters`` batches (device time by kernel, busy share) — and
 K7 on a 480x640 output with its facefind boxes (device time a launch);
 one JSON line.
+
+With ``--tiled``: the handler's tall-input route, each of
+``entry.TILED_OPTIONS`` on the seeded 3840x2160 frame over a virtual
+4-rank mesh on the card (the resample dense and banded), u8 out as the
+handler asks: the tiled op and the same op untiled by CUDA events, and a
+``torch.profiler`` window of each (device time by kernel, busy share). On
+one card the ranks run one after another: this measures the schedule's
+cost, not a multi-card speed. One JSON line each.
 
 With ``--train``: the BlazeFace train step (kernels K9-K14, as
 ``entry.train_entry`` builds it) and the plain step (torch autograd, cuDNN) at batch 16 and 64 — the step
@@ -327,6 +336,25 @@ def train_rows(iters: int, dev, card: str):
             }
 
 
+def tiled_rows(iters: int, dev, card: str):
+    """One row per (tiled op, resample mode): tiled and untiled by CUDA
+    events and in a profiler window."""
+    from flyimg_tpu_torch.entry import TILED_HW, TILED_OPTIONS, TILED_RANKS, tiled_entry, untiled_fn
+
+    for opts in TILED_OPTIONS:
+        for mode in (("dense", "banded") if opts.startswith("w_") else (None,)):
+            fn, fargs = tiled_entry(opts, TILED_RANKS, dev, kernel=mode)
+            plain = untiled_fn(opts, TILED_HW, True, mode)
+            yield {
+                "tiled": opts, "mode": mode, "ranks": TILED_RANKS,
+                "frame_hw": list(TILED_HW), "card": card,
+                "tiled_ms": _median_ms(lambda: fn(*fargs), iters),
+                "untiled_ms": _median_ms(lambda: plain(*fargs), iters),
+                "profiler": profiler_window(fn, fargs, iters),
+                "untiled_profiler": profiler_window(plain, fargs, iters),
+            }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="flyimg_tpu_torch.profile_entry")
     parser.add_argument("--batch", type=int, default=256)
@@ -337,6 +365,8 @@ def main(argv=None) -> int:
                         help="profile the face batch instead")
     parser.add_argument("--train", action="store_true",
                         help="profile the BlazeFace train step instead")
+    parser.add_argument("--tiled", action="store_true",
+                        help="profile the tall-input tiled route instead")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -348,6 +378,10 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         for row in train_rows(args.iters, dev, card):
+            print(json.dumps(row))
+        return 0
+    if args.tiled:
+        for row in tiled_rows(args.iters, dev, card):
             print(json.dumps(row))
         return 0
     if args.staged:

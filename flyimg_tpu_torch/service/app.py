@@ -43,6 +43,7 @@ from flyimg_tpu_torch.exceptions import (
     UnsupportedMediaException,
 )
 from flyimg_tpu_torch.ops.resample import set_kernel_mode
+from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from flyimg_tpu_torch.runtime.batcher import BatchController
 from flyimg_tpu_torch.service.handler import ImageHandler
 from flyimg_tpu_torch.service.response import image_headers, is_not_modified
@@ -84,13 +85,22 @@ def split_upload_path(path: str) -> Optional[Tuple[str, str]]:
     return options, src
 
 
+def local_sp_mesh(device: torch.device) -> Optional[Mesh]:
+    """The spatial-tiling mesh over this host's cards when there is more
+    than one (serving meshes span local devices only), else None."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return make_mesh(axis_names=("sp",))
+
+
 class FlyimgServer(ThreadingHTTPServer):
     """The HTTP server, its handler and its batcher."""
 
     daemon_threads = True
 
     def __init__(self, address, params: AppParameters,
-                 device: Union[str, torch.device] = "cuda") -> None:
+                 device: Union[str, torch.device] = "cuda",
+                 sp_mesh: Optional[Mesh] = None) -> None:
         set_kernel_mode(str(params.by_key("resample_kernel", "dense")))
         self.params = params
         self.batcher = BatchController(
@@ -98,8 +108,11 @@ class FlyimgServer(ThreadingHTTPServer):
             deadline_ms=float(params.by_key("batch_deadline_ms", 4.0)),
             device=device,
         )
+        if sp_mesh is None:
+            sp_mesh = local_sp_mesh(self.batcher.device)
         self.handler = ImageHandler(
-            params, device=self.batcher.device, batcher=self.batcher
+            params, device=self.batcher.device, batcher=self.batcher,
+            sp_mesh=sp_mesh,
         )
         super().__init__(address, _RequestHandler)
 
@@ -175,9 +188,12 @@ def make_server(
     host: str = "127.0.0.1",
     port: int = 0,
     device: Union[str, torch.device] = "cuda",
+    sp_mesh: Optional[Mesh] = None,
 ) -> FlyimgServer:
-    """A bound, not yet serving server (port 0 picks a free port)."""
-    return FlyimgServer((host, port), params or AppParameters(), device)
+    """A bound, not yet serving server (port 0 picks a free port).
+    ``sp_mesh`` is the handler's tiling mesh (for example a virtual one);
+    None takes the local cards' when there are more than one."""
+    return FlyimgServer((host, port), params or AppParameters(), device, sp_mesh)
 
 
 def serve_in_thread(server: FlyimgServer) -> threading.Thread:

@@ -11,9 +11,13 @@ pad, grayscale, monochrome, rotate, unsharp, sharpen, blur), and the face
 options: detection through the ``face_backend`` parameter's backend
 (models/faces.py), batched as an aux group where the backend has a batched
 path; a detection that fails fails the request, never answering with the
-faces unblurred. Not ported yet (ROADMAP): spatial tiling, codecs other
-than PNG, signed URLs and domain restrictions, brownout, derivative reuse,
-the fleet tier and metadata grafting.
+faces unblurred. A tall input (``TILE_MIN_ROWS`` rows or more) on a
+handler with an ``sp_mesh`` takes the reference's spatially tiled route
+instead of the batcher when its plan is exactly a full-frame resample, or
+exactly one of rotate, blur, sharpen and unsharp (``parallel/tiling.py``).
+Not ported yet (ROADMAP): codecs other than PNG, signed URLs and domain
+restrictions, brownout, derivative reuse, the fleet tier and metadata
+grafting.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import threading
 import time
 from concurrent.futures import Future
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import Dict, Optional, Tuple, Union
 
@@ -40,12 +44,19 @@ from flyimg_tpu_torch.exceptions import (
 )
 from flyimg_tpu_torch.models import smartcrop
 from flyimg_tpu_torch.models.faces import make_face_backend
-from flyimg_tpu_torch.ops.compose import run_plan
+from flyimg_tpu_torch.ops.compose import plan_layout, run_plan
+from flyimg_tpu_torch.parallel.mesh import Mesh
+from flyimg_tpu_torch.parallel.tiling import (
+    TilingInfeasible,
+    tiled_filter,
+    tiled_rotate,
+    tiled_transform,
+)
 from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
 from flyimg_tpu_torch.service.input_source import load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
 from flyimg_tpu_torch.spec.options import OptionsBag
-from flyimg_tpu_torch.spec.plan import build_plan
+from flyimg_tpu_torch.spec.plan import TransformPlan, build_plan
 from flyimg_tpu_torch.storage.local import LocalStorage
 
 
@@ -115,7 +126,11 @@ def _device_failures(what: str):
 
 class ImageHandler:
     """One per app. ``batcher`` None runs every transform as a batch-1
-    program in the calling thread (``run_plan``)."""
+    program in the calling thread (``run_plan``). With ``sp_mesh`` (a mesh
+    with an "sp" axis) tall inputs may take the tiled route."""
+
+    #: inputs at least this tall consider the spatially tiled programs
+    TILE_MIN_ROWS = 2048
 
     def __init__(
         self,
@@ -124,10 +139,17 @@ class ImageHandler:
         device: Union[str, torch.device] = "cuda",
         batcher: Optional[BatchController] = None,
         face_backend=None,
+        sp_mesh: Optional[Mesh] = None,
     ) -> None:
         self.params = params or AppParameters()
         self.device = resolve_device(device)
         self.batcher = batcher
+        self.sp_mesh = sp_mesh
+        # counterparts of the reference's flyimg_tiled_resamples_total and
+        # flyimg_tiled_single_ops_total (the port has no metrics registry)
+        self.tiled_resamples = 0
+        self.tiled_single_ops = 0
+        self._count_lock = threading.Lock()
         self._face_backend = face_backend
         self._face_lock = threading.Lock()
         self.storage = LocalStorage(self.params.by_key("upload_dir"))
@@ -244,9 +266,11 @@ class ImageHandler:
             ).astype(np.uint8)
 
         t = time.perf_counter()
-        if self.batcher is not None:
+        with _device_failures("tiled transform"):
+            out = self._tiled_or_none(frame, plan)
+        if out is None and self.batcher is not None:
             out = self._await(self.batcher.submit(frame, plan))
-        else:
+        elif out is None:
             out = run_plan(frame, plan, device=self.device)
         timings["device"] = time.perf_counter() - t
 
@@ -276,6 +300,109 @@ class ImageHandler:
         content = codecs.encode(np.ascontiguousarray(out), spec.extension, alpha)
         timings["encode"] = time.perf_counter() - t
         return content
+
+    def _count(self, name: str) -> None:
+        with self._count_lock:
+            setattr(self, name, getattr(self, name) + 1)
+
+    def _tiled_or_none(self, frame: np.ndarray, plan: TransformPlan):
+        """Run a spatially tiled program when one applies to a tall input:
+        the halo-exchange resample for full-frame resample-only plans (the
+        4k-thumbnail firehose), the ring rotate for rotate-only plans, the
+        halo-exchange filter for single-filter plans. Anything else -> None
+        (the batcher); every branch is an allowlist, so any new pixel op
+        fails safe to the batcher. Only the tiling's infeasible-geometry
+        error falls back; any other error is the device's, and raises."""
+        if self.sp_mesh is None:
+            return None
+        single = self._tiled_single_op_or_none(frame, plan)
+        if single is not None:
+            return single
+        if plan.resize_to is None:
+            return None
+        # allowlist, not denylist: the device plan must be EXACTLY a bare
+        # resample
+        bare = TransformPlan(
+            src_size=(0, 0), resize_to=None, extent=None,
+            filter_method=plan.filter_method,
+        )
+        if plan.device_plan() != bare:
+            return None
+        h, w = frame.shape[:2]
+        if h < self.TILE_MIN_ROWS:
+            return None
+        # the layout covers crop windows, extent pads and extract offsets
+        # in one form: the span must be the full frame
+        layout = plan_layout(plan)
+        out_h, out_w = layout.resample_out
+        if (
+            layout.out_true != (out_h, out_w)
+            or layout.pad_canvas is not None
+            or layout.span_y != (0.0, float(h))
+            or layout.span_x != (0.0, float(w))
+        ):
+            return None
+        try:
+            out = tiled_transform(
+                torch.from_numpy(frame), (out_h, out_w), self.sp_mesh,
+                method=plan.filter_method, out_u8=True,
+            )
+        except TilingInfeasible:
+            # the halo would exceed a tile -> batcher
+            return None
+        self._count("tiled_resamples")
+        return out.cpu().numpy()
+
+    def _tiled_single_op_or_none(self, frame: np.ndarray, plan: TransformPlan):
+        """Tiled execution for tall single-op plans: EXACTLY one of rotate /
+        blur / sharpen / unsharp and nothing else (no geometry change, no
+        colour ops, no extract)."""
+        if frame.shape[0] < self.TILE_MIN_ROWS:
+            return None
+        # extract must fail safe here explicitly: device_plan() zeroes the
+        # extract field, so the comparison below cannot see it
+        if (
+            plan.resize_to is not None
+            or plan.extent is not None
+            or plan.extract is not None
+        ):
+            return None
+        ops_set = [
+            name for name in ("rotate", "blur", "sharpen", "unsharp")
+            if getattr(plan, name) is not None
+        ]
+        if len(ops_set) != 1:
+            return None
+        # the device plan must be EXACTLY bare + this one op (+ background,
+        # which only rotate reads when extent is None)
+        op = ops_set[0]
+        dp = plan.device_plan()
+        bare = TransformPlan(
+            src_size=(0, 0), resize_to=None, extent=None,
+            filter_method=plan.filter_method,
+        )
+        if dp != replace(bare, background=dp.background, **{op: getattr(dp, op)}):
+            return None
+        x = torch.from_numpy(frame)
+        try:
+            if op == "rotate":
+                out = tiled_rotate(x, float(plan.rotate), self.sp_mesh,
+                                   background=plan.background, out_u8=True)
+            elif op == "blur":
+                r, s = plan.blur
+                out = tiled_filter(x, self.sp_mesh, "blur", r, s, out_u8=True)
+            elif op == "sharpen":
+                r, s, _, _ = plan.sharpen
+                out = tiled_filter(x, self.sp_mesh, "sharpen", r, s, out_u8=True)
+            else:
+                r, s, gain, thr = plan.unsharp
+                out = tiled_filter(x, self.sp_mesh, "unsharp", r, s, gain=gain,
+                                   threshold=thr, out_u8=True)
+        except TilingInfeasible:
+            # the halo or kernel would exceed a tile -> batcher
+            return None
+        self._count("tiled_single_ops")
+        return out.cpu().numpy()
 
     def _face_pass(self, out: np.ndarray, plan) -> np.ndarray:
         """Detect faces on the output, then blur and/or crop; detection is

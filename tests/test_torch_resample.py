@@ -284,3 +284,36 @@ def test_k1_plan_fits_the_card(shape):
 def test_k1_plan_refuses_empty_shapes():
     with pytest.raises(ValueError):
         tr.k1_plan((0, 4), (3, 5), (1, 4), 1)
+
+
+@pytest.mark.parametrize("name", ["downscale", "crop", "upscale"])
+def test_fold2d_bf16_form_matches_jax(name):
+    """The dense resample's bf16-operand form (FLYIMG_RESAMPLE_FORM=
+    fold2d_bf16): against JAX's _apply_fold2d_bf16 on the same weights
+    within 1e-3 (f32 sums in another order), and against the f32 form
+    within one u8 level (tests/test_ops.py's bound)."""
+    g = GEOMETRIES[name]
+    (in_h, in_w), out, sy, sx, ot, it = g
+    img = _image((2, in_h, in_w, 3), seed=len(name))
+    geo = [_t(a) for a in _geo(g)]
+    wy = tr.resample_matrix(in_h, out[0], geo[0][:, 0], geo[0][:, 1], geo[2][:, 0],
+                            geo[3][:, 0])
+    wx = tr.resample_matrix(in_w, out[1], geo[1][:, 0], geo[1][:, 1], geo[2][:, 1],
+                            geo[3][:, 1])
+    got = tr._apply_fold2d_bf16(_t(img), wy, wx).numpy()
+    want = np.stack([
+        np.asarray(jr._apply_fold2d_bf16(jnp.asarray(img[i]), jnp.asarray(wy[i].numpy()),
+                                         jnp.asarray(wx[i].numpy()), *out))
+        for i in range(2)
+    ])
+    assert got.shape == want.shape == (2,) + tuple(out) + (3,)
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    if name == "upscale":
+        # the bf16 intermediate keeps 8 bits (steps of 1.0 above 128) and an
+        # upscale's lanczos lobes add two such roundings of noise: the
+        # reference's form is 2 levels off its f32 form here too (the one-
+        # level bound of tests/test_ops.py is a downscale's)
+        return
+    f32 = tr.resample_image(_t(img), out, *geo).numpy()
+    q = lambda a: np.clip(np.round(a), 0, 255).astype(np.int32)  # noqa: E731
+    assert np.abs(q(got) - q(f32)).max() <= 1

@@ -304,3 +304,62 @@ def test_unexpected_exception_answers_500(service, monkeypatch):
     assert body == b"500 Internal Server Error"
     monkeypatch.undo()
     assert get(f"{base}/upload/w_100/{src}")[0] == 200
+
+
+@pytest.fixture(scope="module")
+def tall_handlers(tmp_path_factory):
+    """The port's handler with a virtual 8-rank CPU "sp" mesh and the JAX
+    handler with the conftest's 8-device "sp" mesh, a 2048x256 seeded PNG
+    (tests/test_handler.py's tall source) and a 2047-row one."""
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from flyimg_tpu.runtime.metrics import MetricsRegistry
+    from flyimg_tpu.service.handler import ImageHandler as JImageHandler
+    from flyimg_tpu.storage import make_storage
+    from flyimg_tpu_torch.parallel.mesh import virtual_mesh
+    from flyimg_tpu_torch.service.handler import ImageHandler
+
+    root = tmp_path_factory.mktemp("tall")
+    rng = np.random.default_rng(21)
+    srcs = {}
+    for rows in (2048, 2047):
+        path = root / f"tall{rows}.png"
+        Image.fromarray(rng.integers(0, 256, (rows, 256, 3), dtype=np.uint8)).save(path)
+        srcs[rows] = str(path)
+    handler = ImageHandler(AppParameters({"upload_dir": str(root / "tu"),
+                                          "tmp_dir": str(root / "tt")}),
+                           device="cpu", sp_mesh=virtual_mesh(8, "cpu"))
+    jparams = JAppParameters({"upload_dir": str(root / "ju"), "tmp_dir": str(root / "jt")})
+    metrics = MetricsRegistry()
+    jhandler = JImageHandler(make_storage(jparams), jparams, metrics=metrics,
+                             sp_mesh=jmake_mesh(axis_names=("sp",)))
+    return handler, jhandler, metrics, srcs
+
+
+def _tiled_counts(handler, metrics):
+    summary = metrics.summary()
+    return ((handler.tiled_resamples, handler.tiled_single_ops),
+            (int(summary.get("flyimg_tiled_resamples_total", 0)),
+             int(summary.get("flyimg_tiled_single_ops_total", 0))))
+
+
+@pytest.mark.parametrize("opts,rows,taken", [
+    ("w_128,o_png", 2048, (1, 0)),       # the halo-exchange resample
+    ("r_-37,o_png", 2048, (0, 1)),       # the ring rotate
+    ("blr_0x1.5,o_png", 2048, (0, 1)),   # the halo-exchange filter
+    ("w_128,o_png", 2047, (0, 0)),       # one row short of TILE_MIN_ROWS
+    ("w_128,h_200,c_1,o_png", 2048, (0, 0)),  # a crop: not the full frame
+])
+def test_tall_inputs_take_the_tiled_route_as_the_jax_handler(tall_handlers, opts, rows,
+                                                             taken):
+    """The port's handler takes the tiled route for exactly the plans the
+    JAX handler's allowlists take, and answers within 1 u8 level of it."""
+    handler, jhandler, metrics, srcs = tall_handlers
+    before = _tiled_counts(handler, metrics)
+    got = np.asarray(Image.open(io.BytesIO(handler.process_image(opts, srcs[rows]).content)))
+    want = np.asarray(Image.open(io.BytesIO(jhandler.process_image(opts, srcs[rows]).content)))
+    after = _tiled_counts(handler, metrics)
+    moved = [tuple(a - b for a, b in zip(after[i], before[i])) for i in range(2)]
+    assert moved == [taken, taken]
+    assert got.shape == want.shape
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
