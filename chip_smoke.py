@@ -37,17 +37,23 @@ Phases, in order; any failure exits non-zero without a result line:
              offsets, a canvas smaller than the image and no overlap; then
              the face kernels at the face pass's shapes, timed, with
              F.avg_pool2d, F.max_pool2d x4 and F.conv2d yardsticks: K7
-             (pixelate, exact) on a 480x640 output with its facefind boxes,
-             K8 (facefind masks: probability within 1 ulp, mask exact off
-             the knife-edge) on 16 x 480x640, K9/K10 (BlazeFace) at every
-             layer of the 64-view forward (within 1e-5 relative; the head's
-             probabilities within 1e-5 and boxes within 1e-4 absolute); not
-             timed, K7 on sides that are not multiples of 10, 1x1, zero-area,
-             overlapping, negative and past-the-edge boxes, none and 32; K8
-             on 1-member and padded buckets, valid regions smaller than the
-             bucket, 1x1 and thresholds 0 and 0.9; the forward at N = 1, 3
-             and 64; then the training kernels at the train step's shapes
-             (batch 16, full width, a fresh model), timed, with cuDNN's
+             (pixelate, exact) on a 480x640 output with its facefind boxes
+             (also its host time, no sync), K8 (facefind masks: probability
+             within 1 ulp, mask exact off the knife-edge) on 16 x 480x640,
+             K9/K10 (BlazeFace) at every layer of the 64-view forward
+             (within 1e-5 relative; the head's probabilities within 1e-5
+             and boxes within 1e-4 absolute), and K10's 16 calls one by one
+             (events, device time, byte bound, launch plan); not timed, K7
+             on sides that are not multiples of 10, 1x1, zero-area,
+             overlapping, negative and past-the-edge boxes, none and 32,
+             factors 1 and 32, a view off 16-byte alignment; K8 on
+             1-member and padded buckets, valid regions smaller than the
+             bucket, 1x1 and thresholds 0 and 0.9; K10 on pixel counts no
+             tile divides, channel counts no multiple of 4 or 8, no
+             residual, stride-2 widths that set the tile and an unaligned
+             input; the forward at N = 1, 3 and 64; then the training
+             kernels at the train step's shapes (batch 16, full width, a
+             fresh model), timed, with cuDNN's
              conv2d_weight/conv2d_input, a torch.matmul pair and
              torch.optim.Adam(fused=True) as yardsticks: K11 (K9's
              backward) and K12 (K10's and the heads' backward) within 1e-4
@@ -1344,18 +1350,20 @@ def knife_region(torch, prob, thresholds, valid):
     return F.max_pool2d(near.float()[:, None], k, 1, K8_RADIUS)[:, 0] > 0
 
 
-def k7_case(torch, label, image, boxes, timed=False):
-    """K7 against its plain version: u8, exact."""
+def k7_case(torch, label, image, boxes, timed=False, factor=10):
+    """K7 against its plain version: u8, exact. Timed: the single call by
+    CUDA events and on the host clock (perf_counter, no sync), the plain
+    version and F.avg_pool2d."""
     import torch.nn.functional as F
 
     from flyimg_tpu_torch.ops.pixelate import pixelate_regions, pixelate_regions_u8
     from flyimg_tpu_torch.ops.resample import quantize_u8
 
     def kern():
-        return pixelate_regions_u8(image, boxes)
+        return pixelate_regions_u8(image, boxes, factor)
 
     def plain():
-        return quantize_u8(pixelate_regions(image.float(), boxes))
+        return quantize_u8(pixelate_regions(image.float(), boxes, factor))
 
     got, ref = kern(), plain()
     torch.cuda.synchronize()
@@ -1366,20 +1374,24 @@ def k7_case(torch, label, image, boxes, timed=False):
     row = {"max_abs_err": float(err), "ms": None, "plain_ms": None,
            "library_ms": None}
     if timed:
+        from flyimg_tpu_torch.face_breakdown import _host_us
+
         nchw = image.permute(2, 0, 1)[None].float().contiguous()
         row["ms"] = cuda_ms(torch, kern)
+        row["host_us"] = _host_us(kern, 200)
         row["plain_ms"] = cuda_ms(torch, plain)
         row["library_ms"] = cuda_ms(
-            torch, lambda: F.avg_pool2d(nchw, 10, 10, ceil_mode=True))
+            torch, lambda: F.avg_pool2d(nchw, factor, factor, ceil_mode=True))
     # each pixel read once and written once, the boxes read once; ~4 flops
     # a value (3 adds of the block sum, the scale)
     row["bound_ms"], row["bound_by"] = bound_ms(
         2.0 * image.numel() + boxes.numel() * 4, 4.0 * image.numel())
-    times = (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+    times = (f"; kernel {row['ms']:.4f} ms by events, {row['host_us']:.1f} us on "
+             f"the host (no sync), plain {row['plain_ms']:.4f} ms, "
              f"F.avg_pool2d {row['library_ms']:.4f} ms" if timed else "")
     n_boxes = int((boxes[:, 2:] > 0).all(dim=1).sum())
-    print(f"K7 {label}: [{h}, {w}, 3] with {n_boxes} boxes of nonzero area "
-          f"(of {boxes.shape[0]}), exact "
+    print(f"K7 {label}: [{h}, {w}, 3], factor {factor}, with {n_boxes} boxes of "
+          f"nonzero area (of {boxes.shape[0]}), exact "
           f"({inside} pixels changed){times}; bound {row['bound_ms']:.5f} ms "
           f"({row['bound_by']})")
     return row
@@ -1624,6 +1636,18 @@ def phase_face_kernels(torch, dev):
     k7_case(torch, "32 boxes", src, torch.from_numpy(
         np.concatenate([rng.uniform(-50, 1900, (32, 2)), rng.uniform(0, 300, (32, 2))],
                        axis=1).astype(np.float32)).to(dev))
+    for factor in (1, 32):
+        for h, w in ((237, 311), (1080, 1920)):
+            src = torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).to(dev)
+            edge = torch.tensor([[3, 5, 57, 41], [100, 100, 0, 10],
+                                 [w - 20, h - 15, 100, 100], [10, 10, 30, 30],
+                                 [0, 0, w, h / 2], [-5, -5, 12, 12]],
+                                dtype=torch.float32, device=dev)
+            k7_case(torch, f"{h}x{w} at factor {factor}", src, edge, factor=factor)
+    # a row start off 16-byte alignment: a view one pixel into a larger image
+    big = torch.from_numpy(rng.integers(0, 256, (1 + 480 * 641, 3), dtype=np.uint8)).to(dev)
+    k7_case(torch, "an unaligned view", big[1:].view(480, 641, 3), torch.tensor(
+        [[100, 50, 200, 150], [600, 400, 100, 100]], dtype=torch.float32, device=dev))
 
     # K8 at face_entry's shape: 16 x 480x640, the whole bucket valid
     _fn, args = face_entry(dev)
@@ -1651,11 +1675,72 @@ def phase_face_kernels(torch, dev):
     # K9/K10 at every layer of the 64-view forward, then whole forwards
     model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
     rows.update(blazeface_rows(torch, model, views))
+    k10_per_layer(torch, model, views)
     for n in (1, 3):
         blazeface_rows(torch, model, views[:n].contiguous(), timed=False)
+    k10_edges(torch, dev, rng)
     for n in (1, 3, 64):
         forward_case(torch, model, views[:n].contiguous(), f"N = {n}")
     return rows
+
+
+def k10_per_layer(torch, model, views):
+    """K10's 16 calls of the forward one by one: the single call by CUDA
+    events and its device time (torch.profiler), beside its byte bound."""
+    from flyimg_tpu_torch.face_breakdown import k10_layer_times
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    layers = k10_layer_times(model, views, iters=20)
+    for r in layers:
+        plan = bf.k10_plan(r["n"], r["h"], r["w"], r["cin"], r["cout"], r["cin"],
+                           r["stride"], bf._sm_count(views.device.index))
+        print(f"K10 layer {r['layer']:2d}: n*h*w {r['pixels']:6d}, {r['cin']:2d} -> "
+              f"{r['cout']:2d}, stride {r['stride']}: {r['ms']:.4f} ms by events, "
+              f"{r['device_ms']:.4f} ms device; bound {r['bound_ms']:.5f} ms (bytes); "
+              f"plan {tuple(plan)}")
+    print(f"K10 layers summed: {sum(r['ms'] for r in layers):.4f} ms by events, "
+          f"{sum(r['device_ms'] for r in layers):.4f} ms device, bound "
+          f"{sum(r['bound_ms'] for r in layers):.5f} ms")
+
+
+def k10_edges(torch, dev, rng):
+    """K10 on shapes the tiling could get wrong, within BF_RTOL of its plain
+    version: pixel counts no tile divides, channel counts no multiple of 4
+    or 8 (4-byte staging, padded output channels), no residual, a stride-2
+    width whose rows set the tile, and an input off 16-byte alignment."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    cases = (  # n, h, w, cin, cout, res_c, stride
+        (3, 7, 5, 42, 42, 36, 1), (1, 1, 1, 24, 28, 24, 1), (2, 5, 7, 28, 44, 28, 2),
+        (3, 9, 3, 30, 30, 30, 2), (5, 11, 13, 96, 96, 96, 1), (2, 3, 3, 88, 96, 88, 2),
+        (1, 6, 6, 17, 20, 0, 1), (7, 19, 23, 24, 24, 24, 1),
+    )
+    for n, h, w, cin, cout, res_c, stride in cases:
+        y = rand(n, h, w, cin)
+        kern, bias = rand(1, 1, cin, cout) * 0.2, rand(cout)
+        res = rand(n, stride * h, stride * w, res_c)
+        got = bf.pointwise(y, kern, bias, res, stride)
+        ref = bf.pointwise_plain(y, kern, bias, res, stride)
+        torch.cuda.synchronize()
+        e = rel_err(torch, got, ref)
+        check(e <= BF_RTOL, f"K10 edge {n, h, w, cin, cout, res_c, stride}: {e} off")
+        plan = bf.k10_plan(n, h, w, cin, cout, res_c, stride, bf._sm_count(dev.index))
+        print(f"K10 edge n {n}, {h}x{w}, {cin} -> {cout}, residual {res_c}, stride "
+              f"{stride}: within {e:.2e} relative; plan {tuple(plan)}")
+    base = rand(1 + 3 * 8 * 8 * 32)
+    y = base[1:].view(3, 8, 8, 32)   # 4 bytes past an aligned start
+    kern, bias, res = rand(1, 1, 32, 40) * 0.2, rand(40), rand(3, 8, 8, 32)
+    got = bf.pointwise(y, kern, bias, res, 1)
+    ref = bf.pointwise_plain(y, kern, bias, res, 1)
+    torch.cuda.synchronize()
+    e = rel_err(torch, got, ref)
+    check(e <= BF_RTOL, f"K10 edge, unaligned input: {e} off")
+    print(f"K10 edge, an input 4 bytes off alignment: within {e:.2e} relative")
 
 
 def face_sources(workdir, n):

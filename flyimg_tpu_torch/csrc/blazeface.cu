@@ -24,12 +24,32 @@
 // What bounds them on an H100: neither bytes nor flops at the serving
 // batch (64 views of 128x128: ~2.4 GFLOP and ~170 MB of activations a
 // forward, tens of microseconds at the card's rates); the forward is 35
-// launches, so launch latency. Design, simple first: K9 is a thread an
-// output element (channels fastest, so a warp reads consecutive channels
-// of one pixel), its filter staged in shared memory; K10 stages its
-// weights once per persistent block and a tile of 16 pixels' inputs, then
-// a thread computes output channels of the tile; the head form is a
-// thread a (pixel, anchor). Sums are f32 FMAs in index order.
+// launches, so launch latency. K9 is a thread an output element (channels
+// fastest, so a warp reads consecutive channels of one pixel), its filter
+// staged in shared memory; the head form is a thread a (pixel, anchor).
+//
+// K10's block form is bound by bytes (its 16 calls move ~366 MB at 64
+// views, against ~2.3 GFLOP of f32 FMAs). Design: persistent blocks, as
+// many as fit on the card for the layer's plan (host side: blazeface.py
+// k10_plan); each stages the weights and bias once, then walks tiles of
+// `tile_px` contiguous NHWC pixels, so a tile's input, output and residual
+// are contiguous spans (at stride 2 a tile is whole output rows, and its
+// residual the 2 x 2W input rows under them). The next tile's input and
+// residual are copied with cp.async (16-byte chunks where the channel count
+// allows, else 8- or 4-byte) while the current one is computed. Staged rows
+// have an odd number of 16-byte chunks, so the lanes of a warp, each on its
+// own pixel, read 16-byte chunks from distinct banks. A thread owns 4
+// pixels x 4 output channels in registers: each input chunk (4 channels) of
+// its 4 pixels, then each of the 4 weight rows as a broadcast float4, 16
+// FMAs a row (8 channels a thread was slower at every layer: half the
+// threads, twice the serial FMAs). Every output is still one f32 FMA chain
+// over ci = 0 .. C_in - 1 in order (padded channels add exact zeros), then
+// + bias, + residual, ReLU, so K12 (the backward) sees the same values for
+// its ReLU mask. Outputs are stored from registers as 16- (or 8-) byte
+// vectors, or, where C_out is no multiple of 8 (a pixel's outputs then do
+// not fill whole 32-byte sectors), gathered in shared memory and stored as
+// one span. No tensor cores: TF32 products would miss the 1e-5 relative
+// bound, and the layer is bound by bytes, not by its FMAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +57,68 @@
 namespace {
 
 constexpr int kTaps = 25;
-constexpr int kTile = 16;  // pixels of one K10 tile
+constexpr int kPwMaxThreads = 512;
+constexpr int kCo = 4;  // K10: output channels a thread (of 4 pixels)
+constexpr int kSmemMax = 227 * 1024;
+
+// device memory to shared, asynchronously, `bytes` (4, 8 or 16) at a time
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES)
+                     : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prior() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// a staged row's pitch in floats: an odd number of 16-byte chunks
+__host__ __device__ __forceinline__ int row_pitch(int c) { return 4 * (((c + 3) >> 2) | 1); }
+
+// K10's shared memory in floats: weights [cin4, cpad], bias [cpad], two
+// stages of tile_px input rows and (4 x at stride 2) tile_px residual rows,
+// and with stage_out the tile's output [tile_px, cout]
+__host__ __device__ __forceinline__ long long pointwise_smem_floats(int cin, int cout, int res_c,
+                                                                    int res_pool, int tile_px,
+                                                                    int stage_out) {
+    const long long cin4 = (cin + 3) & ~3, cpad = (cout + kCo - 1) / kCo * kCo;
+    const long long rpx = res_c > 0 ? (long long)(res_pool ? 4 : 1) * tile_px : 0;
+    return cin4 * cpad + cpad + 2 * ((long long)tile_px * row_pitch(cin) + rpx * row_pitch(res_c)) +
+           (stage_out ? (long long)tile_px * cout : 0);
+}
+
+// the widest of 4, 2, 1 floats that divides c and the alignment of p
+__host__ __device__ __forceinline__ int vec_width(int c, const void* p) {
+    const uintptr_t a = (uintptr_t)p;
+    return c % 4 == 0 && a % 16 == 0 ? 4 : c % 2 == 0 && a % 8 == 0 ? 2 : 1;
+}
+
+// rows [0, nrows) of c floats, contiguous at src, into shared rows of
+// `pitch` floats, `vec` floats (vec_width of c and src) a copy
+template <int VEC>
+__device__ __forceinline__ void stage_rows_by(float* dst, const float* src, int nrows, int c,
+                                              int pitch, int tid, int nthreads) {
+    const int per = c / VEC;
+    for (int e = tid; e < nrows * per; e += nthreads) {
+        const int r = e / per;
+        cp_async<4 * VEC>(dst + r * pitch + VEC * (e - r * per), src + VEC * e);
+    }
+}
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int nrows, int c,
+                                           int pitch, int vec, int tid, int nthreads) {
+    if (vec == 4)
+        stage_rows_by<4>(dst, src, nrows, c, pitch, tid, nthreads);
+    else if (vec == 2)
+        stage_rows_by<2>(dst, src, nrows, c, pitch, tid, nthreads);
+    else
+        stage_rows_by<1>(dst, src, nrows, c, pitch, tid, nthreads);
+}
 
 __global__ void conv5x5_kernel(const float* __restrict__ in, const float* __restrict__ kernel,
                                const float* __restrict__ bias, float* __restrict__ out, int n,
@@ -79,47 +160,145 @@ __global__ void conv5x5_kernel(const float* __restrict__ in, const float* __rest
     }
 }
 
-__global__ void pointwise_kernel(const float* __restrict__ in, const float* __restrict__ kernel,
-                                 const float* __restrict__ bias, const float* __restrict__ res,
-                                 float* __restrict__ out, int n, int h, int w, int cin, int cout,
-                                 int res_c, int res_pool) {
-    extern __shared__ float sm[];
-    float* sw = sm;                 // [cin, cout]
-    float* sx = sm + cin * cout;    // [kTile, cin]
-    for (int i = threadIdx.x; i < cin * cout; i += blockDim.x) sw[i] = kernel[i];
-    const long long pixels = (long long)n * h * w;
-    const long long tiles = (pixels + kTile - 1) / kTile;
-    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const long long p0 = t * kTile;
-        const int np = (int)min((long long)kTile, pixels - p0);
-        __syncthreads();  // the previous tile's readers are done (and sw is staged)
-        for (int i = threadIdx.x; i < np * cin; i += blockDim.x) sx[i] = in[p0 * cin + i];
+__global__ void __launch_bounds__(kPwMaxThreads) pointwise_kernel(
+    const float* __restrict__ in, const float* __restrict__ kernel, const float* __restrict__ bias,
+    const float* __restrict__ res, float* __restrict__ out, long long pixels, int w, int cin,
+    int cout, int res_c, int res_pool, int tile_px, int stage_out, int vec_in, int vec_res,
+    int vec_w, int vec_out) {
+    extern __shared__ __align__(16) float sm[];
+    const int tid = threadIdx.x, nthreads = blockDim.x;
+    const int nch = (cin + 3) >> 2, cin4 = 4 * nch;
+    const int cpad = (cout + kCo - 1) / kCo * kCo;
+    const int xs = row_pitch(cin), rs = row_pitch(res_c);
+    const int rpx = res_pool ? 4 * tile_px : tile_px;
+    const int stage = tile_px * xs + (res_c > 0 ? rpx * rs : 0);
+    float* sw = sm;                   // [cin4, cpad], zero past cin and cout
+    float* sb = sw + cin4 * cpad;     // [cpad]
+    float* st = sb + cpad;            // two stages: x rows, then residual rows
+    float* so = st + 2 * stage;       // with stage_out: the tile's output
+
+    // the weights' and bias's padding (rows past cin, columns past cout) and
+    // the input channels past cin are read but never copied: zero them
+    if (cin != cin4 || cout != cpad) {
+        for (int i = tid; i < cin4 * cpad + cpad + 2 * stage; i += nthreads) sm[i] = 0.0f;
         __syncthreads();
-        for (int o = threadIdx.x; o < np * cout; o += blockDim.x) {
-            const int pl = o / cout, co = o % cout;
-            const long long p = p0 + pl;
-            const float* xs = sx + pl * cin;
-            float acc = 0.0f;
-            for (int ci = 0; ci < cin; ++ci) acc = __fmaf_rn(xs[ci], sw[ci * cout + co], acc);
-            float v = __fadd_rn(acc, bias[co]);
-            if (co < res_c) {
-                float rv;
-                if (res_pool) {
-                    const int x = (int)(p % w);
-                    const long long q = p / w;
-                    const int y = (int)(q % h);
-                    const long long b = q / h;
-                    const int rw = 2 * w;
-                    const float* r0 = res + ((b * (2 * h) + 2 * y) * rw + 2 * x) * res_c + co;
-                    const float* r1 = r0 + (long long)rw * res_c;
-                    rv = fmaxf(fmaxf(r0[0], r0[res_c]), fmaxf(r1[0], r1[res_c]));
-                } else {
-                    rv = res[p * res_c + co];
-                }
-                v = __fadd_rn(v, rv);
-            }
-            out[p * cout + co] = fmaxf(v, 0.0f);
+    }
+    stage_rows(sw, kernel, cin, cout, cpad, vec_w, tid, nthreads);
+    stage_rows(sb, bias, 1, cout, cpad, vec_width(cout, bias), tid, nthreads);
+
+    const long long tiles = (pixels + tile_px - 1) / tile_px;
+    auto load = [&](long long t, int s) {
+        if (t >= tiles) return;
+        const long long p0 = t * tile_px;
+        const int np = (int)min((long long)tile_px, pixels - p0);
+        float* sx = st + s * stage;
+        stage_rows(sx, in + p0 * cin, np, cin, xs, vec_in, tid, nthreads);
+        if (res_c > 0) {
+            const int k = res_pool ? 4 : 1;
+            stage_rows(sx + tile_px * xs, res + k * p0 * res_c, k * np, res_c, rs, vec_res, tid,
+                       nthreads);
         }
+    };
+    long long t = blockIdx.x;
+    load(t, 0);
+    cp_async_commit();  // the weights, the bias and the first tile
+    const int npg = tile_px >> 2, items = cpad / kCo * npg;
+    for (int s = 0; t < tiles; t += gridDim.x, s ^= 1) {
+        load(t + gridDim.x, s ^ 1);
+        cp_async_commit();
+        cp_async_wait_prior();
+        __syncthreads();
+        const float* sx = st + s * stage;
+        const float* sr = sx + tile_px * xs;
+        const long long p0 = t * tile_px;
+        const int np = (int)min((long long)tile_px, pixels - p0);
+        for (int it = tid; it < items; it += nthreads) {
+            const int cg = it / npg, pg = it - cg * npg, co0 = cg * kCo;
+            float acc[4][kCo];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int j = 0; j < kCo; ++j) acc[k][j] = 0.0f;
+            for (int q = 0; q < nch; ++q) {
+                float xv[4][4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const float4 v =
+                        *reinterpret_cast<const float4*>(sx + (pg + k * npg) * xs + 4 * q);
+                    xv[k][0] = v.x, xv[k][1] = v.y, xv[k][2] = v.z, xv[k][3] = v.w;
+                }
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                    const float4 v =
+                        *reinterpret_cast<const float4*>(sw + (4 * q + kk) * cpad + co0);
+                    const float wv[kCo] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                    for (int k = 0; k < 4; ++k)
+#pragma unroll
+                        for (int j = 0; j < kCo; ++j)
+                            acc[k][j] = __fmaf_rn(xv[k][kk], wv[j], acc[k][j]);
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int lp = pg + k * npg;
+                if (lp >= np) continue;
+                float v[kCo];
+#pragma unroll
+                for (int j = 0; j < kCo; ++j) v[j] = __fadd_rn(acc[k][j], sb[co0 + j]);
+                if (co0 < res_c) {
+                    float4 a;
+                    if (res_pool) {
+                        const int lr = lp / w, lx = lp - lr * w;
+                        const float* r0 = sr + (2 * lr * 2 * w + 2 * lx) * rs + co0;
+                        const float* r1 = r0 + 2 * w * rs;
+                        a = *reinterpret_cast<const float4*>(r0);
+                        const float4 b = *reinterpret_cast<const float4*>(r0 + rs);
+                        const float4 c = *reinterpret_cast<const float4*>(r1);
+                        const float4 d = *reinterpret_cast<const float4*>(r1 + rs);
+                        a.x = fmaxf(fmaxf(a.x, b.x), fmaxf(c.x, d.x));
+                        a.y = fmaxf(fmaxf(a.y, b.y), fmaxf(c.y, d.y));
+                        a.z = fmaxf(fmaxf(a.z, b.z), fmaxf(c.z, d.z));
+                        a.w = fmaxf(fmaxf(a.w, b.w), fmaxf(c.w, d.w));
+                    } else {
+                        a = *reinterpret_cast<const float4*>(sr + lp * rs + co0);
+                    }
+                    const float rv[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (co0 + e < res_c) v[e] = __fadd_rn(v[e], rv[e]);
+                }
+#pragma unroll
+                for (int j = 0; j < kCo; ++j) v[j] = fmaxf(v[j], 0.0f);
+                if (stage_out) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (co0 + e < cout) so[lp * cout + co0 + e] = v[e];
+                    continue;
+                }
+                float* o = out + (p0 + lp) * cout + co0;
+                if (vec_out == 4 && co0 + 4 <= cout) {
+                    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+                } else if (vec_out == 2 && co0 + 4 <= cout) {
+                    *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+                    *reinterpret_cast<float2*>(o + 2) = make_float2(v[2], v[3]);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (co0 + e < cout) o[e] = v[e];
+                }
+            }
+        }
+        if (stage_out) {  // the tile's output as one span, 16-byte stores
+            __syncthreads();
+            float* o = out + p0 * cout;
+            const int span = np * cout;
+            const int nvec = ((uintptr_t)o & 15) == 0 ? span / 4 : 0;
+            for (int i = tid; i < nvec; i += nthreads)
+                reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(so)[i];
+            for (int i = 4 * nvec + tid; i < span; i += nthreads) o[i] = so[i];
+        }
+        __syncthreads();  // the stage is free for the next load into it
     }
 }
 
@@ -195,18 +374,38 @@ extern "C" int flyimg_bf_conv5x5(const float* in, const float* kernel, const flo
 // f32 [cin, cout], `bias` f32 [cout], `res` the block input f32
 // [n, h, w, res_c] or, with `res_pool`, [n, 2h, 2w, res_c] (res_c <= cout)
 // -> `out` f32 [n, h, w, cout] = relu(in . kernel + bias + residual).
+// The plan (blazeface.py k10_plan): `blocks` persistent blocks of `threads`
+// threads walk tiles of `tile_px` pixels (a multiple of 4, and of w with
+// res_pool); with `stage_out` a tile's output is gathered in shared memory
+// and stored as one span.
 extern "C" int flyimg_bf_pointwise(const float* in, const float* kernel, const float* bias,
                                    const float* res, float* out, int n, int h, int w, int cin,
-                                   int cout, int res_c, int res_pool, void* stream) {
-    if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || res_c < 0 || res_c > cout)
+                                   int cout, int res_c, int res_pool, int tile_px, int stage_out,
+                                   int threads, int blocks, void* stream) {
+    if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || res_c < 0 || res_c > cout ||
+        tile_px <= 0 || tile_px % 4 != 0 || (res_pool && tile_px % w != 0) || threads < 32 ||
+        threads > kPwMaxThreads || threads % 32 != 0 || blocks <= 0)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * ((size_t)cin * cout + (size_t)kTile * cin);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    const long long tiles = ((long long)n * h * w + kTile - 1) / kTile;
-    const int blocks = (int)(tiles < 132 * 8 ? tiles : 132 * 8);
+    const long long smem =
+        (long long)sizeof(float) *
+        pointwise_smem_floats(cin, cout, res_c, res_pool, tile_px, stage_out);
+    if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+    // the shared-memory ceiling is raised once a device, to the largest plan
+    // seen (a benign race: two threads may both set it)
+    static int smem_set[64] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= 64 || smem > smem_set[dev]) {
+        err = cudaFuncSetAttribute(pointwise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        if (dev >= 0 && dev < 64) smem_set[dev] = (int)smem;
+    }
     pointwise_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        in, kernel, bias, res, out, n, h, w, cin, cout, res_c, res_pool);
+        in, kernel, bias, res, out, (long long)n * h * w, w, cin, cout, res_c, res_pool, tile_px,
+        stage_out, vec_width(cin, in), res_c > 0 ? vec_width(res_c, res) : 1,
+        vec_width(cout, kernel), vec_width(cout, out));
     return (int)cudaGetLastError();
 }
 

@@ -144,6 +144,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_raw_stream = None
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of card ``index``: PyTorch's
+    own getter where the build has it (no Stream object is made), else
+    ``torch.cuda.current_stream``."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream
+        )
+    return _raw_stream(index)
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if rc != 0:

@@ -36,8 +36,10 @@ torch alone.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -160,11 +162,93 @@ def pointwise_plain(y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return F.relu(out + _residual(res, stride, cout)).contiguous()
 
 
+#: a block's shared memory on Hopper, and an SM's (1 KB of it reserved a block)
+SMEM_BLOCK_MAX = 227 * 1024
+SMEM_SM = 228 * 1024
+#: the largest K10 tile, in pixels, the most threads a K10 block takes, and
+#: the output channels a thread computes (of 4 pixels; csrc kCo)
+K10_MAX_TILE = 64
+K10_MAX_THREADS = 512
+K10_CO = 4
+
+
+class K10Plan(NamedTuple):
+    """How K10's block form walks one layer (``k10_plan``)."""
+
+    tile_px: int      # pixels a tile: a multiple of 4, and of W at stride 2
+    stage_out: bool   # gather the tile's output in shared memory, store one span
+    threads: int      # threads a block: an item (4 pixels x 4 channels) each
+    blocks: int       # persistent blocks; block b takes tiles b, b + blocks, ...
+    smem_bytes: int   # dynamic shared memory a block
+
+
+def _row_pitch(c: int) -> int:
+    """A staged row's floats: an odd number of 16-byte chunks (csrc
+    row_pitch), so a warp's lanes, a pixel each, hit distinct banks."""
+    return 4 * (((c + 3) // 4) | 1)
+
+
+def k10_smem_bytes(cin: int, cout: int, res_c: int, stride: int, tile_px: int,
+                   stage_out: bool) -> int:
+    """K10's shared memory a block (csrc pointwise_smem_floats): the weights
+    [ceil4(C_in), ceil4(C_out)] and bias, two stages of the tile's input
+    rows and residual rows (4 per pixel at stride 2), and with ``stage_out``
+    the tile's output."""
+    cin4 = (cin + 3) // 4 * 4
+    cpad = -(-cout // K10_CO) * K10_CO
+    rpx = (4 if stride == 2 else 1) * tile_px if res_c else 0
+    return 4 * (cin4 * cpad + cpad
+                + 2 * (tile_px * _row_pitch(cin) + rpx * _row_pitch(res_c))
+                + (tile_px * cout if stage_out else 0))
+
+
+@functools.lru_cache(maxsize=512)
+def k10_plan(n: int, h: int, w: int, cin: int, cout: int, res_c: int,
+             stride: int, sm_count: int = 132) -> K10Plan:
+    """K10's launch plan for a layer with an [n, h, w] output: the largest
+    tile of at most K10_MAX_TILE pixels, and of the power of two at or above
+    the pixels an SM gets (whole output rows at stride 2), whose two stages
+    fit a block's shared memory; the tile's output gathered in shared memory
+    and stored as one span where C_out is no multiple of 8 (from registers a
+    pixel's outputs would not fill whole 32-byte sectors); a thread an item
+    of the tile; as many persistent blocks as the card holds at once, or one
+    a tile when there are fewer tiles. (A sweep of tiles 16-256, 4 or 8
+    channels a thread, 2 or 3 stages and the staged output on an H100 found
+    these within a few percent of the best at every layer of the 64-view
+    forward; PERF.md.)"""
+    pixels = n * h * w
+    stage_out = cout % 8 != 0
+    unit = math.lcm(4, w) if stride == 2 else 4
+    share = 1 << max(0, pixels // sm_count - 1).bit_length()
+    top = max(unit, min(K10_MAX_TILE, share) // unit * unit)
+    for tile_px in range(top, 0, -unit):
+        smem = k10_smem_bytes(cin, cout, res_c, stride, tile_px, stage_out)
+        if smem <= SMEM_BLOCK_MAX:
+            break
+    else:
+        raise ValueError(
+            f"pointwise: a {cin} -> {cout} layer at stride {stride}, width {w} "
+            f"needs {smem} bytes of shared memory for its smallest tile "
+            f"(> {SMEM_BLOCK_MAX})"
+        )
+    items = -(-cout // K10_CO) * (tile_px // 4)
+    threads = min(K10_MAX_THREADS, -(-items // 32) * 32)
+    per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // threads))
+    tiles = -(-pixels // tile_px)
+    return K10Plan(tile_px, stage_out, threads, min(tiles, sm_count * per_sm), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def pointwise(y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
               res: torch.Tensor, stride: int) -> torch.Tensor:
     """K10 (block form) on a CUDA tensor, ``pointwise_plain`` on a CPU
     tensor: ``y`` f32 [N, H, W, C_in], ``kernel`` [1, 1, C_in, C_out],
-    ``res`` the block input [N, s H, s W, C_r <= C_out]."""
+    ``res`` the block input [N, s H, s W, C_r <= C_out]; launched as
+    ``k10_plan`` says."""
     if y.dtype != torch.float32 or y.dim() != 4:
         raise ValueError(f"pointwise takes f32 NHWC, got {y.dtype} {tuple(y.shape)}")
     n, h, w, cin = y.shape
@@ -177,19 +261,21 @@ def pointwise(y: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
             f"residual {tuple(res.shape)} does not fit {tuple(y.shape)} at "
             f"stride {stride} -> {cout} channels"
         )
-    if y.device.type == "cpu":
+    dev = y.device
+    if dev.type == "cpu":
         return pointwise_plain(y, kernel, bias, res, stride)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    y = y.contiguous()
-    res = res.contiguous()
-    kernel = kernel.detach().contiguous()
-    bias = bias.detach().contiguous()
-    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=y.device)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    res_c = res.shape[3]
+    plan = k10_plan(n, h, w, cin, cout, res_c, stride, _sm_count(dev.index))
+    y, kernel, bias, res = (t if t.is_contiguous() else t.contiguous()
+                            for t in (y, kernel, bias, res))
+    out = torch.empty((n, h, w, cout), dtype=torch.float32, device=dev)
     rc = _lib().flyimg_bf_pointwise(
         y.data_ptr(), kernel.data_ptr(), bias.data_ptr(), res.data_ptr(),
-        out.data_ptr(), n, h, w, cin, cout, res.shape[3], int(stride == 2),
-        torch.cuda.current_stream(y.device).cuda_stream,
+        out.data_ptr(), n, h, w, cin, cout, res_c, int(stride == 2),
+        plan.tile_px, int(plan.stage_out), plan.threads, plan.blocks,
+        cuda_build.current_stream(dev.index),
     )
     cuda_build.check(rc, "blazeface pointwise")
     pointwise.launches += 1
@@ -272,7 +358,7 @@ def _lib():
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flyimg_bf_conv5x5.argtypes = [p] * 4 + [i] * 12 + [p]
-        lib.flyimg_bf_pointwise.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.flyimg_bf_pointwise.argtypes = [p] * 5 + [i] * 11 + [p]
         lib.flyimg_bf_head.argtypes = [p] * 8 + [i] * 6 + [p]
         for fn in (lib.flyimg_bf_conv5x5, lib.flyimg_bf_pointwise,
                    lib.flyimg_bf_head):

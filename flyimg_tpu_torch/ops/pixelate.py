@@ -83,32 +83,34 @@ def pixelate_regions_u8(image: torch.Tensor, boxes: torch.Tensor,
     f32, rounded half to even and clipped. Kernel K7 on a CUDA tensor, the
     plain version on a CPU tensor. ``boxes`` is f32 [N, 4] on the image's
     device."""
-    if image.dtype != torch.uint8 or image.dim() != 3 or image.shape[2] != 3:
+    shape, bshape = image.shape, boxes.shape
+    if image.dtype != torch.uint8 or len(shape) != 3 or shape[2] != 3:
         raise ValueError(
             f"pixelate_regions_u8 takes u8 [h, w, 3], got {image.dtype} "
-            f"{tuple(image.shape)}"
+            f"{tuple(shape)}"
         )
-    if boxes.dim() != 2 or boxes.shape[1] != 4 or boxes.shape[0] > MAX_BOXES:
+    if len(bshape) != 2 or bshape[1] != 4 or bshape[0] > MAX_BOXES:
         raise ValueError(
-            f"boxes must be [N <= {MAX_BOXES}, 4], got {tuple(boxes.shape)}"
+            f"boxes must be [N <= {MAX_BOXES}, 4], got {tuple(bshape)}"
         )
     if not 1 <= factor <= 32:
         raise ValueError(f"pixelate factor must be 1..32, got {factor}")
-    h, w, _ = image.shape
-    if image.device.type == "cpu":
+    dev = image.device
+    if dev.type == "cpu":
         out = pixelate_regions(image.to(torch.float32), boxes, factor)
         return quantize_u8(out).contiguous()
-    if image.device.type != "cuda":
-        raise ValueError(f"unsupported device {image.device}")
-    if boxes.device != image.device:
-        raise ValueError(f"boxes on {boxes.device}, image on {image.device}")
-    image = image.contiguous()
-    boxes = boxes.to(torch.float32).contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if boxes.device != dev:
+        raise ValueError(f"boxes on {boxes.device}, image on {dev}")
+    if not image.is_contiguous():
+        image = image.contiguous()
+    if boxes.dtype != torch.float32 or not boxes.is_contiguous():
+        boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty_like(image)
-    rc = _lib().flyimg_pixelate(
-        image.data_ptr(), boxes.data_ptr(), out.data_ptr(), h, w,
-        int(boxes.shape[0]), factor,
-        torch.cuda.current_stream(image.device).cuda_stream,
+    rc = (_launch or _bind())(
+        image.data_ptr(), boxes.data_ptr(), out.data_ptr(), shape[0], shape[1],
+        bshape[0], factor, cuda_build.current_stream(dev.index),
     )
     cuda_build.check(rc, "pixelate")
     pixelate_regions_u8.launches += 1
@@ -118,13 +120,15 @@ def pixelate_regions_u8(image: torch.Tensor, boxes: torch.Tensor,
 #: K7 launches since the last reset (a plain integer)
 pixelate_regions_u8.launches = 0
 
+#: the bound ``flyimg_pixelate`` (set by the first launch)
+_launch = None
 
-def _lib():
-    lib = cuda_build.load("pixelate")
-    if not getattr(lib, "_flyimg_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn = lib.flyimg_pixelate
-        fn.argtypes = [p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib._flyimg_bound = True
-    return lib
+
+def _bind():
+    global _launch
+    fn = cuda_build.load("pixelate").flyimg_pixelate
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    _launch = fn
+    return fn

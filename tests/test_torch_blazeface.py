@@ -212,6 +212,71 @@ def test_detect_faces_batch_matches_jax(jparams, model):
     assert tbf.detect_faces(model, imgs[2], score_threshold=0.8) == got[2]
 
 
+def block_layers():
+    """(h, w, C_in, C_out, C_res, stride) of each BlazeBlock's K10 call,
+    the output's h and w, at the network's 128x128 input."""
+    size, cin = tbf.INPUT_SIZE // 2, tbf.STEM_FEATURES
+    for features, stride in tbf.BLOCKS:
+        size //= stride
+        yield size, size, cin, features, cin, stride
+        cin = features
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16, 64])
+@pytest.mark.parametrize("layer", range(len(tbf.BLOCKS)))
+def test_k10_plan_covers_every_pixel_once(layer, batch):
+    """K10's launch plan at every layer: the persistent blocks' walk puts
+    every pixel in exactly one tile and every (pixel, output channel) in
+    exactly one thread item; tiles are whole 16-byte spans (whole output
+    rows at stride 2, whose residual is the input rows under them); two
+    stages fit the 227 KB a block may have."""
+    h, w, cin, cout, res_c, stride = list(block_layers())[layer]
+    plan = tbf.k10_plan(batch, h, w, cin, cout, res_c, stride)
+    pixels = batch * h * w
+    tiles = -(-pixels // plan.tile_px)
+    assert 1 <= plan.blocks <= min(tiles, 132 * 8)
+    assert plan.smem_bytes == tbf.k10_smem_bytes(cin, cout, res_c, stride, plan.tile_px,
+                                                 plan.stage_out)
+    assert plan.smem_bytes <= tbf.SMEM_BLOCK_MAX
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= tbf.K10_MAX_THREADS
+    assert plan.tile_px % 4 == 0 and (stride == 1 or plan.tile_px % w == 0)
+    k = 4 if stride == 2 else 1
+    for c, per_px in ((cin, 1), (cout, 1), (res_c, k)):
+        assert plan.tile_px * per_px * c * 4 % 16 == 0
+    seen = np.zeros(pixels, np.int64)
+    for b in range(plan.blocks):
+        for t in range(b, tiles, plan.blocks):
+            seen[t * plan.tile_px:(t + 1) * plan.tile_px] += 1
+    assert (seen == 1).all()
+    # a tile's items: pixels pg + k npg (k < 4) by channels cg co + j
+    co = tbf.K10_CO
+    npg = plan.tile_px // 4
+    cpad = -(-cout // co) * co
+    items = np.arange(cpad // co * npg)
+    assert items.size <= plan.threads or plan.threads == tbf.K10_MAX_THREADS
+    cg, pg = items // npg, items % npg
+    px = (pg[:, None, None] + npg * np.arange(4)[None, :, None]).repeat(co, 2)
+    ch = (cg[:, None, None] * co + np.arange(co)[None, None, :]).repeat(4, 1)
+    cover = np.zeros((plan.tile_px, cpad), np.int64)
+    np.add.at(cover, (px.ravel(), ch.ravel()), 1)
+    assert (cover == 1).all()
+    if stride == 2:
+        # output pixel p of the tile at p0 pools input pixels (2y + dy, 2x + dx)
+        # of its image: all within the tile's residual span [4 p0, 4 (p0 + np))
+        p = np.arange(pixels)
+        b_, y, x = p // (h * w), p // w % h, p % w
+        for dy in (0, 1):
+            for dx in (0, 1):
+                q = (b_ * 2 * h + 2 * y + dy) * 2 * w + 2 * x + dx
+                p0 = p // plan.tile_px * plan.tile_px
+                assert ((q >= 4 * p0) & (q < 4 * np.minimum(p0 + plan.tile_px, pixels))).all()
+
+
+def test_k10_plan_raises_where_no_tile_fits():
+    with pytest.raises(ValueError, match="shared memory"):
+        tbf.k10_plan(1, 4, 4096, 96, 96, 96, 2)
+
+
 @pytest.mark.cuda
 def test_k9_k10_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -223,3 +288,18 @@ def test_k9_k10_match_plain_on_card():
     logits, raw = net.forward_plain(x)
     assert float((probs - torch.sigmoid(logits)).abs().max()) <= PROB_TOL
     assert float((boxes - tbf.decode_boxes(raw, net.anchors)).abs().max()) <= RAW_TOL
+    # K10 alone where no tile divides the pixels, channels no multiple of 4,
+    # stride-2 widths that set the tile, no residual (within 1e-5 relative)
+    rng = np.random.default_rng(5)
+    for n, h, w, cin, cout, res_c, stride in (
+        (3, 7, 5, 42, 42, 36, 1), (2, 5, 7, 28, 44, 28, 2), (3, 9, 3, 30, 30, 30, 2),
+        (5, 11, 13, 96, 96, 96, 1), (1, 6, 6, 17, 20, 0, 1), (7, 19, 23, 24, 24, 24, 1),
+    ):
+        y, res = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+                  for s in ((n, h, w, cin), (n, stride * h, stride * w, res_c)))
+        kern = torch.from_numpy(rng.standard_normal((1, 1, cin, cout)).astype(np.float32))
+        bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+        kern, bias = kern.to(dev), bias.to(dev)
+        got = tbf.pointwise(y, kern, bias, res, stride)
+        ref = tbf.pointwise_plain(y, kern, bias, res, stride)
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5

@@ -56,8 +56,9 @@ def noise(h, w, seed):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
 
 
-def jax_pixelate_u8(img, boxes):
-    out = jpixelate.pixelate_regions(jnp.asarray(img, jnp.float32), jnp.asarray(boxes))
+def jax_pixelate_u8(img, boxes, factor=jpixelate.PIXELATE_FACTOR):
+    out = jpixelate.pixelate_regions(jnp.asarray(img, jnp.float32), jnp.asarray(boxes),
+                                     factor)
     return np.asarray(jnp.clip(jnp.round(out), 0, 255).astype(jnp.uint8))
 
 
@@ -73,16 +74,57 @@ def test_block_mean_matches_jax_on_every_block_sum():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("h,w", [(240, 320), (237, 311), (7, 13), (1, 1), (10, 20)])
-def test_pixelate_regions_matches_jax(h, w):
-    """Sides that are not multiples of 10; zero-area, overlapping, negative
-    and past-the-edge boxes; u8 equal."""
+EDGE_SHAPES = [(240, 320), (237, 311), (7, 13), (1, 1), (10, 20)]
+
+
+def edge_boxes(h, w):
+    """Zero-area, overlapping, negative and past-the-edge boxes."""
+    return np.array([[3, 5, 57, 41], [100, 100, 0, 10], [w - 20, h - 15, 100, 100],
+                     [10, 10, 30, 30], [0, 0, w, h / 2], [2, 3, 0, 0],
+                     [-5, -5, 12, 12]], np.float32)
+
+
+@pytest.mark.parametrize("h,w,factor", [
+    *[pytest.param(h, w, 10, id=f"{h}-{w}") for h, w in EDGE_SHAPES],
+    *[pytest.param(h, w, f, id=f"{h}-{w}-factor{f}") for f in (1, 32)
+      for h, w in EDGE_SHAPES + [(75, 97)]],
+])
+def test_pixelate_regions_matches_jax(h, w, factor):
+    """Sides that are not multiples of the factor (10, and 1-pixel and
+    32-pixel blocks); zero-area, overlapping, negative and past-the-edge
+    boxes; u8 equal."""
     img = noise(h, w, h * 7 + w)
-    boxes = np.array([[3, 5, 57, 41], [100, 100, 0, 10], [w - 20, h - 15, 100, 100],
-                      [10, 10, 30, 30], [0, 0, w, h / 2], [2, 3, 0, 0],
-                      [-5, -5, 12, 12]], np.float32)
-    got = tpixelate.pixelate_regions_u8(torch.from_numpy(img), torch.from_numpy(boxes))
-    np.testing.assert_array_equal(got.numpy(), jax_pixelate_u8(img, boxes))
+    boxes = edge_boxes(h, w)
+    got = tpixelate.pixelate_regions_u8(torch.from_numpy(img), torch.from_numpy(boxes),
+                                        factor)
+    np.testing.assert_array_equal(got.numpy(), jax_pixelate_u8(img, boxes, factor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [10, 1, 32])
+def test_k7_matches_plain_on_card(factor):
+    """K7 against its plain version on the card, exact: the edge shapes and
+    boxes, no boxes, 256 boxes, and an image off 16-byte alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run by chip_smoke.py on the H100)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(factor)
+    cases = [(noise(h, w, h + w), edge_boxes(h, w)) for h, w in EDGE_SHAPES + [(1080, 1920)]]
+    cases.append((noise(300, 400, 1), np.zeros((0, 4), np.float32)))
+    cases.append((noise(300, 400, 2), np.concatenate(
+        [rng.uniform(-50, 400, (256, 2)), rng.uniform(0, 60, (256, 2))], axis=1
+    ).astype(np.float32)))
+    for img, boxes in cases:
+        src = torch.from_numpy(img).to(dev)
+        dboxes = torch.from_numpy(boxes).to(dev)
+        got = tpixelate.pixelate_regions_u8(src, dboxes, factor)
+        ref = tpixelate.quantize_u8(tpixelate.pixelate_regions(src.float(), dboxes, factor))
+        assert torch.equal(got, ref), (img.shape, boxes.shape)
+    flat = torch.from_numpy(noise(1, 1 + 200 * 301, 3)[0]).to(dev)
+    view = flat[1:].view(200, 301, 3)
+    boxes = torch.tensor([[20, 30, 100, 80]], dtype=torch.float32, device=dev)
+    ref = tpixelate.quantize_u8(tpixelate.pixelate_regions(view.float(), boxes, factor))
+    assert torch.equal(tpixelate.pixelate_regions_u8(view, boxes, factor), ref)
 
 
 def test_pixelate_launches_nothing_on_cpu():
