@@ -41,9 +41,11 @@ Phases, in order; any failure exits non-zero without a result line:
              (also its host time, no sync), K8 (facefind masks: probability
              within 1 ulp, mask exact off the knife-edge) on 16 x 480x640,
              K9/K10 (BlazeFace) at every layer of the 64-view forward
-             (within 1e-5 relative; the head's probabilities within 1e-5
-             and boxes within 1e-4 absolute), and K10's 16 calls one by one
-             (events, device time, byte bound, launch plan); not timed, K7
+             (within 1e-5 relative; the head form's one launch over both
+             maps: probabilities within 1e-5 and boxes within 1e-4
+             absolute, also at 1 and 3 views), and K10's 16 and K9's 17
+             calls one by one (events, device time, byte bound, launch
+             plan) and the head's one launch; not timed, K7
              on sides that are not multiples of 10, 1x1, zero-area,
              overlapping, negative and past-the-edge boxes, none and 32,
              factors 1 and 32, a view off 16-byte alignment; K8 on
@@ -51,7 +53,9 @@ Phases, in order; any failure exits non-zero without a result line:
              bucket, 1x1 and thresholds 0 and 0.9; K10 on pixel counts no
              tile divides, channel counts no multiple of 4 or 8, no
              residual, stride-2 widths that set the tile and an unaligned
-             input; the forward at N = 1, 3 and 64; then the training
+             input; K9 on odd sizes at stride 2, widths no run divides,
+             C = 3 (full and depthwise), 42 and 96, N = 1, one row and
+             unaligned inputs; the forward at N = 1, 3 and 64; then the training
              kernels at the train step's shapes (batch 16, full width, a
              fresh model), timed, with cuDNN's
              conv2d_weight/conv2d_input, a torch.matmul pair and
@@ -1454,33 +1458,22 @@ def k8_case(torch, label, images, in_true, thresholds, timed=False):
 
 def blazeface_layers(torch, model, views):
     """The forward's layer inputs on the plain path: [(kind, args)] for
-    every K9, K10 and K10-head call, each holding the plain twin's input."""
-    from flyimg_tpu_torch.models import blazeface as bf
+    every K9 and K10 call and the one K10-head call (over both anchor maps),
+    each holding the plain twin's input."""
+    from flyimg_tpu_torch.face_breakdown import forward_calls
 
-    calls = [("K9", (views, model.stem.kernel, model.stem.bias, 2, True))]
-    x = bf.conv5x5_plain(*calls[0][1])
-    maps = []
-    for i, block in enumerate(model.blocks):
-        calls.append(("K9", (x, block.dw_kernel, None, block.stride, False)))
-        y = bf.conv5x5_plain(*calls[-1][1])
-        calls.append(("K10", (y, block.pw.kernel, block.pw.bias, x, block.stride)))
-        x = bf.pointwise_plain(*calls[-1][1])
-        if i == bf.X16_BLOCK:
-            maps.append(x)
-    maps.append(x)
-    for fmap, (cls, reg, offset) in zip(maps, model._heads()):
-        calls.append(("K10-head", (fmap, cls.kernel, cls.bias, reg.kernel,
-                                   reg.bias, offset)))
-    return calls
+    k9, k10, heads = forward_calls(model, views)
+    return ([("K9", a) for a in k9] + [("K10", a) for a in k10]
+            + [("K10-head", heads)])
 
 
 def blazeface_rows(torch, model, views, timed=True):
     """K9, K10 and K10's head form at every layer of one forward over
     ``views``: each call against its plain twin (K9/K10 within BF_RTOL
     relative, the head's probabilities within BF_PROB_TOL and boxes within
-    BF_BOX_TOL absolute); timed as the forward runs them (all of a kind's
-    calls in a row), with bounds summed over the calls and F.conv2d
-    yardsticks."""
+    BF_BOX_TOL absolute, at each map's anchors); timed as the forward runs
+    them (all of a kind's calls in a row), with bounds summed over the calls
+    and F.conv2d yardsticks (the head's: one 1x1 F.conv2d a map)."""
     import torch.nn.functional as F
 
     from flyimg_tpu_torch.models import blazeface as bf
@@ -1490,15 +1483,17 @@ def blazeface_rows(torch, model, views, timed=True):
     probs = torch.empty((n, bf.NUM_ANCHORS), device=views.device)
     boxes = torch.empty((n, bf.NUM_ANCHORS, 4), device=views.device)
 
-    def head(args):
-        x, ck, cb, rk, rb, off = args
-        bf.head_decode(x, ck, cb, rk, rb, model.anchors, probs, boxes, off)
+    def head(maps):
+        bf.head_decode(maps, model.anchors, probs, boxes)
 
-    def head_ref(args):
-        x, ck, cb, rk, rb, off = args
-        cls, raw = bf.head_plain(x, ck, cb, rk, rb)
-        k = cls.shape[1]
-        return torch.sigmoid(cls), bf.decode_boxes(raw, model.anchors[off:off + k])
+    def head_ref(maps):
+        refs = []
+        for x, ck, cb, rk, rb, off in maps:
+            cls, raw = bf.head_plain(x, ck, cb, rk, rb)
+            k = cls.shape[1]
+            refs.append((off, torch.sigmoid(cls),
+                         bf.decode_boxes(raw, model.anchors[off:off + k])))
+        return refs
 
     run = {"K9": lambda a: bf.conv5x5(*a), "K10": lambda a: bf.pointwise(*a),
            "K10-head": head}
@@ -1510,23 +1505,27 @@ def blazeface_rows(torch, model, views, timed=True):
     lib_args = dict((k, []) for k in err)
     for kind, args in calls:
         if kind == "K10-head":
+            probs.fill_(float("nan"))
+            boxes.fill_(float("nan"))
             head(args)
-            p_ref, b_ref = head_ref(args)
-            off, k = args[5], p_ref.shape[1]
+            refs = head_ref(args)
             torch.cuda.synchronize()
-            ep = float((probs[:, off:off + k] - p_ref).abs().max())
-            eb = float((boxes[:, off:off + k] - b_ref).abs().max())
-            check(ep <= BF_PROB_TOL and eb <= BF_BOX_TOL,
-                  f"K10-head at anchor {off}: probs {ep}, boxes {eb} off")
-            err[kind] = max(err[kind], ep)
-            x = args[0]
-            cout = args[1].shape[3] + args[3].shape[3]
-            nbytes[kind] += 4.0 * (x.numel() + x.shape[3] * cout + cout
-                                   + 5 * n * k + 4 * k)
-            flops[kind] += 2.0 * x.numel() * cout
-            w = torch.cat([args[1], args[3]], dim=3)[0, 0].t()[:, :, None, None]
-            lib_args[kind].append((x.permute(0, 3, 1, 2).contiguous(),
-                                   w.contiguous(), None, 1))
+            for (off, p_ref, b_ref), (x, ck, _cb, rk, _rb, _o) in zip(refs, args):
+                k = p_ref.shape[1]
+                ep = float((probs[:, off:off + k] - p_ref).abs().max())
+                eb = float((boxes[:, off:off + k] - b_ref).abs().max())
+                check(ep <= BF_PROB_TOL and eb <= BF_BOX_TOL,
+                      f"K10-head at anchor {off}: probs {ep}, boxes {eb} off")
+                err[kind] = max(err[kind], ep)
+                cout = ck.shape[3] + rk.shape[3]
+                nbytes[kind] += 4.0 * (x.numel() + x.shape[3] * cout + cout
+                                       + 5 * n * k + 4 * k)
+                flops[kind] += 2.0 * x.numel() * cout
+                w = torch.cat([ck, rk], dim=3)[0, 0].t()[:, :, None, None]
+                lib_args[kind].append((x.permute(0, 3, 1, 2).contiguous(),
+                                       w.contiguous(), None, 1))
+            check(not bool(torch.isnan(probs).any() or torch.isnan(boxes).any()),
+                  "K10-head left anchors unwritten")
             continue
         got, ref = run[kind](args), plain[kind](args)
         torch.cuda.synchronize()
@@ -1577,7 +1576,7 @@ def blazeface_rows(torch, model, views, timed=True):
             row["library_ms"] = cuda_ms(torch, timed_lib(kind))
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes[kind], flops[kind])
         count = sum(1 for k, _ in calls if k == kind)
-        times = (f"; the forward's {count} calls: kernel {row['ms']:.4f} ms, "
+        times = (f"; the forward's {count} call(s): kernel {row['ms']:.4f} ms, "
                  f"plain {row['plain_ms']:.4f} ms, F.conv2d "
                  f"{row['library_ms']:.4f} ms" if timed else "")
         print(f"{kind} over {n} views: max error {err[kind]:.3e} "
@@ -1676,9 +1675,11 @@ def phase_face_kernels(torch, dev):
     model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
     rows.update(blazeface_rows(torch, model, views))
     k10_per_layer(torch, model, views)
+    k9_per_layer(torch, model, views)
     for n in (1, 3):
         blazeface_rows(torch, model, views[:n].contiguous(), timed=False)
     k10_edges(torch, dev, rng)
+    k9_edges(torch, dev, rng)
     for n in (1, 3, 64):
         forward_case(torch, model, views[:n].contiguous(), f"N = {n}")
     return rows
@@ -1701,6 +1702,77 @@ def k10_per_layer(torch, model, views):
     print(f"K10 layers summed: {sum(r['ms'] for r in layers):.4f} ms by events, "
           f"{sum(r['device_ms'] for r in layers):.4f} ms device, bound "
           f"{sum(r['bound_ms'] for r in layers):.5f} ms")
+
+
+def k9_per_layer(torch, model, views):
+    """K9's 17 calls of the forward one by one (events, device time, byte
+    bound, plan), then the head form's one call over both maps."""
+    from flyimg_tpu_torch.face_breakdown import head_times, k9_layer_times
+
+    layers = k9_layer_times(model, views, iters=20)
+    for r in layers:
+        print(f"K9 layer {r['layer']}: [{r['n']}, {r['h']}, {r['w']}, {r['cin']}] -> "
+              f"{r['cout']}, stride {r['stride']}: {r['ms']:.4f} ms by events, "
+              f"{r['device_ms']:.4f} ms device, host {r['host_us']:.1f} us; bound "
+              f"{r['bound_ms']:.5f} ms (bytes); plan {r['plan']}")
+    print(f"K9 layers summed: {sum(r['ms'] for r in layers):.4f} ms by events, "
+          f"{sum(r['device_ms'] for r in layers):.4f} ms device, bound "
+          f"{sum(r['bound_ms'] for r in layers):.5f} ms")
+    head = head_times(model, views, iters=20)
+    check(head["launches"] == 1, f"K10-head: {head['launches']} launches a forward")
+    print(f"K10-head over both maps: {head['launches']} launch, {head['ms']:.4f} ms by "
+          f"events, {head['device_ms']:.4f} ms device, host {head['host_us']:.1f} us; "
+          f"bound {head['bound_ms']:.5f} ms (bytes)")
+
+
+def k9_edges(torch, dev, rng):
+    """K9 on shapes its tiling could get wrong, within BF_RTOL of its plain
+    version: odd heights and widths at stride 2, widths no run divides,
+    C = 3 (the full form and a depthwise one), 42 (8-byte staging) and 96,
+    a full form with C_in = 5, N = 1, one row, an input off 16-byte
+    alignment: every instance of the kernel."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    cases = (  # n, h, w, cin, cout, stride, depthwise
+        (1, 17, 17, 3, 24, 2, False), (3, 9, 13, 3, 24, 2, False),
+        (2, 7, 5, 3, 24, 1, False), (1, 128, 128, 3, 24, 2, False),
+        (2, 11, 13, 3, 3, 2, True), (1, 7, 9, 3, 3, 1, True),
+        (3, 13, 11, 42, 42, 2, True), (2, 9, 19, 42, 42, 1, True),
+        (1, 8, 8, 96, 96, 1, True), (1, 5, 3, 96, 96, 1, True),
+        (2, 15, 15, 96, 96, 2, True), (1, 1, 1, 24, 24, 1, True),
+        (5, 1, 37, 28, 28, 2, True), (1, 64, 64, 24, 24, 1, True),
+        (7, 33, 31, 36, 36, 2, True), (1, 12, 12, 5, 12, 1, False),
+        (2, 13, 11, 5, 12, 2, False),
+    )
+    for n, h, w, cin, cout, stride, dw in cases:
+        x = rand(n, h, w, cin)
+        kern = rand(5, 5, 1, cin) if dw else rand(5, 5, cin, cout) * 0.2
+        bias = None if dw else rand(cout)
+        got = bf.conv5x5(x, kern, bias, stride, not dw)
+        ref = bf.conv5x5_plain(x, kern, bias, stride, not dw)
+        torch.cuda.synchronize()
+        e = rel_err(torch, got, ref)
+        check(e <= BF_RTOL, f"K9 edge {n, h, w, cin, cout, stride, dw}: {e} off")
+        plan = bf.k9_plan(n, h, w, cin, cout, stride, dw, bf._sm_count(dev.index))
+        print(f"K9 edge n {n}, {h}x{w}, {cin} -> {cout}, stride {stride}, "
+              f"{'depthwise' if dw else 'full'}: within {e:.2e} relative; "
+              f"plan {tuple(plan)}")
+    for cin, dw in ((24, True), (3, False)):
+        base = rand(1 + 2 * 16 * 16 * cin)
+        x = base[1:].view(2, 16, 16, cin)   # 4 bytes past an aligned start
+        kern = rand(5, 5, 1, cin) if dw else rand(5, 5, cin, 24) * 0.2
+        got = bf.conv5x5(x, kern, None, 2, False)
+        ref = bf.conv5x5_plain(x, kern, None, 2, False)
+        torch.cuda.synchronize()
+        e = rel_err(torch, got, ref)
+        check(e <= BF_RTOL, f"K9 edge, unaligned input C = {cin}: {e} off")
+        print(f"K9 edge, an input 4 bytes off alignment, C = {cin}: "
+              f"within {e:.2e} relative")
 
 
 def k10_edges(torch, dev, rng):

@@ -1,8 +1,8 @@
-"""Where K7's and K10's time goes on the card.
+"""Where K7's, K9's and K10's time goes on the card.
 
     python3 -m flyimg_tpu_torch.face_breakdown [--iters 200]
 
-Two readings, one JSON line each, with the card's name and power limit:
+Four readings, one JSON line each, with the card's name and power limit:
 
 1. K7 (``ops/pixelate.py pixelate_regions_u8``) on a 480x640 answer with
    the boxes facefind finds there, padded to 32: the single call's host time
@@ -23,10 +23,16 @@ Two readings, one JSON line each, with the card's name and power limit:
    host clock, its device time from a ``torch.profiler`` window, and the
    layer's byte bound (input, output, weights and residual once each, at
    3.35 TB/s).
+3. K9 (``models/blazeface.py conv5x5``) at each of the 17 calls of that
+   forward (the stem, then each block's depthwise convolution): the same
+   four numbers (the bound: input, output and filter once each), and the
+   layer's ``k9_plan``.
+4. K10's head form (``head_decode``) as the forward calls it, over both
+   anchor maps: the same four numbers (the bound: both maps, the weights,
+   the anchors read and the probabilities and boxes written once each).
 
-Only the package's public functions are called, so the module runs
-unchanged on an older tree of the package (copy it in) for a before/after
-reading. ``chip_smoke.py`` phase 3 prints both readings too.
+Only the package's public functions are called. ``chip_smoke.py`` phase 3
+prints these readings too.
 """
 
 from __future__ import annotations
@@ -192,18 +198,27 @@ def k7_host_split(image: torch.Tensor, boxes: torch.Tensor, iters: int = 200) ->
     }
 
 
-def blazeface_layer_args(model, views):
-    """(y, kernel, bias, residual, stride) of each of the forward's 16 K10
-    calls, on the plain path."""
+def forward_calls(model, views):
+    """The forward's kernel calls on the plain path: K9's 17 (x, kernel,
+    bias, stride, relu), K10's 16 (y, kernel, bias, residual, stride) and
+    the head form's maps (map, class kernel, class bias, offset kernel,
+    offset bias, anchor offset), each holding its plain twin's input."""
     from flyimg_tpu_torch.models import blazeface as bf
 
-    x = bf.conv5x5_plain(views, model.stem.kernel, model.stem.bias, 2, True)
-    calls = []
-    for block in model.blocks:
-        y = bf.conv5x5_plain(x, block.dw_kernel, None, block.stride, False)
-        calls.append((y, block.pw.kernel, block.pw.bias, x, block.stride))
-        x = bf.pointwise_plain(*calls[-1])
-    return calls
+    k9 = [(views, model.stem.kernel, model.stem.bias, 2, True)]
+    x = bf.conv5x5_plain(*k9[0])
+    k10, maps = [], []
+    for i, block in enumerate(model.blocks):
+        k9.append((x, block.dw_kernel, None, block.stride, False))
+        k10.append((bf.conv5x5_plain(*k9[-1]), block.pw.kernel, block.pw.bias, x,
+                    block.stride))
+        x = bf.pointwise_plain(*k10[-1])
+        if i == bf.X16_BLOCK:
+            maps.append(x)
+    maps.append(x)
+    heads = [(fmap, cls.kernel, cls.bias, reg.kernel, reg.bias, off)
+             for fmap, (cls, reg, off) in zip(maps, model._heads())]
+    return k9, k10, heads
 
 
 def k10_layer_times(model, views, iters: int = 50) -> list:
@@ -213,7 +228,7 @@ def k10_layer_times(model, views, iters: int = 50) -> list:
     from flyimg_tpu_torch.models import blazeface as bf
 
     rows = []
-    for i, args in enumerate(blazeface_layer_args(model, views)):
+    for i, args in enumerate(forward_calls(model, views)[1]):
         y, kernel, _bias, res, stride = args
         n, h, w, cin = y.shape
         cout = kernel.shape[3]
@@ -226,6 +241,53 @@ def k10_layer_times(model, views, iters: int = 50) -> list:
             "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
         })
     return rows
+
+
+def k9_layer_times(model, views, iters: int = 50) -> list:
+    """Each of K9's 17 calls at ``views``: its shape, the single call by CUDA
+    events (ms) and on the host clock (us), its device time, its byte bound
+    (ms) and its plan."""
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    rows = []
+    for i, args in enumerate(forward_calls(model, views)[0]):
+        x, kernel, bias, stride, _relu = args
+        n, h, w, cin = x.shape
+        cout = kernel.shape[3]
+        oh, ow = -(-h // stride), -(-w // stride)
+        nbytes = 4.0 * (x.numel() + n * oh * ow * cout + kernel.numel()
+                        + (0 if bias is None else bias.numel()))
+        depthwise = kernel.shape[2] == 1 and cout == cin
+        plan = bf.k9_plan(n, h, w, cin, cout, stride, depthwise,
+                          bf._sm_count(x.device.index))
+        call = lambda a=args: bf.conv5x5(*a)  # noqa: E731
+        rows.append({
+            "layer": "stem" if i == 0 else i - 1, "n": n, "h": h, "w": w, "cin": cin,
+            "cout": cout, "stride": stride, "ms": _event_ms(call, iters),
+            "host_us": _host_us(call, iters), "device_ms": _device_ms(call, iters, "5x5"),
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "plan": list(plan),
+        })
+    return rows
+
+
+def head_times(model, views, iters: int = 50) -> dict:
+    """The head form over both maps at ``views``: launches, events (ms),
+    host (us), device time (ms) and its byte bound (ms)."""
+    from flyimg_tpu_torch.models import blazeface as bf
+
+    maps = forward_calls(model, views)[2]
+    n = views.shape[0]
+    probs = torch.empty((n, bf.NUM_ANCHORS), device=views.device)
+    boxes = torch.empty((n, bf.NUM_ANCHORS, 4), device=views.device)
+    call = lambda: bf.head_decode(maps, model.anchors, probs, boxes)  # noqa: E731
+    before = bf.head_decode.launches
+    call()
+    nbytes = 4.0 * (sum(sum(t.numel() for t in m[:5]) for m in maps)
+                    + model.anchors.numel() + probs.numel() + boxes.numel())
+    return {"n": n, "launches": bf.head_decode.launches - before,
+            "ms": _event_ms(call, iters), "host_us": _host_us(call, iters),
+            "device_ms": _device_ms(call, iters, "head"),
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
 
 
 def card_line() -> str:
@@ -258,6 +320,15 @@ def main(argv=None) -> int:
                       "total_device_ms": sum(r["device_ms"] for r in layers),
                       "total_host_us": sum(r["host_us"] for r in layers),
                       "total_bound_ms": sum(r["bound_ms"] for r in layers),
+                      "card": card}))
+    k9 = k9_layer_times(model, views, max(10, args.iters // 4))
+    print(json.dumps({"k9_layers": k9, "views": int(views.shape[0]),
+                      "total_ms": sum(r["ms"] for r in k9),
+                      "total_device_ms": sum(r["device_ms"] for r in k9),
+                      "total_host_us": sum(r["host_us"] for r in k9),
+                      "total_bound_ms": sum(r["bound_ms"] for r in k9),
+                      "card": card}))
+    print(json.dumps({"head": head_times(model, views, max(10, args.iters // 4)),
                       "card": card}))
     return 0
 

@@ -12,14 +12,16 @@ from here too.
 Activations stay NHWC and kernels HWIO, as flax stores them. On the card:
 
 - K9 (``conv5x5``, ``csrc/blazeface.cu``): the stem (full 5x5/2
-  convolution + bias + ReLU) and every depthwise 5x5 convolution;
+  convolution + bias + ReLU) and every depthwise 5x5 convolution, in
+  shared-memory tiles with a zero halo (``k9_plan``);
 - K10 (``pointwise``): each block's 1x1 convolution + bias + residual
   (2x2 max-pooled at stride 2, zero-padded in channels) + ReLU; and its
-  head form (``head_decode``): a map's class and offset convolutions with
-  the sigmoid and the anchor decode in the epilogue, written into the
-  [N, 896] probabilities and [N, 896, 4] boxes.
+  head form (``head_decode``, ``head_plan``): both maps' class and offset
+  convolutions with the sigmoid and the anchor decode in the epilogue,
+  written into the [N, 896] probabilities and [N, 896, 4] boxes in one
+  launch.
 
-A forward is 35 launches: 17 of K9, 16 of K10 and 2 of its head form.
+A forward is 34 launches: 17 of K9, 16 of K10 and 1 of its head form.
 ``conv5x5_plain``, ``pointwise_plain`` and ``head_plain`` (+
 ``decode_boxes``) are the plain PyTorch versions (``F.conv2d``,
 ``F.max_pool2d``); each wrapper runs its plain version for a CPU tensor
@@ -39,7 +41,7 @@ import ctypes
 import functools
 import math
 import os
-from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -108,7 +110,8 @@ def conv5x5(x: torch.Tensor, kernel: torch.Tensor,
             bias: Optional[torch.Tensor], stride: int,
             relu: bool) -> torch.Tensor:
     """K9 on a CUDA tensor, ``conv5x5_plain`` on a CPU tensor: f32 NHWC
-    [N, H, W, C_in] -> [N, ceil(H / s), ceil(W / s), C_out]."""
+    [N, H, W, C_in] -> [N, ceil(H / s), ceil(W / s), C_out]; on the card
+    stride 1 or 2, launched as ``k9_plan`` says."""
     if x.dtype != torch.float32 or x.dim() != 4:
         raise ValueError(f"conv5x5 takes f32 NHWC, got {x.dtype} {tuple(x.shape)}")
     n, h, w, cin = x.shape
@@ -122,21 +125,24 @@ def conv5x5(x: torch.Tensor, kernel: torch.Tensor,
     cout = kernel.shape[3]
     if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError(f"bias {tuple(bias.shape)} for C_out = {cout}")
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return conv5x5_plain(x, kernel, bias, stride, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    plan = k9_plan(n, h, w, cin, cout, stride, depthwise, _sm_count(dev.index))
     pt, _, oh = same_pads(h, stride)
     pl, _, ow = same_pads(w, stride)
-    x = x.contiguous()
-    kernel = kernel.detach().contiguous()
-    bias = None if bias is None else bias.detach().contiguous()
-    out = torch.empty((n, oh, ow, cout), dtype=torch.float32, device=x.device)
+    x, kernel = (t if t.is_contiguous() else t.contiguous() for t in (x, kernel))
+    if bias is not None and not bias.is_contiguous():
+        bias = bias.contiguous()
+    out = torch.empty((n, oh, ow, cout), dtype=torch.float32, device=dev)
     rc = _lib().flyimg_bf_conv5x5(
         x.data_ptr(), kernel.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         n, h, w, cin, oh, ow, cout, stride, pt, pl, int(depthwise), int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        plan.th, plan.run, plan.rp, plan.threads, plan.blocks,
+        cuda_build.current_stream(dev.index),
     )
     cuda_build.check(rc, "blazeface conv5x5")
     conv5x5.launches += 1
@@ -233,9 +239,162 @@ def k10_plan(n: int, h: int, w: int, cin: int, cout: int, res_c: int,
         )
     items = -(-cout // K10_CO) * (tile_px // 4)
     threads = min(K10_MAX_THREADS, -(-items // 32) * 32)
-    per_sm = max(1, min(SMEM_SM // (smem + 1024), 2048 // threads))
     tiles = -(-pixels // tile_px)
-    return K10Plan(tile_px, stage_out, threads, min(tiles, sm_count * per_sm), smem)
+    return K10Plan(tile_px, stage_out, threads,
+                   min(tiles, sm_count * _per_sm(smem, threads)), smem)
+
+
+#: the most threads a K9 block takes (csrc kK9MaxThreads)
+K9_MAX_THREADS = 512
+
+
+class K9Plan(NamedTuple):
+    """How K9 walks one layer (``k9_plan``)."""
+
+    th: int           # output rows a tile: a band of one image, the whole width
+    run: int          # output pixels a thread: a run of 8 or 4 consecutive
+                      # ones (depthwise), or 4 pixels k, k + cols, ... (full
+                      # form, csrc kK9FullPx)
+    rp: int           # floats a staged row (bank-padded)
+    threads: int      # threads a block
+    blocks: int       # persistent blocks; block b takes tiles b, b + blocks, ...
+    smem_bytes: int   # dynamic shared memory a block (two stages where a
+                      # block takes more than one tile)
+
+
+def k9_geometry(ow: int, c_in: int, c_out: int, stride: int, depthwise: bool,
+                run: int) -> Tuple[int, int, int]:
+    """(floats a staged pixel, staged columns, items a tile row) of K9 on an
+    output ``ow`` wide. Depthwise: a pixel is ceil4(C) floats, a row's runs
+    of ``run`` outputs read s (runs run - 1) + 5 columns, an item is 4
+    channels x a run. Full form: a pixel is C_in floats, a thread's pixels
+    k, k + cols, ... (cols = ceil(ow / run)) read s (cols run - 1) + 5
+    columns, an item is 8 channels x ``run`` pixels."""
+    runs = -(-ow // run)
+    span = (runs * run - 1) * stride + 5
+    if depthwise:
+        pc = -(-c_in // 4) * 4
+        return pc, span, pc // 4 * runs
+    return c_in, span, -(-c_out // 8) * runs
+
+
+def k9_row_pitch(ow: int, c_in: int, c_out: int, stride: int, depthwise: bool,
+                 run: int) -> int:
+    """A staged row's floats. Depthwise: the smallest pitch >= the row whose
+    16-byte chunks times s are G = ceil(C / 4) modulo 8, so the eight lanes
+    of a shared-memory phase (channel groups fastest, then rows) hit eight
+    banks (none at stride 2 with G odd: the plain row). Full form: the row
+    and up to 3 floats of lead (csrc: the image's first column starts on a
+    copy boundary), to a multiple of 4."""
+    pc, span, _ = k9_geometry(ow, c_in, c_out, stride, depthwise, run)
+    if not depthwise:
+        return (span * pc + 3 + 3) // 4 * 4
+    chunks, g = span * pc // 4, pc // 4
+    for pad in range(8):
+        if (stride * (chunks + pad) - g) % 8 == 0:
+            return 4 * (chunks + pad)
+    return 4 * chunks
+
+
+def k9_smem_bytes(c_in: int, c_out: int, stride: int, depthwise: bool, th: int,
+                  rp: int, stages: int) -> int:
+    """K9's shared memory a block (csrc conv5x5_smem_floats): the filter
+    ([25, ceil4(C)] depthwise, [25 C_in, ceil8(C_out)] full) and ``stages``
+    stages of s (th - 1) + 5 staged rows of ``rp`` floats."""
+    wf = 25 * (-(-c_in // 4) * 4 if depthwise else c_in * (-(-c_out // 8) * 8))
+    return 4 * (wf + stages * ((th - 1) * stride + 5) * rp)
+
+
+#: registers a K9 thread may take (the launch bound's 65,536 / 512)
+K9_REGS = 128
+
+
+def _per_sm(smem: int, threads: int, regs: int = 32) -> int:
+    """Blocks an SM holds at once, by shared memory, threads and registers."""
+    return max(1, min(SMEM_SM // (smem + 1024), 2048 // threads,
+                      65536 // (threads * regs)))
+
+
+@functools.lru_cache(maxsize=512)
+def k9_plan(n: int, h: int, w: int, c_in: int, c_out: int, stride: int,
+            depthwise: bool, sm_count: int = 132) -> K9Plan:
+    """K9's launch plan for a layer with an [n, h, w, c_in] input: in the
+    depthwise form runs of 8 outputs a thread at stride 1 on outputs at least
+    16 wide, else 4 (4 pixels of 8 channels in the full form); tiles of the
+    most output rows (the whole height, else a power of two) whose items fit
+    K9_MAX_THREADS and whose two stages fit a block's shared memory, while
+    there are at least half as many tiles as SMs (else the fewest rows that
+    fit); one stage and a block a tile when every tile fits on the card at
+    once (by shared memory, threads and K9_REGS registers a thread), else two
+    stages and as many persistent blocks as fit. (A sweep of rows 1-64 and
+    runs 4 and 8 on an H100 found these within ~10% of the best at every
+    layer of the 64-view forward; PERF.md.)"""
+    if stride not in (1, 2):
+        raise ValueError(f"conv5x5 on the card takes stride 1 or 2, got {stride}")
+    oh, ow = same_pads(h, stride)[2], same_pads(w, stride)[2]
+    run = 8 if depthwise and stride == 1 and ow >= 16 else 4
+    rp = k9_row_pitch(ow, c_in, c_out, stride, depthwise, run)
+    per_row = k9_geometry(ow, c_in, c_out, stride, depthwise, run)[2]
+
+    def smem(t, stages):
+        return k9_smem_bytes(c_in, c_out, stride, depthwise, t, rp, stages)
+
+    tops = [oh] + [1 << k for k in range(oh.bit_length() - 1, -1, -1) if 1 << k < oh]
+    fit = [t for t in tops if smem(t, 2) <= SMEM_BLOCK_MAX
+           and (t == 1 or t * per_row <= K9_MAX_THREADS)]
+    if not fit:
+        raise ValueError(
+            f"conv5x5: a {c_in} -> {c_out} layer {w} wide at stride {stride} "
+            f"needs {smem(1, 2)} bytes of shared memory for one output row "
+            f"(> {SMEM_BLOCK_MAX})"
+        )
+    th = next((t for t in fit if 2 * n * -(-oh // t) >= sm_count), fit[-1])
+    threads = min(K9_MAX_THREADS, -(-(th * per_row) // 32) * 32)
+    tiles = n * -(-oh // th)
+    if tiles <= sm_count * _per_sm(smem(th, 1), threads, K9_REGS):
+        stages, blocks = 1, tiles
+    else:
+        stages, blocks = 2, min(tiles, sm_count * _per_sm(smem(th, 2), threads, K9_REGS))
+    return K9Plan(th, run, rp, threads, blocks, smem(th, stages))
+
+
+#: threads a block of K10's head form
+HEAD_THREADS = 256
+
+
+class HeadPlan(NamedTuple):
+    """How K10's head form walks the anchor maps (``head_plan``)."""
+
+    threads: int
+    tile_px: Tuple[int, ...]  # contiguous pixels a block, by map
+    tiles: Tuple[int, ...]    # blocks by map; map i's follow map i - 1's
+    smem_bytes: int           # dynamic shared memory a block (the largest map's)
+
+
+def head_smem_bytes(cin: int, na: int, tile_px: int) -> int:
+    """K10 head form's shared memory a block (csrc head_smem_floats): the
+    weight columns [C_in, 5 na] and biases, each from a 16-byte boundary,
+    ``tile_px`` staged pixels and their 5 na logits (rounded up to 4
+    pixels: a thread computes a column of 4)."""
+    cols, px = 5 * na, -(-tile_px // 4) * 4
+    return 4 * ((cin * cols + 3) // 4 * 4 + (cols + 3) // 4 * 4
+                + px * (_row_pitch(cin) + cols))
+
+
+@functools.lru_cache(maxsize=64)
+def head_plan(n: int, maps: Tuple[Tuple[int, int, int], ...]) -> HeadPlan:
+    """The head form's launch plan over ``maps``, (pixels an image, C_in,
+    anchors a pixel) each: a block of HEAD_THREADS a tile of as many pixels,
+    a multiple of 4, as give one item (a column of 4 pixels; a pixel has
+    5 na columns) a thread, so the whole of both maps at 64 views is one wave
+    of small blocks. (A sweep of 64-512 threads and one or two items a
+    thread on an H100 found this the fastest or within a few percent;
+    PERF.md.)"""
+    threads = HEAD_THREADS
+    tile_px = tuple(max(4, threads * 4 // (5 * na) // 4 * 4) for _hw, _c, na in maps)
+    tiles = tuple(-(-n * hw // t) for (hw, _c, _na), t in zip(maps, tile_px))
+    smem = max(head_smem_bytes(c, na, t) for (_hw, c, na), t in zip(maps, tile_px))
+    return HeadPlan(threads, tile_px, tiles, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -307,43 +466,56 @@ def decode_boxes(raw: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx, cy, w, h], dim=-1)
 
 
-def head_decode(x: torch.Tensor, cls_kernel: torch.Tensor, cls_bias: torch.Tensor,
-                reg_kernel: torch.Tensor, reg_bias: torch.Tensor,
-                anchors: torch.Tensor, probs: torch.Tensor, boxes: torch.Tensor,
-                offset: int) -> None:
-    """K10's head form on a CUDA tensor (the plain head, sigmoid and
-    ``decode_boxes`` on a CPU tensor): writes the map's sigmoid
-    probabilities into ``probs`` [N, K] and its decoded boxes into
-    ``boxes`` [N, K, 4] at anchors ``offset`` .. ``offset + H W A``."""
-    n, h, w, cin = x.shape
-    na = cls_kernel.shape[3]
+def head_decode(maps: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor, int]],
+                anchors: torch.Tensor, probs: torch.Tensor, boxes: torch.Tensor) -> None:
+    """K10's head form: for each of the two anchor maps of ``maps`` — (x
+    [N, H, W, C_in], class kernel, class bias, offset kernel, offset bias,
+    anchor offset) — writes the sigmoid probabilities into ``probs`` [N, K]
+    and the decoded boxes into ``boxes`` [N, K, 4] at anchors ``offset`` ..
+    ``offset + H W A``. On CUDA tensors one launch for both maps
+    (``head_plan``); on CPU tensors the plain head, sigmoid and
+    ``decode_boxes`` a map."""
+    if len(maps) != 2:
+        raise ValueError(f"head_decode takes the two anchor maps, got {len(maps)}")
     k = anchors.shape[0]
-    if (tuple(cls_kernel.shape[:3]) != (1, 1, cin)
-            or tuple(reg_kernel.shape) != (1, 1, cin, 4 * na)
-            or tuple(probs.shape) != (n, k) or tuple(boxes.shape) != (n, k, 4)
-            or offset + h * w * na > k):
-        raise ValueError(
-            f"head of {tuple(x.shape)} with kernels {tuple(cls_kernel.shape)}, "
-            f"{tuple(reg_kernel.shape)} does not fit outputs {tuple(probs.shape)} "
-            f"at offset {offset}"
-        )
-    end = offset + h * w * na
-    if x.device.type == "cpu":
-        cls, raw = head_plain(x, cls_kernel, cls_bias, reg_kernel, reg_bias)
-        probs[:, offset:end] = torch.sigmoid(cls)
-        boxes[:, offset:end] = decode_boxes(raw, anchors[offset:end])
+    dev = maps[0][0].device
+    shapes = []
+    for x, cls_kernel, _cb, reg_kernel, _rb, offset in maps:
+        n, h, w, cin = x.shape
+        na = cls_kernel.shape[3]
+        if (tuple(cls_kernel.shape[:3]) != (1, 1, cin)
+                or tuple(reg_kernel.shape) != (1, 1, cin, 4 * na)
+                or tuple(probs.shape) != (n, k) or tuple(boxes.shape) != (n, k, 4)
+                or offset + h * w * na > k or x.device != dev):
+            raise ValueError(
+                f"head of {tuple(x.shape)} with kernels {tuple(cls_kernel.shape)}, "
+                f"{tuple(reg_kernel.shape)} does not fit outputs {tuple(probs.shape)} "
+                f"at offset {offset}"
+            )
+        shapes.append((h * w, cin, na))
+    if dev.type == "cpu":
+        for x, ck, cb, rk, rb, offset in maps:
+            cls, raw = head_plain(x, ck, cb, rk, rb)
+            end = offset + cls.shape[1]
+            probs[:, offset:end] = torch.sigmoid(cls)
+            boxes[:, offset:end] = decode_boxes(raw, anchors[offset:end])
         return
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if not (probs.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("head outputs must be contiguous")
-    x = x.contiguous()
-    args = [t.detach().contiguous() for t in
-            (cls_kernel, cls_bias, reg_kernel, reg_bias, anchors)]
+    plan = head_plan(probs.shape[0], tuple(shapes))
+    # the contiguous copies are held until the launch is queued
+    tensors = [[t if t.is_contiguous() else t.contiguous() for t in m[:5]] for m in maps]
+    anchors = anchors if anchors.is_contiguous() else anchors.contiguous()
+    args = []
+    for i in range(2):
+        args += [t.data_ptr() for t in tensors[i]]
+        args += [*shapes[i], maps[i][5], plan.tile_px[i]]
     rc = _lib().flyimg_bf_head(
-        x.data_ptr(), *(t.data_ptr() for t in args), probs.data_ptr(),
-        boxes.data_ptr(), n, h * w, cin, na, k, offset,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        *args, anchors.data_ptr(), probs.data_ptr(), boxes.data_ptr(),
+        probs.shape[0], k, plan.threads, cuda_build.current_stream(dev.index),
     )
     cuda_build.check(rc, "blazeface head")
     head_decode.launches += 1
@@ -357,9 +529,9 @@ def _lib():
     lib = cuda_build.load("blazeface")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flyimg_bf_conv5x5.argtypes = [p] * 4 + [i] * 12 + [p]
+        lib.flyimg_bf_conv5x5.argtypes = [p] * 4 + [i] * 17 + [p]
         lib.flyimg_bf_pointwise.argtypes = [p] * 5 + [i] * 11 + [p]
-        lib.flyimg_bf_head.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.flyimg_bf_head.argtypes = ([p] * 5 + [i] * 5) * 2 + [p] * 3 + [i] * 3 + [p]
         for fn in (lib.flyimg_bf_conv5x5, lib.flyimg_bf_pointwise,
                    lib.flyimg_bf_head):
             fn.restype = ctypes.c_int
@@ -440,9 +612,9 @@ class BlazeFace(nn.Module):
         n = images.shape[0]
         probs = torch.empty((n, NUM_ANCHORS), dtype=torch.float32, device=x.device)
         boxes = torch.empty((n, NUM_ANCHORS, 4), dtype=torch.float32, device=x.device)
-        for fmap, (cls, reg, offset) in zip(maps, self._heads()):
-            head_decode(fmap, cls.kernel, cls.bias, reg.kernel, reg.bias,
-                        self.anchors, probs, boxes, offset)
+        head_decode([(fmap, cls.kernel, cls.bias, reg.kernel, reg.bias, offset)
+                     for fmap, (cls, reg, offset) in zip(maps, self._heads())],
+                    self.anchors, probs, boxes)
         return probs, boxes
 
     def forward_plain(self, images: torch.Tensor

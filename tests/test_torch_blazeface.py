@@ -303,3 +303,197 @@ def test_k9_k10_match_plain_on_card():
         got = tbf.pointwise(y, kern, bias, res, stride)
         ref = tbf.pointwise_plain(y, kern, bias, res, stride)
         assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    # K9 alone on the ragged shapes its plan is walked on (within 1e-5
+    # relative), the full form with bias and ReLU
+    for n, h, w, cin, cout, stride, dw in K9_RAGGED:
+        x = torch.from_numpy(rng.standard_normal((n, h, w, cin)).astype(np.float32)).to(dev)
+        kshape = (5, 5, 1, cin) if dw else (5, 5, cin, cout)
+        kern = torch.from_numpy(rng.standard_normal(kshape).astype(np.float32)).to(dev)
+        bias = None if dw else torch.from_numpy(
+            rng.standard_normal(cout).astype(np.float32)).to(dev)
+        got = tbf.conv5x5(x, kern, bias, stride, not dw)
+        ref = tbf.conv5x5_plain(x, kern, bias, stride, not dw)
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    # the head form: one launch for both maps, each map's anchors as the
+    # plain head, sigmoid and decode give them
+    maps = [(fmap.contiguous(), cls.kernel, cls.bias, reg.kernel, reg.bias, off)
+            for fmap, (cls, reg, off) in zip(
+                (torch.randn(3, 16, 16, 88, device=dev), torch.randn(3, 8, 8, 96, device=dev)),
+                net._heads())]
+    probs = torch.full((3, tbf.NUM_ANCHORS), float("nan"), device=dev)
+    boxes = torch.full((3, tbf.NUM_ANCHORS, 4), float("nan"), device=dev)
+    before = tbf.head_decode.launches
+    tbf.head_decode(maps, net.anchors, probs, boxes)
+    assert tbf.head_decode.launches == before + 1
+    for x, ck, cb, rk, rb, off in maps:
+        cls, raw = tbf.head_plain(x, ck, cb, rk, rb)
+        end = off + cls.shape[1]
+        assert float((probs[:, off:end] - torch.sigmoid(cls)).abs().max()) <= PROB_TOL
+        ref = tbf.decode_boxes(raw, net.anchors[off:end])
+        assert float((boxes[:, off:end] - ref).abs().max()) <= RAW_TOL
+
+
+def k9_layers():
+    """(h, w, C_in, C_out, stride, depthwise) of the forward's 17 K9 calls at
+    the network's 128x128 input: the stem, then each block's depthwise."""
+    yield tbf.INPUT_SIZE, tbf.INPUT_SIZE, 3, tbf.STEM_FEATURES, 2, False
+    size, c = tbf.INPUT_SIZE // 2, tbf.STEM_FEATURES
+    for features, stride in tbf.BLOCKS:
+        yield size, size, c, c, stride, True
+        size //= stride
+        c = features
+
+
+K9_RAGGED = (  # n, h, w, C_in, C_out, stride, depthwise
+    (1, 17, 17, 3, 24, 2, False), (3, 9, 13, 3, 24, 2, False), (2, 7, 5, 3, 24, 1, False),
+    (2, 11, 13, 3, 3, 2, True), (1, 7, 9, 3, 3, 1, True), (3, 13, 11, 42, 42, 2, True),
+    (2, 9, 19, 42, 42, 1, True), (1, 5, 3, 96, 96, 1, True), (2, 15, 15, 96, 96, 2, True),
+    (1, 1, 1, 24, 24, 1, True), (5, 1, 37, 28, 28, 2, True), (7, 33, 31, 36, 36, 2, True),
+    (1, 12, 12, 5, 12, 1, False), (2, 13, 11, 5, 12, 2, False),
+)
+
+
+def walk_k9(n, h, w, cin, cout, stride, depthwise, sm_count=132):
+    """Walk K9's plan as the kernel does (csrc dw5x5_kernel, full5x5_kernel):
+    persistent blocks over tiles of `th` output rows of one image, items of
+    (channel group, row, run); check that every output is computed exactly
+    once, that each tap of each output reads the staged (row, column) that
+    holds its input (a copied value inside the image, a zero of the halo or
+    of a zeroed row outside it, as SAME padding pads), that the staged row
+    holds every column read and that the plan's shared memory fits."""
+    plan = tbf.k9_plan(n, h, w, cin, cout, stride, depthwise, sm_count)
+    pt, _, oh = tbf.same_pads(h, stride)
+    pl, _, ow = tbf.same_pads(w, stride)
+    pc, span, per_row = tbf.k9_geometry(ow, cin, cout, stride, depthwise, plan.run)
+    th, run = plan.th, plan.run
+    # the kernel's instances: runs of 8 only in the depthwise form at stride 1
+    assert run == (8 if depthwise and stride == 1 and ow >= 16 else 4)
+    sh = (th - 1) * stride + 5
+    bands = -(-oh // th)
+    tiles = n * bands
+    stages = 2 if tiles > plan.blocks else 1
+    assert 1 <= plan.blocks <= tiles
+    assert plan.smem_bytes == tbf.k9_smem_bytes(cin, cout, stride, depthwise, th, plan.rp,
+                                                stages) <= tbf.SMEM_BLOCK_MAX
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= tbf.K9_MAX_THREADS
+    # the full form's rows start up to 3 floats in (csrc: the lead)
+    assert plan.rp % 4 == 0 and plan.rp >= span * pc + (0 if depthwise else 3)
+    # a staged row holds the halo, the copied image row (from column pl),
+    # and the halo again: the copy stays inside the row
+    assert pl + w <= span
+    seen_tiles = np.zeros(tiles, np.int64)
+    for b in range(plan.blocks):
+        seen_tiles[b::plan.blocks] += 1
+    assert (seen_tiles == 1).all()
+    # items of a tile, as the kernel unflattens them
+    it = np.arange(th * per_row)
+    if depthwise:
+        groups = pc // 4
+        rest, g = it // groups, it % groups
+        k, ty = rest // th, rest % th
+        px = k[:, None] * run + np.arange(run)[None, :]           # [items, run]
+        ch = g
+    else:
+        groups = -(-cout // 8)
+        cols = -(-ow // run)
+        rest, g = it // groups, it % groups
+        ty, k = rest // cols, rest % cols
+        px = k[:, None] + cols * np.arange(run)[None, :]
+        ch = g
+    ty2 = np.broadcast_to(ty[:, None], px.shape)
+    ch2 = np.broadcast_to(ch[:, None], px.shape)
+    count = np.zeros((n, oh, ow, groups), np.int64)
+    for t in range(tiles):
+        b, oy0 = t // bands, (t % bands) * th
+        keep = (ty2 < min(th, oh - oy0)) & (px < ow)
+        np.add.at(count, (b, oy0 + ty2[keep], px[keep], ch2[keep]), 1)
+        # the staged window: row r = ty s + ky holds input row oy0 s - pt + r,
+        # column c = x s + kx input column c - pl
+        oy = oy0 + ty2[keep]
+        x = px[keep]
+        for ky in range(5):
+            r = ty2[keep] * stride + ky
+            assert (r < sh).all()
+            iy_staged = oy0 * stride - pt + r
+            assert (iy_staged == oy * stride - pt + ky).all()
+            for kx in range(5):
+                c = x * stride + kx
+                assert (c < span).all()
+                ix = c - pl
+                assert (ix == x * stride - pl + kx).all()
+                inside = (iy_staged >= 0) & (iy_staged < h) & (ix >= 0) & (ix < w)
+                halo_col = (c < pl) | (c >= pl + w)
+                zero_row = (iy_staged < 0) | (iy_staged >= h)
+                assert (inside == ~(halo_col | zero_row)).all()
+    assert (count == 1).all()
+    return plan
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16, 64])
+@pytest.mark.parametrize("layer", range(len(tbf.BLOCKS) + 1))
+def test_k9_plan_covers_every_output_once(layer, batch):
+    """K9's plan at every layer of the 1-, 3-, 16- and 64-view forwards."""
+    h, w, cin, cout, stride, dw = list(k9_layers())[layer]
+    plan = walk_k9(batch, h, w, cin, cout, stride, dw)
+    if batch == 64:   # at least half as many tiles as the card has SMs
+        assert 2 * batch * -(-tbf.same_pads(h, stride)[2] // plan.th) >= 132
+
+
+@pytest.mark.parametrize("case", K9_RAGGED)
+@pytest.mark.parametrize("sm_count", [2, 132])
+def test_k9_plan_on_ragged_shapes(case, sm_count):
+    """Odd sizes at stride 2, widths no run divides, C = 3, 42, 96, N = 1,
+    and few SMs, so blocks walk several tiles in two stages."""
+    walk_k9(*case, sm_count=sm_count)
+
+
+def test_k9_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="stride"):
+        tbf.k9_plan(1, 8, 8, 24, 24, 3, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tbf.k9_plan(1, 8, 4096, 96, 96, 1, True)
+
+
+def test_head_decode_takes_both_maps():
+    """The head form is one launch over both anchor maps; a call with one
+    map is refused before anything is written."""
+    net = tbf.BlazeFace()
+    (cls, reg, off), _ = net._heads()
+    one = [(torch.zeros(1, 16, 16, cls.kernel.shape[2]), cls.kernel, cls.bias,
+            reg.kernel, reg.bias, off)]
+    probs = torch.zeros(1, tbf.NUM_ANCHORS)
+    boxes = torch.zeros(1, tbf.NUM_ANCHORS, 4)
+    with pytest.raises(ValueError, match="two anchor maps"):
+        tbf.head_decode(one, net.anchors, probs, boxes)
+    assert not probs.any() and not boxes.any()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16, 64])
+def test_head_plan_covers_every_anchor_once(batch):
+    """The head form's one launch: the first blocks take the 16x16 map, the
+    rest the 8x8 map; every (view, anchor) of both maps, at the anchor
+    offsets of ``BlazeFace._heads()``, is decoded by exactly one (block,
+    pixel, anchor) item, and a block's staging fits its shared memory."""
+    net = tbf.BlazeFace()
+    heads = net._heads()
+    maps = ((16 * 16, tbf.BLOCKS[tbf.X16_BLOCK][0], tbf.ANCHORS_16),
+            (8 * 8, tbf.BLOCKS[-1][0], tbf.ANCHORS_8))
+    plan = tbf.head_plan(batch, maps)
+    assert plan.smem_bytes <= tbf.SMEM_BLOCK_MAX
+    assert plan.threads % 32 == 0 and plan.threads <= 512
+    count = np.zeros((batch, tbf.NUM_ANCHORS), np.int64)
+    for block in range(sum(plan.tiles)):
+        m = 0 if block < plan.tiles[0] else 1
+        t = block - (0 if m == 0 else plan.tiles[0])
+        hw, cin, na = maps[m]
+        tile = plan.tile_px[m]
+        assert tbf.head_smem_bytes(cin, na, tile) <= plan.smem_bytes
+        p0 = t * tile
+        npx = min(tile, batch * hw - p0)
+        assert npx > 0
+        it = np.arange(npx * na)
+        q = p0 + it // na
+        k = heads[m][2] + (q % hw) * na + it % na
+        np.add.at(count, (q // hw, k), 1)
+    assert (count == 1).all()
+    assert heads[1][2] == 16 * 16 * tbf.ANCHORS_16
