@@ -61,11 +61,17 @@ Phases, in order; any failure exits non-zero without a result line:
              conv2d_weight/conv2d_input, a torch.matmul pair and
              torch.optim.Adam(fused=True) as yardsticks: K11 (K9's
              backward) and K12 (K10's and the heads' backward) within 1e-4
-             of each output's max |value|, K13 (heads + loss + its gradient)
+             of each output's max |value|, each the same bits on a repeated
+             call, K11's input gradient added into a given one (dx_into) in
+             one rounding, and K11's 17 and K12's 20 calls one by one
+             (events, device time, one launch a call, byte bound, the
+             library call, the plan), K13 (heads + loss + its gradient)
              within 1e-5, K14 (Adam) within 1e-6 over three steps; and, not
-             timed, K11-K14 on odd sizes, one member, 1x1 inputs, pixel
-             counts no tile divides, tied 2x2 windows (the residual's
-             gradient equal to its plain version's), a head's strided,
+             timed, K11-K14 on odd and unequal sizes (every stride-2 parity
+             class), one member and 64, 1x1 inputs, one chunk and many, the
+             96x96 dW tile, pixel counts no tile divides, tied 2x2 windows
+             (the residual's gradient equal to its plain version's), a
+             block's K12 then K11 into the residual's gradient, a head's strided,
              scaled and accumulated gradient, K13 at N = 1 and 3, K14 on a
              length no block divides; then K15 (the ring rotate's step) at
              phase 9's shapes (a 960-row visiting tile of the 3840x2160
@@ -1958,37 +1964,16 @@ def train_case(torch, dev, batch, seed):
 def train_layers(torch, model, images, gen):
     """The training forward's backward calls on the plain path, with an
     output gradient drawn from ``gen`` each: [(kind, kwargs)] for K11 (every
-    5x5 convolution), K12 (every block's 1x1 and the four heads) and K13."""
-    from flyimg_tpu_torch.models import blazeface as bf
+    5x5 convolution), K12 (every block's 1x1 and the four heads) and K13
+    (flyimg_tpu_torch/train_breakdown.py backward_calls, and the heads'
+    maps for K13)."""
+    from flyimg_tpu_torch.train_breakdown import backward_calls
 
-    def grad_like(t):
-        return torch.randn(t.shape, generator=gen, device=t.device)
-
-    calls = []
-    x = bf.conv5x5_plain(images, model.stem.kernel, model.stem.bias, 2, True)
-    calls.append(("K11", dict(g=grad_like(x), x=images, kernel=model.stem.kernel, out=x,
-                              stride=2, has_bias=True, need_dx=False)))
-    maps = []
-    for i, block in enumerate(model.blocks):
-        y = bf.conv5x5_plain(x, block.dw_kernel, None, block.stride, False)
-        calls.append(("K11", dict(g=grad_like(y), x=x, kernel=block.dw_kernel, out=None,
-                                  stride=block.stride, has_bias=False, need_dx=True)))
-        out = bf.pointwise_plain(y, block.pw.kernel, block.pw.bias, x, block.stride)
-        calls.append(("K12", dict(g=grad_like(out), y=y, kernel=block.pw.kernel, out=out,
-                                  res=x, stride=block.stride)))
-        x = out
-        if i == bf.X16_BLOCK:
-            maps.append(x)
-    maps.append(x)
-    heads = []
-    for fmap, (cls, reg, _off) in zip(maps, model._heads()):
-        heads.append((cls.kernel, cls.bias, reg.kernel, reg.bias))
-        for conv in (cls, reg):
-            shape = fmap.shape[:3] + (conv.kernel.shape[3],)
-            calls.append(("K12", dict(g=torch.randn(shape, generator=gen, device=fmap.device),
-                                      y=fmap, kernel=conv.kernel)))
-    calls.append(("K13", dict(x16=maps[0], x8=maps[1], heads=tuple(heads))))
-    return calls
+    calls = backward_calls(model, images, gen)
+    heads = [(h[0].kernel, h[0].bias, h[1].kernel, h[1].bias) for h in model._heads()]
+    maps = [a["y"] for _kind, layer, a in calls if layer.endswith("class")]
+    return [(kind, a) for kind, _layer, a in calls] + [
+        ("K13", dict(x16=maps[0], x8=maps[1], heads=tuple(heads)))]
 
 
 def _rel_all(torch, got, ref):
@@ -2001,12 +1986,11 @@ def train_kernel_rows(torch, dev):
     row as the step runs them, with bounds summed over the calls and
     library yardsticks: cuDNN's conv2d_input/conv2d_weight (K11), the
     torch.matmul pair (K12), torch.optim.Adam(fused=True) (K14)."""
-    import torch.nn.functional as F
-
+    from flyimg_tpu_torch import train_breakdown as tb
     from flyimg_tpu_torch.models import blazeface as bf
     from flyimg_tpu_torch.models import blazeface_train as bt
 
-    model, (images, tp, tb, mask) = train_case(torch, dev, TRAIN_BATCH, 5)
+    model, (images, tp, tboxes, mask) = train_case(torch, dev, TRAIN_BATCH, 5)
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = {}
     with torch.no_grad():
@@ -2027,27 +2011,13 @@ def train_kernel_rows(torch, dev):
                          [t for t in ref if t is not None])
             check(e <= TRAIN_RTOL, f"K11 at {tuple(a['x'].shape)}: {e} relative off")
             err = max(err, e)
-            x, g, kern = a["x"], a["g"], a["kernel"]
-            depthwise = kern.shape[2] == 1
-            taps = 25 * (1 if depthwise else x.shape[3])
-            flops += 2.0 * g.numel() * taps * (2 if a["need_dx"] else 1)
-            nbytes += 4.0 * (x.numel() + g.numel() + 2 * kern.numel()
-                             + (g.numel() if a["out"] is not None else 0)
-                             + (x.numel() if a["need_dx"] else 0)
-                             + (kern.shape[3] if a["has_bias"] else 0))
-            n, h, w, cin = x.shape
-            pt, pb, _ = bf.same_pads(h, a["stride"])
-            pl, pr, _ = bf.same_pads(w, a["stride"])
-            gn = g.permute(0, 3, 1, 2).contiguous()
-            xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous()
-            wn = kern.permute(3, 2, 0, 1).contiguous()
-            lib11.append((xp, wn, gn, a["stride"], cin if depthwise else 1, a["need_dx"]))
+            flops += tb.k11_flops(a)
+            nbytes += tb.k11_bytes(a)
+            lib11.append(tb.library_call("K11", a))
 
         def k11_lib():
-            for xp, wn, gn, s, groups, need_dx in lib11:
-                torch.nn.grad.conv2d_weight(xp, wn.shape, gn, stride=s, groups=groups)
-                if need_dx:
-                    torch.nn.grad.conv2d_input(xp.shape, wn, gn, stride=s, groups=groups)
+            for fn in lib11:
+                fn()
 
         rows["K11"] = train_row(
             torch, "K11", len(k11), err, nbytes, flops,
@@ -2068,24 +2038,13 @@ def train_kernel_rows(torch, dev):
             check(e <= TRAIN_RTOL, f"K12 at {tuple(a['y'].shape)} -> "
                   f"{a['kernel'].shape[3]}: {e} relative off")
             err = max(err, e)
-            y, g, kern = a["y"], a["g"], a["kernel"]
-            res, out = a.get("res"), a.get("out")
-            pixels = y.numel() // y.shape[3]
-            flops += 4.0 * pixels * kern.shape[2] * kern.shape[3] + pixels * kern.shape[3]
-            # y, g, out and the kernel read, dy, dW and db written; dres
-            # written, and res read only at stride 2 (the 2x2 argmax): at
-            # stride 1 dres is a slice of g
-            pooled = a.get("stride", 1) == 2
-            nbytes += 4.0 * (2 * y.numel() + g.numel() + 2 * kern.numel() + kern.shape[3]
-                             + (out.numel() if out is not None else 0)
-                             + ((2 if pooled else 1) * res.numel() if res is not None else 0))
-            lib12.append((g.reshape(-1, kern.shape[3]), y.reshape(-1, kern.shape[2]),
-                          kern.reshape(kern.shape[2], kern.shape[3])))
+            flops += tb.k12_flops(a)
+            nbytes += tb.k12_bytes(a)
+            lib12.append(tb.library_call("K12", a))
 
         def k12_lib():
-            for g2, y2, w2 in lib12:
-                torch.matmul(g2, w2.t())
-                torch.matmul(y2.t(), g2)
+            for fn in lib12:
+                fn()
 
         rows["K12"] = train_row(
             torch, "K12", len(k12), err, nbytes, flops,
@@ -2093,8 +2052,29 @@ def train_kernel_rows(torch, dev):
             lambda: [bt.pointwise_backward_plain(**a) for a in k12], k12_lib,
             "torch.matmul pair")
 
+        # the same bits from run to run (no float atomics), and dx added
+        # into a given gradient in one rounding
+        for kind, fn, kind_calls in (("K11", bt.conv5x5_backward, k11),
+                                     ("K12", bt.pointwise_backward, k12)):
+            for a in kind_calls:
+                first, again = fn(**a), fn(**a)
+                check(all(torch.equal(u, v) for u, v in zip(first, again) if v is not None),
+                      f"{kind}: two calls at {tuple(next(iter(a.values())).shape)} differ")
+        for a in k11:
+            if not a["need_dx"]:
+                continue
+            base = torch.randn(a["x"].shape, generator=gen, device=dev)
+            into = bt.conv5x5_backward(**a, dx_into=base.clone())[0]
+            check(torch.equal(into, base + bt.conv5x5_backward(**a)[0]),
+                  f"K11 dx_into at {tuple(a['x'].shape)}: not dres + dx in one rounding")
+            e = rel_err(torch, into, base + bt.conv5x5_backward_plain(**a)[0])
+            check(e <= TRAIN_RTOL, f"K11 dx_into at {tuple(a['x'].shape)}: {e} relative off")
+        print("K11 and K12: equal bits on repeated calls at every training shape; K11's "
+              "dx_into equal to dres + dx")
+        train_per_layer(torch, dev)
+
         # K13
-        args = (k13["x16"], k13["x8"], k13["heads"], tp, tb, mask)
+        args = (k13["x16"], k13["x8"], k13["heads"], tp, tboxes, mask)
         got = bt.head_loss(*args)
         ref = bt.head_loss_plain(*args)
         torch.cuda.synchronize()
@@ -2108,7 +2088,7 @@ def train_kernel_rows(torch, dev):
         # the maps, head parameters, tp and mask read, dlogits written; tb
         # read, draw written; the loss written
         nbytes = 4.0 * (args[0].numel() + args[1].numel() + params + 3 * tp.numel()
-                        + 2 * tb.numel() + 1)
+                        + 2 * tboxes.numel() + 1)
         flops = 2.0 * head_macs + 40.0 * n * bf.NUM_ANCHORS
         rows["K13"] = train_row(
             torch, "K13", 1, max(e, e_loss), nbytes, flops,
@@ -2136,12 +2116,41 @@ def train_kernel_rows(torch, dev):
     return rows
 
 
+def train_per_layer(torch, dev):
+    """K11's 17 and K12's 20 calls of the batch-16 step one by one
+    (flyimg_tpu_torch/train_breakdown.py): events, the wrapper's host time,
+    device time and launches a call, byte bound, the library call's events
+    and device time, the plan; no call may take more than one launch."""
+    from flyimg_tpu_torch.train_breakdown import layer_rows, summary
+
+    rows = list(layer_rows(TRAIN_BATCH, 20, dev, card_line()))
+    for r in rows:
+        # a profiler window sometimes loses a kernel event: more than one
+        # launch a call is what fails
+        check(0 < r["launches"] <= 1, f"{r['kernel']} {r['layer']}: {r['launches']} launches "
+              f"a call")
+        plan = {k: v for k, v in r["plan"].items() if k not in ("smem_bytes", "partial_floats")}
+        print(f"{r['kernel']} {r['layer']}: [{r['n']}, {r['h']}, {r['w']}, {r['cin']}] -> "
+              f"{r['cout']} /{r['stride']}: {r['ms']:.4f} ms by events, {r['host_us']:.1f} us "
+              f"host, {r['device_ms']:.4f} ms device in {r['launches']:g} launch; "
+              f"bound {r['bound_ms']:.5f} ms; "
+              f"{r['library']} {r['library_ms']:.4f} ms, {r['library_device_ms']:.4f} ms device; "
+              f"plan {plan}")
+    for kind, t in summary(rows).items():
+        print(f"{kind} at batch {TRAIN_BATCH}, {t['calls']} calls summed: {t['ms']:.4f} ms by "
+              f"events, {t['host_us']:.1f} us host, {t['device_ms']:.4f} ms device in "
+              f"{t['launches']:g} launches, bound {t['bound_ms']:.5f} ms; library "
+              f"{t['library_ms']:.4f} ms by events, {t['library_device_ms']:.4f} ms device")
+
+
 def train_edges(torch, dev):
     """K11-K14 against their plain twins, not timed, on the shapes their
-    chunking and tiling could get wrong: odd sizes at stride 1 and 2, one
-    member, 1x1 inputs, channel counts that divide nothing, pixel counts
-    no 16-pixel tile divides, tied 2x2 windows of equal zeros and equal
-    positives, a head's strided gradient scaled and added into dy, K13 at
+    chunking and tiling could get wrong: odd and unequal sizes at stride 1
+    and 2 (every parity class), one member and 64, 1x1 inputs, channel
+    counts that divide nothing, one chunk and many (two stages), the 96x96
+    dW tile, pixel counts no tile divides, tied 2x2 windows of equal zeros
+    and equal positives, a block's K12 then K11 adding into the residual's
+    gradient, a head's strided gradient scaled and added into dy, K13 at
     one and three members, K14 on a length no block divides."""
     from flyimg_tpu_torch.models import blazeface as bf
     from flyimg_tpu_torch.models import blazeface_train as bt
@@ -2159,15 +2168,19 @@ def train_edges(torch, dev):
 
     worst = {"K11": 0.0, "K12": 0.0, "K13": 0.0, "K14": 0.0}
     with torch.no_grad():
-        for n, size, c, stride in ((1, 17, 5, 2), (3, 9, 24, 1), (2, 1, 7, 2),
-                                   (1, 2, 96, 2), (2, 33, 28, 2), (1, 6, 3, 1)):
-            x = randn(n, size, size, c)
+        for n, size, c, stride, w in ((1, 17, 5, 2, 17), (3, 9, 24, 1, 9), (2, 1, 7, 2, 1),
+                                      (1, 2, 96, 2, 2), (2, 33, 28, 2, 33), (1, 6, 3, 1, 6),
+                                      # K11's plans: many chunks of two stages, one chunk,
+                                      # stride-2 parity classes on odd and unequal sides
+                                      (64, 64, 24, 1, 64), (64, 8, 96, 1, 8), (1, 8, 96, 2, 8),
+                                      (1, 11, 8, 2, 6), (3, 7, 42, 2, 13), (2, 13, 42, 1, 10)):
+            x = randn(n, size, w, c)
             kern = randn(5, 5, 1, c, scale=0.2)
             y = bf.conv5x5_plain(x, kern, None, stride, False)
             a = dict(g=randn(*y.shape), x=x, kernel=kern, out=None, stride=stride,
                      has_bias=False, need_dx=True)
             worst["K11"] = max(worst["K11"], compare(
-                f"K11 depthwise {n} x {size}x{size}x{c} /{stride}",
+                f"K11 depthwise {n} x {size}x{w}x{c} /{stride}",
                 bt.conv5x5_backward(**a), bt.conv5x5_backward_plain(**a), TRAIN_RTOL))
         for n, size in ((1, 13), (3, 8), (1, 1)):
             x = randn(n, size, size, 3)
@@ -2180,7 +2193,12 @@ def train_edges(torch, dev):
                 bt.conv5x5_backward_plain(**a), TRAIN_RTOL))
         for n, h, cin, cout, cres, stride in ((1, 5, 24, 28, 24, 1), (3, 3, 28, 32, 28, 2),
                                               (2, 7, 96, 96, 96, 2), (1, 1, 5, 9, 4, 2),
-                                              (2, 4, 42, 48, 42, 2)):
+                                              (2, 4, 42, 48, 42, 2),
+                                              # K12's plans: the 96x96 tile at batch 64
+                                              # and 1, many chunks at 64x64, odd sides
+                                              (64, 8, 96, 96, 96, 1), (1, 8, 96, 96, 96, 1),
+                                              (64, 64, 24, 28, 24, 1), (1, 33, 42, 48, 42, 1),
+                                              (3, 9, 7, 13, 7, 2)):
             res = torch.relu(randn(n, stride * h, stride * h, cres))
             if stride == 2:
                 res[:, ::2, 1::2] = res[:, ::2, ::2]      # ties in the top row
@@ -2195,6 +2213,23 @@ def train_edges(torch, dev):
             check(torch.equal(got[3], ref[3]),
                   f"K12 {n} x {h}x{h} /{stride}: the residual's gradient is not its "
                   f"plain version's (ties route to the first maximum)")
+        # a block's backward as _Block chains it: K12, then K11 adding its
+        # input gradient into K12's residual gradient, against the plain sum
+        for n, size, cin, cout, stride in ((3, 16, 42, 48, 2), (2, 64, 24, 28, 1),
+                                           (1, 10, 28, 32, 2)):
+            x = torch.relu(randn(n, size, size, cin))
+            dwk = randn(5, 5, 1, cin, scale=0.2)
+            y = bf.conv5x5_plain(x, dwk, None, stride, False)
+            kern, bias = randn(1, 1, cin, cout, scale=0.2), randn(cout, scale=0.1)
+            out = bf.pointwise_plain(y, kern, bias, x, stride)
+            g = randn(*out.shape)
+            dy, _, _, dres = bt.pointwise_backward(g, y, kern, out, x, stride)
+            got = bt.conv5x5_backward(dy, x, dwk, None, stride, dx_into=dres)[0]
+            pdy, _, _, pdres = bt.pointwise_backward_plain(g, y, kern, out, x, stride)
+            ref = pdres + bt.conv5x5_backward_plain(pdy, x, dwk, None, stride, False, True)[0]
+            worst["K11"] = max(worst["K11"], compare(
+                f"K12 then K11 into dres, {n} x {size}x{size}x{cin} /{stride}", [got], [ref],
+                TRAIN_RTOL))
         full = randn(3, bf.NUM_ANCHORS, 4)
         x8 = randn(3, 8, 8, 96)
         kern = randn(1, 1, 96, 24, scale=0.1)

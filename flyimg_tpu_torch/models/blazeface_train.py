@@ -13,10 +13,11 @@ service's ``face_checkpoint`` read.
 The train step runs through ``torch.autograd.Function``s whose forward is
 the serving kernels and whose backward is this module's:
 
-- ``_Conv5x5``: forward K9 (``conv5x5``), backward K11
+- ``_Conv5x5`` (the stem): forward K9 (``conv5x5``), backward K11
   (``conv5x5_backward``, ``csrc/blazeface_train.cu``);
-- ``_Pointwise``: forward K10 (``pointwise``), backward K12
-  (``pointwise_backward``);
+- ``_Block`` (each BlazeBlock): forward K9 then K10 (``pointwise``),
+  backward K12 (``pointwise_backward``) then K11, which adds the depthwise
+  convolution's input gradient into K12's residual gradient;
 - ``_HeadLoss``: forward K13 (``head_loss``: both maps' head products, the
   sigmoid, the loss and its gradient in the logits and raw offsets),
   backward the heads' 1x1 products through K12 with no ReLU and no
@@ -36,8 +37,10 @@ CUDA tensor it launches its kernel or raises. The plain reference is
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,10 +52,6 @@ from flyimg_tpu_torch.models import blazeface as bf
 
 LEARNING_RATE = 1e-3
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-#: the number of per-chunk partial sums K11 and K12 aim for (a reduction
-#: over pixels is two-stage: chunks, then the chunks in order)
-CHUNK_TARGET = 256
-K12_TILE = 16
 #: flax's lecun_normal: a standard normal truncated to [-2, 2], scaled so
 #: that the variance is 1 / fan_in (this is that normal's std)
 _TRUNC_STD = 0.87962566103423978
@@ -100,22 +99,221 @@ def _put(result: Optional[torch.Tensor], out: Optional[torch.Tensor]):
 
 
 # ---------------------------------------------------------------------------
+# K11 and K12: launch plans and scratch
+# ---------------------------------------------------------------------------
+
+#: threads a K11 or K12 block (csrc kThreads)
+TRAIN_THREADS = 256
+#: K11: channels a slice (a block takes one), outputs a thread's window
+#: slides over (csrc kRun), sums a dk thread hands to the lane reduction
+K11_SLICE = 8
+K11_RUN = 4
+K11_RED = 24
+#: K11: the most chunks a slice's tiles are cut into (each a block whose
+#: partial the slice's last block sums), and the shared memory a plan aims
+#: under (two blocks an SM)
+K11_MAX_CHUNKS = 64
+K11_SMEM_TARGET = 110 * 1024
+#: K12: the most channels on a side of a dW tile, pixels staged at a time by
+#: a dW block and its stages (csrc kDwSubPx, kDwStages), the fewest pixels a chunk,
+#: dW blocks an SM, the most partial floats a tile, the most chunks one
+#: block sums alone (more are summed in two levels), sums a dW thread hands
+#: to the lane reduction
+K12_MAX_TILE = 32
+K12_SUB_PX = 32
+K12_STAGES = 4
+K12_MIN_CHUNK_PX = 64
+K12_WAVES = 2
+K12_PARTIAL_CAP = 262144
+K12_ONE_LEVEL = 24
+K12_RED = 20
+
+
+def _ceil4(c: int) -> int:
+    return -(-c // 4) * 4
+
+
+def _bank_pitch(floats: int, c4: int) -> int:
+    """The smallest multiple of 4 floats >= ``floats`` whose 16-byte chunks
+    are c4 modulo 8: staged rows that many chunks apart put the c4 channel
+    groups of eight consecutive rows on eight distinct banks."""
+    chunks = -(-floats // 4)
+    return 4 * next(chunks + pad for pad in range(8) if (chunks + pad - c4) % 8 == 0)
+
+
+class K11Plan(NamedTuple):
+    """How K11 walks one layer (``k11_plan``)."""
+
+    cs: int               # channels a slice (depthwise C, else C_out); a multiple of 4
+    slices: int
+    tho: int              # output-gradient rows a tile (a band of one image, the whole width)
+    bands: int
+    tiles_per_chunk: int
+    chunks: int           # a block a (slice, chunk); blocks = slices x chunks
+    g_rows: int           # staged rows: g (the band and its halo), x (under the band)
+    gp: int               # floats a staged g row
+    x_rows: int
+    xp: int               # floats a staged x row
+    lanes: int            # threads sharing one dk sum (a float4 of channels x a kernel row)
+    stages: int
+    smem_bytes: int
+    partial_floats: int   # the dk partials of every (slice, chunk)
+
+
+def _k11_gw_cols(w: int, stride: int, depthwise: bool) -> int:
+    """g window columns K11 reads (csrc k11_gw_cols): the runs of 4 outputs
+    past the row's end, and at stride 2 each parity class's runs."""
+    pl, _, ow = bf.same_pads(w, stride)
+    runs = -(-ow // K11_RUN)
+    if not depthwise:
+        return runs * K11_RUN
+    if stride == 1:
+        return runs * K11_RUN + 4
+    need = runs * K11_RUN + 2
+    for px in (0, 1):
+        n_lo, n_hi = (pl - px + 1) // 2, (w - 1 + pl - px) // 2
+        need = max(need, n_lo + -(-max(0, n_hi - n_lo + 1) // K11_RUN) * K11_RUN + 2)
+    return need
+
+
+@functools.lru_cache(maxsize=512)
+def k11_plan(n: int, h: int, w: int, cin: int, cout: int, stride: int, depthwise: bool,
+             masked: bool, sm_count: int = 132) -> K11Plan:
+    """K11's launch plan for a layer with an [n, h, w, cin] input: slices of
+    K11_SLICE channels (depthwise) or output channels (the stem); tiles of
+    the output-gradient rows that give the block's threads about one dx item
+    each (a float4 x a run of 4), or 4 rows for the stem, shrunk while two
+    stages exceed K11_SMEM_TARGET; the tiles cut into at most K11_MAX_CHUNKS
+    chunks a slice, about two blocks an SM in all."""
+    if stride not in (1, 2):
+        raise ValueError(f"conv5x5_backward on the card takes stride 1 or 2, got {stride}")
+    oh, ow = bf.same_pads(h, stride)[2], bf.same_pads(w, stride)[2]
+    c = cin if depthwise else cout
+    cs = min(K11_SLICE, _ceil4(c))
+    c4 = cs // 4
+    runs = -(-ow // K11_RUN)
+    qn = 5 * c4 * (1 if depthwise else cin)
+    if qn > TRAIN_THREADS:
+        raise ValueError(f"conv5x5_backward: {cin} input channels are more than a block takes")
+    lanes = TRAIN_THREADS // qn
+    gw = _k11_gw_cols(w, stride, depthwise)
+    xw = (runs * K11_RUN - 1) * stride + 5
+    if depthwise:
+        gp, xp = _bank_pitch(gw * cs, c4), _bank_pitch(xw * cs, c4)
+    else:
+        gp, xp = gw * cs, _ceil4(3 + xw * cin)
+
+    def rows(tho):
+        g_rows = tho + (4 if stride == 1 else 3) if depthwise else tho
+        return g_rows, (tho - 1) * stride + 5
+
+    def smem(tho, stages):
+        g_rows, x_rows = rows(tho)
+        stage = (2 if masked else 1) * g_rows * gp + x_rows * xp
+        return 4 * max((25 * cs if depthwise else 0) + stages * stage, TRAIN_THREADS * K11_RED)
+
+    want = -(-TRAIN_THREADS // (c4 * runs * stride * stride)) if depthwise else 4
+    tho = max(1, min(oh, want))
+    while tho > 1 and smem(tho, 2) > K11_SMEM_TARGET:
+        tho -= 1
+    if smem(tho, 2) > bf.SMEM_BLOCK_MAX:
+        raise ValueError(f"conv5x5_backward: a layer {w} wide with {cin} -> {cout} channels "
+                         f"needs {smem(tho, 2)} bytes of shared memory for one row")
+    bands = -(-oh // tho)
+    tiles = n * bands
+    slices = -(-c // cs)
+    chunks = min(tiles, -(-2 * sm_count // slices), K11_MAX_CHUNKS)
+    tpc = -(-tiles // chunks)
+    chunks = -(-tiles // tpc)
+    stages = 2 if tpc > 1 else 1
+    g_rows, x_rows = rows(tho)
+    part = (26 if depthwise else 25 * cin + 1) * cs
+    return K11Plan(cs, slices, tho, bands, tpc, chunks, g_rows, gp, x_rows, xp, lanes,
+                   stages, smem(tho, stages), slices * chunks * part)
+
+
+class K12Plan(NamedTuple):
+    """How K12 walks one layer (``k12_plan``)."""
+
+    dy_tile: int        # pixels a dy block: 64, 32 or 16
+    dy_blocks: int
+    tci: int            # a dW tile's channels: ci (a multiple of 4, <= K12_MAX_TILE)
+    tco: int            # ... and co
+    ci_tiles: int
+    co_tiles: int
+    chunk_px: int       # pixels a dW block (a multiple of K12_SUB_PX)
+    chunks: int         # dW blocks = ci_tiles x co_tiles x chunks, launched first
+    group: int          # chunks a group: the last block of each sums the group's
+                        # partials, the last of those the tile's group sums
+    smem_bytes: int
+    partial_floats: int  # the dW/db partials of every (tile, chunk), then the group sums
+    counters: int        # tickets: a tile's groups and the tile
+
+
+@functools.lru_cache(maxsize=512)
+def k12_plan(n: int, h: int, w: int, cin: int, cout: int, masked: bool,
+             sm_count: int = 132) -> K12Plan:
+    """K12's launch plan for a layer of [n, h, w] pixels: dy blocks of the
+    largest of 64, 32, 16 pixels that still gives half as many blocks as
+    SMs; dW tiles of at most K12_MAX_TILE x K12_MAX_TILE channels, each
+    tile's pixels cut into about K12_WAVES dW blocks an SM in all (chunks of
+    at least K12_MIN_CHUNK_PX pixels, and no more than keeps a tile's
+    partials within K12_PARTIAL_CAP floats); more than K12_ONE_LEVEL chunks
+    are summed in groups of about sqrt(chunks), so that no one block sums
+    more than ~2 sqrt(chunks) partials. (Sweeps of the waves and the cap on
+    an H100 chose these; PERF.md, PR 10.)"""
+    pixels = n * h * w
+    dy_tile = next((t for t in (64, 32) if pixels >= t * sm_count // 2), 16)
+    tci, tco = min(K12_MAX_TILE, _ceil4(cin)), min(K12_MAX_TILE, _ceil4(cout))
+    ci_tiles, co_tiles = -(-cin // tci), -(-cout // tco)
+    tiles = ci_tiles * co_tiles
+    tsz = tci * tco + tco
+    chunks = max(1, min(-(-pixels // K12_MIN_CHUNK_PX), -(-K12_WAVES * sm_count // tiles),
+                        K12_PARTIAL_CAP // tsz))
+    chunk_px = -(-(-(-pixels // chunks)) // K12_SUB_PX) * K12_SUB_PX
+    chunks = -(-pixels // chunk_px)
+    wp = bf._row_pitch(cout)
+    k = 2 if masked else 1
+    dy_floats = (_ceil4(cin) + k * dy_tile) * wp
+    dw_floats = max(K12_STAGES * K12_SUB_PX * (bf._row_pitch(tci) + k * bf._row_pitch(tco)),
+                    TRAIN_THREADS * K12_RED)
+    group = chunks if chunks <= K12_ONE_LEVEL else math.isqrt(chunks - 1) + 1
+    groups = -(-chunks // group)
+    return K12Plan(dy_tile, -(-pixels // dy_tile), tci, tco, ci_tiles, co_tiles, chunk_px,
+                   chunks, group, 4 * max(dy_floats, dw_floats),
+                   tiles * (chunks + groups) * tsz, tiles * (groups + 1))
+
+
+#: (device index, stream) -> (f32 partials, int32 ticket counters): K11's
+#: and K12's scratch, grown as a layer needs and kept, the counters left at
+#: zero by the kernels (calls on one stream run in order)
+_SCRATCH = {}
+
+
+def _scratch(dev: torch.device, stream: int, floats: int, counters: int):
+    key = (dev.index, stream)
+    part, count = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+    if count is None or count.numel() < counters:
+        count = torch.zeros(max(counters, 64), dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part, count)
+    return part, count
+
+
+# ---------------------------------------------------------------------------
 # K11: the backward of K9
 # ---------------------------------------------------------------------------
 
 
-def k11_plan(n: int, oh: int) -> Tuple[int, int]:
-    """(output rows a chunk, chunks) of K11's weight-gradient reduction."""
-    rows = max(1, -(-n * oh // CHUNK_TARGET))
-    return rows, -(-n * oh // rows)
-
-
 def conv5x5_backward_plain(g: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
                            out: Optional[torch.Tensor], stride: int, has_bias: bool,
-                           need_dx: bool):
+                           need_dx: bool, dx_into: Optional[torch.Tensor] = None):
     """The plain version of K11: (dx or None, dkernel HWIO, dbias or None)
     of ``conv5x5(x, kernel, bias, stride, relu)`` given the output gradient
-    ``g``; ``out`` is the saved output when the layer had a ReLU."""
+    ``g``; ``out`` is the saved output when the layer had a ReLU. With
+    ``dx_into`` the input gradient is added into it in place (``dx_into +=
+    dx``) and dx is ``dx_into``."""
     n, h, w, cin = x.shape
     pt, pb, _ = bf.same_pads(h, stride)
     pl, pr, _ = bf.same_pads(w, stride)
@@ -132,17 +330,23 @@ def conv5x5_backward_plain(g: torch.Tensor, x: torch.Tensor, kernel: torch.Tenso
     if need_dx:
         dxp = torch.nn.grad.conv2d_input(xp.shape, wn, gn, stride=stride, groups=groups)
         dx = dxp[:, :, pt:pt + h, pl:pl + w].permute(0, 2, 3, 1).contiguous()
+        if dx_into is not None:
+            dx = dx_into.add_(dx)
     return dx, dk, db
 
 
 def conv5x5_backward(g: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
                      out: Optional[torch.Tensor] = None, stride: int = 1,
                      has_bias: bool = False, need_dx: bool = True,
-                     grads_out: Optional[Tuple] = None):
-    """K11 on a CUDA tensor, ``conv5x5_backward_plain`` on a CPU tensor.
-    The input gradient is taken of depthwise convolutions only (the stem's
-    input is the images). ``grads_out``: (dkernel, dbias or None), where
-    the weight gradients are written instead of new tensors."""
+                     grads_out: Optional[Tuple] = None,
+                     dx_into: Optional[torch.Tensor] = None):
+    """K11 on a CUDA tensor (one launch, as ``k11_plan`` says),
+    ``conv5x5_backward_plain`` on a CPU tensor. The input gradient is taken
+    of depthwise convolutions only (the stem's input is the images); with
+    ``dx_into`` (a contiguous f32 tensor of x's shape, K12's residual
+    gradient in a block) it is added into that in place and returned.
+    ``grads_out``: (dkernel, dbias or None), where the weight gradients are
+    written instead of new tensors."""
     n, h, w, cin = x.shape
     depthwise = bf._is_depthwise(kernel, cin)
     cout = kernel.shape[3]
@@ -153,47 +357,49 @@ def conv5x5_backward(g: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor,
     if need_dx and not depthwise:
         raise ValueError("conv5x5_backward takes the input gradient of depthwise "
                          "convolutions only")
+    if dx_into is not None and (not need_dx or tuple(dx_into.shape) != tuple(x.shape)
+                                or dx_into.dtype != torch.float32
+                                or not dx_into.is_contiguous()):
+        raise ValueError("dx_into must be a contiguous f32 tensor of x's shape, and the "
+                         "input gradient taken")
     dk_out, db_out = (None, None) if grads_out is None else grads_out
     if not _on_card("conv5x5_backward", x=x, g=g, kernel=kernel, out=out,
-                    dkernel=dk_out, dbias=db_out):
-        dx, dk, db = conv5x5_backward_plain(g, x, kernel, out, stride, has_bias, need_dx)
+                    dkernel=dk_out, dbias=db_out, dx_into=dx_into):
+        dx, dk, db = conv5x5_backward_plain(g, x, kernel, out, stride, has_bias, need_dx,
+                                            dx_into)
         return dx, _put(dk, dk_out), _put(db, db_out)
     pt, _, _ = bf.same_pads(h, stride)
     pl, _, _ = bf.same_pads(w, stride)
     x, g, kernel = x.contiguous(), g.contiguous(), kernel.detach().contiguous()
     out = None if out is None else out.contiguous()
-    rows, chunks = k11_plan(n, oh)
-    q = cin if depthwise else cin * cout
-    m = 25 * q + (cout if has_bias else 0)
-    partial = torch.empty(chunks * m, dtype=torch.float32, device=x.device)
+    dev = x.device
+    plan = k11_plan(n, h, w, cin, cout, stride, depthwise, out is not None,
+                    bf._sm_count(dev.index))
+    stream = cuda_build.current_stream(dev.index)
+    partial, counters = _scratch(dev, stream, plan.partial_floats, plan.slices)
     dk = _grad_out(dk_out, kernel.shape, x, "conv5x5_backward dkernel")
     db = _grad_out(db_out, (cout,), x, "conv5x5_backward dbias") if has_bias else None
-    dx = torch.empty_like(x) if need_dx else None
+    dx = None
+    if need_dx:
+        dx = dx_into if dx_into is not None else torch.empty_like(x)
     rc = _lib().flyimg_bf_conv5x5_backward(
-        x.data_ptr(), g.data_ptr(), _ptr(out), kernel.data_ptr(), _ptr(dx),
-        dk.data_ptr(), _ptr(db), partial.data_ptr(), n, h, w, cin, oh, ow, cout,
-        stride, pt, pl, int(depthwise), rows, _stream(x),
+        x.data_ptr(), g.data_ptr(), _ptr(out), kernel.data_ptr(), _ptr(dx), _ptr(dx_into),
+        dk.data_ptr(), _ptr(db), partial.data_ptr(), counters.data_ptr(), n, h, w, cin, oh,
+        ow, cout, stride, pt, pl, int(depthwise), plan.cs, plan.tho, plan.tiles_per_chunk,
+        plan.gp, plan.xp, plan.lanes, stream,
     )
     cuda_build.check(rc, "blazeface conv5x5_backward")
     conv5x5_backward.launches += 1
     return dx, dk, db
 
 
-#: K11 launches since the last reset (a call is three launches, two
-#: without the input gradient)
+#: K11 launches since the last reset (one a call)
 conv5x5_backward.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # K12: the backward of K10, and of the heads
 # ---------------------------------------------------------------------------
-
-
-def k12_plan(pixels: int) -> Tuple[int, int]:
-    """(pixels a chunk, a multiple of the 16-pixel tile; chunks) of K12."""
-    per = -(-pixels // CHUNK_TARGET)
-    per = max(K12_TILE, -(-per // K12_TILE) * K12_TILE)
-    return per, -(-pixels // per)
 
 
 def _pool_backward(g: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -234,11 +440,11 @@ def pointwise_backward_plain(g, y, kernel, out=None, res=None, stride=1, gscale=
 
 def pointwise_backward(g, y, kernel, out=None, res=None, stride=1, gscale=None, dy=None,
                        grads_out=None):
-    """K12 on a CUDA tensor, ``pointwise_backward_plain`` on a CPU tensor.
-    ``g`` [N, H, W, C_out] may have any member stride (a head's slice of
-    the [N, 896] gradients) but dense pixels and channels. ``grads_out``:
-    (dkernel, dbias), where the weight gradients are written instead of
-    new tensors."""
+    """K12 on a CUDA tensor (one launch, as ``k12_plan`` says),
+    ``pointwise_backward_plain`` on a CPU tensor. ``g`` [N, H, W, C_out] may
+    have any member stride (a head's slice of the [N, 896] gradients) but
+    dense pixels and channels. ``grads_out``: (dkernel, dbias), where the
+    weight gradients are written instead of new tensors."""
     n, h, w, cin = y.shape
     cout = kernel.shape[3]
     if tuple(kernel.shape[:3]) != (1, 1, cin) or tuple(g.shape) != (n, h, w, cout):
@@ -261,8 +467,10 @@ def pointwise_backward(g, y, kernel, out=None, res=None, stride=1, gscale=None, 
     out = None if out is None else out.contiguous()
     res = None if res is None else res.contiguous()
     gscale = None if gscale is None else gscale.detach().contiguous()
-    chunk_px, chunks = k12_plan(n * h * w)
-    partial = torch.empty(chunks * (cin * cout + cout), dtype=torch.float32, device=y.device)
+    dev = y.device
+    plan = k12_plan(n, h, w, cin, cout, out is not None, bf._sm_count(dev.index))
+    stream = cuda_build.current_stream(dev.index)
+    partial, counters = _scratch(dev, stream, plan.partial_floats, plan.counters)
     dk = _grad_out(dk_out, kernel.shape, y, "pointwise_backward dkernel")
     db = _grad_out(db_out, (cout,), y, "pointwise_backward dbias")
     accumulate = dy is not None
@@ -272,16 +480,16 @@ def pointwise_backward(g, y, kernel, out=None, res=None, stride=1, gscale=None, 
     rc = _lib().flyimg_bf_pointwise_backward(
         g.data_ptr(), g.stride(0), _ptr(gscale), _ptr(out), y.data_ptr(),
         kernel.data_ptr(), _ptr(res), dy.data_ptr(), _ptr(dres), dk.data_ptr(),
-        db.data_ptr(), partial.data_ptr(), n, h, w, cin, cout,
+        db.data_ptr(), partial.data_ptr(), counters.data_ptr(), n, h, w, cin, cout,
         0 if res is None else res.shape[3], int(stride == 2), int(accumulate),
-        chunk_px, _stream(y),
+        plan.dy_tile, plan.tci, plan.tco, plan.chunk_px, plan.group, stream,
     )
     cuda_build.check(rc, "blazeface pointwise_backward")
     pointwise_backward.launches += 1
     return dy, dk, db, dres
 
 
-#: K12 launches since the last reset (a call is two launches)
+#: K12 launches since the last reset (one a call)
 pointwise_backward.launches = 0
 
 
@@ -441,9 +649,9 @@ def _lib():
     lib = cuda_build.load("blazeface_train")
     if not getattr(lib, "_flyimg_bound", False):
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.flyimg_bf_conv5x5_backward.argtypes = [p] * 8 + [i] * 12 + [p]
+        lib.flyimg_bf_conv5x5_backward.argtypes = [p] * 10 + [i] * 17 + [p]
         lib.flyimg_bf_pointwise_backward.argtypes = (
-            [p, ll] + [p] * 10 + [i] * 9 + [p])
+            [p, ll] + [p] * 11 + [i] * 13 + [p])
         lib.flyimg_bf_head_loss.argtypes = (
             ([p] * 5 + [i] * 3) * 2 + [p] * 7 + [i, f, f, p])
         lib.flyimg_bf_adam.argtypes = [p] * 4 + [ll] + [f] * 8 + [p]
@@ -484,24 +692,32 @@ class _Conv5x5(torch.autograd.Function):
         return dx, dk, db, None, None, None
 
 
-class _Pointwise(torch.autograd.Function):
-    """K10 forward, K12 backward."""
+class _Block(torch.autograd.Function):
+    """A BlazeBlock: K9 (the depthwise 5x5) then K10 forward; K12 then K11
+    backward, K11 adding its input gradient into K12's residual gradient,
+    so the block input gets one gradient and autograd adds nothing."""
 
     @staticmethod
-    def forward(ctx, y, kernel, bias, res, stride, into):
-        out = bf.pointwise(y, kernel, bias, res, stride)
+    def forward(ctx, x, dw_kernel, pw_kernel, pw_bias, stride, into):
+        y = bf.conv5x5(x, dw_kernel, None, stride, False)
+        out = bf.pointwise(y, pw_kernel, pw_bias, x, stride)
         ctx.stride, ctx.into = stride, into
-        ctx.save_for_backward(y, kernel, res, out)
+        ctx.save_for_backward(x, dw_kernel, y, pw_kernel, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        y, kernel, res, out = ctx.saved_tensors
-        dy, dk, db, dres = pointwise_backward(g, y, kernel, out, res, ctx.stride,
-                                              grads_out=ctx.into)
+        x, dw_kernel, y, pw_kernel, out = ctx.saved_tensors
+        into = (None, None, None) if ctx.into is None else ctx.into
+        dy, dpk, dpb, dres = pointwise_backward(
+            g, y, pw_kernel, out, x, ctx.stride,
+            grads_out=None if ctx.into is None else into[1:])
+        dx, ddk, _ = conv5x5_backward(
+            dy, x, dw_kernel, None, ctx.stride, False, True,
+            None if ctx.into is None else (into[0], None), dx_into=dres)
         if ctx.into is not None:
-            dk = db = None
-        return dy, dk, db, dres, None, None
+            ddk = dpk = dpb = None
+        return dx, ddk, dpk, dpb, None, None
 
 
 class _HeadLoss(torch.autograd.Function):
@@ -568,10 +784,8 @@ def _kernel_loss(model, images, target_probs, target_boxes, anchor_mask, into_fl
                        into(model.stem.kernel, model.stem.bias))
     maps = []
     for i, block in enumerate(model.blocks):
-        y = _Conv5x5.apply(x, block.dw_kernel, None, block.stride, False,
-                           into(block.dw_kernel, None))
-        x = _Pointwise.apply(y, block.pw.kernel, block.pw.bias, x, block.stride,
-                             into(block.pw.kernel, block.pw.bias))
+        x = _Block.apply(x, block.dw_kernel, block.pw.kernel, block.pw.bias, block.stride,
+                         into(block.dw_kernel, block.pw.kernel, block.pw.bias))
         if i == bf.X16_BLOCK:
             maps.append(x)
     heads = _head_params(model)

@@ -471,3 +471,239 @@ def test_k11_to_k14_match_twins_on_card():
         bt.adam_update_plain(b[0], g, b[1], b[2], step)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# K11's and K12's launch plans (the kernels' index math, mirrored)
+# ---------------------------------------------------------------------------
+
+
+def _k11_calls():
+    """(n-less) K11 calls of the train step: (h, w, cin, cout, stride,
+    depthwise, masked) for the stem and each block's depthwise 5x5."""
+    calls = [(128, 128, 3, 24, 2, False, True)]
+    size, c = 64, tbf.STEM_FEATURES
+    for feat, stride in tbf.BLOCKS:
+        calls.append((size, size, c, c, stride, True, False))
+        size, c = -(-size // stride), feat
+    return calls
+
+
+def _k12_calls():
+    """K12 calls of the train step: (h, w, cin, cout, masked) for each
+    block's 1x1 and the four heads."""
+    calls, size, c = [], 64, tbf.STEM_FEATURES
+    for feat, stride in tbf.BLOCKS:
+        size = -(-size // stride)
+        calls.append((size, size, c, feat, True))
+        c = feat
+    return calls + [(16, 16, 88, 2, False), (16, 16, 88, 8, False), (8, 8, 96, 6, False),
+                    (8, 8, 96, 24, False)]
+
+
+#: edge shapes of chip_smoke.py train_edges and of the new plans' edges:
+#: (n, h, w, c, stride) depthwise, (n, h, w) stems
+K11_EDGES = [(1, 17, 17, 5, 2), (3, 9, 9, 24, 1), (2, 1, 1, 7, 2), (1, 2, 2, 96, 2),
+             (2, 33, 33, 28, 2), (1, 6, 6, 3, 1), (1, 13, 13, 42, 1), (2, 33, 33, 42, 2),
+             (1, 11, 6, 8, 2), (1, 10, 7, 12, 1), (64, 64, 64, 24, 1), (1, 64, 64, 28, 2)]
+K11_STEM_EDGES = [(1, 13, 13), (3, 8, 8), (1, 1, 1), (64, 128, 128)]
+K12_EDGES = [(1, 5, 5, 24, 28), (3, 3, 3, 28, 32), (2, 7, 7, 96, 96), (1, 1, 1, 5, 9),
+             (2, 4, 4, 42, 48), (1, 33, 33, 42, 48), (64, 8, 8, 96, 96), (1, 9, 9, 7, 13)]
+
+
+def _k11_dx_outputs(h, w, stride, plan, oy0):
+    """The (iy, ix) K11's dx items write for the band at oy0, by the
+    kernel's decomposition (csrc dw_backward_kernel), with the staged g
+    window's row and column reads each item makes."""
+    pt, _, oh = tbf.same_pads(h, stride)
+    pl, _, _ = tbf.same_pads(w, stride)
+    run, gw = bt.K11_RUN, plan.gp // plan.cs
+    out, reads = [], []
+    if stride == 1:
+        runs = -(-w // run)
+        for ty in range(min(plan.tho, oh - oy0)):
+            for k in range(runs):
+                for s in range(5):
+                    reads.append((ty + 4 - s, k * run, k * run + run + 3))
+                out += [(oy0 + ty, k * run + r) for r in range(run) if k * run + r < w]
+        return out, reads
+    iy_lo, iy_hi = 2 * oy0, min(h, 2 * oy0 + 2 * plan.tho)
+    for py in (0, 1):
+        m_lo = (iy_lo + pt - py + 1) // 2
+        m_hi = (iy_hi - 1 + pt - py) // 2
+        for px in (0, 1):
+            n_lo, n_hi = (pl - px + 1) // 2, (w - 1 + pl - px) // 2
+            ty_n, tx_n = 3 - py, 3 - px
+            for m in range(m_lo, m_hi + 1):
+                for k in range(-(-max(0, n_hi - n_lo + 1) // run)):
+                    n0 = n_lo + k * run
+                    for s in range(ty_n):
+                        reads.append((m - s - oy0 + 2, n0 + 2 - (tx_n - 1),
+                                      n0 + 2 + run - 1))
+                    out += [(2 * m + py - pt, 2 * (n0 + r) + px - pl)
+                            for r in range(run) if n0 + r <= n_hi]
+    assert gw >= max(c1 for _r, _c0, c1 in reads) + 1
+    return out, reads
+
+
+def _check_k11_plan(n, h, w, cin, cout, stride, depthwise, masked):
+    plan = bt.k11_plan(n, h, w, cin, cout, stride, depthwise, masked)
+    pt, _, oh = tbf.same_pads(h, stride)
+    _, _, ow = tbf.same_pads(w, stride)
+    c = cin if depthwise else cout
+    assert plan.smem_bytes <= tbf.SMEM_BLOCK_MAX
+    qn = 5 * plan.cs // 4 * (1 if depthwise else cin)
+    assert plan.lanes >= 1 and qn * plan.lanes <= bt.TRAIN_THREADS
+    assert plan.cs % 4 == 0 and (plan.slices - 1) * plan.cs < c <= plan.slices * plan.cs
+    assert (plan.bands - 1) * plan.tho < oh <= plan.bands * plan.tho
+    tiles = n * plan.bands
+    tpc = plan.tiles_per_chunk
+    assert (plan.chunks - 1) * tpc < tiles <= plan.chunks * tpc
+    assert plan.stages == (2 if tpc > 1 else 1)
+    # dk: each band's runs of 4 cover its output-gradient columns once, and
+    # the staged x rows and columns they read exist
+    run = bt.K11_RUN
+    runs = -(-ow // run)
+    assert (runs - 1) * run < ow <= runs * run
+    assert plan.x_rows == (plan.tho - 1) * stride + 5
+    x_cols = (runs * run - 1) * stride + 5
+    assert plan.xp >= (x_cols * plan.cs if depthwise else 3 + x_cols * cin)
+    g_cols = plan.gp // plan.cs
+    assert g_cols >= (runs * run + 2 if depthwise else runs * run)
+    if not depthwise:
+        assert plan.g_rows == plan.tho
+        return
+    assert plan.g_rows == plan.tho + (4 if stride == 1 else 3)
+    # dx: the bands' items write every input pixel exactly once and read
+    # only staged rows
+    written = np.zeros((h, w), np.int64)
+    for band in range(plan.bands):
+        out, reads = _k11_dx_outputs(h, w, stride, plan, band * plan.tho)
+        for iy, ix in out:
+            written[iy, ix] += 1
+        assert all(0 <= r < plan.g_rows and c0 >= 0 for r, c0, _c1 in reads)
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64])
+@pytest.mark.parametrize("call", range(17))
+def test_k11_plan_covers_every_row_once(batch, call):
+    """At every K11 call of the train step: the slices cover the channels,
+    the bands the rows, the chunks the tiles, each once; dx items write
+    every input pixel once from staged rows; shared memory and the dk
+    lanes fit a block."""
+    h, w, cin, cout, stride, depthwise, masked = _k11_calls()[call]
+    _check_k11_plan(batch, h, w, cin, cout, stride, depthwise, masked)
+
+
+@pytest.mark.parametrize("shape", K11_EDGES + [("stem",) + s for s in K11_STEM_EDGES])
+def test_k11_plan_covers_edge_shapes(shape):
+    if shape[0] == "stem":
+        n, h, w = shape[1:]
+        _check_k11_plan(n, h, w, 3, 24, 2, False, True)
+    else:
+        n, h, w, c, stride = shape
+        _check_k11_plan(n, h, w, c, c, stride, True, False)
+        _check_k11_plan(n, h, w, c, c, stride, True, True)
+
+
+def _check_k12_plan(n, h, w, cin, cout, masked):
+    plan = bt.k12_plan(n, h, w, cin, cout, masked)
+    pixels = n * h * w
+    assert plan.smem_bytes <= tbf.SMEM_BLOCK_MAX
+    assert plan.dy_tile in (16, 32, 64)
+    assert (plan.dy_blocks - 1) * plan.dy_tile < pixels <= plan.dy_blocks * plan.dy_tile
+    for t, c, tiles in ((plan.tci, cin, plan.ci_tiles), (plan.tco, cout, plan.co_tiles)):
+        assert t % 4 == 0 and t <= bt.K12_MAX_TILE
+        assert (tiles - 1) * t < c <= tiles * t
+    pairs = plan.tci // 4 * (plan.tco // 4)
+    assert 1 <= pairs <= bt.TRAIN_THREADS
+    assert plan.chunk_px % bt.K12_SUB_PX == 0
+    assert (plan.chunks - 1) * plan.chunk_px < pixels <= plan.chunks * plan.chunk_px
+    assert plan.chunks * (plan.tci * plan.tco + plan.tco) <= max(
+        bt.K12_PARTIAL_CAP, plan.tci * plan.tco + plan.tco)
+    # the chunks' partials and the groups' sums; each group sums at most
+    # `group` chunks, the last block of a tile its groups' sums
+    groups = -(-plan.chunks // plan.group)
+    assert (groups - 1) * plan.group < plan.chunks <= groups * plan.group
+    if plan.chunks <= bt.K12_ONE_LEVEL:
+        assert plan.group == plan.chunks
+    else:
+        assert plan.group <= 2 * int(plan.chunks ** 0.5) and groups <= plan.group
+    tiles = plan.ci_tiles * plan.co_tiles
+    assert plan.partial_floats == tiles * (plan.chunks + groups) * (plan.tci * plan.tco + plan.tco)
+    assert plan.counters == tiles * (groups + 1)
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64])
+@pytest.mark.parametrize("call", range(20))
+def test_k12_plan_covers_every_pixel_once(batch, call):
+    """At every K12 call of the train step: dy blocks cover the pixels, dW
+    tiles the (ci, co) pairs, each tile's chunks the pixels, each once;
+    shared memory and the 4 x 4 register tiles of a dW tile fit a block."""
+    h, w, cin, cout, masked = _k12_calls()[call]
+    _check_k12_plan(batch, h, w, cin, cout, masked)
+
+
+@pytest.mark.parametrize("shape", K12_EDGES)
+def test_k12_plan_covers_edge_shapes(shape):
+    n, h, w, cin, cout = shape
+    for masked in (True, False):
+        _check_k12_plan(n, h, w, cin, cout, masked)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv5x5_backward_dx_into_is_autograds_sum(stride):
+    """The plain path of ``conv5x5_backward(..., dx_into=)`` adds the input
+    gradient into K12's residual gradient in place: bit-equal to
+    autograd's ``dres + dx`` of the block input."""
+    rng = np.random.default_rng(40 + stride)
+    x = _rand(rng, 3, 9, 9, 12).requires_grad_(True)
+    kernel = _rand(rng, 5, 5, 1, 12, scale=0.2)
+    y = tbf.conv5x5_plain(x, kernel, None, stride, False)
+    g = _rand(rng, *y.shape)
+    dres = _rand(rng, *x.shape)
+    ref = torch.autograd.grad((y * g).sum() + (x * dres).sum(), x)[0]
+    into = dres.clone()
+    dx, _dk, _db = bt.conv5x5_backward(g, x.detach(), kernel, None, stride, False, True,
+                                       dx_into=into)
+    assert dx is into
+    assert torch.equal(dx, dres + bt.conv5x5_backward(g, x.detach(), kernel, None, stride)[0])
+    assert torch.equal(dx, ref)
+    with pytest.raises(ValueError, match="dx_into"):
+        bt.conv5x5_backward(g, x.detach(), kernel, None, stride, dx_into=into[:1])
+
+
+@pytest.mark.parametrize("features,stride", [(28, 1), (32, 2)])
+def test_block_gradients_match_jax(features, stride):
+    """``_Block`` (K9 + K10 forward, K12 + K11 backward; their twins here)
+    at batch 3 against ``jax.value_and_grad`` of the JAX package's
+    BlazeBlock under a fixed output cotangent: the loss within 1e-5, every
+    gradient (the input's one, summed from the depthwise path and the
+    residual, and the three parameters') within 1e-4 of its max."""
+    rng = np.random.default_rng(features + stride)
+    x = rng.uniform(0, 1, (3, 16, 16, 24)).astype(np.float32)
+    block = jbf.BlazeBlock(features, stride)
+    jp = block.init(jax.random.PRNGKey(features), jnp.asarray(x))
+    out_shape = block.apply(jp, jnp.asarray(x)).shape
+    cot = rng.normal(size=out_shape).astype(np.float32)
+
+    def jloss(p, xin):
+        return jnp.sum(block.apply(p, xin) * cot)
+
+    jl, (jg, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    pp = jax.tree.map(np.array, jp)["params"]
+    jgp = jax.tree.map(np.asarray, jg)["params"]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    params = [torch.from_numpy(pp["Conv_0"]["kernel"]).requires_grad_(True),
+              torch.from_numpy(pp["Conv_1"]["kernel"]).requires_grad_(True),
+              torch.from_numpy(pp["Conv_1"]["bias"]).requires_grad_(True)]
+    out = bt._Block.apply(tx, *params, stride, None)
+    loss = (out * torch.from_numpy(cot)).sum()
+    assert abs(loss.item() - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    loss.backward()
+    refs = [jgp["Conv_0"]["kernel"], jgp["Conv_1"]["kernel"], jgp["Conv_1"]["bias"]]
+    assert rel(tx.grad.numpy(), np.asarray(jgx)) <= GRAD_RTOL
+    for p, r in zip(params, refs):
+        assert p.grad.shape == r.shape
+        assert rel(p.grad.numpy(), r) <= GRAD_RTOL
