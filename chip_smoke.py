@@ -28,13 +28,21 @@ Phases, in order; any failure exits non-zero without a result line:
              the serving shape; then K1's f32-store form, K4 (rotate), K5
              (separable filter) and K6 (pad/gray/dither pass) at the shapes
              the staged programs give them (32 x 1920x1080 sources), timed,
-             with F.grid_sample and a depthwise F.conv2d as yardsticks; and,
-             not timed, K1-f32 on fit rows past out_true, K4 on 1x1 and 1 x w
-             frames at 0/90/180/270/0.5/359.5/-15 degrees, valid regions
-             smaller than the bucket, a coloured background and the
-             8192-wide bucket, K5 with 61 taps, images narrower than the
-             taps and unsharp thresholds 0 and > 0, K6 with negative
-             offsets, a canvas smaller than the image and no overlap; then
+             with F.grid_sample and a depthwise F.conv2d as yardsticks; K4
+             everywhere also to the bit against the previous K4
+             (csrc/rotate_prev.cu, f32 and u8 stores) and K5 to its two-pass
+             form's values; and, not timed, K1-f32 on fit rows past
+             out_true, K4 on 1x1 and 1 x w frames at
+             0/90/180/270/0.5/359.5/-15/44.9/45 degrees, valid regions
+             smaller than the bucket, a coloured background, the 8192-wide
+             bucket and tiles wholly outside a member's valid region (counted
+             by k4_footprint), K5 with 61 taps, at k5_plan's switch from the
+             tile form to the two-pass form and one past it, sizes no tile
+             divides, images narrower than the taps, the tiled form's halo
+             (K // 2, less, and an image narrower than it), unsharp
+             thresholds 0 and > 0 and an unsharp knife-edge (two flat
+             regions meeting), K6 with negative offsets, a canvas smaller
+             than the image and no overlap; then
              the face kernels at the face pass's shapes, timed, with
              F.avg_pool2d, F.max_pool2d x4 and F.conv2d yardsticks: K7
              (pixelate, exact) on a 480x640 output with its facefind boxes
@@ -795,16 +803,22 @@ def inside_margin(torch, geom, degrees, out_h, out_w):
 
 
 def k4_case(torch, label, x, degrees, background, geom, timed=True):
-    """K4 against rotate_plain: within F32_TOL wherever the source position
-    lies more than F32_TOL from the fill edge."""
+    """K4 against the previous K4 (csrc/rotate_prev.cu): the same bits, f32
+    and u8; and against rotate_plain: within F32_TOL wherever the source
+    position lies more than F32_TOL from the fill edge."""
     import torch.nn.functional as F
 
-    from flyimg_tpu_torch.ops.rotate import rotate_plain, rotate_sampled
+    from flyimg_tpu_torch.ops.rotate import rotate_plain, rotate_sampled, rotate_sampled_prev
 
     got = rotate_sampled(x, degrees, background, geom)
     ref = rotate_plain(x, degrees, background, geom)
+    prev = rotate_sampled_prev(x, degrees, background, geom)
+    got_u8 = rotate_sampled(x, degrees, background, geom, out_u8=True)
+    prev_u8 = rotate_sampled_prev(x, degrees, background, geom, out_u8=True)
     torch.cuda.synchronize()
     check(got.shape == ref.shape, f"K4 {label}: shape {tuple(got.shape)}")
+    check(torch.equal(got.view(torch.int32), prev.view(torch.int32))
+          and torch.equal(got_u8, prev_u8), f"K4 {label}: not the previous K4's bits")
     b, oh, ow, _ = got.shape
     edge = inside_margin(torch, geom, degrees, oh, ow).abs() < F32_TOL
     diff = (got - ref).abs()
@@ -847,40 +861,54 @@ def k4_case(torch, label, x, degrees, background, geom, timed=True):
         times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                  f"grid_sample {row['library_ms']:.4f} ms (no fill), ")
     print(f"K4 {label}: {tuple(x.shape)} -> {tuple(got.shape)} at {degrees} deg, "
-          f"max diff {err} off the fill edge (bound {F32_TOL}), {n_edge} values "
-          f"differ on it; {times}bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"the previous K4's bits (f32, u8), max diff {err} off the fill edge (bound "
+          f"{F32_TOL}), {n_edge} values differ on it; {times}bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
-def k5_case(torch, label, x, kernel, mode, gain, threshold, out_u8, timed=True):
-    """K5 against its plain version on the card: f32 within K5_TOL, u8
-    within PIXEL_TOL; values differ more only where the unsharp threshold
-    lies within K5_KNIFE of |x - blur| (counted)."""
+def k5_case(torch, label, x, kernel, mode, gain, threshold, out_u8, timed=True,
+            halo=0):
+    """K5 against its two-pass form (the same values: both sum the taps in
+    the same order) and its plain version on the card: f32 within K5_TOL,
+    u8 within PIXEL_TOL; values differ more only where the unsharp
+    threshold lies within K5_KNIFE of |x - blur| (counted). ``halo``: the
+    tiled form's input rows above and below."""
     import numpy as np
     import torch.nn.functional as F
 
     from flyimg_tpu_torch.ops.filters import (
         MODE_UNSHARP,
+        k5_plan,
         separable_conv_plain,
+        K5_TWO_PASS,
+        k5_launch,
         separable_filter,
         unsharp_from_blurred,
     )
     from flyimg_tpu_torch.ops.resample import quantize_u8
 
+    h_own = x.shape[1] - 2 * halo
+    own = x[:, halo:halo + h_own]
+
     def plain():
-        out = separable_conv_plain(x, kernel)
+        out = separable_conv_plain(x, kernel, halo)
         if mode == MODE_UNSHARP:
-            out = unsharp_from_blurred(x, out, gain, threshold)
+            out = unsharp_from_blurred(own, out, gain, threshold)
         return quantize_u8(out) if out_u8 else out
 
-    got = separable_filter(x, kernel, mode, gain, threshold, out_u8)
+    got = separable_filter(x, kernel, mode, gain, threshold, out_u8, halo)
+    two = k5_launch(x, kernel, K5_TWO_PASS, mode, gain, threshold, out_u8, halo)
     ref = plain()
     torch.cuda.synchronize()
+    plan = k5_plan(x.shape[0], h_own, x.shape[2], int(kernel.shape[0]), halo, out_u8)
+    check(torch.equal(got, two), f"K5 {label}: the {plan.form} form differs from the "
+          "two-pass form")
     diff = (got.float() - ref.float()).abs()
     knife = torch.zeros_like(diff, dtype=torch.bool)
     if mode == MODE_UNSHARP:
-        blurred = separable_conv_plain(x, kernel)
-        knife = ((x - blurred).abs() - float(np.float32(threshold * 255.0))).abs() < K5_KNIFE
+        blurred = separable_conv_plain(x, kernel, halo)
+        knife = ((own - blurred).abs() - float(np.float32(threshold * 255.0))).abs() < K5_KNIFE
     tol = PIXEL_TOL if out_u8 else K5_TOL
     err = float(diff.masked_fill(knife, 0.0).max())
     n_knife = int((knife & (diff > tol)).sum())
@@ -913,8 +941,9 @@ def k5_case(torch, label, x, kernel, mode, gain, threshold, out_u8, timed=True):
         times = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                  f"conv2d {k}x{k} {row['library_ms']:.4f} ms (blur only, max "
                  f"diff {lib_err:.2e}), ")
-    print(f"K5 {label}: {tuple(x.shape)} {k} taps mode {mode} "
-          f"{'u8' if out_u8 else 'f32'}: max diff {err} (bound {tol}), "
+    print(f"K5 {label}: {tuple(x.shape)} {k} taps halo {halo} mode {mode} "
+          f"{'u8' if out_u8 else 'f32'}, {plan.form} form {plan.tile_h}x{plan.tile_w}, "
+          f"equal to the two-pass form: max diff {err} (bound {tol}), "
           f"{n_knife} values differ more at the threshold; {times}bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
@@ -1074,7 +1103,8 @@ def stage_edges(torch, dev, gray601):
             (32, 32), "lanczos3", timed=False, f32=True)
 
     # K4: 1x1 and 1 x w frames; every angle kind; valid < bucket; a
-    # non-white background; the 8192-wide bucket
+    # non-white background; the 8192-wide bucket; tiles wholly outside the
+    # valid region (which load nothing)
     def k4(label, x, deg, bg, valid=None):
         b, h, w, _ = x.shape
         valid = valid or [(h, w)] * b
@@ -1084,22 +1114,43 @@ def stage_edges(torch, dev, gray601):
             rows.append([th, tw, rh, rw])
         geom = torch.tensor(rows, dtype=torch.float32, device=dev)
         k4_case(torch, label, x, deg, bg, geom, timed=False)
+        return rows
 
-    for deg in (0, 90, 180, 270, 0.5, 359.5, -15):
+    for deg in (0, 90, 180, 270, 0.5, 359.5, -15, 44.9, 45):
         k4(f"1x1 at {deg}", noise(2, 1, 1, 3), deg, None)
         k4(f"1 x 37 at {deg}", noise(2, 1, 37, 3), deg, (10, 200, 30))
         k4(f"valid < bucket at {deg}", smooth(3, 128, 160), deg, (51, 102, 153),
            [(111, 133), (97, 141), (5, 7)])
     k4("wide 8192 bucket at 5", smooth(2, 128, 8192), 5, None,
        [(100, 8000), (128, 8192)])
+    from flyimg_tpu_torch.ops.rotate import k4_footprint, k4_plan
 
-    # K5: 61 taps (blr_0x10), an image narrower and shorter than the taps,
-    # threshold 0 and > 0, f32 and u8
+    rows = k4("tiles outside the valid region at 30", smooth(2, 600, 800), 30,
+              (12, 34, 56), [(17, 23), (600, 800)])
+    ow, oh = rotated_bounds(800, 600, 30)
+    plan = k4_plan(2, (600, 800), (oh, ow), 30)
+    n_tiles = -(-oh // 32) * -(-ow // 32)
+    skipped = sum(k4_footprint(plan, 30, rows[0], (oh, ow), t // -(-ow // 32),
+                               t % -(-ow // 32))[0] for t in range(n_tiles))
+    check(skipped > 0, "K4: no tile lies wholly outside a 17x23 valid region")
+    print(f"K4 tiles outside the valid region: {skipped} of {n_tiles} tiles of the "
+          "17x23 member load nothing")
+
+    # K5: 61 taps (blr_0x10; the two-pass form), an image narrower and
+    # shorter than the taps (both forms),
+    # threshold 0 and > 0, f32 and u8; the tap count where k5_plan switches
+    # from the 2-D tile form to the two-pass form and one past it; sizes no
+    # tile divides; the tiled form's halo (K // 2 and less, and an image
+    # narrower than it); an unsharp knife-edge (two flat regions meeting)
+    from flyimg_tpu_torch.ops.filters import k5_plan
+
     k61 = gaussian_kernel(0, 10)
     k5_case(torch, "61 taps", smooth(2, 300, 400), k61, MODE_BLUR, 1.0, 0.0,
             False, timed=False)
     k5_case(torch, "61 taps on 5x20", smooth(3, 5, 20), k61, MODE_BLUR, 1.0, 0.0,
             True, timed=False)
+    k5_case(torch, "21 taps on 5x20", smooth(3, 5, 20), gaussian_kernel(10, 3.0),
+            MODE_BLUR, 1.0, 0.0, True, timed=False)
     k5_case(torch, "1 wide, 5 taps", smooth(2, 40, 1), gaussian_kernel(2, 1),
             MODE_BLUR, 1.0, 0.0, False, timed=False)
     for thr in (0.0, 0.02):
@@ -1107,6 +1158,26 @@ def stage_edges(torch, dev, gray601):
                 gaussian_kernel(2, 1), MODE_UNSHARP, 1.5, thr, False, timed=False)
         k5_case(torch, f"unsharp 0x3+0.8+{thr}, u8", smooth(2, 200, 300),
                 gaussian_kernel(0, 3), MODE_UNSHARP, 0.8, thr, True, timed=False)
+    last = max(k for k in range(1, 400, 2) if k5_plan(2, 60, 90, k, 0, False).form == "tile")
+    for k in (last, last + 2):
+        k5_case(torch, f"{k} taps (k5_plan's switch)", smooth(2, 60, 90),
+                gaussian_kernel(k // 2, k / 6.0), MODE_BLUR, 1.0, 0.0, False,
+                timed=False)
+    for k in (3, 5, 13):
+        k5_case(torch, f"{k} taps on 37x71", smooth(2, 37, 71), gaussian_kernel(k // 2, 1.0),
+                MODE_UNSHARP, 1.3, 0.01, True, timed=False)
+    k13 = gaussian_kernel(0, 2)
+    for halo in (6, 3):
+        k5_case(torch, f"halo {halo} of 13 taps", smooth(1, 97 + 2 * halo, 61), k13,
+                MODE_UNSHARP, 1.2, 0.01, True, timed=False, halo=halo)
+    k5_case(torch, "halo 6, 2 wide", smooth(1, 52, 2), k13, MODE_BLUR, 1.0, 0.0, False,
+            timed=False, halo=6)
+    yy = torch.arange(90, device=dev, dtype=torch.float32)[None, :, None, None]
+    xx = torch.arange(130, device=dev, dtype=torch.float32)[None, None, :, None]
+    step = torch.where((yy < 45) ^ (xx < 70), 60.0, 190.0).expand(2, 90, 130, 3).contiguous()
+    for thr in (0.0, 0.065):
+        k5_case(torch, f"unsharp knife-edge 0.25x0.25+8+{thr}", step,
+                gaussian_kernel(0.25, 0.25), MODE_UNSHARP, 8.0, thr, True, timed=False)
 
     # K6: negative offsets, a canvas smaller than the image, no overlap
     x = smooth(3, 90, 120)

@@ -39,6 +39,8 @@ SOURCES: Dict[str, tuple] = {
     # every product and sum rounds in the reference's order
     "pixel_pass": ("pixel_pass.cu", ("--fmad=false",)),
     "rotate": ("rotate.cu", ("--fmad=false",)),
+    # the previous K4, which chip_smoke.py holds K4 to the bit against
+    "rotate_prev": ("rotate_prev.cu", ("--fmad=false",)),
     # K15, the ring rotate's step: the same knife-edges as K4
     "ring_rotate": ("ring_rotate.cu", ("--fmad=false",)),
     "separable": ("separable.cu", ()),

@@ -5,7 +5,8 @@ The port of ``flyimg_tpu/service/app.py`` for the main path: a
 
 - ``GET /upload/{options}/{imageSrc}`` — render (or serve from the output
   cache) and answer the image bytes with the reference's headers;
-- ``GET /healthz`` — liveness plus the device it serves on.
+- ``GET /healthz`` — liveness plus the device it serves on;
+- ``HEAD`` on either — the GET's status and headers, no body.
 
 Errors map to the status codes of the JAX app's ``_error_response``; a
 plan stage the port does not carry yet answers 501, and any other
@@ -134,7 +135,13 @@ class _RequestHandler(BaseHTTPRequestHandler):
             self.send_header(key, value)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
-        self.wfile.write(body)
+        if self.command != "HEAD":
+            self.wfile.write(body)
+
+    def do_HEAD(self) -> None:  # noqa: N802
+        """The GET's status and headers, Content-Length included, and no
+        body (the reference's aiohttp routes answer HEAD with their GET)."""
+        self.do_GET()
 
     def do_GET(self) -> None:  # noqa: N802 (http.server's name)
         if self.path == "/healthz":

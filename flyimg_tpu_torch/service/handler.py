@@ -39,6 +39,7 @@ from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
     ExecFailedException,
+    InvalidArgumentException,
     ServiceUnavailableException,
     UnsupportedMediaException,
 )
@@ -56,7 +57,7 @@ from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
 from flyimg_tpu_torch.service.input_source import load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
 from flyimg_tpu_torch.spec.options import OptionsBag
-from flyimg_tpu_torch.spec.plan import TransformPlan, build_plan
+from flyimg_tpu_torch.spec.plan import TransformPlan, build_plan, parse_colorspace
 from flyimg_tpu_torch.storage.local import LocalStorage
 
 
@@ -105,6 +106,16 @@ def _cache_entry_valid(content: bytes, spec: OutputSpec) -> bool:
     """A stored PNG must at least carry its signature (a torn or damaged
     entry re-renders instead of serving garbage under image headers)."""
     return spec.extension != "png" or content[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def _require_cmyk_container(spec: OutputSpec) -> None:
+    """The clsp_CMYK container rule: only JPEG stores CMYK samples, so any
+    other output is refused before decode and device work."""
+    if spec.extension not in ("jpg", "jpeg"):
+        raise InvalidArgumentException(
+            "clsp_CMYK requires a JPEG output container (o_jpg); "
+            f"{spec.extension!r} cannot store CMYK samples"
+        )
 
 
 @contextmanager
@@ -179,6 +190,8 @@ class ImageHandler:
         spec = resolve_output(
             options, image_src, source.info.mime, accepts_webp=accepts_webp
         )
+        if parse_colorspace(options) == "cmyk":
+            _require_cmyk_container(spec)
         if spec.extension != "png":
             raise UnsupportedMediaException(
                 f"{spec.extension} output is not ported to the PyTorch "
@@ -299,6 +312,15 @@ class ImageHandler:
             alpha = decoded.alpha
         content = codecs.encode(np.ascontiguousarray(out), spec.extension, alpha)
         timings["encode"] = time.perf_counter() - t
+        if options.wants_refresh():
+            # the rf_1 debug header's `identify` line (reference
+            # Response.php:62), from a probe of the encoded bytes
+            info = codecs.media_info(content)
+            fmt = spec.extension.upper().replace("JPG", "JPEG")
+            spec.identify_repr = (
+                f"{spec.name} {fmt} {info.width}x{info.height} "
+                f"{info.width}x{info.height}+0+0 8-bit sRGB {len(content)}B"
+            )
         return content
 
     def _count(self, name: str) -> None:

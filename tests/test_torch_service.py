@@ -363,3 +363,116 @@ def test_tall_inputs_take_the_tiled_route_as_the_jax_handler(tall_handlers, opts
     assert moved == [taken, taken]
     assert got.shape == want.shape
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def _jax_handler(root):
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.service.handler import ImageHandler as JImageHandler
+    from flyimg_tpu.storage import make_storage
+
+    jparams = JAppParameters({"upload_dir": str(root / "ju"), "tmp_dir": str(root / "jt")})
+    return JImageHandler(make_storage(jparams), jparams)
+
+
+def _small_source(root):
+    """A 40x30 seeded PNG: w_40 leaves its pixels as they are, so both
+    packages encode the same pixels."""
+    img = np.random.default_rng(5).integers(0, 255, (30, 40, 3), dtype=np.uint8)
+    path = root / "small.png"
+    Image.fromarray(img).save(path, "PNG")
+    return str(path)
+
+
+@pytest.mark.parametrize("opts", ["clsp_CMYK,o_png", "clsp_CMYK", "w_200,clsp_CMYK,o_png"])
+def test_cmyk_outside_jpeg_is_refused_as_the_jax_handler(service, tmp_path, opts):
+    """clsp_CMYK with a PNG output (asked for, or the PNG source's own)
+    answers 400 with the JAX handler's exception and message."""
+    _server, base, src, _img = service
+    with pytest.raises(Exception) as exc:
+        _jax_handler(tmp_path).process_image(opts, src)
+    assert type(exc.value).__name__ == "InvalidArgumentException"
+    status, headers, body = get(f"{base}/upload/{opts}/{src}")
+    assert status == 400
+    assert body.decode() == f"{type(exc.value).__name__}: {exc.value}"
+    # a JPEG container passes the rule, and JPEG is not ported yet
+    assert get(f"{base}/upload/w_200,clsp_CMYK,o_jpg/{src}")[0] == 415
+
+
+def _request(url, method):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, method=method),
+                                    timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read()
+
+
+def _reference_app_head(root, path):
+    """(status, headers, body) of HEAD ``path`` on the JAX package's app."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+    from flyimg_tpu.service.app import make_app
+
+    async def go():
+        app = make_app(JAppParameters({"upload_dir": str(root / "ru"),
+                                       "tmp_dir": str(root / "rt"),
+                                       "batch_deadline_ms": 1.0}))
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            resp = await client.head(path)
+            return resp.status, dict(resp.headers), await resp.read()
+        finally:
+            await client.close()
+
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(go())
+    finally:
+        loop.close()
+
+
+@pytest.mark.parametrize("opts", ["w_40,o_png", "w_100,o_bmp"])
+def test_head_answers_the_get_without_a_body(service, tmp_path, opts):
+    """HEAD on an /upload URL: the GET's status, Content-Type and
+    Content-Length, an empty body, and the reference app's answer."""
+    _server, base, _src, _img = service
+    src = _small_source(tmp_path)
+    url = f"{base}/upload/{opts}/{src}"
+    got = _request(url, "GET")
+    head = _request(url, "HEAD")
+    assert head[0] == got[0]
+    for key in ("Content-Type", "Content-Length"):
+        assert head[1][key] == got[1][key]
+    assert int(head[1]["Content-Length"]) == len(got[2]) > 0
+    assert head[2] == b""
+    ref = _reference_app_head(tmp_path, f"/upload/{opts}/{src}")
+    assert ref[0] == head[0]
+    assert ref[2] == b""
+    if ref[0] == 200:
+        for key in ("Content-Type", "Content-Length"):
+            assert ref[1][key] == head[1][key]
+
+
+def test_refresh_headers_match_the_jax_handler(service, tmp_path):
+    """rf_1: the reference's debug headers, im-identify included, equal to
+    the JAX handler's; only the timings and the stored file's mtime (in
+    ETag and Last-Modified) may differ."""
+    from flyimg_tpu.service.response import image_headers as jimage_headers
+
+    _server, base, _src, _img = service
+    src = _small_source(tmp_path)
+    opts = "w_40,rf_1,o_png"
+    status, headers, body = get(f"{base}/upload/{opts}/{src}")
+    ref = jimage_headers(_jax_handler(tmp_path).process_image(opts, src), 365)
+    assert status == 200
+    assert "im-identify" in ref
+    for key, value in ref.items():
+        if key == "ETag":
+            assert headers[key].rsplit("-", 1)[0] == value.rsplit("-", 1)[0]
+        elif key not in ("x-flyimg-timings", "Last-Modified"):
+            assert headers[key] == value, key
+    assert headers["im-identify"].endswith(f" {len(body)}B")

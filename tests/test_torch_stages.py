@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, given, settings
+from hypothesis import strategies as st
 
 from flyimg_tpu.ops import color as jcolor
 from flyimg_tpu.ops import compose as jcompose
@@ -528,3 +530,153 @@ def test_k4_k5_k6_k1f32_match_plain_on_card():
     got = tresample.resample_banded_f32(img, (64, 96), *rows, (16, 16))
     ref = tresample.resample_image_banded(img.float(), (64, 96), *rows, (16, 16))
     assert float((got - ref).abs().max()) <= F32_TOL
+
+
+# ---------------------------------------------------------------------------
+# K5's and K4's launch plans (csrc/separable.cu, csrc/rotate.cu): pure host
+# arithmetic, held here so that the kernels' shapes are checked without a card
+
+
+def _old_k5_limit(k):
+    """The shared memory of K5's horizontal pass before the 2-D tile form:
+    the wrapper refused a tap count past it."""
+    return 4 * (((k + 3) & ~3) + (256 + k - 1) * 3) > tfilters.K5_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 13, 61, 123, 125, 127, 129, 1001, 14335])
+def test_k5_plan_fits_every_accepted_shape_on_the_card(k):
+    for halo in sorted({0, k // 4, k // 2}):
+        for w in (1, 7, 64, 2134):
+            for out_u8 in (False, True):
+                plan = tfilters.k5_plan(32, 97, w, k, halo, out_u8)
+                assert plan.smem_bytes <= tfilters.K5_SMEM_LIMIT
+                if plan.form == "tile":
+                    th, tw = plan.tile_h, plan.tile_w
+                    assert th in (8, 16, 32) and tw % 8 == 0 and th * tw <= 2048
+                    assert plan.smem_bytes == tfilters.k5_smem_bytes(k, th, tw, out_u8)
+                else:
+                    assert plan.form == "two_pass" and plan.tile_h == plan.tile_w == 0
+
+
+def test_k5_plan_takes_the_tile_form_up_to_its_switch():
+    """Every tap count whose tile window leaves two blocks an SM (the
+    staged programs' 3, 5 and 13 among them) takes the 2-D tile form at
+    K5_TILE, and every count past it the two-pass form: blr_0x10's 61 too,
+    where the tile form read slower on the card."""
+    for out_u8 in (False, True):
+        forms = []
+        for k in range(1, 400, 2):
+            plan = tfilters.k5_plan(32, 1540, 2134, k, 0, out_u8)
+            smem = tfilters.k5_smem_bytes(k, *tfilters.K5_TILE, out_u8)
+            if smem <= tfilters.K5_TILE_SMEM:
+                assert (plan.form, plan.tile_h, plan.tile_w) == ("tile",) + tfilters.K5_TILE
+                assert plan.smem_bytes == smem
+            else:
+                assert plan.form == "two_pass", k
+            forms.append(plan.form)
+        switch = 2 * forms.index("two_pass") - 1  # the last tile-form count
+        assert set(forms[:forms.index("two_pass")]) == {"tile"}
+        assert switch == 29 and 2 * (tfilters.K5_TILE_SMEM + 1024) <= 228 * 1024
+    assert tfilters.k5_plan(32, 300, 400, 61, 0, False).form == "two_pass"
+
+
+@pytest.mark.parametrize("args", [
+    (1, 10, 10, 0, 0), (1, 10, 10, 4, 0), (1, 10, 10, 5, 3), (1, 10, 10, 5, -1),
+    (0, 10, 10, 5, 0), (1, 0, 10, 5, 0), (1, 10, 0, 5, 0), (65536, 10, 10, 5, 0),
+])
+def test_k5_plan_raises_where_the_wrapper_raised(args):
+    with pytest.raises(ValueError):
+        tfilters.k5_plan(*args)
+
+
+def test_k5_plan_refuses_tap_counts_the_two_pass_form_cannot_hold():
+    last = max(k for k in range(1, 20000, 2) if not _old_k5_limit(k))
+    assert tfilters.k5_plan(1, 8, 8, last, 0).form == "two_pass"
+    with pytest.raises(ValueError):
+        tfilters.k5_plan(1, 8, 8, last + 2, 0)
+
+
+def _tile_extremes(v, inside, tile):
+    """Per (member, tile row, tile column): min and max of ``v`` over the
+    tile's inside pixels (a tile with none gives +inf, -inf)."""
+    b, h, w = v.shape
+    ph, pw = -h % tile, -w % tile
+    v = torch.nn.functional.pad(v.double(), (0, pw, 0, ph))
+    inside = torch.nn.functional.pad(inside, (0, pw, 0, ph))
+    shape = (b, (h + ph) // tile, tile, (w + pw) // tile, tile)
+    v, inside = v.reshape(shape), inside.reshape(shape)
+    lo = torch.where(inside, v, math.inf).amin(dim=(2, 4))
+    hi = torch.where(inside, v, -math.inf).amax(dim=(2, 4))
+    return lo, hi
+
+
+def _check_k4_footprints(h, w, degrees, valid):
+    """Every tap rotate_plain reads for an output tile lies in k4_footprint's
+    box of that tile, a skipped tile has no pixel inside, and the box fits
+    k4_plan's shared memory."""
+    out_w, out_h = rotated_bounds(w, h, degrees)
+    plan = trotate.k4_plan(len(valid), (h, w), (out_h, out_w), degrees)
+    rows = []
+    for th, tw in valid:
+        rw, rh = rotated_bounds(tw, th, degrees)
+        rows.append([th, tw, rh, rw])
+    geom = torch.tensor(rows, dtype=torch.float32)
+    xs, ys = trotate.source_positions(geom, degrees, (out_h, out_w))
+    inside, ya, yb, xa, xb = trotate.rotate_taps(xs, ys, geom)
+    tile = trotate.K4_TILE
+    x_lo, _ = _tile_extremes(xa, inside, tile)
+    _, x_hi = _tile_extremes(xb, inside, tile)
+    y_lo, _ = _tile_extremes(ya, inside, tile)
+    _, y_hi = _tile_extremes(yb, inside, tile)
+    any_inside = _tile_extremes(inside.double(), inside, tile)[1] > 0
+    for m, row in enumerate(rows):
+        for ty in range(x_lo.shape[1]):
+            for tx in range(x_lo.shape[2]):
+                skip, bx0, by0, bw, bh = trotate.k4_footprint(
+                    plan, degrees, row, (out_h, out_w), ty, tx)
+                if skip:
+                    assert not any_inside[m, ty, tx], (m, ty, tx)
+                    continue
+                assert bh <= trotate.K4_MAX_BOX_ROWS
+                assert bh * trotate.k4_box_pitch(bw) <= plan.box_cap
+                if any_inside[m, ty, tx]:
+                    assert bx0 <= x_lo[m, ty, tx] and x_hi[m, ty, tx] < bx0 + bw
+                    assert by0 <= y_lo[m, ty, tx] and y_hi[m, ty, tx] < by0 + bh
+
+
+@pytest.mark.parametrize("h,w,degrees", [
+    (1, 1, 0.5), (1, 1, 45), (1, 37, -15), (300, 517, 44.9), (300, 517, 45),
+    (97, 141, 359.5), (128, 160, 30), (64, 8192, 0.5), (2, 8192, 359.5),
+    (200, 333, -359.9), (333, 200, 133.7), (45, 700, -200.1),
+])
+def test_k4_footprint_holds_every_tap_at_the_named_angles(h, w, degrees):
+    _check_k4_footprints(h, w, degrees, [(h, w), (max(1, h * 2 // 3), max(1, w - 5)),
+                                         (1, max(1, w // 3))])
+
+
+@settings(max_examples=40, deadline=None)
+@given(data=st.data())
+def test_k4_footprint_holds_every_tap(data):
+    """Hypothesis: angles in (-360, 360), frames 1 to 8192 wide, valid
+    regions smaller than the frame."""
+    degrees = data.draw(st.floats(-359.99, 359.99, allow_nan=False)
+                        | st.sampled_from([0.5, 44.9, 45.0, 359.5, -15.0, 30.0]))
+    w = data.draw(st.integers(1, 8192))
+    h = data.draw(st.integers(1, 600))
+    out_w, out_h = rotated_bounds(w, h, degrees)
+    assume(out_w * out_h <= 1_500_000)
+    valid = data.draw(st.lists(st.tuples(st.integers(1, h), st.integers(1, w)),
+                               min_size=1, max_size=3))
+    _check_k4_footprints(h, w, degrees, valid)
+
+
+def test_k4_plan_box_holds_any_tile_and_refuses_what_the_kernel_cannot():
+    for degrees in (0.5, 15.0, 44.9, 45.0, 90.5, 179.0, -15.0):
+        plan = trotate.k4_plan(32, (1080, 1920), (2300, 2300), degrees)
+        assert plan.box_w == plan.box_h <= trotate.K4_MAX_BOX_ROWS
+        assert plan.smem_bytes <= trotate.K4_SMEM_LIMIT
+    small = trotate.k4_plan(1, (3, 2), (4, 4), 45.0)
+    assert (small.box_w, small.box_h) == (2, 3)
+    for bad in ((0, (5, 5), (5, 5)), (65536, (5, 5), (5, 5)), (1, (1 << 22, 5), (5, 5))):
+        with pytest.raises(ValueError):
+            trotate.k4_plan(*bad, 10.0)
