@@ -56,9 +56,11 @@ Phases, in order; any failure exits non-zero without a result line:
              plan) and the head's one launch; not timed, K7
              on sides that are not multiples of 10, 1x1, zero-area,
              overlapping, negative and past-the-edge boxes, none and 32,
-             factors 1 and 32, a view off 16-byte alignment; K8 on
-             1-member and padded buckets, valid regions smaller than the
-             bucket, 1x1 and thresholds 0 and 0.9; K10 on pixel counts no
+             factors 1 and 32, a view off 16-byte alignment; K8 (one
+             launch a call) on 1-member and padded buckets, valid regions
+             smaller than the bucket, 1x1, thresholds 0 and 0.9 and rows
+             cut into tiles with valid sides straddling tile edges both
+             ways; K10 on pixel counts no
              tile divides, channel counts no multiple of 4 or 8, no
              residual, stride-2 widths that set the tile and an unaligned
              input; K9 on odd sizes at stride 2, widths no run divides,
@@ -80,7 +82,8 @@ Phases, in order; any failure exits non-zero without a result line:
              96x96 dW tile, pixel counts no tile divides, tied 2x2 windows
              (the residual's gradient equal to its plain version's), a
              block's K12 then K11 into the residual's gradient, a head's strided,
-             scaled and accumulated gradient, K13 at N = 1 and 3, K14 on a
+             scaled and accumulated gradient, K13 at N = 1, 3, 16 and 64
+             (the same bits on a repeated call, one launch a call), K14 on a
              length no block divides; then K15 (the ring rotate's step) at
              phase 9's shapes (a 960-row visiting tile of the 3840x2160
              frame into a 1092x4036 accumulator at -37 degrees), a middle
@@ -1492,7 +1495,9 @@ def k8_case(torch, label, images, in_true, thresholds, timed=False):
 
     b, h, w, _ = images.shape
     prob = torch.empty((b, h, w), dtype=torch.float32, device=images.device)
+    before = _batched_face_masks.launches
     got = _batched_face_masks(images, in_true, thresholds, prob_out=prob)
+    check(_batched_face_masks.launches - before == 1, f"K8 {label}: not one launch a call")
     ref = face_masks_plain(images, in_true, thresholds)
     ref_prob = _skin_probability(images)
     torch.cuda.synchronize()
@@ -1747,6 +1752,19 @@ def phase_face_kernels(torch, dev):
     k8_case(torch, "thresholds 0.01 and 0.9", dev_imgs[:2].contiguous(),
             torch.tensor([[256, 320], [256, 320]], dtype=torch.float32, device=dev),
             torch.tensor([0.01, 0.9], device=dev))
+    # rows wider than one tile spans: cores of k8_plan's tile_cols with an
+    # 8-pixel halo in x; valid sides off the tiles, straddling a tile edge
+    # in y and in x
+    plan = facefind.k8_plan(2, 100, 2200)
+    check(plan.tiles_x > 1 and plan.tiles_y > 1, f"K8: {plan} cuts no rows into tiles")
+    vh, vw = plan.tile_rows * 2 + 5, plan.tile_cols * 2 + 34
+    wide = torch.from_numpy(np.stack([skin_ellipse_image(rng, 100, 2200, faces=12)
+                                      for _ in range(2)]))
+    k8_case(torch, f"rows cut into tiles ({plan.tiles_y} x {plan.tiles_x} a member), valid "
+            f"sides straddling tile edges", wide.to(dev),
+            torch.tensor([[vh, vw], [plan.tile_rows + 1, plan.tile_cols + 1]],
+                         dtype=torch.float32, device=dev),
+            torch.full((2,), facefind.DEFAULT_THRESHOLD, device=dev))
 
     # K9/K10 at every layer of the 64-view forward, then whole forwards
     model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
@@ -2222,7 +2240,8 @@ def train_edges(torch, dev):
     dW tile, pixel counts no tile divides, tied 2x2 windows of equal zeros
     and equal positives, a block's K12 then K11 adding into the residual's
     gradient, a head's strided gradient scaled and added into dy, K13 at
-    one and three members, K14 on a length no block divides."""
+    one, three, 16 and 64 members (one launch a call, the same bits on a
+    repeated call), K14 on a length no block divides."""
     from flyimg_tpu_torch.models import blazeface as bf
     from flyimg_tpu_torch.models import blazeface_train as bt
 
@@ -2311,7 +2330,7 @@ def train_edges(torch, dev):
         ref = bt.pointwise_backward_plain(g, x8, kern, gscale=scale, dy=dy0.clone())
         worst["K12"] = max(worst["K12"], compare(
             "K12 head form, strided gradient, scaled, added", got, ref, TRAIN_RTOL))
-        for n in (1, 3):
+        for n in (1, 3, 16, 64):
             model, (images, tp, tb, mask) = train_case(torch, dev, n, 20 + n)
             maps = []
             x = bf.conv5x5_plain(images, model.stem.kernel, model.stem.bias, 2, True)
@@ -2321,7 +2340,12 @@ def train_edges(torch, dev):
                     maps.append(x)
             heads = tuple((c.kernel, c.bias, r.kernel, r.bias) for c, r, _ in model._heads())
             args = (maps[0], x, heads, tp, tb, mask)
+            before = bt.head_loss.launches
             got, ref = bt.head_loss(*args), bt.head_loss_plain(*args)
+            again = bt.head_loss(*args)
+            check(bt.head_loss.launches - before == 2, f"K13 at N = {n}: not one launch a call")
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  f"K13 at N = {n}: two calls differ")
             check(rel_err(torch, got[0], ref[0]) <= LOSS_RTOL, f"K13 at N = {n}: loss off")
             worst["K13"] = max(worst["K13"], compare(
                 f"K13 at N = {n}", got[1:], ref[1:], HEAD_GRAD_RTOL))

@@ -18,8 +18,11 @@
 // logits and offsets of both anchor maps, sigmoid, the focal-weighted BCE
 // with its 1e-7 terms and the masked smooth-L1, differentiated as JAX
 // differentiates the written expression (d log(p + 1e-7) = 1 / (p + 1e-7),
-// d logistic = ans (1 - ans)); two launches, the second once the reg
-// normaliser sum(mask) * 4 + 1e-6 is known.
+// d logistic = ans (1 - ans)); one launch: a block a tile of pixels of
+// one map; every block sums the whole mask itself in the same order (so
+// all agree on the reg normaliser sum(mask) * 4 + 1e-6) and scales its
+// own draw; the last block by ticket sums the tiles' loss partials in tile
+// order.
 // K14 — optax.adam's update in one elementwise pass over the flat
 // parameters with their first and second moments.
 //
@@ -90,23 +93,12 @@ constexpr int kDwStages = 4;     // K12: sub-tiles of pixels a dW block stages (
 constexpr int kDwRed = 20;       // K12: sums a dW thread hands to the lane reduction
 constexpr int kConvRed = 24;     // K11: sums a dk thread hands to it (20 + 4 bias)
 constexpr int kSmemMax = 227 * 1024;
+constexpr int kHeadThreads = 128;  // K13: a block's threads (a thread an anchor)
+constexpr int kHeadWarps = kHeadThreads / 32;
 
 int blocks_for(long long total, int threads) {
     const long long want = (total + threads - 1) / threads;
     return (int)(want < 132 * 8 ? want : 132 * 8);
-}
-
-// Fixed-order block sum of one value a thread (blockDim.x == kThreads).
-__device__ float block_sum(float v, float* red) {
-    red[threadIdx.x] = v;
-    __syncthreads();
-    for (int s = kThreads / 2; s > 0; s >>= 1) {
-        if (threadIdx.x < s) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + s]);
-        __syncthreads();
-    }
-    const float r = red[0];
-    __syncthreads();
-    return r;
 }
 
 // device memory to shared, asynchronously, `bytes` (4, 8 or 16) at a time
@@ -925,102 +917,206 @@ __global__ void __launch_bounds__(kThreads) pw_backward_kernel(const PwArgs a) {
 
 // ---------------------------------------------------------------- K13
 
+// One anchor map and its heads; a tile is `tile_px` pixels of one member,
+// `per` tiles a member; `vec` 4 where x's rows copy in 16-byte words.
 struct HeadMap {
     const float* x;
     const float* wc;
     const float* bc;
     const float* wr;
     const float* br;
-    int hw, cin, na;
+    int hw, cin, na, tile_px, per, vec;
 };
 
-// A thread a (member, anchor): the anchor's logit and four offsets, its
-// focal BCE and masked smooth-L1 terms, dlogits, and the smooth-L1's
-// gradient before the 1 / normaliser (written into draw); per block, the
-// fixed-order sums of focal, masked smooth-L1 and mask.
-__global__ void head_loss_partial_kernel(HeadMap m16, HeadMap m8, const float* __restrict__ tp,
-                                         const float* __restrict__ tb,
-                                         const float* __restrict__ mask, float* __restrict__ dlogits,
-                                         float* __restrict__ draw, float* __restrict__ partial,
-                                         int n, float inv_count) {
-    __shared__ float red[kThreads];
-    const long long total = (long long)n * kAnchors;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    float focal = 0.0f, l1m = 0.0f, mv = 0.0f;
-    if (i < total) {
-        const long long b = i / kAnchors;
-        const int k = (int)(i % kAnchors);
-        const int k16 = m16.hw * m16.na;
-        const HeadMap& hm = k < k16 ? m16 : m8;
-        const int kk = k < k16 ? k : k - k16;
-        const int pix = kk / hm.na, a = kk % hm.na;
-        const float* xs = hm.x + (b * hm.hw + pix) * hm.cin;
-        const int rc = 4 * hm.na;
-        float logit = 0.0f, r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int ci = 0; ci < hm.cin; ++ci) {
-            const float v = xs[ci];
-            logit = __fmaf_rn(v, hm.wc[ci * hm.na + a], logit);
-            const float* wrow = hm.wr + ci * rc + 4 * a;
+// a K13 tile's staged x row pitch: 16-byte rows, 4 floats of padding
+// (a warp's 8 pixels a bank phase read distinct banks)
+__host__ __device__ __forceinline__ int head_pitch(int cin) { return (cin + 3) / 4 * 4 + 4; }
+
+// a K13 tile's shared floats: its x rows, then the class weights [cin, na]
+// (to a 16-byte end), then the offset weights [cin, 4 na]
+__host__ __device__ __forceinline__ long long head_smem_floats(const HeadMap& m) {
+    return (long long)m.tile_px * head_pitch(m.cin) + ((long long)m.cin * m.na + 3) / 4 * 4 +
+           4LL * m.cin * m.na;
+}
+
+struct HeadArgs {
+    HeadMap m16, m8;
+    const float* tp;
+    const float* tb;
+    const float* mask;
+    float* dlogits;
+    float* draw;
+    float* loss;
+    float* partial;     // 2 a tile: focal, masked smooth-L1
+    unsigned* counters; // 1, zero before and after a call
+    int n, tiles16, tiles;
+    float inv_count, count;
+};
+
+// Tile t's map, member, first pixel and pixels.
+struct HeadTile {
+    HeadMap m;
+    int b, p0, px, base;  // base: the map's first anchor of a member
+};
+
+__device__ __forceinline__ HeadTile head_tile(const HeadArgs& a, int t) {
+    const bool second = t >= a.tiles16;
+    HeadTile ht;
+    ht.m = second ? a.m8 : a.m16;
+    const int tt = second ? t - a.tiles16 : t;
+    ht.b = tt / ht.m.per;
+    ht.p0 = (tt - ht.b * ht.m.per) * ht.m.tile_px;
+    ht.px = min(ht.m.tile_px, ht.m.hw - ht.p0);
+    ht.base = second ? a.m16.hw * a.m16.na : 0;
+    return ht;
+}
+
+// Fixed-order sums over a K13 block of K values a thread: a shuffle tree
+// within each warp, then the warps' sums in warp order. `red` holds
+// K (kHeadWarps + 1) floats.
+template <int K>
+__device__ void block_sum(float v[K], float* red) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) r[j] = __fmaf_rn(v, wrow[j], r[j]);
+    for (int j = 0; j < K; ++j)
+        for (int o = 16; o > 0; o >>= 1) v[j] = __fadd_rn(v[j], __shfl_down_sync(~0u, v[j], o));
+    if (lane == 0)
+        for (int j = 0; j < K; ++j) red[K * warp + j] = v[j];
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+            float w = lane < kHeadWarps ? red[K * lane + j] : 0.0f;
+            for (int o = 16; o > 0; o >>= 1) w = __fadd_rn(w, __shfl_down_sync(~0u, w, o));
+            if (lane == 0) red[K * kHeadWarps + j] = w;
         }
-        logit = __fadd_rn(logit, hm.bc[a]);
-        const float t = tp[i];
-        const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-logit)));
-        const float lp = logf(__fadd_rn(p, 1e-7f));
-        const float omt = __fsub_rn(1.0f, t);
-        const float lq = logf(__fadd_rn(__fsub_rn(1.0f, p), 1e-7f));
-        const float bce = -__fadd_rn(__fmul_rn(t, lp), __fmul_rn(omt, lq));
-        const float wgt = __fadd_rn(0.25f, __fmul_rn(0.75f, t));
-        focal = __fmul_rn(bce, wgt);
-        // d focal / d logit, as JAX's reverse pass forms it
-        const float ct = -__fmul_rn(inv_count, wgt);
-        const float dp = __fsub_rn(__fdiv_rn(__fmul_rn(ct, t), __fadd_rn(p, 1e-7f)),
-                                   __fdiv_rn(__fmul_rn(ct, omt),
-                                             __fadd_rn(__fsub_rn(1.0f, p), 1e-7f)));
-        dlogits[i] = __fmul_rn(dp, __fmul_rn(p, __fsub_rn(1.0f, p)));
-        mv = mask[i];
+    }
+    __syncthreads();
+    for (int j = 0; j < K; ++j) v[j] = red[K * kHeadWarps + j];
+    __syncthreads();
+}
+
+// A block a tile of pixels of one map, a thread an anchor of the tile.
+// The anchor's targets, mask and biases are loaded first; the tile's x rows
+// (16-byte cp.async words where the rows allow) and the map's head weights
+// as they lie in memory are copied to shared memory asynchronously, all in
+// flight at once, while the block sums the whole mask (in the order every
+// block takes) for the reg normaliser sum(mask) * 4 + 1e-6; a thread sums its
+// anchor's logit and 4 offsets over the channels in channel order (five
+// chains in flight; the 4 offset weights one 16-byte read), then forms the
+// sigmoid, focal BCE, masked smooth-L1, dlogits and the scaled draw; the
+// block's fixed-order sums of focal and masked smooth-L1 go to `partial`,
+// and the last block by ticket sums them in tile order and writes the loss.
+__global__ void __launch_bounds__(kHeadThreads) head_loss_kernel(const HeadArgs a) {
+    extern __shared__ __align__(16) float hsm[];
+    __shared__ float red[2 * (kHeadWarps + 1)];
+    const int tid = threadIdx.x, t = blockIdx.x;
+    const HeadTile ht = head_tile(a, t);
+    const HeadMap& m = ht.m;
+    const int cin = m.cin, na = m.na, pitch = head_pitch(cin), px = ht.px;
+    const long long i =
+        tid < px * na ? (long long)ht.b * kAnchors + ht.base + (long long)ht.p0 * na + tid : -1;
+    const int p = tid / na, an = tid - p * na;
+    float* xs = hsm;
+    float* wcs = xs + m.tile_px * pitch;
+    float* wrs = wcs + (cin * na + 3) / 4 * 4;
+    const float* xg = m.x + ((long long)ht.b * m.hw + ht.p0) * cin;
+    if (m.vec == 4) {
+        const int c4 = cin / 4;
+        for (int e = tid; e < px * c4; e += kHeadThreads) {
+            const int q = e / c4, c = e - q * c4;
+            cp_async<16>(xs + q * pitch + 4 * c, xg + 4LL * e);
+        }
+    } else {
+        for (int e = tid; e < px * cin; e += kHeadThreads) {
+            const int q = e / cin, c = e - q * cin;
+            cp_async<4>(xs + q * pitch + c, xg + e);
+        }
+    }
+    for (int e = tid; e < cin * na; e += kHeadThreads) cp_async<4>(wcs + e, m.wc + e);
+    for (int e = tid; e < 4 * cin * na; e += kHeadThreads) cp_async<4>(wrs + e, m.wr + e);
+    cp_async_commit();
+    float tgt = 0.0f, mv = 0.0f, bc = 0.0f, tb[4] = {}, br[4] = {};
+    if (i >= 0) {
+        tgt = a.tp[i];
+        mv = a.mask[i];
+        bc = m.bc[an];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const float d = __fsub_rn(__fadd_rn(r[j], hm.br[4 * a + j]), tb[i * 4 + j]);
+            tb[j] = a.tb[4 * i + j];
+            br[j] = m.br[4 * an + j];
+        }
+    }
+    float ms[1] = {0.0f};
+    const long long anchors = (long long)a.n * kAnchors;  // a multiple of 4
+    if ((uintptr_t)a.mask % 16 == 0) {
+        for (long long q = 4 * tid; q < anchors; q += 4 * kHeadThreads) {
+            const float4 v = ld4(a.mask + q);
+            ms[0] = __fadd_rn(ms[0], __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)));
+        }
+    } else {
+        for (long long q = tid; q < anchors; q += kHeadThreads) ms[0] = __fadd_rn(ms[0], a.mask[q]);
+    }
+    block_sum<1>(ms, red);
+    const float denom = __fadd_rn(__fmul_rn(ms[0], 4.0f), 1e-6f);
+    const float inv = __fdiv_rn(1.0f, denom);
+    cp_async_wait_all();
+    __syncthreads();
+    float part[2] = {0.0f, 0.0f};  // focal, masked smooth-L1
+    if (i >= 0) {
+        const float* xr = xs + p * pitch;
+        float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int ci = 0; ci < cin; ++ci) {
+            const float v = xr[ci];
+            const float4 w4 = ld4(wrs + 4 * (ci * na + an));
+            acc[0] = __fmaf_rn(v, wcs[ci * na + an], acc[0]);
+            acc[1] = __fmaf_rn(v, w4.x, acc[1]);
+            acc[2] = __fmaf_rn(v, w4.y, acc[2]);
+            acc[3] = __fmaf_rn(v, w4.z, acc[3]);
+            acc[4] = __fmaf_rn(v, w4.w, acc[4]);
+        }
+        const float logit = __fadd_rn(acc[0], bc);
+        const float pr = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-logit)));
+        const float lp = logf(__fadd_rn(pr, 1e-7f));
+        const float omt = __fsub_rn(1.0f, tgt);
+        const float lq = logf(__fadd_rn(__fsub_rn(1.0f, pr), 1e-7f));
+        const float bce = -__fadd_rn(__fmul_rn(tgt, lp), __fmul_rn(omt, lq));
+        const float wgt = __fadd_rn(0.25f, __fmul_rn(0.75f, tgt));
+        part[0] = __fmul_rn(bce, wgt);
+        // d focal / d logit, as JAX's reverse pass forms it
+        const float ct = -__fmul_rn(a.inv_count, wgt);
+        const float dp = __fsub_rn(__fdiv_rn(__fmul_rn(ct, tgt), __fadd_rn(pr, 1e-7f)),
+                                   __fdiv_rn(__fmul_rn(ct, omt),
+                                             __fadd_rn(__fsub_rn(1.0f, pr), 1e-7f)));
+        a.dlogits[i] = __fmul_rn(dp, __fmul_rn(pr, __fsub_rn(1.0f, pr)));
+        float dr[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float d = __fsub_rn(__fadd_rn(acc[1 + j], br[j]), tb[j]);
             const float ad = fabsf(d);
             const bool quad = ad < 1.0f;
             const float l1 = quad ? __fmul_rn(__fmul_rn(0.5f, d), d) : __fsub_rn(ad, 0.5f);
-            l1m = __fadd_rn(l1m, __fmul_rn(l1, mv));
+            part[1] = __fadd_rn(part[1], __fmul_rn(l1, mv));
             const float slope = quad ? d : (d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f));
-            draw[i * 4 + j] = __fmul_rn(mv, slope);
+            dr[j] = __fmul_rn(__fmul_rn(mv, slope), inv);
+        }
+        *reinterpret_cast<float4*>(a.draw + 4 * i) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+    }
+    block_sum<2>(part, red);
+    if (tid == 0) {
+        a.partial[2 * t] = part[0];
+        a.partial[2 * t + 1] = part[1];
+    }
+    if (last_block(a.counters, a.tiles)) {
+        float s[2] = {0.0f, 0.0f};
+        for (int q = tid; q < a.tiles; q += kHeadThreads)
+            for (int j = 0; j < 2; ++j) s[j] = __fadd_rn(s[j], __ldcg(&a.partial[2 * q + j]));
+        block_sum<2>(s, red);
+        if (tid == 0) {
+            *a.loss = __fadd_rn(__fdiv_rn(s[0], a.count), __fdiv_rn(s[1], denom));
+            a.counters[0] = 0;
         }
     }
-    const float s0 = block_sum(focal, red);
-    const float s1 = block_sum(l1m, red);
-    const float s2 = block_sum(mv, red);
-    if (threadIdx.x == 0) {
-        partial[3 * blockIdx.x + 0] = s0;
-        partial[3 * blockIdx.x + 1] = s1;
-        partial[3 * blockIdx.x + 2] = s2;
-    }
-}
-
-// Every block sums the partials in the same order (so all agree on the
-// normaliser), block 0 writes the loss, and the blocks scale draw by
-// 1 / (sum(mask) * 4 + 1e-6).
-__global__ void head_loss_final_kernel(const float* __restrict__ partial, int parts,
-                                       float* __restrict__ draw, float* __restrict__ loss,
-                                       long long total4, float count) {
-    __shared__ float red[kThreads];
-    float s[3];
-    for (int j = 0; j < 3; ++j) {
-        float v = 0.0f;
-        for (int q = threadIdx.x; q < parts; q += blockDim.x) v = __fadd_rn(v, partial[3 * q + j]);
-        s[j] = block_sum(v, red);
-    }
-    const float denom = __fadd_rn(__fmul_rn(s[2], 4.0f), 1e-6f);
-    if (blockIdx.x == 0 && threadIdx.x == 0)
-        *loss = __fadd_rn(__fdiv_rn(s[0], count), __fdiv_rn(s[1], denom));
-    const float inv = __fdiv_rn(1.0f, denom);
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total4;
-         i += (long long)gridDim.x * blockDim.x)
-        draw[i] = __fmul_rn(draw[i], inv);
 }
 
 // ---------------------------------------------------------------- K14
@@ -1213,28 +1309,42 @@ extern "C" int flyimg_bf_pointwise_backward(const float* g, long long g_bstride,
 // K13 on `stream`: maps x16 [n, hw16, c16] and x8 [n, hw8, c8] with their
 // class (wc [c, na], bc [na]) and offset (wr [c, 4 na], br [4 na]) heads,
 // targets tp [n, 896], tb [n, 896, 4], mask [n, 896]. Writes dlogits
-// [n, 896], draw [n, 896, 4] and `loss` [1]; `partial` is scratch of
-// 3 ceil(n 896 / 256) floats. inv_count = f32(1 / (n 896)), count = n 896.
+// [n, 896], draw [n, 896, 4] and `loss` [1]. The plan
+// (blazeface_train.py k13_plan): tiles of `tile16` / `tile8` pixels, a
+// block a tile. `partial` holds 2 floats a tile, `counters` 1 zero (left
+// zero). inv_count = f32(1 / (n 896)), count = n 896. One launch.
 extern "C" int flyimg_bf_head_loss(const float* x16, const float* wc16, const float* bc16,
                                    const float* wr16, const float* br16, int hw16, int c16,
                                    int na16, const float* x8, const float* wc8, const float* bc8,
                                    const float* wr8, const float* br8, int hw8, int c8, int na8,
                                    const float* tp, const float* tb, const float* mask,
-                                   float* dlogits, float* draw, float* loss, float* partial, int n,
+                                   float* dlogits, float* draw, float* loss, float* partial,
+                                   unsigned* counters, int n, int tile16, int tile8,
                                    float inv_count, float count, void* stream) {
-    if (n <= 0 || hw16 * na16 + hw8 * na8 != kAnchors || c16 <= 0 || c8 <= 0)
+    if (n <= 0 || hw16 * na16 + hw8 * na8 != kAnchors || c16 <= 0 || c8 <= 0 || tile16 <= 0 ||
+        tile8 <= 0 || tile16 * na16 > kHeadThreads || tile8 * na8 > kHeadThreads ||
+        (uintptr_t)draw % 16 != 0)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const HeadMap m16{x16, wc16, bc16, wr16, br16, hw16, c16, na16};
-    const HeadMap m8{x8, wc8, bc8, wr8, br8, hw8, c8, na8};
-    const long long total = (long long)n * kAnchors;
-    const int parts = (int)((total + kThreads - 1) / kThreads);
-    head_loss_partial_kernel<<<parts, kThreads, 0, s>>>(m16, m8, tp, tb, mask, dlogits, draw,
-                                                         partial, n, inv_count);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    head_loss_final_kernel<<<blocks_for(total * 4, kThreads), kThreads, 0, s>>>(
-        partial, parts, draw, loss, total * 4, count);
+    HeadArgs a;
+    a.m16 = HeadMap{x16, wc16, bc16, wr16, br16, hw16, c16, na16, tile16,
+                    (hw16 + tile16 - 1) / tile16, vec_width(c16, x16)};
+    a.m8 = HeadMap{x8, wc8, bc8, wr8, br8, hw8, c8, na8, tile8, (hw8 + tile8 - 1) / tile8,
+                   vec_width(c8, x8)};
+    a.tp = tp, a.tb = tb, a.mask = mask, a.dlogits = dlogits, a.draw = draw, a.loss = loss;
+    a.partial = partial, a.counters = counters;
+    a.n = n;
+    a.tiles16 = n * a.m16.per;
+    a.tiles = a.tiles16 + n * a.m8.per;
+    a.inv_count = inv_count, a.count = count;
+    const long long floats = head_smem_floats(a.m16) > head_smem_floats(a.m8)
+                                 ? head_smem_floats(a.m16)
+                                 : head_smem_floats(a.m8);
+    const long long smem = 4 * floats;
+    if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = ensure_smem(head_loss_kernel, 5, smem);
+    if (err != cudaSuccess) return (int)err;
+    head_loss_kernel<<<a.tiles, kHeadThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+        a);
     return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
-"""Where K7's, K9's and K10's time goes on the card.
+"""Where K7's, K8's, K9's and K10's time goes on the card.
 
     python3 -m flyimg_tpu_torch.face_breakdown [--iters 200]
 
-Four readings, one JSON line each, with the card's name and power limit:
+Five readings, one JSON line each, with the card's name and power limit:
 
 1. K7 (``ops/pixelate.py pixelate_regions_u8``) on a 480x640 answer with
    the boxes facefind finds there, padded to 32: the single call's host time
@@ -30,6 +30,12 @@ Four readings, one JSON line each, with the card's name and power limit:
 4. K10's head form (``head_decode``) as the forward calls it, over both
    anchor maps: the same four numbers (the bound: both maps, the weights,
    the anchors read and the probabilities and boxes written once each).
+5. K8 (``models/facefind.py _batched_face_masks``) at ``face_entry``'s 16 x
+   480x640 and at the buckets the facefind face pass serves the 640x480
+   answers in (1, 2, 4, 8 and 16 members, as ``detect_faces_batched``
+   pads them): events, host, device time and launches a call from a
+   ``torch.profiler`` window, the byte bound (3 bytes read and one written a
+   pixel) and ``k8_plan``.
 
 Only the package's public functions are called. ``chip_smoke.py`` phase 3
 prints these readings too.
@@ -290,6 +296,37 @@ def head_times(model, views, iters: int = 50) -> dict:
             "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
 
 
+def k8_rows(images, in_true, thresholds, iters: int = 50) -> list:
+    """K8 at ``face_entry``'s bucket and at the face pass's serving buckets
+    of 640x480 answers (copies of ``images``' members, the last one padding
+    the occupancy up as ``detect_faces_batched`` does)."""
+    from flyimg_tpu_torch.models import facefind
+    from flyimg_tpu_torch.profile_entry import profiler_window
+
+    cases = [("face_entry", images, in_true, thresholds)]
+    for b in (1, 2, 4, 8, 16):
+        cases.append((f"serving bucket of {b}", images[:b].contiguous(),
+                      in_true[:b].contiguous(), thresholds[:b].contiguous()))
+    rows = []
+    for label, im, valid, thr in cases:
+        b, h, w, _ = im.shape
+        call = lambda im=im, valid=valid, thr=thr: facefind._batched_face_masks(  # noqa: E731
+            im, valid, thr)
+        window = {"launches_per_batch": 0}
+        for _ in range(3):
+            window = profiler_window(call, (), iters)
+            if window["launches_per_batch"] > 0:
+                break
+        rows.append({
+            "case": label, "shape": [b, h, w], "ms": _event_ms(call, iters),
+            "host_us": _host_us(call, iters), "device_ms": window["device_ms_per_batch"],
+            "launches": window["launches_per_batch"],
+            "bound_ms": 4.0 * b * h * w / H100_BYTES_PER_S * 1e3,
+            "plan": facefind.k8_plan(b, h, w)._asdict(),
+        })
+    return rows
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -312,7 +349,7 @@ def main(argv=None) -> int:
     card = card_line()
     image, boxes = k7_serving_case(dev)
     print(json.dumps({"k7": k7_host_split(image, boxes, args.iters), "card": card}))
-    _fn, (views, *_rest) = face_entry(dev)
+    _fn, (views, images, in_true, thresholds) = face_entry(dev)
     model = bf.load_weights(bf.PACKAGED_WEIGHTS, dev)
     layers = k10_layer_times(model, views, max(10, args.iters // 4))
     print(json.dumps({"k10_layers": layers, "views": int(views.shape[0]),
@@ -329,6 +366,8 @@ def main(argv=None) -> int:
                       "total_bound_ms": sum(r["bound_ms"] for r in k9),
                       "card": card}))
     print(json.dumps({"head": head_times(model, views, max(10, args.iters // 4)),
+                      "card": card}))
+    print(json.dumps({"k8": k8_rows(images, in_true, thresholds, max(10, args.iters // 4)),
                       "card": card}))
     return 0
 

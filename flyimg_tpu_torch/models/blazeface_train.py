@@ -528,9 +528,40 @@ def head_loss_plain(x16, x8, heads, target_probs, target_boxes, anchor_mask):
     return loss.detach(), dlogits, draw
 
 
+#: K13's pixel tiles (16x16 map, 8x8 map), largest first: a plan takes the
+#: largest whose tiles fill the card's SMs; threads a K13 block (csrc
+#: kHeadThreads: a thread an anchor of the tile)
+K13_TILES = ((64, 16), (32, 16), (16, 8), (8, 4))
+K13_THREADS = 128
+
+
+class K13Plan(NamedTuple):
+    tile16: int     # pixels of the 16x16 map a tile (a block)
+    tile8: int      # pixels of the 8x8 map a tile
+    tiles16: int    # tiles of the 16x16 map, n ceil(hw16 / tile16)
+    tiles: int      # all tiles
+    partial_floats: int
+
+
+def k13_plan(n: int, hw16: int, na16: int, hw8: int, na8: int, sms: int = 132) -> K13Plan:
+    """K13's tiles at ``n`` members: the largest pair of ``K13_TILES``
+    giving at least ``sms`` tiles (the smallest when none does), capped so
+    that a block's ``K13_THREADS`` threads hold a tile's anchors. Tile t < tiles16 is
+    pixels [(t % per16) tile16, ...) of member t // per16 of the 16x16 map;
+    the rest the same of the 8x8 map."""
+    for tile16, tile8 in K13_TILES:
+        tile16 = min(tile16, hw16, K13_THREADS // na16)
+        tile8 = min(tile8, hw8, K13_THREADS // na8)
+        tiles16 = n * -(-hw16 // tile16)
+        tiles = tiles16 + n * -(-hw8 // tile8)
+        if tiles >= sms:
+            break
+    return K13Plan(tile16, tile8, tiles16, tiles, 2 * tiles)
+
+
 def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
-    """K13 on a CUDA tensor (two launches), ``head_loss_plain`` on a CPU
-    tensor."""
+    """K13 on a CUDA tensor (one launch, as ``k13_plan`` says),
+    ``head_loss_plain`` on a CPU tensor."""
     n = x16.shape[0]
     if (x8.shape[0] != n or tuple(target_probs.shape) != (n, bf.NUM_ANCHORS)
             or tuple(target_boxes.shape) != (n, bf.NUM_ANCHORS, 4)
@@ -558,24 +589,27 @@ def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
         keep += [x, ck, cb, rk, rb]
         args += [x.data_ptr(), ck.data_ptr(), cb.data_ptr(), rk.data_ptr(),
                  rb.data_ptr(), x.shape[1] * x.shape[2], x.shape[3], ck.shape[3]]
-    f32 = dict(dtype=torch.float32, device=x16.device)
+    dev = x16.device
+    f32 = dict(dtype=torch.float32, device=dev)
     tp, tb, mask = (t.contiguous() for t in (target_probs, target_boxes, anchor_mask))
     dlogits = torch.empty((n, bf.NUM_ANCHORS), **f32)
     draw = torch.empty((n, bf.NUM_ANCHORS, 4), **f32)
     loss = torch.empty(1, **f32)
-    partial = torch.empty(3 * (-(-n * bf.NUM_ANCHORS // 256)), **f32)
+    plan = k13_plan(n, args[5], args[7], args[13], args[15], bf._sm_count(dev.index))
+    stream = cuda_build.current_stream(dev.index)
+    partial, counters = _scratch(dev, stream, plan.partial_floats, 1)
     count = np.float32(n * bf.NUM_ANCHORS)
     rc = _lib().flyimg_bf_head_loss(
         *args, tp.data_ptr(), tb.data_ptr(), mask.data_ptr(), dlogits.data_ptr(),
-        draw.data_ptr(), loss.data_ptr(), partial.data_ptr(), n,
-        float(np.float32(1.0) / count), float(count), _stream(x16),
+        draw.data_ptr(), loss.data_ptr(), partial.data_ptr(), counters.data_ptr(), n,
+        plan.tile16, plan.tile8, float(np.float32(1.0) / count), float(count), stream,
     )
     cuda_build.check(rc, "blazeface head_loss")
     head_loss.launches += 1
     return loss.view(()), dlogits, draw
 
 
-#: K13 launches since the last reset (a call is two launches)
+#: K13 launches since the last reset (one a call)
 head_loss.launches = 0
 
 
@@ -653,7 +687,7 @@ def _lib():
         lib.flyimg_bf_pointwise_backward.argtypes = (
             [p, ll] + [p] * 11 + [i] * 13 + [p])
         lib.flyimg_bf_head_loss.argtypes = (
-            ([p] * 5 + [i] * 3) * 2 + [p] * 7 + [i, f, f, p])
+            ([p] * 5 + [i] * 3) * 2 + [p] * 8 + [i] * 3 + [f, f, p])
         lib.flyimg_bf_adam.argtypes = [p] * 4 + [ll] + [f] * 8 + [p]
         for fn in (lib.flyimg_bf_conv5x5_backward, lib.flyimg_bf_pointwise_backward,
                    lib.flyimg_bf_head_loss, lib.flyimg_bf_adam):

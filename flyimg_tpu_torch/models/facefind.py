@@ -7,8 +7,9 @@ extraction on the host (``scipy.ndimage``, as in the JAX package). Face
 blur pixelates every box (ops/pixelate.py, kernel K7); face crop slices the
 Nth box.
 
-On the card the masks of a whole shape bucket are ONE call of kernel K8
-(``csrc/facemask.cu``, five launches) through ``_batched_face_masks``.
+On the card the masks of a whole shape bucket are ONE launch of kernel K8
+(``csrc/facemask.cu``; its tiles from ``k8_plan``) through
+``_batched_face_masks``.
 ``_skin_probability``, ``_morph_clean`` and ``face_masks_plain`` are the
 plain PyTorch versions; ``_batched_face_masks`` runs the plain version for
 a CPU tensor only.
@@ -27,7 +28,7 @@ from __future__ import annotations
 import ctypes
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from flyimg_tpu_torch import cuda_build
 from flyimg_tpu_torch.device import resolve_device
+from flyimg_tpu_torch.models.blazeface import _sm_count
 from flyimg_tpu_torch.ops.color import fma_f32
 from flyimg_tpu_torch.ops.compose import _bucket_dim, bucket_batch
 from flyimg_tpu_torch.ops.pixelate import pixelate_regions_u8
@@ -49,6 +51,56 @@ MORPH_RADIUS = 2           # 5x5 windows
 #: the reciprocals XLA multiplies by in place of the divisions
 INV07 = float(np.float32(1.0) / np.float32(0.07))
 INV05 = float(np.float32(1.0) / np.float32(0.05))
+
+
+#: K8's launch plan: the halo a tile stages (4 passes x radius 2), the
+#: widest row one tile spans (in 32-pixel words), the words of a tile past
+#: it, the core rows a tile may take (smallest first) and the shared memory
+#: a block may take (csrc/facemask.cu: the mask words and the row passes'
+#: words, (tile_rows + 16) x words each)
+K8_HALO = 8
+K8_ROW_WORDS = 64
+K8_TILE_WORDS = 32
+K8_TILE_ROWS = (8, 16, 32, 64)
+K8_SMEM = 48 * 1024
+
+
+class K8Plan(NamedTuple):
+    tile_rows: int     # rows of a tile's core
+    words: int         # 32-pixel words a staged row holds
+    tile_cols: int     # columns of a tile's core
+    halo_x: int        # staged columns left of the core (0: whole rows)
+    tiles_y: int
+    tiles_x: int
+    blocks: int
+
+
+def k8_plan(batch: int, h: int, w: int, sms: int = 132) -> K8Plan:
+    """K8's tiles for a [batch, h, w] bucket: a row of up to
+    ``K8_ROW_WORDS`` words is one tile wide with no halo in x (the image's
+    edges are the valid region's); a wider row is cut into cores of
+    ``32 K8_TILE_WORDS - 16`` columns with an 8-pixel halo each side. The
+    core rows are the fewest of ``K8_TILE_ROWS`` whose blocks fit one to
+    each of the card's ``sms`` SMs (the most when none do; the whole height
+    when it is less), each tile staged with 8 halo rows above and below: a
+    block is bound by the instructions its SM issues for it, so below one
+    block an SM the time is one block's, which grows with its rows, and
+    past it taller tiles recompute fewer halo rows."""
+    row_words = -(-w // 32)
+    if row_words <= K8_ROW_WORDS:
+        words, tile_cols, halo_x = row_words, w, 0
+    else:
+        words, halo_x = K8_TILE_WORDS, K8_HALO
+        tile_cols = 32 * words - 2 * K8_HALO
+    tiles_x = -(-w // tile_cols)
+    most_rows = K8_SMEM // (2 * 4 * words) - 2 * K8_HALO
+    for rows in K8_TILE_ROWS:
+        tile_rows = min(rows, most_rows, h)
+        tiles_y = -(-h // tile_rows)
+        if batch * tiles_y * tiles_x <= sms:
+            break
+    return K8Plan(tile_rows, words, tile_cols, halo_x, tiles_y, tiles_x,
+                  batch * tiles_y * tiles_x)
 
 
 def _f32(v: float, device) -> torch.Tensor:
@@ -154,19 +206,18 @@ def _batched_face_masks(images: torch.Tensor, in_true: torch.Tensor,
     ):
         raise ValueError("prob_out must be contiguous f32 [B, h, w] on the card")
     out = torch.empty((b, h, w), dtype=torch.uint8, device=images.device)
-    scratch = torch.empty_like(out)
+    plan = k8_plan(b, h, w, _sm_count(images.device.index))
     rc = _lib().flyimg_face_masks(
-        images.data_ptr(), in_true.data_ptr(), thresholds.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(),
+        images.data_ptr(), in_true.data_ptr(), thresholds.data_ptr(), out.data_ptr(),
         None if prob_out is None else prob_out.data_ptr(), b, h, w,
-        INV07, INV05, torch.cuda.current_stream(images.device).cuda_stream,
+        *plan[:6], INV07, INV05, cuda_build.current_stream(images.device.index),
     )
     cuda_build.check(rc, "face_masks")
     _batched_face_masks.launches += 1
     return out.view(torch.bool)
 
 
-#: K8 calls (of five launches each) since the last reset
+#: K8 launches since the last reset (one a call)
 _batched_face_masks.launches = 0
 
 
@@ -175,7 +226,7 @@ def _lib():
     if not getattr(lib, "_flyimg_bound", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.flyimg_face_masks
-        fn.argtypes = [p] * 6 + [i] * 3 + [f, f, p]
+        fn.argtypes = [p] * 5 + [i] * 9 + [f, f, p]
         fn.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib

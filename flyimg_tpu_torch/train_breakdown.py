@@ -1,4 +1,4 @@
-"""Where K11's and K12's time goes on the card, layer by layer.
+"""Where K11's, K12's and K13's time goes on the card, layer by layer.
 
     python3 -m flyimg_tpu_torch.train_breakdown [--iters 50] [--batches 16,64]
 
@@ -21,8 +21,12 @@ call, with the card's name and power limit:
   (K12);
 - the launch plan (``k11_plan`` / ``k12_plan``).
 
-Then one line a batch with the sums. Only the package's public functions
-are called. ``chip_smoke.py`` phase 3 prints these readings at batch 16.
+Then one line a batch with the sums, and one for K13 (``head_loss``, the
+heads, the loss and its gradient) at that batch: events, host, device time
+and launches a call, the byte bound (as ``chip_smoke.py`` counts it), the
+train step's device time and launches from a profiler window, K13's share
+of that device time, and ``k13_plan``. ``chip_smoke.py`` phase 3 prints
+the K11 and K12 readings at batch 16.
 """
 
 from __future__ import annotations
@@ -205,6 +209,52 @@ def layer_rows(batch: int, iters: int, dev, card: str):
             }
 
 
+def k13_row(batch: int, iters: int, dev, card: str) -> dict:
+    """K13 at ``batch`` (a fresh model, the seeded synthetic batch) and its
+    share of the train step's device time."""
+    import numpy as np
+
+    from flyimg_tpu_torch.models import blazeface as bf
+    from flyimg_tpu_torch.models import blazeface_train as bt
+    from flyimg_tpu_torch.profile_entry import profiler_window
+
+    model = bt.init_params(0, dev)
+    arrays = bt.batch_to(bt.synthetic_batch(np.random.default_rng(0), batch), dev)
+    images, tp, tboxes, mask = arrays
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        maps = [a["y"] for _kind, layer, a in backward_calls(model, images, gen)
+                if layer.endswith("class")]
+    heads = tuple((c.kernel, c.bias, r.kernel, r.bias) for c, r, _ in model._heads())
+    args = (maps[0], maps[1], heads, tp, tboxes, mask)
+    call = lambda: bt.head_loss(*args)  # noqa: E731
+    device_ms, launches = device_window(call, iters)
+    params = sum(t.numel() for h in heads for t in h)
+    nbytes = 4.0 * (maps[0].numel() + maps[1].numel() + params + 3 * tp.numel()
+                    + 2 * tboxes.numel() + 1)
+    flops = 2.0 * sum(m.numel() * 5 * h[0].shape[3] for m, h in zip(maps, heads)) \
+        + 40.0 * batch * bf.NUM_ANCHORS
+    step = bt.make_train_step(model)[1]
+    window = {"launches_per_batch": 0}
+    for _ in range(3):
+        window = profiler_window(step, arrays, iters)
+        if window["launches_per_batch"] > 0:
+            break
+    plan = bt.k13_plan(batch, maps[0].shape[1] * maps[0].shape[2], heads[0][0].shape[3],
+                       maps[1].shape[1] * maps[1].shape[2], heads[1][0].shape[3],
+                       bf._sm_count(dev.index))
+    return {
+        "kernel": "K13", "batch": batch, "ms": event_ms(call, iters),
+        "host_us": host_us(call, iters), "device_ms": device_ms, "launches": launches,
+        "bound_ms": max(nbytes / H100_BYTES_PER_S, flops / 67e12) * 1e3,
+        "step_device_ms": window["device_ms_per_batch"],
+        "step_launches": window["launches_per_batch"],
+        "share_of_step": (device_ms / window["device_ms_per_batch"]
+                          if window["device_ms_per_batch"] else None),
+        "plan": plan._asdict(), "card": card,
+    }
+
+
 def summary(rows) -> dict:
     """Sums by kernel of a batch's rows."""
     out = {}
@@ -234,6 +284,7 @@ def main(argv=None) -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
         print(json.dumps({"batch": batch, "sums": summary(rows), "card": card}), flush=True)
+        print(json.dumps(k13_row(batch, args.iters, dev, card)), flush=True)
     return 0
 
 

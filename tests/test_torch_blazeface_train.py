@@ -652,6 +652,46 @@ def test_k12_plan_covers_edge_shapes(shape):
         _check_k12_plan(n, h, w, cin, cout, masked)
 
 
+#: the two anchor maps' (pixels, channels, anchors a pixel) at full width
+K13_MAPS = ((16 * 16, 88, 2), (8 * 8, 96, 6))
+
+
+@pytest.mark.parametrize("n", range(1, 65))
+def test_k13_plan_covers_every_anchor_once(n):
+    """K13's tiles, walked as the kernel walks them (tile t of the 16x16
+    map below ``tiles16``, of the 8x8 map past it; a thread an anchor),
+    cover each of the n x 896 anchors exactly once; a block's threads hold
+    a tile's anchors, and its staged rows and weights fit 48 KB."""
+    (hw16, c16, na16), (hw8, c8, na8) = K13_MAPS
+    plan = bt.k13_plan(n, hw16, na16, hw8, na8)
+    assert plan.partial_floats == 2 * plan.tiles
+    hits = np.zeros(n * tbf.NUM_ANCHORS, np.int64)
+    for t in range(plan.tiles):
+        second = t >= plan.tiles16
+        hw, cin, na = K13_MAPS[1] if second else K13_MAPS[0]
+        tile = plan.tile8 if second else plan.tile16
+        per = -(-hw // tile)
+        tt = t - plan.tiles16 if second else t
+        b, p0 = tt // per, (tt % per) * tile
+        px = min(tile, hw - p0)
+        assert b < n and px > 0 and px * na <= bt.K13_THREADS
+        base = hw16 * na16 if second else 0
+        first = b * tbf.NUM_ANCHORS + base + p0 * na
+        hits[first:first + px * na] += 1
+    assert (hits == 1).all()
+    assert plan.tiles16 == n * -(-hw16 // plan.tile16)
+    assert plan.tiles == plan.tiles16 + n * -(-hw8 // plan.tile8)
+    # x rows at a 16-byte pitch 4 floats past the channels, the class
+    # weights to a 16-byte end, the offset weights
+    smem = 4 * max(tile * (-(-c // 4) * 4 + 4) + -(-c * na // 4) * 4 + 4 * c * na
+                   for tile, (_hw, c, na) in ((plan.tile16, K13_MAPS[0]), (plan.tile8, K13_MAPS[1])))
+    assert smem <= 48 * 1024
+    # the largest tiles that still fill the card's SMs (132), else the smallest
+    filling = [(t16, t8) for t16, t8 in bt.K13_TILES
+               if n * (-(-hw16 // t16) + -(-hw8 // t8)) >= 132]
+    assert (plan.tile16, plan.tile8) == (filling[0] if filling else bt.K13_TILES[-1])
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_conv5x5_backward_dx_into_is_autograds_sum(stride):
     """The plain path of ``conv5x5_backward(..., dx_into=)`` adds the input

@@ -215,6 +215,214 @@ def test_face_masks_match_jax_off_the_knife_edge(seed):
     assert edge.mean() < 1e-3
 
 
+def _k8_valid_count(v, size):
+    """Rows (or columns) i of [0, size) with f32(i) < v, as K8 counts them."""
+    return 0 if not v > 0 else min(size, int(np.ceil(v)))
+
+
+def _pack_words(bits):
+    """[rows, 32 k] bool -> [rows, k] uint64 words, bit i of word j the
+    pixel 32 j + i (K8's layout)."""
+    rows, cols = bits.shape
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (bits.reshape(rows, cols // 32, 32).astype(np.uint64) * weights).sum(axis=2)
+
+
+def _unpack_words(words):
+    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+    return bits.reshape(words.shape[0], -1).astype(bool)
+
+
+def k8_tile_walk(mask, valid, plan):
+    """A numpy emulation of K8's tile walk, driven by ``plan``: each tile's
+    window of 32-pixel words (8 halo rows, ``halo_x`` halo columns), the
+    thresholded mask ``& valid``, then erode, dilate, dilate, erode, each a
+    5-tap row pass of shifted words (the neighbours' bits across word
+    edges, the identity past the window) and a 5-tap column pass, the
+    pixels outside the valid region holding the pass's identity before it
+    and 0 after it; only each tile's core is kept."""
+    full = np.uint64(0xFFFFFFFF)
+    halo = tfacefind.K8_HALO
+    b, h, w = mask.shape
+    rows, cols = plan.tile_rows + 2 * halo, 32 * plan.words
+    out = np.zeros_like(mask)
+    written = np.zeros(mask.shape, np.int64)
+    for bi in range(b):
+        vh = _k8_valid_count(valid[bi, 0], h)
+        vw = _k8_valid_count(valid[bi, 1], w)
+        for ty in range(plan.tiles_y):
+            for tx in range(plan.tiles_x):
+                y0, x0 = ty * plan.tile_rows, tx * plan.tile_cols
+                ys, xs = y0 - halo, x0 - plan.halo_x
+                yy = ys + np.arange(rows)[:, None]
+                xx = xs + np.arange(cols)[None, :]
+                inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                vbits = (yy >= 0) & (yy < vh) & (xx >= 0) & (xx < vw)
+                bits = np.zeros((rows, cols), bool)
+                bits[inside] = mask[bi][np.broadcast_to(yy, bits.shape)[inside],
+                                        np.broadcast_to(xx, bits.shape)[inside]]
+                m, vw_words = _pack_words(bits & vbits), _pack_words(vbits)
+                for dilate in (False, True, True, False):
+                    ident = np.uint64(0) if dilate else full
+                    t = m if dilate else m | (~vw_words & full)
+                    edge = np.full((rows, 1), ident, np.uint64)
+                    left = np.concatenate([edge, t[:, :-1]], axis=1)
+                    right = np.concatenate([t[:, 1:], edge], axis=1)
+                    taps = [t]
+                    for s in (1, 2):
+                        s = np.uint64(s)
+                        taps.append(((t >> s) | (right << (np.uint64(32) - s))) & full)
+                        taps.append(((t << s) | (left >> (np.uint64(32) - s))) & full)
+                    op = np.bitwise_or if dilate else np.bitwise_and
+                    rp = op.reduce(taps)
+                    pad = np.full((2, rp.shape[1]), ident, np.uint64)
+                    col = np.concatenate([pad, rp, pad])
+                    m = op.reduce([col[d:d + rows] for d in range(5)]) & vw_words
+                core = _unpack_words(m)
+                r1 = min(plan.tile_rows, h - y0)
+                c1 = min(plan.tile_cols, w - x0)
+                out[bi, y0:y0 + r1, x0:x0 + c1] = core[halo:halo + r1,
+                                                        plan.halo_x:plan.halo_x + c1]
+                written[bi, y0:y0 + r1, x0:x0 + c1] += 1
+    assert (written == 1).all()  # the cores tile the bucket, each pixel once
+    return out
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of
+    y:x."""
+    pool = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(pool[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _lanes_gt(a, b, width):
+    """CUDA's __vcmpgtu4 (width 8) / __vcmpgtu2 (width 16): all ones in
+    each lane where a > b, unsigned."""
+    mask = (1 << width) - 1
+    out = np.zeros_like(a)
+    for i in range(0, 32, width):
+        out |= np.where(((a >> i) & mask) > ((b >> i) & mask), np.uint32(mask << i), 0)
+    return out
+
+
+def k8_gate_bits(w0, w1, w2):
+    """K8's gates of 4 pixels from their 12 bytes in three little-endian
+    words, as the kernel forms them (byte permutes, byte- and 16-bit-lane
+    compares): bit j for pixel j."""
+    r4 = _byte_perm(_byte_perm(w0, w1, 0x0630), w2, 0x5210)
+    g4 = _byte_perm(_byte_perm(w0, w1, 0x0741), w2, 0x6210)
+    b4 = _byte_perm(_byte_perm(w0, w1, 0x0052), w2, 0x7410)
+    u = np.uint32
+    r_even, r_odd = r4 & u(0x00FF00FF), (r4 >> u(8)) & u(0x00FF00FF)
+    g_even, g_odd = g4 & u(0x00FF00FF), (g4 >> u(8)) & u(0x00FF00FF)
+    tint = ((_lanes_gt(r_even * u(10), g_even * u(9), 16) & u(0x00FF00FF))
+            | ((_lanes_gt(r_odd * u(10), g_odd * u(9), 16) & u(0x00FF00FF)) << u(8)))
+    diff = np.zeros_like(r4)
+    for i in range(0, 32, 8):
+        ri, gi = (r4 >> u(i)) & u(255), (g4 >> u(i)) & u(255)
+        diff |= np.where(ri > gi, ri - gi, gi - ri) << u(i)
+    gates = (_lanes_gt(r4, u(0x3C3C3C3C) + 0 * r4, 8) & _lanes_gt(r4, b4, 8)
+             & _lanes_gt(diff, u(0x0A0A0A0A) + 0 * r4, 8) & tint)
+    return (((gates & u(0x01010101)) * u(0x01020408)) >> u(24)) & u(15)
+
+
+def test_k8_integer_gates_equal_the_float_gates_on_every_colour():
+    """K8 tests the skin gates on bytes, 4 pixels at once; over every one of
+    the 2^24 colours (packed 4 to a lane as an image row packs them) its
+    bits equal the gates ``_skin_probability`` forms in f32 (r > 60,
+    r > b, r > g * 0.9, |r - g| > 10)."""
+    c = np.arange(1 << 24, dtype=np.uint32)
+    rgb = np.stack([(c >> 16) & 255, (c >> 8) & 255, c & 255], axis=1).astype(np.uint8)
+    words = rgb.reshape(-1, 12).view("<u4")
+    bits = k8_gate_bits(words[:, 0], words[:, 1], words[:, 2])
+    got = ((bits[:, None] >> np.arange(4, dtype=np.uint32)) & 1).reshape(-1).astype(bool)
+    f = torch.from_numpy(rgb).to(torch.float32)
+    r, g, b = f[:, 0], f[:, 1], f[:, 2]
+    want = ((r > 60.0) & (r > b) & (r > g * torch.tensor(np.float32(0.9)))
+            & ((r - g).abs() > 10.0)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def blotch_images(b, h, w, seed):
+    """[b, h, w, 3] u8 of two colours, skin (probability ~1) and blue
+    (probability 0), in random 3x3 blotches with single-pixel noise: masks
+    far from the threshold, with edges and holes for the morphology."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(size=(b, -(-h // 3), -(-w // 3))) < 0.55
+    skin = np.repeat(np.repeat(coarse, 3, axis=1), 3, axis=2)[:, :h, :w]
+    skin ^= rng.uniform(size=(b, h, w)) < 0.08
+    return np.where(skin[..., None], np.uint8([200, 140, 110]),
+                    np.uint8([50, 90, 160])).astype(np.uint8)
+
+
+K8_WALK_CASES = [
+    # random masks, the whole bucket valid
+    (2, 64, 96, [[64, 96], [64, 96]]),
+    # valid sizes from 1 to the whole bucket, sides off the tile
+    (4, 33, 33, [[1, 33], [33, 1], [17, 20], [33, 33]]),
+    (3, 75, 130, [[75, 130], [40, 77], [0, 130]]),
+    # rows cut into tiles in x: valid sides straddling tile edges both ways
+    (1, 40, 2100, [[37, 2050]]),
+    (2, 70, 2200, [[70, 2200], [33, 1009]]),
+    # a 1x1 valid region, in a bucket and alone
+    (2, 20, 50, [[1, 1], [20, 50]]),
+    (1, 1, 1, [[1, 1]]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(K8_WALK_CASES)))
+def test_k8_tile_walk_matches_jax(case):
+    """K8's tile walk (numpy, from ``k8_plan``) fed the JAX thresholded
+    mask equals the JAX package's ``_batched_face_masks``."""
+    b, h, w, valid = K8_WALK_CASES[case]
+    imgs = blotch_images(b, h, w, 60 + case)
+    valid = np.array(valid, np.float32)
+    thr = np.full((b,), 0.35, np.float32)
+    ref = np.asarray(jfacefind._batched_face_masks(
+        jnp.asarray(imgs), jnp.asarray(valid), jnp.asarray(thr)))
+    prob, vmask = jax_prob_and_valid(imgs, valid)
+    assert (np.abs(prob - 0.35) > 0.1).all()  # no knife-edge pixel
+    plan = tfacefind.k8_plan(b, h, w)
+    got = k8_tile_walk(prob > thr[:, None, None], valid, plan)
+    np.testing.assert_array_equal(got, ref)
+    if h * w > 100:
+        assert ref.any() and not ref[vmask].all()
+
+
+@pytest.mark.parametrize("shape", [(16, 480, 640), (1, 480, 640), (4, 480, 640), (8, 480, 640),
+                                   (64, 480, 640), (1, 1, 1), (3, 75, 130), (1, 40, 2100),
+                                   (2, 4000, 4500), (1, 33, 2048), (1, 33, 2049),
+                                   (1, 8192, 2048)])
+def test_k8_plan_covers_the_bucket(shape):
+    """Cores tile every row and column once, a core and its halos fit the
+    staged words, the rows of a tile are whole or cut with the 8-pixel
+    halo, and the staged words fit 48 KB of shared memory."""
+    b, h, w = shape
+    plan = tfacefind.k8_plan(b, h, w)
+    assert plan.blocks == b * plan.tiles_y * plan.tiles_x
+    assert (plan.tiles_y - 1) * plan.tile_rows < h <= plan.tiles_y * plan.tile_rows
+    assert (plan.tiles_x - 1) * plan.tile_cols < w <= plan.tiles_x * plan.tile_cols
+    assert plan.tile_cols + 2 * plan.halo_x <= 32 * plan.words
+    if plan.halo_x == 0:
+        assert plan.tiles_x == 1 and 32 * plan.words >= w
+    else:
+        assert plan.halo_x == tfacefind.K8_HALO and plan.tiles_x > 1
+    # the mask words and the row passes' words fit 48 KB; a thread of the
+    # 1,024 a block takes a column in the morphology
+    assert 2 * (plan.tile_rows + 2 * tfacefind.K8_HALO) * plan.words * 4 <= 48 * 1024
+    assert plan.words <= 1024
+    # the fewest rows whose blocks fit one an SM, else the most
+    fits = [r for r in tfacefind.K8_TILE_ROWS
+            if b * -(-h // min(r, h)) * plan.tiles_x <= 132]
+    if h <= plan.tile_rows:
+        assert plan.tile_rows == h
+    elif fits:
+        assert plan.tile_rows == min(fits[0], h)
+    else:
+        assert plan.tile_rows == min(tfacefind.K8_TILE_ROWS[-1],
+                                     48 * 1024 // (8 * plan.words) - 16)
+
+
 def test_detect_faces_batched_matches_jax():
     """Two buckets, one padded from 3 to 4; boxes equal for every member
     with no knife-edge pixel."""
