@@ -10,6 +10,8 @@ Phases, in order; any failure exits non-zero without a result line:
              power limit;
 2. build   — compiles kernels K1-K15 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
+             builds the WebP codec (codecs/native/webp_lossless.cpp) with
+             g++ and loads nvJPEG, printing both libraries' versions;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
              of the kernel, the plain version and (where one exists) the one
@@ -84,7 +86,9 @@ Phases, in order; any failure exits non-zero without a result line:
              block's K12 then K11 into the residual's gradient, a head's strided,
              scaled and accumulated gradient, K13 at N = 1, 3, 16 and 64
              (the same bits on a repeated call, one launch a call), K14 on a
-             length no block divides; then K15 (the ring rotate's step) at
+             length no block divides, on a count of 4k + 3, on buffers at one
+             shared offset and at unequal offsets off 16-byte alignment,
+             each the plain version's bits; then K15 (the ring rotate's step) at
              phase 9's shapes (a 960-row visiting tile of the 3840x2160
              frame into a 1092x4036 accumulator at -37 degrees), a middle
              step and the last (u8, coloured background), within 1e-5
@@ -104,7 +108,17 @@ Phases, in order; any failure exits non-zero without a result line:
              PNGs, then 16 concurrent requests spread over the
              STAGED_OPTIONS strings, dense and banded; every answer is held against
              the same request through the handler on the CPU; a repeat is a
-             cache hit;
+             cache hit; then (banded) the JPEG wave: the same 8 sources as
+             q90 4:2:0 JPEGs from the package's own encoder (nvJPEG), 16
+             concurrent o_auto requests from a client that accepts WebP
+             answered image/jpeg (the port has no lossy WebP encoder, so
+             o_auto answers as the reference does a client without WebP)
+             and 16 o_webp,webpl_1 requests answered image/webp, each 200,
+             decoded, 300x250 without smc_1, a WebP answer equal to the PNG
+             answer of the same URL and a JPEG one at least
+             JPEG_ANSWER_PSNR against it; o_webp without webpl_1 answers
+             415; K1, K2 and K3 must launch; both waves' wall times beside
+             the PNG wave's;
 7. faces   — flyimg_tpu_torch/entry.py face_entry (the BlazeFace forward
              over 64 views, the facefind masks of 16 480x640 images) held
              against the plain path and timed (views/s, images/s); then the
@@ -144,6 +158,20 @@ Phases, in order; any failure exits non-zero without a result line:
              its handler's tiled counters showing the route, and
              w_256,h_200,c_1 (a crop) not taking it. With more than one
              card the checks run again on a mesh over all of them.
+10. codecs — the host codec layer (codecs/): nvJPEG's decode of the JPEG
+             fixtures (tests/data/jpeg, written by the JAX package's
+             libjpeg-turbo: 4:2:0, 4:4:4, progressive, EXIF orientation 6,
+             DCT scales 1, 2 and 4 of 8) against the JAX package's decoded
+             pixels (bounds NVJPEG_LEVELS and NVJPEG_SHARE_OVER_1), and a
+             header declaring 30000 x 30000 pixels refused; its q90 4:4:4
+             encodes (moz_0, moz_1) of the fixture source against the JAX
+             package's files, both decoded by nvJPEG (PSNR at least the
+             JAX file's less 0.5 dB, at most 1.05x its bytes); the WebP
+             codec's round trip (exact) and a lossy WebP encode refused;
+             then medians of calls: decode of a 1920x1080 q90 JPEG at 8/8
+             and at the flagship hint's prescale, encode of a 300x250
+             answer with moz_1 and moz_0, and its lossless WebP encode, on
+             one JSON line with the card's name and power limit.
 
 Launch counters are zeroed right before each main-path phase (4-9)
 and read right after; every kernel of the phase's path must have launched.
@@ -167,6 +195,8 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 
 PIXEL_TOL = 1                   # u8 levels
+#: a JPEG answer of the server against its PNG answer of the same URL, dB
+JPEG_ANSWER_PSNR = 30.0
 DIFF_FRAC = 1e-4                # share of u8 values that may differ by 1
 SCORE_RTOL = 1e-5               # max |a - b| / max |b|
 F32_TOL = 1e-3                  # f32 stage outputs: K1-f32; K4 off the fill edge
@@ -1263,11 +1293,17 @@ def phase_staged(torch, dev, card, kernels):
 
 
 def synthetic_png(path, w, h, seed):
+    """Write ``synthetic_image(w, h, seed)`` as a PNG."""
+    from flyimg_tpu_torch.codecs import png
+
+    with open(path, "wb") as fh:
+        fh.write(png.encode(synthetic_image(w, h, seed)))
+
+
+def synthetic_image(w, h, seed):
     """Smooth seeded image with structure: colour gradients, a few soft
     skin-toned and saturated blobs, and a sharp-edged rectangle."""
     import numpy as np
-
-    from flyimg_tpu_torch.codecs import png
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -1284,9 +1320,7 @@ def synthetic_png(path, w, h, seed):
         img = img * (1 - mask) + color * mask
     y0, x0 = int(rng.uniform(0.1, 0.6) * h), int(rng.uniform(0.1, 0.6) * w)
     img[y0:y0 + h // 6, x0:x0 + w // 6] = rng.uniform(0, 255, 3)
-    img = np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
-    with open(path, "wb") as fh:
-        fh.write(png.encode(img))
+    return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
 
 
 def phase_server(torch, dev, workdir, kernels):
@@ -1301,13 +1335,21 @@ def phase_server(torch, dev, workdir, kernels):
     from flyimg_tpu_torch.service.app import make_server, serve_in_thread
     from flyimg_tpu_torch.service.handler import ImageHandler
 
+    from flyimg_tpu_torch import codecs
+
     sizes = [(1920, 1080), (1303, 977), (512, 512)]
-    sources = []
+    sources, jpeg_sources = [], []
     for i in range(8):
         w, h = sizes[i % 3]
         path = os.path.join(workdir, f"src{i}_{w}x{h}.png")
         synthetic_png(path, w, h, seed=100 + i)
         sources.append(path)
+        # the same image as a q90 4:2:0 JPEG from the package's own encoder
+        path = os.path.join(workdir, f"src{i}_{w}x{h}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(codecs.encode(synthetic_image(w, h, seed=100 + i), "jpg", quality=90,
+                                   mozjpeg=False, sampling_factor="2x2", device=dev))
+        jpeg_sources.append(path)
     option_sets = ("w_300,h_250,c_1", "w_300,h_250,c_1,smc_1")
     requests = [(o, s) for s in sources for o in option_sets]
     # the second wave: 16 requests spread over the staged programs
@@ -1412,12 +1454,225 @@ def phase_server(torch, dev, workdir, kernels):
             print(f"server {mode} staged: all {len(staged)} answers 200, within "
                   f"{PIXEL_TOL} u8 of the CPU handler ({n_diff} of {n_total} "
                   f"values differ, {n_flip} flipped at a dither threshold)")
+            if mode == "banded":
+                wave = jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels)
+                for name, n in wave.items():
+                    counts[mode][name] += n
         finally:
             server.shutdown()
             server.server_close()
             thread.join(timeout=30)
     set_kernel_mode("dense")
     return counts
+
+
+def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
+    """Phase 6's JPEG wave on a running (banded) server: JPEG sources, 16
+    concurrent o_auto requests from a client that accepts WebP answered
+    image/jpeg, then 16 o_webp,webpl_1 answered image/webp; o_webp without
+    webpl_1 answers 415. Returns the kernel launches of both waves."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.codecs import png
+
+    def get(req):
+        opts, src, accept = req
+        request = urllib.request.Request(f"{base}/upload/{opts}/{src}",
+                                         headers={"Accept": accept})
+        with urllib.request.urlopen(request, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+
+    counts = {}
+    for suffix, mime in (("", "image/jpeg"), (",o_webp,webpl_1", "image/webp")):
+        reqs = [(o + suffix, s, "image/webp,*/*") for s in jpeg_sources for o in option_sets]
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(get, reqs))
+        wall = time.perf_counter() - t0
+        wave = read_counts(kernels)
+        for name, n in wave.items():
+            counts[name] = counts.get(name, 0) + n
+        print(f"server banded JPEG sources, {mime} answers: {len(reqs)} concurrent "
+              f"requests in {wall:.3f} s; kernel launches {wave}")
+        for name in ("K1", "K2", "K3"):
+            check(wave[name] > 0, f"JPEG wave ({mime}): {name} never launched")
+        worst = float("inf")
+        for (opts, src, _), (status, headers, body) in zip(reqs, answers):
+            check(status == 200, f"JPEG wave {opts} {src}: status {status}")
+            check(headers.get("Content-Type") == mime,
+                  f"JPEG wave {opts}: content type {headers.get('Content-Type')}")
+            got = codecs.decode(body, device=dev).rgb
+            if "smc_1" not in opts:
+                check(got.shape == (250, 300, 3), f"JPEG wave {opts}: {got.shape}")
+            # the same URL answered as a PNG by the same server
+            ref, _ = png.decode(get((opts.replace(",o_webp,webpl_1", "") + ",o_png", src,
+                                     "*/*"))[2])
+            check(got.shape == ref.shape, f"JPEG wave {opts} {src}: {got.shape} vs "
+                  f"its PNG answer's {ref.shape}")
+            if mime == "image/webp":
+                check(np.array_equal(got, ref),
+                      f"JPEG wave {opts} {src}: the WebP answer is not the PNG answer")
+            else:
+                worst = min(worst, psnr(got, ref))
+        if mime == "image/jpeg":
+            check(worst >= JPEG_ANSWER_PSNR, f"JPEG wave: a JPEG answer is {worst:.2f} dB "
+                  f"from its PNG answer (bound {JPEG_ANSWER_PSNR})")
+            print(f"server banded JPEG wave: all {len(reqs)} image/jpeg answers 200, "
+                  f"at least {worst:.2f} dB PSNR against their PNG answers (bound "
+                  f"{JPEG_ANSWER_PSNR})")
+        else:
+            print(f"server banded JPEG wave: all {len(reqs)} image/webp answers 200, "
+                  "equal to their PNG answers")
+    try:
+        get((option_sets[0] + ",o_webp", jpeg_sources[0], "*/*"))
+        check(False, "JPEG wave: o_webp without webpl_1 was answered")
+    except urllib.error.HTTPError as exc:
+        check(exc.code == 415, f"JPEG wave: o_webp without webpl_1 answered {exc.code}")
+    return counts
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two u8 images (inf where they are equal)."""
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+# ---------------------------------------------------------------------------
+# the codec layer (phase 10)
+
+#: nvJPEG's decode against the JAX package's libjpeg-turbo decode of the
+#: same file (tests/data/jpeg): most levels apart, and the share of values
+#: more than 1 level apart (tests/test_torch_codecs_card.py holds the
+#: same). nvJPEG's IDCT is not libjpeg's islow (this phase's readings on
+#: an NVIDIA H100 80GB HBM3 at 700 W: 4 levels at most at full scale, 0.104
+#: of values more than 1 apart at 4:2:0, 0.0072 at 4:4:4); the prescale is
+#: a box mean of the full decode where libjpeg scales in the DCT domain
+#: (2, 11 and 18 levels at most at 1/8, 1/4 and 1/2: the fixture's
+#: one-pixel stripes and sharp block edges).
+NVJPEG_LEVELS = {"q90_420": 4, "q90_444": 4, "q90_420_progressive": 4,
+                 "q90_420_orient6": 4, "q90_420.s1": 4, "q90_420.s2": 12, "q90_420.s4": 20}
+NVJPEG_SHARE_OVER_1 = 0.12
+
+
+def bomb_header(data: bytes) -> bytes:
+    """``data`` (a baseline JPEG) with its frame header declaring 30000 x
+    30000 pixels."""
+    import struct
+
+    i = data.index(b"\xff\xc0")
+    return data[:i + 5] + struct.pack(">HH", 30000, 30000) + data[i + 9:]
+
+
+def phase_codecs(torch, dev, card):
+    """Phase 10: nvJPEG against the JAX package's fixtures, the WebP codec's
+    round trip, and the codec layer's times."""
+    import json as _json
+
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.codecs import png
+
+    data_dir = os.path.join(ROOT, "tests", "data", "jpeg")
+
+    def read(name):
+        with open(os.path.join(data_dir, name), "rb") as fh:
+            return fh.read()
+
+    with open(os.path.join(data_dir, "reference.json")) as fh:
+        ref = _json.load(fh)
+    seen = {}
+    for name in ("q90_420", "q90_444", "q90_420_progressive", "q90_420_orient6"):
+        for scale in (8, 1, 2, 4) if name == "q90_420" else (8,):
+            hint = tuple(ref["scale_hints"][str(scale)]) if scale < 8 else None
+            got = codecs.decode(read(name + ".jpg"), target_hint=hint, device=dev).rgb
+            want, _ = png.decode(read(f"{name}.s{scale}.png"))
+            key = name if scale == 8 else f"{name}.s{scale}"
+            check(got.shape == want.shape, f"nvJPEG {key}: {got.shape} vs {want.shape}")
+            diff = np.abs(got.astype(int) - want.astype(int))
+            seen[key] = (int(diff.max()), float((diff > 1).mean()), float((diff > 0).mean()))
+            check(seen[key][0] <= NVJPEG_LEVELS[key] and seen[key][1] <= NVJPEG_SHARE_OVER_1,
+                  f"nvJPEG {key}: max {seen[key][0]} levels (bound {NVJPEG_LEVELS[key]}), "
+                  f"{seen[key][1]:.4f} of values more than 1 apart (bound "
+                  f"{NVJPEG_SHARE_OVER_1})")
+    print("nvJPEG decode against the JAX package's (max levels, share of values more "
+          "than 1 apart, share that differ at all): "
+          + ", ".join(f"{k} {v[0]} {v[1]:.4f} {v[2]:.4f}" for k, v in seen.items()))
+    from flyimg_tpu_torch.exceptions import ExecFailedException
+
+    try:
+        codecs.decode(bomb_header(read("q90_444.jpg")), device=dev)
+        check(False, "nvJPEG decoded a header declaring 30000 x 30000 pixels")
+    except ExecFailedException as exc:
+        check("decode limit" in str(exc), f"the pixel limit's message: {exc}")
+    src, _ = png.decode(read("source.png"))
+    for moz in (0, 1):
+        blob = codecs.encode(src, "jpg", quality=90, mozjpeg=bool(moz), sampling_factor="1x1",
+                             device=dev)
+        # both encodes decoded by nvJPEG, so the comparison holds the
+        # encoders alone (reference.json's psnr_libjpeg is the JAX
+        # package's own decode of its file, printed beside)
+        jax = ref["encode_q90_444"][f"moz_{moz}"]
+        got = psnr(codecs.decode(blob, device=dev).rgb, src)
+        want = psnr(codecs.decode(read(jax["file"]), device=dev).rgb, src)
+        print(f"nvJPEG q90 4:4:4 moz_{moz}: {len(blob)} bytes, PSNR {got:.4f} dB; the JAX "
+              f"package's {jax['bytes']} bytes, {want:.4f} dB (both decoded by nvJPEG; "
+              f"{jax['psnr_libjpeg']} dB by libjpeg-turbo)")
+        check(got >= want - 0.5, f"nvJPEG moz_{moz}: PSNR {got:.4f} < {want:.4f} - 0.5")
+        check(len(blob) <= 1.05 * jax["bytes"], f"nvJPEG moz_{moz}: {len(blob)} bytes > "
+              f"1.05 x {jax['bytes']}")
+    answer = synthetic_image(300, 250, seed=31)
+    blob = codecs.encode(answer, "webp", webp_lossless=True)
+    check(np.array_equal(codecs.decode(blob).rgb, answer), "WebP: the round trip is not exact")
+    from flyimg_tpu_torch.exceptions import UnsupportedMediaException
+
+    try:
+        codecs.encode(answer, "webp", webp_lossless=False)
+        check(False, "a lossy WebP encode was answered")
+    except UnsupportedMediaException:
+        pass
+
+    def median_ms(fn, n=21):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    photo = codecs.encode(synthetic_image(1920, 1080, seed=30), "jpg", quality=90,
+                          mozjpeg=False, sampling_factor="2x2", device=dev)
+    hint = (300, 250)
+    check(codecs.decode(photo, target_hint=hint, device=dev).size == (960, 540),
+          "the flagship hint's prescale of a 1920x1080 JPEG is not 960x540")
+    times = {
+        "decode_1920x1080_q90_s8_ms": median_ms(lambda: codecs.decode(photo, device=dev)),
+        "decode_1920x1080_q90_s4_ms": median_ms(
+            lambda: codecs.decode(photo, target_hint=hint, device=dev)),
+        "encode_300x250_jpg_moz1_ms": median_ms(
+            lambda: codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
+        "encode_300x250_jpg_moz0_ms": median_ms(
+            lambda: codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
+        "encode_300x250_webp_lossless_ms": median_ms(
+            lambda: codecs.encode(answer, "webp", webp_lossless=True)),
+    }
+    sizes = {
+        "jpg_moz1_bytes": len(codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
+        "jpg_moz0_bytes": len(codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
+        "webp_bytes": len(codecs.encode(answer, "webp", webp_lossless=True)),
+        "photo_jpg_bytes": len(photo),
+    }
+    print(json.dumps({"codecs": times, "sizes": sizes, "card": card}))
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -2357,6 +2612,26 @@ def train_edges(torch, dev):
         bt.adam_update(a[0], g * step, a[1], a[2], step)
         bt.adam_update_plain(b[0], g * step, b[1], b[2], step)
     worst["K14"] = compare("K14 on 12345 values, five steps", a, b, ADAM_RTOL)
+    # K14 on a count that is not a multiple of 4 and on buffers off 16-byte
+    # alignment, at one shared offset and at offsets that differ; each the
+    # plain version's bits, nothing written outside its views
+    for label, count, offsets in (("a count of 4k + 3", 10003, (0, 0, 0, 0)),
+                                  ("buffers at a shared offset", 10003, (1, 1, 1, 1)),
+                                  ("buffers at unequal offsets", 10002, (0, 1, 2, 3))):
+        bufs = [randn(count + 4) for _ in range(4)]
+        bufs[2], bufs[3] = bufs[2].abs() * 1e-3, bufs[3].abs() * 1e-6
+        views = [t[o:o + count] for t, o in zip(bufs, offsets)]
+        ref = [t.clone() for t in views]
+        snap = [t.clone() for t in bufs]
+        before = bt.adam_update.launches
+        bt.adam_update(views[0], views[1], views[2], views[3], 3)
+        bt.adam_update_plain(ref[0], ref[1], ref[2], ref[3], 3)
+        check(bt.adam_update.launches - before == 1, f"K14, {label}: not one launch")
+        check(all(torch.equal(u, v) for u, v in zip(views, ref)),
+              f"K14, {label}: not the plain version's bits")
+        check(all(torch.equal(t[:o], r[:o]) and torch.equal(t[o + count:], r[o + count:])
+                  for t, r, o in zip(bufs, snap, offsets)),
+              f"K14, {label}: wrote outside its views")
     torch.cuda.synchronize()
     print("training kernels on edge shapes, worst relative errors: " + ", ".join(
         f"{k} {v:.3e}" for k, v in worst.items()))
@@ -2868,11 +3143,21 @@ def main() -> int:
                "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
                "K14": adam_update, "K15": ring_rotate_step}
 
-    # phase 2: build
+    # phase 2: build (the kernels with nvcc and the WebP codec with g++,
+    # all at once), and nvJPEG loaded
     t0 = time.perf_counter()
-    took = cuda_build.build()
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(cuda_build.build_host)
+        took = cuda_build.build()
+        host_took = host.result()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
-          f"{len(took)} kernels in parallel {took}")
+          f"{len(took)} kernels in parallel {took}, host codecs {host_took}")
+    from flyimg_tpu_torch.codecs import native_codec
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    print(f"codec libraries: nvJPEG {native_codec.nvjpeg_version()} "
+          f"({native_codec.nvjpeg_path()}); WebP (VP8L) codec built by {gxx}")
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2932,6 +3217,9 @@ def main() -> int:
     print(f"tiled kernel launches: {tiled_counts}")
     for name in ("K1", "K1-f32", "K5", "K15"):
         check(tiled_counts[name] > 0, f"tiled: {name} never launched")
+
+    # phase 10: the codec layer
+    phase_codecs(torch, dev, card)
 
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",

@@ -1,20 +1,47 @@
-"""Host codec layer: media sniffing, PNG decode/encode.
+"""Host codec layer: media sniffing, decode and encode of PNG, JPEG and WebP.
 
-The port's counterpart of ``flyimg_tpu/codecs``. PNG is the one container
-of this package so far (codecs/png.py, on zlib and numpy); JPEG, WebP and
-GIF raise ``UnsupportedMediaException`` until a later slice ports them.
+The port's counterpart of ``flyimg_tpu/codecs``:
+
+- PNG: ``codecs/png.py``, on zlib and numpy.
+- JPEG: nvJPEG, the CUDA toolkit's codec, through ``ctypes``
+  (``codecs/native_codec.py``). It decodes and encodes on the card, so a
+  JPEG needs a CUDA device: on the CPU it raises. The card machine has no
+  libjpeg, so the reference's trellis encoder (``moz_1``) waits: ``moz_1``
+  is optimized Huffman tables and progressive scans, as the JAX package's
+  Pillow path encodes it.
+- WebP: a lossless (VP8L) encoder and decoder written for this package
+  (``codecs/native/webp_lossless.cpp``, built with g++ at first use). The
+  card machine has no libwebp: a lossy WebP output (``webpl_0``, the
+  default) and a lossy (VP8) source are refused, until a VP8 codec is
+  ported.
+
+Every decode applies the source's EXIF orientation (JPEG APP1, PNG eXIf,
+WebP EXIF), to the colour and the alpha plane alike, as the reference's
+``-auto-orient`` does. GIF, CMYK JPEG and metadata grafting (``st_0``) are
+not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from flyimg_tpu_torch.codecs import png
-from flyimg_tpu_torch.codecs.sniff import PNG_MIME, MediaInfo, sniff
-from flyimg_tpu_torch.exceptions import UnsupportedMediaException
+from flyimg_tpu_torch.codecs import native_codec, png
+from flyimg_tpu_torch.codecs.exif import apply_orientation, jpeg_orientation
+from flyimg_tpu_torch.codecs.metadata import png_orientation, webp_orientation
+from flyimg_tpu_torch.codecs.sniff import (
+    JPEG_MIME,
+    PNG_MIME,
+    WEBP_MIME,
+    MediaInfo,
+    sniff,
+)
+from flyimg_tpu_torch.exceptions import (
+    InvalidArgumentException,
+    UnsupportedMediaException,
+)
 
 
 @dataclass
@@ -24,6 +51,7 @@ class DecodedImage:
     rgb: np.ndarray                      # [h, w, 3] uint8
     alpha: Optional[np.ndarray]          # [h, w] uint8 or None
     mime: str
+    orig_size: Optional[Tuple[int, int]] = None  # (w, h) before any prescale
 
     @property
     def size(self) -> Tuple[int, int]:
@@ -35,21 +63,172 @@ def media_info(data: bytes) -> MediaInfo:
     return sniff(data[:65536])
 
 
-def decode(data: bytes, info: Optional[MediaInfo] = None) -> DecodedImage:
+def _dct_scale_num(src_w: int, src_h: int, hint: Tuple[int, int]) -> int:
+    """Smallest JPEG DCT scale (scale_num/8) that keeps the decoded image
+    >= 2x the target box on both axes, so the device resample remains the
+    quality-determining step."""
+    tw, th = hint
+    if not tw or not th or src_w <= 0 or src_h <= 0:
+        return 8
+    for scale_num in (1, 2, 4, 8):  # 1/8, 1/4, 1/2, 1/1
+        if src_w * scale_num >= tw * 2 * 8 and src_h * scale_num >= th * 2 * 8:
+            return scale_num
+    return 8
+
+
+def jpeg_batch_scale_num(data_info: MediaInfo, target_hint) -> int:
+    """The DCT prescale numerator (of 8) a JPEG source decodes at for this
+    target hint."""
+    if target_hint and data_info.width and data_info.height:
+        return _dct_scale_num(data_info.width, data_info.height, target_hint)
+    return 8
+
+
+def _split_alpha(pixels: np.ndarray, channels: int, mime: str) -> DecodedImage:
+    """[h, w, 3|4] pixels -> DecodedImage with RAW rgb + a separate alpha
+    plane (the contract every decode path shares)."""
+    alpha = pixels[..., 3].copy() if channels == 4 else None
+    rgb = np.ascontiguousarray(pixels[..., :3])
+    return DecodedImage(rgb=rgb, alpha=alpha, mime=mime,
+                        orig_size=(rgb.shape[1], rgb.shape[0]))
+
+
+def _oriented(decoded: DecodedImage, orientation: int) -> DecodedImage:
+    """``decoded`` turned upright, colour and alpha alike."""
+    if orientation == 1:
+        return decoded
+    alpha = decoded.alpha
+    if alpha is not None:
+        alpha = np.ascontiguousarray(apply_orientation(alpha, orientation))
+    return DecodedImage(
+        rgb=np.ascontiguousarray(apply_orientation(decoded.rgb, orientation)),
+        alpha=alpha, mime=decoded.mime, orig_size=decoded.orig_size,
+    )
+
+
+def decode(
+    data: bytes,
+    *,
+    target_hint: Optional[Tuple[int, int]] = None,
+    info: Optional[MediaInfo] = None,
+    device: Union[str, "torch.device"] = "cuda",  # noqa: F821
+) -> DecodedImage:
+    """Decode bytes -> upright DecodedImage. A JPEG decodes on ``device``
+    (nvJPEG; a CUDA device), prescaled by ``jpeg_batch_scale_num`` toward
+    ``target_hint``; PNG and WebP decode on the host. Pass ``info`` when
+    the caller already probed the bytes."""
     info = info or media_info(data)
-    if info.mime != PNG_MIME:
-        raise UnsupportedMediaException(
-            f"decoding {info.mime} is not ported to the PyTorch package "
-            "yet (PNG only)"
+    if info.mime == JPEG_MIME:
+        scale_num = jpeg_batch_scale_num(info, target_hint)
+        rgb = native_codec.jpeg_decode(data, scale_num, device=device)
+        decoded = DecodedImage(
+            rgb=rgb, alpha=None, mime=JPEG_MIME,
+            orig_size=(info.width or rgb.shape[1], info.height or rgb.shape[0]),
         )
-    rgb, alpha = png.decode(data)
-    return DecodedImage(rgb=rgb, alpha=alpha, mime=info.mime)
+        return _oriented(decoded, jpeg_orientation(data))
+    if info.mime == PNG_MIME:
+        rgb, alpha = png.decode(data)
+        decoded = DecodedImage(rgb=rgb, alpha=alpha, mime=PNG_MIME,
+                               orig_size=(rgb.shape[1], rgb.shape[0]))
+        return _oriented(decoded, png_orientation(data))
+    if info.mime == WEBP_MIME:
+        pixels, channels = native_codec.webp_decode_auto(data)
+        return _oriented(_split_alpha(pixels, channels, WEBP_MIME),
+                         webp_orientation(data))
+    raise UnsupportedMediaException(
+        f"decoding {info.mime} is not ported to the PyTorch package yet "
+        "(PNG, JPEG and lossless WebP only)"
+    )
 
 
-def encode(image: np.ndarray, fmt: str, alpha: Optional[np.ndarray] = None) -> bytes:
-    if fmt != "png":
+#: IM ratio spellings -> luma (h, v) sampling factors. The geometry form
+#: "HxV" is parsed directly; both grammars are what the reference forwards
+#: verbatim to `-sampling-factor` (ImageProcessor.php:105, default 1x1 at
+#: config/parameters.yml:102).
+_SAMPLING_RATIOS = {
+    "4:4:4": (1, 1),
+    "4:2:2": (2, 1),
+    "4:2:0": (2, 2),
+    "4:4:0": (1, 2),
+    "4:1:1": (4, 1),
+    "4:1:0": (4, 2),
+}
+
+
+def parse_sampling_factor(value) -> Tuple[int, int]:
+    """IM -sampling-factor grammar -> luma (h, v) factor pair. Accepts the
+    geometry form ``HxV`` (1..4 each, h*v <= 8 per the JPEG MCU budget)
+    and the ratio form ``4:2:0`` etc. Unparseable values raise — the
+    reference would hand them to `convert`, which errors out
+    (ExecFailedException); silent coercion to some other subsampling would
+    change image content without telling the caller."""
+    s = str(value if value is not None else "1x1").strip().lower()
+    if not s:
+        return (1, 1)
+    if s in _SAMPLING_RATIOS:
+        return _SAMPLING_RATIOS[s]
+    parts = s.split("x")
+    if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+        h, v = int(parts[0]), int(parts[1])
+        if 1 <= h <= 4 and 1 <= v <= 4 and h * v <= 8:
+            return (h, v)
+    raise InvalidArgumentException(
+        f"invalid sampling factor {value!r} (expected HxV with factors "
+        "1..4, h*v <= 8, or a ratio like 4:2:0)"
+    )
+
+
+def require_encodable(fmt: str, *, webp_lossless: bool = False,
+                      sampling_factor: str = "1x1") -> None:
+    """Raise UnsupportedMediaException where ``encode`` cannot write what
+    the JAX package writes: lossy WebP (no VP8 encoder yet), and JPEG
+    sampling factors nvJPEG has no chroma subsampling for (1x3, 1x4, 2x3,
+    2x4, 3x1, 3x2). A sampling factor that does not parse raises
+    InvalidArgumentException, as in ``encode``."""
+    if fmt == "webp" and not webp_lossless:
         raise UnsupportedMediaException(
-            f"encoding {fmt} is not ported to the PyTorch package yet "
-            "(png only)"
+            "lossy WebP output (webpl_0, the default) is not ported to the "
+            "PyTorch package yet; webpl_1 answers lossless WebP"
         )
-    return png.encode(image, alpha)
+    if fmt in ("jpg", "jpeg"):
+        factors = parse_sampling_factor(sampling_factor)
+        if factors not in native_codec.SAMPLINGS:
+            raise UnsupportedMediaException(
+                f"sampling factor {factors[0]}x{factors[1]} is not ported to "
+                "the PyTorch package yet (nvJPEG has no chroma subsampling "
+                "for it)"
+            )
+
+
+def encode(
+    image: np.ndarray,
+    fmt: str,
+    alpha: Optional[np.ndarray] = None,
+    *,
+    quality: int = 90,
+    webp_lossless: bool = False,
+    mozjpeg: bool = True,
+    sampling_factor: str = "1x1",
+    device: Union[str, "torch.device"] = "cuda",  # noqa: F821
+) -> bytes:
+    """Encode [h, w, 3] uint8 (+ an optional [h, w] alpha plane) to ``fmt``
+    bytes. ``jpg`` encodes on ``device`` (nvJPEG; ``mozjpeg`` selects
+    optimized Huffman tables and progressive scans, ``sampling_factor`` the
+    chroma subsampling); ``png`` and ``webp`` encode on the host, ``webp``
+    lossless only (``require_encodable`` says what raises)."""
+    require_encodable(fmt, webp_lossless=webp_lossless,
+                      sampling_factor=sampling_factor)
+    if fmt == "png":
+        return png.encode(image, alpha)
+    if fmt == "webp":
+        pixels = image if alpha is None else np.dstack([image, alpha])
+        return native_codec.webp_encode(pixels)
+    if fmt in ("jpg", "jpeg"):  # no alpha plane in a JPEG
+        return native_codec.jpeg_encode(
+            image, quality, optimize=bool(mozjpeg), progressive=bool(mozjpeg),
+            sampling=parse_sampling_factor(sampling_factor), device=device,
+        )
+    raise UnsupportedMediaException(
+        f"encoding {fmt} is not ported to the PyTorch package yet "
+        "(png, jpg and webp only)"
+    )

@@ -1,0 +1,402 @@
+"""ctypes bindings of the port's codecs: nvJPEG for JPEG, the package's own
+VP8L library for WebP.
+
+The port's counterpart of ``flyimg_tpu/codecs/native_codec.py``, which
+binds libjpeg and libwebp. The card machine has neither, so:
+
+- JPEG goes through nvJPEG, the CUDA toolkit's codec (``libnvjpeg.so.12``),
+  on the card: ``jpeg_decode`` decodes into device memory (Huffman decoding
+  on the host, the IDCT and colour conversion on the card, chroma
+  upsampled by interpolation), prescales there by a box mean over
+  (8 / scale_num)^2 pixels with libjpeg's output size (the reference's
+  DCT-domain prescale: nvJPEG's own scaling is the hardware decoder's
+  only), and copies the pixels back; ``jpeg_encode`` copies the frame to
+  the card, converts it to libjpeg's YCbCr planes there (``ycbcr_planes``:
+  with nvJPEG's own RGB conversion its q90 encodes missed the JAX
+  package's PSNR by more than 0.5 dB, PERF.md) and encodes them
+  (baseline, or optimized Huffman tables with progressive scans). The
+  reference's trellis encoder (``jpeg_encode_trellis``) is libjpeg code
+  and waits.
+- WebP goes through ``codecs/native/webp_lossless.cpp``, a VP8L (lossless)
+  encoder and decoder with a plain C interface, compiled with g++ at first
+  use (``cuda_build.load_host``).
+
+A library that is missing or fails to build raises; nothing falls back to
+another codec. Handles are made at first use, never at import: the CPU tests
+import every module on hosts without CUDA.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import threading
+from typing import Tuple, Union
+
+import numpy as np
+
+from flyimg_tpu_torch import cuda_build
+from flyimg_tpu_torch.exceptions import (
+    ExecFailedException,
+    UnsupportedMediaException,
+)
+
+# ---------------------------------------------------------------------------
+# nvJPEG
+# ---------------------------------------------------------------------------
+
+_NVJPEG_STATUS = {
+    1: "not initialized", 2: "invalid parameter", 3: "bad JPEG",
+    4: "JPEG not supported", 5: "allocator failure", 6: "execution failed",
+    7: "arch mismatch", 8: "internal error", 9: "implementation not supported",
+    10: "incomplete bitstream",
+}
+_BAD_JPEG, _NOT_SUPPORTED, _INCOMPLETE = 3, 4, 10
+#: the most pixels a JPEG source may declare (the JAX package's Pillow
+#: guard against decompression bombs)
+MAX_PIXELS = 512 * 1024 * 1024
+_OUTPUT_RGBI = 5       # nvjpegOutputFormat_t: interleaved RGB, channel 0
+_BACKEND_DEFAULT = 0
+#: chroma upsampled by interpolation, as libjpeg's fancy upsampling does
+#: (replicated chroma puts 4:2:0 decodes tens of levels off libjpeg's)
+_FLAGS_UPSAMPLING_WITH_INTERPOLATION = 1 << 5
+_ENCODING_BASELINE = 0xC0
+_ENCODING_PROGRESSIVE = 0xC2
+#: luma (h, v) sampling factors -> nvjpegChromaSubsampling_t
+_CSS = {(1, 1): 0, (2, 1): 1, (2, 2): 2, (1, 2): 3, (4, 1): 4, (4, 2): 5}
+#: the luma (h, v) factor pairs ``jpeg_encode`` takes
+SAMPLINGS = frozenset(_CSS)
+
+
+class _NvjpegImage(ctypes.Structure):
+    # nvjpegImage_t: NVJPEG_MAX_COMPONENT (4) planes
+    _fields_ = [
+        ("channel", ctypes.c_void_p * 4),
+        ("pitch", ctypes.c_size_t * 4),
+    ]
+
+
+_nv_lock = threading.Lock()
+_nv_lib = None
+_nv_path = None
+_nv_handles = {}          # device index -> nvjpegHandle_t
+_nv_free = {}             # device index -> [(handle, dec, enc, params)]
+
+
+def _nvjpeg():
+    global _nv_lib, _nv_path
+    with _nv_lock:
+        if _nv_lib is not None:
+            return _nv_lib
+        cands = ["libnvjpeg.so.12", "libnvjpeg.so"]
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        cands += [os.path.join(home, "lib64", n) for n in cands]
+        errors = []
+        for cand in cands:
+            try:
+                lib = ctypes.CDLL(cand)
+                _nv_path = cand
+                break
+            except OSError as exc:
+                errors.append(str(exc))
+        else:
+            raise RuntimeError(
+                "nvJPEG (libnvjpeg.so.12, the CUDA toolkit's) is not found: "
+                + "; ".join(errors)
+            )
+        p, pp, i, ip, sz = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                            ctypes.c_size_t)
+        img = ctypes.POINTER(_NvjpegImage)
+        sigs = {
+            "nvjpegGetProperty": [i, ip],
+            "nvjpegCreateEx": [i, p, p, ctypes.c_uint, pp],
+            "nvjpegJpegStateCreate": [p, pp],
+            "nvjpegGetImageInfo": [p, ctypes.c_char_p, sz, ip, ip, ip, ip],
+            "nvjpegDecode": [p, p, ctypes.c_char_p, sz, i, img, p],
+            "nvjpegEncoderStateCreate": [p, pp, p],
+            "nvjpegEncoderParamsCreate": [p, pp, p],
+            "nvjpegEncoderParamsSetQuality": [p, i, p],
+            "nvjpegEncoderParamsSetEncoding": [p, i, p],
+            "nvjpegEncoderParamsSetOptimizedHuffman": [p, i, p],
+            "nvjpegEncoderParamsSetSamplingFactors": [p, i, p],
+            "nvjpegEncodeYUV": [p, p, p, img, i, i, i, p],
+            "nvjpegEncodeRetrieveBitstream": [p, p, p, ctypes.POINTER(sz), p],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _nv_lib = lib
+        return lib
+
+
+def _nv_check(status: int, what: str) -> None:
+    if status == 0:
+        return
+    msg = f"nvJPEG {what}: {_NVJPEG_STATUS.get(status, status)}"
+    if status == _NOT_SUPPORTED:
+        raise UnsupportedMediaException(msg)
+    if status in (_BAD_JPEG, _INCOMPLETE):
+        raise ExecFailedException(msg)
+    raise RuntimeError(msg)
+
+
+def nvjpeg_path() -> str:
+    """The name nvJPEG was loaded by."""
+    _nvjpeg()
+    return _nv_path
+
+
+def nvjpeg_version() -> str:
+    """nvJPEG's library version, major.minor.patch."""
+    lib = _nvjpeg()
+    parts = []
+    for prop in range(3):
+        v = ctypes.c_int()
+        _nv_check(lib.nvjpegGetProperty(prop, ctypes.byref(v)), "version")
+        parts.append(str(v.value))
+    return ".".join(parts)
+
+
+def _cuda_device(device):
+    """``device`` as a CUDA torch.device, or an UnsupportedMediaException:
+    nvJPEG codes only on a card."""
+    import torch
+
+    from flyimg_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise UnsupportedMediaException(
+            "JPEG decoding and encoding run through nvJPEG on a CUDA device; "
+            f"this call is on {dev}"
+        )
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@contextlib.contextmanager
+def _nv_session(lib, index: int):
+    """(handle, decode state, encoder state, encoder params) on card
+    ``index`` for one call. The handle is shared; the states are not
+    thread-safe, so a call borrows a set from the card's free list and
+    gives it back (the server runs a thread a request: sets kept per thread
+    would be made anew, and never freed, for every request)."""
+    with _nv_lock:
+        handle = _nv_handles.get(index)
+        if handle is None:
+            handle = ctypes.c_void_p()
+            _nv_check(lib.nvjpegCreateEx(_BACKEND_DEFAULT, None, None,
+                                         _FLAGS_UPSAMPLING_WITH_INTERPOLATION,
+                                         ctypes.byref(handle)), "create")
+            _nv_handles[index] = handle
+        free = _nv_free.setdefault(index, [])
+        mine = free.pop() if free else None
+    if mine is None:
+        dec, enc, params = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+        _nv_check(lib.nvjpegJpegStateCreate(handle, ctypes.byref(dec)), "state")
+        _nv_check(lib.nvjpegEncoderStateCreate(handle, ctypes.byref(enc), None),
+                  "encoder state")
+        _nv_check(lib.nvjpegEncoderParamsCreate(handle, ctypes.byref(params), None),
+                  "encoder params")
+        mine = (handle, dec, enc, params)
+    try:
+        yield mine
+    finally:
+        with _nv_lock:
+            _nv_free[index].append(mine)
+
+
+def jpeg_decode(data: bytes, scale_num: int = 8,
+                device: Union[str, "torch.device"] = "cuda") -> np.ndarray:  # noqa: F821
+    """Decode JPEG bytes on the card -> [h, w, 3] uint8 on the host,
+    prescaled to scale_num/8 (libjpeg's ceil(size * scale_num / 8)) on the
+    card by a box mean of each (8 / scale_num)^2 block, rounded half up."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = _cuda_device(device)
+    lib = _nvjpeg()
+    with torch.cuda.device(dev), _nv_session(lib, dev.index) as session:
+        handle, state = session[:2]
+        n_comp, css = ctypes.c_int(), ctypes.c_int()
+        widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+        _nv_check(lib.nvjpegGetImageInfo(handle, data, len(data), ctypes.byref(n_comp),
+                                         ctypes.byref(css), widths, heights), "image info")
+        w, h = widths[0], heights[0]
+        if w * h > MAX_PIXELS:
+            raise ExecFailedException(
+                f"a {w}x{h} JPEG exceeds the {MAX_PIXELS}-pixel decode limit")
+        out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+        image = _NvjpegImage()
+        image.channel[0] = out.data_ptr()
+        image.pitch[0] = w * 3
+        stream = cuda_build.current_stream(dev.index)
+        _nv_check(lib.nvjpegDecode(handle, state, data, len(data), _OUTPUT_RGBI,
+                                   ctypes.byref(image), stream), "decode")
+        if scale_num in (1, 2, 4):
+            k = 8 // scale_num
+            x = out.permute(2, 0, 1).unsqueeze(0).float()
+            x = F.avg_pool2d(x, k, stride=k, ceil_mode=True)
+            out = torch.floor(x + 0.5).to(torch.uint8)[0].permute(1, 2, 0)
+        return out.contiguous().cpu().numpy()
+
+
+def _fix(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+def ycbcr_planes(rgb, sampling: Tuple[int, int] = (1, 1)):
+    """libjpeg's colour conversion and chroma downsampling of a [h, w, 3]
+    uint8 tensor (on any device): (Y [h, w], Cb, Cr [ceil(h / v), ceil(w /
+    h_)]) uint8, for luma sampling factors ``sampling`` = (h_, v). The
+    arithmetic of jccolor.c's rgb_ycc_convert (16-bit fixed point) and
+    jcsample.c's downsamplers: h2v1 and h2v2 with their alternating
+    rounding biases, the rest a rounded mean; the right and bottom edges
+    replicated."""
+    import torch
+
+    x = rgb.to(torch.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    half, offset = 1 << 15, 128 << 16
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b + half) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    hf, vf = (int(f) for f in sampling)
+    if (hf, vf) != (1, 1):
+        h, w = y.shape
+        ch, cw = -(-h // vf), -(-w // hf)
+        rows = torch.arange(ch * vf, device=x.device).clamp_max(h - 1)
+        cols = torch.arange(cw * hf, device=x.device).clamp_max(w - 1)
+        odd = torch.arange(cw, device=x.device) % 2
+        if (hf, vf) == (2, 1):
+            bias = odd                      # 0, 1, 0, 1, ...
+        elif (hf, vf) == (2, 2):
+            bias = 1 + odd                  # 1, 2, 1, 2, ...
+        else:
+            bias = torch.full_like(odd, hf * vf // 2)
+        shift = {1: 0, 2: 1, 4: 2, 8: 3}[hf * vf]
+        cb, cr = ((c[rows][:, cols].reshape(ch, vf, cw, hf).sum((1, 3)) + bias) >> shift
+                  for c in (cb, cr))
+    return tuple(t.to(torch.uint8).contiguous() for t in (y, cb, cr))
+
+
+def jpeg_encode(
+    rgb: np.ndarray,
+    quality: int = 90,
+    *,
+    optimize: bool = True,
+    progressive: bool = True,
+    sampling: Tuple[int, int] = (1, 1),
+    device: Union[str, "torch.device"] = "cuda",  # noqa: F821
+) -> bytes:
+    """[h, w, 3] uint8 -> JPEG bytes, encoded on ``device``. ``sampling`` is
+    the luma (h, v) factor pair (ImageMagick's -sampling-factor HxV):
+    (1,1) = 4:4:4, (2,2) = 4:2:0, (2,1) = 4:2:2, (1,2) = 4:4:0, (4,1) =
+    4:1:1, (4,2) = 4:1:0."""
+    import torch
+
+    dev = _cuda_device(device)
+    sampling = tuple(int(f) for f in sampling)
+    css = _CSS.get(sampling)
+    if css is None:
+        raise UnsupportedMediaException(
+            f"nvJPEG has no chroma subsampling for factors {sampling}")
+    lib = _nvjpeg()
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = rgb.shape[:2]
+    with torch.cuda.device(dev), _nv_session(lib, dev.index) as session:
+        handle, _state, enc, params = session
+        stream = cuda_build.current_stream(dev.index)
+        planes = ycbcr_planes(torch.from_numpy(rgb).to(dev), sampling)
+        image = _NvjpegImage()
+        for k, plane in enumerate(planes):
+            image.channel[k] = plane.data_ptr()
+            image.pitch[k] = plane.shape[1]
+        quality = max(1, min(int(quality), 100))
+        _nv_check(lib.nvjpegEncoderParamsSetQuality(params, quality, stream), "quality")
+        _nv_check(lib.nvjpegEncoderParamsSetEncoding(
+            params, _ENCODING_PROGRESSIVE if progressive else _ENCODING_BASELINE, stream),
+            "encoding")
+        _nv_check(lib.nvjpegEncoderParamsSetOptimizedHuffman(params, int(optimize), stream),
+                  "optimized Huffman")
+        _nv_check(lib.nvjpegEncoderParamsSetSamplingFactors(params, css, stream),
+                  "sampling factors")
+        _nv_check(lib.nvjpegEncodeYUV(handle, enc, params, ctypes.byref(image), css, w, h,
+                                      stream), "encode")
+        length = ctypes.c_size_t()
+        _nv_check(lib.nvjpegEncodeRetrieveBitstream(handle, enc, None,
+                                                    ctypes.byref(length), stream),
+                  "bitstream size")
+        torch.cuda.current_stream(dev).synchronize()
+        buf = ctypes.create_string_buffer(length.value)
+        _nv_check(lib.nvjpegEncodeRetrieveBitstream(handle, enc, buf,
+                                                    ctypes.byref(length), stream),
+                  "bitstream")
+        del planes
+    return buf.raw[: length.value]
+
+
+# ---------------------------------------------------------------------------
+# WebP (VP8L): codecs/native/webp_lossless.cpp
+# ---------------------------------------------------------------------------
+
+
+def _webp():
+    lib = cuda_build.load_host("webp_lossless")
+    if not getattr(lib, "_flyimg_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fl_vp8l_encode.restype = p
+        lib.fl_vp8l_encode.argtypes = [ctypes.c_char_p, i, i, i,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+        lib.fl_vp8l_decode.restype = p
+        lib.fl_vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                       ctypes.POINTER(i), ctypes.POINTER(i),
+                                       ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.fl_free.restype = None
+        lib.fl_free.argtypes = [p]
+        lib._flyimg_bound = True
+    return lib
+
+
+def _take_buffer(lib, ptr: int, nbytes: int) -> np.ndarray:
+    buf = ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8 * nbytes)).contents
+    arr = np.frombuffer(buf, dtype=np.uint8).copy()
+    lib.fl_free(ptr)
+    return arr
+
+
+def webp_encode(pixels: np.ndarray) -> bytes:
+    """[h, w, 3|4] uint8 -> lossless WebP (VP8L); alpha is stored when
+    the layout carries it."""
+    lib = _webp()
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    h, w, channels = pixels.shape
+    if channels not in (3, 4) or not (1 <= w <= 16384 and 1 <= h <= 16384):
+        raise UnsupportedMediaException(
+            f"WebP takes 1..16384 pixels a side and 3 or 4 channels, got {pixels.shape}")
+    out_len = ctypes.c_size_t()
+    ptr = lib.fl_vp8l_encode(pixels.tobytes(), w, h, channels, ctypes.byref(out_len))
+    if not ptr:
+        raise ExecFailedException("WebP encode failed")
+    return _take_buffer(lib, ptr, out_len.value).tobytes()
+
+
+def webp_decode_auto(data: bytes) -> Tuple[np.ndarray, int]:
+    """(pixels [h, w, ch] uint8, ch) with ch 4 iff the file says it carries
+    alpha. Lossless (VP8L) WebP only: a lossy (VP8) one raises."""
+    lib = _webp()
+    w, h, ch, status = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    ptr = lib.fl_vp8l_decode(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                             ctypes.byref(ch), ctypes.byref(status))
+    if not ptr:
+        if status.value == 2:
+            raise UnsupportedMediaException(
+                "lossy (VP8) and animated WebP sources are not ported yet "
+                "(lossless VP8L only)")
+        raise ExecFailedException("WebP decode failed: not a valid VP8L stream")
+    arr = _take_buffer(lib, ptr, w.value * h.value * ch.value)
+    return arr.reshape(h.value, w.value, ch.value), ch.value

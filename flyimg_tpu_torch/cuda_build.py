@@ -11,6 +11,12 @@ The library name carries a digest of the source and the flags, so an
 edited source rebuilds and a stale library is never loaded. Libraries go
 under ``build/kernels/`` beside the package (``FLYIMG_TORCH_BUILD_DIR``
 overrides it). ``build()`` starts one ``nvcc`` per source, all together.
+
+The host route (``HOST_SOURCES``, ``build_host``, ``load_host``) builds the
+package's host C++ (the WebP codec under ``codecs/native/``) the same way
+with ``g++``, into ``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it
+needs no CUDA, so the CPU tests build and run it too.
+
 Nothing here runs at import time: the CPU tests import every module on
 hosts with no ``nvcc``.
 """
@@ -53,6 +59,13 @@ SOURCES: Dict[str, tuple] = {
     "blazeface_train": ("blazeface_train.cu", ()),
 }
 
+#: host library name -> (source under the package, extra g++ flags)
+HOST_SOURCES: Dict[str, tuple] = {
+    "webp_lossless": (os.path.join("codecs", "native", "webp_lossless.cpp"), ()),
+}
+
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +83,12 @@ def build_dir() -> str:
     )
 
 
+def host_build_dir() -> str:
+    return os.environ.get("FLYIMG_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(_PKG_DIR), "build", "codecs"
+    )
+
+
 def nvcc_path() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
@@ -81,38 +100,44 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _digest_path(directory: str, name: str, src: str, flags) -> str:
+    digest = hashlib.sha1()
+    with open(src, "rb") as fh:
+        digest.update(fh.read())
+    digest.update(" ".join(flags).encode())
+    return os.path.join(directory, f"{name}-{digest.hexdigest()[:12]}.so")
+
+
 def _lib_path(name: str) -> str:
     src, flags = SOURCES[name]
-    digest = hashlib.sha1()
-    with open(os.path.join(CSRC_DIR, src), "rb") as fh:
-        digest.update(fh.read())
-    digest.update(" ".join(BASE_FLAGS + tuple(flags)).encode())
-    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:12]}.so")
+    return _digest_path(build_dir(), name, os.path.join(CSRC_DIR, src),
+                        BASE_FLAGS + tuple(flags))
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every named kernel (default: all) that is not built yet,
-    one ``nvcc`` per source, all started together. Returns seconds per
-    kernel built (0.0 for a library already on disk); raises with
-    ``nvcc``'s output when any build fails."""
-    names = list(names) if names is not None else list(SOURCES)
-    os.makedirs(build_dir(), exist_ok=True)
+def _host_lib_path(name: str) -> str:
+    src, flags = HOST_SOURCES[name]
+    return _digest_path(host_build_dir(), name, os.path.join(_PKG_DIR, src),
+                        HOST_FLAGS + tuple(flags))
+
+
+def _compile(jobs, what: str) -> Dict[str, float]:
+    """Run ``jobs`` (name -> (compiler argv without -o, output path)) all
+    together, each into a temporary file renamed into place when it
+    succeeds. Returns seconds per job (0.0 for an output already on disk);
+    raises with the compiler's output when any fails."""
     procs = {}
     took: Dict[str, float] = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = _lib_path(name)
+    for name, (cmd, out) in jobs.items():
         if os.path.exists(out):
             took[name] = 0.0
             continue
-        src, flags = SOURCES[name]
+        os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [nvcc_path(), *BASE_FLAGS, *flags, "-o", tmp,
-               os.path.join(CSRC_DIR, src)]
         procs[name] = (
             subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
+                [*cmd, "-o", tmp], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
             ),
             tmp, out,
         )
@@ -122,28 +147,62 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         took[name] = time.perf_counter() - t0
         build_logs[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{name}: exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError(f"{what} build failed:\n" + "\n".join(failed))
     return took
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named kernel (default: all) that is not built yet,
+    one ``nvcc`` per source, all started together. Returns seconds per
+    kernel built (0.0 for a library already on disk); raises with
+    ``nvcc``'s output when any build fails."""
+    names = list(names) if names is not None else list(SOURCES)
+    jobs = {}
+    for name in names:
+        src, flags = SOURCES[name]
+        jobs[name] = ([nvcc_path(), *BASE_FLAGS, *flags,
+                       os.path.join(CSRC_DIR, src)], _lib_path(name))
+    return _compile(jobs, "kernel")
+
+
+def build_host(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """``build`` for the host libraries of ``HOST_SOURCES``, with g++."""
+    names = list(names) if names is not None else list(HOST_SOURCES)
+    jobs = {}
+    for name in names:
+        src, flags = HOST_SOURCES[name]
+        jobs[name] = (["g++", *HOST_FLAGS, *flags, os.path.join(_PKG_DIR, src)],
+                      _host_lib_path(name))
+    return _compile(jobs, "host library")
+
+
+def _load(key: str, path_fn, build_fn, name: str) -> ctypes.CDLL:
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            path = path_fn(name)
+            if not os.path.exists(path):
+                build_fn([name])
+            lib = ctypes.CDLL(path)
+            _libs[key] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for one kernel, building it first if needed."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            path = _lib_path(name)
-            if not os.path.exists(path):
-                build([name])
-            lib = ctypes.CDLL(path)
-            _libs[name] = lib
-    return lib
+    return _load(name, _lib_path, build, name)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name``, building it first if needed."""
+    return _load("host:" + name, _host_lib_path, build_host, name)
 
 
 _raw_stream = None

@@ -15,7 +15,12 @@ faces unblurred. A tall input (``TILE_MIN_ROWS`` rows or more) on a
 handler with an ``sp_mesh`` takes the reference's spatially tiled route
 instead of the batcher when its plan is exactly a full-frame resample, or
 exactly one of rotate, blur, sharpen and unsharp (``parallel/tiling.py``).
-Not ported yet (ROADMAP): codecs other than PNG, signed URLs and domain
+Sources decode from PNG, JPEG and lossless WebP, answers encode to PNG,
+JPEG (``q_``, ``moz_``, ``sf_``) and lossless WebP (``webpl_1``;
+codecs/). Not ported yet (ROADMAP): lossy WebP (``o_auto`` answers as
+the reference does a client without WebP; ``o_webp`` without ``webpl_1``
+answers 415), the JPEG sampling factors nvJPEG lacks, GIF, CMYK JPEG
+(``clsp_CMYK``), signed URLs and domain
 restrictions, brownout, derivative reuse, the fleet tier and metadata
 grafting.
 """
@@ -57,7 +62,12 @@ from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
 from flyimg_tpu_torch.service.input_source import load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
 from flyimg_tpu_torch.spec.options import OptionsBag
-from flyimg_tpu_torch.spec.plan import TransformPlan, build_plan, parse_colorspace
+from flyimg_tpu_torch.spec.plan import (
+    TransformPlan,
+    build_plan,
+    decode_target_hint,
+    parse_colorspace,
+)
 from flyimg_tpu_torch.storage.local import LocalStorage
 
 
@@ -102,10 +112,15 @@ class ProcessedImage:
     stale: bool = False
 
 
+#: the outputs this package encodes, by extension
+_ENCODED = {"png": "image/png", "jpg": "image/jpeg", "webp": "image/webp"}
+
+
 def _cache_entry_valid(content: bytes, spec: OutputSpec) -> bool:
-    """A stored PNG must at least carry its signature (a torn or damaged
-    entry re-renders instead of serving garbage under image headers)."""
-    return spec.extension != "png" or content[:8] == b"\x89PNG\r\n\x1a\n"
+    """A stored entry must sniff as the container its name promises (a
+    torn or damaged entry re-renders instead of serving garbage under image
+    headers)."""
+    return codecs.media_info(content).mime == _ENCODED.get(spec.extension)
 
 
 def _require_cmyk_container(spec: OutputSpec) -> None:
@@ -116,6 +131,14 @@ def _require_cmyk_container(spec: OutputSpec) -> None:
             "clsp_CMYK requires a JPEG output container (o_jpg); "
             f"{spec.extension!r} cannot store CMYK samples"
         )
+
+
+def _webp_lossless(options: OptionsBag) -> bool:
+    return bool(options.truthy("webp-lossless"))
+
+
+def _sampling_factor(options: OptionsBag) -> str:
+    return str(options.get_option("sampling-factor") or "1x1")
 
 
 @contextmanager
@@ -172,7 +195,7 @@ class ImageHandler:
         )
 
     def process_image(
-        self, options_str: str, image_src: str, *, accepts_webp: bool = False
+        self, options_str: str, image_src: str
     ) -> ProcessedImage:
         timings: Dict[str, float] = {}
         options = OptionsBag(
@@ -187,16 +210,23 @@ class ImageHandler:
             header_extra_options=self.params.by_key("header_extra_options", ""),
         )
         timings["fetch"] = time.perf_counter() - t
-        spec = resolve_output(
-            options, image_src, source.info.mime, accepts_webp=accepts_webp
-        )
+        spec = resolve_output(options, image_src, source.info.mime)
         if parse_colorspace(options) == "cmyk":
             _require_cmyk_container(spec)
-        if spec.extension != "png":
+            raise UnsupportedMediaException(
+                "clsp_CMYK (a CMYK JPEG output) is not ported to the PyTorch "
+                "package yet"
+            )
+        if spec.extension not in _ENCODED:
             raise UnsupportedMediaException(
                 f"{spec.extension} output is not ported to the PyTorch "
-                "package yet (png only)"
+                "package yet (png, jpg and webp only)"
             )
+        # refused before decode and device work, as the output container is
+        codecs.require_encodable(
+            spec.extension, webp_lossless=_webp_lossless(options),
+            sampling_factor=_sampling_factor(options),
+        )
         refresh = options.wants_refresh()
         if refresh:
             self.storage.delete(spec.name)
@@ -219,7 +249,9 @@ class ImageHandler:
                 timings=timings, modified_at=mtime,
             )
         try:
-            content = self._process_new(source.data, options, spec, timings)
+            content = self._process_new(
+                source.data, source.info, options, spec, timings
+            )
             t = time.perf_counter()
             mtime = self.storage.write(spec.name, content)
             timings["store"] = time.perf_counter() - t
@@ -249,11 +281,15 @@ class ImageHandler:
             return fut.result()
 
     def _process_new(
-        self, data: bytes, options: OptionsBag, spec: OutputSpec,
+        self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
         timings: Dict[str, float],
     ) -> bytes:
         t = time.perf_counter()
-        decoded = codecs.decode(data)
+        # a JPEG decodes prescaled toward the target box (DCT-domain scale)
+        decoded = codecs.decode(
+            data, target_hint=decode_target_hint(options), info=info,
+            device=self.device,
+        )
         timings["decode"] = time.perf_counter() - t
         w, h = decoded.size
         plan = build_plan(options, w, h)
@@ -310,7 +346,7 @@ class ImageHandler:
         alpha = None
         if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
             alpha = decoded.alpha
-        content = codecs.encode(np.ascontiguousarray(out), spec.extension, alpha)
+        content = self._encode(np.ascontiguousarray(out), spec, options, alpha)
         timings["encode"] = time.perf_counter() - t
         if options.wants_refresh():
             # the rf_1 debug header's `identify` line (reference
@@ -322,6 +358,19 @@ class ImageHandler:
                 f"{info.width}x{info.height}+0+0 8-bit sRGB {len(content)}B"
             )
         return content
+
+    def _encode(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
+                alpha) -> bytes:
+        """Encode a finished frame with the request's q_, moz_, sf_ and
+        webpl_ (the reference handler's ``_encode_one``)."""
+        return codecs.encode(
+            frame, spec.extension, alpha,
+            quality=options.int_option("quality", 90) or 90,
+            webp_lossless=_webp_lossless(options),
+            mozjpeg=str(options.get_option("mozjpeg")) == "1",
+            sampling_factor=_sampling_factor(options),
+            device=self.device,
+        )
 
     def _count(self, name: str) -> None:
         with self._count_lock:

@@ -27,6 +27,12 @@ and launches a call, the byte bound (as ``chip_smoke.py`` counts it), the
 train step's device time and launches from a profiler window, K13's share
 of that device time, and ``k13_plan``. ``chip_smoke.py`` phase 3 prints
 the K11 and K12 readings at batch 16.
+
+First, one line for K14 (``adam_update`` over the model's flat parameters,
+which no batch changes): events, the wrapper's host microseconds, device
+time and launches a call, the byte bound, and ``torch.optim.Adam(fused=True)``
+on the same buffer (events, device time). ``k14_row`` calls public
+functions only, so it can time an older tree's K14 too.
 """
 
 from __future__ import annotations
@@ -255,6 +261,39 @@ def k13_row(batch: int, iters: int, dev, card: str) -> dict:
     }
 
 
+def k14_tensors(dev):
+    """(params, grads, mu, nu): a fresh model's flat parameters with seeded
+    gradients and moments of a training step's scale."""
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    params = bt.init_params(0, dev).flat_params
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grads = torch.randn(params.shape, generator=gen, device=dev) * 1e-3
+    mu = grads * 0.1
+    nu = grads * grads * 1e-3
+    return params, grads, mu, nu
+
+
+def k14_row(iters: int, dev, card: str) -> dict:
+    """K14 on the model's flat parameters, against the fused Adam call."""
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    params, grads, mu, nu = k14_tensors(dev)
+    call = lambda: bt.adam_update(params, grads, mu, nu, 4)  # noqa: E731
+    device_ms, launches = device_window(call, iters)
+    lib_p = torch.nn.Parameter(params.detach().clone())
+    lib_p.grad = grads.clone()
+    fused = torch.optim.Adam([lib_p], lr=1e-3, eps=1e-8, fused=True)
+    lib_device_ms, lib_launches = device_window(fused.step, iters)
+    return {
+        "kernel": "K14", "values": params.numel(), "ms": event_ms(call, iters),
+        "host_us": host_us(call, iters), "device_ms": device_ms, "launches": launches,
+        "bound_ms": 4.0 * 7 * params.numel() / H100_BYTES_PER_S * 1e3,
+        "library": "torch.optim.Adam(fused=True)", "library_ms": event_ms(fused.step, iters),
+        "library_device_ms": lib_device_ms, "library_launches": lib_launches, "card": card,
+    }
+
+
 def summary(rows) -> dict:
     """Sums by kernel of a batch's rows."""
     out = {}
@@ -278,6 +317,7 @@ def main(argv=None) -> int:
 
     dev = resolve_device("cuda")
     card = card_line()
+    print(json.dumps(k14_row(args.iters, dev, card)), flush=True)
     for batch in (int(b) for b in args.batches.split(",")):
         rows = []
         for row in layer_rows(batch, args.iters, dev, card):

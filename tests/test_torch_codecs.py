@@ -1,7 +1,25 @@
-"""The PyTorch package's PNG codec (flyimg_tpu_torch/codecs/png.py) against
-Pillow: decode of gray, gray+alpha, RGB and RGBA PNGs written with each of
-the five row filters, decode of Pillow's own (adaptively filtered) PNGs,
-and encode -> Pillow decode round trips. Bound: exact."""
+"""The PyTorch package's codecs on the CPU.
+
+- PNG (flyimg_tpu_torch/codecs/png.py) against Pillow: decode of gray,
+  gray+alpha, RGB and RGBA PNGs written with each of the five row filters,
+  decode of Pillow's own (adaptively filtered) PNGs, and encode -> Pillow
+  decode round trips. Bound: exact.
+- EXIF orientation 1-8 of PNG, JPEG and WebP sources against the JAX
+  package's ``flyimg_tpu.codecs.decode``: shape, colour and alpha exact.
+- JPEG: nvJPEG runs on a card only, so here the tests hold what surrounds
+  it, with a Pillow stand-in for the two nvJPEG calls
+  (tests/torch_jpeg_stand_in.py): the DCT prescale the target hint picks
+  (scales 1, 2, 4 and 8 of 8; 4:2:0, 4:4:4 and progressive sources) and
+  the encode options (q_, moz_, sf_), against the JAX package's decode and
+  encode, exact; and ``parse_sampling_factor`` against the JAX function,
+  every spelling and refusal. nvJPEG itself is held by the card's tests
+  (tests/test_torch_codecs_card.py) and ``chip_smoke.py`` phase 10.
+- WebP: the package's lossless (VP8L) encoder round trips exactly through
+  Pillow's libwebp and its own decoder; its decoder gives the JAX
+  package's pixels on Pillow's lossless files; a lossy request is answered
+  losslessly (PSNR infinite, at least the JAX package's lossy PSNR); a
+  lossy source is refused.
+"""
 
 import io
 import struct
@@ -12,9 +30,16 @@ import pytest
 import torch
 from PIL import Image
 
+import flyimg_tpu.codecs as jcodecs
+import torch_jpeg_stand_in as stand_in
+from flyimg_tpu.codecs.sniff import MediaInfo as JMediaInfo
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.codecs import png
-from flyimg_tpu_torch.exceptions import UnsupportedMediaException
+from flyimg_tpu_torch.codecs.sniff import MediaInfo
+from flyimg_tpu_torch.exceptions import (
+    InvalidArgumentException,
+    UnsupportedMediaException,
+)
 
 torch.set_num_threads(1)
 
@@ -117,14 +142,22 @@ def test_encode_round_trips_through_pillow(with_alpha):
 
 
 @pytest.mark.parametrize("case", ["palette", "16bit", "interlaced", "jpeg"])
-def test_unsupported_inputs_raise(case):
+def test_unsupported_inputs_raise(case, monkeypatch):
     if case == "jpeg":
+        # JPEG is nvJPEG's, on a CUDA device: on the CPU it is refused by
+        # name; through the nvJPEG calls' stand-in it is the JAX
+        # package's decode and encode
         buf = io.BytesIO()
-        Image.new("RGB", (8, 8)).save(buf, "JPEG")
-        with pytest.raises(UnsupportedMediaException):
-            codecs.decode(buf.getvalue())
-        with pytest.raises(UnsupportedMediaException):
-            codecs.encode(np.zeros((4, 4, 3), np.uint8), "jpg")
+        Image.fromarray(np.arange(192, dtype=np.uint8).reshape(8, 8, 3)).save(buf, "JPEG")
+        with pytest.raises(UnsupportedMediaException, match="nvJPEG"):
+            codecs.decode(buf.getvalue(), device="cpu")
+        with pytest.raises(UnsupportedMediaException, match="nvJPEG"):
+            codecs.encode(np.zeros((4, 4, 3), np.uint8), "jpg", device="cpu")
+        stand_in.install(monkeypatch)
+        got, ref = codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue())
+        np.testing.assert_array_equal(got.rgb, ref.rgb)
+        frame = np.zeros((4, 4, 3), np.uint8)
+        assert codecs.encode(frame, "jpg") == jcodecs.encode(frame, "jpg")
         return
     buf = io.BytesIO()
     if case == "palette":
@@ -138,3 +171,325 @@ def test_unsupported_inputs_raise(case):
         buf = io.BytesIO(bytes(data))
     with pytest.raises(UnsupportedMediaException):
         png.decode(buf.getvalue())
+
+
+# ---------------------------------------------------------------------------
+# EXIF orientation
+# ---------------------------------------------------------------------------
+
+
+def _exif(orientation):
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    return exif
+
+
+def _assert_same_decode(got, ref):
+    assert got.rgb.shape == ref.rgb.shape
+    np.testing.assert_array_equal(got.rgb, ref.rgb)
+    if ref.alpha is None:
+        assert got.alpha is None
+    else:
+        np.testing.assert_array_equal(got.alpha, ref.alpha)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_png_orientation_matches_jax(orientation, mode):
+    """A 30x20 PNG with an eXIf chunk decodes upright, colour and alpha,
+    as the JAX package's decode turns it."""
+    rng = np.random.default_rng(orientation)
+    arr = rng.integers(0, 256, (20, 30, len(mode)), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "PNG", exif=_exif(orientation))
+    got, ref = codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue())
+    if orientation >= 5:
+        assert got.size == (20, 30)
+    _assert_same_decode(got, ref)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_jpeg_orientation_matches_jax(orientation, monkeypatch):
+    """The APP1 orientation of a JPEG is applied after the decode (here the
+    nvJPEG calls' stand-in), as the JAX package's decode applies it."""
+    stand_in.install(monkeypatch)
+    yy, xx = np.mgrid[0:24, 0:40]
+    arr = np.stack([xx * 6, yy * 10, (xx + yy) * 4], -1).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", quality=95, exif=_exif(orientation))
+    got, ref = codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue())
+    _assert_same_decode(got, ref)
+    assert got.orig_size == (40, 24)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+@pytest.mark.parametrize("orientation", [1, 3, 6, 8])
+def test_webp_orientation_matches_jax(orientation, mode):
+    rng = np.random.default_rng(orientation + 10)
+    arr = rng.integers(0, 256, (20, 30, len(mode)), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "WEBP", lossless=True, exact=True,
+                                    exif=_exif(orientation))
+    _assert_same_decode(codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue()))
+
+
+# ---------------------------------------------------------------------------
+# JPEG around nvJPEG
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (4000, 3000), (640, 480), (300, 250),
+                                  (8000, 600), (33, 17)])
+@pytest.mark.parametrize("hint", [None, (300, 250), (100, 100), (1000, 50), (0, 250),
+                                  (30, 20), (2000, 2000)])
+def test_jpeg_scale_selection_matches_jax(size, hint):
+    w, h = size
+    assert codecs.jpeg_batch_scale_num(MediaInfo("image/jpeg", w, h), hint) == \
+        jcodecs.jpeg_batch_scale_num(JMediaInfo("image/jpeg", w, h), hint)
+
+
+def _photo(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 90 * np.sin(yy / (23.0 + 7 * c) + c) * np.cos(xx / 41.0 - c)
+                    for c in range(3)], -1)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["420", "444", "progressive"])
+@pytest.mark.parametrize("hint,scale", [((60, 30), 1), ((120, 60), 2), ((200, 100), 4),
+                                        ((400, 300), 8)])
+def test_jpeg_decode_prescale_matches_jax(kind, hint, scale, monkeypatch):
+    """A 960x540 JPEG decodes at the DCT scale its target hint picks, the
+    size and pixels of the JAX package's decode (through the nvJPEG calls'
+    stand-in, at that scale)."""
+    stand_in.install(monkeypatch)
+    buf = io.BytesIO()
+    Image.fromarray(_photo(540, 960)).save(
+        buf, "JPEG", quality=90, subsampling=0 if kind == "444" else 2,
+        progressive=kind == "progressive")
+    got = codecs.decode(buf.getvalue(), target_hint=hint)
+    ref = jcodecs.decode(buf.getvalue(), target_hint=hint)
+    assert stand_in.decode.calls == [{"scale_num": scale, "device": "cuda"}]
+    assert got.size == (-(-960 * scale // 8), -(-540 * scale // 8))
+    _assert_same_decode(got, ref)
+    assert got.orig_size == ref.orig_size == (960, 540)
+
+
+@pytest.mark.parametrize("quality", [90, 40])
+@pytest.mark.parametrize("mozjpeg", [False, True])
+@pytest.mark.parametrize("sampling", ["1x1", "2x2", "4:2:2"])
+def test_jpeg_encode_options_reach_the_encoder(quality, mozjpeg, sampling, monkeypatch):
+    """q_, moz_ and sf_ reach the nvJPEG encode call as the JAX package's
+    encode reads them (moz_1: optimized Huffman tables and progressive
+    scans; the trellis of the JAX package's native build waits); through
+    the stand-in the bytes are the JAX package's."""
+    stand_in.install(monkeypatch)
+    img = _photo(50, 70, seed=3)
+    got = codecs.encode(img, "jpg", quality=quality, mozjpeg=mozjpeg,
+                        sampling_factor=sampling)
+    ref = jcodecs.encode(img, "jpg", quality=quality, mozjpeg=mozjpeg,
+                         sampling_factor=sampling)
+    assert stand_in.encode.calls == [{
+        "quality": quality, "optimize": mozjpeg, "progressive": mozjpeg,
+        "sampling": jcodecs.parse_sampling_factor(sampling), "device": "cuda"}]
+    assert got == ref
+
+
+_SPELLINGS = ["4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1", "4:1:0", "1x1", "2x2", "2x1",
+              "1x2", "4x1", "4x2", "2x4", "1x4", "4X1", " 2x2 ", "", None, "1X1"]
+_REFUSED = ["3x3", "0x1", "5x1", "axb", "4:2:1", "2x", "x2", "1x1x1", "-1x2", "4x4",
+            "2:2:0", "1,1"]
+
+
+@pytest.mark.parametrize("value", _SPELLINGS + _REFUSED)
+def test_parse_sampling_factor_matches_jax(value):
+    try:
+        ref = jcodecs.parse_sampling_factor(value)
+    except Exception as exc:  # the JAX package's InvalidArgumentException
+        with pytest.raises(InvalidArgumentException) as got:
+            codecs.parse_sampling_factor(value)
+        assert str(got.value) == str(exc)
+        assert value in _REFUSED
+        return
+    assert value in _SPELLINGS
+    assert codecs.parse_sampling_factor(value) == ref
+
+
+#: parsed factors nvJPEG has no chroma subsampling for
+_UNMAPPED = ["1x3", "1x4", "2x3", "2x4", "3x1", "3x2"]
+
+
+@pytest.mark.parametrize("value", _UNMAPPED)
+def test_sampling_factors_nvjpeg_lacks_are_refused(value, monkeypatch):
+    """Factors that parse but that nvJPEG cannot subsample to raise
+    UnsupportedMediaException before any encode call, where the JAX
+    package encodes them (ROADMAP Queue A 2)."""
+    stand_in.install(monkeypatch)
+    img = _photo(40, 48, seed=5)
+    assert jcodecs.parse_sampling_factor(value) == codecs.parse_sampling_factor(value)
+    assert Image.open(io.BytesIO(jcodecs.encode(img, "jpg", sampling_factor=value))).size \
+        == (48, 40)
+    with pytest.raises(UnsupportedMediaException, match=f"sampling factor {value}"):
+        codecs.encode(img, "jpg", sampling_factor=value)
+    assert stand_in.encode.calls == []
+
+
+# ---------------------------------------------------------------------------
+# WebP (VP8L)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 37), (29, 1), (37, 53), (250, 300)])
+@pytest.mark.parametrize("with_alpha", [False, True])
+def test_webp_lossless_round_trips_exactly(shape, with_alpha):
+    h, w = shape
+    img = _photo(h, w, seed=h * w)
+    alpha = np.random.default_rng(h).integers(0, 256, shape).astype(np.uint8) \
+        if with_alpha else None
+    data = codecs.encode(img, "webp", alpha, webp_lossless=True)
+    pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    np.testing.assert_array_equal(pil[..., :3], img)
+    back = codecs.decode(data)
+    np.testing.assert_array_equal(back.rgb, img)
+    if with_alpha:
+        np.testing.assert_array_equal(pil[..., 3], alpha)
+        np.testing.assert_array_equal(back.alpha, alpha)
+    else:
+        assert back.alpha is None and (pil[..., 3] == 255).all()
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def test_webp_lossy_request_is_refused():
+    """Until a VP8 encoder is ported, webpl_0 (the default) raises instead
+    of answering another bitstream; the JAX package writes lossy q90 WebP
+    (above 30 dB PSNR on this source)."""
+    img = _photo(250, 300, seed=7)
+    with pytest.raises(UnsupportedMediaException, match="webpl_1"):
+        codecs.encode(img, "webp", quality=90, webp_lossless=False)
+    with pytest.raises(UnsupportedMediaException, match="webpl_1"):
+        codecs.encode(img, "webp")
+    ref = jcodecs.encode(img, "webp", quality=90, webp_lossless=False)
+    ref_back = np.asarray(Image.open(io.BytesIO(ref)).convert("RGB"))
+    assert _psnr(ref_back, img) > 30.0
+
+
+@pytest.mark.parametrize("method", [0, 4, 6])
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+def test_webp_decode_of_libwebp_files_matches_jax(method, mode):
+    """Lossless WebPs written by libwebp (Pillow) at three effort levels
+    (transforms, colour cache, backward references, meta prefix codes)
+    decode to the JAX package's pixels."""
+    rng = np.random.default_rng(method)
+    img = _photo(61, 87, seed=method)
+    if mode == "RGBA":
+        img = np.dstack([img, rng.integers(0, 256, (61, 87)).astype(np.uint8)])
+    buf = io.BytesIO()
+    Image.fromarray(img, mode).save(buf, "WEBP", lossless=True, method=method)
+    _assert_same_decode(codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue()))
+
+
+def test_webp_decode_of_a_palette_file_matches_jax():
+    """A few colours make libwebp write the colour-indexing transform with
+    pixels bundled into bytes."""
+    rng = np.random.default_rng(4)
+    img = (rng.integers(0, 3, (40, 41))[..., None] * np.array([[[80, 40, 20]]])).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", lossless=True)
+    _assert_same_decode(codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue()))
+
+
+def test_lossy_webp_source_is_refused():
+    """A lossy (VP8) WebP source raises until a VP8 decoder is ported; the
+    JAX package decodes it."""
+    buf = io.BytesIO()
+    Image.fromarray(_photo(20, 30)).save(buf, "WEBP", quality=80)
+    assert jcodecs.decode(buf.getvalue()).size == (30, 20)
+    with pytest.raises(UnsupportedMediaException, match="lossy"):
+        codecs.decode(buf.getvalue())
+
+
+def test_jpeg_fixtures_are_the_jax_package_s():
+    """tests/data/jpeg (what the card's nvJPEG tests compare with) is what
+    tools/make_jpeg_fixtures.py writes from the JAX package: the same
+    JPEG bytes, the same decoded pixels, the same reference numbers."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "make_jpeg_fixtures", os.path.join(root, "tools", "make_jpeg_fixtures.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    built = tool.build()
+    names = sorted(os.listdir(tool.DEFAULT_OUT))
+    assert names == sorted(built)
+    for name, data in built.items():
+        with open(os.path.join(tool.DEFAULT_OUT, name), "rb") as fh:
+            stored = fh.read()
+        if name.endswith(".png"):
+            np.testing.assert_array_equal(png.decode(stored)[0], png.decode(data)[0])
+        else:
+            assert stored == data, name
+
+
+def _libjpeg_ycc(rgb, hf, vf):
+    """jccolor.c rgb_ycc_convert and jcsample.c's downsamplers, pixel by
+    pixel as libjpeg writes them (the right and bottom edges replicated)."""
+    def fix(x):
+        return int(x * 65536 + 0.5)
+
+    h, w, _ = rgb.shape
+    y = np.zeros((h, w), np.int64)
+    cb = np.zeros((h, w), np.int64)
+    cr = np.zeros((h, w), np.int64)
+    for i in range(h):
+        for j in range(w):
+            r, g, b = (int(v) for v in rgb[i, j])
+            y[i, j] = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + 32768) >> 16
+            cb[i, j] = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b
+                        + (128 << 16) + 32767) >> 16
+            cr[i, j] = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b
+                        + (128 << 16) + 32767) >> 16
+    if (hf, vf) == (1, 1):
+        return y, cb, cr
+    ch, cw = -(-h // vf), -(-w // hf)
+    out = []
+    for plane in (cb, cr):
+        down = np.zeros((ch, cw), np.int64)
+        for oi in range(ch):
+            bias = {(2, 1): 0, (2, 2): 1}.get((hf, vf), hf * vf // 2)
+            for oj in range(cw):
+                total = sum(int(plane[min(oi * vf + a, h - 1), min(oj * hf + c, w - 1)])
+                            for a in range(vf) for c in range(hf))
+                if (hf, vf) == (2, 1):
+                    down[oi, oj] = (total + bias) >> 1
+                    bias ^= 1
+                elif (hf, vf) == (2, 2):
+                    down[oi, oj] = (total + bias) >> 2
+                    bias ^= 3
+                else:
+                    down[oi, oj] = (total + bias) // (hf * vf)
+        out.append(down)
+    return (y, *out)
+
+
+@pytest.mark.parametrize("sampling", ["4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1", "4:1:0"])
+@pytest.mark.parametrize("shape", [(1, 1), (7, 13), (16, 16), (9, 6)])
+def test_jpeg_encode_planes_are_libjpeg_s(sampling, shape):
+    """The YCbCr planes the port hands nvJPEG are libjpeg's (its colour
+    conversion and chroma downsampling, written out pixel by pixel here)."""
+    from flyimg_tpu_torch.codecs import native_codec
+
+    hf, vf = codecs.parse_sampling_factor(sampling)
+    rng = np.random.default_rng(shape[0] * 31 + shape[1])
+    rgb = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+    rgb[0, 0] = (255, 0, 255)
+    got = native_codec.ycbcr_planes(torch.from_numpy(rgb), (hf, vf))
+    for g, want in zip(got, _libjpeg_ycc(rgb, hf, vf)):
+        assert g.dtype == torch.uint8
+        np.testing.assert_array_equal(g.numpy(), want)

@@ -30,13 +30,17 @@ def _all_modules():
 
 
 def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
-    """Every module imports, and the face backends load the packaged
-    BlazeFace weights (the .npz) and run, with neither JAX, the JAX package
-    nor Pillow (which the card machine lacks) loaded."""
+    """Every module imports, the face backends load the packaged BlazeFace
+    weights (the .npz) and run, and the codecs decode an oriented PNG, build
+    and run the WebP codec and refuse a JPEG on the CPU by name, with
+    neither JAX, the JAX package nor Pillow (which the card machine lacks)
+    loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
     assert "flyimg_tpu_torch.models.blazeface" in mods
     assert "flyimg_tpu_torch.models.haar" in mods
+    for name in ("exif", "metadata", "native_codec"):
+        assert f"flyimg_tpu_torch.codecs.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -51,6 +55,17 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "    boxes = ff.detect_faces_batched([ff.prepare_face_work(img)])[0]\n"
         "    assert boxes, name\n"
         "    ff.blur_faces(img, boxes)\n"
+        "from flyimg_tpu_torch import codecs\n"
+        "from flyimg_tpu_torch.exceptions import UnsupportedMediaException\n"
+        "small = img[:20, :30]\n"
+        "back = codecs.decode(codecs.encode(small, 'webp', webp_lossless=True))\n"
+        "assert (back.rgb == small).all()\n"
+        "assert codecs.decode(codecs.encode(small, 'png')).size == (30, 20)\n"
+        "try:\n"
+        "    codecs.decode(b'\\xff\\xd8\\xff\\xe0' + bytes(60), device='cpu')\n"
+        "    raise SystemExit('a JPEG decoded on the CPU')\n"
+        "except UnsupportedMediaException as exc:\n"
+        "    assert 'nvJPEG' in str(exc)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'flyimg_tpu' or n.startswith('flyimg_tpu.')\n"
         "             or n == 'PIL' or n.startswith('PIL.'))\n"

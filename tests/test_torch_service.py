@@ -13,6 +13,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_jpeg_stand_in as stand_in
 from PIL import Image
 
 from flyimg_tpu.models import smartcrop as js
@@ -102,12 +103,25 @@ def test_upload_matches_jax_pipeline(service, opts):
     assert headers2["ETag"] == headers["ETag"]
 
 
-def test_error_statuses(service):
+def test_error_statuses(service, tmp_path, monkeypatch):
     _server, base, src, _img = service
     assert get(f"{base}/upload/w_100/{src}.missing")[0] == 404
     status, _h, body = get(f"{base}/upload/w_100,fb_1/{src}")
     assert status == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
-    assert get(f"{base}/upload/w_100,o_jpg/{src}")[0] == 415
+    # o_jpg encodes with nvJPEG, on a card: a server on the CPU refuses it
+    # (415, naming nvJPEG); through the nvJPEG calls' stand-in it answers
+    # as the JAX handler does (status, type, size; decoded pixels within
+    # JPEG_LEVELS of its answer's)
+    status, _h, body = get(f"{base}/upload/w_100,o_jpg/{src}")
+    assert status == 415 and b"nvJPEG" in body
+    stand_in.install(monkeypatch)
+    status, headers, body = get(f"{base}/upload/w_100,o_jpg,rf_1/{src}")
+    ref = _jax_handler(tmp_path).process_image("w_100,o_jpg", src)
+    assert status == 200 and headers["Content-Type"] == ref.spec.mime == "image/jpeg"
+    got, want = (np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+                 for b in (body, ref.content))
+    assert got.shape == want.shape
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= JPEG_LEVELS
     assert get(f"{base}/upload/w_100,o_bmp/{src}")[0] == 400
     assert get(f"{base}/nothing/here")[0] == 404
 
@@ -394,7 +408,8 @@ def test_cmyk_outside_jpeg_is_refused_as_the_jax_handler(service, tmp_path, opts
     status, headers, body = get(f"{base}/upload/{opts}/{src}")
     assert status == 400
     assert body.decode() == f"{type(exc.value).__name__}: {exc.value}"
-    # a JPEG container passes the rule, and JPEG is not ported yet
+    # a JPEG container passes the rule, and a CMYK JPEG is not ported yet
+    # (the JAX package encodes it through Pillow only)
     assert get(f"{base}/upload/w_200,clsp_CMYK,o_jpg/{src}")[0] == 415
 
 
@@ -476,3 +491,125 @@ def test_refresh_headers_match_the_jax_handler(service, tmp_path):
         elif key not in ("x-flyimg-timings", "Last-Modified"):
             assert headers[key] == value, key
     assert headers["im-identify"].endswith(f" {len(body)}B")
+
+
+#: JPEG answers of the two handlers, decoded: their pixels differ by at most
+#: one level before the encode (the bound of every test above), and a
+#: lossy encode can turn that into a few levels
+JPEG_LEVELS = 6
+
+
+@pytest.fixture(scope="module")
+def jpeg_source(tmp_path_factory):
+    """A 1920x1080 q90 JPEG (4:2:0) of the seeded source image: at
+    w_300,h_250 both handlers decode it at half scale."""
+    root = tmp_path_factory.mktemp("torch_jpeg")
+    img = np.asarray(Image.fromarray(source_image()).resize((1920, 1080), Image.BILINEAR))
+    path = root / "photo.jpg"
+    Image.fromarray(img).save(path, "JPEG", quality=90)
+    return str(path)
+
+
+def get_accepting(url, accept):
+    req = urllib.request.Request(url, headers={"Accept": accept})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read()
+
+
+@pytest.mark.parametrize("opts", ["w_300,h_250,c_1", "w_300,h_250,c_1,smc_1"])
+@pytest.mark.parametrize("out,accept,mime", [
+    ("", "*/*", "image/jpeg"),                    # o_auto, the JPEG source's own type
+    # o_auto for a client that accepts WebP: answered as the JAX handler
+    # answers a client without WebP (no lossy WebP encoder in the port)
+    (",o_auto", "image/webp,*/*", "image/jpeg"),
+    (",o_webp,webpl_1", "*/*", "image/webp"),
+    (",o_jpg,q_75,sf_2x2", "*/*", "image/jpeg"),
+])
+def test_jpeg_source_answers_match_the_jax_handler(service, jpeg_source, tmp_path,
+                                                   monkeypatch, opts, out, accept, mime):
+    """A JPEG upload through the port's server (its nvJPEG calls by the
+    stand-in) and the JAX handler: the same status, type and size; a WebP
+    answer is lossless, so its pixels are within 1 level of the JAX
+    handler's PNG answer of the same URL; a JPEG answer's decoded pixels
+    are within JPEG_LEVELS of the JAX handler's. The source decodes at the
+    scale the target hint picks (4 of 8)."""
+    _server, base, _src, _img = service
+    stand_in.install(monkeypatch)
+    # rf_1: render anew (o_auto and o_webp name one stored output)
+    status, headers, body = get_accepting(f"{base}/upload/{opts}{out},rf_1/{jpeg_source}",
+                                          accept)
+    assert status == 200, body
+    assert stand_in.decode.calls and stand_in.decode.calls[0]["scale_num"] == 4
+    jhandler = _jax_handler(tmp_path)
+    ref = jhandler.process_image(opts + out, jpeg_source, accepts_webp=False)
+    assert headers["Content-Type"] == ref.spec.mime == mime
+    got = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    want = np.asarray(Image.open(io.BytesIO(ref.content)).convert("RGB"))
+    assert got.shape == want.shape
+    if mime == "image/webp":
+        exact = jhandler.process_image(opts + ",o_png", jpeg_source).content
+        want = np.asarray(Image.open(io.BytesIO(exact)).convert("RGB"))
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    else:
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= JPEG_LEVELS
+        call = stand_in.encode.calls[-1]
+        assert call["quality"] == (75 if "q_75" in out else 90)
+        assert call["sampling"] == ((2, 2) if "sf_2x2" in out else (1, 1))
+        assert call["optimize"] and call["progressive"]
+
+
+@pytest.mark.parametrize("opts", ["w_40,o_webp,webpl_1,rf_1", "w_40,o_jpg,rf_1"])
+def test_refresh_identify_of_jpeg_and_webp_matches_the_jax_handler(service, tmp_path,
+                                                                    monkeypatch, opts):
+    """rf_1's im-identify line of a JPEG and a WebP answer names the
+    container and size as the JAX handler's does (the byte counts differ
+    with the encoders)."""
+    from flyimg_tpu.service.response import image_headers as jimage_headers
+
+    _server, base, _src, _img = service
+    stand_in.install(monkeypatch)
+    src = _small_source(tmp_path)
+    status, headers, body = get(f"{base}/upload/{opts}/{src}")
+    ref = jimage_headers(_jax_handler(tmp_path).process_image(opts, src), 365)
+    assert status == 200
+    assert headers["Content-Type"] == ref["Content-Type"]
+    assert headers["im-identify"].rsplit(" ", 1)[0] == ref["im-identify"].rsplit(" ", 1)[0]
+    assert headers["im-identify"].endswith(f" {len(body)}B")
+
+
+@pytest.mark.parametrize("opts", ["w_40,o_webp", "w_40,o_webp,webpl_0"])
+def test_lossy_webp_output_is_refused_where_the_jax_handler_encodes(service, tmp_path,
+                                                                   opts):
+    """o_webp without webpl_1 asks for lossy WebP: the port has no VP8
+    encoder, so it answers 415 naming webpl_1 where the JAX handler
+    answers image/webp (ROADMAP Queue A 2)."""
+    _server, base, _src, _img = service
+    src = _small_source(tmp_path)
+    status, _h, body = get(f"{base}/upload/{opts}/{src}")
+    assert status == 415 and b"webpl_1" in body
+    assert _jax_handler(tmp_path).process_image(opts, src).spec.mime == "image/webp"
+
+
+@pytest.mark.parametrize("sf", ["1x4", "3x1"])
+def test_sampling_factor_nvjpeg_lacks_is_refused_where_the_jax_handler_encodes(
+        service, tmp_path, monkeypatch, sf):
+    """A JPEG answer with sampling factors nvJPEG cannot subsample to
+    answers 415 before any decode or encode, where the JAX handler answers
+    image/jpeg (ROADMAP Queue A 2)."""
+    _server, base, _src, _img = service
+    stand_in.install(monkeypatch)
+    src = _small_source(tmp_path)
+    opts = f"w_40,o_jpg,sf_{sf}"
+    status, _h, body = get(f"{base}/upload/{opts}/{src}")
+    assert status == 415 and f"sampling factor {sf}".encode() in body
+    assert stand_in.encode.calls == [] and stand_in.decode.calls == []
+    assert _jax_handler(tmp_path).process_image(opts, src).spec.mime == "image/jpeg"
+
+
+def test_gif_output_is_still_refused(service):
+    _server, base, src, _img = service
+    status, _h, body = get(f"{base}/upload/w_40,o_gif/{src}")
+    assert status == 415 and b"gif" in body
