@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero without a result line:
              power limit;
 2. build   — compiles kernels K1-K15 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
-             builds the WebP codec (codecs/native/webp_lossless.cpp) with
-             g++ and loads nvJPEG, printing both libraries' versions;
+             builds the WebP codec (codecs/native/: the VP8 and VP8L
+             sources, one library) with g++ and loads nvJPEG, printing both
+             libraries' versions;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
              of the kernel, the plain version and (where one exists) the one
@@ -108,17 +109,18 @@ Phases, in order; any failure exits non-zero without a result line:
              PNGs, then 16 concurrent requests spread over the
              STAGED_OPTIONS strings, dense and banded; every answer is held against
              the same request through the handler on the CPU; a repeat is a
-             cache hit; then (banded) the JPEG wave: the same 8 sources as
+             cache hit; then (banded) the JPEG waves: the same 8 sources as
              q90 4:2:0 JPEGs from the package's own encoder (nvJPEG), 16
              concurrent o_auto requests from a client that accepts WebP
-             answered image/jpeg (the port has no lossy WebP encoder, so
-             o_auto answers as the reference does a client without WebP)
-             and 16 o_webp,webpl_1 requests answered image/webp, each 200,
-             decoded, 300x250 without smc_1, a WebP answer equal to the PNG
-             answer of the same URL and a JPEG one at least
-             JPEG_ANSWER_PSNR against it; o_webp without webpl_1 answers
-             415; K1, K2 and K3 must launch; both waves' wall times beside
-             the PNG wave's;
+             answered lossy image/webp (as the reference answers a
+             browser), 16 o_webp,webpl_1 requests answered lossless
+             image/webp and 16 o_auto requests with Accept: */* answered
+             image/jpeg, each 200, decoded, 300x250 without smc_1, a
+             lossless answer equal to the PNG answer of the same URL, a
+             lossy WebP one at least WEBP_ANSWER_PSNR and a JPEG one at
+             least JPEG_ANSWER_PSNR against it; o_webp without webpl_1
+             answers lossy image/webp; K1, K2 and K3 must launch; the
+             waves' wall times beside the PNG wave's;
 7. faces   — flyimg_tpu_torch/entry.py face_entry (the BlazeFace forward
              over 64 views, the facefind masks of 16 480x640 images) held
              against the plain path and timed (views/s, images/s); then the
@@ -167,11 +169,18 @@ Phases, in order; any failure exits non-zero without a result line:
              encodes (moz_0, moz_1) of the fixture source against the JAX
              package's files, both decoded by nvJPEG (PSNR at least the
              JAX file's less 0.5 dB, at most 1.05x its bytes); the WebP
-             codec's round trip (exact) and a lossy WebP encode refused;
-             then medians of calls: decode of a 1920x1080 q90 JPEG at 8/8
-             and at the flagship hint's prescale, encode of a 300x250
-             answer with moz_1 and moz_0, and its lossless WebP encode, on
-             one JSON line with the card's name and power limit.
+             codec's lossless round trip (exact); the VP8 decoder on every
+             lossy fixture of tests/data/webp (written by libwebp) equal to
+             the JAX package's decoded pixels and alpha, and the VP8
+             encoder's q50/75/90 files of source.png and of its
+             w_300,h_250,c_1 answer against the JAX package's (at most
+             WEBP_BYTES_RATIO its bytes, at least its PSNR less
+             WEBP_PSNR_LOSS_DB); then medians of calls: decode of a
+             1920x1080 q90 JPEG at 8/8 and at the flagship hint's prescale,
+             encode of a 300x250 answer with moz_1 and moz_0, its lossless
+             WebP encode and decode, and the VP8 (q90) encode and decode of
+             the 300x250 answer and of a 1920x1080 frame (host time), on one
+             JSON line with the card's name and power limit.
 
 Launch counters are zeroed right before each main-path phase (4-9)
 and read right after; every kernel of the phase's path must have launched.
@@ -197,6 +206,8 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 PIXEL_TOL = 1                   # u8 levels
 #: a JPEG answer of the server against its PNG answer of the same URL, dB
 JPEG_ANSWER_PSNR = 30.0
+#: a lossy WebP answer (q90, the default) against the same, dB
+WEBP_ANSWER_PSNR = 30.0
 DIFF_FRAC = 1e-4                # share of u8 values that may differ by 1
 SCORE_RTOL = 1e-5               # max |a - b| / max |b|
 F32_TOL = 1e-3                  # f32 stage outputs: K1-f32; K4 off the fill edge
@@ -1467,14 +1478,13 @@ def phase_server(torch, dev, workdir, kernels):
 
 
 def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
-    """Phase 6's JPEG wave on a running (banded) server: JPEG sources, 16
+    """Phase 6's JPEG waves on a running (banded) server: JPEG sources, 16
     concurrent o_auto requests from a client that accepts WebP answered
-    image/jpeg, then 16 o_webp,webpl_1 answered image/webp; o_webp without
-    webpl_1 answers 415. Returns the kernel launches of both waves."""
-    import urllib.error
+    lossy image/webp, 16 o_webp,webpl_1 answered lossless image/webp and 16
+    o_auto from a client that does not (Accept: */*) answered image/jpeg;
+    then o_webp without webpl_1 answers lossy image/webp. Returns the kernel
+    launches of the waves."""
     import urllib.request
-
-    import numpy as np
 
     from flyimg_tpu_torch import codecs
     from flyimg_tpu_torch.codecs import png
@@ -1487,8 +1497,11 @@ def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
             return resp.status, dict(resp.headers), resp.read()
 
     counts = {}
-    for suffix, mime in (("", "image/jpeg"), (",o_webp,webpl_1", "image/webp")):
-        reqs = [(o + suffix, s, "image/webp,*/*") for s in jpeg_sources for o in option_sets]
+    waves = (("", "image/webp,*/*", "image/webp", WEBP_ANSWER_PSNR),
+             (",o_webp,webpl_1", "image/webp,*/*", "image/webp", None),
+             ("", "*/*", "image/jpeg", JPEG_ANSWER_PSNR))
+    for suffix, accept, mime, bound in waves:
+        reqs = [(o + suffix, s, accept) for s in jpeg_sources for o in option_sets]
         reset_counts(kernels)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(reqs)) as pool:
@@ -1497,15 +1510,16 @@ def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
         wave = read_counts(kernels)
         for name, n in wave.items():
             counts[name] = counts.get(name, 0) + n
-        print(f"server banded JPEG sources, {mime} answers: {len(reqs)} concurrent "
+        label = f"{mime} answers to Accept: {accept}" + (f" ({suffix[1:]})" if suffix else "")
+        print(f"server banded JPEG sources, {label}: {len(reqs)} concurrent "
               f"requests in {wall:.3f} s; kernel launches {wave}")
         for name in ("K1", "K2", "K3"):
-            check(wave[name] > 0, f"JPEG wave ({mime}): {name} never launched")
+            check(wave[name] > 0, f"JPEG wave ({label}): {name} never launched")
         worst = float("inf")
         for (opts, src, _), (status, headers, body) in zip(reqs, answers):
             check(status == 200, f"JPEG wave {opts} {src}: status {status}")
             check(headers.get("Content-Type") == mime,
-                  f"JPEG wave {opts}: content type {headers.get('Content-Type')}")
+                  f"JPEG wave {opts} ({accept}): content type {headers.get('Content-Type')}")
             got = codecs.decode(body, device=dev).rgb
             if "smc_1" not in opts:
                 check(got.shape == (250, 300, 3), f"JPEG wave {opts}: {got.shape}")
@@ -1514,25 +1528,21 @@ def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
                                      "*/*"))[2])
             check(got.shape == ref.shape, f"JPEG wave {opts} {src}: {got.shape} vs "
                   f"its PNG answer's {ref.shape}")
-            if mime == "image/webp":
-                check(np.array_equal(got, ref),
-                      f"JPEG wave {opts} {src}: the WebP answer is not the PNG answer")
-            else:
-                worst = min(worst, psnr(got, ref))
-        if mime == "image/jpeg":
-            check(worst >= JPEG_ANSWER_PSNR, f"JPEG wave: a JPEG answer is {worst:.2f} dB "
-                  f"from its PNG answer (bound {JPEG_ANSWER_PSNR})")
-            print(f"server banded JPEG wave: all {len(reqs)} image/jpeg answers 200, "
-                  f"at least {worst:.2f} dB PSNR against their PNG answers (bound "
-                  f"{JPEG_ANSWER_PSNR})")
+            worst = min(worst, psnr(got, ref))
+        if bound is None:
+            check(worst == float("inf"), f"JPEG wave ({label}): a lossless answer is not "
+                  "its PNG answer")
+            print(f"server banded JPEG wave: all {len(reqs)} {label} 200, equal to their "
+                  "PNG answers")
         else:
-            print(f"server banded JPEG wave: all {len(reqs)} image/webp answers 200, "
-                  "equal to their PNG answers")
-    try:
-        get((option_sets[0] + ",o_webp", jpeg_sources[0], "*/*"))
-        check(False, "JPEG wave: o_webp without webpl_1 was answered")
-    except urllib.error.HTTPError as exc:
-        check(exc.code == 415, f"JPEG wave: o_webp without webpl_1 answered {exc.code}")
+            check(worst >= bound, f"JPEG wave ({label}): an answer is {worst:.2f} dB from "
+                  f"its PNG answer (bound {bound})")
+            print(f"server banded JPEG wave: all {len(reqs)} {label} 200, at least "
+                  f"{worst:.2f} dB PSNR against their PNG answers (bound {bound})")
+    status, headers, body = get((option_sets[0] + ",o_webp", jpeg_sources[0], "*/*"))
+    check(status == 200 and headers.get("Content-Type") == "image/webp" and
+          body[12:16] == b"VP8 ", f"JPEG wave: o_webp answered {status} "
+          f"{headers.get('Content-Type')} {body[12:16]!r}, not a lossy image/webp")
     return counts
 
 
@@ -1631,13 +1641,7 @@ def phase_codecs(torch, dev, card):
     answer = synthetic_image(300, 250, seed=31)
     blob = codecs.encode(answer, "webp", webp_lossless=True)
     check(np.array_equal(codecs.decode(blob).rgb, answer), "WebP: the round trip is not exact")
-    from flyimg_tpu_torch.exceptions import UnsupportedMediaException
-
-    try:
-        codecs.encode(answer, "webp", webp_lossless=False)
-        check(False, "a lossy WebP encode was answered")
-    except UnsupportedMediaException:
-        pass
+    webp_fixtures(codecs, png, np)
 
     def median_ms(fn, n=21):
         fn()
@@ -1664,15 +1668,77 @@ def phase_codecs(torch, dev, card):
             lambda: codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
         "encode_300x250_webp_lossless_ms": median_ms(
             lambda: codecs.encode(answer, "webp", webp_lossless=True)),
+        "decode_300x250_webp_lossless_ms": median_ms(lambda: codecs.decode(blob)),
     }
+    # VP8 (lossy WebP, q90 as the service's default) of the answer and of a
+    # 1920x1080 frame: host time on this machine
+    full = synthetic_image(1920, 1080, seed=30)
+    lossy = {"300x250": codecs.encode(answer, "webp", quality=90),
+             "1920x1080": codecs.encode(full, "webp", quality=90)}
+    for size, px in (("300x250", answer), ("1920x1080", full)):
+        n = 21 if size == "300x250" else 5
+        times[f"encode_{size}_webp_q90_ms"] = median_ms(
+            lambda: codecs.encode(px, "webp", quality=90), n)
+        times[f"decode_{size}_webp_q90_ms"] = median_ms(
+            lambda: codecs.decode(lossy[size]), n)
+        check(psnr(codecs.decode(lossy[size]).rgb, px) >= WEBP_ANSWER_PSNR,
+              f"VP8 q90 of the {size} frame: below {WEBP_ANSWER_PSNR} dB")
     sizes = {
         "jpg_moz1_bytes": len(codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
         "jpg_moz0_bytes": len(codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
         "webp_bytes": len(codecs.encode(answer, "webp", webp_lossless=True)),
+        "webp_q90_bytes": len(lossy["300x250"]),
+        "webp_q90_1920x1080_bytes": len(lossy["1920x1080"]),
         "photo_jpg_bytes": len(photo),
     }
     print(json.dumps({"codecs": times, "sizes": sizes, "card": card}))
     return times
+
+
+#: the port's VP8 encode against the JAX package's (libwebp's) of the same
+#: pixels at the same quality (tests/data/webp/reference.json): at most
+#: this many times its bytes, at least its PSNR less WEBP_PSNR_LOSS_DB
+WEBP_BYTES_RATIO = 1.3
+WEBP_PSNR_LOSS_DB = 0.75
+
+
+def webp_fixtures(codecs, png, np):
+    """Phase 10's WebP checks: every lossy fixture of tests/data/webp
+    (libwebp's files) decodes to the JAX package's pixels exactly; the
+    port's q50/75/90 encodes of source.png and of its w_300,h_250,c_1 answer
+    against the JAX package's files' bytes and PSNR."""
+    import json as _json
+
+    data_dir = os.path.join(ROOT, "tests", "data", "webp")
+
+    def read(name):
+        with open(os.path.join(data_dir, name), "rb") as fh:
+            return fh.read()
+
+    names = sorted(f[:-5] for f in os.listdir(data_dir)
+                   if f.endswith(".webp") and not f.startswith("jax_"))
+    check(len(names) >= 60, f"WebP fixtures: only {len(names)} files")
+    for name in names:
+        got = codecs.decode(read(name + ".webp"))
+        rgb, alpha = png.decode(read(name + ".png"))
+        check(np.array_equal(got.rgb, rgb), f"VP8 decode of {name}: not libwebp's pixels")
+        check((alpha is None and got.alpha is None) or
+              (alpha is not None and got.alpha is not None and np.array_equal(got.alpha, alpha)),
+              f"VP8 decode of {name}: not libwebp's alpha")
+    print(f"VP8 decode: all {len(names)} WebP fixtures equal to the JAX package's pixels")
+    ref = _json.loads(read("reference.json"))
+    for tag in ("source", "answer"):
+        px, _ = png.decode(read(ref["sources"][tag]))
+        for q in (50, 75, 90):
+            jax = ref["encodes"][f"{tag}_q{q}"]
+            blob = codecs.encode(px, "webp", quality=q)
+            got = psnr(codecs.decode(blob).rgb, px)
+            print(f"VP8 {tag} q{q}: {len(blob)} bytes, PSNR {got:.4f} dB; the JAX package's "
+                  f"{jax['bytes']} bytes, {jax['psnr']} dB")
+            check(len(blob) <= WEBP_BYTES_RATIO * jax["bytes"],
+                  f"VP8 {tag} q{q}: {len(blob)} bytes > {WEBP_BYTES_RATIO} x {jax['bytes']}")
+            check(got >= jax["psnr"] - WEBP_PSNR_LOSS_DB,
+                  f"VP8 {tag} q{q}: PSNR {got:.4f} < {jax['psnr']} - {WEBP_PSNR_LOSS_DB}")
 
 
 # ---------------------------------------------------------------------------
@@ -3157,7 +3223,7 @@ def main() -> int:
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          timeout=60).stdout.splitlines()[0]
     print(f"codec libraries: nvJPEG {native_codec.nvjpeg_version()} "
-          f"({native_codec.nvjpeg_path()}); WebP (VP8L) codec built by {gxx}")
+          f"({native_codec.nvjpeg_path()}); WebP (VP8 and VP8L) codec built by {gxx}")
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

@@ -9,11 +9,12 @@ The port's counterpart of ``flyimg_tpu/codecs``:
   libjpeg, so the reference's trellis encoder (``moz_1``) waits: ``moz_1``
   is optimized Huffman tables and progressive scans, as the JAX package's
   Pillow path encodes it.
-- WebP: a lossless (VP8L) encoder and decoder written for this package
-  (``codecs/native/webp_lossless.cpp``, built with g++ at first use). The
-  card machine has no libwebp: a lossy WebP output (``webpl_0``, the
-  default) and a lossy (VP8) source are refused, until a VP8 codec is
-  ported.
+- WebP: a lossy (VP8) and a lossless (VP8L) encoder and decoder written
+  for this package (``codecs/native/``, built with g++ at first use into
+  one library): the card machine has no libwebp. Lossy answers at ``q_``
+  (alpha in a lossless ALPH chunk), lossless with ``webpl_1``; sources of
+  either kind decode as libwebp's WebPDecodeRGB(A) decodes them. An
+  animated WebP is refused.
 
 Every decode applies the source's EXIF orientation (JPEG APP1, PNG eXIf,
 WebP EXIF), to the colour and the alpha plane alike, as the reference's
@@ -137,7 +138,7 @@ def decode(
                          webp_orientation(data))
     raise UnsupportedMediaException(
         f"decoding {info.mime} is not ported to the PyTorch package yet "
-        "(PNG, JPEG and lossless WebP only)"
+        "(PNG, JPEG and WebP only)"
     )
 
 
@@ -178,18 +179,11 @@ def parse_sampling_factor(value) -> Tuple[int, int]:
     )
 
 
-def require_encodable(fmt: str, *, webp_lossless: bool = False,
-                      sampling_factor: str = "1x1") -> None:
+def require_encodable(fmt: str, *, sampling_factor: str = "1x1") -> None:
     """Raise UnsupportedMediaException where ``encode`` cannot write what
-    the JAX package writes: lossy WebP (no VP8 encoder yet), and JPEG
-    sampling factors nvJPEG has no chroma subsampling for (1x3, 1x4, 2x3,
-    2x4, 3x1, 3x2). A sampling factor that does not parse raises
-    InvalidArgumentException, as in ``encode``."""
-    if fmt == "webp" and not webp_lossless:
-        raise UnsupportedMediaException(
-            "lossy WebP output (webpl_0, the default) is not ported to the "
-            "PyTorch package yet; webpl_1 answers lossless WebP"
-        )
+    the JAX package writes: JPEG sampling factors nvJPEG has no chroma
+    subsampling for (1x3, 1x4, 2x3, 2x4, 3x1, 3x2). A sampling factor that
+    does not parse raises InvalidArgumentException, as in ``encode``."""
     if fmt in ("jpg", "jpeg"):
         factors = parse_sampling_factor(sampling_factor)
         if factors not in native_codec.SAMPLINGS:
@@ -215,14 +209,14 @@ def encode(
     bytes. ``jpg`` encodes on ``device`` (nvJPEG; ``mozjpeg`` selects
     optimized Huffman tables and progressive scans, ``sampling_factor`` the
     chroma subsampling); ``png`` and ``webp`` encode on the host, ``webp``
-    lossless only (``require_encodable`` says what raises)."""
-    require_encodable(fmt, webp_lossless=webp_lossless,
-                      sampling_factor=sampling_factor)
+    lossy at ``quality`` or lossless with ``webp_lossless``
+    (``require_encodable`` says what raises)."""
+    require_encodable(fmt, sampling_factor=sampling_factor)
     if fmt == "png":
         return png.encode(image, alpha)
     if fmt == "webp":
         pixels = image if alpha is None else np.dstack([image, alpha])
-        return native_codec.webp_encode(pixels)
+        return native_codec.webp_encode(pixels, quality, lossless=bool(webp_lossless))
     if fmt in ("jpg", "jpeg"):  # no alpha plane in a JPEG
         return native_codec.jpeg_encode(
             image, quality, optimize=bool(mozjpeg), progressive=bool(mozjpeg),

@@ -2,9 +2,10 @@
 //
 // The machine with the card has no libwebp, so the port carries its own
 // codec for the WebP container's lossless bitstream (the WebP Lossless
-// Bitstream Specification, RFC 9649). Plain C interface for ctypes
-// (codecs/native_codec.py); buffers are malloc'd here and released with
-// fl_free; no global state, so calls may run from many threads at once.
+// Bitstream Specification, RFC 9649). Its entries (webp_lossless.h) are
+// called by webp_lossy.cpp, built into the same library, which reads and
+// writes the container and holds the plain C interface for ctypes. No global
+// state, so calls may run from many threads at once.
 //
 // Encoder: the subtract-green transform, then the predictor transform over
 // 16x16 tiles (each tile takes the one of the 14 predictors whose residuals
@@ -14,9 +15,9 @@
 // simple code). No backward references and no colour cache.
 //
 // Decoder: the whole bitstream (all four transforms, colour cache, meta
-// prefix codes, backward references) of a "VP8L" chunk in a simple or
-// extended (VP8X) RIFF container. Lossy ("VP8 ") and animated files are
-// refused with status 2.
+// prefix codes, backward references) of a "VP8L" chunk, and the headerless
+// stream of an ALPH chunk. The container is read by webp_lossy.cpp, which
+// is built into the same library and also holds the lossy codec.
 
 #include <algorithm>
 #include <cstdint>
@@ -24,6 +25,8 @@
 #include <cstring>
 #include <queue>
 #include <vector>
+
+#include "webp_lossless.h"
 
 namespace {
 
@@ -308,17 +311,15 @@ constexpr int kTileBits = 4;
 // the size of a search over every row, at about a third of its time
 constexpr int kCostRowStep = 4;
 
-std::vector<uint8_t> encode(const uint8_t* src, int w, int h, int channels) {
+// the image stream after the header: the transforms (subtract green when
+// `subtract_green`, then the predictor per tile) and the residuals of the
+// w x h ARGB pixels `px`
+void write_stream(BitWriter& bw, std::vector<uint32_t> px, int w, int h, bool subtract_green) {
     const long long n = (long long)w * h;
-    std::vector<uint32_t> px(n);
-    bool alpha_used = false;
-    for (long long i = 0; i < n; ++i) {
-        const uint8_t* s = src + i * channels;
-        const uint32_t a = channels == 4 ? s[3] : 255;
-        alpha_used |= a != 255;
-        // subtract green: red and blue minus green
-        px[i] = argb(a, (uint8_t)(s[0] - s[1]), s[1], (uint8_t)(s[2] - s[1]));
-    }
+    if (subtract_green)  // red and blue minus green
+        for (uint32_t& p : px)
+            p = (p & 0xff00ff00u) | (((ch(p, 16) - ch(p, 8)) & 0xff) << 16) |
+                ((ch(p, 0) - ch(p, 8)) & 0xff);
     // the predictor per tile
     const int tw = div_round_up(w, kTileBits), tht = div_round_up(h, kTileBits);
     std::vector<uint32_t> modes((size_t)tw * tht);
@@ -350,15 +351,11 @@ std::vector<uint8_t> encode(const uint8_t* src, int w, int h, int channels) {
                     res[i] = sub_pixels(px[i], predict_at(px.data(), w, x, y, i, best));
                 }
         }
-    BitWriter bw;
-    bw.put(0x2f, 8);
-    bw.put(w - 1, 14);
-    bw.put(h - 1, 14);
-    bw.put(alpha_used ? 1 : 0, 1);
-    bw.put(0, 3);
     // transforms, inverted by the decoder in reverse order
-    bw.put(1, 1);
-    bw.put(kSubtractGreen, 2);
+    if (subtract_green) {
+        bw.put(1, 1);
+        bw.put(kSubtractGreen, 2);
+    }
     bw.put(1, 1);
     bw.put(kPredictor, 2);
     bw.put(kTileBits - 2, 3);
@@ -368,12 +365,6 @@ std::vector<uint8_t> encode(const uint8_t* src, int w, int h, int channels) {
     bw.put(0, 1);  // no colour cache
     bw.put(0, 1);  // no meta prefix codes
     write_image_data(bw, res);
-    bw.flush();
-    return bw.buf;
-}
-
-void put_le32(std::vector<uint8_t>& out, uint32_t v) {
-    for (int k = 0; k < 4; ++k) out.push_back((uint8_t)(v >> (8 * k)));
 }
 
 // ------------------------------------------------------------------ decoder
@@ -624,14 +615,9 @@ struct Transform {
     int width;  // the image width before this transform's inverse
 };
 
-bool decode_vp8l(const uint8_t* p, size_t len, int& w, int& h, bool& alpha,
-                 std::vector<uint32_t>& px) {
-    if (len < 5 || p[0] != 0x2f) return false;
-    BitReader br(p + 1, len - 1);
-    w = (int)br.get(14) + 1;
-    h = (int)br.get(14) + 1;
-    alpha = br.get(1) != 0;
-    if (br.get(3) != 0) return false;
+// the image stream after the header (transforms, then the entropy-coded
+// image) of a w x h image
+bool decode_stream(BitReader& br, int w, int h, std::vector<uint32_t>& px) {
     std::vector<Transform> ts;
     int xsize = w;
     int seen = 0;
@@ -705,87 +691,54 @@ bool decode_vp8l(const uint8_t* p, size_t len, int& w, int& h, bool& alpha,
     return true;
 }
 
-uint32_t le32(const uint8_t* p) {
-    return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
-}
-
 }  // namespace
 
-extern "C" {
+namespace webp_lossless {
 
-void fl_free(void* ptr) { std::free(ptr); }
-
-// [h, w, channels] uint8 (channels 3 or 4) -> a RIFF/WEBP file with one
-// VP8L chunk; malloc'd, its size in *out_len; null on bad arguments
-uint8_t* fl_vp8l_encode(const uint8_t* pixels, int w, int h, int channels, size_t* out_len) {
-    if (!pixels || w < 1 || h < 1 || w > 16384 || h > 16384 || (channels != 3 && channels != 4))
-        return nullptr;
-    const std::vector<uint8_t> body = encode(pixels, w, h, channels);
-    std::vector<uint8_t> out;
-    const uint32_t chunk = (uint32_t)body.size();
-    const uint32_t padded = chunk + (chunk & 1);
-    out.insert(out.end(), {'R', 'I', 'F', 'F'});
-    put_le32(out, 4 + 8 + padded);
-    out.insert(out.end(), {'W', 'E', 'B', 'P', 'V', 'P', '8', 'L'});
-    put_le32(out, chunk);
-    out.insert(out.end(), body.begin(), body.end());
-    if (chunk & 1) out.push_back(0);
-    auto* buf = static_cast<uint8_t*>(std::malloc(out.size()));
-    if (!buf) return nullptr;
-    std::memcpy(buf, out.data(), out.size());
-    *out_len = out.size();
-    return buf;
+bool decode_headerless(const uint8_t* p, size_t len, int w, int h, std::vector<uint32_t>& argb) {
+    BitReader br(p, len);
+    return decode_stream(br, w, h, argb);
 }
 
-// a WebP file -> [h, w, ch] uint8 (ch 4 iff the file says it carries
-// alpha), malloc'd; null with *status 1 for a damaged file, 2 for a lossy
-// or animated one
-uint8_t* fl_vp8l_decode(const uint8_t* data, size_t len, int* width, int* height, int* channels,
-                        int* status) {
-    *status = 1;
-    if (!data || len < 20 || std::memcmp(data, "RIFF", 4) || std::memcmp(data + 8, "WEBP", 4))
-        return nullptr;
-    const size_t end = std::min(len, (size_t)le32(data + 4) + 8);
-    bool vp8x_alpha = false, vp8x = false;
-    const uint8_t* body = nullptr;
-    size_t body_len = 0;
-    for (size_t pos = 12; pos + 8 <= end;) {
-        const uint8_t* c = data + pos;
-        const size_t clen = le32(c + 4);
-        if (pos + 8 + clen > end) return nullptr;
-        if (!std::memcmp(c, "VP8X", 4) && clen >= 10) {
-            vp8x = true;
-            vp8x_alpha = (c[8] & 0x10) != 0;
-            if (c[8] & 0x02) {  // animation
-                *status = 2;
-                return nullptr;
-            }
-        } else if (!std::memcmp(c, "VP8 ", 4) || !std::memcmp(c, "ANIM", 4)) {
-            *status = 2;
-            return nullptr;
-        } else if (!std::memcmp(c, "VP8L", 4)) {
-            body = c + 8;
-            body_len = clen;
-            break;
-        }
-        pos += 8 + clen + (clen & 1);
-    }
-    if (!body) return nullptr;
-    int w = 0, h = 0;
-    bool alpha = false;
-    std::vector<uint32_t> px;
-    if (!decode_vp8l(body, body_len, w, h, alpha, px)) return nullptr;
-    const bool with_alpha = vp8x ? vp8x_alpha : alpha;
-    const int nch = with_alpha ? 4 : 3;
-    auto* out = static_cast<uint8_t*>(std::malloc((size_t)w * h * nch));
-    if (!out) return nullptr;
-    for (size_t i = 0; i < px.size(); ++i) {
-        uint8_t* o = out + i * nch;
-        o[0] = (uint8_t)ch(px[i], 16), o[1] = (uint8_t)ch(px[i], 8), o[2] = (uint8_t)ch(px[i], 0);
-        if (nch == 4) o[3] = (uint8_t)ch(px[i], 24);
-    }
-    *width = w, *height = h, *channels = nch, *status = 0;
-    return out;
+bool decode_chunk(const uint8_t* p, size_t len, int& w, int& h, bool& alpha,
+                  std::vector<uint32_t>& px) {
+    if (len < 5 || p[0] != 0x2f) return false;
+    BitReader br(p + 1, len - 1);
+    w = (int)br.get(14) + 1;
+    h = (int)br.get(14) + 1;
+    alpha = br.get(1) != 0;
+    if (br.get(3) != 0) return false;
+    return decode_stream(br, w, h, px);
 }
 
-}  // extern "C"
+std::vector<uint8_t> encode_chunk(const uint8_t* src, int w, int h, int channels) {
+    const long long n = (long long)w * h;
+    std::vector<uint32_t> px(n);
+    bool alpha_used = false;
+    for (long long i = 0; i < n; ++i) {
+        const uint8_t* s = src + i * channels;
+        const uint32_t a = channels == 4 ? s[3] : 255;
+        alpha_used |= a != 255;
+        px[i] = argb(a, s[0], s[1], s[2]);
+    }
+    BitWriter bw;
+    bw.put(0x2f, 8);
+    bw.put(w - 1, 14);
+    bw.put(h - 1, 14);
+    bw.put(alpha_used ? 1 : 0, 1);
+    bw.put(0, 3);
+    write_stream(bw, std::move(px), w, h, true);
+    bw.flush();
+    return bw.buf;
+}
+
+std::vector<uint8_t> encode_alpha(const uint8_t* alpha, int w, int h) {
+    std::vector<uint32_t> px((size_t)w * h);
+    for (size_t i = 0; i < px.size(); ++i) px[i] = kBlack | ((uint32_t)alpha[i] << 8);
+    BitWriter bw;
+    write_stream(bw, std::move(px), w, h, false);
+    bw.flush();
+    return bw.buf;
+}
+
+}  // namespace webp_lossless

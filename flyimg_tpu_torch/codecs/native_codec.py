@@ -1,5 +1,5 @@
 """ctypes bindings of the port's codecs: nvJPEG for JPEG, the package's own
-VP8L library for WebP.
+VP8 and VP8L library for WebP.
 
 The port's counterpart of ``flyimg_tpu/codecs/native_codec.py``, which
 binds libjpeg and libwebp. The card machine has neither, so:
@@ -17,9 +17,11 @@ binds libjpeg and libwebp. The card machine has neither, so:
   (baseline, or optimized Huffman tables with progressive scans). The
   reference's trellis encoder (``jpeg_encode_trellis``) is libjpeg code
   and waits.
-- WebP goes through ``codecs/native/webp_lossless.cpp``, a VP8L (lossless)
-  encoder and decoder with a plain C interface, compiled with g++ at first
-  use (``cuda_build.load_host``).
+- WebP goes through the package's own codec under ``codecs/native/``:
+  ``webp_lossy.cpp`` (the VP8 encoder and decoder, the ALPH chunk and the
+  container; its tables in ``vp8_tables.h``) and ``webp_lossless.cpp``
+  (VP8L), compiled together with g++ into one library with a plain C
+  interface at first use (``cuda_build.load_host``).
 
 A library that is missing or fails to build raises; nothing falls back to
 another codec. Handles are made at first use, never at import: the CPU tests
@@ -341,21 +343,22 @@ def jpeg_encode(
 
 
 # ---------------------------------------------------------------------------
-# WebP (VP8L): codecs/native/webp_lossless.cpp
+# WebP (VP8 and VP8L): codecs/native/webp_lossy.cpp and webp_lossless.cpp
 # ---------------------------------------------------------------------------
 
 
 def _webp():
-    lib = cuda_build.load_host("webp_lossless")
+    lib = cuda_build.load_host("webp")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fl_vp8l_encode.restype = p
-        lib.fl_vp8l_encode.argtypes = [ctypes.c_char_p, i, i, i,
+        lib.fl_webp_encode.restype = p
+        lib.fl_webp_encode.argtypes = [ctypes.c_char_p, i, i, i, i, i, i, i, i, i,
                                        ctypes.POINTER(ctypes.c_size_t)]
-        lib.fl_vp8l_decode.restype = p
-        lib.fl_vp8l_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+        lib.fl_webp_decode.restype = p
+        lib.fl_webp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                        ctypes.POINTER(i), ctypes.POINTER(i),
-                                       ctypes.POINTER(i), ctypes.POINTER(i)]
+                                       ctypes.POINTER(i), ctypes.POINTER(i),
+                                       ctypes.POINTER(ctypes.c_char_p)]
         lib.fl_free.restype = None
         lib.fl_free.argtypes = [p]
         lib._flyimg_bound = True
@@ -369,34 +372,45 @@ def _take_buffer(lib, ptr: int, nbytes: int) -> np.ndarray:
     return arr
 
 
-def webp_encode(pixels: np.ndarray) -> bytes:
-    """[h, w, 3|4] uint8 -> lossless WebP (VP8L); alpha is stored when
-    the layout carries it."""
+def webp_encode(pixels: np.ndarray, quality: int = 90, lossless: bool = False, *,
+                simple_filter: bool = False, sharpness: int = 0,
+                partitions_log2: int = 0, mode_lf_delta: int = 0) -> bytes:
+    """[h, w, 3|4] uint8 -> WebP: lossless (VP8L), or lossy (VP8) at
+    ``quality`` 0-100. Alpha is stored when the layout carries it (a lossy
+    file stores it losslessly in an ALPH chunk when a value is below 255).
+    The keywords set the VP8 bitstream's options (the simple loop filter,
+    its sharpness 0-7, 2**partitions_log2 token partitions, the filter
+    level's delta for sub-block macroblocks); the service takes the
+    defaults."""
     lib = _webp()
     pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
     h, w, channels = pixels.shape
-    if channels not in (3, 4) or not (1 <= w <= 16384 and 1 <= h <= 16384):
+    if channels not in (3, 4) or not (1 <= w <= 16383 and 1 <= h <= 16383):
         raise UnsupportedMediaException(
-            f"WebP takes 1..16384 pixels a side and 3 or 4 channels, got {pixels.shape}")
+            f"WebP takes 1..16383 pixels a side and 3 or 4 channels, got {pixels.shape}")
     out_len = ctypes.c_size_t()
-    ptr = lib.fl_vp8l_encode(pixels.tobytes(), w, h, channels, ctypes.byref(out_len))
+    ptr = lib.fl_webp_encode(pixels.tobytes(), w, h, channels,
+                             max(0, min(int(quality), 100)), int(bool(lossless)),
+                             int(bool(simple_filter)), int(sharpness), int(partitions_log2),
+                             int(mode_lf_delta), ctypes.byref(out_len))
     if not ptr:
         raise ExecFailedException("WebP encode failed")
     return _take_buffer(lib, ptr, out_len.value).tobytes()
 
 
 def webp_decode_auto(data: bytes) -> Tuple[np.ndarray, int]:
-    """(pixels [h, w, ch] uint8, ch) with ch 4 iff the file says it carries
-    alpha. Lossless (VP8L) WebP only: a lossy (VP8) one raises."""
+    """(pixels [h, w, ch] uint8, ch) with ch 4 iff the file carries alpha
+    (as libwebp's WebPGetFeatures says). Lossy (VP8, with or without an
+    ALPH chunk) and lossless (VP8L) files; an animation raises."""
     lib = _webp()
     w, h, ch, status = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    ptr = lib.fl_vp8l_decode(data, len(data), ctypes.byref(w), ctypes.byref(h),
-                             ctypes.byref(ch), ctypes.byref(status))
+    reason = ctypes.c_char_p()
+    ptr = lib.fl_webp_decode(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                             ctypes.byref(ch), ctypes.byref(status), ctypes.byref(reason))
     if not ptr:
         if status.value == 2:
             raise UnsupportedMediaException(
-                "lossy (VP8) and animated WebP sources are not ported yet "
-                "(lossless VP8L only)")
-        raise ExecFailedException("WebP decode failed: not a valid VP8L stream")
+                "animated WebP sources are not ported to the PyTorch package yet")
+        raise ExecFailedException(f"WebP decode failed: {(reason.value or b'').decode()}")
     arr = _take_buffer(lib, ptr, w.value * h.value * ch.value)
     return arr.reshape(h.value, w.value, ch.value), ch.value

@@ -13,9 +13,10 @@ under ``build/kernels/`` beside the package (``FLYIMG_TORCH_BUILD_DIR``
 overrides it). ``build()`` starts one ``nvcc`` per source, all together.
 
 The host route (``HOST_SOURCES``, ``build_host``, ``load_host``) builds the
-package's host C++ (the WebP codec under ``codecs/native/``) the same way
-with ``g++``, into ``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it
-needs no CUDA, so the CPU tests build and run it too.
+package's host C++ (the WebP codec under ``codecs/native/``: its VP8 and
+VP8L sources into one library) the same way with ``g++``, into
+``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it needs no CUDA, so the
+CPU tests build and run it too.
 
 Nothing here runs at import time: the CPU tests import every module on
 hosts with no ``nvcc``.
@@ -59,9 +60,12 @@ SOURCES: Dict[str, tuple] = {
     "blazeface_train": ("blazeface_train.cu", ()),
 }
 
-#: host library name -> (source under the package, extra g++ flags)
+#: host library name -> (files under the package: the .cpp sources compiled
+#: together and the headers they include, all in the library's digest;
+#: extra g++ flags)
 HOST_SOURCES: Dict[str, tuple] = {
-    "webp_lossless": (os.path.join("codecs", "native", "webp_lossless.cpp"), ()),
+    "webp": (tuple(os.path.join("codecs", "native", f) for f in (
+        "webp_lossy.cpp", "webp_lossless.cpp", "vp8_tables.h", "webp_lossless.h")), ()),
 }
 
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
@@ -100,23 +104,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest_path(directory: str, name: str, src: str, flags) -> str:
+def _digest_path(directory: str, name: str, srcs, flags) -> str:
     digest = hashlib.sha1()
-    with open(src, "rb") as fh:
-        digest.update(fh.read())
+    for src in srcs:
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
     digest.update(" ".join(flags).encode())
     return os.path.join(directory, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def _lib_path(name: str) -> str:
     src, flags = SOURCES[name]
-    return _digest_path(build_dir(), name, os.path.join(CSRC_DIR, src),
+    return _digest_path(build_dir(), name, [os.path.join(CSRC_DIR, src)],
                         BASE_FLAGS + tuple(flags))
 
 
 def _host_lib_path(name: str) -> str:
-    src, flags = HOST_SOURCES[name]
-    return _digest_path(host_build_dir(), name, os.path.join(_PKG_DIR, src),
+    files, flags = HOST_SOURCES[name]
+    return _digest_path(host_build_dir(), name, [os.path.join(_PKG_DIR, f) for f in files],
                         HOST_FLAGS + tuple(flags))
 
 
@@ -174,9 +179,9 @@ def build_host(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     names = list(names) if names is not None else list(HOST_SOURCES)
     jobs = {}
     for name in names:
-        src, flags = HOST_SOURCES[name]
-        jobs[name] = (["g++", *HOST_FLAGS, *flags, os.path.join(_PKG_DIR, src)],
-                      _host_lib_path(name))
+        files, flags = HOST_SOURCES[name]
+        srcs = [os.path.join(_PKG_DIR, f) for f in files if f.endswith(".cpp")]
+        jobs[name] = (["g++", *HOST_FLAGS, *flags, *srcs], _host_lib_path(name))
     return _compile(jobs, "host library")
 
 

@@ -4,7 +4,8 @@ The port of ``flyimg_tpu/service/app.py`` for the main path: a
 ``ThreadingHTTPServer`` with
 
 - ``GET /upload/{options}/{imageSrc}`` — render (or serve from the output
-  cache) and answer the image bytes with the reference's headers;
+  cache) and answer the image bytes with the reference's headers; ``o_auto``
+  answers WebP when the request's Accept header names image/webp;
 - ``GET /healthz`` — liveness plus the device it serves on;
 - ``HEAD`` on either — the GET's status and headers, no body.
 
@@ -160,7 +161,9 @@ class _RequestHandler(BaseHTTPRequestHandler):
             return
         options, src = parts
         try:
-            result = self.server.handler.process_image(options, src)
+            result = self.server.handler.process_image(
+                options, src,
+                accepts_webp="image/webp" in (self.headers.get("Accept") or ""))
         except AppException as exc:
             status = error_status(exc)
             headers = {"Content-Type": "text/plain; charset=utf-8"}

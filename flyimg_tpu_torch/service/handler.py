@@ -15,11 +15,11 @@ faces unblurred. A tall input (``TILE_MIN_ROWS`` rows or more) on a
 handler with an ``sp_mesh`` takes the reference's spatially tiled route
 instead of the batcher when its plan is exactly a full-frame resample, or
 exactly one of rotate, blur, sharpen and unsharp (``parallel/tiling.py``).
-Sources decode from PNG, JPEG and lossless WebP, answers encode to PNG,
-JPEG (``q_``, ``moz_``, ``sf_``) and lossless WebP (``webpl_1``;
-codecs/). Not ported yet (ROADMAP): lossy WebP (``o_auto`` answers as
-the reference does a client without WebP; ``o_webp`` without ``webpl_1``
-answers 415), the JPEG sampling factors nvJPEG lacks, GIF, CMYK JPEG
+Sources decode from PNG, JPEG and WebP (lossy, lossless, with alpha),
+answers encode to PNG, JPEG (``q_``, ``moz_``, ``sf_``) and WebP (lossy at
+``q_``, lossless with ``webpl_1``; codecs/); ``o_auto`` answers WebP to a
+client that accepts it (``accepts_webp``), as the reference does. Not
+ported yet (ROADMAP): the JPEG sampling factors nvJPEG lacks, GIF, CMYK JPEG
 (``clsp_CMYK``), signed URLs and domain
 restrictions, brownout, derivative reuse, the fleet tier and metadata
 grafting.
@@ -195,8 +195,11 @@ class ImageHandler:
         )
 
     def process_image(
-        self, options_str: str, image_src: str
+        self, options_str: str, image_src: str, *, accepts_webp: bool = False
     ) -> ProcessedImage:
+        """One image request (the reference handler's ``process_image``);
+        ``accepts_webp``: the client's Accept header names image/webp, so
+        ``o_auto`` answers WebP."""
         timings: Dict[str, float] = {}
         options = OptionsBag(
             options_str,
@@ -210,7 +213,8 @@ class ImageHandler:
             header_extra_options=self.params.by_key("header_extra_options", ""),
         )
         timings["fetch"] = time.perf_counter() - t
-        spec = resolve_output(options, image_src, source.info.mime)
+        spec = resolve_output(options, image_src, source.info.mime,
+                              accepts_webp=accepts_webp)
         if parse_colorspace(options) == "cmyk":
             _require_cmyk_container(spec)
             raise UnsupportedMediaException(
@@ -223,10 +227,8 @@ class ImageHandler:
                 "package yet (png, jpg and webp only)"
             )
         # refused before decode and device work, as the output container is
-        codecs.require_encodable(
-            spec.extension, webp_lossless=_webp_lossless(options),
-            sampling_factor=_sampling_factor(options),
-        )
+        codecs.require_encodable(spec.extension,
+                                 sampling_factor=_sampling_factor(options))
         refresh = options.wants_refresh()
         if refresh:
             self.storage.delete(spec.name)

@@ -38,14 +38,16 @@ EXT_TO_MIME = {
 }
 
 
-def negotiate_extension(requested: str, source_mime: str) -> str:
-    """reference OutputImage.php:183-220, less its WebP negotiation:
+def negotiate_extension(
+    requested: str, source_mime: str, accepts_webp: bool
+) -> str:
+    """reference OutputImage.php:183-220:
+    - 'auto' + browser webp support -> webp
     - 'auto'/'input' -> by source MIME (pdf -> jpg; unknown -> jpg)
     - else must be one of {png,jpg,gif,webp} or InvalidArgumentException
-      (note: 'jpeg' is NOT accepted, faithfully to the reference).
-    The reference answers 'auto' with WebP to a browser that accepts it.
-    This package has no lossy WebP encoder, so 'auto' answers every client
-    as the reference answers one without WebP."""
+      (note: 'jpeg' is NOT accepted, faithfully to the reference)."""
+    if requested == "auto" and accepts_webp:
+        return EXT_WEBP
     if requested in ("auto", "input"):
         return _MIME_TO_EXT.get(source_mime, EXT_JPG)
     if requested not in ALLOWED_OUT_EXTENSIONS:
@@ -64,9 +66,9 @@ class OutputSpec:
     mime: str
     command_repr: str = ""          # rf_1 debug header (plan repr here)
     identify_repr: str = ""
-    # o_auto: the reference's body depends on the request's Accept header
-    # (webp negotiation), so its responses carry `Vary: Accept`, as this
-    # package's do
+    # o_auto: the body depends on the request's Accept header (webp
+    # negotiation), so responses must carry `Vary: Accept` or a shared
+    # cache would serve one client's variant to every client
     negotiated: bool = False
 
     @property
@@ -78,12 +80,14 @@ def resolve_output(
     options: OptionsBag,
     image_url: str,
     source_mime: str,
+    *,
+    accepts_webp: bool = False,
 ) -> OutputSpec:
     """Build the output spec; name layout matches OutputImage.php:50-66
     (options-hash, then '-{page}' for PDFs, '-{time-sans-punct}' for video,
     then '.{ext}')."""
     requested = str(options.extract_key("output") or "auto")
-    extension = negotiate_extension(requested, source_mime)
+    extension = negotiate_extension(requested, source_mime, accepts_webp)
     name = options.hashed_options_as_string(image_url)
     if source_mime == PDF_MIME:
         name += f"-{options.get('page_number', 1)}"

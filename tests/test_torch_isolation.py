@@ -32,9 +32,9 @@ def _all_modules():
 def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     """Every module imports, the face backends load the packaged BlazeFace
     weights (the .npz) and run, and the codecs decode an oriented PNG, build
-    and run the WebP codec and refuse a JPEG on the CPU by name, with
-    neither JAX, the JAX package nor Pillow (which the card machine lacks)
-    loaded."""
+    and run the WebP codec (lossless, lossy, lossy with alpha) and refuse a
+    JPEG on the CPU by name, with neither JAX, the JAX package nor Pillow
+    (which the card machine lacks) loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
     assert "flyimg_tpu_torch.models.blazeface" in mods
@@ -60,6 +60,11 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "small = img[:20, :30]\n"
         "back = codecs.decode(codecs.encode(small, 'webp', webp_lossless=True))\n"
         "assert (back.rgb == small).all()\n"
+        "lossy = codecs.encode(small, 'webp', quality=75)\n"
+        "assert lossy[12:16] == b'VP8 ' and codecs.decode(lossy).size == (30, 20)\n"
+        "alpha = np.tile(np.arange(30, dtype=np.uint8) * 8, (20, 1))\n"
+        "back = codecs.decode(codecs.encode(small, 'webp', alpha, quality=75))\n"
+        "assert (back.alpha == alpha).all()\n"
         "assert codecs.decode(codecs.encode(small, 'png')).size == (30, 20)\n"
         "try:\n"
         "    codecs.decode(b'\\xff\\xd8\\xff\\xe0' + bytes(60), device='cpu')\n"
@@ -76,6 +81,26 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
                          text=True, timeout=300, cwd=str(tmp_path), env=env)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_the_webp_codec_builds_from_its_own_sources():
+    """The port's WebP library compiles from the package's sources alone: no
+    libwebp header, library or dlopen in them or in their build flags."""
+    from flyimg_tpu_torch import cuda_build
+
+    pkg = os.path.join(ROOT, "flyimg_tpu_torch")
+    for name, (files, flags) in cuda_build.HOST_SOURCES.items():
+        assert not any("webp" in f for f in flags + cuda_build.HOST_FLAGS), name
+        for f in files:
+            with open(os.path.join(pkg, f)) as fh:
+                text = fh.read()
+            for bad in ("<webp/", "dlopen", "-lwebp", "libwebp.so"):
+                assert bad not in text, (f, bad)
+            for line in text.splitlines():
+                if line.startswith("#include"):
+                    assert line.split()[1] in ('"vp8_tables.h"', '"webp_lossless.h"') or \
+                        line.split()[1].startswith("<c") or line.split()[1] in (
+                            "<algorithm>", "<vector>", "<queue>"), (f, line)
 
 
 def _no_cuda():
