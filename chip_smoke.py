@@ -179,10 +179,29 @@ Phases, in order; any failure exits non-zero without a result line:
              1920x1080 q90 JPEG at 8/8 and at the flagship hint's prescale,
              encode of a 300x250 answer with moz_1 and moz_0, its lossless
              WebP encode and decode, and the VP8 (q90) encode and decode of
-             the 300x250 answer and of a 1920x1080 frame (host time), on one
-             JSON line with the card's name and power limit.
+             the 300x250 answer and of a 1920x1080 frame (host time), and
+             the PNG decoder on a 1920x1080 frame whose every row is
+             Paeth-filtered (host time), on one JSON line with the card's
+             name and power limit; the gray, Adobe CMYK and YCCK fixtures
+             are decoded with the others (NVJPEG_LEVELS).
+11. resilience — the batcher's containment through the handler (banded):
+             an 8-member w_300,h_250,c_1,smc_1 batch of seeded 1024x768
+             PNGs with member POISONED failed by the fault injector
+             (batcher.member): the 7 others answer the clean run's bits,
+             it fails alone, K1 launches in (1, 7] and K2, K3 in [1, 7]
+             (2 ceil(log2 8) + 1), it is quarantined, and resubmitted beside
+             the 7 it runs alone (their launch of 7); with the fault cleared
+             it answers the clean run's bits in a launch of 1. Then a real
+             torch.OutOfMemoryError: the reserved peaks of w_1280 launches of
+             8 and 4 2400x1600 members and of one 8000x5000 source are
+             measured, and torch.cuda.set_per_process_memory_fraction is
+             set between them (restored after): the 8 answer the clean
+             run's bits through launches of 8 (out of memory), 4 and 4, the
+             memory governor's ceiling is 4, nothing is quarantined, and the
+             8000x5000 source through a server answers 503 with
+             Retry-After.
 
-Launch counters are zeroed right before each main-path phase (4-9)
+Launch counters are zeroed right before each main-path phase (4-9, 11)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -1565,9 +1584,12 @@ def psnr(a, b) -> float:
 #: of values more than 1 apart at 4:2:0, 0.0072 at 4:4:4); the prescale is
 #: a box mean of the full decode where libjpeg scales in the DCT domain
 #: (2, 11 and 18 levels at most at 1/8, 1/4 and 1/2: the fixture's
-#: one-pixel stripes and sharp block edges).
+#: one-pixel stripes and sharp block edges). The gray, Adobe CMYK and YCCK
+#: fixtures read 1, 2 and 1 levels at most on that card (nvJPEG decodes
+#: their planes; codecs/native_codec.py converts them as the JAX decode).
 NVJPEG_LEVELS = {"q90_420": 4, "q90_444": 4, "q90_420_progressive": 4,
-                 "q90_420_orient6": 4, "q90_420.s1": 4, "q90_420.s2": 12, "q90_420.s4": 20}
+                 "q90_420_orient6": 4, "q90_420.s1": 4, "q90_420.s2": 12, "q90_420.s4": 20,
+                 "q90_gray": 1, "q90_cmyk": 2, "q90_ycck": 1}
 NVJPEG_SHARE_OVER_1 = 0.12
 
 
@@ -1578,6 +1600,32 @@ def bomb_header(data: bytes) -> bytes:
 
     i = data.index(b"\xff\xc0")
     return data[:i + 5] + struct.pack(">HH", 30000, 30000) + data[i + 9:]
+
+
+def paeth_png(rgb) -> bytes:
+    """[h, w, 3] u8 as a PNG whose every row is Paeth-filtered (the filter
+    the port's decoder unfilters byte by byte on the host)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    cur = rgb.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), cur[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), cur[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), 4, np.uint8), ((cur - pred) & 0xFF).astype(np.uint8)])
+
+    def chunk(t, body):
+        return (struct.pack(">I", len(body)) + t + body
+                + struct.pack(">I", zlib.crc32(t + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def phase_codecs(torch, dev, card):
@@ -1599,7 +1647,8 @@ def phase_codecs(torch, dev, card):
     with open(os.path.join(data_dir, "reference.json")) as fh:
         ref = _json.load(fh)
     seen = {}
-    for name in ("q90_420", "q90_444", "q90_420_progressive", "q90_420_orient6"):
+    for name in ("q90_420", "q90_444", "q90_420_progressive", "q90_420_orient6",
+                 "q90_gray", "q90_cmyk", "q90_ycck"):
         for scale in (8, 1, 2, 4) if name == "q90_420" else (8,):
             hint = tuple(ref["scale_hints"][str(scale)]) if scale < 8 else None
             got = codecs.decode(read(name + ".jpg"), target_hint=hint, device=dev).rgb
@@ -1673,6 +1722,11 @@ def phase_codecs(torch, dev, card):
     # VP8 (lossy WebP, q90 as the service's default) of the answer and of a
     # 1920x1080 frame: host time on this machine
     full = synthetic_image(1920, 1080, seed=30)
+    # the PNG decoder's slowest filter (Paeth, byte by byte in Python) on a
+    # 1920x1080 frame: host time
+    paeth = paeth_png(full)
+    check(np.array_equal(png.decode(paeth)[0], full), "the Paeth PNG does not decode")
+    times["decode_1920x1080_png_paeth_ms"] = median_ms(lambda: png.decode(paeth), 3)
     lossy = {"300x250": codecs.encode(answer, "webp", quality=90),
              "1920x1080": codecs.encode(full, "webp", quality=90)}
     for size, px in (("300x250", answer), ("1920x1080", full)):
@@ -3167,6 +3221,249 @@ def tiled_only(torch) -> int:
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# batch isolation and out-of-memory recovery (phase 11)
+
+#: the poisoned member of phase 11's flagship batch, and its marker pixel
+POISONED = 5
+POISON_MARKER = (255, 0, 255)
+
+
+def _answers(handler, opts, sources):
+    """``handler.process_image(opts, src)`` for every source at once, one
+    thread each: ("ok", decoded pixels) or ("error", the exception)."""
+    from flyimg_tpu_torch.codecs import png
+
+    def one(src):
+        try:
+            return "ok", png.decode(handler.process_image(opts, src).content)[0]
+        except Exception as exc:
+            return "error", exc
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(one, sources))
+
+
+def _peak_reserved(torch, dev, fn):
+    """The device memory ``fn()`` reserves beyond what is reserved before it
+    (the caching allocator's cache emptied first), and its result."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_reserved(dev) - before, out
+
+
+def phase_resilience(torch, dev, card, workdir, kernels):
+    """Phase 11: the batcher's containment on the card. An 8-member flagship
+    batch with one member failed by the fault injector, against a clean
+    run; then a real out-of-memory under a lowered per-process memory
+    fraction, against a clean run."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.exceptions import ExecFailedException
+    from flyimg_tpu_torch.ops.resample import set_kernel_mode
+    from flyimg_tpu_torch.runtime.batcher import BatchController
+    from flyimg_tpu_torch.runtime.memgovernor import MemoryGovernor
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.service.handler import ImageHandler
+    from flyimg_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    set_kernel_mode("banded")
+    tags = iter(range(100))
+
+    def handler(batcher):
+        root = os.path.join(workdir, f"r{next(tags)}")
+        return ImageHandler(AppParameters({"upload_dir": os.path.join(root, "u"),
+                                           "tmp_dir": os.path.join(root, "t")}),
+                            device=dev, batcher=batcher)
+
+    def batcher(**kw):
+        return BatchController(device=dev, max_batch=8, deadline_ms=1000.0,
+                               lone_flush=False, quarantine_ttl_s=300.0, **kw)
+
+    def write(name, img):
+        path = os.path.join(workdir, name)
+        with open(path, "wb") as fh:
+            fh.write(png.encode(img))
+        return path
+
+    # -- a poisoned member of the flagship batch ---------------------------
+    flagship = "w_300,h_250,c_1,smc_1"
+    sources = []
+    for i in range(8):
+        img = synthetic_image(1024, 768, seed=300 + i)
+        if i == POISONED:
+            img[0, 0] = POISON_MARKER
+        sources.append(write(f"flagship{i}.png", img))
+    clean_b = batcher()
+    try:
+        clean = _answers(handler(clean_b), flagship, sources)
+    finally:
+        clean_b.close()
+    check(all(kind == "ok" for kind, _ in clean), f"the clean run failed: {clean}")
+    check([n for _k, n, _b in clean_b.launch_log if _k == "transform"] == [8],
+          f"the clean run was not one launch of 8: {list(clean_b.launch_log)}")
+
+    def is_poison(image=None, **_ctx):
+        return getattr(image, "ndim", 0) == 3 and bool(np.all(image[0, 0] == POISON_MARKER))
+
+    injector = faults.install(faults.FaultInjector())
+    injector.plan("batcher.member", faults.poison_member(
+        is_poison, lambda: ValueError("poison member (phase 11's fault plan)")))
+    poisoned_b = batcher()
+    try:
+        h = handler(poisoned_b)
+        before = read_counts(kernels)
+        t0 = time.perf_counter()
+        got = _answers(h, flagship, sources)
+        wall = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in read_counts(kernels).items()}
+        transforms = [n for k, n, _b in poisoned_b.launch_log if k == "transform"]
+        for i, ((kind, out), (_c, want)) in enumerate(zip(got, clean)):
+            if i == POISONED:
+                check(kind == "error" and isinstance(out, ExecFailedException)
+                      and "poison member" in str(out),
+                      f"the poisoned member answered {kind}: {out}")
+            else:
+                check(kind == "ok", f"member {i} failed beside the poisoned one: {out}")
+                check(out.shape == want.shape and np.array_equal(out, want),
+                      f"member {i}: not the clean run's bits")
+        bound = 2 * 3 + 1           # 2·ceil(log2 8) + 1
+        check(1 < counts["K1"] <= bound and 1 <= counts["K2"] <= bound
+              and 1 <= counts["K3"] <= bound,
+              f"bisection launches {counts} outside (1, {bound}]")
+        check(len(transforms) <= bound, f"transform launches {transforms} > {bound}")
+        check(poisoned_b.stats["poison_isolated"] == 1 and len(poisoned_b.quarantine) == 1,
+              f"quarantine {len(poisoned_b.quarantine)}, stats {poisoned_b.stats}")
+        print(f"resilience poison: 7 of 8 answers equal the clean run's bits, member "
+              f"{POISONED} failed alone in {wall:.3f} s; transform launches {transforms} "
+              f"(clean: [8]); kernel launches K1 {counts['K1']}, K2 {counts['K2']}, K3 "
+              f"{counts['K3']} (bound {bound}); batcher.member fired "
+              f"{injector.fired['batcher.member']} times; quarantine "
+              f"{len(poisoned_b.quarantine)}; card {card}")
+        # a second submission of the quarantined member runs alone
+        # (it fails at assembly, alone: no launch of its own, no bisection)
+        log0 = len(poisoned_b.launch_log)
+        again = _answers(h, flagship + ",rf_1", sources)
+        later = [n for k, n, _b in list(poisoned_b.launch_log)[log0:] if k == "transform"]
+        check(poisoned_b.stats["quarantine_hits"] == 1 and later == [7]
+              and poisoned_b.stats["poison_isolated"] == 2,
+              f"the resubmission: transform launches {later}, stats {poisoned_b.stats}")
+        check(again[POISONED][0] == "error" and all(
+            k == "ok" and np.array_equal(o, c[1])
+            for i, ((k, o), c) in enumerate(zip(again, clean)) if i != POISONED),
+            "the resubmitted batch did not answer as before")
+        faults.clear()
+        alone = _answers(h, flagship + ",rf_1", [sources[POISONED]])[0]
+        check(alone[0] == "ok" and np.array_equal(alone[1], clean[POISONED][1])
+              and list(poisoned_b.launch_log)[-2:][0][:2] == ("transform", 1),
+              f"the quarantined member alone, fault cleared: {alone[0]}, "
+              f"{list(poisoned_b.launch_log)[-2:]}")
+        print(f"resilience quarantine: resubmitted beside 7 others it ran alone (the others "
+              f"one launch of {later[0]}); with the fault cleared it answered the clean "
+              "run's bits in a launch of 1")
+    finally:
+        faults.clear()
+        poisoned_b.close()
+
+    # -- a real out-of-memory ------------------------------------------------
+    fit = "w_1280,o_png"
+    members = []
+    for i in range(8):
+        small = synthetic_image(1200, 800, seed=400 + i)
+        members.append(write(f"oom{i}.png", np.repeat(np.repeat(small, 2, 0), 2, 1)))
+    big = write("oom_big.png", np.repeat(np.repeat(synthetic_image(1000, 625, seed=499),
+                                                   8, 0), 8, 1))    # 8000 x 5000
+    base_b = batcher()
+    try:
+        h = handler(base_b)
+        peak8, clean = _peak_reserved(torch, dev, lambda: _answers(h, fit, members))
+        peak4, _ = _peak_reserved(torch, dev, lambda: _answers(h, fit + ",rf_1", members[:4]))
+        peak_big, single = _peak_reserved(torch, dev, lambda: _answers(h, fit, [big]))
+    finally:
+        base_b.close()
+    check(all(k == "ok" for k, _ in clean + single), "the clean w_1280 runs failed")
+    check([n for k, n, _b in base_b.launch_log][:2] == [8, 4],
+          f"the clean w_1280 launches: {list(base_b.launch_log)}")
+    top = min(peak8, peak_big)
+    check(peak4 < 0.8 * top, f"4 members ({peak4} B) and 8 ({peak8} B) or the large "
+          f"single source ({peak_big} B) cannot be told apart")
+    budget = (peak4 + top) // 2
+    total = torch.cuda.get_device_properties(dev).total_memory
+    governor = MemoryGovernor(enabled=True)
+    oom_b = batcher(governor=governor)
+    server = None
+    try:
+        h = handler(oom_b)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        limit = torch.cuda.memory_reserved(dev) + budget
+        torch.cuda.set_per_process_memory_fraction(limit / total, dev)
+        t0 = time.perf_counter()
+        got = _answers(h, fit, members)
+        wall = time.perf_counter() - t0
+        launches = list(oom_b.launch_log)
+        for i, ((kind, out), (_c, want)) in enumerate(zip(got, clean)):
+            check(kind == "ok" and np.array_equal(out, want),
+                  f"out-of-memory member {i}: {kind} {out if kind == 'error' else ''} "
+                  f"(launches {launches}, limit {limit} B reserved, peaks 8: {peak8}, "
+                  f"4: {peak4}, 8000x5000: {peak_big}; now allocated "
+                  f"{torch.cuda.memory_allocated(dev)}, reserved "
+                  f"{torch.cuda.memory_reserved(dev)})")
+        snap = governor.snapshot()
+        (ceiling,) = snap["ceilings"].values() if len(snap["ceilings"]) == 1 else (None,)
+        check(snap["oom_launches_total"] >= 1 and ceiling is not None
+              and ceiling["cap_members"] == 4,
+              f"the governor after the out-of-memory: {snap}")
+        check(len(oom_b.quarantine) == 0 and oom_b.stats["poison_isolated"] == 0,
+              "an out-of-memory member was quarantined")
+        check([n for _k, n, _b in launches] == [8, 4, 4],
+              f"out-of-memory launches {launches}")
+        # a single member that still does not fit: 503 with Retry-After
+        server = make_server(AppParameters({
+            "upload_dir": os.path.join(workdir, "oom_server", "u"),
+            "tmp_dir": os.path.join(workdir, "oom_server", "t"),
+            "resample_kernel": "banded", "mem_governor_enable": True,
+        }), device=dev)
+        thread = serve_in_thread(server)
+        url = f"http://127.0.0.1:{server.server_address[1]}/upload/{fit}/{big}"
+        try:
+            urllib.request.urlopen(url, timeout=300)
+            check(False, "the large single source answered 200 under the memory limit")
+        except urllib.error.HTTPError as exc:
+            status, retry_after, body = exc.code, exc.headers.get("Retry-After"), exc.read()
+        check(status == 503 and retry_after == "1" and b"memory exhausted" in body,
+              f"the large single source: {status}, Retry-After {retry_after}, {body[:200]}")
+        check(len(server.batcher.quarantine) == 0, "the large single source was quarantined")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+        oom_b.close()
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    set_kernel_mode("dense")
+    print(f"resilience out-of-memory: device memory limited to {limit / 2**20:.1f} MiB "
+          f"reserved (fraction {limit / total:.6f}; a launch of 8 reserved "
+          f"{peak8 / 2**20:.1f} MiB, of 4 {peak4 / 2**20:.1f} MiB, the 8000x5000 source "
+          f"{peak_big / 2**20:.1f} MiB): 8 members answered the clean run's bits in "
+          f"{wall:.3f} s through launches {[n for _k, n, _b in launches]}, ceiling "
+          f"{ceiling['cap_members']}, nothing quarantined; the 8000x5000 source alone "
+          f"answered 503, Retry-After {retry_after}; card {card}")
+    print(f"resilience phase: {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
@@ -3287,6 +3584,18 @@ def main() -> int:
     # phase 10: the codec layer
     phase_codecs(torch, dev, card)
 
+    # phase 11: batch isolation and out-of-memory recovery (main path)
+    os.makedirs(workdir)
+    try:
+        reset_counts(kernels)
+        phase_resilience(torch, dev, card, workdir, kernels)
+        resilience_counts = read_counts(kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"resilience kernel launches: {resilience_counts}; card {card}")
+    for name in ("K1", "K2", "K3"):
+        check(resilience_counts[name] > 0, f"resilience: {name} never launched")
+
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
                "flyimg_tpu/ops/resample.py:343"),
@@ -3327,7 +3636,8 @@ def main() -> int:
     for key, (name, source, replaces) in meta.items():
         launches = (entry_counts[key] + staged_counts[key]
                     + sum(c[key] for c in server_counts.values())
-                    + face_counts[key] + train_counts[key] + tiled_counts[key])
+                    + face_counts[key] + train_counts[key] + tiled_counts[key]
+                    + resilience_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

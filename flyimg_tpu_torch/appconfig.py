@@ -31,6 +31,37 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # an .npz of BlazeFace weights (tools/export_blazeface_npz.py); None
     # is the packaged one
     "face_checkpoint": None,
+    # resilience (runtime/resilience.py, service/input_source.py): a
+    # request's budget (0 = unbounded), the bound of one wait on a device
+    # result, fetch retries and per-host breakers
+    "request_deadline_s": 0.0,
+    "device_result_timeout_s": 120.0,
+    "fetch_read_timeout_s": 10.0,
+    "retry_max_attempts": 3,
+    "retry_base_backoff_s": 0.05,
+    "retry_max_backoff_s": 2.0,
+    "breaker_failure_threshold": 5,
+    "breaker_recovery_s": 10.0,
+    # the batcher's containment (runtime/batcher.py): pending submissions
+    # before a 503 (0 = unbounded) and its Retry-After, whole-batch retries
+    # of a transient failure, bisection of a poison member (and the
+    # halving of an out-of-memory batch), the quarantine's TTL (0 = off)
+    "batch_max_queue_depth": 0,
+    "shed_retry_after_s": 1.0,
+    "resilience_batch_retries": 2,
+    "resilience_bisect_enable": True,
+    "resilience_quarantine_ttl": 300.0,
+    # the memory governor (runtime/memgovernor.py), off by default
+    "mem_governor_enable": False,
+    "mem_device_budget_bytes": 0,
+    "mem_heuristic_bytes_per_pixel": 64.0,
+    "mem_ceiling_ttl_s": 300.0,
+    "mem_probe_successes": 4,
+    "mem_probe_step": 1,
+    "mem_host_budget_bytes": 0,
+    # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs
+    # (tests only)
+    "fault_injector": None,
 }
 
 

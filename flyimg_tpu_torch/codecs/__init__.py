@@ -2,10 +2,12 @@
 
 The port's counterpart of ``flyimg_tpu/codecs``:
 
-- PNG: ``codecs/png.py``, on zlib and numpy.
+- PNG: ``codecs/png.py``, on zlib and numpy (every colour type, bit depth
+  and interlace).
 - JPEG: nvJPEG, the CUDA toolkit's codec, through ``ctypes``
-  (``codecs/native_codec.py``). It decodes and encodes on the card, so a
-  JPEG needs a CUDA device: on the CPU it raises. The card machine has no
+  (``codecs/native_codec.py``): three-component (YCbCr), gray and Adobe
+  CMYK/YCCK sources. It decodes and encodes on the card, so a JPEG needs
+  a CUDA device: on the CPU it raises. The card machine has no
   libjpeg, so the reference's trellis encoder (``moz_1``) waits: ``moz_1``
   is optimized Huffman tables and progressive scans, as the JAX package's
   Pillow path encodes it.
@@ -18,8 +20,9 @@ The port's counterpart of ``flyimg_tpu/codecs``:
 
 Every decode applies the source's EXIF orientation (JPEG APP1, PNG eXIf,
 WebP EXIF), to the colour and the alpha plane alike, as the reference's
-``-auto-orient`` does. GIF, CMYK JPEG and metadata grafting (``st_0``) are
-not ported yet.
+``-auto-orient`` does. ``codecs/metadata.py`` carries a source's EXIF, ICC
+profile and XMP into an ``st_0`` answer. GIF and CMYK JPEG output are not
+ported yet.
 """
 
 from __future__ import annotations

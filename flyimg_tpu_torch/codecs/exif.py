@@ -1,7 +1,7 @@
-"""EXIF orientation: read it from a TIFF stream or a JPEG's APP1, apply it
-to pixels.
+"""EXIF orientation: read it from a TIFF stream or a JPEG's APP1, reset it,
+apply it to pixels.
 
-The port's copy of the orientation half of ``flyimg_tpu/codecs/exif.py``.
+The port's copy of ``flyimg_tpu/codecs/exif.py``.
 The reference always asks for ``-auto-orient``, so every decode path turns
 the pixels upright: orientation is parsed from IFD0's tag 0x0112 and
 applied as numpy flips and transposes (exact, copy-light). PNG eXIf and
@@ -56,6 +56,19 @@ def tiff_orientation(tiff: bytes) -> int:
     off, endian = found
     (value,) = struct.unpack(endian + "H", tiff[off : off + 2])
     return value if 1 <= value <= 8 else 1
+
+
+def reset_tiff_orientation(tiff: bytes) -> bytes:
+    """``tiff`` with IFD0's orientation set to 1 (the pixels are already
+    upright, so metadata carried into an answer must not rotate them
+    again); unchanged when it has no orientation entry."""
+    found = _tiff_orientation_entry(tiff)
+    if found is None:
+        return tiff
+    off, endian = found
+    out = bytearray(tiff)
+    out[off : off + 2] = struct.pack(endian + "H", 1)
+    return bytes(out)
 
 
 def _find_exif_app1(data: bytes) -> Optional[Tuple[int, int]]:

@@ -33,8 +33,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
+import struct
 import threading
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -58,7 +59,9 @@ _BAD_JPEG, _NOT_SUPPORTED, _INCOMPLETE = 3, 4, 10
 #: the most pixels a JPEG source may declare (the JAX package's Pillow
 #: guard against decompression bombs)
 MAX_PIXELS = 512 * 1024 * 1024
-_OUTPUT_RGBI = 5       # nvjpegOutputFormat_t: interleaved RGB, channel 0
+#: nvjpegOutputFormat_t: the components' planes as coded, the luma plane,
+#: interleaved RGB (all in the channels of one nvjpegImage_t)
+_OUTPUT_UNCHANGED, _OUTPUT_Y, _OUTPUT_RGBI = 0, 2, 5
 _BACKEND_DEFAULT = 0
 #: chroma upsampled by interpolation, as libjpeg's fancy upsampling does
 #: (replicated chroma puts 4:2:0 decodes tens of levels off libjpeg's)
@@ -212,11 +215,56 @@ def _nv_session(lib, index: int):
             _nv_free[index].append(mine)
 
 
+def adobe_transform(data: bytes) -> Optional[int]:
+    """The colour transform of a JPEG's Adobe APP14 segment (0: none, CMYK
+    or RGB as coded; 1: YCbCr; 2: YCCK), or None without one. A marker
+    walk up to the first scan."""
+    i, n = 2, len(data)
+    while i + 4 <= n and data[i] == 0xFF:
+        marker = data[i + 1]
+        if marker in (0xDA, 0xD9):
+            return None
+        (seglen,) = struct.unpack(">H", data[i + 2:i + 4])
+        if marker == 0xEE and data[i + 4:i + 9] == b"Adobe" and seglen >= 12:
+            return data[i + 15] if i + 15 < n else None
+        i += 2 + seglen
+    return None
+
+
+def cmyk_rgb(planes, ycck: bool):
+    """The four decoded planes [4, h, w] uint8 of a CMYK or YCCK JPEG (as
+    coded, on any device) -> [h, w, 3] uint8 RGB, as the JAX package's
+    decode gives it: libjpeg's YCCK -> CMYK (jdcolor.c ycck_cmyk_convert,
+    its fixed-point tables), then Pillow's Adobe polarity (the samples
+    inverted, "CMYK;I") and its CMYK -> RGB (255 - K) - C (255 - K) / 255
+    in integers."""
+    import torch
+
+    x = planes.to(torch.int32)
+    if ycck:
+        y, cb, cr = x[0], x[1] - 128, x[2] - 128
+        half = 1 << 15
+        r = y + ((_fix(1.40200) * cr + half) >> 16)
+        g = y + ((-_fix(0.34414) * cb - _fix(0.71414) * cr + half) >> 16)
+        b = y + ((_fix(1.77200) * cb + half) >> 16)
+        x = torch.stack([(255 - v).clamp(0, 255) for v in (r, g, b)] + [x[3]])
+    inv = 255 - x                       # Pillow reads CMYK;I
+    nk = 255 - inv[3]
+    t = inv[:3] * nk + 128
+    rgb = (nk - (((t >> 8) + t) >> 8)).clamp(0, 255)
+    return rgb.permute(1, 2, 0).to(torch.uint8)
+
+
 def jpeg_decode(data: bytes, scale_num: int = 8,
                 device: Union[str, "torch.device"] = "cuda") -> np.ndarray:  # noqa: F821
     """Decode JPEG bytes on the card -> [h, w, 3] uint8 on the host,
     prescaled to scale_num/8 (libjpeg's ceil(size * scale_num / 8)) on the
-    card by a box mean of each (8 / scale_num)^2 block, rounded half up."""
+    card by a box mean of each (8 / scale_num)^2 block, rounded half up.
+    Three components decode to RGB in nvJPEG; one (gray) decodes its luma,
+    repeated as Pillow's L -> RGB repeats it; four (Adobe CMYK or YCCK)
+    decode their planes as coded, converted by ``cmyk_rgb``. A JPEG of
+    another component count, or four with subsampled components, is
+    refused."""
     import torch
     import torch.nn.functional as F
 
@@ -228,17 +276,36 @@ def jpeg_decode(data: bytes, scale_num: int = 8,
         widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
         _nv_check(lib.nvjpegGetImageInfo(handle, data, len(data), ctypes.byref(n_comp),
                                          ctypes.byref(css), widths, heights), "image info")
-        w, h = widths[0], heights[0]
+        w, h, n = widths[0], heights[0], n_comp.value
         if w * h > MAX_PIXELS:
             raise ExecFailedException(
                 f"a {w}x{h} JPEG exceeds the {MAX_PIXELS}-pixel decode limit")
-        out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+        if n not in (1, 3, 4):
+            raise UnsupportedMediaException(
+                f"a JPEG of {n} components is not ported to the PyTorch package")
+        if n == 4 and any((widths[k], heights[k]) != (w, h) for k in range(4)):
+            raise UnsupportedMediaException(
+                "a CMYK/YCCK JPEG with subsampled components is not ported to "
+                "the PyTorch package (nvJPEG returns its planes unsampled)")
         image = _NvjpegImage()
-        image.channel[0] = out.data_ptr()
-        image.pitch[0] = w * 3
+        if n == 3:
+            out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+            fmt, planes = _OUTPUT_RGBI, [(out, w * 3)]
+        else:
+            coded = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+            fmt = _OUTPUT_Y if n == 1 else _OUTPUT_UNCHANGED
+            planes = [(coded[k], w) for k in range(n)]
+        for k, (plane, pitch) in enumerate(planes):
+            image.channel[k] = plane.data_ptr()
+            image.pitch[k] = pitch
         stream = cuda_build.current_stream(dev.index)
-        _nv_check(lib.nvjpegDecode(handle, state, data, len(data), _OUTPUT_RGBI,
+        _nv_check(lib.nvjpegDecode(handle, state, data, len(data), fmt,
                                    ctypes.byref(image), stream), "decode")
+        if n == 1:
+            out = coded[0].unsqueeze(-1).expand(h, w, 3)
+        elif n == 4:
+            transform = adobe_transform(data)
+            out = cmyk_rgb(coded, ycck=transform is not None and transform != 0)
         if scale_num in (1, 2, 4):
             k = 8 // scale_num
             x = out.permute(2, 0, 1).unsqueeze(0).float()

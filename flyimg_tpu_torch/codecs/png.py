@@ -4,21 +4,30 @@ The PNG half of the JAX package's host codec layer (``flyimg_tpu/codecs``,
 which goes through Pillow or a native libpng build), with no dependency
 beyond the standard library and numpy:
 
-- decode: 8-bit, non-interlaced gray (0), RGB (2), gray+alpha (4) and RGBA
-  (6), with all five row filters (None, Sub, Up, Average, Paeth);
-  anything else raises ``UnsupportedMediaException``;
+- decode: every colour type and bit depth of the PNG specification (gray
+  at 1, 2, 4, 8 and 16 bits; palette at 1, 2, 4 and 8 bits, with ``tRNS``
+  alpha; RGB, gray+alpha and RGBA at 8 and 16 bits), non-interlaced or
+  Adam7, with all five row filters (None, Sub, Up, Average, Paeth). The
+  samples map to 8 bits as Pillow maps them, since Pillow is the JAX
+  package's decode wherever its native libpng build is not loaded: gray
+  below 8 bits scales to 0-255 (palette indices do not), 16-bit RGB,
+  gray+alpha and RGBA keep their high byte, 16-bit gray saturates at 255;
+  only a palette's ``tRNS`` gives an alpha plane (a colour key on gray or
+  RGB does not); an index past the palette reads black;
 - encode: 8-bit RGB or RGBA, each row Up-filtered (the first row has no
   row above it, so Up is the identity there), zlib level 6.
 
 Sub and Up rows unfilter as whole-row numpy operations; Average and Paeth
-carry a left-to-right dependency and unfilter one pixel at a time.
+carry a left-to-right dependency and unfilter one byte at a time. Each of
+Adam7's seven passes is a small image of its own, unfiltered alone and
+then scattered into the frame.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -28,7 +37,19 @@ from flyimg_tpu_torch.exceptions import (
 )
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+#: colour type -> (samples a pixel, the bit depths the specification allows)
+_LAYOUT = {
+    0: (1, (1, 2, 4, 8, 16)),
+    2: (3, (8, 16)),
+    3: (1, (1, 2, 4, 8)),
+    4: (2, (8, 16)),
+    6: (4, (8, 16)),
+}
+#: Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = (
+    (0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+    (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1),
+)
 
 
 def _chunks(data: bytes):
@@ -77,7 +98,10 @@ def _average_row(filt: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
     return np.array(out, np.uint8)
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+def _unfilter(raw: memoryview, height: int, stride: int, bpp: int) -> np.ndarray:
+    """``height`` filtered rows of ``stride`` bytes (each after its filter
+    byte) at the start of ``raw`` -> [height, stride] u8. ``bpp`` is the
+    filters' byte distance to the left neighbour (at least 1)."""
     if len(raw) < height * (stride + 1):
         raise ExecFailedException("PNG image data is truncated")
     rows = np.frombuffer(raw, np.uint8, count=height * (stride + 1)).reshape(
@@ -106,39 +130,105 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered [h, stride] bytes -> [h, width, channels] samples (u8
+    below 16 bits, u16 at 16; a row's padding bits dropped)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    if depth == 16:
+        wide = rows[:, :width * channels * 2].reshape(h, width * channels, 2)
+        return ((wide[..., 0].astype(np.uint16) << 8) | wide[..., 1]).reshape(
+            h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * depth]     # channels is 1
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, width, depth) * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def _pixels(raw: memoryview, width: int, height: int, channels: int,
+            depth: int, interlace: int) -> np.ndarray:
+    """The image's samples [height, width, channels]: one pass, or Adam7's
+    seven scattered into the frame."""
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    if interlace == 0:
+        stride = (width * bits + 7) // 8
+        return _samples(_unfilter(raw, height, stride, bpp), width, channels, depth)
+    out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for y0, x0, dy, dx in _ADAM7:
+        pw = (width - x0 + dx - 1) // dx if width > x0 else 0
+        ph = (height - y0 + dy - 1) // dy if height > y0 else 0
+        if pw == 0 or ph == 0:
+            continue    # an empty pass has no rows, not even filter bytes
+        stride = (pw * bits + 7) // 8
+        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        out[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+    return out
+
+
 def decode(data: bytes) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """PNG bytes -> (rgb [h, w, 3] u8, alpha [h, w] u8 or None)."""
     if data[:8] != SIGNATURE:
         raise UnsupportedMediaException("not a PNG stream")
     header = None
-    idat = []
+    palette = None
+    trns = None
+    idat: List[bytes] = []
     for ctype, body in _chunks(data):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = body
+        elif ctype == b"tRNS":
+            trns = body
         elif ctype == b"IDAT":
             idat.append(body)
     if header is None:
         raise ExecFailedException("PNG has no IHDR chunk")
     width, height, depth, color, _comp, _filt, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
+    layout = _LAYOUT.get(color)
+    if layout is None or depth not in layout[1] or interlace not in (0, 1):
         raise UnsupportedMediaException(
             f"PNG with bit depth {depth}, color type {color}, interlace "
-            f"{interlace} is not supported (8-bit non-interlaced gray, "
-            "gray+alpha, RGB or RGBA only)"
+            f"{interlace} is not a valid PNG layout"
         )
-    channels = _CHANNELS[color]
+    channels = layout[0]
+    if color == 3 and palette is None:
+        raise ExecFailedException("palette PNG has no PLTE chunk")
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = memoryview(zlib.decompress(b"".join(idat)))
     except zlib.error as exc:
         raise ExecFailedException(f"PNG image data: {exc}") from exc
-    pixels = _unfilter(raw, height, width * channels, channels).reshape(
-        height, width, channels
-    )
+    pixels = _pixels(raw, width, height, channels, depth, interlace)
+    alpha = None
+    if color == 3:
+        # Pillow's palette is 256 entries, black past the PLTE's, and a
+        # tRNS shorter than the palette leaves the rest opaque
+        lut = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette, np.uint8)[:768]
+        lut[:len(entries) // 3] = entries[:len(entries) // 3 * 3].reshape(-1, 3)
+        index = pixels[..., 0]
+        rgb = lut[index]
+        if trns is not None:
+            alut = np.full(256, 255, np.uint8)
+            alut[:min(len(trns), 256)] = np.frombuffer(trns, np.uint8)[:256]
+            alpha = alut[index]
+        return rgb, alpha
+    if depth == 16:
+        if color == 0:      # Pillow's I;16 -> RGB saturates
+            pixels = np.minimum(pixels, 255).astype(np.uint8)
+        else:               # RGB;16B, LA;16B, RGBA;16B: the high byte
+            pixels = (pixels >> 8).astype(np.uint8)
+    elif depth < 8:         # gray: 1, 2 and 4 bits scale to 0-255
+        pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
     if channels in (1, 2):
         rgb = np.repeat(pixels[..., :1], 3, axis=2)
     else:
         rgb = pixels[..., :3]
-    alpha = pixels[..., -1].copy() if channels in (2, 4) else None
+    if channels in (2, 4):
+        alpha = np.ascontiguousarray(pixels[..., -1])
     return np.ascontiguousarray(rgb), alpha
 
 

@@ -11,7 +11,9 @@ The port of ``flyimg_tpu/service/app.py`` for the main path: a
 
 Errors map to the status codes of the JAX app's ``_error_response``; a
 plan stage the port does not carry yet answers 501, and any other
-exception 500. Run it with
+exception 500. A 503 (a full batch queue past ``batch_max_queue_depth``,
+an open upstream breaker, a launch that does not fit the card at one
+member, a full host byte budget) carries Retry-After. Run it with
 
     python -m flyimg_tpu_torch.service.app serve --port 8080 [--params p.json]
 """
@@ -46,7 +48,9 @@ from flyimg_tpu_torch.exceptions import (
 )
 from flyimg_tpu_torch.ops.resample import set_kernel_mode
 from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
-from flyimg_tpu_torch.runtime.batcher import BatchController
+from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
+from flyimg_tpu_torch.runtime.memgovernor import MemoryGovernor
+from flyimg_tpu_torch.testing import faults
 from flyimg_tpu_torch.service.handler import ImageHandler
 from flyimg_tpu_torch.service.response import image_headers, is_not_modified
 
@@ -105,10 +109,16 @@ class FlyimgServer(ThreadingHTTPServer):
                  sp_mesh: Optional[Mesh] = None) -> None:
         set_kernel_mode(str(params.by_key("resample_kernel", "dense")))
         self.params = params
+        injector = params.by_key("fault_injector")
+        if injector is not None:
+            faults.install(injector)
+        governor = MemoryGovernor.from_params(params)
         self.batcher = BatchController(
             max_batch=int(params.by_key("batch_max_size", 64)),
             deadline_ms=float(params.by_key("batch_deadline_ms", 4.0)),
             device=device,
+            governor=governor if governor.enabled else None,
+            **containment_params(params),
         )
         if sp_mesh is None:
             sp_mesh = local_sp_mesh(self.batcher.device)

@@ -3,7 +3,8 @@
 The port of the miss path of ``flyimg_tpu/service/handler.py`` for the main
 path: options parse -> source fetch -> output naming + cache check ->
 decode -> plan -> batched device transform -> smart-crop post-pass -> face
-post-passes (blur, then crop) -> encode -> store -> serve bytes. Concurrent
+post-passes (blur, then crop) -> encode (with the source's metadata under
+``st_0``) -> store -> serve bytes. Concurrent
 misses for one output name are coalesced so one render serves them all.
 
 Every device stage of the reference's program runs here (resample, extent
@@ -21,8 +22,7 @@ answers encode to PNG, JPEG (``q_``, ``moz_``, ``sf_``) and WebP (lossy at
 client that accepts it (``accepts_webp``), as the reference does. Not
 ported yet (ROADMAP): the JPEG sampling factors nvJPEG lacks, GIF, CMYK JPEG
 (``clsp_CMYK``), signed URLs and domain
-restrictions, brownout, derivative reuse, the fleet tier and metadata
-grafting.
+restrictions, brownout, derivative reuse and the fleet tier.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from functools import partial
@@ -40,9 +41,11 @@ import torch
 
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.appconfig import AppParameters
+from flyimg_tpu_torch.codecs import metadata
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
+    DeadlineExceededException,
     ExecFailedException,
     InvalidArgumentException,
     ServiceUnavailableException,
@@ -58,8 +61,10 @@ from flyimg_tpu_torch.parallel.tiling import (
     tiled_rotate,
     tiled_transform,
 )
-from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
-from flyimg_tpu_torch.service.input_source import load_source
+from flyimg_tpu_torch.runtime.batcher import BatchController
+from flyimg_tpu_torch.runtime.memgovernor import HostByteAccountant
+from flyimg_tpu_torch.runtime.resilience import Deadline
+from flyimg_tpu_torch.service.input_source import FetchPolicy, load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
 from flyimg_tpu_torch.spec.options import OptionsBag
 from flyimg_tpu_torch.spec.plan import (
@@ -133,6 +138,21 @@ def _require_cmyk_container(spec: OutputSpec) -> None:
         )
 
 
+def graft_metadata(content: bytes, source: bytes, source_mime: str,
+                   spec: OutputSpec, options: OptionsBag) -> bytes:
+    """``st_0``: the reference keeps all source metadata when ``-strip`` is
+    off, so the source's EXIF (orientation reset to 1: the pixels are
+    upright), ICC profile and XMP go into a JPEG, PNG or WebP answer. Under
+    ``clsp_CMYK`` the source's RGB profile is dropped (it must not describe
+    CMYK samples); EXIF and XMP still carry."""
+    if options.truthy("strip"):
+        return content
+    meta = metadata.collect(source, source_mime)
+    if meta and parse_colorspace(options) == "cmyk":
+        meta.icc = None
+    return metadata.inject(content, spec.extension, meta) if meta else content
+
+
 def _webp_lossless(options: OptionsBag) -> bool:
     return bool(options.truthy("webp-lossless"))
 
@@ -149,9 +169,7 @@ def _device_failures(what: str):
     try:
         yield
     except torch.OutOfMemoryError as exc:
-        raise ServiceUnavailableException(
-            f"device out of memory ({classify_error(exc)})"
-        ) from exc
+        raise ServiceUnavailableException(f"device out of memory: {exc}") from exc
     except AppException:
         raise
     except Exception as exc:
@@ -161,7 +179,15 @@ def _device_failures(what: str):
 class ImageHandler:
     """One per app. ``batcher`` None runs every transform as a batch-1
     program in the calling thread (``run_plan``). With ``sp_mesh`` (a mesh
-    with an "sp" axis) tall inputs may take the tiled route."""
+    with an "sp" axis) tall inputs may take the tiled route.
+
+    Every request has a ``Deadline`` (``request_deadline_s``; 0 is
+    unbounded): the fetch, each wait on the device and the encode check
+    it, and a spent budget answers 504. Each wait on the batcher's result
+    is bounded by ``device_result_timeout_s`` too: past it the request
+    answers 504 and the launch runs on. ``mem_host_budget_bytes`` > 0
+    charges each decode's predicted bytes (w x h x 3) against a host
+    budget (503 + Retry-After past it)."""
 
     #: inputs at least this tall consider the spatially tiled programs
     TILE_MIN_ROWS = 2048
@@ -188,6 +214,11 @@ class ImageHandler:
         self._face_lock = threading.Lock()
         self.storage = LocalStorage(self.params.by_key("upload_dir"))
         self.tmp_dir = self.params.by_key("tmp_dir")
+        self.fetch_policy = FetchPolicy.from_params(self.params)
+        self.default_deadline_s = float(self.params.by_key("request_deadline_s") or 0.0)
+        self.device_result_timeout_s = float(self.params.by_key("device_result_timeout_s"))
+        accountant = HostByteAccountant.from_params(self.params)
+        self.mem_accountant = accountant if accountant.enabled else None
         self._flight = _SingleFlight()
         # a stable runner: the batcher groups aux work by runner identity
         self._smc_runner = partial(
@@ -195,11 +226,15 @@ class ImageHandler:
         )
 
     def process_image(
-        self, options_str: str, image_src: str, *, accepts_webp: bool = False
+        self, options_str: str, image_src: str, *, accepts_webp: bool = False,
+        deadline: Optional[Deadline] = None,
     ) -> ProcessedImage:
         """One image request (the reference handler's ``process_image``);
         ``accepts_webp``: the client's Accept header names image/webp, so
-        ``o_auto`` answers WebP."""
+        ``o_auto`` answers WebP. ``deadline``: the request's budget, by
+        default ``request_deadline_s`` from now."""
+        if deadline is None:
+            deadline = Deadline(self.default_deadline_s)
         timings: Dict[str, float] = {}
         options = OptionsBag(
             options_str,
@@ -211,6 +246,7 @@ class ImageHandler:
         source = load_source(
             image_src, options, self.tmp_dir,
             header_extra_options=self.params.by_key("header_extra_options", ""),
+            policy=self.fetch_policy, deadline=deadline,
         )
         timings["fetch"] = time.perf_counter() - t
         spec = resolve_output(options, image_src, source.info.mime,
@@ -245,14 +281,23 @@ class ImageHandler:
 
         leader, fut = self._flight.begin(spec.name)
         if not leader:
-            content, mtime = fut.result()
+            # a generous multiple of one device wait: only a stuck leader
+            # sheds its followers, and the follower's own budget caps it
+            try:
+                content, mtime = fut.result(
+                    timeout=deadline.timeout(5 * self.device_result_timeout_s))
+            except FutureTimeout:
+                deadline.check("coalesced")
+                raise ServiceUnavailableException(
+                    "timed out waiting for the in-flight pipeline computing "
+                    "this output") from None
             return ProcessedImage(
                 content=content, spec=spec, options=options,
                 timings=timings, modified_at=mtime,
             )
         try:
-            content = self._process_new(
-                source.data, source.info, options, spec, timings
+            content = self._process_admitted(
+                source.data, source.info, options, spec, timings, deadline
             )
             t = time.perf_counter()
             mtime = self.storage.write(spec.name, content)
@@ -278,14 +323,44 @@ class ImageHandler:
                 )
             return self._face_backend
 
-    def _await(self, fut: Future):
+    def _wait(self, fut: Future, stage: str, deadline: Deadline):
+        """A batched result, waited for at most ``device_result_timeout_s``
+        and the request's remaining budget; past either, 504 (the launch
+        runs on and its result is dropped)."""
+        timeout = deadline.timeout(self.device_result_timeout_s)
+        try:
+            return fut.result(timeout=timeout)
+        except FutureTimeout:
+            deadline.check(stage)
+            raise DeadlineExceededException(
+                f"the device's {stage} result was not ready within "
+                f"{timeout:.3f}s (device_result_timeout_s)") from None
+
+    def _await(self, fut: Future, stage: str, deadline: Deadline):
         with _device_failures("device transform"):
-            return fut.result()
+            return self._wait(fut, stage, deadline)
+
+    def _process_admitted(
+        self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
+        timings: Dict[str, float], deadline: Deadline,
+    ) -> bytes:
+        """``_process_new`` under the host byte budget: the source's
+        predicted decoded bytes are charged from its header before decode
+        and released when the render ends, however it ends."""
+        charge = None
+        if self.mem_accountant is not None and info.width and info.height:
+            charge = self.mem_accountant.admit(int(info.width) * int(info.height) * 3)
+        try:
+            return self._process_new(data, info, options, spec, timings, deadline)
+        finally:
+            if charge is not None:
+                self.mem_accountant.release(charge)
 
     def _process_new(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
-        timings: Dict[str, float],
+        timings: Dict[str, float], deadline: Deadline,
     ) -> bytes:
+        deadline.check("decode")
         t = time.perf_counter()
         # a JPEG decodes prescaled toward the target box (DCT-domain scale)
         decoded = codecs.decode(
@@ -320,7 +395,7 @@ class ImageHandler:
         with _device_failures("tiled transform"):
             out = self._tiled_or_none(frame, plan)
         if out is None and self.batcher is not None:
-            out = self._await(self.batcher.submit(frame, plan))
+            out = self._await(self.batcher.submit(frame, plan), "transform", deadline)
         elif out is None:
             out = run_plan(frame, plan, device=self.device)
         timings["device"] = time.perf_counter() - t
@@ -331,7 +406,7 @@ class ImageHandler:
             if self.batcher is not None:
                 crop = self._await(self.batcher.submit_aux(
                     ("smc", item.bucket, item.step), item, self._smc_runner,
-                ))
+                ), "smartcrop", deadline)
             else:
                 crop = self._smc_runner([item])[0]
             out = smartcrop.apply_crop(out, crop)
@@ -339,9 +414,10 @@ class ImageHandler:
 
         if plan.face_blur or plan.face_crop:
             t = time.perf_counter()
-            out = self._face_pass(out, plan)
+            out = self._face_pass(out, plan, deadline)
             timings["faces"] = time.perf_counter() - t
 
+        deadline.check("encode")
         t = time.perf_counter()
         # attaching alpha to rgb that was already flattened over bg would
         # composite twice, and a plane of another size cannot be attached
@@ -349,6 +425,7 @@ class ImageHandler:
         if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
             alpha = decoded.alpha
         content = self._encode(np.ascontiguousarray(out), spec, options, alpha)
+        content = graft_metadata(content, data, decoded.mime, spec, options)
         timings["encode"] = time.perf_counter() - t
         if options.wants_refresh():
             # the rf_1 debug header's `identify` line (reference
@@ -477,7 +554,7 @@ class ImageHandler:
         self._count("tiled_single_ops")
         return out.cpu().numpy()
 
-    def _face_pass(self, out: np.ndarray, plan) -> np.ndarray:
+    def _face_pass(self, out: np.ndarray, plan, deadline: Deadline) -> np.ndarray:
         """Detect faces on the output, then blur and/or crop; detection is
         one aux group per bucket when the backend batches."""
         ff = self._faces()
@@ -485,9 +562,9 @@ class ImageHandler:
             if hasattr(ff, "prepare_face_work"):
                 item = ff.prepare_face_work(out)
                 if self.batcher is not None:
-                    faces = self.batcher.submit_aux(
+                    faces = self._wait(self.batcher.submit_aux(
                         ("face", item.bucket), item, ff.detect_faces_batched,
-                    ).result()
+                    ), "faces", deadline)
                 else:
                     faces = ff.detect_faces_batched([item])[0]
             else:

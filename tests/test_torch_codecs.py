@@ -3,7 +3,9 @@
 - PNG (flyimg_tpu_torch/codecs/png.py) against Pillow: decode of gray,
   gray+alpha, RGB and RGBA PNGs written with each of the five row filters,
   decode of Pillow's own (adaptively filtered) PNGs, and encode -> Pillow
-  decode round trips. Bound: exact.
+  decode round trips; every colour type x bit depth x interlace (palette
+  with and without tRNS, 1-16 bits, Adam7) against the JAX package's
+  decode. Bound: exact.
 - EXIF orientation 1-8 of PNG, JPEG and WebP sources against the JAX
   package's ``flyimg_tpu.codecs.decode``: shape, colour and alpha exact.
 - JPEG: nvJPEG runs on a card only, so here the tests hold what surrounds
@@ -35,7 +37,7 @@ import flyimg_tpu.codecs as jcodecs
 import torch_jpeg_stand_in as stand_in
 from flyimg_tpu.codecs.sniff import MediaInfo as JMediaInfo
 from flyimg_tpu_torch import codecs
-from flyimg_tpu_torch.codecs import png
+from flyimg_tpu_torch.codecs import native_codec, png
 from flyimg_tpu_torch.codecs.sniff import MediaInfo
 from flyimg_tpu_torch.exceptions import (
     InvalidArgumentException,
@@ -144,6 +146,9 @@ def test_encode_round_trips_through_pillow(with_alpha):
 
 @pytest.mark.parametrize("case", ["palette", "16bit", "interlaced", "jpeg"])
 def test_unsupported_inputs_raise(case, monkeypatch):
+    """JPEG on the CPU is refused by name (nvJPEG runs on a card). The PNG
+    cases (a palette PNG, a 16-bit gray PNG, an Adam7 PNG) once raised
+    too: they now decode to the JAX package's pixels."""
     if case == "jpeg":
         # JPEG is nvJPEG's, on a CUDA device: on the CPU it is refused by
         # name; through the nvJPEG calls' stand-in it is the JAX
@@ -160,18 +165,127 @@ def test_unsupported_inputs_raise(case, monkeypatch):
         frame = np.zeros((4, 4, 3), np.uint8)
         assert codecs.encode(frame, "jpg") == jcodecs.encode(frame, "jpg")
         return
+    rng = np.random.default_rng(5)
     buf = io.BytesIO()
     if case == "palette":
-        Image.new("P", (8, 8)).save(buf, "PNG")
+        Image.fromarray(rng.integers(0, 256, (8, 8), dtype=np.uint8), "P").save(buf, "PNG")
     elif case == "16bit":
-        Image.fromarray(np.zeros((8, 8), np.uint16)).save(buf, "PNG")
+        Image.fromarray(rng.integers(0, 400, (8, 8)).astype(np.uint16)).save(buf, "PNG")
     else:  # Adam7: Pillow does not write it, so set the IHDR flag by hand
-        data = bytearray(_png(np.zeros((8, 8, 3), np.uint8), 2, 0))
-        data[28] = 1
-        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-        buf = io.BytesIO(bytes(data))
-    with pytest.raises(UnsupportedMediaException):
-        png.decode(buf.getvalue())
+        buf = io.BytesIO(_png_any(rng.integers(0, 256, (8, 8, 3)), 8, 2, interlace=1))
+    _assert_same_decode(codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue()))
+
+
+#: Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _pack_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w, ch] samples -> [h, stride] u8 rows of the PNG's bit depth
+    (big-endian, sub-byte samples packed from the high bit, rows padded)."""
+    h, w, ch = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, w * ch).view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * ch)
+    shifts = np.arange(depth - 1, -1, -1)
+    bits = (samples.reshape(h, w * ch, 1) >> shifts) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def _filter_image(raw: np.ndarray, bpp: int, seed: int) -> bytes:
+    """Filter each row with its own filter type, cycling through all five."""
+    out = b""
+    for y in range(raw.shape[0]):
+        ftype = (y + seed) % 5
+        prev = raw[y - 1:y] if y else np.zeros((1, raw.shape[1]), np.uint8)
+        both = _filter_rows(np.concatenate([prev, raw[y:y + 1]]), ftype, bpp)
+        out += both[len(both) // 2:]
+    return out
+
+
+def _png_any(samples, depth: int, color: int, *, interlace: int = 0,
+             plte: bytes = None, trns: bytes = None, seed: int = 0) -> bytes:
+    """A PNG of any colour type, bit depth and interlace, written by hand
+    (Pillow writes few of them): ``samples`` [h, w, ch] are the stored
+    samples (palette indices for colour type 3)."""
+    samples = np.asarray(samples)
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+
+    def chunk(t, body):
+        return struct.pack(">I", len(body)) + t + body + struct.pack(
+            ">I", zlib.crc32(t + body) & 0xFFFFFFFF)
+
+    if interlace:
+        raw = b""
+        for i, (y0, x0, dy, dx) in enumerate(ADAM7):
+            part = samples[y0::dy, x0::dx]
+            if part.size:
+                raw += _filter_image(_pack_rows(part, depth), bpp, seed + i)
+    else:
+        raw = _filter_image(_pack_rows(samples, depth), bpp, seed)
+    return (png.SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+            + (chunk(b"PLTE", plte) if plte is not None else b"")
+            + (chunk(b"tRNS", trns) if trns is not None else b"")
+            + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+#: (colour type, bit depth, tRNS kind): every layout of the PNG
+#: specification; "key" is a tRNS colour key (gray, RGB), "alpha" a
+#: palette's alpha table shorter than the palette
+LAYOUTS = (
+    [(0, d, None) for d in (1, 2, 4, 8, 16)]
+    + [(3, d, t) for d in (1, 2, 4, 8) for t in (None, "alpha")]
+    + [(c, d, None) for c in (2, 4, 6) for d in (8, 16)]
+    + [(0, 8, "key"), (0, 16, "key"), (2, 8, "key"), (2, 16, "key")]
+)
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("color,depth,trns", LAYOUTS)
+@pytest.mark.parametrize("shape", [(13, 11), (1, 1), (3, 2)])
+def test_png_layouts_match_jax(color, depth, trns, interlace, shape):
+    """Every colour type x bit depth x interlace, each row with its own
+    filter type, decodes to the JAX package's pixels (Pillow here), exact:
+    colour, and alpha where the JAX decode gives one. (1, 1) and (3, 2)
+    leave Adam7 passes empty."""
+    h, w = shape
+    rng = np.random.default_rng(color * 100 + depth * 3 + interlace)
+    ch = png._LAYOUT[color][0]
+    top = 1 << depth
+    samples = rng.integers(0, top, (h, w, ch))
+    if depth == 16:  # keep some values below 256, where I;16 does not saturate
+        samples[::2] %= 300
+    plte = tr = None
+    if color == 3:
+        entries = rng.integers(0, 256, (max(1, top - 1), 3), dtype=np.uint8)
+        plte = entries.tobytes()     # one index past the palette reads black
+        if trns == "alpha":
+            tr = rng.integers(0, 256, max(1, top // 2), dtype=np.uint8).tobytes()
+    elif trns == "key":
+        key = samples[0, 0]
+        tr = b"".join(struct.pack(">H", int(v)) for v in key)
+    data = _png_any(samples, depth, color, interlace=interlace, plte=plte, trns=tr,
+                    seed=h + w)
+    got, ref = codecs.decode(data), jcodecs.decode(data)
+    _assert_same_decode(got, ref)
+    assert got.mime == "image/png" and got.size == (w, h)
+
+
+def test_png_16bit_gray_saturates_as_pillow():
+    """The JAX package's PNG decode here is Pillow's, which saturates 16-bit
+    gray at 255 (mode I;16 to RGB) where libpng's simplified API scales
+    (ROADMAP Queue C 13): the port follows Pillow, pinned on the values
+    Pillow maps to 0, 255, 255, 255 and 255."""
+    samples = np.array([0, 255, 256, 4660, 65535]).reshape(1, 5, 1)
+    data = _png_any(samples, 16, 0)
+    rgb, alpha = png.decode(data)
+    assert rgb[0, :, 0].tolist() == [0, 255, 255, 255, 255] and alpha is None
+    np.testing.assert_array_equal(rgb, jcodecs.decode(data).rgb)
 
 
 # ---------------------------------------------------------------------------
@@ -499,3 +613,34 @@ def test_jpeg_encode_planes_are_libjpeg_s(sampling, shape):
     for g, want in zip(got, _libjpeg_ycc(rgb, hf, vf)):
         assert g.dtype == torch.uint8
         np.testing.assert_array_equal(g.numpy(), want)
+
+
+def _fixture(name):
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg", name)
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize("name,transform", [("q90_cmyk", 0), ("q90_ycck", 2)])
+def test_cmyk_and_ycck_conversion_is_the_jax_decode_s(name, transform):
+    """nvJPEG decodes a four-component JPEG's planes as coded; the port's
+    conversion of those planes (libjpeg's YCCK -> CMYK, Pillow's inverted
+    Adobe polarity and CMYK -> RGB) gives the JAX package's decode exactly.
+    libjpeg's planes of both fixtures are the CMYK reading's (the YCCK file
+    differs in its APP14 transform byte only), 255 - Pillow's CMYK samples.
+    The card holds nvJPEG's planes (chip_smoke.py phase 10)."""
+    data = _fixture(name + ".jpg")
+    assert native_codec.adobe_transform(data) == transform
+    coded = 255 - np.asarray(Image.open(io.BytesIO(_fixture("q90_cmyk.jpg"))))
+    got = native_codec.cmyk_rgb(torch.from_numpy(coded.transpose(2, 0, 1).copy()),
+                                ycck=transform == 2)
+    want, _ = png.decode(_fixture(name + ".s8.png"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, jcodecs.decode(data).rgb)
+
+
+def test_adobe_transform_absent_outside_app14():
+    assert native_codec.adobe_transform(_fixture("q90_gray.jpg")) is None
+    assert native_codec.adobe_transform(_fixture("q90_420.jpg")) is None

@@ -15,7 +15,8 @@ from flyimg_tpu.spec.plan import build_plan as jbuild_plan
 from flyimg_tpu_torch.exceptions import NotPortedException
 from flyimg_tpu_torch.ops import compose as tcompose
 from flyimg_tpu_torch.ops import resample as tresample
-from flyimg_tpu_torch.runtime.batcher import BatchController, classify_error
+from flyimg_tpu_torch.runtime.batcher import BatchController
+from flyimg_tpu_torch.runtime.resilience import OVERSIZE, POISON, classify_batch_error
 from flyimg_tpu_torch.spec.options import OptionsBag as TOptionsBag
 from flyimg_tpu_torch.spec.plan import build_plan as tbuild_plan
 
@@ -250,5 +251,5 @@ def test_face_stage_raises_naming_it(opts, stage, monkeypatch, tmp_path):
 
 
 def test_out_of_memory_is_never_poison():
-    assert classify_error(torch.OutOfMemoryError("CUDA out of memory")) == "oversize"
-    assert classify_error(ValueError("bad member")) == "error"
+    assert classify_batch_error(torch.OutOfMemoryError("CUDA out of memory")) == OVERSIZE
+    assert classify_batch_error(ValueError("bad member")) == POISON

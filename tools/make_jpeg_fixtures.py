@@ -10,6 +10,12 @@ writes what the card's tests compare with:
 - JPEGs of it written by the JAX package's encoder (``flyimg_tpu.codecs
   .encode``, q90 baseline): 4:2:0, 4:4:4, progressive 4:2:0 and 4:2:0
   with EXIF orientation 6 in an APP1 segment;
+- the other layouts a card must decode, written by Pillow at q90: a
+  grayscale JPEG (one component), an Adobe CMYK JPEG (four components,
+  APP14 transform 0; its K is 255 - max(R, G, B)) and a YCCK one (the
+  CMYK file with its APP14 transform set to 2: the same coded planes,
+  which libjpeg then reads as YCC + K). No tool on the host that writes
+  the fixtures encodes YCCK itself;
 - each JPEG decoded by the JAX package (``flyimg_tpu.codecs.decode``), as
   ``<name>.s8.png``, and the 4:2:0 one also at the DCT scales 1, 2 and 4
   of 8 that target hints pick (``<name>.s<k>.png``);
@@ -54,6 +60,31 @@ def source_image() -> np.ndarray:
     return np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.uint8)
 
 
+#: the one-component and four-component fixtures (see ``layouts``)
+LAYOUTS = ("q90_gray", "q90_cmyk", "q90_ycck")
+
+
+def layouts(src: np.ndarray) -> dict:
+    """name -> bytes of the gray, Adobe CMYK and YCCK JPEGs of ``src``."""
+    from PIL import Image
+
+    def save(arr, mode):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    x = src.astype(np.int32)
+    k = 255 - x.max(-1)
+    cmyk = np.concatenate([255 - x - k[..., None], k[..., None]], -1).astype(np.uint8)
+    out = {"q90_gray": save(np.asarray(Image.fromarray(src).convert("L")), "L"),
+           "q90_cmyk": save(cmyk, "CMYK")}
+    data = bytearray(out["q90_cmyk"])
+    at = data.index(b"\xff\xee\x00\x0eAdobe")
+    data[at + 15] = 2               # APP14's transform byte: YCCK
+    out["q90_ycck"] = bytes(data)
+    return out
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
     return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
@@ -83,9 +114,11 @@ def build() -> dict:
     for name, kw in jpegs.items():
         buf = io.BytesIO()
         Image.fromarray(src).save(buf, "JPEG", quality=90, **kw)
-        data = buf.getvalue()
+        files[f"{name}.jpg"] = buf.getvalue()
+    for name, data in layouts(src).items():
         files[f"{name}.jpg"] = data
-        files[f"{name}.s8.png"] = png_bytes(jcodecs.decode(data).rgb)
+    for name in list(jpegs) + list(LAYOUTS):
+        files[f"{name}.s8.png"] = png_bytes(jcodecs.decode(files[f"{name}.jpg"]).rgb)
     for scale, hint in SCALE_HINTS.items():
         data = files["q90_420.jpg"]
         files[f"q90_420.s{scale}.png"] = png_bytes(jcodecs.decode(data, target_hint=hint).rgb)
