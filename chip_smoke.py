@@ -183,7 +183,10 @@ Phases, in order; any failure exits non-zero without a result line:
              the PNG decoder on a 1920x1080 frame whose every row is
              Paeth-filtered (host time), on one JSON line with the card's
              name and power limit; the gray, Adobe CMYK and YCCK fixtures
-             are decoded with the others (NVJPEG_LEVELS).
+             (whole, and with subsampled components: h2v1, h2v2) and the
+             RGB-coded one are decoded with the others (NVJPEG_LEVELS), and
+             nvJPEG's own interleaved-RGB decode of the RGB-coded file is
+             printed beside the port's plane decode of it.
 11. resilience — the batcher's containment through the handler (banded):
              an 8-member w_300,h_250,c_1,smc_1 batch of seeded 1024x768
              PNGs with member POISONED failed by the fault injector
@@ -200,8 +203,28 @@ Phases, in order; any failure exits non-zero without a result line:
              memory governor's ceiling is 4, nothing is quarantined, and the
              8000x5000 source through a server answers 503 with
              Retry-After.
+12. pipeline — the batcher's in-flight window and self-healing (banded):
+             a flagship wave (64 1024x768 frames, 8 seeded ones shifted, through
+             BatchController.submit at once, launches of 8, then each
+             answer's smart-crop scoring as aux groups and the crops) at
+             pipeline_depth 1, 2, 2, 1: the same bits, the same K1-K3
+             launches and launch sizes, 1 and 2 launches in flight at the
+             peak, the wall times printed; a poison-class fault at
+             batcher.drain on the second launch's readback, recovered by a
+             bisection on its drain thread, every answer the clean wave's; a
+             blocking fault at batcher.execute on the first transform: the
+             request answers the clean bytes through the direct program on
+             the card (wedged_fallbacks 1), its smart-crop submission
+             replaces the executor (restarts: wedged 1) and the old thread
+             exits when released; 16 JPEG requests through servers with the
+             host stage pools on and off, byte-equal, every stage on its pool
+             when on; the memory governor's per-member bytes learned from the
+             cost ledger's measured peak capping 8 members at launches of 4
+             under a budget of 4.5 members; an 8000x5000 JPEG header
+             answering 413 under mem_max_source_pixels before any decode;
+             the ledger's entries printed.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11)
+Launch counters are zeroed right before each main-path phase (4-9, 11, 12)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -1586,20 +1609,54 @@ def psnr(a, b) -> float:
 #: (2, 11 and 18 levels at most at 1/8, 1/4 and 1/2: the fixture's
 #: one-pixel stripes and sharp block edges). The gray, Adobe CMYK and YCCK
 #: fixtures read 1, 2 and 1 levels at most on that card (nvJPEG decodes
-#: their planes; codecs/native_codec.py converts them as the JAX decode).
+#: their planes; codecs/native_codec.py converts them as the JAX decode);
+#: with subsampled components (h2v1, h2v2; planes upsampled as libjpeg
+#: does) CMYK and YCCK read 2, and the RGB-coded file 1 (PR 17, call 1).
 NVJPEG_LEVELS = {"q90_420": 4, "q90_444": 4, "q90_420_progressive": 4,
                  "q90_420_orient6": 4, "q90_420.s1": 4, "q90_420.s2": 12, "q90_420.s4": 20,
-                 "q90_gray": 1, "q90_cmyk": 2, "q90_ycck": 1}
+                 "q90_gray": 1, "q90_cmyk": 2, "q90_ycck": 1,
+                 "q90_cmyk_h2v1": 2, "q90_cmyk_h2v2": 2, "q90_ycck_h2v2": 2,
+                 "q90_rgb_adobe0": 1}
+#: the JPEG fixtures phase 10 decodes at full scale (q90_420 also at 1/8,
+#: 1/4 and 1/2)
+JPEG_FIXTURES = ("q90_420", "q90_444", "q90_420_progressive", "q90_420_orient6",
+                 "q90_gray", "q90_cmyk", "q90_ycck", "q90_cmyk_h2v1", "q90_cmyk_h2v2",
+                 "q90_ycck_h2v2", "q90_rgb_adobe0")
+
+
+def nvjpeg_rgbi(torch, data, dev):
+    """nvJPEG's own interleaved-RGB decode of ``data`` ([h, w, 3] u8 on the
+    host), whatever the file's colour layout: what nvJPEG does with an
+    RGB-coded JPEG when asked for RGB."""
+    import ctypes
+
+    from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.codecs import native_codec as nc
+
+    lib = nc._nvjpeg()
+    with torch.cuda.device(dev), nc._nv_session(lib, dev.index) as session:
+        handle, state = session[:2]
+        n, css = ctypes.c_int(), ctypes.c_int()
+        widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+        nc._nv_check(lib.nvjpegGetImageInfo(handle, data, len(data), ctypes.byref(n),
+                                            ctypes.byref(css), widths, heights), "image info")
+        out = torch.empty((heights[0], widths[0], 3), dtype=torch.uint8, device=dev)
+        image = nc._NvjpegImage()
+        image.channel[0], image.pitch[0] = out.data_ptr(), widths[0] * 3
+        nc._nv_check(lib.nvjpegDecode(handle, state, data, len(data), nc._OUTPUT_RGBI,
+                                      ctypes.byref(image), cuda_build.current_stream(dev.index)),
+                     "decode")
+        return out.cpu().numpy()
 NVJPEG_SHARE_OVER_1 = 0.12
 
 
-def bomb_header(data: bytes) -> bytes:
-    """``data`` (a baseline JPEG) with its frame header declaring 30000 x
-    30000 pixels."""
+def bomb_header(data: bytes, width: int = 30000, height: int = 30000) -> bytes:
+    """``data`` (a baseline JPEG) with its frame header declaring ``width``
+    x ``height`` pixels."""
     import struct
 
     i = data.index(b"\xff\xc0")
-    return data[:i + 5] + struct.pack(">HH", 30000, 30000) + data[i + 9:]
+    return data[:i + 5] + struct.pack(">HH", height, width) + data[i + 9:]
 
 
 def paeth_png(rgb) -> bytes:
@@ -1647,8 +1704,7 @@ def phase_codecs(torch, dev, card):
     with open(os.path.join(data_dir, "reference.json")) as fh:
         ref = _json.load(fh)
     seen = {}
-    for name in ("q90_420", "q90_444", "q90_420_progressive", "q90_420_orient6",
-                 "q90_gray", "q90_cmyk", "q90_ycck"):
+    for name in JPEG_FIXTURES:
         for scale in (8, 1, 2, 4) if name == "q90_420" else (8,):
             hint = tuple(ref["scale_hints"][str(scale)]) if scale < 8 else None
             got = codecs.decode(read(name + ".jpg"), target_hint=hint, device=dev).rgb
@@ -1664,6 +1720,14 @@ def phase_codecs(torch, dev, card):
     print("nvJPEG decode against the JAX package's (max levels, share of values more "
           "than 1 apart, share that differ at all): "
           + ", ".join(f"{k} {v[0]} {v[1]:.4f} {v[2]:.4f}" for k, v in seen.items()))
+    # what nvJPEG itself makes of the RGB-coded file when asked for RGB (the
+    # port decodes its planes as coded instead: jpeg_decode)
+    want, _ = png.decode(read("q90_rgb_adobe0.s8.png"))
+    rgbi = np.abs(nvjpeg_rgbi(torch, read("q90_rgb_adobe0.jpg"), dev).astype(int)
+                  - want.astype(int))
+    print(f"nvJPEG's own RGBI decode of q90_rgb_adobe0 against the JAX package's: max "
+          f"{int(rgbi.max())} levels, {float((rgbi > 1).mean()):.4f} of values more than 1 "
+          f"apart (the port's plane decode: max {seen['q90_rgb_adobe0'][0]}); card {card}")
     from flyimg_tpu_torch.exceptions import ExecFailedException
 
     try:
@@ -1711,6 +1775,9 @@ def phase_codecs(torch, dev, card):
         "decode_1920x1080_q90_s8_ms": median_ms(lambda: codecs.decode(photo, device=dev)),
         "decode_1920x1080_q90_s4_ms": median_ms(
             lambda: codecs.decode(photo, target_hint=hint, device=dev)),
+        # the plane route: four coded planes, three upsampled on the card
+        "decode_320x240_cmyk_h2v2_ms": median_ms(
+            lambda: codecs.decode(read("q90_cmyk_h2v2.jpg"), device=dev)),
         "encode_300x250_jpg_moz1_ms": median_ms(
             lambda: codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
         "encode_300x250_jpg_moz0_ms": median_ms(
@@ -3464,6 +3531,293 @@ def phase_resilience(torch, dev, card, workdir, kernels):
     print(f"resilience phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# the in-flight window, self-healing, host stages, ledger and guards (phase 12)
+
+#: phase 12's flagship wave: members of 1024x768, launches of 8
+WAVE_MEMBERS = 64
+WAVE_BATCH = 8
+
+
+def flagship_wave(torch, dev, frames, depth, kernels, drain_plan=None):
+    """One flagship wave through a BatchController at ``pipeline_depth``:
+    every frame's w_300,h_250,c_1,smc_1 transform submitted at once
+    (launches of WAVE_BATCH, none before it is full), then every answer's
+    smart-crop scoring as aux groups, then the crops, as the handler runs
+    them. Returns (answers, wall s, K1-K3 launches, the controller)."""
+    from functools import partial
+
+    from flyimg_tpu_torch.models import smartcrop
+    from flyimg_tpu_torch.runtime.batcher import BatchController
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.spec.plan import build_plan
+
+    h, w = frames[0].shape[:2]
+    plan = build_plan(OptionsBag("w_300,h_250,c_1,smc_1"), w, h)
+    runner = partial(smartcrop.find_best_crops_batched, device=dev)
+    ctl = BatchController(device=dev, max_batch=WAVE_BATCH, deadline_ms=60_000.0,
+                          lone_flush=False, pipeline_depth=depth)
+    try:
+        before = read_counts(kernels)
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=300) for f in [ctl.submit(fr, plan) for fr in frames]]
+        ctl.transform_wall = time.perf_counter() - t0
+        items = [smartcrop.prepare_work(o) for o in outs]
+        crops = [f.result(timeout=300) for f in [
+            ctl.submit_aux(("smc", it.bucket, it.step), it, runner) for it in items]]
+        answers = [smartcrop.apply_crop(o, c) for o, c in zip(outs, crops)]
+        wall = time.perf_counter() - t0
+        after = read_counts(kernels)
+    finally:
+        ctl.close()
+    return answers, wall, {k: after[k] - before[k] for k in ("K1", "K2", "K3")}, ctl
+
+
+def phase_pipeline(torch, dev, card, workdir, kernels):
+    """Phase 12: the batcher's in-flight window at depth 1 and 2, a
+    drain-side failure, a wedged executor answered by the direct program and
+    replaced, the host stage pools on and off, the memory governor's learned
+    per-member bytes, and the source pixel guard."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import native_codec, png
+    from flyimg_tpu_torch.ops.resample import set_kernel_mode
+    from flyimg_tpu_torch.runtime import costledger
+    from flyimg_tpu_torch.runtime.batcher import BatchController
+    from flyimg_tpu_torch.runtime.memgovernor import MemoryGovernor
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.service.handler import ImageHandler
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.spec.plan import build_plan
+    from flyimg_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    set_kernel_mode("banded")
+    # 8 seeded frames (each takes ~1 s to make), the rest shifted copies
+    bases = [synthetic_image(1024, 768, seed=500 + i) for i in range(8)]
+    frames = [np.roll(bases[i % 8], 97 * (i // 8), axis=(0, 1)) for i in range(WAVE_MEMBERS)]
+
+    # -- the flagship wave at depth 1 and 2 ------------------------------------
+    flagship_wave(torch, dev, frames, 2, kernels)        # warm: kernels, pinned pool
+    runs = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        answers, wall, counts, ctl = flagship_wave(torch, dev, frames, depth, kernels)
+        runs[depth].append((answers, wall, counts, ctl.inflight_peak,
+                            sorted(ctl.launch_log), ctl.transform_wall))
+    clean = runs[1][0][0]
+    for depth, rows in runs.items():
+        for answers, _wall, counts, peak, log, _tw in rows:
+            check(all(np.array_equal(a, b) for a, b in zip(answers, clean)),
+                  f"depth {depth}: the flagship answers differ from depth 1's")
+            check(counts == runs[1][0][2], f"depth {depth}: K1-K3 launches {counts} vs "
+                  f"depth 1's {runs[1][0][2]}")
+            check(log == runs[1][0][4], f"depth {depth}: launches {log}")
+            check(peak == depth, f"depth {depth}: {peak} launches in flight at the peak")
+    walls = {d: [r[1] for r in rows] for d, rows in runs.items()}
+    tws = {d: [r[5] for r in rows] for d, rows in runs.items()}
+    print(f"pipeline: a flagship wave of {WAVE_MEMBERS} 1024x768 members (launches of "
+          f"{WAVE_BATCH}, then the smart-crop aux groups), order 1, 2, 2, 1: wall s at "
+          f"depth 1 {walls[1][0]:.4f}, {walls[1][1]:.4f}; depth 2 {walls[2][0]:.4f}, "
+          f"{walls[2][1]:.4f}; of which the transform launches at depth 1 "
+          f"{tws[1][0]:.4f}, {tws[1][1]:.4f}; depth 2 {tws[2][0]:.4f}, {tws[2][1]:.4f}; "
+          f"the same bits; K1-K3 launches {runs[1][0][2]} at both; in flight at the "
+          f"peak 1 and 2; card {card}")
+
+    # -- a drain-side failure, contained on the drain thread -------------------
+    seen = []
+
+    def once(key=None, **_ctx):
+        if key and key[0] == "aux":
+            return faults.PASS
+        seen.append(threading.current_thread().name)
+        if len(seen) == 2:
+            raise ValueError("readback poison (phase 12's fault plan)")
+        return faults.PASS
+
+    faults.install(faults.FaultInjector()).plan("batcher.drain", once)
+    try:
+        answers, wall, counts, ctl = flagship_wave(torch, dev, frames[:16], 2, kernels)
+    finally:
+        faults.clear()
+    transforms = [n for k, n, _b in ctl.launch_log if k == "transform"]
+    check(all(np.array_equal(a, b) for a, b in zip(answers, clean[:16])),
+          "the drain-side failure: an answer differs from the clean wave's")
+    check(set(seen) == {"flyimg-torch-batcher-drain"} and sorted(transforms) == [4, 4, 8, 8]
+          and ctl.stats["poison_isolated"] == 0,
+          f"the drain-side failure: drains on {set(seen)}, launches {transforms}, "
+          f"stats {ctl.stats}")
+    print(f"pipeline drain fault: the second launch's readback failed on its drain thread "
+          f"and was bisected there (transform launches {transforms}); all 16 answers equal "
+          f"the clean wave's in {wall:.3f} s; K1-K3 launches {counts}")
+
+    # -- a wedged executor: the direct program answers, the next submit heals --
+    src = os.path.join(workdir, "wedge.png")
+    with open(src, "wb") as fh:
+        fh.write(png.encode(frames[0]))
+    flagship = "w_300,h_250,c_1,smc_1"
+
+    def handler(name, ctl, **extra):
+        conf = {"upload_dir": os.path.join(workdir, name, "u"),
+                "tmp_dir": os.path.join(workdir, name, "t")}
+        conf.update(extra)
+        return ImageHandler(AppParameters(conf), device=dev, batcher=ctl)
+
+    ctl = BatchController(device=dev, lone_flush=True)
+    try:
+        want = handler("clean", ctl).process_image(flagship, src).content
+    finally:
+        ctl.close()
+    release = threading.Event()
+    blocked = []
+
+    def wedge_first_transform(key=None, **_ctx):
+        if key and key[0] != "aux" and not blocked:
+            blocked.append(threading.current_thread())
+            release.wait(timeout=120)
+        return faults.PASS
+
+    faults.install(faults.FaultInjector()).plan("batcher.execute", wedge_first_transform)
+    ctl = BatchController(device=dev, lone_flush=True, executor_wedge_timeout_s=0.5)
+    try:
+        h = handler("wedged", ctl, device_result_timeout_s=1.0)
+        t0 = time.perf_counter()
+        got = h.process_image(flagship, src).content
+        wall = time.perf_counter() - t0
+        check(got == want and h.wedged_fallbacks == 1,
+              f"the wedged executor: {len(got)} bytes (clean {len(want)}), fallbacks "
+              f"{h.wedged_fallbacks}")
+        check(ctl.restarts == {"dead": 0, "wedged": 1} and ctl._thread is not blocked[0],
+              f"the wedged executor was not replaced: {ctl.restarts}")
+        release.set()
+        blocked[0].join(timeout=60)
+        check(not blocked[0].is_alive(), "the replaced executor did not exit when released")
+    finally:
+        release.set()
+        faults.clear()
+        ctl.close()
+    print(f"pipeline wedge: the request answered the clean bytes through the direct "
+          f"program on {dev} in {wall:.3f} s (wedged_fallbacks 1); its smart-crop "
+          f"submission replaced the executor (restarts {ctl.restarts}); the old thread "
+          "exited when released")
+
+    # -- 16 JPEG requests with the host stage pools on and off -----------------
+    jpegs = []
+    for i in range(8):
+        path = os.path.join(workdir, f"stage{i}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(codecs.encode(np.ascontiguousarray(bases[i][:, ::-1]), "jpg",
+                                   quality=90, mozjpeg=False, sampling_factor="2x2",
+                                   device=dev))
+        jpegs.append(path)
+    urls = [f"/upload/{opts}/{path}" for path in jpegs
+            for opts in (flagship + ",o_jpg", "w_300,h_250,c_1,o_png")]
+    bodies, walls_hp = {}, {}
+    for enabled in (True, False):
+        server = make_server(AppParameters({
+            "upload_dir": os.path.join(workdir, f"hp{enabled}", "u"),
+            "tmp_dir": os.path.join(workdir, f"hp{enabled}", "t"),
+            "resample_kernel": "banded", "host_pipeline_enable": enabled,
+        }), device=dev)
+        thread = serve_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(16) as pool:
+                bodies[enabled] = list(pool.map(
+                    lambda u: urllib.request.urlopen(base + u, timeout=300).read(), urls))
+            walls_hp[enabled] = time.perf_counter() - t0
+            stages = {n: p.waits for n, p in server.host_pipeline.pools()}
+            check(stages == ({"fetch": 16, "decode": 16, "encode": 16} if enabled else {}),
+                  f"host pipeline {enabled}: stage tasks {stages}")
+            check(server.handler.wedged_fallbacks == 0,
+                  f"host pipeline {enabled}: {server.handler.wedged_fallbacks} fallbacks")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    check(bodies[True] == bodies[False], "the host pipeline on and off answer other bytes")
+    print(f"pipeline host stages: 16 JPEG requests (8 1024x768 q90 sources, flagship JPEG "
+          f"and w_300,h_250,c_1 PNG answers) byte-equal with the stage pools on and off; "
+          f"wall s on {walls_hp[True]:.3f}, off {walls_hp[False]:.3f}")
+
+    # -- the ledger's learned bytes per member cap a launch --------------------
+    governor = MemoryGovernor(enabled=True)
+    # a capped group's remainder launches at the deadline
+    ctl = BatchController(device=dev, max_batch=8, deadline_ms=200.0, lone_flush=False,
+                          governor=governor)
+    plan = build_plan(OptionsBag("w_300,h_250,c_1"), 1024, 768)
+    try:
+        first = [f.result(timeout=300) for f in [ctl.submit(fr, plan) for fr in frames[:8]]]
+        family = next(iter(governor.snapshot()["per_member_bytes"].items()), (None, None))
+        per_member = family[1]
+        check(per_member is not None and per_member > 0,
+              f"the governor learned nothing from the ledger: {governor.snapshot()}")
+        heuristic = 8 * 768 * 1024 * governor.heuristic_bytes_per_pixel
+        governor.device_budget_bytes = int(4.5 * per_member)
+        log0 = len(ctl.launch_log)
+        again = [f.result(timeout=300) for f in [ctl.submit(fr, plan) for fr in frames[:8]]]
+        capped = [n for _k, n, _b in list(ctl.launch_log)[log0:]]
+    finally:
+        ctl.close()
+    check(sorted(capped) == [4, 4] and all(np.array_equal(a, b) for a, b in zip(first, again)),
+          f"the learned cap: launches {capped}")
+    print(f"pipeline governor: learned {per_member:.0f} B a member from the ledger's peak "
+          f"(the heuristic predicts {heuristic:.0f} B for a launch of 8); under a budget of "
+          f"4.5 members ({governor.device_budget_bytes} B) 8 members ran as launches "
+          f"{capped}, the same bits, no out-of-memory")
+    ledger = costledger.get_ledger()
+    rows = [r for r in ledger.entries() if r["descriptor"].get("device", "").startswith("cuda")]
+    print(f"cost ledger: {json.dumps(ledger.aggregates())}, {len(rows)} entries on the "
+          f"card; card {card}")
+    for row in rows[:8]:
+        print("cost ledger entry: " + json.dumps(
+            {k: row[k] for k in ("key", "descriptor", "launches", "images", "device_s",
+                                 "compile_s", "peak_memory_bytes")}))
+
+    # -- an 8000x5000 header under mem_max_source_pixels ----------------------
+    big = os.path.join(workdir, "header_8000x5000.jpg")
+    with open(os.path.join(ROOT, "tests", "data", "jpeg", "q90_444.jpg"), "rb") as fh:
+        data = fh.read()
+    with open(big, "wb") as fh:
+        fh.write(bomb_header(data, 8000, 5000))
+    limit = native_codec.MAX_PIXELS
+    decodes = []
+    real_decode = native_codec.jpeg_decode
+    native_codec.jpeg_decode = lambda *a, **k: decodes.append(1) or real_decode(*a, **k)
+    server = make_server(AppParameters({
+        "upload_dir": os.path.join(workdir, "guard", "u"),
+        "tmp_dir": os.path.join(workdir, "guard", "t"),
+        "mem_max_source_pixels": 32 * 1024 * 1024,
+    }), device=dev)
+    thread = serve_in_thread(server)
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/upload/{flagship}/{big}"
+        try:
+            urllib.request.urlopen(url, timeout=120)
+            status, body = 200, b""
+        except urllib.error.HTTPError as exc:
+            status, body = exc.code, exc.read()
+    finally:
+        native_codec.jpeg_decode = real_decode
+        native_codec.MAX_PIXELS = limit
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(status == 413 and b"mem_max_source_pixels" in body and not decodes,
+          f"the 8000x5000 header: {status}, {body[:200]}, {len(decodes)} decodes")
+    print("pipeline guard: an 8000x5000 JPEG header answered 413 under "
+          "mem_max_source_pixels 33554432, before any decode")
+    set_kernel_mode("dense")
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return {"walls": walls, "transform_walls": tws, "host_walls": walls_hp}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
@@ -3596,6 +3950,18 @@ def main() -> int:
     for name in ("K1", "K2", "K3"):
         check(resilience_counts[name] > 0, f"resilience: {name} never launched")
 
+    # phase 12: the in-flight window, self-healing, host stages (main path)
+    os.makedirs(workdir)
+    try:
+        reset_counts(kernels)
+        phase_pipeline(torch, dev, card, workdir, kernels)
+        pipeline_counts = read_counts(kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"pipeline kernel launches: {pipeline_counts}; card {card}")
+    for name in ("K1", "K2", "K3"):
+        check(pipeline_counts[name] > 0, f"pipeline: {name} never launched")
+
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
                "flyimg_tpu/ops/resample.py:343"),
@@ -3637,7 +4003,7 @@ def main() -> int:
         launches = (entry_counts[key] + staged_counts[key]
                     + sum(c[key] for c in server_counts.values())
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
-                    + resilience_counts[key])
+                    + resilience_counts[key] + pipeline_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

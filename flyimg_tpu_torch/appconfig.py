@@ -23,6 +23,20 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "tmp_dir": "var/tmp",
     "batch_max_size": 64,
     "batch_deadline_ms": 4.0,
+    # launches between dispatch and completed readback (2: the next launch
+    # is dispatched while the last one reads back; 1: launch, read, launch)
+    "batch_pipeline_depth": 2,
+    # the host stage pools (runtime/hostpipeline.py): bounded fetch, decode
+    # and encode workers, each stage shedding 503 past workers + queue
+    # depth pending; a worker in one task longer than the wedge timeout is
+    # replaced (0 turns that check off). Off: every stage runs inline in
+    # the request's thread
+    "host_pipeline_enable": True,
+    "host_pipeline_fetch_workers": 4,
+    "host_pipeline_decode_workers": 2,
+    "host_pipeline_encode_workers": 2,
+    "host_pipeline_queue_depth": 16,
+    "host_pipeline_wedge_timeout_s": 60.0,
     # dense | banded | auto (ops/resample.py); the env var seeds it as in
     # the JAX package
     "resample_kernel": os.environ.get("FLYIMG_RESAMPLE_KERNEL", "dense"),
@@ -36,6 +50,10 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # result, fetch retries and per-host breakers
     "request_deadline_s": 0.0,
     "device_result_timeout_s": 120.0,
+    # past device_result_timeout_s a request answers from the direct
+    # single-image program on its own device (counted in the handler's
+    # wedged_fallbacks), or 503 with this off
+    "wedged_executor_fallback": True,
     "fetch_read_timeout_s": 10.0,
     "retry_max_attempts": 3,
     "retry_base_backoff_s": 0.05,
@@ -51,6 +69,9 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "resilience_batch_retries": 2,
     "resilience_bisect_enable": True,
     "resilience_quarantine_ttl": 300.0,
+    # an executor in one batch longer than this without progress is
+    # replaced at the next submission (0: only a dead one is)
+    "resilience_executor_wedge_timeout_s": 60.0,
     # the memory governor (runtime/memgovernor.py), off by default
     "mem_governor_enable": False,
     "mem_device_budget_bytes": 0,
@@ -59,6 +80,11 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "mem_probe_successes": 4,
     "mem_probe_step": 1,
     "mem_host_budget_bytes": 0,
+    # source guards: the most bytes a fetch reads, and the most pixels a
+    # source's header may declare (413 before any decode; also nvJPEG's
+    # limit; 0 or less keeps the codec's default)
+    "mem_max_source_bytes": 256 * 1024 * 1024,
+    "mem_max_source_pixels": 512 * 1024 * 1024,
     # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs
     # (tests only)
     "fault_injector": None,

@@ -35,7 +35,7 @@ import ctypes
 import os
 import struct
 import threading
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -57,7 +57,7 @@ _NVJPEG_STATUS = {
 }
 _BAD_JPEG, _NOT_SUPPORTED, _INCOMPLETE = 3, 4, 10
 #: the most pixels a JPEG source may declare (the JAX package's Pillow
-#: guard against decompression bombs)
+#: guard against decompression bombs); ``set_max_pixels`` re-bounds it
 MAX_PIXELS = 512 * 1024 * 1024
 #: nvjpegOutputFormat_t: the components' planes as coded, the luma plane,
 #: interleaved RGB (all in the channels of one nvjpegImage_t)
@@ -87,6 +87,15 @@ _nv_lib = None
 _nv_path = None
 _nv_handles = {}          # device index -> nvjpegHandle_t
 _nv_free = {}             # device index -> [(handle, dec, enc, params)]
+
+
+def set_max_pixels(limit: int) -> None:
+    """Re-bound ``MAX_PIXELS`` from the ``mem_max_source_pixels`` server
+    parameter; 0 or less keeps the current bound (an unbounded decoder
+    would defeat the guard)."""
+    global MAX_PIXELS
+    if int(limit) > 0:
+        MAX_PIXELS = int(limit)
 
 
 def _nvjpeg():
@@ -215,20 +224,90 @@ def _nv_session(lib, index: int):
             _nv_free[index].append(mine)
 
 
-def adobe_transform(data: bytes) -> Optional[int]:
-    """The colour transform of a JPEG's Adobe APP14 segment (0: none, CMYK
-    or RGB as coded; 1: YCbCr; 2: YCCK), or None without one. A marker
-    walk up to the first scan."""
+#: start-of-frame markers (baseline, extended, progressive, lossless; the
+#: arithmetic-coded ones too), whose segment lists the components
+_SOF_MARKERS = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def jpeg_layout(data: bytes) -> Tuple[bool, Optional[int], List[Tuple[int, int, int]]]:
+    """(a JFIF APP0 segment is present, the Adobe APP14 colour transform or
+    None, [(component id, h, v) sampling factors] of the frame header): a
+    marker walk up to the first scan."""
+    jfif, transform, comps = False, None, []
     i, n = 2, len(data)
     while i + 4 <= n and data[i] == 0xFF:
         marker = data[i + 1]
         if marker in (0xDA, 0xD9):
-            return None
+            break
         (seglen,) = struct.unpack(">H", data[i + 2:i + 4])
-        if marker == 0xEE and data[i + 4:i + 9] == b"Adobe" and seglen >= 12:
-            return data[i + 15] if i + 15 < n else None
+        body = data[i + 4:i + 2 + seglen]
+        if marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and seglen >= 12 and len(body) >= 12:
+            transform = body[11]
+        elif marker in _SOF_MARKERS and len(body) >= 6:
+            count = body[5]
+            comps = [(body[6 + 3 * k], body[7 + 3 * k] >> 4, body[7 + 3 * k] & 15)
+                     for k in range(count) if 8 + 3 * k < len(body)]
         i += 2 + seglen
-    return None
+    return jfif, transform, comps
+
+
+def adobe_transform(data: bytes) -> Optional[int]:
+    """The colour transform of a JPEG's Adobe APP14 segment (0: none, CMYK
+    or RGB as coded; 1: YCbCr; 2: YCCK), or None without one."""
+    return jpeg_layout(data)[1]
+
+
+def rgb_coded(jfif: bool, transform: Optional[int], comps) -> bool:
+    """Whether a three-component JPEG of this ``jpeg_layout`` stores R, G, B
+    as coded, as libjpeg decides it (jdapimin.c default_decompress_parms):
+    never with JFIF; with an Adobe segment, transform 0; without either,
+    component ids 'R', 'G', 'B'."""
+    if len(comps) != 3 or jfif:
+        return False
+    if transform is not None:
+        return transform == 0
+    return [c[0] for c in comps] == [ord("R"), ord("G"), ord("B")]
+
+
+def upsample_plane(plane, ratio: Tuple[int, int], out_hw: Tuple[int, int]):
+    """One decoded component plane [h, w] uint8 (on any device) brought to
+    the image's size as libjpeg-turbo's jdsample.c does, for the integer
+    ``ratio`` (horizontal, vertical) of the largest sampling factors to the
+    component's: 2:1 and 2:2 by its fancy (triangle) filters where the
+    plane is more than 2 samples wide, 1:2 by its fancy filter, every other
+    ratio by replication. Edges replicate (jdmainct.c's context rows),
+    then the result is cut to ``out_hw``."""
+    import torch
+
+    hr, vr = (int(r) for r in ratio)
+    x = plane.to(torch.int32)
+    dh, dw = x.shape
+    fancy_h = hr == 2 and dw > 2
+    if (hr, vr) == (1, 1):
+        out = x
+    elif (hr, vr) == (2, 1) and fancy_h:
+        left = torch.cat([x[:, :1], x[:, :-1]], 1)
+        right = torch.cat([x[:, 1:], x[:, -1:]], 1)
+        out = torch.stack([(3 * x + left + 1) >> 2, (3 * x + right + 2) >> 2], -1)
+        out = out.reshape(dh, 2 * dw)
+    elif (hr, vr) in ((2, 2), (1, 2)) and (fancy_h or hr == 1):
+        above = torch.cat([x[:1], x[:-1]], 0)
+        below = torch.cat([x[1:], x[-1:]], 0)
+        rows = []
+        for near, bias in ((3 * x + above, 1), (3 * x + below, 2)):
+            if hr == 1:
+                rows.append((near + bias) >> 2)
+                continue
+            last = torch.cat([near[:, :1], near[:, :-1]], 1)
+            nxt = torch.cat([near[:, 1:], near[:, -1:]], 1)
+            rows.append(torch.stack([(3 * near + last + 8) >> 4,
+                                     (3 * near + nxt + 7) >> 4], -1).reshape(dh, 2 * dw))
+        out = torch.stack(rows, 1).reshape(2 * dh, -1)
+    else:
+        out = x.repeat_interleave(vr, 0).repeat_interleave(hr, 1)
+    return out[: out_hw[0], : out_hw[1]].to(torch.uint8)
 
 
 def cmyk_rgb(planes, ycck: bool):
@@ -260,11 +339,14 @@ def jpeg_decode(data: bytes, scale_num: int = 8,
     """Decode JPEG bytes on the card -> [h, w, 3] uint8 on the host,
     prescaled to scale_num/8 (libjpeg's ceil(size * scale_num / 8)) on the
     card by a box mean of each (8 / scale_num)^2 block, rounded half up.
-    Three components decode to RGB in nvJPEG; one (gray) decodes its luma,
-    repeated as Pillow's L -> RGB repeats it; four (Adobe CMYK or YCCK)
-    decode their planes as coded, converted by ``cmyk_rgb``. A JPEG of
-    another component count, or four with subsampled components, is
-    refused."""
+    Three YCbCr components decode to RGB in nvJPEG; one (gray) decodes its
+    luma, repeated as Pillow's L -> RGB repeats it. The other layouts decode
+    their components' planes as coded, each at its own size
+    (``NVJPEG_OUTPUT_UNCHANGED``), upsampled to the image's size on the card
+    as libjpeg does (``upsample_plane``, before any colour conversion):
+    three RGB-coded components (``rgb_coded``) are the answer's R, G, B;
+    four (Adobe CMYK or YCCK) are converted by ``cmyk_rgb``. A JPEG of
+    another component count is refused."""
     import torch
     import torch.nn.functional as F
 
@@ -283,29 +365,43 @@ def jpeg_decode(data: bytes, scale_num: int = 8,
         if n not in (1, 3, 4):
             raise UnsupportedMediaException(
                 f"a JPEG of {n} components is not ported to the PyTorch package")
-        if n == 4 and any((widths[k], heights[k]) != (w, h) for k in range(4)):
-            raise UnsupportedMediaException(
-                "a CMYK/YCCK JPEG with subsampled components is not ported to "
-                "the PyTorch package (nvJPEG returns its planes unsampled)")
+        jfif, transform, comps = jpeg_layout(data)
+        as_planes = n == 4 or (n == 3 and rgb_coded(jfif, transform, comps))
         image = _NvjpegImage()
-        if n == 3:
+        if as_planes:
+            if len(comps) != n:
+                raise ExecFailedException("the JPEG's frame header does not list its components")
+            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+            if any(hmax % c[1] or vmax % c[2] for c in comps):
+                # libjpeg refuses these too (JERR_FRACT_SAMPLE_NOTIMPL)
+                raise UnsupportedMediaException(
+                    f"a JPEG with fractional sampling ratios {comps} is not decodable")
+            fmt = _OUTPUT_UNCHANGED
+            planes = [torch.empty((heights[k], widths[k]), dtype=torch.uint8, device=dev)
+                      for k in range(n)]
+            targets = [(p, widths[k]) for k, p in enumerate(planes)]
+        elif n == 3:
             out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-            fmt, planes = _OUTPUT_RGBI, [(out, w * 3)]
+            fmt, targets = _OUTPUT_RGBI, [(out, w * 3)]
         else:
-            coded = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
-            fmt = _OUTPUT_Y if n == 1 else _OUTPUT_UNCHANGED
-            planes = [(coded[k], w) for k in range(n)]
-        for k, (plane, pitch) in enumerate(planes):
+            luma = torch.empty((h, w), dtype=torch.uint8, device=dev)
+            fmt, targets = _OUTPUT_Y, [(luma, w)]
+        for k, (plane, pitch) in enumerate(targets):
             image.channel[k] = plane.data_ptr()
             image.pitch[k] = pitch
         stream = cuda_build.current_stream(dev.index)
         _nv_check(lib.nvjpegDecode(handle, state, data, len(data), fmt,
                                    ctypes.byref(image), stream), "decode")
         if n == 1:
-            out = coded[0].unsqueeze(-1).expand(h, w, 3)
-        elif n == 4:
-            transform = adobe_transform(data)
-            out = cmyk_rgb(coded, ycck=transform is not None and transform != 0)
+            out = luma.unsqueeze(-1).expand(h, w, 3)
+        elif as_planes:
+            full = torch.stack([
+                upsample_plane(p, (hmax // c[1], vmax // c[2]), (h, w))
+                for p, c in zip(planes, comps)])
+            if n == 3:
+                out = full.permute(1, 2, 0)
+            else:
+                out = cmyk_rgb(full, ycck=transform is not None and transform != 0)
         if scale_num in (1, 2, 4):
             k = 8 // scale_num
             x = out.permute(2, 0, 1).unsqueeze(0).float()

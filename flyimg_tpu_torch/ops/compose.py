@@ -25,6 +25,7 @@ naming it before any device work, never skipping it silently.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple, Union
 
@@ -44,6 +45,7 @@ from flyimg_tpu_torch.ops.resample import (
     select_band_taps,
 )
 from flyimg_tpu_torch.ops.rotate import rotate_image, rotate_image_dynamic
+from flyimg_tpu_torch.runtime import costledger
 from flyimg_tpu_torch.spec.geometry import gravity_offset
 from flyimg_tpu_torch.spec.plan import TransformPlan, rotated_bounds
 
@@ -327,12 +329,24 @@ def run_plan(
         resample_out, layout.pad_canvas, layout.pad_offset,
         plan.device_plan(), band_taps=band,
     )
+    t0 = time.perf_counter()
     geo = torch.from_numpy(
         geometry_rows(plan, layout, (h, w), src_window)[None]
     ).to(dev)
     out = fn(torch.from_numpy(np.ascontiguousarray(padded)[None]).to(dev),
              *program_args(geo))
     result = out[0].cpu().numpy()
+    # the direct program's launches count in the cost ledger too, under
+    # their own key (its first launch as the build)
+    key = ("single", str(dev), padded.shape[:2], resample_out, layout.pad_canvas,
+           layout.pad_offset, plan.device_plan(), band)
+    ledger = costledger.get_ledger()
+    device_s = time.perf_counter() - t0
+    if costledger.first_launch(key):
+        ledger.record_compile(key, descriptor={"batch": 1, "in_shape": list(padded.shape[:2]),
+                                               "device": str(dev)},
+                              compile_s=device_s)
+    ledger.record_launch(key, device_s=device_s, images=1)
     if slice_out is not None:
         result = np.ascontiguousarray(result[: slice_out[0], : slice_out[1]])
     return result

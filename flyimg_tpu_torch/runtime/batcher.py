@@ -15,10 +15,33 @@ power-of-two ladder capped at ``MAX_BATCH_BUCKET`` (pad slots repeat the
 last member). Auxiliary groups (``submit_aux``, the smart-crop scoring
 pass) batch the same way and run ``runner(payloads)``.
 
-One executor thread owns the device. On CUDA each launch stages its
-inputs in pinned host buffers, copies them to the card on the
-controller's own stream, runs the program on that stream and reads the
-result back through a pinned buffer.
+One executor thread assembles and dispatches; readbacks are pipelined.
+On CUDA each launch stages its inputs in pinned host buffers, copies them
+to the card on the controller's own stream, runs the program there,
+enqueues the copy back into a pinned buffer and records an event; the
+executor then hands the launch to a daemon drain thread and goes on to the
+next group. The drain thread waits on the event, accounts the launch and
+resolves the futures. At most ``pipeline_depth`` launches (default 2, the
+``batch_pipeline_depth`` parameter) are in flight, from their assembly to
+their completed readback: each takes a slot of a semaphore before it
+assembles, and its drain gives it back to that same semaphore instance. At
+depth 1 a launch assembles only after the last one has read back; at depth
+2 it assembles while the last one runs. Aux groups run on the executor
+thread, synchronously.
+
+Self-healing (the JAX package's): a dead executor thread is replaced at the
+next submission, and a wedged one (in one batch longer than
+``executor_wedge_timeout_s`` without progress; the clock pauses while a
+launch waits for a pipeline slot or builds its kernels) too, with a fresh
+pipeline semaphore. The replacement takes over the queued groups; the old
+thread exits when it comes back. ``restarts`` counts both.
+
+Every completed transform launch is accounted in the cost ledger
+(``runtime/costledger.py``) under its program key, device and padded
+batch (one process may run a program on the card and on the CPU): the
+first launch of a key as its build, with the allocator's measured peak,
+and each launch's seconds from dispatch to completed readback. The memory
+governor learns its per-member bytes from that peak on the drain side.
 
 Failure containment (the JAX package's): sharing a batch must not mean
 sharing its failures. A failed launch is classified
@@ -42,11 +65,12 @@ sharing its failures. A failed launch is classified
 
 With ``batch_retries`` 0, ``bisect_enable`` off, no quarantine, no
 governor and no queue bound, a failed launch fails every member with its
-error, as before containment. ``max_queue_depth`` bounds pending
+error, as before containment. A failure seen by a drain thread (the
+readback) is recovered on that thread. ``max_queue_depth`` bounds pending
 submissions (503 + Retry-After past it); a ``governor``
-(``runtime/memgovernor.py``) caps how many members a launch takes. Not
-ported yet (ROADMAP Queue A 2): pipelined readback, executor self-healing
-and the cost ledger.
+(``runtime/memgovernor.py``) caps how many members a launch takes.
+``close`` resolves every in-flight readback within its drain budget and
+stamps what is left with a ``TimeoutError``.
 """
 
 from __future__ import annotations
@@ -80,6 +104,7 @@ from flyimg_tpu_torch.ops.compose import (
     program_args,
 )
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
+from flyimg_tpu_torch.runtime import costledger
 from flyimg_tpu_torch.runtime.resilience import (
     FATAL,
     OVERSIZE,
@@ -102,14 +127,19 @@ def _round_batch(n: int) -> int:
 
 
 def containment_params(params) -> dict:
-    """The containment keyword arguments of ``BatchController`` from the
-    server parameters (the JAX package's ``resilience_*`` keys)."""
+    """The containment and pipelining keyword arguments of
+    ``BatchController`` from the server parameters (the JAX package's
+    ``resilience_*``, ``batch_max_queue_depth`` and
+    ``batch_pipeline_depth`` keys)."""
     return dict(
         batch_retries=int(params.by_key("resilience_batch_retries", 2)),
         bisect_enable=bool(params.by_key("resilience_bisect_enable", True)),
         quarantine_ttl_s=float(params.by_key("resilience_quarantine_ttl", 300.0)),
         max_queue_depth=int(params.by_key("batch_max_queue_depth", 0)),
         shed_retry_after_s=float(params.by_key("shed_retry_after_s", 1.0)),
+        executor_wedge_timeout_s=float(
+            params.by_key("resilience_executor_wedge_timeout_s", 60.0)),
+        pipeline_depth=int(params.by_key("batch_pipeline_depth", 2)),
     )
 
 
@@ -172,6 +202,39 @@ class _Group:
     # submission runs in a group of its own, and its fingerprint must stay
     # under the key later submissions look up
     base_key: Optional[Tuple] = None
+
+
+@dataclass(eq=False)
+class _Launch:
+    """One dispatched transform launch until its readback: the host output
+    (CPU), or the pinned buffer and the event after the copy back into it
+    (CUDA), with the tensors that must live until then."""
+
+    t_dispatch: float
+    host: Optional[np.ndarray] = None
+    pinned: Optional[torch.Tensor] = None
+    event: Optional[object] = None
+    peak: Optional[float] = None
+    keep: Tuple = ()
+
+
+def program_descriptor(group: _Group, batch: int,
+                       device: torch.device) -> Dict[str, object]:
+    """A readable identity of a group's program for the cost ledger: the
+    stages, shapes, resample form and device."""
+    plan = group.device_plan
+    ops = ["resample"] if group.resample_out is not None else []
+    if group.pad_canvas is not None:
+        ops.append("extent_pad")
+    for name in ("colorspace", "monochrome", "rotate", "unsharp", "sharpen", "blur"):
+        if getattr(plan, name) not in (None, False):
+            ops.append(name)
+    desc: Dict[str, object] = {"ops": ops or ["copy"], "batch": int(batch),
+                               "in_shape": list(group.in_shape), "device": str(device)}
+    if group.resample_out is not None:
+        desc["resample_out"] = list(group.resample_out)
+        desc["kernel"] = "banded" if group.band_taps is not None else "dense"
+    return desc
 
 
 def transform_group(
@@ -308,11 +371,13 @@ class BatchController:
         deadline_ms: float = 4.0,
         device: Union[str, torch.device] = "cuda",
         lone_flush: bool = True,
+        pipeline_depth: int = 2,
         max_queue_depth: int = 0,
         shed_retry_after_s: float = 1.0,
         batch_retries: int = 2,
         bisect_enable: bool = True,
         quarantine_ttl_s: float = 0.0,
+        executor_wedge_timeout_s: float = 0.0,
         governor=None,
     ) -> None:
         self.device = resolve_device(device)
@@ -342,17 +407,49 @@ class BatchController:
         self._retry_policy = RetryPolicy(max_attempts=self.batch_retries + 1)
         #: the memory governor (runtime/memgovernor.py), or None
         self.governor = governor
+        self._ledger = costledger.get_ledger()
         #: containment counters: batch retries, poison members isolated,
         #: submissions that hit quarantine
         self.stats = {"retries": 0, "poison_isolated": 0, "quarantine_hits": 0}
+        #: executors replaced by self-healing, by reason
+        self.restarts = {"dead": 0, "wedged": 0}
+        #: the most launches that were ever in flight (from a pipeline slot
+        #: taken to the readback done) at once
+        self.inflight_peak = 0
+        # self-healing: a dead executor is always replaced at the next
+        # submission, a wedged one (in one batch longer than this without
+        # progress) when the bound is > 0
+        self.executor_wedge_timeout_s = float(executor_wedge_timeout_s)
+        self._busy_since: Optional[float] = None
+        self._busy_owner: Optional[threading.Thread] = None
+        # the in-flight window: at most pipeline_depth launches between
+        # their assembly and their completed readback. Each
+        # readback runs on a daemon drain thread of its own, as in the JAX
+        # package: a hung read must block neither close() nor exit.
+        self._pipeline_depth = max(1, int(pipeline_depth))
+        self._inflight = threading.Semaphore(self._pipeline_depth)
+        self._inflight_batches: List[List[_Pending]] = []
+        self._launches_inflight = 0
+        # True between installing a replacement executor and its first turn
+        # in _run (an installed, unstarted thread is not alive: without this
+        # a concurrent submitter would heal again)
+        self._executor_pending = False
         self._quarantine_seq = itertools.count()
         self._groups: Dict[Tuple, _Group] = {}
         self._lock = threading.Condition()
         self._stop = False
+        self._spawn_executor().start()
+
+    def _spawn_executor(self) -> threading.Thread:
+        """Install (or, healing, replace) THE executor thread and return it
+        unstarted: callers start it outside the lock. ``self._thread`` is
+        the baton: a replaced thread sees ``self._thread is not me`` and
+        exits."""
         self._thread = threading.Thread(
             target=self._run, name="flyimg-torch-batcher", daemon=True
         )
-        self._thread.start()
+        self._executor_pending = True
+        return self._thread
 
     # ------------------------------------------------------------------
 
@@ -404,28 +501,124 @@ class BatchController:
     def _enqueue(self, key, pending: _Pending, make_group) -> None:
         """Admission first (past the bound this raises the 503 in the
         submitter's thread; the slot frees when the future resolves, however
-        it resolves), then the group's get-or-create and append."""
+        it resolves), then the heal check, then the group's get-or-create
+        and append. A replacement executor starts outside the lock (a thread
+        start blocks, and under the lock it would hold every submitter)."""
         self.admission.acquire()
         pending.future.add_done_callback(lambda _f: self.admission.release())
+        replacement = None
         try:
             with self._lock:
                 if self._stop:
                     raise RuntimeError("batcher is closed")
+                replacement = self._maybe_heal_executor_locked()
                 group = self._groups.get(key)
                 if group is None:
                     group = self._groups[key] = make_group()
                 group.members.append(pending)
                 self._lock.notify()
         except BaseException:
-            self.admission.release()
+            if not pending.future.done():
+                self.admission.release()
             raise
+        finally:
+            # in a finally, so an enqueue failure never strands an
+            # installed, unstarted executor
+            if replacement is not None:
+                try:
+                    replacement.start()
+                except BaseException:
+                    with self._lock:
+                        self._executor_pending = False
+                    raise
 
-    def close(self, timeout: float = 10.0) -> None:
-        """Stop taking work, run what is queued, and join the executor."""
+    def _maybe_heal_executor_locked(self) -> Optional[threading.Thread]:
+        """Executor self-healing, checked at every submission (the lock
+        held): a DEAD executor is always replaced; a WEDGED one (in one
+        batch longer than ``executor_wedge_timeout_s`` without progress)
+        when that bound is set. The replacement takes over every queued
+        group (``self._groups`` is shared, not the thread's); the replaced
+        thread, if it ever comes back, sees ``self._thread is not me`` and
+        exits, its futures resolving as usual. Returns the replacement,
+        unstarted, or None."""
+        if self._stop or self._executor_pending:
+            return None
+        reason = None
+        if not self._thread.is_alive():
+            reason = "dead"
+        elif (
+            self.executor_wedge_timeout_s > 0
+            and self._busy_since is not None
+            and time.monotonic() - self._busy_since > self.executor_wedge_timeout_s
+        ):
+            reason = "wedged"
+        if reason is None:
+            return None
+        self.restarts[reason] += 1
+        if reason == "wedged":
+            # a thread wedged after taking a pipeline slot never gives it
+            # back: leave the old semaphore to it, so the replacement has
+            # the whole depth (every release goes to the instance its
+            # launch took, so a late one lands on the old object)
+            self._inflight = threading.Semaphore(self._pipeline_depth)
+        self._busy_since = None
+        self._busy_owner = None
+        return self._spawn_executor()
+
+    def _touch_busy(self) -> None:
+        """Progress: restart the wedge clock. It bounds time without
+        progress, not a whole batch (a long recovery is healthy). Only the
+        clock's owner touches it: recovery launches on drain threads must
+        not hide a wedged executor."""
+        me = threading.current_thread()
+        with self._lock:
+            if self._busy_owner is me:
+                self._busy_since = time.monotonic()
+
+    def _suspend_busy(self) -> None:
+        """Pause the wedge clock: across a wait for a pipeline slot (that is
+        backpressure, not a wedge) and a program's first launch (its
+        kernels may build there, for seconds). The next touch re-arms it."""
+        me = threading.current_thread()
+        with self._lock:
+            if self._busy_owner is me:
+                self._busy_since = None
+
+    def _clear_busy(self, me: threading.Thread) -> None:
+        with self._lock:
+            if self._busy_owner is me:
+                self._busy_since = None
+                self._busy_owner = None
+
+    def close(self, drain_timeout_s: float = 30.0) -> None:
+        """Stop taking work, run what is queued, join the executor (a wedged
+        one is not waited for past 5 s), then resolve every in-flight
+        readback within ``drain_timeout_s``: what is left then gets a
+        ``TimeoutError``."""
         with self._lock:
             self._stop = True
             self._lock.notify_all()
-        self._thread.join(timeout)
+        try:
+            self._thread.join(timeout=min(5.0, max(drain_timeout_s, 0.1)))
+        except RuntimeError:
+            pass    # a replacement installed but not started: nothing to join
+        # every in-flight batch (dispatching, wedged or reading back)
+        deadline = time.monotonic() + max(float(drain_timeout_s), 0.0)
+        while time.monotonic() < deadline:
+            with self._lock:
+                if not self._inflight_batches:
+                    return
+            time.sleep(0.05)
+        with self._lock:
+            leftovers = [m for batch in self._inflight_batches for m in batch]
+            self._inflight_batches = []
+        for member in leftovers:
+            if not member.future.done():
+                try:
+                    member.future.set_exception(TimeoutError(
+                        "batcher closed while a device readback hung"))
+                except Exception:
+                    pass    # a drain thread resolved it meanwhile
 
     def _count(self, name: str) -> None:
         with self._lock:
@@ -478,50 +671,146 @@ class BatchController:
         return max(min(waits), 0.0) if waits else None
 
     def _run(self) -> None:
+        me = threading.current_thread()
+        with self._lock:
+            if self._thread is me:
+                self._executor_pending = False
         while True:
             with self._lock:
                 while True:
+                    if self._thread is not me:
+                        # replaced: pass the wakeup on (a submit's notify
+                        # wakes ONE waiter; if that was this thread, the
+                        # live executor would sleep with work queued)
+                        self._lock.notify()
+                        return
                     group = self._pop_ready_locked()
                     if group is not None:
                         break
                     if self._stop and not self._groups:
                         return
                     self._lock.wait(timeout=self._next_wait_locked())
+                self._busy_since = time.monotonic()
+                self._busy_owner = me
+                # in flight from the pop on: close() must see (and stamp) a
+                # batch whose dispatch is still running or wedged
+                self._inflight_batches.append(group.members)
+            handed_off = False
             try:
-                self._execute(group)
-            except BaseException as exc:  # the last line keeping the executor alive
+                handed_off = self._execute(group)
+            except Exception as exc:  # the last line keeping the executor alive
                 self._fail_members(group.members, exc)
+            except BaseException as exc:
+                # the thread dies, but its batch must not die silently; the
+                # next submission's heal check replaces the executor
+                self._fail_members(group.members, RuntimeError(
+                    f"batch executor died: {exc!r}"))
+                self._clear_busy(me)
+                raise
+            finally:
+                if not handed_off:
+                    # resolved on this thread; a handed-off batch stays in
+                    # flight until its drain thread ends
+                    self._forget_batch(group.members)
+            self._clear_busy(me)
 
-    def _execute(self, group: _Group) -> None:
-        """Run one popped group; a failed launch goes to ``_recover``."""
+    def _forget_batch(self, members: List[_Pending]) -> None:
+        with self._lock:
+            if members in self._inflight_batches:
+                self._inflight_batches.remove(members)
+
+    def _execute(self, group: _Group) -> bool:
+        """Run one popped group. A transform group is dispatched and handed
+        to a drain thread (returns True); an aux group runs here, and a
+        failure before the hand-off goes to ``_recover`` on this thread."""
         members = group.members
         try:
             # a blocking plan here wedges the executor; a raising one goes
             # through the same recovery as a failed launch
             faults.fire("batcher.execute", key=group.key, n=len(members))
-            outputs = self._run_members(group, members)
+            if group.runner is not None:
+                self._resolve_members(group, members,
+                                      self._run_members(group, members))
+                return False
+            return self._dispatch(group, members)
         except Exception as exc:
             self._recover(group, members, exc)
-            return
-        self._resolve_members(group, members, outputs)
+            return False
 
-    def _run_members(self, group: _Group, members: List[_Pending]):
-        """ONE synchronous launch of ``members`` (assemble -> run -> read
-        back), for the primary launch and every recovery launch alike;
-        raises on failure, returns the outputs for ``_resolve_members``."""
+    def _dispatch(self, group: _Group, members: List[_Pending]) -> bool:
+        """Take a pipeline slot, assemble, launch, and hand the readback to
+        a drain thread. The slot is taken before the assembly, so that a
+        launch's pinned staging counts against the window as its device
+        tensors do, and depth 1 is the strict order (assemble, launch, read
+        back, then the next); at depth 2 the next group assembles while the
+        last one runs and reads back. The slot is the semaphore INSTANCE
+        taken here: a wedge heal may swap ``self._inflight``, and the
+        release must go to this one."""
+        n = len(members)
+        inflight = self._inflight
+        self._suspend_busy()
+        inflight.acquire()
+        self._note_inflight(1)
+        self._touch_busy()
+        try:
+            batch, images, geo, fn, key = self._prepare(group, members)
+            measure = not costledger.launched(key)
+            if measure:
+                self._suspend_busy()
+            self.launch_log.append(("transform", n, batch))
+            launch = self._launch(fn, images, geo, measure)
+            first = measure and costledger.first_launch(key)
+            self._touch_busy()
+            # the launch rides in a box the drain empties: the thread's own
+            # argument tuple would keep its tensors alive through a recovery
+            # on the drain thread
+            threading.Thread(
+                target=self._drain,
+                args=(group, members, [launch], key, batch, first, inflight),
+                name="flyimg-torch-batcher-drain", daemon=True,
+            ).start()
+            return True
+        except BaseException:
+            self._note_inflight(-1)
+            inflight.release()
+            raise
+
+    def _note_inflight(self, step: int) -> None:
+        with self._lock:
+            self._launches_inflight += step
+            self.inflight_peak = max(self.inflight_peak, self._launches_inflight)
+
+    def _drain(self, group: _Group, members: List[_Pending], box: list, key,
+               batch: int, first: bool, inflight: threading.Semaphore) -> None:
+        """Wait for one dispatched launch, read it back, account it and
+        resolve its members (a daemon drain thread). A failure here goes to
+        ``_recover`` on this thread."""
+        n = len(members)
+        launch = box.pop()
+        try:
+            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+            host = self._read_back(launch)
+            device_s = time.perf_counter() - launch.t_dispatch
+            peak = launch.peak
+            launch = None
+            self._account(group, key, batch, n, device_s, first, peak)
+            self._resolve_members(group, members, host)
+        except Exception as exc:
+            launch = None   # its device tensors go before recovery launches
+            self._recover(group, members, exc)
+        finally:
+            self._note_inflight(-1)
+            inflight.release()
+            self._forget_batch(members)
+
+    def _prepare(self, group: _Group, members: List[_Pending]):
+        """Host side of one transform launch: the padded batch, its host
+        tensors (pinned on CUDA), the program, and the program's ledger
+        key. Fires ``batcher.member`` for each member (a raising plan models
+        a poison member failing the launch) and ``batcher.oom``."""
         n = len(members)
         for i, member in enumerate(members):
-            # a raising plan models a poison member failing the whole launch
             faults.fire("batcher.member", key=group.key, index=i, image=member.payload)
-        if group.runner is not None:
-            self.launch_log.append(("aux", n, n))
-            outputs = group.runner([m.payload for m in members])
-            if len(outputs) != n:
-                raise RuntimeError(
-                    f"aux runner returned {len(outputs)} results for {n} payloads"
-                )
-            faults.fire("batcher.drain", key=group.key, n=n, batch=n)
-            return outputs
         batch = _round_batch(n)
         images, geo = assemble_batch(
             group, [(m.payload, m.plan, m.src_window) for m in members],
@@ -532,23 +821,92 @@ class BatchController:
             group.resample_out, group.pad_canvas, group.pad_offset,
             group.device_plan, group.rotate_dynamic, group.band_taps,
         )
-        self.launch_log.append(("transform", n, batch))
+        return batch, images, geo, fn, (("batched", str(self.device), batch)
+                                        + tuple(group.base_key))
+
+    def _launch(self, fn, images, geo, measure_peak: bool) -> _Launch:
+        """Enqueue one launch: on CUDA the copy up, the program and the copy
+        back into a pinned buffer, on the controller's stream, with an
+        event after them (nothing waits here); on the CPU the program runs
+        here. ``measure_peak``: the allocator's peak over the enqueue, less
+        what was allocated before (a program's first launch)."""
+        t_dispatch = time.perf_counter()
         if self._stream is None:
-            host = fn(images, *program_args(geo)).numpy()
-            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
-        else:
-            with torch.cuda.stream(self._stream):
-                d_img = images.to(self.device, non_blocking=True)
-                d_geo = geo.to(self.device, non_blocking=True)
-                out = fn(d_img, *program_args(d_geo))
-                pinned = torch.empty(out.shape, dtype=out.dtype,
-                                     pin_memory=True)
-                pinned.copy_(out, non_blocking=True)
-            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
-            self._stream.synchronize()
-            host = pinned.numpy()
+            return _Launch(t_dispatch, host=fn(images, *program_args(geo)).numpy())
+        dev = self.device
+        before = None
+        with torch.cuda.stream(self._stream):
+            if measure_peak:
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            d_img = images.to(dev, non_blocking=True)
+            d_geo = geo.to(dev, non_blocking=True)
+            out = fn(d_img, *program_args(d_geo))
+            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            pinned.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        peak = None
+        if before is not None:
+            peak = float(torch.cuda.max_memory_allocated(dev) - before)
+        # the tensors live until the readback: the staging buffers until
+        # the copies up end, the device ones until the copy back does
+        return _Launch(t_dispatch, pinned=pinned, event=done, peak=peak,
+                       keep=(images, geo, d_img, d_geo, out))
+
+    @staticmethod
+    def _read_back(launch: _Launch) -> np.ndarray:
+        if launch.event is None:
+            return launch.host
+        launch.event.synchronize()
+        return launch.pinned.numpy()
+
+    def _account(self, group: _Group, key, batch: int, n: int,
+                 device_s: float, first: bool, peak: Optional[float]) -> None:
+        """After a completed readback: the ledger's build record (a first
+        launch) and launch record, and the governor's lesson (the family's
+        bytes per member from the ledger's peak; a clean launch at a
+        ceiling counts toward its raise)."""
+        if first:
+            self._ledger.record_compile(
+                key, descriptor=program_descriptor(group, batch, self.device),
+                compile_s=device_s, peak_memory_bytes=peak,
+            )
+        self._ledger.record_launch(key, device_s=device_s, images=n)
         if self.governor is not None:
+            self.governor.observe(group.base_key, batch, self._ledger.peak_memory(key))
             self.governor.record_success(group.base_key, n)
+
+    def _run_members(self, group: _Group, members: List[_Pending]):
+        """ONE synchronous launch of ``members`` (assemble -> run -> read
+        back) for an aux group and for every recovery launch; raises on
+        failure, returns the outputs for ``_resolve_members``."""
+        self._touch_busy()      # a recovery launch is progress
+        n = len(members)
+        if group.runner is not None:
+            for i, member in enumerate(members):
+                faults.fire("batcher.member", key=group.key, index=i,
+                            image=member.payload)
+            self.launch_log.append(("aux", n, n))
+            outputs = group.runner([m.payload for m in members])
+            if len(outputs) != n:
+                raise RuntimeError(
+                    f"aux runner returned {len(outputs)} results for {n} payloads"
+                )
+            faults.fire("batcher.drain", key=group.key, n=n, batch=n)
+            return outputs
+        batch, images, geo, fn, key = self._prepare(group, members)
+        measure = not costledger.launched(key)
+        if measure:
+            self._suspend_busy()
+        self.launch_log.append(("transform", n, batch))
+        launch = self._launch(fn, images, geo, measure)
+        first = measure and costledger.first_launch(key)
+        faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+        host = self._read_back(launch)
+        device_s = time.perf_counter() - launch.t_dispatch
+        self._touch_busy()
+        self._account(group, key, batch, n, device_s, first, launch.peak)
         return host
 
     def _resolve_members(self, group: _Group, members: List[_Pending],
@@ -577,7 +935,9 @@ class BatchController:
 
     def _recover(self, group: _Group, members: List[_Pending],
                  exc: Exception) -> None:
-        """Containment of one failed launch, on the executor thread.
+        """Containment of one failed launch, on the thread that saw the
+        failure: the executor (assembly, dispatch, an aux group) or the
+        launch's drain thread (the readback).
         Recovery launches are bounded: ``batch_retries`` for a transient
         error, at most 2·ceil(log2 n) for a bisection. A sticky CUDA error
         met during recovery stops it and fails every member still

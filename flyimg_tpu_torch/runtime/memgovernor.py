@@ -3,12 +3,15 @@
 The port of ``flyimg_tpu/runtime/memgovernor.py``.
 
 **Device side** (``MemoryGovernor``): before the batcher launches a group it
-asks how many members fit ``mem_device_budget_bytes``. The prediction is a
-bytes-per-padded-pixel heuristic over the padded launch (the JAX package
-also learns a per-member figure from its cost ledger's compile-time memory
-analysis; the port has no cost ledger yet, ROADMAP Queue A 2, so it keeps
-the heuristic alone). An over-budget group is pre-split by capping how many
-members one launch takes (the rest stays queued). A launch that still fails
+asks how many members fit ``mem_device_budget_bytes``. The prediction is
+learned per plan family once the family has launched: the batcher's drain
+calls ``observe`` with the cost ledger's peak for the program
+(``runtime/costledger.py``: measured at its first launch, where the JAX
+package reads its compile-time memory analysis) and the padded batch, and
+the governor keeps the largest bytes per padded member seen. Until then it
+is a bytes-per-padded-pixel heuristic over the padded launch. An
+over-budget group is pre-split by capping how many members one launch
+takes (the rest stays queued). A launch that still fails
 with ``torch.OutOfMemoryError`` (``classify_batch_error`` == ``OVERSIZE``)
 records a TTL'd capacity ceiling for its plan family: halved on each
 out-of-memory, raised by ``probe_step`` after ``probe_successes`` clean
@@ -31,19 +34,14 @@ every governor call without a governor, and the server makes none unless
 
 from __future__ import annotations
 
-import hashlib
 import os
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 from flyimg_tpu_torch.exceptions import ServiceUnavailableException
+from flyimg_tpu_torch.runtime.costledger import key_digest as _family_label
 from flyimg_tpu_torch.testing import faults
-
-
-def _family_label(key) -> str:
-    """A compact stable label of one plan-family key."""
-    return hashlib.blake2b(repr(key).encode(), digest_size=8).hexdigest()
 
 
 class MemoryGovernor:
@@ -75,6 +73,9 @@ class MemoryGovernor:
         self.probe_step = max(int(probe_step), 1)
         self._clock = clock
         self._lock = threading.Lock()
+        # family label -> the largest peak bytes per padded member learned
+        # from the cost ledger
+        self._per_member: Dict[str, float] = {}
         # family label -> [cap_members, expires_at, successes_at_cap]
         self._ceilings: Dict[str, list] = {}
         self._presplits_total = 0
@@ -97,10 +98,30 @@ class MemoryGovernor:
 
     # -- prediction --------------------------------------------------------
 
-    def predict_bytes(self, padded_batch: int,
+    def observe(self, family, padded_batch: int,
+                peak_bytes: Optional[float]) -> None:
+        """Learn from one launch of ``padded_batch`` members whose program
+        peaked at ``peak_bytes`` (the cost ledger's). Keeps the largest
+        bytes per member seen: small launches amortise fixed costs worst,
+        so the largest is the conservative scaling model."""
+        if not self.enabled or not peak_bytes or padded_batch <= 0:
+            return
+        per_member = float(peak_bytes) / float(padded_batch)
+        label = _family_label(family)
+        with self._lock:
+            if per_member > self._per_member.get(label, 0.0):
+                self._per_member[label] = per_member
+
+    def predict_bytes(self, family, padded_batch: int,
                       in_shape: Optional[Tuple[int, int]]) -> float:
-        """Predicted peak device bytes of one launch: the heuristic's bytes
-        per padded input pixel."""
+        """Predicted peak device bytes of one launch: the learned bytes per
+        padded member once the family has launched, else the heuristic's
+        bytes per padded input pixel."""
+        label = _family_label(family)
+        with self._lock:
+            per_member = self._per_member.get(label)
+        if per_member is not None:
+            return per_member * float(padded_batch)
         if not in_shape:
             return 0.0
         h, w = int(in_shape[0]), int(in_shape[1])
@@ -127,7 +148,7 @@ class MemoryGovernor:
             cap = min(cap, max(int(ceiling), 1))
         if self.device_budget_bytes > 0:
             while cap > 1 and self.predict_bytes(
-                pad_fn(cap), in_shape
+                family, pad_fn(cap), in_shape
             ) > self.device_budget_bytes:
                 cap -= 1
         return cap if cap < requested else None
@@ -205,6 +226,7 @@ class MemoryGovernor:
                 "enabled": self.enabled,
                 "device_budget_bytes": self.device_budget_bytes,
                 "heuristic_bytes_per_pixel": self.heuristic_bytes_per_pixel,
+                "per_member_bytes": dict(self._per_member),
                 "ceilings": ceilings,
                 "presplits_total": self._presplits_total,
                 "oom_launches_total": self._oom_launches_total,

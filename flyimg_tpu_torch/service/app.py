@@ -32,6 +32,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from flyimg_tpu_torch.appconfig import AppParameters
+from flyimg_tpu_torch.codecs import native_codec
 from flyimg_tpu_torch.exceptions import (
     AppException,
     DeadlineExceededException,
@@ -49,6 +50,7 @@ from flyimg_tpu_torch.exceptions import (
 from flyimg_tpu_torch.ops.resample import set_kernel_mode
 from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
+from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.memgovernor import MemoryGovernor
 from flyimg_tpu_torch.testing import faults
 from flyimg_tpu_torch.service.handler import ImageHandler
@@ -100,7 +102,8 @@ def local_sp_mesh(device: torch.device) -> Optional[Mesh]:
 
 
 class FlyimgServer(ThreadingHTTPServer):
-    """The HTTP server, its handler and its batcher."""
+    """The HTTP server, its handler, its batcher and its host stage
+    pools."""
 
     daemon_threads = True
 
@@ -112,6 +115,9 @@ class FlyimgServer(ThreadingHTTPServer):
         injector = params.by_key("fault_injector")
         if injector is not None:
             faults.install(injector)
+        # nvJPEG's decode limit follows the source pixel guard (as the JAX
+        # package's Pillow guard does; 0 or less keeps the default)
+        native_codec.set_max_pixels(int(params.by_key("mem_max_source_pixels", 0) or 0))
         governor = MemoryGovernor.from_params(params)
         self.batcher = BatchController(
             max_batch=int(params.by_key("batch_max_size", 64)),
@@ -122,14 +128,16 @@ class FlyimgServer(ThreadingHTTPServer):
         )
         if sp_mesh is None:
             sp_mesh = local_sp_mesh(self.batcher.device)
+        self.host_pipeline = HostPipeline.from_params(params)
         self.handler = ImageHandler(
             params, device=self.batcher.device, batcher=self.batcher,
-            sp_mesh=sp_mesh,
+            sp_mesh=sp_mesh, host_pipeline=self.host_pipeline,
         )
         super().__init__(address, _RequestHandler)
 
     def server_close(self) -> None:
         super().server_close()
+        self.host_pipeline.close()
         self.batcher.close()
 
 

@@ -19,10 +19,11 @@ exactly one of rotate, blur, sharpen and unsharp (``parallel/tiling.py``).
 Sources decode from PNG, JPEG and WebP (lossy, lossless, with alpha),
 answers encode to PNG, JPEG (``q_``, ``moz_``, ``sf_``) and WebP (lossy at
 ``q_``, lossless with ``webpl_1``; codecs/); ``o_auto`` answers WebP to a
-client that accepts it (``accepts_webp``), as the reference does. Not
-ported yet (ROADMAP): the JPEG sampling factors nvJPEG lacks, GIF, CMYK JPEG
-(``clsp_CMYK``), signed URLs and domain
-restrictions, brownout, derivative reuse and the fleet tier.
+client that accepts it (``accepts_webp``), as the reference does. The
+fetch, the decode and the encode run on the host stage pools when the
+server has them (``host_pipeline_*``). Not ported yet (ROADMAP): the JPEG
+sampling factors nvJPEG lacks, GIF, CMYK JPEG (``clsp_CMYK``), signed URLs
+and domain restrictions, brownout, derivative reuse and the fleet tier.
 """
 
 from __future__ import annotations
@@ -45,9 +46,9 @@ from flyimg_tpu_torch.codecs import metadata
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
-    DeadlineExceededException,
     ExecFailedException,
     InvalidArgumentException,
+    PayloadTooLargeException,
     ServiceUnavailableException,
     UnsupportedMediaException,
 )
@@ -62,6 +63,7 @@ from flyimg_tpu_torch.parallel.tiling import (
     tiled_transform,
 )
 from flyimg_tpu_torch.runtime.batcher import BatchController
+from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.memgovernor import HostByteAccountant
 from flyimg_tpu_torch.runtime.resilience import Deadline
 from flyimg_tpu_torch.service.input_source import FetchPolicy, load_source
@@ -184,8 +186,20 @@ class ImageHandler:
     Every request has a ``Deadline`` (``request_deadline_s``; 0 is
     unbounded): the fetch, each wait on the device and the encode check
     it, and a spent budget answers 504. Each wait on the batcher's result
-    is bounded by ``device_result_timeout_s`` too: past it the request
-    answers 504 and the launch runs on. ``mem_host_budget_bytes`` > 0
+    (the transform, smart-crop scoring, face detection) is bounded by
+    ``device_result_timeout_s`` too: past it the request runs the direct
+    single-image program in its own thread, on the handler's device with
+    the same kernels (``wedged_executor_fallback``, counted in
+    ``wedged_fallbacks``), or answers 503 with that off; the launch runs on
+    and its result is dropped.
+
+    With a ``host_pipeline`` (runtime/hostpipeline.py, enabled) the fetch,
+    the decode and the encode run on its stage pools: a stage that sheds
+    answers its 503; a fetch that does not finish in time answers 503, a
+    decode or an encode runs inline instead (counted as a wedge).
+
+    A source whose header declares more than ``mem_max_source_pixels``
+    pixels answers 413 before any decode. ``mem_host_budget_bytes`` > 0
     charges each decode's predicted bytes (w x h x 3) against a host
     budget (503 + Retry-After past it)."""
 
@@ -200,15 +214,19 @@ class ImageHandler:
         batcher: Optional[BatchController] = None,
         face_backend=None,
         sp_mesh: Optional[Mesh] = None,
+        host_pipeline: Optional[HostPipeline] = None,
     ) -> None:
         self.params = params or AppParameters()
         self.device = resolve_device(device)
         self.batcher = batcher
         self.sp_mesh = sp_mesh
-        # counterparts of the reference's flyimg_tiled_resamples_total and
-        # flyimg_tiled_single_ops_total (the port has no metrics registry)
+        self.host_pipeline = host_pipeline
+        # counterparts of the reference's flyimg_tiled_resamples_total,
+        # flyimg_tiled_single_ops_total and flyimg_wedged_fallbacks_total
+        # (the port has no metrics registry)
         self.tiled_resamples = 0
         self.tiled_single_ops = 0
+        self.wedged_fallbacks = 0
         self._count_lock = threading.Lock()
         self._face_backend = face_backend
         self._face_lock = threading.Lock()
@@ -217,6 +235,8 @@ class ImageHandler:
         self.fetch_policy = FetchPolicy.from_params(self.params)
         self.default_deadline_s = float(self.params.by_key("request_deadline_s") or 0.0)
         self.device_result_timeout_s = float(self.params.by_key("device_result_timeout_s"))
+        self.wedged_fallback = bool(self.params.by_key("wedged_executor_fallback", True))
+        self.max_source_pixels = int(self.params.by_key("mem_max_source_pixels", 0) or 0)
         accountant = HostByteAccountant.from_params(self.params)
         self.mem_accountant = accountant if accountant.enabled else None
         self._flight = _SingleFlight()
@@ -243,11 +263,11 @@ class ImageHandler:
             separator=self.params.by_key("options_separator", ","),
         )
         t = time.perf_counter()
-        source = load_source(
+        source = self._stage("fetch", lambda: load_source(
             image_src, options, self.tmp_dir,
             header_extra_options=self.params.by_key("header_extra_options", ""),
             policy=self.fetch_policy, deadline=deadline,
-        )
+        ), deadline, inline_fallback=False)
         timings["fetch"] = time.perf_counter() - t
         spec = resolve_output(options, image_src, source.info.mime,
                               accepts_webp=accepts_webp)
@@ -323,22 +343,54 @@ class ImageHandler:
                 )
             return self._face_backend
 
-    def _wait(self, fut: Future, stage: str, deadline: Deadline):
-        """A batched result, waited for at most ``device_result_timeout_s``
-        and the request's remaining budget; past either, 504 (the launch
-        runs on and its result is dropped)."""
-        timeout = deadline.timeout(self.device_result_timeout_s)
+    def _record_wedge(self) -> None:
+        """Every wedged-executor or wedged-stage fallback counts here."""
+        self._count("wedged_fallbacks")
+
+    def _stage(self, name: str, fn, deadline: Deadline, *,
+               inline_fallback: bool = True):
+        """Run one host stage on its pool when the host pipeline is on, else
+        inline. A stage that does not finish within the device wait (a
+        wedged or saturated pool) runs ``fn`` inline in this thread
+        (``inline_fallback``, counted as a wedge) or answers 503; a pool's
+        shed propagates its 503; an error of ``fn`` itself surfaces as is."""
+        pipeline = self.host_pipeline
+        if pipeline is None or not pipeline.enabled:
+            return fn()
         try:
-            return fut.result(timeout=timeout)
+            return pipeline.run(
+                name, fn, timeout=deadline.timeout(self.device_result_timeout_s))
+        except (FutureTimeout, TimeoutError):
+            # our wait ran out, or the pool failed the task (a wedged worker
+            # abandoned by its heal, a pool closing)
+            deadline.check(name)
+            self._record_wedge()
+            if inline_fallback:
+                return fn()
+            raise ServiceUnavailableException(
+                f"host {name} stage did not produce a result in time") from None
+
+    def _wait(self, fut: Future, stage: str, deadline: Deadline, direct):
+        """A batched result, waited for at most ``device_result_timeout_s``
+        and the request's remaining budget. A spent budget answers 504; past
+        the device wait the executor is taken as wedged: ``direct()`` (the
+        single-image program on this handler's device) answers in this
+        thread, counted in ``wedged_fallbacks``, or, with
+        ``wedged_executor_fallback`` off, 503."""
+        try:
+            return fut.result(timeout=deadline.timeout(self.device_result_timeout_s))
         except FutureTimeout:
             deadline.check(stage)
-            raise DeadlineExceededException(
-                f"the device's {stage} result was not ready within "
-                f"{timeout:.3f}s (device_result_timeout_s)") from None
+            if not self.wedged_fallback:
+                raise ServiceUnavailableException(
+                    f"the device executor did not produce the {stage} result "
+                    "within device_result_timeout_s") from None
+            self._record_wedge()
+            return direct()
 
-    def _await(self, fut: Future, stage: str, deadline: Deadline):
+    def _await(self, fut: Future, stage: str, deadline: Deadline, direct):
         with _device_failures("device transform"):
-            return self._wait(fut, stage, deadline)
+            return self._wait(fut, stage, deadline, direct)
 
     def _process_admitted(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
@@ -348,8 +400,14 @@ class ImageHandler:
         predicted decoded bytes are charged from its header before decode
         and released when the render ends, however it ends."""
         charge = None
-        if self.mem_accountant is not None and info.width and info.height:
-            charge = self.mem_accountant.admit(int(info.width) * int(info.height) * 3)
+        if info.width and info.height:
+            pixels = int(info.width) * int(info.height)
+            if 0 < self.max_source_pixels < pixels:
+                raise PayloadTooLargeException(
+                    f"source is {info.width}x{info.height} ({pixels} px), over "
+                    f"the mem_max_source_pixels bound of {self.max_source_pixels}")
+            if self.mem_accountant is not None:
+                charge = self.mem_accountant.admit(pixels * 3)
         try:
             return self._process_new(data, info, options, spec, timings, deadline)
         finally:
@@ -363,10 +421,10 @@ class ImageHandler:
         deadline.check("decode")
         t = time.perf_counter()
         # a JPEG decodes prescaled toward the target box (DCT-domain scale)
-        decoded = codecs.decode(
+        decoded = self._stage("decode", lambda: codecs.decode(
             data, target_hint=decode_target_hint(options), info=info,
             device=self.device,
-        )
+        ), deadline)
         timings["decode"] = time.perf_counter() - t
         w, h = decoded.size
         plan = build_plan(options, w, h)
@@ -395,7 +453,8 @@ class ImageHandler:
         with _device_failures("tiled transform"):
             out = self._tiled_or_none(frame, plan)
         if out is None and self.batcher is not None:
-            out = self._await(self.batcher.submit(frame, plan), "transform", deadline)
+            out = self._await(self.batcher.submit(frame, plan), "transform", deadline,
+                              lambda: run_plan(frame, plan, device=self.device))
         elif out is None:
             out = run_plan(frame, plan, device=self.device)
         timings["device"] = time.perf_counter() - t
@@ -406,7 +465,7 @@ class ImageHandler:
             if self.batcher is not None:
                 crop = self._await(self.batcher.submit_aux(
                     ("smc", item.bucket, item.step), item, self._smc_runner,
-                ), "smartcrop", deadline)
+                ), "smartcrop", deadline, lambda: self._smc_runner([item])[0])
             else:
                 crop = self._smc_runner([item])[0]
             out = smartcrop.apply_crop(out, crop)
@@ -424,7 +483,8 @@ class ImageHandler:
         alpha = None
         if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
             alpha = decoded.alpha
-        content = self._encode(np.ascontiguousarray(out), spec, options, alpha)
+        content = self._stage("encode", lambda: self._encode(
+            np.ascontiguousarray(out), spec, options, alpha), deadline)
         content = graft_metadata(content, data, decoded.mime, spec, options)
         timings["encode"] = time.perf_counter() - t
         if options.wants_refresh():
@@ -564,7 +624,7 @@ class ImageHandler:
                 if self.batcher is not None:
                     faces = self._wait(self.batcher.submit_aux(
                         ("face", item.bucket), item, ff.detect_faces_batched,
-                    ), "faces", deadline)
+                    ), "faces", deadline, lambda: ff.detect_faces_batched([item])[0])
                 else:
                     faces = ff.detect_faces_batched([item])[0]
             else:

@@ -6,7 +6,8 @@ library: originals are cached at ``tmp_dir/original-<md5(url-sans-query)>``
 cached original, local filesystem paths and ``file://`` URLs work as
 sources, and ``http(s)`` sources go through ``urllib.request`` with the
 configured extra headers, a timeout, no redirects, and the transfer
-aborted past ``MAX_SOURCE_BYTES`` or when the request's deadline is spent
+aborted past the ``mem_max_source_bytes`` parameter (``MAX_SOURCE_BYTES``
+by default) or when the request's deadline is spent
 (the body is read in chunks, so a slow-drip origin cannot hold it). Each
 attempt passes the origin's circuit breaker, and a transient failure
 (a connection or transport error, an answer of 429 or 5xx) is retried with
@@ -41,6 +42,8 @@ from flyimg_tpu_torch.runtime.resilience import (
 from flyimg_tpu_torch.spec.options import OptionsBag
 from flyimg_tpu_torch.testing import faults
 
+#: the default bound of a source's bytes; the ``mem_max_source_bytes``
+#: parameter sets a server's (``FetchPolicy.max_source_bytes``)
 MAX_SOURCE_BYTES = 256 * 1024 * 1024
 #: seconds an http(s) fetch may take to connect or between reads
 FETCH_TIMEOUT_S = 10.0
@@ -60,12 +63,14 @@ def is_transient_fetch_error(exc: BaseException) -> bool:
 
 @dataclass
 class FetchPolicy:
-    """A server's fetch resilience: the per-read timeout, the retry policy
-    and the per-host breakers."""
+    """A server's fetch resilience: the per-read timeout, the retry policy,
+    the per-host breakers and the source byte bound (0: the module's
+    ``MAX_SOURCE_BYTES``)."""
 
     timeout_s: float = FETCH_TIMEOUT_S
     retry: RetryPolicy = field(default_factory=RetryPolicy)
     breakers: BreakerRegistry = field(default_factory=BreakerRegistry)
+    max_source_bytes: int = 0
 
     @classmethod
     def from_params(cls, params) -> "FetchPolicy":
@@ -73,7 +78,16 @@ class FetchPolicy:
             timeout_s=float(params.by_key("fetch_read_timeout_s", FETCH_TIMEOUT_S)),
             retry=RetryPolicy.from_params(params),
             breakers=BreakerRegistry.from_params(params),
+            max_source_bytes=int(params.by_key("mem_max_source_bytes", 0) or 0),
         )
+
+
+def _source_byte_cap(policy: Optional[FetchPolicy]) -> int:
+    """The bound of a source's bytes: the policy's when set, else
+    ``MAX_SOURCE_BYTES``."""
+    if policy is not None and policy.max_source_bytes > 0:
+        return int(policy.max_source_bytes)
+    return MAX_SOURCE_BYTES
 
 
 @dataclass
@@ -116,8 +130,10 @@ def _read_capped(stream, cap: int, what: str,
 
 
 def _http_fetch_once(image_url: str, headers: dict, timeout: float,
-                     deadline: Optional[Deadline] = None) -> bytes:
-    """ONE fetch attempt; the retries and the breaker are the caller's."""
+                     deadline: Optional[Deadline] = None,
+                     cap: int = MAX_SOURCE_BYTES) -> bytes:
+    """ONE fetch attempt of at most ``cap`` bytes; the retries and the
+    breaker are the caller's."""
     injected = faults.fire("fetch.http", url=image_url)
     if injected is not faults.PASS:
         return injected
@@ -125,11 +141,9 @@ def _http_fetch_once(image_url: str, headers: dict, timeout: float,
     request = urllib.request.Request(image_url, headers=headers)
     with opener.open(request, timeout=timeout) as resp:
         length = resp.headers.get("Content-Length")
-        if length and length.isdigit() and int(length) > MAX_SOURCE_BYTES:
-            raise ReadFileException(
-                f"source {image_url} exceeds {MAX_SOURCE_BYTES} bytes"
-            )
-        return _read_capped(resp, MAX_SOURCE_BYTES, image_url, deadline)
+        if length and length.isdigit() and int(length) > cap:
+            raise ReadFileException(f"source {image_url} exceeds {cap} bytes")
+        return _read_capped(resp, cap, image_url, deadline)
 
 
 def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
@@ -147,7 +161,8 @@ def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
             timeout = deadline.timeout(timeout)
         breaker.allow()
         try:
-            data = _http_fetch_once(image_url, headers, timeout, deadline)
+            data = _http_fetch_once(image_url, headers, timeout, deadline,
+                                    _source_byte_cap(policy))
         except BaseException as exc:
             if is_transient_fetch_error(exc):
                 breaker.record_failure()
@@ -201,7 +216,7 @@ def fetch_original(
         if not os.path.isfile(path):
             raise ReadFileException(f"Unable to read file: {image_url}")
         with open(path, "rb") as fh:
-            data = _read_capped(fh, MAX_SOURCE_BYTES, image_url)
+            data = _read_capped(fh, _source_byte_cap(policy), image_url)
     else:
         raise ReadFileException(f"Unable to read file: {image_url}")
     # unique temp per writer, atomic rename: concurrent fetches of one URL

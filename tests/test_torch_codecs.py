@@ -644,3 +644,153 @@ def test_cmyk_and_ycck_conversion_is_the_jax_decode_s(name, transform):
 def test_adobe_transform_absent_outside_app14():
     assert native_codec.adobe_transform(_fixture("q90_gray.jpg")) is None
     assert native_codec.adobe_transform(_fixture("q90_420.jpg")) is None
+
+
+# ---------------------------------------------------------------------------
+# subsampled four-component and RGB-coded JPEGs: libjpeg's upsampling
+
+
+def _jdsample(plane, hr, vr):
+    """jdsample.c's upsamplers sample by sample, as libjpeg-turbo's C code
+    writes them: h2v1 and h2v2 fancy where the plane is more than 2 wide,
+    h1v2 fancy, replication otherwise; rows above and below the plane
+    replicate its edge rows (jdmainct.c's context rows)."""
+    x = plane.astype(np.int64)
+    dh, dw = x.shape
+
+    def row(r):
+        return x[min(max(r, 0), dh - 1)]
+
+    if (hr, vr) == (2, 1) and dw > 2:
+        out = np.zeros((dh, 2 * dw), np.int64)
+        for r in range(dh):
+            inp, o = x[r], out[r]
+            o[0], o[1] = inp[0], (inp[0] * 3 + inp[1] + 2) >> 2
+            for c in range(1, dw - 1):
+                v = inp[c] * 3
+                o[2 * c], o[2 * c + 1] = (v + inp[c - 1] + 1) >> 2, (v + inp[c + 1] + 2) >> 2
+            o[2 * dw - 2], o[2 * dw - 1] = (inp[dw - 1] * 3 + inp[dw - 2] + 1) >> 2, inp[dw - 1]
+        return out
+    if (hr, vr) == (2, 2) and dw > 2:
+        out = np.zeros((2 * dh, 2 * dw), np.int64)
+        for r in range(dh):
+            for v in (0, 1):
+                inp0, inp1, o = x[r], row(r - 1 if v == 0 else r + 1), out[2 * r + v]
+                this, nxt = inp0[0] * 3 + inp1[0], inp0[1] * 3 + inp1[1]
+                o[0], o[1] = (this * 4 + 8) >> 4, (this * 3 + nxt + 7) >> 4
+                last, this = this, nxt
+                for c in range(2, dw):
+                    nxt = inp0[c] * 3 + inp1[c]
+                    o[2 * c - 2] = (this * 3 + last + 8) >> 4
+                    o[2 * c - 1] = (this * 3 + nxt + 7) >> 4
+                    last, this = this, nxt
+                o[2 * dw - 2], o[2 * dw - 1] = (this * 3 + last + 8) >> 4, (this * 4 + 7) >> 4
+        return out
+    if (hr, vr) == (1, 2):
+        out = np.zeros((2 * dh, dw), np.int64)
+        for r in range(dh):
+            out[2 * r] = (x[r] * 3 + row(r - 1) + 1) >> 2
+            out[2 * r + 1] = (x[r] * 3 + row(r + 1) + 2) >> 2
+        return out
+    return np.repeat(np.repeat(x, vr, 0), hr, 1)
+
+
+def test_upsampler_on_hand_worked_planes():
+    """jdsample.c's h2v1 and h2v2 fancy formulas worked by hand on a 1x3 and
+    a 2x3 plane (the edge columns and rows replicate)."""
+    got = native_codec.upsample_plane(torch.tensor([[10, 20, 40]], dtype=torch.uint8),
+                                      (2, 1), (1, 6))
+    assert got.tolist() == [[10, 13, 17, 25, 35, 40]]
+    got = native_codec.upsample_plane(
+        torch.tensor([[10, 20, 40], [50, 60, 80]], dtype=torch.uint8), (2, 2), (4, 6))
+    assert got.tolist() == [[10, 12, 18, 25, 35, 40], [20, 22, 28, 35, 45, 50],
+                            [40, 42, 48, 55, 65, 70], [50, 52, 58, 65, 75, 80]]
+
+
+@pytest.mark.parametrize("ratio", [(2, 1), (2, 2), (1, 2), (4, 1), (4, 2), (1, 1), (3, 1)])
+@pytest.mark.parametrize("plane_hw", [(1, 1), (1, 2), (2, 3), (5, 7), (9, 16)])
+def test_upsampler_is_jdsample_s(ratio, plane_hw):
+    """``upsample_plane`` against jdsample.c's loops written out, on seeded
+    planes, cut to every image size the plane can stand for."""
+    hr, vr = ratio
+    plane = np.random.default_rng(plane_hw[0] * 17 + hr * 5 + vr).integers(
+        0, 256, plane_hw, dtype=np.uint8)
+    want = _jdsample(plane, hr, vr)
+    for cut_h in range((plane_hw[0] - 1) * vr + 1, plane_hw[0] * vr + 1):
+        for cut_w in (plane_hw[1] * hr, (plane_hw[1] - 1) * hr + 1):
+            got = native_codec.upsample_plane(torch.from_numpy(plane), ratio, (cut_h, cut_w))
+            assert got.dtype == torch.uint8
+            np.testing.assert_array_equal(got.numpy(), want[:cut_h, :cut_w])
+
+
+def _half_scale_planes(data, mode):
+    """libjpeg's decode of ``data`` at scale 1/2 without colour conversion.
+    There libjpeg-turbo decodes a component sampled at half the largest
+    factors with its full 8x8 IDCT and upsamples nothing (jdmaster.c's
+    IDCT scaling), so that component's output plane IS its coded plane."""
+    img = Image.open(io.BytesIO(data))
+    w, h = img.size
+    img.draft(mode, (w // 2, h // 2))
+    assert img.size == (-(-w // 2), -(-h // 2))
+    return np.asarray(img)
+
+
+def test_upsampler_is_libjpeg_s_on_a_4_2_0_decode():
+    """On a real 4:2:0 JPEG: the chroma planes libjpeg-turbo codes (its
+    half-scale YCbCr decode) upsampled here equal its full-scale YCbCr
+    decode's chroma, value for value."""
+    data = _fixture("q90_420.jpg")
+    coded = _half_scale_planes(data, "YCbCr")
+    full = Image.open(io.BytesIO(data))
+    full.draft("YCbCr", full.size)
+    full = np.asarray(full)
+    for c in (1, 2):
+        got = native_codec.upsample_plane(torch.from_numpy(coded[..., c].copy()), (2, 2),
+                                          full.shape[:2])
+        np.testing.assert_array_equal(got.numpy(), full[..., c])
+
+
+@pytest.mark.parametrize("name,ycck", [("q90_cmyk_h2v2", False), ("q90_ycck_h2v2", True)])
+def test_subsampled_cmyk_and_ycck_decode_to_the_jax_decode(name, ycck):
+    """The port's route for a four-component JPEG with subsampled
+    components (C at (2,2), M, Y, K at (1,1)), fed libjpeg's coded planes:
+    C at full size, M, Y and K from the half-scale decode, upsampled here,
+    then ``cmyk_rgb``: the JAX package's decode exactly. libjpeg's planes
+    are 255 - Pillow's (Adobe CMYK reads inverted); the YCCK file's coded
+    planes are the CMYK file's (only its APP14 byte differs). The card holds
+    nvJPEG's planes (chip_smoke.py phase 10)."""
+    data = _fixture(name + ".jpg")
+    jfif, transform, comps = native_codec.jpeg_layout(data)
+    assert (jfif, transform) == (False, 2 if ycck else 0)
+    assert [c[1:] for c in comps] == [(2, 2), (1, 1), (1, 1), (1, 1)]
+    cmyk = _fixture("q90_cmyk_h2v2.jpg")
+    full = 255 - np.asarray(Image.open(io.BytesIO(cmyk)))
+    half = 255 - _half_scale_planes(cmyk, "CMYK")
+    h, w = full.shape[:2]
+    planes = [torch.from_numpy(full[..., 0].copy())] + [
+        native_codec.upsample_plane(torch.from_numpy(half[..., k].copy()), (2, 2), (h, w))
+        for k in (1, 2, 3)]
+    for k in (1, 2, 3):
+        np.testing.assert_array_equal(planes[k].numpy(), full[..., k])
+    got = native_codec.cmyk_rgb(torch.stack(planes), ycck=ycck)
+    want, _ = png.decode(_fixture(name + ".s8.png"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, jcodecs.decode(data).rgb)
+
+
+@pytest.mark.parametrize("name,rgb", [
+    ("q90_rgb_adobe0", True), ("q90_420", False), ("q90_444", False), ("q90_cmyk", False),
+    ("q90_gray", False), ("q90_cmyk_h2v1", False),
+])
+def test_rgb_coded_is_libjpeg_s_reading(name, rgb):
+    """Which three-component JPEGs store R, G, B as coded (libjpeg: no JFIF,
+    and Adobe transform 0 or component ids R, G, B): the RGB-coded fixture
+    alone, whose JAX decode is its coded planes as they are."""
+    data = _fixture(name + ".jpg")
+    assert native_codec.rgb_coded(*native_codec.jpeg_layout(data)) is rgb
+    if rgb:
+        want, _ = png.decode(_fixture(name + ".s8.png"))
+        np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), want)
+    assert native_codec.rgb_coded(False, None, [(82, 1, 1), (71, 1, 1), (66, 1, 1)])
+    assert not native_codec.rgb_coded(True, 0, [(82, 1, 1), (71, 1, 1), (66, 1, 1)])
+    assert not native_codec.rgb_coded(False, 1, [(1, 2, 2), (2, 1, 1), (3, 1, 1)])

@@ -7,8 +7,9 @@ package's answers written beforehand into tests/data/jpeg by
 the CPU that the fixtures are still those answers):
 
 - decode of q90 JPEGs (4:2:0, 4:4:4, progressive, EXIF orientation 6,
-  grayscale, Adobe CMYK and YCCK; and the 4:2:0 one at the DCT scales 1,
-  2 and 4 of 8 its hints pick) against
+  grayscale, Adobe CMYK and YCCK, whole and with subsampled components,
+  RGB-coded; and the 4:2:0 one at the DCT scales 1, 2 and 4 of 8 its hints
+  pick) against
   the JAX package's libjpeg-turbo decode: the same size, at most
   ``chip_smoke.NVJPEG_LEVELS`` levels apart, at most
   ``NVJPEG_SHARE_OVER_1`` of values more than 1 level apart (nvJPEG's IDCT
@@ -52,7 +53,9 @@ def card():
 @pytest.mark.parametrize("name,scale", [("q90_420", 8), ("q90_444", 8),
                                         ("q90_420_progressive", 8), ("q90_420_orient6", 8),
                                         ("q90_420", 1), ("q90_420", 2), ("q90_420", 4),
-                                        ("q90_gray", 8), ("q90_cmyk", 8), ("q90_ycck", 8)])
+                                        ("q90_gray", 8), ("q90_cmyk", 8), ("q90_ycck", 8),
+                                        ("q90_cmyk_h2v1", 8), ("q90_cmyk_h2v2", 8),
+                                        ("q90_ycck_h2v2", 8), ("q90_rgb_adobe0", 8)])
 def test_nvjpeg_decode_against_the_jax_package(card, name, scale):
     with open(os.path.join(DATA, "reference.json")) as fh:
         hints = json.load(fh)["scale_hints"]

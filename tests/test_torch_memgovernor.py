@@ -10,9 +10,14 @@ side's own).
   (outputs equal a clean run's) with nothing quarantined and a ceiling of
   4; a single member that never fits fails with a 503 + Retry-After and is
   never quarantined; a group over the device budget is pre-split;
+- the learned prediction: ``observe`` / ``predict_bytes`` give the JAX
+  governor's answers; the batcher's drain feeds it the cost ledger's peak,
+  after which a budget of 4.5 members caps a group of 8 at launches of 4;
 - the server: the host byte budget sheds a 503 + Retry-After and returns
   every charge; the governor off (the default) and on but unconstrained
-  answer the same bytes.
+  answer the same bytes; ``mem_max_source_pixels`` (413 before any
+  decode) and ``mem_max_source_bytes`` (404 past the fetch's bound) answer
+  as the JAX app does.
 The out-of-memory is a ``batcher.oom`` fault plan raising
 ``torch.OutOfMemoryError`` (chip_smoke.py's resilience phase makes a real
 one on the card)."""
@@ -81,8 +86,8 @@ def test_member_cap_matches_jax(budget, pad):
         for shape in ((10, 10), (32, 32), None):
             assert ours.member_cap("fam", shape, requested, pad_fn) == \
                 theirs.member_cap("fam", shape, requested, pad_fn)
-    assert ours.predict_bytes(8, (32, 32)) == theirs.predict_bytes("fam", 8, (32, 32))
-    assert ours.predict_bytes(8, None) == theirs.predict_bytes("fam", 8, None) == 0.0
+    assert ours.predict_bytes("fam", 8, (32, 32)) == theirs.predict_bytes("fam", 8, (32, 32))
+    assert ours.predict_bytes("fam", 8, None) == theirs.predict_bytes("fam", 8, None) == 0.0
 
 
 def test_ceilings_halve_probe_and_expire_as_jax():
@@ -356,3 +361,122 @@ def test_singleton_oom_answers_503_and_returns_the_charge(tmp_path, source):
         assert len(server.batcher.quarantine) == 0
     finally:
         _stop(server, thread)
+
+
+# ---------------------------------------------------------------------------
+# the learned prediction (cost ledger peaks) and the source guards
+
+
+def test_observe_and_predict_match_jax():
+    """The same ``observe`` / ``predict_bytes`` / ``member_cap`` script
+    through both governors: the heuristic until a family is observed, then
+    the largest peak per padded member seen."""
+    ours, theirs, _ = _pair(device_budget_bytes=4500, heuristic_bytes_per_pixel=2.0)
+    pow2 = lambda n: 1 << (n - 1).bit_length()    # noqa: E731
+    script = [("predict", "a", 8), ("observe", "a", 8, 8000.0), ("predict", "a", 8),
+              ("predict", "b", 4), ("observe", "a", 2, 3000.0), ("predict", "a", 3),
+              ("observe", "a", 4, 100.0), ("observe", "a", 0, 5.0), ("observe", "b", 4, None),
+              ("observe", "b", 4, 0.0), ("predict", "b", 4), ("observe", "b", 1, 2000.0),
+              ("predict", "b", 16)]
+    for step in script:
+        if step[0] == "observe":
+            ours.observe(*step[1:])
+            theirs.observe(*step[1:])
+        for fam in ("a", "b"):
+            for n in (1, 2, 3, 5, 8):
+                assert ours.predict_bytes(fam, n, (10, 10)) == \
+                    theirs.predict_bytes(fam, n, (10, 10))
+                assert ours.member_cap(fam, (10, 10), n, pow2) == \
+                    theirs.member_cap(fam, (10, 10), n, pow2)
+    assert ours.snapshot()["per_member_bytes"] == theirs.snapshot()["per_member_bytes"]
+    off, joff, _ = _pair(enabled=False)
+    off.observe("a", 8, 8000.0)
+    joff.observe("a", 8, 8000.0)
+    assert off.predict_bytes("a", 8, (10, 10)) == joff.predict_bytes("a", 8, (10, 10)) == 800.0
+
+
+def test_batcher_learns_per_member_bytes_on_the_drain_side():
+    """The drain feeds the governor the ledger's peak of the launch's
+    program: once a family has launched with a recorded peak, a budget of
+    4.5 members caps a group of 8 at launches of 4 (the heuristic alone
+    would not: its prediction is far under the budget)."""
+    from flyimg_tpu_torch.runtime import costledger
+    from flyimg_tpu_torch.runtime.batcher import transform_group
+
+    plan = _plan("w_15")
+    gov = MemoryGovernor(enabled=True, heuristic_bytes_per_pixel=1.0)
+    # the capped group's remainder launches at the deadline
+    ctl = _ctl(governor=gov, deadline_ms=300.0)
+    family = transform_group(plan, (SRC[1], SRC[0]))[0].key
+    try:
+        imgs = [_img(100 + i) for i in range(8)]
+        first = [ctl.submit(im, plan) for im in imgs]
+        for f in first:
+            f.result(timeout=60)
+        per_member = 10_000.0
+        # a card measures this at the program's first launch; on the CPU
+        # the peak is written as a card would
+        costledger.get_ledger().record_compile(("batched", "cpu", 8) + family,
+                                               peak_memory_bytes=8 * per_member)
+        assert gov.predict_bytes(family, 8, (64, 64)) == 8 * 64 * 64  # the heuristic
+        again = [ctl.submit(im, plan) for im in imgs]
+        outs = [f.result(timeout=60) for f in again]
+        assert gov.predict_bytes(family, 8, (64, 64)) == 8 * per_member
+        gov.device_budget_bytes = int(4.5 * per_member)
+        log0 = len(ctl.launch_log)
+        third = [f.result(timeout=60) for f in [ctl.submit(im, plan) for im in imgs]]
+        assert sorted(n for _k, n, _b in list(ctl.launch_log)[log0:]) == [4, 4]
+        assert gov.snapshot()["presplits_total"] >= 1
+        for a, b, img in zip(outs, third, imgs):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, run_plan(img, plan, device="cpu"))
+    finally:
+        ctl.close()
+
+
+def _jax_status(tmp_path, url, **extra):
+    """The status the JAX package's aiohttp app answers ``url`` with."""
+    from tests.test_resilience import _serve as jserve
+
+    async def scenario(client):
+        resp = await client.get(url)
+        await resp.read()
+        return resp.status
+
+    return jserve(tmp_path, scenario, **extra)
+
+
+@pytest.mark.parametrize("knob,value,want", [
+    ("mem_max_source_pixels", 1000, 413), ("mem_max_source_pixels", 3072, 200),
+    ("mem_max_source_pixels", 0, 200), ("mem_max_source_bytes", 100, 404),
+    ("mem_max_source_bytes", 10**9, 200),
+])
+def test_source_guards_answer_as_the_jax_handler(tmp_path, source, monkeypatch, knob, value,
+                                                 want):
+    """``mem_max_source_pixels`` answers 413 from the header before any
+    decode; ``mem_max_source_bytes`` bounds what a fetch reads (404 past
+    it): the JAX app's statuses for the same source and knob."""
+    from PIL import Image
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.codecs import native_codec
+
+    # both apps set a process-wide decode limit from the knob: put them
+    # back after the test
+    monkeypatch.setattr(native_codec, "MAX_PIXELS", native_codec.MAX_PIXELS)
+    monkeypatch.setattr(Image, "MAX_IMAGE_PIXELS", Image.MAX_IMAGE_PIXELS)
+    decodes = []
+    real = codecs.decode
+    monkeypatch.setattr(codecs, "decode", lambda *a, **k: decodes.append(1) or real(*a, **k))
+    server, thread, base = _serve(tmp_path, "port", **{knob: value})
+    try:
+        status, _h, body = _get(f"{base}/upload/w_24,o_png/{source}")
+        if knob == "mem_max_source_pixels" and value > 0:
+            assert native_codec.MAX_PIXELS == value
+    finally:
+        _stop(server, thread)
+    assert status == want, body
+    if want == 413:
+        assert b"mem_max_source_pixels" in body and decodes == []
+    jax = _jax_status(tmp_path / "jax", f"/upload/w_24,o_png/{source}", **{knob: value})
+    assert jax == want

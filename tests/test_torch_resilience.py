@@ -14,10 +14,19 @@ tests/test_batch_isolation.py are the JAX side's own).
   within 2·log2(8) + 1 launches; quarantine sends it alone after; retries
   of a transient failure; a sticky CUDA error fails the group at once;
   every knob off fails every member as before containment;
-- the server: a device wait past ``device_result_timeout_s`` answers 504,
-  a full batch queue 503 with Retry-After, a spent deadline 504 fast;
-  fetches retry transient failures, never a 404, and an origin's breaker
-  opens and sheds.
+- the in-flight window: depth 2 and depth 1 give the same bits and
+  launches (within 1 level of the JAX program); a readback failure is
+  recovered on its drain thread; ``close`` drains in-flight readbacks and
+  stamps a hung one, and a batch wedged mid-dispatch, with a TimeoutError;
+- self-healing: a dead executor is replaced at the next submission (the
+  replacement started outside the lock), a wedged one too, its queue
+  re-homed and a fresh pipeline semaphore;
+- the server: a device wait past ``device_result_timeout_s`` answers from
+  the direct program (the batched answer's bytes, counted), 503 with
+  ``wedged_executor_fallback`` off and 504 with the deadline spent, as the
+  JAX app does; the smart-crop and face waits likewise; a full batch queue
+  503 with Retry-After, a spent deadline 504 fast; fetches retry transient
+  failures, never a 404, and an origin's breaker opens and sheds.
 Faults come from the port's injector (flyimg_tpu_torch/testing/faults.py).
 """
 
@@ -481,6 +490,207 @@ def test_batcher_sheds_when_queue_full():
 
 
 # ---------------------------------------------------------------------------
+# the in-flight window (pipelined readback) and executor self-healing
+
+
+def _flagship_plan(shape=(48, 64)):
+    return build_plan(OptionsBag("w_30,h_25,c_1"), shape[1], shape[0])
+
+
+def _flagship_img(seed, shape=(48, 64)):
+    return np.random.default_rng(seed).integers(0, 256, (*shape, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("max_batch", [1, 2, 4])
+def test_pipeline_depth_2_equals_depth_1(max_batch):
+    """The same flagship members through depth 1 (launch, read, launch)
+    and depth 2 (the next launch dispatched while the last reads back):
+    the same bits, the same launches, at most ``depth`` launches in flight,
+    and within 1 level of the JAX package's program."""
+    images = [_flagship_img(40 + i) for i in range(8)]
+    outs, logs = {}, {}
+    for depth in (1, 2):
+        ctl = _ctl(max_batch=max_batch, pipeline_depth=depth, lone_flush=True)
+        try:
+            futures = [ctl.submit(img, _flagship_plan()) for img in images]
+            outs[depth] = [f.result(timeout=120) for f in futures]
+            logs[depth] = sorted(ctl.launch_log)
+            assert 1 <= ctl.inflight_peak <= depth
+        finally:
+            ctl.close()
+    assert logs[1] == logs[2]
+    jplan = jbuild_plan(JOptionsBag("w_30,h_25,c_1"), 64, 48)
+    for img, a, b in zip(images, outs[1], outs[2]):
+        np.testing.assert_array_equal(a, b)
+        ref = np.asarray(jrun_plan(img, jplan))
+        assert a.shape == ref.shape == (25, 30, 3)
+        assert np.abs(a.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_drain_failure_is_recovered_on_the_drain_thread():
+    """A readback that raises (a poison-class error at ``batcher.drain``,
+    once) is contained on the launch's drain thread: the bisection's
+    launches run there and every member answers the clean bits."""
+    threads = []
+
+    def once(**_ctx):
+        threads.append(threading.current_thread().name)
+        if len(threads) == 1:
+            raise ValueError("readback poison")
+        return faults.PASS
+
+    faults.install(faults.FaultInjector()).plan("batcher.drain", once)
+    ctl = _ctl(max_batch=4)
+    try:
+        imgs = [_img(i) for i in range(4)]
+        futures = [ctl.submit(img, _plan()) for img in imgs]
+        for img, fut in zip(imgs, futures):
+            np.testing.assert_array_equal(fut.result(timeout=120),
+                                          run_plan(img, _plan(), device="cpu"))
+        assert set(threads) == {"flyimg-torch-batcher-drain"} and len(threads) == 3
+        assert [n for _k, n, _b in ctl.launch_log] == [4, 2, 2]
+        assert ctl.stats["poison_isolated"] == 0
+    finally:
+        ctl.close()
+
+
+def test_close_drains_inflight_readbacks():
+    """``close`` resolves the readbacks in flight within its budget; a
+    readback that hangs past it answers a TimeoutError."""
+    faults.install(faults.FaultInjector()).plan("batcher.drain", faults.latency_spike(0.3))
+    ctl = _ctl(max_batch=2)
+    imgs = [_img(i) for i in range(4)]
+    futures = [ctl.submit(img, _plan()) for img in imgs]
+    ctl.close(drain_timeout_s=1.0)
+    for img, fut in zip(imgs, futures):
+        np.testing.assert_array_equal(fut.result(timeout=0),
+                                      run_plan(img, _plan(), device="cpu"))
+    hang = threading.Event()
+    faults.install(faults.FaultInjector()).plan("batcher.drain", faults.wedge_until(hang))
+    ctl = _ctl(max_batch=2)
+    try:
+        futures = [ctl.submit(_img(i), _plan()) for i in range(2)]
+        t0 = time.monotonic()
+        ctl.close(drain_timeout_s=0.3)
+        assert time.monotonic() - t0 < 5.0
+        for fut in futures:
+            with pytest.raises(TimeoutError, match="readback hung"):
+                fut.result(timeout=1)
+    finally:
+        hang.set()
+
+
+@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_executor_restart_after_thread_death():
+    """A BaseException out of a batch kills the executor; the next
+    submission finds it dead, replaces it and is served."""
+    faults.install(faults.FaultInjector()).plan(
+        "batcher.execute", lambda **_: (_ for _ in ()).throw(SystemExit("chaos")))
+    ctl = _ctl(max_batch=2, lone_flush=True)
+    try:
+        with pytest.raises(RuntimeError, match="executor died"):
+            ctl.submit(_img(0), _plan()).result(timeout=60)
+        for _ in range(500):
+            if not ctl._thread.is_alive():
+                break
+            time.sleep(0.01)
+        assert not ctl._thread.is_alive()
+        faults.clear()
+        assert ctl.submit(_img(1), _plan()).result(timeout=120).shape == (16, 16, 3)
+        assert ctl.restarts == {"dead": 1, "wedged": 0}
+    finally:
+        ctl.close()
+
+
+def test_executor_restart_when_wedged_rehomes_queue():
+    """An executor wedged in one batch past ``executor_wedge_timeout_s`` is
+    replaced at the next submission, with a fresh pipeline semaphore; the
+    queued group runs on the replacement, the wedged batch still resolves
+    when released, and the old thread then exits."""
+    wedge = threading.Event()
+    faults.install(faults.FaultInjector()).plan("batcher.execute", faults.wedge_until(wedge))
+    ctl = _ctl(max_batch=2, lone_flush=True, executor_wedge_timeout_s=0.2)
+    try:
+        first = ctl.submit(_img(0), _plan())
+        old, old_slots = ctl._thread, ctl._inflight
+        time.sleep(0.4)
+        faults.clear()
+        second = ctl.submit(_img(1), _plan())
+        assert second.result(timeout=120).shape == (16, 16, 3)
+        assert ctl._thread is not old and ctl._inflight is not old_slots
+        assert ctl.restarts == {"dead": 0, "wedged": 1}
+        wedge.set()
+        assert first.result(timeout=120).shape == (16, 16, 3)
+        old.join(timeout=10)
+        assert not old.is_alive()
+    finally:
+        wedge.set()
+        ctl.close()
+
+
+def test_close_stamps_batch_wedged_mid_dispatch():
+    """A batch whose executor wedged before any drain thread exists is in
+    flight from its pop: ``close`` stamps it with a TimeoutError within the
+    drain budget instead of leaving its callers waiting."""
+    wedge = threading.Event()
+    injector = faults.install(faults.FaultInjector())
+    injector.plan("batcher.execute", faults.wedge_until(wedge))
+    ctl = _ctl(lone_flush=True)
+    try:
+        fut = ctl.submit(_img(0), _plan())
+        for _ in range(200):
+            if injector.fired.get("batcher.execute"):
+                break
+            time.sleep(0.02)
+        assert injector.fired.get("batcher.execute", 0) >= 1
+        t0 = time.monotonic()
+        ctl.close(drain_timeout_s=0.5)
+        assert time.monotonic() - t0 < 7.0
+        with pytest.raises(TimeoutError, match="readback hung"):
+            fut.result(timeout=1)
+    finally:
+        wedge.set()
+
+
+@pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_batcher_heal_starts_executor_outside_lock(monkeypatch):
+    """The healed executor starts after the submission lock is released
+    (a thread start blocks; under the lock it would hold every
+    submitter)."""
+    ctl = BatchController(device="cpu", max_batch=2, deadline_ms=1.0, lone_flush=True)
+    seen = {}
+    orig_start = threading.Thread.start
+
+    def checking_start(thread):
+        if thread.name == "flyimg-torch-batcher":
+            seen["lock_owned_at_start"] = ctl._lock._is_owned()
+        return orig_start(thread)
+
+    def runner(payloads):
+        return [p * 2 for p in payloads]
+
+    try:
+        faults.install(faults.FaultInjector()).plan(
+            "batcher.execute", lambda **_: (_ for _ in ()).throw(SystemExit("chaos")))
+        with pytest.raises(RuntimeError, match="executor died"):
+            ctl.submit_aux(("k",), 21, runner).result(timeout=60)
+        for _ in range(500):
+            if not ctl._thread.is_alive():
+                break
+            time.sleep(0.01)
+        assert not ctl._thread.is_alive()
+        faults.clear()
+        monkeypatch.setattr(threading.Thread, "start", checking_start)
+        assert ctl.submit_aux(("k",), 21, runner).result(timeout=60) == 42
+        assert seen == {"lock_owned_at_start": False}
+        assert ctl.restarts["dead"] == 1
+    finally:
+        monkeypatch.undo()
+        faults.clear()
+        ctl.close(drain_timeout_s=5.0)
+
+
+# ---------------------------------------------------------------------------
 # the server
 
 
@@ -519,20 +729,144 @@ def serve(tmp_path):
         thread.join(timeout=10)
 
 
-def test_device_wait_past_its_timeout_answers_504(serve, source):
+@pytest.mark.parametrize("case", ["fallback", "fallback_off", "deadline_spent"])
+def test_device_wait_past_its_timeout_answers_504(serve, source, case, tmp_path):
+    """A device wait past ``device_result_timeout_s`` (a wedged executor):
+    with ``wedged_executor_fallback`` on (the default) the request answers
+    the batched answer's bytes from the direct program, counted once; with
+    it off, 503; with the request's deadline spent first, 504 (the JAX
+    handler's three answers). The stage pools are off here, so that only
+    the executor's wedge counts."""
+    _clean, clean_base = serve(upload_dir=str(tmp_path / "clean"),
+                               host_pipeline_enable=False)
+    status, _h, batched = _get(f"{clean_base}/upload/w_20,o_png/{source}")
+    assert status == 200
     wedge = threading.Event()
     injector = faults.FaultInjector()
     injector.plan("batcher.execute", faults.wedge_until(wedge))
-    server, base = serve(fault_injector=injector, device_result_timeout_s=0.3)
+    extra = {"fallback": {},
+             "fallback_off": {"wedged_executor_fallback": False},
+             "deadline_spent": {"request_deadline_s": 0.3,
+                                "device_result_timeout_s": 5.0}}[case]
+    conf = dict(fault_injector=injector, device_result_timeout_s=0.3,
+                host_pipeline_enable=False, upload_dir=str(tmp_path / case))
+    conf.update(extra)
+    server, base = serve(**conf)
     try:
         t0 = time.perf_counter()
         status, _h, body = _get(f"{base}/upload/w_20,o_png/{source}")
-        assert status == 504 and b"DeadlineExceededException" in body
-        assert b"device_result_timeout_s" in body and time.perf_counter() - t0 < 30
+        assert time.perf_counter() - t0 < 30
+        if case == "fallback":
+            assert status == 200 and body == batched
+            assert server.handler.wedged_fallbacks == 1
+        elif case == "fallback_off":
+            assert status == 503 and b"ServiceUnavailableException" in body
+            assert b"device_result_timeout_s" in body
+            assert server.handler.wedged_fallbacks == 0
+        else:
+            assert status == 504 and b"DeadlineExceededException" in body
+            assert server.handler.wedged_fallbacks == 0
     finally:
         wedge.set()
     # the launch ran on; the next request renders
     assert _get(f"{base}/upload/w_20,o_png,rf_1/{source}")[0] == 200
+
+
+@pytest.mark.parametrize("stage", ["smartcrop", "faces"])
+@pytest.mark.parametrize("fallback", [True, False])
+def test_wedged_aux_wait_falls_back_to_the_direct_program(tmp_path, stage, fallback):
+    """Smart-crop scoring and face detection wait on aux groups: past
+    ``device_result_timeout_s`` each answers from the single-image program
+    in the request's thread, on the handler's device, the bytes of the
+    batched answer, counted once; with the fallback off, 503."""
+    from flyimg_tpu_torch.entry import skin_ellipse_image
+    from flyimg_tpu_torch.service.handler import ImageHandler
+
+    img = skin_ellipse_image(np.random.default_rng(5), 120, 160, 2)
+    path = tmp_path / "src.png"
+    path.write_bytes(png.encode(img))
+    opts = {"smartcrop": "w_60,h_40,c_1,smc_1,o_png", "faces": "w_160,fb_1,o_png"}[stage]
+
+    def handler(name, ctl, **extra):
+        # 1 s: the transform's own wait must not run out under a loaded host
+        conf = {"upload_dir": str(tmp_path / name / "u"), "tmp_dir": str(tmp_path / name / "t"),
+                "face_backend": "facefind", "device_result_timeout_s": 1.0}
+        conf.update(extra)
+        return ImageHandler(AppParameters(conf), device="cpu", batcher=ctl)
+
+    clean_ctl = _ctl(lone_flush=True)
+    try:
+        batched = handler("clean", clean_ctl).process_image(opts, str(path)).content
+        assert ("aux", 1, 1) in clean_ctl.launch_log
+    finally:
+        clean_ctl.close()
+    wedge = threading.Event()
+
+    def aux_wedge(key=None, **_ctx):
+        if key and key[0] == "aux":
+            wedge.wait(timeout=30)
+        return faults.PASS
+
+    faults.install(faults.FaultInjector()).plan("batcher.execute", aux_wedge)
+    ctl = _ctl(lone_flush=True)
+    try:
+        h = handler("wedged", ctl, wedged_executor_fallback=fallback)
+        if fallback:
+            assert h.process_image(opts, str(path)).content == batched
+            assert h.wedged_fallbacks == 1
+        else:
+            with pytest.raises(ServiceUnavailableException, match=stage):
+                h.process_image(opts, str(path))
+            assert h.wedged_fallbacks == 0
+    finally:
+        wedge.set()
+        ctl.close()
+
+
+@pytest.mark.parametrize("fallback", [True, False])
+def test_wedged_fallback_answers_as_the_jax_app(serve, source, tmp_path, fallback):
+    """A wedged executor through the JAX package's aiohttp app and through
+    the port's server, the fallback on and off: the same status (200 and
+    503)."""
+    import asyncio
+
+    from tests.test_resilience import _serve as jserve
+
+    statuses = []
+    for port in (True, False):
+        wedge = threading.Event()
+        if port:
+            injector = faults.FaultInjector()
+            injector.plan("batcher.execute", faults.wedge_until(wedge))
+            try:
+                _server, base = serve(fault_injector=injector, device_result_timeout_s=0.3,
+                                      wedged_executor_fallback=fallback,
+                                      upload_dir=str(tmp_path / "port"))
+                statuses.append(_get(f"{base}/upload/w_24,o_png/{source}")[0])
+            finally:
+                wedge.set()
+                faults.clear()
+            continue
+        from flyimg_tpu.testing import faults as jfaults
+
+        jinjector = jfaults.FaultInjector()
+        jinjector.plan("batcher.execute", jfaults.wedge_until(wedge))
+
+        async def scenario(client):
+            resp = await client.get(f"/upload/w_24,o_png/{source}")
+            await resp.read()
+            wedge.set()
+            await asyncio.sleep(0)
+            return resp.status
+
+        try:
+            statuses.append(jserve(tmp_path / "jax", scenario, fault_injector=jinjector,
+                                   device_result_timeout_s=0.3,
+                                   wedged_executor_fallback=fallback))
+        finally:
+            wedge.set()
+            jfaults.clear()
+    assert statuses == ([200, 200] if fallback else [503, 503])
 
 
 def test_http_full_queue_returns_503_with_retry_after(serve, source):

@@ -14,8 +14,12 @@ writes what the card's tests compare with:
   grayscale JPEG (one component), an Adobe CMYK JPEG (four components,
   APP14 transform 0; its K is 255 - max(R, G, B)) and a YCCK one (the
   CMYK file with its APP14 transform set to 2: the same coded planes,
-  which libjpeg then reads as YCC + K). No tool on the host that writes
-  the fixtures encodes YCCK itself;
+  which libjpeg then reads as YCC + K; no tool on the host that writes
+  the fixtures encodes YCCK itself); the CMYK JPEG with subsampled
+  components (Pillow's subsampling 1 and 2: sampling factors (2,1) and
+  (2,2) for C, (1,1) for M, Y and K), the (2,2) one also as YCCK by the
+  same APP14 byte; and an RGB-coded JPEG (``keep_rgb``: three components
+  stored as R, G, B, APP14 transform 0, no JFIF segment);
 - each JPEG decoded by the JAX package (``flyimg_tpu.codecs.decode``), as
   ``<name>.s8.png``, and the 4:2:0 one also at the DCT scales 1, 2 and 4
   of 8 that target hints pick (``<name>.s<k>.png``);
@@ -60,28 +64,39 @@ def source_image() -> np.ndarray:
     return np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.uint8)
 
 
-#: the one-component and four-component fixtures (see ``layouts``)
-LAYOUTS = ("q90_gray", "q90_cmyk", "q90_ycck")
+#: the layouts other than YCbCr (see ``layouts``)
+LAYOUTS = ("q90_gray", "q90_cmyk", "q90_ycck", "q90_cmyk_h2v1", "q90_cmyk_h2v2",
+           "q90_ycck_h2v2", "q90_rgb_adobe0")
+
+
+def _as_ycck(data: bytes) -> bytes:
+    """An Adobe JPEG with its APP14 transform byte set to 2 (YCCK)."""
+    out = bytearray(data)
+    at = out.index(b"\xff\xee\x00\x0eAdobe")
+    out[at + 15] = 2
+    return bytes(out)
 
 
 def layouts(src: np.ndarray) -> dict:
-    """name -> bytes of the gray, Adobe CMYK and YCCK JPEGs of ``src``."""
+    """name -> bytes of the gray, Adobe CMYK and YCCK (whole and with
+    subsampled components) and RGB-coded JPEGs of ``src``."""
     from PIL import Image
 
-    def save(arr, mode):
+    def save(arr, mode, **kw):
         buf = io.BytesIO()
-        Image.fromarray(arr, mode).save(buf, "JPEG", quality=90)
+        Image.fromarray(arr, mode).save(buf, "JPEG", quality=90, **kw)
         return buf.getvalue()
 
     x = src.astype(np.int32)
     k = 255 - x.max(-1)
     cmyk = np.concatenate([255 - x - k[..., None], k[..., None]], -1).astype(np.uint8)
     out = {"q90_gray": save(np.asarray(Image.fromarray(src).convert("L")), "L"),
-           "q90_cmyk": save(cmyk, "CMYK")}
-    data = bytearray(out["q90_cmyk"])
-    at = data.index(b"\xff\xee\x00\x0eAdobe")
-    data[at + 15] = 2               # APP14's transform byte: YCCK
-    out["q90_ycck"] = bytes(data)
+           "q90_cmyk": save(cmyk, "CMYK"),
+           "q90_cmyk_h2v1": save(cmyk, "CMYK", subsampling=1),
+           "q90_cmyk_h2v2": save(cmyk, "CMYK", subsampling=2),
+           "q90_rgb_adobe0": save(src, "RGB", keep_rgb=True)}
+    out["q90_ycck"] = _as_ycck(out["q90_cmyk"])
+    out["q90_ycck_h2v2"] = _as_ycck(out["q90_cmyk_h2v2"])
     return out
 
 
