@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero without a result line:
              power limit;
 2. build   — compiles kernels K1-K15 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
-             builds the WebP codec (codecs/native/: the VP8 and VP8L
-             sources, one library) with g++ and loads nvJPEG, printing both
+             builds the host codecs (codecs/native/: the WebP codec's VP8
+             and VP8L sources into one library, the GIF/TIFF/BMP loops into
+             another) with g++ and loads nvJPEG, printing both
              libraries' versions;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
@@ -223,8 +224,27 @@ Phases, in order; any failure exits non-zero without a result line:
              under a budget of 4.5 members; an 8000x5000 JPEG header
              answering 413 under mem_max_source_pixels before any decode;
              the ledger's entries printed.
+13. formats — GIF in and out, animated WebP, BMP, ICO and TIFF: every
+             fixture of tests/data/gif, webp_anim and raster decodes to its
+             PNGs (the JAX package's Pillow decode; read by codecs/png.py),
+             and the port's GIF encodes of tests/data/gif/enc.f*.png hold
+             the bars against the committed JAX encodes (frames, durations
+             and loop equal; PSNR at least theirs less GIF_PSNR_LOSS_DB, at
+             most GIF_BYTES_RATIO their bytes). Then through the server on
+             the card (banded): a 16-frame 800x600 animation made on the card (written
+             by the port's encoder) under w_200,o_gif, its bytes equal to
+             encode_animation of its frames through run_plan one at a time
+             and K1 launching at most twice (lone_flush); a transparent
+             12-frame 480x360 one under w_300,h_250,c_1,o_gif (colour and
+             alpha frames, at most twice each); an animated WebP fixture under
+             o_gif and o_png,gf_3; a BMP, an ICO and a TIFF under
+             w_300,h_250,c_1, each a JPEG through nvJPEG within
+             JPEG_ANSWER_PSNR of its PNG answer. Printed on one line with
+             the card: host ms to decode and encode the 16-frame animation,
+             K1's launches and frames a launch, and the animated request's
+             timings (decode, device, encode).
 
-Launch counters are zeroed right before each main-path phase (4-9, 11, 12)
+Launch counters are zeroed right before each main-path phase (4-9, 11-13)
 and read right after; every kernel of the phase's path must have launched.
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
@@ -3818,6 +3838,291 @@ def phase_pipeline(torch, dev, card, workdir, kernels):
     return {"walls": walls, "transform_walls": tws, "host_walls": walls_hp}
 
 
+# ---------------------------------------------------------------------------
+# the raster formats: GIF in and out, animated WebP, BMP, ICO, TIFF (phase 13)
+
+#: the port's GIF encodes against the JAX package's files of the same pixels
+#: (tests/test_torch_gif.py holds the same): PSNR at least theirs less this,
+#: at most this many times their bytes
+GIF_PSNR_LOSS_DB = 0.75
+GIF_BYTES_RATIO = 1.3
+#: a served animation's K1 launches: lone_flush may launch the first frame
+#: alone, the rest go together
+ANIMATION_LAUNCHES = 2
+
+
+def _read(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def format_fixtures(codecs, png, np):
+    """Every fixture of tests/data/{gif,webp_anim,raster} decodes to its
+    PNGs (the JAX package's Pillow decode), with its frames, durations and
+    loop; the port's GIF encodes of tests/data/gif/enc.f*.png hold the bars
+    against the committed JAX encodes. Returns the count of files checked."""
+    checked = 0
+    for folder in ("gif", "webp_anim"):
+        data_dir = os.path.join(ROOT, "tests", "data", folder)
+        ref = json.loads(_read(os.path.join(data_dir, "reference.json")))
+        entries = ref["decode"] if folder == "gif" else ref
+        for stem, entry in entries.items():
+            anim = codecs.decode_all(_read(os.path.join(data_dir, entry["file"])))
+            check(len(anim.frames) == entry["frames"] and anim.durations == entry["durations"]
+                  and anim.loop == entry["loop"],
+                  f"{folder}/{stem}: {len(anim.frames)} frames {anim.durations} loop "
+                  f"{anim.loop}, not {entry['frames']} {entry['durations']} {entry['loop']}")
+            for i, frame in enumerate(anim.frames):
+                rgb, alpha = png.decode(_read(os.path.join(data_dir, f"{stem}.f{i}.png")))
+                check(np.array_equal(frame, rgb), f"{folder}/{stem} frame {i}: not Pillow's")
+                check(alpha is None or (anim.alphas is not None
+                                        and np.array_equal(anim.alphas[i], alpha)),
+                      f"{folder}/{stem} frame {i}: not Pillow's alpha")
+            checked += 1
+    data_dir = os.path.join(ROOT, "tests", "data", "raster")
+    ref = json.loads(_read(os.path.join(data_dir, "reference.json")))
+    for stem, entry in ref.items():
+        data = _read(os.path.join(data_dir, entry["file"]))
+        for page in range(entry["pages"]):
+            name = f"{stem}.p{page}.png" if entry["pages"] > 1 else f"{stem}.png"
+            rgb, alpha = png.decode(_read(os.path.join(data_dir, name)))
+            got = codecs.decode(data, frame=page)
+            check(np.array_equal(got.rgb, rgb), f"raster/{name}: not Pillow's pixels")
+            check((alpha is None and got.alpha is None) or (
+                alpha is not None and got.alpha is not None
+                and np.array_equal(got.alpha, alpha)), f"raster/{name}: not Pillow's alpha")
+        checked += 1
+    data_dir = os.path.join(ROOT, "tests", "data", "gif")
+    ref = json.loads(_read(os.path.join(data_dir, "reference.json")))
+    frames, alphas = [], []
+    for i in range(ref["encode_inputs"]["frames"]):
+        rgb, alpha = png.decode(_read(os.path.join(data_dir, f"enc.f{i}.png")))
+        frames.append(rgb)
+        alphas.append(alpha)
+    for name, entry in ref["encode"].items():
+        a = alphas if entry["alpha"] else None
+        if name == "jax_still.gif":
+            blob = codecs.encode(frames[0], "gif")
+        else:
+            blob = codecs.encode_animation(frames, a, ref["encode_inputs"]["durations"],
+                                           entry["loop"])
+        anim = codecs.decode_all(blob)
+        check(len(anim.frames) == entry["frames"] and anim.durations == entry["durations"]
+              and anim.loop == entry["loop"],
+              f"GIF encode {name}: {len(anim.frames)} frames {anim.durations} loop "
+              f"{anim.loop}, the JAX file {entry['frames']} {entry['durations']} "
+              f"{entry['loop']}")
+        check(len(blob) <= GIF_BYTES_RATIO * entry["bytes"],
+              f"GIF encode {name}: {len(blob)} bytes > {GIF_BYTES_RATIO} x {entry['bytes']}")
+        scores = []
+        for k, i in enumerate(entry["source_frames"]):
+            diff = (anim.frames[k].astype(np.float64) - frames[i]) ** 2
+            if a is not None:
+                diff = diff[a[i] >= 128]
+            mse = float(diff.mean())
+            scores.append(float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse))
+            check(scores[-1] >= entry["psnr"][k] - GIF_PSNR_LOSS_DB,
+                  f"GIF encode {name} frame {k}: PSNR {scores[-1]:.4f} < "
+                  f"{entry['psnr'][k]:.4f} - {GIF_PSNR_LOSS_DB}")
+        print(f"GIF encode {name[4:-4]}: {len(blob)} bytes, PSNR "
+              f"{min(scores):.4f}-{max(scores):.4f} dB; the JAX package's {entry['bytes']} "
+              f"bytes, {min(entry['psnr']):.4f}-{max(entry['psnr']):.4f} dB")
+    return checked
+
+
+def card_frames(torch, dev, n, h, w, seed):
+    """``n`` seeded [h, w, 3] u8 frames made on the card: a coarse random
+    field upsampled bilinearly, shifted a step a frame."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    field = torch.rand((1, 3, h // 16 + 1, w // 16 + 1), generator=gen, device=dev)
+    out = []
+    for k in range(n):
+        up = torch.nn.functional.interpolate(field.roll(k, dims=3), size=(h, w),
+                                             mode="bilinear", align_corners=False)
+        out.append((up[0].permute(1, 2, 0) * 255).round().clamp(0, 255).to(torch.uint8))
+    return [f.cpu().numpy() for f in out]
+
+
+def card_alphas(torch, dev, n, h, w):
+    """``n`` [h, w] u8 alpha planes made on the card: a disc moving across
+    an opaque band (GIF transparency is binary)."""
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    out = []
+    for k in range(n):
+        cx = w * (0.2 + 0.6 * k / max(n - 1, 1))
+        disc = (yy - h / 2) ** 2 + (xx - cx) ** 2 < (h / 3) ** 2
+        band = yy < h / 5
+        out.append(torch.where(disc | band, 255, 0).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def phase_formats(torch, dev, card, workdir, kernels):
+    """Phase 13: the raster formats through the port's server on the card.
+    Returns the kernels' launch counts of the served requests."""
+    import urllib.request
+
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import png
+    from flyimg_tpu_torch.ops.compose import run_plan
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.spec.plan import build_plan
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import format_writers as fb
+
+    checked = format_fixtures(codecs, png, np)
+    print(f"formats: {checked} fixtures of tests/data/gif, webp_anim and raster equal to "
+          "the JAX package's decode")
+
+    # the sources: a 16-frame 800x600 animation and a transparent 12-frame
+    # 480x360 one, made on the card and written by the port's own encoder;
+    # a BMP, an ICO and a TIFF built by tests/format_writers.py
+    frames = card_frames(torch, dev, 16, 600, 800, seed=1800)
+    durations = [40 + 10 * (k % 4) for k in range(16)]
+    anim_gif = codecs.encode_animation(frames, None, durations, 0)
+    t_frames = card_frames(torch, dev, 12, 360, 480, seed=1801)
+    t_alphas = card_alphas(torch, dev, 12, 360, 480)
+    t_gif = codecs.encode_animation(t_frames, t_alphas, [70] * 12, None)
+    photo = synthetic_image(640, 480, seed=1802)
+    ramp = np.tile(np.linspace(0, 255, 256).astype(np.uint8), (256, 1))
+    sources = {
+        "anim.gif": anim_gif, "transparent.gif": t_gif,
+        "anim.webp": _read(os.path.join(ROOT, "tests", "data", "webp_anim",
+                                        "lossy_alpha.webp")),
+        "photo.bmp": fb.bmp(photo, bits=24),
+        "icon.ico": fb.ico([fb.ico_dib(photo[:256, :256], bits=32, alpha=ramp)],
+                           [(256, 256)], [32]),
+        "photo.tif": fb.tiff([dict(samples=photo, bits=8, photometric=2, compression=8,
+                                   predictor=2, rows_per_strip=32)]),
+    }
+    paths = {}
+    for name, data in sources.items():
+        paths[name] = os.path.join(workdir, name)
+        with open(paths[name], "wb") as fh:
+            fh.write(data)
+
+    # host time of the animation's codec (median of 3 calls)
+    def median_ms(fn, n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    anim = codecs.decode_all(anim_gif)
+    host = {"decode_16x800x600_gif_ms": median_ms(lambda: codecs.decode_all(anim_gif)),
+            "encode_16x800x600_gif_ms": median_ms(
+                lambda: codecs.encode_animation(anim.frames, None, anim.durations, anim.loop))}
+
+    params = AppParameters({"upload_dir": os.path.join(workdir, "uploads"),
+                            "tmp_dir": os.path.join(workdir, "tmp"),
+                            "resample_kernel": "banded"})
+    server = make_server(params, device=dev)
+    serve_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    batcher = server.batcher
+
+    def get(opts, name, accept="*/*"):
+        req = urllib.request.Request(f"{base}/upload/{opts}/{paths[name]}",
+                                     headers={"Accept": accept})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+    def launches_during(fn):
+        before = len(batcher.launch_log)
+        k1 = kernels["K1"].launches
+        out = fn()
+        log = list(batcher.launch_log)[before:]
+        return out, kernels["K1"].launches - k1, [m for kind, m, _p in log
+                                                   if kind == "transform"]
+
+    served = {}
+    try:
+        reset_counts(kernels)
+        # the 16-frame animation: bytes as its frames run one at a time
+        (status, ctype, body), k1, sizes = launches_during(
+            lambda: get("w_200,o_gif", "anim.gif"))
+        check(status == 200 and ctype == "image/gif", f"w_200,o_gif: {status} {ctype}")
+        check(k1 <= ANIMATION_LAUNCHES and sum(sizes) == 16,
+              f"w_200,o_gif: K1 launched {k1} times for 16 frames ({sizes})")
+        served["anim"] = (k1, sizes)
+        out_anim = codecs.decode_all(body)
+        check(len(out_anim.frames) == 16 and out_anim.frames[0].shape == (150, 200, 3)
+              and out_anim.durations == durations and out_anim.loop == 0,
+              f"w_200,o_gif: {len(out_anim.frames)} frames of "
+              f"{out_anim.frames[0].shape}, {out_anim.durations}, loop {out_anim.loop}")
+        # the animated request's timings, through the same handler
+        result = server.handler.process_image("w_200,o_gif,q_89", paths["anim.gif"])
+        timings = {k: round(v * 1e3, 3) for k, v in result.timings.items()}
+        # the transparent animation under the reference's crop
+        (status, ctype, t_body), k1_t, t_sizes = launches_during(
+            lambda: get("w_300,h_250,c_1,o_gif", "transparent.gif"))
+        check(status == 200 and ctype == "image/gif", f"transparent o_gif: {status}")
+        check(k1_t <= 2 * ANIMATION_LAUNCHES and sum(t_sizes) == 24,
+              f"transparent w_300,h_250,c_1: K1 launched {k1_t} times for 12 colour and "
+              f"12 alpha frames ({t_sizes})")
+        served["transparent"] = (k1_t, t_sizes)
+        t_anim = codecs.decode_all(t_body)
+        check(len(t_anim.frames) == 12 and t_anim.frames[0].shape == (250, 300, 3)
+              and t_anim.alphas is not None and t_anim.loop is None,
+              "transparent w_300,h_250,c_1: not 12 transparent 300x250 play-once frames")
+        # the animated WebP, as a GIF and as its fourth frame in a PNG
+        status, ctype, w_body = get("o_gif", "anim.webp")
+        ref = json.loads(_read(os.path.join(ROOT, "tests", "data", "webp_anim",
+                                            "reference.json")))["lossy_alpha"]
+        w_anim = codecs.decode_all(w_body)
+        check(status == 200 and ctype == "image/gif" and len(w_anim.frames) == ref["frames"]
+              and w_anim.durations == ref["durations"],
+              f"animated WebP o_gif: {status} {ctype}, {len(w_anim.frames)} frames "
+              f"{w_anim.durations}")
+        status, ctype, p_body = get("o_png,gf_3", "anim.webp")
+        rgb, alpha = png.decode(p_body)
+        want_rgb, want_alpha = png.decode(_read(os.path.join(
+            ROOT, "tests", "data", "webp_anim", "lossy_alpha.f3.png")))
+        check(status == 200 and ctype == "image/png" and alpha is not None
+              and int(np.abs(rgb.astype(int) - want_rgb).max()) <= PIXEL_TOL
+              and np.array_equal(alpha, want_alpha),
+              f"animated WebP o_png,gf_3: {status} {ctype}, not frame 3")
+        # BMP, ICO and TIFF under the reference's crop: JPEG answers
+        for name in ("photo.bmp", "icon.ico", "photo.tif"):
+            status, ctype, j_body = get("w_300,h_250,c_1", name)
+            status_png, _c, png_body = get("w_300,h_250,c_1,o_png", name)
+            got = codecs.decode(j_body, device=dev).rgb
+            ref_rgb, _a = png.decode(png_body)
+            score = psnr(got, ref_rgb)
+            check(status == 200 == status_png and ctype == "image/jpeg"
+                  and got.shape == ref_rgb.shape and score >= JPEG_ANSWER_PSNR,
+                  f"{name} w_300,h_250,c_1: {status} {ctype} {got.shape}, PSNR {score:.2f} "
+                  "against its PNG answer")
+            print(f"formats: {name} w_300,h_250,c_1 answered image/jpeg (nvJPEG), "
+                  f"PSNR {score:.2f} dB against its PNG answer")
+        counts = read_counts(kernels)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # the served animation against its frames through run_plan one at a time
+    plan = build_plan(OptionsBag("w_200,o_gif"), 800, 600)
+    outs = [run_plan(f, plan, device=dev) for f in anim.frames]
+    check(codecs.encode_animation(outs, None, anim.durations, anim.loop) == body,
+          "w_200,o_gif: the served bytes are not the per-frame run_plan encode")
+    print("formats: the served 16-frame w_200,o_gif answer equals encode_animation of "
+          "its frames through run_plan one at a time")
+    print("formats readings: " + json.dumps({
+        "card": card, **{k: round(v, 3) for k, v in host.items()},
+        "anim_k1_launches": served["anim"][0], "anim_frames_per_launch": served["anim"][1],
+        "transparent_k1_launches": served["transparent"][0],
+        "transparent_frames_per_launch": served["transparent"][1],
+        "anim_request_ms": timings}))
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
@@ -3860,7 +4165,7 @@ def main() -> int:
                "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
                "K14": adam_update, "K15": ring_rotate_step}
 
-    # phase 2: build (the kernels with nvcc and the WebP codec with g++,
+    # phase 2: build (the kernels with nvcc and the host codecs with g++,
     # all at once), and nvJPEG loaded
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -3874,7 +4179,8 @@ def main() -> int:
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          timeout=60).stdout.splitlines()[0]
     print(f"codec libraries: nvJPEG {native_codec.nvjpeg_version()} "
-          f"({native_codec.nvjpeg_path()}); WebP (VP8 and VP8L) codec built by {gxx}")
+          f"({native_codec.nvjpeg_path()}); WebP (VP8 and VP8L) codec and GIF/TIFF/BMP "
+          f"loops built by {gxx}")
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -3962,6 +4268,15 @@ def main() -> int:
     for name in ("K1", "K2", "K3"):
         check(pipeline_counts[name] > 0, f"pipeline: {name} never launched")
 
+    # phase 13: GIF in and out, animated WebP, BMP, ICO and TIFF (main path)
+    os.makedirs(workdir)
+    try:
+        formats_counts = phase_formats(torch, dev, card, workdir, kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"formats kernel launches: {formats_counts}; card {card}")
+    check(formats_counts["K1"] > 0, "formats: K1 never launched")
+
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
                "flyimg_tpu/ops/resample.py:343"),
@@ -4003,7 +4318,8 @@ def main() -> int:
         launches = (entry_counts[key] + staged_counts[key]
                     + sum(c[key] for c in server_counts.values())
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
-                    + resilience_counts[key] + pipeline_counts[key])
+                    + resilience_counts[key] + pipeline_counts[key]
+                    + formats_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -1,4 +1,4 @@
-"""Host codec layer: media sniffing, decode and encode of PNG, JPEG and WebP.
+"""Host codec layer: media sniffing, decode and encode.
 
 The port's counterpart of ``flyimg_tpu/codecs``:
 
@@ -15,13 +15,21 @@ The port's counterpart of ``flyimg_tpu/codecs``:
   for this package (``codecs/native/``, built with g++ at first use into
   one library): the card machine has no libwebp. Lossy answers at ``q_``
   (alpha in a lossless ALPH chunk), lossless with ``webpl_1``; sources of
-  either kind decode as libwebp's WebPDecodeRGB(A) decodes them. An
-  animated WebP is refused.
+  either kind decode as libwebp's WebPDecodeRGB(A) decodes them, and an
+  animated source as libwebp's WebPAnimDecoder composites it
+  (``codecs/webp_anim.py``).
+- GIF: ``codecs/gif.py`` decodes stills and every frame of an animation as
+  Pillow composites them, and encodes stills and animations as Pillow's
+  writer does (median-cut palette, LZW; the loops in ``codecs/native/``).
+- BMP, ICO and TIFF sources: ``codecs/bmp.py``, ``codecs/ico.py`` and
+  ``codecs/tiff.py``, as Pillow decodes them. The sniff copy reports an ICO
+  or a TIFF as ``application/octet-stream`` (as the reference's does), so
+  ``decode`` tells them by their magic.
 
-Every decode applies the source's EXIF orientation (JPEG APP1, PNG eXIf,
-WebP EXIF), to the colour and the alpha plane alike, as the reference's
-``-auto-orient`` does. ``codecs/metadata.py`` carries a source's EXIF, ICC
-profile and XMP into an ``st_0`` answer. GIF and CMYK JPEG output are not
+Every decode applies the source's orientation (JPEG APP1, PNG eXIf, WebP
+EXIF, TIFF tag 274), to the colour and the alpha plane alike, as the
+reference's ``-auto-orient`` does. ``codecs/metadata.py`` carries a source's
+EXIF, ICC profile and XMP into an ``st_0`` answer. CMYK JPEG output is not
 ported yet.
 """
 
@@ -32,10 +40,13 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from flyimg_tpu_torch.codecs import native_codec, png
+from flyimg_tpu_torch.codecs import bmp, gif, ico, native_codec, png, tiff, webp_anim
+from flyimg_tpu_torch.codecs.gif import Animation
 from flyimg_tpu_torch.codecs.exif import apply_orientation, jpeg_orientation
 from flyimg_tpu_torch.codecs.metadata import png_orientation, webp_orientation
 from flyimg_tpu_torch.codecs.sniff import (
+    BMP_MIME,
+    GIF_MIME,
     JPEG_MIME,
     PNG_MIME,
     WEBP_MIME,
@@ -56,6 +67,7 @@ class DecodedImage:
     alpha: Optional[np.ndarray]          # [h, w] uint8 or None
     mime: str
     orig_size: Optional[Tuple[int, int]] = None  # (w, h) before any prescale
+    n_frames: int = 1
 
     @property
     def size(self) -> Tuple[int, int]:
@@ -107,7 +119,30 @@ def _oriented(decoded: DecodedImage, orientation: int) -> DecodedImage:
     return DecodedImage(
         rgb=np.ascontiguousarray(apply_orientation(decoded.rgb, orientation)),
         alpha=alpha, mime=decoded.mime, orig_size=decoded.orig_size,
+        n_frames=decoded.n_frames,
     )
+
+
+#: the MIME types Pillow names an ICO and a TIFF by (the sniff copy reports
+#: both as application/octet-stream)
+ICO_MIME = "image/x-icon"
+TIFF_MIME = "image/tiff"
+
+
+def source_mime(data: bytes, info: MediaInfo) -> str:
+    """The decoder's MIME for ``data``: the sniffed one, or ICO and TIFF by
+    their magic (the format Pillow would find)."""
+    if info.mime == "application/octet-stream":
+        if data[:4] == ico.MAGIC:
+            return ICO_MIME
+        if data[:4] in tiff.MAGICS:
+            return TIFF_MIME
+    return info.mime
+
+
+def _decoded(rgb, alpha, mime: str, n_frames: int = 1) -> DecodedImage:
+    return DecodedImage(rgb=rgb, alpha=alpha, mime=mime,
+                        orig_size=(rgb.shape[1], rgb.shape[0]), n_frames=n_frames)
 
 
 def decode(
@@ -115,14 +150,18 @@ def decode(
     *,
     target_hint: Optional[Tuple[int, int]] = None,
     info: Optional[MediaInfo] = None,
+    frame: int = 0,
     device: Union[str, "torch.device"] = "cuda",  # noqa: F821
 ) -> DecodedImage:
     """Decode bytes -> upright DecodedImage. A JPEG decodes on ``device``
     (nvJPEG; a CUDA device), prescaled by ``jpeg_batch_scale_num`` toward
-    ``target_hint``; PNG and WebP decode on the host. Pass ``info`` when
-    the caller already probed the bytes."""
+    ``target_hint``; every other format decodes on the host. ``frame``
+    picks the frame of an animated GIF or WebP, or the page of a TIFF
+    (``min(frame, n_frames - 1)``, the reference's ``gf_``); ``n_frames``
+    counts them. Pass ``info`` when the caller already probed the bytes."""
     info = info or media_info(data)
-    if info.mime == JPEG_MIME:
+    mime = source_mime(data, info)
+    if mime == JPEG_MIME:
         scale_num = jpeg_batch_scale_num(info, target_hint)
         rgb = native_codec.jpeg_decode(data, scale_num, device=device)
         decoded = DecodedImage(
@@ -130,19 +169,54 @@ def decode(
             orig_size=(info.width or rgb.shape[1], info.height or rgb.shape[0]),
         )
         return _oriented(decoded, jpeg_orientation(data))
-    if info.mime == PNG_MIME:
+    if mime == PNG_MIME:
         rgb, alpha = png.decode(data)
-        decoded = DecodedImage(rgb=rgb, alpha=alpha, mime=PNG_MIME,
-                               orig_size=(rgb.shape[1], rgb.shape[0]))
-        return _oriented(decoded, png_orientation(data))
-    if info.mime == WEBP_MIME:
-        pixels, channels = native_codec.webp_decode_auto(data)
-        return _oriented(_split_alpha(pixels, channels, WEBP_MIME),
-                         webp_orientation(data))
+        return _oriented(_decoded(rgb, alpha, PNG_MIME), png_orientation(data))
+    if mime == WEBP_MIME:
+        if webp_anim.is_animated(data):
+            rgb, alpha, n = webp_anim.decode(data, frame)
+            decoded = _decoded(rgb, alpha, WEBP_MIME, n)
+        else:
+            pixels, channels = native_codec.webp_decode_auto(data)
+            decoded = _split_alpha(pixels, channels, WEBP_MIME)
+        return _oriented(decoded, webp_orientation(data))
+    if mime == GIF_MIME:
+        rgb, alpha, n = gif.decode(data, frame)
+        return _decoded(rgb, alpha, GIF_MIME, n)
+    if mime == BMP_MIME:
+        return _decoded(*bmp.decode(data), BMP_MIME)
+    if mime == ICO_MIME:
+        return _decoded(*ico.decode(data), ICO_MIME)
+    if mime == TIFF_MIME:
+        rgb, alpha, n = tiff.decode(data, frame)
+        return _decoded(rgb, alpha, TIFF_MIME, n)
     raise UnsupportedMediaException(
         f"decoding {info.mime} is not ported to the PyTorch package yet "
-        "(PNG, JPEG and WebP only)"
+        "(PNG, JPEG, WebP, GIF, BMP, ICO and TIFF only)"
     )
+
+
+def decode_all(data: bytes, info: Optional[MediaInfo] = None) -> Animation:
+    """Every frame of an animated GIF or WebP (or page of a TIFF),
+    composited, with durations and loop, as the JAX handler's
+    ``_decode_all_frames`` reads them through Pillow."""
+    info = info or media_info(data)
+    mime = source_mime(data, info)
+    if mime == GIF_MIME:
+        return gif.decode_all(data)
+    if mime == WEBP_MIME and webp_anim.is_animated(data):
+        return webp_anim.decode_all(data)
+    if mime == TIFF_MIME:
+        frames, alphas, any_alpha = [], [], False
+        for page in range(tiff.n_frames(data)):
+            rgb, alpha, _ = tiff.decode(data, page)
+            alpha = alpha if alpha is not None else np.full(rgb.shape[:2], 255, np.uint8)
+            any_alpha |= bool(alpha.min() < 255)
+            frames.append(rgb)
+            alphas.append(alpha)
+        return Animation(frames=frames, alphas=alphas if any_alpha else None,
+                         durations=[100] * len(frames), loop=None)
+    raise UnsupportedMediaException(f"{mime} has no frames to animate")
 
 
 #: IM ratio spellings -> luma (h, v) sampling factors. The geometry form
@@ -211,8 +285,9 @@ def encode(
     """Encode [h, w, 3] uint8 (+ an optional [h, w] alpha plane) to ``fmt``
     bytes. ``jpg`` encodes on ``device`` (nvJPEG; ``mozjpeg`` selects
     optimized Huffman tables and progressive scans, ``sampling_factor`` the
-    chroma subsampling); ``png`` and ``webp`` encode on the host, ``webp``
-    lossy at ``quality`` or lossless with ``webp_lossless``
+    chroma subsampling); ``png``, ``webp`` and ``gif`` encode on the host,
+    ``webp`` lossy at ``quality`` or lossless with ``webp_lossless``, ``gif``
+    as Pillow writes an RGB frame (alpha is not written)
     (``require_encodable`` says what raises)."""
     require_encodable(fmt, sampling_factor=sampling_factor)
     if fmt == "png":
@@ -220,6 +295,8 @@ def encode(
     if fmt == "webp":
         pixels = image if alpha is None else np.dstack([image, alpha])
         return native_codec.webp_encode(pixels, quality, lossless=bool(webp_lossless))
+    if fmt == "gif":
+        return gif.encode(image)
     if fmt in ("jpg", "jpeg"):  # no alpha plane in a JPEG
         return native_codec.jpeg_encode(
             image, quality, optimize=bool(mozjpeg), progressive=bool(mozjpeg),
@@ -227,5 +304,11 @@ def encode(
         )
     raise UnsupportedMediaException(
         f"encoding {fmt} is not ported to the PyTorch package yet "
-        "(png, jpg and webp only)"
+        "(png, jpg, webp and gif only)"
     )
+
+
+def encode_animation(frames, alphas=None, durations=None, loop=None) -> bytes:
+    """Frames -> an animated GIF as the JAX handler's
+    ``_encode_gif_animation`` writes it (``codecs/gif.py``)."""
+    return gif.encode_animation(frames, alphas, durations, loop)

@@ -21,7 +21,8 @@ binds libjpeg and libwebp. The card machine has neither, so:
   ``webp_lossy.cpp`` (the VP8 encoder and decoder, the ALPH chunk and the
   container; its tables in ``vp8_tables.h``) and ``webp_lossless.cpp``
   (VP8L), compiled together with g++ into one library with a plain C
-  interface at first use (``cuda_build.load_host``).
+  interface at first use (``cuda_build.load_host``). An animated file is
+  composited frame by frame in ``codecs/webp_anim.py``.
 
 A library that is missing or fails to build raises; nothing falls back to
 another codec. Handles are made at first use, never at import: the CPU tests
@@ -564,7 +565,9 @@ def webp_encode(pixels: np.ndarray, quality: int = 90, lossless: bool = False, *
 def webp_decode_auto(data: bytes) -> Tuple[np.ndarray, int]:
     """(pixels [h, w, ch] uint8, ch) with ch 4 iff the file carries alpha
     (as libwebp's WebPGetFeatures says). Lossy (VP8, with or without an
-    ALPH chunk) and lossless (VP8L) files; an animation raises."""
+    ALPH chunk) and lossless (VP8L) files; an animation gives its first
+    frame, composited as libwebp's WebPAnimDecoder does
+    (``codecs/webp_anim.py``)."""
     lib = _webp()
     w, h, ch, status = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     reason = ctypes.c_char_p()
@@ -572,8 +575,10 @@ def webp_decode_auto(data: bytes) -> Tuple[np.ndarray, int]:
                              ctypes.byref(ch), ctypes.byref(status), ctypes.byref(reason))
     if not ptr:
         if status.value == 2:
-            raise UnsupportedMediaException(
-                "animated WebP sources are not ported to the PyTorch package yet")
+            from flyimg_tpu_torch.codecs import webp_anim
+
+            rgb, alpha, _ = webp_anim.decode(data, 0)
+            return (rgb, 3) if alpha is None else (np.dstack([rgb, alpha]), 4)
         raise ExecFailedException(f"WebP decode failed: {(reason.value or b'').decode()}")
     arr = _take_buffer(lib, ptr, w.value * h.value * ch.value)
     return arr.reshape(h.value, w.value, ch.value), ch.value

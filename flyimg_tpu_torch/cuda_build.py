@@ -13,8 +13,9 @@ under ``build/kernels/`` beside the package (``FLYIMG_TORCH_BUILD_DIR``
 overrides it). ``build()`` starts one ``nvcc`` per source, all together.
 
 The host route (``HOST_SOURCES``, ``build_host``, ``load_host``) builds the
-package's host C++ (the WebP codec under ``codecs/native/``: its VP8 and
-VP8L sources into one library) the same way with ``g++``, into
+package's host C++ under ``codecs/native/`` (the WebP codec: its VP8 and
+VP8L sources into one library; the raster loops of GIF, TIFF and BMP into
+another) the same way with ``g++``, into
 ``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it needs no CUDA, so the
 CPU tests build and run it too.
 
@@ -66,6 +67,9 @@ SOURCES: Dict[str, tuple] = {
 HOST_SOURCES: Dict[str, tuple] = {
     "webp": (tuple(os.path.join("codecs", "native", f) for f in (
         "webp_lossy.cpp", "webp_lossless.cpp", "vp8_tables.h", "webp_lossless.h")), ()),
+    # LZW (GIF and TIFF), the GIF quantizer, PackBits and BMP RLE
+    "raster": (tuple(os.path.join("codecs", "native", f) for f in (
+        "gif.cpp", "raster.cpp")), ()),
 }
 
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")

@@ -16,14 +16,21 @@ faces unblurred. A tall input (``TILE_MIN_ROWS`` rows or more) on a
 handler with an ``sp_mesh`` takes the reference's spatially tiled route
 instead of the batcher when its plan is exactly a full-frame resample, or
 exactly one of rotate, blur, sharpen and unsharp (``parallel/tiling.py``).
-Sources decode from PNG, JPEG and WebP (lossy, lossless, with alpha),
-answers encode to PNG, JPEG (``q_``, ``moz_``, ``sf_``) and WebP (lossy at
-``q_``, lossless with ``webpl_1``; codecs/); ``o_auto`` answers WebP to a
-client that accepts it (``accepts_webp``), as the reference does. The
-fetch, the decode and the encode run on the host stage pools when the
-server has them (``host_pipeline_*``). Not ported yet (ROADMAP): the JPEG
-sampling factors nvJPEG lacks, GIF, CMYK JPEG (``clsp_CMYK``), signed URLs
-and domain restrictions, brownout, derivative reuse and the fleet tier.
+Sources decode from PNG, JPEG, WebP (lossy, lossless, with alpha,
+animated), GIF (still and animated), BMP, ICO and TIFF; answers encode to
+PNG, JPEG (``q_``, ``moz_``, ``sf_``), WebP (lossy at ``q_``, lossless with
+``webpl_1``) and GIF (codecs/); ``o_auto`` answers WebP to a client that
+accepts it (``accepts_webp``), as the reference does. A GIF answer of an
+animated source (GIF or WebP) keeps every frame: all frames are submitted
+to the batcher before any wait, so one animation runs as batched launches
+of the same kernels; a transparent animation's alpha planes ride as extra
+frames under a geometry-only plan and are thresholded at 128 for the GIF's
+transparent index. A still answer of an animated source renders frame
+``gf_``. The fetch, the decode and the encode run on the host stage pools
+when the server has them (``host_pipeline_*``). Not ported yet (ROADMAP):
+the JPEG sampling factors nvJPEG lacks, CMYK JPEG (``clsp_CMYK``), signed
+URLs and domain restrictions, brownout, derivative reuse and the fleet
+tier.
 """
 
 from __future__ import annotations
@@ -120,7 +127,8 @@ class ProcessedImage:
 
 
 #: the outputs this package encodes, by extension
-_ENCODED = {"png": "image/png", "jpg": "image/jpeg", "webp": "image/webp"}
+_ENCODED = {"png": "image/png", "jpg": "image/jpeg", "webp": "image/webp",
+            "gif": "image/gif"}
 
 
 def _cache_entry_valid(content: bytes, spec: OutputSpec) -> bool:
@@ -147,7 +155,7 @@ def graft_metadata(content: bytes, source: bytes, source_mime: str,
     upright), ICC profile and XMP go into a JPEG, PNG or WebP answer. Under
     ``clsp_CMYK`` the source's RGB profile is dropped (it must not describe
     CMYK samples); EXIF and XMP still carry."""
-    if options.truthy("strip"):
+    if options.truthy("strip") or spec.extension not in ("jpg", "png", "webp"):
         return content
     meta = metadata.collect(source, source_mime)
     if meta and parse_colorspace(options) == "cmyk":
@@ -161,6 +169,13 @@ def _webp_lossless(options: OptionsBag) -> bool:
 
 def _sampling_factor(options: OptionsBag) -> str:
     return str(options.get_option("sampling-factor") or "1x1")
+
+
+def _flatten(rgb: np.ndarray, alpha: np.ndarray, background) -> np.ndarray:
+    """``rgb`` over the bg_ colour (white by default) through ``alpha``."""
+    a = alpha[..., None].astype(np.float32) / 255.0
+    bg = np.asarray(background or (255, 255, 255), np.float32)
+    return np.round(rgb.astype(np.float32) * a + bg * (1.0 - a)).astype(np.uint8)
 
 
 @contextmanager
@@ -280,7 +295,7 @@ class ImageHandler:
         if spec.extension not in _ENCODED:
             raise UnsupportedMediaException(
                 f"{spec.extension} output is not ported to the PyTorch "
-                "package yet (png, jpg and webp only)"
+                "package yet (png, jpg, webp and gif only)"
             )
         # refused before decode and device work, as the output container is
         codecs.require_encodable(spec.extension,
@@ -420,15 +435,33 @@ class ImageHandler:
     ) -> bytes:
         deadline.check("decode")
         t = time.perf_counter()
+        gif_frame = options.int_option("gif-frame", 0) or 0
         # a JPEG decodes prescaled toward the target box (DCT-domain scale)
         decoded = self._stage("decode", lambda: codecs.decode(
             data, target_hint=decode_target_hint(options), info=info,
-            device=self.device,
+            frame=gif_frame, device=self.device,
         ), deadline)
+        anim = None
+        if spec.is_gif and decoded.n_frames > 1:
+            anim = self._stage("decode", lambda: codecs.decode_all(data, info), deadline)
         timings["decode"] = time.perf_counter() - t
         w, h = decoded.size
         plan = build_plan(options, w, h)
         spec.command_repr = repr(plan)
+
+        frames = [decoded.rgb]
+        alpha_start = None
+        if anim is not None:
+            frames = anim.frames
+            if anim.alphas is not None:
+                # a transparent animation: the colour frames flatten over
+                # bg_ and the alpha planes follow as extra frames, under a
+                # geometry-only plan (value ops would corrupt alpha, fills
+                # would turn opaque)
+                alpha_start = len(frames)
+                frames = [_flatten(f, a, plan.background)
+                          for f, a in zip(frames, anim.alphas)]
+                frames += [np.repeat(a[..., None], 3, axis=2) for a in anim.alphas]
 
         # alpha survives only when no op changes geometry and the format
         # carries it; everywhere else flatten over the bg_ color (IM
@@ -439,27 +472,45 @@ class ImageHandler:
             and plan.extract is None and plan.rotate is None
             and not plan.smart_crop
             and not plan.face_blur and not plan.face_crop
+            and anim is None
             and spec.extension in ("png", "webp")
         )
-        frame = decoded.rgb
-        if decoded.alpha is not None and not keeps_alpha:
-            a = decoded.alpha[..., None].astype(np.float32) / 255.0
-            bg = np.asarray(plan.background or (255, 255, 255), np.float32)
-            frame = np.round(
-                frame.astype(np.float32) * a + bg * (1.0 - a)
-            ).astype(np.uint8)
+        if decoded.alpha is not None and not keeps_alpha and anim is None:
+            frames = [_flatten(frames[0], decoded.alpha, plan.background)]
 
         t = time.perf_counter()
-        with _device_failures("tiled transform"):
-            out = self._tiled_or_none(frame, plan)
-        if out is None and self.batcher is not None:
-            out = self._await(self.batcher.submit(frame, plan), "transform", deadline,
-                              lambda: run_plan(frame, plan, device=self.device))
-        elif out is None:
-            out = run_plan(frame, plan, device=self.device)
+        # every frame is submitted before any wait, so the frames of one
+        # animation share launches of one program
+        staged = []
+        for idx, frame in enumerate(frames):
+            fh, fw = frame.shape[:2]
+            frame_plan = plan if (fw, fh) == plan.src_size else build_plan(options, fw, fh)
+            if alpha_start is not None and idx >= alpha_start:
+                frame_plan = replace(
+                    frame_plan, colorspace=None, monochrome=False, unsharp=None,
+                    sharpen=None, blur=None, background=(255, 255, 255),
+                )
+            with _device_failures("tiled transform"):
+                tiled = self._tiled_or_none(frame, frame_plan)
+            if tiled is not None:
+                staged.append((tiled, frame, frame_plan))
+            elif self.batcher is not None:
+                staged.append((self.batcher.submit(frame, frame_plan), frame, frame_plan))
+            else:
+                staged.append((run_plan(frame, frame_plan, device=self.device),
+                               frame, frame_plan))
+        out_frames = [
+            self._await(s, "transform", deadline,
+                        partial(run_plan, f, fp, device=self.device))
+            if isinstance(s, Future) else s
+            for s, f, fp in staged
+        ]
         timings["device"] = time.perf_counter() - t
 
-        if plan.smart_crop:
+        # post-passes in the reference's order: smart-crop, then the face
+        # passes; none for a GIF answer
+        out = out_frames[0]
+        if plan.smart_crop and not spec.is_gif:
             t = time.perf_counter()
             item = smartcrop.prepare_work(out)
             if self.batcher is not None:
@@ -471,21 +522,34 @@ class ImageHandler:
             out = smartcrop.apply_crop(out, crop)
             timings["smartcrop"] = time.perf_counter() - t
 
-        if plan.face_blur or plan.face_crop:
+        if (plan.face_blur or plan.face_crop) and not spec.is_gif:
             t = time.perf_counter()
             out = self._face_pass(out, plan, deadline)
             timings["faces"] = time.perf_counter() - t
 
         deadline.check("encode")
         t = time.perf_counter()
-        # attaching alpha to rgb that was already flattened over bg would
-        # composite twice, and a plane of another size cannot be attached
-        alpha = None
-        if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
-            alpha = decoded.alpha
-        content = self._stage("encode", lambda: self._encode(
-            np.ascontiguousarray(out), spec, options, alpha), deadline)
-        content = graft_metadata(content, data, decoded.mime, spec, options)
+        if anim is not None:
+            n = len(anim.frames)
+            alphas = None
+            if alpha_start is not None:
+                # GIF transparency is binary: the transformed alpha planes
+                # threshold at 128
+                alphas = [np.where(a[..., 0] >= 128, 255, 0).astype(np.uint8)
+                          for a in out_frames[n:]]
+            colour = [np.ascontiguousarray(f) for f in out_frames[:n]]
+            content = self._stage("encode", lambda: codecs.encode_animation(
+                colour, alphas, anim.durations, anim.loop), deadline)
+        else:
+            # attaching alpha to rgb that was already flattened over bg
+            # would composite twice, and a plane of another size cannot be
+            # attached
+            alpha = None
+            if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
+                alpha = decoded.alpha
+            content = self._stage("encode", lambda: self._encode(
+                np.ascontiguousarray(out), spec, options, alpha), deadline)
+            content = graft_metadata(content, data, decoded.mime, spec, options)
         timings["encode"] = time.perf_counter() - t
         if options.wants_refresh():
             # the rf_1 debug header's `identify` line (reference

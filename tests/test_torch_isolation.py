@@ -32,9 +32,10 @@ def _all_modules():
 def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     """Every module imports, the face backends load the packaged BlazeFace
     weights (the .npz) and run, and the codecs decode an oriented PNG, build
-    and run the WebP codec (lossless, lossy, lossy with alpha) and refuse a
-    JPEG on the CPU by name, with neither JAX, the JAX package nor Pillow
-    (which the card machine lacks) loaded."""
+    and run the WebP codec (lossless, lossy, lossy with alpha), encode and
+    decode a still GIF and a two-frame animated one, decode a BMP and
+    refuse a JPEG on the CPU by name, with neither JAX, the JAX package nor
+    Pillow (which the card machine lacks) loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
     assert "flyimg_tpu_torch.models.blazeface" in mods
@@ -66,6 +67,16 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "back = codecs.decode(codecs.encode(small, 'webp', alpha, quality=75))\n"
         "assert (back.alpha == alpha).all()\n"
         "assert codecs.decode(codecs.encode(small, 'png')).size == (30, 20)\n"
+        "still = codecs.decode(codecs.encode(small, 'gif'))\n"
+        "assert still.mime == 'image/gif' and still.size == (30, 20)\n"
+        "anim = codecs.encode_animation([small, 255 - small], None, [50, 70], 0)\n"
+        "assert codecs.decode(anim).n_frames == 2\n"
+        "frames = codecs.decode_all(anim)\n"
+        "assert frames.durations == [50, 70] and frames.loop == 0\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import format_writers\n"
+        "bmp = format_writers.bmp(small, bits=24)\n"
+        "assert (codecs.decode(bmp).rgb == small).all()\n"
         "try:\n"
         "    codecs.decode(b'\\xff\\xd8\\xff\\xe0' + bytes(60), device='cpu')\n"
         "    raise SystemExit('a JPEG decoded on the CPU')\n"

@@ -712,7 +712,17 @@ def test_sampling_factor_nvjpeg_lacks_is_refused_where_the_jax_handler_encodes(
     assert _jax_handler(tmp_path).process_image(opts, src).spec.mime == "image/jpeg"
 
 
-def test_gif_output_is_still_refused(service):
+def test_gif_output_is_still_refused(service, tmp_path):
+    """o_gif was refused until the port wrote GIF (codecs/gif.py): over HTTP
+    it now answers 200 with a GIF body, the JAX handler's size and pixels
+    within 30 dB of its answer."""
     _server, base, src, _img = service
-    status, _h, body = get(f"{base}/upload/w_40,o_gif/{src}")
-    assert status == 415 and b"gif" in body
+    status, headers, body = get(f"{base}/upload/w_40,o_gif/{src}")
+    assert status == 200 and headers["Content-Type"] == "image/gif"
+    assert body[:6] in (b"GIF87a", b"GIF89a")
+    want = _jax_handler(tmp_path).process_image("w_40,o_gif", src).content
+    got, ref = (np.asarray(Image.open(io.BytesIO(b)).convert("RGB")).astype(np.float64)
+                for b in (body, want))
+    assert got.shape == ref.shape
+    mse = np.mean((got - ref) ** 2)
+    assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) >= 30.0

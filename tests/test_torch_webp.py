@@ -27,7 +27,7 @@ from PIL import Image
 import flyimg_tpu.codecs as jcodecs
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.codecs import native_codec, png
-from flyimg_tpu_torch.exceptions import ExecFailedException, UnsupportedMediaException
+from flyimg_tpu_torch.exceptions import ExecFailedException
 
 torch.set_num_threads(1)
 
@@ -296,8 +296,16 @@ def test_cut_files_fail_as_jax_s(quality, method):
 
 
 def test_animated_webp_is_refused():
+    """An animated WebP was refused until the port composited animations
+    (codecs/webp_anim.py): it now decodes to its first frame as the JAX
+    package's Pillow path does, through codecs.decode and through
+    native_codec.webp_decode_auto alike."""
     frames = [Image.fromarray(_photo(16, 16, seed=k)) for k in range(2)]
     buf = io.BytesIO()
     frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=50)
-    with pytest.raises(UnsupportedMediaException, match="animated"):
-        codecs.decode(buf.getvalue())
+    got = codecs.decode(buf.getvalue())
+    _assert_same_decode(got, jcodecs.decode(buf.getvalue()))
+    assert got.n_frames == 2
+    pixels, channels = native_codec.webp_decode_auto(buf.getvalue())
+    assert channels == 3
+    np.testing.assert_array_equal(pixels, got.rgb)
