@@ -8,12 +8,12 @@ Phases, in order; any failure exits non-zero without a result line:
 
 1. device  — a CUDA card must be visible; prints nvidia-smi's name and
              power limit;
-2. build   — compiles kernels K1-K15 from csrc/ with nvcc (one process per
+2. build   — compiles kernels K1-K17 from csrc/ with nvcc (one process per
              source, all at once) and prints the build time and ptxas report;
              builds the host codecs (codecs/native/: the WebP codec's VP8
              and VP8L sources into one library, the GIF/TIFF/BMP loops into
-             another) with g++ and loads nvJPEG, printing both
-             libraries' versions;
+             another, the JPEG writer into a third) with g++ and loads
+             nvJPEG, printing both libraries' versions;
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship shape and at a serving shape, with the median times
              of the kernel, the plain version and (where one exists) the one
@@ -96,7 +96,13 @@ Phases, in order; any failure exits non-zero without a result line:
              step and the last (u8, coloured background), within 1e-5
              relative of its plain version, timed; and the dense resample's
              fold2d_bf16 form against its f32 form at the flagship shape,
-             timed (not a kernel: the library's products);
+             timed (not a kernel: the library's products); then the JPEG
+             encoder's kernels, K16 (trellis) and K17 (islow FDCT), against
+             their plain versions coefficient for coefficient (a differing
+             block is named): every luma sampling factor of the 300x250
+             fixture source at q90, q1, q100, 1920x1080, 301x251 and 7x5
+             frames, K17 also on CMYK planes; timed at the 300x250 answer
+             with nvJPEG's whole encode of the frame as the yardstick;
 4. entry   — the flagship batch (256 x 512x512x3 u8 -> 300x250, saliency,
              150x150 scoring) with resample_kernel dense and banded, held
              against the plain path on the card, then timed;
@@ -111,7 +117,7 @@ Phases, in order; any failure exits non-zero without a result line:
              STAGED_OPTIONS strings, dense and banded; every answer is held against
              the same request through the handler on the CPU; a repeat is a
              cache hit; then (banded) the JPEG waves: the same 8 sources as
-             q90 4:2:0 JPEGs from the package's own encoder (nvJPEG), 16
+             q90 4:2:0 JPEGs from the package's own encoder (moz_0: K17), 16
              concurrent o_auto requests from a client that accepts WebP
              answered lossy image/webp (as the reference answers a
              browser), 16 o_webp,webpl_1 requests answered lossless
@@ -120,8 +126,9 @@ Phases, in order; any failure exits non-zero without a result line:
              lossless answer equal to the PNG answer of the same URL, a
              lossy WebP one at least WEBP_ANSWER_PSNR and a JPEG one at
              least JPEG_ANSWER_PSNR against it; o_webp without webpl_1
-             answers lossy image/webp; K1, K2 and K3 must launch; the
-             waves' wall times beside the PNG wave's;
+             answers lossy image/webp; K1, K2 and K3 must launch, and K16
+             for the JPEG answers; the waves' wall times beside the PNG
+             wave's;
 7. faces   — flyimg_tpu_torch/entry.py face_entry (the BlazeFace forward
              over 64 views, the facefind masks of 16 480x640 images) held
              against the plain path and timed (views/s, images/s); then the
@@ -166,10 +173,12 @@ Phases, in order; any failure exits non-zero without a result line:
              libjpeg-turbo: 4:2:0, 4:4:4, progressive, EXIF orientation 6,
              DCT scales 1, 2 and 4 of 8) against the JAX package's decoded
              pixels (bounds NVJPEG_LEVELS and NVJPEG_SHARE_OVER_1), and a
-             header declaring 30000 x 30000 pixels refused; its q90 4:4:4
-             encodes (moz_0, moz_1) of the fixture source against the JAX
-             package's files, both decoded by nvJPEG (PSNR at least the
-             JAX file's less 0.5 dB, at most 1.05x its bytes); the WebP
+             header declaring 30000 x 30000 pixels refused; the port's own
+             JPEG encodes (K16, K17, the host writer) of
+             tests/data/jpeg_enc/source.png byte-equal to every file there
+             (the JAX package's native trellis encodes at q1/50/90/100 and
+             12 sampling factors, its moz_0 at 1x3 and 2x4, its handler's
+             CMYK with optimize off and on); the WebP
              codec's lossless round trip (exact); the VP8 decoder on every
              lossy fixture of tests/data/webp (written by libwebp) equal to
              the JAX package's decoded pixels and alpha, and the VP8
@@ -178,7 +187,8 @@ Phases, in order; any failure exits non-zero without a result line:
              WEBP_BYTES_RATIO its bytes, at least its PSNR less
              WEBP_PSNR_LOSS_DB); then medians of calls: decode of a
              1920x1080 q90 JPEG at 8/8 and at the flagship hint's prescale,
-             encode of a 300x250 answer with moz_1 and moz_0, its lossless
+             encode of a 300x250 answer with moz_1 and moz_0 (and nvJPEG's
+             encodes of it, the library yardstick), its lossless
              WebP encode and decode, and the VP8 (q90) encode and decode of
              the 300x250 answer and of a 1920x1080 frame (host time), and
              the PNG decoder on a 1920x1080 frame whose every row is
@@ -238,14 +248,27 @@ Phases, in order; any failure exits non-zero without a result line:
              12-frame 480x360 one under w_300,h_250,c_1,o_gif (colour and
              alpha frames, at most twice each); an animated WebP fixture under
              o_gif and o_png,gf_3; a BMP, an ICO and a TIFF under
-             w_300,h_250,c_1, each a JPEG through nvJPEG within
-             JPEG_ANSWER_PSNR of its PNG answer. Printed on one line with
+             w_300,h_250,c_1, each a JPEG (K16) within JPEG_ANSWER_PSNR of
+             its PNG answer. Printed on one line with
              the card: host ms to decode and encode the 16-frame animation,
              K1's launches and frames a launch, and the animated request's
              timings (decode, device, encode).
+14. jpeg   — the server on the card (banded) answers the URLs of
+             tests/data/jpeg_enc/reference.json's "served" on its 300x250
+             source (w_300,h_250,c_1,o_jpg: moz_1; ...,moz_0,sf_2x4;
+             ...,clsp_CMYK,o_jpg) with the JAX handler's bytes, launching
+             K16 and K17; then the encoder's time split (upload, kernel,
+             coefficient readback, host writer, whole encode) for moz_1 and
+             moz_0 at 300x250 and 1920x1080 beside nvJPEG's encode of the
+             same frames, and the 300x250 trellis answer's bytes and PSNR
+             against nvJPEG's moz_1 (both decoded by nvJPEG), on one JSON
+             line with the card's name and power limit.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-13)
+Launch counters are zeroed right before each main-path phase (4-9, 11-14)
 and read right after; every kernel of the phase's path must have launched.
+From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
+encode that reaches it fails the run (phases 10 and 14 time it directly as
+the library yardstick).
 The last lines are the card, one JSON object describing every kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -1575,7 +1598,7 @@ def jpeg_wave(torch, dev, base, jpeg_sources, option_sets, kernels):
         label = f"{mime} answers to Accept: {accept}" + (f" ({suffix[1:]})" if suffix else "")
         print(f"server banded JPEG sources, {label}: {len(reqs)} concurrent "
               f"requests in {wall:.3f} s; kernel launches {wave}")
-        for name in ("K1", "K2", "K3"):
+        for name in ("K1", "K2", "K3") + (("K16",) if mime == "image/jpeg" else ()):
             check(wave[name] > 0, f"JPEG wave ({label}): {name} never launched")
         worst = float("inf")
         for (opts, src, _), (status, headers, body) in zip(reqs, answers):
@@ -1755,22 +1778,18 @@ def phase_codecs(torch, dev, card):
         check(False, "nvJPEG decoded a header declaring 30000 x 30000 pixels")
     except ExecFailedException as exc:
         check("decode limit" in str(exc), f"the pixel limit's message: {exc}")
-    src, _ = png.decode(read("source.png"))
-    for moz in (0, 1):
-        blob = codecs.encode(src, "jpg", quality=90, mozjpeg=bool(moz), sampling_factor="1x1",
-                             device=dev)
-        # both encodes decoded by nvJPEG, so the comparison holds the
-        # encoders alone (reference.json's psnr_libjpeg is the JAX
-        # package's own decode of its file, printed beside)
-        jax = ref["encode_q90_444"][f"moz_{moz}"]
-        got = psnr(codecs.decode(blob, device=dev).rgb, src)
-        want = psnr(codecs.decode(read(jax["file"]), device=dev).rgb, src)
-        print(f"nvJPEG q90 4:4:4 moz_{moz}: {len(blob)} bytes, PSNR {got:.4f} dB; the JAX "
-              f"package's {jax['bytes']} bytes, {want:.4f} dB (both decoded by nvJPEG; "
-              f"{jax['psnr_libjpeg']} dB by libjpeg-turbo)")
-        check(got >= want - 0.5, f"nvJPEG moz_{moz}: PSNR {got:.4f} < {want:.4f} - 0.5")
-        check(len(blob) <= 1.05 * jax["bytes"], f"nvJPEG moz_{moz}: {len(blob)} bytes > "
-              f"1.05 x {jax['bytes']}")
+    # the port's JPEG encodes (K16, K17 and the host writer) of
+    # tests/data/jpeg_enc/source.png: every file there is the JAX package's
+    # native encoder's (or its handler's CMYK) bytes
+    enc_ref = _json.loads(jpeg_enc_file("reference.json"))
+    enc_src, _ = png.decode(jpeg_enc_file("source.png"))
+    for name, entry in enc_ref["files"].items():
+        blob = jpeg_fixture_encode(entry, enc_src, dev)
+        check(blob == jpeg_enc_file(name), f"JPEG encode {name}: {len(blob)} bytes, not the "
+              f"JAX package's {entry['bytes']}")
+    print(f"JPEG encodes: all {len(enc_ref['files'])} files of tests/data/jpeg_enc (trellis at "
+          "q1/50/90/100 and 12 sampling factors, moz_0 at 1x3 and 2x4, CMYK with optimize "
+          "off and on) byte-equal to the JAX package's")
     answer = synthetic_image(300, 250, seed=31)
     blob = codecs.encode(answer, "webp", webp_lossless=True)
     check(np.array_equal(codecs.decode(blob).rgb, answer), "WebP: the round trip is not exact")
@@ -1802,6 +1821,11 @@ def phase_codecs(torch, dev, card):
             lambda: codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
         "encode_300x250_jpg_moz0_ms": median_ms(
             lambda: codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
+        # nvJPEG's encodes of the same frame, the library yardstick
+        "encode_300x250_nvjpeg_moz1_ms": median_ms(
+            lambda: NVJPEG_ENCODE(answer, 90, optimize=True, progressive=True, device=dev)),
+        "encode_300x250_nvjpeg_moz0_ms": median_ms(
+            lambda: NVJPEG_ENCODE(answer, 90, optimize=False, progressive=False, device=dev)),
         "encode_300x250_webp_lossless_ms": median_ms(
             lambda: codecs.encode(answer, "webp", webp_lossless=True)),
         "decode_300x250_webp_lossless_ms": median_ms(lambda: codecs.decode(blob)),
@@ -1827,6 +1851,8 @@ def phase_codecs(torch, dev, card):
     sizes = {
         "jpg_moz1_bytes": len(codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
         "jpg_moz0_bytes": len(codecs.encode(answer, "jpg", mozjpeg=False, device=dev)),
+        "nvjpeg_moz1_bytes": len(NVJPEG_ENCODE(answer, 90, optimize=True, progressive=True,
+                                               device=dev)),
         "webp_bytes": len(codecs.encode(answer, "webp", webp_lossless=True)),
         "webp_q90_bytes": len(lossy["300x250"]),
         "webp_q90_1920x1080_bytes": len(lossy["1920x1080"]),
@@ -4100,7 +4126,7 @@ def phase_formats(torch, dev, card, workdir, kernels):
                   and got.shape == ref_rgb.shape and score >= JPEG_ANSWER_PSNR,
                   f"{name} w_300,h_250,c_1: {status} {ctype} {got.shape}, PSNR {score:.2f} "
                   "against its PNG answer")
-            print(f"formats: {name} w_300,h_250,c_1 answered image/jpeg (nvJPEG), "
+            print(f"formats: {name} w_300,h_250,c_1 answered image/jpeg (K16), "
                   f"PSNR {score:.2f} dB against its PNG answer")
         counts = read_counts(kernels)
     finally:
@@ -4123,7 +4149,300 @@ def phase_formats(torch, dev, card, workdir, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the JPEG encoder: K16 and K17 (phase 3), its fixtures (phase 10) and its
+# served answers (phase 14)
+
+#: nvJPEG's encode, the JPEG encoder's library yardstick; ``main`` puts a
+#: counter in its place for phases 6-14, where no served encode may reach it
+NVJPEG_ENCODE = None
+#: tests/data/jpeg_enc, written by tools/make_jpeg_encode_fixtures.py from the
+#: JAX package's native encoders and its handler
+JPEG_ENC_DIR = os.path.join(ROOT, "tests", "data", "jpeg_enc")
+
+
+def jpeg_enc_file(name):
+    with open(os.path.join(JPEG_ENC_DIR, name), "rb") as fh:
+        return fh.read()
+
+
+def jpeg_fixture_encode(entry, src, dev):
+    """The port's encode of ``src`` as one entry of
+    tests/data/jpeg_enc/reference.json describes it, on ``dev``."""
+    from flyimg_tpu_torch.codecs import jpeg_enc
+
+    if entry["encoder"] == "fc_jpeg_encode_trellis":
+        return jpeg_enc.encode_trellis(src, entry["quality"], tuple(entry["sampling"]),
+                                       device=dev)
+    if entry["encoder"] == "fc_jpeg_encode":
+        return jpeg_enc.encode_plain(src, entry["quality"], sampling=tuple(entry["sampling"]),
+                                     device=dev)
+    return jpeg_enc.encode_cmyk(src, entry["quality"], entry["optimize"], device=dev)
+
+
+def coefficient_diff(torch, label, got, want, dims):
+    """Fail naming the first block where two int16 [blocks, 64] coefficient
+    sets differ (its component, block row and column, zigzag index)."""
+    bad = (got != want).any(1).nonzero().flatten()
+    if bad.numel() == 0:
+        return
+    b = int(bad[0])
+    comp, first = 0, 0
+    while b >= first + dims[comp][0] * dims[comp][1]:
+        first += dims[comp][0] * dims[comp][1]
+        comp += 1
+    row, col = divmod(b - first, dims[comp][0])
+    k = int((got[b] != want[b]).nonzero()[0])
+    check(False, f"{label}: {bad.numel()} blocks differ; the first is block {b} "
+          f"(component {comp}, block row {row}, column {col}): zigzag {k} is "
+          f"{int(got[b, k])}, its plain version's {int(want[b, k])}")
+
+
+def k16_operations(torch, rgb, quality, sampling):
+    """The float operations K16's function needs on these inputs: 17 a
+    pixel (colour), a box's adds and one division a chroma sample, 2048 a
+    block (the DCT), and the dynamic program's: the prefix sums, the
+    candidate values, each candidate's 6 plus 2 a run length it scans
+    (data-dependent: counted from the DCT of this frame), the ZRL fold and
+    the last-position pass."""
+    from flyimg_tpu_torch.codecs import jpeg_plain, jpeg_tables
+
+    h, w = rgb.shape[:2]
+    params = jpeg_tables.trellis_params(quality)
+    dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
+    cos = torch.tensor(params["cos"], device=rgb.device)
+    hf, vf = sampling
+    ops = 17.0 * h * w
+    if (hf, vf) != (1, 1):
+        ops += 2.0 * (-(-h // vf)) * (-(-w // hf)) * hf * vf
+    per_k = torch.tensor([0] + [6 + 2 * (min(k - 1, 15) + 1) for k in range(1, 64)],
+                         dtype=torch.float64, device=rgb.device)
+    for c, plane in enumerate(jpeg_plain.trellis_planes(rgb, sampling)):
+        bw, bh = dims[c]
+        samples = jpeg_plain._replicate(plane, bh * 8, bw * 8) - 128.0
+        cz = jpeg_plain._to_zigzag(jpeg_plain.fdct8x8_plain(jpeg_plain._blocks(samples, bw, bh),
+                                                            cos))
+        q = torch.tensor(params["q"][0 if c == 0 else 1], device=rgb.device)
+        v0 = (cz.abs() / q + 0.5).floor().clamp_max(1023)
+        cands = (v0 >= 1).double() + (v0 >= 2).double()
+        ops += float((cands[:, 1:] * per_k[1:]).sum())
+        ops += bw * bh * (2048.0 + 2 + 126 + 63 * 4 + 63 * 3)
+    return ops
+
+
+def jpeg_kernel_rows(torch, dev):
+    """Phase 3's K16 and K17: each against its plain version on the card,
+    coefficient for coefficient, at the main path's shape (the 300x250
+    answer of tests/data/jpeg_enc/source.png, q90) and, not timed, at every
+    sampling factor, at q1 and q100, at 1920x1080, ragged sizes and on the
+    CMYK planes; then timed against the plain version and nvJPEG's whole
+    encode of the same frame (the library yardstick)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables, native_codec, png
+
+    src, _ = png.decode(jpeg_enc_file("source.png"))
+    big = synthetic_image(1920, 1080, seed=1900)
+    ragged = synthetic_image(301, 251, seed=1901)
+    tiny = synthetic_image(7, 5, seed=1902)
+    frames = {"300x250": src, "1920x1080": big, "301x251": ragged, "7x5": tiny}
+    cases = ([("300x250", 90, s) for s in
+              [(h, v) for h in range(1, 5) for v in range(1, 5) if h * v <= 8]]
+             + [("300x250", 1, (1, 1)), ("300x250", 100, (2, 2)), ("1920x1080", 90, (1, 1)),
+                ("1920x1080", 75, (2, 2)), ("301x251", 50, (3, 2)), ("7x5", 90, (4, 2))])
+    n16 = n17 = 0
+    err = 0
+
+    def held(label, got, want, dims):
+        nonlocal err
+        coefficient_diff(torch, label, got, want, dims)
+        err = max(err, int((got.int() - want.int()).abs().max()))
+
+    for label, q, s in cases:
+        rgb = torch.from_numpy(frames[label]).to(dev)
+        h, w = frames[label].shape[:2]
+        dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(s))
+        got = jpeg_enc.trellis_coefficients(rgb, q, s)
+        want = jpeg_plain.trellis_plain(rgb, q, s)
+        held(f"K16 {label} q{q} {s[0]}x{s[1]}", got, want, dims)
+        planes = jpeg_plain.grid_planes(rgb, s)
+        tables = jpeg_tables.qtables(q)
+        got = jpeg_enc.fdct_coefficients(planes, tables, (0, 1, 1))
+        want = torch.cat([jpeg_plain.fdct_islow_plain(p, tables[t])
+                          for p, t in zip(planes, (0, 1, 1))])
+        held(f"K17 {label} q{q} {s[0]}x{s[1]}", got, want, dims)
+        n16 += 1
+        n17 += 1
+    for label in ("300x250", "301x251", "7x5"):
+        rgb = torch.from_numpy(frames[label]).to(dev)
+        h, w = frames[label].shape[:2]
+        planes = jpeg_plain.cmyk_grid_planes(rgb)
+        table = [jpeg_tables.build_qtable(90, jpeg_tables.LUMA_Q)]
+        got = jpeg_enc.fdct_coefficients(planes, table, (0, 0, 0, 0))
+        want = torch.cat([jpeg_plain.fdct_islow_plain(p, table[0]) for p in planes])
+        held(f"K17 CMYK {label}", got, want, jpeg_plain.component_blocks(w, h, [(1, 1)] * 4))
+        n17 += 1
+    torch.cuda.synchronize()
+    print(f"K16: {n16} cases, K17: {n17} cases equal to their plain versions on the card, "
+          "coefficient for coefficient (every luma sampling factor at 300x250 q90; q1, "
+          "q100, 1920x1080, 301x251, 7x5; K17 also on CMYK planes)")
+
+    rows = {}
+    rgb = torch.from_numpy(src).to(dev)
+    h, w = src.shape[:2]
+    dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors((1, 1)))
+    blocks = sum(a * b for a, b in dims)
+    row = {"max_abs_err": float(err)}
+    row["bound_ms"], row["bound_by"] = bound_ms(3.0 * h * w + 128.0 * blocks,
+                                                k16_operations(torch, rgb, 90, (1, 1)))
+    row["ms"] = cuda_ms(torch, lambda: jpeg_enc.trellis_coefficients(rgb, 90, (1, 1)))
+    row["plain_ms"] = cuda_ms(torch, lambda: jpeg_plain.trellis_plain(rgb, 90, (1, 1)),
+                              iters=3, warmup=1)
+    row["library_ms"] = cuda_ms(torch, lambda: native_codec.jpeg_encode(
+        src, 90, optimize=True, progressive=True, device=dev), iters=5)
+    rows["K16"] = row
+    planes = jpeg_plain.grid_planes(rgb, (1, 1))
+    tables = jpeg_tables.qtables(90)
+    row = {"max_abs_err": float(err)}
+    row["bound_ms"], row["bound_by"] = bound_ms(1.0 * sum(p.numel() for p in planes)
+                                                + 128.0 * blocks, 1100.0 * blocks)
+    row["ms"] = cuda_ms(torch, lambda: jpeg_enc.fdct_coefficients(planes, tables, (0, 1, 1)))
+    row["plain_ms"] = cuda_ms(torch, lambda: torch.cat([
+        jpeg_plain.fdct_islow_plain(p, tables[t]) for p, t in zip(planes, (0, 1, 1))]),
+        iters=5)
+    row["library_ms"] = cuda_ms(torch, lambda: native_codec.jpeg_encode(
+        src, 90, optimize=False, progressive=False, device=dev), iters=5)
+    rows["K17"] = row
+    # device time alone (torch.profiler), at the answer's shape and at 1080p
+    from flyimg_tpu_torch.face_breakdown import _device_ms
+
+    big_rgb = torch.from_numpy(big).to(dev)
+    big_planes = jpeg_plain.grid_planes(big_rgb, (1, 1))
+    device = {
+        "K16": (_device_ms(lambda: jpeg_enc.trellis_coefficients(rgb, 90, (1, 1)), 5,
+                           "trellis_kernel"),
+                _device_ms(lambda: jpeg_enc.trellis_coefficients(big_rgb, 90, (1, 1)), 5,
+                           "trellis_kernel")),
+        "K17": (_device_ms(lambda: jpeg_enc.fdct_coefficients(planes, tables, (0, 1, 1)), 5,
+                           "fdct_kernel"),
+                _device_ms(lambda: jpeg_enc.fdct_coefficients(big_planes, tables, (0, 1, 1)),
+                           5, "fdct_kernel")),
+    }
+    for name, what in (("K16", "trellis (300x250 q90 4:4:4)"),
+                       ("K17", "islow FDCT (300x250 q90 4:4:4 planes)")):
+        r = rows[name]
+        print(f"{name} {what}: kernel {r['ms']:.4f} ms, device {device[name][0]:.4f} ms "
+              f"(1920x1080: {device[name][1]:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), nvJPEG's whole encode of the "
+              f"frame {r['library_ms']:.4f} ms (the library yardstick)")
+    return rows
+
+
+def encode_breakdown(torch, dev, rgb, kind):
+    """Medians (ms) of one encode's steps on the card: the upload, the
+    kernel (events; K17's planes included), the coefficients' readback,
+    the host writer; the whole encode; nvJPEG's whole encode of the same
+    frame with the same options."""
+    from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables
+
+    h, w = rgb.shape[:2]
+    tables = jpeg_tables.qtables(90)
+    steps = {"upload_ms": [], "kernel_ms": [], "readback_ms": [], "writer_ms": []}
+    for _ in range(11):
+        t0 = time.perf_counter()
+        frame = torch.from_numpy(rgb).to(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if kind == "moz_1":
+            coef = jpeg_enc.trellis_coefficients(frame, 90, (1, 1))
+        else:
+            coef = jpeg_enc.fdct_coefficients(jpeg_plain.grid_planes(frame, (1, 1)), tables,
+                                              (0, 1, 1))
+        end.record()
+        end.synchronize()
+        t2 = time.perf_counter()
+        host = coef.cpu().numpy()
+        t3 = time.perf_counter()
+        jpeg_enc.write(host, w, h, jpeg_plain.ycc_factors((1, 1)), tables,
+                       progressive=kind == "moz_1", optimize=kind == "moz_1")
+        t4 = time.perf_counter()
+        steps["upload_ms"].append((t1 - t0) * 1e3)
+        steps["kernel_ms"].append(start.elapsed_time(end))
+        steps["readback_ms"].append((t3 - t2) * 1e3)
+        steps["writer_ms"].append((t4 - t3) * 1e3)
+    out = {k: round(statistics.median(v), 4) for k, v in steps.items()}
+    out["coefficient_bytes"] = int(host.nbytes)
+    moz = kind == "moz_1"
+    encode = jpeg_enc.encode_trellis if moz else (
+        lambda x, q, device: jpeg_enc.encode_plain(x, q, device=device))
+    out["encode_ms"] = round(cuda_ms(torch, lambda: encode(rgb, 90, device=dev), iters=11), 4)
+    out["nvjpeg_encode_ms"] = round(cuda_ms(torch, lambda: NVJPEG_ENCODE(
+        rgb, 90, optimize=moz, progressive=moz, device=dev), iters=11), 4)
+    return out
+
+
+def phase_jpeg(torch, dev, card, workdir, kernels):
+    """Phase 14: the port's JPEG answers through its server on the card,
+    byte for byte the JAX handler's (tests/data/jpeg_enc's served URLs),
+    then the encoder's time split and bytes. Returns the kernels' launch
+    counts of the served requests."""
+    import urllib.request
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import jpeg_enc, png
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+
+    ref = json.loads(jpeg_enc_file("reference.json"))
+    src_path = os.path.join(workdir, "jpeg_enc_source.png")
+    with open(src_path, "wb") as fh:
+        fh.write(jpeg_enc_file("source.png"))
+    params = AppParameters({"upload_dir": os.path.join(workdir, "uploads"),
+                            "tmp_dir": os.path.join(workdir, "tmp"),
+                            "resample_kernel": "banded"})
+    server = make_server(params, device=dev)
+    serve_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counts(kernels)
+        served = {}
+        for opts, name in ref["served"].items():
+            with urllib.request.urlopen(f"{base}/upload/{opts}/{src_path}",
+                                        timeout=300) as resp:
+                status, ctype, body = resp.status, resp.headers.get("Content-Type"), resp.read()
+            check(status == 200 and ctype == "image/jpeg", f"{opts}: {status} {ctype}")
+            want = jpeg_enc_file(name)
+            check(body == want, f"{opts}: {len(body)} bytes, not the JAX handler's {name} "
+                  f"({len(want)} bytes)")
+            served[opts] = len(body)
+        counts = read_counts(kernels)
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"jpeg: the server on the card answered {len(served)} URLs with the JAX handler's "
+          f"bytes ({served}); kernel launches {counts}")
+    check(counts["K16"] > 0, "jpeg: the moz_1 answer never launched K16")
+    check(counts["K17"] > 0, "jpeg: the moz_0 and CMYK answers never launched K17")
+
+    src, _ = png.decode(jpeg_enc_file("source.png"))
+    full = synthetic_image(1920, 1080, seed=1903)
+    readings = {}
+    for label, rgb in (("300x250", src), ("1920x1080", full)):
+        for kind in ("moz_1", "moz_0"):
+            readings[f"{kind}_{label}"] = encode_breakdown(torch, dev, rgb, kind)
+    trellis = jpeg_enc_file("trellis_q90_1x1.jpg")
+    nv = NVJPEG_ENCODE(src, 90, optimize=True, progressive=True, device=dev)
+    sizes = {"trellis_moz1_300x250_bytes": len(trellis), "nvjpeg_moz1_300x250_bytes": len(nv),
+             "trellis_psnr_db": round(psnr(codecs.decode(trellis, device=dev).rgb, src), 4),
+             "nvjpeg_psnr_db": round(psnr(codecs.decode(nv, device=dev).rgb, src), 4)}
+    print(json.dumps({"jpeg_encode": readings, "sizes": sizes, "card": card}))
+    return counts
+
+
 def main() -> int:
+    global NVJPEG_ENCODE
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
         raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
@@ -4140,6 +4459,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.codecs.jpeg_enc import fdct_coefficients, trellis_coefficients
     from flyimg_tpu_torch.device import resolve_device
     from flyimg_tpu_torch.models.blazeface import conv5x5, head_decode, pointwise
     from flyimg_tpu_torch.models.blazeface_train import (
@@ -4163,7 +4483,8 @@ def main() -> int:
                "K7": pixelate_regions_u8, "K8": _batched_face_masks,
                "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
                "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
-               "K14": adam_update, "K15": ring_rotate_step}
+               "K14": adam_update, "K15": ring_rotate_step,
+               "K16": trellis_coefficients, "K17": fdct_coefficients}
 
     # phase 2: build (the kernels with nvcc and the host codecs with g++,
     # all at once), and nvJPEG loaded
@@ -4179,8 +4500,8 @@ def main() -> int:
     gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
                          timeout=60).stdout.splitlines()[0]
     print(f"codec libraries: nvJPEG {native_codec.nvjpeg_version()} "
-          f"({native_codec.nvjpeg_path()}); WebP (VP8 and VP8L) codec and GIF/TIFF/BMP "
-          f"loops built by {gxx}")
+          f"({native_codec.nvjpeg_path()}); WebP (VP8 and VP8L) codec, GIF/TIFF/BMP "
+          f"loops and the JPEG writer built by {gxx}")
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4194,6 +4515,18 @@ def main() -> int:
     train_edges(torch, dev)
     rows["K15"] = k15_case(torch, dev)
     fold2d = fold2d_case(torch, dev)
+    rows.update(jpeg_kernel_rows(torch, dev))
+
+    # from here on no served JPEG encode may reach nvJPEG's encode: it is the
+    # yardstick phases 10 and 14 call by NVJPEG_ENCODE
+    NVJPEG_ENCODE = native_codec.jpeg_encode
+    nvjpeg_encodes = []
+
+    def counted_nvjpeg_encode(*args, **kwargs):
+        nvjpeg_encodes.append(1)
+        return NVJPEG_ENCODE(*args, **kwargs)
+
+    native_codec.jpeg_encode = counted_nvjpeg_encode
 
     # phase 4: entry (main path)
     reset_counts(kernels)
@@ -4276,6 +4609,19 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"formats kernel launches: {formats_counts}; card {card}")
     check(formats_counts["K1"] > 0, "formats: K1 never launched")
+    check(formats_counts["K16"] > 0, "formats: the JPEG answers never launched K16")
+
+    # phase 14: JPEG answers through the server, byte for byte the JAX
+    # handler's (main path)
+    os.makedirs(workdir)
+    try:
+        jpeg_counts = phase_jpeg(torch, dev, card, workdir, kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"jpeg kernel launches: {jpeg_counts}; card {card}")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-14 reached "
+          "nvJPEG's encode")
+    native_codec.jpeg_encode = NVJPEG_ENCODE
 
     meta = {
         "K1": ("resample_banded_u8", "flyimg_tpu_torch/csrc/resample_banded.cu",
@@ -4312,6 +4658,10 @@ def main() -> int:
                 "flyimg_tpu/models/blazeface.py:366"),
         "K15": ("ring_rotate_step", "flyimg_tpu_torch/csrc/ring_rotate.cu",
                 "flyimg_tpu/parallel/tiling.py:370"),
+        "K16": ("jpeg_trellis", "flyimg_tpu_torch/csrc/jpeg_trellis.cu",
+                "flyimg_tpu/codecs/native/fastcodec.cpp:680"),
+        "K17": ("jpeg_fdct", "flyimg_tpu_torch/csrc/jpeg_fdct.cu",
+                "flyimg_tpu/codecs/native/fastcodec.cpp:354"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
@@ -4319,7 +4669,7 @@ def main() -> int:
                     + sum(c[key] for c in server_counts.values())
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
-                    + formats_counts[key])
+                    + formats_counts[key] + jpeg_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -4,13 +4,17 @@ The port's counterpart of ``flyimg_tpu/codecs``:
 
 - PNG: ``codecs/png.py``, on zlib and numpy (every colour type, bit depth
   and interlace).
-- JPEG: nvJPEG, the CUDA toolkit's codec, through ``ctypes``
+- JPEG: decoded by nvJPEG, the CUDA toolkit's codec, through ``ctypes``
   (``codecs/native_codec.py``): three-component (YCbCr), gray and Adobe
-  CMYK/YCCK sources. It decodes and encodes on the card, so a JPEG needs
-  a CUDA device: on the CPU it raises. The card machine has no
-  libjpeg, so the reference's trellis encoder (``moz_1``) waits: ``moz_1``
-  is optimized Huffman tables and progressive scans, as the JAX package's
-  Pillow path encodes it.
+  CMYK/YCCK sources, on the card, so a JPEG source needs a CUDA device.
+  Encoded by the port's own encoder (``codecs/jpeg_enc.py``), byte for
+  byte as the JAX package's native library writes: ``moz_1`` is its
+  trellis encoder (kernel K16, optimized Huffman tables, progressive
+  scans), ``moz_0`` its libjpeg baseline (kernel K17, standard tables),
+  at every luma sampling factor libjpeg takes; the kernels run on the
+  card, their plain versions on the CPU, and the entropy coding on the
+  host (``codecs/native/jpeg_writer.cpp``). nvJPEG's encode is no
+  serving route.
 - WebP: a lossy (VP8) and a lossless (VP8L) encoder and decoder written
   for this package (``codecs/native/``, built with g++ at first use into
   one library): the card machine has no libwebp. Lossy answers at ``q_``
@@ -29,8 +33,8 @@ The port's counterpart of ``flyimg_tpu/codecs``:
 Every decode applies the source's orientation (JPEG APP1, PNG eXIf, WebP
 EXIF, TIFF tag 274), to the colour and the alpha plane alike, as the
 reference's ``-auto-orient`` does. ``codecs/metadata.py`` carries a source's
-EXIF, ICC profile and XMP into an ``st_0`` answer. CMYK JPEG output is not
-ported yet.
+EXIF, ICC profile and XMP into an ``st_0`` answer. A CMYK JPEG answer
+(``clsp_CMYK``) is ``jpeg_enc.encode_cmyk``.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from flyimg_tpu_torch.codecs import bmp, gif, ico, native_codec, png, tiff, webp_anim
+from flyimg_tpu_torch.codecs import bmp, gif, ico, jpeg_enc, native_codec, png, tiff, webp_anim
 from flyimg_tpu_torch.codecs.gif import Animation
 from flyimg_tpu_torch.codecs.exif import apply_orientation, jpeg_orientation
 from flyimg_tpu_torch.codecs.metadata import png_orientation, webp_orientation
@@ -257,18 +261,12 @@ def parse_sampling_factor(value) -> Tuple[int, int]:
 
 
 def require_encodable(fmt: str, *, sampling_factor: str = "1x1") -> None:
-    """Raise UnsupportedMediaException where ``encode`` cannot write what
-    the JAX package writes: JPEG sampling factors nvJPEG has no chroma
-    subsampling for (1x3, 1x4, 2x3, 2x4, 3x1, 3x2). A sampling factor that
-    does not parse raises InvalidArgumentException, as in ``encode``."""
+    """Raise where ``encode`` would refuse the output before any decode:
+    a JPEG sampling factor that does not parse raises
+    InvalidArgumentException, as in ``encode`` (every factor that parses
+    encodes)."""
     if fmt in ("jpg", "jpeg"):
-        factors = parse_sampling_factor(sampling_factor)
-        if factors not in native_codec.SAMPLINGS:
-            raise UnsupportedMediaException(
-                f"sampling factor {factors[0]}x{factors[1]} is not ported to "
-                "the PyTorch package yet (nvJPEG has no chroma subsampling "
-                "for it)"
-            )
+        parse_sampling_factor(sampling_factor)
 
 
 def encode(
@@ -283,12 +281,13 @@ def encode(
     device: Union[str, "torch.device"] = "cuda",  # noqa: F821
 ) -> bytes:
     """Encode [h, w, 3] uint8 (+ an optional [h, w] alpha plane) to ``fmt``
-    bytes. ``jpg`` encodes on ``device`` (nvJPEG; ``mozjpeg`` selects
-    optimized Huffman tables and progressive scans, ``sampling_factor`` the
-    chroma subsampling); ``png``, ``webp`` and ``gif`` encode on the host,
-    ``webp`` lossy at ``quality`` or lossless with ``webp_lossless``, ``gif``
-    as Pillow writes an RGB frame (alpha is not written)
-    (``require_encodable`` says what raises)."""
+    bytes. ``jpg`` runs its kernels on ``device`` (``jpeg_enc``:
+    ``mozjpeg`` selects the trellis encoder with optimized Huffman tables
+    and progressive scans, else a baseline encode with the standard
+    tables; ``sampling_factor`` the luma sampling factors); ``png``,
+    ``webp`` and ``gif`` encode on the host, ``webp`` lossy at ``quality``
+    or lossless with ``webp_lossless``, ``gif`` as Pillow writes an RGB
+    frame (alpha is not written) (``require_encodable`` says what raises)."""
     require_encodable(fmt, sampling_factor=sampling_factor)
     if fmt == "png":
         return png.encode(image, alpha)
@@ -298,10 +297,10 @@ def encode(
     if fmt == "gif":
         return gif.encode(image)
     if fmt in ("jpg", "jpeg"):  # no alpha plane in a JPEG
-        return native_codec.jpeg_encode(
-            image, quality, optimize=bool(mozjpeg), progressive=bool(mozjpeg),
-            sampling=parse_sampling_factor(sampling_factor), device=device,
-        )
+        sampling = parse_sampling_factor(sampling_factor)
+        if mozjpeg:
+            return jpeg_enc.encode_trellis(image, quality, sampling, device=device)
+        return jpeg_enc.encode_plain(image, quality, sampling=sampling, device=device)
     raise UnsupportedMediaException(
         f"encoding {fmt} is not ported to the PyTorch package yet "
         "(png, jpg, webp and gif only)"

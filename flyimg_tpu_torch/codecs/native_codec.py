@@ -4,19 +4,16 @@ VP8 and VP8L library for WebP.
 The port's counterpart of ``flyimg_tpu/codecs/native_codec.py``, which
 binds libjpeg and libwebp. The card machine has neither, so:
 
-- JPEG goes through nvJPEG, the CUDA toolkit's codec (``libnvjpeg.so.12``),
-  on the card: ``jpeg_decode`` decodes into device memory (Huffman decoding
-  on the host, the IDCT and colour conversion on the card, chroma
-  upsampled by interpolation), prescales there by a box mean over
-  (8 / scale_num)^2 pixels with libjpeg's output size (the reference's
-  DCT-domain prescale: nvJPEG's own scaling is the hardware decoder's
-  only), and copies the pixels back; ``jpeg_encode`` copies the frame to
-  the card, converts it to libjpeg's YCbCr planes there (``ycbcr_planes``:
-  with nvJPEG's own RGB conversion its q90 encodes missed the JAX
-  package's PSNR by more than 0.5 dB, PERF.md) and encodes them
-  (baseline, or optimized Huffman tables with progressive scans). The
-  reference's trellis encoder (``jpeg_encode_trellis``) is libjpeg code
-  and waits.
+- JPEG decodes through nvJPEG, the CUDA toolkit's codec
+  (``libnvjpeg.so.12``), on the card: ``jpeg_decode`` decodes into device
+  memory (Huffman decoding on the host, the IDCT and colour conversion on
+  the card, chroma upsampled by interpolation), prescales there by a box
+  mean over (8 / scale_num)^2 pixels with libjpeg's output size (the
+  reference's DCT-domain prescale: nvJPEG's own scaling is the hardware
+  decoder's only), and copies the pixels back. The port encodes JPEG with
+  its own encoder (``codecs/jpeg_enc.py``); nvJPEG's encode
+  (``jpeg_encode``, from libjpeg's YCbCr planes, ``ycbcr_planes``) stays
+  only as the library yardstick ``chip_smoke.py`` times.
 - WebP goes through the package's own codec under ``codecs/native/``:
   ``webp_lossy.cpp`` (the VP8 encoder and decoder, the ALPH chunk and the
   container; its tables in ``vp8_tables.h``) and ``webp_lossless.cpp``
@@ -418,36 +415,15 @@ def _fix(x: float) -> int:
 def ycbcr_planes(rgb, sampling: Tuple[int, int] = (1, 1)):
     """libjpeg's colour conversion and chroma downsampling of a [h, w, 3]
     uint8 tensor (on any device): (Y [h, w], Cb, Cr [ceil(h / v), ceil(w /
-    h_)]) uint8, for luma sampling factors ``sampling`` = (h_, v). The
-    arithmetic of jccolor.c's rgb_ycc_convert (16-bit fixed point) and
-    jcsample.c's downsamplers: h2v1 and h2v2 with their alternating
-    rounding biases, the rest a rounded mean; the right and bottom edges
-    replicated."""
-    import torch
+    h_)]) uint8, for luma sampling factors ``sampling`` = (h_, v): the
+    in-image part of ``jpeg_plain.grid_planes``."""
+    from flyimg_tpu_torch.codecs import jpeg_plain
 
-    x = rgb.to(torch.int32)
-    r, g, b = x[..., 0], x[..., 1], x[..., 2]
-    half, offset = 1 << 15, 128 << 16
-    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b + half) >> 16
-    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
-    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    h, w = rgb.shape[:2]
     hf, vf = (int(f) for f in sampling)
-    if (hf, vf) != (1, 1):
-        h, w = y.shape
-        ch, cw = -(-h // vf), -(-w // hf)
-        rows = torch.arange(ch * vf, device=x.device).clamp_max(h - 1)
-        cols = torch.arange(cw * hf, device=x.device).clamp_max(w - 1)
-        odd = torch.arange(cw, device=x.device) % 2
-        if (hf, vf) == (2, 1):
-            bias = odd                      # 0, 1, 0, 1, ...
-        elif (hf, vf) == (2, 2):
-            bias = 1 + odd                  # 1, 2, 1, 2, ...
-        else:
-            bias = torch.full_like(odd, hf * vf // 2)
-        shift = {1: 0, 2: 1, 4: 2, 8: 3}[hf * vf]
-        cb, cr = ((c[rows][:, cols].reshape(ch, vf, cw, hf).sum((1, 3)) + bias) >> shift
-                  for c in (cb, cr))
-    return tuple(t.to(torch.uint8).contiguous() for t in (y, cb, cr))
+    y, cb, cr = jpeg_plain.grid_planes(rgb, (hf, vf))
+    ch, cw = -(-h // vf), -(-w // hf)
+    return y[:h, :w].contiguous(), cb[:ch, :cw].contiguous(), cr[:ch, :cw].contiguous()
 
 
 def jpeg_encode(
@@ -459,10 +435,12 @@ def jpeg_encode(
     sampling: Tuple[int, int] = (1, 1),
     device: Union[str, "torch.device"] = "cuda",  # noqa: F821
 ) -> bytes:
-    """[h, w, 3] uint8 -> JPEG bytes, encoded on ``device``. ``sampling`` is
-    the luma (h, v) factor pair (ImageMagick's -sampling-factor HxV):
-    (1,1) = 4:4:4, (2,2) = 4:2:0, (2,1) = 4:2:2, (1,2) = 4:4:0, (4,1) =
-    4:1:1, (4,2) = 4:1:0."""
+    """[h, w, 3] uint8 -> JPEG bytes, encoded by nvJPEG on ``device``.
+    ``sampling`` is the luma (h, v) factor pair (ImageMagick's
+    -sampling-factor HxV): (1,1) = 4:4:4, (2,2) = 4:2:0, (2,1) = 4:2:2,
+    (1,2) = 4:4:0, (4,1) = 4:1:1, (4,2) = 4:1:0. No serving route calls
+    it: the port encodes with ``codecs/jpeg_enc.py``, and ``chip_smoke.py``
+    times this call as the library's yardstick for that encoder."""
     import torch
 
     dev = _cuda_device(device)

@@ -15,7 +15,7 @@ overrides it). ``build()`` starts one ``nvcc`` per source, all together.
 The host route (``HOST_SOURCES``, ``build_host``, ``load_host``) builds the
 package's host C++ under ``codecs/native/`` (the WebP codec: its VP8 and
 VP8L sources into one library; the raster loops of GIF, TIFF and BMP into
-another) the same way with ``g++``, into
+another; the JPEG entropy writer into a third) the same way with ``g++``, into
 ``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it needs no CUDA, so the
 CPU tests build and run it too.
 
@@ -59,6 +59,10 @@ SOURCES: Dict[str, tuple] = {
     "blazeface": ("blazeface.cu", ()),
     # K11-K14 round every product and sum through __f*_rn intrinsics
     "blazeface_train": ("blazeface_train.cu", ()),
+    # K16 repeats the JAX encoder's f32 arithmetic: no multiply-add
+    # contraction, IEEE division
+    "jpeg_trellis": ("jpeg_trellis.cu", ("--fmad=false",)),
+    "jpeg_fdct": ("jpeg_fdct.cu", ()),
 }
 
 #: host library name -> (files under the package: the .cpp sources compiled
@@ -70,6 +74,8 @@ HOST_SOURCES: Dict[str, tuple] = {
     # LZW (GIF and TIFF), the GIF quantizer, PackBits and BMP RLE
     "raster": (tuple(os.path.join("codecs", "native", f) for f in (
         "gif.cpp", "raster.cpp")), ()),
+    # the JPEG entropy writer (markers, Huffman tables, scans)
+    "jpeg": (tuple(os.path.join("codecs", "native", f) for f in ("jpeg_writer.cpp",)), ()),
 }
 
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")

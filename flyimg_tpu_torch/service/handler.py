@@ -26,11 +26,10 @@ to the batcher before any wait, so one animation runs as batched launches
 of the same kernels; a transparent animation's alpha planes ride as extra
 frames under a geometry-only plan and are thresholded at 128 for the GIF's
 transparent index. A still answer of an animated source renders frame
-``gf_``. The fetch, the decode and the encode run on the host stage pools
-when the server has them (``host_pipeline_*``). Not ported yet (ROADMAP):
-the JPEG sampling factors nvJPEG lacks, CMYK JPEG (``clsp_CMYK``), signed
-URLs and domain restrictions, brownout, derivative reuse and the fleet
-tier.
+``gf_``. ``clsp_CMYK`` answers a CMYK JPEG. The fetch, the decode and the
+encode run on the host stage pools when the server has them
+(``host_pipeline_*``). Not ported yet (ROADMAP): signed URLs and domain
+restrictions, brownout, derivative reuse and the fleet tier.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ import torch
 
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.appconfig import AppParameters
-from flyimg_tpu_torch.codecs import metadata
+from flyimg_tpu_torch.codecs import jpeg_enc, metadata
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
@@ -288,10 +287,6 @@ class ImageHandler:
                               accepts_webp=accepts_webp)
         if parse_colorspace(options) == "cmyk":
             _require_cmyk_container(spec)
-            raise UnsupportedMediaException(
-                "clsp_CMYK (a CMYK JPEG output) is not ported to the PyTorch "
-                "package yet"
-            )
         if spec.extension not in _ENCODED:
             raise UnsupportedMediaException(
                 f"{spec.extension} output is not ported to the PyTorch "
@@ -565,12 +560,22 @@ class ImageHandler:
     def _encode(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
                 alpha) -> bytes:
         """Encode a finished frame with the request's q_, moz_, sf_ and
-        webpl_ (the reference handler's ``_encode_one``)."""
+        webpl_ (the reference handler's ``_encode_one``). Under
+        ``clsp_CMYK`` (a JPEG container: ``_require_cmyk_container`` ran
+        before decode) the frame is stored as CMYK samples, its Huffman
+        tables optimized under ``moz_1``; ``sf_`` is still parsed (a bad
+        value is a 400) though the four components are not subsampled."""
+        quality = options.int_option("quality", 90) or 90
+        mozjpeg = str(options.get_option("mozjpeg")) == "1"
+        if parse_colorspace(options) == "cmyk":
+            _require_cmyk_container(spec)
+            codecs.parse_sampling_factor(_sampling_factor(options))
+            return jpeg_enc.encode_cmyk(frame, quality, mozjpeg, device=self.device)
         return codecs.encode(
             frame, spec.extension, alpha,
-            quality=options.int_option("quality", 90) or 90,
+            quality=quality,
             webp_lossless=_webp_lossless(options),
-            mozjpeg=str(options.get_option("mozjpeg")) == "1",
+            mozjpeg=mozjpeg,
             sampling_factor=_sampling_factor(options),
             device=self.device,
         )

@@ -8,14 +8,19 @@
   decode. Bound: exact.
 - EXIF orientation 1-8 of PNG, JPEG and WebP sources against the JAX
   package's ``flyimg_tpu.codecs.decode``: shape, colour and alpha exact.
-- JPEG: nvJPEG runs on a card only, so here the tests hold what surrounds
-  it, with a Pillow stand-in for the two nvJPEG calls
+- JPEG: nvJPEG decodes on a card only, so here the tests hold what
+  surrounds it, with a Pillow stand-in for the nvJPEG decode
   (tests/torch_jpeg_stand_in.py): the DCT prescale the target hint picks
-  (scales 1, 2, 4 and 8 of 8; 4:2:0, 4:4:4 and progressive sources) and
-  the encode options (q_, moz_, sf_), against the JAX package's decode and
-  encode, exact; and ``parse_sampling_factor`` against the JAX function,
-  every spelling and refusal. nvJPEG itself is held by the card's tests
-  (tests/test_torch_codecs_card.py) and ``chip_smoke.py`` phase 10.
+  (scales 1, 2, 4 and 8 of 8; 4:2:0, 4:4:4 and progressive sources),
+  against the JAX package's decode, exact. The port's own encoder
+  (codecs/jpeg_enc.py) runs its kernels' plain versions here: the encode
+  options (q_, moz_, sf_, every sampling factor, also those nvJPEG lacks)
+  reach it and give the JAX package's native bytes (its library built
+  into a temporary directory, tests/jax_fastcodec.py);
+  ``parse_sampling_factor`` against the JAX function, every spelling and
+  refusal. nvJPEG itself is held by the card's tests
+  (tests/test_torch_codecs_card.py) and ``chip_smoke.py`` phase 10;
+  tests/test_torch_jpeg_encode.py holds the encoder.
 - WebP: the package's lossless (VP8L) encoder round trips exactly through
   Pillow's libwebp and its own decoder; its decoder gives the JAX
   package's pixels on Pillow's lossless files; a lossy request answers a
@@ -36,6 +41,7 @@ from PIL import Image
 import flyimg_tpu.codecs as jcodecs
 import torch_jpeg_stand_in as stand_in
 from flyimg_tpu.codecs.sniff import MediaInfo as JMediaInfo
+from jax_fastcodec import fastcodec, use_in_jax  # noqa: F401
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.codecs import native_codec, png
 from flyimg_tpu_torch.codecs.sniff import MediaInfo
@@ -145,25 +151,25 @@ def test_encode_round_trips_through_pillow(with_alpha):
 
 
 @pytest.mark.parametrize("case", ["palette", "16bit", "interlaced", "jpeg"])
-def test_unsupported_inputs_raise(case, monkeypatch):
-    """JPEG on the CPU is refused by name (nvJPEG runs on a card). The PNG
-    cases (a palette PNG, a 16-bit gray PNG, an Adam7 PNG) once raised
-    too: they now decode to the JAX package's pixels."""
+def test_unsupported_inputs_raise(case, monkeypatch, request):
+    """A JPEG decode on the CPU is refused by name (nvJPEG runs on a card);
+    a JPEG encode on the CPU runs the port's encoder (its kernels' plain
+    versions) and gives the JAX package's native bytes. The PNG cases (a
+    palette PNG, a 16-bit gray PNG, an Adam7 PNG) once raised too: they
+    now decode to the JAX package's pixels."""
     if case == "jpeg":
-        # JPEG is nvJPEG's, on a CUDA device: on the CPU it is refused by
-        # name; through the nvJPEG calls' stand-in it is the JAX
-        # package's decode and encode
+        # through the nvJPEG decode's stand-in the decode is the JAX
+        # package's
         buf = io.BytesIO()
         Image.fromarray(np.arange(192, dtype=np.uint8).reshape(8, 8, 3)).save(buf, "JPEG")
         with pytest.raises(UnsupportedMediaException, match="nvJPEG"):
             codecs.decode(buf.getvalue(), device="cpu")
-        with pytest.raises(UnsupportedMediaException, match="nvJPEG"):
-            codecs.encode(np.zeros((4, 4, 3), np.uint8), "jpg", device="cpu")
+        use_in_jax(monkeypatch, request.getfixturevalue("fastcodec"))
+        frame = np.zeros((4, 4, 3), np.uint8)
+        assert codecs.encode(frame, "jpg", device="cpu") == jcodecs.encode(frame, "jpg")
         stand_in.install(monkeypatch)
         got, ref = codecs.decode(buf.getvalue()), jcodecs.decode(buf.getvalue())
         np.testing.assert_array_equal(got.rgb, ref.rgb)
-        frame = np.zeros((4, 4, 3), np.uint8)
-        assert codecs.encode(frame, "jpg") == jcodecs.encode(frame, "jpg")
         return
     rng = np.random.default_rng(5)
     buf = io.BytesIO()
@@ -394,20 +400,27 @@ def test_jpeg_decode_prescale_matches_jax(kind, hint, scale, monkeypatch):
 @pytest.mark.parametrize("quality", [90, 40])
 @pytest.mark.parametrize("mozjpeg", [False, True])
 @pytest.mark.parametrize("sampling", ["1x1", "2x2", "4:2:2"])
-def test_jpeg_encode_options_reach_the_encoder(quality, mozjpeg, sampling, monkeypatch):
-    """q_, moz_ and sf_ reach the nvJPEG encode call as the JAX package's
-    encode reads them (moz_1: optimized Huffman tables and progressive
-    scans; the trellis of the JAX package's native build waits); through
-    the stand-in the bytes are the JAX package's."""
+def test_jpeg_encode_options_reach_the_encoder(quality, mozjpeg, sampling, monkeypatch,
+                                               fastcodec):
+    """q_, moz_ and sf_ reach the port's JPEG encoder as the JAX package's
+    encode reads them (moz_1: the trellis encoder, optimized Huffman
+    tables and progressive scans; moz_0: a baseline encode with the
+    standard tables), and the bytes are the JAX package's native ones."""
     stand_in.install(monkeypatch)
+    use_in_jax(monkeypatch, fastcodec)
     img = _photo(50, 70, seed=3)
     got = codecs.encode(img, "jpg", quality=quality, mozjpeg=mozjpeg,
                         sampling_factor=sampling)
     ref = jcodecs.encode(img, "jpg", quality=quality, mozjpeg=mozjpeg,
                          sampling_factor=sampling)
-    assert stand_in.encode.calls == [{
-        "quality": quality, "optimize": mozjpeg, "progressive": mozjpeg,
-        "sampling": jcodecs.parse_sampling_factor(sampling), "device": "cuda"}]
+    factors = jcodecs.parse_sampling_factor(sampling)
+    if mozjpeg:
+        want = {"encoder": "encode_trellis", "quality": quality, "sampling": factors,
+                "progressive": True, "device": "cuda"}
+    else:
+        want = {"encoder": "encode_plain", "quality": quality, "optimize": False,
+                "progressive": False, "sampling": factors, "device": "cuda"}
+    assert stand_in.encode.calls == [want]
     assert got == ref
 
 
@@ -435,19 +448,21 @@ def test_parse_sampling_factor_matches_jax(value):
 _UNMAPPED = ["1x3", "1x4", "2x3", "2x4", "3x1", "3x2"]
 
 
+@pytest.mark.parametrize("mozjpeg", [False, True])
 @pytest.mark.parametrize("value", _UNMAPPED)
-def test_sampling_factors_nvjpeg_lacks_are_refused(value, monkeypatch):
-    """Factors that parse but that nvJPEG cannot subsample to raise
-    UnsupportedMediaException before any encode call, where the JAX
-    package encodes them (ROADMAP Queue A 2)."""
+def test_sampling_factors_nvjpeg_lacks_are_refused(value, mozjpeg, monkeypatch, fastcodec):
+    """Factors that parse but that nvJPEG cannot subsample to were refused
+    (415) until the port had its own encoder (the test keeps its name):
+    each now encodes, to the JAX package's native bytes."""
     stand_in.install(monkeypatch)
+    use_in_jax(monkeypatch, fastcodec)
     img = _photo(40, 48, seed=5)
     assert jcodecs.parse_sampling_factor(value) == codecs.parse_sampling_factor(value)
-    assert Image.open(io.BytesIO(jcodecs.encode(img, "jpg", sampling_factor=value))).size \
-        == (48, 40)
-    with pytest.raises(UnsupportedMediaException, match=f"sampling factor {value}"):
-        codecs.encode(img, "jpg", sampling_factor=value)
-    assert stand_in.encode.calls == []
+    got = codecs.encode(img, "jpg", mozjpeg=mozjpeg, sampling_factor=value)
+    assert got == jcodecs.encode(img, "jpg", mozjpeg=mozjpeg, sampling_factor=value)
+    assert Image.open(io.BytesIO(got)).size == (48, 40)
+    assert [c["sampling"] for c in stand_in.encode.calls] == \
+        [codecs.parse_sampling_factor(value)]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The PyTorch package's nvJPEG codec on the card (skips without one).
+"""The PyTorch package's JPEG codecs on the card (skips without one).
 
 nvJPEG runs only on a CUDA device, and the card machine has neither JAX nor
 the JAX package's codecs, so these tests hold nvJPEG against the JAX
@@ -15,8 +15,10 @@ the CPU that the fixtures are still those answers):
   ``NVJPEG_SHARE_OVER_1`` of values more than 1 level apart (nvJPEG's IDCT
   is not libjpeg's islow, and the prescale is a box mean where libjpeg
   scales in the DCT domain);
-- q90 4:4:4 encodes (moz_0, moz_1) of the fixture source: PSNR at least the
-  JAX package's less 0.5 dB, at most 1.05x its bytes.
+- the JPEG encodes of the port's own encoder on the card (kernels K16 and
+  K17) against the JAX package's native bytes in tests/data/jpeg_enc
+  (``tools/make_jpeg_encode_fixtures.py``), and the two kernels' coefficients
+  against their plain versions.
 
 Run on the card: ``python3 -m pytest -m cuda tests/test_torch_codecs_card.py``
 (``chip_smoke.py`` phase 10 runs the same checks).
@@ -79,16 +81,50 @@ def test_nvjpeg_refuses_a_decompression_bomb(card):
         codecs.decode(chip_smoke.bomb_header(_read("q90_444.jpg")), device=card)
 
 
+ENC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg_enc")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("moz", [0, 1])
 def test_nvjpeg_encode_against_the_jax_package(card, moz):
-    with open(os.path.join(DATA, "reference.json")) as fh:
-        jax = json.load(fh)["encode_q90_444"][f"moz_{moz}"]
-    src, _ = png.decode(_read("source.png"))
-    blob = codecs.encode(src, "jpg", quality=90, mozjpeg=bool(moz), sampling_factor="1x1",
+    """The JPEG encode on the card (the port's own encoder since nvJPEG's
+    encode stopped serving; the test keeps its name) gives the JAX
+    package's native bytes (tests/data/jpeg_enc): moz_1 at 4:4:4, moz_0 at
+    2x4."""
+    with open(os.path.join(ENC, "source.png"), "rb") as fh:
+        src, _ = png.decode(fh.read())
+    sampling, name = ("1x1", "trellis_q90_1x1.jpg") if moz else ("2x4", "plain_q90_2x4.jpg")
+    blob = codecs.encode(src, "jpg", quality=90, mozjpeg=bool(moz), sampling_factor=sampling,
                          device=card)
-    # both encodes decoded by nvJPEG: one decoder's error on both sides
-    back = codecs.decode(blob, device=card).rgb
-    jax_back = codecs.decode(_read(jax["file"]), device=card).rgb
-    assert chip_smoke.psnr(back, src) >= chip_smoke.psnr(jax_back, src) - 0.5
-    assert len(blob) <= 1.05 * jax["bytes"]
+    with open(os.path.join(ENC, name), "rb") as fh:
+        assert blob == fh.read()
+
+
+@pytest.mark.cuda
+def test_jpeg_kernels_against_their_plain_versions(card):
+    """K16 and K17 give their plain versions' coefficients exactly, and every
+    encode of tests/data/jpeg_enc is its file (chip_smoke.py phases 3 and
+    10 run the same)."""
+    import torch
+
+    from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables
+
+    with open(os.path.join(ENC, "source.png"), "rb") as fh:
+        src, _ = png.decode(fh.read())
+    rgb = torch.from_numpy(src)
+    for sampling in ((1, 1), (2, 2), (1, 3), (4, 2)):
+        got = jpeg_enc.trellis_coefficients(rgb.to(card), 90, sampling).cpu()
+        assert torch.equal(got, jpeg_plain.trellis_plain(rgb, 90, sampling))
+        planes = jpeg_plain.grid_planes(rgb, sampling)
+        tables = jpeg_tables.qtables(90)
+        got = jpeg_enc.fdct_coefficients([p.to(card) for p in planes], tables, (0, 1, 1))
+        assert torch.equal(got.cpu(), jpeg_enc.fdct_coefficients(planes, tables, (0, 1, 1)))
+    with open(os.path.join(ENC, "reference.json")) as fh:
+        ref = json.load(fh)
+    for name, entry in ref["files"].items():
+        assert chip_smoke.jpeg_fixture_encode(entry, src, card) == _read_enc(name), name
+
+
+def _read_enc(name):
+    with open(os.path.join(ENC, name), "rb") as fh:
+        return fh.read()

@@ -69,6 +69,10 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "assert codecs.decode(codecs.encode(small, 'png')).size == (30, 20)\n"
         "still = codecs.decode(codecs.encode(small, 'gif'))\n"
         "assert still.mime == 'image/gif' and still.size == (30, 20)\n"
+        "jpg = codecs.encode(small, 'jpg', device='cpu')\n"
+        "assert jpg[:4] == b'\\xff\\xd8\\xff\\xe0' and jpg[-2:] == b'\\xff\\xd9'\n"
+        "from flyimg_tpu_torch.codecs import jpeg_enc\n"
+        "assert jpeg_enc.encode_cmyk(small, 90, device='cpu')[2:4] == b'\\xff\\xee'\n"
         "anim = codecs.encode_animation([small, 255 - small], None, [50, 70], 0)\n"
         "assert codecs.decode(anim).n_frames == 2\n"
         "frames = codecs.decode_all(anim)\n"
@@ -95,17 +99,20 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
 
 
 def test_the_webp_codec_builds_from_its_own_sources():
-    """The port's WebP library compiles from the package's sources alone: no
-    libwebp header, library or dlopen in them or in their build flags."""
+    """The port's host libraries (the WebP codec, the raster loops, the
+    JPEG writer) compile from the package's sources alone: no libwebp or
+    libjpeg header, library or dlopen in them or in their build flags."""
     from flyimg_tpu_torch import cuda_build
 
     pkg = os.path.join(ROOT, "flyimg_tpu_torch")
+    assert "codecs/native/jpeg_writer.cpp" in cuda_build.HOST_SOURCES["jpeg"][0]
     for name, (files, flags) in cuda_build.HOST_SOURCES.items():
-        assert not any("webp" in f for f in flags + cuda_build.HOST_FLAGS), name
+        assert not any("webp" in f or "jpeg" in f for f in flags + cuda_build.HOST_FLAGS), name
         for f in files:
             with open(os.path.join(pkg, f)) as fh:
                 text = fh.read()
-            for bad in ("<webp/", "dlopen", "-lwebp", "libwebp.so"):
+            for bad in ("<webp/", "dlopen", "-lwebp", "libwebp.so", "jpeglib", "-ljpeg",
+                        "libjpeg.so", "turbojpeg", "jerror.h"):
                 assert bad not in text, (f, bad)
             for line in text.splitlines():
                 if line.startswith("#include"):

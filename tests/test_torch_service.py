@@ -16,6 +16,8 @@ import torch
 import torch_jpeg_stand_in as stand_in
 from PIL import Image
 
+from jax_fastcodec import fastcodec, use_in_jax  # noqa: F401
+
 from flyimg_tpu.models import smartcrop as js
 from flyimg_tpu.ops.compose import run_plan as jrun_plan
 from flyimg_tpu.spec.options import OptionsBag as JOptionsBag
@@ -103,18 +105,17 @@ def test_upload_matches_jax_pipeline(service, opts):
     assert headers2["ETag"] == headers["ETag"]
 
 
-def test_error_statuses(service, tmp_path, monkeypatch):
+def test_error_statuses(service, tmp_path, monkeypatch, fastcodec):
     _server, base, src, _img = service
     assert get(f"{base}/upload/w_100/{src}.missing")[0] == 404
     status, _h, body = get(f"{base}/upload/w_100,fb_1/{src}")
     assert status == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
-    # o_jpg encodes with nvJPEG, on a card: a server on the CPU refuses it
-    # (415, naming nvJPEG); through the nvJPEG calls' stand-in it answers
-    # as the JAX handler does (status, type, size; decoded pixels within
-    # JPEG_LEVELS of its answer's)
-    status, _h, body = get(f"{base}/upload/w_100,o_jpg/{src}")
-    assert status == 415 and b"nvJPEG" in body
-    stand_in.install(monkeypatch)
+    # o_jpg: the port's JPEG encoder runs its kernels' plain versions on a
+    # server on the CPU (nvJPEG refused it here before the port had its
+    # own) and answers as the JAX handler does with its native library
+    # (status, type, size; decoded pixels within JPEG_LEVELS of its
+    # answer's)
+    use_in_jax(monkeypatch, fastcodec)
     status, headers, body = get(f"{base}/upload/w_100,o_jpg,rf_1/{src}")
     ref = _jax_handler(tmp_path).process_image("w_100,o_jpg", src)
     assert status == 200 and headers["Content-Type"] == ref.spec.mime == "image/jpeg"
@@ -397,10 +398,14 @@ def _small_source(root):
     return str(path)
 
 
-@pytest.mark.parametrize("opts", ["clsp_CMYK,o_png", "clsp_CMYK", "w_200,clsp_CMYK,o_png"])
+@pytest.mark.parametrize("opts", ["clsp_CMYK,o_png", "clsp_CMYK", "w_200,clsp_CMYK,o_png",
+                                  "clsp_CMYK,o_webp", "w_200,clsp_CMYK,o_gif"])
 def test_cmyk_outside_jpeg_is_refused_as_the_jax_handler(service, tmp_path, opts):
-    """clsp_CMYK with a PNG output (asked for, or the PNG source's own)
-    answers 400 with the JAX handler's exception and message."""
+    """clsp_CMYK with a PNG, WebP or GIF output (asked for, or the PNG
+    source's own) answers 400 with the JAX handler's exception and
+    message; a JPEG container passes the rule and answers a four-component
+    Adobe JPEG equal to the JAX handler's (a 415 before the port wrote
+    CMYK JPEGs)."""
     _server, base, src, _img = service
     with pytest.raises(Exception) as exc:
         _jax_handler(tmp_path).process_image(opts, src)
@@ -408,9 +413,12 @@ def test_cmyk_outside_jpeg_is_refused_as_the_jax_handler(service, tmp_path, opts
     status, headers, body = get(f"{base}/upload/{opts}/{src}")
     assert status == 400
     assert body.decode() == f"{type(exc.value).__name__}: {exc.value}"
-    # a JPEG container passes the rule, and a CMYK JPEG is not ported yet
-    # (the JAX package encodes it through Pillow only)
-    assert get(f"{base}/upload/w_200,clsp_CMYK,o_jpg/{src}")[0] == 415
+    small = _small_source(tmp_path)
+    status, headers, body = get(f"{base}/upload/w_40,clsp_CMYK,o_jpg/{small}")
+    assert status == 200 and headers["Content-Type"] == "image/jpeg"
+    assert body[2:18] == b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+    assert b"\xff\xc0\x00\x14\x08\x00\x1e\x00\x28\x04" in body   # 40x30, 4 components
+    assert body == _jax_handler(tmp_path).process_image("w_40,clsp_CMYK,o_jpg", small).content
 
 
 def _request(url, method):
@@ -548,17 +556,21 @@ def get_accepting(url, accept):
     (",o_jpg,q_75,sf_2x2", "*/*", "image/jpeg"),
 ])
 def test_jpeg_source_answers_match_the_jax_handler(service, jpeg_source, tmp_path,
-                                                   monkeypatch, opts, out, accept, mime):
-    """A JPEG upload through the port's server (its nvJPEG calls by the
+                                                   monkeypatch, request, opts, out, accept,
+                                                   mime):
+    """A JPEG upload through the port's server (its nvJPEG decode by the
     stand-in) and the JAX handler: the same status, type, storage name and
     size; a lossless WebP answer's pixels are within 1 level of the JAX
     handler's PNG answer of the same URL, a lossy one's PSNR against that
     PNG answer at least the JAX handler's WebP answer's less
     WEBP_PSNR_LOSS_DB; a JPEG answer's decoded pixels are within
-    JPEG_LEVELS of the JAX handler's. The source decodes at the scale the
-    target hint picks (4 of 8)."""
+    JPEG_LEVELS of the JAX handler's with its native library in place
+    (both trellis encodes). The source decodes at the scale the target
+    hint picks (4 of 8)."""
     _server, base, _src, _img = service
     stand_in.install(monkeypatch)
+    if mime == "image/jpeg":
+        use_in_jax(monkeypatch, request.getfixturevalue("fastcodec"))
     # rf_1: render anew (o_auto and o_webp name one stored output)
     status, headers, body = get_accepting(f"{base}/upload/{opts}{out},rf_1/{jpeg_source}",
                                           accept)
@@ -582,9 +594,9 @@ def test_jpeg_source_answers_match_the_jax_handler(service, jpeg_source, tmp_pat
     else:
         assert np.abs(got.astype(int) - want.astype(int)).max() <= JPEG_LEVELS
         call = stand_in.encode.calls[-1]
+        assert call["encoder"] == "encode_trellis" and call["progressive"]
         assert call["quality"] == (75 if "q_75" in out else 90)
         assert call["sampling"] == ((2, 2) if "sf_2x2" in out else (1, 1))
-        assert call["optimize"] and call["progressive"]
 
 
 @pytest.mark.parametrize("opts", ["w_40,o_webp,webpl_1,rf_1", "w_40,o_jpg,rf_1",
@@ -698,18 +710,26 @@ def test_rgba_png_source_answers_webp_with_its_alpha(service, tmp_path, opts):
 
 @pytest.mark.parametrize("sf", ["1x4", "3x1"])
 def test_sampling_factor_nvjpeg_lacks_is_refused_where_the_jax_handler_encodes(
-        service, tmp_path, monkeypatch, sf):
+        service, tmp_path, monkeypatch, fastcodec, sf):
     """A JPEG answer with sampling factors nvJPEG cannot subsample to
-    answers 415 before any decode or encode, where the JAX handler answers
-    image/jpeg (ROADMAP Queue A 2)."""
+    answered 415 until the port had its own encoder (the test keeps its
+    name): it now answers 200 image/jpeg with the JAX handler's bytes (its
+    native library in place), and a factor that does not parse still
+    answers 400 before any decode or encode."""
     _server, base, _src, _img = service
     stand_in.install(monkeypatch)
+    use_in_jax(monkeypatch, fastcodec)
     src = _small_source(tmp_path)
     opts = f"w_40,o_jpg,sf_{sf}"
-    status, _h, body = get(f"{base}/upload/{opts}/{src}")
-    assert status == 415 and f"sampling factor {sf}".encode() in body
+    status, headers, body = get(f"{base}/upload/{opts}/{src}")
+    assert status == 200 and headers["Content-Type"] == "image/jpeg"
+    assert [c["sampling"] for c in stand_in.encode.calls] == \
+        [tuple(int(f) for f in sf.split("x"))]
+    assert body == _jax_handler(tmp_path).process_image(opts, src).content
+    stand_in.encode.calls.clear()
+    status, _h, body = get(f"{base}/upload/w_40,o_jpg,sf_{sf}x1/{src}")
+    assert status == 400 and b"invalid sampling factor" in body
     assert stand_in.encode.calls == [] and stand_in.decode.calls == []
-    assert _jax_handler(tmp_path).process_image(opts, src).spec.mime == "image/jpeg"
 
 
 def test_gif_output_is_still_refused(service, tmp_path):

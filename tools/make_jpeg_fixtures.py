@@ -25,6 +25,8 @@ writes what the card's tests compare with:
   of 8 that target hints pick (``<name>.s<k>.png``);
 - the JAX package's q90 encodes of the source with moz_0 and moz_1
   (4:4:4), as ``encode_q90_444_moz<k>.jpg``;
+- ``README.md``: what wrote each file, and which route of the JAX
+  package's encoder wrote the encodes;
 - ``reference.json``: those hints, and for each encode its bytes and
   ``psnr_libjpeg``, its PSNR against the source after the JAX package's
   own decode (libjpeg-turbo, through Pillow). A card compares the PyTorch
@@ -147,7 +149,31 @@ def build() -> dict:
     ref = {"scale_hints": {str(k): list(v) for k, v in SCALE_HINTS.items()},
            "encode_q90_444": encodes}
     files["reference.json"] = (json.dumps(ref, indent=1, sort_keys=True) + "\n").encode()
+    files["README.md"] = readme(jcodecs.native_codec.available()).encode()
     return files
+
+
+def readme(native: bool) -> str:
+    """The fixture directory's README: what wrote each file, and by which of
+    the JAX package's JPEG routes the encodes came."""
+    route = ("its native library (``fc_jpeg_encode_trellis`` for moz_1, "
+             "``fc_jpeg_encode`` for moz_0)" if native else
+             "its Pillow fallback: `libfastcodec.so` did not load where they were "
+             "written, so `encode_q90_444_moz1.jpg` has optimized Huffman tables "
+             "and progressive scans but no trellis quantization")
+    return (
+        "# JPEG fixtures (written by tools/make_jpeg_fixtures.py)\n\n"
+        "- `source.png`: a seeded 320x240 photo-like image.\n"
+        "- `q90_*.jpg`: JPEGs the card's nvJPEG decode is held to (4:2:0, 4:4:4, "
+        "progressive, EXIF orientation 6, gray, Adobe CMYK and YCCK, subsampled CMYK "
+        "and YCCK, RGB-coded), and `<name>.s<k>.png` the JAX package's decode of each "
+        "at DCT scale k of 8.\n"
+        "- `encode_q90_444_moz<k>.jpg`: the JAX package's `flyimg_tpu.codecs.encode` of "
+        f"the source at q90 4:4:4, through {route}.\n"
+        "- `reference.json`: the scale hints and each encode's bytes and PSNR.\n\n"
+        "The native route's bytes, which the port's own JPEG encoder is held to, are "
+        "in `tests/data/jpeg_enc` (tools/make_jpeg_encode_fixtures.py).\n"
+    )
 
 
 def main(argv=None) -> int:
