@@ -287,6 +287,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_F32_UNFUSED = 33.5e12      # the same, one operation an instruction (no FMA)
 
 PIXEL_TOL = 1                   # u8 levels
 #: a JPEG answer of the server against its PNG answer of the same URL, dB
@@ -4234,12 +4235,17 @@ def jpeg_kernel_rows(torch, dev):
     """Phase 3's K16 and K17: each against its plain version on the card,
     coefficient for coefficient, at the main path's shape (the 300x250
     answer of tests/data/jpeg_enc/source.png, q90) and, not timed, at every
-    sampling factor, at q1 and q100, at 1920x1080, ragged sizes and on the
-    CMYK planes; then timed against the plain version and nvJPEG's whole
-    encode of the same frame (the library yardstick)."""
+    sampling factor, at q1 and q100, at 1920x1080, ragged sizes, on the
+    CMYK planes and on the edge frames of
+    flyimg_tpu_torch/testing/jpeg_frames.py (flat, 0/255 checkerboards at
+    q100, q1, 1x1/8x8/9x9, 1920x1080 at 4:2:0; also their CMYK planes);
+    then timed against the plain version and nvJPEG's whole encode of the
+    same frame (the library yardstick), with the device time and the bound
+    at 300x250 and at 1920x1080."""
     import numpy as np
 
     from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables, native_codec, png
+    from flyimg_tpu_torch.testing import jpeg_frames
 
     src, _ = png.decode(jpeg_enc_file("source.png"))
     big = synthetic_image(1920, 1080, seed=1900)
@@ -4282,10 +4288,37 @@ def jpeg_kernel_rows(torch, dev):
         want = torch.cat([jpeg_plain.fdct_islow_plain(p, table[0]) for p in planes])
         held(f"K17 CMYK {label}", got, want, jpeg_plain.component_blocks(w, h, [(1, 1)] * 4))
         n17 += 1
+    for name, q, s in jpeg_frames.CASES:
+        img = jpeg_frames.frame(name)
+        rgb = torch.from_numpy(img.copy()).to(dev)
+        h, w = img.shape[:2]
+        dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(s))
+        held(f"K16 {name} q{q} {s[0]}x{s[1]}", jpeg_enc.trellis_coefficients(rgb, q, s),
+             jpeg_plain.trellis_plain(rgb, q, s), dims)
+        planes = jpeg_plain.grid_planes(rgb, s)
+        tables = jpeg_tables.qtables(q)
+        held(f"K17 {name} q{q} {s[0]}x{s[1]}",
+             jpeg_enc.fdct_coefficients(planes, tables, (0, 1, 1)),
+             torch.cat([jpeg_plain.fdct_islow_plain(p, tables[t])
+                        for p, t in zip(planes, (0, 1, 1))]), dims)
+        n16 += 1
+        n17 += 1
+    for name, q in sorted({(name, q) for name, q, _ in jpeg_frames.CASES}):
+        img = jpeg_frames.frame(name)
+        rgb = torch.from_numpy(img.copy()).to(dev)
+        h, w = img.shape[:2]
+        planes = jpeg_plain.cmyk_grid_planes(rgb)
+        table = [jpeg_tables.build_qtable(q, jpeg_tables.LUMA_Q)]
+        held(f"K17 CMYK {name} q{q}", jpeg_enc.fdct_coefficients(planes, table, (0, 0, 0, 0)),
+             torch.cat([jpeg_plain.fdct_islow_plain(p, table[0]) for p in planes]),
+             jpeg_plain.component_blocks(w, h, [(1, 1)] * 4))
+        n17 += 1
     torch.cuda.synchronize()
     print(f"K16: {n16} cases, K17: {n17} cases equal to their plain versions on the card, "
           "coefficient for coefficient (every luma sampling factor at 300x250 q90; q1, "
-          "q100, 1920x1080, 301x251, 7x5; K17 also on CMYK planes)")
+          "q100, 1920x1080, 301x251, 7x5; the edge frames: flat 0/128/255, 0/255 "
+          "checkerboards of 1 and 8 pixels at q100, q1 on the source, 1x1, 8x8, 9x9, "
+          "1920x1080 at q90 4:2:0; K17 also on CMYK planes)")
 
     rows = {}
     rgb = torch.from_numpy(src).to(dev)
@@ -4328,13 +4361,28 @@ def jpeg_kernel_rows(torch, dev):
                 _device_ms(lambda: jpeg_enc.fdct_coefficients(big_planes, tables, (0, 1, 1)),
                            5, "fdct_kernel")),
     }
+    # the bounds at 1920x1080 and K16's operation floor at the unfused rate
+    # (--fmad=false: an instruction does one operation)
+    bh, bw_ = -(-1080 // 8), -(-1920 // 8)
+    big_blocks = 3 * bh * bw_
+    ops = {"K16": (k16_operations(torch, rgb, 90, (1, 1)),
+                   k16_operations(torch, big_rgb, 90, (1, 1)))}
+    big_bound = {"K16": bound_ms(3.0 * 1920 * 1080 + 128.0 * big_blocks, ops["K16"][1]),
+                 "K17": bound_ms(1.0 * sum(p.numel() for p in big_planes) + 128.0 * big_blocks,
+                                 1100.0 * big_blocks)}
     for name, what in (("K16", "trellis (300x250 q90 4:4:4)"),
                        ("K17", "islow FDCT (300x250 q90 4:4:4 planes)")):
         r = rows[name]
-        print(f"{name} {what}: kernel {r['ms']:.4f} ms, device {device[name][0]:.4f} ms "
-              f"(1920x1080: {device[name][1]:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), nvJPEG's whole encode of the "
-              f"frame {r['library_ms']:.4f} ms (the library yardstick)")
+        floor = ""
+        if name in ops:
+            small, large = (n / H100_F32_UNFUSED * 1e3 for n in ops[name])
+            floor = (f"; operation floor at the unfused rate {small:.5f} ms, 1920x1080 "
+                     f"{large:.5f} ms")
+        print(f"{name} {what}: kernel {r['ms']:.4f} ms, device {device[name][0]:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); 1920x1080: device "
+              f"{device[name][1]:.4f} ms, bound {big_bound[name][0]:.5f} ms "
+              f"({big_bound[name][1]}){floor}; plain {r['plain_ms']:.4f} ms, nvJPEG's whole "
+              f"encode of the frame {r['library_ms']:.4f} ms (the library yardstick)")
     return rows
 
 
@@ -4506,6 +4554,16 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    # K16 and K17 keep every value in registers or shared memory
+    for src, kernel in (("jpeg_trellis", "trellis_kernel"), ("jpeg_fdct", "fdct_kernel")):
+        found = [v for k, v in cuda_build.ptxas_report(cuda_build.build_logs.get(src, "")).items()
+                 if kernel in k]
+        check(len(found) == 1, f"ptxas: no report of {kernel} in {src}'s build log")
+        r = found[0]
+        check(r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"ptxas: {kernel} has a {r['stack']}-byte stack frame, {r['spill_stores']} bytes "
+              f"of spill stores and {r['spill_loads']} of spill loads")
+        print(f"ptxas {kernel}: {r['registers']} registers, no stack frame, no spills")
 
     # phase 3: kernels against their plain versions
     rows = phase_kernels(torch, dev)

@@ -27,7 +27,7 @@ kernels' plain versions (``codecs/jpeg_plain.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,6 +85,19 @@ def _trellis_lib():
     return lib
 
 
+#: K16's constants on each card, a quality (the launch reads them from there)
+_TRELLIS_PARAMS: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _trellis_params(quality: int, device: torch.device) -> torch.Tensor:
+    key = (int(quality), device)
+    params = _TRELLIS_PARAMS.get(key)
+    if params is None:
+        params = torch.from_numpy(jpeg_tables.trellis_param_block(quality).copy()).to(device)
+        _TRELLIS_PARAMS[key] = params
+    return params
+
+
 def trellis_coefficients(rgb: torch.Tensor, quality: int,
                          sampling: Tuple[int, int]) -> torch.Tensor:
     """Trellis-quantized coefficients of a [H, W, 3] u8 image: kernel K16
@@ -102,11 +115,13 @@ def trellis_coefficients(rgb: torch.Tensor, quality: int,
     dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
     out = torch.empty((sum(bw * bh for bw, bh in dims), 64), dtype=torch.int16,
                       device=rgb.device)
-    params = jpeg_tables.trellis_param_block(quality)
+    params = _trellis_params(quality, rgb.device)
     rgb = rgb.contiguous()
+    if rgb.data_ptr() % 16:  # K16 reads whole aligned 16-byte words
+        rgb = rgb.clone()
     rc = _trellis_lib().flyimg_jpeg_trellis(
         rgb.data_ptr(), out.data_ptr(), w, h, sampling[0], sampling[1],
-        params.ctypes.data, cuda_build.current_stream(rgb.device.index))
+        params.data_ptr(), cuda_build.current_stream(rgb.device.index))
     cuda_build.check(rc, "jpeg_trellis")
     trellis_coefficients.launches += 1
     return out
@@ -132,17 +147,37 @@ class _FdctParams(ctypes.Structure):
         ("table", ctypes.c_int * MAX_PLANES),
         ("block_off", ctypes.c_int * (MAX_PLANES + 1)),
         ("plane_off", ctypes.c_longlong * MAX_PLANES),
-        ("recip", ctypes.c_uint * 128),
-        ("corr", ctypes.c_uint * 128),
-        ("shift", ctypes.c_int * 128),
     ]
+
+
+def divisor_words(tables: Sequence[Sequence[int]]) -> np.ndarray:
+    """K17's divisors of natural-order ``tables``: libjpeg-turbo's
+    reciprocal, correction and shift (``jpeg_plain.divisor_rows``) of each
+    natural index n = v * 8 + c, u32 [table][kind][c][v] (a column's 8
+    words side by side)."""
+    rows = np.array([jpeg_plain.divisor_rows(tuple(int(q) for q in t)) for t in tables],
+                    dtype=np.uint32)
+    return np.ascontiguousarray(rows.reshape(len(tables), 3, 8, 8).transpose(0, 1, 3, 2))
+
+
+#: K17's divisors on each card, a table set
+_DIVISORS: Dict[Tuple[tuple, torch.device], torch.Tensor] = {}
+
+
+def _divisors(tables: Sequence[Sequence[int]], device: torch.device) -> torch.Tensor:
+    key = (tuple(tuple(int(q) for q in t) for t in tables), device)
+    words = _DIVISORS.get(key)
+    if words is None:
+        words = torch.from_numpy(divisor_words(key[0]).view(np.int32)).to(device)
+        _DIVISORS[key] = words
+    return words
 
 
 def _fdct_lib():
     lib = cuda_build.load("jpeg_fdct")
     if not getattr(lib, "_flyimg_bound", False):
         p = ctypes.c_void_p
-        lib.flyimg_jpeg_fdct.argtypes = [p, p, ctypes.POINTER(_FdctParams), p]
+        lib.flyimg_jpeg_fdct.argtypes = [p, p, ctypes.POINTER(_FdctParams), p, ctypes.c_int, p]
         lib.flyimg_jpeg_fdct.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib
@@ -181,16 +216,14 @@ def fdct_coefficients(planes: Sequence[torch.Tensor], tables: Sequence[Sequence[
         offset += p.numel()
         blocks += p.numel() // 64
     params.block_off[len(planes)] = blocks
-    for t, table in enumerate(tables):
-        recip, corr, shift = jpeg_plain.divisor_rows(tuple(int(q) for q in table))
-        params.recip[t * 64:t * 64 + 64] = recip
-        params.corr[t * 64:t * 64 + 64] = corr
-        params.shift[t * 64:t * 64 + 64] = shift
+    divisors = _divisors(tables, dev)
     packed = torch.cat([p.reshape(-1) for p in planes]) if len(planes) > 1 \
         else planes[0].reshape(-1).contiguous()
+    if packed.data_ptr() % 8:  # K17 reads a block row as one 8-byte word
+        packed = packed.clone()
     out = torch.empty((blocks, 64), dtype=torch.int16, device=dev)
     rc = _fdct_lib().flyimg_jpeg_fdct(packed.data_ptr(), out.data_ptr(),
-                                      ctypes.byref(params),
+                                      ctypes.byref(params), divisors.data_ptr(), len(tables),
                                       cuda_build.current_stream(dev.index))
     cuda_build.check(rc, "jpeg_fdct")
     fdct_coefficients.launches += 1

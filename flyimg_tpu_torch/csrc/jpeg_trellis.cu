@@ -23,50 +23,133 @@
 // Bit-equality with the C++ code: built with --fmad=false, and every
 // product, sum and quotient below is an explicit round-to-nearest
 // intrinsic, so no multiply-add is contracted and divisions are IEEE.
+// Minima are taken with fminf (exact, and no candidate is -0 or NaN) and
+// ties go where the C loops' strict < sends them.
 //
-// What bounds it on an H100: neither bytes (3 bytes a pixel in, 128
-// bytes a block out) nor the FDCT's ~2k flops a block; the trellis is a
-// sequential DP of up to 63 x 2 x 16 steps a block with data-dependent
-// branches. Design (simple first): a thread a block, its DP state in
-// local memory, the constants (cosines, quantizers, lambda-rates) staged
-// in shared memory by each CTA so the DP's divergent table reads do not
-// serialise on the constant bank. A warp-per-block form is later work.
+// What bounds it on an H100: bytes (3 a pixel in, 128 a block out) put
+// the floor of a 1920x1080 frame at 0.0056 ms; its float operations (~300
+// million on a photo, ~3,000 a block) at the unfused rate (--fmad=false:
+// an instruction does one) at 0.009 ms; and each block's dynamic program
+// is a chain of 63 dependent steps (a 16-way minimum, a compare, the ZRL
+// fold), so a block's latency, not the card's rates, sets the time at the
+// answer's shape and, through the blocks a CTA can keep resident, at
+// 1920x1080. Design (a team of kLanes lanes a block; PERF.md has the
+// widths' times):
+//   - a CTA takes a strip of kTeams neighbouring blocks of one component;
+//     its first global loads (the component's constants and the strip's
+//     RGB rows as aligned 16-byte words) go out together, and it converts
+//     each pixel once (each box mean once for subsampled chroma) into its
+//     teams' slots in shared memory;
+//   - the DCT's 64 outputs of each pass split over the team, each output
+//     summed by one lane in the reference order, written in zigzag order;
+//     the program's per-position values (the candidates round(|c| / q) and
+//     one less, their sizes and squared errors) computed in parallel over
+//     the positions; the prefix sums of c^2 as one sequential f32 sum in
+//     position order;
+//   - the chain keeps the last 16 w values in registers, spread over the
+//     lanes; at a position where some block of the warp has a candidate,
+//     the 16 run lengths of each size split over the lanes and a shuffle
+//     butterfly takes the minimum (v0 - 1's own minimum only where its
+//     size differs from v0's); a run of up to 16 positions where no block
+//     has one is one turn of the window, since there w[j] is the ZRL fold
+//     of w[j - 16] (or 1e30) and depends on nothing newer; the records
+//     overwrite the per-position values in place;
+//   - the back pointers are not tracked on the chain: afterwards the
+//     chosen positions, shared out over the team, find their first
+//     minimum again from the stored w values (the same sums, so the same
+//     argument) and their cost as the last nonzero position, and one lane
+//     follows the pointers;
+//   - everything per block lives in registers or in the team's slots in
+//     shared memory (no local memory; 12 KB a CTA at 4:4:4, the staging
+//     area sized a launch); the block's 128 bytes go out as 16-byte
+//     stores.
+// The constants (cosines, quantizers, lambda-rates) come from a device
+// buffer the wrapper keeps a quality, copied into each CTA's shared
+// memory (lanes read them at different indices, which a kernel parameter
+// or constant memory would serialise).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef K16_LANES
+#define K16_LANES 8
+#endif
+// -DK16_PHASE_CLOCKS (jpeg_breakdown.py): each team's lane 0 writes the
+// clock at the phase boundaries, and the chain's cycles, into its block's
+// output in place of the coefficients
+#ifdef K16_PHASE_CLOCKS
+#define K16_CLOCK(i) (stamp[i] = clock64())
+#else
+#define K16_CLOCK(i)
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = K16_LANES;
+static_assert(kLanes == 2 || kLanes == 4 || kLanes == 8 || kLanes == 16 || kLanes == 32,
+              "K16_LANES is a power of two from 2 to 32");
+constexpr int kTeams = kLanes >= 4 ? 8 : 32 / kLanes;  // blocks a CTA
+constexpr int kThreads = kTeams * kLanes;
+constexpr int kCols = kTeams * 8;                        // plane columns a strip
+constexpr int kM = kLanes >= 16 ? 1 : 16 / kLanes;       // run lengths m a lane
+constexpr int kPos = 64 / kLanes;                        // positions a lane
+constexpr unsigned kFull = 0xffffffffu;
 
-struct K16Params {
+// the host's constants (jpeg_tables.trellis_param_block), in words
+constexpr int kWordCos = 0, kWordQ = 64, kWordRate = 192, kWordZrl = 544, kWordEob = 546;
+
+// one component table's constants in a CTA's shared memory
+struct alignas(16) Table {
   float cos[8][8];
-  float q[2][64];          // zigzag order
-  float lrate[2][11][16];  // [table][size][run], lambda * (code bits + size)
-  float lzrl[2];
-  float leob[2];
+  float q[64];           // zigzag order
+  float lrate[11][16];   // [size][run], lambda * (code bits + size); size 0 is 0
+  float lzrl, leob;
 };
+
+// A team's block in shared memory, in two slots (each padded by 16 bytes so
+// that the four teams of a warp read different banks at the same offset):
+//  - a 64-float slot: the block's plane samples, then its DCT in zigzag
+//    order, then c^2 of each position, then the output (int16 [64] and
+//    the back pointers, uint8 [64]);
+//  - a 64-float4 slot: position k's program values (d^2 for v0 and
+//    v0 - 1, then prefix[k], v0 | size0 << 16 | size1 << 20 | (c < 0) <<
+//    24), which the chain overwrites with its record of k (w[k], best[k],
+//    prefix[k + 1], chosen | zrl << 16 | (c < 0) << 17); position 0
+//    records w[0] = 0 and prefix[64].
+constexpr int kSlotFloats = 64 + 4;
+constexpr int kRecBytes = 64 * 16 + 16;
+constexpr int kRecBytesAll = kTeams * kRecBytes;
 
 struct K16Geom {
   int w, h, sh, sv;
   int pw[3], ph[3];   // plane sizes
   int bw[3];          // blocks a row
   int off[4];         // first block of each component; off[3] = total
+  int strips[3];      // strips a block row
+  int cta_off[4];     // first CTA of each component; cta_off[3] = grid
+  int pitch;          // staged bytes a pixel row (chroma rows of a subsampled frame)
 };
 
-__constant__ int kZigzagToNat[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+// natural index -> zigzag position, in global memory: the lanes read it at
+// different indices
+__device__ const uint8_t kNatToZigzag[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+    3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+    10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+    21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
 
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ int bit_size(int v) { return 32 - __clz(v); }  // v >= 0
+// component c's value of three (a launch parameter indexed at run time
+// would be copied out of the parameter space)
+__device__ __forceinline__ int pick(int c, int a0, int a1, int a2) {
+  return c == 0 ? a0 : (c == 1 ? a1 : a2);
+}
 
 // Y, Cb or Cr of one pixel, in fc_jpeg_encode_trellis's order
-__device__ float ycc(const uint8_t* rgb, int w, int y, int x, int c) {
-  const uint8_t* p = rgb + (static_cast<size_t>(y) * w + x) * 3;
+__device__ __forceinline__ float ycc(const uint8_t* p, int c) {
   const float r = p[0], g = p[1], b = p[2];
   if (c == 0) return fadd(fadd(fmul(0.299f, r), fmul(0.587f, g)), fmul(0.114f, b));
   if (c == 1)
@@ -75,169 +158,557 @@ __device__ float ycc(const uint8_t* rgb, int w, int y, int x, int c) {
   return fadd(fsub(fsub(fmul(0.5f, r), fmul(0.418687589f, g)), fmul(0.081312411f, b)), 128.f);
 }
 
-// one sample of component c's plane at (sy, sx) (inside the plane)
-__device__ float plane_sample(const uint8_t* rgb, const K16Geom& g, int c, int sy, int sx) {
-  if (c == 0 || (g.sh == 1 && g.sv == 1)) return ycc(rgb, g.w, sy, sx, c);
-  float acc = 0.f;
-  int cnt = 0;
-  for (int dy = 0; dy < g.sv; ++dy) {
-    for (int dx = 0; dx < g.sh; ++dx) {
-      const int y = sy * g.sv + dy, x = sx * g.sh + dx;
-      if (y < g.h && x < g.w) {
-        acc = fadd(acc, ycc(rgb, g.w, y, x, c));
-        ++cnt;
-      }
+// n consecutive floats from 4n-byte-aligned shared memory
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&dst)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      dst[i] = v.x;
+      dst[i + 1] = v.y;
+      dst[i + 2] = v.z;
+      dst[i + 3] = v.w;
     }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+    dst[0] = p[0];
   }
-  return __fdiv_rn(acc, static_cast<float>(cnt));
 }
 
-__device__ __forceinline__ int bit_size(int v) {
-  int size = 0;
-  while (v) {
-    ++size;
-    v >>= 1;
+// the minimum of v over the team (a shuffle butterfly), two at once
+__device__ __forceinline__ float team_min(float v) {
+#pragma unroll
+  for (int off = kLanes / 2; off >= 1; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off, kLanes));
+  return v;
+}
+__device__ __forceinline__ void team_min2(float& a, float& b) {
+#pragma unroll
+  for (int off = kLanes / 2; off >= 1; off >>= 1) {
+    const float oa = __shfl_xor_sync(kFull, a, off, kLanes);
+    const float ob = __shfl_xor_sync(kFull, b, off, kLanes);
+    a = fminf(a, oa);
+    b = fminf(b, ob);
   }
-  return size;
 }
 
-// trellis::trellis_ac: cz, qz zigzag; writes outz[1..63]
-__device__ void trellis_ac(const float* cz, const float* qz, const float (*lrate)[16],
-                           float lzrl, float leob, int16_t* outz) {
-  float best[64];
-  int prev_nz[64];
-  int chosen[64];
-  float prefix[65];
-  float w[64];
-  int wj[64];
-  prefix[1] = 0.f;
-  for (int k = 1; k < 64; ++k) prefix[k + 1] = fadd(prefix[k], fmul(cz[k], cz[k]));
-  w[0] = 0.f;
-  wj[0] = 0;
-  for (int k = 1; k < 64; ++k) {
-    best[k] = 1e30f;
-    prev_nz[k] = 0;
-    chosen[k] = 0;
-    const float a = fabsf(cz[k]);
-    const float q = qz[k];
-    int v0 = static_cast<int>(fadd(__fdiv_rn(a, q), 0.5f));
-    if (v0 > 1023) v0 = 1023;
-    if (v0 >= 1) {
-      const int mmax = (k - 1 < 15) ? k - 1 : 15;
-      for (int dv = 0; dv <= 1; ++dv) {
-        const int v = v0 - dv;
-        if (v < 1) break;
-        const int size = bit_size(v);
-        if (size > 10) continue;
-        const float d = fsub(a, fmul(static_cast<float>(v), q));
-        const float fixed = fadd(fmul(d, d), prefix[k]);
-        const float* rates = lrate[size];
-        float bc = fadd(w[k - 1], rates[0]);
-        int bm = 0;
-        for (int m = 1; m <= mmax; ++m) {
-          const float c = fadd(w[k - 1 - m], rates[m]);
-          if (c < bc) {
-            bc = c;
-            bm = m;
-          }
-        }
-        const float cost = fadd(fixed, bc);
-        if (cost < best[k]) {
-          best[k] = cost;
-          prev_nz[k] = wj[k - 1 - bm];
-          chosen[k] = v;
-        }
+// this lane's first minimum over its run lengths of sum_i = w_i + rate_i
+template <int N>
+__device__ __forceinline__ float lane_min(const float (&w)[N], const float (&rate)[N]) {
+  // the slot the last step filled (0) last: it waits on the chain
+  float b = fadd(w[N - 1], rate[N - 1]);
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) b = fminf(b, fadd(w[i], rate[i]));
+  return b;
+}
+
+// trellis::fdct8x8 of the team's block, read from and written to its slot
+// (zigzag order): rows, then columns, each output summed by one lane
+__device__ __forceinline__ void team_fdct(float* slot, float4* rec, const Table& tab,
+                                          const uint8_t* zz, int tl) {
+  if constexpr (kLanes <= 8) {
+    constexpr int kU = kLanes <= 8 ? 8 / kLanes : 1;  // columns u a lane
+    float cu[kU][8], tmp[kU][8];
+#pragma unroll
+    for (int j = 0; j < kU; ++j) load_row(tab.cos[tl * kU + j], cu[j]);
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+      float s[8];
+      load_row(slot + y * 8, s);
+#pragma unroll
+      for (int j = 0; j < kU; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc = fadd(acc, fmul(s[x], cu[j][x]));
+        tmp[j][y] = acc;
       }
     }
-    const float g = (best[k] < 1e29f) ? fsub(best[k], prefix[k + 1]) : 1e30f;
-    if (k >= 16 && fadd(w[k - 16], lzrl) < g) {
-      w[k] = fadd(w[k - 16], lzrl);
-      wj[k] = wj[k - 16];
-    } else {
-      w[k] = g;
-      wj[k] = k;
+    __syncwarp();  // every sample read before the slot takes the outputs
+#pragma unroll
+    for (int j = 0; j < kU; ++j) {
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        float acc = 0.f;
+#pragma unroll
+        for (int y = 0; y < 8; ++y) acc = fadd(acc, fmul(tmp[j][y], tab.cos[v][y]));
+        slot[zz[v * 8 + tl * kU + j]] = acc;
+      }
     }
-  }
-  float total_best = fadd(prefix[64], leob);
-  int last = 0;
-  for (int k = 1; k < 64; ++k) {
-    if (best[k] >= 1e29f) continue;
-    const float tail = fsub(prefix[64], prefix[k + 1]);
-    const float cost = fadd(fadd(best[k], tail), k < 63 ? leob : 0.f);
-    if (cost < total_best) {
-      total_best = cost;
-      last = k;
+  } else {
+    constexpr int kRows = 64 / kLanes;  // rows (then output rows) a lane
+    const int u = tl & 7, y0 = (tl >> 3) * kRows;
+    float* tmp = reinterpret_cast<float*>(rec);  // [y][u]
+    float cu[8];
+    load_row(tab.cos[u], cu);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float s[8];
+      load_row(slot + (y0 + i) * 8, s);
+      float acc = 0.f;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) acc = fadd(acc, fmul(s[x], cu[x]));
+      tmp[(y0 + i) * 8 + u] = acc;
     }
-  }
-  for (int k = 1; k < 64; ++k) outz[k] = 0;
-  for (int k = last; k > 0; k = prev_nz[k]) {
-    outz[k] = static_cast<int16_t>(cz[k] < 0 ? -chosen[k] : chosen[k]);
+    __syncwarp();
+    float col[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) col[y] = tmp[y * 8 + u];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int y = 0; y < 8; ++y) acc = fadd(acc, fmul(col[y], tab.cos[y0 + i][y]));
+      slot[zz[(y0 + i) * 8 + u]] = acc;
+    }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 trellis_kernel(const uint8_t* __restrict__ rgb, int16_t* __restrict__ out, K16Geom g,
-               K16Params params) {
-  __shared__ K16Params sp;
+               const float* __restrict__ params) {
+  __shared__ Table tab;
+  __shared__ uint8_t zz[64];                              // natural -> zigzag
+  __shared__ __align__(16) float slots[kTeams][kSlotFloats];
+  // the strip's staged RGB bytes, then the teams' 64-float4 slots
+  extern __shared__ __align__(16) uint8_t stage[];
+
+#ifdef K16_PHASE_CLOCKS
+  long long stamp[16] = {};  // [8], [9]: the chain's cycles and steps with a candidate; [10]: runs
+#endif
+  K16_CLOCK(0);
+  const int tid = threadIdx.x;
+  const int cta = blockIdx.x;
+  const int c = cta < g.cta_off[1] ? 0 : (cta < g.cta_off[2] ? 1 : 2);
+  const int t = c == 0 ? 0 : 1;
+  const int local = cta - pick(c, 0, g.cta_off[1], g.cta_off[2]);
+  const int strips = pick(c, g.strips[0], g.strips[1], g.strips[2]);
+  const int bw = pick(c, g.bw[0], g.bw[1], g.bw[2]);
+  const int brow = local / strips;
+  const int bcol0 = (local - brow * strips) * kTeams;
+  const int nb = min(kTeams, bw - bcol0);
+  const bool sub = c > 0 && (g.sh > 1 || g.sv > 1);
+  const int fh = sub ? g.sh : 1, fv = sub ? g.sv : 1;
+
+  // the component table's constants, the zigzag table and the strip's
+  // pixels (rows [r0, r1), columns [c0, c1), as aligned 16-byte words: a
+  // word holding a byte of the image lies in its allocation): every global
+  // load of a batch issued before its shared stores
+  const int r0 = brow * 8 * fv, r1 = min(r0 + 8 * fv, g.h);
+  const int c0 = bcol0 * 8 * fh, c1 = min(c0 + nb * 8 * fh, g.w);
+  const int pitch = sub ? g.pitch : kCols * 3 + 32;
+  const int wpr = pitch / 16;
   {
-    const float* src = reinterpret_cast<const float*>(&params);
-    float* dst = reinterpret_cast<float*>(&sp);
-    for (int i = threadIdx.x; i < static_cast<int>(sizeof(K16Params) / 4); i += blockDim.x)
-      dst[i] = src[i];
+    constexpr int kVecs = 16 + 16 + 44;  // cos, q[t], lrate[t] as float4
+    constexpr int kPer = (kVecs + kThreads - 1) / kThreads;
+    const float4* src = reinterpret_cast<const float4*>(params);
+    float4 vec[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = tid + j * kThreads;
+      if (i < kVecs)
+        vec[j] = src[i < 16 ? kWordCos / 4 + i
+                            : (i < 32 ? (kWordQ + 64 * t) / 4 + i - 16
+                                      : (kWordRate + 176 * t) / 4 + i - 32)];
+    }
+    constexpr int kZz = (64 + kThreads - 1) / kThreads;
+    uint8_t zv[kZz];
+#pragma unroll
+    for (int j = 0; j < kZz; ++j)
+      if (tid + j * kThreads < 64) zv[j] = kNatToZigzag[tid + j * kThreads];
+    const float lzrl = params[kWordZrl + t], leob = params[kWordEob + t];
+    // word wi of staged row rr, for i = rr * wpr + wi = tid + j * kThreads
+    const uint4* words = reinterpret_cast<const uint4*>(rgb);
+    const int rows = r1 - r0, step_rr = kThreads / wpr, step_wi = kThreads - step_rr * wpr;
+    int rr = tid / wpr, wi = tid - rr * wpr;
+    constexpr int kBatch = 4;
+    uint4 w[kBatch];
+    int at[kBatch];
+    // the first batch's loads go out with the constants'; the rest (the
+    // rows of subsampled chroma) a batch at a time
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const size_t start = (static_cast<size_t>(r0 + rr) * g.w + c0) * 3;
+      const size_t word = (start >> 4) + wi;
+      at[j] = -1;
+      if (rr < rows && word <= ((start + static_cast<size_t>(c1 - c0) * 3 - 1) >> 4)) {
+        w[j] = words[word];
+        at[j] = rr * pitch + wi * 16;
+      }
+      rr += step_rr;
+      wi += step_wi;
+      if (wi >= wpr) {
+        wi -= wpr;
+        ++rr;
+      }
+    }
+    float4* dst = reinterpret_cast<float4*>(&tab.cos[0][0]);  // cos, q, lrate in a row
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (tid + j * kThreads < kVecs) dst[tid + j * kThreads] = vec[j];
+#pragma unroll
+    for (int j = 0; j < kZz; ++j)
+      if (tid + j * kThreads < 64) zz[tid + j * kThreads] = zv[j];
+    if (tid == 0) {
+      tab.lzrl = lzrl;
+      tab.leob = leob;
+    }
+    while (true) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (at[j] >= 0) *reinterpret_cast<uint4*>(stage + at[j]) = w[j];
+      if (rr >= rows) break;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const size_t start = (static_cast<size_t>(r0 + rr) * g.w + c0) * 3;
+        const size_t word = (start >> 4) + wi;
+        at[j] = -1;
+        if (rr < rows && word <= ((start + static_cast<size_t>(c1 - c0) * 3 - 1) >> 4)) {
+          w[j] = words[word];
+          at[j] = rr * pitch + wi * 16;
+        }
+        rr += step_rr;
+        wi += step_wi;
+        if (wi >= wpr) {
+          wi -= wpr;
+          ++rr;
+        }
+      }
+    }
   }
   __syncthreads();
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= g.off[3]) return;
-  const int c = idx < g.off[1] ? 0 : (idx < g.off[2] ? 1 : 2);
-  const int t = c == 0 ? 0 : 1;
-  const int local = idx - g.off[c];
-  const int brow = local / g.bw[c], bcol = local - brow * g.bw[c];
-  const int pw = g.pw[c], ph = g.ph[c];
+  K16_CLOCK(1);
 
-  float samples[64];
-  for (int yy = 0; yy < 8; ++yy) {
-    const int sy = min(brow * 8 + yy, ph - 1);
-    for (int xx = 0; xx < 8; ++xx) {
-      const int sx = min(bcol * 8 + xx, pw - 1);
-      samples[yy * 8 + xx] = fsub(plane_sample(rgb, g, c, sy, sx), 128.f);
+  // the strip's plane, minus 128, edges replicated, into the teams' slots
+  // (a thread a column; a team past the strip's end gets its last block)
+  {
+    const int pw = pick(c, g.pw[0], g.pw[1], g.pw[2]), ph = pick(c, g.ph[0], g.ph[1], g.ph[2]);
+    const int w16 = g.w & 15;  // a row's first byte modulo 16 is (y * w + c0) * 3 mod 16
+    for (int xx = tid; xx < kCols; xx += kThreads) {
+      const int sx = min(bcol0 * 8 + min(xx, (nb - 1) * 8 + (xx & 7)), pw - 1);
+      float* col = &slots[xx >> 3][xx & 7];
+      if (!sub) {
+#pragma unroll
+        for (int yy = 0; yy < 8; ++yy) {
+          const int sy = min(brow * 8 + yy, ph - 1);
+          const int lead = ((sy * w16 + c0) * 3) & 15;
+          col[yy * 8] = fsub(ycc(stage + (sy - r0) * pitch + lead + (sx - c0) * 3, c), 128.f);
+        }
+      } else {
+        for (int yy = 0; yy < 8; ++yy) {
+          const int sy = min(brow * 8 + yy, ph - 1);
+          float acc = 0.f;
+          int cnt = 0;
+          for (int dy = 0; dy < fv; ++dy) {
+            const int y = sy * fv + dy;
+            if (y >= g.h) break;
+            const uint8_t* row = stage + (y - r0) * pitch + (((y * w16 + c0) * 3) & 15);
+            for (int dx = 0; dx < fh; ++dx) {
+              const int x = sx * fh + dx;
+              if (x >= g.w) break;
+              acc = fadd(acc, ycc(row + (x - c0) * 3, c));
+              ++cnt;
+            }
+          }
+          col[yy * 8] = fsub(__fdiv_rn(acc, static_cast<float>(cnt)), 128.f);
+        }
+      }
     }
   }
-  // trellis::fdct8x8: rows, then columns
-  float tmp[64];
-  for (int y = 0; y < 8; ++y) {
-    for (int u = 0; u < 8; ++u) {
-      float s = 0.f;
-      for (int x = 0; x < 8; ++x) s = fadd(s, fmul(samples[y * 8 + x], sp.cos[u][x]));
-      tmp[y * 8 + u] = s;
+  __syncthreads();
+  K16_CLOCK(2);
+
+  // a team a block; a team past the strip's end repeats its last block and
+  // stores nothing
+  const int team = tid / kLanes, tl = tid % kLanes;
+  float* slot = slots[team];
+  float4* rec = reinterpret_cast<float4*>(stage + team * kRecBytes);
+  team_fdct(slot, rec, tab, zz, tl);
+  __syncwarp();
+  K16_CLOCK(3);
+
+  // per position (lane tl: k = tl + i * kLanes): DC, or the program's
+  // values (c^2 back into the slot for the prefix sums)
+  int16_t dc = 0;
+  int v0s[kPos], size0s[kPos], size1s[kPos];
+#pragma unroll
+  for (int i = 0; i < kPos; ++i) {
+    const int k = tl + i * kLanes;
+    const float cz = slot[k];
+    const float q = tab.q[k];
+    v0s[i] = size0s[i] = size1s[i] = 0;
+    if (k == 0) {
+      const float d = __fdiv_rn(cz, q);
+      dc = static_cast<int16_t>(static_cast<int>(d < 0 ? fsub(d, 0.5f) : fadd(d, 0.5f)));
+    } else {
+      const float a = fabsf(cz);
+      const int v0 = min(static_cast<int>(fadd(__fdiv_rn(a, q), 0.5f)), 1023);
+      const int v1 = max(v0 - 1, 0);
+      const float d0 = fsub(a, fmul(static_cast<float>(v0), q));
+      const float d1 = fsub(a, fmul(static_cast<float>(v1), q));
+      v0s[i] = v0;
+      size0s[i] = bit_size(v0);
+      size1s[i] = bit_size(v1);
+      rec[k] = make_float4(fmul(d0, d0), fmul(d1, d1), 0.f,
+                           __int_as_float(v0 | size0s[i] << 16 | size1s[i] << 20 |
+                                          (cz < 0.f ? 1 << 24 : 0)));
+      slot[k] = fmul(cz, cz);
     }
   }
-  float dct[64];
-  for (int u = 0; u < 8; ++u) {
-    for (int v = 0; v < 8; ++v) {
-      float s = 0.f;
-      for (int y = 0; y < 8; ++y) s = fadd(s, fmul(tmp[y * 8 + u], sp.cos[v][y]));
-      dct[v * 8 + u] = s;
+  // for the warp: the positions where some block has a candidate, and
+  // where some block's v0 - 1 has a size of its own
+  uint64_t any_mask = 0, two_mask = 0;
+#pragma unroll
+  for (int i = 0; i < kPos; ++i) {
+    unsigned any = __ballot_sync(kFull, v0s[i] >= 1);
+    unsigned two = __ballot_sync(kFull, v0s[i] >= 2 && size1s[i] != size0s[i]);
+#pragma unroll
+    for (int f = kLanes; f < 32; f <<= 1) {
+      any |= any >> f;
+      two |= two >> f;
+    }
+    constexpr unsigned kTeamBits = kLanes == 32 ? kFull : (1u << kLanes) - 1;
+    any_mask |= static_cast<uint64_t>(any & kTeamBits) << (i * kLanes);
+    two_mask |= static_cast<uint64_t>(two & kTeamBits) << (i * kLanes);
+  }
+  __syncwarp();
+  K16_CLOCK(4);
+
+  // the prefix sums of c^2, one sequential f32 sum in position order, into
+  // the values' .z; then the slot holds the output: zeros and the DC
+  if (tl == 0) {
+    float acc = 0.f;  // prefix[1]
+#pragma unroll
+    for (int base = 1; base < 64; base += 16) {  // 16 loads in flight, then their sums
+      float sq[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (base + j < 64) sq[j] = slot[base + j];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (base + j < 64) {
+          rec[base + j].z = acc;
+          acc = fadd(acc, sq[j]);
+        }
+      }
+    }
+    rec[0] = make_float4(0.f, 1e30f, acc, 0.f);  // w[0] = 0; prefix[64]
+  }
+  __syncwarp();
+  int16_t* outz = reinterpret_cast<int16_t*>(slot);
+  uint8_t* prev = reinterpret_cast<uint8_t*>(slot) + 128;
+  for (int i = tl; i < 8; i += kLanes)
+    reinterpret_cast<uint4*>(outz)[i] = make_uint4(i == 0 ? static_cast<uint16_t>(dc) : 0u,
+                                                   0u, 0u, 0u);
+  const float p64 = rec[0].z;
+
+  // the chain: lane tl holds w[k - 1 - m] for m = tl * kM + i. A position
+  // where some block of the warp has a candidate is one step; a run of up
+  // to 16 positions where none has one is one turn of the window, since
+  // there w[j] is the ZRL fold of w[j - 16] (or 1e30) and depends on
+  // nothing newer
+  const float inf = __int_as_float(0x7f800000);
+  const float lzrl = tab.lzrl, leob = tab.leob;
+  const float* rates = &tab.lrate[0][0];
+  const int mbase = (tl * kM) & 15;
+  float win[kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) win[i] = tl * kM + i == 0 ? 0.f : inf;
+  int k = 1;
+#pragma unroll 1
+  while (k < 64) {
+#ifdef K16_PHASE_CLOCKS
+    const long long step0 = clock64();
+#endif
+    const uint64_t rest = any_mask >> k;
+    if (rest & 1) {
+      const float4 in = rec[k];
+      const float pnext = k < 63 ? rec[k + 1].z : p64;
+      const int pk = __float_as_int(in.w);
+      const int v0 = pk & 0xffff, size0 = (pk >> 16) & 15, size1 = (pk >> 20) & 15;
+      float rate0[kM];
+      load_row(rates + size0 * 16 + mbase, rate0);
+      // w[k - 16] (lane 15 / kM's last slot), off the chain
+      const float z = fadd(__shfl_sync(kFull, win[kM - 1], 15 / kM, kLanes), lzrl);
+      const float up = __shfl_up_sync(kFull, win[kM - 1], 1, kLanes);
+      // the minima over m: this lane's, then the team's; v0 - 1 of v0's
+      // size has v0's minimum
+      float b0 = lane_min(win, rate0), b1;
+      if ((two_mask >> k) & 1) {
+        float rate1[kM];
+        load_row(rates + size1 * 16 + mbase, rate1);
+        b1 = lane_min(win, rate1);
+        team_min2(b0, b1);
+      } else {
+        b0 = team_min(b0);
+        b1 = b0;
+      }
+      const float cost0 = fadd(fadd(in.x, in.z), b0);
+      const float cost1 = fadd(fadd(in.y, in.z), b1);
+      float best = 1e30f;
+      int chosen = 0;
+      if (v0 >= 1 && cost0 < best) {
+        best = cost0;
+        chosen = v0;
+      }
+      if (v0 >= 2 && cost1 < best) {
+        best = cost1;
+        chosen = v0 - 1;
+      }
+      const float gk = best < 1e29f ? fsub(best, pnext) : 1e30f;
+      const bool zrl = k >= 16 && z < gk;
+      const float wk = zrl ? z : gk;
+      __syncwarp();  // every lane has read k's values before they are overwritten
+      if (tl == 0)
+        rec[k] = make_float4(wk, best, pnext,
+                             __int_as_float(chosen | zrl << 16 | ((pk >> 24) & 1) << 17));
+#pragma unroll
+      for (int i = kM - 1; i > 0; --i) win[i] = win[i - 1];
+      win[0] = tl == 0 ? wk : up;
+      if (kLanes * kM > 16 && tl * kM >= 16) win[0] = inf;
+#ifdef K16_PHASE_CLOCKS
+      stamp[8] += clock64() - step0;
+      stamp[9] += 1;
+#endif
+      k += 1;
+    } else {
+      // positions k .. k + r - 1: the window turns by r, and its r newest
+      // entries (m < r: position k + r - 1 - m) fold w[j - 16], which the
+      // turn brings them from m + 16 - r
+      const int r = min(rest ? __ffsll(static_cast<long long>(rest)) - 1 : 64 - k, 16);
+      float turned[kM];
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        const int from = (i - r) & (kM - 1);  // the slot each lane sends
+        float send = win[0];
+#pragma unroll
+        for (int j = 1; j < kM; ++j)
+          if (from == j) send = win[j];
+        const int m = tl * kM + i;
+        float v = __shfl_sync(kFull, send, ((m - r) & 15) / kM, kLanes);
+        if (m < r) {
+          const int j = k + r - 1 - m;
+          const float zf = fadd(v, lzrl);
+          const bool zrl = j >= 16 && zf < 1e30f;
+          v = zrl ? zf : 1e30f;
+          rec[j] = make_float4(v, 1e30f, 0.f, __int_as_float(zrl ? 1 << 16 : 0));
+        }
+        turned[i] = m < 16 ? v : inf;
+      }
+#pragma unroll
+      for (int i = 0; i < kM; ++i) win[i] = turned[i];
+#ifdef K16_PHASE_CLOCKS
+      stamp[10] += clock64() - step0;
+#endif
+      k += r;
     }
   }
-  float cz[64];
-  for (int k = 0; k < 64; ++k) cz[k] = dct[kZigzagToNat[k]];
-  int16_t outz[64];
-  const float dc = __fdiv_rn(cz[0], sp.q[t][0]);
-  outz[0] = static_cast<int16_t>(static_cast<int>(dc < 0 ? fsub(dc, 0.5f) : fadd(dc, 0.5f)));
-  trellis_ac(cz, sp.q[t], sp.lrate[t], sp.lzrl[t], sp.leob[t], outz);
-  int16_t* dst = out + static_cast<size_t>(idx) * 64;
-  for (int k = 0; k < 64; ++k) dst[k] = outz[k];
+  __syncwarp();
+  K16_CLOCK(5);
+
+  // the chosen positions, a lane's share of them at a time: their costs
+  // as the last nonzero position (the first minimum, the all-zero block
+  // first), and their back pointers (the chosen size's first minimum over
+  // m again, then the ZRL folds back to its position)
+  uint64_t chosen_mask = 0;
+#pragma unroll
+  for (int i = 0; i < kPos; ++i) {
+    const int kk = tl + i * kLanes;
+    const unsigned b = __ballot_sync(kFull, kk > 0 && (__float_as_int(rec[kk].w) & 0xffff));
+    chosen_mask |= static_cast<uint64_t>((b >> (tid & 31 & ~(kLanes - 1))) &
+                                         (kLanes == 32 ? kFull : (1u << kLanes) - 1))
+                   << (i * kLanes);
+  }
+  int last;
+  {
+    float lv = inf;
+    int lk = 64;
+    uint64_t mine = chosen_mask;
+    for (int j = 0; j < tl && mine; ++j) mine &= mine - 1;
+    while (mine) {
+      const int kk = __ffsll(static_cast<long long>(mine)) - 1;
+      const float4 r = rec[kk];
+      if (r.y < 1e29f) {
+        const float cost = fadd(fadd(r.y, fsub(p64, r.z)), kk < 63 ? leob : 0.f);
+        if (cost < lv || (cost == lv && kk < lk)) {
+          lv = cost;
+          lk = kk;
+        }
+      }
+      const float* rr = rates + bit_size(__float_as_int(r.w) & 0xffff) * 16;
+      // the first minimum over m < min(kk, 16), as a tree of neighbouring
+      // ranges: the lower range's keeps unless the higher's is strictly less
+      float cand[16];
+      int arg[16];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        cand[m] = m < kk ? fadd(rec[kk - 1 - m].x, rr[m]) : inf;
+        arg[m] = m;
+      }
+#pragma unroll
+      for (int stride = 1; stride < 16; stride <<= 1) {
+#pragma unroll
+        for (int m = 0; m < 16; m += 2 * stride) {
+          if (cand[m + stride] < cand[m]) {
+            cand[m] = cand[m + stride];
+            arg[m] = arg[m + stride];
+          }
+        }
+      }
+      int p = kk - 1 - arg[0];
+      while ((__float_as_int(rec[p].w) >> 16) & 1) p -= 16;
+      prev[kk] = static_cast<uint8_t>(p);
+      for (int j = 0; j < kLanes && mine; ++j) mine &= mine - 1;
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off >= 1; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, lv, off, kLanes);
+      const int ok = __shfl_xor_sync(kFull, lk, off, kLanes);
+      if (ov < lv || (ov == lv && ok < lk)) {
+        lv = ov;
+        lk = ok;
+      }
+    }
+    last = lv < fadd(p64, leob) ? lk : 0;
+  }
+  __syncwarp();
+  K16_CLOCK(6);
+  if (tl == 0) {
+    for (int kk = last; kk > 0; kk = prev[kk]) {
+      const int f = __float_as_int(rec[kk].w);
+      outz[kk] = static_cast<int16_t>((f >> 17) & 1 ? -(f & 0xffff) : f & 0xffff);
+    }
+  }
+  __syncwarp();
+  K16_CLOCK(7);
+  const size_t blk = static_cast<size_t>(pick(c, 0, g.off[1], g.off[2])) +
+                     static_cast<size_t>(brow) * bw + bcol0 + team;
+#ifdef K16_PHASE_CLOCKS
+  if (team < nb && tl == 0) {
+    long long* dst = reinterpret_cast<long long*>(out + blk * 64);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = stamp[i];
+  }
+  return;
+#endif
+  if (team < nb) {
+    uint4* dst = reinterpret_cast<uint4*>(out + blk * 64);
+    for (int i = tl; i < 8; i += kLanes) dst[i] = reinterpret_cast<const uint4*>(outz)[i];
+  }
 }
 
 }  // namespace
 
-// rgb: [height][width][3] u8 on the card; out: int16 [blocks][64];
-// params: the host's K16Params (jpeg_tables.trellis_param_block), copied
-// into the launch. Returns a CUDA error code (0 = launched).
+// rgb: [height][width][3] u8 on the card, 16-byte aligned; out: int16
+// [blocks][64]; params: the K16Params words (jpeg_tables.trellis_param_block)
+// on the card. Returns a CUDA error code (0 = launched).
 extern "C" int flyimg_jpeg_trellis(const uint8_t* rgb, int16_t* out, int width, int height,
                                    int samp_h, int samp_v, const float* params, void* stream) {
   if (width < 1 || height < 1 || samp_h < 1 || samp_h > 4 || samp_v < 1 || samp_v > 4 ||
-      samp_h * samp_v > 8 || !params)
+      samp_h * samp_v > 8 || !params || reinterpret_cast<uintptr_t>(rgb) % 16 ||
+      reinterpret_cast<uintptr_t>(params) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   K16Geom g;
   g.w = width;
@@ -249,18 +720,22 @@ extern "C" int flyimg_jpeg_trellis(const uint8_t* rgb, int16_t* out, int width, 
   g.pw[1] = g.pw[2] = (width + samp_h - 1) / samp_h;
   g.ph[1] = g.ph[2] = (height + samp_v - 1) / samp_v;
   g.off[0] = 0;
+  g.cta_off[0] = 0;
   for (int c = 0; c < 3; ++c) {
     // libjpeg's width_in_blocks / height_in_blocks
     const int h = c == 0 ? samp_h : 1, v = c == 0 ? samp_v : 1;
     g.bw[c] = (width * h + 8 * samp_h - 1) / (8 * samp_h);
     const int bh = (height * v + 8 * samp_v - 1) / (8 * samp_v);
     g.off[c + 1] = g.off[c] + g.bw[c] * bh;
+    g.strips[c] = (g.bw[c] + kTeams - 1) / kTeams;
+    g.cta_off[c + 1] = g.cta_off[c] + g.strips[c] * bh;
   }
-  K16Params p;
-  const float* src = params;
-  float* dst = reinterpret_cast<float*>(&p);
-  for (size_t i = 0; i < sizeof(K16Params) / 4; ++i) dst[i] = src[i];
-  const int grid = (g.off[3] + kThreads - 1) / kThreads;
-  trellis_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(rgb, out, g, p);
+  // staged rows: a strip's pixels with 32 bytes of slack for the first and
+  // last 16-byte word; 8 * v of them for subsampled chroma
+  g.pitch = kCols * 3 * samp_h + 32;
+  const int rgb_bytes = (samp_h * samp_v > 1 ? 8 * samp_v * g.pitch : 8 * (kCols * 3 + 32));
+  const int smem = rgb_bytes > kRecBytesAll ? rgb_bytes : kRecBytesAll;
+  trellis_kernel<<<g.cta_off[3], kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      rgb, out, g, params);
   return static_cast<int>(cudaGetLastError());
 }

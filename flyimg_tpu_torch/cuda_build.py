@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,7 +88,7 @@ BASE_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: kernel name -> nvcc's stderr (the -Xptxas -v register/smem report)
+#: kernel name -> nvcc's output (the -Xptxas -v register/smem report)
 build_logs: Dict[str, str] = {}
 
 
@@ -138,7 +139,9 @@ def _host_lib_path(name: str) -> str:
 def _compile(jobs, what: str) -> Dict[str, float]:
     """Run ``jobs`` (name -> (compiler argv without -o, output path)) all
     together, each into a temporary file renamed into place when it
-    succeeds. Returns seconds per job (0.0 for an output already on disk);
+    succeeds, its compiler output beside it (``<output>.log``, read back
+    into ``build_logs`` for an output already on disk). Returns seconds per
+    job (0.0 for an output already on disk);
     raises with the compiler's output when any fails."""
     procs = {}
     took: Dict[str, float] = {}
@@ -146,6 +149,9 @@ def _compile(jobs, what: str) -> Dict[str, float]:
     for name, (cmd, out) in jobs.items():
         if os.path.exists(out):
             took[name] = 0.0
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as fh:
+                    build_logs[name] = fh.read()
             continue
         os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -164,6 +170,8 @@ def _compile(jobs, what: str) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: exit {proc.returncode}\n{log}")
             continue
+        with open(out + ".log", "w") as fh:
+            fh.write(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError(f"{what} build failed:\n" + "\n".join(failed))
@@ -241,3 +249,26 @@ def check(rc: int, what: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Each function's line of nvcc's ``-Xptxas -v`` report: mangled name
+    -> registers, stack frame, spill stores and spill loads (bytes)."""
+    report: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {"registers": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report

@@ -18,6 +18,13 @@ JAX package's, on the CPU.
   kernels' encodes to on a card) are what
   ``tools/make_jpeg_encode_fixtures.py`` writes, and the port's encodes
   of their source are those files.
+- The edge frames of ``flyimg_tpu_torch.testing.jpeg_frames`` (flat, 0/255
+  checkerboards at q100, q1, 1x1/8x8/9x9, a 1920x1080 frame at 4:2:0),
+  the ones ``chip_smoke.py`` holds the kernels to their plain versions
+  on: each plain version's encode byte-equal to the JAX package's.
+- K17's 32-bit arithmetic: every intermediate of ``jpeg_fdct_islow``
+  carried as a linear form in the 64 samples stays under 2^31, and the
+  reciprocal quantization's product under 2^32.
 - The handler: JPEG answers (``moz_0``/``moz_1``, every factor nvJPEG
   lacks, ``clsp_CMYK``, ``st_0``) byte-equal to the JAX handler's with
   its native library in place.
@@ -37,8 +44,10 @@ from PIL import Image
 
 from flyimg_tpu.service.handler import _encode_cmyk_jpeg
 from flyimg_tpu_torch.appconfig import AppParameters
+from flyimg_tpu_torch import cuda_build
 from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables, png
 from flyimg_tpu_torch.service.handler import ImageHandler
+from flyimg_tpu_torch.testing import jpeg_frames
 from jax_fastcodec import fastcodec, tool, use_in_jax  # noqa: F401
 
 torch.set_num_threads(1)
@@ -117,6 +126,35 @@ def test_encode_cmyk_matches_jax(size, quality, optimize):
     got = jpeg_enc.encode_cmyk(img, quality, optimize, device="cpu")
     assert got == _encode_cmyk_jpeg(img, _CMYK_SPEC, quality, optimize)
     assert got[2:4] == b"\xff\xee" and b"\xff\xc0\x00\x14\x08" in got  # Adobe, 4 components
+
+
+EDGE_CASES = jpeg_frames.CASES
+EDGE_IDS = [f"{name}-q{q}-{s[0]}x{s[1]}" for name, q, s in EDGE_CASES]
+EDGE_CMYK = sorted({(name, q) for name, q, _ in EDGE_CASES})
+
+
+@pytest.mark.parametrize("name,quality,sampling", EDGE_CASES, ids=EDGE_IDS)
+def test_edge_frames_trellis_match_jax(fastcodec, name, quality, sampling):
+    """moz_1 on the frames chip_smoke.py holds K16 to its plain version on."""
+    img = jpeg_frames.frame(name)
+    assert jpeg_enc.encode_trellis(img, quality, sampling, device="cpu") == \
+        fastcodec.trellis(img, quality, sampling)
+
+
+@pytest.mark.parametrize("name,quality,sampling", EDGE_CASES, ids=EDGE_IDS)
+def test_edge_frames_plain_match_jax(fastcodec, name, quality, sampling):
+    """moz_0 on the frames chip_smoke.py holds K17 to its plain version on."""
+    img = jpeg_frames.frame(name)
+    assert jpeg_enc.encode_plain(img, quality, sampling=sampling, device="cpu") == \
+        fastcodec.encode(img, quality, sampling)
+
+
+@pytest.mark.parametrize("name,quality", EDGE_CMYK, ids=[f"{n}-q{q}" for n, q in EDGE_CMYK])
+def test_edge_frames_cmyk_match_jax(name, quality):
+    """clsp_CMYK (K17 on four planes) on the same frames."""
+    img = jpeg_frames.frame(name)
+    assert jpeg_enc.encode_cmyk(img, quality, device="cpu") == \
+        _encode_cmyk_jpeg(img, _CMYK_SPEC, quality, False)
 
 
 def test_invalid_sampling_factors_fail_as_the_jax_encoder(fastcodec):
@@ -309,6 +347,106 @@ def test_reciprocal_quantization_is_libjpeg_s_division():
             recip, corr, shift = (int(v) for v in div[:, i])
             np.testing.assert_array_equal(((t + corr) * recip) >> shift,
                                           (t + 4 * q) // (8 * q), err_msg=f"q {q}")
+            # K17 forms the product in unsigned 32 bits
+            assert int(((t + corr) * recip).max()) < 2 ** 32, f"q {q}"
+
+
+class _Form:
+    """An integer intermediate of jpeg_fdct_islow as a linear form in the
+    block's 64 samples plus the rounding slack of the descales before it;
+    every form made is checked against the largest magnitude seen."""
+
+    peak = 0.0
+
+    def __init__(self, coef, slack=0.0):
+        self.coef, self.slack = coef, slack
+        _Form.peak = max(_Form.peak, self.bound())
+
+    def bound(self, extra=0.0):
+        return 128.0 * float(np.abs(self.coef).sum()) + self.slack + extra
+
+    def __add__(self, o):
+        return _Form(self.coef + o.coef, self.slack + o.slack)
+
+    def __sub__(self, o):
+        return _Form(self.coef - o.coef, self.slack + o.slack)
+
+    def __mul__(self, k):
+        return _Form(self.coef * k, self.slack * abs(k))
+
+    def descale(self, n):
+        # (x + 2^(n-1)) >> n: the sum before the shift is an intermediate too,
+        # and the shift is x / 2^n within 0.5
+        _Form.peak = max(_Form.peak, self.bound(2.0 ** (n - 1)))
+        return _Form(self.coef / 2 ** n, self.slack / 2 ** n + 0.5)
+
+
+def _islow_forms(d, final):
+    """jfdctint.c's pass over 8 forms, in its operations' order."""
+    shift = 15 if final else 11
+    t0, t7, t1, t6 = d[0] + d[7], d[0] - d[7], d[1] + d[6], d[1] - d[6]
+    t2, t5, t3, t4 = d[2] + d[5], d[2] - d[5], d[3] + d[4], d[3] - d[4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    o = [None] * 8
+    o[0] = (t10 + t11).descale(2) if final else (t10 + t11) * 4
+    o[4] = (t10 - t11).descale(2) if final else (t10 - t11) * 4
+    z1 = (t12 + t13) * 4433
+    o[2] = (z1 + t13 * 6270).descale(shift)
+    o[6] = (z1 + t12 * -15137).descale(shift)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * 9633
+    p1, p2 = z1 * -7373, z2 * -20995
+    p3, p4 = z3 * -16069 + z5, z4 * -3196 + z5
+    o[7] = (t4 * 2446 + p1 + p3).descale(shift)
+    o[5] = (t5 * 16819 + p2 + p4).descale(shift)
+    o[3] = (t6 * 25172 + p2 + p3).descale(shift)
+    o[1] = (t7 * 12299 + p1 + p4).descale(shift)
+    return o
+
+
+def test_islow_intermediates_fit_in_32_bits():
+    """K17 runs jpeg_fdct_islow in 32-bit integers: every intermediate of
+    both passes, carried as a linear form in the 64 samples (each in
+    [-128, 127]) with 0.5 of slack a descale, stays below 2^31; the
+    outputs stay below 2^15, the domain the quantization is exact on."""
+    _Form.peak = 0.0
+    samples = [_Form(np.eye(64)[i]) for i in range(64)]
+    rows = [_islow_forms(samples[r * 8:r * 8 + 8], final=False) for r in range(8)]
+    cols = [_islow_forms([rows[y][u] for y in range(8)], final=True) for u in range(8)]
+    peak = _Form.peak
+    assert peak < 2 ** 31 / 6, peak      # the margin K17's source note states
+    assert peak <= 343_982_080, peak
+    assert max(f.bound() for col in cols for f in col) < 2 ** 15
+
+
+def test_divisor_words_put_each_column_s_divisors_side_by_side():
+    """K17's divisor buffer: word [t][kind][c][v] is divisor_rows' entry
+    for natural index v * 8 + c of table t."""
+    tables = jpeg_tables.qtables(37)
+    words = jpeg_enc.divisor_words(tables)
+    assert words.shape == (2, 3, 8, 8) and words.dtype == np.uint32 and words.flags.c_contiguous
+    for t, table in enumerate(tables):
+        rows = jpeg_plain.divisor_rows(tuple(table))
+        for kind in range(3):
+            for n in range(64):
+                assert words[t, kind, n % 8, n // 8] == rows[kind][n]
+
+
+def test_ptxas_report_reads_each_function_s_line():
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114trellis_kernelEv' "
+           "for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_114trellis_kernelEv\n"
+           "    16 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads\n"
+           "ptxas info    : Used 72 registers, used 1 barriers, 23312 bytes smem\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_111fdct_kernelEv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers, 400 bytes cmem[0]\n")
+    report = cuda_build.ptxas_report(log)
+    assert report == {
+        "_ZN12_GLOBAL__N_114trellis_kernelEv": {"registers": 72, "stack": 16,
+                                                 "spill_stores": 4, "spill_loads": 8},
+        "_ZN12_GLOBAL__N_111fdct_kernelEv": {"registers": 40, "stack": 0,
+                                             "spill_stores": 0, "spill_loads": 0}}
 
 
 @pytest.mark.parametrize("value", [0, 77, 128, 255])
