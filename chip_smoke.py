@@ -1730,8 +1730,9 @@ def paeth_png(rgb) -> bytes:
 
 
 def phase_codecs(torch, dev, card):
-    """Phase 10: nvJPEG against the JAX package's fixtures, the WebP codec's
-    round trip, and the codec layer's times."""
+    """Phase 10: nvJPEG's decode (the library yardstick) against the JAX
+    package's fixtures, the WebP codec's round trip, and the codec layer's
+    times (the port's own JPEG decoder's among them)."""
     import json as _json
 
     import numpy as np
@@ -1745,13 +1746,17 @@ def phase_codecs(torch, dev, card):
         with open(os.path.join(data_dir, name), "rb") as fh:
             return fh.read()
 
-    with open(os.path.join(data_dir, "reference.json")) as fh:
-        ref = _json.load(fh)
+    from flyimg_tpu_torch.codecs.exif import apply_orientation, jpeg_orientation
+    from flyimg_tpu_torch.codecs.native_codec import nvjpeg_decode
+
     seen = {}
     for name in JPEG_FIXTURES:
         for scale in (8, 1, 2, 4) if name == "q90_420" else (8,):
-            hint = tuple(ref["scale_hints"][str(scale)]) if scale < 8 else None
-            got = codecs.decode(read(name + ".jpg"), target_hint=hint, device=dev).rgb
+            # nvJPEG's own decode (no serving route: the library yardstick),
+            # at the scale the hint picks, turned upright
+            data = read(name + ".jpg")
+            got = apply_orientation(nvjpeg_decode(data, scale, device=dev),
+                                    jpeg_orientation(data))
             want, _ = png.decode(read(f"{name}.s{scale}.png"))
             key = name if scale == 8 else f"{name}.s{scale}"
             check(got.shape == want.shape, f"nvJPEG {key}: {got.shape} vs {want.shape}")
@@ -1815,9 +1820,12 @@ def phase_codecs(torch, dev, card):
         "decode_1920x1080_q90_s8_ms": median_ms(lambda: codecs.decode(photo, device=dev)),
         "decode_1920x1080_q90_s4_ms": median_ms(
             lambda: codecs.decode(photo, target_hint=hint, device=dev)),
-        # the plane route: four coded planes, three upsampled on the card
+        # four components, three upsampled by K19
         "decode_320x240_cmyk_h2v2_ms": median_ms(
             lambda: codecs.decode(read("q90_cmyk_h2v2.jpg"), device=dev)),
+        # nvJPEG's decodes of the same files, the library yardstick
+        "nvjpeg_decode_1920x1080_q90_s8_ms": median_ms(lambda: nvjpeg_decode(photo, 8, dev)),
+        "nvjpeg_decode_1920x1080_q90_s4_ms": median_ms(lambda: nvjpeg_decode(photo, 4, dev)),
         "encode_300x250_jpg_moz1_ms": median_ms(
             lambda: codecs.encode(answer, "jpg", mozjpeg=True, device=dev)),
         "encode_300x250_jpg_moz0_ms": median_ms(
@@ -3780,8 +3788,14 @@ def phase_pipeline(torch, dev, card, workdir, kernels):
                     lambda u: urllib.request.urlopen(base + u, timeout=300).read(), urls))
             walls_hp[enabled] = time.perf_counter() - t0
             stages = {n: p.waits for n, p in server.host_pipeline.pools()}
-            check(stages == ({"fetch": 16, "decode": 16, "encode": 16} if enabled else {}),
-                  f"host pipeline {enabled}: stage tasks {stages}")
+            # the JPEG decodes ride the codec batcher's decode group and the
+            # JPEG answers its encode group, as in the JAX app; the PNG
+            # answers' encodes take the encode stage
+            codec = sum(m for kind, m, _ in server.codec_batcher.launch_log if kind == "aux")
+            check(stages == ({"fetch": 16, "decode": 0, "encode": 8} if enabled else {})
+                  and codec == 24,
+                  f"host pipeline {enabled}: stage tasks {stages}, codec group members "
+                  f"{codec}")
             check(server.handler.wedged_fallbacks == 0,
                   f"host pipeline {enabled}: {server.handler.wedged_fallbacks} fallbacks")
         finally:
@@ -3790,7 +3804,8 @@ def phase_pipeline(torch, dev, card, workdir, kernels):
             thread.join(timeout=30)
     check(bodies[True] == bodies[False], "the host pipeline on and off answer other bytes")
     print(f"pipeline host stages: 16 JPEG requests (8 1024x768 q90 sources, flagship JPEG "
-          f"and w_300,h_250,c_1 PNG answers) byte-equal with the stage pools on and off; "
+          f"and w_300,h_250,c_1 PNG answers; the 16 decodes and 8 JPEG encodes in the "
+          f"codec batcher's groups) byte-equal with the stage pools on and off; "
           f"wall s on {walls_hp[True]:.3f}, off {walls_hp[False]:.3f}")
 
     # -- the ledger's learned bytes per member cap a launch --------------------
@@ -4241,7 +4256,9 @@ def jpeg_kernel_rows(torch, dev):
     q100, q1, 1x1/8x8/9x9, 1920x1080 at 4:2:0; also their CMYK planes);
     then timed against the plain version and nvJPEG's whole encode of the
     same frame (the library yardstick), with the device time and the bound
-    at 300x250 and at 1920x1080."""
+    at 300x250 and at 1920x1080. K16 is the encode group's frame-table
+    kernel: timed at a group of one (the row) and at a group of 16
+    300x250 frames, each frame exact against its plain version."""
     import numpy as np
 
     from flyimg_tpu_torch.codecs import jpeg_enc, jpeg_plain, jpeg_tables, native_codec, png
@@ -4370,7 +4387,38 @@ def jpeg_kernel_rows(torch, dev):
     big_bound = {"K16": bound_ms(3.0 * 1920 * 1080 + 128.0 * big_blocks, ops["K16"][1]),
                  "K17": bound_ms(1.0 * sum(p.numel() for p in big_planes) + 128.0 * big_blocks,
                                  1100.0 * big_blocks)}
-    for name, what in (("K16", "trellis (300x250 q90 4:4:4)"),
+    # the encode group's frame table at a group of 16 answers (16 seeded
+    # 300x250 frames, q90 4:4:4): one launch, each frame exact, against the
+    # plain version of the 16 (one run) and 16 groups of one
+    frames16 = [torch.from_numpy(synthetic_image(300, 250, seed=2200 + k)).to(dev)
+                for k in range(16)]
+    got16 = jpeg_enc.trellis_coefficients_group(frames16, 90, (1, 1))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want16 = [jpeg_plain.trellis_plain(f, 90, (1, 1)) for f in frames16]
+    end.record()
+    end.synchronize()
+    for k, (got, want) in enumerate(zip(got16, want16)):
+        held(f"K16 group of 16, frame {k}", got, want, dims)
+    rows["K16"]["max_abs_err"] = float(err)
+    blocks16 = 16 * blocks
+    group16 = {
+        "ms": cuda_ms(torch, lambda: jpeg_enc.trellis_coefficients_group(frames16, 90, (1, 1))),
+        "device_ms": _device_ms(lambda: jpeg_enc.trellis_coefficients_group(
+            frames16, 90, (1, 1)), 5, "trellis_kernel"),
+        "16_groups_of_one_ms": cuda_ms(torch, lambda: [
+            jpeg_enc.trellis_coefficients(f, 90, (1, 1)) for f in frames16]),
+        "plain_ms": start.elapsed_time(end),
+    }
+    group16["bound_ms"], group16["bound_by"] = bound_ms(
+        16 * 3.0 * h * w + 128.0 * blocks16,
+        sum(k16_operations(torch, f, 90, (1, 1)) for f in frames16))
+    print(f"K16 encode group of 16 300x250 frames (q90 4:4:4, one launch, each frame equal "
+          f"to its plain version): kernel {group16['ms']:.4f} ms, device "
+          f"{group16['device_ms']:.4f} ms, bound {group16['bound_ms']:.5f} ms "
+          f"({group16['bound_by']}); 16 groups of one {group16['16_groups_of_one_ms']:.4f} ms; "
+          f"plain {group16['plain_ms']:.4f} ms (one run); a group of one is the row below")
+    for name, what in (("K16", "trellis (300x250 q90 4:4:4, a group of one)"),
                        ("K17", "islow FDCT (300x250 q90 4:4:4 planes)")):
         r = rows[name]
         floor = ""
@@ -4489,6 +4537,321 @@ def phase_jpeg(torch, dev, card, workdir, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the port's JPEG decoder: K18 and K19 (phase 3) and its served path
+# (phase 15)
+
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+#: the luma sampling factors the decoder's edge cases are encoded at
+DECODE_SAMPLINGS = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (2, 4))
+#: the edge sizes (one pixel, ragged, past no MCU multiple)
+DECODE_EDGE_SIZES = ((1, 1), (7, 9), (17, 33), (203, 157))
+
+
+def jpeg_file(name):
+    with open(os.path.join(JPEG_DIR, name), "rb") as fh:
+        return fh.read()
+
+
+def decode_held(torch, dev, label, items):
+    """One batch of ``items`` through K18 and K19 on the card and through
+    their plain versions on the same device tensors: both exact (max
+    difference 0). Returns (the members' results, K18's and K19's max
+    error)."""
+    from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
+
+    batch = jpeg_dec.entropy_decode(items, pinned=True)
+    check(batch.order, f"{label}: no member decoded ({batch.results})")
+    planes, rgb = jpeg_dec.run_kernels(batch, dev)
+    want = plain.k18(batch.coefs.to(dev), batch.quant.to(dev), batch.segments,
+                     batch.plane_bytes)
+    e18 = int((planes[:batch.plane_bytes].int() - want.int()).abs().max())
+    want = plain.k19(planes, batch.members, batch.out_bytes)
+    e19 = int((rgb[:batch.out_bytes].int() - want.int()).abs().max())
+    check(e18 == 0 and e19 == 0, f"{label}: K18 {e18}, K19 {e19} levels off their plain "
+          "versions")
+    return jpeg_dec.finish(batch, rgb.cpu().numpy()), e18, e19
+
+
+def decode_edge_files(dev):
+    """The edge sizes at every luma sampling, baseline (moz_0) and
+    progressive (moz_1), encoded by the port's own encoder on the card."""
+    from flyimg_tpu_torch import codecs
+
+    files = []
+    for k, (h, v) in enumerate(DECODE_SAMPLINGS):
+        for w, hh in DECODE_EDGE_SIZES:
+            for moz in (False, True):
+                files.append(codecs.encode(synthetic_image(w, hh, seed=2100 + k + w), "jpg",
+                                           quality=85, mozjpeg=moz, sampling_factor=f"{h}x{v}",
+                                           device=dev))
+    return files
+
+
+def flagship_jpegs(dev):
+    """The full-width photo: a seeded 4032x3024 frame as a q90 4:2:0 JPEG,
+    baseline (moz_0) and progressive (moz_1), from the port's own
+    encoder."""
+    from flyimg_tpu_torch import codecs
+
+    rgb = synthetic_image(4032, 3024, seed=2024)
+    return {moz: codecs.encode(rgb, "jpg", quality=90, mozjpeg=moz == "progressive",
+                               sampling_factor="2x2", device=dev)
+            for moz in ("baseline", "progressive")}
+
+
+def answer_jpeg(dev):
+    """The 300x250 answer shape as a q90 4:2:0 JPEG (tests/data/jpeg_enc's
+    source, baseline, from the port's own encoder)."""
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.codecs import png
+
+    src, _ = png.decode(jpeg_enc_file("source.png"))
+    return codecs.encode(src, "jpg", quality=90, mozjpeg=False, sampling_factor="2x2",
+                         device=dev)
+
+
+def jpeg_decode_rows(torch, dev, card):
+    """Phase 3's K18 and K19: each equal to its plain version (max
+    difference 0) on every tests/data/jpeg file at every DCT scale, on
+    its native-route windows and on the edge sizes at every sampling; the
+    whole decoder equal to every native-route fixture (the JAX package's
+    fc_jpeg_decode and fc_jpeg_decode_roi); then timed (wrapper ms between
+    CUDA events, device ms by torch.profiler, the plain versions, the
+    bytes bound) at 300x250 and at 4032x3024 at each scale the served
+    requests use, each first held to its plain version at that shape (max
+    difference 0; the kernels line's max_abs_err is the 4032x3024 1/4
+    comparison), beside nvJPEG's whole decode of the same file (the
+    library yardstick; not a PyTorch call)."""
+    import numpy as np
+
+    from flyimg_tpu_torch.codecs import jpeg_dec, native_codec, png
+    from flyimg_tpu_torch.codecs import jpeg_dec_plain as plain
+    from flyimg_tpu_torch.face_breakdown import _device_ms
+
+    names = sorted(f for f in os.listdir(JPEG_DIR) if f.endswith(".jpg"))
+    err18 = err19 = n = 0
+    for scale in (1, 2, 4, 8):
+        got, e18, e19 = decode_held(torch, dev, f"fixtures 1/{8 // scale}",
+                                    [(jpeg_file(f), scale, None) for f in names])
+        err18, err19, n = max(err18, e18), max(err19, e19), n + len(names)
+        for f, out in zip(names, got):
+            want, _ = png.decode(jpeg_file(f"{f[:-4]}.native.s{scale}.png"))
+            check(out.rgb.shape == want.shape and np.array_equal(out.rgb, want),
+                  f"decode {f} at {scale}/8: not the JAX package's native decode")
+    windows = json.loads(jpeg_file("reference.json"))["native_windows"]
+    got, e18, e19 = decode_held(torch, dev, "native windows", [
+        (jpeg_file(w["source"]), w["scale"], tuple(w["request"])) for w in windows])
+    err18, err19 = max(err18, e18), max(err19, e19)
+    for w, out in zip(windows, got):
+        want, _ = png.decode(jpeg_file(w["file"]))
+        check(np.array_equal(out.rgb, want) and list(out.offset) == [w["out_x"], w["out_y"]]
+              and list(out.frame_size) == [w["full_w"], w["full_h"]],
+              f"window {w['file']}: not the JAX package's native window")
+    edges = decode_edge_files(dev)
+    for scale in (1, 2, 4, 8):
+        _, e18, e19 = decode_held(torch, dev, f"edge sizes 1/{8 // scale}",
+                                  [(d, scale, None) for d in edges])
+        err18, err19 = max(err18, e18), max(err19, e19)
+    print(f"K18, K19: equal to their plain versions (max difference {err18}, {err19}) and the "
+          f"decoder equal to the JAX package's native decode on {n} fixture decodes (every "
+          f"file at 1/8, 1/4, 1/2, 1/1) and {len(windows)} native windows; the kernels also "
+          f"on {len(edges)} edge files ({DECODE_EDGE_SIZES} at {len(DECODE_SAMPLINGS)} "
+          "samplings, baseline and progressive) at every scale")
+
+    big = flagship_jpegs(dev)
+    cases = {"300x250 1/1": (answer_jpeg(dev), 8),
+             "4032x3024 1/4": (big["baseline"], 2),
+             "4032x3024 1/2": (big["baseline"], 4),
+             "4032x3024 1/1": (big["baseline"], 8)}
+    readings, rows = {}, {}
+    for label, (data, scale) in cases.items():
+        batch = jpeg_dec.entropy_decode([(data, scale, None)], pinned=True)
+        coefs = batch.coefs.to(dev)
+        quant = batch.quant.to(dev)
+        segs = batch.segments.to(dev)
+        mems = batch.members.to(dev)
+        # exact at the timed shape first: each kernel against its plain
+        # version on the same inputs
+        planes = jpeg_dec.idct_planes(coefs, quant, segs, batch.plane_bytes)
+        want = plain.k18(coefs, quant, batch.segments, batch.plane_bytes)
+        e18 = int((planes[:batch.plane_bytes].int() - want.int()).abs().max())
+        rgb = jpeg_dec.color_planes(planes, mems, batch.out_bytes)
+        want = plain.k19(planes, batch.members, batch.out_bytes)
+        e19 = int((rgb[:batch.out_bytes].int() - want.int()).abs().max())
+        del want, rgb
+        check(e18 == 0 and e19 == 0, f"{label}: K18 {e18}, K19 {e19} levels off their plain "
+              "versions")
+        blocks = int((batch.segments[:, plain.SEG_NBX] * batch.segments[:, plain.SEG_NBY]).sum())
+        pixels = batch.out_bytes // 3
+        b18 = bound_ms(128.0 * blocks + float(batch.plane_bytes), 0.0)
+        b19 = bound_ms(float(batch.plane_bytes) + float(batch.out_bytes), 0.0)
+        r = {
+            "k18_ms": cuda_ms(torch, lambda: jpeg_dec.idct_planes(coefs, quant, segs,
+                                                                  batch.plane_bytes)),
+            "k19_ms": cuda_ms(torch, lambda: jpeg_dec.color_planes(planes, mems,
+                                                                   batch.out_bytes)),
+            "k18_device_ms": _device_ms(lambda: jpeg_dec.idct_planes(
+                coefs, quant, segs, batch.plane_bytes), 5, "idct_kernel"),
+            "k19_device_ms": _device_ms(lambda: jpeg_dec.color_planes(
+                planes, mems, batch.out_bytes), 5, "color_kernel"),
+            "k18_plain_ms": cuda_ms(torch, lambda: plain.k18(coefs, quant, batch.segments,
+                                                             batch.plane_bytes),
+                                    iters=3, warmup=1),
+            "k19_plain_ms": cuda_ms(torch, lambda: plain.k19(planes, batch.members,
+                                                             batch.out_bytes),
+                                    iters=3, warmup=1),
+            "k18_bound_ms": b18[0], "k19_bound_ms": b19[0],
+            "nvjpeg_decode_ms": cuda_ms(torch, lambda: native_codec.nvjpeg_decode(
+                data, scale, device=dev), iters=5),
+            "blocks": blocks, "pixels": pixels, "k18_max_abs_err": e18, "k19_max_abs_err": e19,
+        }
+        readings[label] = {k: (round(v, 5) if isinstance(v, float) else v)
+                           for k, v in r.items()}
+        if label == "4032x3024 1/4":
+            # the kernels line's rows: the served flagship request's decode
+            for key, pre, bound in (("K18", "k18", b18), ("K19", "k19", b19)):
+                rows[key] = {"max_abs_err": float(e18 if key == "K18" else e19),
+                             "ms": r[f"{pre}_ms"], "plain_ms": r[f"{pre}_plain_ms"],
+                             "bound_ms": bound[0], "bound_by": bound[1],
+                             "library_ms": None}
+    print(json.dumps({"jpeg_decode_kernels": readings, "card": card}))
+    return rows
+
+
+def decode_split(torch, dev, data, scale, n=7):
+    """Median seconds of one decode's steps on the card (host entropy
+    decode, upload, K18, K19, readback, each synchronized) and of nvJPEG's
+    decode of the same file at the same scale, in ms."""
+    from flyimg_tpu_torch.codecs import jpeg_dec, native_codec
+
+    steps = {}
+    for _ in range(n):
+        split = {}
+        jpeg_dec.decode_batch([(data, scale, None)], dev, split=split)
+        for k, v in split.items():
+            steps.setdefault(k, []).append(v * 1e3)
+    out = {f"{k}_ms": round(statistics.median(v), 4) for k, v in steps.items()}
+    out["nvjpeg_decode_ms"] = round(cuda_ms(torch, lambda: native_codec.nvjpeg_decode(
+        data, scale, device=dev), iters=n), 4)
+    return out
+
+
+#: phase 15's served requests (each on both flagship files): crops at 1/4
+#: (w_300,h_250,c_1 keeps 90 % of a 4:3 frame, past the 80 % a window may
+#: cover, so it decodes whole; w_300,h_300,c_1 and w_200,h_300,c_1 decode
+#: windows), the full-scale w_2000 and a window extract at 1/1
+DECODE_WAVE = ("w_300,h_250,c_1", "w_300,h_250,c_1,smc_1", "w_2000", "w_300,h_300,c_1",
+               "e_1,p1x_400,p1y_300,p2x_2400,p2y_2100", "w_300,h_250,c_1,q_80",
+               "w_600,h_400,c_1", "w_200,h_300,c_1")
+#: phase 15's codec batcher deadline for its launch-count check: the wave's
+#: requests reach the decode group over some milliseconds of fetch and
+#: planning, longer than the default's 1.0 ms; the wave also runs once at
+#: the default, whose group sizes are printed and not checked
+DECODE_WAVE_DEADLINE_MS = 25.0
+
+
+def phase_jpeg_decode(torch, dev, card, workdir, kernels):
+    """Phase 15: the full-width JPEG source through the server. 16
+    concurrent requests (DECODE_WAVE on a baseline and a progressive
+    4032x3024 4:2:0 photo) go through the codec batcher (decode groups by
+    DCT scale, windows included; the encode group of the JPEG answers);
+    then the same requests one at a time on a fresh server: the answers
+    must be byte-equal, and the wave must take fewer K18 launches than
+    requests (at DECODE_WAVE_DEADLINE_MS). The wave runs again at the
+    default deadline, its answers equal to the single ones too. Prints the
+    group sizes, the kernels' launches and wall times of both waves and
+    the decode split. Returns the first wave's kernel launches."""
+    import urllib.request
+
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+
+    big = flagship_jpegs(dev)
+    paths = {}
+    for kind, data in big.items():
+        paths[kind] = os.path.join(workdir, f"photo4032x3024_{kind}.jpg")
+        with open(paths[kind], "wb") as fh:
+            fh.write(data)
+    requests = [(o, paths[k]) for k in ("baseline", "progressive") for o in DECODE_WAVE]
+
+    def serve(tag, concurrent, deadline_ms=DECODE_WAVE_DEADLINE_MS):
+        # the banded resample (K1): a member's pixels do not depend on the
+        # batch it rides in, so the wave's answers can equal the single ones
+        settings = {"upload_dir": os.path.join(workdir, tag, "uploads"),
+                    "tmp_dir": os.path.join(workdir, tag, "tmp"),
+                    "resample_kernel": "banded"}
+        if deadline_ms is not None:
+            settings["decode_deadline_ms"] = deadline_ms
+        params = AppParameters(settings)
+        server = make_server(params, device=dev)
+        thread = serve_in_thread(server)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def get(req):
+            opts, src = req
+            with urllib.request.urlopen(f"{base}/upload/{opts}/{src}", timeout=300) as resp:
+                return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+        try:
+            reset_counts(kernels)
+            log0 = len(server.codec_batcher.launch_log)
+            t0 = time.perf_counter()
+            if concurrent:
+                with ThreadPoolExecutor(len(requests)) as pool:
+                    answers = list(pool.map(get, requests))
+            else:
+                answers = [get(r) for r in requests]
+            wall = time.perf_counter() - t0
+            counts = read_counts(kernels)
+            groups = [m for kind, m, _ in list(server.codec_batcher.launch_log)[log0:]
+                      if kind == "aux"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        return answers, counts, groups, wall
+
+    wave, counts, groups, wall = serve("wave", True)
+    default_wave, default_counts, default_groups, default_wall = serve("default", True, None)
+    single, single_counts, _, single_wall = serve("single", False)
+    for (opts, src), (status, ctype, body), (_, _, b1), (s2, c2, b2) in zip(
+            requests, wave, default_wave, single):
+        check(status == 200 and ctype == "image/jpeg", f"{opts} {src}: {status} {ctype}")
+        check(body == b2 and b1 == b2, f"{opts} {os.path.basename(src)}: a wave's answer is "
+              "not the single request's")
+    default_ms = AppParameters({}).by_key("decode_deadline_ms")
+    print(f"decode wave: {len(requests)} concurrent 4032x3024 JPEG requests in {wall:.3f} s "
+          f"at a {DECODE_WAVE_DEADLINE_MS} ms codec deadline, {default_wall:.3f} s at the "
+          f"default {default_ms} ms (one at a time: {single_wall:.3f} s), every answer "
+          f"byte-equal to the single request's; codec groups (members each: decode groups, "
+          f"then encode groups, in launch order) {groups} at {DECODE_WAVE_DEADLINE_MS} ms, "
+          f"{default_groups} at {default_ms} ms; kernel launches {counts} at "
+          f"{DECODE_WAVE_DEADLINE_MS} ms, "
+          f"{ {k: default_counts[k] for k in ('K16', 'K17', 'K18', 'K19')} } at {default_ms} "
+          f"ms; one at a time "
+          f"{ {k: single_counts[k] for k in ('K16', 'K17', 'K18', 'K19')} }; card {card}")
+    check(0 < counts["K18"] < len(requests),
+          f"decode wave: {counts['K18']} K18 launches for {len(requests)} requests")
+    check(counts["K19"] > 0, "decode wave: K19 never launched")
+    splits = {}
+    for label, (data, scale) in {"4032x3024 baseline 1/4": (big["baseline"], 2),
+                                 "4032x3024 baseline 1/1": (big["baseline"], 8),
+                                 "4032x3024 progressive 1/4": (big["progressive"], 2),
+                                 "300x250 1/1": (answer_jpeg(dev), 8)}.items():
+        splits[label] = decode_split(torch, dev, data, scale)
+    print(json.dumps({"decode_split": splits, "encode_group_launches": {
+        "K16": counts["K16"], "K17": counts["K17"]}, "decode_wave": {
+        f"deadline {DECODE_WAVE_DEADLINE_MS} ms": {"wall_s": round(wall, 4), "groups": groups,
+                                                  "K18": counts["K18"]},
+        f"deadline {default_ms} ms (default)": {"wall_s": round(default_wall, 4),
+                                               "groups": default_groups,
+                                               "K18": default_counts["K18"]},
+        "one at a time": {"wall_s": round(single_wall, 4), "K18": single_counts["K18"]}},
+        "card": card}))
+    return counts
+
+
 def main() -> int:
     global NVJPEG_ENCODE
     if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
@@ -4507,6 +4870,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.codecs.jpeg_dec import color_planes, idct_planes
     from flyimg_tpu_torch.codecs.jpeg_enc import fdct_coefficients, trellis_coefficients
     from flyimg_tpu_torch.device import resolve_device
     from flyimg_tpu_torch.models.blazeface import conv5x5, head_decode, pointwise
@@ -4532,7 +4896,8 @@ def main() -> int:
                "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
                "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
                "K14": adam_update, "K15": ring_rotate_step,
-               "K16": trellis_coefficients, "K17": fdct_coefficients}
+               "K16": trellis_coefficients, "K17": fdct_coefficients,
+               "K18": idct_planes, "K19": color_planes}
 
     # phase 2: build (the kernels with nvcc and the host codecs with g++,
     # all at once), and nvJPEG loaded
@@ -4554,8 +4919,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    # K16 and K17 keep every value in registers or shared memory
-    for src, kernel in (("jpeg_trellis", "trellis_kernel"), ("jpeg_fdct", "fdct_kernel")):
+    # K16, K17, K18 and K19 keep every value in registers or shared memory
+    for src, kernel in (("jpeg_trellis", "trellis_kernel"), ("jpeg_fdct", "fdct_kernel"),
+                        ("jpeg_idct", "idct_kernel"), ("jpeg_color", "color_kernel")):
         found = [v for k, v in cuda_build.ptxas_report(cuda_build.build_logs.get(src, "")).items()
                  if kernel in k]
         check(len(found) == 1, f"ptxas: no report of {kernel} in {src}'s build log")
@@ -4574,6 +4940,7 @@ def main() -> int:
     rows["K15"] = k15_case(torch, dev)
     fold2d = fold2d_case(torch, dev)
     rows.update(jpeg_kernel_rows(torch, dev))
+    rows.update(jpeg_decode_rows(torch, dev, card))
 
     # from here on no served JPEG encode may reach nvJPEG's encode: it is the
     # yardstick phases 10 and 14 call by NVJPEG_ENCODE
@@ -4677,7 +5044,15 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"jpeg kernel launches: {jpeg_counts}; card {card}")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-14 reached "
+
+    # phase 15: the full-width JPEG source through the server's codec
+    # batcher (main path)
+    os.makedirs(workdir)
+    try:
+        decode_counts = phase_jpeg_decode(torch, dev, card, workdir, kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-15 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -4720,6 +5095,12 @@ def main() -> int:
                 "flyimg_tpu/codecs/native/fastcodec.cpp:680"),
         "K17": ("jpeg_fdct", "flyimg_tpu_torch/csrc/jpeg_fdct.cu",
                 "flyimg_tpu/codecs/native/fastcodec.cpp:354"),
+        # host functions of the JAX package, through libjpeg-turbo's
+        # jidctint.c/jidctred.c (K18) and jdsample.c/jdcolor.c (K19)
+        "K18": ("jpeg_idct", "flyimg_tpu_torch/csrc/jpeg_idct.cu",
+                "flyimg_tpu/codecs/native/fastcodec.cpp:86"),
+        "K19": ("jpeg_color", "flyimg_tpu_torch/csrc/jpeg_color.cu",
+                "flyimg_tpu/codecs/native/fastcodec.cpp:207"),
     }
     line = {"kernels": []}
     for key, (name, source, replaces) in meta.items():
@@ -4727,7 +5108,7 @@ def main() -> int:
                     + sum(c[key] for c in server_counts.values())
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
-                    + formats_counts[key] + jpeg_counts[key])
+                    + formats_counts[key] + jpeg_counts[key] + decode_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

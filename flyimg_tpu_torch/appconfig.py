@@ -26,6 +26,16 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # launches between dispatch and completed readback (2: the next launch
     # is dispatched while the last one reads back; 1: launch, read, launch)
     "batch_pipeline_depth": 2,
+    # the codec batcher (a second BatchController): concurrent JPEG decodes
+    # at one DCT scale, and JPEG encodes at one setting, share one launch
+    # of the codec kernels; pending submissions before a 503 (0 =
+    # unbounded)
+    "decode_batch_max": 32,
+    "decode_deadline_ms": 1.0,
+    "decode_max_queue_depth": 0,
+    # ROI decode: crop/extract-dominant plans decode only the source
+    # window they sample (spec/plan.py decode_roi_window)
+    "decode_roi": True,
     # the host stage pools (runtime/hostpipeline.py): bounded fetch, decode
     # and encode workers, each stage shedding 503 past workers + queue
     # depth pending; a worker in one task longer than the wedge timeout is
@@ -81,8 +91,8 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "mem_probe_step": 1,
     "mem_host_budget_bytes": 0,
     # source guards: the most bytes a fetch reads, and the most pixels a
-    # source's header may declare (413 before any decode; also nvJPEG's
-    # limit; 0 or less keeps the codec's default)
+    # source's header may declare (413 before any decode; also the JPEG
+    # decoder's limit; 0 or less keeps the codec's default)
     "mem_max_source_bytes": 256 * 1024 * 1024,
     "mem_max_source_pixels": 512 * 1024 * 1024,
     # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs

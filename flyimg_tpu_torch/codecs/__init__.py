@@ -4,17 +4,20 @@ The port's counterpart of ``flyimg_tpu/codecs``:
 
 - PNG: ``codecs/png.py``, on zlib and numpy (every colour type, bit depth
   and interlace).
-- JPEG: decoded by nvJPEG, the CUDA toolkit's codec, through ``ctypes``
-  (``codecs/native_codec.py``): three-component (YCbCr), gray and Adobe
-  CMYK/YCCK sources, on the card, so a JPEG source needs a CUDA device.
+- JPEG: decoded by the port's own decoder (``codecs/jpeg_dec.py``: a host
+  entropy decoder, then kernels K18 and K19 on the card, their plain
+  versions on the CPU) to the JAX package's native pixels: libjpeg-turbo's
+  at DCT scales 1/8 to 1/1, in ROI windows as ``fc_jpeg_decode_roi`` cuts
+  them (``decode(..., roi=)``), and for a batch of sources in one launch
+  of each kernel (``batch_jpeg_decode``, the codec batcher's runner).
   Encoded by the port's own encoder (``codecs/jpeg_enc.py``), byte for
   byte as the JAX package's native library writes: ``moz_1`` is its
   trellis encoder (kernel K16, optimized Huffman tables, progressive
   scans), ``moz_0`` its libjpeg baseline (kernel K17, standard tables),
   at every luma sampling factor libjpeg takes; the kernels run on the
   card, their plain versions on the CPU, and the entropy coding on the
-  host (``codecs/native/jpeg_writer.cpp``). nvJPEG's encode is no
-  serving route.
+  host (``codecs/native/jpeg_writer.cpp``); ``batch_jpeg_encode`` encodes
+  a group in one kernel launch. nvJPEG is no serving route.
 - WebP: a lossy (VP8) and a lossless (VP8L) encoder and decoder written
   for this package (``codecs/native/``, built with g++ at first use into
   one library): the card machine has no libwebp. Lossy answers at ``q_``
@@ -72,6 +75,10 @@ class DecodedImage:
     mime: str
     orig_size: Optional[Tuple[int, int]] = None  # (w, h) before any prescale
     n_frames: int = 1
+    # a window decode: the window's origin and the whole scaled frame's
+    # (w, h); the caller threads the origin to the device as a span shift
+    roi_offset: Optional[Tuple[int, int]] = None
+    frame_size: Optional[Tuple[int, int]] = None
 
     @property
     def size(self) -> Tuple[int, int]:
@@ -156,15 +163,29 @@ def decode(
     info: Optional[MediaInfo] = None,
     frame: int = 0,
     device: Union[str, "torch.device"] = "cuda",  # noqa: F821
+    roi: Optional[Tuple[int, int, int, int]] = None,
 ) -> DecodedImage:
-    """Decode bytes -> upright DecodedImage. A JPEG decodes on ``device``
-    (nvJPEG; a CUDA device), prescaled by ``jpeg_batch_scale_num`` toward
-    ``target_hint``; every other format decodes on the host. ``frame``
-    picks the frame of an animated GIF or WebP, or the page of a TIFF
-    (``min(frame, n_frames - 1)``, the reference's ``gf_``); ``n_frames``
-    counts them. Pass ``info`` when the caller already probed the bytes."""
+    """Decode bytes -> upright DecodedImage. A JPEG decodes with its kernels
+    on ``device`` (the port's decoder), prescaled by
+    ``jpeg_batch_scale_num`` toward ``target_hint``; every other format
+    decodes on the host. ``frame`` picks the frame of an animated GIF or
+    WebP, or the page of a TIFF (``min(frame, n_frames - 1)``, the
+    reference's ``gf_``); ``n_frames`` counts them. Pass ``info`` when the
+    caller already probed the bytes.
+
+    ``roi`` (JPEG only) is an ``(x0, y0, x1, y1)`` window in post-prescale
+    coordinates: the decode then produces only that window (widened to
+    its iMCU column as libjpeg-turbo's does) and the result carries
+    ``roi_offset`` and ``frame_size``, which the caller MUST thread to the
+    device program as a span shift. Ignored (a whole decode) for other
+    formats, for EXIF-rotated sources (the window would not survive the
+    transpose) and for a window that is empty after clamping."""
     info = info or media_info(data)
     mime = source_mime(data, info)
+    if roi is not None and mime == JPEG_MIME and frame == 0:
+        decoded = _decode_jpeg_roi(data, info, target_hint, roi, device)
+        if decoded is not None:
+            return decoded
     if mime == JPEG_MIME:
         scale_num = jpeg_batch_scale_num(info, target_hint)
         rgb = native_codec.jpeg_decode(data, scale_num, device=device)
@@ -198,6 +219,85 @@ def decode(
         f"decoding {info.mime} is not ported to the PyTorch package yet "
         "(PNG, JPEG, WebP, GIF, BMP, ICO and TIFF only)"
     )
+
+
+def _roi_request(roi) -> Optional[Tuple[int, int, int, int]]:
+    """``(x0, y0, x1, y1)`` -> the decoder's ``(x, y, w, h)``, or None for
+    an empty window."""
+    x0, y0, x1, y1 = (int(v) for v in roi)
+    if x1 - x0 <= 0 or y1 - y0 <= 0:
+        return None
+    return (x0, y0, x1 - x0, y1 - y0)
+
+
+def _decode_jpeg_roi(data: bytes, info: MediaInfo, target_hint, roi,
+                     device) -> Optional[DecodedImage]:
+    """One window decode (the JAX package's ``_decode_jpeg_roi``); None ->
+    the caller decodes the whole frame (an EXIF-rotated source, an empty
+    window)."""
+    if jpeg_orientation(data) != 1:
+        return None
+    request = _roi_request(roi)
+    if request is None:
+        return None
+    scale_num = jpeg_batch_scale_num(info, target_hint)
+    result = native_codec.jpeg_decode(data, scale_num, request, device=device)
+    if result is None:
+        return None
+    window, offset, frame_size = result
+    return DecodedImage(
+        rgb=np.ascontiguousarray(window), alpha=None, mime=JPEG_MIME,
+        orig_size=(info.width or frame_size[0], info.height or frame_size[1]),
+        roi_offset=offset, frame_size=frame_size,
+    )
+
+
+def batch_jpeg_decode(items: list,
+                      device: Union[str, "torch.device"] = "cuda") -> list:  # noqa: F821
+    """The codec batcher's decode runner: many JPEGs as ONE batch of the
+    port's decoder (their entropy decodes on host threads, one K18 and one
+    K19 launch on ``device``). ``items`` are ``(bytes, scale_num, roi)``
+    with a uniform scale (the group key carries it); ``roi`` is None for a
+    whole decode or an ``(x0, y0, x1, y1)`` post-prescale window --
+    submitters only set it for orientation-1 sources (the handler's gate),
+    so window results skip the EXIF transpose. Whole entries return
+    oriented RGB arrays; window entries ``(rgb, (out_x, out_y), (full_w,
+    full_h))``. None = the member's decode failed or its window is empty:
+    the caller falls back to the single-image decode, which answers as the
+    member alone would."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    requests = [(data, int(scale), None if roi is None else _roi_request(roi))
+                for data, scale, roi in items]
+    outs = jpeg_dec.decode_batch(requests, device, max_pixels=native_codec.MAX_PIXELS)
+    results = []
+    for (data, _, roi), (_, _, req), out in zip(items, requests, outs):
+        # an empty window goes to the single path, which decodes the whole
+        # frame
+        if out is None or isinstance(out, BaseException) or (roi is not None and req is None):
+            results.append(None)
+        elif roi is not None:
+            results.append((out.rgb, out.offset, out.frame_size))
+        else:
+            results.append(np.ascontiguousarray(
+                apply_orientation(out.rgb, jpeg_orientation(data))))
+    return results
+
+
+def batch_jpeg_encode(items: list,
+                      device: Union[str, "torch.device"] = "cuda") -> list:  # noqa: F821
+    """The codec batcher's encode runner: many RGB frames to JPEG in ONE
+    kernel launch. ``items`` are ``(rgb, quality, sampling, mozjpeg)`` with
+    uniform parameters (the group key carries them); ``mozjpeg`` selects
+    the trellis encoder (K16 through its frame table), else libjpeg's
+    baseline (every member's planes through K17 at once); the host writer
+    runs a member on threads. Each member's bytes equal its single
+    ``encode``'s."""
+    _, quality, sampling, mozjpeg = items[0]
+    frames = [frame for frame, _q, _s, _m in items]
+    if mozjpeg:
+        return jpeg_enc.encode_trellis_group(frames, quality, sampling, device=device)
+    return jpeg_enc.encode_plain_group(frames, quality, sampling, device=device)
 
 
 def decode_all(data: bytes, info: Optional[MediaInfo] = None) -> Animation:

@@ -7,19 +7,22 @@ trellis, then libjpeg's optimized Huffman tables and progressive scans),
 sampling factor) and ``clsp_CMYK`` with Pillow (``_encode_cmyk_jpeg``).
 The card machine has no libjpeg, so the port splits the work:
 
-- kernel K16 (``csrc/jpeg_trellis.cu``, ``trellis_coefficients``): colour
-  conversion, chroma box mean, float DCT and the trellis, one launch an
-  encode;
+- kernel K16 (``csrc/jpeg_trellis.cu``, ``trellis_coefficients_group``):
+  colour conversion, chroma box mean, float DCT and the trellis, one launch
+  for a group of encodes through a frame table (``trellis_coefficients``:
+  a group of one);
 - kernel K17 (``csrc/jpeg_fdct.cu``, ``fdct_coefficients``): libjpeg's
   islow FDCT and quantization over u8 planes laid out as libjpeg's
   preprocessing leaves them (``jpeg_plain.grid_planes``,
-  ``cmyk_grid_planes``), one launch an encode;
+  ``cmyk_grid_planes``), one launch an encode or a group's planes;
 - ``codecs/native/jpeg_writer.cpp`` (g++, no libjpeg): markers, Huffman
   tables and scans, byte for byte as libjpeg writes the same
   coefficients.
 
 ``encode_trellis``, ``encode_plain`` and ``encode_cmyk`` upload the frame,
-launch the kernel, read the coefficients back and write the file. On a
+launch the kernel, read the coefficients back and write the file;
+``encode_trellis_group`` and ``encode_plain_group`` do it for the codec
+batcher's encode group in one launch, the writer a member on threads. On a
 CUDA device a kernel launches or raises; only ``device="cpu"`` runs the
 kernels' plain versions (``codecs/jpeg_plain.py``).
 """
@@ -75,14 +78,23 @@ def _upload(rgb: np.ndarray, dev: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _trellis_lib():
-    lib = cuda_build.load("jpeg_trellis")
+def bind_trellis(lib):
+    """``lib`` (a build of ``csrc/jpeg_trellis.cu``) with its entries'
+    argument types set."""
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flyimg_jpeg_trellis.argtypes = [p, p, i, i, i, i, p, p]
-        lib.flyimg_jpeg_trellis.restype = ctypes.c_int
+        lib.flyimg_jpeg_trellis_frame.argtypes = [p, p, i, i, i, i, i, p, ctypes.POINTER(i)]
+        lib.flyimg_jpeg_trellis_frame.restype = i
+        lib.flyimg_jpeg_trellis_frame_bytes.argtypes = []
+        lib.flyimg_jpeg_trellis_frame_bytes.restype = i
+        lib.flyimg_jpeg_trellis_frames.argtypes = [p, i, i, i, p, p]
+        lib.flyimg_jpeg_trellis_frames.restype = i
         lib._flyimg_bound = True
     return lib
+
+
+def _trellis_lib():
+    return bind_trellis(cuda_build.load("jpeg_trellis"))
 
 
 #: K16's constants on each card, a quality (the launch reads them from there)
@@ -101,42 +113,73 @@ def _trellis_params(quality: int, device: torch.device) -> torch.Tensor:
 def trellis_coefficients(rgb: torch.Tensor, quality: int,
                          sampling: Tuple[int, int]) -> torch.Tensor:
     """Trellis-quantized coefficients of a [H, W, 3] u8 image: kernel K16
-    on a CUDA tensor, ``jpeg_plain.trellis_plain`` on a CPU tensor. int16
-    [blocks, 64] in zigzag order (Y's blocks, then Cb's, then Cr's)."""
-    if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"trellis_coefficients takes u8 [H, W, 3], got {rgb.dtype} "
-                         f"{tuple(rgb.shape)}")
-    sampling = _check_sampling(sampling)
-    if rgb.device.type == "cpu":
-        return jpeg_plain.trellis_plain(rgb, quality, sampling)
-    if rgb.device.type != "cuda":
-        raise ValueError(f"unsupported device {rgb.device}")
-    h, w = rgb.shape[:2]
-    dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
-    out = torch.empty((sum(bw * bh for bw, bh in dims), 64), dtype=torch.int16,
-                      device=rgb.device)
-    params = _trellis_params(quality, rgb.device)
-    rgb = rgb.contiguous()
-    if rgb.data_ptr() % 16:  # K16 reads whole aligned 16-byte words
-        rgb = rgb.clone()
-    rc = _trellis_lib().flyimg_jpeg_trellis(
-        rgb.data_ptr(), out.data_ptr(), w, h, sampling[0], sampling[1],
-        params.data_ptr(), cuda_build.current_stream(rgb.device.index))
-    cuda_build.check(rc, "jpeg_trellis")
-    trellis_coefficients.launches += 1
-    return out
+    (a frame table of one row) on a CUDA tensor,
+    ``jpeg_plain.trellis_plain`` on a CPU tensor. int16 [blocks, 64] in
+    zigzag order (Y's blocks, then Cb's, then Cr's)."""
+    return trellis_coefficients_group([rgb], quality, sampling)[0]
 
 
 #: K16 launches since the last reset (a plain integer)
 trellis_coefficients.launches = 0
 
 
+def trellis_coefficients_group(frames: Sequence[torch.Tensor], quality: int,
+                               sampling: Tuple[int, int]) -> List[torch.Tensor]:
+    """``trellis_coefficients`` of several [H, W, 3] u8 frames at one
+    quality and sampling: on CUDA tensors kernel K16 in ONE launch, its
+    CTAs mapped to (frame, strip) through a frame table; on CPU tensors
+    the plain version a frame. Each frame's coefficients equal its single
+    call's."""
+    sampling = _check_sampling(sampling)
+    if not frames:
+        return []
+    for rgb in frames:
+        if rgb.dtype != torch.uint8 or rgb.dim() != 3 or rgb.shape[2] != 3:
+            raise ValueError(f"K16 takes u8 [H, W, 3], got {rgb.dtype} {tuple(rgb.shape)}")
+    dev = frames[0].device
+    if dev.type == "cpu":
+        return [jpeg_plain.trellis_plain(f, quality, sampling) for f in frames]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _trellis_lib()
+    stride = lib.flyimg_jpeg_trellis_frame_bytes()
+    table = np.zeros(len(frames) * stride, np.uint8)
+    outs, keep = [], []
+    ctas = 0
+    smem = ctypes.c_int()
+    for k, rgb in enumerate(frames):
+        rgb = rgb.contiguous()
+        if rgb.data_ptr() % 16:  # K16 reads whole aligned 16-byte words
+            rgb = rgb.clone()
+        keep.append(rgb)
+        h, w = rgb.shape[:2]
+        dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
+        out = torch.empty((sum(bw * bh for bw, bh in dims), 64), dtype=torch.int16, device=dev)
+        outs.append(out)
+        n = lib.flyimg_jpeg_trellis_frame(rgb.data_ptr(), out.data_ptr(), w, h, sampling[0],
+                                          sampling[1], ctas, table.ctypes.data + k * stride,
+                                          ctypes.byref(smem))
+        if n < 0:
+            raise ValueError(f"K16 does not take a {w}x{h} frame at {sampling}")
+        ctas += n
+    params = _trellis_params(quality, dev)
+    rows = torch.from_numpy(table).to(dev)
+    rc = lib.flyimg_jpeg_trellis_frames(rows.data_ptr(), len(frames), ctas, smem.value,
+                                        params.data_ptr(),
+                                        cuda_build.current_stream(dev.index))
+    cuda_build.check(rc, "jpeg_trellis")
+    trellis_coefficients.launches += 1
+    del keep, rows
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # K17
 # ---------------------------------------------------------------------------
 
-#: K17's plane limit (csrc/jpeg_fdct.cu kMaxPlanes)
-MAX_PLANES = 4
+#: K17's plane limit (csrc/jpeg_fdct.cu kMaxPlanes): a group of 32
+#: three-component encodes
+MAX_PLANES = 96
 
 
 class _FdctParams(ctypes.Structure):
@@ -193,7 +236,7 @@ def fdct_coefficients(planes: Sequence[torch.Tensor], tables: Sequence[Sequence[
     another."""
     if not 1 <= len(planes) <= MAX_PLANES or len(which) != len(planes) \
             or not 1 <= len(tables) <= 2:
-        raise ValueError("fdct_coefficients takes 1-4 planes and 1-2 tables")
+        raise ValueError(f"fdct_coefficients takes 1-{MAX_PLANES} planes and 1-2 tables")
     for p in planes:
         if p.dtype != torch.uint8 or p.dim() != 2 or p.shape[0] % 8 or p.shape[1] % 8 \
                 or p.numel() == 0:
@@ -313,6 +356,66 @@ def encode_plain(rgb: np.ndarray, quality: int = 90, optimize: bool = False,
     h, w = frame.shape[:2]
     return write(coef, w, h, jpeg_plain.ycc_factors(sampling), tables,
                  progressive=progressive, optimize=optimize)
+
+
+def _write_all(jobs) -> List[bytes]:
+    """The host writer over a group's members on threads (each ctypes call
+    releases the GIL)."""
+    if len(jobs) == 1:
+        return [write(*jobs[0][0], **jobs[0][1])]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(8, len(jobs))) as pool:
+        return list(pool.map(lambda job: write(*job[0], **job[1]), jobs))
+
+
+def encode_trellis_group(images: Sequence[np.ndarray], quality: int = 90,
+                         sampling: Tuple[int, int] = (1, 1), *,
+                         device: _Device = "cuda") -> List[bytes]:
+    """``encode_trellis`` (progressive) of a group of frames at one quality
+    and sampling: K16 in one launch for the group
+    (``trellis_coefficients_group``), the writer a member on threads.
+    Every member's bytes equal its single encode's."""
+    sampling = _check_sampling(sampling)
+    dev = _device(device)
+    frames = [_upload(img, dev) for img in images]
+    coefs = [c.cpu().numpy() for c in trellis_coefficients_group(frames, quality, sampling)]
+    factors, tables = jpeg_plain.ycc_factors(sampling), jpeg_tables.qtables(quality)
+    return _write_all([((c, f.shape[1], f.shape[0], factors, tables),
+                        {"progressive": True, "optimize": True})
+                       for c, f in zip(coefs, frames)])
+
+
+def encode_plain_group(images: Sequence[np.ndarray], quality: int = 90,
+                       sampling: Tuple[int, int] = (1, 1), *,
+                       device: _Device = "cuda") -> List[bytes]:
+    """``encode_plain`` (baseline, standard tables) of a group of frames at
+    one quality and sampling: every member's planes through K17 in one
+    launch (up to ``MAX_PLANES`` planes, so 32 members a launch), the
+    writer a member on threads. Every member's bytes equal its single
+    encode's."""
+    sampling = _check_sampling(sampling)
+    dev = _device(device)
+    tables = jpeg_tables.qtables(quality)
+    frames = [_upload(img, dev) for img in images]
+    coefs: List[np.ndarray] = []
+    per = MAX_PLANES // 3
+    for lo in range(0, len(frames), per):
+        chunk = frames[lo:lo + per]
+        planes, counts = [], []
+        for f in chunk:
+            ps = jpeg_plain.grid_planes(f, sampling)
+            planes.extend(ps)
+            counts.append(sum(p.numel() // 64 for p in ps))
+        out = fdct_coefficients(planes, tables, (0, 1, 1) * len(chunk)).cpu().numpy()
+        start = 0
+        for n in counts:
+            coefs.append(out[start:start + n])
+            start += n
+    factors = jpeg_plain.ycc_factors(sampling)
+    return _write_all([((c, f.shape[1], f.shape[0], factors, tables),
+                        {"progressive": False, "optimize": False})
+                       for c, f in zip(coefs, frames)])
 
 
 def encode_cmyk(frame: np.ndarray, quality: int = 90, optimize: bool = False, *,

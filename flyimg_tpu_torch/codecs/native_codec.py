@@ -1,19 +1,19 @@
-"""ctypes bindings of the port's codecs: nvJPEG for JPEG, the package's own
-VP8 and VP8L library for WebP.
+"""ctypes bindings of the port's codecs: the port's own JPEG decoder, nvJPEG
+as the library yardstick, the package's own VP8 and VP8L library for WebP.
 
 The port's counterpart of ``flyimg_tpu/codecs/native_codec.py``, which
 binds libjpeg and libwebp. The card machine has neither, so:
 
-- JPEG decodes through nvJPEG, the CUDA toolkit's codec
-  (``libnvjpeg.so.12``), on the card: ``jpeg_decode`` decodes into device
-  memory (Huffman decoding on the host, the IDCT and colour conversion on
-  the card, chroma upsampled by interpolation), prescales there by a box
-  mean over (8 / scale_num)^2 pixels with libjpeg's output size (the
-  reference's DCT-domain prescale: nvJPEG's own scaling is the hardware
-  decoder's only), and copies the pixels back. The port encodes JPEG with
-  its own encoder (``codecs/jpeg_enc.py``); nvJPEG's encode
-  (``jpeg_encode``, from libjpeg's YCbCr planes, ``ycbcr_planes``) stays
-  only as the library yardstick ``chip_smoke.py`` times.
+- JPEG decodes through the port's own decoder (``jpeg_decode``:
+  ``codecs/jpeg_dec.py``, a host entropy decoder and kernels K18 and K19),
+  to libjpeg-turbo's pixels at every DCT scale and in ROI windows, and
+  encodes through its own encoder (``codecs/jpeg_enc.py``). nvJPEG, the
+  CUDA toolkit's codec (``libnvjpeg.so.12``), serves no route: its decode
+  (``nvjpeg_decode``, the IDCT and colour conversion on the card, chroma
+  upsampled by interpolation, a box mean standing in for the DCT
+  prescale) and its encode (``jpeg_encode``, from libjpeg's YCbCr planes,
+  ``ycbcr_planes``) stay only as the library yardsticks ``chip_smoke.py``
+  times.
 - WebP goes through the package's own codec under ``codecs/native/``:
   ``webp_lossy.cpp`` (the VP8 encoder and decoder, the ALPH chunk and the
   container; its tables in ``vp8_tables.h``) and ``webp_lossless.cpp``
@@ -332,9 +332,33 @@ def cmyk_rgb(planes, ycck: bool):
     return rgb.permute(1, 2, 0).to(torch.uint8)
 
 
-def jpeg_decode(data: bytes, scale_num: int = 8,
-                device: Union[str, "torch.device"] = "cuda") -> np.ndarray:  # noqa: F821
-    """Decode JPEG bytes on the card -> [h, w, 3] uint8 on the host,
+def jpeg_decode(data: bytes, scale_num: int = 8, roi: Optional[Tuple[int, int, int, int]] = None,
+                device: Union[str, "torch.device"] = "cuda"):  # noqa: F821
+    """Decode JPEG bytes with the port's own decoder (``codecs/jpeg_dec.py``:
+    the host entropy decoder, then kernels K18 and K19 on ``device``, their
+    plain versions on the CPU) to the JAX package's native pixels, at DCT
+    scale ``scale_num``/8. Without ``roi``: [h, w, 3] uint8, as
+    ``fc_jpeg_decode`` gives it. With ``roi`` = (x, y, w, h), a window of
+    the scaled frame: (rgb, (out_x, out_y), (full_w, full_h)) as
+    ``fc_jpeg_decode_roi`` gives it (the left edge aligned down to the iMCU
+    column), or None where that call fails (an empty window). A file the
+    decode fails on raises ``ExecFailedException``; one the port refuses
+    (arithmetic coding, lossless, 12-bit) ``UnsupportedMediaException``."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    result = jpeg_dec.decode(data, int(scale_num), roi, device=device, max_pixels=MAX_PIXELS)
+    if roi is None:
+        return result.rgb
+    if result is None:
+        return None
+    return result.rgb, result.offset, result.frame_size
+
+
+def nvjpeg_decode(data: bytes, scale_num: int = 8,
+                  device: Union[str, "torch.device"] = "cuda") -> np.ndarray:  # noqa: F821
+    """nvJPEG's decode, the library yardstick ``chip_smoke.py`` times beside
+    the port's own decoder (``jpeg_decode``); no serving route calls it.
+    Decode JPEG bytes on the card -> [h, w, 3] uint8 on the host,
     prescaled to scale_num/8 (libjpeg's ceil(size * scale_num / 8)) on the
     card by a box mean of each (8 / scale_num)^2 block, rounded half up.
     Three YCbCr components decode to RGB in nvJPEG; one (gray) decodes its

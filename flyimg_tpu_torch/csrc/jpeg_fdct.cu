@@ -1,5 +1,5 @@
 // K17: libjpeg's integer FDCT and quantization of u8 planes, one launch
-// an encode.
+// an encode or a group of encodes (up to kMaxPlanes planes).
 //
 // Replaces what libjpeg does inside jpeg_write_scanlines under the JAX
 // package's fc_jpeg_encode (flyimg_tpu/codecs/native/fastcodec.cpp) and
@@ -11,9 +11,11 @@
 // (recip, corr, shift) from compute_reciprocal(quantval * 8) on the host
 // (jpeg_plain.divisor_rows). The planes come laid out on their block
 // grids as libjpeg's preprocessing leaves them (the three YCbCr planes of
-// a moz_0 encode, or the four inverted CMYK planes), one after another in
-// one buffer. Output: int16 [blocks][64] zigzag, the planes' blocks
-// row-major one after another (codecs/native/jpeg_writer.cpp's layout).
+// a moz_0 encode, of each encode of a group, or the four inverted CMYK
+// planes), one after another in one buffer; a block finds its plane by
+// binary search over the planes' first blocks. Output: int16 [blocks][64]
+// zigzag, the planes' blocks row-major one after another
+// (codecs/native/jpeg_writer.cpp's layout).
 //
 // Integer arithmetic, so the order of operations is free and the result
 // exact. 32 bits suffice: jfdctint.c picks CONST_BITS 13 and PASS1_BITS 2
@@ -38,7 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int kMaxPlanes = 4;
+// the planes of a group of up to 32 three-component encodes in one launch
+constexpr int kMaxPlanes = 96;
 
 // the launch's parameters (jpeg_enc._FdctParams mirrors it); at file scope,
 // so the C entry below, which takes it, keeps external linkage
@@ -99,23 +102,27 @@ __device__ __forceinline__ void islow_pass(int (&d)[8]) {
   d[1] = descale(tmp7 * 12299 + p1 + p4, shift);
 }
 
+__device__ __forceinline__ int plane_of(const K17Params& p, int b) {
+  // the last plane whose first block is at or before b
+  int lo = 0, hi = p.nplanes - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (p.block_off[mid] <= b) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
 // row r of block b: its 8 samples
 __device__ __forceinline__ uint2 load_row(const uint8_t* __restrict__ planes, const K17Params& p,
                                           int b, int r) {
-  int pl = 0;
-  while (pl + 1 < p.nplanes && b >= p.block_off[pl + 1]) ++pl;
+  const int pl = plane_of(p, b);
   const int local = b - p.block_off[pl];
   const int bw = p.bw[pl];
   const int brow = local / bw, bcol = local - brow * bw;
   const uint8_t* src = planes + p.plane_off[pl] +
                        (static_cast<size_t>(brow) * 8 + r) * bw * 8 + bcol * 8;
   return *reinterpret_cast<const uint2*>(src);
-}
-
-__device__ __forceinline__ int plane_of(const K17Params& p, int b) {
-  int pl = 0;
-  while (pl + 1 < p.nplanes && b >= p.block_off[pl + 1]) ++pl;
-  return pl;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,4 +1,7 @@
-// K16: the trellis JPEG encoder's coefficients, one launch an encode.
+// K16: the trellis JPEG encoder's coefficients, one launch for a group of
+// encodes at one quality and sampling (a lone encode is a group of one):
+// a frame table gives each frame its pixels, coefficients, geometry and
+// first CTA, and a CTA finds its frame by binary search.
 //
 // Replaces the device-free arithmetic of the JAX package's native encoder
 // (flyimg_tpu/codecs/native/fastcodec.cpp fc_jpeg_encode_trellis, with
@@ -128,6 +131,13 @@ struct K16Geom {
   int strips[3];      // strips a block row
   int cta_off[4];     // first CTA of each component; cta_off[3] = grid
   int pitch;          // staged bytes a pixel row (chroma rows of a subsampled frame)
+};
+
+// a row of a group's frame table (trellis_kernel)
+struct K16Frame {
+  long long rgb, out;  // the frame's pixels and coefficients on the card
+  K16Geom g;
+  int cta_first;       // the frame's first CTA in the launch
 };
 
 // natural index -> zigzag position, in global memory: the lanes read it at
@@ -266,9 +276,11 @@ __device__ __forceinline__ void team_fdct(float* slot, float4* rec, const Table&
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-trellis_kernel(const uint8_t* __restrict__ rgb, int16_t* __restrict__ out, K16Geom g,
-               const float* __restrict__ params) {
+// one CTA's strip of frame g (the CTA's number among the frame's, cta); g
+// in shared memory
+__device__ __forceinline__ void trellis_strip(const uint8_t* __restrict__ rgb,
+                                              int16_t* __restrict__ out, const K16Geom& g,
+                                              const float* __restrict__ params, const int cta) {
   __shared__ Table tab;
   __shared__ uint8_t zz[64];                              // natural -> zigzag
   __shared__ __align__(16) float slots[kTeams][kSlotFloats];
@@ -280,7 +292,6 @@ trellis_kernel(const uint8_t* __restrict__ rgb, int16_t* __restrict__ out, K16Ge
 #endif
   K16_CLOCK(0);
   const int tid = threadIdx.x;
-  const int cta = blockIdx.x;
   const int c = cta < g.cta_off[1] ? 0 : (cta < g.cta_off[2] ? 1 : 2);
   const int t = c == 0 ? 0 : 1;
   const int local = cta - pick(c, 0, g.cta_off[1], g.cta_off[2]);
@@ -699,18 +710,40 @@ trellis_kernel(const uint8_t* __restrict__ rgb, int16_t* __restrict__ out, K16Ge
   }
 }
 
+// a group's frames in one launch: CTA i works a strip of the frame whose
+// CTAs it falls among (binary search over the frames' first CTAs). The
+// frame's row goes to shared memory first: held in registers, its fields
+// would stay live across the whole strip (as a kernel parameter they were
+// free operands). 16 CTAs an SM, so 64 registers: unasked, ptxas takes 72,
+// which fit 14; shared memory fits 17 at 4:4:4.
+__global__ void __launch_bounds__(kThreads, 16)
+trellis_kernel(const K16Frame* __restrict__ frames, int nframes,
+               const float* __restrict__ params) {
+  __shared__ K16Frame row;
+  int lo = 0, hi = nframes - 1;
+  const int cta = blockIdx.x;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (frames[mid].cta_first <= cta) lo = mid;
+    else hi = mid - 1;
+  }
+  constexpr int kWords = sizeof(K16Frame) / 4;
+  static_assert(kWords <= kThreads, "a thread a word of the frame's row");
+  if (threadIdx.x < kWords)
+    reinterpret_cast<int*>(&row)[threadIdx.x] =
+        reinterpret_cast<const int*>(frames + lo)[threadIdx.x];
+  __syncthreads();
+  trellis_strip(reinterpret_cast<const uint8_t*>(row.rgb), reinterpret_cast<int16_t*>(row.out),
+                row.g, params, cta - row.cta_first);
+}
+
 }  // namespace
 
-// rgb: [height][width][3] u8 on the card, 16-byte aligned; out: int16
-// [blocks][64]; params: the K16Params words (jpeg_tables.trellis_param_block)
-// on the card. Returns a CUDA error code (0 = launched).
-extern "C" int flyimg_jpeg_trellis(const uint8_t* rgb, int16_t* out, int width, int height,
-                                   int samp_h, int samp_v, const float* params, void* stream) {
-  if (width < 1 || height < 1 || samp_h < 1 || samp_h > 4 || samp_v < 1 || samp_v > 4 ||
-      samp_h * samp_v > 8 || !params || reinterpret_cast<uintptr_t>(rgb) % 16 ||
-      reinterpret_cast<uintptr_t>(params) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  K16Geom g;
+namespace {
+
+// the launch geometry of one frame; returns its dynamic shared bytes
+int make_geom(int width, int height, int samp_h, int samp_v, K16Geom* out) {
+  K16Geom& g = *out;
   g.w = width;
   g.h = height;
   g.sh = samp_h;
@@ -734,8 +767,48 @@ extern "C" int flyimg_jpeg_trellis(const uint8_t* rgb, int16_t* out, int width, 
   // last 16-byte word; 8 * v of them for subsampled chroma
   g.pitch = kCols * 3 * samp_h + 32;
   const int rgb_bytes = (samp_h * samp_v > 1 ? 8 * samp_v * g.pitch : 8 * (kCols * 3 + 32));
-  const int smem = rgb_bytes > kRecBytesAll ? rgb_bytes : kRecBytesAll;
-  trellis_kernel<<<g.cta_off[3], kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rgb, out, g, params);
+  return rgb_bytes > kRecBytesAll ? rgb_bytes : kRecBytesAll;
+}
+
+bool bad_frame(int width, int height, int samp_h, int samp_v) {
+  return width < 1 || height < 1 || samp_h < 1 || samp_h > 4 || samp_v < 1 || samp_v > 4 ||
+         samp_h * samp_v > 8;
+}
+
+}  // namespace
+
+// A frame's row of a group's frame table, written to row (K16Frame bytes,
+// on the host): its pixels (rgb, 16-byte aligned) and coefficients (out)
+// on the card, its geometry and first CTA (cta_first). Returns the frame's
+// CTAs, or -1 for a size or sampling K16 does not take; *smem receives its
+// dynamic shared bytes (a group's frames share their sampling, so one).
+extern "C" int flyimg_jpeg_trellis_frame(const uint8_t* rgb, int16_t* out, int width, int height,
+                                         int samp_h, int samp_v, int cta_first, void* row,
+                                         int* smem) {
+  if (bad_frame(width, height, samp_h, samp_v) || reinterpret_cast<uintptr_t>(rgb) % 16)
+    return -1;
+  K16Frame f;
+  f.rgb = reinterpret_cast<long long>(rgb);
+  f.out = reinterpret_cast<long long>(out);
+  f.cta_first = cta_first;
+  *smem = make_geom(width, height, samp_h, samp_v, &f.g);
+  *static_cast<K16Frame*>(row) = f;
+  return f.g.cta_off[3];
+}
+
+// The bytes of a K16Frame (the wrapper's table stride).
+extern "C" int flyimg_jpeg_trellis_frame_bytes() { return static_cast<int>(sizeof(K16Frame)); }
+
+// frames: nframes K16Frame rows on the card, in order of their first CTA;
+// ctas: the CTAs of all; smem: the frames' dynamic shared bytes; params:
+// the K16Params words (jpeg_tables.trellis_param_block) on the card,
+// 16-byte aligned. One launch for the group's frames. Returns a CUDA
+// error code (0 = launched).
+extern "C" int flyimg_jpeg_trellis_frames(const void* frames, int nframes, int ctas, int smem,
+                                          const float* params, void* stream) {
+  if (nframes < 1 || ctas < 1 || !params || reinterpret_cast<uintptr_t>(params) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  trellis_kernel<<<ctas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const K16Frame*>(frames), nframes, params);
   return static_cast<int>(cudaGetLastError());
 }

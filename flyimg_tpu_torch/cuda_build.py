@@ -15,7 +15,8 @@ overrides it). ``build()`` starts one ``nvcc`` per source, all together.
 The host route (``HOST_SOURCES``, ``build_host``, ``load_host``) builds the
 package's host C++ under ``codecs/native/`` (the WebP codec: its VP8 and
 VP8L sources into one library; the raster loops of GIF, TIFF and BMP into
-another; the JPEG entropy writer into a third) the same way with ``g++``, into
+another; the JPEG entropy writer into a third, its reader into a fourth) the
+same way with ``g++``, into
 ``build/codecs/`` (or ``FLYIMG_TORCH_BUILD_DIR``): it needs no CUDA, so the
 CPU tests build and run it too.
 
@@ -64,6 +65,10 @@ SOURCES: Dict[str, tuple] = {
     # contraction, IEEE division
     "jpeg_trellis": ("jpeg_trellis.cu", ("--fmad=false",)),
     "jpeg_fdct": ("jpeg_fdct.cu", ()),
+    # K18 and K19, the JPEG decoder's IDCT and upsampling/colour kernels
+    # (integer arithmetic only)
+    "jpeg_idct": ("jpeg_idct.cu", ()),
+    "jpeg_color": ("jpeg_color.cu", ()),
 }
 
 #: host library name -> (files under the package: the .cpp sources compiled
@@ -77,6 +82,9 @@ HOST_SOURCES: Dict[str, tuple] = {
         "gif.cpp", "raster.cpp")), ()),
     # the JPEG entropy writer (markers, Huffman tables, scans)
     "jpeg": (tuple(os.path.join("codecs", "native", f) for f in ("jpeg_writer.cpp",)), ()),
+    # the JPEG entropy decoder (markers, Huffman scans, coefficients out)
+    "jpeg_reader": (tuple(os.path.join("codecs", "native", f) for f in ("jpeg_reader.cpp",)),
+                    ("-pthread",)),
 }
 
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")

@@ -190,8 +190,7 @@ def main() -> int:
             lib.flyimg_jpeg_fdct.argtypes = [p, p, ctypes.POINTER(jpeg_enc._FdctParams), p, i, p]
             lib.flyimg_jpeg_fdct.restype = i
         else:
-            lib.flyimg_jpeg_trellis.argtypes = [p, p, i, i, i, i, p, p]
-            lib.flyimg_jpeg_trellis.restype = i
+            jpeg_enc.bind_trellis(lib)
         libs[name] = lib
     jpeg_enc._fdct_lib = lambda: libs["K17"]
     clocks = libs.pop("K16 phase clocks")

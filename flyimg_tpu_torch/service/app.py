@@ -115,8 +115,8 @@ class FlyimgServer(ThreadingHTTPServer):
         injector = params.by_key("fault_injector")
         if injector is not None:
             faults.install(injector)
-        # nvJPEG's decode limit follows the source pixel guard (as the JAX
-        # package's Pillow guard does; 0 or less keeps the default)
+        # the JPEG decoder's limit follows the source pixel guard (as the
+        # JAX package's Pillow guard does; 0 or less keeps the default)
         native_codec.set_max_pixels(int(params.by_key("mem_max_source_pixels", 0) or 0))
         governor = MemoryGovernor.from_params(params)
         self.batcher = BatchController(
@@ -126,12 +126,23 @@ class FlyimgServer(ThreadingHTTPServer):
             governor=governor if governor.enabled else None,
             **containment_params(params),
         )
+        # codec work gets its OWN controller and thread: JPEG decode and
+        # encode groups must not serialize with the transform launches
+        containment = containment_params(params)
+        containment["max_queue_depth"] = int(params.by_key("decode_max_queue_depth", 0))
+        self.codec_batcher = BatchController(
+            max_batch=int(params.by_key("decode_batch_max", 32)),
+            deadline_ms=float(params.by_key("decode_deadline_ms", 1.0)),
+            device=self.batcher.device,
+            **containment,
+        )
         if sp_mesh is None:
             sp_mesh = local_sp_mesh(self.batcher.device)
         self.host_pipeline = HostPipeline.from_params(params)
         self.handler = ImageHandler(
             params, device=self.batcher.device, batcher=self.batcher,
             sp_mesh=sp_mesh, host_pipeline=self.host_pipeline,
+            codec_batcher=self.codec_batcher,
         )
         super().__init__(address, _RequestHandler)
 
@@ -139,6 +150,7 @@ class FlyimgServer(ThreadingHTTPServer):
         super().server_close()
         self.host_pipeline.close()
         self.batcher.close()
+        self.codec_batcher.close()
 
 
 class _RequestHandler(BaseHTTPRequestHandler):

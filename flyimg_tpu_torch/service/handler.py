@@ -49,6 +49,8 @@ import torch
 from flyimg_tpu_torch import codecs
 from flyimg_tpu_torch.appconfig import AppParameters
 from flyimg_tpu_torch.codecs import jpeg_enc, metadata
+from flyimg_tpu_torch.codecs.exif import jpeg_orientation
+from flyimg_tpu_torch.codecs.sniff import JPEG_MIME
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
@@ -78,6 +80,7 @@ from flyimg_tpu_torch.spec.options import OptionsBag
 from flyimg_tpu_torch.spec.plan import (
     TransformPlan,
     build_plan,
+    decode_roi_window,
     decode_target_hint,
     parse_colorspace,
 )
@@ -229,10 +232,15 @@ class ImageHandler:
         face_backend=None,
         sp_mesh: Optional[Mesh] = None,
         host_pipeline: Optional[HostPipeline] = None,
+        codec_batcher: Optional[BatchController] = None,
     ) -> None:
         self.params = params or AppParameters()
         self.device = resolve_device(device)
         self.batcher = batcher
+        self.codec_batcher = codec_batcher
+        # ROI decode (the JAX package's decode_roi): crop/extract-dominant
+        # plans decode only the source window they sample
+        self.decode_roi = bool(self.params.by_key("decode_roi", True))
         self.sp_mesh = sp_mesh
         self.host_pipeline = host_pipeline
         # counterparts of the reference's flyimg_tiled_resamples_total,
@@ -258,6 +266,8 @@ class ImageHandler:
         self._smc_runner = partial(
             smartcrop.find_best_crops_batched, device=self.device
         )
+        self._jpeg_decode_runner = partial(codecs.batch_jpeg_decode, device=self.device)
+        self._jpeg_encode_runner = partial(codecs.batch_jpeg_encode, device=self.device)
 
     def process_image(
         self, options_str: str, image_src: str, *, accepts_webp: bool = False,
@@ -424,6 +434,75 @@ class ImageHandler:
             if charge is not None:
                 self.mem_accountant.release(charge)
 
+    def _roi_window(self, options: OptionsBag, info, hint, is_gif_out: bool):
+        """The post-prescale source window this request's plan lets the
+        decoder restrict itself to (``spec/plan.py decode_roi_window``), or
+        None for a whole decode. The probe plan is built against the dims
+        the prescaled decode WILL produce (libjpeg's ceil rule)."""
+        if (info.mime != JPEG_MIME or not info.width or not info.height
+                or is_gif_out):
+            return None
+        scale = codecs.jpeg_batch_scale_num(info, hint)
+        sw = (info.width * scale + 7) // 8
+        sh = (info.height * scale + 7) // 8
+        try:
+            probe_plan = build_plan(options, sw, sh)
+        except Exception:
+            # an invalid option raises identically in the real build_plan
+            # below: the probe must not pre-empt that typed error
+            return None
+        return decode_roi_window(probe_plan)
+
+    @staticmethod
+    def _decode_mode(decoded, info, hint) -> str:
+        """The decode mode (full | prescale | roi) of the JAX handler's
+        per-mode stage timings."""
+        if decoded.roi_offset is not None:
+            return "roi"
+        if info.mime == JPEG_MIME:
+            w0, h0 = decoded.orig_size
+            # EXIF orientation may have transposed the frame: only a dims
+            # change beyond the swap means the DCT prescale ran
+            if decoded.size not in ((w0, h0), (h0, w0)):
+                return "prescale"
+        return "full"
+
+    def _decode_batched(self, data: bytes, hint, info, deadline: Deadline, roi=None):
+        """A JPEG decode through the codec batcher: concurrent misses
+        sharing a DCT prescale decode as ONE batch (host entropy decodes on
+        threads, one K18 and one K19 launch); ``roi`` windows ride the same
+        batch. None for everything the group does not cover (non-JPEG, no
+        codec batcher, a member whose decode failed, a wedged group): the
+        caller runs the single-image decode, which answers as this member
+        alone would."""
+        if self.codec_batcher is None or info.mime != JPEG_MIME:
+            return None
+        if roi is not None and jpeg_orientation(data) != 1:
+            # the window would not survive the EXIF transpose
+            roi = None
+        scale = codecs.jpeg_batch_scale_num(info, hint)
+        try:
+            result = self.codec_batcher.submit_aux(
+                ("jpegdec", scale), (data, scale, roi), self._jpeg_decode_runner,
+            ).result(timeout=deadline.timeout(self.device_result_timeout_s))
+        except FutureTimeout:
+            deadline.check("decode")
+            self._record_wedge()
+            return None
+        if result is None:
+            return None
+        if isinstance(result, tuple):
+            window, offset, frame_size = result
+            return codecs.DecodedImage(
+                rgb=window, alpha=None, mime=JPEG_MIME,
+                orig_size=(info.width or frame_size[0], info.height or frame_size[1]),
+                roi_offset=offset, frame_size=frame_size,
+            )
+        return codecs.DecodedImage(
+            rgb=result, alpha=None, mime=JPEG_MIME,
+            orig_size=(info.width or result.shape[1], info.height or result.shape[0]),
+        )
+
     def _process_new(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
         timings: Dict[str, float], deadline: Deadline,
@@ -432,15 +511,30 @@ class ImageHandler:
         t = time.perf_counter()
         gif_frame = options.int_option("gif-frame", 0) or 0
         # a JPEG decodes prescaled toward the target box (DCT-domain scale)
-        decoded = self._stage("decode", lambda: codecs.decode(
-            data, target_hint=decode_target_hint(options), info=info,
-            frame=gif_frame, device=self.device,
-        ), deadline)
+        hint = decode_target_hint(options)
+        # ROI decode: a crop/extract-dominant plan decodes only the source
+        # window its resample samples (+ tap margin), against the
+        # post-prescale frame the decode will produce
+        roi = self._roi_window(options, info, hint, spec.is_gif) if self.decode_roi else None
+        decoded = self._decode_batched(data, hint, info, deadline, roi=roi)
+        if decoded is None:
+            decoded = self._stage("decode", lambda: codecs.decode(
+                data, target_hint=hint, info=info, frame=gif_frame, device=self.device,
+                roi=roi,
+            ), deadline)
         anim = None
         if spec.is_gif and decoded.n_frames > 1:
             anim = self._stage("decode", lambda: codecs.decode_all(data, info), deadline)
         timings["decode"] = time.perf_counter() - t
+        timings[f"decode_{self._decode_mode(decoded, info, hint)}"] = timings["decode"]
         w, h = decoded.size
+        src_window = None
+        if decoded.roi_offset is not None and decoded.frame_size is not None:
+            # the pixels are a window: geometry resolves against the whole
+            # (post-prescale) frame, the window's origin goes to the device
+            # as a span shift
+            w, h = decoded.frame_size
+            src_window = decoded.roi_offset
         plan = build_plan(options, w, h)
         spec.command_repr = repr(plan)
 
@@ -479,26 +573,37 @@ class ImageHandler:
         staged = []
         for idx, frame in enumerate(frames):
             fh, fw = frame.shape[:2]
-            frame_plan = plan if (fw, fh) == plan.src_size else build_plan(options, fw, fh)
+            window = None
+            if src_window is not None and anim is None:
+                # a window decode: the plan stays built against the whole
+                # frame and the window's origin shifts its spans
+                frame_plan, window = plan, src_window
+            elif (fw, fh) == plan.src_size:
+                frame_plan = plan
+            else:
+                frame_plan = build_plan(options, fw, fh)
             if alpha_start is not None and idx >= alpha_start:
                 frame_plan = replace(
                     frame_plan, colorspace=None, monochrome=False, unsharp=None,
                     sharpen=None, blur=None, background=(255, 255, 255),
                 )
-            with _device_failures("tiled transform"):
-                tiled = self._tiled_or_none(frame, frame_plan)
+            tiled = None
+            if window is None:
+                with _device_failures("tiled transform"):
+                    tiled = self._tiled_or_none(frame, frame_plan)
             if tiled is not None:
-                staged.append((tiled, frame, frame_plan))
+                staged.append((tiled, frame, frame_plan, None))
             elif self.batcher is not None:
-                staged.append((self.batcher.submit(frame, frame_plan), frame, frame_plan))
+                staged.append((self.batcher.submit(frame, frame_plan, src_window=window),
+                               frame, frame_plan, window))
             else:
-                staged.append((run_plan(frame, frame_plan, device=self.device),
-                               frame, frame_plan))
+                staged.append((run_plan(frame, frame_plan, window, device=self.device),
+                               frame, frame_plan, window))
         out_frames = [
             self._await(s, "transform", deadline,
-                        partial(run_plan, f, fp, device=self.device))
+                        partial(run_plan, f, fp, win, device=self.device))
             if isinstance(s, Future) else s
-            for s, f, fp in staged
+            for s, f, fp, win in staged
         ]
         timings["device"] = time.perf_counter() - t
 
@@ -542,8 +647,10 @@ class ImageHandler:
             alpha = None
             if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
                 alpha = decoded.alpha
-            content = self._stage("encode", lambda: self._encode(
-                np.ascontiguousarray(out), spec, options, alpha), deadline)
+            content = self._encode_grouped(out, spec, options, alpha, deadline)
+            if content is None:
+                content = self._stage("encode", lambda: self._encode(
+                    np.ascontiguousarray(out), spec, options, alpha), deadline)
             content = graft_metadata(content, data, decoded.mime, spec, options)
         timings["encode"] = time.perf_counter() - t
         if options.wants_refresh():
@@ -556,6 +663,33 @@ class ImageHandler:
                 f"{info.width}x{info.height}+0+0 8-bit sRGB {len(content)}B"
             )
         return content
+
+    def _encode_grouped(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
+                        alpha, deadline: Deadline) -> Optional[bytes]:
+        """A JPEG answer through the codec batcher's encode group
+        ``("jpegenc", quality, sampling, mozjpeg)``: concurrent encodes at
+        one setting share one kernel launch (``codecs.batch_jpeg_encode``),
+        each member's bytes its single encode's. None where the group does
+        not apply (no codec batcher, another format, ``clsp_CMYK``) or is
+        wedged: the caller encodes alone."""
+        if (self.codec_batcher is None or spec.extension != "jpg" or alpha is not None
+                or parse_colorspace(options) == "cmyk"):
+            return None
+        quality = options.int_option("quality", 90) or 90
+        mozjpeg = str(options.get_option("mozjpeg")) == "1"
+        # the grammar is checked HERE so a bad sf_ raises in the request
+        # thread (a typed 400), not inside the shared group runner
+        sampling = codecs.parse_sampling_factor(_sampling_factor(options))
+        try:
+            return self.codec_batcher.submit_aux(
+                ("jpegenc", quality, sampling, mozjpeg),
+                (np.ascontiguousarray(frame), quality, sampling, mozjpeg),
+                self._jpeg_encode_runner,
+            ).result(timeout=deadline.timeout(self.device_result_timeout_s))
+        except FutureTimeout:
+            deadline.check("encode")
+            self._record_wedge()  # a wedged codec group: the single encode
+            return None
 
     def _encode(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
                 alpha) -> bytes:

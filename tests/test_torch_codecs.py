@@ -152,18 +152,18 @@ def test_encode_round_trips_through_pillow(with_alpha):
 
 @pytest.mark.parametrize("case", ["palette", "16bit", "interlaced", "jpeg"])
 def test_unsupported_inputs_raise(case, monkeypatch, request):
-    """A JPEG decode on the CPU is refused by name (nvJPEG runs on a card);
-    a JPEG encode on the CPU runs the port's encoder (its kernels' plain
-    versions) and gives the JAX package's native bytes. The PNG cases (a
-    palette PNG, a 16-bit gray PNG, an Adam7 PNG) once raised too: they
-    now decode to the JAX package's pixels."""
+    """A JPEG decode asked of a card on a host without one raises, naming
+    CUDA; on the CPU it runs the port's decoder (its kernels' plain
+    versions) and gives the JAX package's native pixels, and a JPEG encode
+    there the JAX package's native bytes. The PNG cases (a palette PNG, a
+    16-bit gray PNG, an Adam7 PNG) once raised too: they now decode to the
+    JAX package's pixels."""
     if case == "jpeg":
-        # through the nvJPEG decode's stand-in the decode is the JAX
-        # package's
         buf = io.BytesIO()
         Image.fromarray(np.arange(192, dtype=np.uint8).reshape(8, 8, 3)).save(buf, "JPEG")
-        with pytest.raises(UnsupportedMediaException, match="nvJPEG"):
-            codecs.decode(buf.getvalue(), device="cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                codecs.decode(buf.getvalue(), device="cuda")
         use_in_jax(monkeypatch, request.getfixturevalue("fastcodec"))
         frame = np.zeros((4, 4, 3), np.uint8)
         assert codecs.encode(frame, "jpg", device="cpu") == jcodecs.encode(frame, "jpg")

@@ -1,12 +1,16 @@
 """The PyTorch package's JPEG codecs on the card (skips without one).
 
-nvJPEG runs only on a CUDA device, and the card machine has neither JAX nor
-the JAX package's codecs, so these tests hold nvJPEG against the JAX
-package's answers written beforehand into tests/data/jpeg by
-``tools/make_jpeg_fixtures.py`` (``tests/test_torch_codecs.py`` checks on
-the CPU that the fixtures are still those answers):
+The kernels run only on a CUDA device, and the card machine has neither JAX
+nor the JAX package's codecs, so these tests hold the port's codecs and
+nvJPEG (the library yardstick) against the JAX package's answers written
+beforehand into tests/data/jpeg by ``tools/make_jpeg_fixtures.py``
+(``tests/test_torch_codecs.py`` checks on the CPU that the fixtures are
+still those answers):
 
-- decode of q90 JPEGs (4:2:0, 4:4:4, progressive, EXIF orientation 6,
+- the port's own decoder (K18 and K19) against the native-route decodes
+  (``<name>.native.s<k>.png``): exact;
+
+- nvJPEG's decode of q90 JPEGs (4:2:0, 4:4:4, progressive, EXIF orientation 6,
   grayscale, Adobe CMYK and YCCK, whole and with subsampled components,
   RGB-coded; and the 4:2:0 one at the DCT scales 1, 2 and 4 of 8 its hints
   pick) against
@@ -59,10 +63,13 @@ def card():
                                         ("q90_cmyk_h2v1", 8), ("q90_cmyk_h2v2", 8),
                                         ("q90_ycck_h2v2", 8), ("q90_rgb_adobe0", 8)])
 def test_nvjpeg_decode_against_the_jax_package(card, name, scale):
-    with open(os.path.join(DATA, "reference.json")) as fh:
-        hints = json.load(fh)["scale_hints"]
-    hint = tuple(hints[str(scale)]) if scale < 8 else None
-    got = codecs.decode(_read(name + ".jpg"), target_hint=hint, device=card).rgb
+    """nvJPEG's own decode (the library yardstick since the port decodes
+    with its own decoder; the test keeps its name), turned upright."""
+    from flyimg_tpu_torch.codecs.exif import apply_orientation, jpeg_orientation
+    from flyimg_tpu_torch.codecs.native_codec import nvjpeg_decode
+
+    data = _read(name + ".jpg")
+    got = apply_orientation(nvjpeg_decode(data, scale, device=card), jpeg_orientation(data))
     want, _ = png.decode(_read(f"{name}.s{scale}.png"))
     assert got.shape == want.shape
     diff = np.abs(got.astype(int) - want.astype(int))
@@ -72,9 +79,24 @@ def test_nvjpeg_decode_against_the_jax_package(card, name, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 4, 8])
+def test_jpeg_decoder_on_the_card_is_the_native_route(card, scale):
+    """The port's decoder on the card (K18 and K19, each held to its plain
+    version) gives every tests/data/jpeg file's native-route decode at
+    every DCT scale (chip_smoke.py phase 3 runs the same)."""
+    names = sorted(f for f in os.listdir(DATA) if f.endswith(".jpg"))
+    got, _, _ = chip_smoke.decode_held(__import__("torch"), card, f"1/{8 // scale}",
+                                       [(_read(f), scale, None) for f in names])
+    for f, out in zip(names, got):
+        want, _ = png.decode(_read(f"{f[:-4]}.native.s{scale}.png"))
+        np.testing.assert_array_equal(out.rgb, want)
+
+
+@pytest.mark.cuda
 def test_nvjpeg_refuses_a_decompression_bomb(card):
     """A header that declares 30000 x 30000 pixels is refused before any
-    device memory is taken."""
+    device memory is taken (by the port's decoder since it replaced
+    nvJPEG's; the test keeps its name)."""
     from flyimg_tpu_torch.exceptions import ExecFailedException
 
     with pytest.raises(ExecFailedException, match="decode limit"):

@@ -1,5 +1,7 @@
-"""Kernels K16 (``csrc/jpeg_trellis.cu``) and K17 (``csrc/jpeg_fdct.cu``) as
-written for the card, compiled for the host (``tests/cuda_host_kernels.py``:
+"""Kernels K16 (``csrc/jpeg_trellis.cu``) and K17 (``csrc/jpeg_fdct.cu``) of
+the JPEG encoder, and K18 (``csrc/jpeg_idct.cu``) and K19
+(``csrc/jpeg_color.cu``) of its decoder, as written for the card, compiled
+for the host (``tests/cuda_host_kernels.py``:
 a CUDA thread a host thread, warps and CTAs meeting at real barriers),
 against their plain versions on the CPU.
 
@@ -37,7 +39,8 @@ def kernels(tmp_path_factory):
     if reason:
         pytest.skip(f"the kernels cannot be built for the host here: {reason}")
     out = str(tmp_path_factory.mktemp("cuda_host"))
-    return {"K16": build("jpeg_trellis", out), "K17": build("jpeg_fdct", out)}
+    return {"K16": build("jpeg_trellis", out), "K17": build("jpeg_fdct", out),
+            "K18": build("jpeg_idct", out), "K19": build("jpeg_color", out)}
 
 
 def _aligned(arr: np.ndarray) -> np.ndarray:
@@ -60,18 +63,8 @@ def _ragged(w, h):
 
 
 def _k16(lib, rgb, quality, sampling):
-    import ctypes
-
-    h, w = rgb.shape[:2]
-    dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
-    out = _aligned(np.full((sum(a * b for a, b in dims), 64), 12345, np.int16))
-    img = _aligned(np.ascontiguousarray(rgb))
-    params = _aligned(jpeg_tables.trellis_param_block(quality).copy())
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flyimg_jpeg_trellis.argtypes = [p, p, i, i, i, i, p, p]
-    assert lib.flyimg_jpeg_trellis(img.ctypes.data, out.ctypes.data, w, h, sampling[0],
-                                   sampling[1], params.ctypes.data, None) == 0
-    return out
+    """K16 on one frame: a frame table of one row."""
+    return _k16_frames(lib, [rgb], quality, sampling)[0]
 
 
 def _k17(lib, planes, tables, which):
@@ -138,3 +131,133 @@ def test_k17_source_equals_fdct_islow_plain_on_cmyk_planes(kernels, name):
     got = _k17(kernels["K17"], [p.numpy() for p in planes], table, (0, 0, 0, 0))
     want = torch.cat([jpeg_plain.fdct_islow_plain(p, table[0]) for p in planes]).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _k16_frames(lib, frames, quality, sampling):
+    """K16 through its frame table: one launch for all ``frames``."""
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flyimg_jpeg_trellis_frame.argtypes = [p, p, i, i, i, i, i, p, ctypes.POINTER(i)]
+    lib.flyimg_jpeg_trellis_frame.restype = i
+    lib.flyimg_jpeg_trellis_frames.argtypes = [p, i, i, i, p, p]
+    stride = lib.flyimg_jpeg_trellis_frame_bytes()
+    table = _aligned(np.zeros(len(frames) * stride, np.uint8))
+    imgs, outs, ctas, smem = [], [], 0, ctypes.c_int()
+    for k, rgb in enumerate(frames):
+        h, w = rgb.shape[:2]
+        dims = jpeg_plain.component_blocks(w, h, jpeg_plain.ycc_factors(sampling))
+        outs.append(_aligned(np.full((sum(a * b for a, b in dims), 64), 12345, np.int16)))
+        imgs.append(_aligned(np.ascontiguousarray(rgb)))
+        ctas += lib.flyimg_jpeg_trellis_frame(imgs[-1].ctypes.data, outs[-1].ctypes.data, w, h,
+                                              sampling[0], sampling[1], ctas,
+                                              table.ctypes.data + k * stride, ctypes.byref(smem))
+    params = _aligned(jpeg_tables.trellis_param_block(quality).copy())
+    assert lib.flyimg_jpeg_trellis_frames(table.ctypes.data, len(frames), ctas, smem.value,
+                                          params.ctypes.data, None) == 0
+    return outs
+
+
+@pytest.mark.parametrize("sampling", [(1, 1), (2, 2), (4, 1)])
+def test_k16_frame_table_equals_each_frame_alone(kernels, sampling):
+    """A group's frames in one K16 launch (the encode group's frame table)
+    give each frame's own coefficients."""
+    frames = [_ragged(17, 9), _ragged(45, 37), jpeg_frames.frame("noise9x9")]
+    got = _k16_frames(kernels["K16"], frames, 75, sampling)
+    for img, out in zip(frames, got):
+        want = jpeg_plain.trellis_plain(torch.from_numpy(img.copy()), 75, sampling).numpy()
+        np.testing.assert_array_equal(out, want)
+
+
+def test_k17_takes_a_group_of_planes_in_one_launch(kernels):
+    """Twelve frames' 36 planes (the encode group's moz_0 launch) in one
+    K17 launch give each plane's own coefficients."""
+    tables = jpeg_tables.qtables(90)
+    planes = []
+    for k in range(12):
+        rgb = torch.from_numpy(_ragged(17 + k, 9 + 2 * k).copy())
+        planes.extend(jpeg_plain.grid_planes(rgb, (2, 1)))
+    which = (0, 1, 1) * 12
+    got = _k17(kernels["K17"], [p.numpy() for p in planes], tables, which)
+    want = torch.cat([jpeg_plain.fdct_islow_plain(p, tables[t])
+                      for p, t in zip(planes, which)]).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _host_decode(kernels, monkeypatch, items):
+    """``jpeg_dec.decode_batch`` of ``items`` with K18 and K19 compiled for
+    the host in place of the plain versions, each launch also held to its
+    plain version's bytes (max difference 0)."""
+    import ctypes
+
+    from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k18, k19 = kernels["K18"], kernels["K19"]
+    k18.flyimg_jpeg_idct.argtypes = [p, p, p, i, ctypes.c_longlong, p, p]
+    k19.flyimg_jpeg_color.argtypes = [p, p, i, ctypes.c_longlong, p, p]
+
+    def idct(coefs, quant, segs, nbytes):
+        c = _aligned(coefs.numpy())
+        q = _aligned(quant.numpy().astype(np.int32))
+        s = np.ascontiguousarray(segs.numpy().astype(np.int64))
+        out = np.full(nbytes, 77, np.uint8)
+        total = int(s[-1, plain.SEG_FIRST] + s[-1, plain.SEG_NBX] * s[-1, plain.SEG_NBY])
+        assert k18.flyimg_jpeg_idct(c.ctypes.data, q.ctypes.data, s.ctypes.data, len(s), total,
+                                    out.ctypes.data, None) == 0
+        np.testing.assert_array_equal(out, plain.k18(coefs, quant, segs, nbytes).numpy())
+        return torch.from_numpy(out)
+
+    def color(planes, mems, nbytes):
+        m = np.ascontiguousarray(mems.numpy().astype(np.int64))
+        out = np.full(nbytes, 77, np.uint8)
+        total = int(m[-1, plain.MEM_FIRST] + m[-1, plain.MEM_W] * m[-1, plain.MEM_H])
+        assert k19.flyimg_jpeg_color(planes.numpy().ctypes.data, m.ctypes.data, len(m), total,
+                                     out.ctypes.data, None) == 0
+        np.testing.assert_array_equal(out, plain.k19(planes, mems, nbytes).numpy())
+        return torch.from_numpy(out)
+
+    monkeypatch.setattr(jpeg_dec, "idct_planes", idct)
+    monkeypatch.setattr(jpeg_dec, "color_planes", color)
+    return jpeg_dec.decode_batch(items, device="cpu")
+
+
+def _fixture_bytes():
+    import glob
+    import os
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
+    return [open(f, "rb").read() for f in sorted(glob.glob(os.path.join(root, "*.jpg")))]
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4, 8])
+def test_k18_k19_sources_equal_their_plain_versions_on_every_fixture(kernels, monkeypatch,
+                                                                     scale):
+    """Every tests/data/jpeg file at one DCT scale, as one batch: one K18
+    and one K19 launch, each equal to its plain version."""
+    items = [(data, scale, None) for data in _fixture_bytes()]
+    for got in _host_decode(kernels, monkeypatch, items):
+        assert got.rgb.ndim == 3
+
+
+def test_k18_k19_sources_on_edge_sizes_samplings_windows_and_damage(kernels, monkeypatch,
+                                                                    tmp_path):
+    """Sizes 1x1, 7x9 and 17x33 at the six luma samplings, windows at the
+    edges of a frame at each scale, and a damaged file's extreme
+    coefficients, in one batch."""
+    import jpeg_test_files as jt
+
+    enc = jt.encoder(str(tmp_path))
+    items = []
+    for sampling in [(1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (2, 4)]:
+        for w, h in [(1, 1), (7, 9), (17, 33)]:
+            items.append((enc(jt.photo(w, h, w + h), 90, sampling, bool(w % 2)), 8, None))
+    data = enc(jt.photo(61, 45, 7), 85, (2, 2), True)
+    for scale in (1, 2, 4, 8):
+        fw, fh = -(-61 * scale // 8), -(-45 * scale // 8)
+        items += [(data, scale, (fw // 3, fh // 4, fw // 2, fh // 2)),
+                  (data, scale, (fw - 3, fh - 2, 3, 2)), (data, scale, (0, 0, 2, fh))]
+    items += [(jt.corrupt(enc(jt.photo(120, 90, 5), 90, (2, 2), False, 4), 0), s, None)
+              for s in (2, 4, 8)]
+    for got in _host_decode(kernels, monkeypatch, items):
+        assert got.rgb.ndim == 3

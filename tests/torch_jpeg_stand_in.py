@@ -1,37 +1,17 @@
-"""A stand-in for the PyTorch package's nvJPEG decode on a host without a
-card, and a recorder of its JPEG encodes, for the CPU tests of what
-surrounds them (orientation, prescale selection, option routing in the
-handler).
+"""Recorders of the PyTorch package's JPEG decodes and encodes, for the CPU
+tests of what surrounds them (orientation, prescale selection, option
+routing in the handler).
 
-The port decodes JPEG with nvJPEG on a CUDA device only
-(``flyimg_tpu_torch/codecs/native_codec.py``); this host has no card. The
-stand-in keeps that function's contract with Pillow's libjpeg: decode at
-scale_num/8 (libjpeg's DCT scaling, the size ceil(size * scale_num / 8)).
-The port encodes JPEG with its own encoder (``codecs/jpeg_enc.py``), whose
-kernels run on a card and whose plain versions run here: the recorder
-notes each call's arguments (the device asked for among them) and runs
-the encoder on the CPU. It is never part of the package: the card's own
-tests hold nvJPEG and the kernels themselves.
+The port decodes JPEG with its own decoder (``codecs/jpeg_dec.py``) and
+encodes with its own encoder (``codecs/jpeg_enc.py``); their kernels run
+on a card and their plain versions here. Each recorder notes a call's
+arguments (the device asked for among them) and runs the real function on
+the CPU. The card's own tests hold the kernels themselves.
 """
 
 import inspect
-import io
 
-import numpy as np
-from PIL import Image
-
-from flyimg_tpu_torch.codecs import jpeg_enc, native_codec
-
-
-def decode(data, scale_num=8, device="cuda"):
-    decode.calls.append({"scale_num": scale_num, "device": str(device)})
-    img = Image.open(io.BytesIO(data))
-    if 1 <= scale_num < 8:
-        # Pillow takes the largest reduction r with size // request >= r
-        w, h, r = *img.size, 8 // scale_num
-        img.draft("RGB", (max(1, w // r), max(1, h // r)))
-        assert img.size == (-(-w // r), -(-h // r)), "Pillow chose another scale"
-    return np.asarray(img.convert("RGB")).copy()
+from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_enc
 
 
 def _recorder(name, real):
@@ -52,17 +32,51 @@ def _recorder(name, real):
     return call
 
 
+def decode():
+    """Holder of the recorded JPEG decodes (``decode.calls``: scale_num and
+    the device asked for)."""
+
+
 def encode():
     """Holder of the recorded JPEG encodes (``encode.calls``)."""
 
 
 ENCODERS = ("encode_trellis", "encode_plain", "encode_cmyk")
 
+#: a group encode (the codec batcher's) -> the single encode each member's
+#: bytes equal, and that encode's fixed arguments
+GROUPS = {"encode_trellis_group": ("encode_trellis", {"progressive": True}),
+          "encode_plain_group": ("encode_plain", {"optimize": False, "progressive": False})}
+
+
+def _group_recorder(real, single, fixed):
+    def call(images, quality=90, sampling=(1, 1), *, device="cuda"):
+        for _ in images:
+            encode.calls.append({"encoder": single, "quality": quality, **fixed,
+                                 "sampling": tuple(sampling), "device": str(device)})
+        return real(images, quality, sampling, device="cpu")
+
+    return call
+
+
+def _batch_decode_recorder(real):
+    def call(items, device="cuda", *args, **kwargs):
+        for _data, scale_num, _roi in items:
+            decode.calls.append({"scale_num": scale_num, "device": str(device)})
+        return real(items, "cpu", *args, **kwargs)
+
+    return call
+
 
 def install(monkeypatch):
-    """Put the stand-in in place of the nvJPEG decode, and the recorder
-    around the port's JPEG encodes, for one test."""
+    """Put the recorders around the port's JPEG decodes (every decode is a
+    ``jpeg_dec.decode_batch``, a member a record) and encodes (single and
+    grouped, a group recorded as its members' single encodes), for one
+    test."""
     decode.calls, encode.calls = [], []
-    monkeypatch.setattr(native_codec, "jpeg_decode", decode)
+    monkeypatch.setattr(jpeg_dec, "decode_batch", _batch_decode_recorder(jpeg_dec.decode_batch))
     for name in ENCODERS:
         monkeypatch.setattr(jpeg_enc, name, _recorder(name, getattr(jpeg_enc, name)))
+    for name, (single, fixed) in GROUPS.items():
+        monkeypatch.setattr(jpeg_enc, name,
+                            _group_recorder(getattr(jpeg_enc, name), single, fixed))
