@@ -4563,11 +4563,11 @@ def decode_held(torch, dev, label, items):
     batch = jpeg_dec.entropy_decode(items, pinned=True)
     check(batch.order, f"{label}: no member decoded ({batch.results})")
     planes, rgb = jpeg_dec.run_kernels(batch, dev)
-    want = plain.k18(batch.coefs.to(dev), batch.quant.to(dev), batch.segments,
-                     batch.plane_bytes)
-    e18 = int((planes[:batch.plane_bytes].int() - want.int()).abs().max())
-    want = plain.k19(planes, batch.members, batch.out_bytes)
-    e19 = int((rgb[:batch.out_bytes].int() - want.int()).abs().max())
+    tab = batch.tables
+    want = plain.k18(batch.coefs.to(dev), batch.quant.to(dev), tab.segments, tab.plane_bytes)
+    e18 = int((planes[:tab.plane_bytes].int() - want.int()).abs().max())
+    want = plain.k19(planes, tab.members, tab.out_bytes)
+    e19 = int((rgb[:tab.out_bytes].int() - want.int()).abs().max())
     check(e18 == 0 and e19 == 0, f"{label}: K18 {e18}, K19 {e19} levels off their plain "
           "versions")
     return jpeg_dec.finish(batch, rgb.cpu().numpy()), e18, e19
@@ -4619,7 +4619,9 @@ def jpeg_decode_rows(torch, dev, card):
     fc_jpeg_decode and fc_jpeg_decode_roi); then timed (wrapper ms between
     CUDA events, device ms by torch.profiler, the plain versions, the
     bytes bound) at 300x250 and at 4032x3024 at each scale the served
-    requests use, each first held to its plain version at that shape (max
+    requests use, each first run through ``run_kernels`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the device half must not
+    wait for the card) and held to its plain version at that shape (max
     difference 0; the kernels line's max_abs_err is the 4032x3024 1/4
     comparison), beside nvJPEG's whole decode of the same file (the
     library yardstick; not a PyTorch call)."""
@@ -4667,39 +4669,48 @@ def jpeg_decode_rows(torch, dev, card):
     readings, rows = {}, {}
     for label, (data, scale) in cases.items():
         batch = jpeg_dec.entropy_decode([(data, scale, None)], pinned=True)
-        coefs = batch.coefs.to(dev)
-        quant = batch.quant.to(dev)
-        segs = batch.segments.to(dev)
-        mems = batch.members.to(dev)
-        # exact at the timed shape first: each kernel against its plain
-        # version on the same inputs
-        planes = jpeg_dec.idct_planes(coefs, quant, segs, batch.plane_bytes)
-        want = plain.k18(coefs, quant, batch.segments, batch.plane_bytes)
-        e18 = int((planes[:batch.plane_bytes].int() - want.int()).abs().max())
-        rgb = jpeg_dec.color_planes(planes, mems, batch.out_bytes)
-        want = plain.k19(planes, batch.members, batch.out_bytes)
-        e19 = int((rgb[:batch.out_bytes].int() - want.int()).abs().max())
+        # the device half reads nothing back: no call in it may wait for the
+        # card (the tables' counts come from the host, the copies from
+        # pinned memory)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            planes, rgb = jpeg_dec.run_kernels(batch, dev)
+        except RuntimeError as exc:
+            raise SmokeFailure(f"{label}: run_kernels waited for the card: {exc}") from exc
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        # exact at the timed shape: each kernel against its plain version on
+        # the same inputs
+        coefs, quant, k18_tiles, mems, k19_tiles = jpeg_dec.upload(batch, dev)
+        tab = batch.tables
+        want = plain.k18(coefs, quant, tab.segments, tab.plane_bytes)
+        e18 = int((planes[:tab.plane_bytes].int() - want.int()).abs().max())
+        want = plain.k19(planes, tab.members, tab.out_bytes)
+        e19 = int((rgb[:tab.out_bytes].int() - want.int()).abs().max())
         del want, rgb
         check(e18 == 0 and e19 == 0, f"{label}: K18 {e18}, K19 {e19} levels off their plain "
               "versions")
-        blocks = int((batch.segments[:, plain.SEG_NBX] * batch.segments[:, plain.SEG_NBY]).sum())
-        pixels = batch.out_bytes // 3
-        b18 = bound_ms(128.0 * blocks + float(batch.plane_bytes), 0.0)
-        b19 = bound_ms(float(batch.plane_bytes) + float(batch.out_bytes), 0.0)
+        blocks, pixels = tab.blocks, tab.pixels
+        b18 = bound_ms(128.0 * blocks + float(tab.plane_bytes), 0.0)
+        b19 = bound_ms(float(tab.plane_bytes) + float(tab.out_bytes), 0.0)
+
+        def k18():
+            return jpeg_dec.idct_planes(coefs, quant, k18_tiles, tab.plane_bytes)
+
+        def k19():
+            return jpeg_dec.color_planes(planes, mems, tab.out_bytes, k19_tiles)
+
         r = {
-            "k18_ms": cuda_ms(torch, lambda: jpeg_dec.idct_planes(coefs, quant, segs,
-                                                                  batch.plane_bytes)),
-            "k19_ms": cuda_ms(torch, lambda: jpeg_dec.color_planes(planes, mems,
-                                                                   batch.out_bytes)),
-            "k18_device_ms": _device_ms(lambda: jpeg_dec.idct_planes(
-                coefs, quant, segs, batch.plane_bytes), 5, "idct_kernel"),
-            "k19_device_ms": _device_ms(lambda: jpeg_dec.color_planes(
-                planes, mems, batch.out_bytes), 5, "color_kernel"),
-            "k18_plain_ms": cuda_ms(torch, lambda: plain.k18(coefs, quant, batch.segments,
-                                                             batch.plane_bytes),
+            "k18_ms": cuda_ms(torch, k18),
+            "k19_ms": cuda_ms(torch, k19),
+            "k18_device_ms": _device_ms(k18, 5, "idct_kernel"),
+            "k19_device_ms": _device_ms(k19, 5, "color_kernel"),
+            "k18_plain_ms": cuda_ms(torch, lambda: plain.k18(coefs, quant, tab.segments,
+                                                             tab.plane_bytes),
                                     iters=3, warmup=1),
-            "k19_plain_ms": cuda_ms(torch, lambda: plain.k19(planes, batch.members,
-                                                             batch.out_bytes),
+            "k19_plain_ms": cuda_ms(torch, lambda: plain.k19(planes, tab.members,
+                                                             tab.out_bytes),
                                     iters=3, warmup=1),
             "k18_bound_ms": b18[0], "k19_bound_ms": b19[0],
             "nvjpeg_decode_ms": cuda_ms(torch, lambda: native_codec.nvjpeg_decode(
@@ -4721,8 +4732,9 @@ def jpeg_decode_rows(torch, dev, card):
 
 def decode_split(torch, dev, data, scale, n=7):
     """Median seconds of one decode's steps on the card (host entropy
-    decode, upload, K18, K19, readback, each synchronized) and of nvJPEG's
-    decode of the same file at the same scale, in ms."""
+    decode, the kernels' tables, upload, K18, K19, readback, each
+    synchronized) and of nvJPEG's decode of the same file at the same
+    scale, in ms."""
     from flyimg_tpu_torch.codecs import jpeg_dec, native_codec
 
     steps = {}
@@ -4919,17 +4931,21 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    # K16, K17, K18 and K19 keep every value in registers or shared memory
+    # K16, K17, K18 and K19 keep every value in registers or shared memory,
+    # in every instance of each kernel
     for src, kernel in (("jpeg_trellis", "trellis_kernel"), ("jpeg_fdct", "fdct_kernel"),
                         ("jpeg_idct", "idct_kernel"), ("jpeg_color", "color_kernel")):
-        found = [v for k, v in cuda_build.ptxas_report(cuda_build.build_logs.get(src, "")).items()
-                 if kernel in k]
-        check(len(found) == 1, f"ptxas: no report of {kernel} in {src}'s build log")
-        r = found[0]
-        check(r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0,
-              f"ptxas: {kernel} has a {r['stack']}-byte stack frame, {r['spill_stores']} bytes "
-              f"of spill stores and {r['spill_loads']} of spill loads")
-        print(f"ptxas {kernel}: {r['registers']} registers, no stack frame, no spills")
+        found = {k: v for k, v in cuda_build.ptxas_report(
+            cuda_build.build_logs.get(src, "")).items() if kernel in k}
+        check(len(found) >= 1, f"ptxas: no report of {kernel} in {src}'s build log")
+        for name, r in found.items():
+            check("stack" in r and r["stack"] == 0 and r["spill_stores"] == 0
+                  and r["spill_loads"] == 0,
+                  f"ptxas: {name} has a {r.get('stack')}-byte stack frame, "
+                  f"{r.get('spill_stores')} bytes of spill stores and {r.get('spill_loads')} "
+                  "of spill loads")
+            print(f"ptxas {kernel} ({name}): {r['registers']} registers, no stack frame, "
+                  "no spills")
 
     # phase 3: kernels against their plain versions
     rows = phase_kernels(torch, dev)

@@ -11,11 +11,18 @@ colour conversion. The port gives the same pixels, split three ways:
   file) into quantized coefficients, a batch of files on threads;
 - kernel K18 (``csrc/jpeg_idct.cu``, ``idct_planes``): dequantization and
   the IDCT at each component's own output size, every block of every
-  member of a batch in one launch, from a segment table (one row a
-  component window: its blocks, their output size and plane);
+  member of a batch in one launch, from a tile table built here (a row a
+  CTA's run of blocks of one block row of one component window);
 - kernel K19 (``csrc/jpeg_color.cu``, ``color_planes``): upsampling and
   colour conversion of every member's window to interleaved RGB, one
-  launch.
+  launch, from a tile table of strips (a chroma row pair of one member by
+  up to 512 columns).
+
+The plain versions read the segment table (a row a component window: its
+blocks, their output size and plane) and the member table; the tile tables
+cut the same work for the kernels. A batch's tables go up to the card in
+one copy from pinned memory beside the coefficients', and the wrappers take
+every count from the host: nothing in the device half waits for the card.
 
 On a CUDA device a kernel launches or raises; ``device="cpu"`` runs the
 kernels' plain versions (``codecs/jpeg_dec_plain.py``), on CPU tensors
@@ -39,7 +46,7 @@ import ctypes
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,7 +55,20 @@ from flyimg_tpu_torch import cuda_build
 from flyimg_tpu_torch.codecs import jpeg_dec_plain as plain
 from flyimg_tpu_torch.codecs.jpeg_dec_plain import (
     MEM_FIELDS,
+    MEM_H,
+    MEM_W,
+    MEM_Y0,
+    SEG_BX0,
+    SEG_BY0,
+    SEG_COEF,
     SEG_FIELDS,
+    SEG_GRID_W,
+    SEG_NBX,
+    SEG_NBY,
+    SEG_OUT,
+    SEG_PITCH,
+    SEG_QT,
+    SEG_SCALE,
     UP_FULL,
     UP_H1V2,
     UP_H2V1,
@@ -268,7 +288,7 @@ def _idct_lib():
     lib = cuda_build.load("jpeg_idct")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flyimg_jpeg_idct.argtypes = [p, p, p, i, ctypes.c_longlong, p, p]
+        lib.flyimg_jpeg_idct.argtypes = [p, p, p, i, p, p]
         lib.flyimg_jpeg_idct.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib
@@ -278,31 +298,39 @@ def _color_lib():
     lib = cuda_build.load("jpeg_color")
     if not getattr(lib, "_flyimg_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flyimg_jpeg_color.argtypes = [p, p, i, ctypes.c_longlong, p, p]
+        lib.flyimg_jpeg_color.argtypes = [p, p, p, i, p, p]
         lib.flyimg_jpeg_color.restype = ctypes.c_int
         lib._flyimg_bound = True
     return lib
 
 
-def idct_planes(coefs: torch.Tensor, quant: torch.Tensor, segments: torch.Tensor,
+def _check_tiles(tiles: torch.Tensor, words: int, dev: torch.device, what: str) -> None:
+    if tiles.device != dev or tiles.dtype != torch.int32 or tiles.dim() != 2 \
+            or tiles.shape[1] != words or not tiles.is_contiguous() or tiles.shape[0] < 1:
+        raise ValueError(f"{what}: tiles must be a contiguous int32 [n >= 1, {words}] tensor "
+                         f"on {dev}, got {tuple(tiles.shape)} {tiles.dtype} on {tiles.device}")
+
+
+def idct_planes(coefs: torch.Tensor, quant: torch.Tensor, table: torch.Tensor,
                 plane_bytes: int) -> torch.Tensor:
     """Every segment's blocks dequantized and transformed into its plane:
-    kernel K18 in one launch on CUDA tensors, ``jpeg_dec_plain.k18`` on CPU
-    tensors. ``coefs`` int16 [blocks * 64] (natural order), ``quant`` int32
-    [tables * 64], ``segments`` int64 [n, SEG_FIELDS] -> uint8
-    [plane_bytes]."""
+    kernel K18 in one launch on CUDA tensors, ``table`` its tile table
+    (int32 [n, 8], ``idct_tiles`` rows, on the card);
+    ``jpeg_dec_plain.k18`` on CPU tensors, ``table`` the segment table
+    (int64 [n, SEG_FIELDS]). ``coefs`` int16 [blocks * 64] (natural
+    order), ``quant`` int32 [tables * 64] -> uint8 [plane_bytes] (on a
+    card rounded up to 16 bytes, which K19's staged reads may reach)."""
     if coefs.device.type == "cpu":
-        return plain.k18(coefs, quant, segments, plane_bytes)
+        return plain.k18(coefs, quant, table, plane_bytes)
     if coefs.device.type != "cuda":
         raise ValueError(f"unsupported device {coefs.device}")
-    out = torch.empty(max(plane_bytes, 1), dtype=torch.uint8, device=coefs.device)
-    segs = segments.to(coefs.device, torch.int64).contiguous()
-    n = int(segs.shape[0])
-    total = int(segments[-1, plain.SEG_FIRST]) + int(segments[-1, plain.SEG_NBX]) \
-        * int(segments[-1, plain.SEG_NBY]) if n else 0
+    tiles = table
+    _check_tiles(tiles, IDCT_TILE.itemsize // 4, coefs.device, "jpeg_idct")
+    out = torch.empty(_ceil_div(max(plane_bytes, 1), 16) * 16, dtype=torch.uint8,
+                      device=coefs.device)
     rc = _idct_lib().flyimg_jpeg_idct(
-        coefs.data_ptr(), quant.data_ptr(), segs.data_ptr(), n, total, out.data_ptr(),
-        cuda_build.current_stream(coefs.device.index))
+        coefs.data_ptr(), quant.data_ptr(), tiles.data_ptr(), int(tiles.shape[0]),
+        out.data_ptr(), cuda_build.current_stream(coefs.device.index))
     cuda_build.check(rc, "jpeg_idct")
     idct_planes.launches += 1
     return out
@@ -312,23 +340,27 @@ def idct_planes(coefs: torch.Tensor, quant: torch.Tensor, segments: torch.Tensor
 idct_planes.launches = 0
 
 
-def color_planes(planes: torch.Tensor, members: torch.Tensor, out_bytes: int) -> torch.Tensor:
+def color_planes(planes: torch.Tensor, members: torch.Tensor, out_bytes: int,
+                 tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every member's window upsampled and colour-converted to interleaved
-    RGB: kernel K19 in one launch on CUDA tensors, ``jpeg_dec_plain.k19``
-    on CPU tensors. ``members`` int64 [n, MEM_FIELDS] -> uint8
-    [out_bytes]."""
+    RGB: kernel K19 in one launch on CUDA tensors (``planes`` from
+    ``idct_planes``; ``tiles`` its strips, int32 [n, 4], ``color_tiles``
+    rows, on the card), ``jpeg_dec_plain.k19`` on CPU tensors (no tiles).
+    ``members`` int64 [m, MEM_FIELDS] -> uint8 [out_bytes]."""
     if planes.device.type == "cpu":
         return plain.k19(planes, members, out_bytes)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
+    if tiles is None:
+        raise ValueError("jpeg_color: a launch on the card needs the tile table")
+    _check_tiles(tiles, COLOR_TILE.itemsize // 4, planes.device, "jpeg_color")
+    if members.device != planes.device or members.dtype != torch.int64 \
+            or not members.is_contiguous():
+        raise ValueError("jpeg_color: members must be a contiguous int64 tensor on the card")
     out = torch.empty(max(out_bytes, 1), dtype=torch.uint8, device=planes.device)
-    mem = members.to(planes.device, torch.int64).contiguous()
-    n = int(mem.shape[0])
-    total = int(members[-1, plain.MEM_FIRST]) + int(members[-1, plain.MEM_W]) \
-        * int(members[-1, plain.MEM_H]) if n else 0
     rc = _color_lib().flyimg_jpeg_color(
-        planes.data_ptr(), mem.data_ptr(), n, total, out.data_ptr(),
-        cuda_build.current_stream(planes.device.index))
+        planes.data_ptr(), members.data_ptr(), tiles.data_ptr(), int(tiles.shape[0]),
+        out.data_ptr(), cuda_build.current_stream(planes.device.index))
     cuda_build.check(rc, "jpeg_color")
     color_planes.launches += 1
     return out
@@ -348,13 +380,123 @@ def coef_count(frame: FlJpegFrame) -> int:
     return sum(frame.alloc_w[c] * frame.alloc_h[c] * 64 for c in range(frame.ncomp))
 
 
-def build_tables(plans: Sequence[MemberPlan], coef_starts: Sequence[int]):
-    """(segments int64 [n, SEG_FIELDS], members int64 [m, MEM_FIELDS],
-    plane bytes, output bytes, [(output offset, w, h)]) for ``plans``, member
-    i's coefficients starting at block ``coef_starts[i]`` of the batch's
-    buffer and its quantization tables at table 4 * i. The offsets are
-    64-bit: a group of large frames passes 2^31 bytes of planes or
-    output."""
+#: a K18 tile's blocks at most (csrc/jpeg_idct.cu kTile)
+IDCT_TILE_BLOCKS = 64
+#: a K19 strip's columns at most (csrc/jpeg_color.cu kMaxCols: 64 threads
+#: a row of 8 pixels)
+COLOR_STRIP_COLS = 512
+#: a row of K18's tile table (csrc/jpeg_idct.cu K18Tile): a run of ``n``
+#: blocks of one block row of one segment, from block ``coef`` of the
+#: coefficient buffer to byte ``out`` of the planes
+IDCT_TILE = np.dtype([("coef", "<i8"), ("out", "<i8"), ("pitch", "<i4"), ("n", "<i4"),
+                      ("scale", "<i4"), ("qt", "<i4")])
+#: a row of K19's tile table (csrc/jpeg_color.cu K19Tile): frame rows
+#: ``y``.. of one chroma row pair (one row at a window's odd edge) by window
+#: columns ``x0``..``x0 + nw - 1`` of one member
+COLOR_TILE = np.dtype([("member", "<i4"), ("y", "<i4"), ("x0", "<i4"), ("nw", "<i4")])
+
+
+def idct_tile_blocks(blocks: int) -> int:
+    """K18's tile length for a batch of ``blocks``: 16 below 2^13 blocks,
+    32 below 2^15, IDCT_TILE_BLOCKS from there. A small batch's shorter
+    tiles spread its few blocks over more of the card's SMs; a large one's
+    longer tiles cost fewer tile rounds a CTA. On an H100 this was the
+    fastest of 16, 32 and 64, or within 5 % of it, at every 4:2:0 size
+    timed from 300x250 to 4032x3024, at 1/4 and 1/1 (PERF.md §6)."""
+    for length, least in ((IDCT_TILE_BLOCKS, 1 << 15), (32, 1 << 13)):
+        if blocks >= least:
+            return length
+    return 16
+
+
+def _runs(n: np.ndarray, most: int, unit) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each of ``n`` (>= 1) cut into the fewest runs of at most ``most`` (a
+    multiple of ``unit``), each but the last a multiple of ``unit`` of
+    near-equal length: (runs, their width, the last one's)."""
+    per = -(-n // most)
+    width = unit * -(-(-(-n // per)) // unit)
+    return per, width, n - width * (per - 1)
+
+
+def _cut(rows: np.ndarray, per: np.ndarray):
+    """Item i's ``rows[i]`` rows of ``per[i]`` runs each, as tiles in item
+    order: (spread, r, k), ``spread(v)`` an array of one value an item
+    spread over its tiles, ``r`` and ``k`` each tile's row and run."""
+    count = rows * per
+
+    def spread(v):
+        return np.repeat(v, count)
+
+    r, k = np.divmod(np.arange(int(count.sum())) - spread(np.cumsum(count) - count), spread(per))
+    return spread, r, k
+
+
+def idct_tiles(segments: np.ndarray, most: Optional[int] = None) -> np.ndarray:
+    """K18's tile table for a segment table (int64 [n, SEG_FIELDS]): each
+    block row of each segment cut into runs of at most ``most`` blocks (by
+    default ``idct_tile_blocks`` of the batch's blocks), each but a row's
+    last 16 samples wide or a multiple of that (so that a row starting on a
+    16-byte boundary keeps its tiles' rows on one), in segment order."""
+    s = np.asarray(segments, np.int64).reshape(-1, SEG_FIELDS)
+    nbx, scale, pitch = s[:, SEG_NBX], s[:, SEG_SCALE], s[:, SEG_PITCH]
+    if most is None:
+        most = idct_tile_blocks(int((nbx * s[:, SEG_NBY]).sum()))
+    per, width, last = _runs(nbx, most, np.maximum(1, 16 // scale))
+    spread, by, k = _cut(s[:, SEG_NBY], per)
+    x = k * spread(width)
+    n = np.where(k == spread(per) - 1, spread(last), spread(width))
+    # IDCT_TILE's fields as four int64 words: coef, out, pitch | n << 32,
+    # scale | qt << 32
+    t = np.empty((len(k), 4), np.int64)
+    t[:, 0] = spread(s[:, SEG_COEF] + s[:, SEG_BY0] * s[:, SEG_GRID_W] + s[:, SEG_BX0]) \
+        + by * spread(s[:, SEG_GRID_W]) + x
+    t[:, 1] = spread(s[:, SEG_OUT]) + (by * spread(pitch) + x) * spread(scale)
+    t[:, 2] = spread(pitch) | (n << 32)
+    t[:, 3] = spread(scale | (s[:, SEG_QT] << 32))
+    return t.view(IDCT_TILE).reshape(-1)
+
+
+def color_tiles(members: np.ndarray) -> np.ndarray:
+    """K19's tile table for a member table (int64 [m, MEM_FIELDS]): each
+    member's window cut into strips of its frame rows' chroma row pairs
+    (the window's first row alone where it is odd) by runs of at most
+    COLOR_STRIP_COLS columns, each but the last a multiple of 16 (48
+    bytes of RGB: a row starting on a 16-byte boundary keeps its strips on
+    one), in member order."""
+    m = np.asarray(members, np.int64).reshape(-1, MEM_FIELDS)
+    w, h, y0 = m[:, MEM_W], m[:, MEM_H], m[:, MEM_Y0]
+    odd = y0 & 1
+    per, width, last = _runs(np.maximum(w, 1), COLOR_STRIP_COLS, 16)
+    spread, r, k = _cut(np.where((w > 0) & (h > 0), odd + (h - odd + 1) // 2, 0), per)
+    t = np.empty((len(k), 4), np.int32)
+    t[:, 0] = spread(np.arange(len(m)))
+    t[:, 1] = spread(y0) + np.maximum(2 * r - spread(odd), 0)
+    t[:, 2] = k * spread(width)
+    t[:, 3] = np.where(k == spread(per) - 1, spread(last), spread(width))
+    return t.view(COLOR_TILE).reshape(-1)
+
+
+class Tables(NamedTuple):
+    """What ``build_tables`` gives a batch."""
+
+    segments: torch.Tensor      # int64 [n, SEG_FIELDS]: the plain K18's table
+    members: torch.Tensor       # int64 [m, MEM_FIELDS]: K19's and its plain version's
+    plane_bytes: int
+    out_bytes: int
+    outs: List[Tuple[int, int, int]]
+    idct_tiles: np.ndarray      # IDCT_TILE rows: K18's tiles
+    color_tiles: np.ndarray     # COLOR_TILE rows: K19's strips
+    blocks: int                 # the blocks K18 transforms
+    pixels: int                 # the pixels K19 makes
+
+
+def build_tables(plans: Sequence[MemberPlan], coef_starts: Sequence[int]) -> Tables:
+    """The kernels' tables for ``plans``, member i's coefficients starting
+    at block ``coef_starts[i]`` of the batch's buffer and its quantization
+    tables at table 4 * i: the segment and member tables, the plane and
+    output bytes, each member's (output offset, w, h), K18's and K19's
+    tile tables and the totals. The offsets are 64-bit: a group of large
+    frames passes 2^31 bytes of planes or output."""
     segs, mems, outs = [], [], []
     plane_off = first_block = out_off = first_px = 0
     for i, pl in enumerate(plans):
@@ -377,9 +519,56 @@ def build_tables(plans: Sequence[MemberPlan], coef_starts: Sequence[int]):
         outs.append((out_off, pl.w, pl.h))
         out_off += pl.w * pl.h * 3
         first_px += pl.w * pl.h
-    segments = torch.from_numpy(np.array(segs, np.int64).reshape(-1, SEG_FIELDS))
-    members = torch.from_numpy(np.array(mems, np.int64).reshape(-1, MEM_FIELDS))
-    return segments, members, plane_off, out_off, outs
+    seg_rows = np.array(segs, np.int64).reshape(-1, SEG_FIELDS)
+    mem_rows = np.array(mems, np.int64).reshape(-1, MEM_FIELDS)
+    return Tables(torch.from_numpy(seg_rows), torch.from_numpy(mem_rows), plane_off, out_off,
+                  outs, idct_tiles(seg_rows), color_tiles(mem_rows),
+                  first_block, first_px)
+
+
+@dataclass
+class TableLayout:
+    """Where each table lies in a batch's table buffer: (byte offset,
+    rows)."""
+
+    quant: Tuple[int, int]
+    idct_tiles: Tuple[int, int]
+    color_tiles: Tuple[int, int]
+    members: Tuple[int, int]
+
+
+def pack_tables(quant: np.ndarray, tables: Tables, pinned: bool):
+    """The quantization tables (int32 [t, 64]), K18's and K19's tile tables
+    and the member table in one uint8 buffer (pinned where ``pinned``),
+    each at a 16-byte boundary: (buffer, TableLayout)."""
+    parts = [np.ascontiguousarray(quant, np.int32), tables.idct_tiles, tables.color_tiles,
+             tables.members.numpy()]
+    offsets, off = [], 0
+    for part in parts:
+        offsets.append(off)
+        off += _ceil_div(part.nbytes, 16) * 16
+    buf = torch.empty(max(off, 16), dtype=torch.uint8, pin_memory=pinned)
+    raw = buf.numpy()
+    for part, start in zip(parts, offsets):
+        raw[start:start + part.nbytes] = np.frombuffer(part.tobytes(), np.uint8)
+    rows = [int(quant.shape[0]), len(tables.idct_tiles), len(tables.color_tiles),
+            int(tables.members.shape[0])]
+    return buf, TableLayout(*zip(offsets, rows))
+
+
+def table_views(buf: torch.Tensor, layout: TableLayout):
+    """(quant int32 [t * 64], K18's tiles int32 [n, 8], K19's tiles int32
+    [n, 4], members int64 [m, MEM_FIELDS]) as views of a table buffer on
+    any device."""
+
+    def view(part, dtype, width, itemsize):
+        off, rows = part
+        return buf[off:off + rows * width * itemsize].view(dtype).reshape(rows, width)
+
+    return (view(layout.quant, torch.int32, 64, 4).reshape(-1),
+            view(layout.idct_tiles, torch.int32, IDCT_TILE.itemsize // 4, 4),
+            view(layout.color_tiles, torch.int32, COLOR_TILE.itemsize // 4, 4),
+            view(layout.members, torch.int64, MEM_FIELDS, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -412,24 +601,27 @@ def _device(device: _Device) -> torch.device:
 class Batch:
     """A batch after its host entropy decode, ready for the kernels: each
     item's result so far (None, or the exception that member raised), the
-    members that go on (``order``, their plans) and the kernels' inputs."""
+    members that go on (``order``, their plans) and the kernels' inputs on
+    the host: the coefficients, the quantization tables, ``build_tables``'
+    tables, and ``pack_tables``' buffer of what goes to a card."""
 
     results: List[object]
     order: List[int]
     plans: Dict[int, MemberPlan]
     coefs: torch.Tensor          # int16, pinned where the batch goes to a card
-    quant: torch.Tensor          # int32 [4 * members, 64]
-    segments: torch.Tensor       # int64 [n, SEG_FIELDS]
-    members: torch.Tensor        # int64 [m, MEM_FIELDS]
-    plane_bytes: int
-    out_bytes: int
-    outs: List[Tuple[int, int, int]]
+    quant: torch.Tensor          # int32 [4 * members * 64]
+    tables: Tables
+    packed: torch.Tensor         # uint8: quant, K18's and K19's tiles, members (pinned so)
+    layout: TableLayout
 
 
 def entropy_decode(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, int, int]]]],
-                   pinned: bool = False, max_pixels: Optional[int] = None) -> Batch:
+                   pinned: bool = False, max_pixels: Optional[int] = None,
+                   split: Optional[Dict[str, float]] = None) -> Batch:
     """The host half of ``decode_batch``: headers, plans and the entropy
-    decode of every member on threads, then the kernels' tables."""
+    decode of every member on threads, then the kernels' tables. ``split``,
+    when given, receives the seconds of the tables' step (``build_tables``
+    and ``pack_tables``) as ``tables``."""
     lib = _reader()
     results: List[object] = [None] * len(items)
     plans: Dict[int, MemberPlan] = {}
@@ -488,17 +680,35 @@ def entropy_decode(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, in
         # the tables name member j's quantization tables 4 * j + c
         q16 = np.concatenate([q16[4 * k:4 * k + 4] for k in ok]) if ok else q16[:4]
         starts = [int(starts[k]) // 64 for k in ok]
-    quant = torch.from_numpy(q16.astype(np.int32))
-    segments, members, plane_bytes, out_bytes, outs = build_tables(
-        [plans[i] for i in order], starts)
-    return Batch(results, order, plans, coefs, quant, segments, members, plane_bytes,
-                 out_bytes, outs)
+    t = time.perf_counter()
+    quant = q16.astype(np.int32)
+    tables = build_tables([plans[i] for i in order], starts)
+    packed, layout = pack_tables(quant, tables, pinned)
+    if split is not None:
+        split["tables"] = time.perf_counter() - t
+    return Batch(results, order, plans, coefs, torch.from_numpy(quant).reshape(-1), tables,
+                 packed, layout)
+
+
+def upload(batch: Batch, dev: torch.device):
+    """The kernels' inputs on ``dev`` -> (coefs, quant, K18's table,
+    members, K19's tiles): on a card the coefficients and the packed
+    buffer in a copy each (from pinned memory, no wait), the tables as
+    views of it; on the CPU the host tensors, the segment table and no
+    tiles (the plain versions')."""
+    if dev.type != "cuda":
+        return batch.coefs, batch.quant, batch.tables.segments, batch.tables.members, None
+    coefs = batch.coefs.to(dev, non_blocking=True)
+    quant, k18_tiles, k19_tiles, members = table_views(
+        batch.packed.to(dev, non_blocking=True), batch.layout)
+    return coefs, quant, k18_tiles, members, k19_tiles
 
 
 def run_kernels(batch: Batch, dev: torch.device, split: Optional[Dict[str, float]] = None):
     """The device half: upload, K18, K19 on ``dev`` (their plain versions on
-    the CPU) -> (planes, rgb) tensors on ``dev``. ``split`` receives each
-    step's seconds, synchronized on a card."""
+    the CPU) -> (planes, rgb) tensors on ``dev``. Nothing here waits for a
+    card unless ``split`` is given: it receives each step's seconds,
+    synchronized."""
     on_card = dev.type == "cuda"
 
     def mark(name, since):
@@ -511,14 +721,11 @@ def run_kernels(batch: Batch, dev: torch.device, split: Optional[Dict[str, float
         return now
 
     t = time.perf_counter()
-    coefs = batch.coefs.to(dev, non_blocking=True)
-    quant = batch.quant.to(dev, non_blocking=True)
-    segs = batch.segments.to(dev, non_blocking=True)
-    mems = batch.members.to(dev, non_blocking=True)
+    coefs, quant, k18_table, members, k19_tiles = upload(batch, dev)
     t = mark("upload", t)
-    planes = idct_planes(coefs, quant, segs, batch.plane_bytes)
+    planes = idct_planes(coefs, quant, k18_table, batch.tables.plane_bytes)
     t = mark("k18", t)
-    rgb = color_planes(planes, mems, batch.out_bytes)
+    rgb = color_planes(planes, members, batch.tables.out_bytes, k19_tiles)
     mark("k19", t)
     return planes, rgb
 
@@ -526,7 +733,7 @@ def run_kernels(batch: Batch, dev: torch.device, split: Optional[Dict[str, float
 def finish(batch: Batch, rgb: np.ndarray) -> List[object]:
     """Each member's ``Decoded`` from the batch's RGB bytes on the host."""
     results = list(batch.results)
-    for i, (off, w, h) in zip(batch.order, batch.outs):
+    for i, (off, w, h) in zip(batch.order, batch.tables.outs):
         pl = batch.plans[i]
         img = rgb[off:off + w * h * 3].reshape(h, w, 3).copy()
         results[i] = Decoded(rgb=img, offset=(pl.x0, pl.y0), frame_size=(pl.full_w, pl.full_h))
@@ -543,12 +750,13 @@ def decode_batch(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, int,
     empty after clamping) or the exception that member raised (a member
     that fails fails alone). ``max_pixels`` bounds a source's declared
     size. ``split``, when given, receives the seconds of each step (host
-    entropy decode, upload, K18, K19, readback; synchronized on a card)."""
+    entropy decode, the kernels' tables, upload, K18, K19, readback;
+    synchronized on a card)."""
     dev = _device(device)
     t0 = time.perf_counter()
-    batch = entropy_decode(items, pinned=dev.type == "cuda", max_pixels=max_pixels)
+    batch = entropy_decode(items, pinned=dev.type == "cuda", max_pixels=max_pixels, split=split)
     if split is not None:
-        split["entropy"] = time.perf_counter() - t0
+        split["entropy"] = time.perf_counter() - t0 - split["tables"]
     if not batch.order:
         return batch.results
     _planes, rgb = run_kernels(batch, dev, split)

@@ -31,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# segment table columns (csrc/jpeg_idct.cu K18Segment; int64)
+# segment table columns (int64; codecs/jpeg_dec.py build_tables, and idct_tiles
+# cuts K18's tiles from it)
 SEG_COEF, SEG_GRID_W, SEG_BX0, SEG_BY0, SEG_NBX, SEG_NBY, SEG_SCALE, SEG_QT, \
     SEG_OUT, SEG_PITCH, SEG_FIRST, SEG_PAD = range(12)
 SEG_FIELDS = 12

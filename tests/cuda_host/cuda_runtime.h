@@ -1,5 +1,6 @@
 // A host stand-in for the CUDA runtime, so that the port's JPEG kernels
-// (flyimg_tpu_torch/csrc/jpeg_trellis.cu, jpeg_fdct.cu) compile with g++ and
+// (flyimg_tpu_torch/csrc/jpeg_trellis.cu, jpeg_fdct.cu, jpeg_idct.cu,
+// jpeg_color.cu) compile with g++ and
 // run on the CPU (tests/cuda_host_kernels.py, tests/test_torch_jpeg_kernels_host.py).
 //
 // Every CUDA thread of a CTA is a std::thread; the CTAs of a launch run one
@@ -12,6 +13,7 @@
 #pragma once
 #include <barrier>
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -44,7 +46,7 @@ struct float2 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
-struct uint2 {
+struct alignas(8) uint2 {
   unsigned x, y;
 };
 struct alignas(16) uint4 {
@@ -52,6 +54,7 @@ struct alignas(16) uint4 {
 };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -59,16 +62,41 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __int_as_float(int v) { float f; std::memcpy(&f, &v, 4); return f; }
 inline int __float_as_int(float f) { int v; std::memcpy(&v, &f, 4); return v; }
+// byte permute: result byte k is byte (s >> 4k) & 7 of hi:lo (no sign mode)
+inline unsigned __byte_perm(unsigned lo, unsigned hi, unsigned s) {
+  const uint64_t v = (static_cast<uint64_t>(hi) << 32) | lo;
+  unsigned r = 0;
+  for (int k = 0; k < 4; ++k) r |= static_cast<unsigned>((v >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k);
+  return r;
+}
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return static_cast<unsigned>(((static_cast<uint64_t>(hi) << 32) | lo) >> (shift & 31));
+}
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz(static_cast<unsigned>(v)); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributePreferredSharedMemoryCarveout = 9 };
+enum cudaSharedCarveout { cudaSharedmemCarveoutMaxShared = 100 };
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 // a small card: grid-stride loops go round more than once
 inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
+// and one CTA an SM: a persistent CTA walks many tiles
+template <class K>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, std::size_t) {
+  *n = 1;
+  return 0;
+}
+template <class K>
+int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
 
 namespace cuda_host {
 struct Warp {

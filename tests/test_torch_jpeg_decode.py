@@ -271,7 +271,7 @@ def test_tables_hold_offsets_past_2_31():
     for pl in plans:
         starts.append(block)
         block += jpeg_dec.coef_count(pl.frame) // 64
-    segs, mems, plane_bytes, out_bytes, outs = jpeg_dec.build_tables(plans, starts)
+    segs, mems, plane_bytes, out_bytes, outs, *_ = jpeg_dec.build_tables(plans, starts)
     assert segs.dtype == mems.dtype == torch.int64
     plain = jpeg_dec.plain
     plane = first_block = out = pixel = 0

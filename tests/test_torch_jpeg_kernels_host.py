@@ -186,34 +186,37 @@ def test_k17_takes_a_group_of_planes_in_one_launch(kernels):
 
 def _host_decode(kernels, monkeypatch, items):
     """``jpeg_dec.decode_batch`` of ``items`` with K18 and K19 compiled for
-    the host in place of the plain versions, each launch also held to its
-    plain version's bytes (max difference 0)."""
+    the host in place of the plain versions, each launch over the tile
+    tables of the batch's segment and member tables (``idct_tiles``,
+    ``color_tiles``, as ``build_tables`` makes them for a card) also held
+    to its plain version's bytes (max difference 0)."""
     import ctypes
 
     from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
 
     p, i = ctypes.c_void_p, ctypes.c_int
     k18, k19 = kernels["K18"], kernels["K19"]
-    k18.flyimg_jpeg_idct.argtypes = [p, p, p, i, ctypes.c_longlong, p, p]
-    k19.flyimg_jpeg_color.argtypes = [p, p, i, ctypes.c_longlong, p, p]
+    k18.flyimg_jpeg_idct.argtypes = [p, p, p, i, p, p]
+    k19.flyimg_jpeg_color.argtypes = [p, p, p, i, p, p]
 
     def idct(coefs, quant, segs, nbytes):
         c = _aligned(coefs.numpy())
-        q = _aligned(quant.numpy().astype(np.int32))
-        s = np.ascontiguousarray(segs.numpy().astype(np.int64))
-        out = np.full(nbytes, 77, np.uint8)
-        total = int(s[-1, plain.SEG_FIRST] + s[-1, plain.SEG_NBX] * s[-1, plain.SEG_NBY])
-        assert k18.flyimg_jpeg_idct(c.ctypes.data, q.ctypes.data, s.ctypes.data, len(s), total,
+        q = _aligned(quant.numpy())
+        t = _aligned(jpeg_dec.idct_tiles(segs.numpy()))
+        # rounded up to 16 bytes, as on the card: K19 stages whole chunks
+        out = _aligned(np.full(-(-nbytes // 16) * 16, 77, np.uint8))
+        assert k18.flyimg_jpeg_idct(c.ctypes.data, q.ctypes.data, t.ctypes.data, len(t),
                                     out.ctypes.data, None) == 0
-        np.testing.assert_array_equal(out, plain.k18(coefs, quant, segs, nbytes).numpy())
+        np.testing.assert_array_equal(out[:nbytes], plain.k18(coefs, quant, segs, nbytes).numpy())
         return torch.from_numpy(out)
 
-    def color(planes, mems, nbytes):
-        m = np.ascontiguousarray(mems.numpy().astype(np.int64))
+    def color(planes, mems, nbytes, tiles=None):
+        assert tiles is None
+        m = _aligned(mems.numpy())
+        t = _aligned(jpeg_dec.color_tiles(mems.numpy()))
         out = np.full(nbytes, 77, np.uint8)
-        total = int(m[-1, plain.MEM_FIRST] + m[-1, plain.MEM_W] * m[-1, plain.MEM_H])
-        assert k19.flyimg_jpeg_color(planes.numpy().ctypes.data, m.ctypes.data, len(m), total,
-                                     out.ctypes.data, None) == 0
+        assert k19.flyimg_jpeg_color(planes.numpy().ctypes.data, m.ctypes.data,
+                                     t.ctypes.data, len(t), out.ctypes.data, None) == 0
         np.testing.assert_array_equal(out, plain.k19(planes, mems, nbytes).numpy())
         return torch.from_numpy(out)
 
@@ -259,5 +262,211 @@ def test_k18_k19_sources_on_edge_sizes_samplings_windows_and_damage(kernels, mon
                   (data, scale, (fw - 3, fh - 2, 3, 2)), (data, scale, (0, 0, 2, fh))]
     items += [(jt.corrupt(enc(jt.photo(120, 90, 5), 90, (2, 2), False, 4), 0), s, None)
               for s in (2, 4, 8)]
+    for got in _host_decode(kernels, monkeypatch, items):
+        assert got.rgb.ndim == 3
+
+
+# ---------------------------------------------------------------------------
+# K18's and K19's tile tables (no compiler needed)
+
+
+def _frame_header(w, h, sampling, ncomp=3):
+    """A YCbCr (or gray) frame's header as the reader reports it (no file):
+    luma at ``sampling``, chroma 1x1."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    frame = jpeg_dec.FlJpegFrame()
+    frame.width, frame.height, frame.ncomp = w, h, ncomp
+    frame.color = 1 if ncomp == 3 else 0
+    mh, mv = sampling if ncomp == 3 else (1, 1)
+    frame.max_h, frame.max_v = mh, mv
+    frame.mcus_x, frame.mcus_y = -(-w // (8 * mh)), -(-h // (8 * mv))
+    frame.single_scan = 1
+    for c in range(ncomp):
+        fh, fv = (mh, mv) if c == 0 else (1, 1)
+        frame.comp_h[c], frame.comp_v[c] = fh, fv
+        frame.blocks_w[c], frame.blocks_h[c] = -(-w * fh // (8 * mh)), -(-h * fv // (8 * mv))
+        frame.alloc_w[c], frame.alloc_h[c] = frame.mcus_x * fh, frame.mcus_y * fv
+    return frame
+
+
+def _tile_batches():
+    """name -> [(frame, scale, roi)]: mixed scales and samplings, ragged
+    sizes, gray, and windows (odd first rows and columns, edges)."""
+    sizes = [(1, 1), (7, 9), (17, 33), (203, 157), (1000, 37), (4032, 24)]
+    samplings = [(1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (2, 4)]
+    mixed = [(_frame_header(w, h, s), 1 << (k % 4), None)
+             for k, ((w, h), s) in enumerate((size, s) for size in sizes for s in samplings)]
+    gray = [(_frame_header(w, h, (1, 1), ncomp=1), scale, None)
+            for (w, h) in sizes for scale in (1, 2, 4, 8)]
+    windows = []
+    for s in samplings:
+        frame = _frame_header(611, 453, s)
+        for scale in (1, 2, 4, 8):
+            fw, fh = -(-611 * scale // 8), -(-453 * scale // 8)
+            windows += [(frame, scale, (fw // 3, fh // 4 + 1, fw // 2, fh // 2)),
+                        (frame, scale, (fw - 3, fh - 2, 3, 2)),
+                        (frame, scale, (1, 1, fw - 2, 1)), (frame, scale, (0, 0, 2, fh))]
+    return {"mixed": mixed, "gray": gray, "windows": windows,
+            "all": mixed + gray + windows}
+
+
+def _tables(items):
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    plans = [p for p in (jpeg_dec.plan_member(f, s, roi) for f, s, roi in items) if p]
+    starts, block = [], 0
+    for pl in plans:
+        starts.append(block)
+        block += jpeg_dec.coef_count(pl.frame) // 64
+    return plans, jpeg_dec.build_tables(plans, starts)
+
+
+@pytest.mark.parametrize("batch", ["mixed", "gray", "windows", "all"])
+def test_idct_tiles_cover_every_block_once_within_one_segment_row(batch):
+    """Every block of every segment is in exactly one K18 tile, at its own
+    coefficient block and output byte, with its segment's scale, table and
+    pitch; a tile is one run of one block row of one segment (so one
+    member and one scale) of at most IDCT_TILE_BLOCKS blocks, starting 16
+    samples or a multiple of that into the row; and the tiles' samples
+    cover the planes exactly once."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    _plans, tables = _tables(_tile_batches()[batch])
+    _check_idct_tiles(tables, tables.idct_tiles, jpeg_dec.idct_tile_blocks(tables.blocks))
+
+
+@pytest.mark.parametrize("most", [16, 32, 64])
+def test_idct_tiles_of_each_length_cover_every_block_once(most):
+    """The tile table at each length K18 takes (``idct_tiles``' ``most``,
+    as ``idct_tile_blocks`` picks by batch size and ``jpeg_breakdown``
+    times) holds the same as at the batch's own length."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    _plans, tables = _tables(_tile_batches()["all"])
+    _check_idct_tiles(tables, jpeg_dec.idct_tiles(tables.segments.numpy(), most), most)
+
+
+def test_idct_tile_blocks_tiers():
+    """16 blocks a tile below 2^13 blocks, 32 below 2^15, 64 from there."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    assert [jpeg_dec.idct_tile_blocks(n) for n in (1, 8191, 8192, 32767, 32768, 10 ** 7)] \
+        == [16, 16, 32, 32, 64, 64]
+
+
+def _check_idct_tiles(tables, tiles, most):
+    from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
+
+    segs = tables.segments.numpy()
+    home = {}   # coefficient block -> (segment, block row, output byte)
+    for k, seg in enumerate(segs):
+        for by in range(seg[plain.SEG_NBY]):
+            for bx in range(seg[plain.SEG_NBX]):
+                coef = (seg[plain.SEG_COEF] + (seg[plain.SEG_BY0] + by) * seg[plain.SEG_GRID_W]
+                        + seg[plain.SEG_BX0] + bx)
+                out = seg[plain.SEG_OUT] + (by * seg[plain.SEG_PITCH] + bx) * seg[plain.SEG_SCALE]
+                assert coef not in home
+                home[int(coef)] = (k, by, int(out))
+    assert tiles.dtype == jpeg_dec.IDCT_TILE and tiles.dtype.itemsize == 32
+    assert tables.blocks == len(home) == int(tiles["n"].sum())
+    seen = set()
+    covered = np.zeros(tables.plane_bytes, np.int32)
+    for t in tiles:
+        n, scale, pitch = int(t["n"]), int(t["scale"]), int(t["pitch"])
+        assert 1 <= n <= most <= jpeg_dec.IDCT_TILE_BLOCKS
+        rows = {home[int(t["coef"]) + b][:2] for b in range(n)}
+        assert len(rows) == 1, "a tile crosses a block row or a segment"
+        k = rows.pop()[0]
+        seg = segs[k]
+        assert (scale, int(t["qt"]), pitch) == (seg[plain.SEG_SCALE], seg[plain.SEG_QT],
+                                              seg[plain.SEG_PITCH])
+        bx = (int(t["coef"]) - seg[plain.SEG_COEF]) % seg[plain.SEG_GRID_W] - seg[plain.SEG_BX0]
+        assert bx * scale % 16 == 0, "a tile starts off a 16-sample step of its row"
+        for b in range(n):
+            assert int(t["out"]) + b * scale == home[int(t["coef"]) + b][2]
+            seen.add(int(t["coef"]) + b)
+            first = int(t["out"]) + b * scale
+            for r in range(scale):
+                covered[first + r * pitch:first + r * pitch + scale] += 1
+    assert seen == set(home)
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("batch", ["mixed", "gray", "windows", "all"])
+def test_color_tiles_cover_every_pixel_once_within_one_member_row_pair(batch):
+    """Every output pixel of every member is in exactly one K19 strip; a
+    strip lies in one member's window, its rows in one chroma row pair
+    (two rows from an even frame row, or one), its columns a run of at most
+    COLOR_STRIP_COLS starting at a multiple of 16."""
+    from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
+
+    plans, tables = _tables(_tile_batches()[batch])
+    mems = tables.members.numpy()
+    tiles = tables.color_tiles
+    assert tiles.dtype == jpeg_dec.COLOR_TILE and tiles.dtype.itemsize == 16
+    covered = np.zeros(tables.out_bytes // 3, np.int32)
+    assert tables.pixels == covered.size == sum(pl.w * pl.h for pl in plans)
+    cols = jpeg_dec.COLOR_STRIP_COLS
+    for t in tiles:
+        mem = mems[int(t["member"])]
+        w, h, y0 = int(mem[plain.MEM_W]), int(mem[plain.MEM_H]), int(mem[plain.MEM_Y0])
+        y, x0, nw = int(t["y"]), int(t["x0"]), int(t["nw"])
+        assert x0 % 16 == 0 and 1 <= nw <= cols and x0 + nw <= w
+        assert y0 <= y < y0 + h and (y % 2 == 0 or y == y0)
+        nr = min(2 - (y & 1), y0 + h - y)
+        first = int(mem[plain.MEM_OUT]) // 3 + (y - y0) * w + x0
+        for r in range(nr):
+            covered[first + r * w:first + r * w + nw] += 1
+    assert (covered == 1).all()
+
+
+def test_tile_tables_hold_offsets_past_2_31():
+    """Sixteen whole 12000x9000 4:2:0 decodes in one group: K18's tiles
+    reach plane bytes and K19's members output bytes past 2^31, each tile's
+    64-bit offsets the exact sums of its segment's."""
+    from flyimg_tpu_torch.codecs import jpeg_dec, jpeg_dec_plain as plain
+
+    _plans, tables = _tables([(_frame_header(12000, 9000, (2, 2)), 8, None)] * 16)
+    segs, tiles = tables.segments.numpy(), tables.idct_tiles
+    assert tables.plane_bytes > 2 ** 31 and tables.out_bytes > 2 ** 31
+    start = 0
+    for seg in segs:
+        nbx, nby = int(seg[plain.SEG_NBX]), int(seg[plain.SEG_NBY])
+        count = -(-nbx // jpeg_dec.IDCT_TILE_BLOCKS) * nby
+        last = tiles[start + count - 1]
+        by, bx = nby - 1, nbx - int(last["n"])
+        assert int(last["coef"]) == (int(seg[plain.SEG_COEF]) + (int(seg[plain.SEG_BY0]) + by)
+                                     * int(seg[plain.SEG_GRID_W]) + int(seg[plain.SEG_BX0]) + bx)
+        assert int(last["out"]) == int(seg[plain.SEG_OUT]) + (by * int(seg[plain.SEG_PITCH])
+                                                              + bx) * int(seg[plain.SEG_SCALE])
+        start += count
+    assert start == len(tiles) and int(tiles["out"][-1]) > 2 ** 31
+    assert int(tables.color_tiles["member"][-1]) == 15
+
+
+def test_k18_k19_sources_on_windows_of_every_layout(kernels, monkeypatch, tmp_path):
+    """Windows with odd origins (a strip of one row first) at the six luma
+    samplings and on the CMYK, YCCK, gray and Adobe RGB fixtures (the
+    generic body), at every scale, in one batch."""
+    import os
+
+    import jpeg_test_files as jt
+
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    enc = jt.encoder(str(tmp_path))
+    files = [enc(jt.photo(203, 157, 3 + k), 90, s, bool(k % 2))
+             for k, s in enumerate([(1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (2, 4)])]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
+    for name in ("q90_cmyk_h2v2.jpg", "q90_ycck.jpg", "q90_gray.jpg", "q90_rgb_adobe0.jpg"):
+        with open(os.path.join(root, name), "rb") as fh:
+            files.append(fh.read())
+    items = []
+    for data in files:
+        frame = jpeg_dec.read_header(data)
+        for scale in (1, 2, 4, 8):
+            fw, fh = -(-frame.width * scale // 8), -(-frame.height * scale // 8)
+            items.append((data, scale, (fw // 5 | 1, fh // 3 | 1, fw // 2, fh // 2 + 1)))
     for got in _host_decode(kernels, monkeypatch, items):
         assert got.rgb.ndim == 3
