@@ -263,8 +263,22 @@ Phases, in order; any failure exits non-zero without a result line:
              same frames, and the 300x250 trellis answer's bytes and PSNR
              against nvJPEG's moz_1 (both decoded by nvJPEG), on one JSON
              line with the card's name and power limit.
+15. jpeg decode — full-width JPEG sources through the codec batcher
+             (``phase_jpeg_decode``).
+16. ingest — the sources of the last codec slice (``phase_ingest``): a
+             2550x3300 4:2:0 scan (the port's encode on the card) as a
+             DCTDecode image with an SMask in a two-page PDF, served at
+             w_300,h_250,c_1 (96 dpi) and ...,pg_2,dnst_150; the committed
+             2048x1536 arithmetic progressive JPEG, TIFF in JPEG strips and
+             2550x3300 Group 4 page (tests/data/ingest); a video at tm_1
+             (OpenCV's clip where it imports, its frame decoded by K18 and
+             K19; 415 without OpenCV and ffmpeg). Every decode equals the JAX
+             package's (reference.json), every answer the CPU handler's,
+             and K18 and K19 launch in the PDF, TIFF JPEG and arithmetic
+             routes; prints the PDF request's host split, the arithmetic
+             against the Huffman entropy decode and the CCITT decode ms.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-14)
+Launch counters are zeroed right before each main-path phase (4-9, 11-16)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -275,6 +289,7 @@ The last lines are the card, one JSON object describing every kernel, and
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -4730,11 +4745,11 @@ def jpeg_decode_rows(torch, dev, card):
     return rows
 
 
-def decode_split(torch, dev, data, scale, n=7):
+def decode_split(torch, dev, data, scale, n=7, nvjpeg=True):
     """Median seconds of one decode's steps on the card (host entropy
     decode, the kernels' tables, upload, K18, K19, readback, each
-    synchronized) and of nvJPEG's decode of the same file at the same
-    scale, in ms."""
+    synchronized) and, with ``nvjpeg``, of nvJPEG's decode of the same file
+    at the same scale, in ms."""
     from flyimg_tpu_torch.codecs import jpeg_dec, native_codec
 
     steps = {}
@@ -4744,8 +4759,9 @@ def decode_split(torch, dev, data, scale, n=7):
         for k, v in split.items():
             steps.setdefault(k, []).append(v * 1e3)
     out = {f"{k}_ms": round(statistics.median(v), 4) for k, v in steps.items()}
-    out["nvjpeg_decode_ms"] = round(cuda_ms(torch, lambda: native_codec.nvjpeg_decode(
-        data, scale, device=dev), iters=n), 4)
+    if nvjpeg:
+        out["nvjpeg_decode_ms"] = round(cuda_ms(torch, lambda: native_codec.nvjpeg_decode(
+            data, scale, device=dev), iters=n), 4)
     return out
 
 
@@ -4861,6 +4877,280 @@ def phase_jpeg_decode(torch, dev, card, workdir, kernels):
                                                "K18": default_counts["K18"]},
         "one at a time": {"wall_s": round(single_wall, 4), "K18": single_counts["K18"]}},
         "card": card}))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the last source formats: PDF pages, arithmetic-coded JPEG, TIFF JPEG and
+# CCITT, video at tm_ (phase 16)
+
+INGEST_DIR = os.path.join(ROOT, "tests", "data", "ingest")
+#: phase 16's requests of the Letter scan PDF: page 1 at the default 96 dpi
+#: and page 2 (rotated, the scan inset) at 150; each also as o_png, whose
+#: pixels the CPU answer is held to
+PDF_REQUESTS = ("w_300,h_250,c_1", "w_300,h_250,c_1,pg_2,dnst_150")
+#: phase 16's requests of the other sources (a JPEG answer, and the PNG
+#: answer whose pixels the CPU answer is held to)
+INGEST_REQUESTS = [(src, opts) for src in ("arith", "tiff_jpeg", "g4")
+                   for opts in ("w_300,h_250,c_1", "w_300,h_250,c_1,o_png")]
+
+
+def write_video(path, seconds=3, fps=10, size=(640, 480)):
+    """A seeded 640x480 clip by OpenCV's writer (mp4v), its frames moving
+    colour fields: the video source where the machine has OpenCV."""
+    import cv2
+    import numpy as np
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, size)
+    check(writer.isOpened(), "ingest: OpenCV cannot write a video here")
+    base = synthetic_image(size[0], size[1], seed=1603).astype(np.int64)
+    for i in range(seconds * fps):
+        writer.write(((base + 9 * i) % 256).astype(np.uint8))
+    writer.release()
+
+
+def pixel_digest(rgb) -> dict:
+    import numpy as np
+
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    return {"shape": list(rgb.shape), "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+
+
+def ingest_served(base, opts, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"{base}/upload/{opts}/{path}", timeout=600) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.headers.get("Content-Type"), exc.read()
+
+
+def held_to_cpu(label, card_body, cpu_body):
+    """A card answer against the CPU handler's answer to the same request:
+    byte-equal, or (a resample's last level) the same type and size and
+    pixels within PERF.md section 2's bound."""
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+
+    if card_body == cpu_body:
+        return "byte-equal"
+    a = codecs.decode(card_body, device="cpu")
+    b = codecs.decode(cpu_body, device="cpu")
+    check(a.mime == b.mime and a.size == b.size, f"{label}: {a.mime} {a.size} on the card, "
+          f"{b.mime} {b.size} on the CPU")
+    diff = np.abs(a.rgb.astype(np.int64) - b.rgb.astype(np.int64))
+    share = float((diff > 0).mean())
+    if a.mime == "image/png":
+        check(int(diff.max()) <= 1 and share <= 1e-4,
+              f"{label}: {int(diff.max())} levels off the CPU answer on {share:.2e} of values")
+    return f"max {int(diff.max())} on {share:.2e}"
+
+
+def phase_ingest(torch, dev, card, workdir, kernels):
+    """Phase 16: the sources the last slice added, through the server on
+    the card. A Letter scan (2550x3300, 4:2:0, the port's own encode on the
+    card, the same bytes tools/make_ingest_fixtures.py made) as a DCTDecode
+    image with an SMask in a two-page PDF, served at PDF_REQUESTS; the
+    committed 2048x1536 arithmetic progressive JPEG, TIFF in JPEG strips and
+    2550x3300 Group 4 page; and a video at tm_1 (written by OpenCV where it
+    imports; 415 where neither OpenCV nor ffmpeg exists). Every decode
+    equals its reference (the JAX package's route,
+    tests/data/ingest/reference.json), every card answer the CPU handler's
+    (``held_to_cpu``), and K18 and K19 launch in the PDF, TIFF JPEG and
+    arithmetic routes. Prints the PDF request's host split, the arithmetic
+    entropy decode against the Huffman one of the same pixels, and the
+    CCITT decode. Returns the kernels' launches of the served requests."""
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.codecs import jpeg_dec, pdf, pdf_mini, png, tiff, video
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.service.handler import ImageHandler
+    from flyimg_tpu_torch.testing import ingest
+
+    with open(os.path.join(INGEST_DIR, "reference.json")) as fh:
+        ref = json.load(fh)
+    backends = {"gs": pdf.GHOSTSCRIPT, "cv2": video.cv2_available(), "ffmpeg": video.FFMPEG}
+    print(f"ingest backends on this machine: {backends}")
+
+    # the sources
+    t = time.perf_counter()
+    scan = codecs.encode(ingest.scan_rgb(), "jpg", quality=85, mozjpeg=False,
+                         sampling_factor="2x2", device=dev)
+    encode_s = time.perf_counter() - t
+    want = ref["letter_scan.pdf"]
+    check(hashlib.sha256(scan).hexdigest() == want["jpeg_sha256"],
+          "ingest: the card's encode of the scan is not the reference JPEG")
+    doc_bytes = ingest.letter_pdf(scan, ingest.SCAN_W, ingest.SCAN_H, ingest.scan_alpha())
+    check(hashlib.sha256(doc_bytes).hexdigest() == want["pdf_sha256"],
+          "ingest: the PDF is not the reference PDF")
+    paths = {"pdf": os.path.join(workdir, "letter_scan.pdf"),
+             "arith": os.path.join(INGEST_DIR, "arith_progressive_2048x1536.jpg"),
+             "tiff_jpeg": os.path.join(INGEST_DIR, "strips.tif"),
+             "g4": os.path.join(INGEST_DIR, "g4_page.tif"),
+             "video": os.path.join(workdir, "clip.mp4")}
+    with open(paths["pdf"], "wb") as fh:
+        fh.write(doc_bytes)
+    if backends["cv2"]:
+        write_video(paths["video"])
+    else:
+        with open(paths["video"], "wb") as fh:
+            fh.write(ingest.MP4_STUB)
+    blobs = {k: _read(v) for k, v in paths.items()}
+
+    # each decode against its reference (the JAX package's route)
+    launches = {}
+    reset_counts(kernels)
+    for key, page_ref in want["pages"].items():
+        page, dpi = (int(v[1:]) for v in key.split("-"))
+        got = pdf_mini.rasterize_mini(doc_bytes, page, dpi, device=dev)
+        check(pixel_digest(got) == page_ref, f"ingest: PDF page {key} is not the JAX "
+              "package's MiniPdf.rasterize")
+    launches["pdf pages"] = read_counts(kernels)
+    reset_counts(kernels)
+    for scale in (8, 2):
+        got = codecs.native_codec.jpeg_decode(blobs["arith"], scale, device=dev)
+        check(pixel_digest(got) == ref["arith_progressive_2048x1536.jpg"][f"s{scale}"],
+              f"ingest: the arithmetic JPEG at {scale}/8 is not fc_jpeg_decode's")
+    launches["arith decodes"] = read_counts(kernels)
+    reset_counts(kernels)
+    for name in ("tiff_jpeg", "g4"):
+        got = codecs.decode(blobs[name], device=dev)
+        check(pixel_digest(got.rgb) == ref[os.path.basename(paths[name])],
+              f"ingest: {name} is not Pillow's decode")
+    launches["tiff decodes"] = read_counts(kernels)
+    for label in ("pdf pages", "arith decodes", "tiff decodes"):
+        check(launches[label]["K18"] > 0 and launches[label]["K19"] > 0,
+              f"ingest: {label} launched K18 {launches[label]['K18']}, "
+              f"K19 {launches[label]['K19']} times")
+
+    # served on the card, and by a CPU handler
+    params = AppParameters({"upload_dir": os.path.join(workdir, "card", "uploads"),
+                            "tmp_dir": os.path.join(workdir, "card", "tmp"),
+                            "resample_kernel": "banded"})
+    cpu = ImageHandler(AppParameters({"upload_dir": os.path.join(workdir, "cpu", "uploads"),
+                                      "tmp_dir": os.path.join(workdir, "cpu", "tmp"),
+                                      "resample_kernel": "banded"}), device="cpu")
+    server = make_server(params, device=dev)
+    thread = serve_in_thread(server)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = [("pdf", o) for o in PDF_REQUESTS] + [("pdf", o + ",o_png") for o in PDF_REQUESTS]
+    requests += INGEST_REQUESTS
+    served, held = {}, {}
+    counts = {name: 0 for name in kernels}
+    by_route = {}
+    try:
+        for src, opts in requests:
+            reset_counts(kernels)
+            t = time.perf_counter()
+            status, ctype, body = ingest_served(base, opts, paths[src])
+            wall = time.perf_counter() - t
+            got = read_counts(kernels)
+            route = by_route.setdefault(src, {name: 0 for name in kernels})
+            for name in counts:
+                counts[name] += got[name]
+                route[name] += got[name]
+            check(status == 200, f"ingest: {opts} of {src} answered {status}: {body[:200]!r}")
+            label = f"{src} {opts}"
+            held[label] = held_to_cpu(label, body, cpu.process_image(opts, paths[src]).content)
+            served[label] = {"wall_s": round(wall, 4), "bytes": len(body), "type": ctype,
+                             "K18": got["K18"], "K19": got["K19"], "K1": got["K1"]}
+        # a page is rasterized once (its o_png request reads the cached page)
+        for src in ("pdf", "arith", "tiff_jpeg"):
+            got = by_route[src]
+            check(got["K18"] > 0 and got["K19"] > 0,
+                  f"ingest: the served {src} requests launched K18 {got['K18']}, "
+                  f"K19 {got['K19']} times")
+        reset_counts(kernels)
+        status, ctype, body = ingest_served(base, "tm_1,o_png", paths["video"])
+        got = read_counts(kernels)
+        for name in counts:
+            counts[name] += got[name]
+        if backends["cv2"]:
+            # OpenCV writes the frame; the port decodes its JPEG on the card
+            check(status == 200, f"ingest: the video at tm_1 answered {status}: {body[:200]!r}")
+            cpu_body = cpu.process_image("tm_1,o_png", paths["video"]).content
+            held["video tm_1,o_png"] = held_to_cpu("video tm_1,o_png", body, cpu_body)
+            check(got["K18"] > 0 and got["K19"] > 0, "ingest: the video frame's decode launched "
+                  f"K18 {got['K18']}, K19 {got['K19']} times")
+        elif backends["ffmpeg"]:
+            print(f"ingest: only ffmpeg here; the stub video answered {status}")
+        else:
+            check(status == 415, f"ingest: a video without OpenCV or ffmpeg answered {status}")
+        served["video tm_1,o_png"] = {"status": status, "K18": got["K18"], "K19": got["K19"]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    cards = sorted(f for f in os.listdir(os.path.join(workdir, "card", "tmp")) if "-p" in f)
+    cpus = sorted(f for f in os.listdir(os.path.join(workdir, "cpu", "tmp")) if "-p" in f)
+    check(cards == cpus and len(cards) == 2, f"ingest: cached pages {cards} and {cpus}")
+    for name in cards:
+        a, _ = png.decode(_read(os.path.join(workdir, "card", "tmp", name)))
+        b, _ = png.decode(_read(os.path.join(workdir, "cpu", "tmp", name)))
+        check((a == b).all(), f"ingest: the card's page {name} is not the CPU's")
+
+    # the PDF request's host split (page 1 at 96 dpi), each step alone
+    split = {"encode_scan_s": round(encode_s, 4)}
+    t = time.perf_counter()
+    doc = pdf_mini.MiniPdf(doc_bytes, device=dev)
+    split["parse_ms"] = round((time.perf_counter() - t) * 1e3, 4)
+    steps = {}
+    jpeg_dec.decode_batch([(scan, 8, None)], dev, split=steps)
+    for k, v in steps.items():
+        split[f"decode_{k}_ms"] = round(v * 1e3, 4)
+    real = pdf_mini._decode_jpeg
+    decode_wall = []
+
+    def timed_decode(data, device="cuda"):
+        t0 = time.perf_counter()
+        out = real(data, device)
+        decode_wall.append(time.perf_counter() - t0)
+        return out
+
+    pdf_mini._decode_jpeg = timed_decode
+    try:
+        t = time.perf_counter()
+        page = doc.rasterize(1, 96)
+        raster_s = time.perf_counter() - t
+    finally:
+        pdf_mini._decode_jpeg = real
+    split["rasterize_ms"] = round(raster_s * 1e3, 4)
+    split["dct_decode_in_rasterize_ms"] = round(sum(decode_wall) * 1e3, 4)
+    split["composite_ms"] = round((raster_s - sum(decode_wall)) * 1e3, 4)
+    t = time.perf_counter()
+    png.encode(page)
+    split["png_page_write_ms"] = round((time.perf_counter() - t) * 1e3, 4)
+
+    # arithmetic against Huffman entropy decode of the same pixels
+    pixels = codecs.native_codec.jpeg_decode(blobs["arith"], 8, device=dev)
+    huffman = codecs.encode(pixels, "jpg", quality=85, mozjpeg=True, sampling_factor="2x2",
+                            device=dev)
+    entropy = {}
+    for label, data in (("arithmetic progressive", blobs["arith"]),
+                        ("Huffman progressive (moz_1) of the same pixels", huffman)):
+        # nvJPEG has no arithmetic decoder
+        entropy[label] = decode_split(torch, dev, data, 8, n=5, nvjpeg=False)
+    fax_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        tiff.decode(blobs["g4"])
+        fax_ms.append((time.perf_counter() - t) * 1e3)
+    strips_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        tiff.decode(blobs["tiff_jpeg"], device=dev)
+        strips_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"ingest: every decode equals its reference (PDF pages {list(want['pages'])}, "
+          f"the arithmetic JPEG at 1/1 and 1/4, TIFF JPEG strips, Group 4); card answers "
+          f"against the CPU's {held}; kernel launches by route {launches}; card {card}")
+    print(json.dumps({"ingest": {
+        "served": served, "pdf_split_page1_96dpi": split, "entropy_decode": entropy,
+        "ccitt_g4_2550x3300_decode_ms": round(statistics.median(fax_ms), 4),
+        "tiff_jpeg_1024x768_decode_ms": round(statistics.median(strips_ms), 4),
+        "backends": {k: bool(v) for k, v in backends.items()}}, "card": card}))
     return counts
 
 
@@ -5068,7 +5358,15 @@ def main() -> int:
         decode_counts = phase_jpeg_decode(torch, dev, card, workdir, kernels)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-15 reached "
+    # phase 16: PDF pages, arithmetic JPEG, TIFF JPEG and CCITT, video
+    # (main path)
+    os.makedirs(workdir)
+    try:
+        ingest_counts = phase_ingest(torch, dev, card, workdir, kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"ingest kernel launches: {ingest_counts}; card {card}")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-16 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -5124,7 +5422,8 @@ def main() -> int:
                     + sum(c[key] for c in server_counts.values())
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
-                    + formats_counts[key] + jpeg_counts[key] + decode_counts[key])
+                    + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
+                    + ingest_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -213,7 +213,7 @@ def decode(
     if mime == ICO_MIME:
         return _decoded(*ico.decode(data), ICO_MIME)
     if mime == TIFF_MIME:
-        rgb, alpha, n = tiff.decode(data, frame)
+        rgb, alpha, n = tiff.decode(data, frame, device=device)
         return _decoded(rgb, alpha, TIFF_MIME, n)
     raise UnsupportedMediaException(
         f"decoding {info.mime} is not ported to the PyTorch package yet "
@@ -300,10 +300,12 @@ def batch_jpeg_encode(items: list,
     return jpeg_enc.encode_plain_group(frames, quality, sampling, device=device)
 
 
-def decode_all(data: bytes, info: Optional[MediaInfo] = None) -> Animation:
+def decode_all(data: bytes, info: Optional[MediaInfo] = None,
+               device: Union[str, "torch.device"] = "cuda") -> Animation:  # noqa: F821
     """Every frame of an animated GIF or WebP (or page of a TIFF),
     composited, with durations and loop, as the JAX handler's
-    ``_decode_all_frames`` reads them through Pillow."""
+    ``_decode_all_frames`` reads them through Pillow (a JPEG-compressed
+    TIFF page with the JPEG kernels on ``device``)."""
     info = info or media_info(data)
     mime = source_mime(data, info)
     if mime == GIF_MIME:
@@ -313,7 +315,7 @@ def decode_all(data: bytes, info: Optional[MediaInfo] = None) -> Animation:
     if mime == TIFF_MIME:
         frames, alphas, any_alpha = [], [], False
         for page in range(tiff.n_frames(data)):
-            rgb, alpha, _ = tiff.decode(data, page)
+            rgb, alpha, _ = tiff.decode(data, page, device=device)
             alpha = alpha if alpha is not None else np.full(rgb.shape[:2], 255, np.uint8)
             any_alpha |= bool(alpha.min() < 255)
             frames.append(rgb)

@@ -14,8 +14,12 @@ drawn into a buffer filled with its transparent index, converted with its
 own colour table and pasted over the canvas through its alpha. Disposal
 2 fills the frame's box with the transparent index's colour (alpha 0) or the
 background colour, disposal 3 restores the box as it was before the frame;
-a frame without a disposal keeps the last one given. A frame outside the
-logical screen, or a colour table after a gray first frame, raises.
+a frame without a disposal keeps the last one given. A frame that reaches
+past the logical screen widens it, as Pillow does: the canvas grows, filled
+with zeros (a gray or palette canvas), with transparent black (the frame has
+a transparent index: the canvas becomes RGBA) or with the colour of the
+frame's index 0 (it has none: the canvas becomes RGB). A colour table after
+a gray first frame raises.
 
 Encode follows Pillow's writer: the adaptive palette by median cut with no
 dither, the palette trimmed of unused entries on small frames, LZW with a
@@ -177,6 +181,20 @@ def _rgb(pal, color: int) -> Tuple[int, int, int]:
 
 _INTERLACE = ((0, 8), (4, 8), (2, 4), (1, 2))
 
+#: the most pixels a widened screen may hold (twice the JAX package's
+#: ``Image.MAX_IMAGE_PIXELS``, where Pillow's bomb check raises)
+MAX_PIXELS = 2 * 512 * 1024 * 1024
+
+
+def _crop(canvas: np.ndarray, extent) -> np.ndarray:
+    """``Image.crop``: the box of ``canvas``, zeros where it lies past the
+    canvas."""
+    x0, y0, x1, y1 = extent
+    out = np.zeros((y1 - y0, x1 - x0) + canvas.shape[2:], np.uint8)
+    part = canvas[y0:y1, x0:x1]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out
+
 
 def _frame_indices(data: bytes, fr: _Frame) -> Tuple[np.ndarray, np.ndarray]:
     """A frame's LZW data -> (indices [h, w], written mask [h, w]); a stream
@@ -206,18 +224,15 @@ def _frame_indices(data: bytes, fr: _Frame) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class _Decoder:
-    """GifImagePlugin's frame state, frame by frame."""
+    """GifImagePlugin's frame state, frame by frame. An RGB canvas keeps
+    four bytes a pixel as Pillow's does: the fourth is 255 where a frame or
+    a fill wrote it and 0 where a crop past the canvas did, and a widening
+    with a transparent index makes it the alpha plane."""
 
     def __init__(self, data: bytes) -> None:
         self.data = data
         self.parsed = _parse(data)
-        w, h = self.parsed.size
-        for fr in self.parsed.frames:
-            x0, y0, x1, y1 = fr.extent
-            if x1 > w or y1 > h:
-                raise UnsupportedMediaException(
-                    "a GIF frame outside its logical screen is not ported to the "
-                    "PyTorch package yet")
+        self.size = self.parsed.size
         self.n = -1
         self.mode = ""
         self.canvas: Optional[np.ndarray] = None
@@ -233,6 +248,12 @@ class _Decoder:
         n = self.n = self.n + 1
         fr = self.parsed.frames[n]
         x0, y0, x1, y1 = fr.extent
+        if x1 > self.size[0] or y1 > self.size[1]:
+            self.size = (max(x1, self.size[0]), max(y1, self.size[1]))
+            if self.size[0] * self.size[1] > MAX_PIXELS:
+                raise ExecFailedException(
+                    f"a GIF screen of {self.size[0]}x{self.size[1]} exceeds the "
+                    f"{MAX_PIXELS}-pixel decode limit")
         if n and self.dispose is not None:
             dx0, dy0, dx1, dy1 = self.dispose_extent
             self.canvas[dy0:dy1, dx0:dx1] = self.dispose
@@ -243,11 +264,11 @@ class _Decoder:
             self.canvas_table = _table(frame_pal) if has_pal else None
         elif self.mode == "P":
             rgb = self.canvas_table[self.canvas]
+            alpha = np.full(rgb.shape[:2], 255, np.uint8)
             if self.info_t is not None:
-                alpha = np.where(self.canvas == self.info_t, 0, 255).astype(np.uint8)
-                self.canvas, self.mode, self.info_t = np.dstack([rgb, alpha]), "RGBA", None
-            else:
-                self.canvas, self.mode = rgb, "RGB"
+                alpha[self.canvas == self.info_t] = 0
+            self.mode = "RGBA" if self.info_t is not None else "RGB"
+            self.canvas, self.info_t = np.dstack([rgb, alpha]), None
         if fr.dispose_bits:
             self.disposal = fr.dispose_bits
         self.duration = fr.duration
@@ -264,14 +285,17 @@ class _Decoder:
             self.dispose = self._patch(box, fill)
         elif self.disposal == 3:
             if n:
-                self.dispose = self.canvas[y0:y1, x0:x1].copy()
+                self.dispose = _crop(self.canvas, fr.extent)
             elif fr.transparency is not None:
                 self.dispose = self._patch(box, fr.transparency)
         if n == 0 and fr.transparency is not None:
             self.info_t = fr.transparency
 
         idx, written = _frame_indices(self.data, fr)
-        w, h = self.parsed.size
+        w, h = self.size
+        if n and self.canvas.shape[:2] != (h, w):
+            self._widen(fr, frame_pal, has_pal)
+            rgb_mode = self.mode in ("RGB", "RGBA")
         if n == 0:
             fill = fr.transparency if fr.transparency is not None else 0
             self.canvas = np.full((h, w), fill, np.uint8)
@@ -288,12 +312,10 @@ class _Decoder:
             if fr.transparency is not None:
                 opaque = buf != fr.transparency
                 region[opaque, :3] = rgb[opaque]
-                if self.mode == "RGBA":
-                    region[opaque, 3] = 255
+                region[opaque, 3] = 255
             else:
                 region[..., :3] = rgb
-                if self.mode == "RGBA":
-                    region[..., 3] = 255
+                region[..., 3] = 255
         else:  # gray from the first frame on
             if has_pal:
                 raise UnsupportedMediaException(
@@ -303,10 +325,29 @@ class _Decoder:
             region = self.canvas[y0:y1, x0:x1]
             region[keep] = idx[keep]
 
+    def _widen(self, fr: _Frame, frame_pal, has_pal: bool) -> None:
+        """The canvas grown to the screen, as GifImagePlugin's
+        ``load_prepare`` (a gray canvas) and ``load_end`` (an RGB or RGBA
+        one) grow it."""
+        w, h = self.size
+        old = self.canvas
+        ph, pw = old.shape[:2]
+        grown = np.zeros((h, w) + old.shape[2:], np.uint8)
+        if self.mode in ("RGB", "RGBA"):
+            if fr.transparency is not None:
+                self.mode = "RGBA"
+            elif not has_pal:
+                raise ExecFailedException(
+                    "GIF decode failed: a frame without a colour table widens an RGB screen")
+            else:
+                grown[:] = (*_table(frame_pal)[0], 255)
+                self.mode = "RGB"
+        grown[:ph, :pw] = old
+        self.canvas = grown
+
     def _patch(self, box, fill) -> np.ndarray:
         if self.mode in ("RGB", "RGBA"):
-            ch = 4 if self.mode == "RGBA" else 3
-            return np.broadcast_to(np.asarray(fill[:ch], np.uint8), (*box, ch)).copy()
+            return np.broadcast_to(np.asarray(fill, np.uint8), (*box, 4)).copy()
         return np.full(box, fill, np.uint8)
 
     def rgba(self) -> np.ndarray:
@@ -314,7 +355,7 @@ class _Decoder:
         if self.mode == "RGBA":
             return self.canvas.copy()
         if self.mode == "RGB":
-            rgb = self.canvas
+            rgb = self.canvas[..., :3]
         elif self.mode == "P":
             rgb = self.canvas_table[self.canvas]
         else:

@@ -6,9 +6,10 @@ IDCTs at DCT scales 1/2, 1/4 and 1/8, fancy upsampling and its integer
 colour conversion. The port gives the same pixels, split three ways:
 
 - ``codecs/native/jpeg_reader.cpp`` (g++, no libjpeg): markers and the
-  Huffman decode (baseline, progressive, restarts, libjpeg-turbo's
-  tolerance of damaged data and its block smoothing of a cut progressive
-  file) into quantized coefficients, a batch of files on threads;
+  entropy decode, Huffman or arithmetic (baseline, progressive, restarts,
+  libjpeg-turbo's tolerance of damaged data and its block smoothing of a
+  cut progressive file) into quantized coefficients, a batch of files on
+  threads;
 - kernel K18 (``csrc/jpeg_idct.cu``, ``idct_planes``): dequantization and
   the IDCT at each component's own output size, every block of every
   member of a batch in one launch, from a tile table built here (a row a
@@ -123,8 +124,8 @@ def _raise_for(rc: int, frame: FlJpegFrame) -> None:
 def read_header(data: bytes) -> FlJpegFrame:
     """The frame of a JPEG (markers up to its first scan); raises
     ``UnsupportedMediaException`` for what the port refuses by name
-    (arithmetic coding, lossless, 12-bit) and ``ExecFailedException`` for
-    what libjpeg fails on."""
+    (lossless and hierarchical frames, 12-bit) and ``ExecFailedException``
+    for what libjpeg fails on."""
     frame = FlJpegFrame()
     _raise_for(_reader().fl_jpeg_header(data, len(data), ctypes.byref(frame)), frame)
     return frame
@@ -583,11 +584,13 @@ MAX_THREADS = max(1, min(8, os.cpu_count() or 1))
 class Decoded:
     """One member's result: the window's RGB, its origin and the scaled
     frame's size (the origin is (0, 0) and the size the window's for a
-    whole-frame decode)."""
+    whole-frame decode); with ``fourth``, a four-component member's fourth
+    component as decoded (its samples, no colour conversion)."""
 
     rgb: np.ndarray
     offset: Tuple[int, int]
     frame_size: Tuple[int, int]
+    fourth: Optional[np.ndarray] = None
 
 
 def _device(device: _Device) -> torch.device:
@@ -613,21 +616,57 @@ class Batch:
     tables: Tables
     packed: torch.Tensor         # uint8: quant, K18's and K19's tiles, members (pinned so)
     layout: TableLayout
+    fourths: Dict[int, int] = field(default_factory=dict)   # item -> its fourth's output
+
+
+def with_fourths(tables: Tables, plans: Sequence[MemberPlan]) -> Tuple[Tables, List[int]]:
+    """``tables`` with one more K19 member for each four-component member:
+    its fourth component's plane read as a gray image (no new K18 work),
+    its output after all the others. Returns the tables and, per member,
+    the index in ``outs`` of its fourth (-1 for none)."""
+    mems = tables.members.numpy()
+    rows, outs, where = [], list(tables.outs), []
+    out_off, first_px = tables.out_bytes, tables.pixels
+    for i, pl in enumerate(plans):
+        if pl.frame.ncomp != 4:
+            where.append(-1)
+            continue
+        row = mems[i].copy()
+        row[plain.MEM_OUT], row[plain.MEM_FIRST] = out_off, first_px
+        row[plain.MEM_COLOR], row[plain.MEM_INVERTED], row[plain.MEM_NCOMP] = plain.CS_GRAY, 0, 1
+        row[8:16] = mems[i][8 + 3 * 8:16 + 3 * 8]
+        row[16:] = 0
+        rows.append(row)
+        where.append(len(outs))
+        outs.append((out_off, pl.w, pl.h))
+        out_off += pl.w * pl.h * 3
+        first_px += pl.w * pl.h
+    if not rows:
+        return tables, where
+    members = np.concatenate([mems, np.array(rows, np.int64)])
+    return tables._replace(members=torch.from_numpy(members), out_bytes=out_off, outs=outs,
+                           color_tiles=color_tiles(members), pixels=first_px), where
 
 
 def entropy_decode(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, int, int]]]],
                    pinned: bool = False, max_pixels: Optional[int] = None,
-                   split: Optional[Dict[str, float]] = None) -> Batch:
+                   split: Optional[Dict[str, float]] = None,
+                   color: Optional[int] = None, fourth: bool = False) -> Batch:
     """The host half of ``decode_batch``: headers, plans and the entropy
     decode of every member on threads, then the kernels' tables. ``split``,
     when given, receives the seconds of the tables' step (``build_tables``
-    and ``pack_tables``) as ``tables``."""
+    and ``pack_tables``) as ``tables``. ``color``, when given, is every
+    member's colour space (FlJpegFrame.color), whatever its markers say;
+    ``fourth`` adds each four-component member's fourth component
+    (``with_fourths``)."""
     lib = _reader()
     results: List[object] = [None] * len(items)
     plans: Dict[int, MemberPlan] = {}
     for i, (data, scale_num, roi) in enumerate(items):
         try:
             frame = read_header(data)
+            if color is not None:
+                frame.color, frame.adobe = int(color), 0
             if max_pixels is not None and frame.width * frame.height > max_pixels:
                 raise ExecFailedException(
                     f"a {frame.width}x{frame.height} JPEG exceeds the {max_pixels}-pixel "
@@ -683,11 +722,15 @@ def entropy_decode(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, in
     t = time.perf_counter()
     quant = q16.astype(np.int32)
     tables = build_tables([plans[i] for i in order], starts)
+    fourths: Dict[int, int] = {}
+    if fourth:
+        tables, where = with_fourths(tables, [plans[i] for i in order])
+        fourths = {i: k for i, k in zip(order, where) if k >= 0}
     packed, layout = pack_tables(quant, tables, pinned)
     if split is not None:
         split["tables"] = time.perf_counter() - t
     return Batch(results, order, plans, coefs, torch.from_numpy(quant).reshape(-1), tables,
-                 packed, layout)
+                 packed, layout, fourths)
 
 
 def upload(batch: Batch, dev: torch.device):
@@ -737,12 +780,16 @@ def finish(batch: Batch, rgb: np.ndarray) -> List[object]:
         pl = batch.plans[i]
         img = rgb[off:off + w * h * 3].reshape(h, w, 3).copy()
         results[i] = Decoded(rgb=img, offset=(pl.x0, pl.y0), frame_size=(pl.full_w, pl.full_h))
+        if i in batch.fourths:
+            off4, w4, h4 = batch.tables.outs[batch.fourths[i]]
+            results[i].fourth = rgb[off4:off4 + w4 * h4 * 3].reshape(h4, w4, 3)[..., 0].copy()
     return results
 
 
 def decode_batch(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, int, int]]]],
                  device: _Device = "cuda", max_pixels: Optional[int] = None,
-                 split: Optional[Dict[str, float]] = None) -> List[object]:
+                 split: Optional[Dict[str, float]] = None,
+                 color: Optional[int] = None, fourth: bool = False) -> List[object]:
     """Decode ``items`` = [(JPEG bytes, scale_num, roi or None)], roi an
     (x, y, w, h) window of the scaled frame: the entropy decode of all on
     host threads, then one K18 and one K19 launch for the batch on
@@ -751,10 +798,14 @@ def decode_batch(items: Sequence[Tuple[bytes, int, Optional[Tuple[int, int, int,
     that fails fails alone). ``max_pixels`` bounds a source's declared
     size. ``split``, when given, receives the seconds of each step (host
     entropy decode, the kernels' tables, upload, K18, K19, readback;
-    synchronized on a card)."""
+    synchronized on a card). ``color`` sets every member's colour space
+    (``entropy_decode``), as a TIFF's photometric tag sets its strips';
+    ``fourth`` gives a four-component member's fourth component too (in the
+    same K19 launch)."""
     dev = _device(device)
     t0 = time.perf_counter()
-    batch = entropy_decode(items, pinned=dev.type == "cuda", max_pixels=max_pixels, split=split)
+    batch = entropy_decode(items, pinned=dev.type == "cuda", max_pixels=max_pixels, split=split,
+                           color=color, fourth=fourth)
     if split is not None:
         split["entropy"] = time.perf_counter() - t0 - split["tables"]
     if not batch.order:

@@ -148,11 +148,12 @@ def _red4_1d(c, n: int):
 
 
 def _red2_1d(c, n: int):
-    """One pass of the 2x2 reduced IDCT (jidctred-sse2.asm) -> 2 outputs."""
+    """One pass of the 2x2 reduced IDCT (jidctred-sse2.asm) -> 2 outputs,
+    in 32 bits (``idct_blocks`` saturates pass 1's odd columns)."""
     tmp10 = c[..., 0] << (CONST_BITS + 2)
     t0 = _i32(_i32(c[..., 1] * F_3_624 + c[..., 3] * -F_1_272)
               + _i32(c[..., 5] * F_0_850 + c[..., 7] * -F_0_720))
-    return torch.stack([_s16(_i32(_i32(v) + (1 << (n - 1))) >> n)
+    return torch.stack([_i32(_i32(v) + (1 << (n - 1))) >> n
                         for v in (tmp10 + t0, tmp10 - t0)], -1)
 
 
@@ -176,7 +177,9 @@ def idct_blocks(blocks, quant, scale: int):
     32-bit lanes: dequantization keeps the low 16 bits of each product, a
     block whose AC rows (all but row 4 at 4x4) are zero takes the DC
     shifted in 16 bits through pass 1, each pass's outputs saturate to 16
-    bits, and the samples to -128..127 before +128 (so an extreme value
+    bits (but for the 2x2 pass 1's column 0, kept in 32 bits and shifted in
+    a 32-bit lane by pass 2), and the samples to -128..127 before +128 (so an
+    extreme value
     saturates where the C table would wrap; the two agree on every value
     a valid file gives)."""
     q = quant.to(torch.int64)
@@ -189,6 +192,10 @@ def idct_blocks(blocks, quant, scale: int):
     z = _w16(co * q.reshape(-1, 8, 8))
     # pass 1: each column (inputs down the rows) -> workspace rows
     ws = one(z.transpose(1, 2), n1).transpose(1, 2)      # [n, out row, column u]
+    if scale == 2:
+        # the SIMD 2x2 packs the odd columns to words for pass 2's
+        # multiplies and keeps column 0, which pass 2 only shifts, in 32 bits
+        ws = torch.cat([ws[..., :1], _s16(ws[..., 1:])], -1)
     if ac_rows is not None:
         dc_only = (co[:, list(ac_rows), :] == 0).flatten(1).all(1)
         dc = _w16(z[:, 0, :] << PASS1_BITS)[:, None, :].expand(-1, scale, -1)

@@ -5,15 +5,23 @@
 // (csrc/jpeg_idct.cu K18, csrc/jpeg_color.cu K19) give the pixels
 // libjpeg-turbo gives.
 //
-//   - markers: SOI, APP0 (JFIF), APP14 (Adobe transform), DQT, DHT, DRI,
-//     SOF0/1/2, SOS, RSTn and EOI; other APPn and COM are skipped; SOF3
-//     and the other lossless frames, 12-bit frames and a second SOF are
-//     errors, as in libjpeg; the arithmetic-coded frames (SOF9-11, 13-15)
-//     are refused by name;
+//   - markers: SOI, APP0 (JFIF), APP14 (Adobe transform), DQT, DHT, DAC,
+//     DRI, SOF0/1/2, SOF9/10, SOS, RSTn and EOI; other APPn and COM are
+//     skipped; SOF3 and the other lossless and hierarchical frames
+//     (SOF11, SOF13-15 among them), 12-bit frames and a second SOF are
+//     errors, as in libjpeg's 8-bit build;
 //   - Huffman scans: baseline and extended sequential (interleaved or
 //     not) and progressive (DC first and refine, AC first and refine,
 //     EOB runs), restart intervals, libjpeg's standard tables where a
 //     scan names a table no DHT defined;
+//   - arithmetic-coded scans (SOF9 sequential, SOF10 progressive), as
+//     libjpeg-turbo's jdarith.c decodes them: the Q-coder with the
+//     probability estimation of T.81 Table D.3 (jaricom.c), the DC and AC
+//     statistics areas and their conditioning by DAC (L, U and Kx), every
+//     progressive scan kind, the statistics reset at each restart marker,
+//     and at a marker inside a scan zero data to its end; a bad code
+//     (a magnitude or spectral overflow) leaves the rest of the restart
+//     interval as it stands;
 //   - damaged data as libjpeg-turbo reads it (jdhuff.c, jdphuff.c,
 //     jdmarker.c): past the end of the data or at a marker inside a scan
 //     the bit reader feeds zero bits, and once it has, the rest of that
@@ -86,6 +94,33 @@ const uint8_t kStdAcChroma[162] = {
     0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
     0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// jaricom.c jpeg_aritab, T.81 Table D.3 in one word a state: Qe_Value << 16
+// | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; state 113 is the
+// fixed probability 0.5 (libjpeg's fixed_bin)
+const long kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+constexpr int kArithTables = 16;  // NUM_ARITH_TBLS
+constexpr int kDcStatBins = 64, kAcStatBins = 256;
+
 enum Status { kOk = 0, kUnsupported = 1, kCorrupt = 2 };
 
 struct Fail {
@@ -146,7 +181,17 @@ struct Reader {
   bool saw_jfif, saw_adobe, saw_sof;
   int adobe_transform;
   bool progressive;
+  bool arith;
   int precision;
+  // arithmetic conditioning (DAC; jdmarker.c get_soi's defaults)
+  uint8_t arith_dc_L[kArithTables], arith_dc_U[kArithTables], arith_ac_K[kArithTables];
+  // the arithmetic decoder (jdarith.c arith_entropy_decoder)
+  long ac_c, ac_a;
+  int ac_ct;
+  int dc_context[4];
+  uint8_t dc_stats[kArithTables][kDcStatBins];
+  uint8_t ac_stats[kArithTables][kAcStatBins];
+  uint8_t fixed_bin[4];
   Comp comp[4];
   int ncomp;
   int max_h, max_v;
@@ -300,9 +345,27 @@ struct Reader {
     if (read_u16() != 4) fail(kCorrupt, "bad DRI length");
     restart_interval = read_u16();
   }
+  void get_dac() {
+    long length = read_u16() - 2;
+    while (length > 0) {
+      int index = read_byte();
+      int val = read_byte();
+      length -= 2;
+      if (index < 0 || index >= 2 * kArithTables) fail(kCorrupt, "bad DAC index");
+      if (index >= kArithTables) {
+        arith_ac_K[index - kArithTables] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 0x0F);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) fail(kCorrupt, "bad DAC value");
+      }
+    }
+    if (length != 0) fail(kCorrupt, "bad DAC length");
+  }
   void get_sof(int marker) {
     if (saw_sof) fail(kCorrupt, "duplicate SOF");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
     int length = read_u16();
     precision = read_byte();
     int height = read_u16();
@@ -402,11 +465,10 @@ struct Reader {
         case 0xC0:
         case 0xC1:
         case 0xC2:
-          get_sof(m);
-          break;
         case 0xC9:
         case 0xCA:
-          fail(kUnsupported, "an arithmetic-coded JPEG (its decoder is not ported)");
+          get_sof(m);
+          break;
         case 0xC3:
         case 0xC5:
         case 0xC6:
@@ -425,8 +487,8 @@ struct Reader {
         case 0xC4:
           get_dht();
           break;
-        case 0xCC:  // DAC: arithmetic conditioning, skipped
-          skip_variable();
+        case 0xCC:
+          get_dac();
           break;
         case 0xDB:
           get_dqt();
@@ -773,6 +835,250 @@ struct Reader {
     }
   }
 
+  // --- arithmetic decoding (jdarith.c)
+  // arith_decode: one binary decision in statistics bin *st (T.81 D.2)
+  int arith_decode(uint8_t* st) {
+    // renormalization and data input (D.2.6)
+    while (ac_a < 0x8000L) {
+      if (--ac_ct < 0) {
+        int data;
+        if (unread_marker) {
+          data = 0;  // zero data to the end of the scan
+        } else {
+          data = read_byte();
+          if (data == 0xFF) {
+            do {
+              data = read_byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        ac_c = (ac_c << 8) | data;
+        if ((ac_ct += 8) < 0)
+          if (++ac_ct == 0) ac_a = 0x8000L;  // two initial bytes read
+      }
+      ac_a <<= 1;
+    }
+    int sv = *st;
+    long qe = kAriTab[sv & 0x7F];
+    const uint8_t nl = static_cast<uint8_t>(qe & 0xFF);
+    qe >>= 8;
+    const uint8_t nm = static_cast<uint8_t>(qe & 0xFF);
+    qe >>= 8;
+    // decoding and estimation (D.2.4, D.2.5)
+    long temp = ac_a - qe;
+    ac_a = temp;
+    temp <<= ac_ct;
+    if (ac_c >= temp) {
+      ac_c -= temp;
+      if (ac_a < qe) {  // conditional LPS exchange
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        ac_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a < 0x8000L) {
+      if (ac_a < qe) {  // conditional MPS exchange
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void arith_reset_stats() {
+    for (int i = 0; i < comps_in_scan; ++i) {
+      const Comp& c = comp[scan_comp[i]];
+      if (!progressive || (Ss == 0 && Ah == 0)) {
+        std::memset(dc_stats[c.dc_tbl], 0, kDcStatBins);
+        last_dc[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (!progressive || Ss) std::memset(ac_stats[c.ac_tbl], 0, kAcStatBins);
+    }
+    ac_c = 0;
+    ac_a = 0;
+    ac_ct = -16;  // read two initial bytes into C
+  }
+  // process_restart: the RSTn marker (as the Huffman decoder reads it),
+  // then fresh statistics and coder
+  void arith_restart() {
+    if (unread_marker == 0) unread_marker = next_marker();
+    if (unread_marker == 0xD0 + next_restart_num) {
+      unread_marker = 0;
+    } else {
+      resync(next_restart_num);
+    }
+    next_restart_num = (next_restart_num + 1) & 7;
+    arith_reset_stats();
+    restarts_to_go = restart_interval;
+  }
+  // a DC difference (F.1.4.4.1, figures F.19-F.24) into last_dc[slot]
+  // (false: a magnitude overflow, the coder stops)
+  bool arith_dc_diff(int slot, int tbl) {
+    uint8_t* st = dc_stats[tbl] + dc_context[slot];
+    if (arith_decode(st) == 0) {
+      dc_context[slot] = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          warn();
+          ac_ct = -1;
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < static_cast<int>((1L << arith_dc_L[tbl]) >> 1))
+      dc_context[slot] = 0;
+    else if (m > static_cast<int>((1L << arith_dc_U[tbl]) >> 1))
+      dc_context[slot] = 12 + sign * 4;
+    else
+      dc_context[slot] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[slot] = (last_dc[slot] + v) & 0xffff;
+    return true;
+  }
+  // an AC value after its nonzero decision at index k (figures F.21-F.24);
+  // st points at the bin triple of k (false: a magnitude overflow)
+  bool arith_ac_value(uint8_t* st, int k, int tbl, int* out) {
+    const int sign = arith_decode(fixed_bin);
+    st += 2;
+    int m = arith_decode(st);
+    if (m != 0) {
+      if (arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            warn();
+            ac_ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    *out = v;
+    return true;
+  }
+  void arith_sequential(int16_t** blocks, const int* bcomp, int nblocks) {
+    if (ac_ct == -1) return;
+    for (int b = 0; b < nblocks; ++b) {
+      const int ci = bcomp[b];
+      const int slot = scan_slot(ci);
+      if (!arith_dc_diff(slot, comp[ci].dc_tbl)) return;
+      int16_t* blk = blocks[b];
+      blk[0] = static_cast<int16_t>(last_dc[slot]);
+      const int tbl = comp[ci].ac_tbl;
+      for (int k = 1; k <= 63; ++k) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (arith_decode(st)) break;  // EOB
+        while (arith_decode(st + 1) == 0) {
+          st += 3;
+          if (++k > 63) {
+            warn();
+            ac_ct = -1;  // spectral overflow
+            return;
+          }
+        }
+        int v;
+        if (!arith_ac_value(st, k, tbl, &v)) return;
+        blk[kNatural[k]] = static_cast<int16_t>(v);
+      }
+    }
+  }
+  void arith_dc_first(int16_t** blocks, const int* bcomp, int nblocks) {
+    if (ac_ct == -1) return;
+    for (int b = 0; b < nblocks; ++b) {
+      const int slot = scan_slot(bcomp[b]);
+      if (!arith_dc_diff(slot, comp[bcomp[b]].dc_tbl)) return;
+      blocks[b][0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[slot]) << Al);
+    }
+  }
+  void arith_dc_refine(int16_t** blocks, int nblocks) {
+    // jdarith.c decodes a refinement bit even after a bad code
+    const int p1 = 1 << Al;
+    for (int b = 0; b < nblocks; ++b)
+      if (arith_decode(fixed_bin)) blocks[b][0] = static_cast<int16_t>(blocks[b][0] | p1);
+  }
+  void arith_ac_first(int16_t* blk, int tbl) {
+    if (ac_ct == -1) return;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > Se) {
+          warn();
+          ac_ct = -1;
+          return;
+        }
+      }
+      int v;
+      if (!arith_ac_value(st, k, tbl, &v)) return;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << Al);
+    }
+  }
+  void arith_ac_refine(int16_t* blk, int tbl) {
+    if (ac_ct == -1) return;
+    const int p1 = 1 << Al;
+    const int m1 = -1 * (1 << Al);
+    int kex;  // the previous stage's end of block
+    for (kex = Se; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex)
+        if (arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c) {  // a coefficient nonzero before
+          if (arith_decode(st + 2)) {
+            if (*c < 0) *c = static_cast<int16_t>(*c + m1);
+            else *c = static_cast<int16_t>(*c + p1);
+          }
+          break;
+        }
+        if (arith_decode(st + 1)) {  // newly nonzero
+          *c = static_cast<int16_t>(arith_decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) {
+          warn();
+          ac_ct = -1;
+          return;
+        }
+      }
+    }
+  }
+
   int scan_slot(int ci) const {
     for (int i = 0; i < comps_in_scan; ++i)
       if (scan_comp[i] == ci) return i;
@@ -796,7 +1102,9 @@ struct Reader {
       scan_comp[i] = ci;
       comp[ci].dc_tbl = tables >> 4;
       comp[ci].ac_tbl = tables & 15;
-      if (comp[ci].dc_tbl >= 4 || comp[ci].ac_tbl >= 4) fail(kCorrupt, "bad table index");
+      // 16 arithmetic conditioning tables, 4 Huffman tables
+      if (!arith && (comp[ci].dc_tbl >= 4 || comp[ci].ac_tbl >= 4))
+        fail(kCorrupt, "bad table index");
     }
     Ss = read_byte();
     Se = read_byte();
@@ -836,7 +1144,7 @@ struct Reader {
           prevp[k] = scan_number > 1 ? bitsp[k] : 0;
         for (int k = Ss; k <= Se; ++k) bitsp[k] = Al;
       }
-      for (int i = 0; i < comps_in_scan; ++i) {
+      for (int i = 0; i < comps_in_scan && !arith; ++i) {
         Comp& c = comp[scan_comp[i]];
         if (is_dc) {
           if (Ah == 0) derive(&dc[c.dc_tbl], true, c.dc_tbl);
@@ -846,7 +1154,7 @@ struct Reader {
       }
     } else {
       if (Ss != 0 || Se != 63 || Ah != 0 || Al != 0) warn();
-      for (int i = 0; i < comps_in_scan; ++i) {
+      for (int i = 0; i < comps_in_scan && !arith; ++i) {
         Comp& c = comp[scan_comp[i]];
         derive(&dc[c.dc_tbl], true, c.dc_tbl);
         derive(&ac[c.ac_tbl], false, c.ac_tbl);
@@ -859,6 +1167,7 @@ struct Reader {
     for (int i = 0; i < 4; ++i) last_dc[i] = 0;
     eobrun = 0;
     restarts_to_go = restart_interval;
+    if (arith) arith_reset_stats();
 
     int16_t* blocks[10];
     int bcomp[10];
@@ -872,11 +1181,25 @@ struct Reader {
       for (int by = 0; by < rows; ++by) {
         for (int bx = 0; bx < c.bw; ++bx) {
           if (restart_interval) {
-            if (restarts_to_go == 0) process_restart();
+            if (restarts_to_go == 0) arith ? arith_restart() : process_restart();
           }
           if (!insufficient) last_good_imcu = by / c.v;
           int16_t* blk = block_at(ci, by, bx);
-          if (!progressive) {
+          if (arith) {
+            blocks[0] = blk;
+            bcomp[0] = ci;
+            if (!progressive) {
+              std::memset(blk, 0, 128);
+              arith_sequential(blocks, bcomp, 1);
+            } else if (Ss == 0) {
+              if (Ah == 0) arith_dc_first(blocks, bcomp, 1);
+              else arith_dc_refine(blocks, 1);
+            } else if (Ah == 0) {
+              arith_ac_first(blk, c.ac_tbl);
+            } else {
+              arith_ac_refine(blk, c.ac_tbl);
+            }
+          } else if (!progressive) {
             std::memset(blk, 0, 128);
             blocks[0] = blk;
             bcomp[0] = ci;
@@ -905,7 +1228,7 @@ struct Reader {
       for (int my = 0; my < rows; ++my) {
         for (int mx = 0; mx < f->mcus_x; ++mx) {
           if (restart_interval) {
-            if (restarts_to_go == 0) process_restart();
+            if (restarts_to_go == 0) arith ? arith_restart() : process_restart();
           }
           if (!insufficient) last_good_imcu = my;
           int b = 0;
@@ -925,9 +1248,17 @@ struct Reader {
                 ++b;
               }
           }
-          if (!progressive) mcu_sequential(blocks, bcomp, nblocks);
-          else if (Ah == 0) mcu_dc_first(blocks, bcomp, nblocks);
-          else mcu_dc_refine(blocks, nblocks);
+          if (arith) {
+            if (!progressive) arith_sequential(blocks, bcomp, nblocks);
+            else if (Ah == 0) arith_dc_first(blocks, bcomp, nblocks);
+            else arith_dc_refine(blocks, nblocks);
+          } else if (!progressive) {
+            mcu_sequential(blocks, bcomp, nblocks);
+          } else if (Ah == 0) {
+            mcu_dc_first(blocks, bcomp, nblocks);
+          } else {
+            mcu_dc_refine(blocks, nblocks);
+          }
           if (restart_interval) restarts_to_go--;
         }
       }
@@ -1111,6 +1442,12 @@ void init_reader(Reader& r, const uint8_t* data, size_t len, FlJpegFrame* f) {
   r.n = len;
   r.f = f;
   r.max_mcu_rows = -1;
+  for (int i = 0; i < kArithTables; ++i) {
+    r.arith_dc_L[i] = 0;
+    r.arith_dc_U[i] = 1;
+    r.arith_ac_K[i] = 5;
+  }
+  r.fixed_bin[0] = 113;
 }
 
 int decode_one(const uint8_t* data, size_t len, FlJpegFrame* f, int max_mcu_rows,
@@ -1166,8 +1503,8 @@ extern "C" {
 
 // Reads the markers up to the first scan: the frame's size, components,
 // sampling factors, colour space and coefficient grid. Returns 0, or 1
-// (unsupported: arithmetic coding, lossless, 12-bit, more than 4
-// components) or 2 (not a decodable JPEG), with f->error saying why.
+// (unsupported: lossless or hierarchical, 12-bit, more than 4 components)
+// or 2 (not a decodable JPEG), with f->error saying why.
 int fl_jpeg_header(const uint8_t* data, size_t len, FlJpegFrame* f) {
   std::memset(f, 0, sizeof(*f));
   Reader* rp = new Reader;

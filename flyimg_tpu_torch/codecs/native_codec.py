@@ -343,7 +343,7 @@ def jpeg_decode(data: bytes, scale_num: int = 8, roi: Optional[Tuple[int, int, i
     ``fc_jpeg_decode_roi`` gives it (the left edge aligned down to the iMCU
     column), or None where that call fails (an empty window). A file the
     decode fails on raises ``ExecFailedException``; one the port refuses
-    (arithmetic coding, lossless, 12-bit) ``UnsupportedMediaException``."""
+    (lossless or hierarchical, 12-bit) ``UnsupportedMediaException``."""
     from flyimg_tpu_torch.codecs import jpeg_dec
 
     result = jpeg_dec.decode(data, int(scale_num), roi, device=device, max_pixels=MAX_PIXELS)

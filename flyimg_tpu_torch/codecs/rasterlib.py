@@ -1,7 +1,8 @@
-"""ctypes bindings of the port's raster loops (``codecs/native/gif.cpp`` and
-``codecs/native/raster.cpp``, built with g++ into one host library at first
-use by ``cuda_build.load_host("raster")``): GIF and TIFF LZW, the GIF LZW
-encoder, the median-cut quantizer, PackBits and BMP RLE. The containers
+"""ctypes bindings of the port's raster loops (``codecs/native/gif.cpp``,
+``codecs/native/raster.cpp`` and ``codecs/native/fax.cpp``, built with g++
+into one host library at first use by ``cuda_build.load_host("raster")``):
+GIF and TIFF LZW, the GIF LZW encoder, the median-cut quantizer, PackBits,
+BMP RLE and CCITT Group 3 and 4. The containers
 around them are read and written in Python (``gif.py``, ``tiff.py``,
 ``bmp.py``). A library that fails to build raises; nothing falls back."""
 
@@ -37,6 +38,9 @@ def _lib():
         lib.fl_bmp_rle_decode.restype = p
         lib.fl_bmp_rle_decode.argtypes = [ctypes.c_char_p, _SIZE, _SIZE, i, i, i,
                                           ctypes.POINTER(_SIZE)]
+        lib.fl_fax_decode.restype = i
+        lib.fl_fax_decode.argtypes = [ctypes.c_char_p, p, p, p, p, i, i, i, i, p, _SIZE,
+                                      ctypes.POINTER(i)]
         lib.fl_raster_free.restype = None
         lib.fl_raster_free.argtypes = [p]
         lib._flyimg_bound = True
@@ -114,3 +118,28 @@ def bmp_rle_decode(data: bytes, base: int, w: int, h: int, rle4: bool) -> np.nda
     if not ptr:
         raise ExecFailedException("BMP RLE decode failed")
     return np.frombuffer(_take(ptr, out_len.value), np.uint8)
+
+
+#: fax_decode's modes
+FAX_RLE, FAX_RLE_WORD, FAX_G3_1D, FAX_G3_2D, FAX_G4 = range(5)
+#: fax_decode's outcomes: a strip's data ends inside a row (libtiff's
+#: premature EOF), its run buffer would overflow, or its data ends between
+#: rows (while looking for an EOL)
+FAX_OK, FAX_EOF, FAX_OVERFLOW, FAX_EOF_BETWEEN_ROWS = range(4)
+
+
+def fax_decode(data: bytes, strips, width: int, mode: int, lsb: bool,
+               out: np.ndarray) -> Tuple[int, int]:
+    """CCITT strips into ``out`` ([rows, row bytes] uint8, black = 1):
+    ``strips`` are (offset, length, rows, first row). Returns (strips
+    decoded, status of the first that failed or FAX_OK)."""
+    n = len(strips)
+    offs = np.array([s[0] for s in strips], np.uint64)
+    lens = np.array([s[1] for s in strips], np.uint64)
+    rows = np.array([s[2] for s in strips], np.int32)
+    outoffs = np.array([s[3] * out.shape[1] for s in strips], np.uint64)
+    status = ctypes.c_int()
+    done = _lib().fl_fax_decode(data, offs.ctypes.data, lens.ctypes.data, rows.ctypes.data,
+                                outoffs.ctypes.data, n, int(width), int(mode), int(bool(lsb)),
+                                out.ctypes.data, out.shape[1], ctypes.byref(status))
+    return done, status.value

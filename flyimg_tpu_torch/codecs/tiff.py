@@ -14,10 +14,18 @@ Pillow's mode choice, so a decode equals Pillow's:
   alpha unpremultiplied as Pillow's ``RGBa`` unpack does, unassociated and
   unspecified alpha as is), 16-bit RGB and RGBA (their high bytes), and a
   palette of 1, 2, 4 or 8 bits (the colour map's high bytes), with alpha;
+- JPEG (compression 7): every strip or tile a JPEG stream with the page's
+  JPEGTables spliced in, the page's streams one batch of the port's JPEG
+  decoder (kernels K18 and K19 on the caller's device), in the colour
+  space libtiff decodes them in under Pillow: gray, RGB, YCbCr converted
+  to RGB (tag 530 accepted), CMYK converted as Pillow converts it, RGBA;
+- CCITT modified Huffman (2, and 32771), Group 3 1-D and 2-D (3) and
+  Group 4 (4), either fill order, through ``codecs/native/fax.cpp`` (its
+  comment says how a damaged strip answers);
 - the orientation tag (274) turns the page upright.
 
-Any other compression (JPEG, CCITT and the rest) or layout raises
-``UnsupportedMediaException`` naming it.
+Any other compression or layout raises ``UnsupportedMediaException``
+naming it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import numpy as np
 
 from flyimg_tpu_torch.codecs import rasterlib
 from flyimg_tpu_torch.codecs.exif import apply_orientation
+from flyimg_tpu_torch.models.thumbnail import muldiv255
 from flyimg_tpu_torch.exceptions import (
     ExecFailedException,
     UnsupportedMediaException,
@@ -40,15 +49,19 @@ _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 16: 8}
 _TYPE_CODES = {1: "B", 2: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 16: "Q"}
 _COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
-_COMPRESSION_NAMES = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                      6: "old-style JPEG", 7: "JPEG", 34712: "JPEG 2000",
+#: CCITT compressions -> rasterlib.fax_decode's mode (Group 3 2-D by the
+#: T4Options tag)
+_FAX_MODES = {2: rasterlib.FAX_RLE, 32771: rasterlib.FAX_RLE_WORD, 3: rasterlib.FAX_G3_1D,
+              4: rasterlib.FAX_G4}
+_COMPRESSION_NAMES = {6: "old-style JPEG", 34712: "JPEG 2000",
                       34887: "LERC", 34925: "LZMA", 50000: "Zstd", 50001: "WebP"}
 
 (WIDTH, LENGTH, BPS, COMPRESSION, PHOTOMETRIC, FILLORDER, STRIP_OFFSETS,
  ORIENTATION, SPP, ROWS_PER_STRIP, STRIP_BYTES, PLANAR, PREDICTOR, COLORMAP,
- TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_BYTES, EXTRA, SAMPLE_FORMAT) = (
+ TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_BYTES, EXTRA, SAMPLE_FORMAT,
+ JPEG_TABLES, T4_OPTIONS) = (
     256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320,
-    322, 323, 324, 325, 338, 339)
+    322, 323, 324, 325, 338, 339, 347, 292)
 
 
 def _ifds(data: bytes) -> Tuple[str, List[Dict[int, tuple]]]:
@@ -120,7 +133,7 @@ def _layout(tags) -> Tuple[str, int, int]:
     if _one(tags, PLANAR, 1) != 1:
         raise UnsupportedMediaException(
             "planar (separate-plane) TIFF is not ported to the PyTorch package")
-    if _one(tags, FILLORDER, 1) != 1:
+    if _one(tags, FILLORDER, 1) != 1 and _one(tags, COMPRESSION, 1) not in _FAX_MODES:
         raise UnsupportedMediaException(
             "TIFF fill order 2 is not ported to the PyTorch package")
     if fmt != (1,):
@@ -204,6 +217,8 @@ def _page_bytes(data: bytes, tags, bo: str, bits: int, spp: int) -> np.ndarray:
     if not w or not h:
         raise ExecFailedException("TIFF decode failed: missing dimensions")
     compression = _one(tags, COMPRESSION, 1)
+    if compression in _FAX_MODES:
+        return _fax_page(data, tags, w, h, bits, spp)
     if compression not in _COMPRESSIONS:
         name = _COMPRESSION_NAMES.get(compression, str(compression))
         raise UnsupportedMediaException(
@@ -250,6 +265,47 @@ def _page_bytes(data: bytes, tags, bo: str, bits: int, spp: int) -> np.ndarray:
         if predictor == 2:
             block = _unpredict(block, w, spp, bits, bo)
         page[y0:y0 + rows] = block
+    return page
+
+
+def _fax_page(data: bytes, tags, w: int, h: int, bits: int, spp: int) -> np.ndarray:
+    """A CCITT page (compressions 2, 3, 4 and 32771) as [height, row bytes]
+    of bits, black runs 1 (libtiff's fill; the photometric tag then says
+    which is white), every strip through ``codecs/native/fax.cpp``."""
+    compression = _one(tags, COMPRESSION, 1)
+    if bits != 1 or spp != 1:
+        raise UnsupportedMediaException(
+            f"CCITT TIFF of {spp} samples of {bits} bits is not ported to the PyTorch package")
+    mode = _FAX_MODES[compression]
+    if compression == 3 and _one(tags, T4_OPTIONS, 0) & 1:
+        mode = rasterlib.FAX_G3_2D
+    row_bytes = (w + 7) // 8
+    if TILE_OFFSETS in tags:
+        raise UnsupportedMediaException("tiled CCITT TIFF is not ported to the PyTorch package")
+    offsets = tags.get(STRIP_OFFSETS)
+    if not offsets:
+        raise ExecFailedException("TIFF decode failed: no strips or tiles")
+    counts = tags.get(STRIP_BYTES, ())
+    per = min(_one(tags, ROWS_PER_STRIP, h), h) or h
+    strips = []
+    for k, off in enumerate(offsets):
+        y0 = k * per
+        if y0 >= h:
+            break
+        end = min(len(data), off + (counts[k] if k < len(counts) else len(data)))
+        strips.append((min(off, len(data)), max(0, end - off), min(per, h - y0), y0))
+    page = np.zeros((h, row_bytes), np.uint8)
+    done, status = rasterlib.fax_decode(data, strips, w, mode,
+                                        _one(tags, FILLORDER, 1) == 2, page)
+    # libtiff answers a Group 3 strip whose data ends between rows, or a 1-D
+    # one whose data ends anywhere, as read (the rows after it white here;
+    # ROADMAP Queue C 17)
+    answered = status == rasterlib.FAX_EOF_BETWEEN_ROWS or (
+        status == rasterlib.FAX_EOF and mode == rasterlib.FAX_G3_1D)
+    if status != rasterlib.FAX_OK and not answered:
+        raise ExecFailedException(
+            f"TIFF decode failed: CCITT data of strip {done} "
+            + ("ends inside a row" if status == rasterlib.FAX_EOF else "has too many runs"))
     return page
 
 
@@ -303,15 +359,119 @@ def _pixels(page: np.ndarray, tags, layout: str, bits: int, spp: int, bo: str):
     return rgb, alpha
 
 
-def decode(data: bytes, frame: int = 0) -> Tuple[np.ndarray, Optional[np.ndarray], int]:
+#: a JPEG page's photometric interpretation -> the colour space its strips
+#: decode in (jpeg_dec's FlJpegFrame.color): libtiff decodes gray, RGB and
+#: CMYK pages with no conversion (JCS_UNKNOWN) and converts YCbCr to RGB
+#: (Pillow sets JPEGCOLORMODE_RGB); the fourth sample of an RGBA or a CMYK
+#: page comes from the decoder as it is (``decode_batch(fourth=True)``)
+_JPEG_COLOR = {0: 0, 1: 0, 2: 2, 5: 2, 6: 1}
+#: photometric -> the samples a pixel of a JPEG page may have
+_JPEG_SPP = {0: (1,), 1: (1,), 2: (3, 4), 5: (4,), 6: (3,)}
+
+
+def cmyk_to_rgb(cmyk: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb``: each channel (255 - k) - (255 - k) * ink / 255,
+    with its rounding."""
+    nk = 255 - k.astype(np.int64)[..., None]
+    return np.clip(nk - muldiv255(cmyk.astype(np.int64), nk), 0, 255).astype(np.uint8)
+
+
+def _splice(tables: bytes, segment: bytes) -> bytes:
+    """An abbreviated JPEG stream with the page's JPEGTables (tag 347: SOI,
+    DQT and DHT segments, EOI) put after its SOI: one stream the reader
+    decodes as libjpeg does the two read one after the other."""
+    if len(tables) >= 4 and tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" \
+            and segment[:2] == b"\xff\xd8":
+        return segment[:2] + tables[2:-2] + segment[2:]
+    return segment
+
+
+def _jpeg_page(data: bytes, tags, device) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A JPEG-compressed page (compression 7) -> (RGB, alpha or None): every
+    strip or tile a JPEG stream with the page's tables spliced in, all of
+    them decoded as one batch of the port's JPEG decoder (one K18 and one
+    K19 launch on ``device``) at full scale, in the colour space the
+    photometric tag names, laid out as libtiff reads them and given Pillow's
+    mode (a CMYK page converted as Pillow converts it, an RGBA page's alpha
+    kept, an associated one unpremultiplied)."""
+    from flyimg_tpu_torch.codecs import jpeg_dec, native_codec
+
+    w, h = _one(tags, WIDTH), _one(tags, LENGTH)
+    if not w or not h:
+        raise ExecFailedException("TIFF decode failed: missing dimensions")
+    photo = _one(tags, PHOTOMETRIC, 0)
+    spp = _one(tags, SPP, 1)
+    bps = set(tags.get(BPS, (8,)))
+    extra = tuple(tags.get(EXTRA, ()))
+    if _one(tags, PLANAR, 1) != 1 or bps != {8} or photo not in _JPEG_COLOR \
+            or spp not in _JPEG_SPP[photo] or len(extra) != (spp == 4 and photo == 2):
+        raise UnsupportedMediaException(
+            f"a JPEG-compressed TIFF of photometric {photo}, {spp} samples of "
+            f"{sorted(bps)} bits is not ported to the PyTorch package")
+    tables = bytes(tags.get(JPEG_TABLES, ()))
+    if TILE_OFFSETS in tags:
+        tw, th = _one(tags, TILE_WIDTH), _one(tags, TILE_LENGTH)
+        offsets, counts = tags[TILE_OFFSETS], tags.get(TILE_BYTES, ())
+        across = -(-w // tw)
+        boxes = [(k // across * th, k % across * tw, tw, th) for k in range(len(offsets))]
+    else:
+        offsets, counts = tags.get(STRIP_OFFSETS), tags.get(STRIP_BYTES, ())
+        if not offsets:
+            raise ExecFailedException("TIFF decode failed: no strips or tiles")
+        per = min(_one(tags, ROWS_PER_STRIP, h), h) or h
+        boxes = [(k * per, 0, w, min(per, h - k * per)) for k in range(len(offsets))]
+    keep = [k for k, (y0, x0, _, _) in enumerate(boxes) if y0 < h and x0 < w]
+    items = [(_splice(tables, data[offsets[k]:offsets[k] + (
+        counts[k] if k < len(counts) else len(data))]), 8, None) for k in keep]
+    for stream, _, _ in items:
+        # libtiff's check: a stream of another component count fails
+        if jpeg_dec.read_header(stream).ncomp != spp:
+            raise ExecFailedException(
+                "TIFF decode failed: improper JPEG component count in a strip or tile")
+    results = jpeg_dec.decode_batch(items, device, max_pixels=native_codec.MAX_PIXELS,
+                                    color=_JPEG_COLOR[photo], fourth=spp == 4)
+    page = np.zeros((h, w, 3), np.uint8)
+    fourth = np.zeros((h, w), np.uint8) if spp == 4 else None
+    for k, out in zip(keep, results):
+        if isinstance(out, BaseException):
+            raise out
+        y0, x0, sw, sh = boxes[k]
+        got_h, got_w = out.rgb.shape[:2]
+        if got_w != sw or got_h < sh:
+            raise ExecFailedException(
+                f"TIFF decode failed: a JPEG strip or tile of {got_w}x{got_h} where "
+                f"{sw}x{sh} is expected")
+        rows, cols = min(sh, h - y0), min(sw, w - x0)
+        page[y0:y0 + rows, x0:x0 + cols] = out.rgb[:rows, :cols]
+        if fourth is not None:
+            if out.fourth is None:
+                raise ExecFailedException(
+                    "TIFF decode failed: a JPEG strip of a four-sample page has fewer "
+                    "components")
+            fourth[y0:y0 + rows, x0:x0 + cols] = out.fourth[:rows, :cols]
+    if photo == 0:
+        return 255 - page, None
+    if photo == 5:
+        return cmyk_to_rgb(page, fourth), None
+    if fourth is not None and extra[0] == 1:
+        return _unpremultiply(page, fourth), fourth
+    return page, (fourth if fourth is not None and extra[0] != 0 else None)
+
+
+def decode(data: bytes, frame: int = 0,
+           device="cuda") -> Tuple[np.ndarray, Optional[np.ndarray], int]:
     """TIFF bytes -> (rgb, alpha or None, n_frames) of page
-    ``min(frame, n_frames - 1)``, upright."""
+    ``min(frame, n_frames - 1)``, upright. A JPEG-compressed page decodes
+    with the JPEG kernels on ``device``; everything else on the host."""
     bo, pages = _ifds(data)
     total = len(pages)
     tags = pages[min(max(int(frame), 0), total - 1) if total > 1 else 0]
-    layout, bits, spp = _layout(tags)
-    page = _page_bytes(data, tags, bo, bits, spp)
-    rgb, alpha = _pixels(page, tags, layout, bits, spp, bo)
+    if _one(tags, COMPRESSION, 1) == 7:
+        rgb, alpha = _jpeg_page(data, tags, device)
+    else:
+        layout, bits, spp = _layout(tags)
+        page = _page_bytes(data, tags, bo, bits, spp)
+        rgb, alpha = _pixels(page, tags, layout, bits, spp, bo)
     orientation = _one(tags, ORIENTATION, 1)
     if orientation in range(2, 9):
         rgb = np.ascontiguousarray(apply_orientation(rgb, orientation))

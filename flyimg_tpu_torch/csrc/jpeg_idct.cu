@@ -13,8 +13,9 @@
 // dequantized coefficient keeps its low 16 bits, the sums in0 +- in4, in7
 // + in3 and in5 + in1 of the 8x8 transform wrap at 16 bits, a block whose
 // AC rows (all but row 4 at 4x4; no test at 2x2) are zero takes DC << 2 in
-// 16 bits through pass 1, each pass's outputs saturate to 16 bits and the
-// samples to -128..127 before +128. At 1x1 the DC is dequantized in int,
+// 16 bits through pass 1, each pass's outputs saturate to 16 bits (at 2x2
+// pass 1's column 0 stays in 32 bits, and pass 2 shifts it in a 32-bit
+// lane) and the samples to -128..127 before +128. At 1x1 the DC is dequantized in int,
 // descaled and looked up through the range-limit table (x & 1023 wraps).
 // On values a valid file gives, all of this is jidctint.c's and
 // jidctred.c's C arithmetic; codecs/jpeg_dec_plain.py idct_blocks is the
@@ -144,24 +145,31 @@ __device__ __forceinline__ void red4(const int (&c)[8], int (&o)[8], int n) {
   o[2] = out16<Sat>(sub(tmp12, t0), n);
 }
 
-// one pass of the 2x2 transform -> o[0..1]
-template <bool Sat>
-__device__ __forceinline__ void red2(const int (&c)[8], int (&o)[8], int n) {
+// one pass of the 2x2 transform -> o[0..1], saturated to 16 bits where
+// `sat` (jidctred-sse2.asm packs pass 1's odd columns to words for pass 2's
+// multiplies and keeps column 0, which pass 2 only shifts, in 32 bits)
+__device__ __forceinline__ void red2(const int (&c)[8], int (&o)[8], int n, bool sat) {
   const int tmp10 = shl(c[0], kConstBits + 2);
   const int t0 = add(add(mul(c[1], F_3_624), mul(c[3], -F_1_272)),
                      add(mul(c[5], F_0_850), mul(c[7], -F_0_720)));
-  o[0] = out16<Sat>(add(tmp10, t0), n);
-  o[1] = out16<Sat>(sub(tmp10, t0), n);
+  o[0] = out16<false>(add(tmp10, t0), n);
+  o[1] = out16<false>(sub(tmp10, t0), n);
+  if (sat) {
+    o[0] = s16(o[0]);
+    o[1] = s16(o[1]);
+  }
 }
 
+// one pass over column u (pass 1) or a workspace row (pass 2)
 template <int S, bool First>
-__device__ __forceinline__ void pass(const int (&c)[8], int (&o)[8]) {
+__device__ __forceinline__ void pass(const int (&c)[8], int (&o)[8], int u) {
   if constexpr (S == 8)
     islow<First>(c, o, First ? kConstBits - kPass1Bits : kConstBits + kPass1Bits + 3);
   else if constexpr (S == 4)
     red4<First>(c, o, First ? kConstBits - kPass1Bits + 1 : kConstBits + kPass1Bits + 3 + 1);
   else
-    red2<First>(c, o, First ? kConstBits - kPass1Bits + 2 : kConstBits + kPass1Bits + 3 + 2);
+    red2(c, o, First ? kConstBits - kPass1Bits + 2 : kConstBits + kPass1Bits + 3 + 2,
+         First && u != 0);
 }
 
 // IDCT_range_limit(cinfo)[x & RANGE_MASK] (jdmaster.c)
@@ -268,7 +276,7 @@ __device__ __forceinline__ void transform(const int16_t* __restrict__ sc,
 #pragma unroll
           for (int v = 0; v < 8; ++v) o[v] = dc;
         } else {
-          pass<S, true>(c, o);
+          pass<S, true>(c, o, u);
         }
 #pragma unroll
         for (int v = 0; v < S; ++v) w[v * 9 + u] = o[v];
@@ -279,7 +287,7 @@ __device__ __forceinline__ void transform(const int16_t* __restrict__ sc,
         int c[8], o[8];
 #pragma unroll
         for (int k = 0; k < 8; ++k) c[k] = w[lane * 9 + k];
-        pass<S, false>(c, o);
+        pass<S, false>(c, o, lane);
         uint8_t* dst = ob + lane * kOutPitch + b * S;
         if constexpr (S == 8)
           *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(o, 0), pack4(o, 4));

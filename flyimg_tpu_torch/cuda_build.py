@@ -77,9 +77,10 @@ SOURCES: Dict[str, tuple] = {
 HOST_SOURCES: Dict[str, tuple] = {
     "webp": (tuple(os.path.join("codecs", "native", f) for f in (
         "webp_lossy.cpp", "webp_lossless.cpp", "vp8_tables.h", "webp_lossless.h")), ()),
-    # LZW (GIF and TIFF), the GIF quantizer, PackBits and BMP RLE
+    # LZW (GIF and TIFF), the GIF quantizer, PackBits, BMP RLE and CCITT
+    # Group 3 and 4
     "raster": (tuple(os.path.join("codecs", "native", f) for f in (
-        "gif.cpp", "raster.cpp")), ()),
+        "gif.cpp", "raster.cpp", "fax.cpp")), ()),
     # the JPEG entropy writer (markers, Huffman tables, scans)
     "jpeg": (tuple(os.path.join("codecs", "native", f) for f in ("jpeg_writer.cpp",)), ()),
     # the JPEG entropy decoder (markers, Huffman scans, coefficients out)

@@ -18,12 +18,17 @@ result equals Pillow's byte for byte without Pillow installed:
   pass reads, and clips to u8; the vertical pass reads that u8 image;
 - each sum starts at ``1 << 21`` and the result is ``sum >> 22`` clipped
   to [0, 255].
+
+``resize`` takes Pillow's ``box`` (a float region of the source, passed to
+the core as C floats), and an RGBA image resizes premultiplied as
+``Image.resize`` does it (``convert("RGBa")``, resample, ``convert("RGBA")``,
+with Pillow's integer rounding both ways).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,10 +62,15 @@ BILINEAR = (_bilinear, 1.0)
 
 def _coeffs(in_size: int, out_size: int,
             filt: Tuple[Callable[[float], float], float] = LANCZOS,
+            in0: float = 0.0, in1: Optional[float] = None,
             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(xmin [out], count [out], fixed-point weights [out, ksize])."""
+    """(xmin [out], count [out], fixed-point weights [out, ksize]) of the
+    source span [in0, in1) (C floats, as ``precompute_coeffs`` takes them;
+    the whole axis by default)."""
     fn, base_support = filt
-    scale = float(in_size) / out_size
+    f0 = np.float32(in0)
+    f1 = np.float32(in_size if in1 is None else in1)
+    scale = float(f1 - f0) / out_size
     filterscale = max(scale, 1.0)
     support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
@@ -68,7 +78,7 @@ def _coeffs(in_size: int, out_size: int,
     count = np.empty(out_size, np.int64)
     kk = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
-        center = (xx + 0.5) * scale
+        center = float(f0) + (xx + 0.5) * scale
         lo = max(int(center - support + 0.5), 0)
         hi = min(int(center + support + 0.5), in_size)
         n = hi - lo
@@ -89,43 +99,88 @@ def _coeffs(in_size: int, out_size: int,
 
 def _apply(src: np.ndarray, xmin, count, fixed, axis: int) -> np.ndarray:
     """One pass over ``axis`` (1 = horizontal, 0 = vertical) of an
-    [h, w, c] u8 image -> u8."""
+    [h, w, c] u8 image -> u8, a tap at a time (the same integer sums
+    without the [.., out, ksize, ..] tensor of every tap)."""
     out_size, ksize = fixed.shape
     in_size = src.shape[axis]
-    idx = np.minimum(xmin[:, None] + np.arange(ksize)[None, :], in_size - 1)
     w = np.where(np.arange(ksize)[None, :] < count[:, None], fixed, 0)
-    taps = np.take(src.astype(np.int64), idx, axis=axis)
-    if axis == 1:      # [h, out, k, 3]
-        acc = np.einsum("hokc,ok->hoc", taps, w)
-    else:              # [out, k, w, 3]
-        acc = np.einsum("okwc,ok->owc", taps, w)
-    acc = acc + (1 << (PRECISION_BITS - 1))
+    shape = list(src.shape)
+    shape[axis] = out_size
+    acc = np.full(shape, 1 << (PRECISION_BITS - 1), np.int64)
+    for k in range(ksize):
+        idx = np.minimum(xmin + k, in_size - 1)
+        tap = np.take(src, idx, axis=axis).astype(np.int64)
+        weight = w[:, k][None, :, None] if axis == 1 else w[:, k][:, None, None]
+        acc += tap * weight
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize(img: np.ndarray, w: int, h: int, filt=LANCZOS) -> np.ndarray:
-    """``Image.fromarray(img).resize((w, h), filter)`` of an [h, w, 3] or
-    [h, w] u8 array, as an array of the same rank."""
+def muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pillow's MULDIV255: a * b / 255 rounded, in integers."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def premultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's RGBA -> RGBa (``rgbA2rgba``): each colour c * a / 255 with
+    its MULDIV255 rounding."""
+    px = rgba.astype(np.int64)
+    out = px.copy()
+    out[..., :3] = muldiv255(px[..., :3], px[..., 3:])
+    return out.astype(np.uint8)
+
+
+def unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's RGBa -> RGBA (``rgba2rgbA``): each colour 255 * c / a,
+    truncated and clipped; a pixel of alpha 0 or 255 as it is."""
+    px = rgba.astype(np.int64)
+    a = px[..., 3:]
+    scaled = np.minimum(255 * px[..., :3] // np.maximum(a, 1), 255)
+    out = px.copy()
+    out[..., :3] = np.where((a == 0) | (a == 255), px[..., :3], scaled)
+    return out.astype(np.uint8)
+
+
+def resize(img: np.ndarray, w: int, h: int, filt=LANCZOS,
+           box: Optional[Sequence[float]] = None) -> np.ndarray:
+    """``Image.fromarray(img).resize((w, h), filter, box)`` of an
+    [h, w, c] or [h, w] u8 array (c 3, or 4 for RGBA, resized
+    premultiplied as Pillow does), as an array of the same rank."""
     img = np.asarray(img, np.uint8)
     flat = img.ndim == 2
     if flat:
         img = img[..., None]
     in_h, in_w = img.shape[:2]
-    if (in_w, in_h) == (w, h):
+    box = (0.0, 0.0, float(in_w), float(in_h)) if box is None else tuple(box)
+    if (in_w, in_h) == (w, h) and box == (0, 0, in_w, in_h):
         out = np.array(img, copy=True)
+    elif img.shape[2] == 4:
+        out = unpremultiply(_resample(premultiply(img), w, h, filt, box))
     else:
-        out = img
-        ymin, ycount, yk = _coeffs(in_h, h, filt)
-        if w != in_w:
-            first = int(ymin[0])
-            last = int(ymin[-1] + ycount[-1])
-            xmin, xcount, xk = _coeffs(in_w, w, filt)
-            out = _apply(out[first:last], xmin, xcount, xk, axis=1)
-            ymin = ymin - first
-        if h != in_h:
-            out = _apply(out, ymin, ycount, yk, axis=0)
+        out = _resample(img, w, h, filt, box)
     out = np.ascontiguousarray(out)
     return out[..., 0] if flat else out
+
+
+def _resample(img: np.ndarray, w: int, h: int, filt, box) -> np.ndarray:
+    """``ImagingResampleInner`` of an [h, w, c] u8 image over ``box``."""
+    in_h, in_w = img.shape[:2]
+    x0, y0, x1, y1 = (np.float32(v) for v in box)
+    # a pass runs where the size changes or the box is not (0, 0, the
+    # output size) on that axis
+    need_h = w != in_w or x0 != 0 or x1 != w
+    need_v = h != in_h or y0 != 0 or y1 != h
+    out = img
+    ymin, ycount, yk = _coeffs(in_h, h, filt, y0, y1)
+    if need_h:
+        first = int(ymin[0])
+        last = int(ymin[-1] + ycount[-1])
+        xmin, xcount, xk = _coeffs(in_w, w, filt, x0, x1)
+        out = _apply(out[first:last], xmin, xcount, xk, axis=1)
+        ymin = ymin - first
+    if need_v:
+        out = _apply(out, ymin, ycount, yk, axis=0)
+    return out if out is not img else np.array(img, copy=True)
 
 
 def lanczos_resize(rgb: np.ndarray, w: int, h: int) -> np.ndarray:

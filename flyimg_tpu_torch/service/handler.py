@@ -290,7 +290,7 @@ class ImageHandler:
         source = self._stage("fetch", lambda: load_source(
             image_src, options, self.tmp_dir,
             header_extra_options=self.params.by_key("header_extra_options", ""),
-            policy=self.fetch_policy, deadline=deadline,
+            policy=self.fetch_policy, deadline=deadline, device=self.device,
         ), deadline, inline_fallback=False)
         timings["fetch"] = time.perf_counter() - t
         spec = resolve_output(options, image_src, source.info.mime,
@@ -337,7 +337,7 @@ class ImageHandler:
             )
         try:
             content = self._process_admitted(
-                source.data, source.info, options, spec, timings, deadline
+                source.data, source.data_info, options, spec, timings, deadline
             )
             t = time.perf_counter()
             mtime = self.storage.write(spec.name, content)
@@ -524,7 +524,8 @@ class ImageHandler:
             ), deadline)
         anim = None
         if spec.is_gif and decoded.n_frames > 1:
-            anim = self._stage("decode", lambda: codecs.decode_all(data, info), deadline)
+            anim = self._stage("decode", lambda: codecs.decode_all(data, info, self.device),
+                               deadline)
         timings["decode"] = time.perf_counter() - t
         timings[f"decode_{self._decode_mode(decoded, info, hint)}"] = timings["decode"]
         w, h = decoded.size

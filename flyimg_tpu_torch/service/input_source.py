@@ -13,7 +13,8 @@ attempt passes the origin's circuit breaker, and a transient failure
 (a connection or transport error, an answer of 429 or 5xx) is retried with
 full-jitter backoff within the deadline (``FetchPolicy``, from the
 ``retry_*``, ``breaker_*`` and ``fetch_read_timeout_s`` parameters); the
-``fetch.http`` fault point fires in each attempt.
+``fetch.http`` fault point fires in each attempt. Video and PDF sources
+are swapped for a frame or a page before decode (``load_source``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from flyimg_tpu_torch.codecs import MediaInfo, media_info
 from flyimg_tpu_torch.exceptions import (
     AppException,
     ReadFileException,
-    UnsupportedMediaException,
 )
 from flyimg_tpu_torch.runtime.resilience import (
     BreakerRegistry,
@@ -92,12 +92,20 @@ def _source_byte_cap(policy: Optional[FetchPolicy]) -> int:
 
 @dataclass
 class InputSource:
-    """Fetched source, ready for decode."""
+    """Fetched source, ready for decode: ``data`` is the image (a video's
+    frame or a PDF's page where the original is one), ``info`` the sniff of
+    the ORIGINAL (the output format resolves against it, as in the JAX
+    package) and ``data_info`` the sniff of ``data`` (what decodes)."""
 
     data: bytes
     info: MediaInfo
     cache_path: str
     source_url: str
+    data_info: Optional[MediaInfo] = None
+
+    def __post_init__(self) -> None:
+        if self.data_info is None:
+            self.data_info = self.info
 
 
 def _parse_extra_headers(header_extra_options: str) -> dict:
@@ -243,21 +251,47 @@ def load_source(
     header_extra_options: str = "",
     policy: Optional[FetchPolicy] = None,
     deadline: Optional[Deadline] = None,
+    device="cuda",
 ) -> InputSource:
-    """Fetch a source and sniff it. Video and PDF ingestion are not ported
-    yet and raise ``UnsupportedMediaException``."""
+    """Fetch and ingest a source: a video becomes its frame at ``tm_``
+    (``codecs/video.py``: OpenCV or ffmpeg; 415 without both), a PDF its
+    page at ``pg_``/``dnst_`` (``codecs/pdf.py``: ghostscript, else the
+    image-only rasterizer, its DCT images through the JPEG kernels on
+    ``device``). Frames and pages are cached beside the original under the
+    JAX package's names (``<original>-<time>.jpg``, ``-p<page>-d<density>.png``,
+    the reference's ``<src>-<time>`` frame cache, VideoProcessor.php:28-33);
+    ``rf_1`` makes them anew."""
+    refresh = options.wants_refresh()
     cache_path = fetch_original(
-        image_url, tmp_dir, refresh=options.wants_refresh(),
+        image_url, tmp_dir, refresh=refresh,
         header_extra_options=header_extra_options,
         policy=policy, deadline=deadline,
     )
     with open(cache_path, "rb") as fh:
         data = fh.read()
     info = media_info(data)
-    if info.is_video or info.is_pdf:
-        raise UnsupportedMediaException(
-            f"{info.mime} ingestion is not ported to the PyTorch package yet"
-        )
-    return InputSource(
-        data=data, info=info, cache_path=cache_path, source_url=image_url
-    )
+    data_path = cache_path
+    if info.is_video:
+        from flyimg_tpu_torch.codecs import video
+
+        time_spec = str(options.get("time") or "00:00:01")
+        # ':' and '.' stay distinguishable in the name (tm_1.5 is not
+        # tm_15) and the name stays a file name
+        safe_time = time_spec.replace(":", "-").replace(".", "_")
+        data_path = f"{cache_path}-{safe_time}.jpg"
+        if not os.path.exists(data_path) or refresh:
+            video.extract_frame(cache_path, time_spec, data_path)
+    elif info.is_pdf:
+        from flyimg_tpu_torch.codecs import pdf
+
+        page = options.int_option("page_number", 1) or 1
+        density = options.int_option("density")
+        data_path = f"{cache_path}-p{page}-d{density or 0}.png"
+        if not os.path.exists(data_path) or refresh:
+            pdf.rasterize_page(cache_path, data_path, page, density, device=device)
+    if data_path == cache_path:
+        return InputSource(data=data, info=info, cache_path=cache_path, source_url=image_url)
+    with open(data_path, "rb") as fh:
+        page_data = fh.read()
+    return InputSource(data=page_data, info=info, cache_path=cache_path,
+                       source_url=image_url, data_info=media_info(page_data))

@@ -424,7 +424,10 @@ def tiff(pages: List[dict], *, big_endian: bool = False) -> bytes:
     uint16), ``bits``, ``photometric`` and optionally ``extra`` (extra
     samples), ``compression`` (1, 5, 8, 32773), ``predictor``,
     ``rows_per_strip`` or ``tile`` ((tw, th)), ``colormap`` ([3 * 2**bits]
-    16-bit values) and ``orientation``."""
+    16-bit values) and ``orientation``; or, for another compression, the
+    strips' or tiles' bytes as ``blobs`` (``samples`` then gives only the
+    shape) and any more tags as ``tags`` ([(tag, type, values)], type 3, 4
+    or 7 for bytes)."""
     bo = ">" if big_endian else "<"
     out = bytearray((b"MM\x00*" if big_endian else b"II*\x00") + b"\0\0\0\0")
     ifd_offsets = []
@@ -433,8 +436,10 @@ def tiff(pages: List[dict], *, big_endian: bool = False) -> bytes:
         h, w, spp = s.shape
         bits, comp = page["bits"], page.get("compression", 1)
         pred = page.get("predictor", 1)
-        blobs, tags = [], []
-        if "tile" in page:
+        blobs, tags = [], list(page.get("tags", ()))
+        if "blobs" in page:
+            blobs = list(page["blobs"])
+        elif "tile" in page:
             tw, th = page["tile"]
             for ty in range(0, h, th):
                 for tx in range(0, w, tw):
@@ -477,7 +482,7 @@ def tiff(pages: List[dict], *, big_endian: bool = False) -> bytes:
         # values that do not fit in the entry go before the IFD
         entries = []
         for tag, typ, vals in tags:
-            fmt = {3: "H", 4: "I"}[typ]
+            fmt = {3: "H", 4: "I", 7: "B"}[typ]
             raw = struct.pack(bo + fmt * len(vals), *vals)
             if len(raw) <= 4:
                 entries.append((tag, typ, len(vals), raw.ljust(4, b"\0")))

@@ -4,7 +4,8 @@ decodes of them.
 ``encoder(tmp)`` compiles a small libjpeg encoder (g++ against the host's
 ``jpeglib.h``, into a temporary directory): any luma sampling factors,
 baseline or progressive, with or without a restart interval, Huffman or
-arithmetic coding -- layouts the JAX package's own encoders do not write.
+arithmetic coding (with DAC conditioning) -- layouts the JAX package's own
+encoders do not write.
 ``Native`` binds the JAX package's ``fc_jpeg_decode`` and
 ``fc_jpeg_decode_roi`` from its unmodified ``fastcodec.cpp``, built by
 ``tests/jax_fastcodec.py``. The damage helpers cut a file or flip bytes
@@ -24,7 +25,7 @@ _ENCODER_SRC = r"""
 #include <jpeglib.h>
 extern "C" unsigned char* enc(const unsigned char* rgb, int w, int h, int q, int sh, int sv,
                                int progressive, int restart, int gray, int arith,
-                               unsigned long* n) {
+                               int dac, unsigned long* n) {
   jpeg_compress_struct c;
   jpeg_error_mgr e;
   c.err = jpeg_std_error(&e);
@@ -40,6 +41,13 @@ extern "C" unsigned char* enc(const unsigned char* rgb, int w, int h, int q, int
   if (progressive) jpeg_simple_progression(&c);
   c.restart_interval = restart;
   c.arith_code = arith ? TRUE : FALSE;
+  if (dac >= 0) {
+    for (int t = 0; t < NUM_ARITH_TBLS; ++t) {
+      c.arith_dc_L[t] = dac & 15;
+      c.arith_dc_U[t] = (dac >> 4) & 15;
+      c.arith_ac_K[t] = (dac >> 8) & 63;
+    }
+  }
   if (!gray) {
     c.comp_info[0].h_samp_factor = sh;
     c.comp_info[0].v_samp_factor = sv;
@@ -71,20 +79,26 @@ class Encoder:
         lib = ctypes.CDLL(out)
         lib.enc.restype = ctypes.c_void_p
         i = ctypes.c_int
-        lib.enc.argtypes = [ctypes.c_char_p, i, i, i, i, i, i, i, i, i,
+        lib.enc.argtypes = [ctypes.c_char_p, i, i, i, i, i, i, i, i, i, i,
                             ctypes.POINTER(ctypes.c_ulong)]
         self.lib = lib
         self.libc = ctypes.CDLL(None)
         self.libc.free.argtypes = [ctypes.c_void_p]
 
     def __call__(self, pixels: np.ndarray, quality: int = 90, sampling=(2, 2),
-                 progressive: bool = False, restart: int = 0, arith: bool = False) -> bytes:
+                 progressive: bool = False, restart: int = 0, arith: bool = False,
+                 dac=None) -> bytes:
+        """``dac``: arithmetic conditioning (L, U, Kx) for every table, which
+        the encoder then writes in a DAC marker (None: libjpeg's defaults,
+        no DAC)."""
         pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+        packed = -1 if dac is None else dac[0] | dac[1] << 4 | dac[2] << 8
         gray = pixels.ndim == 2
         h, w = pixels.shape[:2]
         n = ctypes.c_ulong()
         ptr = self.lib.enc(pixels.tobytes(), w, h, quality, sampling[0], sampling[1],
-                           int(progressive), restart, int(gray), int(arith), ctypes.byref(n))
+                           int(progressive), restart, int(gray), int(arith), packed,
+                           ctypes.byref(n))
         try:
             return ctypes.string_at(ptr, n.value)
         finally:

@@ -201,11 +201,50 @@ def test_gif_coalesce_respects_disposal_and_transparency():
 
 
 def test_frame_outside_the_screen_is_refused_by_name():
+    """A frame past the logical screen is not refused: the screen widens to
+    25x25 as Pillow widens it, and every frame equals the JAX package's."""
     data = fb.gif((20, 20), [dict(idx=np.zeros((20, 20))),
                              dict(idx=np.zeros((10, 10)), offset=(15, 15))], _GPAL)
     assert _decode_all_frames(data).frames[1].shape == (25, 25, 3)
-    with pytest.raises(UnsupportedMediaException, match="outside its logical screen"):
-        gif.decode_all(data)
+    assert gif.decode_all(data).frames[1].shape == (25, 25, 3)
+    assert_same_decode(data)
+
+
+_WIDEN_LOCAL = np.array([[5, 6, 7], [100, 100, 0], [0, 90, 90], [9, 9, 9]], np.uint8)
+_WIDEN = {
+    "plain": [dict(), dict(offset=(15, 15))],
+    "transparent": [dict(), dict(offset=(15, 15), transparency=2)],
+    "first_transparent": [dict(transparency=1), dict(offset=(15, 15))],
+    "both_transparent": [dict(transparency=1), dict(offset=(15, 15), transparency=3)],
+    "first_frame": [dict(offset=(5, 5)), dict()],
+    "first_frame_transparent": [dict(offset=(5, 5), transparency=0), dict()],
+    "local_table": [dict(), dict(offset=(15, 15), local=_WIDEN_LOCAL)],
+    "disposal_2": [dict(), dict(offset=(15, 15), disposal=2), dict(offset=(3, 3))],
+    "disposal_3": [dict(), dict(offset=(15, 15), disposal=3), dict(offset=(22, 22))],
+    "disposal_3_then_alpha": [dict(), dict(offset=(2, 2), disposal=3),
+                              dict(offset=(15, 15), transparency=1, disposal=3),
+                              dict(offset=(1, 1))],
+    "twice": [dict(), dict(offset=(15, 15), transparency=1), dict(offset=(28, 2))],
+    "first_disposal_3": [dict(offset=(4, 4), disposal=3, transparency=2),
+                         dict(offset=(15, 15))],
+}
+
+
+@pytest.mark.parametrize("gray", [False, True], ids=["palette", "gray"])
+@pytest.mark.parametrize("case", sorted(_WIDEN))
+def test_frame_outside_the_screen_widens_it_as_pillow(case, gray):
+    """Frames past the 20x20 screen, with and without transparent indices,
+    disposals and local tables, in a palette or a gray file: every frame and
+    every ``gf_`` decode equals the JAX package's."""
+    rng = np.random.default_rng(len(case))
+    frames = []
+    for k, spec in enumerate(_WIDEN[case]):
+        side = 20 if k == 0 else (10 if k == 1 else 5 + k)
+        frame = dict(spec, idx=rng.integers(0, 4, (side, side)))
+        if gray:
+            frame.pop("local", None)
+        frames.append(frame)
+    assert_same_decode(fb.gif((20, 20), frames, None if gray else _GPAL))
 
 
 @pytest.mark.parametrize("name", sorted(

@@ -34,13 +34,15 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     weights (the .npz) and run, and the codecs decode an oriented PNG, build
     and run the WebP codec (lossless, lossy, lossy with alpha), encode and
     decode a still GIF and a two-frame animated one, decode a BMP and
-    refuse a JPEG on the CPU by name, with neither JAX, the JAX package nor
-    Pillow (which the card machine lacks) loaded."""
+    refuse a JPEG on the CPU by name, and rasterize a PDF page of a DCT
+    image, with neither JAX, the JAX package, Pillow (which the card machine
+    lacks) nor OpenCV (imported only when a video frame is asked for)
+    loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
     assert "flyimg_tpu_torch.models.blazeface" in mods
     assert "flyimg_tpu_torch.models.haar" in mods
-    for name in ("exif", "metadata", "native_codec"):
+    for name in ("exif", "metadata", "native_codec", "pdf", "pdf_mini", "video"):
         assert f"flyimg_tpu_torch.codecs.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -87,9 +89,26 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "    raise SystemExit('a broken JPEG decoded')\n"
         "except ExecFailedException as exc:\n"
         "    assert 'JPEG decode failed' in str(exc)\n"
+        "import zlib\n"
+        "from flyimg_tpu_torch.codecs import pdf_mini, video\n"
+        "dct = codecs.encode(small, 'jpg', device='cpu')\n"
+        "objs = [b'<< /Type /Catalog /Pages 2 0 R >>',\n"
+        "        b'<< /Type /Pages /Count 1 /Kids [3 0 R] >>',\n"
+        "        b'<< /Type /Page /Parent 2 0 R /MediaBox [0 0 30 20] /Resources'\n"
+        "        b' << /XObject << /im 4 0 R >> >> /Contents 5 0 R >>',\n"
+        "        b'<< /Type /XObject /Subtype /Image /Width 30 /Height 20 /Filter /DCTDecode'\n"
+        "        b' /BitsPerComponent 8 /ColorSpace /DeviceRGB /Length %d >>stream\\n' % len(dct)\n"
+        "        + dct + b'\\nendstream',\n"
+        "        b'<< /Length 27 >>stream\\nq 30 0 0 20 0 0 cm /im Do Q\\nendstream']\n"
+        "pdf = b'%PDF-1.4\\n' + b''.join(b'%d 0 obj' % (i + 1) + o + b'endobj\\n'\n"
+        "                                 for i, o in enumerate(objs)) + b'trailer<< /Root 1 0 R >>'\n"
+        "page = pdf_mini.rasterize_mini(pdf, 1, 72, device='cpu')\n"
+        "assert page.shape == (20, 30, 3)\n"
+        "assert (page == codecs.decode(dct, device='cpu').rgb).all()\n"
+        "assert video.FFMPEG is None or video.FFMPEG\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'flyimg_tpu' or n.startswith('flyimg_tpu.')\n"
-        "             or n == 'PIL' or n.startswith('PIL.'))\n"
+        "             or n == 'PIL' or n.startswith('PIL.') or n == 'cv2')\n"
         "print('BAD', bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -308,10 +308,141 @@ def test_batch_runner_follows_the_jax_runner_s_contract(enc):
 
 
 def test_arithmetic_coding_is_refused_by_name(native, enc):
+    """An arithmetic-coded file (SOF9) is no longer refused: it decodes as
+    libjpeg-turbo decodes it."""
     data = enc(jt.photo(32, 24, 1), 90, (2, 2), arith=True)
-    assert native.decode(data, 8) is not None  # libjpeg-turbo decodes it
-    with pytest.raises(UnsupportedMediaException, match="arithmetic"):
-        _port(data, 8)
+    assert data[data.index(b"\xff\xc9"):][:2] == b"\xff\xc9"
+    _assert_same(_port(data, 8).rgb, native.decode(data, 8))
+
+
+ARITH_SAMPLINGS = [None, (1, 1), (2, 1), (2, 2)]
+
+
+def _arith_file(enc, sampling, progressive, restart, seed=4, size=(97, 61), dac=None):
+    pixels = jt.photo(size[0], size[1], seed)
+    if sampling is None:
+        return enc(pixels[..., 1], 85, (1, 1), progressive, restart, arith=True, dac=dac)
+    return enc(pixels, 85, sampling, progressive, restart, arith=True, dac=dac)
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("progressive", [False, True], ids=["sof9", "sof10"])
+@pytest.mark.parametrize("sampling", ARITH_SAMPLINGS,
+                         ids=lambda s: "gray" if s is None else f"{s[0]}x{s[1]}")
+def test_arithmetic_files_equal_the_native_decode(native, enc, sampling, progressive, restart):
+    """Arithmetic-coded files, sequential (SOF9) and progressive (SOF10),
+    gray, 4:4:4, 4:2:2 and 4:2:0, with and without restart markers: every
+    DCT scale and three windows equal fc_jpeg_decode and
+    fc_jpeg_decode_roi."""
+    data = _arith_file(enc, sampling, progressive, restart)
+    assert (b"\xff\xca" if progressive else b"\xff\xc9") in data
+    for scale in SCALES:
+        _assert_same(_port(data, scale).rgb, native.decode(data, scale))
+        fw, fh = -(-97 * scale // 8), -(-61 * scale // 8)
+        for name in ("middle", "bottom_right", "full_width_band"):
+            roi = _windows(fw, fh)[name]
+            want = native.decode_roi(data, scale, roi)
+            got = _port(data, scale, roi)
+            _assert_same(got.rgb, want[0])
+            assert (got.offset, got.frame_size) == (want[1], want[2])
+
+
+@pytest.mark.parametrize("dac", [(0, 0, 1), (2, 5, 20), (15, 15, 63)],
+                         ids=["low", "mid", "high"])
+@pytest.mark.parametrize("progressive", [False, True], ids=["sof9", "sof10"])
+def test_arithmetic_conditioning_tables_equal_the_native_decode(native, enc, progressive, dac):
+    """A DAC marker's L, U and Kx change the statistics bins a value is
+    coded in; the decode follows them as libjpeg-turbo does."""
+    data = _arith_file(enc, (2, 2), progressive, 2, seed=7, dac=dac)
+    assert b"\xff\xcc" in data
+    for scale in SCALES:
+        _assert_same(_port(data, scale).rgb, native.decode(data, scale))
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["sof9", "sof10"])
+@pytest.mark.parametrize("restart", [0, 4])
+@pytest.mark.parametrize("fraction", [0.03, 0.1, 0.5, 0.93])
+def test_truncated_arithmetic_file_equals_the_native_decode(native, enc, fraction, restart,
+                                                           progressive):
+    """A cut arithmetic-coded file: the coder reads zero data to the end of
+    each scan (no block is left zero on purpose, as Huffman's are), and a
+    progressive file then gets the block smoothing; whole and windows."""
+    for k, sampling in enumerate([(2, 2), (1, 1), None]):
+        data = jt.truncate(_arith_file(enc, sampling, progressive, restart, seed=11 + k,
+                                       size=(203, 157)), fraction)
+        for scale in SCALES:
+            _assert_native(native, data, scale)
+            fw, fh = -(-203 * scale // 8), -(-157 * scale // 8)
+            roi = (fw // 3, fh // 4, fw // 2, fh // 2)
+            want = native.decode_roi(data, scale, roi)
+            if want is not None:
+                got = _port(data, scale, roi)
+                _assert_same(got.rgb, want[0])
+                assert (got.offset, got.frame_size) == (want[1], want[2])
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("layout", ["sof9", "sof9_restarts", "sof10"])
+def test_corrupted_arithmetic_segment_equals_the_native_decode(native, enc, layout, seed):
+    """Bytes replaced inside arithmetic-coded data: wrong decisions, bad
+    codes (a magnitude or spectral overflow stops the coder to the next
+    restart marker) and restart markers out of step, as libjpeg-turbo
+    answers them."""
+    progressive = layout == "sof10"
+    restart = 4 if layout == "sof9_restarts" else 0
+    data = jt.corrupt(_arith_file(enc, (2, 2), progressive, restart, seed=5, size=(120, 90)),
+                      seed)
+    for scale in SCALES:
+        _assert_native(native, data, scale)
+
+
+INGEST = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "ingest")
+
+
+@pytest.mark.parametrize("scale", [8, 2])
+def test_arithmetic_fixture_equals_its_reference(scale):
+    """The committed 2048x1536 arithmetic progressive JPEG (chip_smoke.py
+    phase 16's) decodes to the SHA-256 its reference.json holds: the JAX
+    package's fc_jpeg_decode at 1/1 and 1/4 (tools/make_ingest_fixtures.py)."""
+    import hashlib
+
+    with open(os.path.join(INGEST, "reference.json")) as fh:
+        want = json.load(fh)["arith_progressive_2048x1536.jpg"][f"s{scale}"]
+    with open(os.path.join(INGEST, "arith_progressive_2048x1536.jpg"), "rb") as fh:
+        data = fh.read()
+    assert data[data.index(b"\xff\xca"):][:2] == b"\xff\xca"
+    rgb = _port(data, scale).rgb
+    assert list(rgb.shape) == want["shape"]
+    assert hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest() == want["sha256"]
+
+
+@pytest.mark.parametrize("marker", [0xCB, 0xCD, 0xCE, 0xCF],
+                         ids=["sof11", "sof13", "sof14", "sof15"])
+def test_lossless_and_hierarchical_arithmetic_frames_are_refused_by_name(native, enc, marker):
+    """SOF11 (lossless) and SOF13-15 (hierarchical) stay refused, as
+    libjpeg's 8-bit build refuses them."""
+    data = bytearray(enc(jt.photo(24, 16, 2), 90, (2, 2), arith=True))
+    at = data.index(b"\xff\xc9")
+    data[at + 1] = marker
+    assert native.decode(bytes(data), 8) is None
+    with pytest.raises(UnsupportedMediaException, match="lossless or hierarchical"):
+        _port(bytes(data), 8)
+
+
+def test_arithmetic_and_huffman_members_share_one_batch(enc):
+    """Arithmetic and Huffman members in one batch (one K18 and one K19
+    launch) equal the same members decoded alone."""
+    items = []
+    for k, sampling in enumerate(ARITH_SAMPLINGS):
+        for arith in (False, True):
+            pixels = jt.photo(61, 45, k)
+            pixels = pixels[..., 0] if sampling is None else pixels
+            data = enc(pixels, 90, sampling or (1, 1), k % 2 == 1, 2, arith=arith)
+            items += [(data, 8, None), (data, 4, (3, 2, 17, 11))]
+    got = jpeg_dec.decode_batch(items, device="cpu")
+    for (data, scale, roi), out in zip(items, got):
+        alone = jpeg_dec.decode(data, scale, roi, device="cpu")
+        np.testing.assert_array_equal(out.rgb, alone.rgb)
 
 
 @pytest.mark.parametrize("marker,precision", [(0xC1, 8), (0xC3, 8), (0xC0, 12)],

@@ -184,7 +184,7 @@ def test_k17_takes_a_group_of_planes_in_one_launch(kernels):
     np.testing.assert_array_equal(got, want)
 
 
-def _host_decode(kernels, monkeypatch, items):
+def _host_decode(kernels, monkeypatch, items, **options):
     """``jpeg_dec.decode_batch`` of ``items`` with K18 and K19 compiled for
     the host in place of the plain versions, each launch over the tile
     tables of the batch's segment and member tables (``idct_tiles``,
@@ -222,7 +222,7 @@ def _host_decode(kernels, monkeypatch, items):
 
     monkeypatch.setattr(jpeg_dec, "idct_planes", idct)
     monkeypatch.setattr(jpeg_dec, "color_planes", color)
-    return jpeg_dec.decode_batch(items, device="cpu")
+    return jpeg_dec.decode_batch(items, device="cpu", **options)
 
 
 def _fixture_bytes():
@@ -264,6 +264,50 @@ def test_k18_k19_sources_on_edge_sizes_samplings_windows_and_damage(kernels, mon
               for s in (2, 4, 8)]
     for got in _host_decode(kernels, monkeypatch, items):
         assert got.rgb.ndim == 3
+
+
+def test_k18_k19_sources_on_extreme_coefficients_of_cut_arithmetic_files(kernels, monkeypatch,
+                                                                         tmp_path):
+    """Cut arithmetic-coded files, whose coder runs on zero data to the end
+    of the scan and whose smoothed blocks then reach past 16 bits: K18 at
+    2x2 keeps pass 1's column 0 in 32 bits (it wraps in pass 2) and
+    saturates the odd columns, as the SIMD IDCT does, at every scale."""
+    import jpeg_test_files as jt
+
+    enc = jt.encoder(str(tmp_path))
+    items = []
+    for k, sampling in enumerate([(1, 1), (2, 2)]):
+        data = jt.truncate(enc(jt.photo(203, 157, 11 + k), 85, sampling, True, 0, arith=True),
+                           0.03)
+        items += [(data, s, None) for s in (1, 2, 4, 8)]
+    for got in _host_decode(kernels, monkeypatch, items):
+        assert got.rgb.ndim == 3
+
+
+def test_k19_source_decodes_a_fourth_component_as_gray(kernels, monkeypatch):
+    """A four-component member's fourth component as its own gray K19
+    member in the same launch (``decode_batch(fourth=True)``, the RGBA and
+    CMYK TIFF JPEG route), beside three-component and gray members, with
+    the colour space set from outside (``color=``, RGB: the three first
+    components as they are): K19's source equals its plain version, and
+    the fourth plane is the member's own K sample."""
+    import os
+
+    import numpy as np
+
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
+    files = [open(os.path.join(root, f"q90_cmyk{s}.jpg"), "rb").read()
+             for s in ("", "_h2v1", "_h2v2")]
+    cmyk = files[0]
+    items = [(cmyk, 8, None), (files[1], 8, None), (files[2], 2, None),
+             (cmyk, 4, (3, 2, 17, 11))]
+    got = _host_decode(kernels, monkeypatch, items, color=2, fourth=True)
+    assert all(out.fourth is not None for out in got)
+    alone = jpeg_dec.decode(cmyk, 8, None, device="cpu")
+    assert got[0].rgb.shape == alone.rgb.shape and got[0].fourth.shape == alone.rgb.shape[:2]
+    assert not np.array_equal(got[0].fourth, got[0].rgb[..., 0])
 
 
 # ---------------------------------------------------------------------------

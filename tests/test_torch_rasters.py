@@ -381,14 +381,316 @@ def test_pillow_tiffs_decode_as_the_jax_package(mode, compression):
     ("jpeg", "RGB", "JPEG"), ("group4", "1", "CCITT Group 4"), ("group3", "1", "CCITT Group 3"),
 ])
 def test_tiff_compressions_not_ported_are_refused_by_name(compression, mode, name):
-    """Pillow decodes these (ROADMAP Queue A 3 lists them); the port answers
-    415 naming the compression."""
+    """TIFF JPEG and CCITT Group 3 and 4, once refused by name, decode as
+    the JAX package's Pillow decodes them (max difference 0)."""
     img = Image.fromarray(photo(H, W, 13)).convert(mode)
     buf = io.BytesIO()
     img.save(buf, "TIFF", compression=compression)
     assert pil_codec.decode(buf.getvalue()).rgb.shape == (H, W, 3)
-    with pytest.raises(UnsupportedMediaException, match=f"TIFF compression {name}"):
-        codecs.decode(buf.getvalue(), device="cpu")
+    assert_same_still(buf.getvalue())
+
+
+def _pillow_tiff(img, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+_RGB = photo(H, W, 25)
+#: layouts the port refuses by name that Pillow writes and decodes here
+#: (ROADMAP Queue C 18); Pillow's own planar LZW file and a raw YCbCr page
+#: it does not decode (it raises), so they are no departure
+_REFUSED_LAYOUTS = {
+    "planar_separate": lambda: _pillow_tiff(Image.fromarray(_RGB), tiffinfo={284: 2}),
+    "fill_order_2": lambda: _pillow_tiff(Image.fromarray(_RGB), tiffinfo={266: 2}),
+    "fill_order_2_lzw": lambda: _pillow_tiff(Image.fromarray(_RGB), compression="tiff_lzw",
+                                             tiffinfo={266: 2}),
+    "float_predictor_3": lambda: _pillow_tiff(
+        Image.fromarray(_RGB[..., 0].astype(np.float32)), compression="tiff_adobe_deflate",
+        tiffinfo={317: 3}),
+    "float": lambda: _pillow_tiff(Image.fromarray(_RGB[..., 0].astype(np.float32))),
+    "signed_32": lambda: _pillow_tiff(Image.fromarray(_RGB[..., 0].astype(np.int32) - 100)),
+    "cmyk": lambda: _pillow_tiff(Image.fromarray(_RGB).convert("CMYK")),
+    "cmyk_lzw": lambda: _pillow_tiff(Image.fromarray(_RGB).convert("CMYK"),
+                                     compression="tiff_lzw"),
+    "lab": lambda: _pillow_tiff(Image.fromarray(_RGB).convert("LAB")),
+    "bigtiff": lambda: _pillow_tiff(Image.fromarray(_RGB), big_tiff=True),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_REFUSED_LAYOUTS))
+def test_tiff_layouts_still_refused_depart_from_pillow(layout):
+    """A departure kept on purpose (ROADMAP Queue C 18): Pillow writes and
+    decodes these pages; the port answers 415 naming the layout."""
+    data = _REFUSED_LAYOUTS[layout]()
+    assert pil_codec.decode(data).rgb.shape == (H, W, 3)
+    with pytest.raises(UnsupportedMediaException, match="not ported"):
+        codecs.decode(data, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["planar_separate_lzw", "ycbcr_uncompressed"])
+def test_tiff_layouts_pillow_fails_on_fail_in_the_port_too(layout):
+    """Pillow's planar LZW file (a strip of 0 bytes) and an uncompressed
+    YCbCr page: Pillow raises on its own files, and so does the port."""
+    img = Image.fromarray(_RGB)
+    data = (_pillow_tiff(img, compression="tiff_lzw", tiffinfo={284: 2})
+            if layout == "planar_separate_lzw" else _pillow_tiff(img.convert("YCbCr")))
+    with pytest.raises(Exception):
+        pil_codec.decode(data)
+    with pytest.raises(UnsupportedMediaException):
+        codecs.decode(data, device="cpu")
+
+
+# ------------------------------------------------------------------ TIFF JPEG
+
+
+@pytest.mark.parametrize("quality", [60, 95])
+@pytest.mark.parametrize("mode", ["RGB", "L", "YCbCr", "CMYK", "RGBA"])
+@pytest.mark.parametrize("size", [(1, 1), (17, 9), (203, 157), (2048, 90)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pillow_jpeg_tiffs_decode_as_the_jax_package(size, mode, quality):
+    """The JPEG-compressed TIFFs Pillow writes (libtiff: the tables in
+    JPEGTables, a JPEG stream a strip, strips of a multiple of 8 rows and a
+    last one of the rest; 2048 wide takes 6 strips): gray, RGB, YCbCr,
+    CMYK (converted as Pillow converts it) and RGBA (its fourth sample the
+    alpha), every strip in one batch of the port's JPEG decoder."""
+    w, h = size
+    rgb = photo(h, w, 21)
+    if mode == "RGBA":
+        img = Image.fromarray(np.dstack([rgb, rgb[..., 1]]))
+    else:
+        img = Image.fromarray(rgb).convert(mode)
+    buf = io.BytesIO()
+    img.save(buf, "TIFF", compression="jpeg", quality=quality)
+    assert_same_still(buf.getvalue())
+
+
+def _jpeg_split(data: bytes):
+    """A JPEG as libtiff stores it: (JPEGTables: SOI, its DQT and DHT
+    segments, EOI; the abbreviated stream without them)."""
+    tables, stream, i = [b"\xff\xd8"], [b"\xff\xd8"], 2
+    while data[i + 1] != 0xDA:
+        seg = data[i:i + 2 + int.from_bytes(data[i + 2:i + 4], "big")]
+        (tables if data[i + 1] in (0xC4, 0xDB) else stream).append(seg)
+        i += len(seg)
+    return b"".join(tables + [b"\xff\xd9"]), b"".join(stream) + data[i:]
+
+
+@pytest.fixture(scope="module")
+def jpeg_enc(tmp_path_factory):
+    import jpeg_test_files as jt
+    from jax_fastcodec import tool
+
+    reason = tool.missing()
+    if reason:
+        pytest.skip(reason)
+    return jt.encoder(str(tmp_path_factory.mktemp("tiff_jpeg_encoder")))
+
+
+@pytest.mark.parametrize("tables", [True, False], ids=["jpegtables", "whole_streams"])
+@pytest.mark.parametrize("layout", ["ycbcr420_rows8", "ycbcr422_rows24", "ycbcr420_tiles",
+                                    "rgb_ids_012", "miniswhite", "progressive_restarts"])
+def test_hand_built_jpeg_tiffs_decode_as_the_jax_package(jpeg_enc, layout, tables):
+    """Strips and tiles of streams libtiff would not write itself:
+    photometric YCbCr with tag 530 and 4:2:0 or 4:2:2 streams in strips of
+    8 and 24 rows (not a multiple of the MCU height) or in tiles, an RGB
+    page whose streams carry no colour marker and YCbCr's component ids
+    (libtiff decodes it unconverted), min-is-white gray, progressive streams
+    with restart markers; with the tables in tag 347 or in every stream."""
+    w, h = 77, 53
+    rgb = photo(h, w, 22)
+    photometric, spp, sampling = 6, 3, (2, 2)
+    extra = []
+    if layout == "ycbcr422_rows24":
+        sampling = (2, 1)
+    if layout.startswith("ycbcr"):
+        extra.append((530, 3, list(sampling)))
+    if layout == "rgb_ids_012":
+        photometric, sampling = 2, (1, 1)
+    if layout == "miniswhite":
+        photometric, spp = 0, 1
+    per = {"ycbcr420_rows8": 8, "ycbcr422_rows24": 24}.get(layout, 16)
+    progressive = layout == "progressive_restarts"
+
+    def stream(block):
+        pixels = block[..., 0] if spp == 1 else block
+        data = jpeg_enc(pixels, 85, sampling, progressive, 2 if progressive else 0)
+        if layout == "rgb_ids_012":
+            # the encoder's YCbCr stream, read raw by libtiff: ids 1, 2, 3
+            # and a JFIF marker say YCbCr, the photometric tag says RGB
+            assert b"JFIF" in data
+        return data
+
+    page = dict(samples=np.zeros((h, w, spp), np.uint8), bits=8, photometric=photometric,
+                compression=7)
+    if layout == "ycbcr420_tiles":
+        boxes = [(y, x) for y in range(0, h, 32) for x in range(0, w, 32)]
+        streams = []
+        for y, x in boxes:
+            block = np.zeros((32, 32, 3), np.uint8)
+            part = rgb[y:y + 32, x:x + 32]
+            block[:part.shape[0], :part.shape[1]] = part
+            streams.append(stream(block))
+        page["tile"] = (32, 32)
+    else:
+        streams = [stream(rgb[y:y + per]) for y in range(0, h, per)]
+        page["rows_per_strip"] = per
+    if tables:
+        split = [_jpeg_split(d) for d in streams]
+        extra.append((347, 7, list(split[0][0])))
+        streams = [b for _, b in split]
+    page["blobs"] = streams
+    page["tags"] = extra
+    assert_same_still(fb.tiff([page]))
+
+
+def test_jpeg_tiff_strips_share_one_launch_of_each_kernel(monkeypatch):
+    """A page's strips (11 here) are one batch: one K18 and one K19 launch."""
+    from flyimg_tpu_torch.codecs import jpeg_dec
+
+    calls = []
+    real = jpeg_dec.decode_batch
+
+    def spy(items, *args, **kwargs):
+        calls.append(len(items))
+        return real(items, *args, **kwargs)
+
+    monkeypatch.setattr(jpeg_dec, "decode_batch", spy)
+    buf = io.BytesIO()
+    Image.fromarray(photo(300, 2048, 23)).save(buf, "TIFF", compression="jpeg")
+    got = codecs.decode(buf.getvalue(), device="cpu")
+    assert got.rgb.shape == (300, 2048, 3) and calls == [19]
+
+
+@pytest.mark.parametrize("name", ["strips.tif", "g4_page.tif"])
+def test_ingest_tiff_fixtures_equal_their_references(name):
+    """chip_smoke.py phase 16's committed TIFFs (1024x768 in JPEG strips, a
+    2550x3300 Group 4 page) decode to the SHA-256 reference.json holds:
+    the JAX package's Pillow decode (tools/make_ingest_fixtures.py)."""
+    import hashlib
+
+    folder = os.path.join(DATA, "ingest")
+    with open(os.path.join(folder, "reference.json")) as fh:
+        want = json.load(fh)[name]
+    with open(os.path.join(folder, name), "rb") as fh:
+        rgb = codecs.decode(fh.read(), device="cpu").rgb
+    assert list(rgb.shape) == want["shape"]
+    assert hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest() == want["sha256"]
+
+
+# ------------------------------------------------------------------ TIFF CCITT
+
+
+def _bilevel(h, w, seed):
+    """A seeded page of text-like strokes, noise and long runs."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    ink = (np.sin(x / (7 + seed % 5)) + np.cos(y / 9.0)) > 0.3
+    ink ^= rng.random((h, w)) < 0.02
+    ink[h // 3:h // 2] = rng.random(w) < 0.5
+    ink[:, w // 4] = True
+    ink[-1] = False
+    return np.where(ink, 0, 255).astype(np.uint8)
+
+
+CCITT_VARIANTS = {
+    "g3_1d": ("group3", {}), "g3_2d": ("group3", {292: 1}), "g3_2d_fill": ("group3", {292: 5}),
+    "g3_fill": ("group3", {292: 4}), "g3_fillorder2": ("group3", {266: 2, 292: 1}),
+    "g4": ("group4", {}), "g4_fillorder2": ("group4", {266: 2}),
+    "g4_minisblack": ("group4", {262: 1}), "g3_minisblack": ("group3", {262: 1}),
+    "rle": ("tiff_ccitt", {}), "rle_word": ("tiff_raw_16", {}),
+    "g4_strips7": ("group4", {278: 7}),
+    "g3_2d_strips5": ("group3", {292: 1, 278: 5}), "rle_strips3": ("tiff_ccitt", {278: 3}),
+}
+
+
+def _ccitt(variant, h, w, seed=24):
+    compression, info = CCITT_VARIANTS[variant]
+    buf = io.BytesIO()
+    Image.fromarray(_bilevel(h, w, seed)).convert("1").save(
+        buf, "TIFF", compression=compression, tiffinfo=info)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 3), (64, 40), (203, 157), (1728, 30),
+                                  (2600, 12), (5000, 5)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("variant", sorted(CCITT_VARIANTS))
+def test_pillow_ccitt_tiffs_decode_as_the_jax_package(variant, size):
+    """CCITT modified Huffman (2, and 32771 with its rows on 16-bit words),
+    Group 3 1-D and 2-D with and without EOL fill (T4Options 0, 1, 4, 5)
+    and Group 4, FillOrder 2, min-is-white and min-is-black, one strip and
+    several, widths past every make-up code (5000): the page equals
+    Pillow's decode, white 255 and black 0 in RGB."""
+    w, h = size
+    data = _ccitt(variant, h, w)
+    try:
+        pil_codec.decode(data)
+    except Exception:  # noqa: BLE001 - Pillow failing on its own file
+        # Pillow cannot read some of its 32771 files (libtiff reads the
+        # rows its writer laid out as bad codes); the port fails as well
+        assert variant == "rle_word", variant
+        with pytest.raises(Exception):
+            codecs.decode(data, device="cpu")
+        return
+    assert_same_still(data)
+
+
+def _corrupt_strip(data: bytes, seed: int) -> bytes:
+    from flyimg_tpu_torch.codecs import tiff
+
+    _, pages = tiff._ifds(data)
+    off, count = pages[0][273][0], pages[0][279][0]
+    rng = np.random.default_rng(seed)
+    buf = bytearray(data)
+    for pos in rng.integers(off, off + count, 1 + seed % 4):
+        buf[pos] = int(rng.integers(0, 256))
+    return bytes(buf)
+
+
+def _rows_decoded(data: bytes) -> np.ndarray:
+    """The rows the port's CCITT decode writes (a strip that ends early
+    leaves the rest as they were: found with a buffer of 0xAA bytes)."""
+    from flyimg_tpu_torch.codecs import rasterlib, tiff
+
+    _, pages = tiff._ifds(data)
+    tags = pages[0]
+    w, h = tags[256][0], tags[257][0]
+    compression = tags[259][0]
+    mode = {2: rasterlib.FAX_RLE, 4: rasterlib.FAX_G4}.get(compression, rasterlib.FAX_G3_1D)
+    if compression == 3 and tags.get(292, (0,))[0] & 1:
+        mode = rasterlib.FAX_G3_2D
+    page = np.full((h, (w + 7) // 8), 0xAA, np.uint8)
+    rasterlib.fax_decode(data, [(tags[273][0], tags[279][0], h, 0)], w, mode,
+                         tags.get(266, (1,))[0] == 2, page)
+    return ~(page == 0xAA).all(axis=1)
+
+
+@pytest.mark.parametrize("seed", range(12))
+@pytest.mark.parametrize("variant", ["g4", "g4_fillorder2", "rle", "g3_1d", "g3_2d",
+                                     "g3_fillorder2"])
+def test_damaged_ccitt_decodes_as_the_jax_package(variant, seed):
+    """Bytes replaced inside a strip: bad codes end a row white to its end,
+    a vertical code past the reference line ends it, an uncompressed-mode
+    code ends it, a bad code leaves a Group 3 decode out of step to the
+    next EOL, an EOL ends a Group 4 strip, and a strip whose data runs out
+    fails (modified Huffman, Group 3 2-D inside a row) or is answered
+    (Group 4, Group 3 between rows, Group 3 1-D), all as libtiff under
+    Pillow answers: where Pillow raises the port raises, and every row the
+    decode wrote equals Pillow's. The rows after a strip that ended early
+    are not image data in Pillow's answer (its strip buffer as it was, or
+    bytes libtiff leaves there; ROADMAP Queue C 17); the port's are 0 bits."""
+    data = _corrupt_strip(_ccitt(variant, 157, 203), seed)
+    try:
+        want = pil_codec.decode(data)
+    except Exception:  # noqa: BLE001 - Pillow's own failure
+        with pytest.raises(Exception):
+            codecs.decode(data, device="cpu")
+        return
+    got = codecs.decode(data, device="cpu").rgb
+    written = _rows_decoded(data)
+    np.testing.assert_array_equal(got[written], want.rgb[written])
+    # Pillow writes mode "1" min-is-black: 0 bits are black
+    assert (got[~written] == 0).all()
 
 
 @pytest.mark.parametrize("name", sorted(
