@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tiled-only   # phase 9's checks on every card
+    python3 chip_smoke.py --service-phase DIR   # phase 17 alone (its process)
 
 Phases, in order; any failure exits non-zero without a result line:
 
@@ -278,7 +279,16 @@ Phases, in order; any failure exits non-zero without a result line:
              routes; prints the PDF request's host split, the arithmetic
              against the Huffman entropy decode and the CCITT decode ms.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-16)
+17. service — signed URLs, domain restrictions, /path, /readyz, traces,
+             /metrics, the access log, the flight recorder and a
+             batch-scoped torch.profiler capture through the server on the
+             card (``phase_service``), and the same wave with tracing and
+             the access log on and off; in a process of its own
+             (``--service-phase``), as a server runs: this process's
+             earlier profiler windows leave later sessions without kernel
+             records.
+
+Launch counters are zeroed right before each main-path phase (4-9, 11-17)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -5154,27 +5164,458 @@ def phase_ingest(torch, dev, card, workdir, kernels):
     return counts
 
 
-def main() -> int:
-    global NVJPEG_ENCODE
-    if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
-        raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
-    sys.path.insert(0, ROOT)
-    import torch
+# ---------------------------------------------------------------------------
+# the rest of the service: signed URLs, domain restrictions, /path, /readyz,
+# traces, /metrics, the access log, the flight recorder and a profiler
+# capture (phase 17)
 
-    if sys.argv[1:] == ["--tiled-only"]:
-        check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-        return tiled_only(torch)
+#: phase 17's wave: the flagship request on phase 15's two photos and on
+#: SERVICE_PNGS seeded 1024x768 PNGs, plus one JPEG answer
+SERVICE_OPTS = "w_300,h_250,c_1,smc_1"
+SERVICE_JPG_OPTS = "w_300,h_250,c_1,o_jpg"
+SERVICE_PNGS = 14
+SERVICE_KEY, SERVICE_IV = "flyimg-smoke-key", "flyimg-smoke-iv"
+#: the capture's request: one photo through the decode group, the
+#: transform, the smart-crop scoring and the encode group (4 batches)
+CAPTURE_OPTS = "w_320,h_240,c_1,smc_1,o_jpg"
+CAPTURE_BATCHES = 4
+#: the kernels a capture must name: the source's build log (ptxas report)
+#: and the __global__ function
+CAPTURE_KERNELS = {"K1": ("resample_banded", "resample_tile_kernel"),
+                   "K2": ("saliency", "saliency_kernel"),
+                   "K3": ("scores", "scores_kernel"),
+                   "K18": ("jpeg_idct", "idct_kernel"),
+                   "K19": ("jpeg_color", "color_kernel")}
+#: the on/off pass one request at a time: options no earlier request used
+SEQ_OPTS = "w_200,h_200,c_1,smc_1"
+SEQ_SOURCES = 4
 
-    # phase 1: device
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    dev = torch.device("cuda", 0)
+
+def http_call(base, path, method="GET", headers=None):
+    """(status, headers, body) of one request; an error status is an
+    answer too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method=method, headers=headers or {},
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def local_origin(directory):
+    """A localhost HTTP origin serving ``directory`` (the sources' host for
+    the domain whitelist)."""
+    import functools
+    import threading
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    class Quiet(SimpleHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Quiet, directory=directory))
+    threading.Thread(target=server.serve_forever, name="smoke-origin", daemon=True).start()
+    return server
+
+
+def service_server(dev, workdir, tag, **extra):
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+
+    settings = {"upload_dir": os.path.join(workdir, tag, "uploads"),
+                "tmp_dir": os.path.join(workdir, tag, "tmp"),
+                "resample_kernel": "banded"}
+    settings.update(extra)
+    server = make_server(AppParameters(settings), device=dev)
+    thread = serve_in_thread(server)
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_server(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+
+
+def service_wave(base, paths, concurrent=True, headers=None):
+    """The answers of ``paths`` (all at once, or one at a time) and the
+    wall seconds."""
+    t0 = time.perf_counter()
+    if concurrent:
+        with ThreadPoolExecutor(len(paths)) as pool:
+            answers = list(pool.map(lambda p: http_call(base, p, headers=headers), paths))
+    else:
+        answers = [http_call(base, p, headers=headers) for p in paths]
+    return answers, time.perf_counter() - t0
+
+
+def span_tree(doc):
+    spans, stack = [], list(doc["spans"])
+    while stack:
+        span = stack.pop()
+        spans.append(span)
+        stack.extend(span["children"])
+    return spans
+
+
+def metric_sample(text, name):
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split(" ")[1])
+    return 0.0
+
+
+def capture_batches(doc, kernel_base):
+    """The batch ids of every launch of a kernel in a Chrome trace: the
+    flyimg:batch:<id> range (on the CPU thread that launched it) holding its
+    launch call, else the GPU-side range holding the kernel; None for a
+    launch outside every range."""
+    events = doc.get("traceEvents", [])
+    prefix = "flyimg:batch:"
+    cpu = [e for e in events if e.get("cat") == "user_annotation"
+           and str(e.get("name", "")).startswith(prefix)]
+    gpu = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and str(e.get("name", "")).startswith(prefix)]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = []
+    for k in events:
+        if k.get("cat") != "kernel" or kernel_base not in str(k.get("name", "")):
+            continue
+        found = None
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        if launch is not None:
+            for r in cpu:
+                if (r.get("tid") == launch.get("tid")
+                        and r["ts"] <= launch["ts"] <= r["ts"] + r.get("dur", 0)):
+                    found = int(r["name"][len(prefix):])
+        if found is None:
+            for r in gpu:
+                if r["ts"] <= k["ts"] and k["ts"] + k.get("dur", 0) <= r["ts"] + r.get("dur", 0):
+                    found = int(r["name"][len(prefix):])
+        out.append(found)
+    return out
+
+
+def phase_service(torch, dev, card, workdir, kernels):
+    """Phase 17: the rest of the service on the card (banded). A server S
+    with ``debug``, ``security_key`` and ``restricted_domains`` (the
+    sources' localhost origin whitelisted) and ``tracing_sample_rate`` 1.0,
+    and a server P without security, each answer 16 concurrent requests
+    for SERVICE_OPTS (phase 15's two 4032x3024 photos and 14 seeded
+    1024x768 PNGs) and one SERVICE_JPG_OPTS request, signed on S: the
+    signed answers byte-equal to P's; a wrong token, a plain URL and a
+    foreign domain answer 403 on S. Each signed answer's traceparent leads
+    (/debug/traces/{id}) to fetch, decode, batch_wait and encode spans and
+    a shared device_execute span whose batch.id is in the flight recorder;
+    the transform controller's flight records equal K1's launches,
+    flyimg_device_seconds' count the batcher's launches, and
+    flyimg_requests_total{route="upload",status="200"} the 200 answers; the
+    access log holds every signed answer's trace id. /path names the file
+    of the /upload answer's bytes. A /debug/profile capture armed for
+    CAPTURE_BATCHES batches of one CAPTURE_OPTS request names K1, K2, K3,
+    K18 and K19 (the __global__ names in their ptxas reports), every launch
+    inside a flyimg:batch:<id> range whose id is in the flight recorder.
+    The wave runs again on a server with tracing and the access log on and
+    one with both off (the same bytes), then SEQ_OPTS one request at a
+    time on both (the same K1-K3 launches and launch sizes); the walls are
+    printed with the card. S's /readyz answers 503 during its
+    server_close drain while /healthz answers 200. Prints the AES decrypt
+    time of the flagship URL's token. Returns the kernel launches."""
+    import logging
 
     from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.runtime import logging as flog
+    from flyimg_tpu_torch.runtime import profiling
+    from flyimg_tpu_torch.service import security
+
+    t_phase = time.perf_counter()
+    # the capture's session start (Kineto and CUPTI the first time) and its
+    # stop with the trace's export, timed where the profiler calls them
+    session_s = {"start": [], "stop": []}
+    session_start, session_stop = profiling.ProfilerSession.start, profiling.ProfilerSession.stop
+
+    def timed_start(session):
+        t = time.perf_counter()
+        try:
+            return session_start(session)
+        finally:
+            session_s["start"].append(time.perf_counter() - t)
+
+    def timed_stop(session):
+        t = time.perf_counter()
+        try:
+            return session_stop(session)
+        finally:
+            session_s["stop"].append(time.perf_counter() - t)
+
+    profiling.ProfilerSession.start, profiling.ProfilerSession.stop = timed_start, timed_stop
+    origin_dir = os.path.join(workdir, "origin")
+    os.makedirs(origin_dir)
+    names = []
+    for kind, data in flagship_jpegs(dev).items():
+        names.append(f"photo_{kind}.jpg")
+        with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+            fh.write(data)
+    for i in range(SERVICE_PNGS):
+        names.append(f"png_{i}.png")
+        synthetic_png(os.path.join(origin_dir, names[-1]), 1024, 768, seed=1700 + i)
+    origin = local_origin(origin_dir)
+    host = f"http://127.0.0.1:{origin.server_address[1]}"
+    requests = [(SERVICE_OPTS, f"{host}/{n}") for n in names]
+    requests.append((SERVICE_JPG_OPTS, f"{host}/{names[0]}"))
+    keys = {"security_key": SERVICE_KEY, "security_iv": SERVICE_IV}
+
+    def signed(opts, src, key=SERVICE_KEY):
+        return security.encrypt(f"{opts}/{src}", key, SERVICE_IV)
+
+    # the AES-256-CBC decrypt of the flagship URL's token (the key schedule
+    # cached after the first)
+    token = signed(*requests[0])
+    t0 = time.perf_counter()
+    check(security.decrypt(token, SERVICE_KEY, SERVICE_IV) == "/".join(requests[0]),
+          "security: the port does not decrypt its own token")
+    first_us = (time.perf_counter() - t0) * 1e6
+    t0 = time.perf_counter()
+    for _ in range(200):
+        security.decrypt(token, SERVICE_KEY, SERVICE_IV)
+    decrypt_us = (time.perf_counter() - t0) / 200 * 1e6
+
+    log_path = os.path.join(workdir, "access.log")
+    log_fh = open(log_path, "w")
+    flog.configure_logging(AppParameters({}), stream=log_fh)
+    s_server, s_thread, sbase = service_server(
+        dev, workdir, "signed", debug=True, tracing_sample_rate=1.0,
+        restricted_domains=True, whitelist_domains=["127.0.0.1"], **keys)
+    p_server, p_thread, pbase = service_server(dev, workdir, "plain")
+    servers = [(s_server, s_thread), (p_server, p_thread)]
+    try:
+        reset_counts(kernels)
+        # the signed wave
+        counts0 = read_counts(kernels)
+        s_answers, s_wall = service_wave(
+            sbase, [f"/upload/{signed(o, s)}/x" for o, s in requests])
+        s_counts = {k: v - counts0[k] for k, v in read_counts(kernels).items()}
+        p_answers, p_wall = service_wave(pbase, [f"/upload/{o}/{s}" for o, s in requests])
+        for (o, s), a, b in zip(requests, s_answers, p_answers):
+            check(a[0] == 200 and b[0] == 200, f"service: {o} {s}: {a[0]} signed, {b[0]} plain "
+                  f"({a[2][:200]!r})")
+            check(a[2] == b[2], f"service: the signed answer of {o} {s} is not the plain one's")
+        # security
+        refused = {
+            "wrong token": f"/upload/{signed(*requests[1], key='another-key')}/x",
+            "plain URL": f"/upload/{requests[1][0]}/{requests[1][1]}",
+            "foreign domain": f"/upload/{signed(SERVICE_OPTS, 'http://foreign.example/a.jpg')}/x",
+        }
+        for label, path in refused.items():
+            status = http_call(sbase, path)[0]
+            check(status == 403, f"service: a {label} answered {status}, not 403")
+        ok_uploads = len(s_answers)
+
+        # traces -> shared batch spans -> flight records
+        records = s_server.flight_recorder.snapshot(limit=100_000)["records"]
+        recorded = {r["batch_id"] for r in records if r["batch_id"] is not None}
+        check(http_call(sbase, "/debug/flightrecorder")[0] == 200,
+              "service: /debug/flightrecorder did not answer")
+        trace_ids = []
+        for (o, s), (_st, headers, _b) in zip(requests, s_answers):
+            tid = headers["traceparent"].split("-")[1]
+            trace_ids.append(tid)
+            st, _h, body = http_call(sbase, f"/debug/traces/{tid}")
+            check(st == 200, f"service: trace {tid} of {o} {s} is not kept ({st})")
+            spans = span_tree(json.loads(body))
+            span_names = {sp["name"] for sp in spans}
+            for name in ("fetch", "decode", "batch_wait", "device_execute", "encode"):
+                check(name in span_names, f"service: {o} {s}: no {name} span in its trace "
+                      f"({sorted(span_names)})")
+            for sp in spans:
+                if sp["name"] in ("device_execute", "aux_execute"):
+                    bid = sp["attributes"]["batch.id"]
+                    check(bid in recorded, f"service: {o} {s}: batch {bid} of its "
+                          f"{sp['name']} span is not in the flight recorder")
+        transforms = [r for r in records if r["controller"] == "device"
+                      and not str(r["plan_key"]).startswith("aux:") and r["error"] is None]
+        check(len(transforms) == s_counts["K1"],
+              f"service: {len(transforms)} transform flight records, {s_counts['K1']} K1 "
+              "launches")
+        text = http_call(sbase, "/metrics")[2].decode()
+        launches = sum(1 for kind, _m, _b in s_server.batcher.launch_log if kind == "transform")
+        check(metric_sample(text, "flyimg_device_seconds_count") == launches,
+              f"service: flyimg_device_seconds counts "
+              f"{metric_sample(text, 'flyimg_device_seconds_count')}, the batcher {launches} "
+              "launches")
+        got = metric_sample(text, 'flyimg_requests_total{route="upload",status="200"}')
+        check(got == ok_uploads, f"service: flyimg_requests_total counts {got} 200 answers "
+              f"of {ok_uploads}")
+        # /path names the file of the /upload answer
+        st, _h, url = http_call(sbase, f"/path/{signed(*requests[2])}/x")
+        check(st == 200, f"service: /path answered {st}")
+        stored = os.path.join(workdir, "signed", "uploads", url.decode().rsplit("/", 1)[1])
+        check(os.path.isfile(stored) and _read(stored) == s_answers[2][2],
+              f"service: /path's {url!r} is not the /upload answer's file")
+
+        # a batch-scoped capture of one request (4 batches)
+        st, _h, body = http_call(sbase, f"/debug/profile?batches={CAPTURE_BATCHES}", "POST")
+        check(st == 200 and json.loads(body)["armed"], f"service: arming answered {st}")
+        check(http_call(sbase, "/debug/profile?batches=1", "POST")[0] == 409,
+              "service: a second arm was not refused")
+        t_cap = time.perf_counter()
+        capture_path = f"/upload/{signed(CAPTURE_OPTS, requests[0][1])}/x"
+        st = http_call(sbase, capture_path)[0]
+        check(st == 200, f"service: the captured request answered {st}")
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            state = json.loads(http_call(sbase, "/debug/profile")[2])
+            if state["captures_total"] and not state["armed"] and not state["active"]:
+                break
+            time.sleep(0.05)
+        capture_s = time.perf_counter() - t_cap
+        check(state["last_error"] is None, f"service: profiler error {state['last_error']}")
+        check(state["captures_total"] == 1 and state["captures"],
+              f"service: no capture ({state})")
+        name = state["captures"][0]["name"]
+        st, headers, blob = http_call(sbase, f"/debug/profile/captures/{name}")
+        check(st == 200 and headers.get("Content-Type") == "application/gzip",
+              f"service: the capture's download answered {st}")
+        import io
+        import tarfile
+
+        with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+            doc = json.load(tar.extractfile(f"{name}/trace.json"))
+        recorded = {r["batch_id"] for r in s_server.flight_recorder.snapshot(
+            limit=100_000)["records"] if r["batch_id"] is not None}
+        captured = {}
+        categories = {}
+        for e in doc.get("traceEvents", []):
+            categories[e.get("cat")] = categories.get(e.get("cat"), 0) + 1
+        seen_kernels = sorted({str(e.get("name"))[:60] for e in doc.get("traceEvents", [])
+                               if e.get("cat") == "kernel"})
+        ranges = sorted({str(e.get("name")) for e in doc.get("traceEvents", [])
+                         if str(e.get("name", "")).startswith("flyimg:batch:")})
+        print(f"service: capture {name}: events by category {categories}; kernels "
+              f"{seen_kernels[:40]}; ranges {ranges}")
+        for key, (src, base) in CAPTURE_KERNELS.items():
+            mangled = [n for n in cuda_build.ptxas_report(cuda_build.build_logs.get(src, ""))
+                       if base in n]
+            check(mangled, f"service: {base} is not in {src}'s ptxas report")
+            captured[key] = capture_batches(doc, base)
+        check(all(captured.values()), "service: the capture names no " + ", ".join(
+            f"{k} ({CAPTURE_KERNELS[k][1]})" for k, ids in captured.items() if not ids))
+        for key, ids in captured.items():
+            check(all(i is not None and i in recorded for i in ids),
+                  f"service: {key} launches outside the recorded batch ranges: {ids}")
+            captured[key] = sorted(set(ids))
+        ok_uploads += 1
+
+        # observability on against off: a fresh pair of servers
+        on, on_thread, onbase = service_server(dev, workdir, "on")
+        off, off_thread, offbase = service_server(dev, workdir, "off",
+                                                  tracing_enabled=False, log_access=False)
+        servers += [(on, on_thread), (off, off_thread)]
+        plain_paths = [f"/upload/{o}/{s}" for o, s in requests]
+        walls, bodies, wave_counts = {}, {}, {}
+        for tag, srv, base in (("on", on, onbase), ("off", off, offbase)):
+            c0 = read_counts(kernels)
+            answers, walls[tag] = service_wave(base, plain_paths)
+            wave_counts[tag] = {k: v - c0[k] for k, v in read_counts(kernels).items()
+                                if k in ("K1", "K2", "K3")}
+            bodies[tag] = [a[2] for a in answers]
+            check(all(a[0] == 200 for a in answers), f"service: the {tag} wave failed")
+        check(bodies["on"] == bodies["off"] == [a[2] for a in p_answers],
+              "service: observability on and off answer different bytes")
+        seq_paths = [f"/upload/{SEQ_OPTS}/{s}" for _o, s in requests[:SEQ_SOURCES]]
+        seq = {}
+        for tag, srv, base in (("off", off, offbase), ("on", on, onbase)):
+            c0 = read_counts(kernels)
+            log0 = len(srv.batcher.launch_log)
+            answers, wall = service_wave(base, seq_paths, concurrent=False)
+            seq[tag] = dict(
+                wall=wall, bodies=[a[2] for a in answers],
+                counts={k: v - c0[k] for k, v in read_counts(kernels).items()
+                        if k in ("K1", "K2", "K3")},
+                sizes=list(srv.batcher.launch_log)[log0:])
+        check(seq["on"]["bodies"] == seq["off"]["bodies"],
+              "service: one at a time, observability on and off answer different bytes")
+        check(seq["on"]["counts"] == seq["off"]["counts"]
+              and seq["on"]["sizes"] == seq["off"]["sizes"],
+              f"service: one at a time, observability on launched {seq['on']['counts']} "
+              f"{seq['on']['sizes']}, off {seq['off']['counts']} {seq['off']['sizes']}")
+        log_fh.flush()
+        with open(log_path) as fh:
+            logged = fh.read()
+        missing = [t for t in trace_ids if t not in logged]
+        check(not missing, f"service: {len(missing)} signed answers have no access-log line")
+
+        # readiness flips before S drains, while S still answers
+        seen = []
+        close = s_server.batcher.close
+
+        def probing_close(timeout):
+            seen.append(http_call(sbase, "/readyz")[0])
+            seen.append(http_call(sbase, "/healthz")[0])
+            close(timeout)
+
+        s_server.batcher.close = probing_close
+        servers.remove((s_server, s_thread))
+        s_server.server_close()
+        s_thread.join(timeout=30)
+        check(seen == [503, 200], f"service: during the drain /readyz, /healthz answered {seen}")
+        counts = read_counts(kernels)
+    finally:
+        for srv, thread in servers:
+            stop_server(srv, thread)
+        origin.shutdown()
+        origin.server_close()
+        logger = logging.getLogger("flyimg")
+        for handler in list(logger.handlers):
+            if getattr(handler, "_flyimg_managed", False):
+                logger.removeHandler(handler)
+        logger.propagate = True
+        log_fh.close()
+        profiling.ProfilerSession.start, profiling.ProfilerSession.stop = (
+            session_start, session_stop)
+    n = len(requests)
+    per_req_ms = (walls["on"] - walls["off"]) / n * 1e3
+    seq_ms = (seq["on"]["wall"] - seq["off"]["wall"]) / len(seq_paths) * 1e3
+    print(f"service: {n} concurrent signed requests in {s_wall:.3f} s (plain server "
+          f"{p_wall:.3f} s), byte-equal; 403 for {', '.join(refused)}; AES-256-CBC decrypt "
+          f"of the {len(token)}-character flagship token {decrypt_us:.1f} us "
+          f"(first {first_us:.1f} us, key schedule included); capture of "
+          f"{CAPTURE_BATCHES} batches {capture_s:.3f} s from the request to the trace on "
+          f"disk (the profiler's start {[round(x, 3) for x in session_s['start']]} s, its "
+          f"stop and export {[round(x, 3) for x in session_s['stop']]} s), batch ids by kernel "
+          f"{captured}; observability on/off wave "
+          f"{walls['on']:.3f} / {walls['off']:.3f} s ({per_req_ms:+.2f} ms a request), "
+          f"K1-K3 launches {wave_counts['on']} / {wave_counts['off']}; one at a time "
+          f"{seq['on']['wall']:.3f} / {seq['off']['wall']:.3f} s ({seq_ms:+.2f} ms a "
+          f"request), launches {seq['on']['counts']}; phase {time.perf_counter() - t_phase:.1f} "
+          f"s; card {card}")
+    print(json.dumps({"service": {
+        "signed_wave_s": round(s_wall, 4), "plain_wave_s": round(p_wall, 4),
+        "decrypt_us": round(decrypt_us, 2), "decrypt_first_us": round(first_us, 2),
+        "token_chars": len(token), "capture_s": round(capture_s, 4),
+        "profiler_start_s": [round(x, 4) for x in session_s["start"]],
+        "profiler_stop_export_s": [round(x, 4) for x in session_s["stop"]],
+        "wave_on_s": round(walls["on"], 4), "wave_off_s": round(walls["off"], 4),
+        "wave_on_minus_off_ms_per_request": round(per_req_ms, 3),
+        "seq_on_s": round(seq["on"]["wall"], 4), "seq_off_s": round(seq["off"]["wall"], 4),
+        "seq_on_minus_off_ms_per_request": round(seq_ms, 3),
+        "wave_launches": wave_counts, "seq_launches": seq["on"]["counts"]},
+        "card": card}))
+    return counts
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by name; each counts its launches in
+    ``launches``."""
     from flyimg_tpu_torch.codecs.jpeg_dec import color_planes, idct_planes
     from flyimg_tpu_torch.codecs.jpeg_enc import fdct_coefficients, trellis_coefficients
-    from flyimg_tpu_torch.device import resolve_device
     from flyimg_tpu_torch.models.blazeface import conv5x5, head_decode, pointwise
     from flyimg_tpu_torch.models.blazeface_train import (
         adam_update,
@@ -5190,16 +5631,76 @@ def main() -> int:
     from flyimg_tpu_torch.ops.resample import resample_banded_f32, resample_banded_u8
     from flyimg_tpu_torch.ops.rotate import ring_rotate_step, rotate_sampled
 
+    return {"K1": resample_banded_u8, "K1-f32": resample_banded_f32,
+            "K2": _batched_weighted, "K3": _batched_scores,
+            "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass,
+            "K7": pixelate_regions_u8, "K8": _batched_face_masks,
+            "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
+            "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
+            "K14": adam_update, "K15": ring_rotate_step,
+            "K16": trellis_coefficients, "K17": fdct_coefficients,
+            "K18": idct_planes, "K19": color_planes}
+
+
+SERVICE_COUNTS = "service launches: "
+
+
+def service_child(workdir) -> int:
+    """``--service-phase DIR``: phase 17 in a process of its own, as a
+    server runs (in the smoke's own process, after phase 3's hundreds of
+    torch.profiler windows, a later session records no kernel activity at
+    all: see PERF.md). The kernels are on disk already; prints its
+    launches, and the served JPEG encodes that reached nvJPEG, on its last
+    line."""
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.codecs import native_codec
+    from flyimg_tpu_torch.device import resolve_device
+
+    dev = torch.device("cuda", 0)
+    resolve_device(dev)
+    kernels = kernel_wrappers()
+    cuda_build.build()      # loads the build logs of the libraries on disk
+    cuda_build.build_host()
+    encodes = []
+    nvjpeg_encode = native_codec.jpeg_encode
+
+    def counted(*args, **kwargs):
+        encodes.append(1)
+        return nvjpeg_encode(*args, **kwargs)
+
+    native_codec.jpeg_encode = counted
+    counts = phase_service(torch, dev, card_line(), workdir, kernels)
+    print(SERVICE_COUNTS + json.dumps({"counts": counts, "nvjpeg_encodes": len(encodes)}))
+    return 0
+
+
+def main() -> int:
+    global NVJPEG_ENCODE
+    if not os.path.isdir(os.path.join(ROOT, "flyimg_tpu_torch")):
+        raise SmokeFailure(f"no flyimg_tpu_torch package beside {__file__}")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if sys.argv[1:] == ["--tiled-only"]:
+        check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+        return tiled_only(torch)
+    if sys.argv[1:2] == ["--service-phase"] and len(sys.argv) == 3:
+        return service_child(sys.argv[2])
+
+    # phase 1: device
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    dev = torch.device("cuda", 0)
+
+    from flyimg_tpu_torch import cuda_build
+    from flyimg_tpu_torch.device import resolve_device
+
     resolve_device(dev)  # TF32 off for matmuls and convolutions
-    kernels = {"K1": resample_banded_u8, "K1-f32": resample_banded_f32,
-               "K2": _batched_weighted, "K3": _batched_scores,
-               "K4": rotate_sampled, "K5": separable_filter, "K6": pixel_pass,
-               "K7": pixelate_regions_u8, "K8": _batched_face_masks,
-               "K9": conv5x5, "K10": pointwise, "K10-head": head_decode,
-               "K11": conv5x5_backward, "K12": pointwise_backward, "K13": head_loss,
-               "K14": adam_update, "K15": ring_rotate_step,
-               "K16": trellis_coefficients, "K17": fdct_coefficients,
-               "K18": idct_planes, "K19": color_planes}
+    kernels = kernel_wrappers()
 
     # phase 2: build (the kernels with nvcc and the host codecs with g++,
     # all at once), and nvJPEG loaded
@@ -5366,7 +5867,29 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"ingest kernel launches: {ingest_counts}; card {card}")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-16 reached "
+    # phase 17: signed URLs, /path, /readyz, traces, metrics, the flight
+    # recorder and a profiler capture (main path), in a process of its own
+    os.makedirs(workdir)
+    try:
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--service-phase", workdir],
+            stdout=subprocess.PIPE, text=True, timeout=900)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    lines = child.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(SERVICE_COUNTS):
+            print(line)
+    check(child.returncode == 0, f"service: phase 17's process exited {child.returncode}")
+    found = [json.loads(line[len(SERVICE_COUNTS):]) for line in lines
+             if line.startswith(SERVICE_COUNTS)]
+    check(len(found) == 1, "service: phase 17's process printed no launches")
+    service_counts = {k: found[0]["counts"].get(k, 0) for k in kernels}
+    nvjpeg_encodes += [1] * found[0]["nvjpeg_encodes"]
+    print(f"service kernel launches: {service_counts}; card {card}")
+    for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
+        check(service_counts[name] > 0, f"service: {name} never launched")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-17 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -5423,7 +5946,7 @@ def main() -> int:
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
                     + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
-                    + ingest_counts[key])
+                    + ingest_counts[key] + service_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -11,8 +11,23 @@ from flyimg_tpu_torch.spec.options import DEFAULT_OPTIONS, OPTIONS_KEYS
 
 SERVER_DEFAULTS: Dict[str, Any] = {
     "application_name": "flyimg-tpu",
+    # the debug-gated routes (/debug/*) and the Server-Timing header
+    "debug": False,
     "header_cache_days": 365,
     "options_separator": ",",
+    # signed URLs and domain restrictions (service/security.py): with a
+    # security_key the options segment is an AES-256-CBC token; with
+    # restricted_domains on, only whitelist_domains hosts are fetched
+    "security_key": "",
+    "security_iv": "",
+    "restricted_domains": False,
+    "whitelist_domains": [],
+    # the output store (storage/): local only so far (S3 and GCS raise
+    # NotPortedException when the server is made)
+    "storage_system": "local",
+    # route-pattern overrides by logical name (upload, path), validated
+    # when the server is made
+    "routes": {},
     "header_extra_options": (
         "User-Agent: Mozilla/5.0 (Windows; U; Windows NT 6.1; rv:2.2) "
         "Gecko/20110201"
@@ -90,11 +105,54 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "mem_probe_successes": 4,
     "mem_probe_step": 1,
     "mem_host_budget_bytes": 0,
+    # the process RSS limit the watchdog normalises its pressure to (0
+    # off); /debug/memory and flyimg_mem_rss_bytes read it
+    "mem_rss_limit_bytes": 0,
     # source guards: the most bytes a fetch reads, and the most pixels a
     # source's header may declare (413 before any decode; also the JPEG
     # decoder's limit; 0 or less keeps the codec's default)
     "mem_max_source_bytes": 256 * 1024 * 1024,
     "mem_max_source_pixels": 512 * 1024 * 1024,
+    # the output cache's size budget and its background prune (0 disables
+    # the budget; a non-positive interval disables the loop); orphaned
+    # temporaries older than the TTL are reclaimed by the same pass
+    "cache_max_bytes": 0,
+    "cache_prune_interval_s": 300.0,
+    "cache_part_ttl_s": 3600.0,
+    # ms without a cache read's result before ONE backup read fires and
+    # the first result serves (storage/base.py fetch_hedged); 0 is off
+    "storage_hedge_delay_ms": 0.0,
+    # the bounded drain of the batchers and pools at shutdown (readiness
+    # answers 503 from its start)
+    "shutdown_drain_timeout_s": 30.0,
+    # observability (runtime/tracing.py, logging.py, slo.py, metrics.py,
+    # flightrecorder.py, profiling.py): per-request traces with tail
+    # sampling, the JSON access log, SLO burn rates, exemplars, the
+    # flight recorder and the batch-scoped torch.profiler captures
+    "tracing_enabled": True,
+    "tracing_buffer_size": 256,
+    "tracing_sample_rate": 1.0,
+    "tracing_slow_threshold_s": 0.5,
+    "log_format": "json",
+    "log_level": "info",
+    "log_access": True,
+    "slo_enabled": True,
+    "slo_latency_p99_ms": 150.0,
+    "slo_availability": 99.9,
+    "slo_latency_quantile": 0.99,
+    "slo_window_fast_s": 300.0,
+    "slo_window_slow_s": 3600.0,
+    "slo_burn_threshold_fast": 14.4,
+    "slo_burn_threshold_slow": 6.0,
+    "metrics_exemplars": True,
+    "costledger_max_entries": 256,
+    "profiling_max_batches": 16,
+    "profiling_max_seconds": 30.0,
+    "profiling_dir": "",
+    "flightrecorder_size": 256,
+    "flightrecorder_dump_dir": "",
+    "flightrecorder_min_dump_interval_s": 30.0,
+    "flightrecorder_max_dumps": 16,
     # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs
     # (tests only)
     "fault_injector": None,

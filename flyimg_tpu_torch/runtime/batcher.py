@@ -71,6 +71,21 @@ submissions (503 + Retry-After past it); a ``governor``
 (``runtime/memgovernor.py``) caps how many members a launch takes.
 ``close`` resolves every in-flight readback within its drain budget and
 stamps what is left with a ``TimeoutError``.
+
+Observability (the JAX batcher's): each launch gets a batch id. A launch
+whose members carry request traces mints ONE shared span
+(``device_execute``, ``aux_execute`` or ``batch_recovery``) that is
+attached to every member's trace under the span that member had open at
+submit. Every launch resolution (primary, aux, recovery, failure) is one
+flight-recorder record and one ``record_batch_launch`` into the metrics
+registry. The device split keeps the JAX meanings: ``h2d_s`` the enqueue of
+the copies up, ``dispatch_s`` the enqueue of the program and the copy back,
+``sync_s`` the drain thread's wait for the readback, and ``device_s`` from
+dispatch to the completed readback; nothing here synchronizes the launch
+thread. Each launch runs inside ``torch.profiler.record_function(
+"flyimg:batch:<id>")`` between the profiler's ``on_batch_start`` and
+``on_batch_end``, so a capture, a trace and a flight record name the same
+batch id.
 """
 
 from __future__ import annotations
@@ -104,7 +119,8 @@ from flyimg_tpu_torch.ops.compose import (
     program_args,
 )
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
-from flyimg_tpu_torch.runtime import costledger
+from flyimg_tpu_torch.runtime import costledger, tracing
+from flyimg_tpu_torch.runtime.metrics import MetricsRegistry, escape_label_value
 from flyimg_tpu_torch.runtime.resilience import (
     FATAL,
     OVERSIZE,
@@ -184,6 +200,10 @@ class _Pending:
     needs_slice: bool = False
     src_window: Optional[Tuple[int, int]] = None
     fp_digest: Optional[str] = None     # the image digest, once computed
+    # the submitting request's trace and the span it had open at submit:
+    # the shared batch span is attached there
+    trace: Optional[object] = None
+    parent_span_id: Optional[str] = None
 
 
 @dataclass
@@ -211,6 +231,8 @@ class _Launch:
     (CUDA), with the tensors that must live until then."""
 
     t_dispatch: float
+    h2d_s: Optional[float] = None
+    dispatch_s: Optional[float] = None
     host: Optional[np.ndarray] = None
     pinned: Optional[torch.Tensor] = None
     event: Optional[object] = None
@@ -361,6 +383,23 @@ def assemble_batch(group: _Group, members: List[Tuple[np.ndarray, TransformPlan,
     return images, geo
 
 
+def _runner_name(runner) -> str:
+    """An aux runner's name for flight records and spans (a partial is
+    named after its function)."""
+    return getattr(runner, "__name__", None) or getattr(
+        getattr(runner, "func", None), "__name__", "aux")
+
+
+def _bind_trace(pending: _Pending) -> None:
+    """Record the submitting request's trace and open span on a pending
+    member (nothing when no trace is active)."""
+    trace = tracing.current_trace()
+    if trace is not None:
+        span = tracing.current_span()
+        pending.trace = trace
+        pending.parent_span_id = span.span_id if span is not None else None
+
+
 class BatchController:
     """Thread-safe dynamic batcher in front of one device."""
 
@@ -379,8 +418,25 @@ class BatchController:
         quarantine_ttl_s: float = 0.0,
         executor_wedge_timeout_s: float = 0.0,
         governor=None,
+        metrics=None,
+        name: str = "device",
+        flight_recorder=None,
+        profiler=None,
+        batch_ids=None,
     ) -> None:
         self.device = resolve_device(device)
+        self.name = name
+        # the server's registry, or a private one standalone
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        #: the flight recorder (one record per launch resolution) and the
+        #: on-demand profiler (poked around every launch), or None
+        self.flight_recorder = flight_recorder
+        self.profiler = profiler
+        # batch ids: the controllers of one server share one counter, so an
+        # id names one launch in the flight recorder, the traces and a
+        # profiler capture alike
+        self._batch_ids = batch_ids if batch_ids is not None else itertools.count(1)
+        self._batch_seq = 0
         self.max_batch = max(1, min(int(max_batch), MAX_BATCH_BUCKET))
         self.deadline_s = float(deadline_ms) / 1000.0
         self.lone_flush = lone_flush
@@ -396,6 +452,13 @@ class BatchController:
         self.admission = AdmissionGate(
             max_pending=int(max_queue_depth),
             retry_after_s=shed_retry_after_s, name="batch queue",
+            metrics=self.metrics,
+        )
+        self.metrics.gauge(
+            "flyimg_batcher_queue_depth"
+            f'{{controller="{escape_label_value(name)}"}}',
+            "Pending (queued or executing) submissions per controller",
+            fn=lambda: self.admission.pending,
         )
         self.batch_retries = max(0, int(batch_retries))
         self.bisect_enable = bool(bisect_enable)
@@ -435,6 +498,9 @@ class BatchController:
         # a concurrent submitter would heal again)
         self._executor_pending = False
         self._quarantine_seq = itertools.count()
+        # the recovery span each thread has open (events of the retry,
+        # split and bisection paths land there)
+        self._tls = threading.local()
         self._groups: Dict[Tuple, _Group] = {}
         self._lock = threading.Condition()
         self._stop = False
@@ -472,11 +538,15 @@ class BatchController:
             enqueued_at=time.monotonic(), final_true=final_true,
             needs_slice=needs_slice, src_window=src_window,
         )
+        _bind_trace(pending)
         key = base_key
         if self.quarantine is not None and self.quarantine.has_prefix(base_key):
             pending.fp_digest = _image_digest(image)
             if self.quarantine.hit((base_key, pending.fp_digest)):
                 self._count("quarantine_hits")
+                self.metrics.record_quarantine_hit()
+                tracing.add_event("quarantine.hit", controller=self.name,
+                                  digest=pending.fp_digest)
                 key = base_key + (("__quarantine__", next(self._quarantine_seq)),)
         template.key, template.base_key = key, base_key
         self._enqueue(key, pending, lambda: template)
@@ -492,6 +562,7 @@ class BatchController:
             payload=payload, plan=None, future=Future(),
             enqueued_at=time.monotonic(),
         )
+        _bind_trace(pending)
         full_key = ("aux", runner, key)
         self._enqueue(full_key, pending, lambda: _Group(
             key=full_key, runner=runner, base_key=full_key,
@@ -555,6 +626,8 @@ class BatchController:
         if reason is None:
             return None
         self.restarts[reason] += 1
+        self.metrics.record_executor_restart(reason)
+        tracing.add_event("executor_restart", reason=reason, controller=self.name)
         if reason == "wedged":
             # a thread wedged after taking a pipeline slot never gives it
             # back: leave the old semaphore to it, so the replacement has
@@ -719,25 +792,239 @@ class BatchController:
             if members in self._inflight_batches:
                 self._inflight_batches.remove(members)
 
+    # -- observability ------------------------------------------------------
+
+    def _next_seq(self) -> int:
+        """A launch's batch id, taken under the lock: recovery launches on
+        drain threads share the counter."""
+        with self._lock:
+            self._batch_seq = next(self._batch_ids)
+            return self._batch_seq
+
+    @staticmethod
+    def _member_trace_id(members: List[_Pending]) -> Optional[str]:
+        """The first traced member's trace id: the exemplar and the flight
+        record's join key."""
+        for member in members:
+            if member.trace is not None:
+                return member.trace.trace_id
+        return None
+
+    @staticmethod
+    def _attach_batch_span(members: List[_Pending], span_obj) -> None:
+        """Fan the SHARED batch span into every member's trace (one span
+        id everywhere), under the span each member had open at submit."""
+        if span_obj is None:
+            return
+        for member in members:
+            if member.trace is not None:
+                member.trace.attach_shared(span_obj, member.parent_span_id)
+
+    def _start_batch_span(self, name: str, n: int, batch: int,
+                          members: List[_Pending], seq: int):
+        """The shared span of one launch, minted only when a member is
+        traced (the untraced path stays free)."""
+        if not any(m.trace is not None for m in members):
+            return None
+        span_obj = tracing.Span(name)
+        span_obj.set_attribute("batch.id", seq)
+        span_obj.set_attribute("batch.controller", self.name)
+        span_obj.set_attribute("batch.occupancy", n)
+        span_obj.set_attribute("batch.size", batch)
+        span_obj.set_attribute("batch.padded_slots", batch - n)
+        oldest = min(m.enqueued_at for m in members)
+        span_obj.set_attribute(
+            "batch.queue_wait_s", round(time.monotonic() - oldest, 6))
+        return span_obj
+
+    def _fail_span(self, span_obj, members: List[_Pending], exc: Exception) -> None:
+        """An errored launch's span still reaches the member traces (the
+        tail sampler keeps exactly these)."""
+        if span_obj is not None and span_obj.duration_s is None:
+            span_obj.add_event("exception", type=type(exc).__name__,
+                               message=str(exc))
+            span_obj.end("error")
+            self._attach_batch_span(members, span_obj)
+
+    def _recovery_event(self, name: str, **attrs) -> None:
+        """An event on the recovery span this thread has open, if any."""
+        span_obj = getattr(self._tls, "recovery_span", None)
+        if span_obj is not None:
+            span_obj.add_event(name, **attrs)
+
+    def _record_flight(self, group: _Group, members: List[_Pending], *,
+                       n: int, batch: int, seq: Optional[int],
+                       queue_wait_s: float, key=None,
+                       h2d_s: Optional[float] = None,
+                       dispatch_s: Optional[float] = None,
+                       sync_s: Optional[float] = None,
+                       device_s: Optional[float] = None,
+                       compile_hit: Optional[bool] = None,
+                       kind: str = "primary",
+                       error: Optional[str] = None,
+                       mem_event: Optional[str] = None) -> None:
+        """One flight-recorder record per launch resolution (primary,
+        aux, recovery and failures alike); nothing without a recorder.
+        The plan key is the cost ledger's (``/debug/plans``) for a
+        transform launch, ``aux:<runner>`` for an aux group."""
+        if self.flight_recorder is None:
+            return
+        if group.runner is not None:
+            plan_key = f"aux:{_runner_name(group.runner)}"
+        else:
+            plan_key = costledger.key_digest(key) if key is not None else None
+        predicted = budget = None
+        if self.governor is not None and self.governor.enabled and group.runner is None:
+            predicted = self.governor.predict_bytes(
+                group.base_key, batch, group.in_shape)
+            budget = self.governor.device_budget_bytes or None
+        self.flight_recorder.record(
+            controller=self.name, batch_id=seq, plan_key=plan_key,
+            occupancy=n, capacity=batch, queue_wait_s=queue_wait_s,
+            h2d_s=h2d_s, dispatch_s=dispatch_s, sync_s=sync_s,
+            device_s=device_s, compile_hit=compile_hit, kind=kind,
+            trace_id=self._member_trace_id(members), error=error,
+            predicted_bytes=predicted, budget_bytes=budget,
+            mem_event=mem_event,
+        )
+
+    def _record_failure(self, group: _Group, members: List[_Pending],
+                        exc: Exception, **fields) -> None:
+        self._record_flight(
+            group, members, error=type(exc).__name__,
+            mem_event="oversize" if classify_batch_error(exc) == OVERSIZE else None,
+            **fields)
+
+    def _profiler_start(self) -> bool:
+        if self.profiler is None:
+            return False
+        self.profiler.on_batch_start()
+        return True
+
+    def _observe_launch(self, group: _Group, members: List[_Pending], *,
+                        seq: int, n: int, batch: int, queue_wait_s: float,
+                        key, h2d_s, dispatch_s, sync_s, device_s,
+                        compile_hit, span_obj=None, kind: str = "primary",
+                        mem_event: Optional[str] = None) -> None:
+        """After a transform launch's completed readback, before its
+        members resolve: the device time (a primary launch's), its split,
+        the shared span, the efficiency record and the flight record."""
+        trace_id = self._member_trace_id(members)
+        if kind == "primary":
+            self.metrics.record_device_batch_seconds(device_s, trace_id=trace_id)
+        self.metrics.record_device_split(
+            h2d_s=h2d_s, dispatch_s=dispatch_s, sync_s=sync_s, trace_id=trace_id)
+        if span_obj is not None:
+            span_obj.end()
+            span_obj.set_attribute("device.seconds", round(device_s, 6))
+            if h2d_s is not None:
+                span_obj.set_attribute("device.h2d_s", round(h2d_s, 6))
+            if dispatch_s is not None:
+                span_obj.set_attribute("device.dispatch_s", round(dispatch_s, 6))
+            span_obj.set_attribute("device.sync_s", round(sync_s, 6))
+            self._attach_batch_span(members, span_obj)
+        self.metrics.record_batch_launch(
+            self.name, images=n, capacity=batch, queue_wait_s=queue_wait_s,
+            device_s=device_s, compile_hit=compile_hit, trace_id=trace_id,
+        )
+        self._record_flight(
+            group, members, n=n, batch=batch, seq=seq, queue_wait_s=queue_wait_s,
+            key=key, h2d_s=h2d_s, dispatch_s=dispatch_s, sync_s=sync_s,
+            device_s=device_s, compile_hit=compile_hit, kind=kind,
+            mem_event=mem_event,
+        )
+
+    # -- launches -----------------------------------------------------------
+
     def _execute(self, group: _Group) -> bool:
         """Run one popped group. A transform group is dispatched and handed
         to a drain thread (returns True); an aux group runs here, and a
         failure before the hand-off goes to ``_recover`` on this thread."""
         members = group.members
+        seq = self._next_seq()
+        queue_wait_s = time.monotonic() - min(m.enqueued_at for m in members)
         try:
             # a blocking plan here wedges the executor; a raising one goes
             # through the same recovery as a failed launch
             faults.fire("batcher.execute", key=group.key, n=len(members))
-            if group.runner is not None:
-                self._resolve_members(group, members,
-                                      self._run_members(group, members))
-                return False
-            return self._dispatch(group, members)
+        except Exception as exc:
+            self._recover(group, members, exc)
+            return False
+        if group.runner is not None:
+            self._execute_aux(group, members, seq, queue_wait_s)
+            return False
+        try:
+            return self._dispatch(group, members, seq, queue_wait_s)
         except Exception as exc:
             self._recover(group, members, exc)
             return False
 
-    def _dispatch(self, group: _Group, members: List[_Pending]) -> bool:
+    def _execute_aux(self, group: _Group, members: List[_Pending], seq: int,
+                     queue_wait_s: float) -> None:
+        """One aux group on the executor thread, under its shared
+        ``aux_execute`` span."""
+        n = len(members)
+        span_obj = self._start_batch_span("aux_execute", n, n, members, seq)
+        if span_obj is not None:
+            span_obj.set_attribute("batch.runner", _runner_name(group.runner))
+        try:
+            t_aux = time.perf_counter()
+            outputs = self._aux_launch(group, members, seq)
+            aux_s = time.perf_counter() - t_aux
+        except Exception as exc:
+            self._fail_span(span_obj, members, exc)
+            self._record_flight(group, members, n=n, batch=n, seq=seq,
+                                queue_wait_s=queue_wait_s, kind="aux",
+                                error=type(exc).__name__)
+            self._recover(group, members, exc)
+            return
+        # aux items are requests already counted by their transform
+        # launch: counters of their own keep images_processed meaning
+        # "images through the transform program"
+        self.metrics.counter(
+            "flyimg_aux_batches_total",
+            "Batched auxiliary (scoring/detection) launches",
+        ).inc()
+        self.metrics.counter(
+            "flyimg_aux_items_total", "Items through batched auxiliary programs",
+        ).inc(n)
+        self.metrics.record_batch_launch(
+            self.name, images=n, capacity=n, queue_wait_s=queue_wait_s,
+            device_s=aux_s, compile_hit=None,
+            trace_id=self._member_trace_id(members), aux=True,
+        )
+        self._record_flight(group, members, n=n, batch=n, seq=seq,
+                            queue_wait_s=queue_wait_s, device_s=aux_s, kind="aux")
+        if span_obj is not None:
+            span_obj.end()
+            self._attach_batch_span(members, span_obj)
+        self._resolve_members(group, members, outputs)
+
+    def _aux_launch(self, group: _Group, members: List[_Pending], seq: int):
+        """ONE synchronous ``runner(payloads)`` call of an aux group (its
+        kernels launch and read back inside), in the batch's profiler
+        range; raises on failure."""
+        n = len(members)
+        for i, member in enumerate(members):
+            faults.fire("batcher.member", key=group.key, index=i,
+                        image=member.payload)
+        self.launch_log.append(("aux", n, n))
+        poked = self._profiler_start()
+        try:
+            with torch.profiler.record_function(f"flyimg:batch:{seq}"):
+                outputs = group.runner([m.payload for m in members])
+        finally:
+            if poked:
+                self.profiler.on_batch_end()
+        if len(outputs) != n:
+            raise RuntimeError(
+                f"aux runner returned {len(outputs)} results for {n} payloads"
+            )
+        faults.fire("batcher.drain", key=group.key, n=n, batch=n)
+        return outputs
+
+    def _dispatch(self, group: _Group, members: List[_Pending], seq: int,
+                  queue_wait_s: float) -> bool:
         """Take a pipeline slot, assemble, launch, and hand the readback to
         a drain thread. The slot is taken before the assembly, so that a
         launch's pinned staging counts against the window as its device
@@ -752,13 +1039,23 @@ class BatchController:
         inflight.acquire()
         self._note_inflight(1)
         self._touch_busy()
+        span_obj = None
+        batch, key, compile_hit, poked = n, None, None, False
         try:
             batch, images, geo, fn, key = self._prepare(group, members)
-            measure = not costledger.launched(key)
+            compile_hit = costledger.launched(key)
+            self.metrics.record_compile_event(compile_hit)
+            span_obj = self._start_batch_span("device_execute", n, batch, members, seq)
+            if span_obj is not None:
+                span_obj.set_attribute(
+                    "program.compile_cache", "hit" if compile_hit else "miss")
+                span_obj.set_attribute("program.in_shape", str(group.in_shape))
+            measure = not compile_hit
             if measure:
                 self._suspend_busy()
             self.launch_log.append(("transform", n, batch))
-            launch = self._launch(fn, images, geo, measure)
+            poked = self._profiler_start()
+            launch = self._launch(fn, images, geo, measure, seq)
             first = measure and costledger.first_launch(key)
             self._touch_busy()
             # the launch rides in a box the drain empties: the thread's own
@@ -766,13 +1063,21 @@ class BatchController:
             # on the drain thread
             threading.Thread(
                 target=self._drain,
-                args=(group, members, [launch], key, batch, first, inflight),
+                args=(group, members, [launch], key, batch, first, inflight,
+                      seq, queue_wait_s, span_obj, compile_hit),
                 name="flyimg-torch-batcher-drain", daemon=True,
             ).start()
             return True
-        except BaseException:
+        except BaseException as exc:
             self._note_inflight(-1)
             inflight.release()
+            if poked:
+                self.profiler.on_batch_end()
+            if isinstance(exc, Exception):
+                self._fail_span(span_obj, members, exc)
+                self._record_failure(group, members, exc, n=n, batch=batch,
+                                     seq=seq, queue_wait_s=queue_wait_s,
+                                     key=key, compile_hit=compile_hit)
             raise
 
     def _note_inflight(self, step: int) -> None:
@@ -781,24 +1086,42 @@ class BatchController:
             self.inflight_peak = max(self.inflight_peak, self._launches_inflight)
 
     def _drain(self, group: _Group, members: List[_Pending], box: list, key,
-               batch: int, first: bool, inflight: threading.Semaphore) -> None:
+               batch: int, first: bool, inflight: threading.Semaphore,
+               seq: int, queue_wait_s: float, span_obj,
+               compile_hit: Optional[bool]) -> None:
         """Wait for one dispatched launch, read it back, account it and
         resolve its members (a daemon drain thread). A failure here goes to
         ``_recover`` on this thread."""
         n = len(members)
         launch = box.pop()
+        h2d_s, dispatch_s = launch.h2d_s, launch.dispatch_s
         try:
             faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+            t_sync = time.perf_counter()
             host = self._read_back(launch)
+            sync_s = time.perf_counter() - t_sync
             device_s = time.perf_counter() - launch.t_dispatch
             peak = launch.peak
             launch = None
             self._account(group, key, batch, n, device_s, first, peak)
+            self._observe_launch(
+                group, members, seq=seq, n=n, batch=batch,
+                queue_wait_s=queue_wait_s, key=key, h2d_s=h2d_s,
+                dispatch_s=dispatch_s, sync_s=sync_s, device_s=device_s,
+                compile_hit=compile_hit, span_obj=span_obj,
+            )
             self._resolve_members(group, members, host)
         except Exception as exc:
             launch = None   # its device tensors go before recovery launches
+            self._fail_span(span_obj, members, exc)
+            self._record_failure(group, members, exc, n=n, batch=batch, seq=seq,
+                                 queue_wait_s=queue_wait_s, key=key,
+                                 h2d_s=h2d_s, dispatch_s=dispatch_s,
+                                 compile_hit=compile_hit)
             self._recover(group, members, exc)
         finally:
+            if self.profiler is not None:
+                self.profiler.on_batch_end()
             self._note_inflight(-1)
             inflight.release()
             self._forget_batch(members)
@@ -824,34 +1147,44 @@ class BatchController:
         return batch, images, geo, fn, (("batched", str(self.device), batch)
                                         + tuple(group.base_key))
 
-    def _launch(self, fn, images, geo, measure_peak: bool) -> _Launch:
-        """Enqueue one launch: on CUDA the copy up, the program and the copy
-        back into a pinned buffer, on the controller's stream, with an
-        event after them (nothing waits here); on the CPU the program runs
-        here. ``measure_peak``: the allocator's peak over the enqueue, less
-        what was allocated before (a program's first launch)."""
-        t_dispatch = time.perf_counter()
-        if self._stream is None:
-            return _Launch(t_dispatch, host=fn(images, *program_args(geo)).numpy())
-        dev = self.device
-        before = None
-        with torch.cuda.stream(self._stream):
-            if measure_peak:
-                before = torch.cuda.memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-            d_img = images.to(dev, non_blocking=True)
-            d_geo = geo.to(dev, non_blocking=True)
-            out = fn(d_img, *program_args(d_geo))
-            pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            pinned.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+    def _launch(self, fn, images, geo, measure_peak: bool, seq: int) -> _Launch:
+        """Enqueue one launch inside its ``flyimg:batch:<seq>`` profiler
+        range: on CUDA the copy up (``h2d_s``), then the program and the
+        copy back into a pinned buffer (``dispatch_s``), on the
+        controller's stream, with an event after them (nothing waits
+        here); on the CPU the program runs here. ``measure_peak``: the
+        allocator's peak over the enqueue, less what was allocated before
+        (a program's first launch)."""
+        t_h2d = time.perf_counter()
+        with torch.profiler.record_function(f"flyimg:batch:{seq}"):
+            if self._stream is None:
+                t_dispatch = time.perf_counter()
+                host = fn(images, *program_args(geo)).numpy()
+                return _Launch(t_dispatch, h2d_s=t_dispatch - t_h2d,
+                               dispatch_s=time.perf_counter() - t_dispatch,
+                               host=host)
+            dev = self.device
+            before = None
+            with torch.cuda.stream(self._stream):
+                if measure_peak:
+                    before = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                d_img = images.to(dev, non_blocking=True)
+                d_geo = geo.to(dev, non_blocking=True)
+                t_dispatch = time.perf_counter()
+                out = fn(d_img, *program_args(d_geo))
+                pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                pinned.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            dispatch_s = time.perf_counter() - t_dispatch
         peak = None
         if before is not None:
             peak = float(torch.cuda.max_memory_allocated(dev) - before)
         # the tensors live until the readback: the staging buffers until
         # the copies up end, the device ones until the copy back does
-        return _Launch(t_dispatch, pinned=pinned, event=done, peak=peak,
+        return _Launch(t_dispatch, h2d_s=t_dispatch - t_h2d, dispatch_s=dispatch_s,
+                       pinned=pinned, event=done, peak=peak,
                        keep=(images, geo, d_img, d_geo, out))
 
     @staticmethod
@@ -878,35 +1211,57 @@ class BatchController:
             self.governor.record_success(group.base_key, n)
 
     def _run_members(self, group: _Group, members: List[_Pending]):
-        """ONE synchronous launch of ``members`` (assemble -> run -> read
-        back) for an aux group and for every recovery launch; raises on
-        failure, returns the outputs for ``_resolve_members``."""
+        """ONE synchronous recovery launch of ``members`` (assemble -> run
+        -> read back), under a batch id of its own, recorded as a
+        ``recovery`` launch; raises on failure, returns the outputs for
+        ``_resolve_members``."""
         self._touch_busy()      # a recovery launch is progress
+        seq = self._next_seq()
         n = len(members)
+        queue_wait_s = time.monotonic() - min(m.enqueued_at for m in members)
         if group.runner is not None:
-            for i, member in enumerate(members):
-                faults.fire("batcher.member", key=group.key, index=i,
-                            image=member.payload)
-            self.launch_log.append(("aux", n, n))
-            outputs = group.runner([m.payload for m in members])
-            if len(outputs) != n:
-                raise RuntimeError(
-                    f"aux runner returned {len(outputs)} results for {n} payloads"
-                )
-            faults.fire("batcher.drain", key=group.key, n=n, batch=n)
+            t_aux = time.perf_counter()
+            outputs = self._aux_launch(group, members, seq)
+            aux_s = time.perf_counter() - t_aux
+            self.metrics.record_batch_launch(
+                self.name, images=n, capacity=n, queue_wait_s=queue_wait_s,
+                device_s=aux_s, compile_hit=None,
+                trace_id=self._member_trace_id(members), aux=True,
+            )
+            self._record_flight(group, members, n=n, batch=n, seq=seq,
+                                queue_wait_s=queue_wait_s, device_s=aux_s,
+                                kind="recovery")
             return outputs
         batch, images, geo, fn, key = self._prepare(group, members)
-        measure = not costledger.launched(key)
+        compile_hit = costledger.launched(key)
+        self.metrics.record_compile_event(compile_hit)
+        measure = not compile_hit
         if measure:
             self._suspend_busy()
         self.launch_log.append(("transform", n, batch))
-        launch = self._launch(fn, images, geo, measure)
-        first = measure and costledger.first_launch(key)
-        faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
-        host = self._read_back(launch)
+        poked = self._profiler_start()
+        try:
+            launch = self._launch(fn, images, geo, measure, seq)
+            first = measure and costledger.first_launch(key)
+            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+            t_sync = time.perf_counter()
+            host = self._read_back(launch)
+            sync_s = time.perf_counter() - t_sync
+        finally:
+            if poked:
+                self.profiler.on_batch_end()
         device_s = time.perf_counter() - launch.t_dispatch
         self._touch_busy()
         self._account(group, key, batch, n, device_s, first, launch.peak)
+        mem_event = None
+        if self.governor is not None and self.governor.has_ceiling(group.base_key):
+            mem_event = "ceiling"
+        self._observe_launch(
+            group, members, seq=seq, n=n, batch=batch, queue_wait_s=queue_wait_s,
+            key=key, h2d_s=launch.h2d_s, dispatch_s=launch.dispatch_s,
+            sync_s=sync_s, device_s=device_s, compile_hit=compile_hit,
+            kind="recovery", mem_event=mem_event,
+        )
         return host
 
     def _resolve_members(self, group: _Group, members: List[_Pending],
@@ -945,8 +1300,27 @@ class BatchController:
         live = [m for m in members if not m.future.done()]
         if not live:
             return
+        kind = classify_batch_error(exc)
+        span_obj = self._start_batch_span(
+            "batch_recovery", len(live), len(live), live, self._batch_seq)
+        if span_obj is not None:
+            span_obj.set_attribute("recovery.error", type(exc).__name__)
+            span_obj.set_attribute("recovery.class", kind)
+        outer, self._tls.recovery_span = (
+            getattr(self._tls, "recovery_span", None), span_obj)
         try:
-            kind = classify_batch_error(exc)
+            self._contain(group, live, exc, kind)
+        finally:
+            self._tls.recovery_span = outer
+            if span_obj is not None:
+                span_obj.end("ok" if all(
+                    m.future.done() and m.future.exception() is None
+                    for m in live) else "error")
+                self._attach_batch_span(live, span_obj)
+
+    def _contain(self, group: _Group, live: List[_Pending], exc: Exception,
+                 kind: str) -> None:
+        try:
             if kind == OVERSIZE and self.bisect_enable:
                 self._recover_oversize(group, live, exc)
                 return
@@ -985,6 +1359,10 @@ class BatchController:
         for attempt in range(1, self.batch_retries + 1):
             delay = self._retry_policy.backoff(attempt)
             self._count("retries")
+            self.metrics.record_batch_retry()
+            self._recovery_event("batch_retry", attempt=attempt,
+                                 backoff_s=round(delay, 4),
+                                 error=type(last).__name__)
             if delay > 0:
                 self._retry_policy.sleep(delay)
             try:
@@ -1008,8 +1386,11 @@ class BatchController:
         same members in halves. A single member that still does not fit
         fails with a 503 + Retry-After and is never quarantined."""
         _forget_frames(exc, self.device)
+        cap = None
         if self.governor is not None:
-            self.governor.record_oom(group.base_key, len(live))
+            cap = self.governor.record_oom(group.base_key, len(live))
+        self._recovery_event("mem.ceiling", cap=cap, size=len(live),
+                             error=type(exc).__name__)
         if len(live) == 1:
             self._fail_oversize(live[0], exc)
             return
@@ -1031,6 +1412,7 @@ class BatchController:
         member is presumed innocent; a half that still runs out of memory
         halves again (the ceiling with it), down to single members. Another
         error class from a smaller launch goes to the retry / bisection."""
+        self._recovery_event("mem.split", size=len(members))
         mid = len(members) // 2
         for part in (members[:mid], members[mid:]):
             live = [m for m in part if not m.future.done()]
@@ -1072,6 +1454,7 @@ class BatchController:
         innocent members resolve on the first passing launch and only the
         poison ones fail: at most 2·ceil(log2 n) more launches for one
         poison member in n."""
+        self._recovery_event("batch_bisect", size=len(members))
         mid = len(members) // 2
         for part in (members[:mid], members[mid:]):
             live = [m for m in part if not m.future.done()]
@@ -1103,9 +1486,12 @@ class BatchController:
         quarantine (aux members carry no pixels contract and never are)."""
         if classify_batch_error(exc) == POISON:
             self._count("poison_isolated")
+            self.metrics.record_poison_isolated()
             if self.quarantine is not None and member.plan is not None:
                 if member.fp_digest is None:
                     member.fp_digest = _image_digest(member.payload)
                 self.quarantine.add((group.base_key, member.fp_digest))
+            self._recovery_event("poison_isolated", error=type(exc).__name__,
+                                 digest=member.fp_digest)
         if not member.future.done():
             member.future.set_exception(exc)

@@ -27,9 +27,10 @@ device seconds against one key. The port compiles nothing at run time, so:
   readback, as the JAX batcher's drain measures them.
 
 The ledger is a process-wide singleton (``get_ledger``), bounded at
-``max_entries`` entries, least-recently-launched evicted. The JAX module's
-metrics gauges wait for the port's metrics (ROADMAP Queue A 4):
-``aggregates`` and ``snapshot`` are the read surface.
+``max_entries`` entries, least-recently-launched evicted. ``aggregates``
+and ``snapshot`` (``/debug/plans``) are the read surface, and
+``register_metrics`` exports the ``flyimg_plan_*`` gauges on a server's
+registry.
 """
 
 from __future__ import annotations
@@ -156,6 +157,14 @@ class PlanCostLedger:
         self._total_bytes_executed = 0.0
         self._total_device_s = 0.0
 
+    def configure(self, *, max_entries: Optional[int] = None) -> None:
+        """Re-bound the table (the server applies
+        ``costledger_max_entries``; the singleton predates it)."""
+        if max_entries is not None:
+            with self._lock:
+                self._max_entries = max(8, int(max_entries))
+                self._evict_locked()
+
     # -- recording ---------------------------------------------------------
 
     def record_compile(
@@ -275,6 +284,43 @@ class PlanCostLedger:
             "truncated": truncated,
             "aggregates": self.aggregates(),
         }
+
+
+    def register_metrics(self, registry) -> None:
+        """Export the flyimg_plan_* family as render-time gauges on a
+        server's registry (the ledger is process-wide, the registry per
+        server: callbacks keep them decoupled). FLOPs and bytes read 0, as
+        nothing here costs a program."""
+        registry.gauge(
+            "flyimg_plan_entries",
+            "Device programs tracked by the per-plan cost ledger",
+            fn=lambda: self.aggregates()["entries"],
+        )
+        registry.gauge(
+            "flyimg_plan_compile_seconds",
+            "Cumulative wall time spent compiling device programs",
+            fn=lambda: self.aggregates()["compile_seconds"],
+        )
+        registry.gauge(
+            "flyimg_plan_flops_executed",
+            "Estimated FLOPs executed through costed device programs",
+            fn=lambda: self.aggregates()["flops_executed"],
+        )
+        registry.gauge(
+            "flyimg_plan_bytes_executed",
+            "Estimated bytes accessed by costed device programs",
+            fn=lambda: self.aggregates()["bytes_executed"],
+        )
+        registry.gauge(
+            "flyimg_plan_peak_memory_bytes",
+            "Largest per-program peak device memory estimate in the ledger",
+            fn=lambda: self.aggregates()["peak_memory_bytes"],
+        )
+        registry.gauge(
+            "flyimg_plan_uncosted",
+            "Compiles whose backend returned no usable cost analysis",
+            fn=lambda: self.aggregates()["uncosted"],
+        )
 
 
 # process-wide, as the kernels and their launches are

@@ -14,8 +14,11 @@ Each stage gets its own pool of ``workers`` threads:
   stage sheds through the port's ``AdmissionGate`` (503 + Retry-After)
   instead of queueing without bound;
 - each task's queue wait (submit to pickup) is kept in ``wait_s`` counters
-  (the JAX module's histogram, spans and flight-recorder rows wait for the
-  port's tracing and metrics, ROADMAP Queue A 4).
+  and, with a registry, in ``flyimg_host_pool_queue_wait_seconds{pool=}``;
+  a wait of ``FLIGHT_WAIT_MIN_S`` or more is a ``host_stage`` row in the
+  flight recorder;
+- the submitting request's trace is activated inside the worker, so the
+  spans and events of the stage's work land in that request's trace.
 
 Self-healing follows the batch executor's (runtime/batcher.py): a DEAD
 worker thread is replaced at the next submit, and a WEDGED one (inside one
@@ -35,6 +38,8 @@ import time
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Tuple
 
+from flyimg_tpu_torch.runtime import tracing
+from flyimg_tpu_torch.runtime.metrics import escape_label_value
 from flyimg_tpu_torch.runtime.resilience import AdmissionGate
 
 __all__ = ["StagePool", "HostPipeline", "STAGES"]
@@ -44,12 +49,13 @@ STAGES = ("fetch", "decode", "encode")
 
 
 class _Task:
-    __slots__ = ("fn", "future", "enqueued_at")
+    __slots__ = ("fn", "future", "enqueued_at", "trace")
 
-    def __init__(self, fn: Callable) -> None:
+    def __init__(self, fn: Callable, trace=None) -> None:
         self.fn = fn
         self.future: Future = Future()
         self.enqueued_at = time.monotonic()
+        self.trace = trace
 
 
 class StagePool:
@@ -60,6 +66,9 @@ class StagePool:
     counts workers replaced by self-healing, by reason; ``waits`` and
     ``wait_s`` count the tasks picked up and their summed queue wait."""
 
+    #: only queue waits at least this long get a flight-recorder row
+    FLIGHT_WAIT_MIN_S = 0.005
+
     def __init__(
         self,
         name: str,
@@ -68,15 +77,20 @@ class StagePool:
         queue_depth: int = 16,
         wedge_timeout_s: float = 60.0,
         shed_retry_after_s: float = 1.0,
+        metrics=None,
+        flight_recorder=None,
     ) -> None:
         self.name = name
         self.workers = max(1, int(workers))
         self.queue_depth = max(1, int(queue_depth))
         self.wedge_timeout_s = max(float(wedge_timeout_s), 0.0)
+        self.metrics = metrics
+        self.flight_recorder = flight_recorder
         self.admission = AdmissionGate(
             max_pending=self.workers + self.queue_depth,
             retry_after_s=shed_retry_after_s,
             name=f"host {name} pool",
+            metrics=metrics,
         )
         self.restarts: Dict[str, int] = {"dead": 0, "wedged": 0}
         self.waits = 0
@@ -134,8 +148,10 @@ class StagePool:
             with self._lock:
                 self.waits += 1
                 self.wait_s += max(wait_s, 0.0)
+            self._record_wait(task, wait_s)
             try:
-                result = task.fn()
+                with tracing.activate(task.trace):
+                    result = task.fn()
             except BaseException as exc:
                 if not task.future.done():
                     task.future.set_exception(exc)
@@ -147,6 +163,23 @@ class StagePool:
                     if me in self._busy:
                         self._busy[me] = None
 
+    def _record_wait(self, task: _Task, wait_s: float) -> None:
+        trace_id = task.trace.trace_id if task.trace is not None else None
+        if self.metrics is not None:
+            self.metrics.histogram(
+                "flyimg_host_pool_queue_wait_seconds"
+                f'{{pool="{escape_label_value(self.name)}"}}',
+                "Host stage-pool queue wait, task submit to worker pickup",
+            ).observe(max(wait_s, 0.0), trace_id=trace_id)
+        if self.flight_recorder is not None and wait_s >= self.FLIGHT_WAIT_MIN_S:
+            # backpressure evidence only: healthy pickups stay out of the
+            # ring, which exists for the launches around an incident
+            self.flight_recorder.record(
+                controller=f"host:{self.name}", batch_id=None, plan_key=None,
+                occupancy=1, capacity=1, queue_wait_s=wait_s,
+                kind="host_stage", stage=self.name, trace_id=trace_id,
+            )
+
     # -- submission --------------------------------------------------------
 
     def submit(self, fn: Callable) -> Future:
@@ -157,7 +190,7 @@ class StagePool:
                 raise RuntimeError(f"host {self.name} pool is closed")
         self._heal_workers()
         self.admission.acquire()
-        task = _Task(fn)
+        task = _Task(fn, tracing.current_trace())
         task.future.add_done_callback(lambda _f: self.admission.release())
         try:
             self._queue.put(task)
@@ -193,6 +226,16 @@ class StagePool:
                 self._busy.pop(thread, None)
                 respawn += 1
                 self.restarts[reason] += 1
+                if self.metrics is not None:
+                    self.metrics.counter(
+                        "flyimg_host_pool_worker_restarts_total"
+                        f'{{pool="{escape_label_value(self.name)}",'
+                        f'reason="{reason}"}}',
+                        "Host stage-pool workers replaced by self-healing",
+                    ).inc()
+                tracing.add_event(
+                    "host_pool.worker_restart", pool=self.name, reason=reason,
+                )
                 if reason == "wedged" and entry is not None:
                     wedged_tasks.append(entry[1])
         for task in wedged_tasks:
@@ -232,6 +275,8 @@ class StagePool:
             self._spawn_worker()
         for _ in retire:
             self._queue.put(None)
+        if retire or spawn:
+            tracing.add_event("host_pool.resize", pool=self.name, workers=target)
         return target
 
     # -- introspection -----------------------------------------------------
@@ -291,6 +336,8 @@ class HostPipeline:
         queue_depth: int = 16,
         wedge_timeout_s: float = 60.0,
         shed_retry_after_s: float = 1.0,
+        metrics=None,
+        flight_recorder=None,
     ) -> None:
         self.enabled = bool(enabled)
         self._pools: Dict[str, StagePool] = {}
@@ -305,10 +352,12 @@ class HostPipeline:
                 name, workers=workers, queue_depth=queue_depth,
                 wedge_timeout_s=wedge_timeout_s,
                 shed_retry_after_s=shed_retry_after_s,
+                metrics=metrics, flight_recorder=flight_recorder,
             )
 
     @classmethod
-    def from_params(cls, params) -> "HostPipeline":
+    def from_params(cls, params, *, metrics=None,
+                    flight_recorder=None) -> "HostPipeline":
         return cls(
             enabled=bool(params.by_key("host_pipeline_enable", False)),
             fetch_workers=int(params.by_key("host_pipeline_fetch_workers", 4)),
@@ -317,6 +366,7 @@ class HostPipeline:
             queue_depth=int(params.by_key("host_pipeline_queue_depth", 16)),
             wedge_timeout_s=float(params.by_key("host_pipeline_wedge_timeout_s", 60.0)),
             shed_retry_after_s=float(params.by_key("shed_retry_after_s", 1.0)),
+            metrics=metrics, flight_recorder=flight_recorder,
         )
 
     def pool(self, stage: str) -> Optional[StagePool]:
@@ -344,7 +394,9 @@ class HostPipeline:
         pool = self._pools.get(stage)
         if pool is None:
             return fn()
-        return pool.submit(fn).result(timeout=timeout)
+        future = pool.submit(fn)
+        tracing.add_event("host_pipeline.staged", stage=stage, pending=pool.pending)
+        return future.result(timeout=timeout)
 
     def apply_policy(self, stage_workers: Dict[str, int]) -> Dict[str, int]:
         """Resize stage pools online; unknown stages are ignored. Returns

@@ -25,7 +25,13 @@ first unit always admits: one huge image must degrade, not deadlock.
 ``RssWatchdog``: samples the process's RSS (``/proc/self/statm``) as a
 pressure normalised to a limit; the ``mem.rss`` fault point overrides the
 sample. The JAX package's brownout engine reads it; the port has no
-brownout yet (ROADMAP Queue A 4), so nothing does.
+brownout yet, so only ``/debug/memory`` and ``flyimg_mem_rss_bytes`` do.
+
+With a registry (``metrics``), each exports the JAX module's families
+(``register_metrics``): ``flyimg_mem_presplits_total``,
+``flyimg_mem_oom_launches_total``, ``flyimg_mem_ceiling_probes_total``,
+``flyimg_mem_ceilings_active``, ``flyimg_mem_inflight_decoded_bytes``,
+``flyimg_mem_host_rejections_total`` and ``flyimg_mem_rss_bytes``.
 
 Everything here is off by default and inert when off: the batcher skips
 every governor call without a governor, and the server makes none unless
@@ -40,6 +46,7 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 from flyimg_tpu_torch.exceptions import ServiceUnavailableException
+from flyimg_tpu_torch.runtime import tracing
 from flyimg_tpu_torch.runtime.costledger import key_digest as _family_label
 from flyimg_tpu_torch.testing import faults
 
@@ -62,8 +69,10 @@ class MemoryGovernor:
         probe_successes: int = 4,
         probe_step: int = 1,
         clock: Callable[[], float] = time.monotonic,
+        metrics=None,
     ) -> None:
         self.enabled = bool(enabled)
+        self._metrics = metrics
         self.device_budget_bytes = max(int(device_budget_bytes), 0)
         self.heuristic_bytes_per_pixel = max(
             float(heuristic_bytes_per_pixel), 1.0
@@ -82,7 +91,7 @@ class MemoryGovernor:
         self._oom_launches_total = 0
 
     @classmethod
-    def from_params(cls, params) -> "MemoryGovernor":
+    def from_params(cls, params, *, metrics=None) -> "MemoryGovernor":
         return cls(
             enabled=bool(params.by_key("mem_governor_enable", False)),
             device_budget_bytes=int(
@@ -94,7 +103,42 @@ class MemoryGovernor:
             ceiling_ttl_s=float(params.by_key("mem_ceiling_ttl_s", 300.0)),
             probe_successes=int(params.by_key("mem_probe_successes", 4)),
             probe_step=int(params.by_key("mem_probe_step", 1)),
+            metrics=metrics,
         )
+
+    def register_metrics(self, registry) -> None:
+        """The governor's families on a server's registry (only when it
+        is enabled)."""
+        registry.counter(
+            "flyimg_mem_presplits_total",
+            "Device launches split below the requested batch by the "
+            "memory governor's budget/ceiling admission",
+        )
+        registry.counter(
+            "flyimg_mem_oom_launches_total",
+            "Device launches that failed with an OOM-class "
+            "(RESOURCE_EXHAUSTED) error",
+        )
+        registry.gauge(
+            "flyimg_mem_ceilings_active",
+            "Plan families currently carrying a TTL'd capacity ceiling",
+            fn=lambda: float(self.active_ceilings()),
+        )
+
+    def active_ceilings(self) -> int:
+        with self._lock:
+            now = self._clock()
+            if self.ceiling_ttl_s > 0:
+                return sum(1 for entry in self._ceilings.values() if now < entry[1])
+            return len(self._ceilings)
+
+    def _probe_outcome(self, outcome: str) -> None:
+        if self._metrics is not None:
+            self._metrics.counter(
+                f'flyimg_mem_ceiling_probes_total{{outcome="{outcome}"}}',
+                "Capacity-ceiling lifecycle events: halve on OOM, "
+                "additive raise on sustained success, TTL expire",
+            ).inc()
 
     # -- prediction --------------------------------------------------------
 
@@ -156,6 +200,12 @@ class MemoryGovernor:
     def record_presplit(self) -> None:
         with self._lock:
             self._presplits_total += 1
+        if self._metrics is not None:
+            self._metrics.counter(
+                "flyimg_mem_presplits_total",
+                "Device launches split below the requested batch by the "
+                "memory governor's budget/ceiling admission",
+            ).inc()
 
     # -- AIMD capacity ceilings --------------------------------------------
 
@@ -171,6 +221,7 @@ class MemoryGovernor:
             return None
         if self.ceiling_ttl_s > 0 and self._clock() >= entry[1]:
             del self._ceilings[label]
+            self._probe_outcome("expire")
             return None
         return entry
 
@@ -188,6 +239,13 @@ class MemoryGovernor:
             else:
                 cap = max(min(entry[0], n) // 2, 1)
             self._ceilings[label] = [cap, self._clock() + self.ceiling_ttl_s, 0]
+        if self._metrics is not None:
+            self._metrics.counter(
+                "flyimg_mem_oom_launches_total",
+                "Device launches that failed with an OOM-class "
+                "(RESOURCE_EXHAUSTED) error",
+            ).inc()
+        self._probe_outcome("halve")
         return cap
 
     def record_success(self, family, n_members: int) -> None:
@@ -197,6 +255,7 @@ class MemoryGovernor:
         if not self.enabled:
             return
         label = _family_label(family)
+        raised = False
         with self._lock:
             entry = self._expire_locked(label)
             if entry is None or int(n_members) < entry[0]:
@@ -206,6 +265,9 @@ class MemoryGovernor:
                 entry[0] += self.probe_step
                 entry[1] = self._clock() + self.ceiling_ttl_s
                 entry[2] = 0
+                raised = True
+        if raised:
+            self._probe_outcome("raise")
 
     def has_ceiling(self, family) -> bool:
         return self._ceiling_cap(family) is not None
@@ -239,7 +301,9 @@ class HostByteAccountant:
     with a 503 + Retry-After. The first unit always admits. ``budget_bytes``
     <= 0 disables the bound."""
 
-    def __init__(self, *, budget_bytes: int = 0, retry_after_s: float = 1.0) -> None:
+    def __init__(self, *, budget_bytes: int = 0, retry_after_s: float = 1.0,
+                 metrics=None) -> None:
+        self._metrics = metrics
         self.budget_bytes = max(int(budget_bytes), 0)
         self.retry_after_s = float(retry_after_s)
         self._lock = threading.Lock()
@@ -252,10 +316,23 @@ class HostByteAccountant:
         return self.budget_bytes > 0
 
     @classmethod
-    def from_params(cls, params) -> "HostByteAccountant":
+    def from_params(cls, params, *, metrics=None) -> "HostByteAccountant":
         return cls(
             budget_bytes=int(params.by_key("mem_host_budget_bytes", 0) or 0),
             retry_after_s=float(params.by_key("shed_retry_after_s", 1.0)),
+            metrics=metrics,
+        )
+
+    def register_metrics(self, registry) -> None:
+        registry.gauge(
+            "flyimg_mem_inflight_decoded_bytes",
+            "Predicted decoded bytes currently admitted through the "
+            "host byte accountant",
+            fn=lambda: float(self.inflight_bytes),
+        )
+        registry.counter(
+            "flyimg_mem_host_rejections_total",
+            "Decode admissions shed by the host byte budget",
         )
 
     def admit(self, predicted_bytes: int) -> int:
@@ -277,6 +354,17 @@ class HostByteAccountant:
                     f"inflight, next unit needs {charge}); shedding load"
                 )
                 exc.retry_after_s = max(1, int(self.retry_after_s))
+                if self._metrics is not None:
+                    self._metrics.counter(
+                        "flyimg_mem_host_rejections_total",
+                        "Decode admissions shed by the host byte budget",
+                    ).inc()
+                    self._metrics.record_shed("host-memory")
+                tracing.add_event(
+                    "shed", reason="host-memory",
+                    inflight_bytes=self._inflight_bytes,
+                    predicted_bytes=charge, budget_bytes=self.budget_bytes,
+                )
                 raise exc
             self._inflight_bytes += charge
             self._inflight_units += 1
@@ -320,9 +408,24 @@ class RssWatchdog:
 
     _PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
 
-    def __init__(self, *, limit_bytes: int = 0) -> None:
+    def __init__(self, *, limit_bytes: int = 0, metrics=None) -> None:
         self.limit_bytes = max(int(limit_bytes), 0)
+        self._metrics = metrics
         self._peak_bytes = 0.0
+
+    @classmethod
+    def from_params(cls, params, *, metrics=None) -> "RssWatchdog":
+        return cls(
+            limit_bytes=int(params.by_key("mem_rss_limit_bytes", 0) or 0),
+            metrics=metrics,
+        )
+
+    def register_metrics(self, registry) -> None:
+        registry.gauge(
+            "flyimg_mem_rss_bytes",
+            "Process resident set size, sampled at scrape time",
+            fn=lambda: float(self.rss_bytes()),
+        )
 
     @property
     def enabled(self) -> bool:

@@ -1,7 +1,10 @@
 """Resilience primitives for the serving pipeline.
 
-The port of ``flyimg_tpu/runtime/resilience.py`` (its metrics and trace
-events wait for the port's tracing, ROADMAP Queue A 4):
+The port of ``flyimg_tpu/runtime/resilience.py``, with its metrics
+(``flyimg_retries_total``, ``flyimg_breaker_transitions_total``,
+``flyimg_shed_total``, ``flyimg_deadline_exceeded_total``) when a registry
+is given and its span events (``retry``, ``breaker.transition``,
+``breaker.shed``, ``shed``, ``deadline.exceeded``) on the ambient trace:
 
 - ``Deadline``: a per-request latency budget minted at ingress and spent by
   every stage (fetch, device waits). Exhaustion raises
@@ -43,6 +46,7 @@ from flyimg_tpu_torch.exceptions import (
     DeadlineExceededException,
     ServiceUnavailableException,
 )
+from flyimg_tpu_torch.runtime import tracing
 
 __all__ = [
     "Deadline",
@@ -75,15 +79,17 @@ class Deadline:
     branching.
     """
 
-    __slots__ = ("_deadline_at", "budget_s", "_clock")
+    __slots__ = ("_deadline_at", "budget_s", "_metrics", "_clock")
 
     def __init__(
         self,
         budget_s: Optional[float],
         *,
+        metrics=None,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
         self.budget_s = budget_s if budget_s and budget_s > 0 else None
+        self._metrics = metrics
         self._clock = clock
         self._deadline_at = (
             clock() + self.budget_s if self.budget_s is not None else None
@@ -114,11 +120,27 @@ class Deadline:
         """Raise ``DeadlineExceededException`` (504) when the budget is
         spent."""
         if self.expired:
+            if self._metrics is not None:
+                self._metrics.record_deadline_hit(stage or "unknown")
+            tracing.add_event(
+                "deadline.exceeded",
+                stage=stage or "unknown",
+                budget_s=self.budget_s,
+            )
             raise DeadlineExceededException(
                 f"request deadline exceeded"
                 f"{f' at stage {stage!r}' if stage else ''} "
                 f"(budget {self.budget_s:.3f}s)"
             )
+
+    @classmethod
+    def from_params(cls, params, *, metrics=None) -> "Deadline":
+        """The request budget of ``request_deadline_s``, minted at
+        ingress."""
+        return cls(
+            float(params.by_key("request_deadline_s", 0.0) or 0.0),
+            metrics=metrics,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +163,7 @@ class RetryPolicy:
     # injectable for deterministic tests
     sleep: Callable[[float], None] = time.sleep
     rng: Callable[[], float] = random.random
+    metrics: Optional[object] = None
 
     def backoff(self, attempt: int) -> float:
         """Full-jitter delay before retry number ``attempt`` (1-based)."""
@@ -173,15 +196,25 @@ class RetryPolicy:
                 delay = self.backoff(attempt)
                 if deadline is not None and deadline.remaining() <= delay:
                     raise   # no budget for the backoff: the real error now
+                if self.metrics is not None:
+                    self.metrics.record_retry(point or "unknown")
+                tracing.add_event(
+                    "retry",
+                    point=point or "unknown",
+                    attempt=attempt,
+                    backoff_s=round(delay, 4),
+                    error=type(exc).__name__,
+                )
                 if delay > 0:
                     self.sleep(delay)
 
     @classmethod
-    def from_params(cls, params) -> "RetryPolicy":
+    def from_params(cls, params, *, metrics=None) -> "RetryPolicy":
         return cls(
             max_attempts=int(params.by_key("retry_max_attempts", 3)),
             base_backoff_s=float(params.by_key("retry_base_backoff_s", 0.05)),
             max_backoff_s=float(params.by_key("retry_max_backoff_s", 2.0)),
+            metrics=metrics,
         )
 
 
@@ -217,11 +250,13 @@ class CircuitBreaker:
         recovery_s: float = 10.0,
         name: str = "",
         clock: Callable[[], float] = time.monotonic,
+        metrics=None,
     ) -> None:
         self.failure_threshold = max(1, int(failure_threshold))
         self.recovery_s = float(recovery_s)
         self.name = name
         self._clock = clock
+        self._metrics = metrics
         self._lock = threading.Lock()
         self._state = self.CLOSED
         self._consecutive_failures = 0
@@ -233,6 +268,16 @@ class CircuitBreaker:
         with self._lock:
             return self._state
 
+    def _transition(self, to: str) -> None:
+        # the caller holds the lock
+        self._state = to
+        if self._metrics is not None:
+            self._metrics.record_breaker(self.name or "upstream", to)
+        # a transition this request triggered lands in its trace
+        tracing.add_event(
+            "breaker.transition", host=self.name or "upstream", to=to
+        )
+
     def allow(self) -> None:
         """Admit one attempt or raise ``CircuitOpenException``."""
         with self._lock:
@@ -243,7 +288,7 @@ class CircuitBreaker:
                 remaining = self._opened_at + self.recovery_s - now
                 if remaining > 0:
                     raise self._rejection(remaining)
-                self._state = self.HALF_OPEN
+                self._transition(self.HALF_OPEN)
                 self._probe_inflight = False
             # half-open: one probe at a time; everyone else sheds
             if self._probe_inflight:
@@ -256,13 +301,18 @@ class CircuitBreaker:
             f"(recently failing); retry in ~{max(retry_after, 0.0):.1f}s"
         )
         exc.retry_after_s = max(1, int(retry_after) or 1)
+        tracing.add_event(
+            "breaker.shed", host=self.name or "upstream",
+            retry_after_s=round(max(retry_after, 0.0), 3),
+        )
         return exc
 
     def record_success(self) -> None:
         with self._lock:
             self._consecutive_failures = 0
             self._probe_inflight = False
-            self._state = self.CLOSED
+            if self._state != self.CLOSED:
+                self._transition(self.CLOSED)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -270,7 +320,7 @@ class CircuitBreaker:
             if self._state == self.HALF_OPEN:
                 # a failed probe: straight back to open, a fresh window
                 self._opened_at = self._clock()
-                self._state = self.OPEN
+                self._transition(self.OPEN)
                 return
             self._consecutive_failures += 1
             if (
@@ -278,7 +328,7 @@ class CircuitBreaker:
                 and self._consecutive_failures >= self.failure_threshold
             ):
                 self._opened_at = self._clock()
-                self._state = self.OPEN
+                self._transition(self.OPEN)
 
 
 class BreakerRegistry:
@@ -297,10 +347,12 @@ class BreakerRegistry:
         failure_threshold: int = 5,
         recovery_s: float = 10.0,
         max_hosts: int = 1024,
+        metrics=None,
     ) -> None:
         self.failure_threshold = failure_threshold
         self.recovery_s = recovery_s
         self.max_hosts = max(1, int(max_hosts))
+        self._metrics = metrics
         self._lock = threading.Lock()
         self._breakers: Dict[str, CircuitBreaker] = {}
 
@@ -309,6 +361,7 @@ class BreakerRegistry:
             failure_threshold=self.failure_threshold,
             recovery_s=self.recovery_s,
             name=host,
+            metrics=self._metrics,
         )
 
     def for_host(self, host: str) -> CircuitBreaker:
@@ -337,13 +390,21 @@ class BreakerRegistry:
             self._breakers[host] = breaker
             return breaker
 
+    def open_count(self) -> int:
+        """Breakers not closed (open or half-open): the
+        ``flyimg_breaker_open`` gauge."""
+        with self._lock:
+            breakers = list(self._breakers.values())
+        return sum(1 for brk in breakers if brk.state != CircuitBreaker.CLOSED)
+
     @classmethod
-    def from_params(cls, params) -> "BreakerRegistry":
+    def from_params(cls, params, *, metrics=None) -> "BreakerRegistry":
         return cls(
             failure_threshold=int(
                 params.by_key("breaker_failure_threshold", 5)
             ),
             recovery_s=float(params.by_key("breaker_recovery_s", 10.0)),
+            metrics=metrics,
         )
 
 
@@ -375,6 +436,7 @@ class AdmissionGate:
     max_pending: int = 0
     retry_after_s: float = 1.0
     name: str = "queue"
+    metrics: Optional[object] = None
     _lock: threading.Lock = field(default_factory=threading.Lock)
     _pending: int = 0
 
@@ -386,6 +448,12 @@ class AdmissionGate:
                     f"{self.max_pending} pending); shedding load"
                 )
                 exc.retry_after_s = max(1, int(self.retry_after_s))
+                if self.metrics is not None:
+                    self.metrics.record_shed(self.name)
+                tracing.add_event(
+                    "shed", reason=self.name, pending=self._pending,
+                    max_pending=self.max_pending,
+                )
                 raise exc
             self._pending += 1
 

@@ -28,8 +28,18 @@ frames under a geometry-only plan and are thresholded at 128 for the GIF's
 transparent index. A still answer of an animated source renders frame
 ``gf_``. ``clsp_CMYK`` answers a CMYK JPEG. The fetch, the decode and the
 encode run on the host stage pools when the server has them
-(``host_pipeline_*``). Not ported yet (ROADMAP): signed URLs and domain
-restrictions, brownout, derivative reuse and the fleet tier.
+(``host_pipeline_*``). Signed URLs and domain restrictions are checked
+first, before any option is parsed (``service/security.py``), as the JAX
+handler does.
+
+Observability (the JAX handler's): the stages run in spans of the
+request's trace (``fetch``, ``storage``, ``coalesced_wait``, ``decode``,
+``batch_wait``, ``smartcrop``, ``faces``, ``encode``; the batchers attach
+their shared launch spans under them), with ``cache.hit`` and
+``cache.corrupt`` events, and every request records its cache outcome and
+stage timings in the metrics registry (``flyimg_cache_total``,
+``flyimg_stage_seconds``). Not ported yet (ROADMAP): brownout, derivative
+reuse and the fleet tier.
 """
 
 from __future__ import annotations
@@ -70,12 +80,15 @@ from flyimg_tpu_torch.parallel.tiling import (
     tiled_rotate,
     tiled_transform,
 )
+from flyimg_tpu_torch.runtime import tracing
 from flyimg_tpu_torch.runtime.batcher import BatchController
 from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.memgovernor import HostByteAccountant
+from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
 from flyimg_tpu_torch.runtime.resilience import Deadline
 from flyimg_tpu_torch.service.input_source import FetchPolicy, load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
+from flyimg_tpu_torch.service.security import SecurityHandler
 from flyimg_tpu_torch.spec.options import OptionsBag
 from flyimg_tpu_torch.spec.plan import (
     TransformPlan,
@@ -84,7 +97,7 @@ from flyimg_tpu_torch.spec.plan import (
     decode_target_hint,
     parse_colorspace,
 )
-from flyimg_tpu_torch.storage.local import LocalStorage
+from flyimg_tpu_torch.storage import Storage, make_storage
 
 
 class _SingleFlight:
@@ -218,7 +231,10 @@ class ImageHandler:
     A source whose header declares more than ``mem_max_source_pixels``
     pixels answers 413 before any decode. ``mem_host_budget_bytes`` > 0
     charges each decode's predicted bytes (w x h x 3) against a host
-    budget (503 + Retry-After past it)."""
+    budget (503 + Retry-After past it).
+
+    ``metrics``: the server's registry (a private one by default);
+    ``storage``: the output store (by default ``make_storage(params)``)."""
 
     #: inputs at least this tall consider the spatially tiled programs
     TILE_MIN_ROWS = 2048
@@ -233,8 +249,12 @@ class ImageHandler:
         sp_mesh: Optional[Mesh] = None,
         host_pipeline: Optional[HostPipeline] = None,
         codec_batcher: Optional[BatchController] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        storage: Optional[Storage] = None,
     ) -> None:
         self.params = params or AppParameters()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.security = SecurityHandler(self.params)
         self.device = resolve_device(device)
         self.batcher = batcher
         self.codec_batcher = codec_batcher
@@ -243,23 +263,17 @@ class ImageHandler:
         self.decode_roi = bool(self.params.by_key("decode_roi", True))
         self.sp_mesh = sp_mesh
         self.host_pipeline = host_pipeline
-        # counterparts of the reference's flyimg_tiled_resamples_total,
-        # flyimg_tiled_single_ops_total and flyimg_wedged_fallbacks_total
-        # (the port has no metrics registry)
-        self.tiled_resamples = 0
-        self.tiled_single_ops = 0
-        self.wedged_fallbacks = 0
-        self._count_lock = threading.Lock()
         self._face_backend = face_backend
         self._face_lock = threading.Lock()
-        self.storage = LocalStorage(self.params.by_key("upload_dir"))
+        self.storage = (storage if storage is not None
+                        else make_storage(self.params, metrics=self.metrics))
         self.tmp_dir = self.params.by_key("tmp_dir")
-        self.fetch_policy = FetchPolicy.from_params(self.params)
+        self.fetch_policy = FetchPolicy.from_params(self.params, metrics=self.metrics)
         self.default_deadline_s = float(self.params.by_key("request_deadline_s") or 0.0)
         self.device_result_timeout_s = float(self.params.by_key("device_result_timeout_s"))
         self.wedged_fallback = bool(self.params.by_key("wedged_executor_fallback", True))
         self.max_source_pixels = int(self.params.by_key("mem_max_source_pixels", 0) or 0)
-        accountant = HostByteAccountant.from_params(self.params)
+        accountant = HostByteAccountant.from_params(self.params, metrics=self.metrics)
         self.mem_accountant = accountant if accountant.enabled else None
         self._flight = _SingleFlight()
         # a stable runner: the batcher groups aux work by runner identity
@@ -269,6 +283,42 @@ class ImageHandler:
         self._jpeg_decode_runner = partial(codecs.batch_jpeg_decode, device=self.device)
         self._jpeg_encode_runner = partial(codecs.batch_jpeg_encode, device=self.device)
 
+    # -- the counters of the JAX handler's families ------------------------
+
+    _COUNTERS = {
+        "tiled_resamples": (
+            "flyimg_tiled_resamples_total",
+            "Large inputs resampled via sp-axis spatial tiling"),
+        "tiled_single_ops": (
+            "flyimg_tiled_single_ops_total",
+            "Tall single-op plans run via sp-axis tiling (ring rotate / "
+            "halo conv)"),
+        "wedged_fallbacks": (
+            "flyimg_wedged_fallbacks_total",
+            "Batched waits that timed out and ran the direct "
+            "single-image path instead"),
+    }
+
+    def _count(self, name: str) -> None:
+        family, help_text = self._COUNTERS[name]
+        self.metrics.counter(family, help_text).inc()
+
+    def _counted(self, name: str) -> int:
+        family, help_text = self._COUNTERS[name]
+        return int(self.metrics.counter(family, help_text).value)
+
+    @property
+    def tiled_resamples(self) -> int:
+        return self._counted("tiled_resamples")
+
+    @property
+    def tiled_single_ops(self) -> int:
+        return self._counted("tiled_single_ops")
+
+    @property
+    def wedged_fallbacks(self) -> int:
+        return self._counted("wedged_fallbacks")
+
     def process_image(
         self, options_str: str, image_src: str, *, accepts_webp: bool = False,
         deadline: Optional[Deadline] = None,
@@ -276,9 +326,14 @@ class ImageHandler:
         """One image request (the reference handler's ``process_image``);
         ``accepts_webp``: the client's Accept header names image/webp, so
         ``o_auto`` answers WebP. ``deadline``: the request's budget, by
-        default ``request_deadline_s`` from now."""
+        default ``request_deadline_s`` from now. A signed token is
+        decrypted, and the source's domain checked, before anything else."""
+        t0 = time.perf_counter()
         if deadline is None:
-            deadline = Deadline(self.default_deadline_s)
+            deadline = Deadline(self.default_deadline_s, metrics=self.metrics)
+        options_str, image_src = self.security.check_security_hash(
+            options_str, image_src)
+        self.security.check_restricted_domains(image_src)
         timings: Dict[str, float] = {}
         options = OptionsBag(
             options_str,
@@ -286,13 +341,7 @@ class ImageHandler:
             default_options=self.params.by_key("default_options"),
             separator=self.params.by_key("options_separator", ","),
         )
-        t = time.perf_counter()
-        source = self._stage("fetch", lambda: load_source(
-            image_src, options, self.tmp_dir,
-            header_extra_options=self.params.by_key("header_extra_options", ""),
-            policy=self.fetch_policy, deadline=deadline, device=self.device,
-        ), deadline, inline_fallback=False)
-        timings["fetch"] = time.perf_counter() - t
+        source = self._load_source(image_src, options, timings, deadline)
         spec = resolve_output(options, image_src, source.info.mime,
                               accepts_webp=accepts_webp)
         if parse_colorspace(options) == "cmyk":
@@ -308,15 +357,22 @@ class ImageHandler:
         refresh = options.wants_refresh()
         if refresh:
             self.storage.delete(spec.name)
-        cached = None if refresh else self.storage.fetch(spec.name)
+        with tracing.span("storage", op="fetch"):
+            cached = None if refresh else self.storage.fetch_hedged(spec.name)
         if cached is not None and not _cache_entry_valid(cached[0], spec):
+            # a torn or damaged entry re-renders instead of serving garbage
+            tracing.add_event("cache.corrupt", key=spec.name, bytes=len(cached[0]))
+            self.metrics.record_cache_corrupt()
             self.storage.delete(spec.name)
             cached = None
         if cached is not None:
-            content, mtime = cached
+            content, stat = cached
+            tracing.add_event("cache.hit", key=spec.name)
+            self.metrics.record_cache(hit=True)
+            self.metrics.record_stage("cache_hit", time.perf_counter() - t0)
             return ProcessedImage(
                 content=content, spec=spec, options=options,
-                from_cache=True, timings=timings, modified_at=mtime,
+                from_cache=True, timings=timings, modified_at=stat.mtime,
             )
 
         leader, fut = self._flight.begin(spec.name)
@@ -324,13 +380,24 @@ class ImageHandler:
             # a generous multiple of one device wait: only a stuck leader
             # sheds its followers, and the follower's own budget caps it
             try:
-                content, mtime = fut.result(
-                    timeout=deadline.timeout(5 * self.device_result_timeout_s))
+                with tracing.span("coalesced_wait", key=spec.name):
+                    content, mtime = fut.result(
+                        timeout=deadline.timeout(5 * self.device_result_timeout_s))
             except FutureTimeout:
                 deadline.check("coalesced")
                 raise ServiceUnavailableException(
                     "timed out waiting for the in-flight pipeline computing "
                     "this output") from None
+            timings["coalesced"] = time.perf_counter() - t0
+            timings["total"] = timings["coalesced"]
+            # served without running a pipeline: a hit for the traffic
+            # accounting, and the coalesce counter
+            self.metrics.record_cache(hit=True)
+            self.metrics.record_stage("coalesced", timings["coalesced"])
+            self.metrics.counter(
+                "flyimg_requests_coalesced_total",
+                "Cache-miss requests served by an in-flight duplicate",
+            ).inc()
             return ProcessedImage(
                 content=content, spec=spec, options=options,
                 timings=timings, modified_at=mtime,
@@ -340,16 +407,43 @@ class ImageHandler:
                 source.data, source.data_info, options, spec, timings, deadline
             )
             t = time.perf_counter()
-            mtime = self.storage.write(spec.name, content)
+            with tracing.span("storage", op="write", bytes=len(content)):
+                mtime = self.storage.write(spec.name, content)
             timings["store"] = time.perf_counter() - t
         except BaseException as exc:
             self._flight.done(spec.name, exc=exc)
             raise
         self._flight.done(spec.name, result=(content, mtime))
+        timings["total"] = time.perf_counter() - t0
+        self.metrics.record_cache(hit=False)
+        for stage, seconds in timings.items():
+            self.metrics.record_stage(stage, seconds)
         return ProcessedImage(
             content=content, spec=spec, options=options, timings=timings,
             modified_at=mtime,
         )
+
+    def _load_source(self, image_src: str, options: OptionsBag,
+                     timings: Dict[str, float], deadline: Deadline):
+        """The origin fetch in its ``fetch`` span, on the fetch pool when
+        the host pipeline is on."""
+        t = time.perf_counter()
+
+        def _fetch():
+            with tracing.span("fetch") as fetch_span:
+                source = load_source(
+                    image_src, options, self.tmp_dir,
+                    header_extra_options=self.params.by_key("header_extra_options", ""),
+                    policy=self.fetch_policy, deadline=deadline, device=self.device,
+                )
+                if fetch_span is not None:
+                    fetch_span.set_attribute("source.bytes", len(source.data))
+                    fetch_span.set_attribute("source.mime", source.info.mime)
+            return source
+
+        source = self._stage("fetch", _fetch, deadline, inline_fallback=False)
+        timings["fetch"] = time.perf_counter() - t
+        return source
 
     def _faces(self):
         """The face backend, made on first use from ``face_backend`` /
@@ -515,19 +609,36 @@ class ImageHandler:
         # ROI decode: a crop/extract-dominant plan decodes only the source
         # window its resample samples (+ tap margin), against the
         # post-prescale frame the decode will produce
-        roi = self._roi_window(options, info, hint, spec.is_gif) if self.decode_roi else None
-        decoded = self._decode_batched(data, hint, info, deadline, roi=roi)
-        if decoded is None:
-            decoded = self._stage("decode", lambda: codecs.decode(
-                data, target_hint=hint, info=info, frame=gif_frame, device=self.device,
-                roi=roi,
-            ), deadline)
-        anim = None
-        if spec.is_gif and decoded.n_frames > 1:
-            anim = self._stage("decode", lambda: codecs.decode_all(data, info, self.device),
-                               deadline)
+        with tracing.span("decode") as decode_span:
+            roi = (self._roi_window(options, info, hint, spec.is_gif)
+                   if self.decode_roi else None)
+            decoded = self._decode_batched(data, hint, info, deadline, roi=roi)
+            batched_decode = decoded is not None
+            if decoded is None:
+                decoded = self._stage("decode", lambda: codecs.decode(
+                    data, target_hint=hint, info=info, frame=gif_frame,
+                    device=self.device, roi=roi,
+                ), deadline)
+            anim = None
+            if spec.is_gif and decoded.n_frames > 1:
+                anim = self._stage(
+                    "decode", lambda: codecs.decode_all(data, info, self.device),
+                    deadline)
+            decode_mode = self._decode_mode(decoded, info, hint)
+            if decode_span is not None:
+                decode_span.set_attribute("decode.mime", info.mime)
+                decode_span.set_attribute("decode.batched", batched_decode)
+                decode_span.set_attribute("decode.mode", decode_mode)
         timings["decode"] = time.perf_counter() - t
-        timings[f"decode_{self._decode_mode(decoded, info, hint)}"] = timings["decode"]
+        timings[f"decode_{decode_mode}"] = timings["decode"]
+        self.metrics.counter(
+            "flyimg_decode_bytes_total",
+            "Compressed source bytes through the host decode stage",
+        ).inc(len(data))
+        self.metrics.counter(
+            f'flyimg_decode_mode_total{{mode="{decode_mode}"}}',
+            "Host decodes by mode (full | prescale | roi)",
+        ).inc()
         w, h = decoded.size
         src_window = None
         if decoded.roi_offset is not None and decoded.frame_size is not None:
@@ -536,7 +647,7 @@ class ImageHandler:
             # as a span shift
             w, h = decoded.frame_size
             src_window = decoded.roi_offset
-        plan = build_plan(options, w, h)
+        plan = build_plan(options, w, h, metrics=self.metrics)
         spec.command_repr = repr(plan)
 
         frames = [decoded.rgb]
@@ -570,7 +681,20 @@ class ImageHandler:
 
         t = time.perf_counter()
         # every frame is submitted before any wait, so the frames of one
-        # animation share launches of one program
+        # animation share launches of one program; the submissions happen
+        # inside the span, which the batcher makes the parent of the
+        # shared launch span
+        with tracing.span("batch_wait", frames=len(frames)):
+            out_frames = self._transform_frames(
+                frames, plan, options, src_window, anim, alpha_start, deadline)
+        timings["device"] = time.perf_counter() - t
+        return self._finish_render(data, decoded, anim, alpha_start, plan, out_frames,
+                                   keeps_alpha, options, spec, timings, deadline)
+
+    def _transform_frames(self, frames, plan, options, src_window, anim,
+                          alpha_start, deadline: Deadline):
+        """Submit every frame (or run it tiled or direct), then wait for
+        each: the transformed frames in order."""
         staged = []
         for idx, frame in enumerate(frames):
             fh, fw = frame.shape[:2]
@@ -582,7 +706,7 @@ class ImageHandler:
             elif (fw, fh) == plan.src_size:
                 frame_plan = plan
             else:
-                frame_plan = build_plan(options, fw, fh)
+                frame_plan = build_plan(options, fw, fh, metrics=self.metrics)
             if alpha_start is not None and idx >= alpha_start:
                 frame_plan = replace(
                     frame_plan, colorspace=None, monochrome=False, unsharp=None,
@@ -600,36 +724,66 @@ class ImageHandler:
             else:
                 staged.append((run_plan(frame, frame_plan, window, device=self.device),
                                frame, frame_plan, window))
-        out_frames = [
+        return [
             self._await(s, "transform", deadline,
                         partial(run_plan, f, fp, win, device=self.device))
             if isinstance(s, Future) else s
             for s, f, fp, win in staged
         ]
-        timings["device"] = time.perf_counter() - t
 
-        # post-passes in the reference's order: smart-crop, then the face
-        # passes; none for a GIF answer
+    def _finish_render(self, data: bytes, decoded, anim, alpha_start, plan,
+                       out_frames, keeps_alpha: bool, options: OptionsBag,
+                       spec: OutputSpec, timings: Dict[str, float],
+                       deadline: Deadline) -> bytes:
+        """The post-passes in the reference's order (smart-crop, then the
+        face passes; none for a GIF answer), then the encode."""
         out = out_frames[0]
         if plan.smart_crop and not spec.is_gif:
             t = time.perf_counter()
-            item = smartcrop.prepare_work(out)
-            if self.batcher is not None:
-                crop = self._await(self.batcher.submit_aux(
-                    ("smc", item.bucket, item.step), item, self._smc_runner,
-                ), "smartcrop", deadline, lambda: self._smc_runner([item])[0])
-            else:
-                crop = self._smc_runner([item])[0]
-            out = smartcrop.apply_crop(out, crop)
+            with tracing.span("smartcrop"):
+                item = smartcrop.prepare_work(out)
+                if self.batcher is not None:
+                    crop = self._await(self.batcher.submit_aux(
+                        ("smc", item.bucket, item.step), item, self._smc_runner,
+                    ), "smartcrop", deadline, lambda: self._smc_runner([item])[0])
+                else:
+                    crop = self._smc_runner([item])[0]
+                out = smartcrop.apply_crop(out, crop)
             timings["smartcrop"] = time.perf_counter() - t
 
         if (plan.face_blur or plan.face_crop) and not spec.is_gif:
             t = time.perf_counter()
-            out = self._face_pass(out, plan, deadline)
+            with tracing.span("faces"):
+                out = self._face_pass(out, plan, deadline)
             timings["faces"] = time.perf_counter() - t
 
         deadline.check("encode")
         t = time.perf_counter()
+        with tracing.span("encode", format=spec.extension) as encode_span:
+            content = self._encode_answer(data, decoded, anim, alpha_start, out,
+                                          out_frames, keeps_alpha, options, spec,
+                                          deadline)
+            if encode_span is not None:
+                encode_span.set_attribute("encode.bytes", len(content))
+        timings["encode"] = time.perf_counter() - t
+        self.metrics.counter(
+            "flyimg_encode_bytes_total",
+            "Encoded output bytes through the host encode stage",
+        ).inc(len(content))
+        if options.wants_refresh():
+            # the rf_1 debug header's `identify` line (reference
+            # Response.php:62), from a probe of the encoded bytes
+            info = codecs.media_info(content)
+            fmt = spec.extension.upper().replace("JPG", "JPEG")
+            spec.identify_repr = (
+                f"{spec.name} {fmt} {info.width}x{info.height} "
+                f"{info.width}x{info.height}+0+0 8-bit sRGB {len(content)}B"
+            )
+        return content
+
+    def _encode_answer(self, data: bytes, decoded, anim, alpha_start, out,
+                       out_frames, keeps_alpha: bool, options: OptionsBag,
+                       spec: OutputSpec, deadline: Deadline) -> bytes:
         if anim is not None:
             n = len(anim.frames)
             alphas = None
@@ -653,16 +807,6 @@ class ImageHandler:
                 content = self._stage("encode", lambda: self._encode(
                     np.ascontiguousarray(out), spec, options, alpha), deadline)
             content = graft_metadata(content, data, decoded.mime, spec, options)
-        timings["encode"] = time.perf_counter() - t
-        if options.wants_refresh():
-            # the rf_1 debug header's `identify` line (reference
-            # Response.php:62), from a probe of the encoded bytes
-            info = codecs.media_info(content)
-            fmt = spec.extension.upper().replace("JPG", "JPEG")
-            spec.identify_repr = (
-                f"{spec.name} {fmt} {info.width}x{info.height} "
-                f"{info.width}x{info.height}+0+0 8-bit sRGB {len(content)}B"
-            )
         return content
 
     def _encode_grouped(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
@@ -714,10 +858,6 @@ class ImageHandler:
             sampling_factor=_sampling_factor(options),
             device=self.device,
         )
-
-    def _count(self, name: str) -> None:
-        with self._count_lock:
-            setattr(self, name, getattr(self, name) + 1)
 
     def _tiled_or_none(self, frame: np.ndarray, plan: TransformPlan):
         """Run a spatially tiled program when one applies to a tall input:

@@ -73,11 +73,11 @@ class FetchPolicy:
     max_source_bytes: int = 0
 
     @classmethod
-    def from_params(cls, params) -> "FetchPolicy":
+    def from_params(cls, params, *, metrics=None) -> "FetchPolicy":
         return cls(
             timeout_s=float(params.by_key("fetch_read_timeout_s", FETCH_TIMEOUT_S)),
-            retry=RetryPolicy.from_params(params),
-            breakers=BreakerRegistry.from_params(params),
+            retry=RetryPolicy.from_params(params, metrics=metrics),
+            breakers=BreakerRegistry.from_params(params, metrics=metrics),
             max_source_bytes=int(params.by_key("mem_max_source_bytes", 0) or 0),
         )
 

@@ -48,13 +48,42 @@ FILTER_METHODS = {
 }
 
 
+# the alias counter's label is the client's to choose: the first N
+# distinct unknown names get their own series, the rest count under one
+# overflow label
+_ALIASED_FILTER_SERIES_MAX = 32
+_aliased_filter_names: set = set()
+
+
 def resolve_filter(options: "OptionsBag", metrics=None) -> str:
     """The f_ option -> resample method, aliasing unknown names to
-    lanczos3 like the reference's IM default. ``metrics`` is accepted for
-    signature parity with the JAX package; this package does not count
-    aliases yet."""
+    lanczos3 like the reference's IM default, and visibly: an alias counts
+    in ``flyimg_filter_aliased_total{filter=}`` (with a registry) and adds
+    a ``filter.aliased`` event to the active request trace."""
     raw = str(options.get_option("filter") or "Lanczos").lower()
-    return FILTER_METHODS.get(raw, "lanczos3")
+    method = FILTER_METHODS.get(raw)
+    if method is not None:
+        return method
+    # lazy: spec is a lower layer than runtime (the batcher imports this
+    # module)
+    from flyimg_tpu_torch.runtime import tracing
+
+    tracing.add_event("filter.aliased", filter=raw, method="lanczos3")
+    if metrics is not None:
+        from flyimg_tpu_torch.runtime.metrics import escape_label_value
+
+        label = raw[:48]
+        if label not in _aliased_filter_names:
+            if len(_aliased_filter_names) >= _ALIASED_FILTER_SERIES_MAX:
+                label = "_other"
+            else:
+                _aliased_filter_names.add(label)
+        metrics.counter(
+            "flyimg_filter_aliased_total"
+            f'{{filter="{escape_label_value(label)}"}}',
+            "Unknown f_ filter names aliased to the lanczos3 default",
+        ).inc()
+    return "lanczos3"
 
 
 def parse_colorspace(options: "OptionsBag") -> Optional[str]:
