@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tiled-only   # phase 9's checks on every card
-    python3 chip_smoke.py --service-phase DIR   # phase 17 alone (its process)
+    python3 chip_smoke.py --service-phase DIR   # phases 17-18 alone (their process)
 
 Phases, in order; any failure exits non-zero without a result line:
 
@@ -287,8 +287,18 @@ Phases, in order; any failure exits non-zero without a result line:
              (``--service-phase``), as a server runs: this process's
              earlier profiler windows leave later sessions without kernel
              records.
+18. degrade — brownout, derivative reuse, the telemetry warehouse and the
+             device supervisor through the server on the card
+             (``phase_degrade``), in phase 17's process: the level forced
+             through the brownout.signal fault point (DEGRADED: 16 stale
+             hits, one refresh; BROWNOUT: 16 flagship misses tagged, no K2 or
+             K3, nothing stored, equal to the CPU port's; SHED: 503s with no
+             launch), reuse derivatives with no origin fetch within 2 levels,
+             the archive's records joined to the flight recorder and a torn
+             line recovered, and a storm of TRANSIENT launch failures failing
+             over to the CPU (no K1) and re-promoting (the clean bytes).
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-17)
+Launch counters are zeroed right before each main-path phase (4-9, 11-18)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -5611,6 +5621,437 @@ def phase_service(torch, dev, card, workdir, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# brownout, derivative reuse, the telemetry warehouse and the device
+# supervisor (phase 18)
+
+#: the flagship request of phase 18's waves (16 sources: phase 15's two
+#: 4032x3024 photos and 14 seeded 1920x1080 JPEGs)
+DEGRADE_OPTS = "w_300,h_250,c_1,smc_1"
+#: the stale wave's key, the shed wave's misses
+STALE_OPTS = "w_300,h_250,c_1"
+SHED_OPTS = "w_200,h_150,c_1"
+DEGRADE_HD = 14
+#: reuse: the ancestor, then the derivatives of every source (lossless,
+#: so the JAX package's 2-level bound holds), and a JPEG leg whose
+#: derivatives decode the ancestor through K18 and K19
+REUSE_ANCESTOR = "w_1600,o_png"
+REUSE_SIZES = ("w_800,o_png", "w_400,o_png", "w_300,o_png")
+REUSE_JPG_ANCESTOR = "w_1600,q_90,o_jpg"
+REUSE_JPG_SIZES = ("w_800,q_90,o_jpg", "w_400,q_90,o_jpg", "w_300,q_90,o_jpg")
+REUSE_JPG_SOURCES = 4
+#: tests/test_reuse.py: a lossless reuse answer against the origin's (a
+#: JPEG one is held to JPEG_ANSWER_PSNR: two encodes of pixels a level
+#: apart decode several levels apart at block edges)
+REUSE_TOL = 2
+#: the supervisor's storm, its fallback wave
+STORM_THRESHOLD = 3
+FALLBACK_OPTS = "w_280,h_230,c_1"
+#: the CPU renders the fallback wave: 1920x1080 sources only
+FALLBACK_HD = 8
+
+
+def counting_origin(directory):
+    """``local_origin`` that counts the requests it answers."""
+    import functools
+    import threading
+    from http.server import SimpleHTTPRequestHandler, ThreadingHTTPServer
+
+    hits = []
+
+    class Counted(SimpleHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_GET(self):  # noqa: N802
+            hits.append(self.path)
+            super().do_GET()
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), functools.partial(Counted,
+                                                                       directory=directory))
+    threading.Thread(target=server.serve_forever, name="smoke-origin", daemon=True).start()
+    return server, hits
+
+
+def answer_pixels(dev, body):
+    """An answer's pixels: PNG on the host, JPEG by the port's decoder."""
+    from flyimg_tpu_torch import codecs
+
+    return codecs.decode(body, device=dev).rgb
+
+
+def delta(kernels, before):
+    return {k: v - before[k] for k, v in read_counts(kernels).items()}
+
+
+def phase_degrade(torch, dev, card, workdir, kernels):
+    """Phase 18: brownout, derivative reuse, the telemetry warehouse and the
+    device supervisor through the server on the card (banded), with the
+    level forced and the faults injected through testing/faults.py.
+
+    Brownout (a server with brownout_enable and telemetry_enable): a wave
+    of STALE_OPTS over the 16 sources is stored; aged past
+    brownout_stale_ttl_s at DEGRADED, 16 concurrent hits of one key answer
+    stale (Warning 110) while exactly one refresh renders it (one K1
+    launch); at BROWNOUT 16 concurrent DEGRADE_OPTS misses answer tagged
+    smartcrop and quality, launch K1 and neither K2 nor K3, store nothing,
+    and (o_png) equal the port's CPU answer of the same level within PERF.md
+    2's bound; at SHED 16 SHED_OPTS misses answer 503 with Retry-After with
+    no K1, K18 or K19 launch and no origin fetch, while the stale hits
+    serve. The telemetry archive then holds window and launch records whose
+    batch ids are all in the flight recorder, and a fresh archive on the
+    directory cuts off a torn last line.
+
+    Reuse (reuse_enable): a REUSE_ANCESTOR wave, then REUSE_SIZES of every
+    source fetch nothing from the origin, count one reuse hit each, and
+    equal a reuse-off server's answers (rendered from the origin) within
+    REUSE_TOL; the JPEG leg's derivatives launch K18 and K19, fetch
+    nothing and stay within JPEG_ANSWER_PSNR of the origin's.
+
+    Device supervisor (device_supervisor_enable, threshold
+    STORM_THRESHOLD, probes by hand): STORM_THRESHOLD TRANSIENT launch
+    failures fail their requests and trip it; a FALLBACK_OPTS wave answers
+    (FALLBACK_HD sources) tagged cpu-fallback, uncached, with no K1, K18 or K19 launch and
+    /readyz saying the device is down; two clean probes re-promote, and the
+    wave launches K1 again with the reuse-off server's bytes. With the
+    supervisor off the same storm only fails requests: no CPU answer.
+    Returns the kernel launches."""
+    import threading
+
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.runtime import telemetry
+    from flyimg_tpu_torch.runtime.brownout import BROWNOUT, SHED, BrownoutEngine
+    from flyimg_tpu_torch.service.handler import ImageHandler
+    from flyimg_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    walls = {}
+    origin_dir = os.path.join(workdir, "origin18")
+    os.makedirs(origin_dir)
+    names = []
+    for kind, data in flagship_jpegs(dev).items():
+        names.append(f"photo_{kind}.jpg")
+        with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+            fh.write(data)
+    for i in range(DEGRADE_HD):
+        names.append(f"hd_{i}.jpg")
+        with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+            fh.write(codecs.encode(synthetic_image(1920, 1080, seed=1800 + i), "jpg",
+                                   quality=90, sampling_factor="2x2", device=dev))
+    origin, fetches = counting_origin(origin_dir)
+    host = f"http://127.0.0.1:{origin.server_address[1]}"
+    sources = [f"{host}/{n}" for n in names]
+
+    # one injector for the phase: the level (the pressure is always
+    # injected, so the first wave's SLO breach and queues cannot set it),
+    # the refresh gate, the storm and the card's probe verdict
+    state = {"pressure": 0.0, "storm": False, "dead": False}
+    gate, refreshes = threading.Event(), []
+
+    def drain(key=None, **_ctx):
+        if state["storm"] and key and key[0] != "aux":
+            raise ConnectionError("device lost (phase 18's storm)")
+        return faults.PASS
+
+    def refresh(**_ctx):
+        refreshes.append(1)
+        gate.wait(120)
+        return faults.PASS
+
+    injector = faults.install(faults.FaultInjector())
+    injector.plan("brownout.signal", lambda **_: state["pressure"])
+    injector.plan("brownout.refresh", refresh)
+    injector.plan("batcher.drain", drain)
+    injector.plan("device.backend", lambda **_: not state["dead"])
+
+    b_server, b_thread, bbase = service_server(
+        dev, workdir, "brownout", brownout_enable=True, brownout_eval_interval_s=0.0,
+        brownout_min_dwell_s=0.0, brownout_stale_ttl_s=60.0, shed_retry_after_s=2.0,
+        telemetry_enable=True, telemetry_snapshot_interval_s=0.05,
+        flightrecorder_size=8192, debug=True)
+    servers = [(b_server, b_thread)]
+    try:
+        reset_counts(kernels)
+        # NORMAL: the stale wave's entries
+        paths = [f"/upload/{STALE_OPTS}/{s}" for s in sources]
+        answers, walls["store_wave"] = service_wave(bbase, paths)
+        check(all(a[0] == 200 and "X-Flyimg-Degraded" not in a[1] for a in answers),
+              f"brownout: the storing wave failed ({[a[0] for a in answers]})")
+        stored = answers
+
+        # DEGRADED: 16 concurrent stale hits of one key, one refresh
+        old = time.time() - 3600
+        for name in os.listdir(b_server.storage.root):
+            os.utime(os.path.join(b_server.storage.root, name), (old, old))
+        state["pressure"] = 0.7
+        c0 = read_counts(kernels)
+        hits, walls["stale_wave"] = service_wave(bbase, [paths[0]] * 16)
+        check(all(h[0] == 200 and h[1].get("Warning", "").startswith("110")
+                  and h[1].get("X-Flyimg-Degraded") == "stale" and h[2] == stored[0][2]
+                  for h in hits), "brownout: a DEGRADED hit was not served stale")
+        check(read_counts(kernels)["K1"] == c0["K1"], "brownout: a stale hit launched K1")
+        gate.set()
+        deadline = time.monotonic() + 120
+        while b_server.brownout.refresh.stats()["pending"] and time.monotonic() < deadline:
+            time.sleep(0.01)
+        refresh_counts = delta(kernels, c0)
+        check(len(refreshes) == 1, f"brownout: {len(refreshes)} refreshes for 16 stale hits")
+        check(refresh_counts["K1"] == 1 and refresh_counts["K18"] == 1,
+              f"brownout: the refresh launched {refresh_counts}, not one K1 and one K18 "
+              "group")
+        fresh = http_call(bbase, paths[0])
+        check(fresh[0] == 200 and "Warning" not in fresh[1],
+              "brownout: the refreshed entry is still stale")
+
+        # BROWNOUT: cheaper plans, never stored
+        state["pressure"] = 0.9
+        check(b_server.brownout.evaluate() == BROWNOUT, "brownout: the level is not BROWNOUT")
+        files0 = set(os.listdir(b_server.storage.root))
+        c0 = read_counts(kernels)
+        degraded, walls["brownout_wave"] = service_wave(
+            bbase, [f"/upload/{DEGRADE_OPTS}/{s}" for s in sources])
+        brownout_counts = delta(kernels, c0)
+        for (st, headers, _b), s in zip(degraded, sources):
+            check(st == 200 and headers.get("X-Flyimg-Degraded") == "smartcrop,quality",
+                  f"brownout: {s} answered {st} {headers.get('X-Flyimg-Degraded')}")
+        check(brownout_counts["K2"] == brownout_counts["K3"] == 0 and brownout_counts["K1"] > 0,
+              f"brownout: the BROWNOUT wave launched {brownout_counts}")
+        png_paths = [f"/upload/{DEGRADE_OPTS},o_png/{s}" for s in sources[:3]]
+        png_answers = [http_call(bbase, p) for p in png_paths]
+        check(set(os.listdir(b_server.storage.root)) == files0,
+              "brownout: a degraded answer was stored")
+        # the CPU port at the same level, on the same bytes
+        cpu_params = AppParameters({
+            "upload_dir": os.path.join(workdir, "cpu18", "u"),
+            "tmp_dir": os.path.join(workdir, "cpu18", "t"), "brownout_enable": True,
+            "brownout_eval_interval_s": 0.0})
+        cpu = ImageHandler(cpu_params, device="cpu",
+                           brownout=BrownoutEngine.from_params(cpu_params))
+        check(cpu.brownout.evaluate() == BROWNOUT, "brownout: the CPU engine is not BROWNOUT")
+        cpu_diff = []
+        for (st, headers, body), s in zip(png_answers, sources[:3]):
+            want = cpu.process_image(f"{DEGRADE_OPTS},o_png", s)
+            check(st == 200 and headers.get("X-Flyimg-Degraded") == ",".join(want.degraded),
+                  f"brownout: {s}: {headers.get('X-Flyimg-Degraded')} on the card, "
+                  f"{want.degraded} on the CPU")
+            a = answer_pixels(dev, body).astype(np.int32)
+            b = answer_pixels(dev, want.content).astype(np.int32)
+            check(a.shape == b.shape, f"brownout: {s}: {a.shape} on the card, {b.shape} on "
+                  "the CPU")
+            d = np.abs(a - b)
+            check_pixels(f"brownout {s}", int(d.max()), int((d > 0).sum()), d.size)
+            cpu_diff.append(int(d.max()))
+
+        # SHED: misses refused before any decode or launch; hits serve
+        state["pressure"] = 5.0
+        check(b_server.brownout.evaluate() == SHED, "brownout: the level is not SHED")
+        c0, f0 = read_counts(kernels), len(fetches)
+        shed, walls["shed_wave"] = service_wave(bbase, [f"/upload/{SHED_OPTS}/{s}"
+                                                        for s in sources])
+        shed_counts = delta(kernels, c0)
+        check(all(a[0] == 503 and a[1].get("Retry-After") == "2" for a in shed),
+              f"brownout: SHED answered {sorted({a[0] for a in shed})}")
+        check(all(shed_counts[k] == 0 for k in ("K1", "K18", "K19"))
+              and len(fetches) == f0, f"brownout: the SHED wave launched {shed_counts}, "
+              f"fetched {len(fetches) - f0}")
+        served, _w = service_wave(bbase, paths)
+        check(all(a[0] == 200 for a in served), "brownout: a hit did not serve at SHED")
+        text = http_call(bbase, "/metrics")[2].decode()
+        level = metric_sample(text, "flyimg_brownout_level")
+        check(level == SHED, f"brownout: flyimg_brownout_level reads {level}")
+        debug = json.loads(http_call(bbase, "/debug/brownout")[2])
+        state["pressure"] = 0.0
+
+        # the telemetry archive: window and launch records, their batch ids
+        # the flight recorder's, and a torn last line recovered
+        check(http_call(bbase, "/debug/telemetry")[0] == 200,
+              "telemetry: /debug/telemetry did not answer")
+        b_server.telemetry.close()
+        tdir = b_server.telemetry.directory
+        records = telemetry.read_archive(tdir)["records"]
+        recorded = {r["batch_id"] for r in b_server.flight_recorder.snapshot(
+            limit=100_000)["records"] if r["batch_id"] is not None}
+        kinds = {}
+        for r in records:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        launch_ids = [r["batch_id"] for r in records if r["kind"] == "launch"
+                      and r["batch_id"] is not None]
+        check(kinds.get("window", 0) > 0 and launch_ids,
+              f"telemetry: the archive holds {kinds}")
+        check(all(b in recorded for b in launch_ids),
+              "telemetry: a launch record's batch id is not in the flight recorder")
+        segment = sorted(n for n in os.listdir(tdir) if n.endswith(".jsonl"))[-1]
+        with open(os.path.join(tdir, segment), "ab") as fh:
+            fh.write(b'{"schema":1,"kind":"launch","batch_id":')
+        reopened = telemetry.TelemetryArchive(tdir)
+        check(reopened.torn_recovered == 1 and telemetry.read_archive(tdir)["torn"] == 0,
+              "telemetry: a fresh archive did not recover the torn line")
+        reopened.close()
+
+        # reuse: the derivatives from the ancestors, against the origin's
+        r_server, r_thread, rbase = service_server(dev, workdir, "reuse", reuse_enable=True,
+                                                   debug=True)
+        p_server, p_thread, pbase = service_server(dev, workdir, "plain")
+        servers += [(r_server, r_thread), (p_server, p_thread)]
+        ancestors, walls["ancestor_wave"] = service_wave(
+            rbase, [f"/upload/{REUSE_ANCESTOR}/{s}" for s in sources])
+        check(all(a[0] == 200 for a in ancestors), "reuse: an ancestor failed")
+        f0, c0 = len(fetches), read_counts(kernels)
+        derived = {}
+        t0 = time.perf_counter()
+        for opts in REUSE_SIZES:
+            derived[opts], _w = service_wave(rbase, [f"/upload/{opts}/{s}" for s in sources])
+        walls["reuse_waves"] = time.perf_counter() - t0
+        reuse_counts = delta(kernels, c0)
+        n_derived = len(REUSE_SIZES) * len(sources)
+        check(len(fetches) == f0, f"reuse: the derivatives fetched {len(fetches) - f0} times")
+        hits = metric_sample(http_call(rbase, "/metrics")[2].decode(),
+                             'flyimg_reuse_hits_total{outcome="hit"}')
+        check(hits == n_derived, f"reuse: {hits} hits for {n_derived} derivatives")
+        check(reuse_counts["K1"] > 0, f"reuse: the derivatives launched {reuse_counts}")
+        reuse_diff = 0
+        for opts in REUSE_SIZES:
+            want, _w = service_wave(pbase, [f"/upload/{opts}/{s}" for s in sources])
+            for (st, headers, body), (wst, _wh, wbody), s in zip(derived[opts], want, sources):
+                check(st == wst == 200 and headers.get("X-Flyimg-Reuse"),
+                      f"reuse: {opts} {s}: {st} {headers.get('X-Flyimg-Reuse')}")
+                a = answer_pixels(dev, body).astype(np.int32)
+                b = answer_pixels(dev, wbody).astype(np.int32)
+                check(a.shape == b.shape and int(np.abs(a - b).max()) <= REUSE_TOL,
+                      f"reuse: {opts} {s}: {a.shape} {b.shape}, max diff "
+                      f"{int(np.abs(a - b).max()) if a.shape == b.shape else None}")
+                reuse_diff = max(reuse_diff, int(np.abs(a - b).max()))
+        jsrc = sources[:REUSE_JPG_SOURCES]
+        jpg_anc, _w = service_wave(rbase, [f"/upload/{REUSE_JPG_ANCESTOR}/{s}" for s in jsrc])
+        check(all(a[0] == 200 for a in jpg_anc), "reuse: a JPEG ancestor failed")
+        f0, c0 = len(fetches), read_counts(kernels)
+        jpg_diff, jpg_psnr = 0, float("inf")
+        for opts in REUSE_JPG_SIZES:
+            got, _w = service_wave(rbase, [f"/upload/{opts}/{s}" for s in jsrc])
+            want, _w = service_wave(pbase, [f"/upload/{opts}/{s}" for s in jsrc])
+            for (st, headers, body), (_ws, _wh, wbody), s in zip(got, want, jsrc):
+                check(st == 200 and headers.get("X-Flyimg-Reuse"),
+                      f"reuse: {opts} {s} did not reuse ({st})")
+                a, b = answer_pixels(dev, body), answer_pixels(dev, wbody)
+                check(a.shape == b.shape, f"reuse: {opts} {s}: {a.shape}, {b.shape}")
+                db = psnr(a, b)
+                check(db >= JPEG_ANSWER_PSNR,
+                      f"reuse: {opts} {s}: {db:.2f} dB from the origin's answer")
+                jpg_diff = max(jpg_diff, int(np.abs(a.astype(np.int32) - b).max()))
+                jpg_psnr = min(jpg_psnr, db)
+        jpg_counts = delta(kernels, c0)
+        check(jpg_counts["K18"] > 0 and jpg_counts["K19"] > 0 and len(fetches) == f0,
+              f"reuse: the JPEG derivatives launched {jpg_counts}, fetched "
+              f"{len(fetches) - f0}")
+
+        # the device supervisor: a storm, the CPU fallback, re-promotion
+        d_server, d_thread, dbase = service_server(
+            dev, workdir, "supervised", device_supervisor_enable=True,
+            device_storm_threshold=STORM_THRESHOLD, device_probe_interval_s=3600.0,
+            device_probe_hysteresis=2, resilience_batch_retries=0)
+        servers.append((d_server, d_thread))
+        sup = d_server.device_supervisor
+        fallback_paths = [f"/upload/{FALLBACK_OPTS}/{s}" for s in sources[2:2 + FALLBACK_HD]]
+        clean, _w = service_wave(pbase, fallback_paths)
+        check(all(a[0] == 200 for a in clean), "supervisor: the clean wave failed")
+        state.update(storm=True, dead=True)
+        storm = [http_call(dbase, f"/upload/w_{290 - i},h_240,c_1/{sources[i]}")[0]
+                 for i in range(STORM_THRESHOLD)]
+        state["storm"] = False
+        check(storm == [500] * STORM_THRESHOLD and sup.cpu_forced(),
+              f"supervisor: the storm answered {storm}, state {sup.state()}")
+        t_fail = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while (d_server.batcher.device.type != "cpu"
+               or d_server.codec_batcher.device.type != "cpu") and time.monotonic() < deadline:
+            time.sleep(0.005)
+        walls["failover_s"] = time.perf_counter() - t_fail
+        check(d_server.batcher.device.type == d_server.codec_batcher.device.type == "cpu",
+              "supervisor: the controllers were not rebuilt on the CPU")
+        c0 = read_counts(kernels)
+        down, walls["fallback_wave"] = service_wave(dbase, fallback_paths)
+        again = http_call(dbase, fallback_paths[0])
+        fallback_counts = delta(kernels, c0)
+        check(all(a[0] == 200 and a[1].get("X-Flyimg-Degraded") == "cpu-fallback"
+                  for a in down + [again]), "supervisor: a failed-over answer is not tagged")
+        check(all(fallback_counts[k] == 0 for k in ("K1", "K18", "K19")),
+              f"supervisor: the CPU fallback launched {fallback_counts}")
+        ready = json.loads(http_call(dbase, "/readyz")[2])
+        check(ready == {"status": "ok", "device": "down"}, f"supervisor: /readyz {ready}")
+        check(not sup.probe_and_handle(), "supervisor: a dead card probed clean")
+        state["dead"] = False
+        t_back = time.perf_counter()
+        check(sup.probe_and_handle() and sup.cpu_forced(),
+              "supervisor: one clean probe re-promoted")
+        check(sup.probe_and_handle() and not sup.cpu_forced(),
+              "supervisor: two clean probes did not re-promote")
+        walls["repromote_s"] = time.perf_counter() - t_back
+        check(d_server.batcher.device.type == d_server.codec_batcher.device.type == "cuda",
+              "supervisor: the controllers were not rebuilt on the card")
+        c0 = read_counts(kernels)
+        back, walls["repromoted_wave"] = service_wave(dbase, fallback_paths)
+        back_counts = delta(kernels, c0)
+        check(all(a[0] == 200 and "X-Flyimg-Degraded" not in a[1] for a in back),
+              "supervisor: an answer after re-promotion is tagged")
+        check(back_counts["K1"] > 0 and back_counts["K18"] > 0,
+              f"supervisor: after re-promotion the wave launched {back_counts}")
+        check([a[2] for a in back] == [a[2] for a in clean],
+              "supervisor: after re-promotion the answers are not the clean run's bytes")
+        text = http_call(dbase, "/metrics")[2].decode()
+        check(metric_sample(text, 'flyimg_backend_failovers_total{to="cpu"}') == 1
+              and metric_sample(text, 'flyimg_backend_failovers_total{to="device"}') == 1,
+              "supervisor: the failover counters do not read 1 and 1")
+        # the same storm with the supervisor off: only failures, no CPU
+        o_server, o_thread, obase = service_server(dev, workdir, "unsupervised",
+                                                   resilience_batch_retries=0)
+        servers.append((o_server, o_thread))
+        state["storm"] = True
+        off_storm = [http_call(obase, f"/upload/w_{290 - i},h_240,c_1/{sources[i]}")
+                     for i in range(STORM_THRESHOLD + 2)]
+        state["storm"] = False
+        check(all(a[0] == 500 and "X-Flyimg-Degraded" not in a[1] for a in off_storm)
+              and o_server.batcher.device.type == "cuda",
+              f"supervisor off: the storm answered {[a[0] for a in off_storm]} on "
+              f"{o_server.batcher.device}")
+        after = http_call(obase, f"/upload/w_290,h_240,c_1/{sources[0]}")
+        check(after[0] == 200 and "X-Flyimg-Degraded" not in after[1],
+              "supervisor off: the request after the storm failed")
+        counts = read_counts(kernels)
+    finally:
+        gate.set()
+        state.update(pressure=0.0, storm=False, dead=False)
+        for srv, thread in servers:
+            stop_server(srv, thread)
+        faults.clear()
+        origin.shutdown()
+        origin.server_close()
+    print(f"degrade: stale wave of 16 hits {walls['stale_wave']:.3f} s, one refresh "
+          f"({refresh_counts['K1']} K1, {refresh_counts['K18']} K18); BROWNOUT wave of 16 "
+          f"{walls['brownout_wave']:.3f} s launching {brownout_counts}, CPU answers within "
+          f"{max(cpu_diff)} level; SHED wave {walls['shed_wave']:.3f} s launching "
+          f"{shed_counts}; telemetry {kinds}; reuse: ancestors {walls['ancestor_wave']:.3f} s, "
+          f"{n_derived} derivatives {walls['reuse_waves']:.3f} s ({hits:.0f} hits, no fetch, "
+          f"max diff {reuse_diff}; JPEG leg max diff {jpg_diff}, {jpg_psnr:.2f} dB, "
+          f"{jpg_counts['K18']} K18); "
+          f"supervisor: failover rebuilt in {walls['failover_s']:.3f} s, CPU wave "
+          f"{walls['fallback_wave']:.3f} s launching {fallback_counts}, re-promotion "
+          f"{walls['repromote_s']:.3f} s, wave after it {walls['repromoted_wave']:.3f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    print(json.dumps({"degrade": {
+        "walls_s": {k: round(v, 4) for k, v in walls.items()},
+        "refresh_launches": refresh_counts, "brownout_launches": brownout_counts,
+        "shed_launches": shed_counts, "fallback_launches": fallback_counts,
+        "repromoted_launches": back_counts, "reuse_launches": reuse_counts,
+        "reuse_hits": hits, "reuse_max_diff": reuse_diff, "reuse_jpg_max_diff": jpg_diff,
+        "reuse_jpg_min_psnr_db": round(jpg_psnr, 3),
+        "cpu_brownout_max_diff": max(cpu_diff), "telemetry_records": kinds,
+        "brownout_debug_level": debug["level_name"]}, "card": card}))
+    return counts
+
+
 def kernel_wrappers():
     """Every kernel's wrapper by name; each counts its launches in
     ``launches``."""
@@ -5646,12 +6087,12 @@ SERVICE_COUNTS = "service launches: "
 
 
 def service_child(workdir) -> int:
-    """``--service-phase DIR``: phase 17 in a process of its own, as a
-    server runs (in the smoke's own process, after phase 3's hundreds of
-    torch.profiler windows, a later session records no kernel activity at
-    all: see PERF.md). The kernels are on disk already; prints its
-    launches, and the served JPEG encodes that reached nvJPEG, on its last
-    line."""
+    """``--service-phase DIR``: phases 17 and 18 in a process of their own,
+    as a server runs (in the smoke's own process, after phase 3's hundreds
+    of torch.profiler windows, a later session records no kernel activity
+    at all: see PERF.md). The kernels are on disk already; prints each
+    phase's launches, and the served JPEG encodes that reached nvJPEG, on
+    its last line."""
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -5672,8 +6113,12 @@ def service_child(workdir) -> int:
         return nvjpeg_encode(*args, **kwargs)
 
     native_codec.jpeg_encode = counted
-    counts = phase_service(torch, dev, card_line(), workdir, kernels)
-    print(SERVICE_COUNTS + json.dumps({"counts": counts, "nvjpeg_encodes": len(encodes)}))
+    card = card_line()
+    counts = phase_service(torch, dev, card, workdir, kernels)
+    # phase 18 in the same process, launches counted from 0 again
+    degrade_counts = phase_degrade(torch, dev, card, workdir, kernels)
+    print(SERVICE_COUNTS + json.dumps({"counts": counts, "degrade_counts": degrade_counts,
+                                       "nvjpeg_encodes": len(encodes)}))
     return 0
 
 
@@ -5867,8 +6312,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"ingest kernel launches: {ingest_counts}; card {card}")
-    # phase 17: signed URLs, /path, /readyz, traces, metrics, the flight
-    # recorder and a profiler capture (main path), in a process of its own
+    # phases 17 and 18: signed URLs, /path, /readyz, traces, metrics, the
+    # flight recorder and a profiler capture; brownout, reuse, telemetry and
+    # the device supervisor (main path), in a process of their own
     os.makedirs(workdir)
     try:
         child = subprocess.run(
@@ -5885,11 +6331,15 @@ def main() -> int:
              if line.startswith(SERVICE_COUNTS)]
     check(len(found) == 1, "service: phase 17's process printed no launches")
     service_counts = {k: found[0]["counts"].get(k, 0) for k in kernels}
+    degrade_counts = {k: found[0]["degrade_counts"].get(k, 0) for k in kernels}
     nvjpeg_encodes += [1] * found[0]["nvjpeg_encodes"]
     print(f"service kernel launches: {service_counts}; card {card}")
     for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
         check(service_counts[name] > 0, f"service: {name} never launched")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-17 reached "
+    print(f"degrade kernel launches: {degrade_counts}; card {card}")
+    for name in ("K1", "K16", "K18", "K19"):
+        check(degrade_counts[name] > 0, f"degrade: {name} never launched")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-18 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -5946,7 +6396,7 @@ def main() -> int:
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
                     + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
-                    + ingest_counts[key] + service_counts[key])
+                    + ingest_counts[key] + service_counts[key] + degrade_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

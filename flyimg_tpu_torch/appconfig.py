@@ -7,6 +7,7 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+from flyimg_tpu_torch.exceptions import NotPortedException
 from flyimg_tpu_torch.spec.options import DEFAULT_OPTIONS, OPTIONS_KEYS
 
 SERVER_DEFAULTS: Dict[str, Any] = {
@@ -153,10 +154,107 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "flightrecorder_dump_dir": "",
     "flightrecorder_min_dump_interval_s": 30.0,
     "flightrecorder_max_dumps": 16,
+    # the telemetry warehouse (runtime/telemetry.py), off by default: a
+    # JSONL archive of signal windows and launch records under
+    # telemetry_dir ('' is <tmp_dir>/telemetry), rotated by size and age,
+    # evicted oldest first past the retention bounds, and the traffic-mix
+    # classifier; the beat rides the request path every
+    # telemetry_snapshot_interval_s. A positive
+    # telemetry_retention_max_dumps bounds the flight recorder's dumps
+    "telemetry_enable": False,
+    "telemetry_dir": "",
+    "telemetry_snapshot_interval_s": 10.0,
+    "telemetry_segment_max_bytes": 1048576,
+    "telemetry_segment_max_age_s": 300.0,
+    "telemetry_retention_max_bytes": 33554432,
+    "telemetry_retention_max_segments": 64,
+    "telemetry_retention_max_dumps": 0,
+    "telemetry_mix_window": 256,
+    "telemetry_mix_min_samples": 8,
+    "telemetry_mix_hysteresis": 2,
+    # the device supervisor (runtime/devicesupervisor.py), off by default:
+    # device_storm_threshold TRANSIENT launch failures within
+    # device_storm_window_s fail both controllers over to the CPU (answers
+    # tagged X-Flyimg-Degraded: cpu-fallback, never cached); a prober
+    # re-promotes after device_probe_hysteresis clean CUDA probes, each
+    # bounded by backend_probe_timeout_s
+    "device_supervisor_enable": False,
+    "device_storm_threshold": 5,
+    "device_storm_window_s": 30.0,
+    "device_probe_interval_s": 5.0,
+    "device_probe_hysteresis": 2,
+    "device_failover_drain_s": 10.0,
+    "backend_probe_timeout_s": 75.0,
+    # brownout (runtime/brownout.py), off by default: the pressure of the
+    # batchers, the SLO burn, the host pools and the RSS watchdog walks
+    # NORMAL -> DEGRADED (stale-while-revalidate) -> BROWNOUT (degraded
+    # plans, the host entropy crop, quality clamped to brownout_quality;
+    # never cached) -> SHED (misses answer 503); escalation is immediate,
+    # each step down waits brownout_min_dwell_s and pressure under
+    # threshold * brownout_hysteresis
+    "brownout_enable": False,
+    "brownout_degraded_at": 0.6,
+    "brownout_brownout_at": 0.85,
+    "brownout_shed_at": 1.1,
+    "brownout_hysteresis": 0.75,
+    "brownout_min_dwell_s": 5.0,
+    "brownout_eval_interval_s": 0.25,
+    # pending submissions at which queue pressure reads 1.0 (0:
+    # batch_max_queue_depth, else 64); inflight requests and open
+    # breakers at which those read 1.0 (0: not read)
+    "brownout_queue_ref": 0.0,
+    "brownout_inflight_ref": 0.0,
+    "brownout_breaker_ref": 0.0,
+    "brownout_quality": 40,
+    "brownout_stale_ttl_s": 300.0,
+    "brownout_refresh_max_pending": 8,
+    "brownout_lease_ref": 8.0,
+    # derivative reuse (runtime/variantindex.py), off by default: a miss
+    # renders from a stored pure resample of the same source at least
+    # reuse_min_scale times its box (reuse_degraded_min_scale and one more
+    # lossy generation at DEGRADED and above), indexed per source in
+    # <source-digest>.variants.json manifests beside the outputs
+    "reuse_enable": False,
+    "reuse_min_scale": 2.0,
+    "reuse_max_generations": 1,
+    "reuse_degraded_min_scale": 1.3,
+    "reuse_index_max_sources": 512,
+    "reuse_index_max_variants": 16,
+    "reuse_index_ttl_s": 3600.0,
+    # the negative origin cache (runtime/brownout.py NegativeCache): an
+    # origin whose retries ran out, or whose breaker is open, answers 502
+    # at once for this many seconds (0 off)
+    "negative_cache_ttl_s": 0.0,
+    "negative_cache_max_entries": 1024,
+    # object-passing clocks of the engines (tests only)
+    "brownout_clock": None,
+    "device_supervisor_clock": None,
+    "telemetry_clock": None,
     # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs
     # (tests only)
     "fault_injector": None,
 }
+
+#: the enable keys of JAX modules this package does not carry yet: a
+#: server refuses to be made with any of them on
+UNPORTED_ENABLE_KEYS = (
+    "l2_enable",
+    "tier_supervisor_enable",
+    "tier_scrub_enable",
+    "fleet_membership_enable",
+    "fleet_observatory_enable",
+    "warmstart_enable",
+    "autotune_enable",
+)
+
+
+def require_ported(params: "AppParameters") -> None:
+    """Raise ``NotPortedException`` naming every truthy enable key of a
+    module the port does not carry, instead of serving without it."""
+    on = [key for key in UNPORTED_ENABLE_KEYS if params.by_key(key)]
+    if on:
+        raise NotPortedException(
+            f"{', '.join(on)}: not ported to the PyTorch package yet")
 
 
 class AppParameters:

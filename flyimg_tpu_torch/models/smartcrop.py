@@ -598,6 +598,37 @@ def apply_crop(rgb: np.ndarray, crop: Dict[str, int]) -> np.ndarray:
     return rgb[y0:y1, x0:x1]
 
 
+def entropy_crop_image(rgb: np.ndarray) -> np.ndarray:
+    """The brownout stand-in for the smart-crop scoring (runtime/
+    brownout.py): the same square answer, a side-``min(h, w)`` window,
+    chosen on the host with no device work. The window slides along the
+    long axis on the scorer's stride-8 grid and lands where the summed
+    luma gradient |d luma| is highest, near-ties going to the most central
+    offset. numpy, the JAX package's arithmetic."""
+    h, w = rgb.shape[:2]
+    side = min(h, w)
+    if h == w:
+        return rgb
+    luma = rgb.astype(np.float32).mean(axis=2)
+    axis = 0 if h > w else 1
+    # each line's energy along the long axis, then window sums by a cumsum
+    grad = np.abs(np.diff(luma, axis=axis)).sum(axis=1 - axis)
+    grad = np.concatenate([grad, [0.0]])
+    csum = np.concatenate([[0.0], np.cumsum(grad)])
+    span = (h if axis == 0 else w) - side
+    offsets = np.arange(0, span + 1, 8)
+    if offsets[-1] != span:
+        offsets = np.concatenate([offsets, [span]])
+    window = csum[offsets + side] - csum[offsets]
+    # a flat image would pick the first offset: the centre wins near-ties
+    best = window.max()
+    near = offsets[window >= best * 0.999999]
+    off = int(near[np.argmin(np.abs(near - span / 2.0))])
+    if axis == 0:
+        return np.ascontiguousarray(rgb[off:off + side])
+    return np.ascontiguousarray(rgb[:, off:off + side])
+
+
 @dataclass(frozen=True)
 class WorkItem:
     """Everything the batched scorer needs about one image: the prescaled

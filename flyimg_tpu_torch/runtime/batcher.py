@@ -72,6 +72,13 @@ submissions (503 + Retry-After past it); a ``governor``
 ``close`` resolves every in-flight readback within its drain budget and
 stamps what is left with a ``TimeoutError``.
 
+With a ``supervisor`` (``runtime/devicesupervisor.py``, opt-in) each
+transform launch resolved reports a success and each failed launch or
+retry its class; the supervisor's failover rebuilds the controller on the
+CPU (``pause_launches``, ``drain_inflight``, ``failover_backend``) and its
+re-promotion on the card. Without one nothing leaves the controller's
+device.
+
 Observability (the JAX batcher's): each launch gets a batch id. A launch
 whose members carry request traces mints ONE shared span
 (``device_execute``, ``aux_execute`` or ``batch_recovery``) that is
@@ -98,6 +105,7 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field, replace
+from functools import partial
 from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -423,9 +431,13 @@ class BatchController:
         flight_recorder=None,
         profiler=None,
         batch_ids=None,
+        supervisor=None,
     ) -> None:
         self.device = resolve_device(device)
         self.name = name
+        #: the device supervisor (runtime/devicesupervisor.py) fed by every
+        #: transform launch's resolution, or None
+        self.supervisor = supervisor
         # the server's registry, or a private one standalone
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         #: the flight recorder (one record per launch resolution) and the
@@ -504,6 +516,8 @@ class BatchController:
         self._groups: Dict[Tuple, _Group] = {}
         self._lock = threading.Condition()
         self._stop = False
+        # launches hold while a backend switch runs (pause_launches)
+        self._paused = False
         self._spawn_executor().start()
 
     def _spawn_executor(self) -> threading.Thread:
@@ -676,6 +690,15 @@ class BatchController:
         except RuntimeError:
             pass    # a replacement installed but not started: nothing to join
         # every in-flight batch (dispatching, wedged or reading back)
+        self.drain_inflight(drain_timeout_s, "batcher closed while a device readback hung")
+
+    def drain_inflight(self, drain_timeout_s: float,
+                       message: str = "device batch abandoned during backend failover"
+                       ) -> None:
+        """THE bounded in-flight drain (``close`` and the device
+        supervisor's failover and re-promotion share it): wait for every
+        in-flight batch to resolve; past the budget the rest get a
+        ``TimeoutError`` with ``message`` and leave the registry."""
         deadline = time.monotonic() + max(float(drain_timeout_s), 0.0)
         while time.monotonic() < deadline:
             with self._lock:
@@ -688,10 +711,67 @@ class BatchController:
         for member in leftovers:
             if not member.future.done():
                 try:
-                    member.future.set_exception(TimeoutError(
-                        "batcher closed while a device readback hung"))
+                    member.future.set_exception(TimeoutError(message))
                 except Exception:
                     pass    # a drain thread resolved it meanwhile
+
+    def pause_launches(self) -> None:
+        """Hold new launches (submissions keep queueing) while a backend
+        switch runs; pair with ``resume_launches`` in a finally."""
+        with self._lock:
+            self._paused = True
+
+    def resume_launches(self) -> None:
+        with self._lock:
+            self._paused = False
+            self._lock.notify_all()
+
+    def failover_backend(self, device, *, drain_timeout_s: float = 10.0,
+                         reason: str = "failover") -> None:
+        """Rebuild the controller on ``device`` online (the device
+        supervisor's failover to the CPU and re-promotion to the card):
+        launches hold, the in-flight ones drain (bounded), then the device,
+        the stream, a fresh pipeline semaphore and a replacement executor
+        go in together under the lock; queued groups launch on the new
+        device, and aux runners bound to a device follow it
+        (``_on_device``)."""
+        device = resolve_device(device)
+        self.pause_launches()
+        replacement = None
+        try:
+            self.drain_inflight(drain_timeout_s)
+            stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+            with self._lock:
+                self.device = device
+                self._stream = stream
+                # a batch wedged on the lost device keeps its slot: leave it
+                # the old semaphore
+                self._inflight = threading.Semaphore(self._pipeline_depth)
+                self._busy_since = None
+                self._busy_owner = None
+                if not self._stop and not self._executor_pending:
+                    replacement = self._spawn_executor()
+        finally:
+            self.resume_launches()
+        self.metrics.record_executor_restart(reason)
+        tracing.add_event("executor_restart", reason=reason, controller=self.name)
+        if replacement is not None:
+            try:
+                replacement.start()
+            except BaseException:
+                with self._lock:
+                    self._executor_pending = False
+                raise
+
+    def _on_device(self, runner):
+        """An aux runner bound to a device (a partial with a ``device``
+        keyword) runs on this controller's device: after a failover, the
+        CPU."""
+        if isinstance(runner, partial) and "device" in runner.keywords:
+            bound = runner.keywords["device"]
+            if bound is not None and torch.device(bound) != self.device:
+                return partial(runner, device=self.device)
+        return runner
 
     def _count(self, name: str) -> None:
         with self._lock:
@@ -757,12 +837,14 @@ class BatchController:
                         # live executor would sleep with work queued)
                         self._lock.notify()
                         return
-                    group = self._pop_ready_locked()
+                    group = None if self._paused else self._pop_ready_locked()
                     if group is not None:
                         break
                     if self._stop and not self._groups:
                         return
-                    self._lock.wait(timeout=self._next_wait_locked())
+                    # paused, the deadlines do not matter: resume wakes it
+                    self._lock.wait(
+                        timeout=None if self._paused else self._next_wait_locked())
                 self._busy_since = time.monotonic()
                 self._busy_owner = me
                 # in flight from the pop on: close() must see (and stamp) a
@@ -1012,7 +1094,7 @@ class BatchController:
         poked = self._profiler_start()
         try:
             with torch.profiler.record_function(f"flyimg:batch:{seq}"):
-                outputs = group.runner([m.payload for m in members])
+                outputs = self._on_device(group.runner)([m.payload for m in members])
         finally:
             if poked:
                 self.profiler.on_batch_end()
@@ -1020,7 +1102,7 @@ class BatchController:
             raise RuntimeError(
                 f"aux runner returned {len(outputs)} results for {n} payloads"
             )
-        faults.fire("batcher.drain", key=group.key, n=n, batch=n)
+        faults.fire("batcher.drain", key=group.key, n=n, batch=n, device=str(self.device))
         return outputs
 
     def _dispatch(self, group: _Group, members: List[_Pending], seq: int,
@@ -1096,7 +1178,8 @@ class BatchController:
         launch = box.pop()
         h2d_s, dispatch_s = launch.h2d_s, launch.dispatch_s
         try:
-            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+            faults.fire("batcher.drain", key=group.key, n=n, batch=batch,
+                        device=str(self.device))
             t_sync = time.perf_counter()
             host = self._read_back(launch)
             sync_s = time.perf_counter() - t_sync
@@ -1110,6 +1193,9 @@ class BatchController:
                 dispatch_s=dispatch_s, sync_s=sync_s, device_s=device_s,
                 compile_hit=compile_hit, span_obj=span_obj,
             )
+            if self.supervisor is not None:
+                # the card answered: a storm in progress resets
+                self.supervisor.record_batch_success()
             self._resolve_members(group, members, host)
         except Exception as exc:
             launch = None   # its device tensors go before recovery launches
@@ -1243,7 +1329,8 @@ class BatchController:
         try:
             launch = self._launch(fn, images, geo, measure, seq)
             first = measure and costledger.first_launch(key)
-            faults.fire("batcher.drain", key=group.key, n=n, batch=batch)
+            faults.fire("batcher.drain", key=group.key, n=n, batch=batch,
+                        device=str(self.device))
             t_sync = time.perf_counter()
             host = self._read_back(launch)
             sync_s = time.perf_counter() - t_sync
@@ -1262,6 +1349,8 @@ class BatchController:
             sync_s=sync_s, device_s=device_s, compile_hit=compile_hit,
             kind="recovery", mem_event=mem_event,
         )
+        if self.supervisor is not None:
+            self.supervisor.record_batch_success()
         return host
 
     def _resolve_members(self, group: _Group, members: List[_Pending],
@@ -1301,6 +1390,9 @@ class BatchController:
         if not live:
             return
         kind = classify_batch_error(exc)
+        if self.supervisor is not None:
+            # one outcome a failed launch: TRANSIENT ones make a storm
+            self.supervisor.record_batch_failure(kind)
         span_obj = self._start_batch_span(
             "batch_recovery", len(live), len(live), live, self._batch_seq)
         if span_obj is not None:
@@ -1370,6 +1462,9 @@ class BatchController:
             except Exception as exc:
                 last = exc
                 kind = classify_batch_error(exc)
+                if self.supervisor is not None:
+                    # each failed retry is storm evidence too
+                    self.supervisor.record_batch_failure(kind)
                 if kind == FATAL:
                     raise
                 if kind != TRANSIENT:

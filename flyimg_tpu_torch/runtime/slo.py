@@ -295,6 +295,26 @@ class SloEngine:
         with self._lock:
             return self._burn_locked(self._clock(), window_s)
 
+    def digest_fields(self) -> Dict[str, float]:
+        """The burn of each window, raw and over its threshold, and the
+        fast window's request count: the SLO block of a telemetry window
+        record (runtime/telemetry.py)."""
+        if not self.enabled:
+            return {}
+        fast = self.burn_rate("fast")
+        slow = self.burn_rate("slow")
+        with self._lock:
+            requests = sum(
+                sl.total for sl in self._window_slices_locked(
+                    self._clock(), self.window_fast_s))
+        return {
+            "burn_fast": round(fast, 4),
+            "burn_slow": round(slow, 4),
+            "burn_fast_norm": round(fast / max(self.burn_threshold_fast, 1e-9), 4),
+            "burn_slow_norm": round(slow / max(self.burn_threshold_slow, 1e-9), 4),
+            "window_requests": float(requests),
+        }
+
     def window_p99_s(self, window: str = "fast") -> float:
         window_s = (
             self.window_fast_s if window == "fast" else self.window_slow_s

@@ -25,8 +25,20 @@ operations surface
   403 with debug off; ``/debug/slo``, ``/debug/perf``, ``/debug/plans``,
   ``/debug/flightrecorder``, ``/debug/profile`` (GET the state, POST
   ``?batches=N`` to arm a batch-scoped capture, GET
-  ``/debug/profile/captures/{name}`` for its tar.gz) and ``/debug/memory``
-  answer 404.
+  ``/debug/profile/captures/{name}`` for its tar.gz), ``/debug/memory``,
+  ``/debug/brownout`` (the level, the pressure and its components),
+  ``/debug/device`` (the device supervisor's state) and
+  ``/debug/telemetry`` (the mix classifier and the archive) answer 404.
+
+The JAX app's opt-in modules are made and wired as it makes them, each off
+by default: the brownout engine (its level evaluated on every pipeline
+request, stamped into flight records, an escalation dumping the flight
+recorder), the device supervisor (fed by the transform batcher, failing
+both controllers over to the CPU), the telemetry pipeline (its beat on the
+request path, the flight recorder's dumps under its retention) and the
+handler's variant index (``flyimg_variant_index_entries``). A key of a
+module not ported yet (``appconfig.UNPORTED_ENABLE_KEYS``) makes the server
+refuse to be made (``NotPortedException``).
 
 ``HEAD`` answers any GET route with the GET's status and headers, no body.
 Every request passes one observability choke point (``_RequestHandler.
@@ -66,7 +78,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from flyimg_tpu_torch.appconfig import AppParameters
+from flyimg_tpu_torch.appconfig import AppParameters, require_ported
 from flyimg_tpu_torch.codecs import native_codec
 from flyimg_tpu_torch.exceptions import (
     AppException,
@@ -86,7 +98,9 @@ from flyimg_tpu_torch.ops.resample import set_kernel_mode
 from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
 from flyimg_tpu_torch.runtime import tracing
 from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
+from flyimg_tpu_torch.runtime.brownout import BrownoutEngine
 from flyimg_tpu_torch.runtime.costledger import get_ledger
+from flyimg_tpu_torch.runtime.devicesupervisor import DeviceSupervisor
 from flyimg_tpu_torch.runtime.flightrecorder import FlightRecorder
 from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.logging import access_log, configure_logging
@@ -99,6 +113,7 @@ from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
 from flyimg_tpu_torch.runtime.profiling import DeviceProfiler, ProfilerSession
 from flyimg_tpu_torch.runtime.resilience import Deadline
 from flyimg_tpu_torch.runtime.slo import SloEngine
+from flyimg_tpu_torch.runtime.telemetry import TelemetryPipeline, reuse_signal_fn
 from flyimg_tpu_torch.service.handler import ImageHandler
 from flyimg_tpu_torch.service.response import (
     NOT_MODIFIED_HEADERS,
@@ -237,15 +252,17 @@ def local_sp_mesh(device: torch.device) -> Optional[Mesh]:
 
 
 class FlyimgServer(ThreadingHTTPServer):
-    """The HTTP server, its handler, its batchers, its host stage pools and
-    its observability: the metrics registry, the tracer, the SLO engine,
-    the flight recorder and the profiler."""
+    """The HTTP server, its handler, its batchers, its host stage pools, its
+    observability (the metrics registry, the tracer, the SLO engine, the
+    flight recorder, the profiler, the telemetry pipeline), the brownout
+    engine and the device supervisor."""
 
     daemon_threads = True
 
     def __init__(self, address, params: AppParameters,
                  device: Union[str, torch.device] = "cuda",
                  sp_mesh: Optional[Mesh] = None) -> None:
+        require_ported(params)
         self.routes = resolve_routes(params)
         set_kernel_mode(str(params.by_key("resample_kernel", "dense")))
         self.params = params
@@ -284,6 +301,9 @@ class FlyimgServer(ThreadingHTTPServer):
             if part.enabled:
                 part.register_metrics(metrics)
         containment = containment_params(params)
+        # the device supervisor, fed by the transform batcher's launches
+        supervisor = self.device_supervisor = DeviceSupervisor.from_params(
+            params, metrics=metrics)
         # one batch-id sequence for both controllers: an id in a capture's
         # flyimg:batch:<id> range names one flight record
         batch_ids = itertools.count(1)
@@ -294,7 +314,8 @@ class FlyimgServer(ThreadingHTTPServer):
             governor=governor if governor.enabled else None,
             metrics=metrics, name="device",
             flight_recorder=self.flight_recorder, profiler=self.profiler,
-            batch_ids=batch_ids, **containment,
+            batch_ids=batch_ids, supervisor=supervisor if supervisor.enabled else None,
+            **containment,
         )
         # codec work gets its OWN controller and thread: JPEG decode and
         # encode groups must not serialize with the transform launches
@@ -307,6 +328,19 @@ class FlyimgServer(ThreadingHTTPServer):
             flight_recorder=self.flight_recorder, profiler=self.profiler,
             batch_ids=batch_ids, **containment,
         )
+        if supervisor.enabled:
+            # a failover moves both controllers: the codec kernels' plain
+            # versions serve the JPEG work while it holds
+            supervisor.attach(batchers=(self.batcher, self.codec_batcher))
+            supervisor.register_metrics(metrics)
+        self.brownout = BrownoutEngine.from_params(params, metrics=metrics)
+        self.brownout.register_metrics(metrics)
+        # flight records carry the level, and an escalation dumps the ring
+        # (the launches that built the pressure)
+        self.flight_recorder.attach(level_fn=self.brownout.level)
+        self.brownout.add_transition_listener(
+            lambda info: self.flight_recorder.dump("brownout_escalation", context=info))
+        self.telemetry = TelemetryPipeline.from_params(params, metrics=metrics)
         if sp_mesh is None:
             sp_mesh = local_sp_mesh(self.batcher.device)
         self.host_pipeline = HostPipeline.from_params(
@@ -321,7 +355,9 @@ class FlyimgServer(ThreadingHTTPServer):
             params, device=self.batcher.device, batcher=self.batcher,
             sp_mesh=sp_mesh, host_pipeline=self.host_pipeline,
             codec_batcher=self.codec_batcher, metrics=metrics,
-            storage=self.storage,
+            storage=self.storage, brownout=self.brownout,
+            device_supervisor=supervisor if supervisor.enabled else None,
+            telemetry=self.telemetry if self.telemetry.enabled else None,
         )
         self.inflight = metrics.gauge(
             "flyimg_inflight_requests", "HTTP requests currently in flight")
@@ -335,6 +371,31 @@ class FlyimgServer(ThreadingHTTPServer):
             "Traces held in the tail-sampling ring buffer",
             fn=lambda: len(self.tracer),
         )
+        metrics.gauge(
+            "flyimg_variant_index_entries",
+            "Reuse-safe renditions tracked by the per-source variant index",
+            fn=lambda: float(len(self.handler.variants)),
+        )
+        self.brownout.attach(
+            batchers=(self.batcher, self.codec_batcher),
+            slo=self.slo,
+            inflight_fn=lambda: self.inflight.value,
+            breaker_open_fn=self.handler.fetch_policy.breakers.open_count,
+            host_pipeline=self.host_pipeline,
+            device_supervisor=supervisor if supervisor.enabled else None,
+            rss_fn=self.rss_watchdog.pressure if self.rss_watchdog.enabled else None,
+        )
+        if self.telemetry.enabled:
+            self.telemetry.attach(
+                metrics=metrics, slo=self.slo, brownout=self.brownout,
+                host_pipeline=self.host_pipeline, flight_recorder=self.flight_recorder,
+                reuse_fn=reuse_signal_fn(metrics) if self.handler.reuse_enable else None,
+                ledger_fn=self.cost_ledger.aggregates,
+            )
+            # a positive telemetry_retention_max_dumps bounds the dumps
+            self.telemetry.adopt_dump_retention(
+                self.flight_recorder,
+                int(params.by_key("telemetry_retention_max_dumps", 0)))
         self.draining = threading.Event()
         self._serving = False
         self._trace_lock = threading.Lock()
@@ -366,9 +427,11 @@ class FlyimgServer(ThreadingHTTPServer):
         self._closed = True
         self.begin_drain()
         self._prune_stop.set()
+        self.device_supervisor.close()
         self.batcher.close(self.drain_timeout_s)
         self.codec_batcher.close(self.drain_timeout_s)
         self.host_pipeline.close(self.drain_timeout_s)
+        self.telemetry.close()
         if self._serving:
             self.shutdown()
         super().server_close()
@@ -483,6 +546,13 @@ class _RequestHandler(BaseHTTPRequestHandler):
         trace = None
         if route in _TRACED_ROUTES:
             trace = srv.tracer.start(self.headers.get("traceparent"))
+            # the engines' beats ride the pipeline requests (each rate-
+            # limited inside, one check when off), in this request's trace
+            # so their span events land on it
+            with tracing.activate(trace):
+                srv.brownout.evaluate()
+                srv.device_supervisor.evaluate()
+                srv.telemetry.evaluate()
             if trace is not None:
                 trace.root.set_attribute("route", route)
                 trace.root.set_attribute("http.method", method)
@@ -556,6 +626,9 @@ def _upload(req: _RequestHandler, match, trace) -> Response:
     except AppException as exc:
         return error_response(exc)
     headers = image_headers(result, req.server.params.by_key("header_cache_days", 365))
+    if req.server.debug and result.reused_from:
+        # which stored ancestor the answer was derived from (debug only)
+        headers["X-Flyimg-Reuse"] = result.reused_from
     if is_not_modified(req.headers, headers):
         return 304, b"", {k: headers[k] for k in NOT_MODIFIED_HEADERS if k in headers}
     return 200, result.content, headers
@@ -591,9 +664,14 @@ def _readyz(req, match, trace) -> Response:
     """Readiness, apart from liveness: 503 from the moment the server
     begins to drain, so a load balancer takes it out of rotation before
     the batchers drain."""
-    if req.server.draining.is_set():
+    srv = req.server
+    if srv.draining.is_set():
         return _json({"status": "draining"}, 503)
-    return _json({"status": "ok"})
+    doc = {"status": "ok"}
+    if srv.device_supervisor.enabled:
+        # a failed-over server stays ready (hits and CPU renders serve)
+        doc["device"] = "down" if srv.device_supervisor.cpu_forced() else "ok"
+    return _json(doc)
 
 
 def _metrics(req, match, trace) -> Response:
@@ -744,6 +822,21 @@ def _debug_profile_download(req, match, trace) -> Response:
 
 
 @_debug_404
+def _debug_brownout(req, match, trace) -> Response:
+    return _json(req.server.brownout.snapshot())
+
+
+@_debug_404
+def _debug_device(req, match, trace) -> Response:
+    return _json(req.server.device_supervisor.snapshot())
+
+
+@_debug_404
+def _debug_telemetry(req, match, trace) -> Response:
+    return _json(req.server.telemetry.snapshot())
+
+
+@_debug_404
 def _debug_memory(req, match, trace) -> Response:
     srv = req.server
     return _json({
@@ -767,6 +860,9 @@ _STATIC_GET = {
     "/debug/flightrecorder": _debug_flightrecorder,
     "/debug/profile": _debug_profile_get,
     "/debug/memory": _debug_memory,
+    "/debug/brownout": _debug_brownout,
+    "/debug/device": _debug_device,
+    "/debug/telemetry": _debug_telemetry,
 }
 # one path segment after the prefix (aiohttp's {name})
 _PREFIX_GET = (

@@ -38,8 +38,32 @@ request's trace (``fetch``, ``storage``, ``coalesced_wait``, ``decode``,
 their shared launch spans under them), with ``cache.hit`` and
 ``cache.corrupt`` events, and every request records its cache outcome and
 stage timings in the metrics registry (``flyimg_cache_total``,
-``flyimg_stage_seconds``). Not ported yet (ROADMAP): brownout, derivative
-reuse and the fleet tier.
+``flyimg_stage_seconds``).
+
+The JAX handler's opt-in modules, each off by default and then inert:
+
+- brownout (``runtime/brownout.py``): at DEGRADED a cache hit past
+  ``brownout_stale_ttl_s`` serves stale (``Warning: 110``,
+  ``X-Flyimg-Degraded: stale``) while one background refresh re-renders it
+  through the single-flight table; at BROWNOUT a miss renders
+  ``degrade_plan``'s plan, the host entropy crop in place of the smart-crop
+  scoring (K2 and K3 do not launch), the quality clamped to
+  ``brownout_quality``, served direct and never stored; at SHED a miss
+  answers 503 with Retry-After before any decode or launch (the output is
+  named from the source, fetched first unless the origin cache or the
+  variant index has it, as in the JAX handler);
+- derivative reuse (``runtime/variantindex.py``): a miss whose source has a
+  stored reuse-safe ancestor (``spec.plan.rewrite_for_reuse``) decodes and
+  resamples the ancestor's bytes instead of fetching the origin, and a
+  stored pure resample is recorded in the index (``reuse_hit`` stage,
+  ``flyimg_reuse_hits_total{outcome}``);
+- the device supervisor (``runtime/devicesupervisor.py``): while it holds
+  the CPU failover every render runs on the CPU, is tagged
+  ``X-Flyimg-Degraded: cpu-fallback`` and is never stored;
+- telemetry (``runtime/telemetry.py``): each answer's outcome feeds the
+  traffic-mix classifier.
+
+The fleet tier (the L2 lease) is not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +75,7 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from functools import partial
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +88,7 @@ from flyimg_tpu_torch.codecs.sniff import JPEG_MIME
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
+    DeadlineExceededException,
     ExecFailedException,
     InvalidArgumentException,
     PayloadTooLargeException,
@@ -86,6 +111,7 @@ from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.memgovernor import HostByteAccountant
 from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
 from flyimg_tpu_torch.runtime.resilience import Deadline
+from flyimg_tpu_torch.runtime.variantindex import VariantFacts, VariantIndex
 from flyimg_tpu_torch.service.input_source import FetchPolicy, load_source
 from flyimg_tpu_torch.service.output_image import OutputSpec, resolve_output
 from flyimg_tpu_torch.service.security import SecurityHandler
@@ -95,8 +121,13 @@ from flyimg_tpu_torch.spec.plan import (
     build_plan,
     decode_roi_window,
     decode_target_hint,
+    degrade_plan,
+    lossy_output,
     parse_colorspace,
+    reuse_frame_key,
+    rewrite_for_reuse,
 )
+from flyimg_tpu_torch.testing import faults
 from flyimg_tpu_torch.storage import Storage, make_storage
 
 
@@ -139,7 +170,11 @@ class ProcessedImage:
     modified_at: Optional[float] = None
     degraded: Tuple[str, ...] = ()
     stale: bool = False
+    #: the stored ancestor this render was derived from (reuse), else None
+    reused_from: Optional[str] = None
 
+
+_CPU = torch.device("cpu")
 
 #: the outputs this package encodes, by extension
 _ENCODED = {"png": "image/png", "jpg": "image/jpeg", "webp": "image/webp",
@@ -234,7 +269,10 @@ class ImageHandler:
     budget (503 + Retry-After past it).
 
     ``metrics``: the server's registry (a private one by default);
-    ``storage``: the output store (by default ``make_storage(params)``)."""
+    ``storage``: the output store (by default ``make_storage(params)``);
+    ``brownout``, ``device_supervisor`` and ``telemetry``: the server's
+    engines, or None (off). ``device`` is the device renders run on: the
+    configured one, or the CPU while the supervisor holds a failover."""
 
     #: inputs at least this tall consider the spatially tiled programs
     TILE_MIN_ROWS = 2048
@@ -251,11 +289,17 @@ class ImageHandler:
         codec_batcher: Optional[BatchController] = None,
         metrics: Optional[MetricsRegistry] = None,
         storage: Optional[Storage] = None,
+        brownout=None,
+        device_supervisor=None,
+        telemetry=None,
     ) -> None:
         self.params = params or AppParameters()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.security = SecurityHandler(self.params)
-        self.device = resolve_device(device)
+        self._device = resolve_device(device)
+        self.brownout = brownout
+        self.device_supervisor = device_supervisor
+        self.telemetry = telemetry
         self.batcher = batcher
         self.codec_batcher = codec_batcher
         # ROI decode (the JAX package's decode_roi): crop/extract-dominant
@@ -264,9 +308,17 @@ class ImageHandler:
         self.sp_mesh = sp_mesh
         self.host_pipeline = host_pipeline
         self._face_backend = face_backend
+        self._cpu_face_backend = None
         self._face_lock = threading.Lock()
         self.storage = (storage if storage is not None
                         else make_storage(self.params, metrics=self.metrics))
+        # derivative reuse: inert (no lookup, no record, no manifest) off
+        self.reuse_enable = bool(self.params.by_key("reuse_enable", False))
+        self.reuse_min_scale = float(self.params.by_key("reuse_min_scale", 2.0))
+        self.reuse_max_generations = int(self.params.by_key("reuse_max_generations", 1))
+        self.reuse_degraded_min_scale = float(
+            self.params.by_key("reuse_degraded_min_scale", 1.3))
+        self.variants = VariantIndex.from_params(self.params, storage=self.storage.shared)
         self.tmp_dir = self.params.by_key("tmp_dir")
         self.fetch_policy = FetchPolicy.from_params(self.params, metrics=self.metrics)
         self.default_deadline_s = float(self.params.by_key("request_deadline_s") or 0.0)
@@ -276,12 +328,41 @@ class ImageHandler:
         accountant = HostByteAccountant.from_params(self.params, metrics=self.metrics)
         self.mem_accountant = accountant if accountant.enabled else None
         self._flight = _SingleFlight()
-        # a stable runner: the batcher groups aux work by runner identity
+        # stable runners: the batcher groups aux work by runner identity and
+        # runs a runner bound to a device on its own device
         self._smc_runner = partial(
-            smartcrop.find_best_crops_batched, device=self.device
+            smartcrop.find_best_crops_batched, device=self._device
         )
-        self._jpeg_decode_runner = partial(codecs.batch_jpeg_decode, device=self.device)
-        self._jpeg_encode_runner = partial(codecs.batch_jpeg_encode, device=self.device)
+        self._jpeg_decode_runner = partial(codecs.batch_jpeg_decode, device=self._device)
+        self._jpeg_encode_runner = partial(codecs.batch_jpeg_encode, device=self._device)
+
+    @property
+    def device(self) -> torch.device:
+        """Where renders run now: the CPU while the device supervisor
+        holds a failover, else the handler's device."""
+        return _CPU if self._device_down() else self._device
+
+    def _device_down(self) -> bool:
+        sup = self.device_supervisor
+        return sup is not None and sup.cpu_forced()
+
+    def _direct(self, runner):
+        """A device-bound runner called here (no batcher, or a wedged
+        wait) on the current device."""
+        if self._device_down():
+            return partial(runner, device=_CPU)
+        return runner
+
+    def _record_mix(self, options: OptionsBag, image_src: str,
+                    source_key: Optional[str], outcome: str) -> None:
+        """One answer's outcome into the telemetry classifier (one check
+        with telemetry off)."""
+        if self.telemetry is None:
+            return
+        self.telemetry.record_request(
+            options=options,
+            source_key=source_key or OptionsBag.hash_original_image_url(image_src),
+            outcome=outcome)
 
     # -- the counters of the JAX handler's families ------------------------
 
@@ -327,7 +408,10 @@ class ImageHandler:
         ``accepts_webp``: the client's Accept header names image/webp, so
         ``o_auto`` answers WebP. ``deadline``: the request's budget, by
         default ``request_deadline_s`` from now. A signed token is
-        decrypted, and the source's domain checked, before anything else."""
+        decrypted, and the source's domain checked, before anything else.
+        With reuse on and the source indexed, the output is named, looked
+        up and, where an ancestor is reuse-safe, rendered without touching
+        the origin."""
         t0 = time.perf_counter()
         if deadline is None:
             deadline = Deadline(self.default_deadline_s, metrics=self.metrics)
@@ -341,9 +425,20 @@ class ImageHandler:
             default_options=self.params.by_key("default_options"),
             separator=self.params.by_key("options_separator", ","),
         )
-        source = self._load_source(image_src, options, timings, deadline)
-        spec = resolve_output(options, image_src, source.info.mime,
-                              accepts_webp=accepts_webp)
+        refresh = options.wants_refresh()
+        source_key = (OptionsBag.hash_original_image_url(image_src)
+                      if self.reuse_enable else None)
+        reuse_on = self.reuse_enable and not refresh
+        reuse_entry = source = spec = None
+        if reuse_on:
+            reuse_entry = self.variants.lookup(source_key)
+            if reuse_entry is not None and reuse_entry.source_mime:
+                spec = resolve_output(options, image_src, reuse_entry.source_mime,
+                                      accepts_webp=accepts_webp)
+        if spec is None:
+            source = self._load_source(image_src, options, timings, deadline)
+            spec = resolve_output(options, image_src, source.info.mime,
+                                  accepts_webp=accepts_webp)
         if parse_colorspace(options) == "cmyk":
             _require_cmyk_container(spec)
         if spec.extension not in _ENCODED:
@@ -354,9 +449,10 @@ class ImageHandler:
         # refused before decode and device work, as the output container is
         codecs.require_encodable(spec.extension,
                                  sampling_factor=_sampling_factor(options))
-        refresh = options.wants_refresh()
         if refresh:
             self.storage.delete(spec.name)
+            if source_key is not None:
+                self.variants.discard(source_key, spec.name)
         with tracing.span("storage", op="fetch"):
             cached = None if refresh else self.storage.fetch_hedged(spec.name)
         if cached is not None and not _cache_entry_valid(cached[0], spec):
@@ -364,16 +460,31 @@ class ImageHandler:
             tracing.add_event("cache.corrupt", key=spec.name, bytes=len(cached[0]))
             self.metrics.record_cache_corrupt()
             self.storage.delete(spec.name)
+            if source_key is not None:
+                self.variants.discard(source_key, spec.name)
             cached = None
+        engine = self.brownout
         if cached is not None:
             content, stat = cached
             tracing.add_event("cache.hit", key=spec.name)
+            stale = self._stale_hit(spec, options, image_src, stat, source, reuse_entry)
             self.metrics.record_cache(hit=True)
             self.metrics.record_stage("cache_hit", time.perf_counter() - t0)
+            self._record_mix(options, image_src, source_key, "stale" if stale else "hit")
             return ProcessedImage(
                 content=content, spec=spec, options=options,
-                from_cache=True, timings=timings, modified_at=stat.mtime,
+                from_cache=True, timings=timings, modified_at=stat.mtime, stale=stale,
             )
+        if engine is not None and engine.shed_active():
+            # SHED: a miss is refused before any decode or launch
+            engine.record_degraded("shed")
+            tracing.add_event("brownout.shed", key=spec.name)
+            self._record_mix(options, image_src, source_key, "shed")
+            exc = ServiceUnavailableException(
+                "shedding cache-miss work under overload (brownout level "
+                "shed); cached outputs still serve")
+            exc.retry_after_s = max(1, int(engine.shed_retry_after_s))
+            raise exc
 
         leader, fut = self._flight.begin(spec.name)
         if not leader:
@@ -381,7 +492,7 @@ class ImageHandler:
             # sheds its followers, and the follower's own budget caps it
             try:
                 with tracing.span("coalesced_wait", key=spec.name):
-                    content, mtime = fut.result(
+                    content, mtime, degraded = fut.result(
                         timeout=deadline.timeout(5 * self.device_result_timeout_s))
             except FutureTimeout:
                 deadline.check("coalesced")
@@ -398,30 +509,259 @@ class ImageHandler:
                 "flyimg_requests_coalesced_total",
                 "Cache-miss requests served by an in-flight duplicate",
             ).inc()
+            self._record_mix(options, image_src, source_key, "coalesced")
             return ProcessedImage(
                 content=content, spec=spec, options=options,
-                timings=timings, modified_at=mtime,
+                timings=timings, modified_at=mtime, degraded=degraded,
             )
+        modes: List[str] = []
+        reused = None
         try:
-            content = self._process_admitted(
-                source.data, source.data_info, options, spec, timings, deadline
-            )
-            t = time.perf_counter()
-            with tracing.span("storage", op="write", bytes=len(content)):
-                mtime = self.storage.write(spec.name, content)
-            timings["store"] = time.perf_counter() - t
+            # BROWNOUT: the cheaper plan, the entropy crop, the quality clamp
+            degrade = engine if engine is not None and engine.plan_degrade_active() else None
+            content = None
+            reuse_generation = 0
+            render_info: Dict[str, object] = {}
+            if reuse_on and not spec.is_gif:
+                if reuse_entry is None:
+                    self._record_reuse("miss")
+                else:
+                    hit = self._try_reuse(reuse_entry, options, spec, timings, deadline,
+                                          degrade, modes, render_info)
+                    if hit is not None:
+                        content, reused, reuse_generation = hit
+            if content is None:
+                if source is None:
+                    # no safe ancestor: the origin is fetched now, by the
+                    # leader only
+                    source = self._load_source(image_src, options, timings, deadline)
+                render_info = {}
+                content = self._process_admitted(
+                    source.data, source.data_info, options, spec, timings, deadline,
+                    degrade=degrade, degraded_out=modes, render_info=render_info)
+            # checked again at write time: a failover in mid-render moved
+            # the render to the CPU, and a CPU render must not be stored
+            if self._device_down() and "cpu-fallback" not in modes:
+                modes.append("cpu-fallback")
+            if modes:
+                # degraded answers are served direct, never stored
+                mtime = None
+                for mode in modes:
+                    if engine is not None:
+                        engine.record_degraded(mode)
+                tracing.add_event("brownout.degraded_render", key=spec.name,
+                                  modes=",".join(modes))
+            else:
+                t = time.perf_counter()
+                with tracing.span("storage", op="write", bytes=len(content)):
+                    mtime = self.storage.write(spec.name, content)
+                timings["store"] = time.perf_counter() - t
+                if source_key is not None:
+                    self._record_variant(
+                        source_key,
+                        source.info.mime if source is not None else reuse_entry.source_mime,
+                        spec, options, render_info, generations=reuse_generation,
+                        ancestor=reused)
         except BaseException as exc:
             self._flight.done(spec.name, exc=exc)
             raise
-        self._flight.done(spec.name, result=(content, mtime))
+        self._flight.done(spec.name, result=(content, mtime, tuple(modes)))
         timings["total"] = time.perf_counter() - t0
+        if reused is not None:
+            timings["reuse_hit"] = timings["total"]
         self.metrics.record_cache(hit=False)
         for stage, seconds in timings.items():
             self.metrics.record_stage(stage, seconds)
+        self._record_mix(options, image_src, source_key,
+                         "degraded" if modes else "reuse" if reused is not None else "miss")
         return ProcessedImage(
             content=content, spec=spec, options=options, timings=timings,
-            modified_at=mtime,
+            modified_at=mtime, degraded=tuple(modes),
+            reused_from=reused.name if reused is not None else None,
         )
+
+    # -- brownout -------------------------------------------------------------
+
+    def _stale_hit(self, spec: OutputSpec, options: OptionsBag, image_src: str,
+                   stat, source, reuse_entry) -> bool:
+        """At DEGRADED and above a hit older than ``brownout_stale_ttl_s`` is
+        stale: it serves now and one background refresh re-renders it (none
+        at SHED)."""
+        engine = self.brownout
+        if (engine is None or not engine.swr_active() or stat.mtime is None
+                or engine.stale_ttl_s <= 0
+                or time.time() - stat.mtime <= engine.stale_ttl_s):
+            return False
+        engine.record_degraded("stale")
+        tracing.add_event("brownout.stale_hit", key=spec.name,
+                          age_s=round(time.time() - stat.mtime, 1))
+        if not engine.shed_active():
+            self._schedule_refresh(
+                spec, options, source.data if source is not None else None, image_src,
+                source.data_info if source is not None else None,
+                source.info.mime if source is not None
+                else reuse_entry.source_mime if reuse_entry is not None else "")
+        return True
+
+    def _schedule_refresh(self, spec: OutputSpec, options: OptionsBag,
+                          data: Optional[bytes], image_src: str, info,
+                          source_mime: str) -> None:
+        """Queue ONE background re-render of a stale entry: the refresh queue
+        coalesces by name, and the refresh itself goes through the
+        single-flight table (so it coalesces with a foreground miss too). It
+        renders at full quality whatever the level, with the default budget;
+        without ``data`` (a stale hit off the reuse path) it fetches the
+        source itself, on the background thread. Nothing runs during a CPU
+        failover: the stale entry serves until the card is back."""
+
+        def refresh() -> None:
+            if self._device_down():
+                return
+            leader, _fut = self._flight.begin(spec.name)
+            if not leader:
+                return      # a foreground render is computing it
+            try:
+                deadline = Deadline(self.default_deadline_s, metrics=self.metrics)
+                payload, payload_info, mime = data, info, source_mime
+                if payload is None:
+                    fetched = self._load_source(image_src, options, {}, deadline)
+                    payload, payload_info = fetched.data, fetched.data_info
+                    mime = fetched.info.mime
+                render_info: Dict[str, object] = {}
+                content = self._process_admitted(payload, payload_info, options, spec, {},
+                                                 deadline, render_info=render_info)
+                if self._device_down():
+                    # failed over mid-refresh: the waiters get the bytes,
+                    # the store does not
+                    self._flight.done(spec.name, result=(content, None, ("cpu-fallback",)))
+                    return
+                mtime = self.storage.write(spec.name, content)
+                if self.reuse_enable:
+                    self._record_variant(OptionsBag.hash_original_image_url(image_src),
+                                         mime, spec, options, render_info)
+            except BaseException as exc:
+                self._flight.done(spec.name, exc=exc)
+                raise
+            self._flight.done(spec.name, result=(content, mtime, ()))
+
+        self.brownout.refresh.submit(spec.name, refresh)
+
+    # -- derivative reuse -------------------------------------------------------
+
+    def _try_reuse(self, entry, options: OptionsBag, spec: OutputSpec,
+                   timings: Dict[str, float], deadline: Deadline, degrade,
+                   degraded_out: List[str], render_info: Dict[str, object]):
+        """Render this miss from a stored ancestor: candidates largest first,
+        the first that ``rewrite_for_reuse`` accepts and whose bytes still
+        read and decode wins. ``(content, ancestor facts, generations)``, or
+        None with the outcome counted. At DEGRADED and above a nearer
+        ancestor and one more lossy generation are accepted."""
+        min_scale = self.reuse_min_scale
+        max_generations = self.reuse_max_generations
+        widened = False
+        engine = self.brownout
+        if engine is not None and engine.swr_active():
+            widened = True
+            min_scale = self.reuse_degraded_min_scale
+            max_generations += 1
+        reason = None
+        for anc in entry.candidates():
+            if anc.name == spec.name:
+                continue
+            plan, target_out, why = rewrite_for_reuse(
+                options, spec.extension, anc,
+                min_scale=min_scale, max_generations=max_generations)
+            if plan is None:
+                reason = why
+                continue
+            blob = self._fetch_ancestor(entry.source_key, anc)
+            if blob is None:
+                reason = "ancestor_gone"
+                continue
+            try:
+                content = self._process_admitted(
+                    blob, codecs.media_info(blob), options, spec, timings, deadline,
+                    degrade=degrade, degraded_out=degraded_out, render_info=render_info)
+            except DeadlineExceededException:
+                raise
+            except Exception:
+                # a torn write can keep valid magic over a body that does
+                # not decode: drop it, render from the source instead
+                self.variants.discard(entry.source_key, anc.name)
+                tracing.add_event("reuse.ancestor_invalid", ancestor=anc.name)
+                reason = "ancestor_gone"
+                continue
+            scale = min(anc.out_w / max(target_out[0], 1), anc.out_h / max(target_out[1], 1))
+            tracing.add_event("reuse.ancestor_hit", ancestor=anc.name,
+                              scale=round(scale, 3), generations=anc.generations,
+                              widened=widened)
+            self._record_reuse("hit")
+            generations = anc.generations + (1 if anc.lossy else 0)
+            self.metrics.histogram(
+                "flyimg_reuse_generations",
+                "Lossy re-encode depth of reuse-rendered outputs",
+                bounds=(0.5, 1.5, 2.5, 3.5),
+            ).observe(float(generations))
+            return content, anc, generations
+        self._record_reuse("unsafe" if reason is not None else "miss")
+        return None
+
+    def _fetch_ancestor(self, source_key: str, anc) -> Optional[bytes]:
+        """One candidate's bytes, or None (then dropped from the index) when
+        they are gone or do not sniff as their container. The
+        ``reuse.ancestor`` fault point may inject bytes or raise."""
+        try:
+            injected = faults.fire("reuse.ancestor", name=anc.name)
+            if injected is not faults.PASS:
+                blob = injected
+            else:
+                fetched = self.storage.fetch(anc.name)
+                blob = fetched[0] if fetched is not None else None
+        except Exception:
+            blob = None
+        expected = _ENCODED.get(anc.extension)
+        if not blob or (expected is not None and codecs.media_info(blob).mime != expected):
+            self.variants.discard(source_key, anc.name)
+            return None
+        return blob
+
+    def _record_reuse(self, outcome: str) -> None:
+        """One reuse decision of a miss: hit, unsafe or miss."""
+        self.metrics.counter(
+            f'flyimg_reuse_hits_total{{outcome="{outcome}"}}',
+            "Cache-miss reuse-rewriter decisions by outcome",
+        ).inc()
+
+    def _record_variant(self, source_key: str, source_mime: str, spec: OutputSpec,
+                        options: OptionsBag, render_info: Dict[str, object], *,
+                        generations: int = 0, ancestor=None) -> None:
+        """Index a rendition just stored when it is a pure full-frame
+        resample; a reuse render carries its ancestor's true source size."""
+        plan = render_info.get("plan")
+        src_size = ((ancestor.src_w, ancestor.src_h) if ancestor is not None
+                    else render_info.get("src_size"))
+        if plan is None or src_size is None or spec.is_gif:
+            return
+        if spec.extension not in ("png", "jpg", "webp"):
+            return
+        pure = (
+            plan.resize_to is not None and plan.extent is None
+            and plan.extract is None and plan.rotate is None
+            and plan.colorspace is None and not plan.monochrome
+            and plan.unsharp is None and plan.sharpen is None and plan.blur is None
+            and not plan.smart_crop and not plan.face_blur and not plan.face_crop
+        )
+        if not pure:
+            return
+        out_w, out_h = plan.resize_to
+        self.variants.record(source_key, source_mime, VariantFacts(
+            name=spec.name, out_w=out_w, out_h=out_h, extension=spec.extension,
+            quality=options.int_option("quality", 90) or 90,
+            lossy=lossy_output(spec.extension, options), pure=True,
+            colorspace=None, monochrome=False, background=plan.background,
+            generations=generations, src_w=int(src_size[0]), src_h=int(src_size[1]),
+            frame_key=reuse_frame_key(options), stored_at=time.time(),
+        ))
 
     def _load_source(self, image_src: str, options: OptionsBag,
                      timings: Dict[str, float], deadline: Deadline):
@@ -447,8 +787,17 @@ class ImageHandler:
 
     def _faces(self):
         """The face backend, made on first use from ``face_backend`` /
-        ``face_checkpoint`` (loading BlazeFace weights is not free)."""
+        ``face_checkpoint`` (loading BlazeFace weights is not free); during a
+        CPU failover a second one on the CPU."""
         with self._face_lock:
+            if self._device_down():
+                if self._cpu_face_backend is None:
+                    self._cpu_face_backend = make_face_backend(
+                        str(self.params.by_key("face_backend", "auto")),
+                        self.params.by_key("face_checkpoint"),
+                        device=_CPU,
+                    )
+                return self._cpu_face_backend
             if self._face_backend is None:
                 self._face_backend = make_face_backend(
                     str(self.params.by_key("face_backend", "auto")),
@@ -508,7 +857,9 @@ class ImageHandler:
 
     def _process_admitted(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
-        timings: Dict[str, float], deadline: Deadline,
+        timings: Dict[str, float], deadline: Deadline, *, degrade=None,
+        degraded_out: Optional[List[str]] = None,
+        render_info: Optional[Dict[str, object]] = None,
     ) -> bytes:
         """``_process_new`` under the host byte budget: the source's
         predicted decoded bytes are charged from its header before decode
@@ -523,7 +874,8 @@ class ImageHandler:
             if self.mem_accountant is not None:
                 charge = self.mem_accountant.admit(pixels * 3)
         try:
-            return self._process_new(data, info, options, spec, timings, deadline)
+            return self._process_new(data, info, options, spec, timings, deadline,
+                                     degrade, degraded_out, render_info)
         finally:
             if charge is not None:
                 self.mem_accountant.release(charge)
@@ -599,9 +951,19 @@ class ImageHandler:
 
     def _process_new(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
-        timings: Dict[str, float], deadline: Deadline,
+        timings: Dict[str, float], deadline: Deadline, degrade=None,
+        degraded_out: Optional[List[str]] = None,
+        render_info: Optional[Dict[str, object]] = None,
     ) -> bytes:
+        """The miss pipeline. ``render_info`` receives the plan and the
+        decoded source size (what the variant index records); ``degrade``
+        (the brownout engine at BROWNOUT) rewrites the plan and names what
+        it dropped in ``degraded_out``, where a CPU failover adds
+        ``cpu-fallback``."""
         deadline.check("decode")
+        if (degraded_out is not None and self._device_down()
+                and "cpu-fallback" not in degraded_out):
+            degraded_out.append("cpu-fallback")
         t = time.perf_counter()
         gif_frame = options.int_option("gif-frame", 0) or 0
         # a JPEG decodes prescaled toward the target box (DCT-domain scale)
@@ -648,6 +1010,16 @@ class ImageHandler:
             w, h = decoded.frame_size
             src_window = decoded.roi_offset
         plan = build_plan(options, w, h, metrics=self.metrics)
+        if render_info is not None:
+            render_info["plan"] = plan
+            render_info["src_size"] = (w, h)
+        quality_cap = None
+        if degrade is not None:
+            plan, dropped = degrade_plan(plan)
+            if degraded_out is not None:
+                degraded_out.extend(dropped)
+            # "quality" is named by the encode, where the clamp applies
+            quality_cap = int(degrade.quality)
         spec.command_repr = repr(plan)
 
         frames = [decoded.rgb]
@@ -686,13 +1058,15 @@ class ImageHandler:
         # shared launch span
         with tracing.span("batch_wait", frames=len(frames)):
             out_frames = self._transform_frames(
-                frames, plan, options, src_window, anim, alpha_start, deadline)
+                frames, plan, options, src_window, anim, alpha_start, deadline,
+                degrade is not None)
         timings["device"] = time.perf_counter() - t
         return self._finish_render(data, decoded, anim, alpha_start, plan, out_frames,
-                                   keeps_alpha, options, spec, timings, deadline)
+                                   keeps_alpha, options, spec, timings, deadline,
+                                   degrade is not None, quality_cap, degraded_out)
 
     def _transform_frames(self, frames, plan, options, src_window, anim,
-                          alpha_start, deadline: Deadline):
+                          alpha_start, deadline: Deadline, degraded: bool = False):
         """Submit every frame (or run it tiled or direct), then wait for
         each: the transformed frames in order."""
         staged = []
@@ -707,6 +1081,9 @@ class ImageHandler:
                 frame_plan = plan
             else:
                 frame_plan = build_plan(options, fw, fh, metrics=self.metrics)
+                if degraded:
+                    # a frame of another size degrades as the first did
+                    frame_plan, _ = degrade_plan(frame_plan)
             if alpha_start is not None and idx >= alpha_start:
                 frame_plan = replace(
                     frame_plan, colorspace=None, monochrome=False, unsharp=None,
@@ -734,20 +1111,30 @@ class ImageHandler:
     def _finish_render(self, data: bytes, decoded, anim, alpha_start, plan,
                        out_frames, keeps_alpha: bool, options: OptionsBag,
                        spec: OutputSpec, timings: Dict[str, float],
-                       deadline: Deadline) -> bytes:
+                       deadline: Deadline, degraded: bool = False,
+                       quality_cap: Optional[int] = None,
+                       degraded_out: Optional[List[str]] = None) -> bytes:
         """The post-passes in the reference's order (smart-crop, then the
-        face passes; none for a GIF answer), then the encode."""
+        face passes; none for a GIF answer), then the encode. Degraded, the
+        host entropy crop stands in for the smart-crop scoring."""
         out = out_frames[0]
-        if plan.smart_crop and not spec.is_gif:
+        if plan.smart_crop and not spec.is_gif and degraded:
+            t = time.perf_counter()
+            with tracing.span("smartcrop", degraded=True):
+                out = smartcrop.entropy_crop_image(out)
+            if degraded_out is not None:
+                degraded_out.append("smartcrop")
+            timings["smartcrop"] = time.perf_counter() - t
+        elif plan.smart_crop and not spec.is_gif:
             t = time.perf_counter()
             with tracing.span("smartcrop"):
                 item = smartcrop.prepare_work(out)
                 if self.batcher is not None:
                     crop = self._await(self.batcher.submit_aux(
                         ("smc", item.bucket, item.step), item, self._smc_runner,
-                    ), "smartcrop", deadline, lambda: self._smc_runner([item])[0])
+                    ), "smartcrop", deadline, lambda: self._direct(self._smc_runner)([item])[0])
                 else:
-                    crop = self._smc_runner([item])[0]
+                    crop = self._direct(self._smc_runner)([item])[0]
                 out = smartcrop.apply_crop(out, crop)
             timings["smartcrop"] = time.perf_counter() - t
 
@@ -762,7 +1149,7 @@ class ImageHandler:
         with tracing.span("encode", format=spec.extension) as encode_span:
             content = self._encode_answer(data, decoded, anim, alpha_start, out,
                                           out_frames, keeps_alpha, options, spec,
-                                          deadline)
+                                          deadline, quality_cap, degraded_out)
             if encode_span is not None:
                 encode_span.set_attribute("encode.bytes", len(content))
         timings["encode"] = time.perf_counter() - t
@@ -783,7 +1170,9 @@ class ImageHandler:
 
     def _encode_answer(self, data: bytes, decoded, anim, alpha_start, out,
                        out_frames, keeps_alpha: bool, options: OptionsBag,
-                       spec: OutputSpec, deadline: Deadline) -> bytes:
+                       spec: OutputSpec, deadline: Deadline,
+                       quality_cap: Optional[int] = None,
+                       degraded_out: Optional[List[str]] = None) -> bytes:
         if anim is not None:
             n = len(anim.frames)
             alphas = None
@@ -802,15 +1191,23 @@ class ImageHandler:
             alpha = None
             if keeps_alpha and out.shape[:2] == decoded.alpha.shape:
                 alpha = decoded.alpha
-            content = self._encode_grouped(out, spec, options, alpha, deadline)
+            quality = options.int_option("quality", 90) or 90
+            if (quality_cap is not None and lossy_output(spec.extension, options)
+                    and quality_cap < quality):
+                # the brownout clamp, named where it applies: a lossless
+                # answer keeps its bytes
+                quality = quality_cap
+                if degraded_out is not None:
+                    degraded_out.append("quality")
+            content = self._encode_grouped(out, spec, options, alpha, deadline, quality)
             if content is None:
                 content = self._stage("encode", lambda: self._encode(
-                    np.ascontiguousarray(out), spec, options, alpha), deadline)
+                    np.ascontiguousarray(out), spec, options, alpha, quality), deadline)
             content = graft_metadata(content, data, decoded.mime, spec, options)
         return content
 
     def _encode_grouped(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
-                        alpha, deadline: Deadline) -> Optional[bytes]:
+                        alpha, deadline: Deadline, quality: int) -> Optional[bytes]:
         """A JPEG answer through the codec batcher's encode group
         ``("jpegenc", quality, sampling, mozjpeg)``: concurrent encodes at
         one setting share one kernel launch (``codecs.batch_jpeg_encode``),
@@ -820,7 +1217,6 @@ class ImageHandler:
         if (self.codec_batcher is None or spec.extension != "jpg" or alpha is not None
                 or parse_colorspace(options) == "cmyk"):
             return None
-        quality = options.int_option("quality", 90) or 90
         mozjpeg = str(options.get_option("mozjpeg")) == "1"
         # the grammar is checked HERE so a bad sf_ raises in the request
         # thread (a typed 400), not inside the shared group runner
@@ -837,14 +1233,14 @@ class ImageHandler:
             return None
 
     def _encode(self, frame: np.ndarray, spec: OutputSpec, options: OptionsBag,
-                alpha) -> bytes:
+                alpha, quality: int) -> bytes:
         """Encode a finished frame with the request's q_, moz_, sf_ and
         webpl_ (the reference handler's ``_encode_one``). Under
         ``clsp_CMYK`` (a JPEG container: ``_require_cmyk_container`` ran
         before decode) the frame is stored as CMYK samples, its Huffman
         tables optimized under ``moz_1``; ``sf_`` is still parsed (a bad
-        value is a 400) though the four components are not subsampled."""
-        quality = options.int_option("quality", 90) or 90
+        value is a 400) though the four components are not subsampled.
+        ``quality``: q_, or the brownout clamp."""
         mozjpeg = str(options.get_option("mozjpeg")) == "1"
         if parse_colorspace(options) == "cmyk":
             _require_cmyk_container(spec)
@@ -867,7 +1263,7 @@ class ImageHandler:
         (the batcher); every branch is an allowlist, so any new pixel op
         fails safe to the batcher. Only the tiling's infeasible-geometry
         error falls back; any other error is the device's, and raises."""
-        if self.sp_mesh is None:
+        if self.sp_mesh is None or self._device_down():
             return None
         single = self._tiled_single_op_or_none(frame, plan)
         if single is not None:

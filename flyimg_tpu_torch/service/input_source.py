@@ -13,7 +13,10 @@ attempt passes the origin's circuit breaker, and a transient failure
 (a connection or transport error, an answer of 429 or 5xx) is retried with
 full-jitter backoff within the deadline (``FetchPolicy``, from the
 ``retry_*``, ``breaker_*`` and ``fetch_read_timeout_s`` parameters); the
-``fetch.http`` fault point fires in each attempt. Video and PDF sources
+``fetch.http`` fault point fires in each attempt. With
+``negative_cache_ttl_s`` an origin whose retries ran out, or whose breaker
+is open, answers 502 at once for that long (``runtime/brownout.py
+NegativeCache``; the origin cache is read first). Video and PDF sources
 are swapped for a frame or a page before decode (``load_source``).
 """
 
@@ -31,10 +34,14 @@ from typing import Optional
 from flyimg_tpu_torch.codecs import MediaInfo, media_info
 from flyimg_tpu_torch.exceptions import (
     AppException,
+    OriginUnavailableException,
     ReadFileException,
 )
+from flyimg_tpu_torch.runtime import tracing
+from flyimg_tpu_torch.runtime.brownout import NegativeCache
 from flyimg_tpu_torch.runtime.resilience import (
     BreakerRegistry,
+    CircuitOpenException,
     Deadline,
     RetryPolicy,
     host_of,
@@ -71,14 +78,25 @@ class FetchPolicy:
     retry: RetryPolicy = field(default_factory=RetryPolicy)
     breakers: BreakerRegistry = field(default_factory=BreakerRegistry)
     max_source_bytes: int = 0
+    #: the negative origin cache (``negative_cache_ttl_s`` > 0), or None
+    negative: Optional[NegativeCache] = None
 
     @classmethod
     def from_params(cls, params, *, metrics=None) -> "FetchPolicy":
+        negative_ttl = float(params.by_key("negative_cache_ttl_s", 0.0) or 0.0)
         return cls(
             timeout_s=float(params.by_key("fetch_read_timeout_s", FETCH_TIMEOUT_S)),
             retry=RetryPolicy.from_params(params, metrics=metrics),
             breakers=BreakerRegistry.from_params(params, metrics=metrics),
             max_source_bytes=int(params.by_key("mem_max_source_bytes", 0) or 0),
+            negative=(
+                NegativeCache(
+                    negative_ttl,
+                    max_entries=int(params.by_key("negative_cache_max_entries", 1024)),
+                    metrics=metrics,
+                )
+                if negative_ttl > 0 else None
+            ),
         )
 
 
@@ -157,7 +175,19 @@ def _http_fetch_once(image_url: str, headers: dict, timeout: float,
 def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
                 deadline: Optional[Deadline]) -> bytes:
     """The fetch with the origin's breaker and the retry policy, within the
-    request's deadline."""
+    request's deadline. With a negative cache an origin that failed
+    recently answers 502 at once; an open breaker enters the origin, and
+    retries used up on a transient failure the origin (nothing connected)
+    or the resource (the origin answered 5xx)."""
+    negative = policy.negative
+    if negative is not None:
+        cached_error = negative.hit(image_url)
+        if cached_error is not None:
+            host = negative.key_for(image_url)[0]
+            tracing.add_event("fetch.negative_cache_hit", host=host, error=cached_error)
+            raise OriginUnavailableException(
+                f"origin {host} is negative-cached as recently failing "
+                f"({cached_error}); not re-fetching {image_url}")
     breaker = policy.breakers.for_host(host_of(image_url))
 
     def attempt() -> bytes:
@@ -183,10 +213,19 @@ def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
     try:
         return policy.retry.run(attempt, retryable=is_transient_fetch_error,
                                 deadline=deadline, point="fetch")
+    except CircuitOpenException:
+        if negative is not None:
+            negative.add(image_url, "circuit_open")
+        raise
     except AppException:
         raise
     except (urllib.error.URLError, OSError, ValueError,
             http.client.HTTPException) as exc:
+        if negative is not None and is_transient_fetch_error(exc):
+            # the origin, not this request, is at fault: an answer of 5xx
+            # or 429 proves only this resource bad
+            negative.add(image_url, type(exc).__name__,
+                         resource=isinstance(exc, urllib.error.HTTPError))
         raise ReadFileException(
             f"Unable to fetch source image: {image_url}: {exc}"
         ) from exc

@@ -249,6 +249,113 @@ class TransformPlan:
         )
 
 
+def degrade_plan(plan: TransformPlan) -> Tuple[TransformPlan, Tuple[str, ...]]:
+    """A plan's brownout form (runtime/brownout.py): the sharpening passes
+    (unsharp, sharpen: the "refine" work whose absence only lowers visual
+    quality) are dropped. ``blur`` may hide content, and geometry,
+    colour space and rotate define the answer, so they stay, as do the
+    smart-crop and face flags (the handler swaps the smart-crop scoring
+    for the host entropy crop itself). Returns ``(plan, modes)``: modes is
+    ``("refine",)`` when something was dropped, else empty with the plan
+    object unchanged."""
+    if plan.unsharp is None and plan.sharpen is None:
+        return plan, ()
+    return replace(plan, unsharp=None, sharpen=None), ("refine",)
+
+
+# ---------------------------------------------------------------------------
+# derivative-reuse rewriting (runtime/variantindex.py)
+
+#: a stored ancestor must be at least this many times the target's resample
+#: box on both axes, so its own resample never decides the quality
+REUSE_MIN_SCALE = 2.0
+#: the most lossy re-encodes along a reuse chain
+REUSE_MAX_GENERATIONS = 1
+
+
+def reuse_frame_key(options: OptionsBag) -> str:
+    """The variant index's sub-source key: two renditions of one source are
+    the same picture only from the same PDF page and density, video time
+    and GIF frame. Values go through str(), so ``gf_0`` and no ``gf_`` give
+    one key; unset means None, '' or False (not an int 0)."""
+    parts = []
+    for key in ("page_number", "density", "time", "gif-frame"):
+        value = options.get_option(key)
+        unset = value is None or value is False or value == ""
+        parts.append("" if unset else str(value))
+    return "|".join(parts)
+
+
+def lossy_output(out_extension: str, options: OptionsBag) -> bool:
+    """Is the answer's container lossy: jpg, or webp without webpl_1."""
+    return out_extension == "jpg" or (
+        out_extension == "webp" and not options.truthy("webp-lossless")
+    )
+
+
+def rewrite_for_reuse(
+    options: OptionsBag,
+    out_extension: str,
+    ancestor,
+    *,
+    min_scale: float = REUSE_MIN_SCALE,
+    max_generations: int = REUSE_MAX_GENERATIONS,
+) -> Tuple[Optional[TransformPlan], Optional[Tuple[int, int]], Optional[str]]:
+    """May this request render from the stored ancestor's pixels
+    (``ancestor``: a ``runtime/variantindex.VariantFacts``)? Returns
+    ``(plan, target resample box, None)`` when it may, the plan built
+    against the ancestor's size, else ``(None, None, reason)`` with the
+    first rule broken: ``impure`` (the ancestor is more than a full-frame
+    resample), ``extract`` (e_ boxes are in source pixels), ``face_ops``,
+    ``smart_crop`` (they must score the real render), ``metadata`` (st_0
+    grafts the source's), ``frame`` (another page, time or GIF frame),
+    ``colorspace`` (a narrowed ancestor), ``generations``, ``lossless`` (a
+    lossless answer from a lossy ancestor), ``quality`` (a lossy ancestor
+    below the target's q_), ``background``, ``scale`` (the ancestor under
+    ``min_scale`` times the target's box on an axis) or ``geometry`` (the
+    plan built on the ancestor's size differs from the plan built on the
+    source's)."""
+    if not ancestor.pure:
+        return None, None, "impure"
+    if options.truthy("extract"):
+        return None, None, "extract"
+    if options.truthy("face-blur") or options.truthy("face-crop"):
+        return None, None, "face_ops"
+    if options.truthy("smart-crop"):
+        return None, None, "smart_crop"
+    if not options.truthy("strip"):
+        return None, None, "metadata"
+    if reuse_frame_key(options) != ancestor.frame_key:
+        return None, None, "frame"
+    if ancestor.colorspace is not None or ancestor.monochrome:
+        return None, None, "colorspace"
+    if ancestor.generations >= max_generations:
+        return None, None, "generations"
+    lossy_out = lossy_output(out_extension, options)
+    if ancestor.lossy:
+        if not lossy_out:
+            return None, None, "lossless"
+        quality = options.int_option("quality", 90) or 90
+        if ancestor.quality < quality:
+            return None, None, "quality"
+    # no metrics on either probe: the render's own build_plan counts
+    target_plan = build_plan(options, ancestor.src_w, ancestor.src_h)
+    if target_plan.background != ancestor.background:
+        return None, None, "background"
+    target_out = (
+        target_plan.resize_to
+        if target_plan.resize_to is not None
+        else target_plan.effective_src
+    )
+    tw, th = target_out
+    if ancestor.out_w < min_scale * tw or ancestor.out_h < min_scale * th:
+        return None, None, "scale"
+    reuse_plan = build_plan(options, ancestor.out_w, ancestor.out_h)
+    if reuse_plan.signature() != target_plan.signature():
+        return None, None, "geometry"
+    return reuse_plan, target_out, None
+
+
 # ---------------------------------------------------------------------------
 # ROI decode window (docs/host-pipeline.md "ROI window math")
 

@@ -6,10 +6,11 @@ sets, request and cache counts), the 304 answer, ``traceparent`` echoed,
 the span names of an ``/upload`` trace, the debug gates, route overrides
 and unknown route names, and the ``encrypt`` and ``prune`` subcommands.
 
-Departures pinned here (ROADMAP Queue C): the families and debug routes of
-modules the port does not carry yet (brownout, variant reuse, the program
-cache, telemetry, the fleet tier, the device and tier supervisors, the
-autotuner) are absent, and ``/debug/plans`` has no ``program_cache``."""
+The debug routes of brownout, the device supervisor and telemetry answer
+as the JAX app's (200, the same keys). Departures pinned here (ROADMAP Queue
+C): the families and debug routes of modules the port does not carry yet
+(the program cache, the fleet tier, the tier supervisor, the autotuner)
+are absent, and ``/debug/plans`` has no ``program_cache``."""
 
 import asyncio
 import io
@@ -145,13 +146,13 @@ def _sample(text, name):
 
 #: families of modules the port does not carry yet (ROADMAP Queue C)
 NOT_PORTED_FAMILIES = re.compile(
-    r"flyimg_(brownout|degraded|refresh|reuse|variant_index|program_cache|"
-    r"host_pool_busy_ratio|boot_backend|telemetry|fleet|autotune|device_supervisor|"
-    r"tier|membership|observatory|l2|negative_cache|warmstart)")
+    r"flyimg_(program_cache|host_pool_busy_ratio|boot_backend|fleet|autotune|"
+    r"tier|membership|observatory|l2|warmstart)")
 #: their debug routes
-NOT_PORTED_ROUTES = ("/debug/brownout", "/debug/device", "/debug/autotune",
-                     "/debug/tier", "/debug/telemetry", "/debug/fleet",
+NOT_PORTED_ROUTES = ("/debug/autotune", "/debug/tier", "/debug/fleet",
                      "/debug/fleet/status")
+#: the debug routes of the ported opt-in modules (off here)
+MODULE_ROUTES = ("/debug/brownout", "/debug/device", "/debug/telemetry")
 
 
 def _main_requests(src):
@@ -179,7 +180,7 @@ def _main_requests(src):
         "drain",
         ("GET", "/readyz", None),
         ("GET", "/healthz", None),
-    ] + [("GET", r, None) for r in NOT_PORTED_ROUTES]
+    ] + [("GET", r, None) for r in NOT_PORTED_ROUTES + MODULE_ROUTES]
 
 
 @pytest.fixture(scope="module")
@@ -394,6 +395,11 @@ def test_debug_routes_with_debug_on(main_sessions):
     for k, route in enumerate(NOT_PORTED_ROUTES):
         (js, _jh, _jb), (ts, _th, _tb) = pairs[21 + k]
         assert js == 200 and ts == 404, route
+    # the ported modules' routes answer alike
+    for k, route in enumerate(MODULE_ROUTES):
+        (js, _jh, jb), (ts, _th, tb) = pairs[21 + len(NOT_PORTED_ROUTES) + k]
+        assert js == ts == 200, route
+        assert set(json.loads(tb)) == set(json.loads(jb)), route
 
 
 @pytest.mark.parametrize("debug", [False, True])
