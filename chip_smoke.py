@@ -297,8 +297,17 @@ Phases, in order; any failure exits non-zero without a result line:
              the archive's records joined to the flight recorder and a torn
              line recovered, and a storm of TRANSIENT launch failures failing
              over to the CPU (no K1) and re-promoting (the clean bytes).
+19. warm start — the program cache, warm start and the policy autotuner
+             through the server on the card (``phase_warmstart``), in phase
+             17's process: a cold server's second flagship wave all
+             program-cache hits, the autotuner raising device.max_batch
+             through apply_policy (no later launch past the bound) and an
+             injected BROWNOUT freezing it back, a failover emptying both
+             caches and a re-promotion rebuilding them; a second server on
+             the same store seeding every entry of the first one's
+             manifest, its first wave all hits, no build, the same bytes.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-18)
+Launch counters are zeroed right before each main-path phase (4-9, 11-19)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -3268,6 +3277,34 @@ def tiled_bound(opts, mode, n, hw):
     return bound_ms(n * (tile_h + k - 1) * w * 12.0 + 3.0 * h * w, 4.0 * k * h * w * 3)
 
 
+def halo_bound(opts, mode, n, hw):
+    """(ms, bytes) the card needs at least for one tiled op's halo exchange
+    (``parallel/tiling.py _halo_exchange``), or None for the ring rotate,
+    which exchanges none: the halo rows read from the neighbours (2 (n - 1)
+    halos) and the halo rows written into the extended tiles (2 n, the
+    outer ones filled), at the exchanged element's size (u8 for the banded
+    resample, f32 for the dense one and the filters), over the card's
+    memory rate (the ranks share one card's memory here)."""
+    from flyimg_tpu_torch.entry import _tiled_plan
+    from flyimg_tpu_torch.ops.filters import gaussian_kernel
+    from flyimg_tpu_torch.parallel.tiling import required_halo
+
+    plan, op, out_hw = _tiled_plan(opts, hw)
+    h, w = hw
+    tile_h = -(-h // n)
+    if op == "rotate":
+        return None
+    if op == "resample":
+        out_tile = -(-out_hw[0] // n)
+        halo = required_halo(tile_h * n, out_tile * n, h, out_hw[0], n)
+        elem = 4 if mode == "dense" else 1
+    else:
+        halo = len(gaussian_kernel(*(plan.blur if op == "blur" else getattr(plan, op)[:2]))) // 2
+        elem = 4
+    nbytes = (2 * (n - 1) + 2 * n) * halo * w * 3 * elem
+    return bound_ms(nbytes, 0.0)[0], nbytes
+
+
 def tiled_mesh_checks(torch, frame, label, mesh):
     """Each of TILED_OPTIONS over ``mesh`` held by ``tiled_hold``, then its
     u8 form (the handler's) within PIXEL_TOL of the untiled op's and both
@@ -3291,6 +3328,7 @@ def tiled_mesh_checks(torch, frame, label, mesh):
                 plain_u8 = tiled_fn(opts, mesh, TILED_HW, True, mode, plain=True)
                 plain_ms = cuda_ms(torch, lambda: plain_u8(frame), iters=3, warmup=1)
             bound, by = tiled_bound(opts, mode, len(mesh.devices), TILED_HW)
+            halo = halo_bound(opts, mode, len(mesh.devices), TILED_HW)
             key = (label, opts, mode)
             times[key] = (cuda_ms(torch, lambda: tiled_u8(frame), iters=5),
                           cuda_ms(torch, lambda: untiled_u8(frame), iters=5),
@@ -3301,6 +3339,8 @@ def tiled_mesh_checks(torch, frame, label, mesh):
                   f"untiled {times[key][1]:.4f} ms, plain "
                   + (f"{plain_ms:.4f} ms" if plain_ms is not None else "-")
                   + f", bound {bound:.4f} ms ({by})"
+                  + (f", halo exchange bound {halo[0]:.5f} ms ({halo[1]} bytes)"
+                     if halo is not None else "")
                   + (" (ranks one after another: the schedule's cost, not a "
                      "multi-card speed)" if label.startswith("virtual") else ""))
     return times
@@ -6052,6 +6092,253 @@ def phase_degrade(torch, dev, card, workdir, kernels):
     return counts
 
 
+WARM_OPTS = "w_300,h_250,c_1,smc_1"
+WARM_N = 16
+#: the autotuner's evaluation period in the phase; the phase steps its clock
+WARM_INTERVAL_S = 10.0
+
+
+def timed_wave(base, paths):
+    """The first request alone, then the rest at once: the answers, the
+    first request's wall seconds and the wave's."""
+    t0 = time.perf_counter()
+    first = http_call(base, paths[0])
+    first_s = time.perf_counter() - t0
+    rest, _ = service_wave(base, paths[1:])
+    return [first] + rest, first_s, time.perf_counter() - t0
+
+
+def first_launches(records):
+    """{plan key: [padded batch, device ms of its first launch, of its first
+    compile-hit launch]} of a flight recorder's transform launches (device
+    ms: dispatch to completed readback, the batcher's)."""
+    out = {}
+    for rec in records:
+        if rec["kind"] != "primary" or rec.get("device_s") is None:
+            continue
+        row = out.setdefault(rec["plan_key"], [rec["capacity"], None, None])
+        if row[1] is None:
+            row[1] = rec["device_s"] * 1e3
+        elif row[2] is None and rec["compile_hit"]:
+            row[2] = rec["device_s"] * 1e3
+    return out
+
+
+def phase_warmstart(torch, dev, card, workdir, kernels):
+    """Phase 19: the program cache, warm start and the policy autotuner
+    through the server on the card (banded), in phase 17's process (its
+    caches emptied first: server A starts cold).
+
+    Server A (warmstart_enable, autotune_enable with the phase's clock,
+    batch_max_size 1 so a launch's batch never depends on arrival order)
+    answers WARM_N WARM_OPTS requests on seeded 1920x1080 JPEGs from a local
+    origin, then the same WARM_N with rf_1 (a refresh re-renders): the
+    second wave is all program-cache hits with the misses unchanged, the
+    answers byte-equal. Each new program's first launch is printed beside
+    its first compile-hit launch (device ms from dispatch to readback, the
+    flight recorder's). Three evaluation periods of rf_1 traffic follow: the
+    tuner raises device.max_batch (full batches) through apply_policy, no
+    later launch carries more members than the bound, /debug/autotune
+    answers it in its history, and an injected BROWNOUT level (the
+    autotune.signal fault point) freezes tuning and reverts the knob to
+    its known-good value. A failover of both controllers to the CPU empties
+    both caches, and a re-promotion wave rebuilds them on the card. A
+    closes and publishes its manifests.
+
+    Server B on the same upload_dir (warmstart_enable) seeds every entry of
+    A's manifest before it serves (each built and run once on a zero batch:
+    the real kernels), and its first wave (rf_1) is all hits with no build
+    in the cost ledger, byte-equal to A's answers. A's and B's first
+    requests' wall times are readings, not gates. Returns the kernel
+    launches."""
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.ops.compose import invalidate_program_caches, program_cache_info
+    from flyimg_tpu_torch.runtime import costledger, warmstart
+    from flyimg_tpu_torch.storage.local import LocalStorage
+    from flyimg_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    origin_dir = os.path.join(workdir, "origin19")
+    os.makedirs(origin_dir)
+    bases = [synthetic_image(1920, 1080, seed=1900 + i) for i in range(4)]
+    names = []
+    for i in range(WARM_N):
+        names.append(f"warm_{i}.jpg")
+        rgb = np.ascontiguousarray(np.roll(bases[i % 4], 131 * (i // 4), axis=(0, 1)))
+        with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+            fh.write(codecs.encode(rgb, "jpg", quality=90, sampling_factor="2x2", device=dev))
+    origin = local_origin(origin_dir)
+    host = f"http://127.0.0.1:{origin.server_address[1]}"
+    paths = [f"/upload/{WARM_OPTS}/{host}/{n}" for n in names]
+    again = [f"/upload/{WARM_OPTS},rf_1/{host}/{n}" for n in names]
+
+    clock = {"now": 1000.0}
+    freeze = {"on": False}
+    injector = faults.FaultInjector()
+    injector.plan("autotune.signal", lambda **_: (
+        {"controllers": {}, "brownout_level": 2} if freeze["on"] else faults.PASS))
+    common = {"warmstart_enable": True, "batch_max_size": 1, "debug": True,
+              "slo_latency_p99_ms": 60000.0}
+    ledger = costledger.get_ledger()
+    walls, readings = {}, {}
+    servers = []
+    invalidate_program_caches()
+    c0 = read_counts(kernels)
+    try:
+        a_server, a_thread, abase = service_server(
+            dev, workdir, "warm", autotune_enable=True,
+            autotune_interval_s=WARM_INTERVAL_S, autotune_clock=lambda: clock["now"],
+            fault_injector=injector, **common)
+        servers.append((a_server, a_thread))
+        check(a_server.warmstart.stats["seeded"] == 0, "warm start: server A seeded programs")
+        cold, walls["a_first_request_s"], walls["a_wave1_s"] = timed_wave(abase, paths)
+        check(all(a[0] == 200 for a in cold), f"warm start: A's first wave {[a[0] for a in cold]}")
+        info1 = program_cache_info()
+        print(f"warm start: A wave 1 program_cache_info {info1}")
+        compiles = ledger.aggregates()["compiles"]
+        warm, _first, walls["a_wave2_s"] = timed_wave(abase, again)
+        info2 = program_cache_info()
+        print(f"warm start: A wave 2 (rf_1) program_cache_info {info2}")
+        check(all(a[0] == 200 for a in warm), "warm start: A's second wave failed")
+        check(info2["batched"]["misses"] == info1["batched"]["misses"]
+              and info2["batched"]["hits"] - info1["batched"]["hits"] == WARM_N
+              and info2["single"] == info1["single"],
+              f"warm start: A's second wave was not all hits ({info1} -> {info2})")
+        check(ledger.aggregates()["compiles"] == compiles,
+              "warm start: A's second wave recorded a build")
+        check([a[2] for a in warm] == [a[2] for a in cold],
+              "warm start: A's refreshed answers differ from its first ones")
+
+        # the autotuner: three evaluation periods of traffic
+        tuner, log = a_server.autotuner, a_server.batcher.launch_log
+        adjusted, bound_sizes = None, []
+        for _period in range(3):
+            clock["now"] += WARM_INTERVAL_S + 1.0
+            mark = len(log)
+            answers, _f, _w = timed_wave(abase, again)
+            check(all(a[0] == 200 for a in answers), "autotune: a wave failed")
+            hist = [h for h in tuner.snapshot()["history"]
+                    if h["action"] == "adjust" and h["knob"] == "device.max_batch"]
+            if hist and adjusted is None:
+                adjusted = hist[0]
+                bound_sizes = [n for kind, n, _b in list(log)[mark:] if kind == "transform"]
+        check(adjusted is not None and adjusted["from"] == 1.0 and adjusted["to"] > 1.0,
+              f"autotune: device.max_batch never moved: {tuner.snapshot()['history']}")
+        check(bound_sizes and max(bound_sizes) <= adjusted["to"],
+              f"autotune: launches of {bound_sizes} past the bound {adjusted['to']}")
+        status, _h, body = http_call(abase, "/debug/autotune")
+        doc = json.loads(body)
+        check(status == 200 and any(h["action"] == "adjust" and h["knob"] == "device.max_batch"
+                                    for h in doc["history"]),
+              f"autotune: /debug/autotune answered {status} without the adjustment")
+        freeze["on"] = True
+        check(http_call(abase, again[0])[0] == 200, "autotune: the frozen request failed")
+        freeze["on"] = False
+        good = tuner.known_good()["device.max_batch"]
+        check(tuner.frozen and a_server.batcher.policy()[0] == good,
+              f"autotune: BROWNOUT left frozen={tuner.frozen}, max_batch "
+              f"{a_server.batcher.policy()[0]} (known-good {good})")
+        readings["autotune"] = {"adjustment": adjusted, "launch_sizes_after": bound_sizes,
+                                "history": [(h["action"], h["knob"], h["from"], h["to"])
+                                            for h in tuner.snapshot()["history"]],
+                                "known_good_max_batch": good}
+
+        # a failover empties both caches; the re-promotion rebuilds them
+        for ctl in (a_server.batcher, a_server.codec_batcher):
+            ctl.failover_backend("cpu", drain_timeout_s=10.0, reason="device_failover")
+        info_cpu = program_cache_info()
+        check(info_cpu["single"]["entries"] == info_cpu["batched"]["entries"] == 0,
+              f"failover: the caches kept {info_cpu}")
+        for ctl in (a_server.batcher, a_server.codec_batcher):
+            ctl.failover_backend(dev, drain_timeout_s=10.0, reason="device_repromote")
+        before = read_counts(kernels)
+        back, _f, walls["a_repromoted_wave_s"] = timed_wave(abase, again)
+        back_counts = delta(kernels, before)
+        info_back = program_cache_info()
+        check(all(a[0] == 200 for a in back) and info_back["batched"]["entries"] >= 1
+              and back_counts["K1"] > 0,
+              f"re-promotion: the wave answered {[a[0] for a in back]}, caches "
+              f"{info_back}, launches {back_counts}")
+        check([a[2] for a in back] == [a[2] for a in cold],
+              "re-promotion: the answers differ from A's first wave")
+        firsts = first_launches(a_server.flight_recorder.snapshot()["records"])
+        stop_server(a_server, a_thread)
+        servers.remove((a_server, a_thread))
+        store = LocalStorage(a_server.params)
+        manifest = json.loads(store.read(warmstart.PROGRAMS_MANIFEST))
+        entries = manifest["entries"]
+        check(entries and all(e["kind"] == "batched" and e["band_taps"] for e in entries)
+              and any(e["batch_size"] == 1 for e in entries),
+              f"warm start: A's manifest names no banded flagship batch: {entries}")
+        policy = json.loads(store.read(warmstart.POLICY_MANIFEST))["policy"]
+
+        # server B: a new server on the same store, its caches empty
+        invalidate_program_caches()
+        compiles = ledger.aggregates()["compiles"]
+        t0 = time.perf_counter()
+        b_server, b_thread, bbase = service_server(dev, workdir, "warm", **common)
+        walls["b_start_s"] = time.perf_counter() - t0
+        servers.append((b_server, b_thread))
+        stats = b_server.warmstart.snapshot()["stats"]
+        check(stats["seeded"] == len(entries) and stats["mismatch"] == stats["failed"]
+              == stats["skipped"] == 0, f"warm start: B seeded {stats} of {len(entries)}")
+        check(ledger.aggregates()["compiles"] == compiles + len(entries),
+              "warm start: B's seeding did not record each build")
+        seeded_ms = {r["key"]: r["compile_s"] * 1e3 for r in ledger.entries()
+                     if r["key"] in firsts and r["compile_s"] is not None}
+        info_b0 = program_cache_info()
+        compiles = ledger.aggregates()["compiles"]
+        b_answers, walls["b_first_request_s"], walls["b_wave1_s"] = timed_wave(bbase, again)
+        info_b1 = program_cache_info()
+        print(f"warm start: B seeded {program_cache_info()['batched']['entries']} programs; "
+              f"wave 1 program_cache_info {info_b0} -> {info_b1}")
+        check(all(a[0] == 200 for a in b_answers), "warm start: B's first wave failed")
+        check(info_b1["batched"]["misses"] == info_b0["batched"]["misses"]
+              and info_b1["batched"]["hits"] - info_b0["batched"]["hits"] == WARM_N,
+              f"warm start: B's first wave was not all hits ({info_b0} -> {info_b1})")
+        check(ledger.aggregates()["compiles"] == compiles,
+              "warm start: B's first wave recorded a build (a first launch)")
+        b_records = [r for r in b_server.flight_recorder.snapshot()["records"]
+                     if r["kind"] == "primary"]
+        check(b_records and all(r["compile_hit"] for r in b_records),
+              "warm start: a launch of B's first wave was a compile miss")
+        check([a[2] for a in b_answers] == [a[2] for a in cold],
+              "warm start: B's answers differ from A's")
+        b_firsts = first_launches(b_server.flight_recorder.snapshot()["records"])
+    finally:
+        freeze["on"] = False
+        for srv, thread in servers:
+            stop_server(srv, thread)
+        faults.clear()
+        warmstart.uninstall()
+        origin.shutdown()
+        origin.server_close()
+    counts = delta(kernels, c0)
+    readings["first_launch_ms"] = {k: [b] + [round(v, 4) if v is not None else None
+                                             for v in pair]
+                                   for k, (b, *pair) in firsts.items()}
+    readings["b_first_launch_ms"] = {k: [b, round(first, 4)]
+                                     for k, (b, first, _hit) in b_firsts.items()}
+    readings["b_seed_ms"] = {k: round(v, 4) for k, v in seeded_ms.items()}
+    walls["phase_s"] = time.perf_counter() - t_phase
+    print(f"warm start: A first request {walls['a_first_request_s']:.3f} s (cold), B first "
+          f"request {walls['b_first_request_s']:.3f} s (warm); A waves "
+          f"{walls['a_wave1_s']:.3f}, {walls['a_wave2_s']:.3f} s, B wave "
+          f"{walls['b_wave1_s']:.3f} s; B made and seeded {len(entries)} programs in "
+          f"{walls['b_start_s']:.3f} s; programs' [batch, first, first-hit launch ms] "
+          f"{readings['first_launch_ms']}; B's [batch, first launch ms] "
+          f"{readings['b_first_launch_ms']}; "
+          f"autotune {readings['autotune']['adjustment']['from']} -> "
+          f"{readings['autotune']['adjustment']['to']}, launches after {bound_sizes}; "
+          f"policy published {policy}; phase {walls['phase_s']:.1f} s; card {card}")
+    print(json.dumps({"warmstart": {"walls_s": {k: round(v, 4) for k, v in walls.items()},
+                                    "manifest_entries": len(entries),
+                                    "launches": counts, **readings}, "card": card}))
+    return counts
+
+
 def kernel_wrappers():
     """Every kernel's wrapper by name; each counts its launches in
     ``launches``."""
@@ -6087,7 +6374,7 @@ SERVICE_COUNTS = "service launches: "
 
 
 def service_child(workdir) -> int:
-    """``--service-phase DIR``: phases 17 and 18 in a process of their own,
+    """``--service-phase DIR``: phases 17, 18 and 19 in a process of their own,
     as a server runs (in the smoke's own process, after phase 3's hundreds
     of torch.profiler windows, a later session records no kernel activity
     at all: see PERF.md). The kernels are on disk already; prints each
@@ -6117,7 +6404,11 @@ def service_child(workdir) -> int:
     counts = phase_service(torch, dev, card, workdir, kernels)
     # phase 18 in the same process, launches counted from 0 again
     degrade_counts = phase_degrade(torch, dev, card, workdir, kernels)
+    # phase 19 in the same process, counted from 0 again
+    reset_counts(kernels)
+    warm_counts = phase_warmstart(torch, dev, card, workdir, kernels)
     print(SERVICE_COUNTS + json.dumps({"counts": counts, "degrade_counts": degrade_counts,
+                                       "warm_counts": warm_counts,
                                        "nvjpeg_encodes": len(encodes)}))
     return 0
 
@@ -6312,9 +6603,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"ingest kernel launches: {ingest_counts}; card {card}")
-    # phases 17 and 18: signed URLs, /path, /readyz, traces, metrics, the
-    # flight recorder and a profiler capture; brownout, reuse, telemetry and
-    # the device supervisor (main path), in a process of their own
+    # phases 17, 18 and 19: signed URLs, /path, /readyz, traces, metrics,
+    # the flight recorder and a profiler capture; brownout, reuse, telemetry
+    # and the device supervisor; the program cache, warm start and the
+    # autotuner (main path), in a process of their own
     os.makedirs(workdir)
     try:
         child = subprocess.run(
@@ -6332,6 +6624,7 @@ def main() -> int:
     check(len(found) == 1, "service: phase 17's process printed no launches")
     service_counts = {k: found[0]["counts"].get(k, 0) for k in kernels}
     degrade_counts = {k: found[0]["degrade_counts"].get(k, 0) for k in kernels}
+    warm_counts = {k: found[0]["warm_counts"].get(k, 0) for k in kernels}
     nvjpeg_encodes += [1] * found[0]["nvjpeg_encodes"]
     print(f"service kernel launches: {service_counts}; card {card}")
     for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
@@ -6339,7 +6632,10 @@ def main() -> int:
     print(f"degrade kernel launches: {degrade_counts}; card {card}")
     for name in ("K1", "K16", "K18", "K19"):
         check(degrade_counts[name] > 0, f"degrade: {name} never launched")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-18 reached "
+    print(f"warm start kernel launches: {warm_counts}; card {card}")
+    for name in ("K1", "K2", "K3", "K18", "K19"):
+        check(warm_counts[name] > 0, f"warm start: {name} never launched")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-19 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -6396,7 +6692,8 @@ def main() -> int:
                     + face_counts[key] + train_counts[key] + tiled_counts[key]
                     + resilience_counts[key] + pipeline_counts[key]
                     + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
-                    + ingest_counts[key] + service_counts[key] + degrade_counts[key])
+                    + ingest_counts[key] + service_counts[key] + degrade_counts[key]
+                    + warm_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -80,7 +80,11 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # single-image program on its own device (counted in the handler's
     # wedged_fallbacks), or 503 with this off
     "wedged_executor_fallback": True,
+    # a source fetch's split timeouts: to connect, between reads of the
+    # answer, to send the request (each capped by the remaining deadline)
+    "fetch_connect_timeout_s": 3.0,
     "fetch_read_timeout_s": 10.0,
+    "fetch_write_timeout_s": 10.0,
     "retry_max_attempts": 3,
     "retry_base_backoff_s": 0.05,
     "retry_max_backoff_s": 2.0,
@@ -226,7 +230,31 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     # at once for this many seconds (0 off)
     "negative_cache_ttl_s": 0.0,
     "negative_cache_max_entries": 1024,
+    # warm start (runtime/warmstart.py), off by default: the identities of
+    # the programs built are published as digest-stamped manifests (with
+    # the autotuner's known-good policy) in the store at shutdown, and a
+    # server seeds its program cache and policy from them before it serves
+    "warmstart_enable": False,
+    "warmstart_max_entries": 64,
+    # the policy autotuner (runtime/autotuner.py), off by default: at most
+    # one in-envelope knob step every autotune_interval_s, reverted when
+    # the next window's objective regresses past the margin, frozen at the
+    # last-known-good policy while the SLO burn (or BROWNOUT) reaches
+    # autotune_freeze_at; autotune_envelopes overrides {knob: {lo, hi, step}}
+    "autotune_enable": False,
+    "autotune_interval_s": 30.0,
+    "autotune_regression_margin": 0.05,
+    "autotune_cooldown_periods": 2,
+    "autotune_freeze_at": 1.0,
+    "autotune_unfreeze_hysteresis": 0.75,
+    "autotune_freeze_dwell_s": 60.0,
+    "autotune_history": 64,
+    "autotune_envelopes": {},
+    # rendezvous routing over these replicas is not ported (a non-empty
+    # list refuses the server)
+    "fleet_replicas": [],
     # object-passing clocks of the engines (tests only)
+    "autotune_clock": None,
     "brownout_clock": None,
     "device_supervisor_clock": None,
     "telemetry_clock": None,
@@ -243,15 +271,17 @@ UNPORTED_ENABLE_KEYS = (
     "tier_scrub_enable",
     "fleet_membership_enable",
     "fleet_observatory_enable",
-    "warmstart_enable",
-    "autotune_enable",
 )
 
 
 def require_ported(params: "AppParameters") -> None:
     """Raise ``NotPortedException`` naming every truthy enable key of a
-    module the port does not carry, instead of serving without it."""
+    module the port does not carry, and a non-empty ``fleet_replicas``
+    (the JAX app routes over it with no enable key), instead of serving
+    without them."""
     on = [key for key in UNPORTED_ENABLE_KEYS if params.by_key(key)]
+    if params.by_key("fleet_replicas"):
+        on.append("fleet_replicas")
     if on:
         raise NotPortedException(
             f"{', '.join(on)}: not ported to the PyTorch package yet")

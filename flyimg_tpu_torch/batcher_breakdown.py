@@ -63,12 +63,12 @@ class TimedController(BatchController):
         self.times["assemble"].append((time.perf_counter() - t0) * 1e3)
         return out
 
-    def _launch(self, fn, images, geo, measure_peak):
+    def _launch(self, fn, images, geo, measure_peak, seq):
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
         start.record(self._stream)
         t0 = time.perf_counter()
-        launch = super()._launch(fn, images, geo, measure_peak)
+        launch = super()._launch(fn, images, geo, measure_peak, seq)
         self.times["enqueue"].append((time.perf_counter() - t0) * 1e3)
         end.record(self._stream)
         launch.events = (start, end)

@@ -17,6 +17,15 @@ kernels: the resample is the dense form (two ``torch.matmul``s) or K1
 launch (ops/color.py), a sampled rotate is K4 (ops/rotate.py; quarter
 turns on the static path are flips), each filter is K5 (ops/filters.py).
 
+Built programs are cached as the JAX package caches them: ``build_program``
+(the batch-1 program ``run_plan`` launches) and the batcher's
+``build_batched_program`` are lru caches of 256 ``ProgramHandle``s each,
+keyed on the program's identity with its device (the cost ledger's key),
+read by ``program_cache_info`` and emptied by ``invalidate_program_caches``
+(a device failover). The port compiles nothing at run time: a handle counts
+as compiled once its first launch has completed, or once ``precompile`` has
+run it on a zero batch (warm start, ``runtime/warmstart.py``).
+
 The face post-passes (``fb_1``, ``fc_1``) run after the program, in the
 handler (models/faces.py). ``check_ported`` stays the hook for a stage the
 port does not carry: a plan that needs one raises ``NotPortedException``
@@ -25,9 +34,11 @@ naming it before any device work, never skipping it silently.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from functools import lru_cache
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,7 +56,8 @@ from flyimg_tpu_torch.ops.resample import (
     select_band_taps,
 )
 from flyimg_tpu_torch.ops.rotate import rotate_image, rotate_image_dynamic
-from flyimg_tpu_torch.runtime import costledger
+from flyimg_tpu_torch import cuda_build
+from flyimg_tpu_torch.runtime import costledger, warmstart
 from flyimg_tpu_torch.spec.geometry import gravity_offset
 from flyimg_tpu_torch.spec.plan import TransformPlan, rotated_bounds
 
@@ -211,6 +223,225 @@ def make_program_fn(
     return program
 
 
+def program_kernels(resample_out: Optional[Tuple[int, int]],
+                    pad_canvas: Optional[Tuple[int, int]], plan: TransformPlan,
+                    rotate_dynamic: bool = False,
+                    band_taps: Optional[Tuple[int, int]] = None) -> Tuple[str, ...]:
+    """The kernel libraries (``cuda_build`` names) a program's stages launch
+    on the card: K1 for a banded resample, K6 for the pixel pass, K4 for a
+    sampled rotate (a static quarter turn is a flip), K5 for a filter."""
+    names = []
+    if resample_out is not None and band_taps is not None:
+        names.append("resample_banded")
+    stages = post_stages(plan, pad_canvas)
+    if "pixel" in stages:
+        names.append("pixel_pass")
+    if "rotate" in stages and (
+            rotate_dynamic or plan.rotate % 360.0 not in (0.0, 90.0, 180.0, 270.0)):
+        names.append("rotate")
+    if any(stage in stages for stage in ("unsharp", "sharpen", "blur")):
+        names.append("separable")
+    return tuple(names)
+
+
+def program_descriptor(plan: TransformPlan, in_shape: Tuple[int, int], batch: int,
+                       resample_out: Optional[Tuple[int, int]],
+                       pad_canvas: Optional[Tuple[int, int]],
+                       band_taps: Optional[Tuple[int, int]],
+                       device: str) -> Dict[str, object]:
+    """A readable identity of a program for the cost ledger: the stages,
+    shapes, resample form and device."""
+    ops = ["resample"] if resample_out is not None else []
+    if pad_canvas is not None:
+        ops.append("extent_pad")
+    for name in ("colorspace", "monochrome", "rotate", "unsharp", "sharpen", "blur"):
+        if getattr(plan, name) not in (None, False):
+            ops.append(name)
+    desc: Dict[str, object] = {"ops": ops or ["copy"], "batch": int(batch),
+                               "in_shape": list(in_shape), "device": str(device)}
+    if resample_out is not None:
+        desc["resample_out"] = list(resample_out)
+        desc["kernel"] = "banded" if band_taps is not None else "dense"
+    return desc
+
+
+class ProgramHandle:
+    """One device program: callable as the closure it wraps
+    (``make_program_fn``), with its identity: ``ledger_key`` (the cost
+    ledger's digest of its key), ``descriptor`` and ``device``.
+
+    ``is_compiled`` is the batcher's compile-hit signal. The port builds its
+    kernels at first use and compiles nothing per program, so a handle is
+    compiled once a launch of it has completed (``mark_compiled``) or once
+    ``precompile`` ran it; the one launch that stands for the build in the
+    cost ledger claims it with ``claim_build``."""
+
+    __slots__ = ("_fn", "_lock", "_compiled", "_claimed", "ledger_key",
+                 "descriptor", "device", "shape", "kernels", "_frame")
+
+    def __init__(self, fn, key, descriptor: Dict[str, object], *, device: str,
+                 shape: Tuple[int, int, int], kernels: Tuple[str, ...],
+                 frame: Tuple) -> None:
+        self._fn = fn
+        self._lock = threading.Lock()
+        self._compiled = False
+        self._claimed = False
+        self.ledger_key = costledger.key_digest(key)
+        self.descriptor = descriptor
+        self.device = torch.device(device)
+        #: the padded input (batch, height, width) the program is keyed on
+        self.shape = tuple(int(v) for v in shape)
+        self.kernels = kernels
+        #: (resample_out, rotate, rotate_dynamic): ``frame_geometry``'s
+        #: arguments but the frame
+        self._frame = frame
+
+    def __call__(self, images, *args):
+        return self._fn(images, *args)
+
+    @property
+    def is_compiled(self) -> bool:
+        return self._compiled
+
+    def claim_build(self) -> bool:
+        """True exactly once a handle, for the launch whose completion is
+        recorded as the program's build; False once it is compiled."""
+        with self._lock:
+            if self._compiled or self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+    def mark_compiled(self) -> None:
+        self._compiled = True
+
+    def precompile(self, shape: Optional[Tuple[int, int, int]] = None) -> None:
+        """Make the program's first launch a hit: on the handle's device,
+        load every kernel library its stages launch (``cuda_build.load``),
+        run it once on a zero batch of ``shape`` (its own padded shape by
+        default) with a valid geometry (the whole padded frame as true size
+        and span), and record the ledger's build entry (the wall time, and
+        on the card the allocator's peak as the batcher measures it). Unlike
+        the JAX package's AOT compile this executes: the port's own code on
+        zeros."""
+        with self._lock:
+            if self._compiled:
+                return
+            b, h, w = shape or self.shape
+            dev = self.device
+            t0 = time.perf_counter()
+            before = None
+            if dev.type == "cuda":
+                for name in self.kernels:
+                    cuda_build.load(name)
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            row = frame_geometry((h, w), *self._frame)
+            geo = torch.from_numpy(np.repeat(row[None], b, axis=0)).to(dev)
+            self._fn(torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
+                     *program_args(geo))
+            peak = None
+            if before is not None:
+                peak = float(torch.cuda.max_memory_allocated(dev) - before)
+                torch.cuda.synchronize(dev)
+            costledger.get_ledger().record_compile(
+                self.ledger_key, descriptor=self.descriptor,
+                compile_s=time.perf_counter() - t0, peak_memory_bytes=peak)
+            self._claimed = self._compiled = True
+
+
+def frame_geometry(in_shape: Tuple[int, int], resample_out: Optional[Tuple[int, int]],
+                   rotate: Optional[float], rotate_dynamic: bool) -> np.ndarray:
+    """The geometry row (``geometry_rows``) of a member that fills the whole
+    padded frame: true size and span the frame, the resample's valid output
+    its whole static output, and (dynamic rotate) the rotated bounds of
+    that."""
+    h, w = in_shape
+    out = resample_out if resample_out is not None else (h, w)
+    rot_hw = None
+    if rotate_dynamic:
+        rw, rh = rotated_bounds(out[1], out[0], rotate)
+        rot_hw = (rh, rw)
+    layout = Layout((0.0, float(h)), (0.0, float(w)), out, out)
+    return geometry_rows(None, layout, (h, w), None, rot_hw)
+
+
+def make_handle(key, batch: int, in_shape: Tuple[int, int],
+                resample_out: Optional[Tuple[int, int]],
+                pad_canvas: Optional[Tuple[int, int]], pad_offset: Tuple[int, int],
+                plan: TransformPlan, device: str, rotate_dynamic: bool = False,
+                band_taps: Optional[Tuple[int, int]] = None) -> ProgramHandle:
+    """The ``ProgramHandle`` of one program at one padded batch shape (the
+    body both program caches share)."""
+    return ProgramHandle(
+        make_program_fn(resample_out, pad_canvas, pad_offset, plan,
+                        rotate_dynamic, band_taps),
+        key,
+        program_descriptor(plan, in_shape, batch, resample_out, pad_canvas,
+                           band_taps, device),
+        device=device, shape=(batch, *in_shape),
+        kernels=program_kernels(resample_out, pad_canvas, plan, rotate_dynamic,
+                                band_taps),
+        frame=(resample_out, plan.rotate, rotate_dynamic),
+    )
+
+
+@lru_cache(maxsize=256)
+def build_program(
+    in_shape: Tuple[int, int],
+    resample_out: Optional[Tuple[int, int]],
+    pad_canvas: Optional[Tuple[int, int]],
+    pad_offset: Tuple[int, int],
+    plan: TransformPlan,
+    band_taps: Optional[Tuple[int, int]],
+    device: str,
+) -> ProgramHandle:
+    """The batch-1 program of ``run_plan`` for one op config at one padded
+    input shape on ``device`` (``str`` of a ``torch.device``), cached. Pass
+    ``plan.device_plan()``, so the key ignores per-image geometry, and every
+    argument positionally (the lru keys spellings apart). ``band_taps`` is
+    part of the key: the dense and banded forms of one plan are two
+    programs."""
+    key = ("single", device, in_shape, resample_out, pad_canvas, pad_offset, plan,
+           band_taps)
+    # warm start's recorder (a no-op unless installed): once a program
+    warmstart.record_single(in_shape, resample_out, pad_canvas, pad_offset, plan,
+                            band_taps)
+    return make_handle(key, 1, in_shape, resample_out, pad_canvas, pad_offset, plan,
+                       device, False, band_taps)
+
+
+def _cache_doc(info) -> Dict[str, int]:
+    return {"entries": info.currsize, "hits": info.hits, "misses": info.misses,
+            "maxsize": info.maxsize}
+
+
+def program_cache_info() -> Dict[str, Any]:
+    """Both program caches (this module's single-image one and the batcher's
+    batched one): entries, hits, misses and bound of each."""
+    from flyimg_tpu_torch.runtime.batcher import build_batched_program
+
+    return {"single": _cache_doc(build_program.cache_info()),
+            "batched": _cache_doc(build_batched_program.cache_info())}
+
+
+def program_cache_entries() -> float:
+    """Live entries across both program caches (the gauge's value)."""
+    info = program_cache_info()
+    return float(info["single"]["entries"] + info["batched"]["entries"])
+
+
+def invalidate_program_caches() -> None:
+    """Drop every cached ``ProgramHandle``, single-image and batched (a
+    device failover and re-promotion): the next launch of each program
+    builds a fresh handle, so its first launch is a build again. Handles
+    held by launches in flight keep working."""
+    from flyimg_tpu_torch.runtime.batcher import build_batched_program
+
+    build_program.cache_clear()
+    build_batched_program.cache_clear()
+
+
 def final_extent(plan: TransformPlan, layout: Layout) -> Tuple[int, int]:
     """Final valid (h, w) of the program output for one image — what a
     padded/bucketed output must be sliced to. Follows the stage order:
@@ -325,28 +556,26 @@ def run_plan(
         padded = image
         resample_out = None
 
-    fn = make_program_fn(
-        resample_out, layout.pad_canvas, layout.pad_offset,
-        plan.device_plan(), band_taps=band,
+    handle = build_program(
+        tuple(padded.shape[:2]), resample_out, layout.pad_canvas, layout.pad_offset,
+        plan.device_plan(), band, str(dev),
     )
     t0 = time.perf_counter()
     geo = torch.from_numpy(
         geometry_rows(plan, layout, (h, w), src_window)[None]
     ).to(dev)
-    out = fn(torch.from_numpy(np.ascontiguousarray(padded)[None]).to(dev),
-             *program_args(geo))
+    out = handle(torch.from_numpy(np.ascontiguousarray(padded)[None]).to(dev),
+                 *program_args(geo))
     result = out[0].cpu().numpy()
     # the direct program's launches count in the cost ledger too, under
-    # their own key (its first launch as the build)
-    key = ("single", str(dev), padded.shape[:2], resample_out, layout.pad_canvas,
-           layout.pad_offset, plan.device_plan(), band)
+    # their own key (its first completed launch as the build)
     ledger = costledger.get_ledger()
     device_s = time.perf_counter() - t0
-    if costledger.first_launch(key):
-        ledger.record_compile(key, descriptor={"batch": 1, "in_shape": list(padded.shape[:2]),
-                                               "device": str(dev)},
+    if handle.claim_build():
+        ledger.record_compile(handle.ledger_key, descriptor=handle.descriptor,
                               compile_s=device_s)
-    ledger.record_launch(key, device_s=device_s, images=1)
+    handle.mark_compiled()
+    ledger.record_launch(handle.ledger_key, device_s=device_s, images=1)
     if slice_out is not None:
         result = np.ascontiguousarray(result[: slice_out[0], : slice_out[1]])
     return result

@@ -10,9 +10,12 @@ runs as ONE batched program:
 
 A group flushes when it reaches ``max_batch`` members or its oldest member
 has waited ``deadline_ms``, or at once when it is the only pending request
-(the device is idle, so holding it buys no batching). Launch sizes ride a
-power-of-two ladder capped at ``MAX_BATCH_BUCKET`` (pad slots repeat the
-last member). Auxiliary groups (``submit_aux``, the smart-crop scoring
+(the device is idle, so holding it buys no batching). The pair is the
+controller's live policy: ``apply_policy`` (the autotuner's write path)
+swaps it as one tuple under the lock and wakes the executor, so a shorter
+deadline re-arms its wait at once and no flush reads half a policy.
+Launch sizes ride a power-of-two ladder capped at ``MAX_BATCH_BUCKET``
+(pad slots repeat the last member). Auxiliary groups (``submit_aux``, the smart-crop scoring
 pass) batch the same way and run ``runner(payloads)``.
 
 One executor thread assembles and dispatches; readbacks are pipelined.
@@ -36,12 +39,17 @@ launch waits for a pipeline slot or builds its kernels) too, with a fresh
 pipeline semaphore. The replacement takes over the queued groups; the old
 thread exits when it comes back. ``restarts`` counts both.
 
-Every completed transform launch is accounted in the cost ledger
-(``runtime/costledger.py``) under its program key, device and padded
-batch (one process may run a program on the card and on the CPU): the
-first launch of a key as its build, with the allocator's measured peak,
-and each launch's seconds from dispatch to completed readback. The memory
-governor learns its per-member bytes from that peak on the drain side.
+A launch's program comes from ``build_batched_program``, an lru cache of
+256 ``ProgramHandle``s (``ops/compose.py``) keyed on the group's program
+key, its device and its padded batch (one process may run a program on the
+card and on the CPU); ``handle.is_compiled`` is the launch's compile hit
+(metrics, the span's ``program.compile_cache``, the flight record). A
+failover empties the cache. Every completed transform launch is accounted
+in the cost ledger (``runtime/costledger.py``) under the handle's key: a
+program's first completed launch (unless ``precompile`` ran it) as its
+build, with the allocator's measured peak, and each launch's seconds from
+dispatch to completed readback. The memory governor learns its per-member
+bytes from that peak on the drain side.
 
 Failure containment (the JAX package's): sharing a batch must not mean
 sharing its failures. A failed launch is classified
@@ -105,7 +113,7 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field, replace
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -117,17 +125,19 @@ from flyimg_tpu_torch.exceptions import (
     ServiceUnavailableException,
 )
 from flyimg_tpu_torch.ops.compose import (
+    ProgramHandle,
     _bucket_dim,
     bucket_batch,
     check_ported,
     final_extent,
     geometry_rows,
-    make_program_fn,
+    invalidate_program_caches,
+    make_handle,
     plan_layout,
     program_args,
 )
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
-from flyimg_tpu_torch.runtime import costledger, tracing
+from flyimg_tpu_torch.runtime import costledger, tracing, warmstart
 from flyimg_tpu_torch.runtime.metrics import MetricsRegistry, escape_label_value
 from flyimg_tpu_torch.runtime.resilience import (
     FATAL,
@@ -148,6 +158,33 @@ MAX_BATCH_BUCKET = 64
 def _round_batch(n: int) -> int:
     """The shared power-of-two occupancy ladder, capped."""
     return min(bucket_batch(n), MAX_BATCH_BUCKET)
+
+
+@lru_cache(maxsize=256)
+def build_batched_program(
+    batch: int,
+    in_shape: Tuple[int, int],
+    resample_out: Optional[Tuple[int, int]],
+    pad_canvas: Optional[Tuple[int, int]],
+    pad_offset: Tuple[int, int],
+    plan: TransformPlan,
+    device: str,
+    rotate_dynamic: bool = False,
+    band_taps: Optional[Tuple[int, int]] = None,
+) -> ProgramHandle:
+    """The batched program of one group at one padded batch on ``device``
+    (``str`` of a ``torch.device``, where the JAX key has the mesh),
+    cached: one entry, one handle. Its key is the cost ledger's,
+    ``("batched", device, batch) + group.base_key``. Called positionally
+    (the lru keys spellings apart)."""
+    key = ("batched", device, batch, in_shape, resample_out, pad_canvas, pad_offset,
+           plan, rotate_dynamic, band_taps)
+    # warm start's recorder (a no-op unless installed): once a program, the
+    # device left out (a seeding server builds on its own)
+    warmstart.record_batched(batch, in_shape, resample_out, pad_canvas, pad_offset,
+                             plan, rotate_dynamic, False, band_taps)
+    return make_handle(key, batch, in_shape, resample_out, pad_canvas, pad_offset,
+                       plan, device, rotate_dynamic, band_taps)
 
 
 def containment_params(params) -> dict:
@@ -246,25 +283,6 @@ class _Launch:
     event: Optional[object] = None
     peak: Optional[float] = None
     keep: Tuple = ()
-
-
-def program_descriptor(group: _Group, batch: int,
-                       device: torch.device) -> Dict[str, object]:
-    """A readable identity of a group's program for the cost ledger: the
-    stages, shapes, resample form and device."""
-    plan = group.device_plan
-    ops = ["resample"] if group.resample_out is not None else []
-    if group.pad_canvas is not None:
-        ops.append("extent_pad")
-    for name in ("colorspace", "monochrome", "rotate", "unsharp", "sharpen", "blur"):
-        if getattr(plan, name) not in (None, False):
-            ops.append(name)
-    desc: Dict[str, object] = {"ops": ops or ["copy"], "batch": int(batch),
-                               "in_shape": list(group.in_shape), "device": str(device)}
-    if group.resample_out is not None:
-        desc["resample_out"] = list(group.resample_out)
-        desc["kernel"] = "banded" if group.band_taps is not None else "dense"
-    return desc
 
 
 def transform_group(
@@ -449,8 +467,11 @@ class BatchController:
         # profiler capture alike
         self._batch_ids = batch_ids if batch_ids is not None else itertools.count(1)
         self._batch_seq = 0
-        self.max_batch = max(1, min(int(max_batch), MAX_BATCH_BUCKET))
-        self.deadline_s = float(deadline_ms) / 1000.0
+        # the live flush policy, ONE (max_batch, deadline_s) tuple: a flush
+        # reads it with one reference load, so apply_policy is never seen
+        # half-applied
+        self._policy: Tuple[int, float] = (
+            max(1, min(int(max_batch), MAX_BATCH_BUCKET)), float(deadline_ms) / 1000.0)
         self.lone_flush = lone_flush
         self._stream = (
             torch.cuda.Stream(self.device)
@@ -519,6 +540,38 @@ class BatchController:
         # launches hold while a backend switch runs (pause_launches)
         self._paused = False
         self._spawn_executor().start()
+
+    # -- the live flush policy (runtime/autotuner.py writes here) -----------
+
+    @property
+    def max_batch(self) -> int:
+        return self._policy[0]
+
+    @property
+    def deadline_s(self) -> float:
+        return self._policy[1]
+
+    def policy(self) -> Tuple[int, float]:
+        """The current ``(max_batch, deadline_s)``, read as one tuple."""
+        return self._policy
+
+    def apply_policy(self, max_batch: Optional[int] = None,
+                     deadline_ms: Optional[float] = None) -> Tuple[int, float]:
+        """Install a new flush policy: both fields swap as ONE tuple under
+        the lock, and the executor wakes, so a shorter deadline re-arms its
+        wait at once. ``max_batch`` is clamped to [1, MAX_BATCH_BUCKET],
+        the deadline to 0 or more; how far and how fast a policy may move
+        is the autotuner's envelope, not this method's."""
+        with self._lock:
+            cur_batch, cur_deadline = self._policy
+            self._policy = (
+                max(1, min(int(max_batch), MAX_BATCH_BUCKET))
+                if max_batch is not None else cur_batch,
+                max(float(deadline_ms), 0.0) / 1000.0
+                if deadline_ms is not None else cur_deadline,
+            )
+            self._lock.notify_all()
+            return self._policy
 
     def _spawn_executor(self) -> threading.Thread:
         """Install (or, healing, replace) THE executor thread and return it
@@ -740,6 +793,10 @@ class BatchController:
         replacement = None
         try:
             self.drain_inflight(drain_timeout_s)
+            # before a replacement executor can launch: a handle whose
+            # first launch completed on the old device must not count as
+            # compiled on the new one
+            invalidate_program_caches()
             stream = torch.cuda.Stream(device) if device.type == "cuda" else None
             with self._lock:
                 self.device = device
@@ -779,19 +836,22 @@ class BatchController:
 
     # ------------------------------------------------------------------
 
-    def _ready(self, group: _Group, now: float, total: int) -> bool:
-        if len(group.members) >= self.max_batch:
+    def _ready(self, group: _Group, now: float, total: int,
+               policy: Tuple[int, float]) -> bool:
+        max_batch, deadline_s = policy
+        if len(group.members) >= max_batch:
             return True
-        if self._stop or now - group.members[0].enqueued_at >= self.deadline_s:
+        if self._stop or now - group.members[0].enqueued_at >= deadline_s:
             return True
         return self.lone_flush and total == 1
 
     def _pop_ready_locked(self) -> Optional[_Group]:
         now = time.monotonic()
+        policy = self._policy
         total = sum(len(g.members) for g in self._groups.values())
         best = None
         for key, group in self._groups.items():
-            if group.members and self._ready(group, now, total):
+            if group.members and self._ready(group, now, total, policy):
                 if best is None or len(group.members) > len(
                     self._groups[best].members
                 ):
@@ -799,7 +859,7 @@ class BatchController:
         if best is None:
             return None
         group = self._groups[best]
-        take_n = min(self.max_batch, len(group.members))
+        take_n = min(policy[0], len(group.members))
         if group.runner is None and self.governor is not None:
             # memory admission: cap the take so the padded launch fits the
             # device budget and the family's ceiling; the rest stays queued
@@ -817,8 +877,9 @@ class BatchController:
 
     def _next_wait_locked(self) -> Optional[float]:
         now = time.monotonic()
+        deadline_s = self._policy[1]
         waits = [
-            g.members[0].enqueued_at + self.deadline_s - now
+            g.members[0].enqueued_at + deadline_s - now
             for g in self._groups.values() if g.members
         ]
         return max(min(waits), 0.0) if waits else None
@@ -954,7 +1015,7 @@ class BatchController:
         if group.runner is not None:
             plan_key = f"aux:{_runner_name(group.runner)}"
         else:
-            plan_key = costledger.key_digest(key) if key is not None else None
+            plan_key = key
         predicted = budget = None
         if self.governor is not None and self.governor.enabled and group.runner is None:
             predicted = self.governor.predict_bytes(
@@ -1124,8 +1185,8 @@ class BatchController:
         span_obj = None
         batch, key, compile_hit, poked = n, None, None, False
         try:
-            batch, images, geo, fn, key = self._prepare(group, members)
-            compile_hit = costledger.launched(key)
+            batch, images, geo, handle = self._prepare(group, members)
+            key, compile_hit = handle.ledger_key, handle.is_compiled
             self.metrics.record_compile_event(compile_hit)
             span_obj = self._start_batch_span("device_execute", n, batch, members, seq)
             if span_obj is not None:
@@ -1137,15 +1198,15 @@ class BatchController:
                 self._suspend_busy()
             self.launch_log.append(("transform", n, batch))
             poked = self._profiler_start()
-            launch = self._launch(fn, images, geo, measure, seq)
-            first = measure and costledger.first_launch(key)
+            launch = self._launch(handle, images, geo, measure, seq)
+            first = measure and handle.claim_build()
             self._touch_busy()
             # the launch rides in a box the drain empties: the thread's own
             # argument tuple would keep its tensors alive through a recovery
             # on the drain thread
             threading.Thread(
                 target=self._drain,
-                args=(group, members, [launch], key, batch, first, inflight,
+                args=(group, members, [launch], handle, batch, first, inflight,
                       seq, queue_wait_s, span_obj, compile_hit),
                 name="flyimg-torch-batcher-drain", daemon=True,
             ).start()
@@ -1167,8 +1228,9 @@ class BatchController:
             self._launches_inflight += step
             self.inflight_peak = max(self.inflight_peak, self._launches_inflight)
 
-    def _drain(self, group: _Group, members: List[_Pending], box: list, key,
-               batch: int, first: bool, inflight: threading.Semaphore,
+    def _drain(self, group: _Group, members: List[_Pending], box: list,
+               handle: ProgramHandle, batch: int, first: bool,
+               inflight: threading.Semaphore,
                seq: int, queue_wait_s: float, span_obj,
                compile_hit: Optional[bool]) -> None:
         """Wait for one dispatched launch, read it back, account it and
@@ -1177,6 +1239,7 @@ class BatchController:
         n = len(members)
         launch = box.pop()
         h2d_s, dispatch_s = launch.h2d_s, launch.dispatch_s
+        key = handle.ledger_key
         try:
             faults.fire("batcher.drain", key=group.key, n=n, batch=batch,
                         device=str(self.device))
@@ -1186,7 +1249,7 @@ class BatchController:
             device_s = time.perf_counter() - launch.t_dispatch
             peak = launch.peak
             launch = None
-            self._account(group, key, batch, n, device_s, first, peak)
+            self._account(group, handle, batch, n, device_s, first, peak)
             self._observe_launch(
                 group, members, seq=seq, n=n, batch=batch,
                 queue_wait_s=queue_wait_s, key=key, h2d_s=h2d_s,
@@ -1214,9 +1277,9 @@ class BatchController:
 
     def _prepare(self, group: _Group, members: List[_Pending]):
         """Host side of one transform launch: the padded batch, its host
-        tensors (pinned on CUDA), the program, and the program's ledger
-        key. Fires ``batcher.member`` for each member (a raising plan models
-        a poison member failing the launch) and ``batcher.oom``."""
+        tensors (pinned on CUDA) and the program's handle. Fires
+        ``batcher.member`` for each member (a raising plan models a poison
+        member failing the launch) and ``batcher.oom``."""
         n = len(members)
         for i, member in enumerate(members):
             faults.fire("batcher.member", key=group.key, index=i, image=member.payload)
@@ -1225,13 +1288,13 @@ class BatchController:
             group, [(m.payload, m.plan, m.src_window) for m in members],
             batch, pin=self._stream is not None,
         )
-        faults.fire("batcher.oom", key=group.key, n=n, batch=batch)
-        fn = make_program_fn(
-            group.resample_out, group.pad_canvas, group.pad_offset,
-            group.device_plan, group.rotate_dynamic, group.band_taps,
+        handle = build_batched_program(
+            batch, group.in_shape, group.resample_out, group.pad_canvas,
+            group.pad_offset, group.device_plan, str(self.device),
+            group.rotate_dynamic, group.band_taps,
         )
-        return batch, images, geo, fn, (("batched", str(self.device), batch)
-                                        + tuple(group.base_key))
+        faults.fire("batcher.oom", key=group.key, n=n, batch=batch)
+        return batch, images, geo, handle
 
     def _launch(self, fn, images, geo, measure_peak: bool, seq: int) -> _Launch:
         """Enqueue one launch inside its ``flyimg:batch:<seq>`` profiler
@@ -1280,15 +1343,18 @@ class BatchController:
         launch.event.synchronize()
         return launch.pinned.numpy()
 
-    def _account(self, group: _Group, key, batch: int, n: int,
+    def _account(self, group: _Group, handle: ProgramHandle, batch: int, n: int,
                  device_s: float, first: bool, peak: Optional[float]) -> None:
-        """After a completed readback: the ledger's build record (a first
-        launch) and launch record, and the governor's lesson (the family's
-        bytes per member from the ledger's peak; a clean launch at a
-        ceiling counts toward its raise)."""
+        """After a completed readback: the handle is compiled from now on;
+        the ledger's build record (the launch that claimed the build) and
+        launch record, and the governor's lesson (the family's bytes per
+        member from the ledger's peak; a clean launch at a ceiling counts
+        toward its raise)."""
+        handle.mark_compiled()
+        key = handle.ledger_key
         if first:
             self._ledger.record_compile(
-                key, descriptor=program_descriptor(group, batch, self.device),
+                key, descriptor=handle.descriptor,
                 compile_s=device_s, peak_memory_bytes=peak,
             )
         self._ledger.record_launch(key, device_s=device_s, images=n)
@@ -1318,8 +1384,8 @@ class BatchController:
                                 queue_wait_s=queue_wait_s, device_s=aux_s,
                                 kind="recovery")
             return outputs
-        batch, images, geo, fn, key = self._prepare(group, members)
-        compile_hit = costledger.launched(key)
+        batch, images, geo, handle = self._prepare(group, members)
+        key, compile_hit = handle.ledger_key, handle.is_compiled
         self.metrics.record_compile_event(compile_hit)
         measure = not compile_hit
         if measure:
@@ -1327,8 +1393,8 @@ class BatchController:
         self.launch_log.append(("transform", n, batch))
         poked = self._profiler_start()
         try:
-            launch = self._launch(fn, images, geo, measure, seq)
-            first = measure and costledger.first_launch(key)
+            launch = self._launch(handle, images, geo, measure, seq)
+            first = measure and handle.claim_build()
             faults.fire("batcher.drain", key=group.key, n=n, batch=batch,
                         device=str(self.device))
             t_sync = time.perf_counter()
@@ -1339,7 +1405,7 @@ class BatchController:
                 self.profiler.on_batch_end()
         device_s = time.perf_counter() - launch.t_dispatch
         self._touch_busy()
-        self._account(group, key, batch, n, device_s, first, launch.peak)
+        self._account(group, handle, batch, n, device_s, first, launch.peak)
         mem_event = None
         if self.governor is not None and self.governor.has_ceiling(group.base_key):
             mem_event = "ceiling"

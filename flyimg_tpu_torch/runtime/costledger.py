@@ -10,9 +10,10 @@ device seconds against one key. The port compiles nothing at run time, so:
   program key with its device and padded batch (``runtime/batcher.py``),
   or the batch-1 direct program's with its device (``ops/compose.py
   run_plan``);
-- ``record_compile`` records the FIRST launch of a key in the process, with
-  that launch's wall time (dispatch to completed readback, kernel builds
-  and loads included) as ``compile_s``. FLOPs and bytes stay None: nothing
+- ``record_compile`` records a program's build: the first completed launch
+  of its ``ProgramHandle`` (``ops/compose.py``), with that launch's wall
+  time (dispatch to completed readback, kernel builds and loads included)
+  as ``compile_s``, or the handle's ``precompile`` (warm start). FLOPs and bytes stay None: nothing
   here analyses a program, and the JAX module's contract allows nulled cost
   fields (``costed`` False);
 - the peak is measured, not estimated: the batcher takes
@@ -42,10 +43,8 @@ from typing import Dict, List, Optional
 
 __all__ = [
     "PlanCostLedger",
-    "first_launch",
     "get_ledger",
     "key_digest",
-    "launched",
     "normalize_cost_analysis",
 ]
 
@@ -325,29 +324,7 @@ class PlanCostLedger:
 
 # process-wide, as the kernels and their launches are
 _LEDGER = PlanCostLedger()
-_launched_lock = threading.Lock()
-_launched: set = set()
 
 
 def get_ledger() -> PlanCostLedger:
     return _LEDGER
-
-
-def launched(key) -> bool:
-    """Whether a launch of the program ``key`` has completed in this
-    process."""
-    digest = key if isinstance(key, str) else key_digest(key)
-    with _launched_lock:
-        return digest in _launched
-
-
-def first_launch(key) -> bool:
-    """Claim the program ``key``'s first completed launch: True exactly
-    once a process, for the launch that stands for the program's build
-    (``record_compile``)."""
-    digest = key if isinstance(key, str) else key_digest(key)
-    with _launched_lock:
-        if digest in _launched:
-            return False
-        _launched.add(digest)
-        return True

@@ -27,8 +27,10 @@ operations surface
   ``?batches=N`` to arm a batch-scoped capture, GET
   ``/debug/profile/captures/{name}`` for its tar.gz), ``/debug/memory``,
   ``/debug/brownout`` (the level, the pressure and its components),
-  ``/debug/device`` (the device supervisor's state) and
-  ``/debug/telemetry`` (the mix classifier and the archive) answer 404.
+  ``/debug/device`` (the device supervisor's state),
+  ``/debug/telemetry`` (the mix classifier and the archive) and
+  ``/debug/autotune`` (the autotuner's policy, envelopes and history)
+  answer 404.
 
 The JAX app's opt-in modules are made and wired as it makes them, each off
 by default: the brownout engine (its level evaluated on every pipeline
@@ -36,9 +38,15 @@ request, stamped into flight records, an escalation dumping the flight
 recorder), the device supervisor (fed by the transform batcher, failing
 both controllers over to the CPU), the telemetry pipeline (its beat on the
 request path, the flight recorder's dumps under its retention) and the
-handler's variant index (``flyimg_variant_index_entries``). A key of a
-module not ported yet (``appconfig.UNPORTED_ENABLE_KEYS``) makes the server
-refuse to be made (``NotPortedException``).
+handler's variant index (``flyimg_variant_index_entries``), the policy
+autotuner (its step on every pipeline request, bound to both controllers'
+live policy, the host pools, the reuse min-scale and the band fraction)
+and warm start (the program cache and the policy seeded from the store's
+manifests before the first request, published after the drains). The
+program caches are read by ``flyimg_program_cache_entries`` and
+``/debug/plans``'s ``program_cache``. A key of a module not ported yet
+(``appconfig.UNPORTED_ENABLE_KEYS``, a non-empty ``fleet_replicas``) makes
+the server refuse to be made (``NotPortedException``).
 
 ``HEAD`` answers any GET route with the GET's status and headers, no body.
 Every request passes one observability choke point (``_RequestHandler.
@@ -52,7 +60,8 @@ Errors map to the status codes of the JAX app's ``_error_response``; a plan
 stage the port does not carry yet answers 501, and any other exception 500.
 A 503 carries Retry-After. ``server_close`` drains: readiness answers 503
 first, while the server still serves, then the batchers and the host pools
-finish their work within ``shutdown_drain_timeout_s``. Run it with
+finish their work within ``shutdown_drain_timeout_s``, and warm start
+publishes its manifests. Run it with
 
     python -m flyimg_tpu_torch.service.app serve --port 8080 [--params p.json]
     python -m flyimg_tpu_torch.service.app encrypt '<options>/<imageSrc>' --params p.json
@@ -94,9 +103,11 @@ from flyimg_tpu_torch.exceptions import (
     ServiceUnavailableException,
     UnsupportedMediaException,
 )
-from flyimg_tpu_torch.ops.resample import set_kernel_mode
+from flyimg_tpu_torch.ops.compose import program_cache_entries, program_cache_info
+from flyimg_tpu_torch.ops.resample import set_auto_band_frac, set_kernel_mode
 from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
-from flyimg_tpu_torch.runtime import tracing
+from flyimg_tpu_torch.runtime import tracing, warmstart
+from flyimg_tpu_torch.runtime.autotuner import PolicyAutotuner, reuse_signal_fn
 from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
 from flyimg_tpu_torch.runtime.brownout import BrownoutEngine
 from flyimg_tpu_torch.runtime.costledger import get_ledger
@@ -113,7 +124,7 @@ from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
 from flyimg_tpu_torch.runtime.profiling import DeviceProfiler, ProfilerSession
 from flyimg_tpu_torch.runtime.resilience import Deadline
 from flyimg_tpu_torch.runtime.slo import SloEngine
-from flyimg_tpu_torch.runtime.telemetry import TelemetryPipeline, reuse_signal_fn
+from flyimg_tpu_torch.runtime.telemetry import TelemetryPipeline
 from flyimg_tpu_torch.service.handler import ImageHandler
 from flyimg_tpu_torch.service.response import (
     NOT_MODIFIED_HEADERS,
@@ -255,7 +266,7 @@ class FlyimgServer(ThreadingHTTPServer):
     """The HTTP server, its handler, its batchers, its host stage pools, its
     observability (the metrics registry, the tracer, the SLO engine, the
     flight recorder, the profiler, the telemetry pipeline), the brownout
-    engine and the device supervisor."""
+    engine, the device supervisor, the policy autotuner and warm start."""
 
     daemon_threads = True
 
@@ -265,6 +276,8 @@ class FlyimgServer(ThreadingHTTPServer):
         require_ported(params)
         self.routes = resolve_routes(params)
         set_kernel_mode(str(params.by_key("resample_kernel", "dense")))
+        # a previous server's tuned band fraction does not carry over
+        set_auto_band_frac(1.0)
         self.params = params
         self.debug = bool(params.by_key("debug"))
         self.log_access = bool(params.by_key("log_access", True))
@@ -376,6 +389,11 @@ class FlyimgServer(ThreadingHTTPServer):
             "Reuse-safe renditions tracked by the per-source variant index",
             fn=lambda: float(len(self.handler.variants)),
         )
+        metrics.gauge(
+            "flyimg_program_cache_entries",
+            "Live entries across the single-image and batched program caches",
+            fn=program_cache_entries,
+        )
         self.brownout.attach(
             batchers=(self.batcher, self.codec_batcher),
             slo=self.slo,
@@ -385,6 +403,28 @@ class FlyimgServer(ThreadingHTTPServer):
             device_supervisor=supervisor if supervisor.enabled else None,
             rss_fn=self.rss_watchdog.pressure if self.rss_watchdog.enabled else None,
         )
+        # the policy autotuner: off, one bool check a request, no knob
+        # bound and no metric
+        self.autotuner = PolicyAutotuner.from_params(params, metrics=metrics)
+        if self.autotuner.enabled:
+            self.autotuner.register_knobs(
+                batcher=self.batcher, codec_batcher=self.codec_batcher,
+                host_pipeline=self.host_pipeline, handler=self.handler)
+            self.autotuner.attach_signals(
+                metrics=metrics, slo=self.slo, brownout=self.brownout,
+                host_pipeline=self.host_pipeline,
+                flight_recorder=self.flight_recorder,
+                reuse_fn=reuse_signal_fn(metrics) if self.handler.reuse_enable else None)
+            self.autotuner.register_metrics(metrics)
+        # warm start, before the first request: the policy, then every
+        # program of the store's manifest built and run once on this
+        # server's device (a server that answers has absorbed its builds)
+        self.warmstart = warmstart.WarmStartCache.from_params(
+            params, storage=self.storage.shared, metrics=metrics)
+        if self.warmstart.enabled:
+            self.warmstart.install()
+            self.warmstart.seed_policy(self.autotuner)
+            self.warmstart.seed_programs(str(self.batcher.device))
         if self.telemetry.enabled:
             self.telemetry.attach(
                 metrics=metrics, slo=self.slo, brownout=self.brownout,
@@ -431,6 +471,11 @@ class FlyimgServer(ThreadingHTTPServer):
         self.batcher.close(self.drain_timeout_s)
         self.codec_batcher.close(self.drain_timeout_s)
         self.host_pipeline.close(self.drain_timeout_s)
+        if self.warmstart.enabled:
+            # after the drains: what this server built, for the next one;
+            # the process-wide recorder is disarmed
+            self.warmstart.maybe_publish()
+            warmstart.uninstall()
         self.telemetry.close()
         if self._serving:
             self.shutdown()
@@ -551,6 +596,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
             # so their span events land on it
             with tracing.activate(trace):
                 srv.brownout.evaluate()
+                srv.autotuner.evaluate()
                 srv.device_supervisor.evaluate()
                 srv.telemetry.evaluate()
             if trace is not None:
@@ -768,9 +814,10 @@ def _debug_perf(req, match, trace) -> Response:
 
 @_debug_404
 def _debug_plans(req, match, trace) -> Response:
-    """The cost ledger's snapshot. The JAX app adds ``program_cache``; the
-    port has no program cache, so the key is absent."""
-    return _json(req.server.cost_ledger.snapshot())
+    """The cost ledger's snapshot and both program caches."""
+    doc = req.server.cost_ledger.snapshot()
+    doc["program_cache"] = program_cache_info()
+    return _json(doc)
 
 
 @_debug_404
@@ -837,6 +884,11 @@ def _debug_telemetry(req, match, trace) -> Response:
 
 
 @_debug_404
+def _debug_autotune(req, match, trace) -> Response:
+    return _json(req.server.autotuner.snapshot())
+
+
+@_debug_404
 def _debug_memory(req, match, trace) -> Response:
     srv = req.server
     return _json({
@@ -863,6 +915,7 @@ _STATIC_GET = {
     "/debug/brownout": _debug_brownout,
     "/debug/device": _debug_device,
     "/debug/telemetry": _debug_telemetry,
+    "/debug/autotune": _debug_autotune,
 }
 # one path segment after the prefix (aiohttp's {name})
 _PREFIX_GET = (

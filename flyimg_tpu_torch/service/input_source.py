@@ -4,15 +4,19 @@ The port of ``flyimg_tpu/service/input_source.py``, on the standard
 library: originals are cached at ``tmp_dir/original-<md5(url-sans-query)>``
 (the reference's InputImage.php:76-101), a refresh (rf_1) rewrites the
 cached original, local filesystem paths and ``file://`` URLs work as
-sources, and ``http(s)`` sources go through ``urllib.request`` with the
-configured extra headers, a timeout, no redirects, and the transfer
+sources, and ``http(s)`` sources go through ``http.client`` with the
+configured extra headers, the JAX policy's split timeouts (connect, then
+the socket's write timeout for the request and its read timeout for the
+answer, each capped by the request's remaining deadline), no redirects,
+and the transfer
 aborted past the ``mem_max_source_bytes`` parameter (``MAX_SOURCE_BYTES``
 by default) or when the request's deadline is spent
 (the body is read in chunks, so a slow-drip origin cannot hold it). Each
 attempt passes the origin's circuit breaker, and a transient failure
 (a connection or transport error, an answer of 429 or 5xx) is retried with
 full-jitter backoff within the deadline (``FetchPolicy``, from the
-``retry_*``, ``breaker_*`` and ``fetch_read_timeout_s`` parameters); the
+``retry_*``, ``breaker_*`` and ``fetch_{connect,read,write}_timeout_s``
+parameters); the
 ``fetch.http`` fault point fires in each attempt. With
 ``negative_cache_ttl_s`` an origin whose retries ran out, or whose breaker
 is open, answers 502 at once for that long (``runtime/brownout.py
@@ -27,9 +31,8 @@ import os
 import threading
 import urllib.error
 import urllib.parse
-import urllib.request
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Dict, Optional
 
 from flyimg_tpu_torch.codecs import MediaInfo, media_info
 from flyimg_tpu_torch.exceptions import (
@@ -52,8 +55,6 @@ from flyimg_tpu_torch.testing import faults
 #: the default bound of a source's bytes; the ``mem_max_source_bytes``
 #: parameter sets a server's (``FetchPolicy.max_source_bytes``)
 MAX_SOURCE_BYTES = 256 * 1024 * 1024
-#: seconds an http(s) fetch may take to connect or between reads
-FETCH_TIMEOUT_S = 10.0
 _CHUNK = 1 << 16
 
 
@@ -70,11 +71,14 @@ def is_transient_fetch_error(exc: BaseException) -> bool:
 
 @dataclass
 class FetchPolicy:
-    """A server's fetch resilience: the per-read timeout, the retry policy,
-    the per-host breakers and the source byte bound (0: the module's
-    ``MAX_SOURCE_BYTES``)."""
+    """A server's fetch resilience: the split timeouts (seconds to connect,
+    between reads of the answer, and to send the request), the retry
+    policy, the per-host breakers and the source byte bound (0: the
+    module's ``MAX_SOURCE_BYTES``)."""
 
-    timeout_s: float = FETCH_TIMEOUT_S
+    connect_timeout_s: float = 3.0
+    read_timeout_s: float = 10.0
+    write_timeout_s: float = 10.0
     retry: RetryPolicy = field(default_factory=RetryPolicy)
     breakers: BreakerRegistry = field(default_factory=BreakerRegistry)
     max_source_bytes: int = 0
@@ -85,7 +89,9 @@ class FetchPolicy:
     def from_params(cls, params, *, metrics=None) -> "FetchPolicy":
         negative_ttl = float(params.by_key("negative_cache_ttl_s", 0.0) or 0.0)
         return cls(
-            timeout_s=float(params.by_key("fetch_read_timeout_s", FETCH_TIMEOUT_S)),
+            connect_timeout_s=float(params.by_key("fetch_connect_timeout_s", 3.0)),
+            read_timeout_s=float(params.by_key("fetch_read_timeout_s", 10.0)),
+            write_timeout_s=float(params.by_key("fetch_write_timeout_s", 10.0)),
             retry=RetryPolicy.from_params(params, metrics=metrics),
             breakers=BreakerRegistry.from_params(params, metrics=metrics),
             max_source_bytes=int(params.by_key("mem_max_source_bytes", 0) or 0),
@@ -98,6 +104,17 @@ class FetchPolicy:
                 if negative_ttl > 0 else None
             ),
         )
+
+    def timeouts(self, flat_cap: Optional[float] = None) -> Dict[str, float]:
+        """The component timeouts (``connect``, ``read``, ``write`` and
+        ``pool``, the JAX policy's ``httpx.Timeout`` fields), each capped by
+        ``flat_cap`` (the remaining deadline) when given."""
+
+        def cap(v: float) -> float:
+            return min(v, flat_cap) if flat_cap is not None else v
+
+        return {"connect": cap(self.connect_timeout_s), "read": cap(self.read_timeout_s),
+                "write": cap(self.write_timeout_s), "pool": cap(self.connect_timeout_s)}
 
 
 def _source_byte_cap(policy: Optional[FetchPolicy]) -> int:
@@ -135,11 +152,6 @@ def _parse_extra_headers(header_extra_options: str) -> dict:
     return headers
 
 
-class _NoRedirect(urllib.request.HTTPRedirectHandler):
-    def redirect_request(self, *args, **kwargs):  # reference: max_redirects 0
-        return None
-
-
 def _read_capped(stream, cap: int, what: str,
                  deadline: Optional[Deadline] = None) -> bytes:
     chunks, total = [], 0
@@ -155,21 +167,42 @@ def _read_capped(stream, cap: int, what: str,
         chunks.append(chunk)
 
 
-def _http_fetch_once(image_url: str, headers: dict, timeout: float,
+def _http_fetch_once(image_url: str, headers: dict, timeouts: Dict[str, float],
                      deadline: Optional[Deadline] = None,
                      cap: int = MAX_SOURCE_BYTES) -> bytes:
-    """ONE fetch attempt of at most ``cap`` bytes; the retries and the
-    breaker are the caller's."""
+    """ONE fetch attempt of at most ``cap`` bytes (``FetchPolicy.timeouts``:
+    connect, then the request sent under the write timeout and the answer
+    read under the read timeout); no redirect is followed (the reference's
+    max_redirects 0): any answer but 2xx raises ``HTTPError``, as urllib's
+    does. The retries and the breaker are the caller's."""
     injected = faults.fire("fetch.http", url=image_url)
     if injected is not faults.PASS:
         return injected
-    opener = urllib.request.build_opener(_NoRedirect)
-    request = urllib.request.Request(image_url, headers=headers)
-    with opener.open(request, timeout=timeout) as resp:
+    parts = urllib.parse.urlsplit(image_url)
+    if parts.scheme not in ("http", "https"):
+        raise urllib.error.URLError(f"unknown url type: {parts.scheme}")
+    conn_cls = (http.client.HTTPSConnection if parts.scheme == "https"
+                else http.client.HTTPConnection)
+    conn = conn_cls(parts.hostname, parts.port, timeout=timeouts["connect"])
+    target = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+    try:
+        try:
+            conn.connect()
+            conn.sock.settimeout(timeouts["write"])
+            conn.request("GET", target, headers={**headers, "Connection": "close"})
+        except OSError as exc:  # nothing answered: urllib's URLError
+            raise urllib.error.URLError(exc) from exc
+        conn.sock.settimeout(timeouts["read"])
+        resp = conn.getresponse()
+        if not 200 <= resp.status < 300:
+            raise urllib.error.HTTPError(image_url, resp.status, resp.reason,
+                                         resp.headers, None)
         length = resp.headers.get("Content-Length")
         if length and length.isdigit() and int(length) > cap:
             raise ReadFileException(f"source {image_url} exceeds {cap} bytes")
         return _read_capped(resp, cap, image_url, deadline)
+    finally:
+        conn.close()
 
 
 def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
@@ -193,13 +226,15 @@ def _http_fetch(image_url: str, headers: dict, policy: FetchPolicy,
     def attempt() -> bytes:
         # nothing may fail between allow() and the record_* calls, or an
         # admitted half-open probe would leave the breaker half-open
-        timeout = policy.timeout_s
+        flat = None
         if deadline is not None:
             deadline.check("fetch")
-            timeout = deadline.timeout(timeout)
+            rem = deadline.remaining()
+            flat = rem if rem != float("inf") else None
+        timeouts = policy.timeouts(flat)
         breaker.allow()
         try:
-            data = _http_fetch_once(image_url, headers, timeout, deadline,
+            data = _http_fetch_once(image_url, headers, timeouts, deadline,
                                     _source_byte_cap(policy))
         except BaseException as exc:
             if is_transient_fetch_error(exc):

@@ -31,6 +31,12 @@ pipeline point, and then stop. The points:
     ``mem.rss``         one RSS watchdog sample (runtime/memgovernor.py
                         RssWatchdog.rss_bytes): a plan returning a number
                         overrides the sampled byte count
+    ``warmstart.cache`` one read or write of a warm-start manifest
+                        (runtime/warmstart.py), ctx ``op``/``name``: a
+                        raising plan models the store refusing it
+    ``autotune.signal`` one autotuner evaluation (runtime/autotuner.py): a
+                        plan returning a dict replaces the signal window
+                        and lifts the rate limit
 
 With no injector installed ``fire`` returns ``PASS`` after one module-level
 ``None`` check. Tests install a ``FaultInjector`` directly

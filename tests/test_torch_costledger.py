@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from flyimg_tpu.runtime import costledger as jcl
-from flyimg_tpu_torch.ops.compose import run_plan
+from flyimg_tpu_torch.ops.compose import make_handle, run_plan
 from flyimg_tpu_torch.runtime import costledger as cl
 from flyimg_tpu_torch.runtime.batcher import BatchController
 from flyimg_tpu_torch.spec.options import OptionsBag
@@ -110,10 +110,20 @@ def test_key_digest_matches_jax(key):
 
 
 def test_first_launch_is_claimed_once():
-    key = ("first-launch-test", object.__name__)
-    assert not cl.launched(key)
-    assert cl.first_launch(key) and cl.launched(key)
-    assert not cl.first_launch(key)
+    """A program's build is claimed by one launch of its handle, and by none
+    once a launch has completed."""
+    plan = build_plan(OptionsBag("w_13,h_11,c_1"), 37, 29)
+    handle = make_handle(("first-launch-test",), 1, (128, 128), (11, 13), None, (0, 0),
+                         plan.device_plan(), "cpu")
+    assert handle.ledger_key == cl.key_digest(("first-launch-test",))
+    assert not handle.is_compiled
+    assert handle.claim_build() and not handle.claim_build()
+    handle.mark_compiled()
+    assert handle.is_compiled
+    fresh = make_handle(("first-launch-test",), 1, (128, 128), (11, 13), None, (0, 0),
+                        plan.device_plan(), "cpu")
+    fresh.mark_compiled()
+    assert not fresh.claim_build()
 
 
 def test_batcher_and_direct_program_account_their_launches():

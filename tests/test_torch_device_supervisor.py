@@ -25,8 +25,9 @@ keys of modules not ported yet:
   and ``/debug/device`` the failover; clean probes re-promote and the
   answers are the clean run's bytes, stored; with the supervisor off the
   same storm never serves a CPU answer;
-- every still-unported enable key raises ``NotPortedException`` when the
-  server is made.
+- every still-unported enable key, and a non-empty ``fleet_replicas``,
+  raises ``NotPortedException`` when the server is made; the ported ones
+  (warm start, the autotuner) start a server that answers.
 """
 
 import io
@@ -435,3 +436,50 @@ def test_unported_enable_keys_refuse_the_server(tmp_path, key):
                                      "tmp_dir": str(tmp_path / "t2"), key: False}),
                       device="cpu")
     off.server_close()
+
+
+def test_fleet_replicas_refuse_the_server(tmp_path):
+    """A non-empty ``fleet_replicas`` arms rendezvous routing in the JAX app;
+    the port, which has no routing yet, refuses it by name; an empty list
+    serves."""
+    replicas = ["http://127.0.0.1:1", "http://127.0.0.1:2"]
+    with pytest.raises(NotPortedException, match="fleet_replicas"):
+        make_server(AppParameters({"upload_dir": str(tmp_path / "u"),
+                                   "tmp_dir": str(tmp_path / "t"),
+                                   "fleet_replicas": replicas}), device="cpu")
+    assert JAppParameters().by_key("fleet_replicas") == AppParameters().by_key(
+        "fleet_replicas") == []
+    src = tmp_path / "src.png"
+    Image.fromarray(_img(7, 60, 80)).save(src)
+    server = make_server(AppParameters({"upload_dir": str(tmp_path / "u2"),
+                                        "tmp_dir": str(tmp_path / "t2"),
+                                        "fleet_replicas": []}), device="cpu")
+    thread = serve_in_thread(server)
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        assert _get(f"{base}/upload/w_40,h_30,c_1,o_png/{src}")[0] == 200
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+@pytest.mark.parametrize("key", ["warmstart_enable", "autotune_enable"])
+def test_ported_enable_keys_start_the_server(tmp_path, key):
+    """The enable keys of warm start and the autotuner, ported, start a
+    server that answers."""
+    src = tmp_path / "src.png"
+    Image.fromarray(_img(8, 60, 80)).save(src)
+    server = make_server(AppParameters({"upload_dir": str(tmp_path / "u"),
+                                        "tmp_dir": str(tmp_path / "t"), "debug": True,
+                                        key: True}), device="cpu")
+    thread = serve_in_thread(server)
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        status, _headers, body = _get(f"{base}/upload/w_40,h_30,c_1,o_png/{src}")
+        assert status == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
+        assert (server.warmstart if key == "warmstart_enable" else server.autotuner).enabled
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)

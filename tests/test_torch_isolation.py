@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     for name in ("exif", "metadata", "native_codec", "pdf", "pdf_mini", "video"):
         assert f"flyimg_tpu_torch.codecs.{name}" in mods
     for name in ("runtime.tracing", "runtime.metrics", "runtime.logging", "runtime.slo",
-                 "runtime.flightrecorder", "runtime.profiling", "service.security",
+                 "runtime.flightrecorder", "runtime.profiling", "runtime.warmstart",
+                 "runtime.autotuner", "runtime.observatory", "service.security",
                  "service.aes", "storage.base", "storage.local"):
         assert f"flyimg_tpu_torch.{name}" in mods
     code = (

@@ -6,11 +6,12 @@ sets, request and cache counts), the 304 answer, ``traceparent`` echoed,
 the span names of an ``/upload`` trace, the debug gates, route overrides
 and unknown route names, and the ``encrypt`` and ``prune`` subcommands.
 
-The debug routes of brownout, the device supervisor and telemetry answer
-as the JAX app's (200, the same keys). Departures pinned here (ROADMAP Queue
-C): the families and debug routes of modules the port does not carry yet
-(the program cache, the fleet tier, the tier supervisor, the autotuner)
-are absent, and ``/debug/plans`` has no ``program_cache``."""
+The debug routes of brownout, the device supervisor, telemetry and the
+autotuner answer as the JAX app's (200, the same keys; the autotuner's
+document equal), and ``/debug/plans`` has the JAX app's keys, the program
+caches' among them. Departures pinned here (ROADMAP Queue C): the families
+and debug routes of modules the port does not carry yet (the codec pools'
+busy ratio, the fleet tier, the tier supervisor) are absent."""
 
 import asyncio
 import io
@@ -146,13 +147,13 @@ def _sample(text, name):
 
 #: families of modules the port does not carry yet (ROADMAP Queue C)
 NOT_PORTED_FAMILIES = re.compile(
-    r"flyimg_(program_cache|host_pool_busy_ratio|boot_backend|fleet|autotune|"
-    r"tier|membership|observatory|l2|warmstart)")
+    r"flyimg_(host_pool_busy_ratio|boot_backend|fleet|"
+    r"tier|membership|observatory|l2)")
 #: their debug routes
-NOT_PORTED_ROUTES = ("/debug/autotune", "/debug/tier", "/debug/fleet",
+NOT_PORTED_ROUTES = ("/debug/tier", "/debug/fleet",
                      "/debug/fleet/status")
 #: the debug routes of the ported opt-in modules (off here)
-MODULE_ROUTES = ("/debug/brownout", "/debug/device", "/debug/telemetry")
+MODULE_ROUTES = ("/debug/brownout", "/debug/device", "/debug/telemetry", "/debug/autotune")
 
 
 def _main_requests(src):
@@ -381,7 +382,10 @@ def test_debug_routes_with_debug_on(main_sessions):
         (js, _jh, jb), (ts, _th, tb) = pairs[idx]
         assert ts == js, idx
     jplans, tplans = json.loads(pairs[9][0][2]), json.loads(pairs[9][1][2])
-    assert set(jplans) - set(tplans) == {"program_cache"}
+    assert set(jplans) == set(tplans)
+    assert set(tplans["program_cache"]) == set(jplans["program_cache"]) == {"single", "batched"}
+    for kind in ("single", "batched"):
+        assert set(tplans["program_cache"][kind]) == set(jplans["program_cache"][kind])
     assert set(json.loads(pairs[10][1][2])) == set(json.loads(pairs[10][0][2]))
     assert set(json.loads(pairs[11][1][2])) == set(json.loads(pairs[11][0][2]))
     jfr, tfr = json.loads(pairs[12][0][2]), json.loads(pairs[12][1][2])
@@ -400,6 +404,8 @@ def test_debug_routes_with_debug_on(main_sessions):
         (js, _jh, jb), (ts, _th, tb) = pairs[21 + len(NOT_PORTED_ROUTES) + k]
         assert js == ts == 200, route
         assert set(json.loads(tb)) == set(json.loads(jb)), route
+        if route == "/debug/autotune":      # off in both: the same document
+            assert json.loads(tb) == json.loads(jb)
 
 
 @pytest.mark.parametrize("debug", [False, True])
