@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --tiled-only   # phase 9's checks on every card
-    python3 chip_smoke.py --service-phase DIR   # phases 17-18 alone (their process)
+    python3 chip_smoke.py --service-phase DIR   # phases 17-20 alone (their process)
 
 Phases, in order; any failure exits non-zero without a result line:
 
@@ -306,8 +306,18 @@ Phases, in order; any failure exits non-zero without a result line:
              caches and a re-promotion rebuilding them; a second server on
              the same store seeding every entry of the first one's
              manifest, its first wave all hits, no build, the same bytes.
+20. fleet — the fleet tier through three servers on the card sharing
+             one L2 directory (``phase_fleet``), in phase 17's process:
+             requests proxied one hop to their rendezvous owner (its L1 and
+             the L2 hold the answer, the reference server's bytes), shared
+             L2 hits promoted with no launch, a hot key rendered once
+             fleet-wide behind the lease, an L2 outage islanding a replica
+             that still renders on the card and re-promotes with its
+             journal replayed and a torn artifact scrubbed, membership's
+             drain and expiry re-homing only the leaver's keys, and the
+             observatory's digests and rollup.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-19)
+Launch counters are zeroed right before each main-path phase (4-9, 11-20)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -6339,6 +6349,358 @@ def phase_warmstart(torch, dev, card, workdir, kernels):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the fleet tier: rendezvous routing with owner proxying, the shared L2 and
+# its lease, the tier supervisor, membership and the observatory (phase 20)
+
+#: phase 20's sources (seeded JPEGs) and the routing wave: the flagship on
+#: each, and FLEET_EXTRA of them again as PNG answers (another key each)
+FLEET_SOURCES = 8
+FLEET_SIZE = (1920, 1080)
+FLEET_OPTS = "w_300,h_250,c_1,smc_1"
+FLEET_EXTRA_OPTS = "w_300,h_250,c_1,smc_1,o_png"
+FLEET_EXTRA = 4
+#: the hot key: FLEET_HOT_PER replicas' worth of concurrent requests each
+FLEET_HOT_OPTS = "w_300,h_250,c_1,o_jpg"
+FLEET_HOT_PER = 3
+#: the outage's keys (tier_storm_threshold of them) and its probes
+FLEET_STORM = 3
+FLEET_PROBES = 2
+FLEET_MEMBER_TTL_S = 15.0
+
+
+def free_ports(n):
+    """``n`` distinct free localhost ports (bound together, then freed)."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            socks.append(sock)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def lease_count(servers, outcome):
+    """The servers' ``flyimg_l2_lease_total{outcome}`` summed."""
+    return sum(server.metrics.counter(f'flyimg_l2_lease_total{{outcome="{outcome}"}}').value
+               for server in servers)
+
+
+def phase_fleet(torch, dev, card, workdir, kernels, size=FLEET_SIZE):
+    """Phase 20: the fleet tier on the card, in phase 17's process. Three
+    port servers R0-R2 (each its own upload_dir as L1) share one L2
+    directory (l2_enable, l2_lease_enable, l2_checksum_enable), route over
+    their three URLs (fleet_route proxy), and run membership, the tier
+    supervisor and the observatory on one injected clock (each beat and
+    probe driven by hand). A fourth server with the fleet off answers the
+    reference bytes. Checks, in order:
+
+    1. routing: FLEET_SOURCES + FLEET_EXTRA requests, each sent to a
+       replica that does not own its key, answer 200 through one hop,
+       X-Flyimg-Replica names the rendezvous owner, the bytes are the
+       reference's, and the owner's L1 and the L2 hold the artifact while
+       no other L1 does;
+    2. shared hit: the same URLs to non-owners with the hop header serve
+       from the L2, promote into the receiving L1 and launch nothing;
+    3. hot key: FLEET_HOT_PER concurrent requests per replica for one new
+       key, each with the hop header, render once fleet-wide (the wave's
+       launches are one render's, measured on the reference server; one
+       lease lead) and answer the same bytes;
+    4. tier outage: an l2.storage and l2.lease plan raising on every op
+       trips R0 into island mode within FLEET_STORM new keys, which still
+       answer 200 (rendered on the card) with the skips counted and the
+       journal holding the names; FLEET_PROBES clean probes re-promote R0,
+       the replay puts each journaled artifact and its sidecar into the L2,
+       and an artifact torn by hand in the L2 is purged by scrub_once;
+    5. membership: every view holds three; R2 drains, R0's and R1's next
+       beat drop it and only R2's keys re-home; R1's beat stops, and past
+       the TTL R0's view is R0 alone; R2's /readyz answers draining;
+    6. observatory: each replica's digest is on the L2, /debug/fleet/status
+       counts the replicas by status, and the recommendation is printed.
+
+    Prints the proxied hop's added wall time (p50), the phase's seconds and
+    launches (readings, not gates); returns the launches."""
+    import numpy as np
+
+    from flyimg_tpu_torch import codecs
+    from flyimg_tpu_torch.appconfig import AppParameters
+    from flyimg_tpu_torch.runtime.fleet import HOP_HEADER, rendezvous_owner, route_key
+    from flyimg_tpu_torch.service.app import make_server, serve_in_thread
+    from flyimg_tpu_torch.service.output_image import resolve_output
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.storage.tiered import checksum_name
+    from flyimg_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    origin_dir = os.path.join(workdir, "origin20")
+    os.makedirs(origin_dir)
+    names = []
+    for i in range(FLEET_SOURCES):
+        names.append(f"fleet_{i}.jpg")
+        rgb = synthetic_image(size[0], size[1], seed=2000 + i)
+        with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+            fh.write(codecs.encode(rgb, "jpg", quality=90, sampling_factor="2x2", device=dev))
+    names.append("hot.jpg")
+    with open(os.path.join(origin_dir, names[-1]), "wb") as fh:
+        fh.write(codecs.encode(synthetic_image(size[0], size[1], seed=2099), "jpg",
+                               quality=90, device=dev))
+    origin = local_origin(origin_dir)
+    host = f"http://127.0.0.1:{origin.server_address[1]}"
+    l2_dir = os.path.join(workdir, "fleet_l2")
+    urls = [f"http://127.0.0.1:{p}" for p in free_ports(3)]
+    clock = {"now": 2_000_000.0}
+    outage = {"on": False}
+
+    def down(**_):
+        if outage["on"]:
+            raise OSError("shared tier down (phase 20's outage plan)")
+        return faults.PASS
+
+    injector = faults.FaultInjector()
+    injector.plan("l2.storage", down)
+    injector.plan("l2.lease", down)
+    common = {"resample_kernel": "banded", "debug": True, "log_access": False,
+              "slo_latency_p99_ms": 60000.0}
+    fleet = {"l2_enable": True, "l2_storage_system": "local", "l2_upload_dir": l2_dir,
+             "l2_lease_enable": True, "l2_checksum_enable": True, "l2_lease_poll_ms": 5.0,
+             "fleet_replicas": urls, "fleet_route": "proxy",
+             "fleet_membership_enable": True, "fleet_membership_ttl_s": FLEET_MEMBER_TTL_S,
+             "fleet_membership_heartbeat_s": 3600.0,
+             "fleet_membership_clock": lambda: clock["now"],
+             "tier_supervisor_enable": True, "tier_storm_threshold": FLEET_STORM,
+             "tier_storm_window_s": 3600.0, "tier_probe_interval_s": 3600.0,
+             "tier_probe_hysteresis": FLEET_PROBES, "tier_scrub_enable": True,
+             "tier_scrub_interval_s": 3600.0, "tier_scrub_sample": 4096,
+             "tier_supervisor_clock": lambda: clock["now"],
+             "fleet_observatory_enable": True,
+             "fleet_observatory_clock": lambda: clock["now"]}
+    servers = []
+
+    def start(tag, **extra):
+        settings = {"upload_dir": os.path.join(workdir, tag, "uploads"),
+                    "tmp_dir": os.path.join(workdir, tag, "tmp"), **common, **extra}
+        replica = extra.get("fleet_replica_id")
+        port = int(replica.rsplit(":", 1)[1]) if replica else 0
+        server = make_server(AppParameters(settings), port=port, device=dev)
+        server.start_fleet()
+        servers.append((server, serve_in_thread(server)))
+        return server
+
+    def l1_dir(i):
+        return os.path.join(workdir, f"r{i}", "uploads")
+
+    def stored(directory, name):
+        return os.path.exists(os.path.join(directory, name))
+
+    readings = {}
+    c0 = read_counts(kernels)
+    try:
+        ref = start("ref")
+        refbase = f"http://127.0.0.1:{ref.server_address[1]}"
+        replicas = [start(f"r{i}", fleet_replica_id=urls[i], fault_injector=injector, **fleet)
+                    for i in range(3)]
+        for server in replicas:
+            server.membership.step()
+        views = [sorted(server.membership.members()) for server in replicas]
+        check(all(v == sorted(urls) for v in views), f"fleet: the boot views {views}")
+
+        # 1. routing
+        requests = ([(FLEET_OPTS, n) for n in names[:FLEET_SOURCES]]
+                    + [(FLEET_EXTRA_OPTS, n) for n in names[:FLEET_EXTRA]])
+        paths, owners, routed = [], [], []
+        for opts, name in requests:
+            src = f"{host}/{name}"
+            owner = rendezvous_owner(urls, route_key(opts, src))
+            paths.append(f"/upload/{opts}/{src}")
+            owners.append(owner)
+            routed.append(urls[(urls.index(owner) + 1) % 3])
+        reference = [http_call(refbase, p) for p in paths]
+        check(all(a[0] == 200 for a in reference),
+              f"fleet: the reference answered {[a[0] for a in reference]}")
+        answers = [None] * len(paths)
+
+        def send(i, headers=None, base=None):
+            t0 = time.perf_counter()
+            answer = http_call(base or routed[i], paths[i], headers=headers)
+            return answer, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(paths)) as pool:
+            answers = [a for a, _s in pool.map(send, range(len(paths)))]
+        artifacts = [resolve_output(OptionsBag(opts), f"{host}/{name}", "image/jpeg").name
+                     for opts, name in requests]
+        for i, (status, headers, body) in enumerate(answers):
+            check(status == 200, f"fleet: routed request {i} answered {status}")
+            check(headers.get("X-Flyimg-Replica") == owners[i],
+                  f"fleet: request {i} answered by {headers.get('X-Flyimg-Replica')}, "
+                  f"owner {owners[i]}")
+            check(body == reference[i][2], f"fleet: request {i}'s bytes differ from the reference")
+            name, owner_i = artifacts[i], urls.index(owners[i])
+            check(stored(l1_dir(owner_i), name), f"fleet: the owner's L1 lacks {name}")
+            check(stored(l2_dir, name) and stored(l2_dir, checksum_name(name)),
+                  f"fleet: the L2 lacks {name} or its sidecar")
+            others = [j for j in range(3) if j != owner_i and stored(l1_dir(j), name)]
+            check(not others, f"fleet: {name} is in the L1 of non-owners {others}")
+        readings["owners"] = {o: owners.count(o) for o in urls}
+
+        # the hop's added wall time: the owners' L1 hits, direct and proxied
+        direct = [send(i, base=owners[i])[1] for i in range(len(paths))]
+        proxied = [send(i)[1] for i in range(len(paths))]
+        readings["hop_added_ms_p50"] = round(
+            (statistics.median(proxied) - statistics.median(direct)) * 1e3, 3)
+        readings["owner_hit_ms_p50"] = round(statistics.median(direct) * 1e3, 3)
+
+        # 2. the shared hit: non-owners with the hop header
+        before = read_counts(kernels)
+        third = [(urls.index(owners[i]) + 2) % 3 for i in range(len(paths))]
+        shared = [http_call(urls[third[i]], paths[i], headers={HOP_HEADER: "smoke"})
+                  for i in range(len(paths))]
+        wave = delta(kernels, before)
+        check(all(a[0] == 200 for a in shared), f"fleet: shared hits {[a[0] for a in shared]}")
+        check([a[2] for a in shared] == [a[2] for a in reference],
+              "fleet: a shared hit's bytes differ")
+        check(not any(wave.values()), f"fleet: the shared-hit wave launched {wave}")
+        promotions = sum(r.metrics.counter("flyimg_l2_promotions_total").value for r in replicas)
+        check(promotions >= len(paths)
+              and all(stored(l1_dir(third[i]), artifacts[i]) for i in range(len(paths))),
+              f"fleet: {promotions} L2 promotions, or a hit not promoted into its L1")
+
+        # 3. the hot key: one render fleet-wide
+        hot = f"/upload/{FLEET_HOT_OPTS}/{host}/hot.jpg"
+        before = read_counts(kernels)
+        hot_ref = http_call(refbase, hot)
+        one_render = delta(kernels, before)
+        check(hot_ref[0] == 200 and one_render["K1"] > 0 and one_render["K16"] > 0,
+              f"fleet: the hot key's reference {hot_ref[0]}, launches {one_render}")
+        leads0 = lease_count(replicas, "lead")
+        before = read_counts(kernels)
+        # the first request leads; the other eight start once its lease
+        # marker is on the L2 (two acquires racing on one marker may both
+        # confirm, which the protocol accepts as one duplicate render)
+        hot_name = resolve_output(OptionsBag(FLEET_HOT_OPTS), f"{host}/hot.jpg", "image/jpeg").name
+        with ThreadPoolExecutor(3 * FLEET_HOT_PER) as pool:
+            first = pool.submit(http_call, urls[0], hot, headers={HOP_HEADER: "smoke"})
+            t_wait = time.perf_counter() + 10.0
+            while not (stored(l2_dir, hot_name + ".lease") or stored(l2_dir, hot_name)
+                       or first.done()) and time.perf_counter() < t_wait:
+                time.sleep(0.001)
+            rest = [pool.submit(http_call, url, hot, headers={HOP_HEADER: "smoke"})
+                    for url in (urls * FLEET_HOT_PER)[1:]]
+            hot_answers = [first.result()] + [f.result() for f in rest]
+        hot_wave = delta(kernels, before)
+        leads = lease_count(replicas, "lead") - leads0
+        check(all(a[0] == 200 for a in hot_answers) and all(a[2] == hot_ref[2]
+                                                            for a in hot_answers),
+              f"fleet: the hot key answered {[a[0] for a in hot_answers]} or other bytes")
+        check(hot_wave == one_render, f"fleet: the hot wave launched {hot_wave}, one render "
+              f"{one_render}")
+        check(leads == 1, f"fleet: {leads} lease leads for the hot key")
+        readings["hot_key"] = {"launches": {k: v for k, v in hot_wave.items() if v},
+                               "lease": {o: lease_count(replicas, o)
+                                         for o in ("lead", "coalesced", "steal", "timeout")}}
+
+        # 4. the tier outage on R0
+        r0 = replicas[0]
+        r0base = urls[0]
+        storm = [f"/upload/w_{260 + 10 * i},h_200,c_1/{host}/{names[i]}"
+                 for i in range(FLEET_STORM)]
+        outage["on"] = True
+        before = read_counts(kernels)
+        storm_answers = [http_call(r0base, p, headers={HOP_HEADER: "smoke"}) for p in storm]
+        storm_wave = delta(kernels, before)
+        tier = json.loads(http_call(r0base, "/debug/tier")[2])
+        check(all(a[0] == 200 for a in storm_answers) and storm_wave["K1"] >= FLEET_STORM,
+              f"fleet: the outage answered {[a[0] for a in storm_answers]}, launches "
+              f"{storm_wave}")
+        check(tier["state"] == "island", f"fleet: R0 is {tier['state']} after the storm")
+        journal = {e["name"] for e in r0.tier_supervisor.journal_snapshot()
+                   if e["kind"] == "artifact"}
+        island = r0.tier_supervisor.snapshot()
+        storm_names = [resolve_output(OptionsBag(p.split("/")[2]), f"{host}/{names[i]}",
+                                      "image/jpeg").name for i, p in enumerate(storm)]
+        check(journal == set(storm_names) and island["island_skips"] > 0,
+              f"fleet: the journal {sorted(journal)} (the storm's {storm_names}), "
+              f"{island['island_skips']} island skips")
+        outage["on"] = False
+        for _ in range(FLEET_PROBES):
+            r0.tier_supervisor.probe_and_handle()
+        tier_after = json.loads(http_call(r0base, "/debug/tier")[2])
+        check(tier_after["state"] == "attached",
+              f"fleet: R0 is {tier_after['state']} after {FLEET_PROBES} clean probes")
+        check(all(stored(l2_dir, n) and stored(l2_dir, checksum_name(n))
+                                            for n in storm_names),
+              f"fleet: the replay left {storm_names} out of the L2")
+        torn = storm_names[0]
+        with open(os.path.join(l2_dir, torn), "r+b") as fh:
+            fh.seek(64)
+            fh.write(b"\x00" * 64)
+        scrub = r0.tier_supervisor.scrub_once()
+        check(scrub["purged"] == 1 and not stored(l2_dir, torn),
+              f"fleet: the scrub {scrub} left the torn {torn}")
+        readings["outage"] = {"journal": len(storm_names), "launches": {
+            k: v for k, v in storm_wave.items() if v}, "scrub": scrub,
+            "island_skips": island["island_skips"], "trips": island["trips"]}
+
+        # 5. membership (one more beat each first: every rollup holds three)
+        for server in replicas:
+            server.membership.step()
+        rollup3 = json.loads(http_call(urls[0], "/debug/fleet/status")[2])["observatory"]["rollup"]
+        r1, r2 = replicas[1], replicas[2]
+        keys = [route_key(FLEET_OPTS, f"{host}/{n}") for n in names] + [
+            route_key(f"w_{w},h_{w}", f"{host}/{n}") for w in range(100, 400, 10) for n in names]
+        owners3 = {k: r0.fleet.owner(k) for k in keys}
+        r2.membership.begin_drain()
+        status, _h, _b = http_call(urls[2], "/readyz")
+        check(status == 503, f"fleet: the draining R2's /readyz answered {status}")
+        r0.membership.step()
+        r1.membership.step()
+        for server in (r0, r1):
+            check(sorted(server.membership.members()) == sorted(urls[:2]),
+                  f"fleet: {server.replica_id}'s view {server.membership.members()} after the drain")
+        moved = [k for k in keys if r0.fleet.owner(k) != owners3[k]]
+        check(all(owners3[k] == urls[2] for k in moved)
+              and all(r0.fleet.owner(k) == rendezvous_owner(urls[:2], k) for k in keys)
+              and len(moved) == sum(1 for k in keys if owners3[k] == urls[2]),
+              "fleet: keys other than R2's re-homed")
+        clock["now"] += FLEET_MEMBER_TTL_S + 1.0
+        r0.membership.step()
+        check(r0.membership.members() == [urls[0]],
+              f"fleet: R0's view {r0.membership.members()} past R1's TTL")
+        readings["membership"] = {"keys": len(keys), "moved": len(moved)}
+
+        # 6. the observatory
+        digests = sorted(n for n in os.listdir(l2_dir) if n.endswith(".digest"))
+        check(len(digests) == 3, f"fleet: the L2 holds the digests {digests}")
+        status, _h, body = http_call(urls[0], "/debug/fleet/status")
+        doc = json.loads(body)
+        rollup = doc["observatory"]["rollup"] or {}
+        check((rollup3 or {}).get("by_status") == {"ready": 3, "degraded": 0, "draining": 0},
+              f"fleet: the rollup of three ready replicas {rollup3}")
+        check(status == 200 and rollup.get("by_status", {}).get("ready") == 1,
+              f"fleet: /debug/fleet/status answered {status} with {rollup}")
+        readings["observatory"] = {"by_status": [rollup3["by_status"], rollup.get("by_status")],
+                                   "recommendation": doc["observatory"]["recommendation"]}
+    finally:
+        outage["on"] = False
+        for server, thread in servers:
+            stop_server(server, thread)
+        faults.clear()
+        origin.shutdown()
+        origin.server_close()
+    counts = delta(kernels, c0)
+    readings["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    print(f"fleet: hop adds {readings['hop_added_ms_p50']} ms (p50) to an owner's hit of "
+          f"{readings['owner_hit_ms_p50']} ms; hot key {readings['hot_key']}; outage "
+          f"{readings['outage']}; membership {readings['membership']}; observatory "
+          f"{readings['observatory']}; phase {readings['phase_s']} s; card {card}")
+    print(json.dumps({"fleet": {**readings, "launches": counts}, "card": card}))
+    return counts
+
+
 def kernel_wrappers():
     """Every kernel's wrapper by name; each counts its launches in
     ``launches``."""
@@ -6374,7 +6736,7 @@ SERVICE_COUNTS = "service launches: "
 
 
 def service_child(workdir) -> int:
-    """``--service-phase DIR``: phases 17, 18 and 19 in a process of their own,
+    """``--service-phase DIR``: phases 17 to 20 in a process of their own,
     as a server runs (in the smoke's own process, after phase 3's hundreds
     of torch.profiler windows, a later session records no kernel activity
     at all: see PERF.md). The kernels are on disk already; prints each
@@ -6407,8 +6769,12 @@ def service_child(workdir) -> int:
     # phase 19 in the same process, counted from 0 again
     reset_counts(kernels)
     warm_counts = phase_warmstart(torch, dev, card, workdir, kernels)
+    # phase 20 in the same process, counted from 0 again
+    reset_counts(kernels)
+    fleet_counts = phase_fleet(torch, dev, card, workdir, kernels)
     print(SERVICE_COUNTS + json.dumps({"counts": counts, "degrade_counts": degrade_counts,
                                        "warm_counts": warm_counts,
+                                       "fleet_counts": fleet_counts,
                                        "nvjpeg_encodes": len(encodes)}))
     return 0
 
@@ -6603,10 +6969,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"ingest kernel launches: {ingest_counts}; card {card}")
-    # phases 17, 18 and 19: signed URLs, /path, /readyz, traces, metrics,
-    # the flight recorder and a profiler capture; brownout, reuse, telemetry
-    # and the device supervisor; the program cache, warm start and the
-    # autotuner (main path), in a process of their own
+    # phases 17 to 20: signed URLs, /path, /readyz, traces, metrics, the
+    # flight recorder and a profiler capture; brownout, reuse, telemetry and
+    # the device supervisor; the program cache, warm start and the
+    # autotuner; the fleet tier (main path), in a process of their own
     os.makedirs(workdir)
     try:
         child = subprocess.run(
@@ -6625,6 +6991,7 @@ def main() -> int:
     service_counts = {k: found[0]["counts"].get(k, 0) for k in kernels}
     degrade_counts = {k: found[0]["degrade_counts"].get(k, 0) for k in kernels}
     warm_counts = {k: found[0]["warm_counts"].get(k, 0) for k in kernels}
+    fleet_counts = {k: found[0]["fleet_counts"].get(k, 0) for k in kernels}
     nvjpeg_encodes += [1] * found[0]["nvjpeg_encodes"]
     print(f"service kernel launches: {service_counts}; card {card}")
     for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
@@ -6635,7 +7002,10 @@ def main() -> int:
     print(f"warm start kernel launches: {warm_counts}; card {card}")
     for name in ("K1", "K2", "K3", "K18", "K19"):
         check(warm_counts[name] > 0, f"warm start: {name} never launched")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-19 reached "
+    print(f"fleet kernel launches: {fleet_counts}; card {card}")
+    for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
+        check(fleet_counts[name] > 0, f"fleet: {name} never launched")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-20 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -6693,7 +7063,7 @@ def main() -> int:
                     + resilience_counts[key] + pipeline_counts[key]
                     + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
                     + ingest_counts[key] + service_counts[key] + degrade_counts[key]
-                    + warm_counts[key])
+                    + warm_counts[key] + fleet_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

@@ -7,7 +7,6 @@ import json
 import os
 from typing import Any, Dict, Optional
 
-from flyimg_tpu_torch.exceptions import NotPortedException
 from flyimg_tpu_torch.spec.options import DEFAULT_OPTIONS, OPTIONS_KEYS
 
 SERVER_DEFAULTS: Dict[str, Any] = {
@@ -23,9 +22,15 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "security_iv": "",
     "restricted_domains": False,
     "whitelist_domains": [],
-    # the output store (storage/): local only so far (S3 and GCS raise
-    # NotPortedException when the server is made)
+    # the output store (storage/): local, s3 or gcs, each reading its own
+    # config dict below
     "storage_system": "local",
+    "aws_s3": {"access_id": "", "secret_key": "", "region": "", "bucket_name": ""},
+    "gcs": {"bucket_name": "", "project": ""},
+    # the S3 and GCS clients' split timeouts (0: the library's default, and
+    # no timeout configuration is built at all)
+    "storage_connect_timeout_s": 0.0,
+    "storage_read_timeout_s": 0.0,
     # route-pattern overrides by logical name (upload, path), validated
     # when the server is made
     "routes": {},
@@ -250,42 +255,79 @@ SERVER_DEFAULTS: Dict[str, Any] = {
     "autotune_freeze_dwell_s": 60.0,
     "autotune_history": 64,
     "autotune_envelopes": {},
-    # rendezvous routing over these replicas is not ported (a non-empty
-    # list refuses the server)
+    # the fleet tier (runtime/fleet.py, storage/tiered.py; docs/fleet.md),
+    # all off by default. Rendezvous routing over fleet_replicas (on with
+    # two or more and fleet_replica_id, this replica's own entry): a
+    # non-owner proxies to the owner under fleet_route proxy (one hop,
+    # bounded by fleet_proxy_timeout_s and the request's budget; a peer
+    # whose /readyz says device down is routed around for
+    # fleet_health_ttl_s) or renders itself under local
     "fleet_replicas": [],
+    "fleet_replica_id": "",
+    "fleet_route": "proxy",
+    "fleet_proxy_timeout_s": 30.0,
+    "fleet_health_ttl_s": 5.0,
+    # the shared L2 behind each replica's store (l2_storage_system: local
+    # at l2_upload_dir, or s3 / gcs on the dicts above): reads L1 then L2
+    # with promotion, writes and deletes through both, blake2b sidecars
+    # with l2_checksum_enable; the cross-replica lease (l2_lease_*) makes
+    # one replica render a both-tier miss while the rest poll for it
+    "l2_enable": False,
+    "l2_storage_system": "local",
+    "l2_upload_dir": "web/l2",
+    "l2_lease_enable": True,
+    "l2_lease_ttl_s": 30.0,
+    "l2_lease_poll_ms": 50.0,
+    "l2_lease_wait_cap_s": 120.0,
+    "l2_checksum_enable": False,
+    # the tier supervisor (runtime/tiersupervisor.py): tier_storm_threshold
+    # L2 failures within tier_storm_window_s trip the island (L2 skipped,
+    # writes journaled up to tier_journal_max_entries for
+    # tier_journal_ttl_s); tier_probe_hysteresis clean probes every
+    # tier_probe_interval_s re-promote and replay; the scrubber checks
+    # tier_scrub_sample L2 artifacts every tier_scrub_interval_s
+    "tier_supervisor_enable": False,
+    "tier_storm_threshold": 5,
+    "tier_storm_window_s": 30.0,
+    "tier_probe_interval_s": 5.0,
+    "tier_probe_hysteresis": 2,
+    "tier_journal_max_entries": 512,
+    "tier_journal_ttl_s": 900.0,
+    "tier_scrub_enable": False,
+    "tier_scrub_interval_s": 60.0,
+    "tier_scrub_sample": 8,
+    # fleet membership (runtime/membership.py): TTL'd member markers on the
+    # L2, a heartbeat every fleet_membership_heartbeat_s, and the live set
+    # fed to the router (manual reloads are refused while it runs)
+    "fleet_membership_enable": False,
+    "fleet_membership_ttl_s": 15.0,
+    "fleet_membership_heartbeat_s": 5.0,
+    # the fleet observatory (runtime/observatory.py): signal digests on the
+    # membership beat, the fleet rollup and the autoscale recommendation
+    # (fleet_autoscale_drain: a scale-in drains the last ready member)
+    "fleet_observatory_enable": False,
+    "fleet_autoscale_min_replicas": 1,
+    "fleet_autoscale_max_replicas": 8,
+    "fleet_autoscale_burn_out": 1.0,
+    "fleet_autoscale_occupancy_out": 0.85,
+    "fleet_autoscale_brownout_out": 2,
+    "fleet_autoscale_burn_in": 0.5,
+    "fleet_autoscale_occupancy_in": 0.5,
+    "fleet_autoscale_cooldown_s": 60.0,
+    "fleet_autoscale_drain": False,
     # object-passing clocks of the engines (tests only)
     "autotune_clock": None,
     "brownout_clock": None,
     "device_supervisor_clock": None,
+    "fleet_membership_clock": None,
+    "fleet_observatory_clock": None,
+    "tier_supervisor_clock": None,
+    "mem_clock": None,
     "telemetry_clock": None,
     # a flyimg_tpu_torch.testing.faults.FaultInjector the server installs
     # (tests only)
     "fault_injector": None,
 }
-
-#: the enable keys of JAX modules this package does not carry yet: a
-#: server refuses to be made with any of them on
-UNPORTED_ENABLE_KEYS = (
-    "l2_enable",
-    "tier_supervisor_enable",
-    "tier_scrub_enable",
-    "fleet_membership_enable",
-    "fleet_observatory_enable",
-)
-
-
-def require_ported(params: "AppParameters") -> None:
-    """Raise ``NotPortedException`` naming every truthy enable key of a
-    module the port does not carry, and a non-empty ``fleet_replicas``
-    (the JAX app routes over it with no enable key), instead of serving
-    without them."""
-    on = [key for key in UNPORTED_ENABLE_KEYS if params.by_key(key)]
-    if params.by_key("fleet_replicas"):
-        on.append("fleet_replicas")
-    if on:
-        raise NotPortedException(
-            f"{', '.join(on)}: not ported to the PyTorch package yet")
-
 
 class AppParameters:
     """Defaults overlaid with the given parameters."""

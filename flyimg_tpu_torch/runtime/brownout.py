@@ -171,7 +171,7 @@ class BrownoutEngine:
         """Wire the pressure sources (service/app.py): the batch
         controllers, the SLO engine, the inflight gauge, the open-breaker
         count, the host stage pools (their worst pending share), the L2
-        lease followers (none in the port: no fleet tier), the device
+        lease's followers parked behind a remote leader, the device
         supervisor (a CPU failover reads as the BROWNOUT threshold) and the
         RSS watchdog. A missing source adds no pressure."""
         self._batchers = tuple(batchers)

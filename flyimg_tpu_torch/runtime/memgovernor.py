@@ -103,6 +103,8 @@ class MemoryGovernor:
             ceiling_ttl_s=float(params.by_key("mem_ceiling_ttl_s", 300.0)),
             probe_successes=int(params.by_key("mem_probe_successes", 4)),
             probe_step=int(params.by_key("mem_probe_step", 1)),
+            # the object-passing clock (tests), as in the JAX package
+            clock=params.by_key("mem_clock") or time.monotonic,
             metrics=metrics,
         )
 

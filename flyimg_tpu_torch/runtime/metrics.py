@@ -6,7 +6,10 @@ and help texts are the JAX package's byte for byte (a dashboard or alert
 written against one scrapes the other), labels baked into the metric name
 as it does (``'flyimg_device_transfer_seconds{direction="h2d"}'``). Served
 by the ``/metrics`` route (service/app.py) in Prometheus text 0.0.4, or
-OpenMetrics with exemplars when the scrape asks for it.
+OpenMetrics with exemplars when the scrape asks for it. The fleet tier's
+families (``flyimg_fleet_*`` of the router, membership and the observatory,
+``flyimg_tier_*``, ``flyimg_l2_*``) are registered by their modules, and
+only while those are on.
 
 Design notes:
 - Histograms use fixed log-spaced buckets (120 us .. ~2 min), so quantile

@@ -111,6 +111,13 @@ class VariantIndex:
         self._lock = threading.Lock()
         self._io_lock = threading.Lock()  # serializes manifest writes
         self._sources: "OrderedDict[str, _SourceState]" = OrderedDict()
+        # the tier supervisor (runtime/tiersupervisor.py), when the server
+        # has one: manifest writes feed its storm counter, and while it
+        # holds the island they are journaled instead of written
+        self._supervisor = None
+
+    def attach_supervisor(self, supervisor) -> None:
+        self._supervisor = supervisor
 
     @classmethod
     def from_params(cls, params, *, storage=None) -> "VariantIndex":
@@ -203,6 +210,15 @@ class VariantIndex:
             del state.variants[name]
         self._persist(source_key)
 
+    def discard_name(self, name: str) -> None:
+        """Drop one rendition by its output name alone (the scrubber knows
+        what it purged, not which source indexed it)."""
+        with self._lock:
+            owners = [key for key, state in self._sources.items()
+                      if name in state.variants]
+        for source_key in owners:
+            self.discard(source_key, name)
+
     def _bound_sources_locked(self) -> None:
         while len(self._sources) > self.max_sources:
             self._sources.popitem(last=False)
@@ -227,13 +243,29 @@ class VariantIndex:
                        if state is not None and not state.negative else None)
             if doc is None:
                 return
-            try:
-                self._storage.write(manifest_name(source_key),
-                                    json.dumps(doc, sort_keys=True).encode("utf-8"))
-            except Exception as exc:
-                # a manifest only helps a cold process: never fail the render
-                logging.getLogger(LOGGER).warning(
-                    "variant manifest write for %s failed: %s", source_key, exc)
+            self._store_manifest(source_key, doc)
+
+    def _store_manifest(self, source_key: str, doc: dict) -> None:
+        sup = self._supervisor
+        if sup is not None and sup.islanded():
+            # islanded: the merge intent is journaled and replayed at
+            # re-promotion, instead of waiting out the dead tier
+            sup.count_skip("manifest")
+            sup.journal_manifest(source_key, doc)
+            return
+        try:
+            self._storage.write(manifest_name(source_key),
+                                json.dumps(doc, sort_keys=True).encode("utf-8"))
+        except Exception as exc:
+            # a manifest only helps a cold process: never fail the render
+            if sup is not None:
+                sup.record_failure("manifest")
+                sup.journal_manifest(source_key, doc)
+            logging.getLogger(LOGGER).warning(
+                "variant manifest write for %s failed: %s", source_key, exc)
+            return
+        if sup is not None:
+            sup.record_success("manifest")
 
     @staticmethod
     def _doc_locked(state: _SourceState) -> dict:
@@ -245,6 +277,12 @@ class VariantIndex:
 
     def _load_manifest(self, source_key: str) -> Optional[dict]:
         if self._storage is None:
+            return None
+        sup = self._supervisor
+        if sup is not None and sup.islanded():
+            # a read against the dead tier would wait out its timeout on
+            # the render path; absent is the honest answer
+            sup.count_skip("manifest")
             return None
         try:
             doc = json.loads(self._storage.read(manifest_name(source_key)).decode("utf-8"))
@@ -283,3 +321,26 @@ class VariantIndex:
                 continue    # one bad row does not lose the source
         return _SourceState(source_mime=str(doc.get("source_mime") or ""),
                             variants=variants, loaded_at=now, negative=False)
+
+
+def replay_manifest(storage, source_key: str, doc: dict) -> None:
+    """Merge one journaled manifest into the live one on the shared tier
+    (the tier supervisor's replay). The live document is read afresh and
+    the journaled variants merge into it by name, so renditions another
+    replica stored meanwhile survive; a missing, damaged or foreign-version
+    live document leaves the journaled one alone. A storage failure
+    raises, so the replay stops and queues the intent again."""
+    try:
+        live = json.loads(storage.read(manifest_name(source_key)).decode("utf-8"))
+    except Exception:
+        live = None
+    merged = dict(doc.get("variants") or {})
+    source_mime = str(doc.get("source_mime") or "")
+    if isinstance(live, dict) and live.get("v") == MANIFEST_VERSION:
+        base = dict(live.get("variants") or {})
+        base.update(merged)
+        merged = base
+        source_mime = source_mime or str(live.get("source_mime") or "")
+    storage.write(manifest_name(source_key), json.dumps(
+        {"v": MANIFEST_VERSION, "source_mime": source_mime, "variants": merged},
+        sort_keys=True).encode("utf-8"))

@@ -28,9 +28,12 @@ operations surface
   ``/debug/profile/captures/{name}`` for its tar.gz), ``/debug/memory``,
   ``/debug/brownout`` (the level, the pressure and its components),
   ``/debug/device`` (the device supervisor's state),
-  ``/debug/telemetry`` (the mix classifier and the archive) and
-  ``/debug/autotune`` (the autotuner's policy, envelopes and history)
-  answer 404.
+  ``/debug/telemetry`` (the mix classifier and the archive),
+  ``/debug/autotune`` (the autotuner's policy, envelopes and history),
+  ``/debug/fleet`` (membership and warm start), ``/debug/fleet/status``
+  (the observatory, membership and the router's peer health), ``POST
+  /debug/fleet/replicas`` (swap the routing set; refused while membership
+  owns it) and ``/debug/tier`` (the tier supervisor) answer 404.
 
 The JAX app's opt-in modules are made and wired as it makes them, each off
 by default: the brownout engine (its level evaluated on every pipeline
@@ -44,9 +47,18 @@ live policy, the host pools, the reuse min-scale and the band fraction)
 and warm start (the program cache and the policy seeded from the store's
 manifests before the first request, published after the drains). The
 program caches are read by ``flyimg_program_cache_entries`` and
-``/debug/plans``'s ``program_cache``. A key of a module not ported yet
-(``appconfig.UNPORTED_ENABLE_KEYS``, a non-empty ``fleet_replicas``) makes
-the server refuse to be made (``NotPortedException``).
+``/debug/plans``'s ``program_cache``.
+
+The fleet tier (docs/fleet.md), off by default, boots in the JAX app's
+order: the store (tiered over the shared L2 with ``l2_enable``), the tier
+supervisor, the handler's lease, warm start on ``storage.shared``,
+membership and the observatory. With ``fleet_replicas`` set an ``/upload``
+request is routed to its rendezvous owner (``_route_fleet``): proxied one
+hop with ``fleet_route`` proxy (``X-Flyimg-Fleet-Hop``; a dead owner or
+its 5xx falls back to a render here, its 4xx is relayed), rendered here
+under ``local``. With ``debug`` on, each pipeline answer this replica
+produced carries ``X-Flyimg-Replica``. ``serve`` re-reads the params file's
+``fleet_replicas`` on SIGHUP where the platform has it.
 
 ``HEAD`` answers any GET route with the GET's status and headers, no body.
 Every request passes one observability choke point (``_RequestHandler.
@@ -74,8 +86,10 @@ import argparse
 import io
 import itertools
 import json
+import logging
 import os
 import re
+import signal
 import sys
 import tarfile
 import threading
@@ -87,7 +101,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from flyimg_tpu_torch.appconfig import AppParameters, require_ported
+from flyimg_tpu_torch.appconfig import AppParameters
 from flyimg_tpu_torch.codecs import native_codec
 from flyimg_tpu_torch.exceptions import (
     AppException,
@@ -112,19 +126,23 @@ from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
 from flyimg_tpu_torch.runtime.brownout import BrownoutEngine
 from flyimg_tpu_torch.runtime.costledger import get_ledger
 from flyimg_tpu_torch.runtime.devicesupervisor import DeviceSupervisor
+from flyimg_tpu_torch.runtime.fleet import HOP_HEADER, FleetRouter, route_key
 from flyimg_tpu_torch.runtime.flightrecorder import FlightRecorder
 from flyimg_tpu_torch.runtime.hostpipeline import HostPipeline
 from flyimg_tpu_torch.runtime.logging import access_log, configure_logging
+from flyimg_tpu_torch.runtime.membership import FleetMembership
 from flyimg_tpu_torch.runtime.memgovernor import (
     HostByteAccountant,
     MemoryGovernor,
     RssWatchdog,
 )
 from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
+from flyimg_tpu_torch.runtime.observatory import FleetObservatory
 from flyimg_tpu_torch.runtime.profiling import DeviceProfiler, ProfilerSession
 from flyimg_tpu_torch.runtime.resilience import Deadline
 from flyimg_tpu_torch.runtime.slo import SloEngine
 from flyimg_tpu_torch.runtime.telemetry import TelemetryPipeline
+from flyimg_tpu_torch.runtime.tiersupervisor import TierSupervisor
 from flyimg_tpu_torch.service.handler import ImageHandler
 from flyimg_tpu_torch.service.response import (
     NOT_MODIFIED_HEADERS,
@@ -266,14 +284,14 @@ class FlyimgServer(ThreadingHTTPServer):
     """The HTTP server, its handler, its batchers, its host stage pools, its
     observability (the metrics registry, the tracer, the SLO engine, the
     flight recorder, the profiler, the telemetry pipeline), the brownout
-    engine, the device supervisor, the policy autotuner and warm start."""
+    engine, the device supervisor, the policy autotuner, warm start and
+    the fleet tier (router, tier supervisor, membership, observatory)."""
 
     daemon_threads = True
 
     def __init__(self, address, params: AppParameters,
                  device: Union[str, torch.device] = "cuda",
                  sp_mesh: Optional[Mesh] = None) -> None:
-        require_ported(params)
         self.routes = resolve_routes(params)
         set_kernel_mode(str(params.by_key("resample_kernel", "dense")))
         # a previous server's tuned band fraction does not carry over
@@ -353,7 +371,11 @@ class FlyimgServer(ThreadingHTTPServer):
         self.flight_recorder.attach(level_fn=self.brownout.level)
         self.brownout.add_transition_listener(
             lambda info: self.flight_recorder.dump("brownout_escalation", context=info))
-        self.telemetry = TelemetryPipeline.from_params(params, metrics=metrics)
+        # the fleet router: inert (never consulted) without two replicas
+        self.fleet = FleetRouter.from_params(params, metrics=metrics)
+        self.replica_id = str(params.by_key("fleet_replica_id", "") or "")
+        self.telemetry = TelemetryPipeline.from_params(
+            params, metrics=metrics, replica_id=self.replica_id)
         if sp_mesh is None:
             sp_mesh = local_sp_mesh(self.batcher.device)
         self.host_pipeline = HostPipeline.from_params(
@@ -372,6 +394,18 @@ class FlyimgServer(ThreadingHTTPServer):
             device_supervisor=supervisor if supervisor.enabled else None,
             telemetry=self.telemetry if self.telemetry.enabled else None,
         )
+        # the tier supervisor: storms of L2 failures trip the island (L2
+        # skipped, writes journaled), clean probes re-promote and replay;
+        # off, no feed, no thread and no metric
+        tier = self.tier_supervisor = TierSupervisor.from_params(params, metrics=metrics)
+        if tier.enabled:
+            tier.attach(storage=self.storage, variant_index=self.handler.variants)
+            if hasattr(self.storage, "attach_supervisor"):
+                self.storage.attach_supervisor(tier)
+            if self.handler.l2lease is not None:
+                self.handler.l2lease.supervisor = tier
+            self.handler.variants.attach_supervisor(tier)
+            tier.register_metrics(metrics)
         self.inflight = metrics.gauge(
             "flyimg_inflight_requests", "HTTP requests currently in flight")
         metrics.gauge(
@@ -400,6 +434,10 @@ class FlyimgServer(ThreadingHTTPServer):
             inflight_fn=lambda: self.inflight.value,
             breaker_open_fn=self.handler.fetch_policy.breakers.open_count,
             host_pipeline=self.host_pipeline,
+            # followers parked behind remote lease leaders: a fleet-wide
+            # stampede is load this replica carries with empty queues
+            lease_waiters_fn=((lambda: float(self.handler.l2lease.waiters))
+                              if self.handler.l2lease is not None else None),
             device_supervisor=supervisor if supervisor.enabled else None,
             rss_fn=self.rss_watchdog.pressure if self.rss_watchdog.enabled else None,
         )
@@ -425,6 +463,33 @@ class FlyimgServer(ThreadingHTTPServer):
             self.warmstart.install()
             self.warmstart.seed_policy(self.autotuner)
             self.warmstart.seed_programs(str(self.batcher.device))
+        # membership: TTL'd markers on the shared tier feed the router's
+        # live set, a device-down replica heartbeats degraded, and warm
+        # start publishes on the beat; off, no marker, thread or metric
+        self.membership = FleetMembership.from_params(
+            params, storage=self.storage.shared, router=self.fleet,
+            supervisor=supervisor if supervisor.enabled else None,
+            warmstart=self.warmstart if self.warmstart.enabled else None,
+            metrics=metrics)
+        if tier.enabled:
+            self.membership.tier_supervisor = tier
+        # the observatory: this replica's digest on the membership beat,
+        # the fleet rollup and the autoscale recommendation
+        self.observatory = FleetObservatory.from_params(
+            params, storage=self.storage.shared, membership=self.membership,
+            slo=self.slo, brownout=self.brownout,
+            supervisor=supervisor if supervisor.enabled else None,
+            metrics=metrics)
+        if tier.enabled:
+            self.observatory.tier_supervisor = tier
+        if self.observatory.enabled:
+            # its own window: assemble() diffs the launches per window
+            self.observatory.window.attach(
+                metrics=metrics, slo=self.slo, brownout=self.brownout,
+                host_pipeline=self.host_pipeline,
+                flight_recorder=self.flight_recorder,
+                reuse_fn=reuse_signal_fn(metrics) if self.handler.reuse_enable else None)
+            self.membership.observatory = self.observatory
         if self.telemetry.enabled:
             self.telemetry.attach(
                 metrics=metrics, slo=self.slo, brownout=self.brownout,
@@ -442,11 +507,23 @@ class FlyimgServer(ThreadingHTTPServer):
         self._closed = False
         self._prune_stop = threading.Event()
         self._prune_thread = self._start_prune_loop()
+        self._fleet_started = False
         super().__init__(address, _RequestHandler)
 
     # -- lifecycle -----------------------------------------------------------
 
+    def start_fleet(self) -> None:
+        """Announce membership and start its beat, and the tier
+        supervisor's scrubber (each a no-op when off); ``serve_forever``
+        calls it once."""
+        if self._fleet_started:
+            return
+        self._fleet_started = True
+        self.membership.start()
+        self.tier_supervisor.start()
+
     def serve_forever(self, poll_interval: float = 0.5) -> None:
+        self.start_fleet()
         self._serving = True
         try:
             super().serve_forever(poll_interval)
@@ -454,9 +531,11 @@ class FlyimgServer(ThreadingHTTPServer):
             self._serving = False
 
     def begin_drain(self) -> None:
-        """Readiness answers 503 from now on; everything else still
-        serves."""
+        """Readiness answers 503 from now on, and the membership marker
+        says draining (peers stop routing here at their next beat);
+        everything else still serves."""
         self.draining.set()
+        self.membership.begin_drain()
 
     def server_close(self) -> None:
         """The graceful drain: readiness flips first, while the server
@@ -467,6 +546,7 @@ class FlyimgServer(ThreadingHTTPServer):
         self._closed = True
         self.begin_drain()
         self._prune_stop.set()
+        self.fleet.close()
         self.device_supervisor.close()
         self.batcher.close(self.drain_timeout_s)
         self.codec_batcher.close(self.drain_timeout_s)
@@ -476,6 +556,11 @@ class FlyimgServer(ThreadingHTTPServer):
             # the process-wide recorder is disarmed
             self.warmstart.maybe_publish()
             warmstart.uninstall()
+        # the digest goes before the member marker; an islanded close skips
+        # the marker IO, and the prober and scrubber stop last
+        self.observatory.close()
+        self.membership.close()
+        self.tier_supervisor.close()
         self.telemetry.close()
         if self._serving:
             self.shutdown()
@@ -490,7 +575,7 @@ class FlyimgServer(ThreadingHTTPServer):
         max_bytes = int(self.params.by_key("cache_max_bytes", 0) or 0)
         interval = float(self.params.by_key("cache_prune_interval_s", 300.0))
         part_ttl = float(self.params.by_key("cache_part_ttl_s", 3600.0) or 0.0)
-        if max_bytes <= 0 or interval <= 0:
+        if max_bytes <= 0 or interval <= 0 or not hasattr(self.storage, "prune"):
             return None
 
         def run() -> None:
@@ -536,8 +621,8 @@ class FlyimgServer(ThreadingHTTPServer):
                 return name, _ROUTE_FUNCS[name], m.groupdict()
         if get and path in _STATIC_GET:
             return _route_label(path), _STATIC_GET[path], {}
-        if method == "POST" and path == "/debug/profile":
-            return "debug", _debug_profile_arm, {}
+        if method == "POST" and path in _STATIC_POST:
+            return "debug", _STATIC_POST[path], {}
         if get:
             for prefix, fn in _PREFIX_GET:
                 if path.startswith(prefix) and len(path) > len(prefix):
@@ -575,8 +660,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
 
     def do_POST(self) -> None:  # noqa: N802
         length = int(self.headers.get("Content-Length") or 0)
-        if length > 0:
-            self.rfile.read(length)
+        self.body = self.rfile.read(length) if length > 0 else b""
         self._serve("POST")
 
     @property
@@ -598,12 +682,16 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 srv.brownout.evaluate()
                 srv.autotuner.evaluate()
                 srv.device_supervisor.evaluate()
+                srv.tier_supervisor.evaluate()
                 srv.telemetry.evaluate()
             if trace is not None:
                 trace.root.set_attribute("route", route)
                 trace.root.set_attribute("http.method", method)
                 trace.root.set_attribute("http.path", path)
                 trace.root.set_attribute("net.peer", self.client_address[0])
+                if srv.replica_id:
+                    # which replica's ring holds this trace
+                    trace.root.set_attribute("fleet.replica_id", srv.replica_id)
         srv.inflight.inc()
         t0 = time.perf_counter()
         response: Optional[Response] = None
@@ -623,6 +711,11 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 # before finish, so a breach's span event rides this trace
                 srv.slo.record(duration, ok=status < 500, trace=trace)
         status, body, headers = response
+        if (srv.debug and srv.replica_id and route in _TRACED_ROUTES
+                and "X-Flyimg-Replica" not in headers):
+            # the replica that produced the answer; a proxied one keeps
+            # its owner's
+            headers["X-Flyimg-Replica"] = srv.replica_id
         if trace is not None:
             trace.root.set_attribute("http.status", status)
             srv.tracer.finish(trace, "error" if status >= 500 else "ok")
@@ -640,6 +733,7 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 trace_id=trace.trace_id if trace is not None else None,
                 span_id=trace.root.span_id if trace is not None else None,
                 user_agent=self.headers.get("User-Agent"),
+                replica=srv.replica_id or None,
             )
         self._send(status, body, headers)
 
@@ -666,7 +760,58 @@ def _text(text: str, status: int = 200) -> Response:
     return status, text.encode(), {"Content-Type": _TEXT}
 
 
+def _route_fleet(req: _RequestHandler, match, trace) -> Optional[Response]:
+    """Owner routing of one ``/upload`` request: the owner's relayed
+    answer, or None when this replica renders (it owns the key, the
+    request hopped once already, the mode is ``local``, or the owner is
+    down or answered 5xx, when the render here is the fallback and the
+    shared lease still dedups it)."""
+    srv = req.server
+    fleet = srv.fleet
+    if not fleet.enabled:
+        return None
+    key = route_key(match["options"], match["imageSrc"],
+                    separator=str(srv.params.by_key("options_separator", ",")))
+    owner = fleet.owner(key)
+    route_span = trace.start_span("fleet.route") if trace is not None else None
+    outcome = "self"
+    try:
+        if HOP_HEADER in req.headers:
+            # forwarded once already: render here whatever this replica's
+            # (maybe skewed) set says, so no request proxies in circles
+            outcome = "hop"
+            return None
+        if owner == fleet.self_id:
+            return None
+        if not fleet.proxies:
+            outcome = "local"
+            return None
+        relayed = fleet.proxy(
+            owner, req.path, req.headers,
+            timeout_s=float(srv.params.by_key("request_deadline_s", 0.0) or 0.0) or None,
+            traceparent=(tracing.format_traceparent(trace.trace_id, route_span.span_id)
+                         if route_span is not None else None),
+        )
+        if relayed is None:
+            outcome = "fallback"
+            return None
+        outcome = "proxied"
+        status, headers, body = relayed
+        return status, body, headers
+    finally:
+        fleet.record(outcome)
+        if route_span is not None:
+            route_span.attributes.update({
+                "fleet.owner": owner, "fleet.self": fleet.self_id,
+                "fleet.outcome": outcome,
+            })
+            route_span.end()
+
+
 def _upload(req: _RequestHandler, match, trace) -> Response:
+    routed = _route_fleet(req, match, trace)
+    if routed is not None:
+        return routed
     try:
         result = req.process(match, trace)
     except AppException as exc:
@@ -711,12 +856,22 @@ def _readyz(req, match, trace) -> Response:
     begins to drain, so a load balancer takes it out of rotation before
     the batchers drain."""
     srv = req.server
-    if srv.draining.is_set():
+    membership = srv.membership
+    # two drains answer here: the server's own, and a scale-in nomination
+    # of the observatory (the membership marker flips first)
+    if srv.draining.is_set() or (
+            membership.enabled and membership.current_status() == "draining"):
         return _json({"status": "draining"}, 503)
     doc = {"status": "ok"}
     if srv.device_supervisor.enabled:
-        # a failed-over server stays ready (hits and CPU renders serve)
+        # a failed-over server stays ready (hits and CPU renders serve);
+        # the fleet's health gate reads this field
         doc["device"] = "down" if srv.device_supervisor.cpu_forced() else "ok"
+    if membership.enabled:
+        doc["members"] = int(membership.member_count())
+    if srv.tier_supervisor.enabled:
+        # an islanded replica stays ready (L1 hits and journaled writes)
+        doc["tier"] = "island" if srv.tier_supervisor.islanded() else "attached"
     return _json(doc)
 
 
@@ -808,7 +963,10 @@ def _debug_perf(req, match, trace) -> Response:
     doc = srv.metrics.perf_snapshot()
     doc["host_pipeline"] = (srv.host_pipeline.snapshot()
                             if srv.host_pipeline.enabled else None)
-    doc["fleet"] = None
+    # which replica produced these windows (null with the fleet off)
+    doc["fleet"] = ({"replica_id": srv.replica_id, "replicas": srv.fleet.replicas,
+                     "mode": srv.fleet.mode}
+                    if srv.fleet.enabled else None)
     return _json(doc)
 
 
@@ -889,6 +1047,69 @@ def _debug_autotune(req, match, trace) -> Response:
 
 
 @_debug_404
+def _debug_fleet(req, match, trace) -> Response:
+    """Membership (self status, the live set, every readable marker and
+    its expiry verdict) and warm start's accounting."""
+    srv = req.server
+    doc = srv.membership.snapshot()
+    doc["warmstart"] = srv.warmstart.snapshot()
+    return _json(doc)
+
+
+@_debug_404
+def _debug_fleet_status(req, match, trace) -> Response:
+    """The whole fleet in one document: the observatory's digests, rollup
+    and recommendation, membership, and the router's peer health."""
+    srv = req.server
+    return _json({
+        "observatory": srv.observatory.snapshot(),
+        "membership": srv.membership.snapshot(),
+        "routing": srv.fleet.peer_health(),
+    })
+
+
+_REPLICAS_BODY = ('body must be {"replicas": ["http://...", ...], '
+                  '"replica_id": "..."} (replica_id optional)')
+
+
+@_debug_404
+def _debug_fleet_replicas(req, match, trace) -> Response:
+    """Swap the routing set online from ``{"replicas": [...],
+    "replica_id": "..."}``; refused while membership owns the set (its
+    next beat would overwrite the swap: a split brain)."""
+    srv = req.server
+    log = logging.getLogger("flyimg.fleet")
+    if srv.membership.active:
+        log.warning("manual replica-set reload rejected: elastic membership "
+                    "owns the replica set",
+                    extra={"event": "fleet.manual_reload_rejected",
+                           "source": "debug_endpoint"})
+        return _text("replica set is managed by fleet membership "
+                     "(fleet_membership_enable is on); a manual swap would be "
+                     "overwritten by the watcher's next beat — stop the "
+                     "replica or disable membership instead", 400)
+    try:
+        body = json.loads(getattr(req, "body", b"") or b"")
+    except ValueError:
+        return _text("body must be JSON", 400)
+    replicas = body.get("replicas") if isinstance(body, dict) else None
+    if not isinstance(replicas, list) or not all(isinstance(r, str) for r in replicas):
+        return _text(_REPLICAS_BODY, 400)
+    self_id = body.get("replica_id")
+    if self_id is not None and not isinstance(self_id, str):
+        return _text("replica_id must be a string", 400)
+    applied = srv.fleet.update_replicas(replicas, self_id=self_id)
+    log.info("replica set reloaded via /debug/fleet/replicas",
+             extra={"event": "fleet.replicas_reloaded", **applied})
+    return _json(applied)
+
+
+@_debug_404
+def _debug_tier(req, match, trace) -> Response:
+    return _json(req.server.tier_supervisor.snapshot())
+
+
+@_debug_404
 def _debug_memory(req, match, trace) -> Response:
     srv = req.server
     return _json({
@@ -916,6 +1137,13 @@ _STATIC_GET = {
     "/debug/device": _debug_device,
     "/debug/telemetry": _debug_telemetry,
     "/debug/autotune": _debug_autotune,
+    "/debug/fleet": _debug_fleet,
+    "/debug/fleet/status": _debug_fleet_status,
+    "/debug/tier": _debug_tier,
+}
+_STATIC_POST = {
+    "/debug/profile": _debug_profile_arm,
+    "/debug/fleet/replicas": _debug_fleet_replicas,
 }
 # one path segment after the prefix (aiohttp's {name})
 _PREFIX_GET = (
@@ -943,6 +1171,42 @@ def serve_in_thread(server: FlyimgServer) -> threading.Thread:
     )
     thread.start()
     return thread
+
+
+def reload_replicas(server: FlyimgServer, params_path: str) -> Optional[dict]:
+    """Re-read ``fleet_replicas`` and ``fleet_replica_id`` from the params
+    file into the router (the SIGHUP path; the same swap as ``POST
+    /debug/fleet/replicas``). Refused while membership owns the set."""
+    log = logging.getLogger("flyimg.fleet")
+    if server.membership.active:
+        log.warning("SIGHUP replica reload rejected: elastic membership owns "
+                    "the replica set",
+                    extra={"event": "fleet.manual_reload_rejected", "source": "sighup"})
+        return None
+    try:
+        fresh = AppParameters.from_json(params_path)
+        applied = server.fleet.update_replicas(
+            list(fresh.by_key("fleet_replicas", []) or []),
+            self_id=str(fresh.by_key("fleet_replica_id", "") or "") or None)
+    except Exception as exc:
+        log.warning("SIGHUP replica reload failed: %s", exc)
+        return None
+    log.info("replica set reloaded on SIGHUP",
+             extra={"event": "fleet.replicas_reloaded", **applied})
+    return applied
+
+
+def install_sighup_reload(server: FlyimgServer, params_path: str) -> bool:
+    """SIGHUP reloads the replica set, where the platform has the signal
+    and this is the main thread (else the boot set stays)."""
+    sighup = getattr(signal, "SIGHUP", None)
+    if sighup is None or threading.current_thread() is not threading.main_thread():
+        return False
+    try:
+        signal.signal(sighup, lambda _signum, _frame: reload_replicas(server, params_path))
+    except (ValueError, OSError):
+        return False
+    return True
 
 
 def main(argv=None) -> int:
@@ -973,7 +1237,12 @@ def main(argv=None) -> int:
         print(SecurityHandler(params).encrypt(args.payload))
         return 0
     if args.cmd == "prune":
-        print(json.dumps(make_storage(params).prune(args.max_bytes)))
+        storage = make_storage(params)
+        if not hasattr(storage, "prune"):
+            print(f"{type(storage).__name__} does not support prune "
+                  "(use a bucket lifecycle policy)", file=sys.stderr)
+            return 1
+        print(json.dumps(storage.prune(args.max_bytes)))
         return 0
     if args.cmd != "serve":
         parser.print_help()
@@ -982,6 +1251,8 @@ def main(argv=None) -> int:
     server = make_server(params, args.host, args.port, args.device)
     print(f"flyimg-tpu-torch serving on {args.host}:{server.server_address[1]} "
           f"({server.batcher.device})", file=sys.stderr)
+    if args.params:
+        install_sighup_reload(server, args.params)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

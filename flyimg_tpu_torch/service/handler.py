@@ -61,9 +61,15 @@ The JAX handler's opt-in modules, each off by default and then inert:
   the CPU failover every render runs on the CPU, is tagged
   ``X-Flyimg-Degraded: cpu-fallback`` and is never stored;
 - telemetry (``runtime/telemetry.py``): each answer's outcome feeds the
-  traffic-mix classifier.
-
-The fleet tier (the L2 lease) is not ported.
+  traffic-mix classifier;
+- the cross-replica lease (``storage/tiered.py`` ``L2Lease``, on with
+  ``l2_enable``): on a miss in both tiers the first replica leases the
+  name in the shared L2 and renders; the others poll for its artifact at
+  ``l2_lease_poll_ms`` (504 past their budget, 503 past
+  ``l2_lease_wait_cap_s``), steal a lease that expired or was released
+  without an artifact, and discard a torn artifact from both tiers to
+  render it once the lease frees. ``rf_1`` skips the wait and still
+  writes through. The lease is released however the render ends.
 """
 
 from __future__ import annotations
@@ -129,6 +135,7 @@ from flyimg_tpu_torch.spec.plan import (
 )
 from flyimg_tpu_torch.testing import faults
 from flyimg_tpu_torch.storage import Storage, make_storage
+from flyimg_tpu_torch.storage.tiered import L2Lease
 
 
 class _SingleFlight:
@@ -319,6 +326,11 @@ class ImageHandler:
         self.reuse_degraded_min_scale = float(
             self.params.by_key("reuse_degraded_min_scale", 1.3))
         self.variants = VariantIndex.from_params(self.params, storage=self.storage.shared)
+        # the cross-replica lease: None (l2_enable off) keeps the miss path
+        self.l2lease = None
+        if (bool(self.params.by_key("l2_enable", False))
+                and bool(self.params.by_key("l2_lease_enable", True))):
+            self.l2lease = L2Lease.from_params(self.params, storage=self.storage.shared)
         self.tmp_dir = self.params.by_key("tmp_dir")
         self.fetch_policy = FetchPolicy.from_params(self.params, metrics=self.metrics)
         self.default_deadline_s = float(self.params.by_key("request_deadline_s") or 0.0)
@@ -516,7 +528,26 @@ class ImageHandler:
             )
         modes: List[str] = []
         reused = None
+        lease_token: Optional[str] = None
         try:
+            # the fleet's single flight: a follower serves the leader's
+            # artifact here (no fetch, no decode, no launch) and settles its
+            # own coalesced waiters with it; rf_1 renders without waiting
+            if self.l2lease is not None and not refresh:
+                verdict = self._l2_coalesce(spec, deadline)
+                if verdict[0] == "serve":
+                    _, content, mtime = verdict
+                    self._flight.done(spec.name, result=(content, mtime, ()))
+                    timings["l2_coalesced"] = time.perf_counter() - t0
+                    timings["total"] = timings["l2_coalesced"]
+                    self.metrics.record_cache(hit=True)
+                    self.metrics.record_stage("l2_coalesced", timings["l2_coalesced"])
+                    self._record_mix(options, image_src, source_key, "coalesced")
+                    return ProcessedImage(
+                        content=content, spec=spec, options=options,
+                        from_cache=True, timings=timings, modified_at=mtime,
+                    )
+                lease_token = verdict[1]
             # BROWNOUT: the cheaper plan, the entropy crop, the quality clamp
             degrade = engine if engine is not None and engine.plan_degrade_active() else None
             content = None
@@ -563,8 +594,16 @@ class ImageHandler:
                         spec, options, render_info, generations=reuse_generation,
                         ancestor=reused)
         except BaseException as exc:
+            if lease_token is not None:
+                # before the local waiters: a polling replica steals the
+                # freed lease at once instead of waiting out its TTL
+                self.l2lease.release(spec.name, lease_token)
             self._flight.done(spec.name, exc=exc)
             raise
+        if lease_token is not None:
+            # after the write, so a follower that sees the lease freed finds
+            # the bytes (after a degraded, unstored render it renders itself)
+            self.l2lease.release(spec.name, lease_token)
         self._flight.done(spec.name, result=(content, mtime, tuple(modes)))
         timings["total"] = time.perf_counter() - t0
         if reused is not None:
@@ -579,6 +618,84 @@ class ImageHandler:
             modified_at=mtime, degraded=tuple(modes),
             reused_from=reused.name if reused is not None else None,
         )
+
+    # -- the cross-replica lease ------------------------------------------------
+
+    def _l2_coalesce(self, spec: OutputSpec, deadline: Deadline):
+        """This replica's part in a miss in both tiers: ``("lead", token)``
+        when it renders (``token`` releases the lease after; None when the
+        lease IO itself failed, and the render goes uncoalesced), or
+        ``("serve", content, mtime)`` with a remote leader's artifact.
+
+        A follower polls every ``l2_lease_poll_ms``, bounded by its budget
+        (504) and by the wait cap (503). A lease that expired or was freed
+        without an artifact (a crashed leader, a degraded render) is
+        stolen. A torn artifact is discarded from both tiers and rendered
+        here once the lease frees."""
+        lease = self.l2lease
+        with tracing.span("l2.lease", key=spec.name) as lease_span:
+            token = lease.acquire(spec.name)
+            if token is not None:
+                # a previous leader may have stored the artifact after this
+                # request's fetch missed and before its release let us in
+                cached = self.storage.fetch_hedged(spec.name)
+                if cached is not None and _cache_entry_valid(cached[0], spec):
+                    lease.release(spec.name, token)
+                    return self._lease_serve(lease_span, cached)
+                self._lease_role(lease_span, "lead", "leader")
+                tracing.add_event("l2.lease_acquired", key=spec.name)
+                return ("lead", token)
+            tracing.add_event("l2.lease_wait", key=spec.name,
+                              holder=lease.holder(spec.name) or "")
+            # a follower counts in lease.waiters, the brownout engine's
+            # l2_lease pressure: a fleet-wide stampede parks them here
+            lease.begin_wait()
+            try:
+                waited = 0.0
+                while True:
+                    deadline.check("l2_lease")
+                    if waited >= lease.wait_cap_s:
+                        self._lease_role(lease_span, "timeout", "timeout")
+                        raise ServiceUnavailableException(
+                            "timed out waiting for the fleet leader rendering "
+                            "this output")
+                    step = max(deadline.timeout(lease.poll_s) or lease.poll_s, 0.001)
+                    lease._sleep(step)
+                    waited += step
+                    cached = self.storage.fetch_hedged(spec.name)
+                    if cached is not None:
+                        if _cache_entry_valid(cached[0], spec):
+                            return self._lease_serve(lease_span, cached)
+                        # torn under an active lease: it serves nowhere in
+                        # the fleet, and renders here once the lease frees
+                        tracing.add_event("cache.corrupt", key=spec.name,
+                                          bytes=len(cached[0]))
+                        self.metrics.record_cache_corrupt()
+                        try:
+                            self.storage.delete(spec.name)
+                        except Exception:
+                            pass
+                    token = lease.acquire(spec.name)
+                    if token is not None:
+                        self._lease_role(lease_span, "steal", "steal")
+                        tracing.add_event("l2.lease_steal", key=spec.name)
+                        return ("lead", token)
+            finally:
+                lease.end_wait()
+
+    def _lease_serve(self, span, cached):
+        self._lease_role(span, "coalesced", "coalesced")
+        return ("serve", cached[0], cached[1].mtime)
+
+    def _lease_role(self, span, outcome: str, role: str) -> None:
+        """One lease decision: ``flyimg_l2_lease_total{outcome}`` (lead |
+        coalesced | steal | timeout) and the span's ``lease.role``."""
+        self.metrics.counter(
+            f'flyimg_l2_lease_total{{outcome="{outcome}"}}',
+            "Cross-replica lease decisions on both-tier cache misses",
+        ).inc()
+        if span is not None:
+            span.set_attribute("lease.role", role)
 
     # -- brownout -------------------------------------------------------------
 

@@ -25,9 +25,9 @@ keys of modules not ported yet:
   and ``/debug/device`` the failover; clean probes re-promote and the
   answers are the clean run's bytes, stored; with the supervisor off the
   same storm never serves a CPU answer;
-- every still-unported enable key, and a non-empty ``fleet_replicas``,
-  raises ``NotPortedException`` when the server is made; the ported ones
-  (warm start, the autotuner) start a server that answers.
+- the fleet tier's enable keys, and a non-empty ``fleet_replicas``, arm
+  their modules as the JAX app arms them; warm start and the autotuner
+  start a server that answers.
 """
 
 import io
@@ -51,8 +51,7 @@ from flyimg_tpu.runtime.resilience import TRANSIENT as JTRANSIENT
 from flyimg_tpu.service.handler import ImageHandler as JImageHandler
 from flyimg_tpu.storage.local import LocalStorage as JLocalStorage
 from flyimg_tpu.testing import faults as jfaults
-from flyimg_tpu_torch.appconfig import UNPORTED_ENABLE_KEYS, AppParameters
-from flyimg_tpu_torch.exceptions import NotPortedException
+from flyimg_tpu_torch.appconfig import AppParameters
 from flyimg_tpu_torch.runtime import devicesupervisor as sup_mod
 from flyimg_tpu_torch.runtime.batcher import BatchController
 from flyimg_tpu_torch.runtime.metrics import MetricsRegistry
@@ -427,41 +426,86 @@ def test_server_fails_over_and_repromotes(tmp_path, enabled):
         thread.join(timeout=10)
 
 
-@pytest.mark.parametrize("key", UNPORTED_ENABLE_KEYS)
+FLEET_ENABLE_KEYS = ("l2_enable", "tier_supervisor_enable", "tier_scrub_enable",
+                     "fleet_membership_enable", "fleet_observatory_enable")
+
+
+def _jax_fleet_modules(params):
+    """What the JAX app arms for ``params``: its store's class and each
+    fleet module's ``enabled`` (and the scrubber's)."""
+    from flyimg_tpu.runtime.fleet import FleetRouter as JFleetRouter
+    from flyimg_tpu.runtime.membership import FleetMembership as JFleetMembership
+    from flyimg_tpu.runtime.observatory import FleetObservatory as JFleetObservatory
+    from flyimg_tpu.runtime.tiersupervisor import TierSupervisor as JTierSupervisor
+    from flyimg_tpu.storage import make_storage as jmake_storage
+
+    storage = jmake_storage(params)
+    router = JFleetRouter.from_params(params)
+    tier = JTierSupervisor.from_params(params)
+    membership = JFleetMembership.from_params(params, storage=storage.shared, router=router)
+    observatory = JFleetObservatory.from_params(params, storage=storage.shared,
+                                                membership=membership)
+    return (type(storage).__name__, router.enabled, tier.enabled, tier.scrub_enable,
+            membership.enabled, observatory.enabled)
+
+
+def _port_fleet_modules(server):
+    return (type(server.storage).__name__, server.fleet.enabled,
+            server.tier_supervisor.enabled, server.tier_supervisor.scrub_enable,
+            server.membership.enabled, server.observatory.enabled)
+
+
+@pytest.mark.parametrize("key", FLEET_ENABLE_KEYS)
 def test_unported_enable_keys_refuse_the_server(tmp_path, key):
-    with pytest.raises(NotPortedException, match=key):
-        make_server(AppParameters({"upload_dir": str(tmp_path / "u"),
-                                   "tmp_dir": str(tmp_path / "t"), key: True}), device="cpu")
-    off = make_server(AppParameters({"upload_dir": str(tmp_path / "u2"),
-                                     "tmp_dir": str(tmp_path / "t2"), key: False}),
-                      device="cpu")
-    off.server_close()
+    """The fleet tier's enable keys, which refused the server before the
+    tier was ported, now arm their module as the JAX app arms it: the same
+    store and the same ``enabled`` for each module; off, each is inert."""
+    for on in (True, False):
+        settings = {"upload_dir": str(tmp_path / f"u{on}"), "tmp_dir": str(tmp_path / f"t{on}"),
+                    "l2_upload_dir": str(tmp_path / f"l2{on}"),
+                    "fleet_replica_id": "http://127.0.0.1:1", key: on}
+        server = make_server(AppParameters(settings), device="cpu")
+        try:
+            assert _port_fleet_modules(server) == _jax_fleet_modules(JAppParameters(settings))
+            assert (server.handler.l2lease is not None) == (key == "l2_enable" and on)
+        finally:
+            server.server_close()
 
 
 def test_fleet_replicas_refuse_the_server(tmp_path):
-    """A non-empty ``fleet_replicas`` arms rendezvous routing in the JAX app;
-    the port, which has no routing yet, refuses it by name; an empty list
-    serves."""
+    """A non-empty ``fleet_replicas``, which refused the server before
+    routing was ported, now arms rendezvous routing as in the JAX app: the
+    router is on exactly when the JAX one is, and a request answers whether
+    its owner is this replica or a peer that cannot be reached (the
+    fallback renders here); an empty list serves with routing off."""
+    from flyimg_tpu.runtime.fleet import FleetRouter as JFleetRouter
+
     replicas = ["http://127.0.0.1:1", "http://127.0.0.1:2"]
-    with pytest.raises(NotPortedException, match="fleet_replicas"):
-        make_server(AppParameters({"upload_dir": str(tmp_path / "u"),
-                                   "tmp_dir": str(tmp_path / "t"),
-                                   "fleet_replicas": replicas}), device="cpu")
+    for replica_id in ("", replicas[0]):
+        settings = {"upload_dir": str(tmp_path / "u"), "tmp_dir": str(tmp_path / "t"),
+                    "fleet_replicas": replicas, "fleet_replica_id": replica_id}
+        server = make_server(AppParameters(settings), device="cpu")
+        assert server.fleet.enabled == JFleetRouter.from_params(
+            JAppParameters(settings)).enabled == bool(replica_id)
+        server.server_close()
     assert JAppParameters().by_key("fleet_replicas") == AppParameters().by_key(
         "fleet_replicas") == []
     src = tmp_path / "src.png"
     Image.fromarray(_img(7, 60, 80)).save(src)
-    server = make_server(AppParameters({"upload_dir": str(tmp_path / "u2"),
-                                        "tmp_dir": str(tmp_path / "t2"),
-                                        "fleet_replicas": []}), device="cpu")
-    thread = serve_in_thread(server)
-    try:
-        base = f"http://127.0.0.1:{server.server_address[1]}"
-        assert _get(f"{base}/upload/w_40,h_30,c_1,o_png/{src}")[0] == 200
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=10)
+    for replica_list in (replicas, []):
+        server = make_server(AppParameters({
+            "upload_dir": str(tmp_path / "u2"), "tmp_dir": str(tmp_path / "t2"),
+            "fleet_replicas": replica_list, "fleet_replica_id": replicas[0],
+            "retry_base_backoff_s": 0.001}), device="cpu")
+        thread = serve_in_thread(server)
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            for w in (40, 41, 42, 43):
+                assert _get(f"{base}/upload/w_{w},h_30,c_1,o_png/{src}")[0] == 200
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
 
 
 @pytest.mark.parametrize("key", ["warmstart_enable", "autotune_enable"])

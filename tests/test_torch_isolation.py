@@ -36,8 +36,8 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     decode a still GIF and a two-frame animated one, decode a BMP and
     refuse a JPEG on the CPU by name, and rasterize a PDF page of a DCT
     image, with neither JAX, the JAX package, Pillow (which the card machine
-    lacks) nor OpenCV (imported only when a video frame is asked for)
-    loaded."""
+    lacks), OpenCV (imported only when a video frame is asked for), httpx nor
+    aiohttp (the fleet's proxy is the standard library's) loaded."""
     mods = _all_modules()
     assert "flyimg_tpu_torch.service.app" in mods
     assert "flyimg_tpu_torch.models.blazeface" in mods
@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
     for name in ("runtime.tracing", "runtime.metrics", "runtime.logging", "runtime.slo",
                  "runtime.flightrecorder", "runtime.profiling", "runtime.warmstart",
                  "runtime.autotuner", "runtime.observatory", "service.security",
-                 "service.aes", "storage.base", "storage.local"):
+                 "service.aes", "storage.base", "storage.local", "storage.s3",
+                 "storage.gcs", "storage.tiered", "runtime.fleet", "runtime.membership",
+                 "runtime.tiersupervisor"):
         assert f"flyimg_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -113,7 +115,8 @@ def test_every_module_imports_without_jax_or_the_jax_package(tmp_path):
         "assert video.FFMPEG is None or video.FFMPEG\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'flyimg_tpu' or n.startswith('flyimg_tpu.')\n"
-        "             or n == 'PIL' or n.startswith('PIL.') or n == 'cv2')\n"
+        "             or n == 'PIL' or n.startswith('PIL.') or n == 'cv2'\n"
+        "             or n.split('.')[0] in ('httpx', 'aiohttp'))\n"
         "print('BAD', bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -108,6 +108,28 @@ def test_ceilings_halve_probe_and_expire_as_jax():
             theirs.member_cap("fam", (10, 10), 64, lambda n: n)
 
 
+def test_mem_clock_expires_ceilings_as_jax():
+    """C24: ``from_params`` takes its clock from ``mem_clock``, as the JAX
+    governor does, so two governors given one clock drop a ceiling at the
+    same tick, ``mem_ceiling_ttl_s`` after it was set."""
+    from flyimg_tpu.appconfig import AppParameters as JAppParameters
+
+    now = [1000.0]
+    settings = {"mem_governor_enable": True, "mem_ceiling_ttl_s": 60.0,
+                "mem_clock": lambda: now[0]}
+    ours = MemoryGovernor.from_params(AppParameters(settings))
+    theirs = jmg.MemoryGovernor.from_params(JAppParameters(settings))
+    assert AppParameters().by_key("mem_clock") is JAppParameters().by_key("mem_clock") is None
+    assert ours.record_oom("fam", 8) == theirs.record_oom("fam", 8) == 4
+    seen = []
+    for step in (30.0, 29.0, 1.0, 0.5, 10.0):      # 1030, 1059, 1060, ...
+        now[0] += step
+        seen.append((ours.has_ceiling("fam"), ours.active_ceilings()))
+        assert seen[-1] == (theirs.has_ceiling("fam"), theirs.active_ceilings())
+    # set at 1000, gone from 1060 on the injected clock (not the host's)
+    assert seen == [(True, 1), (True, 1), (False, 0), (False, 0), (False, 0)]
+
+
 def test_record_oom_caps_even_when_disabled():
     ours, theirs, _ = _pair(enabled=False)
     assert ours.record_oom("fam", 8) == theirs.record_oom("fam", 8) == 4

@@ -9,9 +9,10 @@ and unknown route names, and the ``encrypt`` and ``prune`` subcommands.
 The debug routes of brownout, the device supervisor, telemetry and the
 autotuner answer as the JAX app's (200, the same keys; the autotuner's
 document equal), and ``/debug/plans`` has the JAX app's keys, the program
-caches' among them. Departures pinned here (ROADMAP Queue C): the families
-and debug routes of modules the port does not carry yet (the codec pools'
-busy ratio, the fleet tier, the tier supervisor) are absent."""
+caches' among them; the fleet tier's routes (``/debug/tier``,
+``/debug/fleet``, ``/debug/fleet/status``) answer the JAX app's documents.
+Departures pinned here (ROADMAP Queue C): the families of what the port does
+not carry (the codec pools' busy ratio, the boot backend) are absent."""
 
 import asyncio
 import io
@@ -138,6 +139,13 @@ def _families(text):
     return fams
 
 
+def _shape(doc):
+    """A JSON document's keys, nested."""
+    if isinstance(doc, dict):
+        return {k: _shape(v) for k, v in doc.items()}
+    return type(doc).__name__ if doc is not None else None
+
+
 def _sample(text, name):
     for line in text.splitlines():
         if line.startswith(name + " "):
@@ -145,13 +153,10 @@ def _sample(text, name):
     return 0.0
 
 
-#: families of modules the port does not carry yet (ROADMAP Queue C)
-NOT_PORTED_FAMILIES = re.compile(
-    r"flyimg_(host_pool_busy_ratio|boot_backend|fleet|"
-    r"tier|membership|observatory|l2)")
-#: their debug routes
-NOT_PORTED_ROUTES = ("/debug/tier", "/debug/fleet",
-                     "/debug/fleet/status")
+#: families of modules the port does not carry (ROADMAP Queue C)
+NOT_PORTED_FAMILIES = re.compile(r"flyimg_(host_pool_busy_ratio|boot_backend)")
+#: the fleet tier's debug routes (its modules off here)
+FLEET_ROUTES = ("/debug/tier", "/debug/fleet", "/debug/fleet/status")
 #: the debug routes of the ported opt-in modules (off here)
 MODULE_ROUTES = ("/debug/brownout", "/debug/device", "/debug/telemetry", "/debug/autotune")
 
@@ -181,7 +186,7 @@ def _main_requests(src):
         "drain",
         ("GET", "/readyz", None),
         ("GET", "/healthz", None),
-    ] + [("GET", r, None) for r in NOT_PORTED_ROUTES + MODULE_ROUTES]
+    ] + [("GET", r, None) for r in FLEET_ROUTES + MODULE_ROUTES]
 
 
 @pytest.fixture(scope="module")
@@ -395,13 +400,19 @@ def test_debug_routes_with_debug_on(main_sessions):
         [r["kind"] for r in jfr["records"] if r["kind"] != "host_stage"]
     assert set(json.loads(pairs[13][1][2])) == set(json.loads(pairs[13][0][2]))
     assert set(json.loads(pairs[14][1][2])) == set(json.loads(pairs[14][0][2]))
-    # not-ported modules' routes: the JAX app serves them, the port 404s
-    for k, route in enumerate(NOT_PORTED_ROUTES):
-        (js, _jh, _jb), (ts, _th, _tb) = pairs[21 + k]
-        assert js == 200 and ts == 404, route
+    # the fleet tier's routes answer alike: the same document, but for the
+    # age of the tier supervisor's state and the replica's own identity
+    for k, route in enumerate(FLEET_ROUTES):
+        (js, _jh, jb), (ts, _th, tb) = pairs[21 + k]
+        assert js == ts == 200, route
+        assert _shape(json.loads(tb)) == _shape(json.loads(jb)), route
+        jdoc, tdoc = json.loads(jb), json.loads(tb)
+        for doc in (jdoc, tdoc):
+            doc.pop("state_age_s", None)
+        assert tdoc == jdoc, route
     # the ported modules' routes answer alike
     for k, route in enumerate(MODULE_ROUTES):
-        (js, _jh, jb), (ts, _th, tb) = pairs[21 + len(NOT_PORTED_ROUTES) + k]
+        (js, _jh, jb), (ts, _th, tb) = pairs[21 + len(FLEET_ROUTES) + k]
         assert js == ts == 200, route
         assert set(json.loads(tb)) == set(json.loads(jb)), route
         if route == "/debug/autotune":      # off in both: the same document

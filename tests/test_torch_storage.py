@@ -20,7 +20,6 @@ from flyimg_tpu.storage import make_storage as jmake_storage
 from flyimg_tpu.storage.local import LocalStorage as JLocalStorage
 from flyimg_tpu.testing import faults as jfaults
 from flyimg_tpu_torch.appconfig import AppParameters
-from flyimg_tpu_torch.exceptions import NotPortedException
 from flyimg_tpu_torch.storage import make_storage
 from flyimg_tpu_torch.storage.local import LocalStorage
 from flyimg_tpu_torch.testing import faults as tfaults
@@ -200,6 +199,23 @@ def test_hedged_read_fires_one_backup(tmp_path):
 
 @pytest.mark.parametrize("extra", [{"storage_system": "s3"}, {"storage_system": "gcs"},
                                    {"l2_enable": True}])
-def test_stores_not_ported_raise(tmp_path, extra):
-    with pytest.raises(NotPortedException):
-        make_storage(AppParameters({"upload_dir": str(tmp_path / "u"), **extra}))
+def test_stores_not_ported_raise(tmp_path, monkeypatch, extra):
+    """The S3, GCS and tiered stores, refused before they were ported, are
+    built as the JAX package builds them (on stand-in clients): the same
+    class, the same shared tier's class, and a write and a read through."""
+    import torch_cloud_stand_ins as stand_in
+
+    built = {}
+    for name, (cls, make) in {"jax": (JAppParameters, jmake_storage),
+                              "torch": (AppParameters, make_storage)}.items():
+        stand_in.install_boto3(monkeypatch)
+        stand_in.install_gcs(monkeypatch)
+        conf = {**stand_in.S3_CONF, **stand_in.GCS_CONF,
+                "upload_dir": str(tmp_path / name / "u"),
+                "l2_upload_dir": str(tmp_path / name / "l2"), **extra}
+        store = make(cls(conf))
+        store.write("a.png", b"bytes")
+        built[name] = (type(store).__name__, type(store.shared).__name__,
+                       store.read("a.png"), store.fetch("a.png")[0])
+    assert built["torch"] == built["jax"]
+    assert built["torch"][2:] == (b"bytes", b"bytes")
