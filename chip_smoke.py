@@ -316,8 +316,19 @@ Phases, in order; any failure exits non-zero without a result line:
              journal replayed and a torn artifact scrubbed, membership's
              drain and expiry re-homing only the leaver's keys, and the
              observatory's digests and rollup.
+21. data parallel — sharded serving batches, the DP x TP BlazeFace step,
+             the offline bulk runner and the multi-chip dry run
+             (``phase_data_parallel``): a server's answers with its transform
+             batcher on a virtual data mesh of 2 and of 3 ranks of this card
+             byte-equal to its unsharded answers, K1 once a rank a launch
+             (a mesh over every card too when there are several); the
+             (dp 2, tp 2) step at batch 16 against the unsharded step on
+             the synthetic mask and on one whose positives differ between
+             the data shards, both timed; bulk_process and ``python -m
+             flyimg_tpu_torch.bulk`` over 16 seeded PNGs, every output the
+             served answer's bytes; ``entry.dryrun_multichip(4)``.
 
-Launch counters are zeroed right before each main-path phase (4-9, 11-20)
+Launch counters are zeroed right before each main-path phase (4-9, 11-21)
 and read right after; every kernel of the phase's path must have launched.
 From phase 6 on, nvJPEG's encode is wrapped in a counter: a served JPEG
 encode that reaches it fails the run (phases 10 and 14 time it directly as
@@ -2792,7 +2803,9 @@ def train_edges(torch, dev):
     and equal positives, a block's K12 then K11 adding into the residual's
     gradient, a head's strided gradient scaled and added into dy, K13 at
     one, three, 16 and 64 members (one launch a call, the same bits on a
-    repeated call), K14 on a length no block divides."""
+    repeated call) and as two data shards of 16 with the global mask
+    (unequal positives, one shard with none), K14 on a length no block
+    divides."""
     from flyimg_tpu_torch.models import blazeface as bf
     from flyimg_tpu_torch.models import blazeface_train as bt
 
@@ -2900,6 +2913,37 @@ def train_edges(torch, dev):
             check(rel_err(torch, got[0], ref[0]) <= LOSS_RTOL, f"K13 at N = {n}: loss off")
             worst["K13"] = max(worst["K13"], compare(
                 f"K13 at N = {n}", got[1:], ref[1:], HEAD_GRAD_RTOL))
+        # K13 as the DP x TP step's data shards call it: two shards of 8,
+        # each given the global batch's mask for its normalisers, their
+        # positives unequal (member i of shard 0 keeps i of its 8, shard 1
+        # none); each against the plain version, the shards' losses summing
+        # to the whole batch's and each shard's gradients its rows of it
+        model, (images, tp, tb, mask) = train_case(torch, dev, 16, 36)
+        x = bf.conv5x5_plain(images, model.stem.kernel, model.stem.bias, 2, True)
+        for i, block in enumerate(model.blocks):
+            x = block.forward_plain(x)
+            if i == bf.X16_BLOCK:
+                x16 = x
+        heads = tuple((c.kernel, c.bias, r.kernel, r.bias) for c, r, _ in model._heads())
+        mask = mask.clone()
+        for i in range(8):
+            mask[i, torch.nonzero(mask[i]).flatten()[i:]] = 0.0
+        mask[8:] = 0.0
+        whole = bt.head_loss(x16, x, heads, tp, tb, mask)
+        total = torch.zeros((), device=dev)
+        for c in (slice(0, 8), slice(8, 16)):
+            args = (x16[c], x[c], heads, tp[c], tb[c], mask[c], mask)
+            got, ref = bt.head_loss(*args), bt.head_loss_plain(*args)
+            label = f"K13 on members {c.start}-{c.stop - 1} with the global mask"
+            check(rel_err(torch, got[0], ref[0]) <= LOSS_RTOL, f"{label}: loss off")
+            worst["K13"] = max(worst["K13"], compare(label, got[1:], ref[1:],
+                                                     HEAD_GRAD_RTOL))
+            compare(f"{label} against the whole batch's rows", got[1:],
+                    (whole[1][c], whole[2][c]), HEAD_GRAD_RTOL)
+            total = total + got[0]
+        check(rel_err(torch, total, whole[0]) <= LOSS_RTOL,
+              f"K13: the shards' losses {float(total)} against the whole batch's "
+              f"{float(whole[0])}")
     p = randn(12345)
     g = randn(12345, scale=1e-3)
     a = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
@@ -3550,8 +3594,9 @@ def phase_resilience(torch, dev, card, workdir, kernels):
               and 1 <= counts["K3"] <= bound,
               f"bisection launches {counts} outside (1, {bound}]")
         check(len(transforms) <= bound, f"transform launches {transforms} > {bound}")
-        check(poisoned_b.stats["poison_isolated"] == 1 and len(poisoned_b.quarantine) == 1,
-              f"quarantine {len(poisoned_b.quarantine)}, stats {poisoned_b.stats}")
+        check(poisoned_b.containment_counts["poison_isolated"] == 1
+              and len(poisoned_b.quarantine) == 1,
+              f"quarantine {len(poisoned_b.quarantine)}, stats {poisoned_b.containment_counts}")
         print(f"resilience poison: 7 of 8 answers equal the clean run's bits, member "
               f"{POISONED} failed alone in {wall:.3f} s; transform launches {transforms} "
               f"(clean: [8]); kernel launches K1 {counts['K1']}, K2 {counts['K2']}, K3 "
@@ -3563,9 +3608,10 @@ def phase_resilience(torch, dev, card, workdir, kernels):
         log0 = len(poisoned_b.launch_log)
         again = _answers(h, flagship + ",rf_1", sources)
         later = [n for k, n, _b in list(poisoned_b.launch_log)[log0:] if k == "transform"]
-        check(poisoned_b.stats["quarantine_hits"] == 1 and later == [7]
-              and poisoned_b.stats["poison_isolated"] == 2,
-              f"the resubmission: transform launches {later}, stats {poisoned_b.stats}")
+        check(poisoned_b.containment_counts["quarantine_hits"] == 1 and later == [7]
+              and poisoned_b.containment_counts["poison_isolated"] == 2,
+              f"the resubmission: transform launches {later}, "
+              f"stats {poisoned_b.containment_counts}")
         check(again[POISONED][0] == "error" and all(
             k == "ok" and np.array_equal(o, c[1])
             for i, ((k, o), c) in enumerate(zip(again, clean)) if i != POISONED),
@@ -3632,7 +3678,7 @@ def phase_resilience(torch, dev, card, workdir, kernels):
         check(snap["oom_launches_total"] >= 1 and ceiling is not None
               and ceiling["cap_members"] == 4,
               f"the governor after the out-of-memory: {snap}")
-        check(len(oom_b.quarantine) == 0 and oom_b.stats["poison_isolated"] == 0,
+        check(len(oom_b.quarantine) == 0 and oom_b.containment_counts["poison_isolated"] == 0,
               "an out-of-memory member was quarantined")
         check([n for _k, n, _b in launches] == [8, 4, 4],
               f"out-of-memory launches {launches}")
@@ -3789,9 +3835,9 @@ def phase_pipeline(torch, dev, card, workdir, kernels):
     check(all(np.array_equal(a, b) for a, b in zip(answers, clean[:16])),
           "the drain-side failure: an answer differs from the clean wave's")
     check(set(seen) == {"flyimg-torch-batcher-drain"} and sorted(transforms) == [4, 4, 8, 8]
-          and ctl.stats["poison_isolated"] == 0,
+          and ctl.containment_counts["poison_isolated"] == 0,
           f"the drain-side failure: drains on {set(seen)}, launches {transforms}, "
-          f"stats {ctl.stats}")
+          f"stats {ctl.containment_counts}")
     print(f"pipeline drain fault: the second launch's readback failed on its drain thread "
           f"and was bisected there (transform launches {transforms}); all 16 answers equal "
           f"the clean wave's in {wall:.3f} s; K1-K3 launches {counts}")
@@ -6701,6 +6747,316 @@ def phase_fleet(torch, dev, card, workdir, kernels, size=FLEET_SIZE):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data-parallel execution and the offline bulk runner
+
+#: phase 21's sources (seeded 1024x768 PNGs) and options
+DP_SOURCES = 8
+DP_OPTS = ("w_300,h_250,c_1", "w_300,h_250,c_1,smc_1")
+DP_RANKS = (2, 3)
+BULK_SOURCES = 16
+BULK_OPTS = "w_300,h_250,c_1,smc_1"
+#: the sharded train step against the unsharded one
+#: (tests/test_torch_sharded_train.py's bounds)
+SHARD_LOSS_RTOL = 1e-6
+SHARD_GRAD_RTOL = 1e-5
+
+
+def adam_first_step_bound(np, g1, g2, p):
+    """How far apart Adam's first update leaves two parameters that start
+    equal (tests/test_torch_sharded_train.py): the update is
+    ``-lr g / (|g| + eps)``, whose slope is ``eps / (|g| + eps)^2``."""
+    from flyimg_tpu_torch.models import blazeface_train as bt
+
+    g1, g2, p = (np.asarray(t, np.float64) for t in (g1, g2, p))
+    lr, eps = bt.LEARNING_RATE, bt.ADAM_EPS
+    m = np.where(np.sign(g1) == np.sign(g2), np.minimum(np.abs(g1), np.abs(g2)), 0.0)
+    return lr * (np.minimum(2.0, np.abs(g1 - g2) * eps / (m + eps) ** 2) + 1e-6) \
+        + 2.0 ** -23 * np.abs(p)
+
+
+def sharded_wave(torch, server, base, paths, mesh, kernels):
+    """One concurrent wave of ``paths`` through ``server`` with its
+    transform batcher rebuilt on ``mesh`` (None: unsharded): the answers,
+    the transform launches (members, padded batch) and K1's launches."""
+    ctl = server.batcher
+    ctl.failover_backend(ctl.device, mesh=mesh, reason="smoke_mesh")
+    before = len(ctl.launch_log)
+    reset_counts(kernels)
+    answers, wall = service_wave(base, paths)
+    k1 = kernels["K1"].launches
+    launches = [(n, b) for k, n, b in list(ctl.launch_log)[before:] if k == "transform"]
+    for status, _h, body in answers:
+        check(status == 200, f"data mesh: an answer is {status}: {body[:200]!r}")
+    return [a[2] for a in answers], launches, k1, wall
+
+
+def held_wave(torch, ctl, frames, mesh, kernels):
+    """The DP_OPTS[0] transform of every frame submitted straight to
+    ``ctl`` rebuilt on ``mesh`` (None: unsharded), its launches held until
+    the whole wave is queued so that one launch carries every member: the
+    outputs, the transform launches (members, padded batch) and K1's
+    launches."""
+    from flyimg_tpu_torch.spec.options import OptionsBag
+    from flyimg_tpu_torch.spec.plan import build_plan
+
+    ctl.failover_backend(ctl.device, mesh=mesh, reason="smoke_mesh")
+    h, w = frames[0].shape[:2]
+    before = len(ctl.launch_log)
+    reset_counts(kernels)
+    ctl.pause_launches()
+    try:
+        futures = [ctl.submit(f, build_plan(OptionsBag(DP_OPTS[0]), w, h)) for f in frames]
+    finally:
+        ctl.resume_launches()
+    outs = [f.result(timeout=120) for f in futures]
+    k1 = kernels["K1"].launches
+    launches = [(n, b) for k, n, b in list(ctl.launch_log)[before:] if k == "transform"]
+    return outs, launches, k1
+
+
+def phase_data_parallel(torch, dev, card, workdir, kernels):
+    """Phase 21: data-parallel execution and the offline bulk runner on the
+    card. (1) A server (banded) answers DP_SOURCES concurrent
+    /upload/{DP_OPTS},rf_1,o_png/ requests with its transform batcher
+    unsharded, then on a virtual data mesh of 2 and of 3 ranks on this card
+    (``failover_backend(dev, mesh=...)``; 3 is not a power of two): every
+    answer equal to the unsharded one byte for byte, every launch padded to
+    a multiple of the ranks, K1 launching once a rank a launch; the
+    per-rank chunk sizes printed. Then the same frames straight to the
+    server's batcher, launches held until all are queued (``held_wave``),
+    so that a launch carries real members on every rank: the outputs equal
+    to the unsharded ones. With more than one card both waves run again on
+    a data mesh over all of them. (2) The DP x TP BlazeFace step
+    (make_sharded_train_step) at batch TRAIN_BATCH, full width, on a (dp 2,
+    tp 2) virtual mesh of this card, against the unsharded make_train_step
+    from the same weights, on the synthetic batch and on a mask whose
+    positives differ between the data shards (loss within SHARD_LOSS_RTOL,
+    each gradient leaf within SHARD_GRAD_RTOL of its max |value|, the
+    parameters after Adam within adam_first_step_bound); both steps timed.
+    (3) bulk_process (o_png, one file at a time, dense as the default
+    parameters say) and ``python -m flyimg_tpu_torch.bulk`` (jpg, 8
+    workers, banded) over BULK_SOURCES seeded PNGs under BULK_OPTS, each
+    output equal to the answer of a server of the same resample form byte
+    for byte (the dense one's one request at a time). (4)
+    entry.dryrun_multichip(4). Returns the kernel launches."""
+    import numpy as np
+
+    from flyimg_tpu_torch.bulk import bulk_process
+    from flyimg_tpu_torch.entry import dryrun_multichip
+    from flyimg_tpu_torch.models import blazeface_train as bt
+    from flyimg_tpu_torch.parallel.mesh import local_devices, make_mesh, virtual_mesh
+
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in kernels}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    src = os.path.join(workdir, "dp_src")
+    os.makedirs(src)
+    for i in range(max(DP_SOURCES, BULK_SOURCES)):
+        synthetic_png(os.path.join(src, f"dp{i:02d}.png"), 1024, 768, 2100 + i)
+
+    # (1) sharded serving
+    server, thread, base = service_server(dev, workdir, "dp")
+    try:
+        paths = [f"/upload/{opts},rf_1,o_png/{os.path.join(src, f'dp{i:02d}.png')}"
+                 for opts in DP_OPTS for i in range(DP_SOURCES)]
+        meshes = [(1, None)] + [(n, virtual_mesh(n, dev, ("data",))) for n in DP_RANKS]
+        if torch.cuda.device_count() > 1:
+            cards = make_mesh(devices=local_devices())
+            meshes.append((f"{cards.shape['data']} cards", cards))
+        ref = None
+        for label, mesh in meshes:
+            bodies, launches, k1, wall = sharded_wave(torch, server, base, paths, mesh, kernels)
+            add(read_counts(kernels))
+            ranks = mesh.shape["data"] if mesh is not None else 1
+            check(all(b % ranks == 0 for _n, b in launches),
+                  f"data mesh {label}: a launch not padded to {ranks} ranks: {launches}")
+            check(k1 == ranks * len(launches),
+                  f"data mesh {label}: K1 launched {k1} times for {len(launches)} "
+                  f"launches on {ranks} ranks")
+            if ref is None:
+                ref = bodies
+            else:
+                diff = [i for i, (a, b) in enumerate(zip(bodies, ref)) if a != b]
+                check(not diff, f"data mesh {label}: answers {diff} differ from the "
+                      "unsharded ones")
+            print(json.dumps({"data_mesh": label, "ranks": ranks,
+                              "launches": launches,
+                              "rank_chunks": [b // ranks for _n, b in launches],
+                              "k1_launches": k1, "wave_s": round(wall, 4),
+                              "equal_to_unsharded": True, "card": card}))
+        # the HTTP waves' launches may each hold one member (their pad
+        # slots repeat it, so every rank's chunk is the same image): the
+        # frames again, straight to the batcher in one held launch, so
+        # that every rank's chunk holds real members and a chunk's offset
+        # or order shows in the outputs
+        frames = [synthetic_image(1024, 768, 2100 + i) for i in range(DP_SOURCES)]
+        ref = None
+        for label, mesh in meshes:
+            outs, launches, k1 = held_wave(torch, server.batcher, frames, mesh, kernels)
+            add(read_counts(kernels))
+            ranks = mesh.shape["data"] if mesh is not None else 1
+            check(all(b % ranks == 0 for _n, b in launches),
+                  f"held wave {label}: a launch not padded to {ranks} ranks: {launches}")
+            check(any(n > (ranks - 1) * b // ranks for n, b in launches),
+                  f"held wave {label}: no launch with members on all {ranks} ranks: "
+                  f"{launches}")
+            check(k1 == ranks * len(launches),
+                  f"held wave {label}: K1 launched {k1} times for {len(launches)} "
+                  f"launches on {ranks} ranks")
+            if ref is None:
+                ref = outs
+            else:
+                diff = [i for i, (a, b) in enumerate(zip(outs, ref))
+                        if not np.array_equal(a, b)]
+                check(not diff, f"held wave {label}: outputs {diff} differ from the "
+                      "unsharded ones")
+            print(json.dumps({"data_mesh_held": label, "ranks": ranks,
+                              "launches": launches,
+                              "rank_members": [[min(max(n - r * b // ranks, 0), b // ranks)
+                                                for r in range(ranks)]
+                                               for n, b in launches],
+                              "k1_launches": k1, "equal_to_unsharded": True,
+                              "card": card}))
+        if torch.cuda.device_count() < 2:
+            print(f"data mesh: one card ({card}); no real multi-card mesh measured")
+        server.batcher.failover_backend(dev, mesh=None, reason="smoke_mesh")
+    finally:
+        stop_server(server, thread)
+
+    # (2) the DP x TP step
+    reset_counts(kernels)
+    mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    steps = {}
+    for label in ("synthetic", "unequal"):
+        seed = 21
+        arrays = bt.synthetic_batch(np.random.default_rng(seed), TRAIN_BATCH)
+        if label == "unequal":
+            mask = arrays[3].copy()
+            for i in range(TRAIN_BATCH):
+                pos = np.flatnonzero(mask[i])
+                mask[i, pos[i // 2:]] = 0.0
+            arrays = arrays[:3] + (mask,)
+        batch = bt.batch_to(arrays, dev)
+        ref = bt.init_params(seed, dev)
+        _opt, step = bt.make_train_step(ref)
+        trainer, sharded_step = bt.make_sharded_train_step(bt.init_params(seed, dev), mesh)
+        want, got = float(step(*batch)), float(sharded_step(*batch))
+        check(abs(got - want) <= SHARD_LOSS_RTOL * abs(want),
+              f"DP x TP step ({label}): loss {got} against {want}")
+        off = 0
+        for name, p in ref.named_parameters():
+            n = p.numel()
+            err = rel_err(torch, trainer.grads[off:off + n], ref.flat_grads[off:off + n])
+            check(err <= SHARD_GRAD_RTOL, f"DP x TP step ({label}): {name} gradient {err}")
+            off += n
+        excess = (np.abs(trainer.full_params().cpu().numpy().astype(np.float64)
+                         - ref.flat_params.detach().cpu().numpy())
+                  - adam_first_step_bound(np, trainer.grads.cpu().numpy(),
+                                          ref.flat_grads.cpu().numpy(),
+                                          ref.flat_params.detach().cpu().numpy()))
+        check(excess.max() <= 0.0, f"DP x TP step ({label}): parameters past the bound "
+              f"by {excess.max()}")
+        steps[label] = (step, sharded_step, batch, want, got)
+    counts = read_counts(kernels)
+    add(counts)
+    for name in ("K9", "K10", "K11", "K12", "K13", "K14"):
+        check(counts[name] > 0, f"DP x TP step: {name} never launched")
+    step, sharded_step, batch, want, got = steps["synthetic"]
+    per_step = {}
+    for label, fn in (("dp2_tp2", sharded_step), ("unsharded", step)):
+        reset_counts(kernels)
+        fn(*batch)
+        torch.cuda.synchronize()
+        per_step[label] = {k: kernels[k].launches
+                           for k in ("K9", "K10", "K11", "K12", "K13", "K14")}
+        add(read_counts(kernels))
+    check(per_step["dp2_tp2"]["K13"] == 2 and per_step["dp2_tp2"]["K14"] == 4,
+          f"DP x TP step: K13 once a data rank and K14 once a rank: {per_step}")
+    times = {}
+    for label, fn in (("unsharded", step), ("dp2_tp2", sharded_step),
+                      ("dp2_tp2", sharded_step), ("unsharded", step)):
+        for _ in range(2):
+            fn(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(*batch)
+        torch.cuda.synchronize()
+        times.setdefault(label, []).append((time.perf_counter() - t0) / 10 * 1e3)
+    print(json.dumps({"dp_tp_step": {
+        "batch": TRAIN_BATCH, "mesh": {"data": 2, "model": 2}, "loss": got,
+        "unsharded_loss": want, "ms": times["dp2_tp2"], "unsharded_ms": times["unsharded"],
+        "launches_a_step": per_step}, "card": card}))
+
+    # (3) the bulk runner against served answers. bulk_process runs the
+    # default parameters' dense resample, whose batched matmul may round a
+    # value apart at another launch size (ROADMAP C26): it runs one file at
+    # a time beside a dense server answering one request at a time (every
+    # launch a batch of 1 on both sides). The CLI runs K1's form
+    # (FLYIMG_RESAMPLE_KERNEL=banded seeds its default, as in the JAX
+    # package), whose bits do not depend on the launch, with 8 workers
+    # beside a banded server's concurrent wave.
+    bulk_src = os.path.join(workdir, "bulk_src")
+    os.makedirs(bulk_src)
+    for i in range(BULK_SOURCES):
+        shutil.copy(os.path.join(src, f"dp{i:02d}.png"), bulk_src)
+    served_paths = {fmt: [f"/upload/{BULK_OPTS},o_{fmt}/{os.path.join(bulk_src, f'dp{i:02d}.png')}"
+                          for i in range(BULK_SOURCES)] for fmt in ("png", "jpg")}
+
+    def held(fmt, out, served):
+        names = sorted(os.listdir(os.path.join(workdir, out)))
+        check(names == [f"dp{i:02d}.{fmt}" for i in range(BULK_SOURCES)],
+              f"bulk {fmt}: outputs {names}")
+        for i, (status, _h, body) in enumerate(served):
+            check(status == 200, f"bulk {fmt}: the served answer {i} is {status}")
+            with open(os.path.join(workdir, out, f"dp{i:02d}.{fmt}"), "rb") as fh:
+                check(fh.read() == body, f"bulk {fmt}: dp{i:02d} differs from the served answer")
+
+    reset_counts(kernels)
+    server, thread, base = service_server(dev, workdir, "bulk", resample_kernel="dense")
+    try:
+        t0 = time.perf_counter()
+        summary = bulk_process(bulk_src, os.path.join(workdir, "bulk_png"), BULK_OPTS,
+                               out_format="png", workers=1, device=dev)
+        bulk_s = time.perf_counter() - t0
+        served, _wall = service_wave(base, served_paths["png"], concurrent=False)
+        held("png", "bulk_png", served)
+    finally:
+        stop_server(server, thread)
+    server, thread, base = service_server(dev, workdir, "bulk_banded")
+    try:
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "flyimg_tpu_torch.bulk", "--src", bulk_src,
+             "--out", os.path.join(workdir, "bulk_jpg"), "--options", BULK_OPTS,
+             "--format", "jpg", "--workers", "8", "--device", "cuda"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "FLYIMG_RESAMPLE_KERNEL": "banded"})
+        cli_s = time.perf_counter() - t0
+        check(cli.returncode == 0, f"bulk CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+        cli_summary = json.loads(cli.stdout.strip().splitlines()[-1])
+        served, _wall = service_wave(base, served_paths["jpg"])
+        held("jpg", "bulk_jpg", served)
+    finally:
+        stop_server(server, thread)
+    add(read_counts(kernels))
+    for label, doc in (("bulk_process", summary), ("bulk CLI", cli_summary)):
+        check(doc["images"] == BULK_SOURCES and doc["failed"] == 0, f"{label}: {doc}")
+    print(json.dumps({"bulk": summary, "bulk_cli": cli_summary, "bulk_s": round(bulk_s, 3),
+                      "bulk_cli_s": round(cli_s, 3), "equal_to_served": True,
+                      "card": card}))
+
+    # (4) the multi-chip dry run on a virtual CPU mesh
+    dryrun_multichip(4)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return totals
+
+
 def kernel_wrappers():
     """Every kernel's wrapper by name; each counts its launches in
     ``launches``."""
@@ -7005,7 +7361,17 @@ def main() -> int:
     print(f"fleet kernel launches: {fleet_counts}; card {card}")
     for name in ("K1", "K2", "K3", "K16", "K18", "K19"):
         check(fleet_counts[name] > 0, f"fleet: {name} never launched")
-    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-20 reached "
+    # phase 21: sharded serving batches, the DP x TP step, the bulk runner
+    # and the multi-chip dry run (main path)
+    os.makedirs(workdir)
+    try:
+        dp_counts = phase_data_parallel(torch, dev, card, workdir, kernels)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"data-parallel kernel launches: {dp_counts}; card {card}")
+    for name in ("K1", "K2", "K3", "K9", "K10", "K11", "K12", "K13", "K14", "K16"):
+        check(dp_counts[name] > 0, f"data parallel: {name} never launched")
+    check(not nvjpeg_encodes, f"{len(nvjpeg_encodes)} JPEG encodes of phases 6-21 reached "
           "nvJPEG's encode")
     native_codec.jpeg_encode = NVJPEG_ENCODE
 
@@ -7063,7 +7429,7 @@ def main() -> int:
                     + resilience_counts[key] + pipeline_counts[key]
                     + formats_counts[key] + jpeg_counts[key] + decode_counts[key]
                     + ingest_counts[key] + service_counts[key] + degrade_counts[key]
-                    + warm_counts[key] + fleet_counts[key])
+                    + warm_counts[key] + fleet_counts[key] + dp_counts[key])
         row = rows[key]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": source,

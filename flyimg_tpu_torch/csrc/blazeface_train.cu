@@ -19,10 +19,16 @@
 // with its 1e-7 terms and the masked smooth-L1, differentiated as JAX
 // differentiates the written expression (d log(p + 1e-7) = 1 / (p + 1e-7),
 // d logistic = ans (1 - ans)); one launch: a block a tile of pixels of
-// one map; every block sums the whole mask itself in the same order (so
-// all agree on the reg normaliser sum(mask) * 4 + 1e-6) and scales its
-// own draw; the last block by ticket sums the tiles' loss partials in tile
-// order.
+// one map; every block sums the whole normaliser mask itself in the same
+// order (so all agree on the reg normaliser sum(mask) * 4 + 1e-6) and
+// scales its own draw; the last block by ticket sums the tiles' loss
+// partials in tile order. The normalisers are the launch's arguments: the
+// mask summed (`norm_mask`, `norm_n` members) and the count of the focal
+// mean. A whole batch passes its own mask and count; a data-parallel
+// shard passes the global batch's, because the loss is a mean over the
+// global batch and its smooth-L1 a sum over the global batch's mask, and no
+// scaling afterwards can fix a shard's local ones (K12 mixes the two terms
+// into the backbone's gradient).
 // K14 — optax.adam's update in one elementwise pass over the flat
 // parameters with their first and second moments. Bound by bytes: it reads
 // params, grads, mu and nu and writes params, mu and nu once (2.99 MB at
@@ -958,8 +964,9 @@ struct HeadArgs {
     float* loss;
     float* partial;     // 2 a tile: focal, masked smooth-L1
     unsigned* counters; // 1, zero before and after a call
-    int n, tiles16, tiles;
-    float inv_count, count;
+    const float* norm_mask;  // the reg normaliser's mask, norm_n members
+    int n, tiles16, tiles, norm_n;
+    float inv_count, count;  // the focal mean's count and its reciprocal
 };
 
 // Tile t's map, member, first pixel and pixels.
@@ -1009,8 +1016,8 @@ __device__ void block_sum(float v[K], float* red) {
 // The anchor's targets, mask and biases are loaded first; the tile's x rows
 // (16-byte cp.async words where the rows allow) and the map's head weights
 // as they lie in memory are copied to shared memory asynchronously, all in
-// flight at once, while the block sums the whole mask (in the order every
-// block takes) for the reg normaliser sum(mask) * 4 + 1e-6; a thread sums its
+// flight at once, while the block sums the whole normaliser mask (in the
+// order every block takes) for the reg normaliser sum(mask) * 4 + 1e-6; a thread sums its
 // anchor's logit and 4 offsets over the channels in channel order (five
 // chains in flight; the 4 offset weights one 16-byte read), then forms the
 // sigmoid, focal BCE, masked smooth-L1, dlogits and the scaled draw; the
@@ -1057,14 +1064,15 @@ __global__ void __launch_bounds__(kHeadThreads) head_loss_kernel(const HeadArgs 
         }
     }
     float ms[1] = {0.0f};
-    const long long anchors = (long long)a.n * kAnchors;  // a multiple of 4
-    if ((uintptr_t)a.mask % 16 == 0) {
+    const long long anchors = (long long)a.norm_n * kAnchors;  // a multiple of 4
+    if ((uintptr_t)a.norm_mask % 16 == 0) {
         for (long long q = 4 * tid; q < anchors; q += 4 * kHeadThreads) {
-            const float4 v = ld4(a.mask + q);
+            const float4 v = ld4(a.norm_mask + q);
             ms[0] = __fadd_rn(ms[0], __fadd_rn(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w)));
         }
     } else {
-        for (long long q = tid; q < anchors; q += kHeadThreads) ms[0] = __fadd_rn(ms[0], a.mask[q]);
+        for (long long q = tid; q < anchors; q += kHeadThreads)
+            ms[0] = __fadd_rn(ms[0], a.norm_mask[q]);
     }
     block_sum<1>(ms, red);
     const float denom = __fadd_rn(__fmul_rn(ms[0], 4.0f), 1e-6f);
@@ -1321,7 +1329,10 @@ extern "C" int flyimg_bf_pointwise_backward(const float* g, long long g_bstride,
 // [n, 896], draw [n, 896, 4] and `loss` [1]. The plan
 // (blazeface_train.py k13_plan): tiles of `tile16` / `tile8` pixels, a
 // block a tile. `partial` holds 2 floats a tile, `counters` 1 zero (left
-// zero). inv_count = f32(1 / (n 896)), count = n 896. One launch.
+// zero). The loss is a mean over a batch of N members and its smooth-L1 is
+// normalised by the sum of `norm_mask` [norm_n, 896]: inv_count =
+// f32(1 / (N 896)), count = N 896; a whole batch passes N = n and its own
+// mask, a data-parallel shard the global batch's N and mask. One launch.
 extern "C" int flyimg_bf_head_loss(const float* x16, const float* wc16, const float* bc16,
                                    const float* wr16, const float* br16, int hw16, int c16,
                                    int na16, const float* x8, const float* wc8, const float* bc8,
@@ -1329,8 +1340,10 @@ extern "C" int flyimg_bf_head_loss(const float* x16, const float* wc16, const fl
                                    const float* tp, const float* tb, const float* mask,
                                    float* dlogits, float* draw, float* loss, float* partial,
                                    unsigned* counters, int n, int tile16, int tile8,
-                                   float inv_count, float count, void* stream) {
-    if (n <= 0 || hw16 * na16 + hw8 * na8 != kAnchors || c16 <= 0 || c8 <= 0 || tile16 <= 0 ||
+                                   float inv_count, float count, const float* norm_mask,
+                                   int norm_n, void* stream) {
+    if (n <= 0 || norm_n <= 0 || norm_mask == nullptr ||
+        hw16 * na16 + hw8 * na8 != kAnchors || c16 <= 0 || c8 <= 0 || tile16 <= 0 ||
         tile8 <= 0 || tile16 * na16 > kHeadThreads || tile8 * na8 > kHeadThreads ||
         (uintptr_t)draw % 16 != 0)
         return (int)cudaErrorInvalidValue;
@@ -1341,6 +1354,7 @@ extern "C" int flyimg_bf_head_loss(const float* x16, const float* wc16, const fl
                    vec_width(c8, x8)};
     a.tp = tp, a.tb = tb, a.mask = mask, a.dlogits = dlogits, a.draw = draw, a.loss = loss;
     a.partial = partial, a.counters = counters;
+    a.norm_mask = norm_mask, a.norm_n = norm_n;
     a.n = n;
     a.tiles16 = n * a.m16.per;
     a.tiles = a.tiles16 + n * a.m8.per;

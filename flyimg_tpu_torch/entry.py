@@ -31,8 +31,10 @@ groups and pads them.
 ``TILED_OPTIONS`` on a seeded 3840x2160 (H x W) u8 frame over an n-rank
 mesh on one device (``parallel/tiling.py``: the halo-exchange resample,
 the halo-exchange filter, the ring rotate); ``untiled_fn`` is the same op
-on the whole frame. ``dryrun_multichip(n)`` runs the three tiled programs
-on a virtual n-rank CPU mesh, as part 2 of ``__graft_entry__``'s does.
+on the whole frame. ``dryrun_multichip(n)`` runs the three parts of
+``__graft_entry__``'s on a virtual n-rank CPU mesh: the DP x TP BlazeFace
+training step, the three tiled programs, and the flagship batch sharded
+over a ``data`` axis.
 """
 
 from __future__ import annotations
@@ -85,6 +87,11 @@ SKIN_RGB = (205.0, 150.0, 118.0)
 
 #: the train step's batch: the default of tools/train_blazeface.py
 TRAIN_BATCH = 16
+
+#: part 3 of dryrun_multichip: the flagship batch a data rank (the JAX
+#: entry()'s batch; the port's BATCH of 256 repeated n times is 0.8 GB of
+#: f32 a rank on the CPU)
+DRYRUN_SERVE_BATCH = 4
 
 #: the tall-input route's ops (each runs one tiled program), on a
 #: TILED_HW (H x W) frame: a 4K portrait, the thumbnail firehose's size class
@@ -357,17 +364,47 @@ def tiled_entry(opts: str = TILED_OPTIONS[0], n: int = TILED_RANKS,
 
 
 def dryrun_multichip(n_devices: int) -> None:
-    """Part 2 of ``__graft_entry__.dryrun_multichip`` (spatial tiling) on a
-    virtual ``n_devices``-rank CPU mesh: the halo-exchange resample and
-    filter and the ring rotate, with the same shapes and asserts. Parts 1
-    (DP x TP BlazeFace training) and 3 (data-parallel serving) are not
-    ported yet."""
-    from flyimg_tpu_torch.parallel.mesh import virtual_mesh
+    """``__graft_entry__.dryrun_multichip`` on a virtual ``n_devices``-rank
+    CPU mesh, with its asserts and its line:
+
+    1. the DP x TP BlazeFace step (``models/blazeface_train.py
+       make_sharded_train_step``): ``tp`` 2 when ``n_devices`` is even and
+       at least 4, else 1, ``dp = n_devices // tp``, a seeded synthetic
+       batch of ``max(2 dp, 4)``; its loss is finite;
+    2. spatial tiling: the halo-exchange resample and filter and the ring
+       rotate over an ``sp`` axis;
+    3. the flagship batch (``entry``, ``DRYRUN_SERVE_BATCH`` sources)
+       repeated ``n_devices`` times, sharded over a ``data`` axis, each
+       rank's shard through the flagship program on its device, gathered
+       in rank order: a batch of ``DRYRUN_SERVE_BATCH * n_devices``."""
+    from flyimg_tpu_torch.models.blazeface_train import (
+        batch_to,
+        init_params,
+        make_sharded_train_step,
+        synthetic_batch,
+    )
+    from flyimg_tpu_torch.parallel.mesh import (
+        gather_shards,
+        make_mesh,
+        on_device,
+        shard_leading,
+        virtual_mesh,
+    )
     from flyimg_tpu_torch.parallel.tiling import tiled_filter, tiled_rotate, tiled_transform
     from flyimg_tpu_torch.spec.plan import rotated_bounds
 
-    sp_mesh = virtual_mesh(n_devices, "cpu")
+    cpu = torch.device("cpu")
+    # ---- 1. DP x TP BlazeFace training step
+    tp = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    dp = n_devices // tp
+    mesh = make_mesh((dp, tp), ("data", "model"), [cpu] * n_devices)
+    _trainer, train_step = make_sharded_train_step(init_params(0, cpu), mesh)
     rng = np.random.default_rng(1)
+    loss = float(train_step(*batch_to(synthetic_batch(rng, max(dp * 2, 4)), cpu)))
+    assert np.isfinite(loss), f"train loss not finite: {loss}"
+
+    # ---- 2. spatial tiling (the sequence-parallel analogue)
+    sp_mesh = virtual_mesh(n_devices, cpu)
     big = torch.from_numpy(rng.integers(0, 255, (32 * n_devices, 96, 3), dtype=np.uint8))
     out_h = 8 * n_devices
     tiled = tiled_transform(big, (out_h, 48), sp_mesh)
@@ -379,4 +416,21 @@ def dryrun_multichip(n_devices: int) -> None:
     assert rot.shape == (rh, rw, 3), (rot.shape, (rh, rw))
     for out in (tiled, blurred, rot):
         assert bool(torch.isfinite(out).all())
-    print(f"dryrun_multichip ok: sp={n_devices} (virtual CPU mesh)")
+
+    # ---- 3. the data-parallel batched serving program
+    fn, args = entry(cpu, batch=DRYRUN_SERVE_BATCH)
+    dp_mesh = virtual_mesh(n_devices, cpu, ("data",))
+    shards = [shard_leading(torch.cat([a] * n_devices), dp_mesh) for a in args]
+    outs, scores = [], []
+    for r, dev in enumerate(dp_mesh.axis_devices("data")):
+        with on_device(dev):
+            out, score = fn(*(shard[r] for shard in shards))
+        outs.append(out)
+        scores.append(score)
+    served, scores = gather_shards(outs), gather_shards(scores)
+    assert served.shape[0] == args[0].shape[0] * n_devices, served.shape
+    assert bool(torch.isfinite(scores).all())
+    print(f"dryrun_multichip ok: dp={dp} tp={tp} sp={n_devices}, "
+          f"train loss {loss:.4f}, tiled {tuple(tiled.shape)}, "
+          f"ring-rotate {tuple(rot.shape)}, serve batch {tuple(served.shape)} "
+          f"(virtual CPU mesh)")

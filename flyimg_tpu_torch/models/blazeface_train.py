@@ -27,6 +27,14 @@ the serving kernels and whose backward is this module's:
   step the backward kernels write the weight gradients straight into the
   flat gradient buffer that K14 reads.
 
+``make_sharded_train_step(model, mesh)`` is the DP x TP step of
+``__graft_entry__.dryrun_multichip`` part 1 over a ("data", "model") mesh
+(``ShardedTrainer``): each rank holds its ``shard_param`` shard of the
+parameters and of Adam's moments as a flat buffer of its own, so K14 runs
+once a rank; each data rank gathers the full parameters, runs the kernels
+on its slice of the batch with K13 given the global batch's normalisers,
+and the gradients are summed over the data ranks in rank order.
+
 Each wrapper runs its plain PyTorch twin only for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises. The plain reference is
 ``loss_fn_plain`` (torch autograd over ``BlazeFace.forward_plain`` and
@@ -49,6 +57,7 @@ import torch.nn.functional as F
 from flyimg_tpu_torch import cuda_build
 from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.models import blazeface as bf
+from flyimg_tpu_torch.parallel.mesh import on_device, replicate, shard_leading
 
 LEARNING_RATE = 1e-3
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -498,32 +507,42 @@ pointwise_backward.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def loss_plain(logits, raw, target_probs, target_boxes, anchor_mask):
+def loss_plain(logits, raw, target_probs, target_boxes, anchor_mask, norm_mask=None):
     """The JAX package's ``loss_fn`` after the forward, in torch ops:
     focal-weighted BCE on ``sigmoid(logits)`` plus the masked smooth-L1 of
-    the raw offsets."""
+    the raw offsets. With ``norm_mask`` (a data-parallel shard's call: the
+    global batch's mask) the focal mean is over its members and the
+    smooth-L1 is normalised by its sum, so the shards' losses and gradients
+    add up to the global batch's."""
     probs = torch.sigmoid(logits)
     bce = -(target_probs * torch.log(probs + 1e-7)
             + (1.0 - target_probs) * torch.log(1.0 - probs + 1e-7))
     focal = bce * (0.25 + 0.75 * target_probs)
-    cls_loss = torch.mean(focal)
     diff = raw - target_boxes
     l1 = torch.where(diff.abs() < 1.0, 0.5 * diff * diff, diff.abs() - 0.5)
-    reg_loss = torch.sum(l1 * anchor_mask[..., None]) / (torch.sum(anchor_mask) * 4.0 + 1e-6)
+    if norm_mask is None:
+        cls_loss = torch.mean(focal)
+        norm_mask = anchor_mask
+    else:
+        # a tensor divisor: on the card a Python one becomes a reciprocal
+        cls_loss = torch.sum(focal) / torch.tensor(float(norm_mask.numel()),
+                                                   dtype=focal.dtype, device=focal.device)
+    reg_loss = torch.sum(l1 * anchor_mask[..., None]) / (torch.sum(norm_mask) * 4.0 + 1e-6)
     return cls_loss + reg_loss
 
 
-def head_loss_plain(x16, x8, heads, target_probs, target_boxes, anchor_mask):
+def head_loss_plain(x16, x8, heads, target_probs, target_boxes, anchor_mask,
+                    norm_mask=None):
     """The plain version of K13: (loss, dlogits [N, 896], draw [N, 896, 4])
     from the two maps and ``heads`` = ((cls kernel, cls bias, reg kernel,
     reg bias) of the 16x16 map, the same of the 8x8 map), by autograd over
-    ``loss_plain``."""
+    ``loss_plain`` (``norm_mask``: its global normalisers)."""
     parts = [bf.head_plain(x.detach(), *(t.detach() for t in h))
              for x, h in zip((x16, x8), heads)]
     logits = torch.cat([p[0] for p in parts], dim=1).requires_grad_(True)
     raw = torch.cat([p[1] for p in parts], dim=1).requires_grad_(True)
     with torch.enable_grad():
-        loss = loss_plain(logits, raw, target_probs, target_boxes, anchor_mask)
+        loss = loss_plain(logits, raw, target_probs, target_boxes, anchor_mask, norm_mask)
         dlogits, draw = torch.autograd.grad(loss, (logits, raw))
     return loss.detach(), dlogits, draw
 
@@ -559,9 +578,12 @@ def k13_plan(n: int, hw16: int, na16: int, hw8: int, na8: int, sms: int = 132) -
     return K13Plan(tile16, tile8, tiles16, tiles, 2 * tiles)
 
 
-def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
+def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask, norm_mask=None):
     """K13 on a CUDA tensor (one launch, as ``k13_plan`` says),
-    ``head_loss_plain`` on a CPU tensor."""
+    ``head_loss_plain`` on a CPU tensor. The loss is a mean over the
+    members of ``norm_mask`` [N, 896] and its smooth-L1 is normalised by
+    that mask's sum: by default ``anchor_mask`` itself; a data-parallel
+    shard passes the global batch's mask."""
     n = x16.shape[0]
     if (x8.shape[0] != n or tuple(target_probs.shape) != (n, bf.NUM_ANCHORS)
             or tuple(target_boxes.shape) != (n, bf.NUM_ANCHORS, 4)
@@ -569,6 +591,9 @@ def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
         raise ValueError(f"head_loss: maps {tuple(x16.shape)}, {tuple(x8.shape)}, "
                          f"targets {tuple(target_probs.shape)}, "
                          f"{tuple(target_boxes.shape)}, {tuple(anchor_mask.shape)}")
+    if norm_mask is not None and (norm_mask.dim() != 2 or norm_mask.shape[0] < 1
+                                  or norm_mask.shape[1] != bf.NUM_ANCHORS):
+        raise ValueError(f"head_loss: normaliser mask {tuple(norm_mask.shape)}")
     anchors = 0
     for x, (ck, _cb, rk, _rb) in zip((x16, x8), heads):
         c = x.shape[3]
@@ -579,10 +604,11 @@ def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
     if anchors != bf.NUM_ANCHORS:
         raise ValueError(f"the maps carry {anchors} anchors, not {bf.NUM_ANCHORS}")
     if not _on_card("head_loss", x16=x16, x8=x8, target_probs=target_probs,
-                    target_boxes=target_boxes, anchor_mask=anchor_mask,
+                    target_boxes=target_boxes, anchor_mask=anchor_mask, norm_mask=norm_mask,
                     **{f"heads[{i}][{j}]": t for i, h in enumerate(heads)
                        for j, t in enumerate(h)}):
-        return head_loss_plain(x16, x8, heads, target_probs, target_boxes, anchor_mask)
+        return head_loss_plain(x16, x8, heads, target_probs, target_boxes, anchor_mask,
+                               norm_mask)
     args, keep = [], []  # keep: the contiguous copies, alive through the call
     for x, head in zip((x16, x8), heads):
         x, ck, cb, rk, rb = (t.detach().contiguous() for t in (x, *head))
@@ -592,17 +618,19 @@ def head_loss(x16, x8, heads, target_probs, target_boxes, anchor_mask):
     dev = x16.device
     f32 = dict(dtype=torch.float32, device=dev)
     tp, tb, mask = (t.contiguous() for t in (target_probs, target_boxes, anchor_mask))
+    norm = mask if norm_mask is None else norm_mask.contiguous()
     dlogits = torch.empty((n, bf.NUM_ANCHORS), **f32)
     draw = torch.empty((n, bf.NUM_ANCHORS, 4), **f32)
     loss = torch.empty(1, **f32)
     plan = k13_plan(n, args[5], args[7], args[13], args[15], bf._sm_count(dev.index))
     stream = cuda_build.current_stream(dev.index)
     partial, counters = _scratch(dev, stream, plan.partial_floats, 1)
-    count = np.float32(n * bf.NUM_ANCHORS)
+    count = np.float32(norm.shape[0] * bf.NUM_ANCHORS)
     rc = _lib().flyimg_bf_head_loss(
         *args, tp.data_ptr(), tb.data_ptr(), mask.data_ptr(), dlogits.data_ptr(),
         draw.data_ptr(), loss.data_ptr(), partial.data_ptr(), counters.data_ptr(), n,
-        plan.tile16, plan.tile8, float(np.float32(1.0) / count), float(count), stream,
+        plan.tile16, plan.tile8, float(np.float32(1.0) / count), float(count),
+        norm.data_ptr(), norm.shape[0], stream,
     )
     cuda_build.check(rc, "blazeface head_loss")
     head_loss.launches += 1
@@ -687,7 +715,7 @@ def _lib():
         lib.flyimg_bf_pointwise_backward.argtypes = (
             [p, ll] + [p] * 11 + [i] * 13 + [p])
         lib.flyimg_bf_head_loss.argtypes = (
-            ([p] * 5 + [i] * 3) * 2 + [p] * 8 + [i] * 3 + [f, f, p])
+            ([p] * 5 + [i] * 3) * 2 + [p] * 8 + [i] * 3 + [f, f, p, i, p])
         lib.flyimg_bf_adam.argtypes = [p] * 4 + [ll] + [f] * 8 + [p]
         for fn in (lib.flyimg_bf_conv5x5_backward, lib.flyimg_bf_pointwise_backward,
                    lib.flyimg_bf_head_loss, lib.flyimg_bf_adam):
@@ -759,10 +787,11 @@ class _HeadLoss(torch.autograd.Function):
     kept), the heads' products' backward through K12."""
 
     @staticmethod
-    def forward(ctx, x16, x8, target_probs, target_boxes, anchor_mask, into, *head_params):
+    def forward(ctx, x16, x8, target_probs, target_boxes, anchor_mask, norm_mask, into,
+                *head_params):
         heads = (head_params[:4], head_params[4:])
         loss, dlogits, draw = head_loss(x16, x8, heads, target_probs, target_boxes,
-                                        anchor_mask)
+                                        anchor_mask, norm_mask)
         ctx.into = into
         ctx.save_for_backward(x16, x8, dlogits, draw, *head_params)
         return loss
@@ -789,7 +818,7 @@ class _HeadLoss(torch.autograd.Function):
             off += k
         if ctx.into is not None:
             grads = [None] * 8
-        return (dxs[0], dxs[1], None, None, None, None, *grads)
+        return (dxs[0], dxs[1], None, None, None, None, None, *grads)
 
 
 def _head_params(model: bf.BlazeFace):
@@ -804,10 +833,12 @@ def loss_fn(model: bf.BlazeFace, images, target_probs, target_boxes, anchor_mask
     return _kernel_loss(model, images, target_probs, target_boxes, anchor_mask, False)
 
 
-def _kernel_loss(model, images, target_probs, target_boxes, anchor_mask, into_flat):
+def _kernel_loss(model, images, target_probs, target_boxes, anchor_mask, into_flat,
+                 norm_mask=None):
     """``loss_fn``; with ``into_flat`` its backward writes every parameter's
     gradient into ``model.flat_grads`` (overwriting it, not adding to it)
-    and none reaches autograd."""
+    and none reaches autograd. ``norm_mask``: K13's global normalisers (a
+    data-parallel shard's call)."""
 
     def into(*params):
         if not into_flat:
@@ -823,7 +854,7 @@ def _kernel_loss(model, images, target_probs, target_boxes, anchor_mask, into_fl
         if i == bf.X16_BLOCK:
             maps.append(x)
     heads = _head_params(model)
-    return _HeadLoss.apply(maps[0], x, target_probs, target_boxes, anchor_mask,
+    return _HeadLoss.apply(maps[0], x, target_probs, target_boxes, anchor_mask, norm_mask,
                            into(*heads), *heads)
 
 
@@ -898,6 +929,168 @@ def make_train_step(model: bf.BlazeFace):
         return loss.detach()
 
     return optimizer, train_step
+
+
+# ---------------------------------------------------------------------------
+# the DP x TP step
+# ---------------------------------------------------------------------------
+
+
+def shard_last_axis(shape: Sequence[int], tp: int) -> bool:
+    """Whether a leaf of ``shape`` is sharded over the ``model`` axis of
+    size ``tp`` (along its last axis), as ``__graft_entry__``'s
+    ``shard_param`` places the JAX parameters: a 4-D kernel whose output
+    channels ``tp`` divides, a 1-D leaf of at least 8 values that ``tp``
+    divides; every other leaf is replicated."""
+    if len(shape) == 4:
+        return shape[-1] % tp == 0 and shape[-1] >= tp
+    return len(shape) == 1 and shape[0] % tp == 0 and shape[0] >= 8
+
+
+class Placement(NamedTuple):
+    name: str
+    shape: Tuple[int, ...]
+    shard_shape: Tuple[int, ...]
+    sharded: bool
+
+
+def placement(model: bf.BlazeFace, tp: int) -> Tuple[Placement, ...]:
+    """Each parameter's placement over a ``model`` axis of size ``tp``, in
+    ``parameters()`` order (the flat buffer's)."""
+    out = []
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        sharded = shard_last_axis(shape, tp)
+        shard = shape[:-1] + (shape[-1] // tp,) if sharded else shape
+        out.append(Placement(name, shape, shard, sharded))
+    return tuple(out)
+
+
+def shard_index(places: Sequence[Placement], tp: int, m: int) -> torch.Tensor:
+    """The positions in the flat parameter buffer of model rank ``m``'s
+    values, in its own flat order: a sharded leaf's last-axis slice ``m``,
+    row-major; a replicated leaf whole."""
+    parts, off = [], 0
+    for pl in places:
+        n = math.prod(pl.shape)
+        idx = torch.arange(off, off + n, dtype=torch.int64).view(pl.shape)
+        if pl.sharded:
+            c = pl.shape[-1] // tp
+            idx = idx[..., m * c:(m + 1) * c]
+        parts.append(idx.reshape(-1))
+        off += n
+    return torch.cat(parts)
+
+
+class ShardedTrainer:
+    """The DP x TP BlazeFace step over a mesh with axes ("data", "model"),
+    the port of part 1 of ``__graft_entry__.dryrun_multichip``.
+
+    Each rank (d, m) (device ``mesh.devices[d * tp + m]``) holds its model
+    shard of every parameter and of Adam's ``mu`` and ``nu``, laid out as
+    ``placement`` says, each as a flat buffer of its own (``params[d][m]``,
+    ``mu[d][m]``, ``nu[d][m]``), so K14 runs once a rank on its shard. Data
+    rank d computes on the device of its rank (d, 0) with a model of its
+    own there (``workers[d]``). A step:
+
+    1. gathers the full parameters onto each data rank's device, model
+       ranks in order;
+    2. runs the kernels' forward (K9, K10), K13 and their backward (K11,
+       K12) on that data rank's slice of the batch, with K13 given the
+       global batch's normalisers (the loss is a mean over the global
+       batch; its smooth-L1 is normalised by the global mask);
+    3. sums the gradients over the data ranks in rank order (on data rank
+       0's device);
+    4. hands each model rank its slice of the sum;
+    5. steps K14 on every rank.
+
+    Every data rank computes the whole model (each model rank's output
+    channels alone, a column-parallel forward, is a later question of
+    speed). ``step`` returns the loss before the update, the data ranks'
+    losses summed in rank order; ``grads`` is the last summed gradient in
+    the full flat layout."""
+
+    def __init__(self, model: bf.BlazeFace, mesh) -> None:
+        if tuple(mesh.axis_names) != ("data", "model"):
+            raise ValueError(f"a DP x TP step needs axes ('data', 'model'), not "
+                             f"{tuple(mesh.axis_names)}")
+        self.mesh = mesh
+        self.dp, self.tp = int(mesh.shape["data"]), int(mesh.shape["model"])
+        self.devices = [[mesh.devices[d * self.tp + m] for m in range(self.tp)]
+                        for d in range(self.dp)]
+        self.places = placement(model, self.tp)
+        full = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        self._index = [shard_index(self.places, self.tp, m) for m in range(self.tp)]
+        self._index_on: dict = {}
+        self.params = [[full.index_select(0, self.index(m, full.device)).to(dev)
+                        for m, dev in enumerate(row)] for row in self.devices]
+        self.mu = [[torch.zeros_like(t) for t in row] for row in self.params]
+        self.nu = [[torch.zeros_like(t) for t in row] for row in self.params]
+        self.workers = []
+        for row in self.devices:
+            worker = bf.BlazeFace()
+            worker.load_state_dict(model.state_dict())
+            self.workers.append(flatten_parameters(worker.to(row[0])))
+        self.count = 0
+        self.grads: Optional[torch.Tensor] = None
+
+    def index(self, m: int, dev: torch.device) -> torch.Tensor:
+        """Model rank ``m``'s positions (``shard_index``) on ``dev``."""
+        key = (m, dev)
+        if key not in self._index_on:
+            self._index_on[key] = self._index[m].to(dev)
+        return self._index_on[key]
+
+    def full_params(self, d: int = 0) -> torch.Tensor:
+        """The full flat parameters gathered from data rank ``d``'s model
+        shards, on its device."""
+        dev = self.devices[d][0]
+        out = torch.empty_like(self.workers[d].flat_params)
+        for m in range(self.tp):
+            out.index_copy_(0, self.index(m, dev), self.params[d][m].to(dev))
+        return out
+
+    def step(self, images, target_probs, target_boxes, anchor_mask) -> torch.Tensor:
+        """One DP x TP step on the global batch (any device; each data
+        rank's slice moves to its device)."""
+        shards = zip(*(shard_leading(t, self.mesh, "data")
+                       for t in (images, target_probs, target_boxes, anchor_mask)))
+        norms = replicate(anchor_mask, self.mesh, "data")
+        losses, grads = [], []
+        for d, (worker, shard, norm) in enumerate(zip(self.workers, shards, norms)):
+            with on_device(self.devices[d][0]):
+                with torch.no_grad():
+                    worker.flat_params.copy_(self.full_params(d))
+                loss = _kernel_loss(worker, *shard, True, norm_mask=norm)
+                loss.backward()
+            losses.append(loss.detach())
+            grads.append(worker.flat_grads)
+        home = self.devices[0][0]
+        total = grads[0].clone()
+        loss = losses[0].clone()
+        for g, l in zip(grads[1:], losses[1:]):
+            total += g.to(home)
+            loss += l.to(home)
+        self.grads = total
+        self.count += 1
+        for d, row in enumerate(self.devices):
+            for m, dev in enumerate(row):
+                with on_device(dev):
+                    g = total.to(dev).index_select(0, self.index(m, dev))
+                    adam_update(self.params[d][m], g, self.mu[d][m], self.nu[d][m],
+                                self.count)
+        return loss
+
+
+def make_sharded_train_step(model: bf.BlazeFace, mesh):
+    """(trainer, train_step) of the DP x TP step over ``mesh`` (axes
+    ("data", "model")), from ``model``'s parameters (``model`` itself is
+    not updated: the state lives in the trainer's shards).
+    ``train_step(images, target_probs, target_boxes, anchor_mask)`` takes
+    one step and returns the loss before it, as ``make_train_step``'s
+    does."""
+    trainer = ShardedTrainer(model, mesh)
+    return trainer, trainer.step
 
 
 def synthetic_batch(rng: np.random.Generator, batch: int):

@@ -327,27 +327,36 @@ class ProgramHandle:
         with self._lock:
             if self._compiled:
                 return
-            b, h, w = shape or self.shape
-            dev = self.device
             t0 = time.perf_counter()
-            before = None
-            if dev.type == "cuda":
-                for name in self.kernels:
-                    cuda_build.load(name)
-                before = torch.cuda.memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-            row = frame_geometry((h, w), *self._frame)
-            geo = torch.from_numpy(np.repeat(row[None], b, axis=0)).to(dev)
-            self._fn(torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
-                     *program_args(geo))
-            peak = None
-            if before is not None:
-                peak = float(torch.cuda.max_memory_allocated(dev) - before)
-                torch.cuda.synchronize(dev)
+            peak = self.warm(shape or self.shape)
             costledger.get_ledger().record_compile(
                 self.ledger_key, descriptor=self.descriptor,
                 compile_s=time.perf_counter() - t0, peak_memory_bytes=peak)
             self._claimed = self._compiled = True
+
+    def warm(self, shape: Tuple[int, int, int]) -> Optional[float]:
+        """``precompile``'s run, recording nothing: on the handle's device
+        (the current card), load the stages' kernel libraries and run the
+        program on a zero batch of ``shape`` with the whole-frame geometry.
+        Returns the allocator's peak over the run on the card (None on the
+        CPU)."""
+        b, h, w = shape
+        dev = self.device
+        before = None
+        if dev.type == "cuda":
+            for name in self.kernels:
+                cuda_build.load(name)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        row = frame_geometry((h, w), *self._frame)
+        geo = torch.from_numpy(np.repeat(row[None], b, axis=0)).to(dev)
+        self._fn(torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
+                 *program_args(geo))
+        if before is None:
+            return None
+        peak = float(torch.cuda.max_memory_allocated(dev) - before)
+        torch.cuda.synchronize(dev)
+        return peak
 
 
 def frame_geometry(in_shape: Tuple[int, int], resample_out: Optional[Tuple[int, int]],

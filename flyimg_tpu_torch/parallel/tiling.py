@@ -24,7 +24,6 @@ handler falls back on.
 
 from __future__ import annotations
 
-import contextlib
 from functools import lru_cache
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -51,17 +50,13 @@ from flyimg_tpu_torch.ops.resample import (
 )
 from flyimg_tpu_torch.ops.rotate import ring_geometry, ring_rotate_step, ring_rotate_step_plain
 from flyimg_tpu_torch.parallel.mesh import Mesh
+from flyimg_tpu_torch.parallel.mesh import on_device as _on
 from flyimg_tpu_torch.spec.plan import rotated_bounds
 
 
 class TilingInfeasible(ValueError):
     """The tiled schedule cannot take this geometry: the halo it needs is
     wider than a tile."""
-
-
-def _on(dev: torch.device):
-    """Make ``dev`` the current card while a rank launches its kernels."""
-    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:

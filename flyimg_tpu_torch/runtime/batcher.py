@@ -18,6 +18,19 @@ Launch sizes ride a power-of-two ladder capped at ``MAX_BATCH_BUCKET``
 (pad slots repeat the last member). Auxiliary groups (``submit_aux``, the smart-crop scoring
 pass) batch the same way and run ``runner(payloads)``.
 
+With a ``mesh`` (the JAX package's data-parallel serving), transform
+launches shard over its ``data`` axis: a launch's batch is padded to the
+power-of-two ladder rounded up to a multiple of the axis
+(``_padded_batch``, which the memory governor's admission reads too), cut
+into one equal chunk a rank, and chunk r runs through the single-device
+batched program on rank r's device and stream, inside
+``torch.cuda.device`` of that rank (the kernels launch on the current
+device); the chunks read back in rank order. Ranks may share a device (a
+virtual mesh). Aux groups stay unsharded, as in the JAX batcher. The
+mesh is part of a program's identity (``build_batched_program``): a
+sharded and an unsharded program of one plan never share a handle or a
+ledger row.
+
 One executor thread assembles and dispatches; readbacks are pipelined.
 On CUDA each launch stages its inputs in pinned host buffers, copies them
 to the card on the controller's own stream, runs the program there,
@@ -41,8 +54,8 @@ thread exits when it comes back. ``restarts`` counts both.
 
 A launch's program comes from ``build_batched_program``, an lru cache of
 256 ``ProgramHandle``s (``ops/compose.py``) keyed on the group's program
-key, its device and its padded batch (one process may run a program on the
-card and on the CPU); ``handle.is_compiled`` is the launch's compile hit
+key, its device, its padded batch (one process may run a program on the
+card and on the CPU) and the mesh; ``handle.is_compiled`` is the launch's compile hit
 (metrics, the span's ``program.compile_cache``, the flight record). A
 failover empties the cache. Every completed transform launch is accounted
 in the cost ledger (``runtime/costledger.py``) under the handle's key: a
@@ -87,7 +100,10 @@ CPU (``pause_launches``, ``drain_inflight``, ``failover_backend``) and its
 re-promotion on the card. Without one nothing leaves the controller's
 device.
 
-Observability (the JAX batcher's): each launch gets a batch id. A launch
+Observability (the JAX batcher's): ``stats()`` is the JAX method, the
+launch counts of the metrics registry beside the controller's rolling
+efficiency window; ``containment_counts`` counts retries, poison members
+isolated and quarantine hits. Each launch gets a batch id. A launch
 whose members carry request traces mints ONE shared span
 (``device_execute``, ``aux_execute`` or ``batch_recovery``) that is
 attached to every member's trace under the span that member had open at
@@ -135,8 +151,17 @@ from flyimg_tpu_torch.ops.compose import (
     make_handle,
     plan_layout,
     program_args,
+    program_descriptor,
 )
 from flyimg_tpu_torch.ops.resample import kernel_mode, select_band_taps
+from flyimg_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_shards,
+    leading_shards,
+    mesh_identity,
+    on_device,
+    shard_size,
+)
 from flyimg_tpu_torch.runtime import costledger, tracing, warmstart
 from flyimg_tpu_torch.runtime.metrics import MetricsRegistry, escape_label_value
 from flyimg_tpu_torch.runtime.resilience import (
@@ -160,7 +185,51 @@ def _round_batch(n: int) -> int:
     return min(bucket_batch(n), MAX_BATCH_BUCKET)
 
 
-@lru_cache(maxsize=256)
+class ShardedProgramHandle(ProgramHandle):
+    """A batched program sharded over a mesh's ``data`` axis (the JAX
+    program under ``NamedSharding(mesh, P("data"))``): the padded batch cut
+    into one equal chunk a rank, chunk r through the single-device batched
+    program on rank r's device, the outputs joined in rank order. ``ranks``
+    is each rank's (device, program); ranks on one device (a virtual mesh)
+    share its program. Called, it runs the ranks one after another (the
+    CPU's form, and ``precompile``'s); the batcher's launch on the card
+    enqueues each rank on a stream of its own instead."""
+
+    __slots__ = ("ranks",)
+
+    def __init__(self, key, descriptor: Dict[str, object], *, device: str,
+                 shape: Tuple[int, int, int],
+                 ranks: Tuple[Tuple[torch.device, ProgramHandle], ...]) -> None:
+        first = ranks[0][1]
+        super().__init__(self._run_ranks, key, descriptor, device=device, shape=shape,
+                         kernels=first.kernels, frame=first._frame)
+        self.ranks = ranks
+
+    def _run_ranks(self, images, *args):
+        chunks = zip(*(leading_shards(t, len(self.ranks)) for t in (images, *args)))
+        outs = []
+        for (dev, program), chunk in zip(self.ranks, chunks):
+            with on_device(dev):
+                outs.append(program(*(t.to(dev) for t in chunk)))
+        return gather_shards(outs, images.device)
+
+    def warm(self, shape: Tuple[int, int, int]) -> Optional[float]:
+        """Each device's program run once on a zero chunk (``shape``'s batch
+        over the ranks); the peaks of the devices summed."""
+        b, h, w = shape
+        per = shard_size(b, len(self.ranks))
+        peaks = []
+        for dev, program in dict(self.ranks).items():
+            with on_device(dev):
+                peaks.append(program.warm((per, h, w)))
+        return None if peaks[0] is None else float(sum(peaks))
+
+    def mark_compiled(self) -> None:
+        super().mark_compiled()
+        for _dev, program in self.ranks:
+            program.mark_compiled()
+
+
 def build_batched_program(
     batch: int,
     in_shape: Tuple[int, int],
@@ -171,20 +240,50 @@ def build_batched_program(
     device: str,
     rotate_dynamic: bool = False,
     band_taps: Optional[Tuple[int, int]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> ProgramHandle:
     """The batched program of one group at one padded batch on ``device``
-    (``str`` of a ``torch.device``, where the JAX key has the mesh),
-    cached: one entry, one handle. Its key is the cost ledger's,
-    ``("batched", device, batch) + group.base_key``. Called positionally
-    (the lru keys spellings apart)."""
+    (``str`` of a ``torch.device``), sharded over ``mesh``'s ``data`` axis
+    when one is given (``batch`` a multiple of that axis), cached: one
+    entry, one handle, however the arguments are spelled. Its key is the
+    cost ledger's, ``("batched", device, batch) + group.base_key``, with
+    ``("mesh", axes, devices)`` after it for a sharded program (where the
+    JAX key has ``mesh.shape``)."""
+    return _batched_program(batch, in_shape, resample_out, pad_canvas, pad_offset, plan,
+                            device, rotate_dynamic, band_taps, mesh)
+
+
+@lru_cache(maxsize=256)
+def _batched_program(batch, in_shape, resample_out, pad_canvas, pad_offset, plan, device,
+                     rotate_dynamic, band_taps, mesh) -> ProgramHandle:
     key = ("batched", device, batch, in_shape, resample_out, pad_canvas, pad_offset,
            plan, rotate_dynamic, band_taps)
+    devices = mesh.axis_devices("data") if mesh is not None else ()
+    if mesh is not None:
+        per = shard_size(batch, len(devices))
     # warm start's recorder (a no-op unless installed): once a program, the
-    # device left out (a seeding server builds on its own)
+    # device and the mesh left out (a seeding server builds on its own)
     warmstart.record_batched(batch, in_shape, resample_out, pad_canvas, pad_offset,
-                             plan, rotate_dynamic, False, band_taps)
-    return make_handle(key, batch, in_shape, resample_out, pad_canvas, pad_offset,
-                       plan, device, rotate_dynamic, band_taps)
+                             plan, rotate_dynamic, mesh is not None, band_taps)
+    if mesh is None:
+        return make_handle(key, batch, in_shape, resample_out, pad_canvas, pad_offset,
+                           plan, device, rotate_dynamic, band_taps)
+    programs: Dict[torch.device, ProgramHandle] = {}
+    for dev in devices:
+        if dev not in programs:
+            programs[dev] = make_handle(
+                ("batched", str(dev), per) + key[3:], per, in_shape, resample_out,
+                pad_canvas, pad_offset, plan, str(dev), rotate_dynamic, band_taps)
+    descriptor = program_descriptor(plan, in_shape, batch, resample_out, pad_canvas,
+                                    band_taps, device)
+    descriptor["mesh"] = {"data": len(devices), "devices": [str(d) for d in devices]}
+    return ShardedProgramHandle(
+        key + (("mesh",) + mesh_identity(mesh),), descriptor, device=device,
+        shape=(batch, *in_shape), ranks=tuple((dev, programs[dev]) for dev in devices))
+
+
+build_batched_program.cache_info = _batched_program.cache_info
+build_batched_program.cache_clear = _batched_program.cache_clear
 
 
 def containment_params(params) -> dict:
@@ -272,15 +371,17 @@ class _Group:
 @dataclass(eq=False)
 class _Launch:
     """One dispatched transform launch until its readback: the host output
-    (CPU), or the pinned buffer and the event after the copy back into it
-    (CUDA), with the tensors that must live until then."""
+    (CPU), or the pinned buffers and the events after the copies back into
+    them (CUDA; one of each, or one a rank of a sharded launch), with the
+    tensors that must live until then."""
 
     t_dispatch: float
     h2d_s: Optional[float] = None
     dispatch_s: Optional[float] = None
     host: Optional[np.ndarray] = None
-    pinned: Optional[torch.Tensor] = None
-    event: Optional[object] = None
+    #: the pinned buffers and their events, one a rank in rank order
+    pinned: Tuple = ()
+    events: Tuple = ()
     peak: Optional[float] = None
     keep: Tuple = ()
 
@@ -450,9 +551,15 @@ class BatchController:
         profiler=None,
         batch_ids=None,
         supervisor=None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.name = name
+        #: the data-parallel mesh transform launches shard over, or None
+        self.mesh: Optional[Mesh] = None
+        self._n_devices = 1
+        self._rank_streams: Tuple = ()
+        self._set_mesh(mesh, self.device)
         #: the device supervisor (runtime/devicesupervisor.py) fed by every
         #: transform launch's resolution, or None
         self.supervisor = supervisor
@@ -506,7 +613,7 @@ class BatchController:
         self._ledger = costledger.get_ledger()
         #: containment counters: batch retries, poison members isolated,
         #: submissions that hit quarantine
-        self.stats = {"retries": 0, "poison_isolated": 0, "quarantine_hits": 0}
+        self.containment_counts = {"retries": 0, "poison_isolated": 0, "quarantine_hits": 0}
         #: executors replaced by self-healing, by reason
         self.restarts = {"dead": 0, "wedged": 0}
         #: the most launches that were ever in flight (from a pipeline slot
@@ -572,6 +679,59 @@ class BatchController:
             )
             self._lock.notify_all()
             return self._policy
+
+    # -- the data-parallel mesh ----------------------------------------------
+
+    @staticmethod
+    def _check_mesh(mesh: Optional[Mesh], device: torch.device) -> None:
+        """A batcher mesh needs a ``data`` axis whose ranks lie on the
+        controller's kind of device."""
+        if mesh is None:
+            return
+        if "data" not in mesh.axis_names:
+            raise ValueError("batcher mesh needs a 'data' axis")
+        kinds = {d.type for d in mesh.axis_devices("data")}
+        if kinds != {device.type}:
+            raise ValueError(f"batcher mesh on {sorted(kinds)} for a controller on "
+                             f"{device.type}")
+
+    def _set_mesh(self, mesh: Optional[Mesh], device: torch.device) -> None:
+        """Install ``mesh`` (checked) with a stream a rank on the card."""
+        self._check_mesh(mesh, device)
+        self.mesh = mesh
+        self._n_devices = int(mesh.shape["data"]) if mesh is not None else 1
+        self._rank_streams = (
+            tuple(torch.cuda.Stream(d) for d in mesh.axis_devices("data"))
+            if mesh is not None and device.type == "cuda" else ())
+
+    def _padded_batch(self, n: int) -> int:
+        """The padded batch a launch of ``n`` members dispatches: the
+        power-of-two ladder, rounded up to a multiple of the data axis (a
+        sharded batch divides over it, and device counts need not be
+        powers of two). The memory governor's admission predicts against
+        the same size."""
+        nd = self._n_devices
+        return -(-_round_batch(n) // nd) * nd
+
+    def stats(self) -> Dict[str, float]:
+        """The JAX method: launch counts from the metrics registry (batches,
+        images, and the occupancy those counters give since boot) beside
+        this controller's rolling efficiency window (occupancy, padding
+        waste, queue-wait share, batches per compile miss), the vocabulary
+        /debug/perf and the bulk runner report."""
+        summary = self.metrics.summary()
+        images = summary.get("flyimg_images_processed_total", 0.0)
+        slots = summary.get("flyimg_batch_slots_total", 0.0)
+        eff = self.metrics.batch_efficiency(self.name).stats()
+        return {
+            "batches": summary.get("flyimg_batches_total", 0.0),
+            "images": images,
+            "mean_occupancy": eff["mean_occupancy"],
+            "cumulative_occupancy": images / slots if slots else 0.0,
+            "padding_waste": eff["padding_waste"],
+            "queue_wait_share": eff["queue_wait_share"],
+            "batches_per_compile_miss": eff["batches_per_compile_miss"],
+        }
 
     def _spawn_executor(self) -> threading.Thread:
         """Install (or, healing, replace) THE executor thread and return it
@@ -779,16 +939,20 @@ class BatchController:
             self._paused = False
             self._lock.notify_all()
 
-    def failover_backend(self, device, *, drain_timeout_s: float = 10.0,
+    def failover_backend(self, device, *, mesh: Optional[Mesh] = None,
+                         drain_timeout_s: float = 10.0,
                          reason: str = "failover") -> None:
-        """Rebuild the controller on ``device`` online (the device
-        supervisor's failover to the CPU and re-promotion to the card):
-        launches hold, the in-flight ones drain (bounded), then the device,
-        the stream, a fresh pipeline semaphore and a replacement executor
-        go in together under the lock; queued groups launch on the new
-        device, and aux runners bound to a device follow it
-        (``_on_device``)."""
+        """Rebuild the controller on ``device`` and ``mesh`` online (the
+        device supervisor's failover to the CPU, which drops the mesh, and
+        re-promotion to the card, which rebuilds it): launches hold, the
+        in-flight ones drain (bounded), then the device, the mesh, the
+        streams, a fresh pipeline semaphore and a replacement executor go
+        in together under the lock; queued groups launch on the new
+        backend, and aux runners bound to a device follow it
+        (``_on_device``). A mesh without a ``data`` axis raises before
+        anything changes."""
         device = resolve_device(device)
+        self._check_mesh(mesh, device)
         self.pause_launches()
         replacement = None
         try:
@@ -801,6 +965,7 @@ class BatchController:
             with self._lock:
                 self.device = device
                 self._stream = stream
+                self._set_mesh(mesh, device)
                 # a batch wedged on the lost device keeps its slot: leave it
                 # the old semaphore
                 self._inflight = threading.Semaphore(self._pipeline_depth)
@@ -832,7 +997,7 @@ class BatchController:
 
     def _count(self, name: str) -> None:
         with self._lock:
-            self.stats[name] += 1
+            self.containment_counts[name] += 1
 
     # ------------------------------------------------------------------
 
@@ -864,7 +1029,7 @@ class BatchController:
             # memory admission: cap the take so the padded launch fits the
             # device budget and the family's ceiling; the rest stays queued
             cap = self.governor.member_cap(
-                group.base_key, group.in_shape, take_n, _round_batch,
+                group.base_key, group.in_shape, take_n, self._padded_batch,
             )
             if cap is not None and cap < take_n:
                 take_n = cap
@@ -1283,7 +1448,7 @@ class BatchController:
         n = len(members)
         for i, member in enumerate(members):
             faults.fire("batcher.member", key=group.key, index=i, image=member.payload)
-        batch = _round_batch(n)
+        batch = self._padded_batch(n)
         images, geo = assemble_batch(
             group, [(m.payload, m.plan, m.src_window) for m in members],
             batch, pin=self._stream is not None,
@@ -1291,19 +1456,22 @@ class BatchController:
         handle = build_batched_program(
             batch, group.in_shape, group.resample_out, group.pad_canvas,
             group.pad_offset, group.device_plan, str(self.device),
-            group.rotate_dynamic, group.band_taps,
+            group.rotate_dynamic, group.band_taps, self.mesh,
         )
         faults.fire("batcher.oom", key=group.key, n=n, batch=batch)
         return batch, images, geo, handle
 
     def _launch(self, fn, images, geo, measure_peak: bool, seq: int) -> _Launch:
         """Enqueue one launch inside its ``flyimg:batch:<seq>`` profiler
-        range: on CUDA the copy up (``h2d_s``), then the program and the
-        copy back into a pinned buffer (``dispatch_s``), on the
-        controller's stream, with an event after them (nothing waits
-        here); on the CPU the program runs here. ``measure_peak``: the
-        allocator's peak over the enqueue, less what was allocated before
-        (a program's first launch)."""
+        range. On CUDA, for each rank (one: the controller's device and
+        stream; a ``ShardedProgramHandle``: its ranks, each on a stream of
+        its own inside ``torch.cuda.device`` of its rank) its chunk of the
+        batch goes up (``h2d_s``), through its program and back into a
+        pinned buffer of its own (``dispatch_s``), with an event after it
+        (nothing waits here); on the CPU the program runs here.
+        ``measure_peak``: the allocator's peak over the enqueue, less what
+        was allocated before (a program's first launch), summed over the
+        devices."""
         t_h2d = time.perf_counter()
         with torch.profiler.record_function(f"flyimg:batch:{seq}"):
             if self._stream is None:
@@ -1312,36 +1480,61 @@ class BatchController:
                 return _Launch(t_dispatch, h2d_s=t_dispatch - t_h2d,
                                dispatch_s=time.perf_counter() - t_dispatch,
                                host=host)
-            dev = self.device
+            if isinstance(fn, ShardedProgramHandle):
+                ranks, streams = fn.ranks, self._rank_streams
+            else:
+                ranks, streams = ((self.device, fn),), (self._stream,)
+            if len(streams) != len(ranks):
+                raise RuntimeError(f"a program of {len(ranks)} ranks on a controller "
+                                   f"of {len(streams)}")
+            devices = list(dict(ranks))
             before = None
-            with torch.cuda.stream(self._stream):
-                if measure_peak:
-                    before = torch.cuda.memory_allocated(dev)
-                    torch.cuda.reset_peak_memory_stats(dev)
-                d_img = images.to(dev, non_blocking=True)
-                d_geo = geo.to(dev, non_blocking=True)
-                t_dispatch = time.perf_counter()
-                out = fn(d_img, *program_args(d_geo))
-                pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                pinned.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._stream)
-            dispatch_s = time.perf_counter() - t_dispatch
+            if measure_peak:
+                before = [torch.cuda.memory_allocated(d) for d in devices]
+                for d in devices:
+                    torch.cuda.reset_peak_memory_stats(d)
+            h2d_s = dispatch_s = 0.0
+            t_dispatch = None
+            pinned, events, keep = [], [], [images, geo]
+            chunks = zip(leading_shards(images, len(ranks)), leading_shards(geo, len(ranks)))
+            for (dev, program), stream, (img, g) in zip(ranks, streams, chunks):
+                with on_device(dev), torch.cuda.stream(stream):
+                    t0 = time.perf_counter()
+                    d_img = img.to(dev, non_blocking=True)
+                    d_geo = g.to(dev, non_blocking=True)
+                    t1 = time.perf_counter()
+                    out = program(d_img, *program_args(d_geo))
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    h2d_s += t1 - t0
+                    dispatch_s += time.perf_counter() - t1
+                t_dispatch = t1 if t_dispatch is None else t_dispatch
+                pinned.append(host)
+                events.append(done)
+                # the tensors live until the readback: the staging buffers
+                # until the copies up end, the device ones until the copy
+                # back does
+                keep += [d_img, d_geo, out]
         peak = None
         if before is not None:
-            peak = float(torch.cuda.max_memory_allocated(dev) - before)
-        # the tensors live until the readback: the staging buffers until
-        # the copies up end, the device ones until the copy back does
-        return _Launch(t_dispatch, h2d_s=t_dispatch - t_h2d, dispatch_s=dispatch_s,
-                       pinned=pinned, event=done, peak=peak,
-                       keep=(images, geo, d_img, d_geo, out))
+            peak = float(sum(torch.cuda.max_memory_allocated(d) - b
+                             for d, b in zip(devices, before)))
+        return _Launch(t_dispatch, h2d_s=h2d_s, dispatch_s=dispatch_s,
+                       pinned=tuple(pinned), events=tuple(events), peak=peak,
+                       keep=tuple(keep))
 
     @staticmethod
     def _read_back(launch: _Launch) -> np.ndarray:
-        if launch.event is None:
+        """The launch's host output; a sharded one's chunks in rank order."""
+        if not launch.events:
             return launch.host
-        launch.event.synchronize()
-        return launch.pinned.numpy()
+        for event in launch.events:
+            event.synchronize()
+        if len(launch.pinned) == 1:
+            return launch.pinned[0].numpy()
+        return np.concatenate([p.numpy() for p in launch.pinned])
 
     def _account(self, group: _Group, handle: ProgramHandle, batch: int, n: int,
                  device_s: float, first: bool, peak: Optional[float]) -> None:

@@ -21,7 +21,11 @@ before it fails. This is the JAX package's opt-in answer:
   ``device_probe_interval_s``: an allocation and a synchronize on it,
   bounded by ``backend_probe_timeout_s`` (the ``device.backend`` fault
   point may decide the verdict). ``device_probe_hysteresis`` clean probes
-  in a row rebuild the controllers on the card.
+  in a row rebuild the controllers on the card. A failover drops the
+  transform batcher's data-parallel mesh; a re-promotion rebuilds it from
+  the ``mesh_factory`` given to ``attach`` (asked anew each time, so the
+  revived host's cards and not boot's), and a factory that raises leaves
+  the batcher serving unsharded, with a warning.
 
 ``flyimg_device_health`` (1, 0, 1), ``flyimg_backend_failovers_total{to}``,
 ``flyimg_backend_probe_total{outcome}``, ``device.failover`` and
@@ -141,6 +145,7 @@ class DeviceSupervisor:
         self._pending_events: List[Dict[str, object]] = []
         self._batchers: Tuple = ()
         self._device: Optional[torch.device] = None
+        self._mesh_factory: Optional[Callable[[], object]] = None
         self._prober: Optional[threading.Thread] = None
         self._wake = threading.Event()
         self._closed = False
@@ -162,11 +167,15 @@ class DeviceSupervisor:
 
     # -- wiring ------------------------------------------------------------
 
-    def attach(self, *, batchers: Sequence = (), device=None) -> None:
+    def attach(self, *, batchers: Sequence = (), device=None,
+               mesh_factory: Optional[Callable[[], object]] = None) -> None:
         """The controllers it feeds on and fails over (the transform
-        batcher first), and the card they serve on (by default the first
-        controller's)."""
+        batcher first), the card they serve on (by default the first
+        controller's), and the factory of the transform batcher's
+        data-parallel mesh that a re-promotion rebuilds it from (None:
+        unsharded)."""
         self._batchers = tuple(batchers)
+        self._mesh_factory = mesh_factory
         if device is None and self._batchers:
             device = self._batchers[0].device
         self._device = torch.device(device) if device is not None else None
@@ -277,16 +286,18 @@ class DeviceSupervisor:
         """``target`` on a daemon thread (tests run it inline)."""
         threading.Thread(target=target, name=name, daemon=True).start()
 
-    def _rebuild(self, device: torch.device, reason: str) -> None:
+    def _rebuild(self, device: torch.device, reason: str, mesh=None) -> None:
         """Hold launches on every controller, drain them, rebuild each on
-        ``device``; launches resume however it ends."""
+        ``device`` (the transform batcher, the first, with ``mesh``);
+        launches resume however it ends."""
         for batcher in self._batchers:
             batcher.pause_launches()
         try:
             for batcher in self._batchers:
                 batcher.drain_inflight(self.failover_drain_s)
-            for batcher in self._batchers:
-                batcher.failover_backend(device, drain_timeout_s=self.failover_drain_s,
+            for i, batcher in enumerate(self._batchers):
+                batcher.failover_backend(device, mesh=mesh if i == 0 else None,
+                                         drain_timeout_s=self.failover_drain_s,
                                          reason=reason)
         finally:
             for batcher in self._batchers:
@@ -360,8 +371,15 @@ class DeviceSupervisor:
         """Rebuild every controller on the card, then flip the state."""
         log = logging.getLogger(SUPERVISOR_LOGGER)
         try:
+            mesh = None
+            if self._mesh_factory is not None:
+                try:
+                    mesh = self._mesh_factory()
+                except Exception:
+                    log.warning("mesh rebuild failed at re-promotion; serving unsharded",
+                                exc_info=True)
             self._rebuild(self._device if self._device is not None else torch.device("cuda"),
-                          "device_repromote")
+                          "device_repromote", mesh)
             with self._lock:
                 self._state = DEVICE
                 self._state_since = self._clock()

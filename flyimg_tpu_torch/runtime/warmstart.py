@@ -24,9 +24,10 @@ this package's own code, on its own device. Each entry is digest-stamped
 digest and is counted ``mismatch`` and skipped (that program builds on
 demand), an unknown kind is ``skipped``, an entry whose fields do not make
 a program is ``failed``; none of them fails the start. The entries are the
-JAX package's, field for field and digest for digest: the device (the JAX
-mesh) stays out, and ``sharded`` stays false (the port has no sharded
-batches yet).
+JAX package's, field for field and digest for digest: the device and
+the mesh stay out, and ``sharded`` says whether the program ran sharded
+over a data-parallel mesh; a seeding server builds a sharded entry against
+its own mesh (``seed_programs(device, mesh)``), or unsharded without one.
 
 Where the JAX package compiles an entry without executing it, the port's
 ``precompile`` runs the program once on a zero batch: the port compiles
@@ -273,7 +274,7 @@ class WarmStartCache:
 
     # -- seeding -----------------------------------------------------------
 
-    def _seed_one(self, entry: Dict[str, Any], device: str) -> None:
+    def _seed_one(self, entry: Dict[str, Any], device: str, mesh) -> None:
         plan = _plan_from_doc(entry["plan"])
         in_shape = _tupled(entry["in_shape"])
         resample_out = _tupled(entry.get("resample_out"))
@@ -293,13 +294,15 @@ class WarmStartCache:
             handle = build_batched_program(
                 int(entry["batch_size"]), in_shape, resample_out, pad_canvas,
                 pad_offset, plan, device, bool(entry.get("rotate_dynamic", False)),
-                band_taps)
+                band_taps, mesh if entry.get("sharded") else None)
         handle.precompile()
 
-    def seed_programs(self, device: str) -> Dict[str, int]:
+    def seed_programs(self, device: str, mesh=None) -> Dict[str, int]:
         """Before the first request: build and precompile every
         digest-valid manifest entry on ``device`` (``str`` of the batcher's
-        device). Returns the outcome counts (kept in ``stats``)."""
+        device), a sharded one over ``mesh`` (the batcher's data-parallel
+        mesh; unsharded when None). Returns the outcome counts (kept in
+        ``stats``)."""
         if not self.enabled:
             return {}
         manifest = self._read_manifest(PROGRAMS_MANIFEST)
@@ -318,7 +321,7 @@ class WarmStartCache:
                 )
                 continue
             try:
-                self._seed_one(entry, device)
+                self._seed_one(entry, device, mesh)
             except Exception as exc:
                 self._count("failed")
                 logging.getLogger(LOGGER).warning(

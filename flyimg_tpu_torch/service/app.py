@@ -35,6 +35,12 @@ operations surface
   /debug/fleet/replicas`` (swap the routing set; refused while membership
   owns it) and ``/debug/tier`` (the tier supervisor) answer 404.
 
+With more than one local card the transform batcher shards every launch
+over a ``data`` mesh of them (``local_data_mesh``, beside the tiling mesh
+``local_sp_mesh``): the device supervisor's re-promotion rebuilds it and
+warm start seeds sharded programs against it. With one card nothing
+changes.
+
 The JAX app's opt-in modules are made and wired as it makes them, each off
 by default: the brownout engine (its level evaluated on every pipeline
 request, stamped into flight records, an escalation dumping the flight
@@ -103,6 +109,7 @@ import torch
 
 from flyimg_tpu_torch.appconfig import AppParameters
 from flyimg_tpu_torch.codecs import native_codec
+from flyimg_tpu_torch.device import resolve_device
 from flyimg_tpu_torch.exceptions import (
     AppException,
     DeadlineExceededException,
@@ -119,7 +126,7 @@ from flyimg_tpu_torch.exceptions import (
 )
 from flyimg_tpu_torch.ops.compose import program_cache_entries, program_cache_info
 from flyimg_tpu_torch.ops.resample import set_auto_band_frac, set_kernel_mode
-from flyimg_tpu_torch.parallel.mesh import Mesh, make_mesh
+from flyimg_tpu_torch.parallel.mesh import Mesh, local_devices, make_mesh
 from flyimg_tpu_torch.runtime import tracing, warmstart
 from flyimg_tpu_torch.runtime.autotuner import PolicyAutotuner, reuse_signal_fn
 from flyimg_tpu_torch.runtime.batcher import BatchController, containment_params
@@ -280,6 +287,17 @@ def local_sp_mesh(device: torch.device) -> Optional[Mesh]:
     return make_mesh(axis_names=("sp",))
 
 
+def local_data_mesh(device: torch.device) -> Optional[Mesh]:
+    """The data-parallel mesh the transform batcher shards over: this
+    host's cards on one ``data`` axis when there is more than one, else
+    None. Serving meshes span local devices only: each host of a process
+    group runs its own batcher over its own cards (share-nothing across
+    hosts); a global mesh would need every host to launch in lockstep."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return make_mesh(devices=local_devices())
+
+
 class FlyimgServer(ThreadingHTTPServer):
     """The HTTP server, its handler, its batchers, its host stage pools, its
     observability (the metrics registry, the tracer, the SLO engine, the
@@ -338,6 +356,7 @@ class FlyimgServer(ThreadingHTTPServer):
         # one batch-id sequence for both controllers: an id in a capture's
         # flyimg:batch:<id> range names one flight record
         batch_ids = itertools.count(1)
+        mesh = local_data_mesh(resolve_device(device))
         self.batcher = BatchController(
             max_batch=int(params.by_key("batch_max_size", 64)),
             deadline_ms=float(params.by_key("batch_deadline_ms", 4.0)),
@@ -346,7 +365,7 @@ class FlyimgServer(ThreadingHTTPServer):
             metrics=metrics, name="device",
             flight_recorder=self.flight_recorder, profiler=self.profiler,
             batch_ids=batch_ids, supervisor=supervisor if supervisor.enabled else None,
-            **containment,
+            mesh=mesh, **containment,
         )
         # codec work gets its OWN controller and thread: JPEG decode and
         # encode groups must not serialize with the transform launches
@@ -362,7 +381,11 @@ class FlyimgServer(ThreadingHTTPServer):
         if supervisor.enabled:
             # a failover moves both controllers: the codec kernels' plain
             # versions serve the JPEG work while it holds
-            supervisor.attach(batchers=(self.batcher, self.codec_batcher))
+            # the data mesh is asked for anew at each re-promotion, on the
+            # card the batcher started on
+            card = self.batcher.device
+            supervisor.attach(batchers=(self.batcher, self.codec_batcher),
+                              mesh_factory=lambda: local_data_mesh(card))
             supervisor.register_metrics(metrics)
         self.brownout = BrownoutEngine.from_params(params, metrics=metrics)
         self.brownout.register_metrics(metrics)
@@ -462,7 +485,7 @@ class FlyimgServer(ThreadingHTTPServer):
         if self.warmstart.enabled:
             self.warmstart.install()
             self.warmstart.seed_policy(self.autotuner)
-            self.warmstart.seed_programs(str(self.batcher.device))
+            self.warmstart.seed_programs(str(self.batcher.device), self.batcher.mesh)
         # membership: TTL'd markers on the shared tier feed the router's
         # live set, a device-down replica heartbeats degraded, and warm
         # start publishes on the beat; off, no marker, thread or metric

@@ -972,6 +972,26 @@ class ImageHandler:
         with _device_failures("device transform"):
             return self._wait(fut, stage, deadline, direct)
 
+    def transform_bytes(
+        self,
+        data: bytes,
+        options: OptionsBag,
+        spec: OutputSpec,
+        timings: Optional[Dict[str, float]] = None,
+        *,
+        deadline: Optional[Deadline] = None,
+    ) -> bytes:
+        """The entry of offline callers (the bulk runner): the cache-miss
+        transform pipeline (decode, the device program, the smart-crop and
+        face post-passes, the alpha flatten over bg_, the st_0 metadata
+        graft, the encode) with no storage and no HTTP. Bulk and serving
+        share this one path, so the same options give the same bytes in
+        both."""
+        return self._process_new(
+            data, codecs.media_info(data), options, spec,
+            {} if timings is None else timings,
+            deadline if deadline is not None else Deadline(None))
+
     def _process_admitted(
         self, data: bytes, info, options: OptionsBag, spec: OutputSpec,
         timings: Dict[str, float], deadline: Deadline, *, degrade=None,

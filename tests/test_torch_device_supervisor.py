@@ -87,7 +87,7 @@ class FakeBatcher:
         self.calls = []
         self.device = torch.device("cpu")
 
-    def failover_backend(self, target, *, drain_timeout_s, reason):
+    def failover_backend(self, target, *, mesh=None, drain_timeout_s, reason):
         self.calls.append(("failover", reason))
 
     def drain_inflight(self, drain_timeout_s):

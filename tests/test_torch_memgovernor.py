@@ -232,7 +232,7 @@ def test_oom_batch_of_8_recovers_everyone_no_quarantine():
         outs = [f.result(timeout=60) for f in [ctl.submit(im, _plan()) for im in imgs]]
         for img, out in zip(imgs, outs):
             np.testing.assert_array_equal(out, run_plan(img, _plan(), device="cpu"))
-        assert len(ctl.quarantine) == 0 and ctl.stats["poison_isolated"] == 0
+        assert len(ctl.quarantine) == 0 and ctl.containment_counts["poison_isolated"] == 0
         snap = gov.snapshot()
         assert snap["oom_launches_total"] == 1
         (ceiling,) = snap["ceilings"].values()

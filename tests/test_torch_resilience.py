@@ -300,7 +300,8 @@ def test_poison_member_isolated_in_batch_of_8(bad):
             np.testing.assert_array_equal(out, run_plan(img, _plan(), device="cpu"))
             ref = jrun_plan(img, jbuild_plan(JOptionsBag("w_16"), *SRC))
             assert np.abs(out.astype(int) - np.asarray(ref).astype(int)).max() <= 1
-        assert ctl.stats["poison_isolated"] == 1 and ctl.stats["retries"] == 0
+        counts = ctl.containment_counts
+        assert counts["poison_isolated"] == 1 and counts["retries"] == 0
         assert len(ctl.quarantine) == 1
         # every launch tried, the failing ones included (each assembles its
         # members): the first and at most 2·log2(8) recovery launches
@@ -322,7 +323,7 @@ def test_two_poison_members_both_isolated():
                     fut.result(timeout=120)
             else:
                 assert fut.result(timeout=120).shape == (16, 16, 3)
-        assert ctl.stats["poison_isolated"] == 2 and len(ctl.quarantine) == 2
+        assert ctl.containment_counts["poison_isolated"] == 2 and len(ctl.quarantine) == 2
     finally:
         ctl.close()
 
@@ -346,11 +347,11 @@ def test_quarantined_member_runs_alone():
             fut.result(timeout=120)
         with pytest.raises(ValueError):
             again[-1].result(timeout=120)
-        assert ctl.stats["quarantine_hits"] == 1
+        assert ctl.containment_counts["quarantine_hits"] == 1
         assert list(ctl.launch_log)[before:] == [("transform", 3, 4)]
         faults.clear()
         assert ctl.submit(poison, _plan()).result(timeout=120).shape == (16, 16, 3)
-        assert ctl.stats["quarantine_hits"] == 2
+        assert ctl.containment_counts["quarantine_hits"] == 2
     finally:
         ctl.close()
 
@@ -382,7 +383,8 @@ def test_transient_drain_failure_retries_then_succeeds():
         for img, fut in zip(imgs, futures):
             np.testing.assert_array_equal(fut.result(timeout=120),
                                           run_plan(img, _plan(), device="cpu"))
-        assert ctl.stats["retries"] == 2 and ctl.stats["poison_isolated"] == 0
+        counts = ctl.containment_counts
+        assert counts["retries"] == 2 and counts["poison_isolated"] == 0
     finally:
         ctl.close()
 
@@ -396,7 +398,7 @@ def test_transient_retries_exhausted_fail_whole_batch():
         for fut in futures:
             with pytest.raises(OSError, match="dead readback"):
                 fut.result(timeout=120)
-        assert ctl.stats["retries"] == 2 and len(ctl.launch_log) == 3
+        assert ctl.containment_counts["retries"] == 2 and len(ctl.launch_log) == 3
     finally:
         ctl.close()
 
@@ -414,7 +416,8 @@ def test_transient_hiccup_during_bisection_retries_innocent():
                                       run_plan(innocent, _plan(), device="cpu"))
         with pytest.raises(ValueError, match="poison pixel"):
             f_poison.result(timeout=120)
-        assert ctl.stats["poison_isolated"] == 1 and ctl.stats["retries"] >= 1
+        counts = ctl.containment_counts
+        assert counts["poison_isolated"] == 1 and counts["retries"] >= 1
     finally:
         ctl.close()
 
@@ -433,7 +436,7 @@ def test_sticky_cuda_error_fails_the_group_at_once():
             with pytest.raises(ExecFailedException, match="sticky CUDA error.*illegal memory"):
                 fut.result(timeout=120)
         assert len(ctl.launch_log) == 1 and injector.fired["batcher.drain"] == 1
-        assert ctl.stats == {"retries": 0, "poison_isolated": 0, "quarantine_hits": 0}
+        assert ctl.containment_counts == {"retries": 0, "poison_isolated": 0, "quarantine_hits": 0}
         assert len(ctl.quarantine) == 0
     finally:
         ctl.close()
@@ -549,7 +552,7 @@ def test_drain_failure_is_recovered_on_the_drain_thread():
                                           run_plan(img, _plan(), device="cpu"))
         assert set(threads) == {"flyimg-torch-batcher-drain"} and len(threads) == 3
         assert [n for _k, n, _b in ctl.launch_log] == [4, 2, 2]
-        assert ctl.stats["poison_isolated"] == 0
+        assert ctl.containment_counts["poison_isolated"] == 0
     finally:
         ctl.close()
 

@@ -392,7 +392,7 @@ def test_make_mesh_virtual_and_too_many_devices():
 
 def test_dryrun_multichip_four_ranks(capsys):
     dryrun_multichip(4)
-    assert "dryrun_multichip ok: sp=4" in capsys.readouterr().out
+    assert "dryrun_multichip ok: dp=2 tp=2 sp=4," in capsys.readouterr().out
 
 
 def test_initialize_multihost_without_configuration_is_a_no_op(monkeypatch):
